@@ -1,0 +1,482 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+1. Prints the card (``nvidia-smi``) and builds the CUDA kernels from
+   ``clawker_tpu_torch/kernels/csrc`` into ``build/kernels/``.
+2. Kernel phase: K1 (score) and K2 (fit step) against their plain PyTorch
+   versions on the card, at the main path's shapes and one ragged n,
+   with the tolerances below; each kernel's median time beside its bound.
+3. Main-path phase, at full width (F = 32 / 40, H = 128): ``score_windows``
+   on the bench's synthetic fleet ([640, 32] padded) and on an hour of a
+   64-agent fleet ([4224, 32]), 120 fit steps each; the sentinel's
+   ``ScoringEngine.score_tick`` on the 64-agent fused tick ([384, 40],
+   40 steps) three times; a seeded exfil agent must score hottest.  The
+   kernels' launch counters are zeroed before and read after each run.
+4. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+   subprocess must exit 0 and report a CUDA device.
+
+Any failure exits non-zero.  Without a GPU, or without the repository
+beside it, the script fails before printing any result.  The last line
+is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``;
+the line before it the per-kernel JSON record.  Imports nothing of JAX
+or of the reference package.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
+# larger of its bytes over HBM_BPS and its products over their type's rate
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+HIDDEN = 128
+
+# Tolerances, kernel against plain version on the same card and inputs.
+# Both sides round at the same points; they differ in summation order
+# (fp32, ~1e-7 relative) and in tanh (a few ulp), which now and then tips
+# a bf16 rounding of an activation or a weight gradient by one bf16 ulp.
+SCORE_RTOL = 1e-3       # score: a tipped bf16(g) moves r by ~2^-9 |g w|
+SCORE_ATOL = 1e-6
+STEP1_PARAM_ATOL = 1e-5   # one step: a tipped bf16 gradient moves a
+STEP1_LOSS_RTOL = 1e-5    # param by lr * 2^-8 |g| ~ 1e-6
+FIT_PARAM_ATOL = 1e-4   # 120 steps: such tips accumulate, SGD does not
+FIT_LOSS_RTOL = 1e-4    # amplify them (measured ~5e-6 CPU vs JAX)
+
+# (n, F): the main path pads rows to multiples of 128 -- the sentinel tick
+# to [384, 40], the bench fleet to [640, 32], the hour of 64 agents to
+# [4224, 32] -- beside round sizes and one ragged n that masks rows
+KERNEL_SHAPES = [(200, 40), (256, 40), (384, 40), (512, 32), (640, 32),
+                 (4096, 32), (4224, 32)]
+TIMED_SHAPE = (4224, 32)
+FIT_STEPS = 120
+
+
+def synth_egress_records(agents: int = 8, windows: int = 64,
+                         per_window: int = 40) -> list[dict]:
+    """Deterministic synthetic netlogger stream: `agents` containers with
+    plausible verdict/port mixes across `windows` minutes (a copy of
+    bench.py's generator)."""
+    verdicts = ["ALLOW", "ALLOW", "ALLOW", "REDIRECT", "DENY"]
+    reasons = {"ALLOW": "ROUTE", "REDIRECT": "ROUTE", "DENY": "NO_DNS_ENTRY"}
+    base = 1_700_000_000
+    out = []
+    for a in range(agents):
+        for w in range(windows):
+            for i in range(per_window):
+                ts = base + w * 60 + (i * 7) % 60
+                v = verdicts[(a + w + i) % len(verdicts)]
+                out.append({
+                    "@timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                                time.gmtime(ts)),
+                    "service": "ebpf-egress",
+                    "container": f"clawker.loop-{a}",
+                    "dst_ip": f"198.51.100.{(a * 13 + i) % 250}",
+                    "dst_port": [443, 443, 80, 53, 8443][(w + i) % 5],
+                    "proto": 6 if i % 5 else 17,
+                    "verdict": v,
+                    "reason": reasons[v],
+                    "zone": f"z{(a + i) % 6}.example.com",
+                })
+    return out
+
+
+def exfil_burst(agent: str, window: int, n: int = 55) -> list[dict]:
+    """One agent suddenly sprays denies at many hosts on odd ports."""
+    start = 1_700_000_000 + window * 60
+    return [{"@timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                         time.gmtime(start + i % 59)),
+             "service": "ebpf-egress", "container": agent,
+             "dst_ip": f"203.0.113.{i}", "dst_port": 4444 + i, "proto": 6,
+             "verdict": "DENY", "reason": "NO_DNS_ENTRY", "zone": ""}
+            for i in range(n)]
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ timing
+
+
+def cuda_ms(fn, *, batches: int = 15, per_batch: int = 20) -> float:
+    """Median device time per call of ``fn``: ``per_batch`` calls are
+    captured in one CUDA graph (after a warm-up), and CUDA events time
+    each replay, so the card runs the calls back to back and the host's
+    dispatch of them is not in the time."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(per_batch):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_batch)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, *, reps: int = 200) -> float:
+    """Median wall time per call of ``fn`` as the host sees it, each call
+    synchronized: dispatch, launch and device time together."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e6
+
+
+def score_bound(n: int, f: int) -> tuple[float, str]:
+    """Least time of K1: x in, weights in, one score per row out; the two
+    products (bf16 operands) at the bf16 tensor rate."""
+    nbytes = 4 * (n * f + 2 * f * HIDDEN + HIDDEN + f + n)
+    ops = 4 * n * f * HIDDEN
+    return _bound(nbytes / HBM_BPS, ops / BF16_FLOPS)
+
+
+def fit_step_bound(n: int, f: int) -> tuple[float, str]:
+    """Least time of K2: x and noise in, params in and out, the loss out;
+    the forward products at the bf16 rate, the three backward products
+    (fp32 cotangent, not rounded) at the fp32 rate."""
+    params = 2 * f * HIDDEN + HIDDEN + f
+    nbytes = 4 * (2 * n * f + 2 * params + 1)
+    t_ops = 4 * n * f * HIDDEN / BF16_FLOPS + 6 * n * f * HIDDEN / FP32_FLOPS
+    return _bound(nbytes / HBM_BPS, t_ops)
+
+
+def _bound(t_bytes: float, t_ops: float) -> tuple[float, str]:
+    if t_bytes >= t_ops:
+        return t_bytes * 1e3, "bytes"
+    return t_ops * 1e3, "operations"
+
+
+# ------------------------------------------------------------ kernel phase
+
+
+def _inputs(n: int, f: int, steps: int, device, seed: int):
+    import torch
+
+    from clawker_tpu_torch.analytics import anomaly
+
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((n, f), generator=gen).to(device)
+    noises = torch.randn((steps, n, f), generator=gen).to(device)
+    params = anomaly.AnomalyParams(*(
+        p.to(device) for p in anomaly.init_params(gen, feat=f)))
+    return params, x, noises
+
+
+def _max_abs(a, b) -> float:
+    return max(float((p - q).abs().max()) for p, q in zip(a, b))
+
+
+def _close(got, want, *, rtol: float, atol: float = 0.0) -> tuple[bool, float]:
+    err = (got - want).abs()
+    return bool((err <= atol + rtol * want.abs()).all()), float(err.max())
+
+
+def kernel_phase(device) -> dict:
+    import torch
+
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    errs = {K.SCORE: 0.0, K.FIT_STEP: 0.0}
+    timings = {}
+    for n, f in KERNEL_SHAPES:
+        params, x, noises = _inputs(n, f, FIT_STEPS, device, seed=n + f)
+
+        # K1 on the initial params
+        ok, err = _close(K.score(params, x), R.score(*params, x),
+                         rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        check(ok, f"K1 score [{n},{f}] off by {err:.3g}")
+        errs[K.SCORE] = max(errs[K.SCORE], err)
+
+        # K2: one step, then the whole fit, against the plain steps
+        kp = tuple(p.clone() for p in params)
+        rp = tuple(p.clone() for p in params)
+        k_loss = torch.empty(FIT_STEPS, device=device)
+        r_loss = torch.empty(FIT_STEPS, device=device)
+        for s in range(FIT_STEPS):
+            K.fit_step_(kp, x, noises[s], lr=1e-2, sigma=0.25,
+                        loss_out=k_loss, step=s)
+            rp, r_loss[s] = R.fit_step(*rp, x, noises[s], 1e-2, 0.25)
+            if s == 0:
+                torch.cuda.synchronize()
+                err = _max_abs(kp, rp)
+                check(err <= STEP1_PARAM_ATOL,
+                      f"K2 [{n},{f}] params after 1 step off by {err:.3g}")
+                ok, lerr = _close(k_loss[:1], r_loss[:1],
+                                  rtol=STEP1_LOSS_RTOL)
+                check(ok, f"K2 [{n},{f}] loss of step 1 off by {lerr:.3g}")
+                errs[K.FIT_STEP] = max(errs[K.FIT_STEP], err)
+        torch.cuda.synchronize()
+        err = _max_abs(kp, rp)
+        check(err <= FIT_PARAM_ATOL,
+              f"K2 [{n},{f}] params after {FIT_STEPS} steps off by {err:.3g}")
+        ok, lerr = _close(k_loss, r_loss, rtol=FIT_LOSS_RTOL)
+        check(ok, f"K2 [{n},{f}] per-step losses off by {lerr:.3g}")
+        errs[K.FIT_STEP] = max(errs[K.FIT_STEP], err)
+
+        # K1 again on the fitted params: the scores the lane reports
+        ok, err = _close(K.score(kp, x), R.score(*kp, x),
+                         rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        check(ok, f"K1 score [{n},{f}] on fitted params off by {err:.3g}")
+        errs[K.SCORE] = max(errs[K.SCORE], err)
+
+        # times: kernel and plain version on the same inputs
+        tp = tuple(p.clone() for p in params)
+        loss1 = torch.empty(1, device=device)
+        calls = {
+            K.SCORE: (lambda: K.score(params, x),
+                      lambda: R.score(*params, x), score_bound(n, f)),
+            K.FIT_STEP: (lambda: K.fit_step_(tp, x, noises[0], lr=1e-2,
+                                             sigma=0.25, loss_out=loss1),
+                         lambda: R.fit_step(*params, x, noises[0], 1e-2,
+                                            0.25),
+                         fit_step_bound(n, f)),
+        }
+        row = {}
+        for name, (kernel_call, plain_call, (bound, by)) in calls.items():
+            ms, plain = cuda_ms(kernel_call), cuda_ms(plain_call)
+            row[name] = (ms, plain, bound, by)
+            print(f"kernel {name} [{n},{f}]: device {ms * 1e3:.2f} us, "
+                  f"host per synchronized call "
+                  f"{host_us(kernel_call):.2f} us (plain device "
+                  f"{plain * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {by})")
+        timings[(n, f)] = row
+    print(f"kernel tolerances: score rtol {SCORE_RTOL} atol {SCORE_ATOL}; "
+          f"fit step 1: params atol {STEP1_PARAM_ATOL}, loss rtol "
+          f"{STEP1_LOSS_RTOL}; after {FIT_STEPS} steps: params atol "
+          f"{FIT_PARAM_ATOL}, losses rtol {FIT_LOSS_RTOL}")
+    print(f"kernel max abs err: {json.dumps(errs)}")
+    return {"errs": errs, "timings": timings}
+
+
+# --------------------------------------------------------- main-path phase
+
+
+def _counted(fn):
+    """Run ``fn`` with the launch counters zeroed before and read after."""
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    K.reset_launches()
+    out = fn()
+    return out, dict(K.LAUNCHES)
+
+
+def _check_report(name: str, raw, z, n_windows: int) -> None:
+    import numpy as np
+
+    check(raw.shape == (n_windows,) and z.shape == (n_windows,),
+          f"{name}: scores of shape {raw.shape}, want ({n_windows},)")
+    check(bool(np.isfinite(raw).all() and np.isfinite(z).all()),
+          f"{name}: non-finite scores")
+    check(bool((raw >= 0).all()), f"{name}: negative squared error")
+
+
+def main_path_phase(device) -> dict:
+    """Drives the port's entry points; -> launches summed over the runs."""
+    from clawker_tpu_torch.analytics import features as F
+    from clawker_tpu_torch.analytics import runtime as art
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.sentinel import ScoringEngine, featurize_fused
+
+    total = {name: 0 for name in K.LAUNCHES}
+    step_us = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    fleets = {
+        "bench fleet 8x64x40": synth_egress_records(),
+        "hour of 64 agents 64x64x24": synth_egress_records(
+            agents=64, windows=64, per_window=24),
+    }
+    for name, records in fleets.items():
+        keys, X = F.featurize(records)
+        rep, counts = _counted(lambda: art.score_windows(
+            X, keys, train_steps=FIT_STEPS, device=device))
+        _check_report(name, rep.raw, rep.z, len(keys))
+        check(counts[K.FIT_STEP] == FIT_STEPS,
+              f"{name}: {counts[K.FIT_STEP]} fit-step launches, "
+              f"want {FIT_STEPS}")
+        check(counts[K.SCORE] >= 1, f"{name}: score kernel never launched")
+        add(counts)
+        # steady-state score step on the fitted params (not counted)
+        _, params, x, _ = art._fit_and_score(
+            X, train_steps=FIT_STEPS, lr=1e-2, seed=0, device=device)
+        us = host_us(lambda: K.score(params, x), reps=100)
+        step_us[name] = us
+        print(f"main path {name}: windows {len(keys)} padded "
+              f"{tuple(x.shape)}, fit {FIT_STEPS} steps "
+              f"{rep.train_ms:.2f} ms, score {rep.score_ms:.3f} ms, "
+              f"score step {us:.2f} us, launches {json.dumps(counts)}, "
+              f"device {rep.device}")
+
+    # the sentinel's 64-agent fused tick
+    recs = synth_egress_records(agents=64, windows=4, per_window=16)
+    for i, r in enumerate(recs):
+        r["worker"] = f"fake-{i % 4}"
+    keys, X, worker_of = featurize_fused(recs, None)
+    eng = ScoringEngine(train_steps=40, device=device)
+    ticks = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rep, counts = _counted(lambda: eng.score_tick(keys, X, worker_of))
+        ticks.append((time.perf_counter() - t0) * 1e3)
+        _check_report("sentinel tick", rep.raw, rep.z, len(keys))
+        check(counts[K.FIT_STEP] == eng.train_steps,
+              f"sentinel tick: {counts[K.FIT_STEP]} fit-step launches, "
+              f"want {eng.train_steps}")
+        check(counts[K.SCORE] >= 1, "sentinel tick: score never launched")
+        add(counts)
+    print(f"main path sentinel tick [{len(keys)},{X.shape[1]}]: "
+          f"{eng.train_steps} steps, fit {rep.train_ms:.2f} ms, score "
+          f"{rep.score_ms:.3f} ms, tick ms {[round(t, 2) for t in ticks]}, "
+          f"device {rep.device}")
+
+    # a seeded exfil burst must score hottest
+    recs = synth_egress_records() + exfil_burst("clawker.loop-3", window=63)
+    keys, X = F.featurize(recs)
+    rep, counts = _counted(lambda: art.score_windows(
+        X, keys, train_steps=FIT_STEPS, device=device))
+    add(counts)
+    hottest = max(rep.agents, key=lambda a: a.peak)
+    check(hottest.agent == "clawker.loop-3",
+          f"exfil agent not hottest: {hottest.agent} peak {hottest.peak:.2f}")
+    print(f"main path exfil: clawker.loop-3 hottest, peak z "
+          f"{hottest.peak:.2f}")
+    print(f"main path launches: {json.dumps(total)}")
+    return {"launches": total, "step_us": step_us}
+
+
+def cli_phase(device: str) -> None:
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "egress.jsonl"
+    recs = synth_egress_records() + exfil_burst("clawker.loop-3", window=63)
+    path.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    env = dict(os.environ, CLAWKER_TORCH_DEVICE=device)
+    proc = subprocess.run(
+        [sys.executable, "-m", "clawker_tpu_torch", "monitor", "anomalies",
+         "--input", str(path), "--format", "json"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0,
+          f"CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    check(device in doc["device"], f"CLI scored on {doc['device']!r}")
+    check(doc["agents"][0]["agent"] == "clawker.loop-3",
+          f"CLI hottest agent {doc['agents'][0]['agent']}")
+    print(f"cli: exit 0, {doc['windows']} windows on {doc['device']}, "
+          f"fit {doc['train_ms']} ms, hottest {doc['agents'][0]['agent']}")
+
+
+def check_no_reference_imports() -> None:
+    leaked = sorted(m for m, mod in sys.modules.items()
+                    if mod is not None and (
+                        m == "jax" or m.startswith("jax.")
+                        or m == "clawker_tpu" or m.startswith("clawker_tpu.")))
+    check(not leaked, f"reference modules imported: {leaked}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
+    torch.backends.cudnn.allow_tf32 = False
+    print(card_line())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+    print(f"build: {build.build_all():.1f} s")
+    device = "cuda"
+    kernels = kernel_phase(device)
+    main_path = main_path_phase(device)
+    cli_phase(device)
+    check_no_reference_imports()
+
+    n, f = TIMED_SHAPE
+    replaces = {
+        K.SCORE: "clawker_tpu/analytics/anomaly.py:59",
+        K.FIT_STEP: "clawker_tpu/analytics/anomaly.py:96",
+    }
+    record = []
+    for name in (K.SCORE, K.FIT_STEP):
+        ms, plain, bound, by = kernels["timings"][(n, f)][name]
+        record.append({
+            "name": name, "route": "cuda",
+            "source": f"clawker_tpu_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": main_path["launches"][name],
+            "max_abs_err": kernels["errs"][name],
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": record}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,7 @@
+"""``python -m clawker_tpu_torch`` entry point."""
+
+import sys
+
+from .cli import main
+
+sys.exit(main())

@@ -1,0 +1,116 @@
+"""Wrappers of the anomaly kernels: K1 (score) and K2 (fit step).
+
+Each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs and scratch with ``torch.empty``, and launches on the current
+CUDA stream.  A tensor on the CPU goes to the plain version in
+``reference.py``; a CUDA tensor launches the kernel or raises -- there is
+no fallback.  ``LAUNCHES`` counts kernel launches (never CPU calls), so a
+run can show that its main path went through the kernels.
+
+Layouts are the JAX reference's: ``w_enc`` [F, H], ``b_enc`` [H],
+``w_dec`` [H, F], ``b_dec`` [F], all fp32; any F <= 64 with H = 128.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import reference
+from .build import kernel
+
+HIDDEN = 128
+MAX_FEATURES = 64
+TILE_ROWS = 32        # rows per block; kTileRows in csrc/anomaly_common.cuh
+
+SCORE = "anomaly_score"
+FIT_STEP = "anomaly_fit_step"
+LAUNCHES = {SCORE: 0, FIT_STEP: 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(params, x: torch.Tensor, *others: torch.Tensor | None) -> tuple[int, int]:
+    if x.dim() != 2:
+        raise ValueError(f"x must be [n, F], got shape {tuple(x.shape)}")
+    n, f = x.shape
+    if n < 1 or not 1 <= f <= MAX_FEATURES:
+        raise ValueError(f"need n >= 1 and 1 <= F <= {MAX_FEATURES}, "
+                         f"got [{n}, {f}]")
+    w_enc, b_enc, w_dec, b_dec = params
+    want = {"w_enc": (f, HIDDEN), "b_enc": (HIDDEN,), "w_dec": (HIDDEN, f),
+            "b_dec": (f,)}
+    for (name, shape), t in zip(want.items(), params):
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    for t in (*params, x, *(o for o in others if o is not None)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"anomaly kernels take float32, got {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"tensors on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("anomaly kernels take contiguous tensors")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    return n, f
+
+
+def _launched(name: str, err: int) -> None:
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError_t {err} "
+                           f"({torch.cuda.get_device_name()})")
+    LAUNCHES[name] += 1
+
+
+def score(params, x: torch.Tensor) -> torch.Tensor:
+    """K1: per-row mean squared reconstruction error, [n, F] -> [n]."""
+    n, f = _check(params, x)
+    if x.device.type == "cpu":
+        return reference.score(*params, x)
+    fn = kernel(SCORE)
+    out = torch.empty(n, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), *(p.data_ptr() for p in params),
+                 out.data_ptr(), n, f, stream)
+    _launched(SCORE, err)
+    return out
+
+
+def scratch_floats(n: int, f: int) -> int:
+    """Floats of the per-tile partial-gradient scratch of K2."""
+    tiles = -(-n // TILE_ROWS)
+    return tiles * (2 * f * HIDDEN + HIDDEN + f + 1)
+
+
+def fit_step_(params, x: torch.Tensor, noise: torch.Tensor | None, *,
+              lr: float, sigma: float, loss_out: torch.Tensor,
+              step: int = 0) -> None:
+    """K2, in place: one (denoising) SGD step on ``params``; writes the
+    step's loss (before the update) to ``loss_out[step]``.  ``noise``
+    None is the plain autoencoder step."""
+    n, f = _check(params, x, noise, loss_out)
+    if noise is not None and noise.shape != x.shape:
+        raise ValueError(f"noise {tuple(noise.shape)} != x {tuple(x.shape)}")
+    if loss_out.dim() != 1 or not 0 <= step < loss_out.numel():
+        raise ValueError("loss_out must be 1-d with an entry for `step`")
+    if x.device.type == "cpu":
+        new, loss = reference.fit_step(*params, x, noise, lr, sigma)
+        for p, q in zip(params, new):
+            p.copy_(q)
+        loss_out[step] = loss
+        return
+    fn = kernel(FIT_STEP)
+    partials = torch.empty(scratch_floats(n, f), dtype=torch.float32,
+                           device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), 0 if noise is None else noise.data_ptr(),
+                 sigma if noise is not None else 0.0,
+                 *(p.data_ptr() for p in params),
+                 partials.data_ptr(), partials.numel(),
+                 loss_out.data_ptr() + step * loss_out.element_size(),
+                 lr, n, f, stream)
+    _launched(FIT_STEP, err)

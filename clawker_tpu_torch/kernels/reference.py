@@ -1,0 +1,85 @@
+"""Plain PyTorch versions of the anomaly kernels (the score and the fit step).
+
+Written out as explicit forward and backward formulas, no autograd, at
+the rounding points of the JAX reference (``clawker_tpu/analytics/
+anomaly.py``) as its jaxpr shows them:
+
+* the forward dots take bf16 operands and give fp32 results;
+* the backward dots multiply the fp32 cotangent by a bf16 operand and
+  round the RESULT (the full sum) to bf16: dW_enc, dW_dec, and the
+  gradient flowing into the GELU;
+* the bias gradients stay fp32, and the error term uses the unrounded
+  fp32 ``x``;
+* GELU is the tanh form.
+
+A bf16 ``torch.matmul`` (bf16 result) or ``F.gelu`` at its default (erf)
+would not match.  Matrix products here are fp32; on a CUDA tensor they
+must run with TF32 off (``torch.backends.cuda.matmul.allow_tf32`` is
+False by default, and ``chip_smoke.py`` pins it).
+
+The CPU path of the wrappers in ``kernels/anomaly.py`` runs these, and
+``chip_smoke.py`` holds the CUDA kernels against them on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+# float32(sqrt(2/pi)), as jax.nn.gelu(approximate=True) rounds it
+GELU_C = float(torch.tensor(math.sqrt(2.0 / math.pi), dtype=torch.float32))
+GELU_K = 0.044715
+
+
+def bf(t: torch.Tensor) -> torch.Tensor:
+    """Round an fp32 tensor to bf16 (nearest-even) and back."""
+    return t.to(torch.bfloat16).float()
+
+
+def gelu_tanh(a: torch.Tensor) -> torch.Tensor:
+    return a * (0.5 * (1.0 + torch.tanh(GELU_C * (a + GELU_K * a ** 3))))
+
+
+def gelu_tanh_grad(a: torch.Tensor) -> torch.Tensor:
+    t = torch.tanh(GELU_C * (a + GELU_K * a ** 3))
+    return (0.5 * (1.0 + t)
+            + a * 0.5 * (1.0 - t * t) * GELU_C * (1.0 + 3.0 * GELU_K * a * a))
+
+
+def _forward(w_enc, b_enc, w_dec, b_dec, x):
+    """-> (pre-activation a, bf16-rounded activation gb, reconstruction r)."""
+    a = bf(x) @ bf(w_enc) + b_enc
+    gb = bf(gelu_tanh(a))
+    r = gb @ bf(w_dec) + b_dec
+    return a, gb, r
+
+
+def score(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor) -> torch.Tensor:
+    """Per-row mean squared reconstruction error: [n, F] -> [n]."""
+    _, _, r = _forward(w_enc, b_enc, w_dec, b_dec, x)
+    return torch.square(r - x).mean(dim=-1)
+
+
+def fit_step(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
+             noise: torch.Tensor | None, lr: float, sigma: float):
+    """One (denoising) SGD step on the mean squared error of the whole
+    batch.  ``noise`` None is the plain autoencoder step (sigma = 0).
+
+    -> ((w_enc, b_enc, w_dec, b_dec) updated, loss before the step)."""
+    noisy = x if noise is None else x + sigma * noise
+    a, gb, r = _forward(w_enc, b_enc, w_dec, b_dec, noisy)
+    e = r - x
+    count = e.numel()
+    loss = torch.square(e).sum() / count
+    dr = (2.0 * e) * (1.0 / count)
+    db_dec = dr.sum(dim=0)
+    dw_dec = bf(gb.T @ dr)
+    dh = bf(dr @ bf(w_dec).T)
+    da = dh * gelu_tanh_grad(a)
+    db_enc = da.sum(dim=0)
+    dw_enc = bf(bf(noisy).T @ da)
+    grads = (dw_enc, db_enc, dw_dec, db_dec)
+    new = tuple(p - lr * g for p, g in zip((w_enc, b_enc, w_dec, b_dec),
+                                           grads))
+    return new, loss

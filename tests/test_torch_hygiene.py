@@ -1,0 +1,164 @@
+"""The port stands alone: no JAX, nothing of clawker_tpu, no CPU fallback.
+
+tests/conftest.py imports jax into every test process, so the import
+checks run in a fresh interpreter with ``sys.modules["jax"] = None``
+(any ``import jax`` then raises).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+# small shapes: one intra-op thread keeps torch's pool from spinning on
+# every core beside the other test workers
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "clawker_tpu_torch"
+ENV = dict(os.environ, OMP_NUM_THREADS="1")
+
+
+def _run_isolated(code: str) -> dict:
+    prelude = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", prelude + code], cwd=ROOT,
+                          env=ENV, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _modules() -> list[str]:
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__main__":
+            continue
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        out.append(".".join(parts))
+    return out
+
+
+def test_every_module_and_chip_smoke_import_without_jax_or_reference():
+    mods = _modules()
+    assert "clawker_tpu_torch.kernels.anomaly" in mods
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "from clawker_tpu_torch.kernels import build\n"
+        "leaked = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "                and (m == 'jax' or m.startswith('jax.')\n"
+        "                     or m == 'clawker_tpu' or m.startswith('clawker_tpu.')))\n"
+        "print(json.dumps({'leaked': leaked, 'built': sorted(build._libs),\n"
+        "                  'loaded': len([m for m in sys.modules\n"
+        "                                 if m.startswith('clawker_tpu_torch')])}))\n")
+    assert doc["leaked"] == []
+    assert doc["built"] == []          # importing builds nothing
+    assert doc["loaded"] >= len(mods)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_sources_import_no_jax_and_no_reference_package(path):
+    text = (ROOT / path).read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
+    assert not re.search(r"^\s*(import|from)\s+clawker_tpu(\.|\s|$)", text,
+                         re.M)
+
+
+def test_default_device_raises_instead_of_running_on_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device runs there")
+    doc = _run_isolated(
+        "import json\n"
+        "import numpy as np\n"
+        "from clawker_tpu_torch.analytics import runtime as art\n"
+        "from clawker_tpu_torch.analytics import features as F\n"
+        "from clawker_tpu_torch.kernels import anomaly as K\n"
+        "from clawker_tpu_torch.sentinel import ScoringEngine\n"
+        "keys = [F.WindowKey('a', 0), F.WindowKey('b', 0)]\n"
+        "X = np.ones((2, 32), np.float32)\n"
+        "raised = {}\n"
+        "for name, call in {\n"
+        "    'score_windows': lambda: art.score_windows(X, keys, train_steps=2),\n"
+        "    'score_tick': lambda: ScoringEngine(train_steps=2).score_tick(\n"
+        "        keys, np.ones((2, 40), np.float32), {}),\n"
+        "    'resolve_device': lambda: art.resolve_device('cuda'),\n"
+        "}.items():\n"
+        "    try:\n"
+        "        call()\n"
+        "        raised[name] = None\n"
+        "    except RuntimeError as e:\n"
+        "        raised[name] = str(e)\n"
+        "print(json.dumps({'raised': raised, 'launches': K.LAUNCHES}))\n")
+    assert all(msg and "no CUDA GPU" in msg for msg in doc["raised"].values())
+    assert set(doc["raised"]) == {"score_windows", "score_tick",
+                                  "resolve_device"}
+    assert doc["launches"] == {"anomaly_score": 0, "anomaly_fit_step": 0}
+
+
+def test_cpu_tensor_calls_leave_launch_counters_at_zero():
+    doc = _run_isolated(
+        "import json\n"
+        "import torch\n"
+        "from clawker_tpu_torch.analytics import anomaly\n"
+        "from clawker_tpu_torch.analytics import runtime as art\n"
+        "from clawker_tpu_torch.kernels import anomaly as K\n"
+        "from clawker_tpu_torch.kernels import build\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "p = anomaly.init_params(g, feat=40)\n"
+        "x = torch.randn((256, 40), generator=g)\n"
+        "anomaly.score(p, x)\n"
+        "anomaly.train_step(p, x)\n"
+        "anomaly.denoise_step(p, x, g)\n"
+        "art._fit(p, x, torch.randn((3, 256, 40), generator=g), 1e-2)\n"
+        "print(json.dumps({'launches': K.LAUNCHES, 'built': sorted(build._libs)}))\n")
+    assert doc == {"launches": {"anomaly_score": 0, "anomaly_fit_step": 0},
+                   "built": []}
+
+
+def test_chip_smoke_fails_without_a_gpu_and_prints_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                          env=ENV, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert proc.stdout.strip() == ""
+
+
+def test_chip_smoke_alone_fails_and_prints_no_result(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                          env=ENV, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_kernel_sources_are_sm90a_cuda_with_plain_c_entry_points():
+    from clawker_tpu_torch.kernels import build
+
+    assert "arch=compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
+    assert "--use_fast_math" not in build.NVCC_FLAGS
+    for name in build.SOURCES:
+        src = (build.CSRC / f"{name}.cu").read_text()
+        assert f'extern "C" int {name}(' in src
+        assert "__global__" in src and "Replaces:" in src
+        assert not re.search(r"cublas|torch/", src)
+        assert len(build.SIGNATURES[name]) == len(
+            re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+            .split(","))
