@@ -6,14 +6,19 @@
 1. Prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``clawker_tpu_torch/kernels/csrc`` into ``build/kernels/``.
 2. Kernel phase: K1 (score) and K2 (fit step) against their plain PyTorch
-   versions on the card, at the main path's shapes and one ragged n,
-   with the tolerances below; each kernel's median time beside its bound.
+   versions on the card, at the main path's shapes, one ragged n, fewer
+   rows than one K2 tile and more K2 tiles than blocks, with the
+   tolerances below; two K2 fits from the same inputs must agree bit for
+   bit; each kernel's median time beside its bound.  K2's registers and
+   spills as ptxas reports them (spills must be 0).
 3. Main-path phase, at full width (F = 32 / 40, H = 128): ``score_windows``
    on the bench's synthetic fleet ([640, 32] padded) and on an hour of a
    64-agent fleet ([4224, 32]), 120 fit steps each; the sentinel's
    ``ScoringEngine.score_tick`` on the 64-agent fused tick ([384, 40],
    40 steps) three times; a seeded exfil agent must score hottest.  The
    kernels' launch counters are zeroed before and read after each run.
+   Each case prints its fit's ``train_ms`` and the host's enqueue time
+   per fit step (the Python loop of K2 launches, no synchronize inside).
 4. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device.
 
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -56,9 +62,10 @@ FIT_LOSS_RTOL = 1e-4    # amplify them (measured ~5e-6 CPU vs JAX)
 
 # (n, F): the main path pads rows to multiples of 128 -- the sentinel tick
 # to [384, 40], the bench fleet to [640, 32], the hour of 64 agents to
-# [4224, 32] -- beside round sizes and one ragged n that masks rows
-KERNEL_SHAPES = [(200, 40), (256, 40), (384, 40), (512, 32), (640, 32),
-                 (4096, 32), (4224, 32)]
+# [4224, 32] -- beside round sizes, one ragged n that masks rows, fewer
+# rows than one K2 tile (100) and more K2 tiles than blocks (8192)
+KERNEL_SHAPES = [(100, 32), (200, 40), (256, 40), (384, 40), (512, 32),
+                 (640, 32), (4096, 32), (4224, 32), (8192, 32)]
 TIMED_SHAPE = (4224, 32)
 FIT_STEPS = 120
 
@@ -240,13 +247,14 @@ def kernel_phase(device) -> dict:
         errs[K.SCORE] = max(errs[K.SCORE], err)
 
         # K2: one step, then the whole fit, against the plain steps
+        scratch = torch.empty(K.scratch_floats(n, f), device=device)
         kp = tuple(p.clone() for p in params)
         rp = tuple(p.clone() for p in params)
         k_loss = torch.empty(FIT_STEPS, device=device)
         r_loss = torch.empty(FIT_STEPS, device=device)
         for s in range(FIT_STEPS):
             K.fit_step_(kp, x, noises[s], lr=1e-2, sigma=0.25,
-                        loss_out=k_loss, step=s)
+                        loss_out=k_loss, step=s, scratch=scratch)
             rp, r_loss[s] = R.fit_step(*rp, x, noises[s], 1e-2, 0.25)
             if s == 0:
                 torch.cuda.synchronize()
@@ -265,6 +273,17 @@ def kernel_phase(device) -> dict:
         check(ok, f"K2 [{n},{f}] per-step losses off by {lerr:.3g}")
         errs[K.FIT_STEP] = max(errs[K.FIT_STEP], err)
 
+        # K2 is deterministic: the same fit again, bit for bit
+        kq = tuple(p.clone() for p in params)
+        q_loss = torch.empty(FIT_STEPS, device=device)
+        for s in range(FIT_STEPS):
+            K.fit_step_(kq, x, noises[s], lr=1e-2, sigma=0.25,
+                        loss_out=q_loss, step=s, scratch=scratch)
+        torch.cuda.synchronize()
+        check(all(torch.equal(p, q) for p, q in zip(kp, kq))
+              and torch.equal(k_loss, q_loss),
+              f"K2 [{n},{f}]: two fits from the same inputs differ")
+
         # K1 again on the fitted params: the scores the lane reports
         ok, err = _close(K.score(kp, x), R.score(*kp, x),
                          rtol=SCORE_RTOL, atol=SCORE_ATOL)
@@ -278,7 +297,8 @@ def kernel_phase(device) -> dict:
             K.SCORE: (lambda: K.score(params, x),
                       lambda: R.score(*params, x), score_bound(n, f)),
             K.FIT_STEP: (lambda: K.fit_step_(tp, x, noises[0], lr=1e-2,
-                                             sigma=0.25, loss_out=loss1),
+                                             sigma=0.25, loss_out=loss1,
+                                             scratch=scratch),
                          lambda: R.fit_step(*params, x, noises[0], 1e-2,
                                             0.25),
                          fit_step_bound(n, f)),
@@ -295,9 +315,25 @@ def kernel_phase(device) -> dict:
     print(f"kernel tolerances: score rtol {SCORE_RTOL} atol {SCORE_ATOL}; "
           f"fit step 1: params atol {STEP1_PARAM_ATOL}, loss rtol "
           f"{STEP1_LOSS_RTOL}; after {FIT_STEPS} steps: params atol "
-          f"{FIT_PARAM_ATOL}, losses rtol {FIT_LOSS_RTOL}")
+          f"{FIT_PARAM_ATOL}, losses rtol {FIT_LOSS_RTOL}; two K2 fits "
+          f"bit-identical at every shape")
     print(f"kernel max abs err: {json.dumps(errs)}")
     return {"errs": errs, "timings": timings}
+
+
+def ptxas_report(name: str) -> None:
+    """Print ptxas's register and spill lines for ``name``'s kernels; any
+    spill fails."""
+    from clawker_tpu_torch.kernels import build
+
+    log = build.build_log(name)
+    check(bool(log), f"no nvcc log for {name}: it was not built here")
+    for line in log.splitlines():
+        if re.search(r"Compiling entry|registers|spill", line):
+            print(f"ptxas {name}: {line.strip()}")
+    spills = [int(v) for v in re.findall(r"(\d+) bytes spill", log)]
+    check(bool(spills) and not any(spills),
+          f"{name}: ptxas reports spills {spills}")
 
 
 # --------------------------------------------------------- main-path phase
@@ -310,6 +346,30 @@ def _counted(fn):
     K.reset_launches()
     out = fn()
     return out, dict(K.LAUNCHES)
+
+
+def fit_enqueue(X, *, steps: int = FIT_STEPS, device, reps: int = 5):
+    """-> (host us per step to enqueue the fit loop, the fit's wall ms),
+    medians over ``reps`` fits on the padded windows of X: the host clock
+    stops once the loop has queued its launches, and again after a
+    synchronize.  Not counted: the caller runs it outside ``_counted``."""
+    import torch
+
+    from clawker_tpu_torch.analytics import runtime as art
+
+    x = torch.from_numpy(art._pad_rows(X, X.shape[1])).to(device)
+    enqueue, wall = [], []
+    for _ in range(reps):
+        params, noises = art._draw(0, steps, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        art._fit(params, x, noises, 1e-2)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enqueue.append((t1 - t0) / steps * 1e6)
+        wall.append((t2 - t0) * 1e3)
+    return statistics.median(enqueue), statistics.median(wall)
 
 
 def _check_report(name: str, raw, z, n_windows: int) -> None:
@@ -356,11 +416,14 @@ def main_path_phase(device) -> dict:
             X, train_steps=FIT_STEPS, lr=1e-2, seed=0, device=device)
         us = host_us(lambda: K.score(params, x), reps=100)
         step_us[name] = us
+        enq, wall = fit_enqueue(X, device=device)
         print(f"main path {name}: windows {len(keys)} padded "
-              f"{tuple(x.shape)}, fit {FIT_STEPS} steps "
-              f"{rep.train_ms:.2f} ms, score {rep.score_ms:.3f} ms, "
+              f"{tuple(x.shape)}, fit {FIT_STEPS} steps train_ms "
+              f"{rep.train_ms:.2f}, score {rep.score_ms:.3f} ms, "
               f"score step {us:.2f} us, launches {json.dumps(counts)}, "
               f"device {rep.device}")
+        print(f"main path {name}: fit enqueue {enq:.2f} us per step on the "
+              f"host, fit wall {wall:.2f} ms (median of 5)")
 
     # the sentinel's 64-agent fused tick
     recs = synth_egress_records(agents=64, windows=4, per_window=16)
@@ -379,10 +442,13 @@ def main_path_phase(device) -> dict:
               f"want {eng.train_steps}")
         check(counts[K.SCORE] >= 1, "sentinel tick: score never launched")
         add(counts)
+    enq, wall = fit_enqueue(X, steps=eng.train_steps, device=device)
     print(f"main path sentinel tick [{len(keys)},{X.shape[1]}]: "
-          f"{eng.train_steps} steps, fit {rep.train_ms:.2f} ms, score "
+          f"{eng.train_steps} steps, train_ms {rep.train_ms:.2f}, score "
           f"{rep.score_ms:.3f} ms, tick ms {[round(t, 2) for t in ticks]}, "
           f"device {rep.device}")
+    print(f"main path sentinel tick: fit enqueue {enq:.2f} us per step on "
+          f"the host, fit wall {wall:.2f} ms (median of 5)")
 
     # a seeded exfil burst must score hottest
     recs = synth_egress_records() + exfil_burst("clawker.loop-3", window=63)
@@ -394,7 +460,7 @@ def main_path_phase(device) -> dict:
     check(hottest.agent == "clawker.loop-3",
           f"exfil agent not hottest: {hottest.agent} peak {hottest.peak:.2f}")
     print(f"main path exfil: clawker.loop-3 hottest, peak z "
-          f"{hottest.peak:.2f}")
+          f"{hottest.peak:.2f}, train_ms {rep.train_ms:.2f}")
     print(f"main path launches: {json.dumps(total)}")
     return {"launches": total, "step_us": step_us}
 
@@ -444,6 +510,7 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     print(f"build: {build.build_all():.1f} s")
+    ptxas_report(K.FIT_STEP)
     device = "cuda"
     kernels = kernel_phase(device)
     main_path = main_path_phase(device)

@@ -103,11 +103,14 @@ def _pad_rows(X: np.ndarray, width: int) -> np.ndarray:
 def _fit(params: anomaly.AnomalyParams, x: torch.Tensor,
          noises: torch.Tensor, lr: float) -> torch.Tensor:
     """The fit loop: one K2 step per row of ``noises`` [steps, n, F],
-    updating ``params`` in place.  -> losses [steps]."""
+    updating ``params`` in place, with one scratch for all steps.
+    -> losses [steps]."""
     losses = torch.empty(len(noises), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(K.scratch_floats(*x.shape), dtype=torch.float32,
+                          device=x.device)
     for step in range(len(noises)):
         K.fit_step_(params, x, noises[step], lr=lr, sigma=0.25,
-                    loss_out=losses, step=step)
+                    loss_out=losses, step=step, scratch=scratch)
     return losses
 
 

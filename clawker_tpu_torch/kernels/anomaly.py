@@ -20,7 +20,12 @@ from .build import kernel
 
 HIDDEN = 128
 MAX_FEATURES = 64
-TILE_ROWS = 32        # rows per block; kTileRows in csrc/anomaly_common.cuh
+# K2's tiling, named once more in csrc/anomaly_fit_step.cu (kFitRows,
+# kFitMaxBlocks, kReduceGroups): rows per tile, the cap on launch A's
+# blocks (one partial slot each), and launch B's groups of slots
+FIT_ROWS = 32
+FIT_MAX_BLOCKS = 132
+REDUCE_GROUPS = 8
 
 SCORE = "anomaly_score"
 FIT_STEP = "anomaly_fit_step"
@@ -79,23 +84,44 @@ def score(params, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def fit_slots(n: int) -> int:
+    """Blocks of K2's launch A, each one slot of partial sums."""
+    return min(-(-n // FIT_ROWS), FIT_MAX_BLOCKS)
+
+
 def scratch_floats(n: int, f: int) -> int:
-    """Floats of the per-tile partial-gradient scratch of K2."""
-    tiles = -(-n // TILE_ROWS)
-    return tiles * (2 * f * HIDDEN + HIDDEN + f + 1)
+    """Floats of K2's partial-gradient scratch for x of shape [n, f]."""
+    return fit_slots(n) * (2 * f * HIDDEN + HIDDEN + f + 1)
+
+
+def _check_scratch(scratch: torch.Tensor, x: torch.Tensor, n: int,
+                   f: int) -> None:
+    if scratch.dtype != torch.float32:
+        raise TypeError(f"scratch must be float32, got {scratch.dtype}")
+    if scratch.device != x.device:
+        raise ValueError(f"scratch on {scratch.device}, x on {x.device}")
+    if not scratch.is_contiguous():
+        raise ValueError("scratch must be contiguous")
+    if scratch.numel() < scratch_floats(n, f):
+        raise ValueError(f"scratch holds {scratch.numel()} floats, K2 needs "
+                         f"{scratch_floats(n, f)} for [{n}, {f}]")
 
 
 def fit_step_(params, x: torch.Tensor, noise: torch.Tensor | None, *,
               lr: float, sigma: float, loss_out: torch.Tensor,
-              step: int = 0) -> None:
+              step: int = 0, scratch: torch.Tensor | None = None) -> None:
     """K2, in place: one (denoising) SGD step on ``params``; writes the
     step's loss (before the update) to ``loss_out[step]``.  ``noise``
-    None is the plain autoencoder step."""
+    None is the plain autoencoder step.  ``scratch`` (float32, at least
+    ``scratch_floats(n, F)``, on x's device) is the kernel's partial-sum
+    buffer; a loop of steps allocates it once, else each call does."""
     n, f = _check(params, x, noise, loss_out)
     if noise is not None and noise.shape != x.shape:
         raise ValueError(f"noise {tuple(noise.shape)} != x {tuple(x.shape)}")
     if loss_out.dim() != 1 or not 0 <= step < loss_out.numel():
         raise ValueError("loss_out must be 1-d with an entry for `step`")
+    if scratch is not None:
+        _check_scratch(scratch, x, n, f)
     if x.device.type == "cpu":
         new, loss = reference.fit_step(*params, x, noise, lr, sigma)
         for p, q in zip(params, new):
@@ -103,14 +129,15 @@ def fit_step_(params, x: torch.Tensor, noise: torch.Tensor | None, *,
         loss_out[step] = loss
         return
     fn = kernel(FIT_STEP)
-    partials = torch.empty(scratch_floats(n, f), dtype=torch.float32,
-                           device=x.device)
+    if scratch is None:
+        scratch = torch.empty(scratch_floats(n, f), dtype=torch.float32,
+                              device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(x.data_ptr(), 0 if noise is None else noise.data_ptr(),
                  sigma if noise is not None else 0.0,
                  *(p.data_ptr() for p in params),
-                 partials.data_ptr(), partials.numel(),
+                 scratch.data_ptr(), scratch.numel(),
                  loss_out.data_ptr() + step * loss_out.element_size(),
                  lr, n, f, stream)
     _launched(FIT_STEP, err)

@@ -5,8 +5,11 @@ into ``build/kernels/lib<name>-<hash>.so`` at the repository root, one
 ``nvcc`` process per source, all started together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/lib<name>-<hash>.so \
+         csrc/<name>.cu
 
+nvcc's output (ptxas's registers, shared memory and spills of each
+kernel) is kept beside the library as ``lib<name>-<hash>.log``.
 The hash covers the source, the shared headers and the flags, so an
 edited kernel rebuilds.  No ``--use_fast_math``: it would swap ``tanhf`` and the divisions for
 approximations and break parity with the plain versions.  A failed build
@@ -27,7 +30,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("anomaly_score", "anomaly_fit_step")
 
 _P = ctypes.c_void_p
@@ -110,12 +113,19 @@ def build_all(names=SOURCES) -> float:
                                   f"(exit {proc.returncode}):\n"
                                   f"{log.decode(errors='replace')}")
                 else:
+                    paths[n].with_suffix(".log").write_bytes(log)
                     os.replace(proc.tmp_out, paths[n])
             if errors:
                 raise KernelCompileError("\n".join(errors))
         for n in todo:
             _libs[n] = _load(n, paths[n])
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """nvcc's output from building ``name`` ("" if it was not built here)."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text(errors="replace") if log.exists() else ""
 
 
 def kernel(name: str):

@@ -7,14 +7,16 @@
 // version (kernels/reference.py) rounds twice.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace anomaly {
 
-constexpr int kHidden = 128;     // hidden width = threads per block
+constexpr int kHidden = 128;     // hidden width = K1's threads per block
 constexpr int kMaxFeatures = 64;
-constexpr int kTileRows = 32;    // rows per block; kernels/anomaly.py TILE_ROWS
+constexpr int kTileRows = 32;    // K1's rows per block (K2 has its own tiling)
 
 constexpr float kGeluC = 0.7978845608028654f;   // sqrt(2/pi)
 constexpr float kGeluK = 0.044715f;
@@ -43,6 +45,153 @@ __device__ __forceinline__ float gelu_tanh_grad(float a) {
   right = __fmul_rn(right, kGeluC);
   right = __fmul_rn(right, __fadd_rn(1.0f, __fmul_rn(__fmul_rn(kGelu3K, a), a)));
   return __fadd_rn(left, right);
+}
+
+// ---------------------------------------------------------------------------
+// The forward of one row tile on the tensor cores (mma.sync, bf16 operands,
+// fp32 accumulation: the products are exact, only the order of the sum
+// differs from the plain version).
+//
+// Operands in shared memory, all bf16, k contiguous:
+//   xb  [R][ldx]   the tile's rows, bf(x), k = feature (kp of them, zeros
+//                  past f)
+//   weT [kHidden][ldw]  bf(W_enc) transposed: row h holds W_enc[:, h]
+//   gs  [R][ldg]   written here: bf(gelu(a)), k = hidden unit
+//   wdT [np][ldd]  bf(W_dec) transposed: row j holds W_dec[:, j]
+// A row stride s with (s / 2) % 8 == 4 (in bf16: kp + 8, kHidden + 8)
+// makes the fragment loads below free of bank conflicts.
+
+// D += A . B for one m16n8k16 tile: a[4] the row-major A fragment, b[2] the
+// column-major B fragment, d[4] the fp32 accumulator
+__device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4],
+                                               const uint32_t b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// A fragment of rows m0..m0+15, columns k0..k0+15 of a row-major [.][ld]
+__device__ __forceinline__ void load_a(uint32_t a[4], const __nv_bfloat16* s,
+                                       int ld, int m0, int k0, int lane) {
+  const __nv_bfloat16* p = s + (m0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  a[0] = lds32(p);
+  a[1] = lds32(p + 8 * ld);
+  a[2] = lds32(p + 8);
+  a[3] = lds32(p + 8 * ld + 8);
+}
+
+// B fragment of columns n0..n0+7, depth k0..k0+15, stored n-major [n][ld]
+__device__ __forceinline__ void load_b(uint32_t b[2], const __nv_bfloat16* s,
+                                       int ld, int n0, int k0, int lane) {
+  const __nv_bfloat16* p = s + (n0 + (lane >> 2)) * ld + k0 + 2 * (lane & 3);
+  b[0] = lds32(p);
+  b[1] = lds32(p + 8);
+}
+
+// dst[n][k] = bf(src[k][n]) for k < K, n < N, zero up to kp, np (multiples
+// of 8): a transpose into the n-major layout of a B operand.  A warp writes
+// an 8 n x 8 k block, lane (g, t) the pair (n0 + g, k0 + 2t): the same
+// pattern as a fragment load, so with the stride rule above no two lanes
+// hit one bank.
+__device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst, int ld,
+                                                 const float* __restrict__ src,
+                                                 int lds, int K, int N, int kp,
+                                                 int np, int tid, int threads) {
+  const int nblocks = np / 8;
+  for (int w = tid; w < np * kp / 2; w += threads) {
+    const int chunk = w >> 5;
+    const int lane = w & 31;
+    const int n = (chunk % nblocks) * 8 + (lane >> 2);
+    const int k = (chunk / nblocks) * 8 + 2 * (lane & 3);
+    const float v0 = (n < N && k < K) ? src[k * lds + n] : 0.0f;
+    const float v1 = (n < N && k + 1 < K) ? src[(k + 1) * lds + n] : 0.0f;
+    *reinterpret_cast<__nv_bfloat162*>(dst + n * ld + k) =
+        __floats2bfloat162_rn(v0, v1);
+  }
+}
+
+// The forward of an R-row tile by kWarps warps (R a multiple of 16, kWarps
+// a multiple of R / 16):
+//   a = bf(x) . bf(W_enc) + b_enc    -> as[i][h] (fp32; skipped if null)
+//   gs[i][h] = bf(gelu(a))
+//   r = gs . bf(W_dec)               -> epi(i, j, r_ij) for i < R, j < np
+// b_dec is left to `epi`.  The caller syncs before (xb, weT, wdT staged)
+// and after (epi's writes); one __syncthreads sits between the layers.
+template <int R, int kWarps, class Epi>
+__device__ __forceinline__ void forward_tile(
+    const __nv_bfloat16* xb, int ldx, int kp, const __nv_bfloat16* weT,
+    int ldw, const float* __restrict__ b_enc, float* as, int lda,
+    __nv_bfloat16* gs, int ldg, const __nv_bfloat16* wdT, int ldd, int np,
+    int warp, int lane, Epi epi) {
+  constexpr int kMt = R / 16;
+  static_assert(R % 16 == 0 && kWarps % kMt == 0, "tile shape");
+  // encoder: warp w takes m-tile w % kMt and every kStep-th n-tile
+  constexpr int kStep = kWarps / kMt;
+  constexpr int kPer = (kHidden / 8) / kStep;
+  const int g = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+  {
+    const int m0 = (warp % kMt) * 16;
+    const int nt0 = warp / kMt;
+    float acc[kPer][4];
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      acc[q][0] = acc[q][1] = acc[q][2] = acc[q][3] = 0.0f;
+    }
+    for (int k0 = 0; k0 < kp; k0 += 16) {
+      uint32_t a[4];
+      load_a(a, xb, ldx, m0, k0, lane);
+#pragma unroll
+      for (int q = 0; q < kPer; ++q) {
+        uint32_t b[2];
+        load_b(b, weT, ldw, (nt0 + q * kStep) * 8, k0, lane);
+        mma_bf16_16816(acc[q], a, b);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPer; ++q) {
+      const int h = (nt0 + q * kStep) * 8 + t2;
+      const float b0 = b_enc[h];
+      const float b1 = b_enc[h + 1];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int i = m0 + g + 8 * half;
+        const float a0 = __fadd_rn(acc[q][2 * half], b0);
+        const float a1 = __fadd_rn(acc[q][2 * half + 1], b1);
+        if (as != nullptr) {
+          *reinterpret_cast<float2*>(as + i * lda + h) = make_float2(a0, a1);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(gs + i * ldg + h) =
+            __floats2bfloat162_rn(gelu_tanh(a0), gelu_tanh(a1));
+      }
+    }
+  }
+  __syncthreads();
+
+  // decoder: the kMt x (np / 8) output tiles dealt to the warps in turn
+  for (int tile = warp; tile < kMt * (np / 8); tile += kWarps) {
+    const int m0 = (tile % kMt) * 16;
+    const int n0 = (tile / kMt) * 8;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int k0 = 0; k0 < kHidden; k0 += 16) {
+      uint32_t a[4];
+      uint32_t b[2];
+      load_a(a, gs, ldg, m0, k0, lane);
+      load_b(b, wdT, ldd, n0, k0, lane);
+      mma_bf16_16816(acc, a, b);
+    }
+    epi(m0 + g, n0 + t2, acc[0]);
+    epi(m0 + g, n0 + t2 + 1, acc[1]);
+    epi(m0 + g + 8, n0 + t2, acc[2]);
+    epi(m0 + g + 8, n0 + t2 + 1, acc[3]);
+  }
 }
 
 }  // namespace anomaly

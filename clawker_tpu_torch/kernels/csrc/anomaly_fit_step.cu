@@ -17,36 +17,98 @@
 // These are the rounding points of jax.grad of the reference loss: the
 // backward dots multiply the fp32 cotangent by a bf16 operand and round the
 // RESULT to bf16.  So the weight gradients may be rounded only after the sum
-// over ALL rows -- rounding each tile's partial would not match -- and the
-// products stay fp32 FMAs on the CUDA cores: a bf16 tensor-core MMA would
-// round the fp32 cotangent and is not a drop-in.
+// over ALL rows -- rounding each tile's partial would not match.
 //
-// Launch A (one block of 128 threads per 32-row tile): forward, error, dr,
-// dh, da, and the tile's UNROUNDED fp32 partial sums of the four gradients
-// and of the squared error, written to scratch [tiles][P].
-// Launch B (one thread per parameter): sums the partials over tiles in a
-// fixed order (deterministic, no atomics), rounds only the full weight
-// sums to bf16, updates the params in place and writes the step's loss.
+// What bounds it on the H100: the 4 nFH forward products (bf16 operands) at
+// 989 TFLOP/s and the 6 nFH backward ones (fp32) at 67 TFLOP/s take about
+// 1.6 us at n = 4224, F = 32; the bytes (x and noise in, the params in and
+// out, ~1.2 MB) about 0.4 us.  Below that, what sets the time is latency:
+// how long one block takes over its tile, and two launches per step.
 //
-// What bounds it on the H100: the 10 nFH operations of forward and
-// backward (6 nFH of them fp32 products, at 67 TFLOP/s outside the tensor
-// cores) take about 1.5 us at n = 4096, F = 32; the bytes (x and noise in,
-// the params in and out, ~1.2 MB) about 0.4 us.  This first-correct design
-// is latency- and launch-bound well above that: serial per-thread loops,
-// two launches per step, and one step per launch (K3, the loop, is a
-// Python loop of these launches; a CUDA graph or persistent kernel is later
-// work).
+// Design:
+// * Launch A (fit_partials_kernel): G = min(ceil(n / kFitRows), 132)
+//   blocks of 256 threads, one per SM.  Each block rounds the weights to
+//   bf16 into shared memory once (transposed, with padded row strides so
+//   that neither the staging nor the fragment loads meet a bank conflict),
+//   then walks its row tiles t = block, block + G, ... and keeps its
+//   unrounded fp32 gradient sums in registers.  It writes one slot of
+//   scratch: G x (2 F H + H + F + 1) floats, <= 4.4 MB at F = 32, laid
+//   out [dW_enc [F][H] | db_enc [H] | dW_dec^T [F][H] | db_dec [F] | loss]
+//   and assembled in shared memory first, so that the block writes it
+//   with coalesced stores.
+// * The two forward products have bf16 operands on both sides: they run
+//   on the tensor cores (mma.sync m16n8k16 bf16 -> fp32, forward_tile in
+//   anomaly_common.cuh).  The products are exact; only the sum's order
+//   changes.
+// * The three backward products (dr . bf(W_dec)^T, bf(noisy)^T . da,
+//   bf(g)^T . dr) multiply the UNROUNDED fp32 cotangent: a bf16 MMA would
+//   round it, and TF32 would drop 13 of its bits, so they stay fp32 FMAs on
+//   the CUDA cores.  They are register-tiled: a thread owns a 2 x 8 tile of
+//   dh, and a (F/16) x 8 tile of each weight gradient, all independent
+//   accumulators fed from shared memory; no chain is longer than one
+//   product's depth (F for dh, the block's rows for the weight sums).
+// * Launch B (fit_reduce_kernel): each block takes a slice of 64
+//   parameters; its 8 groups of 64 threads sum fixed contiguous runs of
+//   <= 17 slots, read coalesced (all of a run's loads in flight at once,
+//   then added in order), and the groups are combined in a fixed
+//   tree, ((g0+g4)+(g2+g6)) + ((g1+g5)+(g3+g7)).  No float atomics: two
+//   runs on the same inputs give bit-identical params.  Then it rounds the
+//   full weight sums to bf16, updates the params in place and writes the
+//   step's loss.
+//
+// Every elementwise step uses the _rn intrinsics (no FMA contraction where
+// the plain version rounds twice); no --use_fast_math.
 
 #include "anomaly_common.cuh"
 
 namespace anomaly {
 
-__host__ __device__ inline int param_floats(int f) {
-  // dW_enc [f][H], db_enc [H], dW_dec [H][f], db_dec [f], loss sum
+// K2's tiling; kernels/anomaly.py names the same numbers (FIT_ROWS,
+// FIT_MAX_BLOCKS, REDUCE_GROUPS) to size the scratch and to replay the
+// order of the sums.  K1 keeps kTileRows.
+// R, rows per tile: 32 (measured against 64 by fit_rows_sweep.py, which
+// builds with ANOMALY_FIT_ROWS set)
+#ifndef ANOMALY_FIT_ROWS
+#define ANOMALY_FIT_ROWS 32
+#endif
+constexpr int kFitRows = ANOMALY_FIT_ROWS;
+constexpr int kFitThreads = 256;     // 8 warps
+constexpr int kFitMaxBlocks = 132;   // G <= one block per H100 SM
+constexpr int kReduceSlice = 64;     // parameters per reduce block
+constexpr int kReduceGroups = 8;     // slot groups per reduce block
+constexpr int kReduceRun =           // the longest run of slots a group sums
+    (kFitMaxBlocks + kReduceGroups - 1) / kReduceGroups;
+
+constexpr int kLdh = kHidden + 8;    // row stride of the [.][H] arrays
+
+__host__ __device__ constexpr int param_floats(int f) {
+  // dW_enc [f][H], db_enc [H], dW_dec^T [f][H], db_dec [f], loss sum
   return 2 * f * kHidden + kHidden + f + 1;
 }
 
-__global__ void __launch_bounds__(kHidden)
+// Shared memory of launch A for FP = f rounded up to 16.  fp32 arrays
+// first (16-byte aligned rows), then bf16:
+//   as [R][kLdh]  a, then da in place      xc [R][FP]  clean x
+//   dr [R][FP+1]  dr (odd stride: the dh loop reads 4 rows of one column)
+//   red [8]       per-warp loss sums
+//   weT [H][FP+8], wdT [FP][kLdh], xb [R][FP+8], gs [R][kLdh]  (bf16)
+__host__ __device__ constexpr size_t fit_smem_bytes(int fp) {
+  return sizeof(float) * (kFitRows * kLdh + kFitRows * fp +
+                          kFitRows * (fp + 1) + kFitThreads / 32) +
+         sizeof(__nv_bfloat16) * (kHidden * (fp + 8) + fp * kLdh +
+                                  kFitRows * (fp + 8) + kFitRows * kLdh);
+}
+
+__device__ __forceinline__ void bf16x4(const __nv_bfloat16* p, float* v) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  v[0] = __uint_as_float(u.x << 16);
+  v[1] = __uint_as_float(u.x & 0xffff0000u);
+  v[2] = __uint_as_float(u.y << 16);
+  v[3] = __uint_as_float(u.y & 0xffff0000u);
+}
+
+template <int FP>
+__global__ void __launch_bounds__(kFitThreads, 1)
 fit_partials_kernel(const float* __restrict__ x,
                     const float* __restrict__ noise, float sigma,
                     const float* __restrict__ w_enc,
@@ -55,142 +117,212 @@ fit_partials_kernel(const float* __restrict__ x,
                     const float* __restrict__ b_dec,
                     float* __restrict__ partials, float inv_count, int n,
                     int f) {
+  constexpr int R = kFitRows;
+  constexpr int kLdk = FP + 8;
+  constexpr int kDs = FP + 1;
+  constexpr int kRt = R / 16;        // dh rows per thread
+  constexpr int kQ = FP / 16;        // weight-gradient rows per thread
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* we = reinterpret_cast<__nv_bfloat16*>(smem);  // [f][H]
-  __nv_bfloat16* wd = we + f * kHidden;                         // [H][f]
-  __nv_bfloat16* wdt = wd + f * kHidden;                        // [f][H]
-  __nv_bfloat16* gs = wdt + f * kHidden;                        // [T][H]
-  float* xn = reinterpret_cast<float*>(gs + kTileRows * kHidden);  // [T][f]
-  float* xc = xn + kTileRows * f;                               // [T][f]
-  float* dr = xc + kTileRows * f;                               // [T][f]
-  float* as = dr + kTileRows * f;           // [T][H]: a, then da in place
-  float* red = as + kTileRows * kHidden;    // [H/32] per-warp loss sums
+  float* as = reinterpret_cast<float*>(smem);
+  float* xc = as + R * kLdh;
+  float* dr = xc + R * FP;
+  float* red = dr + R * kDs;
+  __nv_bfloat16* weT = reinterpret_cast<__nv_bfloat16*>(red + kFitThreads / 32);
+  __nv_bfloat16* wdT = weT + kHidden * kLdk;
+  __nv_bfloat16* xb = wdT + FP * kLdh;
+  __nv_bfloat16* gs = xb + R * kLdk;
 
   const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * kTileRows;
-  const int rows = min(kTileRows, n - row0);
-
-  for (int i = tid; i < f * kHidden; i += kHidden) {
-    we[i] = __float2bfloat16_rn(w_enc[i]);
-    const __nv_bfloat16 v = __float2bfloat16_rn(w_dec[i]);
-    wd[i] = v;
-    const int k = i / f;
-    wdt[(i - k * f) * kHidden + k] = v;
-  }
-  for (int i = tid; i < kTileRows * f; i += kHidden) {
-    float xv = 0.0f;
-    float nv = 0.0f;
-    if (i / f < rows) {
-      const size_t g = static_cast<size_t>(row0) * f + i;
-      xv = x[g];
-      nv = noise ? __fadd_rn(xv, __fmul_rn(sigma, noise[g])) : xv;
-    }
-    xc[i] = xv;
-    xn[i] = nv;
-  }
-  __syncthreads();
-
-  // forward encoder: thread tid owns hidden unit tid
-  const float bk = b_enc[tid];
-  for (int i = 0; i < rows; ++i) {
-    float acc = 0.0f;
-    for (int j = 0; j < f; ++j) {
-      acc = fmaf(bf(xn[i * f + j]), __bfloat162float(we[j * kHidden + tid]), acc);
-    }
-    const float a = __fadd_rn(acc, bk);
-    as[i * kHidden + tid] = a;
-    gs[i * kHidden + tid] = __float2bfloat16_rn(gelu_tanh(a));
-  }
-  __syncthreads();
-
-  // forward decoder, error against the clean x, dr, loss
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  // backward ownership: columns h = 4 tx + e + 64 c (e < 4, c < 2), and
+  // rows ty * kRt + r of dh or rows j = ty + 16 q of the weight gradients
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+
+  stage_transposed(weT, kLdk, w_enc, kHidden, f, kHidden, FP, kHidden, tid,
+                   kFitThreads);
+  stage_transposed(wdT, kLdh, w_dec, f, kHidden, f, kHidden, FP, tid,
+                   kFitThreads);
+
+  float gwe[kQ][8] = {};   // dW_enc[j][h]
+  float gwd[kQ][8] = {};   // dW_dec[h][j]
+  float gbe[8] = {};       // db_enc[h], rows ty == 0
+  float gbd[kQ] = {};      // db_dec[j], columns tx == 0
   float sq = 0.0f;
-  for (int i = warp; i < rows; i += kHidden / 32) {
-    for (int j = lane; j < f; j += 32) {
-      float acc = 0.0f;
-      for (int k = 0; k < kHidden; ++k) {
-        acc = fmaf(__bfloat162float(gs[i * kHidden + k]),
-                   __bfloat162float(wd[k * f + j]), acc);
+
+  const int tiles = (n + R - 1) / R;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int row0 = t * R;
+    const int rows = min(R, n - row0);
+    __syncthreads();   // the previous tile's readers are done
+    for (int idx = tid; idx < R * FP; idx += kFitThreads) {
+      const int i = idx / FP;
+      const int j = idx - i * FP;
+      float xv = 0.0f;
+      float nv = 0.0f;
+      if (i < rows && j < f) {
+        const size_t g = static_cast<size_t>(row0 + i) * f + j;
+        xv = x[g];
+        nv = noise ? __fadd_rn(xv, __fmul_rn(sigma, noise[g])) : xv;
       }
-      const float e = __fsub_rn(__fadd_rn(acc, b_dec[j]), xc[i * f + j]);
-      sq = __fadd_rn(sq, __fmul_rn(e, e));
-      dr[i * f + j] = __fmul_rn(__fmul_rn(2.0f, e), inv_count);
+      xc[idx] = xv;
+      xb[i * kLdk + j] = __float2bfloat16_rn(nv);
+    }
+    __syncthreads();
+
+    // forward on the tensor cores; the decoder's epilogue forms e, dr and
+    // the squared error (rows past n and features past f give dr = 0, so
+    // they add nothing to any gradient below)
+    forward_tile<R, kFitThreads / 32>(
+        xb, kLdk, FP, weT, kLdk, b_enc, as, kLdh, gs, kLdh, wdT, kLdh, FP,
+        warp, lane, [&](int i, int j, float acc) {
+          float d = 0.0f;
+          if (i < rows && j < f) {
+            const float e = __fsub_rn(__fadd_rn(acc, b_dec[j]), xc[i * FP + j]);
+            sq = __fadd_rn(sq, __fmul_rn(e, e));
+            d = __fmul_rn(__fmul_rn(2.0f, e), inv_count);
+          }
+          dr[i * kDs + j] = d;
+        });
+    __syncthreads();
+
+    // dh = dr . bf(W_dec)^T, the row's full sum over F rounded to bf16;
+    // da = dh * gelu'(a) overwrites a (each thread its own elements)
+    {
+      float acc[kRt][8] = {};
+#pragma unroll
+      for (int j = 0; j < FP; ++j) {
+        float w[8];
+        bf16x4(wdT + j * kLdh + 4 * tx, w);
+        bf16x4(wdT + j * kLdh + 64 + 4 * tx, w + 4);
+#pragma unroll
+        for (int r = 0; r < kRt; ++r) {
+          const float d = dr[(ty * kRt + r) * kDs + j];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(d, w[c], acc[r][c]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < kRt; ++r) {
+        float* ap = as + (ty * kRt + r) * kLdh + 4 * tx;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float4 a = *reinterpret_cast<float4*>(ap + 64 * c);
+          a.x = __fmul_rn(bf(acc[r][4 * c]), gelu_tanh_grad(a.x));
+          a.y = __fmul_rn(bf(acc[r][4 * c + 1]), gelu_tanh_grad(a.y));
+          a.z = __fmul_rn(bf(acc[r][4 * c + 2]), gelu_tanh_grad(a.z));
+          a.w = __fmul_rn(bf(acc[r][4 * c + 3]), gelu_tanh_grad(a.w));
+          *reinterpret_cast<float4*>(ap + 64 * c) = a;
+        }
+      }
+    }
+    __syncthreads();
+
+    // the weight gradients: rank-1 updates row by row, unrounded fp32
+    for (int i = 0; i < rows; ++i) {
+      float da[8];
+      float g[8];
+      const float4 d0 = *reinterpret_cast<const float4*>(as + i * kLdh + 4 * tx);
+      const float4 d1 =
+          *reinterpret_cast<const float4*>(as + i * kLdh + 64 + 4 * tx);
+      da[0] = d0.x; da[1] = d0.y; da[2] = d0.z; da[3] = d0.w;
+      da[4] = d1.x; da[5] = d1.y; da[6] = d1.z; da[7] = d1.w;
+      bf16x4(gs + i * kLdh + 4 * tx, g);
+      bf16x4(gs + i * kLdh + 64 + 4 * tx, g + 4);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        const float xv = __bfloat162float(xb[i * kLdk + ty + 16 * q]);
+        const float dv = dr[i * kDs + ty + 16 * q];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          gwe[q][c] = fmaf(xv, da[c], gwe[q][c]);
+          gwd[q][c] = fmaf(g[c], dv, gwd[q][c]);
+        }
+        if (tx == 0) gbd[q] = __fadd_rn(gbd[q], dv);
+      }
+      if (ty == 0) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) gbe[c] = __fadd_rn(gbe[c], da[c]);
+      }
     }
   }
+
+  // this block's slot
   for (int off = 16; off > 0; off >>= 1) {
     sq += __shfl_xor_sync(0xffffffffu, sq, off);
   }
   if (lane == 0) red[warp] = sq;
   __syncthreads();
-
-  // backward into the hidden layer: dh is the row's complete sum, so it is
-  // rounded to bf16 here; da overwrites a in place (thread-owned column)
-  for (int i = 0; i < rows; ++i) {
-    float s = 0.0f;
-    for (int j = 0; j < f; ++j) {
-      s = fmaf(dr[i * f + j], __bfloat162float(wdt[j * kHidden + tid]), s);
-    }
-    const float a = as[i * kHidden + tid];
-    as[i * kHidden + tid] = __fmul_rn(bf(s), gelu_tanh_grad(a));
+  float loss = 0.0f;
+  if (tid == 0) {
+    for (int w = 0; w < kFitThreads / 32; ++w) loss = __fadd_rn(loss, red[w]);
   }
-  __syncthreads();
+  __syncthreads();   // the tiles' arrays are free: assemble the slot there
 
-  // the tile's unrounded partial sums over its rows
-  float* part = partials + static_cast<size_t>(blockIdx.x) * param_floats(f);
+  float* slot = reinterpret_cast<float*>(smem);
+  const int pf = param_floats(f);
   const int o_be = f * kHidden;
   const int o_wd = o_be + kHidden;
   const int o_bd = o_wd + kHidden * f;
-  const int o_loss = o_bd + f;
-  for (int e = tid; e < f * kHidden; e += kHidden) {   // dW_enc[j][tid]
-    const int j = e / kHidden;
-    float s = 0.0f;
-    for (int i = 0; i < rows; ++i) {
-      s = fmaf(bf(xn[i * f + j]), as[i * kHidden + tid], s);
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    const int j = ty + 16 * q;
+    if (j >= f) continue;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int h = 4 * tx + 64 * c;
+      *reinterpret_cast<float4*>(slot + j * kHidden + h) = make_float4(
+          gwe[q][4 * c], gwe[q][4 * c + 1], gwe[q][4 * c + 2], gwe[q][4 * c + 3]);
+      *reinterpret_cast<float4*>(slot + o_wd + j * kHidden + h) = make_float4(
+          gwd[q][4 * c], gwd[q][4 * c + 1], gwd[q][4 * c + 2], gwd[q][4 * c + 3]);
     }
-    part[e] = s;
+    if (tx == 0) slot[o_bd + j] = gbd[q];
   }
-  {                                                     // db_enc[tid]
-    float s = 0.0f;
-    for (int i = 0; i < rows; ++i) s = __fadd_rn(s, as[i * kHidden + tid]);
-    part[o_be + tid] = s;
-  }
-  for (int e = tid; e < kHidden * f; e += kHidden) {   // dW_dec[k][j]
-    const int k = e / f;
-    const int j = e - k * f;
-    float s = 0.0f;
-    for (int i = 0; i < rows; ++i) {
-      s = fmaf(__bfloat162float(gs[i * kHidden + k]), dr[i * f + j], s);
+  if (ty == 0) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      slot[o_be + 4 * tx + (c & 3) + 64 * (c >> 2)] = gbe[c];
     }
-    part[o_wd + e] = s;
   }
-  if (tid < f) {                                        // db_dec[tid]
-    float s = 0.0f;
-    for (int i = 0; i < rows; ++i) s = __fadd_rn(s, dr[i * f + tid]);
-    part[o_bd + tid] = s;
-  }
-  if (tid == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < kHidden / 32; ++w) s = __fadd_rn(s, red[w]);
-    part[o_loss] = s;
-  }
+  if (tid == 0) slot[pf - 1] = loss;
+  __syncthreads();
+  float* part = partials + static_cast<size_t>(blockIdx.x) * pf;
+  for (int p = tid; p < pf; p += kFitThreads) part[p] = slot[p];
 }
 
-__global__ void fit_apply_kernel(const float* __restrict__ partials,
-                                 int tiles, int f, float* __restrict__ w_enc,
-                                 float* __restrict__ b_enc,
-                                 float* __restrict__ w_dec,
-                                 float* __restrict__ b_dec,
-                                 float* __restrict__ loss_out, float lr,
-                                 float count) {
+__global__ void __launch_bounds__(kReduceSlice * kReduceGroups)
+fit_reduce_kernel(const float* __restrict__ partials, int slots, int f,
+                  float* __restrict__ w_enc, float* __restrict__ b_enc,
+                  float* __restrict__ w_dec, float* __restrict__ b_dec,
+                  float* __restrict__ loss_out, float lr, float count) {
+  __shared__ float red[kReduceGroups][kReduceSlice];
   const int stride = param_floats(f);
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= stride) return;
-  float s = 0.0f;
-  for (int t = 0; t < tiles; ++t) {
-    s = __fadd_rn(s, partials[static_cast<size_t>(t) * stride + p]);
+  const int col = threadIdx.x % kReduceSlice;
+  const int grp = threadIdx.x / kReduceSlice;
+  const int p = blockIdx.x * kReduceSlice + col;
+  const int per = (slots + kReduceGroups - 1) / kReduceGroups;
+  const int s0 = min(grp * per, slots);
+  const int run = p < stride ? min(s0 + per, slots) - s0 : 0;
+  float v[kReduceRun];
+#pragma unroll
+  for (int k = 0; k < kReduceRun; ++k) {
+    v[k] = k < run ? partials[static_cast<size_t>(s0 + k) * stride + p] : 0.0f;
   }
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kReduceRun; ++k) {
+    if (k < run) s = __fadd_rn(s, v[k]);
+  }
+  red[grp][col] = s;
+  __syncthreads();
+#pragma unroll
+  for (int half = kReduceGroups / 2; half > 0; half >>= 1) {
+    if (grp < half) red[grp][col] = __fadd_rn(red[grp][col], red[grp + half][col]);
+    __syncthreads();
+  }
+  if (grp != 0 || p >= stride) return;
+  s = red[0][col];
   const int o_be = f * kHidden;
   const int o_wd = o_be + kHidden;
   const int o_bd = o_wd + kHidden * f;
@@ -199,8 +331,10 @@ __global__ void fit_apply_kernel(const float* __restrict__ partials,
     w_enc[p] = __fsub_rn(w_enc[p], __fmul_rn(lr, bf(s)));
   } else if (p < o_wd) {
     b_enc[p - o_be] = __fsub_rn(b_enc[p - o_be], __fmul_rn(lr, s));
-  } else if (p < o_bd) {
-    w_dec[p - o_wd] = __fsub_rn(w_dec[p - o_wd], __fmul_rn(lr, bf(s)));
+  } else if (p < o_bd) {   // the slot holds dW_dec transposed
+    const int j = (p - o_wd) / kHidden;
+    const int i = (p - o_wd - j * kHidden) * f + j;
+    w_dec[i] = __fsub_rn(w_dec[i], __fmul_rn(lr, bf(s)));
   } else if (p < o_loss) {
     b_dec[p - o_bd] = __fsub_rn(b_dec[p - o_bd], __fmul_rn(lr, s));
   } else {
@@ -208,48 +342,66 @@ __global__ void fit_apply_kernel(const float* __restrict__ partials,
   }
 }
 
+template <int FP>
+int fit_step(const float* x, const float* noise, float sigma, float* w_enc,
+             float* b_enc, float* w_dec, float* b_dec, float* partials,
+             long long partials_floats, float* loss_out, float lr, int n,
+             int f, cudaStream_t s) {
+  const int tiles = (n + kFitRows - 1) / kFitRows;
+  const int slots = tiles < kFitMaxBlocks ? tiles : kFitMaxBlocks;
+  if (partials_floats < static_cast<long long>(slots) * param_floats(f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // above 48 KB only after opting in: once for each FP
+  constexpr size_t smem = fit_smem_bytes(FP);
+  static_assert(smem >= sizeof(float) * param_floats(FP),
+                "launch A assembles its slot in shared memory");
+  static bool opted = smem <= 48 * 1024;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fit_partials_kernel<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = true;
+  }
+  const float count = static_cast<float>(n) * static_cast<float>(f);
+  const float inv_count = 1.0f / count;
+  fit_partials_kernel<FP><<<slots, kFitThreads, smem, s>>>(
+      x, noise, sigma, w_enc, b_enc, w_dec, b_dec, partials, inv_count, n, f);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (param_floats(f) + kReduceSlice - 1) / kReduceSlice;
+  fit_reduce_kernel<<<blocks, kReduceSlice * kReduceGroups, 0, s>>>(
+      partials, slots, f, w_enc, b_enc, w_dec, b_dec, loss_out, lr, count);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace anomaly
 
-// Scratch: `partials` holds ceil(n / 32) * (2 f 128 + 128 + f + 1) floats
-// (`partials_floats` says how many the caller allocated).  `noise` may be
-// null: the plain autoencoder step.  `loss_out` points at one float.
+// Scratch: `partials` holds min(ceil(n / R), 132) * (2 f 128 + 128 + f + 1)
+// floats (`partials_floats` says how many the caller allocated).  `noise`
+// may be null: the plain autoencoder step.  `loss_out` points at one float.
 extern "C" int anomaly_fit_step(const float* x, const float* noise,
                                 float sigma, float* w_enc, float* b_enc,
                                 float* w_dec, float* b_dec, float* partials,
                                 long long partials_floats, float* loss_out,
                                 float lr, int n, int f, void* stream) {
   using namespace anomaly;
-  if (n <= 0 || f <= 0 || f > kMaxFeatures) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int tiles = (n + kTileRows - 1) / kTileRows;
-  if (partials_floats < static_cast<long long>(tiles) * param_floats(f)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = sizeof(__nv_bfloat16) * (3 * f * kHidden +
-                                               kTileRows * kHidden) +
-                      sizeof(float) * (3 * kTileRows * f +
-                                       kTileRows * kHidden + kHidden / 32);
-  // above 48 KB only after opting in; once, for the widest f taken
-  static size_t smem_opted = 48 * 1024;
-  if (smem > smem_opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fit_partials_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_opted = smem;
-  }
-  const float count = static_cast<float>(n) * static_cast<float>(f);
-  const float inv_count = 1.0f / count;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fit_partials_kernel<<<tiles, kHidden, smem, s>>>(
-      x, noise, sigma, w_enc, b_enc, w_dec, b_dec, partials, inv_count, n, f);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = 256;
-  const int blocks = (param_floats(f) + threads - 1) / threads;
-  fit_apply_kernel<<<blocks, threads, 0, s>>>(partials, tiles, f, w_enc,
-                                              b_enc, w_dec, b_dec, loss_out,
-                                              lr, count);
-  return static_cast<int>(cudaGetLastError());
+  switch (n <= 0 ? 0 : (f + 15) / 16) {
+    case 1:
+      return fit_step<16>(x, noise, sigma, w_enc, b_enc, w_dec, b_dec,
+                          partials, partials_floats, loss_out, lr, n, f, s);
+    case 2:
+      return fit_step<32>(x, noise, sigma, w_enc, b_enc, w_dec, b_dec,
+                          partials, partials_floats, loss_out, lr, n, f, s);
+    case 3:
+      return fit_step<48>(x, noise, sigma, w_enc, b_enc, w_dec, b_dec,
+                          partials, partials_floats, loss_out, lr, n, f, s);
+    case 4:
+      return fit_step<64>(x, noise, sigma, w_enc, b_enc, w_dec, b_dec,
+                          partials, partials_floats, loss_out, lr, n, f, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

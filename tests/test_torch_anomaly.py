@@ -213,3 +213,113 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         xt = xt[None]
     with pytest.raises((TypeError, ValueError)):
         anomaly.score(anomaly.AnomalyParams(*params), xt)
+
+
+# K2's partial-sum scratch: one slot of 2 F H + H + F + 1 floats per block
+# of launch A, min(ceil(n / 32), 132) blocks
+@pytest.mark.parametrize("feat", [32, 40])
+@pytest.mark.parametrize("n, slots", [(1, 1), (200, 7), (4224, 132),
+                                      (8192, 132)])
+def test_scratch_floats_is_one_slot_per_block(n, slots, feat):
+    assert K.fit_slots(n) == slots
+    assert K.scratch_floats(n, feat) == slots * (2 * feat * 128 + 128
+                                                 + feat + 1)
+
+
+@pytest.mark.parametrize("bad", ["ok", "short", "f64", "device",
+                                 "noncontig"])
+def test_fit_step_checks_its_scratch(bad):
+    x, noise, arrays = _arrays(32, seed=4)
+    xt, nt = torch.from_numpy(x), torch.from_numpy(noise[0])
+    size = K.scratch_floats(N, 32)
+    scratch = {
+        "ok": lambda: torch.empty(size),
+        "short": lambda: torch.empty(size - 1),
+        "f64": lambda: torch.empty(size, dtype=torch.float64),
+        "device": lambda: torch.empty(size, device="meta"),
+        "noncontig": lambda: torch.empty(2 * size)[::2],
+    }[bad]()
+    params = anomaly.params_from_numpy(arrays, device="cpu")
+    loss = torch.empty(1)
+    if bad == "ok":
+        K.fit_step_(params, xt, nt, lr=LR, sigma=0.25, loss_out=loss,
+                    scratch=scratch)
+        want, want_loss = anomaly.denoise_step_with_noise(
+            anomaly.params_from_numpy(arrays, device="cpu"), xt, nt, lr=LR)
+        assert all(torch.equal(p, w) for p, w in zip(params, want))
+        assert float(loss[0]) == float(want_loss)
+        return
+    with pytest.raises((TypeError, ValueError)):
+        K.fit_step_(params, xt, nt, lr=LR, sigma=0.25, loss_out=loss,
+                    scratch=scratch)
+    for p, a in zip(params, arrays):          # nothing was applied
+        assert np.array_equal(p.numpy(), a)
+
+
+def _kernel_order_step(arrays, x, noise, *, lr, sigma=0.25):
+    """One denoising step with K2's gradient sums in K2's order: launch A's
+    block b sums its row tiles b, b + G, ... (FIT_ROWS rows each) into one
+    fp32 slot; launch B sums each of REDUCE_GROUPS contiguous runs of slots
+    in order and combines the runs in the kernel's tree, then rounds the
+    full weight sums to bf16 and applies the update."""
+    from clawker_tpu_torch.kernels import reference as R
+
+    w_enc, b_enc, w_dec, b_dec = (torch.from_numpy(a) for a in arrays)
+    xt = torch.from_numpy(x)
+    noisy = xt + sigma * torch.from_numpy(noise)
+    a, gb, r = R._forward(w_enc, b_enc, w_dec, b_dec, noisy)
+    e = r - xt
+    count = e.numel()
+    dr = (2.0 * e) * (1.0 / count)
+    da = R.bf(dr @ R.bf(w_dec).T) * R.gelu_tanh_grad(a)
+    xb = R.bf(noisy)
+
+    n, f = x.shape
+    tiles = -(-n // K.FIT_ROWS)
+    g_slots = K.fit_slots(n)
+    slots = []
+    for b in range(g_slots):
+        acc = torch.zeros(K.scratch_floats(1, f))
+        for t in range(b, tiles, g_slots):
+            rows = slice(t * K.FIT_ROWS, min((t + 1) * K.FIT_ROWS, n))
+            acc = acc + torch.cat([
+                (xb[rows].T @ da[rows]).flatten(), da[rows].sum(0),
+                (dr[rows].T @ gb[rows]).flatten(), dr[rows].sum(0),
+                torch.square(e[rows]).sum()[None]])
+        slots.append(acc)
+    per = -(-g_slots // K.REDUCE_GROUPS)
+    runs = []
+    for grp in range(K.REDUCE_GROUPS):
+        s = torch.zeros_like(slots[0])
+        for k in range(min(grp * per, g_slots), min(grp * per + per, g_slots)):
+            s = s + slots[k]
+        runs.append(s)
+    half = K.REDUCE_GROUPS // 2
+    while half:
+        runs[:half] = [runs[g] + runs[g + half] for g in range(half)]
+        half //= 2
+    total = runs[0]
+    fh = f * 128
+    grads = (R.bf(total[:fh].view(f, 128)), total[fh:fh + 128],
+             R.bf(total[fh + 128:2 * fh + 128].view(f, 128).T),
+             total[2 * fh + 128:2 * fh + 128 + f])
+    new = [p - lr * g for p, g in zip((w_enc, b_enc, w_dec, b_dec), grads)]
+    return [t.numpy() for t in new], float(total[-1] / count)
+
+
+# fewer rows than one tile; one tile per block; more tiles than blocks
+# (the grid-stride loop runs, and the reduce's runs are 17 slots long)
+@pytest.mark.parametrize("n, feat", [(100, 32), (384, 40), (8192, 32)])
+def test_kernel_reduction_order_keeps_parity_with_jax(n, feat):
+    rng = np.random.default_rng(n + feat)
+    x = rng.standard_normal((n, feat)).astype(np.float32)
+    noise = rng.standard_normal((n, feat)).astype(np.float32)
+    _, _, arrays = _arrays(feat, seed=n)
+    pj, lj = jax.jit(lambda p, x, nz: ref.denoise_step_with_noise(
+        p, x, nz, lr=LR))(_jax_params(arrays), jnp.asarray(x),
+                          jnp.asarray(noise))
+    got, loss = _kernel_order_step(arrays, x, noise, lr=LR)
+    for name, g, want in zip(anomaly.AnomalyParams._fields, got, pj):
+        np.testing.assert_allclose(g, np.asarray(want), rtol=0,
+                                   atol=PARAM_ATOL, err_msg=name)
+    np.testing.assert_allclose(loss, float(lj), rtol=LOSS_RTOL)
