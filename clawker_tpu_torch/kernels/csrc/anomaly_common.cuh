@@ -49,8 +49,9 @@ __device__ __forceinline__ float gelu_tanh_grad(float a) {
 
 // ---------------------------------------------------------------------------
 // The forward of one row tile on the tensor cores (mma.sync, bf16 operands,
-// fp32 accumulation: the products are exact, only the order of the sum
-// differs from the plain version).
+// fp32 accumulation: the products are exact; the sum's order differs from
+// the plain version's, and it behaves like rounding toward zero after each
+// 16-deep step rather than to nearest).
 //
 // Operands in shared memory, all bf16, k contiguous:
 //   xb  [R][ldx]   the tile's rows, bf(x), k = feature (kp of them, zeros

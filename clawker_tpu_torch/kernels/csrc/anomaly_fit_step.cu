@@ -38,8 +38,9 @@
 //   with coalesced stores.
 // * The two forward products have bf16 operands on both sides: they run
 //   on the tensor cores (mma.sync m16n8k16 bf16 -> fp32, forward_tile in
-//   anomaly_common.cuh).  The products are exact; only the sum's order
-//   changes.
+//   anomaly_common.cuh).  The products are exact; the fp32 accumulation
+//   behaves like rounding toward zero after each 16-deep step, so now and
+//   then a bf16(g) lands one ulp off the plain version's.
 // * The three backward products (dr . bf(W_dec)^T, bf(noisy)^T . da,
 //   bf(g)^T . dr) multiply the UNROUNDED fp32 cotangent: a bf16 MMA would
 //   round it, and TF32 would drop 13 of its bits, so they stay fp32 FMAs on
@@ -64,14 +65,10 @@
 namespace anomaly {
 
 // K2's tiling; kernels/anomaly.py names the same numbers (FIT_ROWS,
-// FIT_MAX_BLOCKS, REDUCE_GROUPS) to size the scratch and to replay the
-// order of the sums.  K1 keeps kTileRows.
-// R, rows per tile: 32 (measured against 64 by fit_rows_sweep.py, which
-// builds with ANOMALY_FIT_ROWS set)
-#ifndef ANOMALY_FIT_ROWS
-#define ANOMALY_FIT_ROWS 32
-#endif
-constexpr int kFitRows = ANOMALY_FIT_ROWS;
+// FIT_MAX_BLOCKS, REDUCE_GROUPS) to size the scratch, and the CPU tests
+// group their sums by them.  K1 keeps kTileRows.
+constexpr int kFitRows = 32;         // R, rows per tile: faster than 64 on
+                                     // an H100 at every main-path shape
 constexpr int kFitThreads = 256;     // 8 warps
 constexpr int kFitMaxBlocks = 132;   // G <= one block per H100 SM
 constexpr int kReduceSlice = 64;     // parameters per reduce block

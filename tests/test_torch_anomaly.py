@@ -256,12 +256,16 @@ def test_fit_step_checks_its_scratch(bad):
         assert np.array_equal(p.numpy(), a)
 
 
-def _kernel_order_step(arrays, x, noise, *, lr, sigma=0.25):
-    """One denoising step with K2's gradient sums in K2's order: launch A's
-    block b sums its row tiles b, b + G, ... (FIT_ROWS rows each) into one
-    fp32 slot; launch B sums each of REDUCE_GROUPS contiguous runs of slots
-    in order and combines the runs in the kernel's tree, then rounds the
-    full weight sums to bf16 and applies the update."""
+def _grouped_sum_step(arrays, x, noise, *, lr, sigma=0.25):
+    """One denoising step with the gradient sums grouped as K2 groups them:
+    block b's slot adds up the fp32 sums of its row tiles b, b + G, ...
+    (FIT_ROWS rows each, one matmul per tile); the REDUCE_GROUPS
+    contiguous runs of slots are summed in order and combined in K2's
+    tree; the full weight sums are rounded to bf16 once, then applied.
+    This is K2's tiling, not its exact order of additions (launch A keeps
+    one FMA chain per element over all of a block's rows, and its forward
+    runs on the tensor cores): it shows that partial sums per tile and
+    slot, rounded only at the end, keep parity with JAX."""
     from clawker_tpu_torch.kernels import reference as R
 
     w_enc, b_enc, w_dec, b_dec = (torch.from_numpy(a) for a in arrays)
@@ -318,7 +322,7 @@ def test_kernel_reduction_order_keeps_parity_with_jax(n, feat):
     pj, lj = jax.jit(lambda p, x, nz: ref.denoise_step_with_noise(
         p, x, nz, lr=LR))(_jax_params(arrays), jnp.asarray(x),
                           jnp.asarray(noise))
-    got, loss = _kernel_order_step(arrays, x, noise, lr=LR)
+    got, loss = _grouped_sum_step(arrays, x, noise, lr=LR)
     for name, g, want in zip(anomaly.AnomalyParams._fields, got, pj):
         np.testing.assert_allclose(g, np.asarray(want), rtol=0,
                                    atol=PARAM_ATOL, err_msg=name)
