@@ -5,22 +5,26 @@
 
 1. Prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``clawker_tpu_torch/kernels/csrc`` into ``build/kernels/``.
-2. Kernel phase: K1 (score) and K2 (fit step) against their plain PyTorch
-   versions on the card, at the main path's shapes, one ragged n, fewer
-   rows than one K2 tile, more K2 tiles than blocks and one odd F for
-   each width K2 pads F to (16, 64), with the tolerances below; each
-   K2 fit also beside the plain fit on the CPU, the drift that summation
-   order alone gives; two K2 fits from the same inputs must agree bit
-   for bit; each kernel's median time beside its bound.  K2's registers
-   and spills as ptxas reports them (spills must be 0).
+2. Kernel phase: K1 (score), K2 (fit step) and K3 (the whole fit, one
+   launch) against their plain PyTorch versions on the card, at the main
+   path's shapes, one ragged n, fewer rows than one K2 tile, more K2
+   tiles than blocks and one odd F for each width K2 pads F to (16, 64),
+   with the tolerances below; each K2 fit also beside the plain fit on
+   the CPU, the drift that summation order alone gives; two K2 fits, and
+   two K3 fits, from the same inputs must agree bit for bit, and K3 bit
+   for bit with the loop of K2 launches; each kernel's median time beside
+   its bound.  K2's and K3's registers and spills as ptxas reports them
+   (spills must be 0).
 3. Main-path phase, at full width (F = 32 / 40, H = 128): ``score_windows``
    on the bench's synthetic fleet ([640, 32] padded) and on an hour of a
    64-agent fleet ([4224, 32]), 120 fit steps each; the sentinel's
    ``ScoringEngine.score_tick`` on the 64-agent fused tick ([384, 40],
    40 steps) three times; a seeded exfil agent must score hottest.  The
-   kernels' launch counters are zeroed before and read after each run.
-   Each case prints its fit's ``train_ms`` and the host's enqueue time
-   per fit step (the Python loop of K2 launches, no synchronize inside).
+   kernels' launch counters are zeroed before and read after each run:
+   every fit is one K3 launch and no K2 launch.  Each case prints its
+   fit's ``train_ms``, the host's enqueue time per fit (no synchronize
+   inside), K3's device time per fit beside its bound, and the noise
+   draw's (K4) device time beside its bound.
 4. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device.
 
@@ -85,6 +89,7 @@ KERNEL_SHAPES = [(100, 32), (130, 7), (200, 40), (256, 40), (260, 61),
                  (8192, 32)]
 TIMED_SHAPE = (4224, 32)
 FIT_STEPS = 120
+SPIN_CYCLES = 1_000_000   # ~0.5 ms: covers the host's enqueue in event_ms
 
 
 def synth_egress_records(agents: int = 8, windows: int = 64,
@@ -180,6 +185,30 @@ def cuda_ms(fn, *, batches: int = 15, per_batch: int = 20) -> float:
     return statistics.median(times)
 
 
+def event_ms(fn, *, reps: int = 15) -> float:
+    """Median device time of one call of ``fn`` by CUDA events, for calls
+    too long or too many-launched to capture in a graph (K3's fit, the
+    plain fit, the noise draw).  A spin kernel keeps the card busy while
+    the host enqueues the events and the call, so the host's dispatch of a
+    one-launch call is not in its time; a call whose host work outlasts
+    the spin (the plain fit's thousands of launches) is timed with it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def host_us(fn, *, reps: int = 200) -> float:
     """Median wall time per call of ``fn`` as the host sees it, each call
     synchronized: dispatch, launch and device time together."""
@@ -213,6 +242,17 @@ def fit_step_bound(n: int, f: int) -> tuple[float, str]:
     nbytes = 4 * (2 * n * f + 2 * params + 1)
     t_ops = 4 * n * f * HIDDEN / BF16_FLOPS + 6 * n * f * HIDDEN / FP32_FLOPS
     return _bound(nbytes / HBM_BPS, t_ops)
+
+
+def fit_bound(n: int, f: int, steps: int) -> tuple[float, str]:
+    """Least time of K3: ``steps`` times K2's."""
+    bound, by = fit_step_bound(n, f)
+    return steps * bound, by
+
+
+def noise_bound(n: int, f: int, steps: int) -> tuple[float, str]:
+    """Least time of the noise draw (K4): steps x n x F floats written."""
+    return _bound(4 * steps * n * f / HBM_BPS, 0.0)
 
 
 def _bound(t_bytes: float, t_ops: float) -> tuple[float, str]:
@@ -256,7 +296,7 @@ def kernel_phase(device) -> dict:
     from clawker_tpu_torch.kernels import anomaly as K
     from clawker_tpu_torch.kernels import reference as R
 
-    errs = {K.SCORE: 0.0, K.FIT_STEP: 0.0}
+    errs = {K.SCORE: 0.0, K.FIT_STEP: 0.0, K.FIT: 0.0}
     timings = {}
     for n, f in KERNEL_SHAPES:
         params, x, noises = _inputs(n, f, FIT_STEPS, device, seed=n + f)
@@ -326,6 +366,33 @@ def kernel_phase(device) -> dict:
               and torch.equal(k_loss, q_loss),
               f"K2 [{n},{f}]: two fits from the same inputs differ")
 
+        # K3: the whole fit in one launch, bit for bit the loop of K2
+        # launches, within K2's tolerances of the plain fit, and twice the
+        # same
+        fits = []
+        for _ in range(2):
+            fp = tuple(p.clone() for p in params)
+            f_loss = torch.empty(FIT_STEPS, device=device)
+            K.fit_(fp, x, noises, lr=1e-2, sigma=0.25, losses_out=f_loss,
+                   scratch=scratch)
+            torch.cuda.synchronize()
+            fits.append((fp, f_loss))
+        fp, f_loss = fits[0]
+        off = (f_loss != k_loss).nonzero()
+        check(all(torch.equal(p, q) for p, q in zip(fp, kp)) and not len(off),
+              f"K3 [{n},{f}]: not bit-identical to {FIT_STEPS} K2 launches:"
+              f" params {_max_abs(fp, kp):.3g} apart, first loss apart at "
+              f"step {int(off[0]) if len(off) else None}")
+        err = _max_abs(fp, rp)
+        check(err <= FIT_PARAM_ATOL,
+              f"K3 [{n},{f}] params after {FIT_STEPS} steps off by {err:.3g}")
+        ok, lerr = _close(f_loss, r_loss, rtol=rtol)
+        check(ok, f"K3 [{n},{f}] per-step losses off by {lerr:.3g}")
+        errs[K.FIT] = max(errs[K.FIT], err)
+        check(all(torch.equal(p, q) for p, q in zip(fp, fits[1][0]))
+              and torch.equal(f_loss, fits[1][1]),
+              f"K3 [{n},{f}]: two fits from the same inputs differ")
+
         # K1 again on the fitted params: the scores the lane reports
         ok, err = _close(K.score(kp, x), R.score(*kp, x),
                          rtol=SCORE_RTOL, atol=SCORE_ATOL)
@@ -353,6 +420,25 @@ def kernel_phase(device) -> dict:
                   f"host per synchronized call "
                   f"{host_us(kernel_call):.2f} us (plain device "
                   f"{plain * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {by})")
+        # K3: one launch per fit, timed alone by events
+        tq = tuple(p.clone() for p in params)
+        losses = torch.empty(FIT_STEPS, device=device)
+
+        def fit_call():
+            K.fit_(tq, x, noises, lr=1e-2, sigma=0.25, losses_out=losses,
+                   scratch=scratch)
+
+        ms = event_ms(fit_call)
+        plain = event_ms(lambda: R.fit(*params, x, noises, 1e-2, 0.25),
+                         reps=5)
+        bound, by = fit_bound(n, f, FIT_STEPS)
+        row[K.FIT] = (ms, plain, bound, by)
+        k2 = row[K.FIT_STEP][0]
+        print(f"kernel {K.FIT} [{n},{f}]: device {ms:.4f} ms per "
+              f"{FIT_STEPS}-step fit, {ms / FIT_STEPS * 1e3:.2f} us per step "
+              f"({FIT_STEPS} x K2 {FIT_STEPS * k2:.4f} ms), host per "
+              f"synchronized call {host_us(fit_call, reps=20):.2f} us (plain "
+              f"fit {plain:.3f} ms, bound {bound:.4f} ms by {by})")
         timings[(n, f)] = row
     print(f"kernel tolerances: score rtol {SCORE_RTOL} atol {SCORE_ATOL}; "
           f"fit step 1: params atol {STEP1_PARAM_ATOL}, loss rtol "
@@ -360,7 +446,8 @@ def kernel_phase(device) -> dict:
           f"{FIT_PARAM_ATOL}, losses rtol {FIT_LOSS_RTOL} (F < {NARROW_F}: "
           f"{NARROW_FIT_LOSS_RTOL}), each step's loss rtol {FIT_LOSS_RTOL}"
           f" against the plain loss of the kernel's own params; two K2 fits "
-          f"bit-identical at every shape")
+          f"bit-identical at every shape; K3 at K2's {FIT_STEPS}-step "
+          f"tolerances, bit-identical to the K2 loop and to itself")
     print(f"kernel max abs err: {json.dumps(errs)}")
     return {"errs": errs, "timings": timings}
 
@@ -392,11 +479,14 @@ def _counted(fn):
     return out, dict(K.LAUNCHES)
 
 
-def fit_enqueue(X, *, steps: int = FIT_STEPS, device, reps: int = 5):
-    """-> (host us per step to enqueue the fit loop, the fit's wall ms),
-    medians over ``reps`` fits on the padded windows of X: the host clock
-    stops once the loop has queued its launches, and again after a
-    synchronize.  Not counted: the caller runs it outside ``_counted``."""
+def fit_report(name: str, X, steps: int, device, reps: int = 5) -> None:
+    """Prints the fit of the padded windows of X, as ``_fit_and_score``
+    runs it (one K3 launch), and its noise draw (K4): the host's us to
+    enqueue the fit and the fit's wall ms, medians over ``reps`` fits (the
+    host clock stops once the launch is queued, and again after a
+    synchronize); K3's and the noise draw's device time by ``event_ms``,
+    each beside its bound; K3's phase split.  Not counted: the caller
+    runs it outside ``_counted``."""
     import torch
 
     from clawker_tpu_torch.analytics import runtime as art
@@ -411,9 +501,49 @@ def fit_enqueue(X, *, steps: int = FIT_STEPS, device, reps: int = 5):
         t1 = time.perf_counter()
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        enqueue.append((t1 - t0) / steps * 1e6)
+        enqueue.append((t1 - t0) * 1e6)
         wall.append((t2 - t0) * 1e3)
-    return statistics.median(enqueue), statistics.median(wall)
+    params, noises = art._draw(0, steps, x)
+    fit_ms = event_ms(lambda: art._fit(params, x, noises, 1e-2))
+    split = phase_split(params, x, noises)
+    gen = torch.Generator(device=x.device).manual_seed(1)
+    draw_ms = event_ms(lambda: torch.randn(noises.shape, device=x.device,
+                                           generator=gen))
+    n, f = x.shape
+    bound, by = fit_bound(n, f, steps)
+    nbound, _ = noise_bound(n, f, steps)
+    print(f"main path {name}: fit enqueue "
+          f"{statistics.median(enqueue):.2f} us per fit on the host, fit "
+          f"wall {statistics.median(wall):.3f} ms (median of {reps}); K3 "
+          f"device {fit_ms:.4f} ms per {steps}-step fit, "
+          f"{fit_ms / steps * 1e3:.2f} us per step (bound {bound:.4f} ms by "
+          f"{by}); noise draw (K4) device {draw_ms * 1e3:.2f} us (bound "
+          f"{nbound * 1e3:.2f} us by bytes)")
+    print(f"main path {name}: K3 per step, mean us of the phase trace: "
+          f"phase A {split[0]:.2f}, barrier {split[1]:.2f}, phase B "
+          f"{split[2]:.2f}, barrier {split[3]:.2f}")
+
+
+def phase_split(params, x, noises) -> list[float]:
+    """One K3 fit with its phase trace on: -> the mean us per step of
+    phase A (first block in to last block out), the first barrier (last
+    block in to first block out), phase B and the second barrier.  K3
+    runs one block per SM on an H100 (``anomaly_fit.cu``)."""
+    import torch
+
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    steps = len(noises)
+    blocks = torch.cuda.get_device_properties(0).multi_processor_count
+    stamps = torch.zeros(4 * steps * blocks, dtype=torch.int64,
+                         device=x.device)
+    K.fit_(params, x, noises, lr=1e-2, sigma=0.25,
+           losses_out=torch.empty(steps, device=x.device), stamps=stamps)
+    t = stamps.view(steps, 4, blocks).double().cpu()
+    first, last = t.min(2).values, t.max(2).values
+    spans = [last[:, 1] - first[:, 0], first[:, 2] - last[:, 1],
+             last[:, 3] - first[:, 2], first[1:, 0] - last[:-1, 3]]
+    return [float(v.mean()) / 1e3 for v in spans]
 
 
 def _check_report(name: str, raw, z, n_windows: int) -> None:
@@ -424,6 +554,17 @@ def _check_report(name: str, raw, z, n_windows: int) -> None:
     check(bool(np.isfinite(raw).all() and np.isfinite(z).all()),
           f"{name}: non-finite scores")
     check(bool((raw >= 0).all()), f"{name}: negative squared error")
+
+
+def _check_fit_launches(name: str, counts: dict) -> None:
+    """One fit is one K3 launch and no K2 launch; one score one K1."""
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    check(counts[K.FIT] == 1 and counts[K.FIT_STEP] == 0,
+          f"{name}: {counts[K.FIT]} fit and {counts[K.FIT_STEP]} fit-step "
+          f"launches, want 1 and 0")
+    check(counts[K.SCORE] == 1,
+          f"{name}: {counts[K.SCORE]} score launches, want 1")
 
 
 def main_path_phase(device) -> dict:
@@ -450,24 +591,19 @@ def main_path_phase(device) -> dict:
         rep, counts = _counted(lambda: art.score_windows(
             X, keys, train_steps=FIT_STEPS, device=device))
         _check_report(name, rep.raw, rep.z, len(keys))
-        check(counts[K.FIT_STEP] == FIT_STEPS,
-              f"{name}: {counts[K.FIT_STEP]} fit-step launches, "
-              f"want {FIT_STEPS}")
-        check(counts[K.SCORE] >= 1, f"{name}: score kernel never launched")
+        _check_fit_launches(name, counts)
         add(counts)
         # steady-state score step on the fitted params (not counted)
         _, params, x, _ = art._fit_and_score(
             X, train_steps=FIT_STEPS, lr=1e-2, seed=0, device=device)
         us = host_us(lambda: K.score(params, x), reps=100)
         step_us[name] = us
-        enq, wall = fit_enqueue(X, device=device)
         print(f"main path {name}: windows {len(keys)} padded "
               f"{tuple(x.shape)}, fit {FIT_STEPS} steps train_ms "
               f"{rep.train_ms:.2f}, score {rep.score_ms:.3f} ms, "
               f"score step {us:.2f} us, launches {json.dumps(counts)}, "
               f"device {rep.device}")
-        print(f"main path {name}: fit enqueue {enq:.2f} us per step on the "
-              f"host, fit wall {wall:.2f} ms (median of 5)")
+        fit_report(name, X, FIT_STEPS, device)
 
     # the sentinel's 64-agent fused tick
     recs = synth_egress_records(agents=64, windows=4, per_window=16)
@@ -481,24 +617,20 @@ def main_path_phase(device) -> dict:
         rep, counts = _counted(lambda: eng.score_tick(keys, X, worker_of))
         ticks.append((time.perf_counter() - t0) * 1e3)
         _check_report("sentinel tick", rep.raw, rep.z, len(keys))
-        check(counts[K.FIT_STEP] == eng.train_steps,
-              f"sentinel tick: {counts[K.FIT_STEP]} fit-step launches, "
-              f"want {eng.train_steps}")
-        check(counts[K.SCORE] >= 1, "sentinel tick: score never launched")
+        _check_fit_launches("sentinel tick", counts)
         add(counts)
-    enq, wall = fit_enqueue(X, steps=eng.train_steps, device=device)
     print(f"main path sentinel tick [{len(keys)},{X.shape[1]}]: "
           f"{eng.train_steps} steps, train_ms {rep.train_ms:.2f}, score "
           f"{rep.score_ms:.3f} ms, tick ms {[round(t, 2) for t in ticks]}, "
           f"device {rep.device}")
-    print(f"main path sentinel tick: fit enqueue {enq:.2f} us per step on "
-          f"the host, fit wall {wall:.2f} ms (median of 5)")
+    fit_report("sentinel tick", X, eng.train_steps, device)
 
     # a seeded exfil burst must score hottest
     recs = synth_egress_records() + exfil_burst("clawker.loop-3", window=63)
     keys, X = F.featurize(recs)
     rep, counts = _counted(lambda: art.score_windows(
         X, keys, train_steps=FIT_STEPS, device=device))
+    _check_fit_launches("exfil", counts)
     add(counts)
     hottest = max(rep.agents, key=lambda a: a.peak)
     check(hottest.agent == "clawker.loop-3",
@@ -555,6 +687,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     print(f"build: {build.build_all():.1f} s")
     ptxas_report(K.FIT_STEP)
+    ptxas_report(K.FIT)
     device = "cuda"
     kernels = kernel_phase(device)
     main_path = main_path_phase(device)
@@ -565,9 +698,10 @@ def main() -> int:
     replaces = {
         K.SCORE: "clawker_tpu/analytics/anomaly.py:59",
         K.FIT_STEP: "clawker_tpu/analytics/anomaly.py:96",
+        K.FIT: "clawker_tpu/analytics/runtime.py:128-144",
     }
     record = []
-    for name in (K.SCORE, K.FIT_STEP):
+    for name in (K.SCORE, K.FIT_STEP, K.FIT):
         ms, plain, bound, by = kernels["timings"][(n, f)][name]
         record.append({
             "name": name, "route": "cuda",

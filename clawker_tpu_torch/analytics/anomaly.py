@@ -104,6 +104,6 @@ def denoise_step_with_noise(
     lr: float = 1e-3, sigma: float = 0.25,
 ) -> tuple[AnomalyParams, torch.Tensor]:
     """Denoising step with CALLER-SUPPLIED unit noise -> (new params,
-    loss).  The inputs are left as they were; the runtime's fit loop
-    updates in place through ``kernels.anomaly.fit_step_`` instead."""
+    loss).  The inputs are left as they were; the runtime's fit updates
+    in place through ``kernels.anomaly.fit_`` instead."""
     return _step(params, x, noise, lr, sigma)

@@ -9,8 +9,9 @@ blocking its callers.
 
 Every entry point takes ``device`` (default ``"cuda"``).  Without a GPU
 a CUDA device raises: the lane never carries on on the CPU unless the
-caller asks for ``device="cpu"``.  On the card the fit is a loop of K2
-launches that update the params in place and the score one K1 launch
+caller asks for ``device="cpu"``.  On the card the whole fit is one K3
+launch that updates the params in place, as the reference's jitted
+``lax.scan`` is one device program, and the score one K1 launch
 (``kernels/anomaly.py``); there is nothing to compile, so the
 reference's jit and XLA caches have no counterpart.
 """
@@ -102,15 +103,10 @@ def _pad_rows(X: np.ndarray, width: int) -> np.ndarray:
 
 def _fit(params: anomaly.AnomalyParams, x: torch.Tensor,
          noises: torch.Tensor, lr: float) -> torch.Tensor:
-    """The fit loop: one K2 step per row of ``noises`` [steps, n, F],
-    updating ``params`` in place, with one scratch for all steps.
-    -> losses [steps]."""
+    """The fit: one denoising step per row of ``noises`` [steps, n, F],
+    updating ``params`` in place, in one K3 launch.  -> losses [steps]."""
     losses = torch.empty(len(noises), dtype=torch.float32, device=x.device)
-    scratch = torch.empty(K.scratch_floats(*x.shape), dtype=torch.float32,
-                          device=x.device)
-    for step in range(len(noises)):
-        K.fit_step_(params, x, noises[step], lr=lr, sigma=0.25,
-                    loss_out=losses, step=step, scratch=scratch)
+    K.fit_(params, x, noises, lr=lr, sigma=0.25, losses_out=losses)
     return losses
 
 

@@ -1,4 +1,4 @@
-"""Wrappers of the anomaly kernels: K1 (score) and K2 (fit step).
+"""Wrappers of the anomaly kernels: K1 (score), K2 (fit step) and K3 (fit).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, and launches on the current
@@ -20,16 +20,17 @@ from .build import kernel
 
 HIDDEN = 128
 MAX_FEATURES = 64
-# K2's tiling, named once more in csrc/anomaly_fit_step.cu (kFitRows,
-# kFitMaxBlocks, kReduceGroups): rows per tile, the cap on launch A's
-# blocks (one partial slot each), and launch B's groups of slots
+# The fit step's tiling, named once more in csrc/anomaly_fit_phases.cuh
+# (kFitRows, kFitMaxBlocks, kReduceGroups): rows per tile, the cap on
+# phase A's blocks (one partial slot each), and phase B's groups of slots
 FIT_ROWS = 32
 FIT_MAX_BLOCKS = 132
 REDUCE_GROUPS = 8
 
 SCORE = "anomaly_score"
 FIT_STEP = "anomaly_fit_step"
-LAUNCHES = {SCORE: 0, FIT_STEP: 0}
+FIT = "anomaly_fit"
+LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0}
 
 
 def reset_launches() -> None:
@@ -85,12 +86,13 @@ def score(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def fit_slots(n: int) -> int:
-    """Blocks of K2's launch A, each one slot of partial sums."""
+    """Blocks of phase A (K2's launch A), each one slot of partial sums."""
     return min(-(-n // FIT_ROWS), FIT_MAX_BLOCKS)
 
 
 def scratch_floats(n: int, f: int) -> int:
-    """Floats of K2's partial-gradient scratch for x of shape [n, f]."""
+    """Floats of the partial-gradient scratch of K2 and K3 for x of shape
+    [n, f]."""
     return fit_slots(n) * (2 * f * HIDDEN + HIDDEN + f + 1)
 
 
@@ -103,7 +105,7 @@ def _check_scratch(scratch: torch.Tensor, x: torch.Tensor, n: int,
     if not scratch.is_contiguous():
         raise ValueError("scratch must be contiguous")
     if scratch.numel() < scratch_floats(n, f):
-        raise ValueError(f"scratch holds {scratch.numel()} floats, K2 needs "
+        raise ValueError(f"scratch holds {scratch.numel()} floats, needs "
                          f"{scratch_floats(n, f)} for [{n}, {f}]")
 
 
@@ -141,3 +143,52 @@ def fit_step_(params, x: torch.Tensor, noise: torch.Tensor | None, *,
                  loss_out.data_ptr() + step * loss_out.element_size(),
                  lr, n, f, stream)
     _launched(FIT_STEP, err)
+
+
+def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
+         sigma: float, losses_out: torch.Tensor,
+         scratch: torch.Tensor | None = None,
+         stamps: torch.Tensor | None = None) -> None:
+    """K3, in place: the whole fit, one denoising SGD step on ``params`` for
+    each [n, F] noise of ``noises`` [steps, n, F], in one launch; writes
+    each step's loss (before its update) to ``losses_out[step]``.
+    ``scratch`` is as for ``fit_step_``; None allocates it.  ``stamps``
+    (int64 on the card, at least 4 x steps x the launch's blocks, one per
+    SM) asks the kernel for a trace of its phases: see
+    ``csrc/anomaly_fit.cu``.  The CPU path takes none."""
+    n, f = _check(params, x, noises, losses_out)
+    if noises.dim() != 3 or tuple(noises.shape[1:]) != (n, f):
+        raise ValueError(f"noises must be [steps, {n}, {f}], got "
+                         f"{tuple(noises.shape)}")
+    steps = noises.shape[0]
+    if losses_out.dim() != 1 or losses_out.numel() != steps:
+        raise ValueError(f"losses_out must hold {steps} losses, got shape "
+                         f"{tuple(losses_out.shape)}")
+    if scratch is not None:
+        _check_scratch(scratch, x, n, f)
+    if stamps is not None and (stamps.dtype != torch.int64
+                               or stamps.device != x.device
+                               or x.device.type != "cuda"
+                               or not stamps.is_contiguous()):
+        raise ValueError("stamps must be a contiguous int64 tensor on x's "
+                         "CUDA device")
+    if steps == 0:
+        return
+    if x.device.type == "cpu":
+        new, losses = reference.fit(*params, x, noises, lr, sigma)
+        for p, q in zip(params, new):
+            p.copy_(q)
+        losses_out.copy_(losses)
+        return
+    fn = kernel(FIT)
+    if scratch is None:
+        scratch = torch.empty(scratch_floats(n, f), dtype=torch.float32,
+                              device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(x.data_ptr(), noises.data_ptr(), sigma,
+                 *(p.data_ptr() for p in params),
+                 scratch.data_ptr(), scratch.numel(), losses_out.data_ptr(),
+                 lr, n, f, steps, 0 if stamps is None else stamps.data_ptr(),
+                 0 if stamps is None else stamps.numel(), stream)
+    _launched(FIT, err)

@@ -31,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("anomaly_score", "anomaly_fit_step")
+SOURCES = ("anomaly_score", "anomaly_fit_step", "anomaly_fit")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +46,10 @@ SIGNATURES = {
     # partials_floats, loss_out, lr, n, f, stream
     "anomaly_fit_step": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _P, _F, _I, _I,
                          _P],
+    # x, noises, sigma, w_enc, b_enc, w_dec, b_dec, partials,
+    # partials_floats, losses, lr, n, f, steps, stamps, stamps_len, stream
+    "anomaly_fit": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _P, _F, _I, _I, _I,
+                    _P, _L, _P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,4 @@
-// Shared device helpers of the anomaly kernels (score and fit step).
+// Shared device helpers of the anomaly kernels (score, fit step, fit).
 //
 // The rounding points follow the JAX reference (clawker_tpu/analytics/
 // anomaly.py): bf16 dot operands with fp32 accumulation, the tanh form of
@@ -99,19 +99,21 @@ __device__ __forceinline__ void load_b(uint32_t b[2], const __nv_bfloat16* s,
 // of 8): a transpose into the n-major layout of a B operand.  A warp writes
 // an 8 n x 8 k block, lane (g, t) the pair (n0 + g, k0 + 2t): the same
 // pattern as a fragment load, so with the stride rule above no two lanes
-// hit one bank.
+// hit one bank.  `src` is read through L2 (__ldcg): the fit kernel stages
+// params that it wrote itself, which the read-only path may not see.
 __device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst, int ld,
-                                                 const float* __restrict__ src,
-                                                 int lds, int K, int N, int kp,
-                                                 int np, int tid, int threads) {
+                                                 const float* src, int lds,
+                                                 int K, int N, int kp, int np,
+                                                 int tid, int threads) {
   const int nblocks = np / 8;
   for (int w = tid; w < np * kp / 2; w += threads) {
     const int chunk = w >> 5;
     const int lane = w & 31;
     const int n = (chunk % nblocks) * 8 + (lane >> 2);
     const int k = (chunk / nblocks) * 8 + 2 * (lane & 3);
-    const float v0 = (n < N && k < K) ? src[k * lds + n] : 0.0f;
-    const float v1 = (n < N && k + 1 < K) ? src[(k + 1) * lds + n] : 0.0f;
+    const float v0 = (n < N && k < K) ? __ldcg(src + k * lds + n) : 0.0f;
+    const float v1 =
+        (n < N && k + 1 < K) ? __ldcg(src + (k + 1) * lds + n) : 0.0f;
     *reinterpret_cast<__nv_bfloat162*>(dst + n * ld + k) =
         __floats2bfloat162_rn(v0, v1);
   }
@@ -122,12 +124,13 @@ __device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst, int ld,
 //   a = bf(x) . bf(W_enc) + b_enc    -> as[i][h] (fp32; skipped if null)
 //   gs[i][h] = bf(gelu(a))
 //   r = gs . bf(W_dec)               -> epi(i, j, r_ij) for i < R, j < np
-// b_dec is left to `epi`.  The caller syncs before (xb, weT, wdT staged)
-// and after (epi's writes); one __syncthreads sits between the layers.
+// b_dec is left to `epi`; b_enc is read through L2 (__ldcg), as the staged
+// weights are.  The caller syncs before (xb, weT, wdT staged) and after
+// (epi's writes); one __syncthreads sits between the layers.
 template <int R, int kWarps, class Epi>
 __device__ __forceinline__ void forward_tile(
     const __nv_bfloat16* xb, int ldx, int kp, const __nv_bfloat16* weT,
-    int ldw, const float* __restrict__ b_enc, float* as, int lda,
+    int ldw, const float* b_enc, float* as, int lda,
     __nv_bfloat16* gs, int ldg, const __nv_bfloat16* wdT, int ldd, int np,
     int warp, int lane, Epi epi) {
   constexpr int kMt = R / 16;
@@ -158,8 +161,8 @@ __device__ __forceinline__ void forward_tile(
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       const int h = (nt0 + q * kStep) * 8 + t2;
-      const float b0 = b_enc[h];
-      const float b1 = b_enc[h + 1];
+      const float b0 = __ldcg(b_enc + h);
+      const float b1 = __ldcg(b_enc + h + 1);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = m0 + g + 8 * half;

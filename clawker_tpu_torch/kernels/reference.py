@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the anomaly kernels (the score and the fit step).
+"""Plain PyTorch versions of the anomaly kernels: the score, the fit step
+and the fit (a loop of fit steps).
 
 Written out as explicit forward and backward formulas, no autograd, at
 the rounding points of the JAX reference (``clawker_tpu/analytics/
@@ -83,3 +84,17 @@ def fit_step(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
     new = tuple(p - lr * g for p, g in zip((w_enc, b_enc, w_dec, b_dec),
                                            grads))
     return new, loss
+
+
+def fit(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor, noises: torch.Tensor,
+        lr: float, sigma: float):
+    """``len(noises)`` denoising steps, one for each [n, F] noise of
+    ``noises`` [steps, n, F], as the reference's ``lax.scan`` of the step.
+
+    -> ((w_enc, b_enc, w_dec, b_dec) after the last step, losses [steps],
+    each the loss before its step)."""
+    params = (w_enc, b_enc, w_dec, b_dec)
+    losses = torch.empty(len(noises), dtype=torch.float32, device=x.device)
+    for step, noise in enumerate(noises):
+        params, losses[step] = fit_step(*params, x, noise, lr, sigma)
+    return params, losses

@@ -4,8 +4,8 @@ Port of ``ScoringEngine`` from ``clawker_tpu/sentinel/engine.py:35-181``.
 Each tick takes the fused (egress + behavior) window matrix for EVERY
 open window of EVERY agent in the fleet and runs the denoising
 autoencoder's fit and score over it at F = 40 through the port's
-``analytics.runtime._fit_and_score``: on one H100 that is a loop of K2
-launches and one K1 launch, unsharded.
+``analytics.runtime._fit_and_score``: on one H100 that is one K3
+launch (the whole fit) and one K1 launch, unsharded.
 
 Scores normalize in two stages: a robust (median/MAD) z within the
 tick, then re-centered against the agent's WORKER's rolling baseline of

@@ -109,7 +109,8 @@ def test_default_device_raises_instead_of_running_on_cpu():
     assert all(msg and "no CUDA GPU" in msg for msg in doc["raised"].values())
     assert set(doc["raised"]) == {"score_windows", "score_tick",
                                   "resolve_device"}
-    assert doc["launches"] == {"anomaly_score": 0, "anomaly_fit_step": 0}
+    assert doc["launches"] == {"anomaly_score": 0, "anomaly_fit_step": 0,
+                               "anomaly_fit": 0}
 
 
 def test_cpu_tensor_calls_leave_launch_counters_at_zero():
@@ -127,8 +128,11 @@ def test_cpu_tensor_calls_leave_launch_counters_at_zero():
         "anomaly.train_step(p, x)\n"
         "anomaly.denoise_step(p, x, g)\n"
         "art._fit(p, x, torch.randn((3, 256, 40), generator=g), 1e-2)\n"
+        "K.fit_(p, x, torch.randn((2, 256, 40), generator=g), lr=1e-2,\n"
+        "       sigma=0.25, losses_out=torch.empty(2))\n"
         "print(json.dumps({'launches': K.LAUNCHES, 'built': sorted(build._libs)}))\n")
-    assert doc == {"launches": {"anomaly_score": 0, "anomaly_fit_step": 0},
+    assert doc == {"launches": {"anomaly_score": 0, "anomaly_fit_step": 0,
+                                "anomaly_fit": 0},
                    "built": []}
 
 
