@@ -484,9 +484,9 @@ def fit_report(name: str, X, steps: int, device, reps: int = 5) -> None:
     runs it (one K3 launch), and its noise draw (K4): the host's us to
     enqueue the fit and the fit's wall ms, medians over ``reps`` fits (the
     host clock stops once the launch is queued, and again after a
-    synchronize); K3's and the noise draw's device time by ``event_ms``,
-    each beside its bound; K3's phase split.  Not counted: the caller
-    runs it outside ``_counted``."""
+    synchronize); the enqueue's parts; K3's and the noise draw's device
+    time by ``event_ms``, each beside its bound; K3's phase split.  Not
+    counted: the caller runs it outside ``_counted``."""
     import torch
 
     from clawker_tpu_torch.analytics import runtime as art
@@ -504,8 +504,9 @@ def fit_report(name: str, X, steps: int, device, reps: int = 5) -> None:
         enqueue.append((t1 - t0) * 1e6)
         wall.append((t2 - t0) * 1e3)
     params, noises = art._draw(0, steps, x)
+    parts = enqueue_parts(params, x, noises)
     fit_ms = event_ms(lambda: art._fit(params, x, noises, 1e-2))
-    split = phase_split(params, x, noises)
+    split, sub = phase_split(params, x, noises)
     gen = torch.Generator(device=x.device).manual_seed(1)
     draw_ms = event_ms(lambda: torch.randn(noises.shape, device=x.device,
                                            generator=gen))
@@ -519,31 +520,80 @@ def fit_report(name: str, X, steps: int, device, reps: int = 5) -> None:
           f"{fit_ms / steps * 1e3:.2f} us per step (bound {bound:.4f} ms by "
           f"{by}); noise draw (K4) device {draw_ms * 1e3:.2f} us (bound "
           f"{nbound * 1e3:.2f} us by bytes)")
+    print(f"main path {name}: fit enqueue parts, median us: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
     print(f"main path {name}: K3 per step, mean us of the phase trace: "
           f"phase A {split[0]:.2f}, barrier {split[1]:.2f}, phase B "
           f"{split[2]:.2f}, barrier {split[3]:.2f}")
+    print(f"main path {name}: K3 phase A's sub-stages, mean us per step "
+          f"and block: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in zip(A_SUBSTAGES, sub))
+          + f" (sum {sum(sub):.2f})")
 
 
-def phase_split(params, x, noises) -> list[float]:
+# phase A's sub-stages in the order of the trace's points 1-6
+A_SUBSTAGES = ("weights staged", "tile loaded", "forward", "dh/da",
+               "weight sums", "slot")
+
+
+def enqueue_parts(params, x, noises, reps: int = 50) -> dict:
+    """The parts of ``fit_``'s enqueue, median host us of each alone: the
+    wrapper's checks, the scratch's allocation (``runtime._fit`` passes
+    none), the C launch call, and the device and occupancy queries that
+    size the launch (``fit_blocks``)."""
+    import torch
+
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    n, f = x.shape
+    losses = torch.empty(len(noises), device=x.device)
+    scratch = torch.empty(K.scratch_floats(n, f), device=x.device)
+    parts = {
+        "checks": lambda: K._check_fit(params, x, noises, losses, None,
+                                       None),
+        "scratch alloc": lambda: torch.empty(K.scratch_floats(n, f),
+                                             device=x.device),
+        "launch call": lambda: K._launch_fit(params, x, noises, 0.25, 1e-2,
+                                             losses, scratch, None),
+        "device queries": lambda: K.fit_blocks(n, f),
+    }
+    out = {}
+    for name, fn in parts.items():
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        out[name] = statistics.median(times) * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_split(params, x, noises) -> tuple[list[float], list[float]]:
     """One K3 fit with its phase trace on: -> the mean us per step of
     phase A (first block in to last block out), the first barrier (last
-    block in to first block out), phase B and the second barrier.  K3
-    runs one block per SM on an H100 (``anomaly_fit.cu``)."""
+    block in to first block out), phase B and the second barrier; and of
+    phase A's sub-stages (``A_SUBSTAGES``), each the mean over the steps
+    and phase A's blocks of that block's time in it."""
     import torch
 
     from clawker_tpu_torch.kernels import anomaly as K
 
     steps = len(noises)
-    blocks = torch.cuda.get_device_properties(0).multi_processor_count
-    stamps = torch.zeros(4 * steps * blocks, dtype=torch.int64,
+    n, f = x.shape
+    blocks, ga = K.fit_blocks(n, f), K.fit_slots(n)
+    stamps = torch.zeros((steps, K.FIT_STAMPS, blocks), dtype=torch.int64,
                          device=x.device)
     K.fit_(params, x, noises, lr=1e-2, sigma=0.25,
            losses_out=torch.empty(steps, device=x.device), stamps=stamps)
-    t = stamps.view(steps, 4, blocks).double().cpu()
+    t = stamps.double().cpu()
     first, last = t.min(2).values, t.max(2).values
-    spans = [last[:, 1] - first[:, 0], first[:, 2] - last[:, 1],
-             last[:, 3] - first[:, 2], first[1:, 0] - last[:-1, 3]]
-    return [float(v.mean()) / 1e3 for v in spans]
+    spans = [last[:, 6] - first[:, 0], first[:, 7] - last[:, 6],
+             last[:, 8] - first[:, 7], first[1:, 0] - last[:-1, 8]]
+    sub = t[:, 1:7, :ga] - t[:, 0:6, :ga]
+    return ([float(v.mean()) / 1e3 for v in spans],
+            [float(v) / 1e3 for v in sub.mean(dim=(0, 2))])
 
 
 def _check_report(name: str, raw, z, n_windows: int) -> None:

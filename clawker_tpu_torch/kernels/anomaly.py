@@ -13,6 +13,8 @@ Layouts are the JAX reference's: ``w_enc`` [F, H], ``b_enc`` [H],
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import reference
@@ -30,6 +32,9 @@ REDUCE_GROUPS = 8
 SCORE = "anomaly_score"
 FIT_STEP = "anomaly_fit_step"
 FIT = "anomaly_fit"
+FIT_GRID = "anomaly_fit_grid"     # K3's launch size; launches nothing
+# K3's trace: points per step (csrc/anomaly_fit.cu, kStamps)
+FIT_STAMPS = 9
 LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0}
 
 
@@ -145,17 +150,18 @@ def fit_step_(params, x: torch.Tensor, noise: torch.Tensor | None, *,
     _launched(FIT_STEP, err)
 
 
-def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
-         sigma: float, losses_out: torch.Tensor,
-         scratch: torch.Tensor | None = None,
-         stamps: torch.Tensor | None = None) -> None:
-    """K3, in place: the whole fit, one denoising SGD step on ``params`` for
-    each [n, F] noise of ``noises`` [steps, n, F], in one launch; writes
-    each step's loss (before its update) to ``losses_out[step]``.
-    ``scratch`` is as for ``fit_step_``; None allocates it.  ``stamps``
-    (int64 on the card, at least 4 x steps x the launch's blocks, one per
-    SM) asks the kernel for a trace of its phases: see
-    ``csrc/anomaly_fit.cu``.  The CPU path takes none."""
+def fit_blocks(n: int, f: int) -> int:
+    """The blocks K3 launches for x of shape [n, f] on the current device
+    (one per SM, at least ``fit_slots(n)``): the last size of a trace."""
+    blocks = ctypes.c_int(0)
+    err = kernel(FIT_GRID)(n, f, ctypes.addressof(blocks))
+    if err:
+        raise RuntimeError(f"{FIT_GRID} failed: cudaError_t {err}")
+    return blocks.value
+
+
+def _check_fit(params, x, noises, losses_out, scratch, stamps):
+    """fit_'s checks of its arguments -> (n, f, steps)."""
     n, f = _check(params, x, noises, losses_out)
     if noises.dim() != 3 or tuple(noises.shape[1:]) != (n, f):
         raise ValueError(f"noises must be [steps, {n}, {f}], got "
@@ -166,12 +172,45 @@ def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
                          f"{tuple(losses_out.shape)}")
     if scratch is not None:
         _check_scratch(scratch, x, n, f)
-    if stamps is not None and (stamps.dtype != torch.int64
-                               or stamps.device != x.device
-                               or x.device.type != "cuda"
-                               or not stamps.is_contiguous()):
-        raise ValueError("stamps must be a contiguous int64 tensor on x's "
-                         "CUDA device")
+    if stamps is not None:
+        if stamps.dim() != 3 or tuple(stamps.shape[:2]) != (steps,
+                                                            FIT_STAMPS):
+            raise ValueError(f"stamps must be [{steps}, {FIT_STAMPS}, "
+                             f"blocks] (the trace's points per step), got "
+                             f"{tuple(stamps.shape)}")
+        if (stamps.dtype != torch.int64 or stamps.device != x.device
+                or x.device.type != "cuda" or not stamps.is_contiguous()):
+            raise ValueError("stamps must be a contiguous int64 tensor on "
+                             "x's CUDA device")
+    return n, f, steps
+
+
+def _launch_fit(params, x, noises, sigma, lr, losses_out, scratch,
+                stamps) -> None:
+    n, f = x.shape
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(FIT)(
+            x.data_ptr(), noises.data_ptr(), sigma,
+            *(p.data_ptr() for p in params), scratch.data_ptr(),
+            scratch.numel(), losses_out.data_ptr(), lr, n, f, len(noises),
+            0 if stamps is None else stamps.data_ptr(),
+            0 if stamps is None else stamps.numel(), stream)
+    _launched(FIT, err)
+
+
+def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
+         sigma: float, losses_out: torch.Tensor,
+         scratch: torch.Tensor | None = None,
+         stamps: torch.Tensor | None = None) -> None:
+    """K3, in place: the whole fit, one denoising SGD step on ``params`` for
+    each [n, F] noise of ``noises`` [steps, n, F], in one launch; writes
+    each step's loss (before its update) to ``losses_out[step]``.
+    ``scratch`` is as for ``fit_step_``; None allocates it.  ``stamps``
+    (int64 on the card, [steps, FIT_STAMPS, ``fit_blocks(n, F)``]) asks
+    the kernel for a trace of its phases: see ``csrc/anomaly_fit.cu``.
+    The CPU path takes none."""
+    n, f, steps = _check_fit(params, x, noises, losses_out, scratch, stamps)
     if steps == 0:
         return
     if x.device.type == "cpu":
@@ -180,15 +219,7 @@ def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
             p.copy_(q)
         losses_out.copy_(losses)
         return
-    fn = kernel(FIT)
     if scratch is None:
         scratch = torch.empty(scratch_floats(n, f), dtype=torch.float32,
                               device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), noises.data_ptr(), sigma,
-                 *(p.data_ptr() for p in params),
-                 scratch.data_ptr(), scratch.numel(), losses_out.data_ptr(),
-                 lr, n, f, steps, 0 if stamps is None else stamps.data_ptr(),
-                 0 if stamps is None else stamps.numel(), stream)
-    _launched(FIT, err)
+    _launch_fit(params, x, noises, sigma, lr, losses_out, scratch, stamps)

@@ -47,6 +47,10 @@ namespace cg = cooperative_groups;
 constexpr int kFitWidth = kFitThreads / kReduceGroups;   // 32 threads
 constexpr int kFitCols = 2;                              // columns each
 constexpr int kFitSlice = kFitWidth * kFitCols;          // parameters
+// The trace's points per step: the step's start; phase A's sub-stages
+// (weights staged, tile loaded, forward, dh/da, weight sums); phase A's
+// end (slot written); after the first barrier; after phase B
+constexpr int kStamps = 9;
 
 __device__ __forceinline__ long long global_ns() {
   long long t;
@@ -66,30 +70,71 @@ fit_kernel(const float* __restrict__ x, const float* __restrict__ noises,
   const int block = blockIdx.x;
   const int slices = (param_floats(f) + kFitSlice - 1) / kFitSlice;
   const size_t per_step = static_cast<size_t>(n) * f;
-  // stamps [steps][4][gridDim.x]: the block's clock at the step's start,
-  // after phase A, after the first barrier, after phase B
+  // stamps [steps][kStamps][gridDim.x]: the block's clock (thread 0's) at
+  // each point of the step; a block >= ga leaves phase A's points 1-5
   auto stamp = [&](int s, int k) {
     if (stamps != nullptr && threadIdx.x == 0) {
-      stamps[(s * 4 + k) * gridDim.x + block] = global_ns();
+      stamps[(s * kStamps + k) * gridDim.x + block] = global_ns();
     }
   };
   for (int s = 0; s < steps; ++s) {
     stamp(s, 0);
     if (block < ga) {
       fit_partials<FP>(block, ga, x, noises + s * per_step, sigma, w_enc,
-                       b_enc, w_dec, b_dec, partials, inv_count, n, f, smem);
+                       b_enc, w_dec, b_dec, partials, inv_count, n, f, smem,
+                       [&](int k) { stamp(s, k); });
     }
-    stamp(s, 1);
+    stamp(s, 6);
     grid.sync();
-    stamp(s, 2);
+    stamp(s, 7);
     for (int sl = block; sl < slices; sl += gridDim.x) {
       fit_reduce<kFitWidth, kFitCols>(
           sl, threadIdx.x, reinterpret_cast<float*>(smem), partials, ga, f,
           w_enc, b_enc, w_dec, b_dec, losses + s, lr, count);
     }
-    stamp(s, 3);
+    stamp(s, 8);
     grid.sync();
   }
+}
+
+// Above 48 KB of shared memory only after opting in: once for each FP
+template <int FP>
+cudaError_t opt_in() {
+  constexpr size_t smem = fit_smem_bytes(FP);
+  static bool opted = smem <= 48 * 1024;
+  if (!opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fit_kernel<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    opted = true;
+  }
+  return cudaSuccess;
+}
+
+// The launch's blocks for ga phase-A blocks: one per SM, never fewer than
+// ga; an error if ga blocks cannot be co-resident.  It queries the device
+// and the occupancy on every call.
+template <int FP>
+cudaError_t grid_blocks(int ga, int* gb) {
+  cudaError_t err = opt_in<FP>();
+  if (err != cudaSuccess) return err;
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fit_kernel<FP>, kFitThreads, fit_smem_bytes(FP));
+  }
+  if (err != cudaSuccess) return err;
+  const int resident = per_sm * sms;
+  if (ga > resident) return cudaErrorCooperativeLaunchTooLarge;
+  *gb = std::min(resident, std::max(ga, sms));
+  return cudaSuccess;
 }
 
 template <int FP>
@@ -105,34 +150,10 @@ int fit(const float* x, const float* noises, float sigma, float* w_enc,
   constexpr size_t smem = fit_smem_bytes(FP);
   static_assert(smem >= sizeof(float) * kReduceGroups * kFitSlice,
                 "phase B's groups fit in phase A's shared memory");
-  // above 48 KB only after opting in: once for each FP
-  static bool opted = smem <= 48 * 1024;
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fit_kernel<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted = true;
-  }
-  int dev = 0;
-  int sms = 0;
-  int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fit_kernel<FP>, kFitThreads, smem);
-  }
+  int gb = 0;
+  cudaError_t err = grid_blocks<FP>(ga, &gb);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int resident = per_sm * sms;
-  if (ga > resident) {
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  }
-  // one block per SM, and never fewer than phase A's ga
-  const int gb = std::min(resident, std::max(ga, sms));
-  if (stamps != nullptr && stamps_len < 4LL * steps * gb) {
+  if (stamps != nullptr && stamps_len < 1LL * kStamps * steps * gb) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   float count = static_cast<float>(n) * static_cast<float>(f);
@@ -153,8 +174,8 @@ int fit(const float* x, const float* noises, float sigma, float* w_enc,
 // floats, as K2's (`partials_floats` says how many the caller allocated).
 // `noises` is [steps, n, f]; `losses` gets one float per step, the loss
 // before that step's update.  `stamps` is null, or `stamps_len` int64s
-// for a trace of the phases: 4 x steps x (the launch's blocks, one per SM
-// on an H100), nanoseconds of %globaltimer.
+// for a trace of the phases: [steps][kStamps][anomaly_fit_grid's blocks],
+// nanoseconds of %globaltimer.
 extern "C" int anomaly_fit(const float* x, const float* noises, float sigma,
                            float* w_enc, float* b_enc, float* w_dec,
                            float* b_dec, float* partials,
@@ -182,5 +203,19 @@ extern "C" int anomaly_fit(const float* x, const float* noises, float sigma,
                      stamps_len, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The blocks anomaly_fit launches for x of shape [n, f], into *blocks (the
+// size of a trace); the same device and occupancy queries as the launch.
+extern "C" int anomaly_fit_grid(int n, int f, int* blocks) {
+  using namespace anomaly;
+  const int ga = fit_slots(n);
+  switch (n <= 0 ? 0 : (f + 15) / 16) {
+    case 1: return static_cast<int>(grid_blocks<16>(ga, blocks));
+    case 2: return static_cast<int>(grid_blocks<32>(ga, blocks));
+    case 3: return static_cast<int>(grid_blocks<48>(ga, blocks));
+    case 4: return static_cast<int>(grid_blocks<64>(ga, blocks));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -110,14 +110,21 @@ __device__ __forceinline__ void bf16x4(const __nv_bfloat16* p, float* v) {
   v[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
+// No trace: K2's phase A
+struct NoMarks {
+  __device__ void operator()(int) const {}
+};
+
 // Phase A for block `block` of `ga` (kFitThreads threads): slot `block`
-// of `partials`.  `smem` holds fit_smem_bytes(FP).
-template <int FP>
+// of `partials`.  `smem` holds fit_smem_bytes(FP).  `mark(k)` is called
+// by every thread at the sub-stage boundaries k = 1..5 (K3's trace).
+template <int FP, class Mark = NoMarks>
 __device__ __forceinline__ void fit_partials(
     int block, int ga, const float* __restrict__ x,
     const float* __restrict__ noise, float sigma, const float* w_enc,
     const float* b_enc, const float* w_dec, const float* b_dec,
-    float* partials, float inv_count, int n, int f, unsigned char* smem) {
+    float* partials, float inv_count, int n, int f, unsigned char* smem,
+    Mark mark = Mark()) {
   constexpr int R = kFitRows;
   constexpr int kLdk = FP + 8;
   constexpr int kDs = FP + 1;
@@ -158,6 +165,7 @@ __device__ __forceinline__ void fit_partials(
     const int row0 = t * R;
     const int rows = min(R, n - row0);
     __syncthreads();   // the previous tile's readers are done
+    mark(1);
     for (int idx = tid; idx < R * FP; idx += kFitThreads) {
       const int i = idx / FP;
       const int j = idx - i * FP;
@@ -172,6 +180,7 @@ __device__ __forceinline__ void fit_partials(
       xb[i * kLdk + j] = __float2bfloat16_rn(nv);
     }
     __syncthreads();
+    mark(2);
 
     // forward on the tensor cores; the decoder's epilogue forms e, dr and
     // the squared error (rows past n and features past f give dr = 0, so
@@ -189,6 +198,7 @@ __device__ __forceinline__ void fit_partials(
           dr[i * kDs + j] = d;
         });
     __syncthreads();
+    mark(3);
 
     // dh = dr . bf(W_dec)^T, the row's full sum over F rounded to bf16;
     // da = dh * gelu'(a) overwrites a (each thread its own elements)
@@ -221,6 +231,7 @@ __device__ __forceinline__ void fit_partials(
       }
     }
     __syncthreads();
+    mark(4);
 
     // the weight gradients: rank-1 updates row by row, unrounded fp32
     for (int i = 0; i < rows; ++i) {
@@ -257,6 +268,7 @@ __device__ __forceinline__ void fit_partials(
   }
   if (lane == 0) red[warp] = sq;
   __syncthreads();
+  mark(5);
   float loss = 0.0f;
   if (tid == 0) {
     for (int w = 0; w < kFitThreads / 32; ++w) loss = __fadd_rn(loss, red[w]);
