@@ -13,7 +13,10 @@
    the CPU, the drift that summation order alone gives; two K2 fits, and
    two K3 fits, from the same inputs must agree bit for bit, and K3 bit
    for bit with the loop of K2 launches; each kernel's median time beside
-   its bound.  K2's and K3's registers and spills as ptxas reports them
+   its bound.  K3's staged weights must equal their plain version
+   (``reference.staged``) bit for bit, and at RELOAD_SHAPE, too large for
+   its x tiles to stay in shared memory, K3 must still be bit-identical to
+   K2's loop.  K2's and K3's registers and spills as ptxas reports them
    (spills must be 0).
 3. Main-path phase, at full width (F = 32 / 40, H = 128): ``score_windows``
    on the bench's synthetic fleet ([640, 32] padded) and on an hour of a
@@ -23,8 +26,9 @@
    kernels' launch counters are zeroed before and read after each run:
    every fit is one K3 launch and no K2 launch.  Each case prints its
    fit's ``train_ms``, the host's enqueue time per fit (no synchronize
-   inside), K3's device time per fit beside its bound, and the noise
-   draw's (K4) device time beside its bound.
+   inside) and its parts, K3's device time per fit beside its bound, its
+   phase trace (the step's phases, and phase A's sub-stages), and the
+   noise draw's (K4) device time beside its bound.
 4. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device.
 
@@ -87,6 +91,11 @@ NARROW_F = 16
 KERNEL_SHAPES = [(100, 32), (130, 7), (200, 40), (256, 40), (260, 61),
                  (384, 40), (512, 32), (640, 32), (4096, 32), (4224, 32),
                  (8192, 32)]
+# K3 keeps a block's x tiles in shared memory while they fit (up to 17
+# tiles a block at F padded to 64: n <= 71808); one more row makes every
+# block reload its tiles, the path this shape holds against K2
+RELOAD_SHAPE = (71809, 61)
+RELOAD_STEPS = 4
 TIMED_SHAPE = (4224, 32)
 FIT_STEPS = 120
 SPIN_CYCLES = 1_000_000   # ~0.5 ms: covers the host's enqueue in event_ms
@@ -392,6 +401,11 @@ def kernel_phase(device) -> dict:
         check(all(torch.equal(p, q) for p, q in zip(fp, fits[1][0]))
               and torch.equal(f_loss, fits[1][1]),
               f"K3 [{n},{f}]: two fits from the same inputs differ")
+        # K3's staged weights (its prologue's layout, phase B's values) are
+        # bit for bit their plain version built from the fitted params
+        check(torch.equal(scratch[:K.staged_floats(f)], R.staged(*fp)),
+              f"K3 [{n},{f}]: the staged weights in its scratch are not "
+              f"reference.staged of its params")
 
         # K1 again on the fitted params: the scores the lane reports
         ok, err = _close(K.score(kp, x), R.score(*kp, x),
@@ -440,6 +454,7 @@ def kernel_phase(device) -> dict:
               f"synchronized call {host_us(fit_call, reps=20):.2f} us (plain "
               f"fit {plain:.3f} ms, bound {bound:.4f} ms by {by})")
         timings[(n, f)] = row
+    reload_check(device)
     print(f"kernel tolerances: score rtol {SCORE_RTOL} atol {SCORE_ATOL}; "
           f"fit step 1: params atol {STEP1_PARAM_ATOL}, loss rtol "
           f"{STEP1_LOSS_RTOL}; after {FIT_STEPS} steps: params atol "
@@ -450,6 +465,53 @@ def kernel_phase(device) -> dict:
           f"tolerances, bit-identical to the K2 loop and to itself")
     print(f"kernel max abs err: {json.dumps(errs)}")
     return {"errs": errs, "timings": timings}
+
+
+def reload_check(device) -> None:
+    """K3 at RELOAD_SHAPE, where a block's x tiles do not fit in shared
+    memory and it reloads them at each tile: bit for bit the loop of K2
+    launches and itself, within K2's tolerances of the plain fit."""
+    import torch
+
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    n, f = RELOAD_SHAPE
+    params, x, noises = _inputs(n, f, RELOAD_STEPS, device, seed=n + f)
+    scratch = torch.empty(K.scratch_floats(n, f), device=device)
+    kp = tuple(p.clone() for p in params)
+    k_loss = torch.empty(RELOAD_STEPS, device=device)
+    for s in range(RELOAD_STEPS):
+        K.fit_step_(kp, x, noises[s], lr=1e-2, sigma=0.25, loss_out=k_loss,
+                    step=s, scratch=scratch)
+    rp, r_loss = R.fit(*params, x, noises, 1e-2, 0.25)
+    fits = []
+    for _ in range(2):
+        fp = tuple(p.clone() for p in params)
+        f_loss = torch.empty(RELOAD_STEPS, device=device)
+        K.fit_(fp, x, noises, lr=1e-2, sigma=0.25, losses_out=f_loss,
+               scratch=scratch)
+        fits.append((fp, f_loss))
+    torch.cuda.synchronize()
+    (fp, f_loss), (fq, q_loss) = fits
+    check(all(torch.equal(p, q) for p, q in zip(fp, kp))
+          and torch.equal(f_loss, k_loss),
+          f"K3 [{n},{f}] (x reloaded): not bit-identical to {RELOAD_STEPS} "
+          f"K2 launches: params {_max_abs(fp, kp):.3g} apart")
+    check(all(torch.equal(p, q) for p, q in zip(fp, fq))
+          and torch.equal(f_loss, q_loss),
+          f"K3 [{n},{f}] (x reloaded): two fits from the same inputs differ")
+    err = _max_abs(fp, rp)
+    check(err <= FIT_PARAM_ATOL,
+          f"K3 [{n},{f}] (x reloaded) params off by {err:.3g}")
+    ok, lerr = _close(f_loss, r_loss, rtol=FIT_LOSS_RTOL)
+    check(ok, f"K3 [{n},{f}] (x reloaded) losses off by {lerr:.3g}")
+    check(torch.equal(scratch[:K.staged_floats(f)], R.staged(*fp)),
+          f"K3 [{n},{f}] (x reloaded): staged weights off their plain "
+          f"version")
+    print(f"K3 [{n},{f}], x tiles reloaded, {RELOAD_STEPS} steps: "
+          f"bit-identical to the K2 loop and to itself; off the plain fit: "
+          f"params {err:.3g}, losses {_rel(f_loss, r_loss):.3g} relative")
 
 
 def ptxas_report(name: str) -> None:
@@ -532,15 +594,17 @@ def fit_report(name: str, X, steps: int, device, reps: int = 5) -> None:
 
 
 # phase A's sub-stages in the order of the trace's points 1-6
-A_SUBSTAGES = ("weights staged", "tile loaded", "forward", "dh/da",
+A_SUBSTAGES = ("noise wait", "noisy x + weights wait", "forward", "dh/da",
                "weight sums", "slot")
 
 
 def enqueue_parts(params, x, noises, reps: int = 50) -> dict:
     """The parts of ``fit_``'s enqueue, median host us of each alone: the
     wrapper's checks, the scratch's allocation (``runtime._fit`` passes
-    none), the C launch call, and the device and occupancy queries that
-    size the launch (``fit_blocks``)."""
+    none), the launch (``_launch_fit``) and, inside it, the stream's
+    lookup and the C call alone; and the device and occupancy queries that
+    size the launch (``fit_blocks``, made afresh: the C call makes them
+    once for each width, device and shared-memory size)."""
     import torch
 
     from clawker_tpu_torch.kernels import anomaly as K
@@ -548,13 +612,29 @@ def enqueue_parts(params, x, noises, reps: int = 50) -> dict:
     n, f = x.shape
     losses = torch.empty(len(noises), device=x.device)
     scratch = torch.empty(K.scratch_floats(n, f), device=x.device)
+    c_fit = K.kernel(K.FIT)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), noises.data_ptr(), 0.25,
+            *(p.data_ptr() for p in params), scratch.data_ptr(),
+            scratch.numel(), losses.data_ptr(), 1e-2, n, f, len(noises), 0,
+            0, stream)
+
+    def stream_lookup():
+        with torch.cuda.device(x.device):
+            return torch.cuda.current_stream().cuda_stream
+
+    def c_call():
+        check(c_fit(*args) == 0, "K3's C call failed")
+
     parts = {
         "checks": lambda: K._check_fit(params, x, noises, losses, None,
                                        None),
         "scratch alloc": lambda: torch.empty(K.scratch_floats(n, f),
                                              device=x.device),
-        "launch call": lambda: K._launch_fit(params, x, noises, 0.25, 1e-2,
-                                             losses, scratch, None),
+        "launch": lambda: K._launch_fit(params, x, noises, 0.25, 1e-2,
+                                        losses, scratch, None),
+        "stream lookup": stream_lookup,
+        "C call": c_call,
         "device queries": lambda: K.fit_blocks(n, f),
     }
     out = {}

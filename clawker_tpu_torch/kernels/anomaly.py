@@ -95,10 +95,25 @@ def fit_slots(n: int) -> int:
     return min(-(-n // FIT_ROWS), FIT_MAX_BLOCKS)
 
 
+def staged_floats(f: int) -> int:
+    """Floats of K3's staged weights for F = f (``reference.staged``):
+    bf16 W_enc^T [H][FP+8] and W_dec^T [FP][H+8], fp32 b_enc [H] and
+    b_dec [FP], FP = f rounded up to 16."""
+    fp = -(-f // 16) * 16
+    return (HIDDEN * (fp + 8) + fp * (HIDDEN + 8)) // 2 + HIDDEN + fp
+
+
+def slot_floats(f: int) -> int:
+    """Floats of one slot of partial sums: dW_enc [F, H], db_enc [H],
+    dW_dec^T [F, H], db_dec [F] and the squared error."""
+    return 2 * f * HIDDEN + HIDDEN + f + 1
+
+
 def scratch_floats(n: int, f: int) -> int:
-    """Floats of the partial-gradient scratch of K2 and K3 for x of shape
-    [n, f]."""
-    return fit_slots(n) * (2 * f * HIDDEN + HIDDEN + f + 1)
+    """Floats of the scratch of K2 and K3 for x of shape [n, f]: K3's
+    staged weights, then one slot per block of phase A (K2 uses the
+    slots' room from the start)."""
+    return staged_floats(f) + fit_slots(n) * slot_floats(f)
 
 
 def _check_scratch(scratch: torch.Tensor, x: torch.Tensor, n: int,
@@ -109,6 +124,8 @@ def _check_scratch(scratch: torch.Tensor, x: torch.Tensor, n: int,
         raise ValueError(f"scratch on {scratch.device}, x on {x.device}")
     if not scratch.is_contiguous():
         raise ValueError("scratch must be contiguous")
+    if scratch.data_ptr() % 16:
+        raise ValueError("scratch must start at a 16-byte boundary")
     if scratch.numel() < scratch_floats(n, f):
         raise ValueError(f"scratch holds {scratch.numel()} floats, needs "
                          f"{scratch_floats(n, f)} for [{n}, {f}]")

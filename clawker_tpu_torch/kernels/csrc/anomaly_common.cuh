@@ -124,8 +124,8 @@ __device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst, int ld,
 //   a = bf(x) . bf(W_enc) + b_enc    -> as[i][h] (fp32; skipped if null)
 //   gs[i][h] = bf(gelu(a))
 //   r = gs . bf(W_dec)               -> epi(i, j, r_ij) for i < R, j < np
-// b_dec is left to `epi`; b_enc is read through L2 (__ldcg), as the staged
-// weights are.  The caller syncs before (xb, weT, wdT staged) and after
+// b_dec is left to `epi`; b_enc is read from shared memory, beside the
+// staged weights.  The caller syncs before (xb, weT, wdT staged) and after
 // (epi's writes); one __syncthreads sits between the layers.
 template <int R, int kWarps, class Epi>
 __device__ __forceinline__ void forward_tile(
@@ -161,8 +161,8 @@ __device__ __forceinline__ void forward_tile(
 #pragma unroll
     for (int q = 0; q < kPer; ++q) {
       const int h = (nt0 + q * kStep) * 8 + t2;
-      const float b0 = __ldcg(b_enc + h);
-      const float b1 = __ldcg(b_enc + h + 1);
+      const float b0 = b_enc[h];
+      const float b1 = b_enc[h + 1];
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int i = m0 + g + 8 * half;

@@ -10,31 +10,60 @@
 // n = 4224, F = 32 (the backward products at the fp32 rate), 0.19 ms for
 // 120 steps.  What sets the time instead is latency: each step's phase A
 // (one block's walk over its row tiles), phase B (the slots' reduce) and
-// two grid-wide barriers of ~1 us each.  A loop of K2 launches pays the
-// host's enqueue of two launches per step; this kernel pays one launch
-// per fit.
+// two grid-wide barriers of ~1 us each.  So the design keeps off phase A's
+// critical path every round trip whose data is known before the step.
 //
 // Design: gb blocks of 256 threads, all co-resident (one per SM, at least
-// `ga`), run the loop; for each step s
-//   * phase A: blocks b < ga = min(ceil(n / 32), 132) run the step's phase
-//     A on noise + s n F with tile stride ga, exactly K2's launch A, and
-//     write slot b; blocks >= ga skip it;
+// `ga` = min(ceil(n / 32), 132)).
+//   * Prologue: the blocks build the STAGED IMAGE in global scratch from
+//     the fp32 params: bf16 W_enc^T [H][FP+8], bf16 W_dec^T [FP][H+8],
+//     fp32 b_enc [H], b_dec [FP], zeros past f -- byte for byte the layout
+//     phase A wants in shared memory (`Staged`, anomaly_fit_phases.cuh).
+//     Each phase-A block loads its own clean x tiles (t = block,
+//     block + ga, ...) into shared memory, where they stay RESIDENT for the
+//     whole fit, and starts the copy of its first noise tile; grid.sync().
+//   * For each step s, phase A on blocks b < ga:
+//       - one cp.async group copies the staged image into shared memory:
+//         16-byte copies through L2, no conversion, no transpose;
+//       - per tile: wait for the tile's noise (already on chip: it was
+//         prefetched), noisy = __fadd_rn(x, __fmul_rn(sigma, noise)) from
+//         the resident x, then start the cp.async of the NEXT tile's noise
+//         (the same block's next tile, or step s + 1's first) into the
+//         other half of a double buffer, wait for the weights, and run K2's
+//         tile body (fit_tile: forward, dh/da, weight sums);
+//       - write slot b (write_slot).
+//     Blocks >= ga skip it.
 //   * grid.sync();
 //   * phase B: the gb blocks walk the 64-parameter slices grid-stride, 8
 //     groups of 32 threads per slice, each thread 2 parameters: one round
 //     at F = 32 on an H100, where one parameter per thread takes two.  The
 //     order of additions is K2's (runs of <= 17 slots, then the fixed
 //     tree), so the params and losses are bit-identical to `steps` K2
-//     launches.  It updates the params in place and writes loss[s];
+//     launches.  It updates the params in place, writes each new value
+//     into the staged image too (bf16 for the weights), and writes loss[s];
 //   * grid.sync().
-// Phase B shares the block's dynamic shared memory with phase A.  The
-// params are read through L2 (anomaly_fit_phases.cuh): phase A of step
-// s + 1 reads what phase B of step s wrote.  If `ga` blocks cannot be
-// co-resident, the launch returns an error; there is no fallback.  On
-// request the kernel traces each block's %globaltimer at the phase
-// boundaries (`stamps`), which is how chip_smoke.py splits a step.
+// Which reads still go through L2: the staged image (phase B of the step
+// before wrote it, in other blocks: cp.async.cg, never L1), the slots in
+// phase B (phase A of the same step wrote them: __ldcg) and the params'
+// old values in phase B.  The noise is read once, ahead of its step.
+//
+// Shared memory: work_bytes(FP) (phase A's working set, the slot's and
+// phase B's room) + T x tile_bytes(FP) of resident x, T = the tiles a block
+// owns, ceil(ceil(n / 32) / ga), + 2 x tile_bytes(FP) of noise.  The x
+// tiles are resident while that fits in the 227 KB a block may have: up
+// to T = 91 / 41 / 25 / 17 tiles at F padded to 16 / 32 / 48 / 64, that is
+// n <= 384384 / 173184 / 105600 / 71808 rows.  Beyond, one x tile is
+// reloaded from global memory at each tile, as K2 does.
+//
+// If `ga` blocks cannot be co-resident the launch returns an error; there
+// is no fallback.  The launch's size (device, SM count, occupancy) is
+// queried once for each width, device and shared-memory size, then cached.
+// On request the kernel traces each block's %globaltimer at kStamps points
+// of every step (`stamps`), which is how chip_smoke.py splits a step.
 
 #include <algorithm>
+#include <cstdint>
+#include <mutex>
 
 #include <cooperative_groups.h>
 
@@ -47,9 +76,11 @@ namespace cg = cooperative_groups;
 constexpr int kFitWidth = kFitThreads / kReduceGroups;   // 32 threads
 constexpr int kFitCols = 2;                              // columns each
 constexpr int kFitSlice = kFitWidth * kFitCols;          // parameters
-// The trace's points per step: the step's start; phase A's sub-stages
-// (weights staged, tile loaded, forward, dh/da, weight sums); phase A's
-// end (slot written); after the first barrier; after phase B
+constexpr size_t kMaxSmem = 232448;   // 227 KB, a block's most on an H100
+// The trace's points per step: the step's start; in phase A, the tile's
+// noise on chip, noisy x and the weights on chip, the forward, dh/da and
+// the weight sums; phase A's end (slot written); after the first barrier;
+// after phase B
 constexpr int kStamps = 9;
 
 __device__ __forceinline__ long long global_ns() {
@@ -58,79 +89,269 @@ __device__ __forceinline__ long long global_ns() {
   return t;
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `count` floats from global `src` to shared `dst` (16-byte
+// aligned), asynchronously: 16 bytes a copy where `src` and `count`
+// allow, else 4.  Every thread of the block calls it.
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           int count, int tid) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (count & 3) == 0) {
+    for (int c = tid; c < count / 4; c += kFitThreads) {
+      cp_async16(dst + 4 * c, src + 4 * c);
+    }
+  } else {
+    for (int c = tid; c < count; c += kFitThreads) {
+      cp_async4(dst + c, src + c);
+    }
+  }
+}
+
+// The staged image in global memory from the fp32 params, by thread `id`
+// of `threads`: kernels/reference.py `staged` in CUDA.
+template <int FP>
+__device__ __forceinline__ void stage_image(const Staged& w,
+                                            const float* w_enc,
+                                            const float* b_enc,
+                                            const float* w_dec,
+                                            const float* b_dec, int f,
+                                            int id, int threads) {
+  constexpr int kLdk = FP + 8;
+  for (int e = id; e < kHidden * kLdk; e += threads) {
+    const int h = e / kLdk;
+    const int j = e - h * kLdk;
+    w.weT[e] = __float2bfloat16_rn(j < f ? __ldcg(w_enc + j * kHidden + h)
+                                         : 0.0f);
+  }
+  for (int e = id; e < FP * kLdh; e += threads) {
+    const int j = e / kLdh;
+    const int h = e - j * kLdh;
+    w.wdT[e] = __float2bfloat16_rn(
+        j < f && h < kHidden ? __ldcg(w_dec + h * f + j) : 0.0f);
+  }
+  for (int e = id; e < kHidden + FP; e += threads) {
+    if (e < kHidden) {
+      w.be[e] = __ldcg(b_enc + e);
+    } else {
+      w.bd[e - kHidden] = e - kHidden < f ? __ldcg(b_dec + e - kHidden) : 0.0f;
+    }
+  }
+}
+
+// The clean x tile at row0 (rows of them) into xc [R][FP], zeros past rows
+// and f
+template <int FP>
+__device__ __forceinline__ void load_x(float* xc, const float* x, int row0,
+                                       int rows, int f, int tid) {
+  for (int idx = tid; idx < kFitRows * FP; idx += kFitThreads) {
+    const int i = idx / FP;
+    const int j = idx - i * FP;
+    xc[idx] = i < rows && j < f
+                  ? x[static_cast<size_t>(row0 + i) * f + j]
+                  : 0.0f;
+  }
+}
+
+// resident_tiles > 0: a block keeps all its x tiles in shared memory
+// (room for resident_tiles of them); 0: one, reloaded at each tile.
 template <int FP>
 __global__ void __launch_bounds__(kFitThreads, 1)
 fit_kernel(const float* __restrict__ x, const float* __restrict__ noises,
            float sigma, float* w_enc, float* b_enc, float* w_dec,
-           float* b_dec, float* partials, float* losses, float lr,
-           float count, float inv_count, int n, int f, int steps, int ga,
-           long long* stamps) {
+           float* b_dec, unsigned char* image, float* partials,
+           float* losses, float lr, float count, float inv_count, int n,
+           int f, int steps, int ga, int resident_tiles, long long* stamps) {
+  constexpr int R = kFitRows;
+  constexpr int kTile = R * FP;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int block = blockIdx.x;
+  const int tid = threadIdx.x;
+  const PhaseA<FP> m(smem);
+  const Staged img(image, FP);
+  // x tiles [max(resident_tiles, 1)][R][FP], then noise [2][R][FP]
+  float* xs = reinterpret_cast<float*>(smem + work_bytes(FP));
+  float* nz = xs + kTile * max(resident_tiles, 1);
+  const int tiles = (n + R - 1) / R;
+  const int own = block < ga ? (tiles - block + ga - 1) / ga : 0;
   const int slices = (param_floats(f) + kFitSlice - 1) / kFitSlice;
   const size_t per_step = static_cast<size_t>(n) * f;
   // stamps [steps][kStamps][gridDim.x]: the block's clock (thread 0's) at
   // each point of the step; a block >= ga leaves phase A's points 1-5
   auto stamp = [&](int s, int k) {
-    if (stamps != nullptr && threadIdx.x == 0) {
+    if (stamps != nullptr && tid == 0) {
       stamps[(s * kStamps + k) * gridDim.x + block] = global_ns();
     }
   };
+  auto noise_of = [&](int s, int t) {
+    return noises + s * per_step + static_cast<size_t>(t) * R * f;
+  };
+  auto rows_of = [&](int t) { return min(R, n - t * R); };
+
+  stage_image<FP>(img, w_enc, b_enc, w_dec, b_dec, f,
+                  block * kFitThreads + tid, gridDim.x * kFitThreads);
+  if (own > 0) {
+    for (int k = 0; resident_tiles > 0 && k < own; ++k) {
+      const int t = block + k * ga;
+      load_x<FP>(xs + k * kTile, x, t * R, rows_of(t), f, tid);
+    }
+    copy_async(nz, noise_of(0, block), rows_of(block) * f, tid);
+    cp_async_commit();
+  }
+  grid.sync();
+
+  int q = 0;   // tiles this block has taken: the noise buffer's parity
   for (int s = 0; s < steps; ++s) {
     stamp(s, 0);
-    if (block < ga) {
-      fit_partials<FP>(block, ga, x, noises + s * per_step, sigma, w_enc,
-                       b_enc, w_dec, b_dec, partials, inv_count, n, f, smem,
-                       [&](int k) { stamp(s, k); });
+    if (own > 0) {
+      {
+        const float* src = reinterpret_cast<const float*>(image);
+        float* dst = reinterpret_cast<float*>(m.w.weT);
+        copy_async(dst, src, static_cast<int>(staged_bytes(FP) / 4), tid);
+        cp_async_commit();
+      }
+      Grads<FP> g = {};
+      auto mark = [&](int k) { stamp(s, k); };
+      for (int k = 0; k < own; ++k, ++q) {
+        const int t = block + k * ga;
+        const int rows = rows_of(t);
+        // in flight: this tile's noise, and at k == 0 the weights after it
+        if (k == 0) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();   // the copies landed; the last tile's readers done
+        mark(1);
+        float* xc = resident_tiles > 0 ? xs + k * kTile : xs;
+        const float* nc = nz + (q & 1) * kTile;
+        for (int idx = tid; idx < kTile; idx += kFitThreads) {
+          const int i = idx / FP;
+          const int j = idx - i * FP;
+          float xv = 0.0f;
+          float nv = 0.0f;
+          if (i < rows && j < f) {
+            xv = resident_tiles > 0
+                     ? xc[idx]
+                     : x[static_cast<size_t>(t * R + i) * f + j];
+            nv = __fadd_rn(xv, __fmul_rn(sigma, nc[i * f + j]));
+          }
+          if (resident_tiles == 0) xc[idx] = xv;
+          m.xb[i * PhaseA<FP>::kLdk + j] = __float2bfloat16_rn(nv);
+        }
+        // the next tile's noise into the other buffer (an empty group
+        // after the last step keeps the count of groups)
+        const bool last = k + 1 == own;
+        if (!last || s + 1 < steps) {
+          const int t2 = last ? block : t + ga;
+          copy_async(nz + ((q + 1) & 1) * kTile, noise_of(last ? s + 1 : s, t2),
+                     rows_of(t2) * f, tid);
+        }
+        cp_async_commit();
+        if (k == 0) cp_async_wait<1>();   // the weights
+        __syncthreads();
+        mark(2);
+        fit_tile<FP>(m, xc, rows, f, inv_count, g, mark);
+      }
+      write_slot<FP>(m, g, partials, block, f, mark);
     }
     stamp(s, 6);
     grid.sync();
     stamp(s, 7);
     for (int sl = block; sl < slices; sl += gridDim.x) {
       fit_reduce<kFitWidth, kFitCols>(
-          sl, threadIdx.x, reinterpret_cast<float*>(smem), partials, ga, f,
-          w_enc, b_enc, w_dec, b_dec, losses + s, lr, count);
+          sl, tid, reinterpret_cast<float*>(smem), partials, ga, f, w_enc,
+          b_enc, w_dec, b_dec, losses + s, lr, count, image, FP);
     }
     stamp(s, 8);
     grid.sync();
   }
 }
 
-// Above 48 KB of shared memory only after opting in: once for each FP
+// The x tiles a block keeps resident for n rows (0: one, reloaded) and the
+// launch's shared memory
 template <int FP>
-cudaError_t opt_in() {
-  constexpr size_t smem = fit_smem_bytes(FP);
-  static bool opted = smem <= 48 * 1024;
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fit_kernel<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    opted = true;
+void shared_plan(int n, int* resident_tiles, size_t* smem) {
+  const int tiles = (n + kFitRows - 1) / kFitRows;
+  const int ga = fit_slots(n);
+  const int per_block = (tiles + ga - 1) / ga;
+  const size_t base = work_bytes(FP) + 2 * tile_bytes(FP);
+  if (base + per_block * tile_bytes(FP) <= kMaxSmem) {
+    *resident_tiles = per_block;
+    *smem = base + per_block * tile_bytes(FP);
+  } else {
+    *resident_tiles = 0;
+    *smem = base + tile_bytes(FP);
   }
-  return cudaSuccess;
 }
 
-// The launch's blocks for ga phase-A blocks: one per SM, never fewer than
-// ga; an error if ga blocks cannot be co-resident.  It queries the device
-// and the occupancy on every call.
+// The launch's blocks for ga phase-A blocks and `smem` bytes: one per SM,
+// never fewer than ga; an error if ga blocks cannot be co-resident.
+// `cached`: look the device's SM count and the occupancy up once for each
+// (device, smem) and width, else query them (the device, its attribute and
+// the occupancy calculator) on this call.
 template <int FP>
-cudaError_t grid_blocks(int ga, int* gb) {
-  cudaError_t err = opt_in<FP>();
-  if (err != cudaSuccess) return err;
+cudaError_t grid_blocks(int ga, size_t smem, bool cached, int* gb) {
+  // above 48 KB only after opting in: once for each FP, to the most any
+  // n asks for
+  static std::mutex mu;
+  static bool opted = false;
+  static int c_dev = -1;
+  static size_t c_smem = 0;
+  static int c_sms = 0;
+  static int c_per_sm = 0;
   int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
   int sms = 0;
   int per_sm = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    if (!opted) {
+      err = cudaFuncSetAttribute(fit_kernel<FP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(kMaxSmem));
+      if (err != cudaSuccess) return err;
+      opted = true;
+    }
+    if (cached && c_dev == dev && c_smem == smem) {
+      sms = c_sms;
+      per_sm = c_per_sm;
+    } else {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if (err == cudaSuccess) {
+        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, fit_kernel<FP>, kFitThreads, smem);
+      }
+      if (err != cudaSuccess) return err;
+      c_dev = dev;
+      c_smem = smem;
+      c_sms = sms;
+      c_per_sm = per_sm;
+    }
   }
-  if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fit_kernel<FP>, kFitThreads, fit_smem_bytes(FP));
-  }
-  if (err != cudaSuccess) return err;
   const int resident = per_sm * sms;
   if (ga > resident) return cudaErrorCooperativeLaunchTooLarge;
   *gb = std::min(resident, std::max(ga, sms));
@@ -139,28 +360,37 @@ cudaError_t grid_blocks(int ga, int* gb) {
 
 template <int FP>
 int fit(const float* x, const float* noises, float sigma, float* w_enc,
-        float* b_enc, float* w_dec, float* b_dec, float* partials,
-        long long partials_floats, float* losses, float lr, int n, int f,
+        float* b_enc, float* w_dec, float* b_dec, float* scratch,
+        long long scratch_floats, float* losses, float lr, int n, int f,
         int steps, long long* stamps, long long stamps_len, cudaStream_t s) {
+  static_assert(work_bytes(FP) >= sizeof(float) * kReduceGroups * kFitSlice,
+                "phase B's groups fit in phase A's working set");
+  static_assert(staged_bytes(FP) % 16 == 0, "the image copies in 16 bytes");
   int ga = fit_slots(n);
-  if (steps < 1 ||
-      partials_floats < static_cast<long long>(ga) * param_floats(f)) {
+  const long long image_floats = staged_bytes(FP) / sizeof(float);
+  if (steps < 1 || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
+      scratch_floats <
+          image_floats + static_cast<long long>(ga) * param_floats(f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr size_t smem = fit_smem_bytes(FP);
-  static_assert(smem >= sizeof(float) * kReduceGroups * kFitSlice,
-                "phase B's groups fit in phase A's shared memory");
+  int resident_tiles = 0;
+  size_t smem = 0;
+  shared_plan<FP>(n, &resident_tiles, &smem);
   int gb = 0;
-  cudaError_t err = grid_blocks<FP>(ga, &gb);
+  cudaError_t err = grid_blocks<FP>(ga, smem, true, &gb);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (stamps != nullptr && stamps_len < 1LL * kStamps * steps * gb) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  unsigned char* image = reinterpret_cast<unsigned char*>(scratch);
+  float* partials = scratch + image_floats;
   float count = static_cast<float>(n) * static_cast<float>(f);
   float inv_count = 1.0f / count;
-  void* args[] = {&x,     &noises,   &sigma,  &w_enc, &b_enc, &w_dec,
-                  &b_dec, &partials, &losses, &lr,    &count, &inv_count,
-                  &n,     &f,        &steps,  &ga,    &stamps};
+  void* args[] = {&x,        &noises, &sigma,     &w_enc, &b_enc,
+                  &w_dec,    &b_dec,  &image,     &partials,
+                  &losses,   &lr,     &count,     &inv_count,
+                  &n,        &f,      &steps,     &ga,
+                  &resident_tiles,    &stamps};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(fit_kernel<FP>),
                                     dim3(gb), dim3(kFitThreads), args, smem,
                                     s);
@@ -168,38 +398,47 @@ int fit(const float* x, const float* noises, float sigma, float* w_enc,
   return static_cast<int>(err);
 }
 
+template <int FP>
+int launch_blocks(int n, int* out) {
+  int resident_tiles = 0;
+  size_t smem = 0;
+  shared_plan<FP>(n, &resident_tiles, &smem);
+  return static_cast<int>(grid_blocks<FP>(fit_slots(n), smem, false, out));
+}
+
 }  // namespace anomaly
 
-// Scratch: `partials` holds min(ceil(n / R), 132) * (2 f 128 + 128 + f + 1)
-// floats, as K2's (`partials_floats` says how many the caller allocated).
+// Scratch: `scratch_floats` floats at a 16-byte aligned `scratch`: the
+// staged image, staged_bytes(FP) (a whole number of floats), then the
+// partial slots, min(ceil(n / R), 132) x (2 f 128 + 128 + f + 1) floats.
 // `noises` is [steps, n, f]; `losses` gets one float per step, the loss
 // before that step's update.  `stamps` is null, or `stamps_len` int64s
 // for a trace of the phases: [steps][kStamps][anomaly_fit_grid's blocks],
 // nanoseconds of %globaltimer.
 extern "C" int anomaly_fit(const float* x, const float* noises, float sigma,
                            float* w_enc, float* b_enc, float* w_dec,
-                           float* b_dec, float* partials,
-                           long long partials_floats, float* losses, float lr,
+                           float* b_dec, float* scratch,
+                           long long scratch_floats, float* losses, float lr,
                            int n, int f, int steps, long long* stamps,
                            long long stamps_len, void* stream) {
   using namespace anomaly;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n <= 0 ? 0 : (f + 15) / 16) {
     case 1:
-      return fit<16>(x, noises, sigma, w_enc, b_enc, w_dec, b_dec, partials,
-                     partials_floats, losses, lr, n, f, steps, stamps,
+      return fit<16>(x, noises, sigma, w_enc, b_enc, w_dec, b_dec, scratch,
+                     scratch_floats, losses, lr, n, f, steps, stamps,
                      stamps_len, s);
     case 2:
-      return fit<32>(x, noises, sigma, w_enc, b_enc, w_dec, b_dec, partials,
-                     partials_floats, losses, lr, n, f, steps, stamps,
+      return fit<32>(x, noises, sigma, w_enc, b_enc, w_dec, b_dec, scratch,
+                     scratch_floats, losses, lr, n, f, steps, stamps,
                      stamps_len, s);
     case 3:
-      return fit<48>(x, noises, sigma, w_enc, b_enc, w_dec, b_dec, partials,
-                     partials_floats, losses, lr, n, f, steps, stamps,
+      return fit<48>(x, noises, sigma, w_enc, b_enc, w_dec, b_dec, scratch,
+                     scratch_floats, losses, lr, n, f, steps, stamps,
                      stamps_len, s);
     case 4:
-      return fit<64>(x, noises, sigma, w_enc, b_enc, w_dec, b_dec, partials,
-                     partials_floats, losses, lr, n, f, steps, stamps,
+      return fit<64>(x, noises, sigma, w_enc, b_enc, w_dec, b_dec, scratch,
+                     scratch_floats, losses, lr, n, f, steps, stamps,
                      stamps_len, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -207,15 +446,15 @@ extern "C" int anomaly_fit(const float* x, const float* noises, float sigma,
 }
 
 // The blocks anomaly_fit launches for x of shape [n, f], into *blocks (the
-// size of a trace); the same device and occupancy queries as the launch.
+// size of a trace).  It makes the device and occupancy queries afresh, as
+// the launch makes them once per width, device and shared-memory size.
 extern "C" int anomaly_fit_grid(int n, int f, int* blocks) {
   using namespace anomaly;
-  const int ga = fit_slots(n);
   switch (n <= 0 ? 0 : (f + 15) / 16) {
-    case 1: return static_cast<int>(grid_blocks<16>(ga, blocks));
-    case 2: return static_cast<int>(grid_blocks<32>(ga, blocks));
-    case 3: return static_cast<int>(grid_blocks<48>(ga, blocks));
-    case 4: return static_cast<int>(grid_blocks<64>(ga, blocks));
+    case 1: return launch_blocks<16>(n, blocks);
+    case 2: return launch_blocks<32>(n, blocks);
+    case 3: return launch_blocks<48>(n, blocks);
+    case 4: return launch_blocks<64>(n, blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

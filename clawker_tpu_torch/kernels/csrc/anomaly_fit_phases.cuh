@@ -19,13 +19,17 @@
 // RESULT to bf16.  So the weight gradients may be rounded only after the sum
 // over ALL rows -- rounding each tile's partial would not match.
 //
-// * Phase A (fit_partials): `ga` = min(ceil(n / kFitRows), 132) blocks of
-//   256 threads.  Each block rounds the weights to bf16 into shared memory
-//   (transposed, with padded row strides so that neither the staging nor
-//   the fragment loads meet a bank conflict), then walks its row tiles
-//   t = block, block + ga, ... and keeps its unrounded fp32 gradient sums
-//   in registers.  It writes one slot of scratch: ga x (2 F H + H + F + 1)
-//   floats, <= 4.4 MB at F = 32, laid out
+// * Phase A: `ga` = min(ceil(n / kFitRows), 132) blocks of 256 threads.
+//   Each block needs the STAGED WEIGHTS in shared memory (`Staged`: bf16
+//   W_enc^T [H][FP+8] and W_dec^T [FP][H+8], transposed with padded row
+//   strides so that the fragment loads meet no bank conflict, then fp32
+//   b_enc [H] and b_dec [FP]; zeros past f).  K2 builds them from the fp32
+//   params (stage_params); K3 copies a ready-made image of them that its
+//   phase B keeps in global memory.  The block then walks its row tiles
+//   t = block, block + ga, ... (fit_tile) and keeps its unrounded fp32
+//   gradient sums in registers (Grads).  It writes one slot of scratch
+//   (write_slot): ga x (2 F H + H + F + 1) floats, <= 4.4 MB at F = 32,
+//   laid out
 //   [dW_enc [F][H] | db_enc [H] | dW_dec^T [F][H] | db_dec [F] | loss]
 //   and assembled in shared memory first, so that the block writes it with
 //   coalesced stores.
@@ -49,16 +53,23 @@
 //   ((g0+g4)+(g2+g6)) + ((g1+g5)+(g3+g7)).  The order of additions does
 //   not depend on the slice's shape.  No float atomics: two runs on the
 //   same inputs give bit-identical params.  Then it rounds the full weight
-//   sums to bf16, updates the params in place and writes the step's loss.
+//   sums to bf16, updates the params in place and writes the step's loss;
+//   given a staged image (K3), it also writes each updated param there,
+//   bf16 for the weights, at the place phase A's shared memory wants it.
+//   bf16 of one fp32 value is the same bits wherever it is rounded, so the
+//   image equals what stage_params would build from the new params.
 //
-// The params and the slots are read through L2 (__ldcg), never through the
-// read-only path (ld.global.nc), which is not coherent within a kernel: in
-// K3, phase A reads the params that phase B of the step before wrote, and
-// phase B reads the slots that phase A of the same step wrote.
+// The params, the slots and the staged image are read through L2 (__ldcg,
+// cp.async.cg), never through the read-only path (ld.global.nc) or L1,
+// which are not coherent within a kernel: in K3, phase A reads the image
+// that phase B of the step before wrote, and phase B reads the slots that
+// phase A of the same step wrote.
 //
 // Every elementwise step uses the _rn intrinsics (no FMA contraction where
 // the plain version rounds twice); no --use_fast_math.
 #pragma once
+
+#include <cstdint>
 
 #include "anomaly_common.cuh"
 
@@ -89,18 +100,87 @@ __host__ __device__ constexpr int fit_slots(int n) {
              : kFitMaxBlocks;
 }
 
-// Shared memory of phase A for FP = f rounded up to 16.  fp32 arrays
-// first (16-byte aligned rows), then bf16:
-//   as [R][kLdh]  a, then da in place      xc [R][FP]  clean x
+// The staged weights for FP = f rounded up to 16, one layout in shared
+// memory and in K3's global image (kernels/reference.py `staged` is its
+// plain version):
+//   weT bf16 [H][FP+8]   row h = bf(W_enc[:, h]), zeros past f
+//   wdT bf16 [FP][kLdh]  row j = bf(W_dec[:, j]), zero rows past f
+//   be  fp32 [H]         b_enc
+//   bd  fp32 [FP]        b_dec, zeros past f
+// A multiple of 16 bytes (cp.async's unit) at every FP.
+__host__ __device__ constexpr size_t staged_bytes(int fp) {
+  return sizeof(__nv_bfloat16) * (kHidden * (fp + 8) + fp * kLdh) +
+         sizeof(float) * (kHidden + fp);
+}
+
+struct Staged {
+  __nv_bfloat16* weT;
+  __nv_bfloat16* wdT;
+  float* be;
+  float* bd;
+  __device__ Staged(unsigned char* base, int fp)
+      : weT(reinterpret_cast<__nv_bfloat16*>(base)),
+        wdT(weT + kHidden * (fp + 8)),
+        be(reinterpret_cast<float*>(wdT + fp * kLdh)),
+        bd(be + kHidden) {}
+};
+
+// Phase A's working set in shared memory, at offset 0 (fp32 arrays first,
+// 16-byte aligned rows, then the staged weights, then bf16):
+//   as [R][kLdh]  a, then da in place
 //   dr [R][FP+1]  dr (odd stride: the dh loop reads 4 rows of one column)
 //   red [8]       per-warp loss sums
-//   weT [H][FP+8], wdT [FP][kLdh], xb [R][FP+8], gs [R][kLdh]  (bf16)
-__host__ __device__ constexpr size_t fit_smem_bytes(int fp) {
-  return sizeof(float) * (kFitRows * kLdh + kFitRows * fp +
-                          kFitRows * (fp + 1) + kFitThreads / 32) +
-         sizeof(__nv_bfloat16) * (kHidden * (fp + 8) + fp * kLdh +
-                                  kFitRows * (fp + 8) + kFitRows * kLdh);
+//   staged        staged_bytes(FP)
+//   xb [R][FP+8]  bf(noisy), gs [R][kLdh] bf(gelu(a))
+// The slot is assembled over it, and phase B's sums reuse its start.  The
+// kernels put their fp32 x tiles (tile_bytes each) after it.
+__host__ __device__ constexpr size_t work_bytes(int fp) {
+  return sizeof(float) * (kFitRows * kLdh + kFitRows * (fp + 1) +
+                          kFitThreads / 32) +
+         staged_bytes(fp) +
+         sizeof(__nv_bfloat16) * (kFitRows * (fp + 8) + kFitRows * kLdh);
 }
+
+__host__ __device__ constexpr size_t tile_bytes(int fp) {
+  return sizeof(float) * kFitRows * fp;
+}
+
+template <int FP>
+struct PhaseA {
+  static constexpr int kLdk = FP + 8;
+  static constexpr int kDs = FP + 1;
+  float* as;
+  float* dr;
+  float* red;
+  Staged w;
+  __nv_bfloat16* xb;
+  __nv_bfloat16* gs;
+  __device__ explicit PhaseA(unsigned char* smem)
+      : as(reinterpret_cast<float*>(smem)),
+        dr(as + kFitRows * kLdh),
+        red(dr + kFitRows * kDs),
+        w(reinterpret_cast<unsigned char*>(red + kFitThreads / 32), FP),
+        xb(reinterpret_cast<__nv_bfloat16*>(
+            reinterpret_cast<unsigned char*>(w.weT) + staged_bytes(FP))),
+        gs(xb + kFitRows * kLdk) {}
+};
+
+// A block's unrounded gradient sums, in registers: a thread owns the
+// columns h = 4 tx + e + 64 c (e < 4, c < 2) of rows j = ty + 16 q
+template <int FP>
+struct Grads {
+  static constexpr int kQ = FP / 16;
+  float we[kQ][8];   // dW_enc[j][h]
+  float wd[kQ][8];   // dW_dec[h][j]
+  float be[8];       // db_enc[h], rows ty == 0
+  float bd[kQ];      // db_dec[j], columns tx == 0
+  float sq;          // squared error
+};
+
+// No trace: K2's phase A
+struct NoMarks {
+  __device__ void operator()(int) const {}
+};
 
 __device__ __forceinline__ void bf16x4(const __nv_bfloat16* p, float* v) {
   const uint2 u = *reinterpret_cast<const uint2*>(p);
@@ -110,172 +190,161 @@ __device__ __forceinline__ void bf16x4(const __nv_bfloat16* p, float* v) {
   v[3] = __uint_as_float(u.y & 0xffff0000u);
 }
 
-// No trace: K2's phase A
-struct NoMarks {
-  __device__ void operator()(int) const {}
-};
+// The staged weights built from the fp32 params into shared memory (K2)
+template <int FP>
+__device__ __forceinline__ void stage_params(const Staged& w,
+                                             const float* w_enc,
+                                             const float* b_enc,
+                                             const float* w_dec,
+                                             const float* b_dec, int f,
+                                             int tid) {
+  stage_transposed(w.weT, FP + 8, w_enc, kHidden, f, kHidden, FP, kHidden,
+                   tid, kFitThreads);
+  stage_transposed(w.wdT, kLdh, w_dec, f, kHidden, f, kHidden, FP, tid,
+                   kFitThreads);
+  for (int i = tid; i < kHidden + FP; i += kFitThreads) {
+    if (i < kHidden) {
+      w.be[i] = __ldcg(b_enc + i);
+    } else {
+      w.bd[i - kHidden] = i - kHidden < f ? __ldcg(b_dec + i - kHidden) : 0.0f;
+    }
+  }
+}
 
-// Phase A for block `block` of `ga` (kFitThreads threads): slot `block`
-// of `partials`.  `smem` holds fit_smem_bytes(FP).  `mark(k)` is called
-// by every thread at the sub-stage boundaries k = 1..5 (K3's trace).
-template <int FP, class Mark = NoMarks>
-__device__ __forceinline__ void fit_partials(
-    int block, int ga, const float* __restrict__ x,
-    const float* __restrict__ noise, float sigma, const float* w_enc,
-    const float* b_enc, const float* w_dec, const float* b_dec,
-    float* partials, float inv_count, int n, int f, unsigned char* smem,
-    Mark mark = Mark()) {
+// One tile of rows row0.. (rows of them) on a block whose shared memory
+// holds the staged weights, xb = bf(noisy) and xc = the clean x tile
+// [R][FP] (zeros past rows and f), synced: the forward, dr, dh/da and the
+// tile's rows added into g.  Ends without a barrier; the caller syncs
+// before it overwrites xb, xc or the staged weights.  mark(3) after the
+// forward, mark(4) after dh/da.
+template <int FP, class Mark>
+__device__ __forceinline__ void fit_tile(const PhaseA<FP>& m,
+                                         const float* xc, int rows, int f,
+                                         float inv_count, Grads<FP>& g,
+                                         Mark& mark) {
   constexpr int R = kFitRows;
-  constexpr int kLdk = FP + 8;
-  constexpr int kDs = FP + 1;
+  constexpr int kLdk = PhaseA<FP>::kLdk;
+  constexpr int kDs = PhaseA<FP>::kDs;
   constexpr int kRt = R / 16;        // dh rows per thread
-  constexpr int kQ = FP / 16;        // weight-gradient rows per thread
-  static_assert(fit_smem_bytes(FP) >= sizeof(float) * param_floats(FP),
-                "phase A assembles its slot in shared memory");
-  float* as = reinterpret_cast<float*>(smem);
-  float* xc = as + R * kLdh;
-  float* dr = xc + R * FP;
-  float* red = dr + R * kDs;
-  __nv_bfloat16* weT = reinterpret_cast<__nv_bfloat16*>(red + kFitThreads / 32);
-  __nv_bfloat16* wdT = weT + kHidden * kLdk;
-  __nv_bfloat16* xb = wdT + FP * kLdh;
-  __nv_bfloat16* gs = xb + R * kLdk;
-
+  constexpr int kQ = Grads<FP>::kQ;  // weight-gradient rows per thread
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  // backward ownership: columns h = 4 tx + e + 64 c (e < 4, c < 2), and
-  // rows ty * kRt + r of dh or rows j = ty + 16 q of the weight gradients
   const int tx = tid & 15;
   const int ty = tid >> 4;
+  float* as = m.as;
+  float* dr = m.dr;
+  const float* bd = m.w.bd;
 
-  stage_transposed(weT, kLdk, w_enc, kHidden, f, kHidden, FP, kHidden, tid,
-                   kFitThreads);
-  stage_transposed(wdT, kLdh, w_dec, f, kHidden, f, kHidden, FP, tid,
-                   kFitThreads);
-
-  float gwe[kQ][8] = {};   // dW_enc[j][h]
-  float gwd[kQ][8] = {};   // dW_dec[h][j]
-  float gbe[8] = {};       // db_enc[h], rows ty == 0
-  float gbd[kQ] = {};      // db_dec[j], columns tx == 0
-  float sq = 0.0f;
-
-  const int tiles = (n + R - 1) / R;
-  for (int t = block; t < tiles; t += ga) {
-    const int row0 = t * R;
-    const int rows = min(R, n - row0);
-    __syncthreads();   // the previous tile's readers are done
-    mark(1);
-    for (int idx = tid; idx < R * FP; idx += kFitThreads) {
-      const int i = idx / FP;
-      const int j = idx - i * FP;
-      float xv = 0.0f;
-      float nv = 0.0f;
-      if (i < rows && j < f) {
-        const size_t g = static_cast<size_t>(row0 + i) * f + j;
-        xv = x[g];
-        nv = noise ? __fadd_rn(xv, __fmul_rn(sigma, noise[g])) : xv;
-      }
-      xc[idx] = xv;
-      xb[i * kLdk + j] = __float2bfloat16_rn(nv);
-    }
-    __syncthreads();
-    mark(2);
-
-    // forward on the tensor cores; the decoder's epilogue forms e, dr and
-    // the squared error (rows past n and features past f give dr = 0, so
-    // they add nothing to any gradient below)
-    forward_tile<R, kFitThreads / 32>(
-        xb, kLdk, FP, weT, kLdk, b_enc, as, kLdh, gs, kLdh, wdT, kLdh, FP,
-        warp, lane, [&](int i, int j, float acc) {
-          float d = 0.0f;
-          if (i < rows && j < f) {
-            const float e =
-                __fsub_rn(__fadd_rn(acc, __ldcg(b_dec + j)), xc[i * FP + j]);
-            sq = __fadd_rn(sq, __fmul_rn(e, e));
-            d = __fmul_rn(__fmul_rn(2.0f, e), inv_count);
-          }
-          dr[i * kDs + j] = d;
-        });
-    __syncthreads();
-    mark(3);
-
-    // dh = dr . bf(W_dec)^T, the row's full sum over F rounded to bf16;
-    // da = dh * gelu'(a) overwrites a (each thread its own elements)
-    {
-      float acc[kRt][8] = {};
-#pragma unroll
-      for (int j = 0; j < FP; ++j) {
-        float w[8];
-        bf16x4(wdT + j * kLdh + 4 * tx, w);
-        bf16x4(wdT + j * kLdh + 64 + 4 * tx, w + 4);
-#pragma unroll
-        for (int r = 0; r < kRt; ++r) {
-          const float d = dr[(ty * kRt + r) * kDs + j];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(d, w[c], acc[r][c]);
+  // forward on the tensor cores; the decoder's epilogue forms e, dr and
+  // the squared error (rows past n and features past f give dr = 0, so
+  // they add nothing to any gradient below)
+  forward_tile<R, kFitThreads / 32>(
+      m.xb, kLdk, FP, m.w.weT, kLdk, m.w.be, as, kLdh, m.gs, kLdh, m.w.wdT,
+      kLdh, FP, warp, lane, [&](int i, int j, float acc) {
+        float d = 0.0f;
+        if (i < rows && j < f) {
+          const float e = __fsub_rn(__fadd_rn(acc, bd[j]), xc[i * FP + j]);
+          g.sq = __fadd_rn(g.sq, __fmul_rn(e, e));
+          d = __fmul_rn(__fmul_rn(2.0f, e), inv_count);
         }
-      }
+        dr[i * kDs + j] = d;
+      });
+  __syncthreads();
+  mark(3);
+
+  // dh = dr . bf(W_dec)^T, the row's full sum over F rounded to bf16;
+  // da = dh * gelu'(a) overwrites a (each thread its own elements)
+  {
+    const __nv_bfloat16* wdT = m.w.wdT;
+    float acc[kRt][8] = {};
+#pragma unroll
+    for (int j = 0; j < FP; ++j) {
+      float w[8];
+      bf16x4(wdT + j * kLdh + 4 * tx, w);
+      bf16x4(wdT + j * kLdh + 64 + 4 * tx, w + 4);
 #pragma unroll
       for (int r = 0; r < kRt; ++r) {
-        float* ap = as + (ty * kRt + r) * kLdh + 4 * tx;
+        const float d = dr[(ty * kRt + r) * kDs + j];
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          float4 a = *reinterpret_cast<float4*>(ap + 64 * c);
-          a.x = __fmul_rn(bf(acc[r][4 * c]), gelu_tanh_grad(a.x));
-          a.y = __fmul_rn(bf(acc[r][4 * c + 1]), gelu_tanh_grad(a.y));
-          a.z = __fmul_rn(bf(acc[r][4 * c + 2]), gelu_tanh_grad(a.z));
-          a.w = __fmul_rn(bf(acc[r][4 * c + 3]), gelu_tanh_grad(a.w));
-          *reinterpret_cast<float4*>(ap + 64 * c) = a;
-        }
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(d, w[c], acc[r][c]);
       }
     }
-    __syncthreads();
-    mark(4);
-
-    // the weight gradients: rank-1 updates row by row, unrounded fp32
-    for (int i = 0; i < rows; ++i) {
-      float da[8];
-      float g[8];
-      const float4 d0 = *reinterpret_cast<const float4*>(as + i * kLdh + 4 * tx);
-      const float4 d1 =
-          *reinterpret_cast<const float4*>(as + i * kLdh + 64 + 4 * tx);
-      da[0] = d0.x; da[1] = d0.y; da[2] = d0.z; da[3] = d0.w;
-      da[4] = d1.x; da[5] = d1.y; da[6] = d1.z; da[7] = d1.w;
-      bf16x4(gs + i * kLdh + 4 * tx, g);
-      bf16x4(gs + i * kLdh + 64 + 4 * tx, g + 4);
 #pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const float xv = __bfloat162float(xb[i * kLdk + ty + 16 * q]);
-        const float dv = dr[i * kDs + ty + 16 * q];
+    for (int r = 0; r < kRt; ++r) {
+      float* ap = as + (ty * kRt + r) * kLdh + 4 * tx;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          gwe[q][c] = fmaf(xv, da[c], gwe[q][c]);
-          gwd[q][c] = fmaf(g[c], dv, gwd[q][c]);
-        }
-        if (tx == 0) gbd[q] = __fadd_rn(gbd[q], dv);
-      }
-      if (ty == 0) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) gbe[c] = __fadd_rn(gbe[c], da[c]);
+      for (int c = 0; c < 2; ++c) {
+        float4 a = *reinterpret_cast<float4*>(ap + 64 * c);
+        a.x = __fmul_rn(bf(acc[r][4 * c]), gelu_tanh_grad(a.x));
+        a.y = __fmul_rn(bf(acc[r][4 * c + 1]), gelu_tanh_grad(a.y));
+        a.z = __fmul_rn(bf(acc[r][4 * c + 2]), gelu_tanh_grad(a.z));
+        a.w = __fmul_rn(bf(acc[r][4 * c + 3]), gelu_tanh_grad(a.w));
+        *reinterpret_cast<float4*>(ap + 64 * c) = a;
       }
     }
   }
+  __syncthreads();
+  mark(4);
 
-  // this block's slot
+  // the weight gradients: rank-1 updates row by row, unrounded fp32
+  for (int i = 0; i < rows; ++i) {
+    float da[8];
+    float gv[8];
+    const float4 d0 = *reinterpret_cast<const float4*>(as + i * kLdh + 4 * tx);
+    const float4 d1 =
+        *reinterpret_cast<const float4*>(as + i * kLdh + 64 + 4 * tx);
+    da[0] = d0.x; da[1] = d0.y; da[2] = d0.z; da[3] = d0.w;
+    da[4] = d1.x; da[5] = d1.y; da[6] = d1.z; da[7] = d1.w;
+    bf16x4(m.gs + i * kLdh + 4 * tx, gv);
+    bf16x4(m.gs + i * kLdh + 64 + 4 * tx, gv + 4);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const float xv = __bfloat162float(m.xb[i * kLdk + ty + 16 * q]);
+      const float dv = dr[i * kDs + ty + 16 * q];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        g.we[q][c] = fmaf(xv, da[c], g.we[q][c]);
+        g.wd[q][c] = fmaf(gv[c], dv, g.wd[q][c]);
+      }
+      if (tx == 0) g.bd[q] = __fadd_rn(g.bd[q], dv);
+    }
+    if (ty == 0) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) g.be[c] = __fadd_rn(g.be[c], da[c]);
+    }
+  }
+}
+
+// This block's slot `block` of `partials`, from g, assembled over the
+// working set (every thread calls it; it begins with a barrier).  mark(5)
+// once the tiles' sums are all in.
+template <int FP, class Mark>
+__device__ __forceinline__ void write_slot(const PhaseA<FP>& m,
+                                           Grads<FP>& g, float* partials,
+                                           int block, int f, Mark& mark) {
+  constexpr int kQ = Grads<FP>::kQ;
+  static_assert(work_bytes(FP) >= sizeof(float) * param_floats(FP),
+                "phase A assembles its slot over its working set");
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  float sq = g.sq;
   for (int off = 16; off > 0; off >>= 1) {
     sq += __shfl_xor_sync(0xffffffffu, sq, off);
   }
-  if (lane == 0) red[warp] = sq;
+  if (lane == 0) m.red[warp] = sq;
   __syncthreads();
   mark(5);
   float loss = 0.0f;
   if (tid == 0) {
-    for (int w = 0; w < kFitThreads / 32; ++w) loss = __fadd_rn(loss, red[w]);
+    for (int w = 0; w < kFitThreads / 32; ++w) loss = __fadd_rn(loss, m.red[w]);
   }
   __syncthreads();   // the tiles' arrays are free: assemble the slot there
 
-  float* slot = reinterpret_cast<float*>(smem);
+  float* slot = m.as;
   const int pf = param_floats(f);
   const int o_be = f * kHidden;
   const int o_wd = o_be + kHidden;
@@ -287,17 +356,19 @@ __device__ __forceinline__ void fit_partials(
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
       const int h = 4 * tx + 64 * c;
-      *reinterpret_cast<float4*>(slot + j * kHidden + h) = make_float4(
-          gwe[q][4 * c], gwe[q][4 * c + 1], gwe[q][4 * c + 2], gwe[q][4 * c + 3]);
-      *reinterpret_cast<float4*>(slot + o_wd + j * kHidden + h) = make_float4(
-          gwd[q][4 * c], gwd[q][4 * c + 1], gwd[q][4 * c + 2], gwd[q][4 * c + 3]);
+      *reinterpret_cast<float4*>(slot + j * kHidden + h) =
+          make_float4(g.we[q][4 * c], g.we[q][4 * c + 1], g.we[q][4 * c + 2],
+                      g.we[q][4 * c + 3]);
+      *reinterpret_cast<float4*>(slot + o_wd + j * kHidden + h) =
+          make_float4(g.wd[q][4 * c], g.wd[q][4 * c + 1], g.wd[q][4 * c + 2],
+                      g.wd[q][4 * c + 3]);
     }
-    if (tx == 0) slot[o_bd + j] = gbd[q];
+    if (tx == 0) slot[o_bd + j] = g.bd[q];
   }
   if (ty == 0) {
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      slot[o_be + 4 * tx + (c & 3) + 64 * (c >> 2)] = gbe[c];
+      slot[o_be + 4 * tx + (c & 3) + 64 * (c >> 2)] = g.be[c];
     }
   }
   if (tid == 0) slot[pf - 1] = loss;
@@ -306,16 +377,60 @@ __device__ __forceinline__ void fit_partials(
   for (int p = tid; p < pf; p += kFitThreads) part[p] = slot[p];
 }
 
+// K2's phase A for block `block` of `ga` (kFitThreads threads): the
+// weights staged from the fp32 params, each tile loaded from x and noise
+// (global memory), slot `block` of `partials`.  `smem` holds
+// work_bytes(FP) + tile_bytes(FP).
+template <int FP>
+__device__ __forceinline__ void fit_partials(
+    int block, int ga, const float* __restrict__ x,
+    const float* __restrict__ noise, float sigma, const float* w_enc,
+    const float* b_enc, const float* w_dec, const float* b_dec,
+    float* partials, float inv_count, int n, int f, unsigned char* smem) {
+  constexpr int R = kFitRows;
+  const PhaseA<FP> m(smem);
+  float* xc = reinterpret_cast<float*>(smem + work_bytes(FP));
+  const int tid = threadIdx.x;
+  NoMarks mark;
+
+  stage_params<FP>(m.w, w_enc, b_enc, w_dec, b_dec, f, tid);
+  Grads<FP> g = {};
+  const int tiles = (n + R - 1) / R;
+  for (int t = block; t < tiles; t += ga) {
+    const int row0 = t * R;
+    const int rows = min(R, n - row0);
+    __syncthreads();   // the previous tile's readers are done
+    for (int idx = tid; idx < R * FP; idx += kFitThreads) {
+      const int i = idx / FP;
+      const int j = idx - i * FP;
+      float xv = 0.0f;
+      float nv = 0.0f;
+      if (i < rows && j < f) {
+        const size_t gi = static_cast<size_t>(row0 + i) * f + j;
+        xv = x[gi];
+        nv = noise ? __fadd_rn(xv, __fmul_rn(sigma, noise[gi])) : xv;
+      }
+      xc[idx] = xv;
+      m.xb[i * PhaseA<FP>::kLdk + j] = __float2bfloat16_rn(nv);
+    }
+    __syncthreads();
+    fit_tile<FP>(m, xc, rows, f, inv_count, g, mark);
+  }
+  write_slot<FP>(m, g, partials, block, f, mark);
+}
+
 // Phase B for parameter slice `slice` of kSlice = kWidth x kCols
 // parameters, by the block's threads tid < kWidth * kReduceGroups: thread
 // tid sums, in group tid / kWidth, the columns tid % kWidth + kWidth c
 // (c < kCols).  `red` holds kReduceGroups * kSlice floats of shared
-// memory.  Every thread must call it (it holds __syncthreads).
+// memory.  `staged` is null (K2) or K3's image of the staged weights for
+// FP = fp, which gets each updated param.  Every thread must call it (it
+// holds __syncthreads).
 template <int kWidth, int kCols>
 __device__ __forceinline__ void fit_reduce(
     int slice, int tid, float* red, const float* partials, int slots, int f,
     float* w_enc, float* b_enc, float* w_dec, float* b_dec, float* loss_out,
-    float lr, float count) {
+    float lr, float count, unsigned char* staged, int fp) {
   constexpr int kSlice = kWidth * kCols;
   const int stride = param_floats(f);
   const int grp = tid / kWidth;
@@ -360,17 +475,32 @@ __device__ __forceinline__ void fit_reduce(
     if (p >= stride) break;
     const float s = red[q];
     if (p < o_be) {
-      w_enc[p] = __fsub_rn(__ldcg(w_enc + p), __fmul_rn(lr, bf(s)));
+      const float u = __fsub_rn(__ldcg(w_enc + p), __fmul_rn(lr, bf(s)));
+      w_enc[p] = u;
+      if (staged != nullptr) {   // W_enc[j][h] -> weT[h][j]
+        const int j = p / kHidden;
+        Staged(staged, fp).weT[(p - j * kHidden) * (fp + 8) + j] =
+            __float2bfloat16_rn(u);
+      }
     } else if (p < o_wd) {
       const int i = p - o_be;
-      b_enc[i] = __fsub_rn(__ldcg(b_enc + i), __fmul_rn(lr, s));
+      const float u = __fsub_rn(__ldcg(b_enc + i), __fmul_rn(lr, s));
+      b_enc[i] = u;
+      if (staged != nullptr) Staged(staged, fp).be[i] = u;
     } else if (p < o_bd) {   // the slot holds dW_dec transposed
       const int j = (p - o_wd) / kHidden;
-      const int i = (p - o_wd - j * kHidden) * f + j;
-      w_dec[i] = __fsub_rn(__ldcg(w_dec + i), __fmul_rn(lr, bf(s)));
+      const int h = p - o_wd - j * kHidden;
+      const int i = h * f + j;
+      const float u = __fsub_rn(__ldcg(w_dec + i), __fmul_rn(lr, bf(s)));
+      w_dec[i] = u;
+      if (staged != nullptr) {   // W_dec[h][j] -> wdT[j][h]
+        Staged(staged, fp).wdT[j * kLdh + h] = __float2bfloat16_rn(u);
+      }
     } else if (p < o_loss) {
       const int i = p - o_bd;
-      b_dec[i] = __fsub_rn(__ldcg(b_dec + i), __fmul_rn(lr, s));
+      const float u = __fsub_rn(__ldcg(b_dec + i), __fmul_rn(lr, s));
+      b_dec[i] = u;
+      if (staged != nullptr) Staged(staged, fp).bd[i] = u;
     } else {
       *loss_out = __fdiv_rn(s, count);
     }

@@ -42,7 +42,7 @@ fit_reduce_kernel(const float* partials, int slots, int f, float* w_enc,
   __shared__ float red[kReduceGroups * kReduceSlice];
   fit_reduce<kReduceSlice, 1>(blockIdx.x, threadIdx.x, red, partials, slots,
                               f, w_enc, b_enc, w_dec, b_dec, loss_out, lr,
-                              count);
+                              count, nullptr, 0);
 }
 
 template <int FP>
@@ -55,7 +55,7 @@ int fit_step(const float* x, const float* noise, float sigma, float* w_enc,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   // above 48 KB only after opting in: once for each FP
-  constexpr size_t smem = fit_smem_bytes(FP);
+  constexpr size_t smem = work_bytes(FP) + tile_bytes(FP);
   static bool opted = smem <= 48 * 1024;
   if (!opted) {
     const cudaError_t err = cudaFuncSetAttribute(

@@ -86,6 +86,24 @@ def fit_step(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
     return new, loss
 
 
+def staged(w_enc, b_enc, w_dec, b_dec) -> torch.Tensor:
+    """K3's staged weights (``csrc/anomaly_fit_phases.cuh``, ``Staged``)
+    as the flat float32 buffer at the start of its scratch: bf16 W_enc^T
+    [H][FP+8], bf16 W_dec^T [FP][H+8], fp32 b_enc [H], fp32 b_dec [FP],
+    zeros past F, with FP = F rounded up to 16 (two bf16 to a float)."""
+    f, hidden = w_enc.shape
+    fp = -(-f // 16) * 16
+    opts = {"dtype": torch.bfloat16, "device": w_enc.device}
+    we_t = torch.zeros((hidden, fp + 8), **opts)
+    we_t[:, :f] = w_enc.T.to(torch.bfloat16)
+    wd_t = torch.zeros((fp, hidden + 8), **opts)
+    wd_t[:f, :hidden] = w_dec.T.to(torch.bfloat16)
+    bd = torch.zeros(fp, dtype=torch.float32, device=w_enc.device)
+    bd[:f] = b_dec
+    return torch.cat([we_t.reshape(-1).view(torch.float32),
+                      wd_t.reshape(-1).view(torch.float32), b_enc, bd])
+
+
 def fit(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor, noises: torch.Tensor,
         lr: float, sigma: float):
     """``len(noises)`` denoising steps, one for each [n, F] noise of

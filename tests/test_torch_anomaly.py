@@ -215,15 +215,17 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
         anomaly.score(anomaly.AnomalyParams(*params), xt)
 
 
-# K2's partial-sum scratch: one slot of 2 F H + H + F + 1 floats per block
-# of launch A, min(ceil(n / 32), 132) blocks
+# K2's and K3's scratch: K3's staged weights, then one slot of
+# 2 F H + H + F + 1 floats per block of phase A, min(ceil(n / 32), 132)
+# blocks
 @pytest.mark.parametrize("feat", [32, 40])
 @pytest.mark.parametrize("n, slots", [(1, 1), (200, 7), (4224, 132),
                                       (8192, 132)])
 def test_scratch_floats_is_one_slot_per_block(n, slots, feat):
     assert K.fit_slots(n) == slots
-    assert K.scratch_floats(n, feat) == slots * (2 * feat * 128 + 128
-                                                 + feat + 1)
+    assert K.slot_floats(feat) == 2 * feat * 128 + 128 + feat + 1
+    assert K.scratch_floats(n, feat) == (K.staged_floats(feat)
+                                         + slots * K.slot_floats(feat))
 
 
 @pytest.mark.parametrize("bad", ["ok", "short", "f64", "device",
@@ -283,7 +285,7 @@ def _grouped_sum_step(arrays, x, noise, *, lr, sigma=0.25):
     g_slots = K.fit_slots(n)
     slots = []
     for b in range(g_slots):
-        acc = torch.zeros(K.scratch_floats(1, f))
+        acc = torch.zeros(K.slot_floats(f))
         for t in range(b, tiles, g_slots):
             rows = slice(t * K.FIT_ROWS, min((t + 1) * K.FIT_ROWS, n))
             acc = acc + torch.cat([

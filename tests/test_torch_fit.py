@@ -11,6 +11,9 @@ atol FIT_ATOL; per-step losses rtol FIT_LOSS_RTOL.
 
 from __future__ import annotations
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from clawker_tpu.analytics import runtime as ref_art
 from clawker_tpu_torch.analytics import anomaly
 from clawker_tpu_torch.analytics import runtime as art
 from clawker_tpu_torch.kernels import anomaly as K
+from clawker_tpu_torch.kernels import reference as R
 from test_torch_runtime import FIT_ATOL, FIT_LOSS_RTOL, FIT_RTOL
 
 # small shapes: one intra-op thread keeps torch's pool from spinning on
@@ -93,7 +97,9 @@ def test_fit_matches_reference_scan(n, feat, steps):
 
 @pytest.mark.parametrize("bad", ["noise_2d", "noise_rows", "noise_features",
                                  "short_losses", "long_losses",
-                                 "short_scratch", "cpu_stamps"])
+                                 "short_scratch", "slots_only_scratch",
+                                 "misaligned_scratch", "cpu_stamps",
+                                 "four_point_stamps"])
 def test_fit_rejects_what_the_kernel_does_not_take(bad):
     n, feat, steps = 200, 32, 3
     x, noises, arrays = _arrays(n, feat, steps)
@@ -112,10 +118,18 @@ def test_fit_rejects_what_the_kernel_does_not_take(bad):
         losses = torch.empty(steps + 1)
     elif bad == "short_scratch":
         scratch = torch.empty(K.scratch_floats(n, feat) - 1)
-    else:                       # the phase trace is the kernel's alone
-        stamps = torch.zeros(4 * steps * 132, dtype=torch.int64)
+    elif bad == "slots_only_scratch":   # no room for the staged weights
+        scratch = torch.empty(K.fit_slots(n) * K.slot_floats(feat))
+    elif bad == "misaligned_scratch":   # the staged weights copy in 16 B
+        scratch = torch.empty(K.scratch_floats(n, feat) + 1)[1:]
+    elif bad == "cpu_stamps":   # the phase trace is the kernel's alone
+        stamps = torch.zeros((steps, K.FIT_STAMPS, 132), dtype=torch.int64)
+    else:                       # the trace before phase A's sub-stages
+        stamps = torch.zeros((steps, 4, 132), dtype=torch.int64)
+    match = {"four_point_stamps": "trace's points",
+             "misaligned_scratch": "16-byte"}.get(bad)
     params = anomaly.params_from_numpy(arrays, device="cpu")
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=match):
         K.fit_(params, xt, nt.contiguous(), lr=LR, sigma=SIGMA,
                losses_out=losses, scratch=scratch, stamps=stamps)
     for p, a in zip(params, arrays):          # nothing was applied
@@ -155,3 +169,50 @@ def test_runtime_fit_is_one_fit_call(monkeypatch):
     want, want_losses = _fit(arrays, x, noises)
     assert torch.equal(losses, want_losses)
     assert all(torch.equal(p, q) for p, q in zip(params, want))
+
+
+def _kernel_widths() -> list[int]:
+    """The widths of chip_smoke.py's KERNEL_SHAPES, the shapes the kernels
+    are held at on the card."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return sorted({f for _, f in smoke.KERNEL_SHAPES})
+
+
+@pytest.mark.parametrize("feat", [7, 32, 40, 61])
+def test_staged_weights_are_bf16_of_the_transposed_params(feat):
+    """reference.staged, the layout K3 keeps in its scratch and copies to
+    shared memory: bf16 W_enc^T [H][FP+8], bf16 W_dec^T [FP][H+8], fp32
+    b_enc [H], fp32 b_dec [FP], zeros past F."""
+    _, _, arrays = _arrays(64, feat, 1)
+    params = [torch.from_numpy(a) for a in arrays]
+    buf = R.staged(*params)
+    assert buf.dtype == torch.float32 and buf.dim() == 1
+    assert buf.numel() == K.staged_floats(feat)
+    assert buf.numel() * 4 % 16 == 0          # cp.async's unit
+    fp = -(-feat // 16) * 16
+    raw = buf.view(torch.bfloat16)
+    we_t = raw[:128 * (fp + 8)].view(128, fp + 8)
+    wd_t = raw[128 * (fp + 8):128 * (fp + 8) + fp * 136].view(fp, 136)
+    be = buf[(128 * (fp + 8) + fp * 136) // 2:][:128]
+    bd = buf[(128 * (fp + 8) + fp * 136) // 2 + 128:]
+    w_enc, b_enc, w_dec, b_dec = params
+    assert torch.equal(we_t[:, :feat], w_enc.T.to(torch.bfloat16))
+    assert not we_t[:, feat:].float().any()
+    assert torch.equal(wd_t[:feat, :128], w_dec.T.to(torch.bfloat16))
+    assert not wd_t[feat:].float().any() and not wd_t[:, 128:].float().any()
+    assert torch.equal(be, b_enc)
+    assert bd.numel() == fp
+    assert torch.equal(bd[:feat], b_dec) and not bd[feat:].any()
+
+
+@pytest.mark.parametrize("feat", _kernel_widths())
+@pytest.mark.parametrize("n", [1, 100, 4224, 8192])
+def test_scratch_floats_covers_the_staged_weights(n, feat):
+    want = K.staged_floats(feat) + K.fit_slots(n) * K.slot_floats(feat)
+    assert K.scratch_floats(n, feat) == want
+    _, _, arrays = _arrays(8, feat, 1)
+    assert K.staged_floats(feat) == R.staged(
+        *(torch.from_numpy(a) for a in arrays)).numel()
