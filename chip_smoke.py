@@ -91,10 +91,10 @@ NARROW_F = 16
 KERNEL_SHAPES = [(100, 32), (130, 7), (200, 40), (256, 40), (260, 61),
                  (384, 40), (512, 32), (640, 32), (4096, 32), (4224, 32),
                  (8192, 32)]
-# K3 keeps a block's x tiles in shared memory while they fit (up to 17
-# tiles a block at F padded to 64: n <= 71808); one more row makes every
+# K3 keeps a block's x tiles in shared memory while they fit (up to 12
+# tiles a block at F padded to 64: n <= 50688); one more row makes every
 # block reload its tiles, the path this shape holds against K2
-RELOAD_SHAPE = (71809, 61)
+RELOAD_SHAPE = (50689, 61)
 RELOAD_STEPS = 4
 TIMED_SHAPE = (4224, 32)
 FIT_STEPS = 120

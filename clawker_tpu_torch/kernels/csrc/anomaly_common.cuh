@@ -95,6 +95,39 @@ __device__ __forceinline__ void load_b(uint32_t b[2], const __nv_bfloat16* s,
   b[1] = lds32(p + 8);
 }
 
+// The fragments of an operand whose reduction index runs down the rows of
+// its store (`s` holds S[k][.] with row stride ld, 8 bf16 = 16 bytes
+// contiguous from each row address): ldmatrix .trans hands each lane the
+// pairs (S[k + 2t][c], S[k + 2t + 1][c]) that mma.sync wants.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// The A fragment of A[m][k] = S[k][m], rows m0..m0+15 and depth k0..k0+15
+__device__ __forceinline__ void load_a_trans(uint32_t a[4],
+                                             const __nv_bfloat16* s, int ld,
+                                             int m0, int k0, int lane) {
+  const int q = lane >> 3;
+  ldmatrix_x4_trans(
+      a, s + (k0 + (lane & 7) + 8 * (q >> 1)) * ld + m0 + 8 * (q & 1));
+}
+
+// The B fragments of B[k][n] = S[k][n] for the two n-tiles n0 and n0 + 8,
+// depth k0..k0+15: b[0..1] for n0, b[2..3] for n0 + 8
+__device__ __forceinline__ void load_b2_trans(uint32_t b[4],
+                                              const __nv_bfloat16* s, int ld,
+                                              int n0, int k0, int lane) {
+  const int q = lane >> 3;
+  ldmatrix_x4_trans(
+      b, s + (k0 + (lane & 7) + 8 * (q & 1)) * ld + n0 + 8 * (q >> 1));
+}
+
 // dst[n][k] = bf(src[k][n]) for k < K, n < N, zero up to kp, np (multiples
 // of 8): a transpose into the n-major layout of a B operand.  A warp writes
 // an 8 n x 8 k block, lane (g, t) the pair (n0 + g, k0 + 2t): the same

@@ -51,8 +51,8 @@
 // phase B's room) + T x tile_bytes(FP) of resident x, T = the tiles a block
 // owns, ceil(ceil(n / 32) / ga), + 2 x tile_bytes(FP) of noise.  The x
 // tiles are resident while that fits in the 227 KB a block may have: up
-// to T = 91 / 41 / 25 / 17 tiles at F padded to 16 / 32 / 48 / 64, that is
-// n <= 384384 / 173184 / 105600 / 71808 rows.  Beyond, one x tile is
+// to T = 76 / 33 / 19 / 12 tiles at F padded to 16 / 32 / 48 / 64, that is
+// n <= 321024 / 139392 / 80256 / 50688 rows.  Beyond, one x tile is
 // reloaded from global memory at each tile, as K2 does.
 //
 // If `ga` blocks cannot be co-resident the launch returns an error; there

@@ -39,12 +39,18 @@
 //   behaves like rounding toward zero after each 16-deep step, so now and
 //   then a bf16(g) lands one ulp off the plain version's.
 // * The three backward products (dr . bf(W_dec)^T, bf(noisy)^T . da,
-//   bf(g)^T . dr) multiply the UNROUNDED fp32 cotangent: a bf16 MMA would
-//   round it, and TF32 would drop 13 of its bits, so they stay fp32 FMAs on
-//   the CUDA cores.  They are register-tiled: a thread owns a 2 x 8 tile of
-//   dh, and a (F/16) x 8 tile of each weight gradient, all independent
-//   accumulators fed from shared memory; no chain is longer than one
-//   product's depth (F for dh, the block's rows for the weight sums).
+//   bf(g)^T . dr) multiply the UNROUNDED fp32 cotangent: one bf16 MMA would
+//   round it, and TF32 would drop 13 of its bits.  So dr and da are split
+//   into three bf16 terms each, hi + mid + lo == the fp32 value exactly
+//   (Split3), and each product is three bf16 MMAs into one fp32
+//   accumulator: every product is exact, only the order and rounding of
+//   the sums are the tensor cores'.  The two weight sums reduce over the
+//   tile's rows, which run down the rows of xb, gs, drs and das in shared
+//   memory: ldmatrix .trans loads those operands transposed, so nothing is
+//   stored twice.  Warp w owns hidden columns 16 w .. 16 w + 15 of dh and
+//   of both weight sums; the weight sums stay in registers (Grads) across
+//   the block's tiles.  The bias sums stay fp32 adds over the rows in
+//   order.
 // * Phase B (fit_reduce): a block of 8 groups of threads takes the slice
 //   of parameters it is given (K2: 64 threads a group, one parameter each;
 //   K3: 32 threads, two each); each group sums fixed contiguous runs of
@@ -127,18 +133,22 @@ struct Staged {
 
 // Phase A's working set in shared memory, at offset 0 (fp32 arrays first,
 // 16-byte aligned rows, then the staged weights, then bf16):
-//   as [R][kLdh]  a, then da in place
-//   dr [R][FP+1]  dr (odd stride: the dh loop reads 4 rows of one column)
-//   red [8]       per-warp loss sums
-//   staged        staged_bytes(FP)
-//   xb [R][FP+8]  bf(noisy), gs [R][kLdh] bf(gelu(a))
+//   as [R][kLdh]      a, then da in place
+//   dr [R][FP+1]      dr (fp32, for db_dec)
+//   red [8]           per-warp loss sums
+//   staged            staged_bytes(FP)
+//   xb [R][FP+8]      bf(noisy)
+//   gs [R][kLdh]      bf(gelu(a))
+//   drs [3][R][FP+8]  dr as three bf16 terms, hi + mid + lo == dr exactly
+//   das [3][R][kLdh]  da as three bf16 terms
 // The slot is assembled over it, and phase B's sums reuse its start.  The
 // kernels put their fp32 x tiles (tile_bytes each) after it.
 __host__ __device__ constexpr size_t work_bytes(int fp) {
   return sizeof(float) * (kFitRows * kLdh + kFitRows * (fp + 1) +
                           kFitThreads / 32) +
          staged_bytes(fp) +
-         sizeof(__nv_bfloat16) * (kFitRows * (fp + 8) + kFitRows * kLdh);
+         sizeof(__nv_bfloat16) * (4 * kFitRows * (fp + 8) +
+                                  4 * kFitRows * kLdh);
 }
 
 __host__ __device__ constexpr size_t tile_bytes(int fp) {
@@ -155,6 +165,8 @@ struct PhaseA {
   Staged w;
   __nv_bfloat16* xb;
   __nv_bfloat16* gs;
+  __nv_bfloat16* drs;
+  __nv_bfloat16* das;
   __device__ explicit PhaseA(unsigned char* smem)
       : as(reinterpret_cast<float*>(smem)),
         dr(as + kFitRows * kLdh),
@@ -162,18 +174,22 @@ struct PhaseA {
         w(reinterpret_cast<unsigned char*>(red + kFitThreads / 32), FP),
         xb(reinterpret_cast<__nv_bfloat16*>(
             reinterpret_cast<unsigned char*>(w.weT) + staged_bytes(FP))),
-        gs(xb + kFitRows * kLdk) {}
+        gs(xb + kFitRows * kLdk),
+        drs(gs + kFitRows * kLdh),
+        das(drs + 3 * kFitRows * kLdk) {}
 };
 
-// A block's unrounded gradient sums, in registers: a thread owns the
-// columns h = 4 tx + e + 64 c (e < 4, c < 2) of rows j = ty + 16 q
+// A block's unrounded gradient sums, in registers.  Warp w owns the hidden
+// columns h = 16 w .. 16 w + 15 of both weight sums, as mma.sync tiles:
+// we[mt][nt] is the C fragment of dW_enc rows j = 16 mt.., columns
+// h = 16 w + 8 nt..; wd the same of dW_dec^T.  Thread tid < H sums
+// db_enc[tid], thread H + j < H + FP sums db_dec[j].
 template <int FP>
 struct Grads {
-  static constexpr int kQ = FP / 16;
-  float we[kQ][8];   // dW_enc[j][h]
-  float wd[kQ][8];   // dW_dec[h][j]
-  float be[8];       // db_enc[h], rows ty == 0
-  float bd[kQ];      // db_dec[j], columns tx == 0
+  static constexpr int kMt = FP / 16;
+  float we[kMt][2][4];
+  float wd[kMt][2][4];
+  float bias;
   float sq;          // squared error
 };
 
@@ -182,13 +198,17 @@ struct NoMarks {
   __device__ void operator()(int) const {}
 };
 
-__device__ __forceinline__ void bf16x4(const __nv_bfloat16* p, float* v) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(u.x << 16);
-  v[1] = __uint_as_float(u.x & 0xffff0000u);
-  v[2] = __uint_as_float(u.y << 16);
-  v[3] = __uint_as_float(u.y & 0xffff0000u);
-}
+// v as three bf16 terms, hi + mid + lo == v exactly: each step takes the
+// top 8 bits of what is left, and an fp32 value has 24
+struct Split3 {
+  __nv_bfloat16 t[3];
+  __device__ explicit Split3(float v) {
+    t[0] = __float2bfloat16_rn(v);
+    const float r = __fsub_rn(v, __bfloat162float(t[0]));
+    t[1] = __float2bfloat16_rn(r);
+    t[2] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(t[1])));
+  }
+};
 
 // The staged weights built from the fp32 params into shared memory (K2)
 template <int FP>
@@ -217,6 +237,15 @@ __device__ __forceinline__ void stage_params(const Staged& w,
 // tile's rows added into g.  Ends without a barrier; the caller syncs
 // before it overwrites xb, xc or the staged weights.  mark(3) after the
 // forward, mark(4) after dh/da.
+//
+// The three backward products run on the tensor cores too, without
+// rounding the fp32 cotangent: dr and da are split into three bf16 terms
+// each (Split3), and each product is the sum of three bf16 products, each
+// exact in the fp32 accumulator.  The sums differ from an fp32 FMA chain
+// only in their order and rounding (the tensor cores' accumulation), as
+// the forward's do.  Rows past `rows` and features past f are zeros in xb,
+// dr and da, so they add exact zeros.  The bias sums stay fp32 adds over
+// the rows in order.
 template <int FP, class Mark>
 __device__ __forceinline__ void fit_tile(const PhaseA<FP>& m,
                                          const float* xc, int rows, int f,
@@ -225,20 +254,24 @@ __device__ __forceinline__ void fit_tile(const PhaseA<FP>& m,
   constexpr int R = kFitRows;
   constexpr int kLdk = PhaseA<FP>::kLdk;
   constexpr int kDs = PhaseA<FP>::kDs;
-  constexpr int kRt = R / 16;        // dh rows per thread
-  constexpr int kQ = Grads<FP>::kQ;  // weight-gradient rows per thread
+  constexpr int kMt = Grads<FP>::kMt;
+  static_assert(R == 32 && kFitThreads / 32 * 16 == kHidden,
+                "8 warps of 16 hidden columns; two row tiles of 16");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int gq = lane >> 2;
+  const int t2 = 2 * (lane & 3);
+  const int h0 = 16 * warp;
   float* as = m.as;
   float* dr = m.dr;
   const float* bd = m.w.bd;
+  __nv_bfloat16* drs = m.drs;
+  __nv_bfloat16* das = m.das;
 
-  // forward on the tensor cores; the decoder's epilogue forms e, dr and
-  // the squared error (rows past n and features past f give dr = 0, so
-  // they add nothing to any gradient below)
+  // forward on the tensor cores; the decoder's epilogue forms e, dr (fp32
+  // and split) and the squared error (rows past n and features past f
+  // give dr = 0)
   forward_tile<R, kFitThreads / 32>(
       m.xb, kLdk, FP, m.w.weT, kLdk, m.w.be, as, kLdh, m.gs, kLdh, m.w.wdT,
       kLdh, FP, warp, lane, [&](int i, int j, float acc) {
@@ -249,69 +282,97 @@ __device__ __forceinline__ void fit_tile(const PhaseA<FP>& m,
           d = __fmul_rn(__fmul_rn(2.0f, e), inv_count);
         }
         dr[i * kDs + j] = d;
+        const Split3 sd(d);
+#pragma unroll
+        for (int u = 0; u < 3; ++u) drs[(u * R + i) * kLdk + j] = sd.t[u];
       });
   __syncthreads();
   mark(3);
 
-  // dh = dr . bf(W_dec)^T, the row's full sum over F rounded to bf16;
-  // da = dh * gelu'(a) overwrites a (each thread its own elements)
+  // dh = dr . bf(W_dec)^T (B[j][h] = wdT[j][h]), the row's full sum over F
+  // rounded to bf16; da = dh * gelu'(a) overwrites a, and goes to das
   {
-    const __nv_bfloat16* wdT = m.w.wdT;
-    float acc[kRt][8] = {};
+    float acc[2][2][4] = {};   // [row tile][column tile]
 #pragma unroll
-    for (int j = 0; j < FP; ++j) {
-      float w[8];
-      bf16x4(wdT + j * kLdh + 4 * tx, w);
-      bf16x4(wdT + j * kLdh + 64 + 4 * tx, w + 4);
+    for (int k0 = 0; k0 < FP; k0 += 16) {
+      uint32_t b[4];
+      load_b2_trans(b, m.w.wdT, kLdh, h0, k0, lane);
 #pragma unroll
-      for (int r = 0; r < kRt; ++r) {
-        const float d = dr[(ty * kRt + r) * kDs + j];
+      for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(d, w[c], acc[r][c]);
+        for (int u = 2; u >= 0; --u) {   // lo, mid, hi
+          uint32_t a[4];
+          load_a(a, drs + u * R * kLdk, kLdk, 16 * mt, k0, lane);
+          mma_bf16_16816(acc[mt][0], a, b);
+          mma_bf16_16816(acc[mt][1], a, b + 2);
+        }
       }
     }
 #pragma unroll
-    for (int r = 0; r < kRt; ++r) {
-      float* ap = as + (ty * kRt + r) * kLdh + 4 * tx;
+    for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        float4 a = *reinterpret_cast<float4*>(ap + 64 * c);
-        a.x = __fmul_rn(bf(acc[r][4 * c]), gelu_tanh_grad(a.x));
-        a.y = __fmul_rn(bf(acc[r][4 * c + 1]), gelu_tanh_grad(a.y));
-        a.z = __fmul_rn(bf(acc[r][4 * c + 2]), gelu_tanh_grad(a.z));
-        a.w = __fmul_rn(bf(acc[r][4 * c + 3]), gelu_tanh_grad(a.w));
-        *reinterpret_cast<float4*>(ap + 64 * c) = a;
+      for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int i = 16 * mt + gq + 8 * half;
+          const int h = h0 + 8 * nt + t2;
+          float2* ap = reinterpret_cast<float2*>(as + i * kLdh + h);
+          float2 a = *ap;
+          a.x = __fmul_rn(bf(acc[mt][nt][2 * half]), gelu_tanh_grad(a.x));
+          a.y = __fmul_rn(bf(acc[mt][nt][2 * half + 1]), gelu_tanh_grad(a.y));
+          *ap = a;
+          const Split3 s0(a.x);
+          const Split3 s1(a.y);
+#pragma unroll
+          for (int u = 0; u < 3; ++u) {
+            __nv_bfloat162 v;
+            v.x = s0.t[u];
+            v.y = s1.t[u];
+            *reinterpret_cast<__nv_bfloat162*>(das + (u * R + i) * kLdh + h) =
+                v;
+          }
+        }
       }
     }
   }
   __syncthreads();
   mark(4);
 
-  // the weight gradients: rank-1 updates row by row, unrounded fp32
-  for (int i = 0; i < rows; ++i) {
-    float da[8];
-    float gv[8];
-    const float4 d0 = *reinterpret_cast<const float4*>(as + i * kLdh + 4 * tx);
-    const float4 d1 =
-        *reinterpret_cast<const float4*>(as + i * kLdh + 64 + 4 * tx);
-    da[0] = d0.x; da[1] = d0.y; da[2] = d0.z; da[3] = d0.w;
-    da[4] = d1.x; da[5] = d1.y; da[6] = d1.z; da[7] = d1.w;
-    bf16x4(m.gs + i * kLdh + 4 * tx, gv);
-    bf16x4(m.gs + i * kLdh + 64 + 4 * tx, gv + 4);
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const float xv = __bfloat162float(m.xb[i * kLdk + ty + 16 * q]);
-      const float dv = dr[i * kDs + ty + 16 * q];
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        g.we[q][c] = fmaf(xv, da[c], g.we[q][c]);
-        g.wd[q][c] = fmaf(gv[c], dv, g.wd[q][c]);
-      }
-      if (tx == 0) g.bd[q] = __fadd_rn(g.bd[q], dv);
+  // the bias sums, fp32 over the rows in order
+  if (tid < kHidden) {
+    for (int i = 0; i < rows; ++i) g.bias = __fadd_rn(g.bias, as[i * kLdh + tid]);
+  } else if (tid < kHidden + FP) {
+    for (int i = 0; i < rows; ++i) {
+      g.bias = __fadd_rn(g.bias, dr[i * kDs + tid - kHidden]);
     }
-    if (ty == 0) {
+  }
+  // the weight sums over the tile's rows (k = i):
+  //   dW_enc[j][h]   += sum_i xb[i][j] da[i][h]
+  //   dW_dec^T[j][h] += sum_i dr[i][j] gs[i][h]
 #pragma unroll
-      for (int c = 0; c < 8; ++c) g.be[c] = __fadd_rn(g.be[c], da[c]);
+  for (int k0 = 0; k0 < R; k0 += 16) {
+    uint32_t bda[3][4];
+    uint32_t bg[4];
+#pragma unroll
+    for (int u = 0; u < 3; ++u) {
+      load_b2_trans(bda[u], das + u * R * kLdh, kLdh, h0, k0, lane);
+    }
+    load_b2_trans(bg, m.gs, kLdh, h0, k0, lane);
+#pragma unroll
+    for (int mt = 0; mt < kMt; ++mt) {
+      uint32_t a[4];
+      load_a_trans(a, m.xb, kLdk, 16 * mt, k0, lane);
+#pragma unroll
+      for (int u = 2; u >= 0; --u) {
+        mma_bf16_16816(g.we[mt][0], a, bda[u]);
+        mma_bf16_16816(g.we[mt][1], a, bda[u] + 2);
+      }
+#pragma unroll
+      for (int u = 2; u >= 0; --u) {
+        load_a_trans(a, drs + u * R * kLdk, kLdk, 16 * mt, k0, lane);
+        mma_bf16_16816(g.wd[mt][0], a, bg);
+        mma_bf16_16816(g.wd[mt][1], a, bg + 2);
+      }
     }
   }
 }
@@ -323,14 +384,14 @@ template <int FP, class Mark>
 __device__ __forceinline__ void write_slot(const PhaseA<FP>& m,
                                            Grads<FP>& g, float* partials,
                                            int block, int f, Mark& mark) {
-  constexpr int kQ = Grads<FP>::kQ;
+  constexpr int kMt = Grads<FP>::kMt;
   static_assert(work_bytes(FP) >= sizeof(float) * param_floats(FP),
                 "phase A assembles its slot over its working set");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int gq = lane >> 2;
+  const int t2 = 2 * (lane & 3);
   float sq = g.sq;
   for (int off = 16; off > 0; off >>= 1) {
     sq += __shfl_xor_sync(0xffffffffu, sq, off);
@@ -350,26 +411,25 @@ __device__ __forceinline__ void write_slot(const PhaseA<FP>& m,
   const int o_wd = o_be + kHidden;
   const int o_bd = o_wd + kHidden * f;
 #pragma unroll
-  for (int q = 0; q < kQ; ++q) {
-    const int j = ty + 16 * q;
-    if (j >= f) continue;
+  for (int mt = 0; mt < kMt; ++mt) {
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int h = 4 * tx + 64 * c;
-      *reinterpret_cast<float4*>(slot + j * kHidden + h) =
-          make_float4(g.we[q][4 * c], g.we[q][4 * c + 1], g.we[q][4 * c + 2],
-                      g.we[q][4 * c + 3]);
-      *reinterpret_cast<float4*>(slot + o_wd + j * kHidden + h) =
-          make_float4(g.wd[q][4 * c], g.wd[q][4 * c + 1], g.wd[q][4 * c + 2],
-                      g.wd[q][4 * c + 3]);
+    for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 16 * mt + gq + 8 * half;
+        if (j >= f) continue;
+        const int h = 16 * warp + 8 * nt + t2;
+        *reinterpret_cast<float2*>(slot + j * kHidden + h) = make_float2(
+            g.we[mt][nt][2 * half], g.we[mt][nt][2 * half + 1]);
+        *reinterpret_cast<float2*>(slot + o_wd + j * kHidden + h) =
+            make_float2(g.wd[mt][nt][2 * half], g.wd[mt][nt][2 * half + 1]);
+      }
     }
-    if (tx == 0) slot[o_bd + j] = g.bd[q];
   }
-  if (ty == 0) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      slot[o_be + 4 * tx + (c & 3) + 64 * (c >> 2)] = g.be[c];
-    }
+  if (tid < kHidden) {
+    slot[o_be + tid] = g.bias;
+  } else if (tid < kHidden + f) {
+    slot[o_bd + tid - kHidden] = g.bias;
   }
   if (tid == 0) slot[pf - 1] = loss;
   __syncthreads();
