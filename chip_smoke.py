@@ -583,7 +583,9 @@ def fit_report(name: str, X, steps: int, device, reps: int = 5) -> None:
           f"{by}); noise draw (K4) device {draw_ms * 1e3:.2f} us (bound "
           f"{nbound * 1e3:.2f} us by bytes)")
     print(f"main path {name}: fit enqueue parts, median us: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()))
+          + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+          + " (the C call makes the device queries once per width; before "
+            "it made them on every launch)")
     print(f"main path {name}: K3 per step, mean us of the phase trace: "
           f"phase A {split[0]:.2f}, barrier {split[1]:.2f}, phase B "
           f"{split[2]:.2f}, barrier {split[3]:.2f}")
@@ -601,10 +603,10 @@ A_SUBSTAGES = ("noise wait", "noisy x + weights wait", "forward", "dh/da",
 def enqueue_parts(params, x, noises, reps: int = 50) -> dict:
     """The parts of ``fit_``'s enqueue, median host us of each alone: the
     wrapper's checks, the scratch's allocation (``runtime._fit`` passes
-    none), the launch (``_launch_fit``) and, inside it, the stream's
-    lookup and the C call alone; and the device and occupancy queries that
-    size the launch (``fit_blocks``, made afresh: the C call makes them
-    once for each width, device and shared-memory size)."""
+    none), the stream's lookup, the C call (the launch) with its
+    arguments made, and the device and occupancy queries that size the
+    launch (``fit_blocks``, made afresh: the C call makes them once for
+    each width, device and shared-memory size)."""
     import torch
 
     from clawker_tpu_torch.kernels import anomaly as K
@@ -631,23 +633,19 @@ def enqueue_parts(params, x, noises, reps: int = 50) -> dict:
                                        None),
         "scratch alloc": lambda: torch.empty(K.scratch_floats(n, f),
                                              device=x.device),
-        "launch": lambda: K._launch_fit(params, x, noises, 0.25, 1e-2,
-                                        losses, scratch, None),
         "stream lookup": stream_lookup,
         "C call": c_call,
         "device queries": lambda: K.fit_blocks(n, f),
     }
-    out = {}
-    for name, fn in parts.items():
-        times = []
-        for _ in range(reps):
+    times = {name: [] for name in parts}
+    for _ in range(reps):            # the parts in turn, so drift hits all
+        for name, fn in parts.items():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
-            times.append(time.perf_counter() - t0)
-        out[name] = statistics.median(times) * 1e6
+            times[name].append(time.perf_counter() - t0)
     torch.cuda.synchronize()
-    return out
+    return {name: statistics.median(t) * 1e6 for name, t in times.items()}
 
 
 def phase_split(params, x, noises) -> tuple[list[float], list[float]]:

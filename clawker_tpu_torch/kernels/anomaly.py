@@ -202,20 +202,6 @@ def _check_fit(params, x, noises, losses_out, scratch, stamps):
     return n, f, steps
 
 
-def _launch_fit(params, x, noises, sigma, lr, losses_out, scratch,
-                stamps) -> None:
-    n, f = x.shape
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(FIT)(
-            x.data_ptr(), noises.data_ptr(), sigma,
-            *(p.data_ptr() for p in params), scratch.data_ptr(),
-            scratch.numel(), losses_out.data_ptr(), lr, n, f, len(noises),
-            0 if stamps is None else stamps.data_ptr(),
-            0 if stamps is None else stamps.numel(), stream)
-    _launched(FIT, err)
-
-
 def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
          sigma: float, losses_out: torch.Tensor,
          scratch: torch.Tensor | None = None,
@@ -239,4 +225,12 @@ def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
     if scratch is None:
         scratch = torch.empty(scratch_floats(n, f), dtype=torch.float32,
                               device=x.device)
-    _launch_fit(params, x, noises, sigma, lr, losses_out, scratch, stamps)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = kernel(FIT)(
+            x.data_ptr(), noises.data_ptr(), sigma,
+            *(p.data_ptr() for p in params), scratch.data_ptr(),
+            scratch.numel(), losses_out.data_ptr(), lr, n, f, steps,
+            0 if stamps is None else stamps.data_ptr(),
+            0 if stamps is None else stamps.numel(), stream)
+    _launched(FIT, err)

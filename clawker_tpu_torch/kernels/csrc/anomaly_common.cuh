@@ -31,20 +31,24 @@ __device__ __forceinline__ float gelu_tanh_u(float a) {
   return __fmul_rn(kGeluC, __fadd_rn(a, __fmul_rn(kGeluK, a3)));
 }
 
-// a * (0.5 * (1 + tanh(c * (a + k a^3))))  -- jax.nn.gelu(approximate=True)
-__device__ __forceinline__ float gelu_tanh(float a) {
-  const float t = tanhf(gelu_tanh_u(a));
+// a * (0.5 * (1 + t)), t = tanh(c * (a + k a^3))
+//   -- jax.nn.gelu(approximate=True)
+__device__ __forceinline__ float gelu_tanh_t(float a, float t) {
   return __fmul_rn(a, __fmul_rn(0.5f, __fadd_rn(1.0f, t)));
 }
 
-// d/da of gelu_tanh, in the operation order of reference.gelu_tanh_grad
-__device__ __forceinline__ float gelu_tanh_grad(float a) {
-  const float t = tanhf(gelu_tanh_u(a));
+// d/da of gelu_tanh for the same t, in the operation order of
+// reference.gelu_tanh_grad
+__device__ __forceinline__ float gelu_tanh_grad_t(float a, float t) {
   const float left = __fmul_rn(0.5f, __fadd_rn(1.0f, t));
   float right = __fmul_rn(__fmul_rn(a, 0.5f), __fsub_rn(1.0f, __fmul_rn(t, t)));
   right = __fmul_rn(right, kGeluC);
   right = __fmul_rn(right, __fadd_rn(1.0f, __fmul_rn(__fmul_rn(kGelu3K, a), a)));
   return __fadd_rn(left, right);
+}
+
+__device__ __forceinline__ float gelu_tanh(float a) {
+  return gelu_tanh_t(a, tanhf(gelu_tanh_u(a)));
 }
 
 // ---------------------------------------------------------------------------
@@ -154,7 +158,9 @@ __device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst, int ld,
 
 // The forward of an R-row tile by kWarps warps (R a multiple of 16, kWarps
 // a multiple of R / 16):
-//   a = bf(x) . bf(W_enc) + b_enc    -> as[i][h] (fp32; skipped if null)
+//   a = bf(x) . bf(W_enc) + b_enc
+//   as[i][h] = gelu'(a)              (fp32, from gelu's own tanh; skipped
+//                                     if as is null)
 //   gs[i][h] = bf(gelu(a))
 //   r = gs . bf(W_dec)               -> epi(i, j, r_ij) for i < R, j < np
 // b_dec is left to `epi`; b_enc is read from shared memory, beside the
@@ -201,11 +207,14 @@ __device__ __forceinline__ void forward_tile(
         const int i = m0 + g + 8 * half;
         const float a0 = __fadd_rn(acc[q][2 * half], b0);
         const float a1 = __fadd_rn(acc[q][2 * half + 1], b1);
+        const float t0 = tanhf(gelu_tanh_u(a0));
+        const float t1 = tanhf(gelu_tanh_u(a1));
         if (as != nullptr) {
-          *reinterpret_cast<float2*>(as + i * lda + h) = make_float2(a0, a1);
+          *reinterpret_cast<float2*>(as + i * lda + h) = make_float2(
+              gelu_tanh_grad_t(a0, t0), gelu_tanh_grad_t(a1, t1));
         }
         *reinterpret_cast<__nv_bfloat162*>(gs + i * ldg + h) =
-            __floats2bfloat162_rn(gelu_tanh(a0), gelu_tanh(a1));
+            __floats2bfloat162_rn(gelu_tanh_t(a0, t0), gelu_tanh_t(a1, t1));
       }
     }
   }

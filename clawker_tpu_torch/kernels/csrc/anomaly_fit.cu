@@ -15,10 +15,11 @@
 //
 // Design: gb blocks of 256 threads, all co-resident (one per SM, at least
 // `ga` = min(ceil(n / 32), 132)).
-//   * Prologue: the blocks build the STAGED IMAGE in global scratch from
-//     the fp32 params: bf16 W_enc^T [H][FP+8], bf16 W_dec^T [FP][H+8],
-//     fp32 b_enc [H], b_dec [FP], zeros past f -- byte for byte the layout
-//     phase A wants in shared memory (`Staged`, anomaly_fit_phases.cuh).
+//   * Prologue: block 0 builds the STAGED IMAGE in global scratch from
+//     the fp32 params, as K2 stages them (stage_params): bf16 W_enc^T
+//     [H][FP+8], bf16 W_dec^T [FP][H+8], fp32 b_enc [H], b_dec [FP], zeros
+//     past f -- byte for byte the layout phase A wants in shared memory
+//     (`Staged`, anomaly_fit_phases.cuh).
 //     Each phase-A block loads its own clean x tiles (t = block,
 //     block + ga, ...) into shared memory, where they stay RESIDENT for the
 //     whole fit, and starts the copy of its first noise tile; grid.sync().
@@ -129,37 +130,6 @@ __device__ __forceinline__ void copy_async(float* dst, const float* src,
   }
 }
 
-// The staged image in global memory from the fp32 params, by thread `id`
-// of `threads`: kernels/reference.py `staged` in CUDA.
-template <int FP>
-__device__ __forceinline__ void stage_image(const Staged& w,
-                                            const float* w_enc,
-                                            const float* b_enc,
-                                            const float* w_dec,
-                                            const float* b_dec, int f,
-                                            int id, int threads) {
-  constexpr int kLdk = FP + 8;
-  for (int e = id; e < kHidden * kLdk; e += threads) {
-    const int h = e / kLdk;
-    const int j = e - h * kLdk;
-    w.weT[e] = __float2bfloat16_rn(j < f ? __ldcg(w_enc + j * kHidden + h)
-                                         : 0.0f);
-  }
-  for (int e = id; e < FP * kLdh; e += threads) {
-    const int j = e / kLdh;
-    const int h = e - j * kLdh;
-    w.wdT[e] = __float2bfloat16_rn(
-        j < f && h < kHidden ? __ldcg(w_dec + h * f + j) : 0.0f);
-  }
-  for (int e = id; e < kHidden + FP; e += threads) {
-    if (e < kHidden) {
-      w.be[e] = __ldcg(b_enc + e);
-    } else {
-      w.bd[e - kHidden] = e - kHidden < f ? __ldcg(b_dec + e - kHidden) : 0.0f;
-    }
-  }
-}
-
 // The clean x tile at row0 (rows of them) into xc [R][FP], zeros past rows
 // and f
 template <int FP>
@@ -210,8 +180,7 @@ fit_kernel(const float* __restrict__ x, const float* __restrict__ noises,
   };
   auto rows_of = [&](int t) { return min(R, n - t * R); };
 
-  stage_image<FP>(img, w_enc, b_enc, w_dec, b_dec, f,
-                  block * kFitThreads + tid, gridDim.x * kFitThreads);
+  if (block == 0) stage_params<FP>(img, w_enc, b_enc, w_dec, b_dec, f, tid);
   if (own > 0) {
     for (int k = 0; resident_tiles > 0 && k < own; ++k) {
       const int t = block + k * ga;

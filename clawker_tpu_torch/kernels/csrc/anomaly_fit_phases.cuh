@@ -133,7 +133,7 @@ struct Staged {
 
 // Phase A's working set in shared memory, at offset 0 (fp32 arrays first,
 // 16-byte aligned rows, then the staged weights, then bf16):
-//   as [R][kLdh]      a, then da in place
+//   as [R][kLdh]      gelu'(a), then da in place
 //   dr [R][FP+1]      dr (fp32, for db_dec)
 //   red [8]           per-warp loss sums
 //   staged            staged_bytes(FP)
@@ -210,7 +210,9 @@ struct Split3 {
   }
 };
 
-// The staged weights built from the fp32 params into shared memory (K2)
+// The staged weights built from the fp32 params by one block's threads,
+// whole rows, padding included: into shared memory (K2), or into K3's
+// global image (its prologue), which phase A copies whole
 template <int FP>
 __device__ __forceinline__ void stage_params(const Staged& w,
                                              const float* w_enc,
@@ -218,9 +220,9 @@ __device__ __forceinline__ void stage_params(const Staged& w,
                                              const float* w_dec,
                                              const float* b_dec, int f,
                                              int tid) {
-  stage_transposed(w.weT, FP + 8, w_enc, kHidden, f, kHidden, FP, kHidden,
-                   tid, kFitThreads);
-  stage_transposed(w.wdT, kLdh, w_dec, f, kHidden, f, kHidden, FP, tid,
+  stage_transposed(w.weT, FP + 8, w_enc, kHidden, f, kHidden, FP + 8,
+                   kHidden, tid, kFitThreads);
+  stage_transposed(w.wdT, kLdh, w_dec, f, kHidden, f, kLdh, FP, tid,
                    kFitThreads);
   for (int i = tid; i < kHidden + FP; i += kFitThreads) {
     if (i < kHidden) {
@@ -290,7 +292,8 @@ __device__ __forceinline__ void fit_tile(const PhaseA<FP>& m,
   mark(3);
 
   // dh = dr . bf(W_dec)^T (B[j][h] = wdT[j][h]), the row's full sum over F
-  // rounded to bf16; da = dh * gelu'(a) overwrites a, and goes to das
+  // rounded to bf16; da = dh * gelu'(a) overwrites gelu'(a), and goes to
+  // das
   {
     float acc[2][2][4] = {};   // [row tile][column tile]
 #pragma unroll
@@ -318,8 +321,8 @@ __device__ __forceinline__ void fit_tile(const PhaseA<FP>& m,
           const int h = h0 + 8 * nt + t2;
           float2* ap = reinterpret_cast<float2*>(as + i * kLdh + h);
           float2 a = *ap;
-          a.x = __fmul_rn(bf(acc[mt][nt][2 * half]), gelu_tanh_grad(a.x));
-          a.y = __fmul_rn(bf(acc[mt][nt][2 * half + 1]), gelu_tanh_grad(a.y));
+          a.x = __fmul_rn(bf(acc[mt][nt][2 * half]), a.x);
+          a.y = __fmul_rn(bf(acc[mt][nt][2 * half + 1]), a.y);
           *ap = a;
           const Split3 s0(a.x);
           const Split3 s1(a.y);
@@ -340,7 +343,9 @@ __device__ __forceinline__ void fit_tile(const PhaseA<FP>& m,
 
   // the bias sums, fp32 over the rows in order
   if (tid < kHidden) {
-    for (int i = 0; i < rows; ++i) g.bias = __fadd_rn(g.bias, as[i * kLdh + tid]);
+    for (int i = 0; i < rows; ++i) {
+      g.bias = __fadd_rn(g.bias, as[i * kLdh + tid]);
+    }
   } else if (tid < kHidden + FP) {
     for (int i = 0; i < rows; ++i) {
       g.bias = __fadd_rn(g.bias, dr[i * kDs + tid - kHidden]);
@@ -377,15 +382,18 @@ __device__ __forceinline__ void fit_tile(const PhaseA<FP>& m,
   }
 }
 
-// This block's slot `block` of `partials`, from g, assembled over the
-// working set (every thread calls it; it begins with a barrier).  mark(5)
-// once the tiles' sums are all in.
+// This block's slot `block` of `partials`, from g (every thread calls it;
+// it begins with a barrier).  mark(5) once the tiles' sums are all in.
+// The slot is assembled over the working set first, its weight rows
+// padded to kLdh floats so that no two rows of a fragment store meet in a
+// bank, and then stored coalesced.
 template <int FP, class Mark>
 __device__ __forceinline__ void write_slot(const PhaseA<FP>& m,
                                            Grads<FP>& g, float* partials,
                                            int block, int f, Mark& mark) {
   constexpr int kMt = Grads<FP>::kMt;
-  static_assert(work_bytes(FP) >= sizeof(float) * param_floats(FP),
+  static_assert(work_bytes(FP) >=
+                    sizeof(float) * (2 * FP * kLdh + kHidden + FP + 1),
                 "phase A assembles its slot over its working set");
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -405,36 +413,44 @@ __device__ __forceinline__ void write_slot(const PhaseA<FP>& m,
   }
   __syncthreads();   // the tiles' arrays are free: assemble the slot there
 
-  float* slot = m.as;
-  const int pf = param_floats(f);
-  const int o_be = f * kHidden;
-  const int o_wd = o_be + kHidden;
-  const int o_bd = o_wd + kHidden * f;
+  float* s_we = m.as;                 // dW_enc [FP][kLdh]
+  float* s_wd = s_we + FP * kLdh;     // dW_dec^T [FP][kLdh]
+  float* s_b = s_wd + FP * kLdh;      // db_enc [H], db_dec [f], loss
 #pragma unroll
   for (int mt = 0; mt < kMt; ++mt) {
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
-        const int j = 16 * mt + gq + 8 * half;
-        if (j >= f) continue;
-        const int h = 16 * warp + 8 * nt + t2;
-        *reinterpret_cast<float2*>(slot + j * kHidden + h) = make_float2(
-            g.we[mt][nt][2 * half], g.we[mt][nt][2 * half + 1]);
-        *reinterpret_cast<float2*>(slot + o_wd + j * kHidden + h) =
+        const int q =
+            (16 * mt + gq + 8 * half) * kLdh + 16 * warp + 8 * nt + t2;
+        *reinterpret_cast<float2*>(s_we + q) =
+            make_float2(g.we[mt][nt][2 * half], g.we[mt][nt][2 * half + 1]);
+        *reinterpret_cast<float2*>(s_wd + q) =
             make_float2(g.wd[mt][nt][2 * half], g.wd[mt][nt][2 * half + 1]);
       }
     }
   }
-  if (tid < kHidden) {
-    slot[o_be + tid] = g.bias;
-  } else if (tid < kHidden + f) {
-    slot[o_bd + tid - kHidden] = g.bias;
-  }
-  if (tid == 0) slot[pf - 1] = loss;
+  if (tid < kHidden + f) s_b[tid] = g.bias;
+  if (tid == 0) s_b[kHidden + f] = loss;
   __syncthreads();
+  const int pf = param_floats(f);
+  const int o_be = f * kHidden;
+  const int o_wd = o_be + kHidden;
+  const int o_bd = o_wd + kHidden * f;
   float* part = partials + static_cast<size_t>(block) * pf;
-  for (int p = tid; p < pf; p += kFitThreads) part[p] = slot[p];
+  // two rows of H per pass, each warp a 128-byte run
+  const int c = tid % kHidden;
+#pragma unroll 4
+  for (int j = tid / kHidden; j < f; j += kFitThreads / kHidden) {
+    part[j * kHidden + c] = s_we[j * kLdh + c];
+    part[o_wd + j * kHidden + c] = s_wd[j * kLdh + c];
+  }
+  if (tid < kHidden) {
+    part[o_be + tid] = s_b[tid];
+  } else if (tid <= kHidden + f) {   // db_dec, then the loss
+    part[o_bd + tid - kHidden] = s_b[tid];
+  }
 }
 
 // K2's phase A for block `block` of `ga` (kFitThreads threads): the
