@@ -56,7 +56,6 @@ ROOT = Path(__file__).resolve().parent
 # larger of its bytes over HBM_BPS and its products over their type's rate
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12
 HIDDEN = 128
 
 # Tolerances, kernel against plain version on the same card and inputs.
@@ -245,11 +244,14 @@ def score_bound(n: int, f: int) -> tuple[float, str]:
 
 def fit_step_bound(n: int, f: int) -> tuple[float, str]:
     """Least time of K2: x and noise in, params in and out, the loss out;
-    the forward products at the bf16 rate, the three backward products
-    (fp32 cotangent, not rounded) at the fp32 rate."""
+    the two forward products (4 nFH flops) and the three backward ones at
+    the bf16 rate.  Each backward product multiplies the fp32 cotangent
+    unrounded, which the tensor cores take as three bf16 terms whose sum
+    is exact: 18 nFH flops (at the fp32 rate, 6 nFH would take 4.9x as
+    long)."""
     params = 2 * f * HIDDEN + HIDDEN + f
     nbytes = 4 * (2 * n * f + 2 * params + 1)
-    t_ops = 4 * n * f * HIDDEN / BF16_FLOPS + 6 * n * f * HIDDEN / FP32_FLOPS
+    t_ops = (4 + 18) * n * f * HIDDEN / BF16_FLOPS
     return _bound(nbytes / HBM_BPS, t_ops)
 
 

@@ -222,15 +222,15 @@ def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
             p.copy_(q)
         losses_out.copy_(losses)
         return
+    fn = kernel(FIT)
     if scratch is None:
         scratch = torch.empty(scratch_floats(n, f), dtype=torch.float32,
                               device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = kernel(FIT)(
-            x.data_ptr(), noises.data_ptr(), sigma,
-            *(p.data_ptr() for p in params), scratch.data_ptr(),
-            scratch.numel(), losses_out.data_ptr(), lr, n, f, steps,
-            0 if stamps is None else stamps.data_ptr(),
-            0 if stamps is None else stamps.numel(), stream)
+        err = fn(x.data_ptr(), noises.data_ptr(), sigma,
+                 *(p.data_ptr() for p in params),
+                 scratch.data_ptr(), scratch.numel(), losses_out.data_ptr(),
+                 lr, n, f, steps, 0 if stamps is None else stamps.data_ptr(),
+                 0 if stamps is None else stamps.numel(), stream)
     _launched(FIT, err)

@@ -46,8 +46,8 @@ SIGNATURES = {
     # partials_floats, loss_out, lr, n, f, stream
     "anomaly_fit_step": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _P, _F, _I, _I,
                          _P],
-    # x, noises, sigma, w_enc, b_enc, w_dec, b_dec, partials,
-    # partials_floats, losses, lr, n, f, steps, stamps, stamps_len, stream
+    # x, noises, sigma, w_enc, b_enc, w_dec, b_dec, scratch,
+    # scratch_floats, losses, lr, n, f, steps, stamps, stamps_len, stream
     "anomaly_fit": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _P, _F, _I, _I, _I,
                     _P, _L, _P],
     # n, f, blocks (int out)

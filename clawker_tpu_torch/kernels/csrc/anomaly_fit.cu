@@ -6,8 +6,8 @@
 // [steps, n, F] noise, with the params as the donated carry: one device
 // program for the whole fit, no host round-trip between steps.
 //
-// What bounds it on the H100: steps x K2's bound, ~1.6 us per step at
-// n = 4224, F = 32 (the backward products at the fp32 rate), 0.19 ms for
+// What bounds it on the H100: steps x K2's bound, ~0.39 us per step at
+// n = 4224, F = 32 (all five products on the tensor cores), 0.046 ms for
 // 120 steps.  What sets the time instead is latency: each step's phase A
 // (one block's walk over its row tiles), phase B (the slots' reduce) and
 // two grid-wide barriers of ~1 us each.  So the design keeps off phase A's
@@ -215,19 +215,17 @@ fit_kernel(const float* __restrict__ x, const float* __restrict__ noises,
         __syncthreads();   // the copies landed; the last tile's readers done
         mark(1);
         float* xc = resident_tiles > 0 ? xs + k * kTile : xs;
+        if (resident_tiles == 0) {   // each thread reads back only its own
+          load_x<FP>(xc, x, t * R, rows, f, tid);
+        }
         const float* nc = nz + (q & 1) * kTile;
         for (int idx = tid; idx < kTile; idx += kFitThreads) {
           const int i = idx / FP;
           const int j = idx - i * FP;
-          float xv = 0.0f;
-          float nv = 0.0f;
-          if (i < rows && j < f) {
-            xv = resident_tiles > 0
-                     ? xc[idx]
-                     : x[static_cast<size_t>(t * R + i) * f + j];
-            nv = __fadd_rn(xv, __fmul_rn(sigma, nc[i * f + j]));
-          }
-          if (resident_tiles == 0) xc[idx] = xv;
+          const float nv =
+              i < rows && j < f
+                  ? __fadd_rn(xc[idx], __fmul_rn(sigma, nc[i * f + j]))
+                  : 0.0f;
           m.xb[i * PhaseA<FP>::kLdk + j] = __float2bfloat16_rn(nv);
         }
         // the next tile's noise into the other buffer (an empty group

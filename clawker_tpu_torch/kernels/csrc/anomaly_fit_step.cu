@@ -5,11 +5,13 @@
 // runs the same step body inside K3 (anomaly_fit.cu); this kernel serves
 // single steps.
 //
-// What bounds it on the H100: the 4 nFH forward products (bf16 operands) at
-// 989 TFLOP/s and the 6 nFH backward ones (fp32) at 67 TFLOP/s take about
-// 1.6 us at n = 4224, F = 32; the bytes (x and noise in, the params in and
-// out, ~1.2 MB) about 0.4 us.  Below that, what sets the time is latency:
-// how long one block takes over its tile, and two launches per step.
+// What bounds it on the H100: the 4 nFH flops of the forward products and
+// the 18 nFH of the backward ones (each of the three multiplies the fp32
+// cotangent as three exact bf16 products) at 989 TFLOP/s take about
+// 0.39 us at n = 4224, F = 32 (at the fp32 rate the backward alone would
+// take 1.6 us); the bytes (x and noise in, the params in and out, ~1.2 MB)
+// about 0.34 us.  Below that, what sets the time is latency: how long one
+// block takes over its tile, and two launches per step.
 //
 // Design (the step's arithmetic and its phases: anomaly_fit_phases.cuh):
 // * Launch A (fit_partials_kernel): min(ceil(n / kFitRows), 132) blocks of
