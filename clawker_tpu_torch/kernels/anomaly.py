@@ -13,8 +13,6 @@ Layouts are the JAX reference's: ``w_enc`` [F, H], ``b_enc`` [H],
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import reference
@@ -32,7 +30,6 @@ REDUCE_GROUPS = 8
 SCORE = "anomaly_score"
 FIT_STEP = "anomaly_fit_step"
 FIT = "anomaly_fit"
-FIT_GRID = "anomaly_fit_grid"     # K3's launch size; launches nothing
 # K3's trace: points per step (csrc/anomaly_fit.cu, kStamps)
 FIT_STAMPS = 9
 LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0}
@@ -167,16 +164,6 @@ def fit_step_(params, x: torch.Tensor, noise: torch.Tensor | None, *,
     _launched(FIT_STEP, err)
 
 
-def fit_blocks(n: int, f: int) -> int:
-    """The blocks K3 launches for x of shape [n, f] on the current device
-    (one per SM, at least ``fit_slots(n)``): the last size of a trace."""
-    blocks = ctypes.c_int(0)
-    err = kernel(FIT_GRID)(n, f, ctypes.addressof(blocks))
-    if err:
-        raise RuntimeError(f"{FIT_GRID} failed: cudaError_t {err}")
-    return blocks.value
-
-
 def _check_fit(params, x, noises, losses_out, scratch, stamps):
     """fit_'s checks of its arguments -> (n, f, steps)."""
     n, f = _check(params, x, noises, losses_out)
@@ -210,9 +197,10 @@ def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
     each [n, F] noise of ``noises`` [steps, n, F], in one launch; writes
     each step's loss (before its update) to ``losses_out[step]``.
     ``scratch`` is as for ``fit_step_``; None allocates it.  ``stamps``
-    (int64 on the card, [steps, FIT_STAMPS, ``fit_blocks(n, F)``]) asks
-    the kernel for a trace of its phases: see ``csrc/anomaly_fit.cu``.
-    The CPU path takes none."""
+    (int64 on the card, [steps, FIT_STAMPS, blocks], blocks at least the
+    launch's: the larger of the SM count and ``fit_slots(n)``) asks the
+    kernel for a trace of its phases: see ``csrc/anomaly_fit.cu``.  The
+    CPU path takes none."""
     n, f, steps = _check_fit(params, x, noises, losses_out, scratch, stamps)
     if steps == 0:
         return

@@ -50,11 +50,7 @@ SIGNATURES = {
     # scratch_floats, losses, lr, n, f, steps, stamps, stamps_len, stream
     "anomaly_fit": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _P, _F, _I, _I, _I,
                     _P, _L, _P],
-    # n, f, blocks (int out)
-    "anomaly_fit_grid": [_I, _I, _P],
 }
-# the source of each entry point that is not named after its own
-SOURCE_OF = {"anomaly_fit_grid": "anomaly_fit"}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -96,11 +92,9 @@ def _start(name: str, out: Path) -> subprocess.Popen:
 
 def _load(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    for symbol, argtypes in SIGNATURES.items():
-        if SOURCE_OF.get(symbol, symbol) == name:
-            fn = getattr(lib, symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+    fn = getattr(lib, name)
+    fn.argtypes = SIGNATURES[name]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -139,11 +133,9 @@ def build_log(name: str) -> str:
 
 
 def kernel(name: str):
-    """The loaded C entry point ``name`` (building its source at first
-    use)."""
-    source = SOURCE_OF.get(name, name)
-    lib = _libs.get(source)
+    """The loaded C entry point ``name`` (building it at first use)."""
+    lib = _libs.get(name)
     if lib is None:
-        build_all((source,))
-        lib = _libs[source]
+        build_all((name,))
+        lib = _libs[name]
     return getattr(lib, name)

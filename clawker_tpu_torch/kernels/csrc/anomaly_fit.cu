@@ -58,7 +58,7 @@
 //
 // If `ga` blocks cannot be co-resident the launch returns an error; there
 // is no fallback.  The launch's size (device, SM count, occupancy) is
-// queried once for each width, device and shared-memory size, then cached.
+// queried on every launch.
 // On request the kernel traces each block's %globaltimer at kStamps points
 // of every step (`stamps`), which is how chip_smoke.py splits a step.
 
@@ -275,50 +275,32 @@ void shared_plan(int n, int* resident_tiles, size_t* smem) {
 }
 
 // The launch's blocks for ga phase-A blocks and `smem` bytes: one per SM,
-// never fewer than ga; an error if ga blocks cannot be co-resident.
-// `cached`: look the device's SM count and the occupancy up once for each
-// (device, smem) and width, else query them (the device, its attribute and
-// the occupancy calculator) on this call.
+// never fewer than ga; an error if ga blocks cannot be co-resident.  The
+// device, its SM count and the occupancy are queried on every launch.
 template <int FP>
-cudaError_t grid_blocks(int ga, size_t smem, bool cached, int* gb) {
+cudaError_t grid_blocks(int ga, size_t smem, int* gb) {
   // above 48 KB only after opting in: once for each FP, to the most any
   // n asks for
-  static std::mutex mu;
-  static bool opted = false;
-  static int c_dev = -1;
-  static size_t c_smem = 0;
-  static int c_sms = 0;
-  static int c_per_sm = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  int per_sm = 0;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    if (!opted) {
-      err = cudaFuncSetAttribute(fit_kernel<FP>,
+  static std::once_flag opt;
+  static cudaError_t opted = cudaSuccess;
+  std::call_once(opt, [] {
+    opted = cudaFuncSetAttribute(fit_kernel<FP>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  static_cast<int>(kMaxSmem));
-      if (err != cudaSuccess) return err;
-      opted = true;
-    }
-    if (cached && c_dev == dev && c_smem == smem) {
-      sms = c_sms;
-      per_sm = c_per_sm;
-    } else {
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-      if (err == cudaSuccess) {
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, fit_kernel<FP>, kFitThreads, smem);
-      }
-      if (err != cudaSuccess) return err;
-      c_dev = dev;
-      c_smem = smem;
-      c_sms = sms;
-      c_per_sm = per_sm;
-    }
+  });
+  if (opted != cudaSuccess) return opted;
+  int dev = 0;
+  int sms = 0;
+  int per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fit_kernel<FP>,
+                                                        kFitThreads, smem);
+  }
+  if (err != cudaSuccess) return err;
   const int resident = per_sm * sms;
   if (ga > resident) return cudaErrorCooperativeLaunchTooLarge;
   *gb = std::min(resident, std::max(ga, sms));
@@ -344,7 +326,7 @@ int fit(const float* x, const float* noises, float sigma, float* w_enc,
   size_t smem = 0;
   shared_plan<FP>(n, &resident_tiles, &smem);
   int gb = 0;
-  cudaError_t err = grid_blocks<FP>(ga, smem, true, &gb);
+  cudaError_t err = grid_blocks<FP>(ga, smem, &gb);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (stamps != nullptr && stamps_len < 1LL * kStamps * steps * gb) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -365,14 +347,6 @@ int fit(const float* x, const float* noises, float sigma, float* w_enc,
   return static_cast<int>(err);
 }
 
-template <int FP>
-int launch_blocks(int n, int* out) {
-  int resident_tiles = 0;
-  size_t smem = 0;
-  shared_plan<FP>(n, &resident_tiles, &smem);
-  return static_cast<int>(grid_blocks<FP>(fit_slots(n), smem, false, out));
-}
-
 }  // namespace anomaly
 
 // Scratch: `scratch_floats` floats at a 16-byte aligned `scratch`: the
@@ -380,8 +354,9 @@ int launch_blocks(int n, int* out) {
 // partial slots, min(ceil(n / R), 132) x (2 f 128 + 128 + f + 1) floats.
 // `noises` is [steps, n, f]; `losses` gets one float per step, the loss
 // before that step's update.  `stamps` is null, or `stamps_len` int64s
-// for a trace of the phases: [steps][kStamps][anomaly_fit_grid's blocks],
-// nanoseconds of %globaltimer.
+// for a trace of the phases: [steps][kStamps][the launch's blocks, the
+// larger of the SM count and min(ceil(n / R), 132)], nanoseconds of
+// %globaltimer.
 extern "C" int anomaly_fit(const float* x, const float* noises, float sigma,
                            float* w_enc, float* b_enc, float* w_dec,
                            float* b_dec, float* scratch,
@@ -409,19 +384,5 @@ extern "C" int anomaly_fit(const float* x, const float* noises, float sigma,
                      stamps_len, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// The blocks anomaly_fit launches for x of shape [n, f], into *blocks (the
-// size of a trace).  It makes the device and occupancy queries afresh, as
-// the launch makes them once per width, device and shared-memory size.
-extern "C" int anomaly_fit_grid(int n, int f, int* blocks) {
-  using namespace anomaly;
-  switch (n <= 0 ? 0 : (f + 15) / 16) {
-    case 1: return launch_blocks<16>(n, blocks);
-    case 2: return launch_blocks<32>(n, blocks);
-    case 3: return launch_blocks<48>(n, blocks);
-    case 4: return launch_blocks<64>(n, blocks);
-    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

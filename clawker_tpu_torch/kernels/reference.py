@@ -62,12 +62,13 @@ def score(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor) -> torch.Tensor:
     return torch.square(r - x).mean(dim=-1)
 
 
-def fit_step(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
-             noise: torch.Tensor | None, lr: float, sigma: float):
-    """One (denoising) SGD step on the mean squared error of the whole
-    batch.  ``noise`` None is the plain autoencoder step (sigma = 0).
+def step_grads(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
+               noise: torch.Tensor | None, sigma: float):
+    """The gradients of one (denoising) step with the two weight sums NOT
+    rounded to bf16: fp32 sums over all rows of the fp32 cotangent times
+    the bf16 operand.  ``noise`` None is the plain autoencoder step.
 
-    -> ((w_enc, b_enc, w_dec, b_dec) updated, loss before the step)."""
+    -> ((dW_enc [F, H], db_enc [H], dW_dec [H, F], db_dec [F]), loss)."""
     noisy = x if noise is None else x + sigma * noise
     a, gb, r = _forward(w_enc, b_enc, w_dec, b_dec, noisy)
     e = r - x
@@ -75,12 +76,23 @@ def fit_step(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
     loss = torch.square(e).sum() / count
     dr = (2.0 * e) * (1.0 / count)
     db_dec = dr.sum(dim=0)
-    dw_dec = bf(gb.T @ dr)
+    dw_dec = gb.T @ dr
     dh = bf(dr @ bf(w_dec).T)
     da = dh * gelu_tanh_grad(a)
     db_enc = da.sum(dim=0)
-    dw_enc = bf(bf(noisy).T @ da)
-    grads = (dw_enc, db_enc, dw_dec, db_dec)
+    dw_enc = bf(noisy).T @ da
+    return (dw_enc, db_enc, dw_dec, db_dec), loss
+
+
+def fit_step(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
+             noise: torch.Tensor | None, lr: float, sigma: float):
+    """One (denoising) SGD step on the mean squared error of the whole
+    batch.  ``noise`` None is the plain autoencoder step (sigma = 0).
+
+    -> ((w_enc, b_enc, w_dec, b_dec) updated, loss before the step)."""
+    (dw_enc, db_enc, dw_dec, db_dec), loss = step_grads(
+        w_enc, b_enc, w_dec, b_dec, x, noise, sigma)
+    grads = (bf(dw_enc), db_enc, bf(dw_dec), db_dec)
     new = tuple(p - lr * g for p, g in zip((w_enc, b_enc, w_dec, b_dec),
                                            grads))
     return new, loss

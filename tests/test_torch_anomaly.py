@@ -217,8 +217,8 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
 
 # K2's and K3's scratch: K3's staged weights, then one slot of
 # 2 F H + H + F + 1 floats per block of phase A, min(ceil(n / 32), 132)
-# blocks
-@pytest.mark.parametrize("feat", [32, 40])
+# blocks, at every width chip_smoke's KERNEL_SHAPES hold the kernels at
+@pytest.mark.parametrize("feat", [7, 32, 40, 61])
 @pytest.mark.parametrize("n, slots", [(1, 1), (200, 7), (4224, 132),
                                       (8192, 132)])
 def test_scratch_floats_is_one_slot_per_block(n, slots, feat):
