@@ -13,13 +13,18 @@
    the CPU, the drift that summation order alone gives; two K2 fits, and
    two K3 fits, from the same inputs must agree bit for bit, and K3 bit
    for bit with the loop of K2 launches; each kernel's median time beside
-   its bound.  K2's first step's slots, summed, must agree with the
-   plain fp32 sums of the unrounded gradients (``reference.step_grads``)
-   within SLOT_SUM_RTOL.  K3's staged weights must equal their plain
-   version (``reference.staged``) bit for bit, and at RELOAD_SHAPE, too
-   large for its x tiles to stay in shared memory, K3 must still be
-   bit-identical to K2's loop.  K2's and K3's registers and spills as ptxas reports them
-   (spills must be 0).
+   its bound, and K1's beside the launch floor (an empty kernel in the
+   same harness).  Two K1 scores from the same inputs must agree bit for
+   bit, and K1's mean score must agree with K2's noise-free step-0 loss
+   within STEP1_LOSS_RTOL.  K2's first step's slots, summed, must agree
+   with the plain fp32 sums of the unrounded gradients
+   (``reference.step_grads``) within SLOT_SUM_RTOL.  K3's staged weights
+   must equal their plain version (``reference.staged``) bit for bit,
+   and at RELOAD_SHAPE, too large for its x tiles to stay in shared
+   memory, K3 must still be bit-identical to K2's loop.  At OPT_IN_SHAPE
+   K1, K2 and K3 run on every visible device, each of which opts in to
+   more than 48 KB of shared memory on its own.  The three kernels'
+   registers and spills as ptxas reports them (spills must be 0).
 3. Main-path phase, at full width (F = 32 / 40, H = 128): ``score_windows``
    on the bench's synthetic fleet ([640, 32] padded) and on an hour of a
    64-agent fleet ([4224, 32]), 120 fit steps each; the sentinel's
@@ -107,6 +112,9 @@ KERNEL_SHAPES = [(100, 32), (130, 7), (200, 40), (256, 40), (260, 61),
 # block reload its tiles, the path this shape holds against K2
 RELOAD_SHAPE = (50689, 61)
 RELOAD_STEPS = 4
+# F = 61 pads to 64, where K1, K2 and K3 all need more than 48 KB of
+# shared memory: every device opts in to it on its own
+OPT_IN_SHAPE = (260, 61)
 TIMED_SHAPE = (4224, 32)
 FIT_STEPS = 120
 SPIN_CYCLES = 1_000_000   # ~0.5 ms: covers the host's enqueue in event_ms
@@ -339,6 +347,32 @@ def _slot_sum_err(params, x, noise, scratch) -> float:
     return max(float((g - w).norm() / w.norm()) for g, w in zip(got, want))
 
 
+def score_checks(params, x) -> tuple[float, float]:
+    """K1 on ``params``: against the plain score; twice the same bits; its
+    mean score against K2's noise-free step-0 loss (the two reconstruct
+    alike).  -> (max abs error, the mean's relative error)."""
+    import torch
+
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    n, f = x.shape
+    scores = K.score(params, x)
+    ok, err = _close(scores, R.score(*params, x), rtol=SCORE_RTOL,
+                     atol=SCORE_ATOL)
+    check(ok, f"K1 score [{n},{f}] off by {err:.3g}")
+    check(torch.equal(scores, K.score(params, x)),
+          f"K1 [{n},{f}]: two scores from the same inputs differ")
+    loss0 = torch.empty(1, device=x.device)
+    K.fit_step_(tuple(p.clone() for p in params), x, None, lr=1e-2,
+                sigma=0.0, loss_out=loss0)
+    ok, lerr = _close(scores.double().mean(), loss0.double()[0],
+                      rtol=STEP1_LOSS_RTOL)
+    check(ok, f"K1 [{n},{f}]: mean score off K2's noise-free loss by "
+              f"{lerr:.3g}")
+    return err, lerr / float(loss0[0])
+
+
 def kernel_phase(device) -> dict:
     import torch
 
@@ -347,15 +381,14 @@ def kernel_phase(device) -> dict:
 
     errs = {K.SCORE: 0.0, K.FIT_STEP: 0.0, K.FIT: 0.0}
     slot_max = 0.0
+    score_loss_max = 0.0
     timings = {}
     for n, f in KERNEL_SHAPES:
         params, x, noises = _inputs(n, f, FIT_STEPS, device, seed=n + f)
 
-        # K1 on the initial params
-        ok, err = _close(K.score(params, x), R.score(*params, x),
-                         rtol=SCORE_RTOL, atol=SCORE_ATOL)
-        check(ok, f"K1 score [{n},{f}] off by {err:.3g}")
+        err, rel = score_checks(params, x)
         errs[K.SCORE] = max(errs[K.SCORE], err)
+        score_loss_max = max(score_loss_max, rel)
 
         # K2: one step, then the whole fit, against the plain steps
         scratch = torch.empty(K.scratch_floats(n, f), device=device)
@@ -478,10 +511,16 @@ def kernel_phase(device) -> dict:
         for name, (kernel_call, plain_call, (bound, by)) in calls.items():
             ms, plain = cuda_ms(kernel_call), cuda_ms(plain_call)
             row[name] = (ms, plain, bound, by)
+            floor = ""
+            if name == K.SCORE:   # an empty launch in the same harness
+                floor = (f", launch floor "
+                         f"{cuda_ms(lambda: torch.cuda._sleep(0)) * 1e3:.2f}"
+                         f" us")
             print(f"kernel {name} [{n},{f}]: device {ms * 1e3:.2f} us, "
                   f"host per synchronized call "
                   f"{host_us(kernel_call):.2f} us (plain device "
-                  f"{plain * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {by})")
+                  f"{plain * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {by}"
+                  f"{floor})")
         # K3: one launch per fit, timed alone by events
         tq = tuple(p.clone() for p in params)
         losses = torch.empty(FIT_STEPS, device=device)
@@ -510,9 +549,11 @@ def kernel_phase(device) -> dict:
           f"{NARROW_FIT_LOSS_RTOL}), each step's loss rtol {FIT_LOSS_RTOL}"
           f" against the plain loss of the kernel's own params; step 1's "
           f"slot sums normwise rtol {SLOT_SUM_RTOL} (largest "
-          f"{slot_max:.3g}); two K2 fits "
-          f"bit-identical at every shape; K3 at K2's {FIT_STEPS}-step "
-          f"tolerances, bit-identical to the K2 loop and to itself")
+          f"{slot_max:.3g}); K1's mean score against K2's noise-free loss "
+          f"rtol {STEP1_LOSS_RTOL} (largest {score_loss_max:.3g}); two K1 "
+          f"scores and two K2 fits bit-identical at every shape; K3 at K2's "
+          f"{FIT_STEPS}-step tolerances, bit-identical to the K2 loop and "
+          f"to itself")
     print(f"kernel max abs err: {json.dumps(errs)}")
     return {"errs": errs, "timings": timings}
 
@@ -563,6 +604,44 @@ def reload_check(device) -> None:
     print(f"K3 [{n},{f}], x tiles reloaded, {RELOAD_STEPS} steps: "
           f"bit-identical to the K2 loop and to itself; off the plain fit: "
           f"params {err:.3g}, losses {_rel(f_loss, r_loss):.3g} relative")
+
+
+def every_device_check() -> None:
+    """K1, K2 and K3 at OPT_IN_SHAPE on every visible device, each against
+    its plain version (K3 bit for bit against K2's loop): all three need
+    more than 48 KB of shared memory there, which each device must be
+    opted in to."""
+    import torch
+
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    n, f = OPT_IN_SHAPE
+    for d in range(torch.cuda.device_count()):
+        device = torch.device("cuda", d)
+        params, x, noises = _inputs(n, f, 2, device, seed=n + f)
+        ok, err = _close(K.score(params, x), R.score(*params, x),
+                         rtol=SCORE_RTOL, atol=SCORE_ATOL)
+        check(ok, f"K1 [{n},{f}] on {device}: off by {err:.3g}")
+        kp = tuple(p.clone() for p in params)
+        k_loss = torch.empty(2, device=device)
+        for s in range(2):
+            K.fit_step_(kp, x, noises[s], lr=1e-2, sigma=0.25,
+                        loss_out=k_loss, step=s)
+        rp, _ = R.fit(*params, x, noises, 1e-2, 0.25)
+        fp = tuple(p.clone() for p in params)
+        f_loss = torch.empty(2, device=device)
+        K.fit_(fp, x, noises, lr=1e-2, sigma=0.25, losses_out=f_loss)
+        torch.cuda.synchronize(device)
+        err = _max_abs(kp, rp)
+        check(err <= STEP1_PARAM_ATOL,
+              f"K2 [{n},{f}] on {device}: params off by {err:.3g}")
+        check(all(torch.equal(p, q) for p, q in zip(fp, kp))
+              and torch.equal(f_loss, k_loss),
+              f"K3 [{n},{f}] on {device}: not bit-identical to K2's loop")
+        print(f"device {d} ({torch.cuda.get_device_name(d)}): K1, K2 and "
+              f"K3 at [{n},{f}], each opted in above 48 KB, agree with "
+              f"their plain versions")
 
 
 def ptxas_report(name: str) -> None:
@@ -865,10 +944,12 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     print(f"build: {build.build_all():.1f} s")
+    ptxas_report(K.SCORE)
     ptxas_report(K.FIT_STEP)
     ptxas_report(K.FIT)
     device = "cuda"
     kernels = kernel_phase(device)
+    every_device_check()
     main_path = main_path_phase(device)
     cli_phase(device)
     check_no_reference_imports()

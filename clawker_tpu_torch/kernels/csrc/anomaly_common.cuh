@@ -8,15 +8,16 @@
 #pragma once
 
 #include <cstdint>
+#include <mutex>
+#include <vector>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace anomaly {
 
-constexpr int kHidden = 128;     // hidden width = K1's threads per block
-constexpr int kMaxFeatures = 64;
-constexpr int kTileRows = 32;    // K1's rows per block (K2 has its own tiling)
+constexpr int kHidden = 128;     // hidden width
+constexpr int kLdh = kHidden + 8;    // row stride of the [.][H] arrays
 
 constexpr float kGeluC = 0.7978845608028654f;   // sqrt(2/pi)
 constexpr float kGeluK = 0.044715f;
@@ -45,10 +46,6 @@ __device__ __forceinline__ float gelu_tanh_grad_t(float a, float t) {
   right = __fmul_rn(right, kGeluC);
   right = __fmul_rn(right, __fadd_rn(1.0f, __fmul_rn(__fmul_rn(kGelu3K, a), a)));
   return __fadd_rn(left, right);
-}
-
-__device__ __forceinline__ float gelu_tanh(float a) {
-  return gelu_tanh_t(a, tanhf(gelu_tanh_u(a)));
 }
 
 // ---------------------------------------------------------------------------
@@ -156,6 +153,54 @@ __device__ __forceinline__ void stage_transposed(__nv_bfloat16* dst, int ld,
   }
 }
 
+// The staged weights for FP = f rounded up to 16: the operands of
+// forward_tile, one layout in shared memory (K1, K2) and in K3's global
+// image (kernels/reference.py `staged` is its plain version):
+//   weT bf16 [H][FP+8]   row h = bf(W_enc[:, h]), zeros past f
+//   wdT bf16 [FP][kLdh]  row j = bf(W_dec[:, j]), zero rows past f
+//   be  fp32 [H]         b_enc
+//   bd  fp32 [FP]        b_dec, zeros past f
+// A multiple of 16 bytes (cp.async's unit) at every FP.
+__host__ __device__ constexpr size_t staged_bytes(int fp) {
+  return sizeof(__nv_bfloat16) * (kHidden * (fp + 8) + fp * kLdh) +
+         sizeof(float) * (kHidden + fp);
+}
+
+struct Staged {
+  __nv_bfloat16* weT;
+  __nv_bfloat16* wdT;
+  float* be;
+  float* bd;
+  __device__ Staged(unsigned char* base, int fp)
+      : weT(reinterpret_cast<__nv_bfloat16*>(base)),
+        wdT(weT + kHidden * (fp + 8)),
+        be(reinterpret_cast<float*>(wdT + fp * kLdh)),
+        bd(be + kHidden) {}
+};
+
+// The staged weights built from the fp32 params by one block's `threads`
+// threads, whole rows, padding included: into shared memory (K1, K2), or
+// into K3's global image (its prologue), which phase A copies whole
+template <int FP>
+__device__ __forceinline__ void stage_params(const Staged& w,
+                                             const float* w_enc,
+                                             const float* b_enc,
+                                             const float* w_dec,
+                                             const float* b_dec, int f,
+                                             int tid, int threads) {
+  stage_transposed(w.weT, FP + 8, w_enc, kHidden, f, kHidden, FP + 8,
+                   kHidden, tid, threads);
+  stage_transposed(w.wdT, kLdh, w_dec, f, kHidden, f, kLdh, FP, tid,
+                   threads);
+  for (int i = tid; i < kHidden + FP; i += threads) {
+    if (i < kHidden) {
+      w.be[i] = __ldcg(b_enc + i);
+    } else {
+      w.bd[i - kHidden] = i - kHidden < f ? __ldcg(b_dec + i - kHidden) : 0.0f;
+    }
+  }
+}
+
 // The forward of an R-row tile by kWarps warps (R a multiple of 16, kWarps
 // a multiple of R / 16):
 //   a = bf(x) . bf(W_enc) + b_enc
@@ -238,6 +283,36 @@ __device__ __forceinline__ void forward_tile(
     epi(m0 + g + 8, n0 + t2, acc[2]);
     epi(m0 + g + 8, n0 + t2 + 1, acc[3]);
   }
+}
+
+// Lets `kernel` launch with `bytes` of dynamic shared memory on the
+// current device: above 48 KB that takes cudaFuncSetAttribute, which acts
+// on one device only.  The first call for a (kernel, device) pair sets
+// the attribute; its result is kept in a table under a mutex (launches
+// come from several host threads), so later calls return it, a failure
+// too.  A kernel asks for the same `bytes` every time.
+inline cudaError_t opt_in_smem(const void* kernel, size_t bytes) {
+  struct OptIn {
+    const void* kernel;
+    int device;
+    cudaError_t err;
+  };
+  static std::mutex mu;
+  static std::vector<OptIn> done;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (const OptIn& o : done) {
+    if (o.kernel == kernel && o.device == device) return o.err;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();   // clear what we report
+  done.push_back({kernel, device, err});
+  return err;
 }
 
 }  // namespace anomaly

@@ -6,9 +6,13 @@
 // [steps, n, F] noise, with the params as the donated carry: one device
 // program for the whole fit, no host round-trip between steps.
 //
-// What bounds it on the H100: steps x K2's bound, ~0.39 us per step at
-// n = 4224, F = 32 (all five products on the tensor cores), 0.046 ms for
-// 120 steps.  What sets the time instead is latency: each step's phase A
+// What bounds it on the H100 (chip_smoke.py, fit_bound): the bytes -- x
+// read once, each step's noise once, the params in and out once, one loss
+// per step -- or steps x 22 nFH flops at the bf16 tensor rate (the two
+// forward products, 4 nFH; the three backward ones, 18 nFH, each taking
+// the fp32 cotangent as three bf16 terms), whichever takes longer: the
+// flops, 0.046 ms for 120 steps at n = 4224, F = 32, where the bytes
+// take 0.020 ms.  What sets the time instead is latency: each step's phase A
 // (one block's walk over its row tiles), phase B (the slots' reduce) and
 // two grid-wide barriers of ~1 us each.  So the design keeps off phase A's
 // critical path every round trip whose data is known before the step.
@@ -19,7 +23,7 @@
 //     the fp32 params, as K2 stages them (stage_params): bf16 W_enc^T
 //     [H][FP+8], bf16 W_dec^T [FP][H+8], fp32 b_enc [H], b_dec [FP], zeros
 //     past f -- byte for byte the layout phase A wants in shared memory
-//     (`Staged`, anomaly_fit_phases.cuh).
+//     (`Staged`, anomaly_common.cuh).
 //     Each phase-A block loads its own clean x tiles (t = block,
 //     block + ga, ...) into shared memory, where they stay RESIDENT for the
 //     whole fit, and starts the copy of its first noise tile; grid.sync().
@@ -64,7 +68,6 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <mutex>
 
 #include <cooperative_groups.h>
 
@@ -180,7 +183,9 @@ fit_kernel(const float* __restrict__ x, const float* __restrict__ noises,
   };
   auto rows_of = [&](int t) { return min(R, n - t * R); };
 
-  if (block == 0) stage_params<FP>(img, w_enc, b_enc, w_dec, b_dec, f, tid);
+  if (block == 0) {
+    stage_params<FP>(img, w_enc, b_enc, w_dec, b_dec, f, tid, kFitThreads);
+  }
   if (own > 0) {
     for (int k = 0; resident_tiles > 0 && k < own; ++k) {
       const int t = block + k * ga;
@@ -279,20 +284,14 @@ void shared_plan(int n, int* resident_tiles, size_t* smem) {
 // device, its SM count and the occupancy are queried on every launch.
 template <int FP>
 cudaError_t grid_blocks(int ga, size_t smem, int* gb) {
-  // above 48 KB only after opting in: once for each FP, to the most any
-  // n asks for
-  static std::once_flag opt;
-  static cudaError_t opted = cudaSuccess;
-  std::call_once(opt, [] {
-    opted = cudaFuncSetAttribute(fit_kernel<FP>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(kMaxSmem));
-  });
-  if (opted != cudaSuccess) return opted;
+  // opted in once per device, to the most any n asks for
+  cudaError_t err =
+      opt_in_smem(reinterpret_cast<const void*>(fit_kernel<FP>), kMaxSmem);
+  if (err != cudaSuccess) return err;
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }

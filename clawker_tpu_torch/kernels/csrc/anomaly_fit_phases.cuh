@@ -83,7 +83,7 @@ namespace anomaly {
 
 // The tiling; kernels/anomaly.py names the same numbers (FIT_ROWS,
 // FIT_MAX_BLOCKS, REDUCE_GROUPS) to size the scratch, and the CPU tests
-// group their sums by them.  K1 keeps kTileRows.
+// group their sums by them.
 constexpr int kFitRows = 32;         // R, rows per tile: faster than 64 on
                                      // an H100 at every main-path shape
 constexpr int kFitThreads = 256;     // 8 warps
@@ -91,8 +91,6 @@ constexpr int kFitMaxBlocks = 132;   // ga <= one block per H100 SM
 constexpr int kReduceGroups = 8;     // slot groups per phase-B block
 constexpr int kReduceRun =           // the longest run of slots a group sums
     (kFitMaxBlocks + kReduceGroups - 1) / kReduceGroups;
-
-constexpr int kLdh = kHidden + 8;    // row stride of the [.][H] arrays
 
 __host__ __device__ constexpr int param_floats(int f) {
   // dW_enc [f][H], db_enc [H], dW_dec^T [f][H], db_dec [f], loss sum
@@ -105,31 +103,6 @@ __host__ __device__ constexpr int fit_slots(int n) {
              ? (n + kFitRows - 1) / kFitRows
              : kFitMaxBlocks;
 }
-
-// The staged weights for FP = f rounded up to 16, one layout in shared
-// memory and in K3's global image (kernels/reference.py `staged` is its
-// plain version):
-//   weT bf16 [H][FP+8]   row h = bf(W_enc[:, h]), zeros past f
-//   wdT bf16 [FP][kLdh]  row j = bf(W_dec[:, j]), zero rows past f
-//   be  fp32 [H]         b_enc
-//   bd  fp32 [FP]        b_dec, zeros past f
-// A multiple of 16 bytes (cp.async's unit) at every FP.
-__host__ __device__ constexpr size_t staged_bytes(int fp) {
-  return sizeof(__nv_bfloat16) * (kHidden * (fp + 8) + fp * kLdh) +
-         sizeof(float) * (kHidden + fp);
-}
-
-struct Staged {
-  __nv_bfloat16* weT;
-  __nv_bfloat16* wdT;
-  float* be;
-  float* bd;
-  __device__ Staged(unsigned char* base, int fp)
-      : weT(reinterpret_cast<__nv_bfloat16*>(base)),
-        wdT(weT + kHidden * (fp + 8)),
-        be(reinterpret_cast<float*>(wdT + fp * kLdh)),
-        bd(be + kHidden) {}
-};
 
 // Phase A's working set in shared memory, at offset 0 (fp32 arrays first,
 // 16-byte aligned rows, then the staged weights, then bf16):
@@ -209,29 +182,6 @@ struct Split3 {
     t[2] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(t[1])));
   }
 };
-
-// The staged weights built from the fp32 params by one block's threads,
-// whole rows, padding included: into shared memory (K2), or into K3's
-// global image (its prologue), which phase A copies whole
-template <int FP>
-__device__ __forceinline__ void stage_params(const Staged& w,
-                                             const float* w_enc,
-                                             const float* b_enc,
-                                             const float* w_dec,
-                                             const float* b_dec, int f,
-                                             int tid) {
-  stage_transposed(w.weT, FP + 8, w_enc, kHidden, f, kHidden, FP + 8,
-                   kHidden, tid, kFitThreads);
-  stage_transposed(w.wdT, kLdh, w_dec, f, kHidden, f, kLdh, FP, tid,
-                   kFitThreads);
-  for (int i = tid; i < kHidden + FP; i += kFitThreads) {
-    if (i < kHidden) {
-      w.be[i] = __ldcg(b_enc + i);
-    } else {
-      w.bd[i - kHidden] = i - kHidden < f ? __ldcg(b_dec + i - kHidden) : 0.0f;
-    }
-  }
-}
 
 // One tile of rows row0.. (rows of them) on a block whose shared memory
 // holds the staged weights, xb = bf(noisy) and xc = the clean x tile
@@ -469,7 +419,7 @@ __device__ __forceinline__ void fit_partials(
   const int tid = threadIdx.x;
   NoMarks mark;
 
-  stage_params<FP>(m.w, w_enc, b_enc, w_dec, b_dec, f, tid);
+  stage_params<FP>(m.w, w_enc, b_enc, w_dec, b_dec, f, tid, kFitThreads);
   Grads<FP> g = {};
   const int tiles = (n + R - 1) / R;
   for (int t = block; t < tiles; t += ga) {

@@ -56,21 +56,15 @@ int fit_step(const float* x, const float* noise, float sigma, float* w_enc,
   if (partials_floats < static_cast<long long>(slots) * param_floats(f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  // above 48 KB only after opting in: once for each FP
   constexpr size_t smem = work_bytes(FP) + tile_bytes(FP);
-  static bool opted = smem <= 48 * 1024;
-  if (!opted) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fit_partials_kernel<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted = true;
-  }
+  cudaError_t err = opt_in_smem(
+      reinterpret_cast<const void*>(fit_partials_kernel<FP>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const float count = static_cast<float>(n) * static_cast<float>(f);
   const float inv_count = 1.0f / count;
   fit_partials_kernel<FP><<<slots, kFitThreads, smem, s>>>(
       x, noise, sigma, w_enc, b_enc, w_dec, b_dec, partials, inv_count, n, f);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (param_floats(f) + kReduceSlice - 1) / kReduceSlice;
   fit_reduce_kernel<<<blocks, kReduceSlice * kReduceGroups, 0, s>>>(
