@@ -36,8 +36,24 @@
    inside) and its parts, K3's device time per fit beside its bound, its
    phase trace (the step's phases, and phase A's sub-stages), and the
    noise draw's (K4) device time beside its bound.
-4. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
-   subprocess must exit 0 and report a CUDA device.
+4. Sentinel phase, the live ``FleetSentinel`` on the card (F = 40),
+   its streams under ``build/chip_smoke/sentinel/``: (a) the 64-agent
+   fused tick over four worker files ([384, 40], 40 steps): the first
+   tick scores every window, an idle tick launches nothing, a seeded
+   exfil burst on one worker flags within two ticks with that worker and
+   kind ``egress``, through a typed ``anomaly.flag`` bus event and the
+   registry, and the state file resumes a fresh sentinel; (b) a full
+   collector buffer (98,304 records, [4224, 40]), three scored ticks;
+   (c) the flag latency of the reference bench's scenario
+   (bench.py:2376-2440), live on the ticking thread, 5 reps, each flag
+   within 10 s.  Every tick runs through ``_counted``: one K3 and one
+   K1 launch per scored tick, none per idle tick, no ``on_error``
+   message.  Prints each stage's host ms of a tick at (a) and (b), and
+   the flag latency's p50 and max.
+5. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+   subprocess must exit 0 and report a CUDA device;
+   ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
+   that hold a hot agent must exit 2 and flag it with kind ``egress``.
 
 Any failure exits non-zero.  Without a GPU, or without the repository
 beside it, the script fails before printing any result.  The last line
@@ -48,9 +64,13 @@ or of the reference package.
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import importlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -118,6 +138,11 @@ OPT_IN_SHAPE = (260, 61)
 TIMED_SHAPE = (4224, 32)
 FIT_STEPS = 120
 SPIN_CYCLES = 1_000_000   # ~0.5 ms: covers the host's enqueue in event_ms
+# The live sentinel (sentinel_phase): its fit steps per tick, and the
+# flag-latency scenario of the reference bench (bench.py:2376-2440)
+SENTINEL_STEPS = 40
+FLAG_REPS = 5
+FLAG_DEADLINE_S = 10.0
 
 
 def synth_egress_records(agents: int = 8, windows: int = 64,
@@ -157,6 +182,17 @@ def exfil_burst(agent: str, window: int, n: int = 55) -> list[dict]:
              "service": "ebpf-egress", "container": agent,
              "dst_ip": f"203.0.113.{i}", "dst_port": 4444 + i, "proto": 6,
              "verdict": "DENY", "reason": "NO_DNS_ENTRY", "zone": ""}
+            for i in range(n)]
+
+
+def benign_window(agent: str, window: int, n: int) -> list[dict]:
+    """``n`` ordinary records of one agent in one more minute."""
+    start = 1_700_000_000 + window * 60
+    return [{"@timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                                         time.gmtime(start + i % 59)),
+             "service": "ebpf-egress", "container": agent,
+             "dst_ip": f"198.51.100.{i % 250}", "dst_port": 443, "proto": 6,
+             "verdict": "ALLOW", "reason": "ROUTE", "zone": "z0.example.com"}
             for i in range(n)]
 
 
@@ -899,6 +935,307 @@ def main_path_phase(device) -> dict:
     return {"launches": total, "step_us": step_us}
 
 
+# --------------------------------------------------------- sentinel phase
+
+
+class _Cfg:
+    def __init__(self, logs_dir: Path):
+        self.logs_dir = logs_dir
+
+
+def _timed(stages: dict, name: str, fn):
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            stages[name] = (time.perf_counter() - t0) * 1e3
+    return run
+
+
+@contextlib.contextmanager
+def stage_timers(stages: dict):
+    """While open, the featurizer the sentinel calls and the runtime's
+    fit-and-score write their host ms into ``stages``."""
+    from clawker_tpu_torch.analytics import runtime as art
+
+    sent = importlib.import_module("clawker_tpu_torch.sentinel.sentinel")
+    saved = [(sent, "featurize_fused"), (art, "_fit_and_score")]
+    originals = [getattr(mod, name) for mod, name in saved]
+    for (mod, name), fn in zip(saved, originals):
+        setattr(mod, name, _timed(stages, name, fn))
+    try:
+        yield stages
+    finally:
+        for (mod, name), fn in zip(saved, originals):
+            setattr(mod, name, fn)
+
+
+class TickLog:
+    """Every tick of one ``FleetSentinel``, whoever calls it (the caller,
+    or the ticking thread, which calls ``refresh_once`` through the
+    instance too), run through ``_counted``: -> ``ticks``, each (windows
+    scored, launches, host ms of the tick and of its stages, the
+    TickReport or None).  The sentinel's ``on_error`` messages land in
+    ``errors``."""
+
+    def __init__(self, sentinel, stages: dict):
+        self.sentinel = sentinel
+        self.ticks: list[tuple] = []
+        self.errors: list[str] = []
+        sentinel.on_error = self.errors.append
+        col, eng = sentinel.collector, sentinel.engine
+        col.poll = _timed(stages, "poll", col.poll)
+        col.records = _timed(stages, "records", col.records)
+        eng.score_tick = _timed(stages, "score_tick", eng.score_tick)
+        tick = sentinel.refresh_once
+
+        def refresh_once() -> int:
+            stages.clear()
+            t0 = time.perf_counter()
+            n, counts = _counted(tick)
+            ms = dict(stages, wall=(time.perf_counter() - t0) * 1e3)
+            self.ticks.append((n, counts, ms, sentinel.last_tick if n
+                               else None))
+            return n
+
+        sentinel.refresh_once = refresh_once
+
+    def check(self, name: str, entry, *, scored: bool) -> None:
+        """A scored tick is one K3 and one K1 launch on the CUDA device;
+        an idle one launches nothing; no tick reports an error."""
+        n, counts, _, rep = entry
+        check(not self.errors and not self.sentinel.last_error,
+              f"{name}: the sentinel reported {self.errors or [self.sentinel.last_error]}")
+        if scored:
+            check(n > 0, f"{name}: a tick that should score scored nothing")
+            _check_fit_launches(name, counts)
+            check(rep.device.startswith("cuda"),
+                  f"{name}: scored on {rep.device!r}")
+        else:
+            check(n == 0 and not any(counts.values()),
+                  f"{name}: an idle tick scored {n} windows with launches "
+                  f"{counts}")
+
+    def tick(self, name: str, *, scored: bool) -> int:
+        self.sentinel.refresh_once()
+        self.check(name, self.ticks[-1], scored=scored)
+        return self.ticks[-1][0]
+
+    def launches(self) -> collections.Counter:
+        total = collections.Counter()
+        for _, counts, _, _ in self.ticks:
+            total.update(counts)
+        return total
+
+    def stage_line(self) -> str:
+        """Median host ms of each stage over the scored ticks."""
+        rows = [(ms, rep) for n, _, ms, rep in self.ticks if n]
+        parts = {
+            "refresh_once": [ms["wall"] for ms, _ in rows],
+            "collector.poll": [ms["poll"] for ms, _ in rows],
+            "collector.records": [ms["records"] for ms, _ in rows],
+            "featurize_fused": [ms["featurize_fused"] for ms, _ in rows],
+            "score_tick": [ms["score_tick"] for ms, _ in rows],
+            "_fit_and_score": [ms["_fit_and_score"] for ms, _ in rows],
+            "train_ms": [rep.train_ms for _, rep in rows],
+            "score_ms": [rep.score_ms for _, rep in rows],
+            "score_tick rest (worker z, host copies, fold)": [
+                ms["score_tick"] - ms["_fit_and_score"] for ms, _ in rows],
+            "emit + _save_state rest": [
+                ms["wall"] - ms["poll"] - ms["records"]
+                - ms["featurize_fused"] - ms["score_tick"]
+                for ms, _ in rows],
+        }
+        return (f"median host ms over {len(rows)} scored ticks: "
+                + ", ".join(f"{k} {statistics.median(v)!r}"
+                            for k, v in parts.items()))
+
+
+def _write_workers(out: Path, records: list[dict], workers: int) -> list[Path]:
+    """Records tagged ``fake-{i % workers}``, one file per worker."""
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    paths = [out / f"fake-{w}.jsonl" for w in range(workers)]
+    files = [open(p, "w") for p in paths]
+    try:
+        for i, r in enumerate(records):
+            r["worker"] = f"fake-{i % workers}"
+            files[i % workers].write(json.dumps(r) + "\n")
+    finally:
+        for f in files:
+            f.close()
+    return paths
+
+
+def _append(path: Path, records: list[dict]) -> None:
+    with open(path, "a") as f:
+        f.write("".join(json.dumps(r) + "\n" for r in records))
+
+
+def _sentinel(out: Path, paths: list[Path], device, stages: dict, **kw):
+    from clawker_tpu_torch.sentinel import FleetSentinel, StreamCollector
+
+    col = StreamCollector()
+    for w, p in enumerate(paths):
+        col.add_local(f"fake-{w}", p)
+    s = FleetSentinel(_Cfg(out), train_steps=SENTINEL_STEPS, collector=col,
+                      device=device, **kw)
+    return s, TickLog(s, stages)
+
+
+def fused_tick_case(out: Path, device, stages: dict) -> collections.Counter:
+    """(a): the 64-agent fused tick, an idle tick, a seeded exfil flagged
+    within two ticks, the bus event, the registry, the state file."""
+    from clawker_tpu_torch import telemetry
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG, AnomalyFlagEvent, EventBus
+    from clawker_tpu_torch.sentinel import FleetSentinel, featurize_fused, state_path
+
+    recs = synth_egress_records(agents=64, windows=4, per_window=16)
+    paths = _write_workers(out, recs, 4)
+    windows = len(featurize_fused(recs, None)[0])
+    s, log = _sentinel(out, paths, device, stages, run_id="chip-smoke",
+                       interval_s=999)
+    bus_records = []
+    bus = EventBus()
+    bus.add_tap(bus_records.append)
+    s.bind_run(events=bus)
+    name = "sentinel (a)"
+    n = log.tick(name, scored=True)
+    check(n == windows, f"{name}: first tick scored {n} of {windows} windows")
+    log.tick(name, scored=False)
+    hot, worker = "clawker.loop-hot", "fake-1"
+    _append(paths[1], exfil_burst(hot, window=3))
+    for tick in (1, 2):
+        log.tick(name, scored=True)
+        flag = next((f for f in s.flags() if f["agent"] == hot), None)
+        if flag is not None:
+            break
+    check(flag is not None, f"{name}: {hot} not flagged within two ticks")
+    check(flag["worker"] == worker and flag["kind"] == "egress",
+          f"{name}: flag {flag}, want worker {worker} kind egress")
+    ev = next((r for r in bus_records if r.event == ANOMALY_FLAG
+               and r.agent == hot), None)
+    check(ev is not None, f"{name}: no {ANOMALY_FLAG} event on the bus")
+    parsed = AnomalyFlagEvent.parse(ev.agent, ev.detail)
+    check((parsed.agent, parsed.worker, parsed.kind) == (hot, worker,
+                                                         "egress")
+          and parsed.z >= s.engine.threshold,
+          f"{name}: bus event {parsed}")
+    text = telemetry.REGISTRY.exposition()
+    check("anomaly_flags_total" in text
+          and f'anomaly_score{{agent="{hot}"}}' in text,
+          f"{name}: the flag metrics are not in the registry")
+    for k in range(3):      # more scored ticks for the stage medians
+        _append(paths[0], benign_window(f"clawker.loop-{k}", 5 + k, 16))
+        log.tick(name, scored=True)
+    s.stop()
+    check(state_path(out, "chip-smoke").exists(), f"{name}: no state file")
+    resumed = FleetSentinel(_Cfg(out), run_id="chip-smoke", device=device)
+    check(resumed.engine.baseline_depth() == s.engine.baseline_depth() > 0
+          and resumed.ticks == s.ticks,
+          f"{name}: resumed depth {resumed.engine.baseline_depth()} ticks "
+          f"{resumed.ticks}, want {s.engine.baseline_depth()} and {s.ticks}")
+    check(not any(s.audit().values()), f"{name}: audit {s.audit()}")
+    padded = -(-windows // 128) * 128
+    print(f"sentinel (a) 64-agent fused tick [{padded},40] x"
+          f"{SENTINEL_STEPS}, {len(recs)} records over 4 workers: "
+          f"{windows} windows, {hot} flagged at tick {tick} after the burst "
+          f"(z {flag['z']}, worker {flag['worker']}, kind {flag['kind']}), "
+          f"{len(log.ticks)} ticks, state reloaded with "
+          f"{resumed.engine.baseline_depth()} baseline samples")
+    print(f"sentinel (a): {log.stage_line()}")
+    return log.launches()
+
+
+def full_buffer_case(out: Path, device, stages: dict) -> collections.Counter:
+    """(b): a collector buffer near its bound (98,304 of 100,000
+    records): what a long-running sentinel re-featurizes on every tick
+    that has news."""
+    recs = synth_egress_records(agents=64, windows=64, per_window=24)
+    paths = _write_workers(out, recs, 4)
+    s, log = _sentinel(out, paths, device, stages, interval_s=999)
+    name = "sentinel (b)"
+    counts = [log.tick(name, scored=True)]
+    for k in range(2):      # one new window between ticks: none is idle
+        _append(paths[k], benign_window(f"clawker.loop-{k}", 66 + k, 24))
+        counts.append(log.tick(name, scored=True))
+    held = len(s.collector.records())
+    check(held == s.collector.total() == len(recs) + 48,
+          f"{name}: the buffer holds {held} of {s.collector.total()} "
+          f"records collected")
+    check(counts[1:] == [counts[0] + 1, counts[0] + 2],
+          f"{name}: windows per tick {counts}")
+    s.stop()
+    print(f"sentinel (b) full buffer: {held} records over 4 workers, "
+          f"windows per tick {counts}, padded "
+          f"[{-(-counts[-1] // 128) * 128},40] x{SENTINEL_STEPS}; "
+          f"the first tick's collector.poll {log.ticks[0][2]['poll']!r} ms")
+    print(f"sentinel (b): {log.stage_line()}")
+    return log.launches()
+
+
+def flag_latency_case(out: Path, device, stages: dict) -> collections.Counter:
+    """(c): the reference bench's scenario: 8 agents x 6 windows x 16
+    records over 2 workers, ticking every 0.05 s on the sentinel's
+    thread after two warm ticks; a 60-record deny storm is appended to
+    fake-1, and the time to its ``anomaly.flag`` on the bus is taken."""
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG, EventBus
+
+    total = collections.Counter()
+    lat = []
+    hot = "clawker.hot"
+    for rep in range(FLAG_REPS):
+        d = out / f"rep{rep}"
+        paths = _write_workers(d, synth_egress_records(
+            agents=8, windows=6, per_window=16), 2)
+        flags = {}
+        bus = EventBus(lambda agent, ev, detail:
+                       flags.setdefault(agent, time.perf_counter())
+                       if ev == ANOMALY_FLAG else None)
+        s, log = _sentinel(d, paths, device, stages, interval_s=0.05,
+                           window_s=60)
+        s.bind_run(events=bus)
+        name = f"sentinel (c) rep {rep}"
+        log.tick(name, scored=True)
+        log.tick(name, scored=False)
+        s.start()
+        storm = exfil_burst(hot, window=2, n=60)
+        for r in storm:
+            r["worker"] = "fake-1"
+        t0 = time.perf_counter()
+        _append(paths[1], storm)
+        deadline = t0 + FLAG_DEADLINE_S
+        while hot not in flags and time.perf_counter() < deadline:
+            time.sleep(0.005)
+        s.stop()
+        bus.close()
+        check(not s._thread.is_alive(), f"{name}: the ticking thread lives")
+        check(hot in flags,
+              f"{name}: no flag within {FLAG_DEADLINE_S} s")
+        for entry in log.ticks:
+            log.check(name, entry, scored=bool(entry[0]))
+        lat.append(flags[hot] - t0)
+        total.update(log.launches())
+    lat.sort()
+    print(f"sentinel (c) flag latency, s, over {FLAG_REPS} reps: p50 "
+          f"{lat[len(lat) // 2]!r}, max {lat[-1]!r} (all {lat!r})")
+    return total
+
+
+def sentinel_phase(device) -> collections.Counter:
+    """Drives the live sentinel; -> launches summed over its ticks."""
+    out = ROOT / "build" / "chip_smoke" / "sentinel"
+    total = collections.Counter()
+    with stage_timers({}) as stages:
+        for case, sub in ((fused_tick_case, "a"), (full_buffer_case, "b"),
+                          (flag_latency_case, "c")):
+            total.update(case(out / sub, device, stages))
+    print(f"sentinel launches: {json.dumps(total)}")
+    return total
+
+
 def cli_phase(device: str) -> None:
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -918,6 +1255,34 @@ def cli_phase(device: str) -> None:
           f"CLI hottest agent {doc['agents'][0]['agent']}")
     print(f"cli: exit 0, {doc['windows']} windows on {doc['device']}, "
           f"fit {doc['train_ms']} ms, hottest {doc['agents'][0]['agent']}")
+
+
+def fleet_cli_phase(device: str) -> None:
+    """``fleet anomaly`` on two workers' streams, one of which holds a
+    hot agent: exit 2, the agent flagged with kind egress, rows from
+    both workers."""
+    out = ROOT / "build" / "chip_smoke" / "sentinel" / "cli"
+    paths = _write_workers(out, synth_egress_records(
+        agents=8, windows=6, per_window=16), 2)
+    hot = "clawker.hot"
+    _append(paths[1], exfil_burst(hot, window=2, n=60))
+    env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+               CLAWKER_TPU_STATE_DIR=str(out / "state"))
+    proc = subprocess.run(
+        [sys.executable, "-m", "clawker_tpu_torch", "fleet", "anomaly",
+         "--no-daemon", "--format", "json",
+         "--stream", f"fake-0={paths[0]}", "--stream", f"fake-1={paths[1]}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 2,
+          f"fleet anomaly exited {proc.returncode}, want 2: "
+          f"{proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    flags = {(f["agent"], f["kind"]) for f in doc["flags"]}
+    workers = {r["worker"] for r in doc["rows"]}
+    check((hot, "egress") in flags, f"fleet anomaly flags {flags}")
+    check({"fake-0", "fake-1"} <= workers, f"fleet anomaly rows on {workers}")
+    print(f"cli fleet anomaly: exit 2, {len(doc['rows'])} agents on "
+          f"{sorted(workers)}, flags {sorted(flags)}")
 
 
 def check_no_reference_imports() -> None:
@@ -951,7 +1316,10 @@ def main() -> int:
     kernels = kernel_phase(device)
     every_device_check()
     main_path = main_path_phase(device)
+    for k, v in sentinel_phase(device).items():
+        main_path["launches"][k] += v
     cli_phase(device)
+    fleet_cli_phase(device)
     check_no_reference_imports()
 
     n, f = TIMED_SHAPE

@@ -1,18 +1,23 @@
-"""Command line of the port: ``python -m clawker_tpu_torch monitor anomalies``.
+"""Command line of the port: ``python -m clawker_tpu_torch <group> <verb>``.
 
-The same options, table/JSON output and exit codes as the reference's
-``clawker monitor anomalies`` (``clawker_tpu/cli/cmd_monitor.py:115-185``):
-0 scored, 1 no scorable windows (or no accelerator), 2 when an agent's
-latest z crosses ``--threshold``.  The device comes from
-``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the plain
-PyTorch versions.
+``monitor anomalies`` has the options, table/JSON output and exit codes
+of the reference's ``clawker monitor anomalies``
+(``clawker_tpu/cli/cmd_monitor.py:115-185``): 0 scored, 1 no scorable
+windows (or no accelerator), 2 when an agent's latest z crosses
+``--threshold``.  ``fleet anomaly`` those of ``clawker fleet anomaly``
+(``clawker_tpu/cli/cmd_fleet.py:761-900``): 0 scored, 1 no scorable
+windows (or no accelerator), 2 when an agent's window flags.  The device
+comes from ``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the
+plain PyTorch versions.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import click
 
@@ -52,13 +57,7 @@ def monitor_anomalies(input_path, window, train_steps, top, threshold, fmt):
     from .analytics import runtime as art
     from .util.xdg import logs_dir
 
-    device = os.environ.get(DEVICE_ENV) or art.DEFAULT_DEVICE
-    try:
-        art.resolve_device(device)
-    except RuntimeError as e:
-        click.echo(f"anomalies: {e} (set {DEVICE_ENV}=cpu to score on "
-                   "the CPU)", err=True)
-        raise SystemExit(1)
+    device = _device("anomalies")
     path = (Path(input_path) if input_path
             else logs_dir() / "ebpf-egress.jsonl")
     rep = art.score_file(path, window_s=window, train_steps=train_steps,
@@ -99,6 +98,144 @@ def monitor_anomalies(input_path, window, train_steps, top, threshold, fmt):
                    f"score {rep.score_ms:.1f} ms)")
     if threshold is not None and hot:
         raise SystemExit(2)
+
+
+def _device(verb: str) -> str:
+    """The device ``CLAWKER_TORCH_DEVICE`` names; exits 1 when it is a
+    CUDA device and there is no GPU."""
+    from .analytics import runtime as art
+
+    device = os.environ.get(DEVICE_ENV) or art.DEFAULT_DEVICE
+    try:
+        art.resolve_device(device)
+    except RuntimeError as e:
+        click.echo(f"{verb}: {e} (set {DEVICE_ENV}=cpu to score on "
+                   "the CPU)", err=True)
+        raise SystemExit(1)
+    return device
+
+
+@cli.group("fleet")
+def fleet_group():
+    """Fleet-wide verbs."""
+
+
+# The host's one worker when no fleet is configured, named as the
+# reference names it (clawker_tpu/engine/drivers/local.py:42).
+LOCAL_WORKER = "local-0"
+
+_ANOMALY_COLUMNS = ("AGENT", "WORKER", "WINDOWS", "LATEST-Z", "PEAK-Z",
+                    "RECORDS", "FLAG")
+
+
+class _LocalFleet:
+    """The host's one worker, for ``wire_fleet``: its stream is a host
+    file under the logs dir, never a remote tail."""
+
+    def workers(self):
+        return [SimpleNamespace(id=LOCAL_WORKER, engine=None)]
+
+
+@fleet_group.command("anomaly")
+@click.option("--watch", is_flag=True,
+              help="Keep scoring and re-print the table every interval.")
+@click.option("--interval", type=float, default=None,
+              help="Scoring tick seconds with --watch (default 5).")
+@click.option("--ticks", type=int, default=0,
+              help="With --watch: stop after N ticks (0 = until Ctrl-C).")
+@click.option("--window", type=int, default=None,
+              help="Window seconds (default 60).")
+@click.option("--train-steps", type=int, default=None,
+              help="Denoising fit steps per tick (default 40).")
+@click.option("--threshold", type=float, default=None,
+              help="Worker-relative robust z past which an agent flags "
+                   "(default 3.5).")
+@click.option("--stream", "streams", multiple=True, metavar="WORKER=PATH",
+              help="Extra local stream source(s): tail PATH as WORKER's "
+                   "egress jsonl (besides the fleet's own streams).")
+@click.option("--format", "fmt", type=click.Choice(["table", "json"]),
+              default="table")
+@click.option("--no-daemon", is_flag=True,
+              help="Score locally.  The port has no loopd daemon yet, so "
+                   "it always scores locally, with or without this flag.")
+def fleet_anomaly(watch, interval, ticks, window, train_steps, threshold,
+                  streams, fmt, no_daemon):
+    """Live fleet-wide anomaly scores: every agent's fused egress +
+    behavior windows fitted and scored on the GPU in one fit and one
+    score per tick.
+
+    One-shot by default: collect the host worker's streams
+    (``ebpf-egress-local-0.jsonl`` and ``ebpf-egress.jsonl`` under the
+    logs dir) and every ``--stream``, score once, and exit 2 when any
+    agent's window flags past the threshold.  ``--watch`` keeps ticking
+    and re-prints live scores.
+    """
+    from .sentinel import FleetSentinel
+    from .util.xdg import logs_dir
+
+    device = _device("fleet anomaly")
+    settings = {"interval_s": interval, "window_s": window or None,
+                "train_steps": train_steps or None, "threshold": threshold}
+    sentinel = FleetSentinel(
+        SimpleNamespace(logs_dir=logs_dir()), _LocalFleet(), device=device,
+        **{k: v for k, v in settings.items() if v is not None})
+    for kv in streams:
+        wid, _, path = kv.partition("=")
+        if not wid or not path:
+            raise click.BadParameter(f"--stream {kv!r}: expected WORKER=PATH")
+        sentinel.collector.add_local(wid, Path(path))
+
+    def render() -> list[dict]:
+        rows = sentinel.rows()
+        if fmt == "json":
+            click.echo(json.dumps(sentinel.status_doc(), indent=2))
+        else:
+            _render_anomaly_rows(rows)
+        return rows
+
+    try:
+        if watch:
+            n = 0
+            try:
+                while True:
+                    sentinel.refresh_once()
+                    n += 1
+                    rep = sentinel.last_tick
+                    if fmt == "table":
+                        click.echo(f"-- tick {n}: "
+                                   f"{rep.windows if rep else 0} window(s)"
+                                   + (f" on {rep.device}" if rep else ""),
+                                   err=True)
+                    rows = render()
+                    if ticks and n >= ticks:
+                        break
+                    time.sleep(max(0.05, sentinel.interval_s))
+            except KeyboardInterrupt:
+                rows = sentinel.rows()
+        else:
+            sentinel.collector.wait_quiescent(2.0)
+            n = sentinel.refresh_once()
+            if n == 0 and not sentinel.rows():
+                # a tick that failed says why, not that nothing was there
+                why = (f"scoring failed: {sentinel.last_error}"
+                       if sentinel.last_error
+                       else "no scorable windows in any worker stream")
+                click.echo(f"fleet anomaly: {why}", err=True)
+                raise SystemExit(1)
+            rows = render()
+    finally:
+        sentinel.stop()
+    if any(r.get("flagged") for r in rows):
+        raise SystemExit(2)
+
+
+def _render_anomaly_rows(rows: list[dict]) -> None:
+    click.echo("\t".join(_ANOMALY_COLUMNS))
+    for r in rows:
+        click.echo("\t".join(str(x) for x in (
+            r["agent"], r["worker"] or "-", r["windows"],
+            r["latest_z"], r["peak_z"], r.get("stream_records", 0),
+            "ANOMALOUS" if r.get("flagged") else "-")))
 
 
 def main(argv=None) -> int:

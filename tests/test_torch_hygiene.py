@@ -81,7 +81,7 @@ def test_sources_import_no_jax_and_no_reference_package(path):
                          re.M)
 
 
-def test_default_device_raises_instead_of_running_on_cpu():
+def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU: the default device runs there")
     doc = _run_isolated(
@@ -90,7 +90,8 @@ def test_default_device_raises_instead_of_running_on_cpu():
         "from clawker_tpu_torch.analytics import runtime as art\n"
         "from clawker_tpu_torch.analytics import features as F\n"
         "from clawker_tpu_torch.kernels import anomaly as K\n"
-        "from clawker_tpu_torch.sentinel import ScoringEngine\n"
+        "from clawker_tpu_torch.sentinel import FleetSentinel, ScoringEngine\n"
+        "from clawker_tpu_torch.sentinel import StreamCollector\n"
         "keys = [F.WindowKey('a', 0), F.WindowKey('b', 0)]\n"
         "X = np.ones((2, 32), np.float32)\n"
         "raised = {}\n"
@@ -105,12 +106,41 @@ def test_default_device_raises_instead_of_running_on_cpu():
         "        raised[name] = None\n"
         "    except RuntimeError as e:\n"
         "        raised[name] = str(e)\n"
+        # the sentinel's tick must not raise: the failure reaches on_error
+        f"stream = {str(tmp_path / 'egress.jsonl')!r}\n"
+        "with open(stream, 'w') as f:\n"
+        "    for i in range(20):\n"
+        "        f.write(json.dumps({'@timestamp': '2023-11-14T22:13:%02dZ' % i,\n"
+        "                            'container': 'a', 'verdict': 'ALLOW'}) + '\\n')\n"
+        "col = StreamCollector()\n"
+        "col.add_local('w', stream)\n"
+        "errors = []\n"
+        "s = FleetSentinel(None, train_steps=2, collector=col,\n"
+        "                  on_error=errors.append)\n"
+        "scored = s.refresh_once()\n"
+        "raised['refresh_once'] = errors[0] if scored == 0 and errors else None\n"
         "print(json.dumps({'raised': raised, 'launches': K.LAUNCHES}))\n")
     assert all(msg and "no CUDA GPU" in msg for msg in doc["raised"].values())
     assert set(doc["raised"]) == {"score_windows", "score_tick",
-                                  "resolve_device"}
+                                  "resolve_device", "refresh_once"}
     assert doc["launches"] == {"anomaly_score": 0, "anomaly_fit_step": 0,
                                "anomaly_fit": 0}
+
+
+def test_fleet_anomaly_without_a_gpu_exits_1_and_names_the_cpu_device(
+        tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device runs there")
+    env = {k: v for k, v in ENV.items() if k != "CLAWKER_TORCH_DEVICE"}
+    env["CLAWKER_TPU_STATE_DIR"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-m", "clawker_tpu_torch", "fleet", "anomaly",
+         "--no-daemon"], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=120)
+    assert proc.returncode == 1
+    assert "no CUDA GPU" in proc.stderr
+    assert "CLAWKER_TORCH_DEVICE=cpu" in proc.stderr
+    assert proc.stdout == ""
 
 
 def test_cpu_tensor_calls_leave_launch_counters_at_zero():
