@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # one card: every phase below
+    python3 chip_smoke.py --cards    # several cards: the multi-card
+                                     # paths alone (``cards_phase``)
 
 1. Prints the card (``nvidia-smi``) and builds the CUDA kernels from
    ``clawker_tpu_torch/kernels/csrc`` into ``build/kernels/``.
@@ -143,6 +145,24 @@ SPIN_CYCLES = 1_000_000   # ~0.5 ms: covers the host's enqueue in event_ms
 SENTINEL_STEPS = 40
 FLAG_REPS = 5
 FLAG_DEADLINE_S = 10.0
+# K5, the fit over rows split into shards: the shard counts held against
+# its plain version at KERNEL_SHAPES, against K3 on the two fleets, and
+# timed; the main path's sharded run uses MAIN_PATH_SHARDS shards (2x2)
+SHARD_SOURCE = "anomaly_fit_shard"
+SHARD_COUNTS = (2, 4)
+MESH_SHARDS = (2, 4, 8)
+TIMED_SHARDS = (1, 2, 4, 8)
+MAIN_PATH_SHARDS = 4
+# K5's fit against K3's on the same inputs: the same function, but the
+# slots group the rows otherwise where a shard's rows are not whole tiles
+# (8 shards of 640 or 4224 rows), and the other order of the fp32 sums
+# now and then tips a bf16 rounding of a weight gradient, as JAX's and
+# the port's fits differ: the scores at tests/test_torch_runtime.py's
+# FIT_RTOL / FIT_ATOL and the losses at its FIT_LOSS_RTOL, the limits that
+# hold the port's fit against JAX's; the params at FIT_PARAM_ATOL
+MESH_SCORE_RTOL = 5e-3
+MESH_SCORE_ATOL = 1e-5
+MESH_LOSS_RTOL = 1e-3
 
 
 def synth_egress_records(agents: int = 8, windows: int = 64,
@@ -315,12 +335,13 @@ def fit_step_bound(n: int, f: int) -> tuple[float, str]:
     return _bound(nbytes / HBM_BPS, step_flops(n, f) / BF16_FLOPS)
 
 
-def fit_bound(n: int, f: int, steps: int) -> tuple[float, str]:
+def fit_bound(n: int, f: int, steps: int,
+              extra_bytes: int = 0) -> tuple[float, str]:
     """Least time of K3: x in once, each step's noise in once, the params
-    in and out once, one loss per step out; ``steps`` x ``step_flops`` at
-    the bf16 rate."""
+    in and out once, one loss per step out (and ``extra_bytes``); ``steps``
+    x ``step_flops`` at the bf16 rate."""
     params = 2 * f * HIDDEN + HIDDEN + f
-    nbytes = 4 * (n * f + steps * n * f + 2 * params + steps)
+    nbytes = 4 * (n * f + steps * n * f + 2 * params + steps) + extra_bytes
     return _bound(nbytes / HBM_BPS, steps * step_flops(n, f) / BF16_FLOPS)
 
 
@@ -364,23 +385,35 @@ def _rel(got, want) -> float:
     return float(((got - want).abs() / want.abs()).max())
 
 
-def _slot_sum_err(params, x, noise, scratch) -> float:
-    """K2's step from ``params`` left its slots at the start of
-    ``scratch``: their sums of dW_enc and dW_dec^T (unrounded) against
-    ``reference.step_grads``'s, as the larger normwise relative error."""
+def _slot_totals(slots, count: int, f: int):
+    """The sum over the first ``count`` slots of a slot buffer, in fp64,
+    unpacked: ((dW_enc [F, H], db_enc [H], dW_dec [H, F], db_dec [F]),
+    the squared-error sum)."""
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    fh = f * HIDDEN
+    t = slots[:count * K.slot_floats(f)].view(
+        count, K.slot_floats(f)).double().sum(0)
+    return ((t[:fh].view(f, HIDDEN), t[fh:fh + HIDDEN],
+             t[fh + HIDDEN:2 * fh + HIDDEN].view(f, HIDDEN).T,
+             t[2 * fh + HIDDEN:2 * fh + HIDDEN + f]), t[-1])
+
+
+def _slot_sum_err(params, x, noise, scratch, count: int | None = None
+                  ) -> float:
+    """A step from ``params`` left its slots at the start of ``scratch``
+    (K2's fit_slots(n), or ``count`` of them): their sums of dW_enc and
+    dW_dec (unrounded) against ``reference.step_grads``'s over all of x,
+    as the larger normwise relative error."""
     from clawker_tpu_torch.kernels import anomaly as K
     from clawker_tpu_torch.kernels import reference as R
 
     n, f = x.shape
-    fh = f * HIDDEN
-    slots = K.fit_slots(n)
-    total = scratch[:slots * K.slot_floats(f)].view(
-        slots, K.slot_floats(f)).double().sum(0)
+    (got_enc, _, got_dec, _), _ = _slot_totals(
+        scratch, K.fit_slots(n) if count is None else count, f)
     (dw_enc, _, dw_dec, _), _ = R.step_grads(*params, x, noise, 0.25)
-    got = (total[:fh].view(f, HIDDEN),
-           total[fh + HIDDEN:2 * fh + HIDDEN].view(f, HIDDEN))
-    want = (dw_enc.double(), dw_dec.T.double())
-    return max(float((g - w).norm() / w.norm()) for g, w in zip(got, want))
+    return max(float((g - w.double()).norm() / w.double().norm())
+               for g, w in ((got_enc, dw_enc), (got_dec, dw_dec)))
 
 
 def score_checks(params, x) -> tuple[float, float]:
@@ -678,6 +711,43 @@ def every_device_check() -> None:
         print(f"device {d} ({torch.cuda.get_device_name(d)}): K1, K2 and "
               f"K3 at [{n},{f}], each opted in above 48 KB, agree with "
               f"their plain versions")
+    shard_cards_check()
+
+
+def shard_cards_check() -> None:
+    """K5 over the fleet mesh of every visible card, when there are
+    several: every card's params the same bits, and those of the same
+    shards on one card."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print("K5 over several cards: one card visible, not run")
+        return
+    n, f = TIMED_SHAPE
+    params, x, noises = _inputs(n, f, 8, "cuda:0", seed=n + f)
+    mesh = M.fleet_mesh()
+    replicas = M.shard_params(tuple(p.clone() for p in params), mesh)
+    losses = torch.empty(len(noises), device=x.device)
+    K.fit_shard_(replicas, M.shard_rows(x, mesh), M.shard_noise(noises, mesh),
+                 lr=1e-2, sigma=0.25, losses_out=losses)
+    for dev in mesh.distinct:
+        torch.cuda.synchronize(dev)
+    home = [p.cpu() for p in replicas[0]]
+    check(all(torch.equal(p.cpu(), q) for r in replicas[1:]
+              for p, q in zip(r, home)),
+          f"K5 over {cards} cards: the cards' params differ")
+    one_card = _shard_fit(params, x, noises, M.virtual_mesh(cards, "cuda:0"))
+    check(all(torch.equal(p.cpu(), q) for p, q in zip(one_card[0], home))
+          and torch.equal(one_card[1], losses),
+          f"K5 over {cards} cards: not the bits of {cards} shards of one "
+          f"card")
+    print(f"K5 [{n},{f}] x{len(noises)} over the {mesh.desc} fleet mesh of "
+          f"{cards} cards: every card's params the same bits, and those of "
+          f"{cards} shards of cuda:0")
 
 
 def ptxas_report(name: str) -> None:
@@ -693,6 +763,358 @@ def ptxas_report(name: str) -> None:
     spills = [int(v) for v in re.findall(r"(\d+) bytes spill", log)]
     check(bool(spills) and not any(spills),
           f"{name}: ptxas reports spills {spills}")
+
+
+# ---------------------------------------------------------------- K5 phase
+
+
+def plain_reduce(params, slots, count: int, n_total: int, f: int,
+                 lr: float):
+    """The plain version of K5's launch B: ``count`` slots summed, the
+    update as ``reference.fit_step`` applies it.  -> (params, loss)."""
+    from clawker_tpu_torch.kernels import reference as R
+
+    grads, sq = _slot_totals(slots, count, f)
+    new = R.sgd_update(params, tuple(g.float() for g in grads), lr)
+    return new, sq.float() / (n_total * f)
+
+
+def shard_bound(rows, f: int) -> tuple[tuple[float, str], tuple[float, str]]:
+    """Least times of K5's two launches: launch A of a shard of rows[0]
+    rows (x and noise in, the params in, its slots out; the step's flops
+    over its rows), and launch B over every shard's slots (the slots in,
+    the params in and out, the loss out)."""
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    params = 2 * f * HIDDEN + HIDDEN + f
+    n = rows[0]
+    a_bytes = 4 * (2 * n * f + params + K.fit_slots(n) * K.slot_floats(f))
+    b_bytes = 4 * (K.shard_slot_floats(rows, f) + 2 * params + 1)
+    return (_bound(a_bytes / HBM_BPS, step_flops(n, f) / BF16_FLOPS),
+            _bound(b_bytes / HBM_BPS, 0.0))
+
+
+def shard_fit_bound(rows, f: int, steps: int) -> tuple[float, str]:
+    """K3's bound with K5's slots added to the bytes: written by launch A
+    and read by launch B every step."""
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    return fit_bound(sum(rows), f, steps,
+                     2 * 4 * steps * K.shard_slot_floats(rows, f))
+
+
+def _shard_fit(params, x, noises, mesh):
+    """K5's fit over ``mesh`` from a copy of ``params`` -> (the first
+    device's params, losses)."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    replicas = M.shard_params(tuple(p.clone() for p in params), mesh)
+    losses = torch.empty(len(noises), device=x.device)
+    K.fit_shard_(replicas, M.shard_rows(x, mesh), M.shard_noise(noises, mesh),
+                 lr=1e-2, sigma=0.25, losses_out=losses)
+    for dev in mesh.distinct:
+        torch.cuda.synchronize(dev)
+    return replicas[0], losses
+
+
+def _k3_fit(params, x, noises):
+    import torch
+
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    fp = tuple(p.clone() for p in params)
+    losses = torch.empty(len(noises), device=x.device)
+    K.fit_(fp, x, noises, lr=1e-2, sigma=0.25, losses_out=losses)
+    torch.cuda.synchronize()
+    return fp, losses
+
+
+def _same_fit(a, b) -> bool:
+    import torch
+
+    (pa, la), (pb, lb) = a, b
+    return (all(torch.equal(p, q) for p, q in zip(pa, pb))
+            and torch.equal(la, lb))
+
+
+def shard_kernel_phase(device) -> dict:
+    """K5 at every KERNEL_SHAPE: over SHARD_COUNTS shards of one card, one
+    step against its plain version (params and loss at the fit-step
+    tolerances; the gathered slots' sums at SLOT_SUM_RTOL; launch B
+    against the plain reduce of its own slots), and over one shard the
+    whole fit, bit for bit K3's.  -> max abs errors per launch."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    errs = {K.FIT_SHARD_PARTIALS: 0.0, K.FIT_SHARD_REDUCE: 0.0}
+    slot_max = 0.0
+    for n, f in KERNEL_SHAPES:
+        params, x, noises = _inputs(n, f, FIT_STEPS, device, seed=n + f)
+        for shards in SHARD_COUNTS:
+            mesh = M.virtual_mesh(shards, device)
+            xs, ns = M.shard_rows(x, mesh), M.shard_rows(noises[0], mesh)
+            rows = [len(t) for t in xs]
+            total = K.shard_slot_offsets(rows)[-1]
+            slots = torch.empty(K.shard_slot_floats(rows, f), device=device)
+            kp = tuple(p.clone() for p in params)
+            loss = torch.empty(1, device=device)
+            K.fit_shard_step_([kp], xs, ns, lr=1e-2, sigma=0.25,
+                              loss_out=loss, slots=slots)
+            torch.cuda.synchronize()
+            name = f"K5 [{n},{f}] over {shards} shards"
+            rp, r_loss = R.fit_shard_step(*params, xs, ns, 1e-2, 0.25)
+            err = _max_abs(kp, rp)
+            check(err <= STEP1_PARAM_ATOL,
+                  f"{name}: params after 1 step off by {err:.3g}")
+            ok, lerr = _close(loss[0], r_loss, rtol=STEP1_LOSS_RTOL)
+            check(ok, f"{name}: loss of step 1 off by {lerr:.3g}")
+            # the gathered slots against the whole batch's unrounded
+            # gradients, and launch B against the plain reduce of them
+            slot_err = _slot_sum_err(params, x, noises[0], slots, total)
+            check(slot_err <= SLOT_SUM_RTOL,
+                  f"{name}: slot sums off the plain fp32 sums by "
+                  f"{slot_err:.3g} (normwise)")
+            slot_max = max(slot_max, slot_err)
+            got, _ = _slot_totals(slots, total, f)
+            want, _ = R.shard_step_grads(*params, xs, ns, 0.25)
+            a_err = max(float((g - w.double()).abs().max())
+                        for g, w in zip(got, want))
+            pp, p_loss = plain_reduce(params, slots, total, n, f, 1e-2)
+            b_err = _max_abs(kp, pp)
+            check(b_err <= STEP1_PARAM_ATOL,
+                  f"{name}: launch B off the plain reduce of its slots by "
+                  f"{b_err:.3g}")
+            ok, lerr = _close(loss[0], p_loss, rtol=STEP1_LOSS_RTOL)
+            check(ok, f"{name}: launch B's loss off the plain one by "
+                      f"{lerr:.3g}")
+            errs[K.FIT_SHARD_PARTIALS] = max(errs[K.FIT_SHARD_PARTIALS],
+                                             a_err)
+            errs[K.FIT_SHARD_REDUCE] = max(errs[K.FIT_SHARD_REDUCE], err,
+                                           b_err)
+        one = _shard_fit(params, x, noises, M.virtual_mesh(1, device))
+        k3 = _k3_fit(params, x, noises)
+        check(_same_fit(one, k3),
+              f"K5 [{n},{f}] over 1 shard: not bit-identical to K3 after "
+              f"{FIT_STEPS} steps: params {_max_abs(one[0], k3[0]):.3g} "
+              f"apart")
+    print(f"K5 at {len(KERNEL_SHAPES)} shapes over {SHARD_COUNTS} shards of "
+          f"one card: step 1's params (atol {STEP1_PARAM_ATOL}) and loss "
+          f"(rtol {STEP1_LOSS_RTOL}) against the plain sharded step and "
+          f"launch B against the plain reduce of its own slots; the "
+          f"gathered slots' sums normwise rtol {SLOT_SUM_RTOL} (largest "
+          f"{slot_max:.3g}); over one shard, {FIT_STEPS}-step fits "
+          f"bit-identical to K3")
+    print(f"K5 max abs err: {json.dumps(errs)}")
+    return errs
+
+
+def mesh_fit_phase(device) -> dict:
+    """K5's fit of the two fleets' padded windows, drawn as
+    ``_fit_and_score`` draws them (seed 0, FIT_STEPS steps), against K3's:
+    over 1 shard bit for bit; over MESH_SHARDS shards twice the same
+    bits, params within FIT_PARAM_ATOL, losses within MESH_LOSS_RTOL and
+    the sharded score within MESH_SCORE_RTOL / MESH_SCORE_ATOL of K3's; the
+    sharded score bit for bit K1's on the same params.  At TIMED_SHAPE,
+    ``shard_timings``.  -> its timings."""
+    import torch
+
+    from clawker_tpu_torch.analytics import features as F
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.analytics import runtime as art
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    fleets = {
+        "bench fleet": synth_egress_records(),
+        "hour of 64 agents": synth_egress_records(agents=64, windows=64,
+                                                  per_window=24),
+    }
+    timings = {}
+    for name, records in fleets.items():
+        _, X = F.featurize(records)
+        data = M.virtual_mesh(max(MESH_SHARDS), device).data
+        x = torch.from_numpy(art._pad_rows(X, X.shape[1], data)).to(device)
+        n, f = x.shape
+        params, noises = art._draw(0, FIT_STEPS, x)
+        k3 = _k3_fit(params, x, noises)
+        k3_scores = K.score(k3[0], x)
+        check(_same_fit(_shard_fit(params, x, noises,
+                                   M.virtual_mesh(1, device)), k3),
+              f"K5 {name} [{n},{f}] over 1 shard: not bit-identical to K3")
+        for shards in MESH_SHARDS:
+            mesh = M.virtual_mesh(shards, device)
+            tag = f"K5 {name} [{n},{f}] over {shards} shards"
+            fit = _shard_fit(params, x, noises, mesh)
+            check(_same_fit(fit, _shard_fit(params, x, noises, mesh)),
+                  f"{tag}: two fits from the same inputs differ")
+            sp, s_loss = fit
+            err = _max_abs(sp, k3[0])
+            check(err <= FIT_PARAM_ATOL,
+                  f"{tag}: params off K3's by {err:.3g}")
+            ok, lerr = _close(s_loss, k3[1], rtol=MESH_LOSS_RTOL)
+            check(ok, f"{tag}: losses off K3's by {lerr:.3g}")
+            scores = M.score_shards(M.shard_params(sp, mesh),
+                                    M.shard_rows(x, mesh))
+            check(torch.equal(scores, K.score(sp, x)),
+                  f"{tag}: the sharded score is not K1's bit for bit")
+            ok, serr = _close(scores, k3_scores, rtol=MESH_SCORE_RTOL,
+                              atol=MESH_SCORE_ATOL)
+            check(ok, f"{tag}: scores off K3's by {serr:.3g}")
+            print(f"{tag}: twice the same bits; off K3's fit: params "
+                  f"{err:.3g}, losses {_rel(s_loss, k3[1]):.3g} relative, "
+                  f"scores {_rel(scores, k3_scores):.3g} relative (rtol "
+                  f"{MESH_SCORE_RTOL}); the sharded score is K1's bit for "
+                  f"bit")
+        if (n, f) == TIMED_SHAPE:
+            timings = shard_timings(params, x, noises)
+    return timings
+
+
+def shard_timings(params, x, noises) -> dict:
+    """K5's time per fit at TIMED_SHARDS shards of one card beside K3's:
+    the device's (the fit captured in one CUDA graph), the wall time of
+    the fit as the host launches it (events behind a spin kernel: the
+    host's S + 1 launches a step are in it), the host's enqueue per step
+    and the plain sharded fit's time; then each launch's device time, plain time and bound at
+    MAIN_PATH_SHARDS shards.  -> {launch: (ms, plain, bound, by)}."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    n, f = x.shape
+    steps = len(noises)
+    losses = torch.empty(steps, device=x.device)
+    tq = tuple(p.clone() for p in params)
+    k3_ms = event_ms(lambda: K.fit_(tq, x, noises, lr=1e-2, sigma=0.25,
+                                    losses_out=losses))
+    for shards in TIMED_SHARDS:
+        mesh = M.virtual_mesh(shards, x.device)
+        xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
+        rows = [len(t) for t in xs]
+        slots = torch.empty(K.shard_slot_floats(rows, f), device=x.device)
+        replicas = [tuple(p.clone() for p in params)]
+
+        def fit():
+            K.fit_shard_(replicas, xs, ns, lr=1e-2, sigma=0.25,
+                         losses_out=losses, slots=slots)
+
+        graph_ms = cuda_ms(fit, batches=5, per_batch=1)
+        wall_ms = event_ms(fit, reps=5)
+        plain_ms = event_ms(lambda: R.fit_shard(*params, xs, ns, 1e-2, 0.25),
+                            reps=3)
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit()
+            enqueue.append((time.perf_counter() - t0) * 1e6 / steps)
+            torch.cuda.synchronize()
+        bound, by = shard_fit_bound(rows, f, steps)
+        print(f"K5 [{n},{f}] x{steps} over {shards} shard(s) of one card: "
+              f"device {graph_ms:.4f} ms per fit (one CUDA graph), wall "
+              f"{wall_ms:.4f} ms per fit launched by the host, host enqueue "
+              f"{statistics.median(enqueue):.2f} us per step, "
+              f"{steps * (shards + 1)} launches per fit "
+              f"({K.shard_slot_offsets(rows)[-1]} slots a step); K3 "
+              f"{k3_ms:.4f} ms per fit, 1 launch; bound {bound:.4f} ms by "
+              f"{by}; plain sharded fit {plain_ms:.3f} ms (host-bound)")
+    # each launch alone, at the main path's shards
+    mesh = M.virtual_mesh(MAIN_PATH_SHARDS, x.device)
+    xs, ns = M.shard_rows(x, mesh), M.shard_rows(noises[0], mesh)
+    rows = [len(t) for t in xs]
+    total = K.shard_slot_offsets(rows)[-1]
+    slots = torch.empty(K.shard_slot_floats(rows, f), device=x.device)
+    kp = tuple(p.clone() for p in params)
+    K.fit_shard_step_([kp], xs, ns, lr=1e-2, sigma=0.25, loss_out=losses,
+                      slots=slots)
+    c_partials = K.kernel(K.FIT_SHARD_PARTIALS)
+    c_reduce = K.kernel(K.FIT_SHARD_REDUCE)
+
+    def partials():
+        stream = torch.cuda.current_stream().cuda_stream
+        K._launched(K.FIT_SHARD_PARTIALS, c_partials(
+            xs[0].data_ptr(), ns[0].data_ptr(), 0.25,
+            *(p.data_ptr() for p in params), slots.data_ptr(), slots.numel(),
+            rows[0], n, f, stream))
+
+    def reduce():
+        stream = torch.cuda.current_stream().cuda_stream
+        K._launched(K.FIT_SHARD_REDUCE, c_reduce(
+            slots.data_ptr(), slots.numel(), total,
+            *(p.data_ptr() for p in kp), losses.data_ptr(), 1e-2, n, f,
+            stream))
+
+    a_bound, b_bound = shard_bound(rows, f)
+    out = {}
+    for name, kernel_call, plain_call, (bound, by) in (
+            (K.FIT_SHARD_PARTIALS, partials,
+             lambda: R.step_grads(*params, xs[0], ns[0], 0.25, count=n * f),
+             a_bound),
+            (K.FIT_SHARD_REDUCE, reduce,
+             lambda: plain_reduce(params, slots, total, n, f, 1e-2),
+             b_bound)):
+        ms, plain = cuda_ms(kernel_call), cuda_ms(plain_call)
+        out[name] = (ms, plain, bound, by)
+        print(f"kernel {name} [{n},{f}] over {MAIN_PATH_SHARDS} shards "
+              f"(shard 0: {rows[0]} rows; {total} slots): device "
+              f"{ms * 1e3:.2f} us a launch (plain {plain * 1e3:.2f} us, "
+              f"bound {bound * 1e3:.3f} us by {by})")
+    return out
+
+
+def graft_phase() -> None:
+    """The graft entry on the card: ``entry()``'s score against its plain
+    version, ``dryrun_multichip(8)`` (K5 and K1 over 8 shards of the card,
+    counted), and ``python -m clawker_tpu_torch.graft_entry``."""
+    import torch
+
+    from clawker_tpu_torch import graft_entry
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    fn, (params, x) = graft_entry.entry()
+    out = fn(params, x)
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (256,) and out.device.type == "cuda",
+          f"entry: scores {tuple(out.shape)} on {out.device}")
+    ok, err = _close(out, R.score(*params, x), rtol=SCORE_RTOL,
+                     atol=SCORE_ATOL)
+    check(ok, f"entry: score off the plain score by {err:.3g}")
+    _, counts = _counted(lambda: graft_entry.dryrun_multichip(8))
+    want = {K.SCORE: 8, K.FIT_STEP: 0, K.FIT: 0, K.FIT_SHARD_PARTIALS: 16,
+            K.FIT_SHARD_REDUCE: 2}
+    check(counts == want,
+          f"dryrun_multichip(8): launches {counts}, want {want}")
+    proc = subprocess.run(
+        [sys.executable, "-m", "clawker_tpu_torch.graft_entry"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0 and "multichip dryrun ok" in proc.stdout,
+          f"python -m clawker_tpu_torch.graft_entry exited "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    print(f"graft entry: entry() scores (256,) on the card (off the plain "
+          f"score by {err:.3g}); dryrun_multichip(8) over a 4x2 mesh of 8 "
+          f"shards of cuda:0, launches {json.dumps(counts)}; python -m "
+          f"clawker_tpu_torch.graft_entry: "
+          f"{' / '.join(proc.stdout.strip().splitlines())}")
+
+
+def bench_lane_phase(device) -> None:
+    """``runtime.bench_lane`` on the bench fleet, on the card."""
+    from clawker_tpu_torch.analytics import runtime as art
+
+    doc = art.bench_lane(synth_egress_records(), device=device)
+    check(set(doc) == {"windows", "featurize_ms", "train_ms", "train_steps",
+                       "score_step_us", "device"}
+          and doc["windows"] == 520 and doc["device"].startswith("cuda"),
+          f"bench_lane: {doc}")
+    print(f"bench_lane: {json.dumps(doc)}")
 
 
 # --------------------------------------------------------- main-path phase
@@ -850,20 +1272,36 @@ def _check_report(name: str, raw, z, n_windows: int) -> None:
     check(bool((raw >= 0).all()), f"{name}: negative squared error")
 
 
-def _check_fit_launches(name: str, counts: dict) -> None:
-    """One fit is one K3 launch and no K2 launch; one score one K1."""
+def _check_fit_launches(name: str, counts: dict, cards: int = 1) -> None:
+    """One fit is one K3 launch and no K2 or K5 launch; one score one K1.
+    Over ``cards`` > 1 (the sentinel on a host with several cards, which
+    scores over the fleet mesh): no K3 or K2, ``cards`` K5 partials per
+    K5 reduce, and one K1 per card."""
     from clawker_tpu_torch.kernels import anomaly as K
 
+    partials = counts[K.FIT_SHARD_PARTIALS]
+    reduces = counts[K.FIT_SHARD_REDUCE]
+    if cards > 1:
+        check(counts[K.FIT] == counts[K.FIT_STEP] == 0 and reduces > 0
+              and partials == cards * reduces
+              and counts[K.SCORE] == cards,
+              f"{name}: launches {counts} over {cards} cards")
+        return
     check(counts[K.FIT] == 1 and counts[K.FIT_STEP] == 0,
           f"{name}: {counts[K.FIT]} fit and {counts[K.FIT_STEP]} fit-step "
           f"launches, want 1 and 0")
+    check(partials == reduces == 0,
+          f"{name}: {partials} and {reduces} K5 launches, want none")
     check(counts[K.SCORE] == 1,
           f"{name}: {counts[K.SCORE]} score launches, want 1")
 
 
 def main_path_phase(device) -> dict:
     """Drives the port's entry points; -> launches summed over the runs."""
+    import torch
+
     from clawker_tpu_torch.analytics import features as F
+    from clawker_tpu_torch.analytics import mesh as M
     from clawker_tpu_torch.analytics import runtime as art
     from clawker_tpu_torch.kernels import anomaly as K
     from clawker_tpu_torch.sentinel import ScoringEngine, featurize_fused
@@ -880,6 +1318,7 @@ def main_path_phase(device) -> dict:
         "hour of 64 agents 64x64x24": synth_egress_records(
             agents=64, windows=64, per_window=24),
     }
+    unsharded = {}
     for name, records in fleets.items():
         keys, X = F.featurize(records)
         rep, counts = _counted(lambda: art.score_windows(
@@ -887,6 +1326,7 @@ def main_path_phase(device) -> dict:
         _check_report(name, rep.raw, rep.z, len(keys))
         _check_fit_launches(name, counts)
         add(counts)
+        unsharded[name] = (X, rep.raw)
         # steady-state score step on the fitted params (not counted)
         _, params, x, _ = art._fit_and_score(
             X, train_steps=FIT_STEPS, lr=1e-2, seed=0, device=device)
@@ -911,7 +1351,8 @@ def main_path_phase(device) -> dict:
         rep, counts = _counted(lambda: eng.score_tick(keys, X, worker_of))
         ticks.append((time.perf_counter() - t0) * 1e3)
         _check_report("sentinel tick", rep.raw, rep.z, len(keys))
-        _check_fit_launches("sentinel tick", counts)
+        _check_fit_launches("sentinel tick", counts,
+                            torch.cuda.device_count())
         add(counts)
     print(f"main path sentinel tick [{len(keys)},{X.shape[1]}]: "
           f"{eng.train_steps} steps, train_ms {rep.train_ms:.2f}, score "
@@ -931,6 +1372,32 @@ def main_path_phase(device) -> dict:
           f"exfil agent not hottest: {hottest.agent} peak {hottest.peak:.2f}")
     print(f"main path exfil: clawker.loop-3 hottest, peak z "
           f"{hottest.peak:.2f}, train_ms {rep.train_ms:.2f}")
+
+    # the sharded path: the hour's fit and score over a 2x2 mesh of
+    # MAIN_PATH_SHARDS shards of the card
+    name = "hour of 64 agents 64x64x24"
+    X, raw = unsharded[name]
+    mesh = M.virtual_mesh(MAIN_PATH_SHARDS, device)
+    (got, _, x, t), counts = _counted(lambda: art._fit_and_score(
+        X, train_steps=FIT_STEPS, lr=1e-2, seed=0, mesh=mesh))
+    _check_report(f"{name} sharded", got, art._robust_z(got), len(X))
+    want = {K.SCORE: MAIN_PATH_SHARDS, K.FIT_STEP: 0, K.FIT: 0,
+            K.FIT_SHARD_PARTIALS: FIT_STEPS * MAIN_PATH_SHARDS,
+            K.FIT_SHARD_REDUCE: FIT_STEPS}
+    check(counts == want,
+          f"{name} sharded: launches {counts}, want {want}")
+    check(t["device"].startswith("cuda") and t["device"].endswith(
+        f"mesh={mesh.desc}"), f"{name} sharded: device {t['device']!r}")
+    got_t, raw_t = torch.from_numpy(got), torch.from_numpy(raw)
+    ok, err = _close(got_t, raw_t, rtol=MESH_SCORE_RTOL,
+                     atol=MESH_SCORE_ATOL)
+    check(ok, f"{name} sharded: scores off the unsharded ones by {err:.3g}")
+    add(counts)
+    print(f"main path {name} sharded: padded {tuple(x.shape)}, fit "
+          f"{FIT_STEPS} steps train_ms {t['train_ms']:.2f}, score "
+          f"{t['score_ms']:.3f} ms, launches {json.dumps(counts)}, device "
+          f"{t['device']}; scores off the unsharded run's by "
+          f"{_rel(got_t, raw_t):.3g} relative")
     print(f"main path launches: {json.dumps(total)}")
     return {"launches": total, "step_us": step_us}
 
@@ -1008,8 +1475,10 @@ class TickLog:
         check(not self.errors and not self.sentinel.last_error,
               f"{name}: the sentinel reported {self.errors or [self.sentinel.last_error]}")
         if scored:
+            import torch
+
             check(n > 0, f"{name}: a tick that should score scored nothing")
-            _check_fit_launches(name, counts)
+            _check_fit_launches(name, counts, torch.cuda.device_count())
             check(rep.device.startswith("cuda"),
                   f"{name}: scored on {rep.device!r}")
         else:
@@ -1293,6 +1762,57 @@ def check_no_reference_imports() -> None:
     check(not leaked, f"reference modules imported: {leaked}")
 
 
+def cards_phase() -> None:
+    """``--cards``, on a host with several cards: the paths that exist
+    only across cards, alone.  K1, K2 and K3 on every card and K5 over the
+    fleet mesh of all of them (``every_device_check``); the sentinel's
+    fused tick and ``bench_lane``, both sharded over that mesh; and K5's
+    fit of the hour's shape over the cards beside the same shards on one
+    card (host wall ms around a synchronized fit, median of 5)."""
+    import torch
+
+    from clawker_tpu_torch.analytics import features as F
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.analytics import runtime as art
+    from clawker_tpu_torch.sentinel import ScoringEngine, featurize_fused
+
+    cards = torch.cuda.device_count()
+    check(cards > 1, f"--cards needs several cards, {cards} visible")
+    every_device_check()
+    mesh = M.fleet_mesh()
+    recs = synth_egress_records(agents=64, windows=4, per_window=16)
+    for i, r in enumerate(recs):
+        r["worker"] = f"fake-{i % 4}"
+    keys, X, worker_of = featurize_fused(recs, None)
+    rep, counts = _counted(lambda: ScoringEngine(
+        train_steps=SENTINEL_STEPS).score_tick(keys, X, worker_of))
+    _check_report("sentinel tick over the cards", rep.raw, rep.z, len(keys))
+    _check_fit_launches("sentinel tick over the cards", counts, cards)
+    check(rep.device.endswith(f"mesh={mesh.desc}"),
+          f"sentinel tick over the cards: device {rep.device!r}")
+    print(f"sentinel tick over the cards [{len(keys)},{X.shape[1]}]: "
+          f"launches {json.dumps(counts)}, train_ms {rep.train_ms:.2f}, "
+          f"device {rep.device}")
+    doc = art.bench_lane(synth_egress_records())
+    check(doc["windows"] == 520 and doc["device"].endswith(
+        f"mesh={mesh.desc}"), f"bench_lane over the cards: {doc}")
+    print(f"bench_lane over the cards: {json.dumps(doc)}")
+    _, X = F.featurize(synth_egress_records(agents=64, windows=64,
+                                            per_window=24))
+    x = torch.from_numpy(art._pad_rows(X, X.shape[1], mesh.data)).to("cuda")
+    params, noises = art._draw(0, FIT_STEPS, x)
+    for name, m in (("the cards", mesh),
+                    ("one card", M.virtual_mesh(cards, "cuda:0"))):
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _shard_fit(params, x, noises, m)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        print(f"K5 [{x.shape[0]},{x.shape[1]}] x{FIT_STEPS} over {cards} "
+              f"shards on {name} ({m.desc}): wall {statistics.median(walls)!r}"
+              f" ms per synchronized fit, median of 5")
+
+
 def main() -> int:
     import torch
 
@@ -1309,13 +1829,25 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     print(f"build: {build.build_all():.1f} s")
+    if sys.argv[1:] == ["--cards"]:
+        cards_phase()
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    check(not sys.argv[1:], f"unknown arguments {sys.argv[1:]}")
     ptxas_report(K.SCORE)
     ptxas_report(K.FIT_STEP)
     ptxas_report(K.FIT)
+    ptxas_report(SHARD_SOURCE)
     device = "cuda"
     kernels = kernel_phase(device)
+    shard_errs = shard_kernel_phase(device)
     every_device_check()
     main_path = main_path_phase(device)
+    shard_times = mesh_fit_phase(device)
+    graft_phase()
+    bench_lane_phase(device)
     for k, v in sentinel_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
@@ -1327,16 +1859,21 @@ def main() -> int:
         K.SCORE: "clawker_tpu/analytics/anomaly.py:59",
         K.FIT_STEP: "clawker_tpu/analytics/anomaly.py:96",
         K.FIT: "clawker_tpu/analytics/runtime.py:128-144",
+        K.FIT_SHARD_PARTIALS: "clawker_tpu/analytics/anomaly.py:117-156",
+        K.FIT_SHARD_REDUCE: "clawker_tpu/analytics/runtime.py:170-172,187-194",
     }
+    timings = dict(kernels["timings"][(n, f)], **shard_times)
+    errs = dict(kernels["errs"], **shard_errs)
     record = []
-    for name in (K.SCORE, K.FIT_STEP, K.FIT):
-        ms, plain, bound, by = kernels["timings"][(n, f)][name]
+    for name in replaces:
+        ms, plain, bound, by = timings[name]
+        source = SHARD_SOURCE if name in shard_times else name
         record.append({
             "name": name, "route": "cuda",
-            "source": f"clawker_tpu_torch/kernels/csrc/{name}.cu",
+            "source": f"clawker_tpu_torch/kernels/csrc/{source}.cu",
             "replaces": replaces[name],
             "launches": main_path["launches"][name],
-            "max_abs_err": kernels["errs"][name],
+            "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
         })

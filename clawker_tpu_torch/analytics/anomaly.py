@@ -10,8 +10,8 @@ On a CUDA tensor ``score`` runs the K1 kernel and the training steps the
 K2 kernel (``kernels/anomaly.py``); on a CPU tensor both run the plain
 PyTorch versions.  Params keep the JAX layout and field order, so
 ``params_from_numpy``/``params_to_numpy`` carry them across unchanged.
-One GPU runs unsharded; the reference's ``fleet_mesh``/``shard_*`` have
-no counterpart here yet.
+The reference's ``fleet_mesh``/``shard_*`` and the sharded steps are in
+``analytics/mesh.py``.
 """
 
 from __future__ import annotations

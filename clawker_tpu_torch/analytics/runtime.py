@@ -13,7 +13,9 @@ caller asks for ``device="cpu"``.  On the card the whole fit is one K3
 launch that updates the params in place, as the reference's jitted
 ``lax.scan`` is one device program, and the score one K1 launch
 (``kernels/anomaly.py``); there is nothing to compile, so the
-reference's jit and XLA caches have no counterpart.
+reference's jit and XLA caches have no counterpart.  With a ``mesh``
+(``analytics/mesh.py``) the fit is K5 over the mesh's shards and the
+score one K1 launch per shard: the reference's sharded SPMD program.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..kernels import anomaly as K
 from ..kernels.build import build_all
 from . import anomaly
 from . import features as F
+from . import mesh as M
 
 TRAIN_STEPS = 120
 ANOMALY_Z = 3.5          # robust z-score threshold for "anomalous"
@@ -88,11 +91,13 @@ def _standardize(X: np.ndarray) -> np.ndarray:
     return ((X - mu) / sd).astype(np.float32)
 
 
-def _pad_rows(X: np.ndarray, width: int) -> np.ndarray:
-    """Standardize, then edge-replicate rows up to a _PAD_BUCKET multiple
-    (the reference's shapes; padded scores are sliced off)."""
+def _pad_rows(X: np.ndarray, width: int, data: int = 1) -> np.ndarray:
+    """Standardize, then edge-replicate rows up to a _PAD_BUCKET multiple,
+    rounded up to a multiple of a mesh's ``data`` axis (the reference's
+    shapes; padded scores are sliced off)."""
     n = len(X)
     padded = max(_PAD_BUCKET, -(-n // _PAD_BUCKET) * _PAD_BUCKET)
+    padded = -(-padded // data) * data
     Xn = _standardize(X)
     if padded != n:
         pad = Xn[np.arange(padded - n) % max(n, 1)] if n else np.zeros(
@@ -124,36 +129,69 @@ def _draw(seed: int, steps: int, x: torch.Tensor):
     return params, noises
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+def _fit_shards(replicas, xs, noise_shards, lr: float) -> torch.Tensor:
+    """The fit over a mesh's shards, every replica updated in place, in
+    ``steps`` x (S + 1) K5 launches.  -> losses [steps]."""
+    losses = torch.empty(len(noise_shards[0]), dtype=torch.float32,
+                         device=xs[0].device)
+    K.fit_shard_(replicas, xs, noise_shards, lr=lr, sigma=0.25,
+                 losses_out=losses)
+    return losses
+
+
+def _sync(*devs: torch.device) -> None:
+    for dev in devs:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def _fit_and_score(X: np.ndarray, *, train_steps: int, lr: float, seed: int,
-                   feat: int | None = None, device=DEFAULT_DEVICE):
+                   feat: int | None = None, device=DEFAULT_DEVICE,
+                   mesh: M.Mesh | None = None):
     """-> (raw_scores[n], params, x_padded, timings).  Rows are padded by
     edge-replication up to _PAD_BUCKET multiples; padded scores are
-    sliced off."""
-    dev = resolve_device(device)
+    sliced off.
+
+    With ``mesh`` (``mesh.fleet_mesh`` or ``virtual_mesh``; ``device`` is
+    then not read) the row pad rounds up to a multiple of the mesh's data
+    axis, as the reference's does; params and noise are drawn on the first
+    shard's device, the params replicated and x and the noise split into
+    the mesh's shards; the fit is K5 and the score K1 per shard.  The
+    params returned are the first shard's device's, x the whole padded
+    batch there."""
+    dev = resolve_device(mesh.devices[0] if mesh else device)
     n = len(X)
     width = feat or (X.shape[1] if X.ndim == 2 and X.shape[1] else 32)
-    Xn = _pad_rows(X, width)
+    Xn = _pad_rows(X, width, mesh.data if mesh else 1)
     x = torch.from_numpy(Xn).to(dev)
     params, noises = _draw(seed, train_steps, x)
+    devs = mesh.distinct if mesh else [dev]
     if dev.type == "cuda":
         build_all()     # first use builds/loads the kernels: set-up time
-    _sync(dev)
+    if mesh:
+        replicas = M.shard_params(params, mesh)
+        xs = M.shard_rows(x, mesh)
+        noise_shards = M.shard_noise(noises, mesh)
+    _sync(*devs)
 
     t0 = time.perf_counter()
-    _fit(params, x, noises, lr)
-    _sync(dev)
+    if mesh:
+        _fit_shards(replicas, xs, noise_shards, lr)
+    else:
+        _fit(params, x, noises, lr)
+    _sync(*devs)
     train_ms = (time.perf_counter() - t0) * 1000.0
 
     t0 = time.perf_counter()
-    raw = anomaly.score(params, x)[:n].cpu().numpy()
+    if mesh:
+        scores = M.score_shards(replicas, xs)
+    else:
+        scores = anomaly.score(params, x)
+    raw = scores[:n].cpu().numpy()
     score_ms = (time.perf_counter() - t0) * 1000.0
+    name = device_name(dev) + (f" mesh={mesh.desc}" if mesh else "")
     return raw, params, x, {"train_ms": train_ms, "score_ms": score_ms,
-                            "device": device_name(dev)}
+                            "device": name}
 
 
 def score_windows(X: np.ndarray, keys: list[F.WindowKey], *,
@@ -168,6 +206,53 @@ def score_windows(X: np.ndarray, keys: list[F.WindowKey], *,
         train_steps=train_steps, train_ms=t["train_ms"],
         score_ms=t["score_ms"], device=t["device"],
     )
+
+
+def bench_lane(records: list[dict], *, train_steps: int = 100,
+               reps: int = 20, device=DEFAULT_DEVICE) -> dict:
+    """Featurize + fit + steady-state score timing, the SAME pipeline
+    ``monitor anomalies`` runs (denoising fit), for a bench of the port.
+    With more than one CUDA device visible the fit and score run sharded
+    over the fleet mesh of all of them (``device`` is then not read), as
+    the reference shards on any multi-device backend.  The score step is
+    the median over ``reps`` synchronized scores."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    keys, X = F.featurize(records)
+    featurize_ms = (time.perf_counter() - t0) * 1000.0
+    mesh = None
+    if dev.type == "cuda" and torch.cuda.device_count() > 1:
+        mesh = M.fleet_mesh()
+    raw, params, x, t = _fit_and_score(X, train_steps=train_steps, lr=1e-2,
+                                       seed=0, device=dev, mesh=mesh)
+    if mesh:
+        replicas, xs = M.shard_params(params, mesh), M.shard_rows(x, mesh)
+        devs = mesh.distinct
+
+        def score_step():
+            return M.score_shards(replicas, xs)
+    else:
+        devs = [dev]
+
+        def score_step():
+            return anomaly.score(params, x)
+    score_step()        # warm
+    _sync(*devs)
+    steps = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        score_step()
+        _sync(*devs)
+        steps.append(time.perf_counter() - t0)
+    steps.sort()
+    return {
+        "windows": len(keys),
+        "featurize_ms": round(featurize_ms, 1),
+        "train_ms": round(t["train_ms"], 1),
+        "train_steps": train_steps,
+        "score_step_us": round(steps[len(steps) // 2] * 1e6, 1),
+        "device": t["device"],
+    }
 
 
 def score_file(path: str | Path, *, window_s: int = F.WINDOW_S,

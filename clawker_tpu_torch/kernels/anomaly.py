@@ -1,4 +1,5 @@
-"""Wrappers of the anomaly kernels: K1 (score), K2 (fit step) and K3 (fit).
+"""Wrappers of the anomaly kernels: K1 (score), K2 (fit step), K3 (fit) and
+K5 (the fit step over rows split into shards).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, and launches on the current
@@ -30,9 +31,12 @@ REDUCE_GROUPS = 8
 SCORE = "anomaly_score"
 FIT_STEP = "anomaly_fit_step"
 FIT = "anomaly_fit"
+FIT_SHARD_PARTIALS = "anomaly_fit_shard_partials"
+FIT_SHARD_REDUCE = "anomaly_fit_shard_reduce"
 # K3's trace: points per step (csrc/anomaly_fit.cu, kStamps)
 FIT_STAMPS = 9
-LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0}
+LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0, FIT_SHARD_PARTIALS: 0,
+            FIT_SHARD_REDUCE: 0}
 
 
 def reset_launches() -> None:
@@ -222,3 +226,209 @@ def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
                  lr, n, f, steps, 0 if stamps is None else stamps.data_ptr(),
                  0 if stamps is None else stamps.numel(), stream)
     _launched(FIT, err)
+
+
+# ------------------------------------------------------------------ K5
+
+
+def shard_slot_offsets(rows) -> list[int]:
+    """Where each shard's slots start in K5's slot buffer, in slots, for
+    shards of ``rows`` rows each, and last the total: the shards' regions
+    lie back to back in shard order, ``fit_slots(n_s)`` slots each."""
+    offsets = [0]
+    for n in rows:
+        offsets.append(offsets[-1] + fit_slots(n))
+    return offsets
+
+
+def shard_slot_floats(rows, f: int) -> int:
+    """Floats of K5's slot buffer for shards of ``rows`` rows at F = f."""
+    return shard_slot_offsets(rows)[-1] * slot_floats(f)
+
+
+def _rows_contiguous(t: torch.Tensor) -> bool:
+    """Each [n, F] matrix of ``t`` (its last two dims) is contiguous."""
+    return t.is_contiguous() if t.dim() == 2 else (
+        len(t) == 0 or t[0].is_contiguous())
+
+
+def _check_shards(replicas, xs, noises, steps: int | None):
+    """fit_shard_step_'s and fit_shard_'s checks -> (rows, f, params by
+    device).  ``noises`` holds one [n_s, F] (steps None) or [steps, n_s, F]
+    tensor per shard, or is None."""
+    if not xs:
+        raise ValueError("need at least one shard")
+    by_dev = {}
+    for p in replicas:
+        dev = p[0].device
+        if dev in by_dev:
+            raise ValueError(f"two params sets on {dev}: one per device")
+        by_dev[dev] = p
+    if set(by_dev) != {x.device for x in xs}:
+        raise ValueError(f"params on {sorted(map(str, by_dev))}, shards on "
+                         f"{sorted({str(x.device) for x in xs})}: one params "
+                         f"set per device the shards lie on")
+    if len({x.device.type for x in xs}) != 1:
+        raise ValueError("shards on the CPU and on CUDA devices at once")
+    if noises is not None and len(noises) != len(xs):
+        raise ValueError(f"{len(noises)} noise shards for {len(xs)} shards")
+    rows = []
+    for s, x in enumerate(xs):
+        n, f = _check(by_dev[x.device], x)
+        if f != xs[0].shape[1]:
+            raise ValueError(f"shard {s} has F = {f}, shard 0 "
+                             f"{xs[0].shape[1]}")
+        rows.append(n)
+        if noises is None:
+            continue
+        nz = noises[s]
+        want = (n, f) if steps is None else (steps, n, f)
+        if tuple(nz.shape) != want:
+            raise ValueError(f"noise of shard {s} must be {want}, got "
+                             f"{tuple(nz.shape)}")
+        if (nz.dtype != torch.float32 or nz.device != x.device
+                or not _rows_contiguous(nz)):
+            raise ValueError(f"noise of shard {s} must be float32 on "
+                             f"{x.device}, each [n, F] step contiguous")
+    return rows, xs[0].shape[1], by_dev
+
+
+def _check_slots(slots: torch.Tensor, home: torch.device, need: int) -> None:
+    if (slots.dtype != torch.float32 or slots.device != home
+            or not slots.is_contiguous() or slots.data_ptr() % 16):
+        raise ValueError(f"slots must be a contiguous float32 tensor on "
+                         f"{home} at a 16-byte boundary")
+    if slots.numel() < need:
+        raise ValueError(f"slots holds {slots.numel()} floats, needs {need}")
+
+
+def _shard_stepper(by_dev, xs, rows, f, *, lr, sigma, slots):
+    """-> step(noise_ptrs, loss_ptr), which enqueues one K5 step on the
+    current streams: phase A of each shard into its card's slot buffer
+    (``slots`` on the first shard's card), the other cards' regions
+    copied to the first's, phase B there, and its params copied back to
+    the other cards (``csrc/anomaly_fit_shard.cu``)."""
+    home = xs[0].device
+    n_total = sum(rows)
+    offsets = shard_slot_offsets(rows)
+    pf = slot_floats(f)
+    need = offsets[-1] * pf
+    bufs = {home: slots}
+    for dev in by_dev:
+        if dev not in bufs:
+            bufs[dev] = torch.empty(need, dtype=torch.float32, device=dev)
+    shards_on = {dev: [s for s, x in enumerate(xs) if x.device == dev]
+                 for dev in by_dev}
+    streams = {dev: torch.cuda.current_stream(dev).cuda_stream
+               for dev in by_dev}
+    partials, reduce = kernel(FIT_SHARD_PARTIALS), kernel(FIT_SHARD_REDUCE)
+    # each shard's arguments before and after its noise pointer
+    head = [x.data_ptr() for x in xs]
+    tail = []
+    for s, x in enumerate(xs):
+        buf = bufs[x.device]
+        tail.append((sigma, *(p.data_ptr() for p in by_dev[x.device]),
+                     buf.data_ptr() + 4 * offsets[s] * pf,
+                     buf.numel() - offsets[s] * pf, rows[s], n_total, f,
+                     streams[x.device]))
+    gather = [(bufs[home][offsets[s] * pf:offsets[s + 1] * pf],
+               bufs[x.device][offsets[s] * pf:offsets[s + 1] * pf])
+              for s, x in enumerate(xs) if x.device != home]
+    copies = [(q, p) for dev, params in by_dev.items() if dev != home
+              for q, p in zip(params, by_dev[home])]
+    reduce_args = (slots.data_ptr(), slots.numel(), offsets[-1],
+                   *(p.data_ptr() for p in by_dev[home]))
+
+    def step(noise_ptrs, loss_ptr: int) -> None:
+        for dev, shards in shards_on.items():
+            with torch.cuda.device(dev):
+                for s in shards:
+                    _launched(FIT_SHARD_PARTIALS,
+                              partials(head[s], noise_ptrs[s], *tail[s]))
+        for dst, src in gather:
+            dst.copy_(src)
+        with torch.cuda.device(home):
+            _launched(FIT_SHARD_REDUCE,
+                      reduce(*reduce_args, loss_ptr, lr, n_total, f,
+                             streams[home]))
+        for q, p in copies:
+            q.copy_(p)
+
+    return step
+
+
+def fit_shard_step_(replicas, xs, noises, *, lr: float, sigma: float,
+                    loss_out: torch.Tensor, step: int = 0,
+                    slots: torch.Tensor | None = None) -> None:
+    """K5, in place: one (denoising) SGD step on the batch whose rows are
+    split into the shards ``xs`` (each [n_s, F], in shard order), with
+    ``noises`` their noise rows ([n_s, F] each) or None for the plain
+    autoencoder step.  ``replicas`` holds one params set per device the
+    shards lie on; all of them get the same updated params.  Writes the
+    step's loss (before the update) to ``loss_out[step]``, on the first
+    shard's device.  ``slots`` (float32, at least ``shard_slot_floats``,
+    on the first shard's device) receives every shard's slots; None
+    allocates it."""
+    rows, f, by_dev = _check_shards(replicas, xs, noises, None)
+    home = xs[0].device
+    if (loss_out.dim() != 1 or not 0 <= step < loss_out.numel()
+            or loss_out.dtype != torch.float32 or loss_out.device != home):
+        raise ValueError(f"loss_out must be 1-d float32 on {home} with an "
+                         f"entry for `step`")
+    nz = noises if noises is not None else [None] * len(xs)
+    if home.type == "cpu":
+        params = by_dev[home]
+        new, loss = reference.fit_shard_step(*params, xs, nz, lr, sigma)
+        for p, q in zip(params, new):
+            p.copy_(q)
+        loss_out[step] = loss
+        return
+    need = shard_slot_floats(rows, f)
+    if slots is None:
+        slots = torch.empty(need, dtype=torch.float32, device=home)
+    _check_slots(slots, home, need)
+    stepper = _shard_stepper(by_dev, xs, rows, f, lr=lr, sigma=sigma,
+                             slots=slots)
+    stepper([0 if t is None else t.data_ptr() for t in nz],
+            loss_out.data_ptr() + step * loss_out.element_size())
+
+
+def fit_shard_(replicas, xs, noises, *, lr: float, sigma: float,
+               losses_out: torch.Tensor,
+               slots: torch.Tensor | None = None) -> None:
+    """K5, in place: the whole fit over the shards ``xs``, one
+    ``fit_shard_step_`` for each step of the noise shards (``noises[s]`` is
+    shard s's [steps, n_s, F], each step's rows contiguous), as S + 1
+    launches a step from the host.  Writes each step's loss (before its
+    update) to ``losses_out[step]`` on the first shard's device."""
+    if not noises or noises[0].dim() != 3:
+        raise ValueError("noises must hold one [steps, n_s, F] tensor per "
+                         "shard")
+    steps = noises[0].shape[0]
+    rows, f, by_dev = _check_shards(replicas, xs, noises, steps)
+    home = xs[0].device
+    if (losses_out.dim() != 1 or losses_out.numel() != steps
+            or losses_out.dtype != torch.float32
+            or losses_out.device != home):
+        raise ValueError(f"losses_out must hold {steps} float32 losses on "
+                         f"{home}")
+    if steps == 0:
+        return
+    if home.type == "cpu":
+        params = by_dev[home]
+        new, losses = reference.fit_shard(*params, xs, noises, lr, sigma)
+        for p, q in zip(params, new):
+            p.copy_(q)
+        losses_out.copy_(losses)
+        return
+    need = shard_slot_floats(rows, f)
+    if slots is None:
+        slots = torch.empty(need, dtype=torch.float32, device=home)
+    _check_slots(slots, home, need)
+    stepper = _shard_stepper(by_dev, xs, rows, f, lr=lr, sigma=sigma,
+                             slots=slots)
+    bases = [nz.data_ptr() for nz in noises]
+    strides = [nz.stride(0) * nz.element_size() for nz in noises]
+    loss0 = losses_out.data_ptr()
+    for s in range(steps):
+        stepper([b + s * d for b, d in zip(bases, strides)], loss0 + 4 * s)

@@ -1,6 +1,7 @@
 """Build the CUDA kernels in ``csrc/`` at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
+Each ``csrc/<name>.cu`` has a plain C interface (the entry point
+``<name>``, or those ``ENTRY_POINTS`` lists) and compiles on its own
 into ``build/kernels/lib<name>-<hash>.so`` at the repository root, one
 ``nvcc`` process per source, all started together:
 
@@ -31,7 +32,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("anomaly_score", "anomaly_fit_step", "anomaly_fit")
+SOURCES = ("anomaly_score", "anomaly_fit_step", "anomaly_fit",
+           "anomaly_fit_shard")
+# The C entry points of a source: its own name, unless listed here
+ENTRY_POINTS = {
+    "anomaly_fit_shard": ("anomaly_fit_shard_partials",
+                          "anomaly_fit_shard_reduce"),
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +57,14 @@ SIGNATURES = {
     # scratch_floats, losses, lr, n, f, steps, stamps, stamps_len, stream
     "anomaly_fit": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _P, _F, _I, _I, _I,
                     _P, _L, _P],
+    # x, noise, sigma, w_enc, b_enc, w_dec, b_dec, slots, slots_floats, n,
+    # n_total, f, stream
+    "anomaly_fit_shard_partials": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _I,
+                                   _I, _I, _P],
+    # slots, slots_floats, total_slots, w_enc, b_enc, w_dec, b_dec,
+    # loss_out, lr, n_total, f, stream
+    "anomaly_fit_shard_reduce": [_P, _L, _I, _P, _P, _P, _P, _P, _F, _I, _I,
+                                 _P],
 }
 
 _lock = threading.Lock()
@@ -90,11 +105,20 @@ def _start(name: str, out: Path) -> subprocess.Popen:
     return proc
 
 
+def entry_points(source: str) -> tuple[str, ...]:
+    return ENTRY_POINTS.get(source, (source,))
+
+
+_SOURCE_OF = {entry: source for source in SOURCES
+              for entry in entry_points(source)}
+
+
 def _load(name: str, path: Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, name)
-    fn.argtypes = SIGNATURES[name]
-    fn.restype = ctypes.c_int
+    for entry in entry_points(name):
+        fn = getattr(lib, entry)
+        fn.argtypes = SIGNATURES[entry]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -133,9 +157,11 @@ def build_log(name: str) -> str:
 
 
 def kernel(name: str):
-    """The loaded C entry point ``name`` (building it at first use)."""
-    lib = _libs.get(name)
+    """The loaded C entry point ``name`` (building its source at first
+    use)."""
+    source = _SOURCE_OF[name]
+    lib = _libs.get(source)
     if lib is None:
-        build_all((name,))
-        lib = _libs[name]
+        build_all((source,))
+        lib = _libs[source]
     return getattr(lib, name)

@@ -1,8 +1,10 @@
 // The two phases of one (denoising) SGD step of the anomaly autoencoder,
 // as __device__ functions.  K2 (anomaly_fit_step.cu) runs them as two
 // launches per step; K3 (anomaly_fit.cu) runs both for every step inside
-// one persistent launch.  The step's arithmetic exists only here, so the
-// two kernels give bit-identical params and losses.
+// one persistent launch; K5 (anomaly_fit_shard.cu) runs phase A once per
+// shard of the rows and phase B once over all the shards' slots.  The
+// step's arithmetic exists only here, so K2 and K3 give bit-identical
+// params and losses, and so does K5 over one shard.
 //
 //   noisy = x + sigma * noise
 //   forward of K1 on noisy; e = r - x (clean, unrounded)
@@ -451,8 +453,11 @@ __device__ __forceinline__ void fit_partials(
 // (c < kCols).  `red` holds kReduceGroups * kSlice floats of shared
 // memory.  `staged` is null (K2) or K3's image of the staged weights for
 // FP = fp, which gets each updated param.  Every thread must call it (it
-// holds __syncthreads).
-template <int kWidth, int kCols>
+// holds __syncthreads).  kLongRuns (K5): more than kReduceGroups x
+// kReduceRun slots may come in, so a group's run is read in chunks of
+// kReduceRun and added, in the same order, into one sum; for runs of
+// <= kReduceRun that is the same sum as K2's and K3's.
+template <int kWidth, int kCols, bool kLongRuns = false>
 __device__ __forceinline__ void fit_reduce(
     int slice, int tid, float* red, const float* partials, int slots, int f,
     float* w_enc, float* b_enc, float* w_dec, float* b_dec, float* loss_out,
@@ -463,26 +468,49 @@ __device__ __forceinline__ void fit_reduce(
   const int per = (slots + kReduceGroups - 1) / kReduceGroups;
   const int s0 = min(grp * per, slots);
   const int len = min(s0 + per, slots) - s0;
-  float v[kCols][kReduceRun];
+  if constexpr (kLongRuns) {
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int p = slice * kSlice + tid % kWidth + kWidth * c;
-    const int run = p < stride ? len : 0;
+    for (int c = 0; c < kCols; ++c) {
+      const int p = slice * kSlice + tid % kWidth + kWidth * c;
+      float s = 0.0f;
+      for (int k0 = 0; p < stride && k0 < len; k0 += kReduceRun) {
+        float v[kReduceRun];
 #pragma unroll
-    for (int k = 0; k < kReduceRun; ++k) {
-      v[c][k] = k < run ? __ldcg(partials +
-                                 static_cast<size_t>(s0 + k) * stride + p)
-                        : 0.0f;
+        for (int k = 0; k < kReduceRun; ++k) {
+          v[k] = k0 + k < len
+                     ? __ldcg(partials +
+                              static_cast<size_t>(s0 + k0 + k) * stride + p)
+                     : 0.0f;
+        }
+#pragma unroll
+        for (int k = 0; k < kReduceRun; ++k) {
+          if (k0 + k < len) s = __fadd_rn(s, v[k]);
+        }
+      }
+      red[grp * kSlice + tid % kWidth + kWidth * c] = s;
     }
-  }
+  } else {
+    float v[kCols][kReduceRun];
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    float s = 0.0f;
+    for (int c = 0; c < kCols; ++c) {
+      const int p = slice * kSlice + tid % kWidth + kWidth * c;
+      const int run = p < stride ? len : 0;
 #pragma unroll
-    for (int k = 0; k < kReduceRun; ++k) {
-      if (k < len) s = __fadd_rn(s, v[c][k]);
+      for (int k = 0; k < kReduceRun; ++k) {
+        v[c][k] = k < run ? __ldcg(partials +
+                                   static_cast<size_t>(s0 + k) * stride + p)
+                          : 0.0f;
+      }
     }
-    red[grp * kSlice + tid % kWidth + kWidth * c] = s;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      float s = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kReduceRun; ++k) {
+        if (k < len) s = __fadd_rn(s, v[c][k]);
+      }
+      red[grp * kSlice + tid % kWidth + kWidth * c] = s;
+    }
   }
   __syncthreads();
 #pragma unroll

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the anomaly kernels: the score, the fit step
-and the fit (a loop of fit steps).
+"""Plain PyTorch versions of the anomaly kernels: the score, the fit step,
+the fit (a loop of fit steps), and the fit step and fit over rows split
+into shards.
 
 Written out as explicit forward and backward formulas, no autograd, at
 the rounding points of the JAX reference (``clawker_tpu/analytics/
@@ -63,16 +64,19 @@ def score(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor) -> torch.Tensor:
 
 
 def step_grads(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
-               noise: torch.Tensor | None, sigma: float):
+               noise: torch.Tensor | None, sigma: float,
+               count: int | None = None):
     """The gradients of one (denoising) step with the two weight sums NOT
     rounded to bf16: fp32 sums over all rows of the fp32 cotangent times
     the bf16 operand.  ``noise`` None is the plain autoencoder step.
+    ``count`` is the mean's element count, by default x's: a shard of a
+    batch gives its terms of the whole batch's mean with the batch's.
 
     -> ((dW_enc [F, H], db_enc [H], dW_dec [H, F], db_dec [F]), loss)."""
     noisy = x if noise is None else x + sigma * noise
     a, gb, r = _forward(w_enc, b_enc, w_dec, b_dec, noisy)
     e = r - x
-    count = e.numel()
+    count = e.numel() if count is None else count
     loss = torch.square(e).sum() / count
     dr = (2.0 * e) * (1.0 / count)
     db_dec = dr.sum(dim=0)
@@ -90,12 +94,43 @@ def fit_step(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor,
     batch.  ``noise`` None is the plain autoencoder step (sigma = 0).
 
     -> ((w_enc, b_enc, w_dec, b_dec) updated, loss before the step)."""
-    (dw_enc, db_enc, dw_dec, db_dec), loss = step_grads(
-        w_enc, b_enc, w_dec, b_dec, x, noise, sigma)
-    grads = (bf(dw_enc), db_enc, bf(dw_dec), db_dec)
-    new = tuple(p - lr * g for p, g in zip((w_enc, b_enc, w_dec, b_dec),
-                                           grads))
-    return new, loss
+    grads, loss = step_grads(w_enc, b_enc, w_dec, b_dec, x, noise, sigma)
+    return sgd_update((w_enc, b_enc, w_dec, b_dec), grads, lr), loss
+
+
+def sgd_update(params, grads, lr: float):
+    """SGD on the unrounded gradient sums: the weight sums rounded to bf16
+    (the reference's rounding of the backward dots' results)."""
+    dw_enc, db_enc, dw_dec, db_dec = grads
+    rounded = (bf(dw_enc), db_enc, bf(dw_dec), db_dec)
+    return tuple(p - lr * g for p, g in zip(params, rounded))
+
+
+def shard_step_grads(w_enc, b_enc, w_dec, b_dec, xs, noises, sigma: float):
+    """``step_grads`` of each shard of the rows (``xs``, and ``noises``
+    of the same rows or None), each with the whole batch's count, summed in
+    shard order: the sharded step's unrounded gradient sums and its loss."""
+    count = sum(x.shape[0] for x in xs) * xs[0].shape[1]
+    total, loss = None, 0.0
+    for x, noise in zip(xs, noises):
+        grads, part = step_grads(w_enc, b_enc, w_dec, b_dec, x, noise, sigma,
+                                 count=count)
+        total = grads if total is None else tuple(
+            a + b for a, b in zip(total, grads))
+        loss = loss + part
+    return total, loss
+
+
+def fit_shard_step(w_enc, b_enc, w_dec, b_dec, xs, noises, lr: float,
+                   sigma: float):
+    """One (denoising) SGD step on the mean squared error of the batch
+    whose rows are split into ``xs`` (``noises`` their noise rows, or
+    Nones): the sum of the shards' gradients, updated as ``fit_step``.
+
+    -> ((w_enc, b_enc, w_dec, b_dec) updated, loss before the step)."""
+    grads, loss = shard_step_grads(w_enc, b_enc, w_dec, b_dec, xs, noises,
+                                   sigma)
+    return sgd_update((w_enc, b_enc, w_dec, b_dec), grads, lr), loss
 
 
 def staged(w_enc, b_enc, w_dec, b_dec) -> torch.Tensor:
@@ -127,4 +162,18 @@ def fit(w_enc, b_enc, w_dec, b_dec, x: torch.Tensor, noises: torch.Tensor,
     losses = torch.empty(len(noises), dtype=torch.float32, device=x.device)
     for step, noise in enumerate(noises):
         params, losses[step] = fit_step(*params, x, noise, lr, sigma)
+    return params, losses
+
+
+def fit_shard(w_enc, b_enc, w_dec, b_dec, xs, noises, lr: float,
+              sigma: float):
+    """``fit`` over rows split into shards: one ``fit_shard_step`` for each
+    step of the shards' noises (``noises[s]`` is shard s's [steps, n_s,
+    F]).  -> (params after the last step, losses [steps])."""
+    params = (w_enc, b_enc, w_dec, b_dec)
+    steps = len(noises[0])
+    losses = torch.empty(steps, dtype=torch.float32, device=xs[0].device)
+    for step in range(steps):
+        params, losses[step] = fit_shard_step(
+            *params, xs, [nz[step] for nz in noises], lr, sigma)
     return params, losses

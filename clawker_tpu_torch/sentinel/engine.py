@@ -5,7 +5,8 @@ Each tick takes the fused (egress + behavior) window matrix for EVERY
 open window of EVERY agent in the fleet and runs the denoising
 autoencoder's fit and score over it at F = 40 through the port's
 ``analytics.runtime._fit_and_score``: on one H100 that is one K3
-launch (the whole fit) and one K1 launch, unsharded.
+launch (the whole fit) and one K1 launch, unsharded; on a host with
+several cards, K5 and K1 over the fleet mesh of all of them.
 
 Scores normalize in two stages: a robust (median/MAD) z within the
 tick, then re-centered against the agent's WORKER's rolling baseline of
@@ -22,10 +23,12 @@ import threading
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..analytics import anomaly
 from ..analytics import runtime as art
 from ..analytics.features import AgentScore, WindowKey, summarize
+from ..analytics.mesh import fleet_mesh
 from .features import EXT_FEATURES
 
 BASELINE_MIN = 4          # baseline samples before it re-centers anything
@@ -68,6 +71,15 @@ class ScoringEngine:
 
     # ------------------------------------------------------------ scoring
 
+    def _mesh(self):
+        """The fleet mesh over every visible card when the engine runs on
+        CUDA and more than one card is visible; None (unsharded) on one
+        card or on the CPU."""
+        if (torch.device(self.device).type == "cuda"
+                and torch.cuda.device_count() > 1):
+            return fleet_mesh()
+        return None
+
     def score_tick(self, keys: list[WindowKey], X: np.ndarray,
                    worker_of: dict[str, str]) -> TickReport | None:
         """Fit + score every open window; None when there is nothing to
@@ -77,7 +89,7 @@ class ScoringEngine:
             return None
         raw, params, x, t = art._fit_and_score(
             X, train_steps=self.train_steps, lr=self.lr, seed=self.seed,
-            feat=EXT_FEATURES, device=self.device)
+            feat=EXT_FEATURES, device=self.device, mesh=self._mesh())
         z_tick = art._robust_z(raw)
         z = np.array([
             self._worker_z(worker_of.get(k.agent, ""), float(zt))

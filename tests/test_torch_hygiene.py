@@ -124,7 +124,61 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
     assert set(doc["raised"]) == {"score_windows", "score_tick",
                                   "resolve_device", "refresh_once"}
     assert doc["launches"] == {"anomaly_score": 0, "anomaly_fit_step": 0,
-                               "anomaly_fit": 0}
+                               "anomaly_fit": 0,
+                               "anomaly_fit_shard_partials": 0,
+                               "anomaly_fit_shard_reduce": 0}
+
+
+@pytest.mark.parametrize("module", ["clawker_tpu_torch.graft_entry",
+                                    "clawker_tpu_torch.analytics.mesh"])
+def test_mesh_and_graft_entry_import_alone_without_jax(module):
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "from clawker_tpu_torch.kernels import build\n"
+        "leaked = sorted(m for m, mod in sys.modules.items() if mod is not None\n"
+        "                and (m in ('jax', 'clawker_tpu')\n"
+        "                     or m.startswith(('jax.', 'clawker_tpu.'))))\n"
+        "print(json.dumps({'leaked': leaked, 'built': sorted(build._libs)}))\n")
+    assert doc == {"leaked": [], "built": []}
+
+
+def test_graft_entry_and_bench_lane_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device runs there")
+    doc = _run_isolated(
+        "import json\n"
+        "from chip_smoke import synth_egress_records\n"
+        "from clawker_tpu_torch import graft_entry\n"
+        "from clawker_tpu_torch.analytics import mesh as M\n"
+        "from clawker_tpu_torch.analytics import runtime as art\n"
+        "from clawker_tpu_torch.kernels import anomaly as K\n"
+        "recs = synth_egress_records(agents=2, windows=2, per_window=4)\n"
+        "raised = {}\n"
+        "for name, call in {\n"
+        "    'entry': graft_entry.entry,\n"
+        "    'dryrun_multichip': lambda: graft_entry.dryrun_multichip(8),\n"
+        "    'bench_lane': lambda: art.bench_lane(recs, train_steps=2, reps=1),\n"
+        "    'fleet_mesh': M.fleet_mesh,\n"
+        "    'virtual_mesh': lambda: M.virtual_mesh(4),\n"
+        "}.items():\n"
+        "    try:\n"
+        "        call()\n"
+        "        raised[name] = None\n"
+        "    except RuntimeError as e:\n"
+        "        raised[name] = str(e)\n"
+        "ran = {'entry': graft_entry.entry(device='cpu')[1][1].shape[0],\n"
+        "       'dryrun_multichip': graft_entry.dryrun_multichip(8, device='cpu'),\n"
+        "       'bench_lane': art.bench_lane(recs, train_steps=2, reps=1,\n"
+        "                                    device='cpu')['device']}\n"
+        "print(json.dumps({'raised': raised, 'ran': ran,\n"
+        "                  'launches': K.LAUNCHES}))\n")
+    assert set(doc["raised"]) == {"entry", "dryrun_multichip", "bench_lane",
+                                  "fleet_mesh", "virtual_mesh"}
+    assert all(msg and "no CUDA GPU" in msg for msg in doc["raised"].values())
+    assert doc["ran"] == {"entry": 256, "dryrun_multichip": None,
+                          "bench_lane": "cpu"}
+    assert not any(doc["launches"].values())
 
 
 def test_fleet_anomaly_without_a_gpu_exits_1_and_names_the_cpu_device(
@@ -162,7 +216,9 @@ def test_cpu_tensor_calls_leave_launch_counters_at_zero():
         "       sigma=0.25, losses_out=torch.empty(2))\n"
         "print(json.dumps({'launches': K.LAUNCHES, 'built': sorted(build._libs)}))\n")
     assert doc == {"launches": {"anomaly_score": 0, "anomaly_fit_step": 0,
-                                "anomaly_fit": 0},
+                                "anomaly_fit": 0,
+                                "anomaly_fit_shard_partials": 0,
+                                "anomaly_fit_shard_reduce": 0},
                    "built": []}
 
 
@@ -188,11 +244,12 @@ def test_kernel_sources_are_sm90a_cuda_with_plain_c_entry_points():
 
     assert "arch=compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
     assert "--use_fast_math" not in build.NVCC_FLAGS
-    for name in build.SOURCES:
-        src = (build.CSRC / f"{name}.cu").read_text()
-        assert f'extern "C" int {name}(' in src
+    for source in build.SOURCES:
+        src = (build.CSRC / f"{source}.cu").read_text()
         assert "__global__" in src and "Replaces:" in src
         assert not re.search(r"cublas|torch/", src)
-        assert len(build.SIGNATURES[name]) == len(
-            re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
-            .split(","))
+        for name in build.entry_points(source):
+            assert f'extern "C" int {name}(' in src
+            assert len(build.SIGNATURES[name]) == len(
+                re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
+                .split(","))
