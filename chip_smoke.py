@@ -52,7 +52,21 @@
    K1 launch per scored tick, none per idle tick, no ``on_error``
    message.  Prints each stage's host ms of a tick at (a) and (b), and
    the flag latency's p50 and max.
-5. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+5. K5 (the fit over rows split into shards): the per-step route (a launch
+   A per shard and a launch B a step) one step against its plain version
+   at every KERNEL_SHAPES entry over 2 and 4 shards; the one-launch fit
+   (``anomaly_fit_shard_fit``, the route of every fit whose shards lie on
+   one card) bit for bit against the per-step route at every
+   KERNEL_SHAPES entry over 1, 2, 4 and 8 shards, on both fleets, and at
+   RELOAD_SHAPE over 2 shards (x not resident), bit for bit against K3
+   over 1 shard, twice the same bits, and against the plain sharded fit
+   at K3's tolerances; its time per 120-step fit on both fleets over 1,
+   2, 4 and 8 shards beside the per-step route's and K3's, with its phase
+   trace over 4 and 8 shards; the sharded main path (the hour over 4
+   shards of the card) is one K5 launch and 4 K1 launches.  The graft
+   entry (``entry``, ``dryrun_multichip(8)``: the per-step route, counted)
+   and ``bench_lane`` on the card.
+6. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -145,13 +159,19 @@ SPIN_CYCLES = 1_000_000   # ~0.5 ms: covers the host's enqueue in event_ms
 SENTINEL_STEPS = 40
 FLAG_REPS = 5
 FLAG_DEADLINE_S = 10.0
-# K5, the fit over rows split into shards: the shard counts held against
-# its plain version at KERNEL_SHAPES, against K3 on the two fleets, and
-# timed; the main path's sharded run uses MAIN_PATH_SHARDS shards (2x2)
+# K5, the fit over rows split into shards: the shard counts of the
+# per-step route's step held against its plain version at KERNEL_SHAPES,
+# of the fit held against K3 on the two fleets, of the one-launch fit held
+# against the per-step route (KERNEL_SHAPES, both fleets) and timed, and of
+# its phase trace; RELOAD_SHAPE over RELOAD_SHARDS shards is too large for
+# x to stay resident; the main path's sharded run uses MAIN_PATH_SHARDS
+# shards (2x2)
 SHARD_SOURCE = "anomaly_fit_shard"
 SHARD_COUNTS = (2, 4)
 MESH_SHARDS = (2, 4, 8)
 TIMED_SHARDS = (1, 2, 4, 8)
+TRACED_SHARDS = (4, 8)
+RELOAD_SHARDS = 2
 MAIN_PATH_SHARDS = 4
 # K5's fit against K3's on the same inputs: the same function, but the
 # slots group the rows otherwise where a shard's rows are not whole tiles
@@ -780,10 +800,12 @@ def plain_reduce(params, slots, count: int, n_total: int, f: int,
 
 
 def shard_bound(rows, f: int) -> tuple[tuple[float, str], tuple[float, str]]:
-    """Least times of K5's two launches: launch A of a shard of rows[0]
-    rows (x and noise in, the params in, its slots out; the step's flops
-    over its rows), and launch B over every shard's slots (the slots in,
-    the params in and out, the loss out)."""
+    """Least times of the per-step route's two launches: launch A of a
+    shard of rows[0] rows (x and noise in, the params in, its slots out;
+    the step's flops over its rows), and launch B over every shard's
+    slots (the slots in, the params in and out, the loss out).  The fit
+    itself, whatever implements it, is bound by ``fit_bound`` over all
+    the rows."""
     from clawker_tpu_torch.kernels import anomaly as K
 
     params = 2 * f * HIDDEN + HIDDEN + f
@@ -794,17 +816,9 @@ def shard_bound(rows, f: int) -> tuple[tuple[float, str], tuple[float, str]]:
             _bound(b_bytes / HBM_BPS, 0.0))
 
 
-def shard_fit_bound(rows, f: int, steps: int) -> tuple[float, str]:
-    """K3's bound with K5's slots added to the bytes: written by launch A
-    and read by launch B every step."""
-    from clawker_tpu_torch.kernels import anomaly as K
-
-    return fit_bound(sum(rows), f, steps,
-                     2 * 4 * steps * K.shard_slot_floats(rows, f))
-
-
-def _shard_fit(params, x, noises, mesh):
-    """K5's fit over ``mesh`` from a copy of ``params`` -> (the first
+def _shard_fit(params, x, noises, mesh, stamps=None):
+    """K5's fit over ``mesh`` from a copy of ``params``, as ``fit_shard_``
+    routes it (one launch when the shards lie on one card) -> (the first
     device's params, losses)."""
     import torch
 
@@ -814,7 +828,28 @@ def _shard_fit(params, x, noises, mesh):
     replicas = M.shard_params(tuple(p.clone() for p in params), mesh)
     losses = torch.empty(len(noises), device=x.device)
     K.fit_shard_(replicas, M.shard_rows(x, mesh), M.shard_noise(noises, mesh),
-                 lr=1e-2, sigma=0.25, losses_out=losses)
+                 lr=1e-2, sigma=0.25, losses_out=losses, stamps=stamps)
+    for dev in mesh.distinct:
+        torch.cuda.synchronize(dev)
+    return replicas[0], losses
+
+
+def _per_step_fit(params, x, noises, mesh):
+    """K5's fit over ``mesh`` from a copy of ``params`` by the per-step
+    route (a launch A per shard and a launch B each step), on any layout
+    -> (the first device's params, losses)."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    replicas = M.shard_params(tuple(p.clone() for p in params), mesh)
+    xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
+    rows, f, by_dev = K._check_shards(replicas, xs, ns, len(noises))
+    losses = torch.empty(len(noises), device=x.device)
+    slots = torch.empty(K.shard_slot_floats(rows, f), device=x.device)
+    K._fit_shard_steps(by_dev, xs, ns, rows, f, lr=1e-2, sigma=0.25,
+                       slots=slots, losses_out=losses)
     for dev in mesh.distinct:
         torch.cuda.synchronize(dev)
     return replicas[0], losses
@@ -840,19 +875,36 @@ def _same_fit(a, b) -> bool:
             and torch.equal(la, lb))
 
 
+def _routes_agree(tag: str, params, x, noises, mesh) -> None:
+    """The one-launch fit over ``mesh`` (one card) bit for bit the
+    per-step route's, and twice the same bits."""
+    one = _shard_fit(params, x, noises, mesh)
+    per = _per_step_fit(params, x, noises, mesh)
+    check(_same_fit(one, per),
+          f"{tag}: the one-launch fit is not the per-step route's bits: "
+          f"params {_max_abs(one[0], per[0]):.3g} apart, losses "
+          f"{float((one[1] - per[1]).abs().max()):.3g}")
+    check(_same_fit(one, _shard_fit(params, x, noises, mesh)),
+          f"{tag}: two one-launch fits from the same inputs differ")
+
+
 def shard_kernel_phase(device) -> dict:
-    """K5 at every KERNEL_SHAPE: over SHARD_COUNTS shards of one card, one
-    step against its plain version (params and loss at the fit-step
-    tolerances; the gathered slots' sums at SLOT_SUM_RTOL; launch B
-    against the plain reduce of its own slots), and over one shard the
-    whole fit, bit for bit K3's.  -> max abs errors per launch."""
+    """K5 at every KERNEL_SHAPE: over SHARD_COUNTS shards of one card, the
+    per-step route's step against its plain version (params and loss at
+    the fit-step tolerances; the gathered slots' sums at SLOT_SUM_RTOL;
+    launch B against the plain reduce of its own slots); over
+    TIMED_SHARDS shards the one-launch fit bit for bit the per-step
+    route's (``_routes_agree``), over one shard K3's, and over
+    MAIN_PATH_SHARDS within K3's tolerances of the plain sharded fit.
+    Then ``shard_reload_check``.  -> max abs errors per launch."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
     from clawker_tpu_torch.kernels import anomaly as K
     from clawker_tpu_torch.kernels import reference as R
 
-    errs = {K.FIT_SHARD_PARTIALS: 0.0, K.FIT_SHARD_REDUCE: 0.0}
+    errs = {K.FIT_SHARD: 0.0, K.FIT_SHARD_PARTIALS: 0.0,
+            K.FIT_SHARD_REDUCE: 0.0}
     slot_max = 0.0
     for n, f in KERNEL_SHAPES:
         params, x, noises = _inputs(n, f, FIT_STEPS, device, seed=n + f)
@@ -897,21 +949,77 @@ def shard_kernel_phase(device) -> dict:
                                              a_err)
             errs[K.FIT_SHARD_REDUCE] = max(errs[K.FIT_SHARD_REDUCE], err,
                                            b_err)
+        for shards in TIMED_SHARDS:
+            _routes_agree(f"K5 [{n},{f}] x{FIT_STEPS} over {shards} shards",
+                          params, x, noises, M.virtual_mesh(shards, device))
         one = _shard_fit(params, x, noises, M.virtual_mesh(1, device))
         k3 = _k3_fit(params, x, noises)
         check(_same_fit(one, k3),
               f"K5 [{n},{f}] over 1 shard: not bit-identical to K3 after "
               f"{FIT_STEPS} steps: params {_max_abs(one[0], k3[0]):.3g} "
               f"apart")
+        mesh = M.virtual_mesh(MAIN_PATH_SHARDS, device)
+        sp, s_loss = _shard_fit(params, x, noises, mesh)
+        rp, r_loss = R.fit_shard(*params, M.shard_rows(x, mesh),
+                                 M.shard_noise(noises, mesh), 1e-2, 0.25)
+        err = _max_abs(sp, rp)
+        check(err <= FIT_PARAM_ATOL,
+              f"K5 [{n},{f}] x{FIT_STEPS} over {MAIN_PATH_SHARDS} shards: "
+              f"params off the plain sharded fit by {err:.3g}")
+        rtol = FIT_LOSS_RTOL if f >= NARROW_F else NARROW_FIT_LOSS_RTOL
+        ok, lerr = _close(s_loss, r_loss, rtol=rtol)
+        check(ok, f"K5 [{n},{f}] x{FIT_STEPS} over {MAIN_PATH_SHARDS} "
+                  f"shards: losses off the plain sharded fit by {lerr:.3g}")
+        errs[K.FIT_SHARD] = max(errs[K.FIT_SHARD], err)
+    shard_reload_check(device)
     print(f"K5 at {len(KERNEL_SHAPES)} shapes over {SHARD_COUNTS} shards of "
           f"one card: step 1's params (atol {STEP1_PARAM_ATOL}) and loss "
           f"(rtol {STEP1_LOSS_RTOL}) against the plain sharded step and "
           f"launch B against the plain reduce of its own slots; the "
           f"gathered slots' sums normwise rtol {SLOT_SUM_RTOL} (largest "
-          f"{slot_max:.3g}); over one shard, {FIT_STEPS}-step fits "
-          f"bit-identical to K3")
+          f"{slot_max:.3g}); the one-launch fit over {TIMED_SHARDS} shards "
+          f"bit-identical to the per-step route and to itself, over one "
+          f"shard to K3, and over {MAIN_PATH_SHARDS} shards at K3's "
+          f"{FIT_STEPS}-step tolerances of the plain sharded fit")
     print(f"K5 max abs err: {json.dumps(errs)}")
     return errs
+
+
+def shard_reload_check(device) -> None:
+    """K5's one-launch fit at RELOAD_SHAPE over RELOAD_SHARDS shards,
+    where a block's x tiles (two items' worth) do not fit in shared
+    memory and it reloads them at each tile: bit for bit the per-step
+    route and itself, within K3's tolerances of the plain sharded fit."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    n, f = RELOAD_SHAPE
+    params, x, noises = _inputs(n, f, RELOAD_STEPS, device, seed=n + f)
+    mesh = M.virtual_mesh(RELOAD_SHARDS, device)
+    rows = [len(t) for t in M.shard_rows(x, mesh)]
+    plan = K.shard_fit_plan(
+        rows, torch.cuda.get_device_properties(device).multi_processor_count,
+        f)
+    check(plan.resident_tiles == 0,
+          f"K5 [{n},{f}] over {RELOAD_SHARDS} shards: planned resident")
+    tag = f"K5 [{n},{f}] x{RELOAD_STEPS} over {RELOAD_SHARDS} shards"
+    _routes_agree(f"{tag} (x reloaded)", params, x, noises, mesh)
+    sp, s_loss = _shard_fit(params, x, noises, mesh)
+    rp, r_loss = R.fit_shard(*params, M.shard_rows(x, mesh),
+                             M.shard_noise(noises, mesh), 1e-2, 0.25)
+    err = _max_abs(sp, rp)
+    check(err <= FIT_PARAM_ATOL, f"{tag} (x reloaded) params off by "
+                                 f"{err:.3g}")
+    ok, lerr = _close(s_loss, r_loss, rtol=FIT_LOSS_RTOL)
+    check(ok, f"{tag} (x reloaded) losses off by {lerr:.3g}")
+    print(f"{tag}, x tiles reloaded ({K.shard_slot_offsets(rows)[-1]} "
+          f"slots, {plan.smem} bytes of shared memory): the one-launch fit "
+          f"bit-identical to the per-step route and to itself; off the "
+          f"plain sharded fit: params {err:.3g}, losses "
+          f"{_rel(s_loss, r_loss):.3g} relative")
 
 
 def mesh_fit_phase(device) -> dict:
@@ -920,8 +1028,10 @@ def mesh_fit_phase(device) -> dict:
     over 1 shard bit for bit; over MESH_SHARDS shards twice the same
     bits, params within FIT_PARAM_ATOL, losses within MESH_LOSS_RTOL and
     the sharded score within MESH_SCORE_RTOL / MESH_SCORE_ATOL of K3's; the
-    sharded score bit for bit K1's on the same params.  At TIMED_SHAPE,
-    ``shard_timings``.  -> its timings."""
+    sharded score bit for bit K1's on the same params.  Over 1 and
+    MESH_SHARDS shards the one-launch fit bit for bit the per-step
+    route's.  Each fleet's ``shard_timings``.  -> the timings at
+    TIMED_SHAPE."""
     import torch
 
     from clawker_tpu_torch.analytics import features as F
@@ -946,13 +1056,13 @@ def mesh_fit_phase(device) -> dict:
         check(_same_fit(_shard_fit(params, x, noises,
                                    M.virtual_mesh(1, device)), k3),
               f"K5 {name} [{n},{f}] over 1 shard: not bit-identical to K3")
+        for shards in (1, *MESH_SHARDS):
+            _routes_agree(f"K5 {name} [{n},{f}] over {shards} shards",
+                          params, x, noises, M.virtual_mesh(shards, device))
         for shards in MESH_SHARDS:
             mesh = M.virtual_mesh(shards, device)
             tag = f"K5 {name} [{n},{f}] over {shards} shards"
-            fit = _shard_fit(params, x, noises, mesh)
-            check(_same_fit(fit, _shard_fit(params, x, noises, mesh)),
-                  f"{tag}: two fits from the same inputs differ")
-            sp, s_loss = fit
+            sp, s_loss = _shard_fit(params, x, noises, mesh)
             err = _max_abs(sp, k3[0])
             check(err <= FIT_PARAM_ATOL,
                   f"{tag}: params off K3's by {err:.3g}")
@@ -965,23 +1075,41 @@ def mesh_fit_phase(device) -> dict:
             ok, serr = _close(scores, k3_scores, rtol=MESH_SCORE_RTOL,
                               atol=MESH_SCORE_ATOL)
             check(ok, f"{tag}: scores off K3's by {serr:.3g}")
-            print(f"{tag}: twice the same bits; off K3's fit: params "
+            print(f"{tag}: the one-launch fit is the per-step route's "
+                  f"bits, twice the same; off K3's fit: params "
                   f"{err:.3g}, losses {_rel(s_loss, k3[1]):.3g} relative, "
                   f"scores {_rel(scores, k3_scores):.3g} relative (rtol "
                   f"{MESH_SCORE_RTOL}); the sharded score is K1's bit for "
                   f"bit")
-        if (n, f) == TIMED_SHAPE:
-            timings = shard_timings(params, x, noises)
+        timings.update(shard_timings(params, x, noises))
     return timings
 
 
+def _enqueue_us(fn, reps: int = 20) -> float:
+    """Median host us to enqueue ``fn`` (the card idle, no synchronize
+    inside the clock)."""
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def shard_timings(params, x, noises) -> dict:
-    """K5's time per fit at TIMED_SHARDS shards of one card beside K3's:
-    the device's (the fit captured in one CUDA graph), the wall time of
-    the fit as the host launches it (events behind a spin kernel: the
-    host's S + 1 launches a step are in it), the host's enqueue per step
-    and the plain sharded fit's time; then each launch's device time, plain time and bound at
-    MAIN_PATH_SHARDS shards.  -> {launch: (ms, plain, bound, by)}."""
+    """K5's time per fit at TIMED_SHARDS shards of one card beside K3's,
+    all in this call: the one-launch fit's and K3's device time by
+    ``event_ms`` (events behind a spin kernel) and the host's enqueue per
+    fit; the per-step route's device time (the fit captured in one CUDA
+    graph); at TIMED_SHAPE also the plain sharded fit's time, the
+    one-launch fit's phase trace over TRACED_SHARDS shards beside K3's,
+    and each per-step launch's device time, plain time and bound at
+    MAIN_PATH_SHARDS shards.  -> {kernel: (ms, plain, bound, by)} at
+    MAIN_PATH_SHARDS shards (empty off TIMED_SHAPE)."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
@@ -990,42 +1118,76 @@ def shard_timings(params, x, noises) -> dict:
 
     n, f = x.shape
     steps = len(noises)
+    timed = (n, f) == TIMED_SHAPE
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     losses = torch.empty(steps, device=x.device)
     tq = tuple(p.clone() for p in params)
-    k3_ms = event_ms(lambda: K.fit_(tq, x, noises, lr=1e-2, sigma=0.25,
-                                    losses_out=losses))
+
+    def k3_fit():
+        K.fit_(tq, x, noises, lr=1e-2, sigma=0.25, losses_out=losses)
+
+    k3_ms, k3_enq = event_ms(k3_fit), _enqueue_us(k3_fit)
+    bound, by = fit_bound(n, f, steps)
+    out = {}
     for shards in TIMED_SHARDS:
         mesh = M.virtual_mesh(shards, x.device)
         xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
         rows = [len(t) for t in xs]
-        slots = torch.empty(K.shard_slot_floats(rows, f), device=x.device)
+        scratch = torch.empty(K.shard_scratch_floats(rows, f),
+                              device=x.device)
         replicas = [tuple(p.clone() for p in params)]
+        by_dev = {x.device: replicas[0]}
+        slots = scratch[K.staged_floats(f):]
 
         def fit():
             K.fit_shard_(replicas, xs, ns, lr=1e-2, sigma=0.25,
-                         losses_out=losses, slots=slots)
+                         losses_out=losses, scratch=scratch)
 
-        graph_ms = cuda_ms(fit, batches=5, per_batch=1)
-        wall_ms = event_ms(fit, reps=5)
-        plain_ms = event_ms(lambda: R.fit_shard(*params, xs, ns, 1e-2, 0.25),
-                            reps=3)
-        enqueue = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fit()
-            enqueue.append((time.perf_counter() - t0) * 1e6 / steps)
-            torch.cuda.synchronize()
-        bound, by = shard_fit_bound(rows, f, steps)
+        def per_step():
+            K._fit_shard_steps(by_dev, xs, ns, rows, f, lr=1e-2, sigma=0.25,
+                               slots=slots, losses_out=losses)
+
+        ms, enq = event_ms(fit), _enqueue_us(fit)
+        per_ms = cuda_ms(per_step, batches=5, per_batch=1)
+        plain = ""
+        if timed:
+            plain_ms = event_ms(
+                lambda: R.fit_shard(*params, xs, ns, 1e-2, 0.25), reps=3)
+            plain = f"; plain sharded fit {plain_ms:.3f} ms (host-bound)"
+            if shards == MAIN_PATH_SHARDS:
+                out[K.FIT_SHARD] = (ms, plain_ms, bound, by)
+        plan = K.shard_fit_plan(rows, sms, f)
         print(f"K5 [{n},{f}] x{steps} over {shards} shard(s) of one card: "
-              f"device {graph_ms:.4f} ms per fit (one CUDA graph), wall "
-              f"{wall_ms:.4f} ms per fit launched by the host, host enqueue "
-              f"{statistics.median(enqueue):.2f} us per step, "
-              f"{steps * (shards + 1)} launches per fit "
-              f"({K.shard_slot_offsets(rows)[-1]} slots a step); K3 "
-              f"{k3_ms:.4f} ms per fit, 1 launch; bound {bound:.4f} ms by "
-              f"{by}; plain sharded fit {plain_ms:.3f} ms (host-bound)")
-    # each launch alone, at the main path's shards
+              f"one launch {ms:.4f} ms per fit (device), host enqueue "
+              f"{enq:.2f} us per fit, {K.shard_slot_offsets(rows)[-1]} "
+              f"items on {sms} blocks (at most "
+              f"{max(map(len, plan.items))} a block, "
+              f"{plan.resident_tiles} x tiles resident a block); per-step "
+              f"route {per_ms:.4f} ms per fit (device, one CUDA graph), "
+              f"{steps * (shards + 1)} launches; K3 {k3_ms:.4f} ms per fit, "
+              f"host enqueue {k3_enq:.2f} us; bound {bound:.4f} ms by {by}"
+              f"{plain}")
+    if not timed:
+        return out
+    k3_split, k3_sub = phase_split(params, x, noises)
+    print(f"K3 [{n},{f}] per step, mean us of the phase trace: phase A "
+          f"{k3_split[0]:.2f}, barrier {k3_split[1]:.2f}, phase B "
+          f"{k3_split[2]:.2f}, barrier {k3_split[3]:.2f}; phase A's "
+          f"sub-stages " + ", ".join(f"{k} {v:.2f}"
+                                     for k, v in zip(A_SUBSTAGES, k3_sub)))
+    for shards in TRACED_SHARDS:
+        mesh = M.virtual_mesh(shards, x.device)
+        stamps = torch.zeros((steps, K.FIT_STAMPS, sms), dtype=torch.int64,
+                             device=x.device)
+        _shard_fit(params, x, noises, mesh, stamps=stamps)
+        rows = [len(t) for t in M.shard_rows(x, mesh)]
+        split, sub = _split(stamps, min(K.shard_slot_offsets(rows)[-1], sms))
+        print(f"K5 [{n},{f}] over {shards} shards per step, mean us of the "
+              f"phase trace: phase A {split[0]:.2f}, barrier {split[1]:.2f}"
+              f", phase B {split[2]:.2f}, barrier {split[3]:.2f}; phase A's "
+              f"sub-stages (each block's last item) "
+              + ", ".join(f"{k} {v:.2f}" for k, v in zip(A_SUBSTAGES, sub)))
+    # each launch of the per-step route alone, at the main path's shards
     mesh = M.virtual_mesh(MAIN_PATH_SHARDS, x.device)
     xs, ns = M.shard_rows(x, mesh), M.shard_rows(noises[0], mesh)
     rows = [len(t) for t in xs]
@@ -1052,7 +1214,6 @@ def shard_timings(params, x, noises) -> dict:
             stream))
 
     a_bound, b_bound = shard_bound(rows, f)
-    out = {}
     for name, kernel_call, plain_call, (bound, by) in (
             (K.FIT_SHARD_PARTIALS, partials,
              lambda: R.step_grads(*params, xs[0], ns[0], 0.25, count=n * f),
@@ -1063,16 +1224,17 @@ def shard_timings(params, x, noises) -> dict:
         ms, plain = cuda_ms(kernel_call), cuda_ms(plain_call)
         out[name] = (ms, plain, bound, by)
         print(f"kernel {name} [{n},{f}] over {MAIN_PATH_SHARDS} shards "
-              f"(shard 0: {rows[0]} rows; {total} slots): device "
-              f"{ms * 1e3:.2f} us a launch (plain {plain * 1e3:.2f} us, "
-              f"bound {bound * 1e3:.3f} us by {by})")
+              f"(shard 0: {rows[0]} rows; {total} slots), the per-step "
+              f"route's launch: device {ms * 1e3:.2f} us a launch (plain "
+              f"{plain * 1e3:.2f} us, bound {bound * 1e3:.3f} us by {by})")
     return out
 
 
-def graft_phase() -> None:
+def graft_phase() -> dict:
     """The graft entry on the card: ``entry()``'s score against its plain
-    version, ``dryrun_multichip(8)`` (K5 and K1 over 8 shards of the card,
-    counted), and ``python -m clawker_tpu_torch.graft_entry``."""
+    version, ``dryrun_multichip(8)`` (K5's per-step route and K1 over 8
+    shards of the card, counted), and ``python -m
+    clawker_tpu_torch.graft_entry``.  -> dryrun_multichip's launches."""
     import torch
 
     from clawker_tpu_torch import graft_entry
@@ -1088,8 +1250,8 @@ def graft_phase() -> None:
                      atol=SCORE_ATOL)
     check(ok, f"entry: score off the plain score by {err:.3g}")
     _, counts = _counted(lambda: graft_entry.dryrun_multichip(8))
-    want = {K.SCORE: 8, K.FIT_STEP: 0, K.FIT: 0, K.FIT_SHARD_PARTIALS: 16,
-            K.FIT_SHARD_REDUCE: 2}
+    want = {K.SCORE: 8, K.FIT_STEP: 0, K.FIT: 0, K.FIT_SHARD: 0,
+            K.FIT_SHARD_PARTIALS: 16, K.FIT_SHARD_REDUCE: 2}
     check(counts == want,
           f"dryrun_multichip(8): launches {counts}, want {want}")
     proc = subprocess.run(
@@ -1103,6 +1265,7 @@ def graft_phase() -> None:
           f"shards of cuda:0, launches {json.dumps(counts)}; python -m "
           f"clawker_tpu_torch.graft_entry: "
           f"{' / '.join(proc.stdout.strip().splitlines())}")
+    return counts
 
 
 def bench_lane_phase(device) -> None:
@@ -1253,6 +1416,12 @@ def phase_split(params, x, noises) -> tuple[list[float], list[float]]:
                          device=x.device)
     K.fit_(params, x, noises, lr=1e-2, sigma=0.25,
            losses_out=torch.empty(steps, device=x.device), stamps=stamps)
+    return _split(stamps, ga)
+
+
+def _split(stamps, ga: int) -> tuple[list[float], list[float]]:
+    """A fit's trace [steps, FIT_STAMPS, blocks] -> ``phase_split``'s
+    spans, and the sub-stages over the first ``ga`` blocks (phase A's)."""
     t = stamps.double().cpu()
     first, last = t.min(2).values, t.max(2).values
     spans = [last[:, 6] - first[:, 0], first[:, 7] - last[:, 6],
@@ -1275,23 +1444,25 @@ def _check_report(name: str, raw, z, n_windows: int) -> None:
 def _check_fit_launches(name: str, counts: dict, cards: int = 1) -> None:
     """One fit is one K3 launch and no K2 or K5 launch; one score one K1.
     Over ``cards`` > 1 (the sentinel on a host with several cards, which
-    scores over the fleet mesh): no K3 or K2, ``cards`` K5 partials per
-    K5 reduce, and one K1 per card."""
+    scores over the fleet mesh): no K3 or K2 and K5's per-step route,
+    ``cards`` K5 partials per K5 reduce and no one-launch K5 fit, and one
+    K1 per card."""
     from clawker_tpu_torch.kernels import anomaly as K
 
     partials = counts[K.FIT_SHARD_PARTIALS]
     reduces = counts[K.FIT_SHARD_REDUCE]
     if cards > 1:
-        check(counts[K.FIT] == counts[K.FIT_STEP] == 0 and reduces > 0
-              and partials == cards * reduces
+        check(counts[K.FIT] == counts[K.FIT_STEP] == counts[K.FIT_SHARD] == 0
+              and reduces > 0 and partials == cards * reduces
               and counts[K.SCORE] == cards,
               f"{name}: launches {counts} over {cards} cards")
         return
     check(counts[K.FIT] == 1 and counts[K.FIT_STEP] == 0,
           f"{name}: {counts[K.FIT]} fit and {counts[K.FIT_STEP]} fit-step "
           f"launches, want 1 and 0")
-    check(partials == reduces == 0,
-          f"{name}: {partials} and {reduces} K5 launches, want none")
+    check(partials == reduces == counts[K.FIT_SHARD] == 0,
+          f"{name}: {partials}, {reduces} and {counts[K.FIT_SHARD]} K5 "
+          f"launches, want none")
     check(counts[K.SCORE] == 1,
           f"{name}: {counts[K.SCORE]} score launches, want 1")
 
@@ -1374,7 +1545,7 @@ def main_path_phase(device) -> dict:
           f"{hottest.peak:.2f}, train_ms {rep.train_ms:.2f}")
 
     # the sharded path: the hour's fit and score over a 2x2 mesh of
-    # MAIN_PATH_SHARDS shards of the card
+    # MAIN_PATH_SHARDS shards of the card: one K5 launch, a K1 per shard
     name = "hour of 64 agents 64x64x24"
     X, raw = unsharded[name]
     mesh = M.virtual_mesh(MAIN_PATH_SHARDS, device)
@@ -1382,8 +1553,7 @@ def main_path_phase(device) -> dict:
         X, train_steps=FIT_STEPS, lr=1e-2, seed=0, mesh=mesh))
     _check_report(f"{name} sharded", got, art._robust_z(got), len(X))
     want = {K.SCORE: MAIN_PATH_SHARDS, K.FIT_STEP: 0, K.FIT: 0,
-            K.FIT_SHARD_PARTIALS: FIT_STEPS * MAIN_PATH_SHARDS,
-            K.FIT_SHARD_REDUCE: FIT_STEPS}
+            K.FIT_SHARD: 1, K.FIT_SHARD_PARTIALS: 0, K.FIT_SHARD_REDUCE: 0}
     check(counts == want,
           f"{name} sharded: launches {counts}, want {want}")
     check(t["device"].startswith("cuda") and t["device"].endswith(
@@ -1846,7 +2016,8 @@ def main() -> int:
     every_device_check()
     main_path = main_path_phase(device)
     shard_times = mesh_fit_phase(device)
-    graft_phase()
+    for k, v in graft_phase().items():
+        main_path["launches"][k] += v
     bench_lane_phase(device)
     for k, v in sentinel_phase(device).items():
         main_path["launches"][k] += v
@@ -1859,9 +2030,14 @@ def main() -> int:
         K.SCORE: "clawker_tpu/analytics/anomaly.py:59",
         K.FIT_STEP: "clawker_tpu/analytics/anomaly.py:96",
         K.FIT: "clawker_tpu/analytics/runtime.py:128-144",
+        K.FIT_SHARD: "clawker_tpu/analytics/anomaly.py:117-156",
         K.FIT_SHARD_PARTIALS: "clawker_tpu/analytics/anomaly.py:117-156",
         K.FIT_SHARD_REDUCE: "clawker_tpu/analytics/runtime.py:170-172,187-194",
     }
+    # every kernel of the paths ran on them (K2's body runs inside K3)
+    idle = [name for name in replaces
+            if name != K.FIT_STEP and not main_path["launches"][name]]
+    check(not idle, f"kernels never launched on their paths: {idle}")
     timings = dict(kernels["timings"][(n, f)], **shard_times)
     errs = dict(kernels["errs"], **shard_errs)
     record = []

@@ -18,8 +18,10 @@ contiguous block of rows on a device, with no process group:
 * the params are replicated, one copy per distinct device;
 * the fit is K5 (``kernels.anomaly.fit_shard_``): phase A per shard,
   phase B once over every shard's slots in shard order, so that each
-  device ends with the same bits; the score is K1 per shard,
-  concatenated in shard order (rows are independent).
+  device ends with the same bits -- one launch per fit when the shards
+  lie on one card, S + 1 launches a step across cards and for the single
+  steps below; the score is K1 per shard, concatenated in shard order
+  (rows are independent).
 """
 
 from __future__ import annotations

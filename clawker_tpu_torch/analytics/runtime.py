@@ -130,8 +130,9 @@ def _draw(seed: int, steps: int, x: torch.Tensor):
 
 
 def _fit_shards(replicas, xs, noise_shards, lr: float) -> torch.Tensor:
-    """The fit over a mesh's shards, every replica updated in place, in
-    ``steps`` x (S + 1) K5 launches.  -> losses [steps]."""
+    """The fit over a mesh's shards, every replica updated in place: one
+    K5 launch when the shards lie on one card, ``steps`` x (S + 1) over
+    several cards.  -> losses [steps]."""
     losses = torch.empty(len(noise_shards[0]), dtype=torch.float32,
                          device=xs[0].device)
     K.fit_shard_(replicas, xs, noise_shards, lr=lr, sigma=0.25,

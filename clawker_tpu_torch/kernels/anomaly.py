@@ -1,5 +1,6 @@
 """Wrappers of the anomaly kernels: K1 (score), K2 (fit step), K3 (fit) and
-K5 (the fit step over rows split into shards).
+K5 (the fit over rows split into shards: one launch per fit on one card,
+or the per-step route of S + 1 launches a step).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, and launches on the current
@@ -13,6 +14,9 @@ Layouts are the JAX reference's: ``w_enc`` [F, H], ``b_enc`` [H],
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -31,12 +35,18 @@ REDUCE_GROUPS = 8
 SCORE = "anomaly_score"
 FIT_STEP = "anomaly_fit_step"
 FIT = "anomaly_fit"
+FIT_SHARD = "anomaly_fit_shard_fit"
 FIT_SHARD_PARTIALS = "anomaly_fit_shard_partials"
 FIT_SHARD_REDUCE = "anomaly_fit_shard_reduce"
-# K3's trace: points per step (csrc/anomaly_fit.cu, kStamps)
+# K3's and K5's trace: points per step (csrc/anomaly_fit_persistent.cuh,
+# kStamps)
 FIT_STAMPS = 9
-LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0, FIT_SHARD_PARTIALS: 0,
-            FIT_SHARD_REDUCE: 0}
+# K5's one-launch fit: the most shards its table holds (kMaxShards), and a
+# block's most shared memory on an H100 (kMaxSmem)
+MAX_SHARDS = 64
+MAX_SMEM = 232448
+LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0, FIT_SHARD: 0,
+            FIT_SHARD_PARTIALS: 0, FIT_SHARD_REDUCE: 0}
 
 
 def reset_launches() -> None:
@@ -117,6 +127,40 @@ def scratch_floats(n: int, f: int) -> int:
     return staged_floats(f) + fit_slots(n) * slot_floats(f)
 
 
+def _padded(f: int) -> int:
+    return -(-f // 16) * 16
+
+
+def work_bytes(f: int) -> int:
+    """Bytes of phase A's working set in shared memory at F = f
+    (csrc/anomaly_fit_phases.cuh, work_bytes): fp32 gelu'(a) [R][H+8],
+    dr [R][FP+1] and 8 warp sums, the staged weights, then bf16 noisy x
+    [R][FP+8], gelu [R][H+8], dr's three terms [3][R][FP+8] and da's
+    [3][R][H+8]."""
+    fp, ldh = _padded(f), HIDDEN + 8
+    return (4 * (FIT_ROWS * ldh + FIT_ROWS * (fp + 1) + 8)
+            + 4 * staged_floats(f)
+            + 2 * (4 * FIT_ROWS * (fp + 8) + 4 * FIT_ROWS * ldh))
+
+
+def tile_bytes(f: int) -> int:
+    """Bytes of one fp32 [R][FP] tile of x or noise in shared memory."""
+    return 4 * FIT_ROWS * _padded(f)
+
+
+def fit_shared_plan(per_block: int, f: int) -> tuple[int, int]:
+    """The x tiles a block of K3 or of K5's one-launch fit keeps resident
+    when the most tiles any block walks in a step is ``per_block``, and
+    the launch's shared bytes (csrc/anomaly_fit_persistent.cuh,
+    shared_plan): all of them while the working set, the tiles and two
+    noise tiles fit in ``MAX_SMEM``; else 0, one tile reloaded at each
+    tile.  K3 walks ceil(ceil(n / 32) / fit_slots(n)) tiles a block."""
+    base = work_bytes(f) + 2 * tile_bytes(f)
+    if base + per_block * tile_bytes(f) <= MAX_SMEM:
+        return per_block, base + per_block * tile_bytes(f)
+    return 0, base + tile_bytes(f)
+
+
 def _check_scratch(scratch: torch.Tensor, x: torch.Tensor, n: int,
                    f: int) -> None:
     if scratch.dtype != torch.float32:
@@ -181,16 +225,20 @@ def _check_fit(params, x, noises, losses_out, scratch, stamps):
     if scratch is not None:
         _check_scratch(scratch, x, n, f)
     if stamps is not None:
-        if stamps.dim() != 3 or tuple(stamps.shape[:2]) != (steps,
-                                                            FIT_STAMPS):
-            raise ValueError(f"stamps must be [{steps}, {FIT_STAMPS}, "
-                             f"blocks] (the trace's points per step), got "
-                             f"{tuple(stamps.shape)}")
-        if (stamps.dtype != torch.int64 or stamps.device != x.device
-                or x.device.type != "cuda" or not stamps.is_contiguous()):
-            raise ValueError("stamps must be a contiguous int64 tensor on "
-                             "x's CUDA device")
+        _check_stamps(stamps, steps, x.device)
     return n, f, steps
+
+
+def _check_stamps(stamps: torch.Tensor, steps: int,
+                  device: torch.device) -> None:
+    if stamps.dim() != 3 or tuple(stamps.shape[:2]) != (steps, FIT_STAMPS):
+        raise ValueError(f"stamps must be [{steps}, {FIT_STAMPS}, "
+                         f"blocks] (the trace's points per step), got "
+                         f"{tuple(stamps.shape)}")
+    if (stamps.dtype != torch.int64 or stamps.device != device
+            or device.type != "cuda" or not stamps.is_contiguous()):
+        raise ValueError("stamps must be a contiguous int64 tensor on "
+                         "x's CUDA device")
 
 
 def fit_(params, x: torch.Tensor, noises: torch.Tensor, *, lr: float,
@@ -246,6 +294,52 @@ def shard_slot_floats(rows, f: int) -> int:
     return shard_slot_offsets(rows)[-1] * slot_floats(f)
 
 
+def shard_scratch_floats(rows, f: int) -> int:
+    """Floats of the scratch of K5's one-launch fit: the staged weights,
+    then the slot buffer (``shard_slot_floats``)."""
+    return staged_floats(f) + shard_slot_floats(rows, f)
+
+
+class ShardItem(NamedTuple):
+    """One work item of K5's one-launch fit: the per-step route's launch
+    A of shard ``shard``, block ``b``, which walks ``tiles`` of that shard
+    and writes slot ``slot``."""
+    shard: int
+    b: int
+    slot: int
+    tiles: tuple[int, ...]
+
+
+class ShardFitPlan(NamedTuple):
+    """``items[k]``: block k's items, in the order it takes them;
+    ``resident_tiles`` and ``smem`` as ``fit_shared_plan`` gives them."""
+    items: list[list[ShardItem]]
+    resident_tiles: int
+    smem: int
+
+
+def shard_fit_plan(rows, blocks: int, f: int) -> ShardFitPlan:
+    """K5's one-launch fit over shards of ``rows`` rows at F = f on
+    ``blocks`` blocks (one per SM), as csrc/anomaly_fit_shard.cu plans it
+    (item_of, most_block_tiles): slot i is shard s's block
+    b = i - shard_slot_offsets(rows)[s], walking tiles b, b + ga_s, ...
+    (ga_s = fit_slots(n_s)) of shard s; block k takes slots k, k + blocks,
+    ...; its x tiles stay resident while the most any block walks fit."""
+    if not 1 <= len(rows) <= MAX_SHARDS:
+        raise ValueError(f"K5's one-launch fit takes 1 to {MAX_SHARDS} "
+                         f"shards, got {len(rows)}")
+    offsets = shard_slot_offsets(rows)
+    items = [[] for _ in range(blocks)]
+    for s, n in enumerate(rows):
+        ga, tiles = fit_slots(n), -(-n // FIT_ROWS)
+        for b in range(ga):
+            slot = offsets[s] + b
+            items[slot % blocks].append(
+                ShardItem(s, b, slot, tuple(range(b, tiles, ga))))
+    most = max(sum(len(it.tiles) for it in block) for block in items)
+    return ShardFitPlan(items, *fit_shared_plan(most, f))
+
+
 def _rows_contiguous(t: torch.Tensor) -> bool:
     """Each [n, F] matrix of ``t`` (its last two dims) is contiguous."""
     return t.is_contiguous() if t.dim() == 2 else (
@@ -293,13 +387,14 @@ def _check_shards(replicas, xs, noises, steps: int | None):
     return rows, xs[0].shape[1], by_dev
 
 
-def _check_slots(slots: torch.Tensor, home: torch.device, need: int) -> None:
+def _check_slots(slots: torch.Tensor, home: torch.device, need: int,
+                 name: str = "slots") -> None:
     if (slots.dtype != torch.float32 or slots.device != home
             or not slots.is_contiguous() or slots.data_ptr() % 16):
-        raise ValueError(f"slots must be a contiguous float32 tensor on "
+        raise ValueError(f"{name} must be a contiguous float32 tensor on "
                          f"{home} at a 16-byte boundary")
     if slots.numel() < need:
-        raise ValueError(f"slots holds {slots.numel()} floats, needs {need}")
+        raise ValueError(f"{name} holds {slots.numel()} floats, needs {need}")
 
 
 def _shard_stepper(by_dev, xs, rows, f, *, lr, sigma, slots):
@@ -368,7 +463,8 @@ def fit_shard_step_(replicas, xs, noises, *, lr: float, sigma: float,
     step's loss (before the update) to ``loss_out[step]``, on the first
     shard's device.  ``slots`` (float32, at least ``shard_slot_floats``,
     on the first shard's device) receives every shard's slots; None
-    allocates it."""
+    allocates it.  It takes the per-step route on every layout: phase A
+    of each shard, then phase B (``csrc/anomaly_fit_shard.cu``)."""
     rows, f, by_dev = _check_shards(replicas, xs, noises, None)
     home = xs[0].device
     if (loss_out.dim() != 1 or not 0 <= step < loss_out.numel()
@@ -393,14 +489,40 @@ def fit_shard_step_(replicas, xs, noises, *, lr: float, sigma: float,
             loss_out.data_ptr() + step * loss_out.element_size())
 
 
+def _fit_shard_steps(by_dev, xs, noises, rows, f, *, lr, sigma, slots,
+                     losses_out) -> None:
+    """The per-step route of the fit: one ``_shard_stepper`` step for each
+    step of the noise shards, S + 1 launches a step from the host."""
+    stepper = _shard_stepper(by_dev, xs, rows, f, lr=lr, sigma=sigma,
+                             slots=slots)
+    bases = [nz.data_ptr() for nz in noises]
+    strides = [nz.stride(0) * nz.element_size() for nz in noises]
+    loss0 = losses_out.data_ptr()
+    for s in range(noises[0].shape[0]):
+        stepper([b + s * d for b, d in zip(bases, strides)], loss0 + 4 * s)
+
+
 def fit_shard_(replicas, xs, noises, *, lr: float, sigma: float,
                losses_out: torch.Tensor,
-               slots: torch.Tensor | None = None) -> None:
-    """K5, in place: the whole fit over the shards ``xs``, one
-    ``fit_shard_step_`` for each step of the noise shards (``noises[s]`` is
-    shard s's [steps, n_s, F], each step's rows contiguous), as S + 1
-    launches a step from the host.  Writes each step's loss (before its
-    update) to ``losses_out[step]`` on the first shard's device."""
+               scratch: torch.Tensor | None = None,
+               stamps: torch.Tensor | None = None) -> None:
+    """K5, in place: the whole fit over the shards ``xs`` (each [n_s, F],
+    in shard order), one denoising step for each step of the noise shards
+    (``noises[s]`` is shard s's [steps, n_s, F], each step's rows
+    contiguous).  Writes each step's loss (before its update) to
+    ``losses_out[step]`` on the first shard's device.  ``scratch``
+    (float32, at least ``shard_scratch_floats(rows, F)``, on the first
+    shard's device, 16-byte aligned) holds the staged weights and every
+    shard's slots; None allocates it.
+
+    The route follows the layout: all the shards on one CUDA device, one
+    ``anomaly_fit_shard_fit`` launch (at most ``MAX_SHARDS`` shards; more
+    raise ``ValueError``); shards on several cards, the per-step route
+    (S + 1 launches a step, the slots gathered to the first card and the
+    params copied back); the CPU, ``reference.fit_shard``.  Both kernel
+    routes give the same bits.  ``stamps`` (one card only: int64
+    [steps, FIT_STAMPS, the SM count]) asks the one-launch fit for K3's
+    trace of its phases."""
     if not noises or noises[0].dim() != 3:
         raise ValueError("noises must hold one [steps, n_s, F] tensor per "
                          "shard")
@@ -412,6 +534,15 @@ def fit_shard_(replicas, xs, noises, *, lr: float, sigma: float,
             or losses_out.device != home):
         raise ValueError(f"losses_out must hold {steps} float32 losses on "
                          f"{home}")
+    one_device = len(by_dev) == 1
+    if one_device and len(xs) > MAX_SHARDS:
+        raise ValueError(f"at most {MAX_SHARDS} shards on one device, got "
+                         f"{len(xs)}")
+    if stamps is not None:
+        if not one_device:
+            raise ValueError("stamps trace the one-launch fit: the shards "
+                             "must lie on one card")
+        _check_stamps(stamps, steps, home)
     if steps == 0:
         return
     if home.type == "cpu":
@@ -421,14 +552,23 @@ def fit_shard_(replicas, xs, noises, *, lr: float, sigma: float,
             p.copy_(q)
         losses_out.copy_(losses)
         return
-    need = shard_slot_floats(rows, f)
-    if slots is None:
-        slots = torch.empty(need, dtype=torch.float32, device=home)
-    _check_slots(slots, home, need)
-    stepper = _shard_stepper(by_dev, xs, rows, f, lr=lr, sigma=sigma,
-                             slots=slots)
-    bases = [nz.data_ptr() for nz in noises]
-    strides = [nz.stride(0) * nz.element_size() for nz in noises]
-    loss0 = losses_out.data_ptr()
-    for s in range(steps):
-        stepper([b + s * d for b, d in zip(bases, strides)], loss0 + 4 * s)
+    need = shard_scratch_floats(rows, f)
+    if scratch is None:
+        scratch = torch.empty(need, dtype=torch.float32, device=home)
+    _check_slots(scratch, home, need, "scratch")
+    if not one_device:
+        _fit_shard_steps(by_dev, xs, noises, rows, f, lr=lr, sigma=sigma,
+                         slots=scratch[staged_floats(f):],
+                         losses_out=losses_out)
+        return
+    fn = kernel(FIT_SHARD)
+    table = (ctypes.c_longlong * (4 * len(xs)))(*(
+        v for x, nz, n in zip(xs, noises, rows)
+        for v in (x.data_ptr(), nz.data_ptr(), nz.stride(0), n)))
+    with torch.cuda.device(home):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table, len(xs), sigma, *(p.data_ptr() for p in by_dev[home]),
+                 scratch.data_ptr(), scratch.numel(), losses_out.data_ptr(),
+                 lr, f, steps, 0 if stamps is None else stamps.data_ptr(),
+                 0 if stamps is None else stamps.numel(), stream)
+    _launched(FIT_SHARD, err)

@@ -36,7 +36,8 @@ SOURCES = ("anomaly_score", "anomaly_fit_step", "anomaly_fit",
            "anomaly_fit_shard")
 # The C entry points of a source: its own name, unless listed here
 ENTRY_POINTS = {
-    "anomaly_fit_shard": ("anomaly_fit_shard_partials",
+    "anomaly_fit_shard": ("anomaly_fit_shard_fit",
+                          "anomaly_fit_shard_partials",
                           "anomaly_fit_shard_reduce"),
 }
 
@@ -57,6 +58,11 @@ SIGNATURES = {
     # scratch_floats, losses, lr, n, f, steps, stamps, stamps_len, stream
     "anomaly_fit": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _P, _F, _I, _I, _I,
                     _P, _L, _P],
+    # table (shards x 4 int64: x, noise, noise step stride, n_s), shards,
+    # sigma, w_enc, b_enc, w_dec, b_dec, scratch, scratch_floats, losses,
+    # lr, f, steps, stamps, stamps_len, stream
+    "anomaly_fit_shard_fit": [_P, _I, _F, _P, _P, _P, _P, _P, _L, _P, _F, _I,
+                              _I, _P, _L, _P],
     # x, noise, sigma, w_enc, b_enc, w_dec, b_dec, slots, slots_floats, n,
     # n_total, f, stream
     "anomaly_fit_shard_partials": [_P, _P, _F, _P, _P, _P, _P, _P, _L, _I,

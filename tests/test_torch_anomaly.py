@@ -193,7 +193,7 @@ def test_cpu_calls_leave_launch_counters_at_zero():
                                     torch.from_numpy(noise[0]))
     anomaly.train_step(params, torch.from_numpy(x))
     assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
-                          K.FIT_SHARD_PARTIALS: 0,
+                          K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                           K.FIT_SHARD_REDUCE: 0}
 
 

@@ -149,7 +149,7 @@ def test_cpu_fit_leaves_launch_counters_at_zero():
     art._fit(anomaly.params_from_numpy(arrays, device="cpu"),
              torch.from_numpy(x), torch.from_numpy(noises), LR)
     assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
-                          K.FIT_SHARD_PARTIALS: 0,
+                          K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                           K.FIT_SHARD_REDUCE: 0}
 
 

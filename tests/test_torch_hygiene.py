@@ -124,7 +124,7 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
     assert set(doc["raised"]) == {"score_windows", "score_tick",
                                   "resolve_device", "refresh_once"}
     assert doc["launches"] == {"anomaly_score": 0, "anomaly_fit_step": 0,
-                               "anomaly_fit": 0,
+                               "anomaly_fit": 0, "anomaly_fit_shard_fit": 0,
                                "anomaly_fit_shard_partials": 0,
                                "anomaly_fit_shard_reduce": 0}
 
@@ -216,7 +216,7 @@ def test_cpu_tensor_calls_leave_launch_counters_at_zero():
         "       sigma=0.25, losses_out=torch.empty(2))\n"
         "print(json.dumps({'launches': K.LAUNCHES, 'built': sorted(build._libs)}))\n")
     assert doc == {"launches": {"anomaly_score": 0, "anomaly_fit_step": 0,
-                                "anomaly_fit": 0,
+                                "anomaly_fit": 0, "anomaly_fit_shard_fit": 0,
                                 "anomaly_fit_shard_partials": 0,
                                 "anomaly_fit_shard_reduce": 0},
                    "built": []}

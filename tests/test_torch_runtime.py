@@ -225,7 +225,7 @@ class TestScorerTwins:
         K.reset_launches()
         art.score_file(_stream(tmp_path), train_steps=5, device=CPU)
         assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
-                              K.FIT_SHARD_PARTIALS: 0,
+                              K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                               K.FIT_SHARD_REDUCE: 0}
 
 
@@ -303,7 +303,7 @@ class TestDefaultDevice:
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             art.score_windows(X, keys, train_steps=2)
         assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
-                              K.FIT_SHARD_PARTIALS: 0,
+                              K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                               K.FIT_SHARD_REDUCE: 0}
 
     def test_watch_reports_the_error_instead_of_scoring(self, tmp_path):

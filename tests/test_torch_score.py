@@ -120,7 +120,7 @@ def test_cpu_score_is_the_plain_version_and_launches_nothing(feat):
     assert torch.equal(K.score(params, xt), R.score(*params, xt))
     assert torch.equal(anomaly.score(params, xt), R.score(*params, xt))
     assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
-                          K.FIT_SHARD_PARTIALS: 0,
+                          K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                           K.FIT_SHARD_REDUCE: 0}
 
 

@@ -46,7 +46,7 @@ PARAM_ATOL = 1e-5
 LOSS_RTOL = 1e-4
 LR = 1e-2
 CPU = "cpu"
-ZERO_LAUNCHES = {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
+ZERO_LAUNCHES = {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0, K.FIT_SHARD: 0,
                  K.FIT_SHARD_PARTIALS: 0, K.FIT_SHARD_REDUCE: 0}
 
 
