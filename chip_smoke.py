@@ -66,7 +66,22 @@
    shards of the card) is one K5 launch and 4 K1 launches.  The graft
    entry (``entry``, ``dryrun_multichip(8)``: the per-step route, counted)
    and ``bench_lane`` on the card.
-6. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+6. Loop phase, the port's own ``LoopScheduler`` over ``FakeDriver`` (4
+   workers, 8 loops x 3 iterations of 0.2 s each), its dirs under
+   ``build/chip_smoke/loop/``, the host proxy off: (a) with the live
+   ``FleetSentinel`` ticking every 0.05 s while a writer fills the
+   workers' streams mid-run (live timestamps, an exfil burst on one
+   agent): every loop ends ``done`` after 3 iterations, every status row
+   carries ``anomaly_z``, the burst agent has the highest peak z and an
+   ``anomaly.flag`` on the run's bus, the behaviour tracker holds every
+   loop (the bus tap) and ``audit()`` is zero; one K3 and one K1 launch
+   per scored tick, none per idle tick, no K2 or K5; (b) the same run
+   with the egress ``AnomalyWatch`` (F = 32): one K3 and one K1 per
+   refresh; (c) ``python -m clawker_tpu_torch loop -p 4 -n 2 --sentinel
+   --json`` on the fake driver in a subprocess must exit 0 with every
+   agent done.  Prints the runs' wall ms, ticks and (a)'s per-tick stage
+   medians.
+7. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -214,9 +229,10 @@ def synth_egress_records(agents: int = 8, windows: int = 64,
     return out
 
 
-def exfil_burst(agent: str, window: int, n: int = 55) -> list[dict]:
+def exfil_burst(agent: str, window: int, n: int = 55,
+                base: int = 1_700_000_000) -> list[dict]:
     """One agent suddenly sprays denies at many hosts on odd ports."""
-    start = 1_700_000_000 + window * 60
+    start = base + window * 60
     return [{"@timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ",
                                          time.gmtime(start + i % 59)),
              "service": "ebpf-egress", "container": agent,
@@ -225,9 +241,10 @@ def exfil_burst(agent: str, window: int, n: int = 55) -> list[dict]:
             for i in range(n)]
 
 
-def benign_window(agent: str, window: int, n: int) -> list[dict]:
+def benign_window(agent: str, window: int, n: int,
+                  base: int = 1_700_000_000) -> list[dict]:
     """``n`` ordinary records of one agent in one more minute."""
-    start = 1_700_000_000 + window * 60
+    start = base + window * 60
     return [{"@timestamp": time.strftime("%Y-%m-%dT%H:%M:%SZ",
                                          time.gmtime(start + i % 59)),
              "service": "ebpf-egress", "container": agent,
@@ -1924,6 +1941,335 @@ def fleet_cli_phase(device: str) -> None:
           f"{sorted(workers)}, flags {sorted(flags)}")
 
 
+# ------------------------------------------------------------- loop phase
+
+
+LOOP_PROJECT = "chipsmoke"
+LOOP_IMAGE = f"clawker-{LOOP_PROJECT}:default"
+LOOP_WORKERS, LOOP_AGENTS, LOOP_ITERATIONS = 4, 8, 3
+LOOP_ITER_S = 0.2           # each fake iteration holds its container this
+#                             long, so sentinel ticks land mid-run
+LOOP_TICK_S = 0.05
+LOOP_CLI_TICK_S = 0.001     # the CLI's seeded fake exits at once, so its
+#                             run lasts ~0.05 s: its sentinel must tick
+#                             at once to score inside it
+LOOP_WINDOWS, LOOP_PER_WINDOW = 6, 12
+LOOP_HOT_SLOT = 5
+# the host proxy (on by default) is not ported yet
+LOOP_SETTINGS = "host_proxy:\n  enable: false\n"
+_XDG = ("CONFIG", "DATA", "STATE", "CACHE")
+
+
+@contextlib.contextmanager
+def _isolated_dirs(base: Path, settings: str = LOOP_SETTINGS):
+    """Fresh XDG dirs under ``base`` (``CLAWKER_TPU_*_DIR``), the loop
+    settings and a project dir; -> the project dir."""
+    if base.exists():
+        shutil.rmtree(base)
+    saved = {}
+    for name in _XDG:
+        (base / name.lower()).mkdir(parents=True)
+        key = f"CLAWKER_TPU_{name}_DIR"
+        saved[key] = os.environ.get(key)
+        os.environ[key] = str(base / name.lower())
+    (base / "config" / "settings.yaml").write_text(settings)
+    proj = base / "proj"
+    proj.mkdir()
+    (proj / ".clawker.yaml").write_text(f"project: {LOOP_PROJECT}\n")
+    try:
+        yield proj
+    finally:
+        for key, old in saved.items():
+            if old is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = old
+
+
+def _loop_egress(agents: list[str], hot: str,
+                 now: float) -> dict[str, list[dict]]:
+    """Worker id -> its loops' egress (spread: agent i on
+    fake-(i % LOOP_WORKERS)) over the minutes up to ``now``'s, with an
+    exfil burst on ``hot`` in the last one: live records, which the
+    sentinel fuses with the run's events of the same minute.  Records
+    name containers, as the netlogger does."""
+    base = int(now) - int(now) % 60 - (LOOP_WINDOWS - 1) * 60
+    out = {f"fake-{w}": [] for w in range(LOOP_WORKERS)}
+    for a, agent in enumerate(agents):
+        wid = f"fake-{a % LOOP_WORKERS}"
+        container = f"clawker.{LOOP_PROJECT}.{agent}"
+        for w in range(LOOP_WINDOWS):
+            out[wid] += benign_window(container, w, LOOP_PER_WINDOW, base)
+    wid = f"fake-{agents.index(hot) % LOOP_WORKERS}"
+    out[wid] += exfil_burst(f"clawker.{LOOP_PROJECT}.{hot}",
+                            window=LOOP_WINDOWS - 1, base=base)
+    for wid, recs in out.items():
+        for r in recs:
+            r["worker"] = wid
+    return out
+
+
+def _loop_run(proj: Path, attach, *, writer):
+    """One in-process run of the port's scheduler over the fake driver:
+    ``attach(sched, cfg, driver)`` wires the rider (and returns it, not
+    yet started); ``writer(cfg, agents)`` appends the fleet's egress on
+    a thread while the loops run.  -> (scheduler, rider, agent names,
+    run wall ms)."""
+    import threading
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.fake import exit_behavior
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+
+    cfg = load_config(proj)
+    drv = FakeDriver(n_workers=LOOP_WORKERS)
+    for api in drv.apis:
+        api.add_image(LOOP_IMAGE)
+        api.set_behavior(LOOP_IMAGE, exit_behavior(
+            b"iteration done\n", 0, delay=LOOP_ITER_S))
+    sched = LoopScheduler(cfg, drv, LoopSpec(parallel=LOOP_AGENTS,
+                                             iterations=LOOP_ITERATIONS))
+    rider = attach(sched, cfg, drv)
+    agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+    fill = threading.Thread(target=writer, args=(cfg, agents),
+                            name="loop-egress-writer")
+    t0 = time.perf_counter()
+    rider.start()
+    sched.start()
+    fill.start()
+    try:
+        sched.run(poll_s=0.05)
+    finally:
+        fill.join(30)
+    wall = (time.perf_counter() - t0) * 1e3
+    return sched, rider, agents, wall
+
+
+def _check_loop_rows(name: str, rows: list[dict]) -> None:
+    check(len(rows) == LOOP_AGENTS
+          and all(r["status"] == "done" and r["iteration"] == LOOP_ITERATIONS
+                  and r["exit_codes"] == [0] * LOOP_ITERATIONS
+                  for r in rows), f"{name}: final rows {rows}")
+    check(all("anomaly_z" in r for r in rows),
+          f"{name}: rows without anomaly_z: {rows}")
+
+
+def loop_sentinel_case(base: Path, device, stages: dict):
+    """(a): 8 loops x 3 iterations over 4 fake workers with the live
+    sentinel on its ticking thread; the workers' streams fill mid-run."""
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG
+    from clawker_tpu_torch.sentinel import FleetSentinel
+
+    name = "loop (a)"
+    bus_records = []
+    box = {}
+
+    def attach(sched, cfg, drv):
+        s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                          interval_s=LOOP_TICK_S,
+                          train_steps=SENTINEL_STEPS)
+        box["log"] = TickLog(s, stages)
+        sched.attach_sentinel(s)
+        sched.events.add_tap(bus_records.append)
+        return s
+
+    def writer(cfg, agents):
+        streams = _loop_egress(agents, agents[LOOP_HOT_SLOT], time.time())
+        for wid, recs in streams.items():
+            _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+
+    with _isolated_dirs(base) as proj:
+        sched, s, agents, wall = _loop_run(proj, attach, writer=writer)
+        log = box["log"]
+        # a scored tick must have seen every record the writer appended
+        want = sum(len(v) for v in _loop_egress(agents, agents[0],
+                                                0).values())
+        deadline = time.perf_counter() + 10
+        while s._scored_at[0] < want and time.perf_counter() < deadline:
+            time.sleep(LOOP_TICK_S)
+        s.stop()
+        sched.events.flush()
+        rows = sched.status()
+        peaks = {r["agent"]: r["peak_z"] for r in s.rows()}
+        snapshot = s.behavior.snapshot()
+        audit = s.audit()
+        flags = s.flags()
+        sched.cleanup(remove_containers=True)
+    hot = agents[LOOP_HOT_SLOT]
+    scored = [entry for entry in log.ticks if entry[0]]
+    for entry in log.ticks:
+        log.check(name, entry, scored=bool(entry[0]))
+    check(scored, f"{name}: the sentinel scored no tick during the run")
+    _check_loop_rows(name, rows)
+    container = f"clawker.{LOOP_PROJECT}.{hot}"
+    check(max(peaks, key=peaks.get) == container,
+          f"{name}: hottest {max(peaks, key=peaks.get)} (peak z {peaks}), "
+          f"want {container}")
+    check(any(r.event == ANOMALY_FLAG and r.agent == container
+              for r in bus_records),
+          f"{name}: no {ANOMALY_FLAG} for {container} on the run's bus "
+          f"(flags {flags})")
+    check(set(snapshot) == set(agents),
+          f"{name}: behaviour snapshot holds {sorted(snapshot)}")
+    check(not any(audit.values()), f"{name}: audit {audit}")
+    # each tick's own launches were held by ``log.check`` above (one K3
+    # and one K1 on one card; K5 and one K1 a card over several)
+    import torch
+
+    cards = torch.cuda.device_count()
+    launches = log.launches()
+    fits = launches["anomaly_fit"] if cards == 1 else sum(
+        1 for entry in scored if entry[1]["anomaly_fit_shard_reduce"])
+    check(fits == len(scored)
+          and launches["anomaly_score"] == cards * len(scored),
+          f"{name}: launches {dict(launches)} over {len(scored)} scored "
+          f"ticks on {cards} card(s)")
+    print(f"loop (a) {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations over "
+          f"{LOOP_WORKERS} fake workers ({LOOP_ITER_S} s each) with the "
+          f"sentinel ticking every {LOOP_TICK_S} s: run wall {wall!r} ms, "
+          f"{len(log.ticks)} ticks, {len(scored)} scored (the last over "
+          f"{scored[-1][3].windows} windows, [{-(-scored[-1][3].windows // 128) * 128},40] "
+          f"x{SENTINEL_STEPS}), {hot} hottest "
+          f"(peak z {peaks[container]}), flags "
+          f"{sorted((f['agent'], f['kind']) for f in flags)}")
+    print(f"loop (a): {log.stage_line()}")
+    return launches
+
+
+def loop_watch_case(base: Path, device):
+    """(b): the same run with the egress AnomalyWatch (F = 32) on the
+    shared stream in place of the sentinel."""
+    from clawker_tpu_torch.analytics.runtime import AnomalyWatch
+
+    name = "loop (b)"
+    refreshes = []
+    errors = []
+
+    def attach(sched, cfg, drv):
+        w = AnomalyWatch(cfg.logs_dir / "ebpf-egress.jsonl", device=device,
+                         interval_s=LOOP_TICK_S)
+        sched.attach_anomaly_watch(w)
+        w.on_error = errors.append
+        refresh = w.refresh_once
+
+        def counted() -> int:
+            n, counts = _counted(refresh)
+            refreshes.append((n, counts))
+            return n
+
+        w.refresh_once = counted
+        return w
+
+    def writer(cfg, agents):
+        streams = _loop_egress(agents, agents[LOOP_HOT_SLOT], time.time())
+        _append(cfg.logs_dir / "ebpf-egress.jsonl",
+                [r for recs in streams.values() for r in recs])
+
+    with _isolated_dirs(base) as proj:
+        sched, w, agents, wall = _loop_run(proj, attach, writer=writer)
+        w.stop()
+        rows = sched.status()
+        sched.cleanup(remove_containers=True)
+    check(not errors, f"{name}: the watch reported {errors}")
+    scored = [counts for n, counts in refreshes if n]
+    check(scored, f"{name}: the watch scored nothing during the run")
+    for n, counts in refreshes:
+        if n:
+            _check_fit_launches(name, counts)
+        else:
+            check(not any(counts.values()),
+                  f"{name}: an empty refresh launched {counts}")
+    _check_loop_rows(name, rows)
+    launches = collections.Counter()
+    for counts in scored:
+        launches.update(counts)
+    print(f"loop (b) the same run with AnomalyWatch every {LOOP_TICK_S} s: "
+          f"run wall {wall!r} ms, {len(refreshes)} refreshes, "
+          f"{len(scored)} scored; launches {json.dumps(launches)}")
+    return launches
+
+
+def loop_cli_case(base: Path, device: str) -> None:
+    """(c): ``python -m clawker_tpu_torch loop -p 4 -n 2 --sentinel
+    --json`` on the fake driver, in a subprocess, with the sentinel
+    ticking every ``LOOP_CLI_TICK_S`` over egress written beforehand into its
+    one worker's stream: the run must end with a ``sentinel.tick`` span
+    scored on the card in its flight record and no rider error."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.monitor.ledger import flight_path
+    from clawker_tpu_torch.telemetry import SPAN_SENTINEL_TICK, load_spans
+
+    name = "loop (c)"
+    # the check reads the run's flight record, which the soft disk
+    # watermark (10% free by default) sheds on a nearly full disk
+    settings = (LOOP_SETTINGS
+                + f"sentinel:\n  interval_s: {LOOP_CLI_TICK_S}\n"
+                + "loop:\n  storage_pressure:\n    soft_free_pct: 0.001\n"
+                + "    hard_free_pct: 0.0005\n")
+    with _isolated_dirs(base, settings) as proj:
+        logs = load_config(proj).logs_dir
+        logs.mkdir(parents=True, exist_ok=True)
+        agents = [f"cli-{i}" for i in range(LOOP_WINDOWS)]
+        records = [r for recs in _loop_egress(agents, agents[-1],
+                                              time.time()).values()
+                   for r in recs]
+        for r in records:
+            r["worker"] = "fake-0"
+        _append(logs / "ebpf-egress-fake-0.jsonl", records)
+        env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+                   CLAWKER_TPU_DRIVER="fake",
+                   CLAWKER_TPU_FAKE_IMAGES=LOOP_IMAGE,
+                   PYTHONPATH=str(ROOT))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "clawker_tpu_torch", "loop", "-p", "4",
+             "-n", "2", "--sentinel", "--json"],
+            cwd=proj, env=env, capture_output=True, text=True, timeout=300)
+        wall = (time.perf_counter() - t0) * 1e3
+        check(proc.returncode == 0,
+              f"{name}: exited {proc.returncode}: {proc.stderr[-2000:]}")
+        for bad in ("anomaly_watch_error", "no CUDA GPU"):
+            check(bad not in proc.stderr,
+                  f"{name}: the rider failed: {proc.stderr[-2000:]}")
+        doc = json.loads(proc.stdout)
+        spans = load_spans(flight_path(logs, doc["loop_id"]).read_text()
+                           .splitlines())
+    ticks = [sp for sp in spans if sp.name == SPAN_SENTINEL_TICK]
+    iters = [sp for sp in spans if sp.name == "iteration"]
+    check(len(doc["agents"]) == 4
+          and all(a["status"] == "done" and a["iteration"] == 2
+                  for a in doc["agents"]), f"{name}: agents {doc['agents']}")
+    check(ticks and all(sp.attrs["device"].startswith(device)
+                        for sp in ticks),
+          f"{name}: scored ticks in the flight record: "
+          f"{[sp.attrs for sp in ticks]} among "
+          f"{collections.Counter(sp.name for sp in spans)}; stderr "
+          f"{proc.stderr[-2000:]}")
+    t0 = min(sp.t_start for sp in iters)
+    print(f"loop (c) cli: exit 0, {len(doc['agents'])} agents done, "
+          f"iterations from 0 to {max(sp.t_end for sp in iters) - t0!r} s; "
+          f"{len(ticks)} sentinel ticks scored on "
+          f"{ticks[0].attrs['device']}, the first from "
+          f"{ticks[0].t_start - t0!r} to {ticks[0].t_end - t0!r} s over "
+          f"{ticks[0].attrs['windows']} windows; durability "
+          f"{doc['storage']['durability']}, subprocess wall {wall!r} ms")
+
+
+def loop_phase(device) -> collections.Counter:
+    """Drives the port's ``loop`` with its two riders; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "loop"
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    with stage_timers({}) as stages:
+        total.update(loop_sentinel_case(out / "a", device, stages))
+    total.update(loop_watch_case(out / "b", device))
+    loop_cli_case(out / "c", device)
+    print(f"loop launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -2020,6 +2366,8 @@ def main() -> int:
         main_path["launches"][k] += v
     bench_lane_phase(device)
     for k, v in sentinel_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in loop_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

@@ -6,15 +6,22 @@ of the reference's ``clawker monitor anomalies``
 windows (or no accelerator), 2 when an agent's latest z crosses
 ``--threshold``.  ``fleet anomaly`` those of ``clawker fleet anomaly``
 (``clawker_tpu/cli/cmd_fleet.py:761-900``): 0 scored, 1 no scorable
-windows (or no accelerator), 2 when an agent's window flags.  The device
-comes from ``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the
-plain PyTorch versions.
+windows (or no accelerator), 2 when an agent's window flags.  ``loop``
+is the in-process part of ``clawker loop``
+(``clawker_tpu/cli/cmd_loop.py:87-628``): the port's own
+:class:`~clawker_tpu_torch.loop.LoopScheduler` over the driver that
+``CLAWKER_TPU_DRIVER`` / settings ``runtime.driver`` names, with the
+anomaly riders scoring on the GPU.  The device comes from
+``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the plain
+PyTorch versions.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
+import signal
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -113,6 +120,27 @@ def _device(verb: str) -> str:
                    "the CPU)", err=True)
         raise SystemExit(1)
     return device
+
+
+def _bring_up(verb: str, device: str) -> None:
+    """Open the CUDA context and load the kernels before a long-running
+    verb starts its rider: the rider's first tick then scores at once
+    instead of paying seconds of set-up mid-run, and a card or a build
+    that fails stops the verb before it starts anything (exit 1)."""
+    import torch
+
+    from .analytics import runtime as art
+    from .kernels import build
+
+    dev = art.resolve_device(device)
+    if dev.type != "cuda":
+        return
+    try:
+        torch.zeros(1, device=dev)
+        build.build_all()
+    except RuntimeError as e:      # CUDA errors and KernelCompileError
+        click.echo(f"{verb}: cannot bring up {dev}: {e}", err=True)
+        raise SystemExit(1)
 
 
 @cli.group("fleet")
@@ -236,6 +264,324 @@ def _render_anomaly_rows(rows: list[dict]) -> None:
             r["agent"], r["worker"] or "-", r["windows"],
             r["latest_z"], r["peak_z"], r.get("stream_records", 0),
             "ANOMALOUS" if r.get("flagged") else "-")))
+
+
+# ------------------------------------------------------------------- loop
+
+ENV_DRIVER = "CLAWKER_TPU_DRIVER"
+
+
+class Factory:
+    """The dependencies ``loop`` needs, built lazily: the port's copy of
+    the ``config`` and ``driver`` properties of
+    ``clawker_tpu/cli/factory.py``.  Tests pass a driver in; the CLI
+    takes it from ``CLAWKER_TPU_DRIVER`` or settings ``runtime.driver``."""
+
+    def __init__(self, *, cwd: Path | None = None, driver=None,
+                 config=None):
+        self.cwd = cwd or Path.cwd()
+        self._driver_override = driver
+        self._config_override = config
+
+    @functools.cached_property
+    def config(self):
+        from .config import load_config
+
+        if self._config_override is not None:
+            return self._config_override
+        return load_config(self.cwd)
+
+    @functools.cached_property
+    def driver(self):
+        from .engine.drivers import get_driver
+
+        if self._driver_override is not None:
+            return self._driver_override
+        return get_driver(self.config.settings,
+                          override=os.environ.get(ENV_DRIVER, ""))
+
+
+class _TwoStageInterrupt:
+    """First Ctrl-C drains gracefully (a clean ``shutdown`` journal
+    record); a second Ctrl-C hard-exits."""
+
+    def __init__(self, sched):
+        self.sched = sched
+        self.hits = 0
+
+    def __call__(self, signum=None, frame=None) -> None:
+        self.hits += 1
+        if self.hits == 1:
+            click.echo("\ninterrupt: draining loops (Ctrl-C again to "
+                       "hard-exit)", err=True)
+            self.sched.request_shutdown("sigint")
+        else:
+            click.echo("\nsecond interrupt: hard exit", err=True)
+            os._exit(130)
+
+
+def _no_daemon(what: str) -> click.ClickException:
+    return click.ClickException(
+        f"{what} needs the loopd daemon, which is not yet ported to "
+        "clawker_tpu_torch: the port runs loops in process only")
+
+
+def _not_ported(what: str) -> click.ClickException:
+    return click.ClickException(
+        f"{what} is not yet ported to clawker_tpu_torch")
+
+
+@cli.group("loop", invoke_without_command=True)
+@click.option("--parallel", "-p", type=int, default=0,
+              help="Number of agent loops (default: settings loop.parallel).")
+@click.option("--iterations", "-n", type=int, default=-1,
+              help="Iterations per agent (0 = until interrupted; "
+                   "default: settings loop.max_iterations).")
+@click.option("--placement",
+              type=click.Choice(["spread", "pack", "topology"]), default=None,
+              help="spread = latency-weighted round-robin over workers "
+                   "(default); pack = all on the first healthy worker; "
+                   "topology = prefer grid-local worker groups (falls back "
+                   "to spread when the topology is unknown).")
+@click.option("--tenant", default=None,
+              help="Fairness class this run bills launches under "
+                   "(default: settings loop.placement.tenant).")
+@click.option("--tenant-weight", type=float, default=None,
+              help="Weighted-fair-queue share vs co-tenants "
+                   "(default: settings loop.placement.tenant_weight).")
+@click.option("--max-inflight-per-worker", type=int, default=None,
+              help="Admission token bucket: concurrent in-flight "
+                   "create/start launches allowed per worker (default: "
+                   "settings loop.placement.max_inflight_per_worker).")
+@click.option("--warm-pool", "warm_pool", type=int, default=None,
+              help="Per-worker warm pool depth (not yet ported: any "
+                   "depth above 0 is refused).")
+@click.option("--image", default="@", help="Agent image ('@' = project default).")
+@click.option("--prompt", default="", help="Prompt handed to each harness loop.")
+@click.option("--worktrees/--no-worktrees", default=False,
+              help="One git worktree per agent loop (not yet ported: "
+                   "refused).")
+@click.option("--gitguard/--no-gitguard", "gitguard", default=None,
+              help="Git-protocol firewall for worktree runs (not yet "
+                   "ported: refused).")
+@click.option("--env", "env_kv", multiple=True, help="KEY=VAL extra agent env.")
+@click.option("--failover", type=click.Choice(["migrate", "wait", "fail"]),
+              default=None,
+              help="When a worker's health breaker opens: migrate its loops "
+                   "to the healthiest worker (default), wait for recovery, "
+                   "or fail them.")
+@click.option("--orphan-grace", type=float, default=None,
+              help="Seconds an orphaned loop may wait for a healthy "
+                   "placement before failing (default 600, 0 = fail "
+                   "immediately).")
+@click.option("--resume", "resume_run", default=None, metavar="RUN",
+              help="Resume a journaled run (not yet ported: refused).")
+@click.option("--metrics-port", type=int, default=None,
+              help="Prometheus scrape port (not yet ported: any port "
+                   "above 0 is refused).")
+@click.option("--sentinel/--no-sentinel", "sentinel_flag", default=None,
+              help="Attach the online fleet sentinel in place of the "
+                   "egress AnomalyWatch: fused egress + behavior windows "
+                   "scored on the GPU each tick, flags as typed "
+                   "anomaly.flag events (default: settings "
+                   "sentinel.enable).")
+@click.option("--ship-telemetry/--no-ship-telemetry", "ship_telemetry",
+              default=None,
+              help="Bulk-ship telemetry into the monitor stack (not yet "
+                   "ported: refused).")
+@click.option("--chaos-plan", "chaos_plan", type=click.Path(exists=True),
+              default=None, help="Chaos fault plan (not yet ported: refused).")
+@click.option("--json", "as_json", is_flag=True, help="Final status as JSON.")
+@click.option("--keep", is_flag=True, help="Keep containers after the run.")
+@click.option("--daemon/--no-daemon", "use_daemon", default=None,
+              help="--no-daemon runs in process, which the port always "
+                   "does; --daemon is refused (no loopd yet).")
+@click.option("--workerd/--no-workerd", "use_workerd", default=None,
+              help="--no-workerd keeps the direct engine path, which the "
+                   "port always takes; --workerd is refused (no workerd "
+                   "yet).")
+@click.option("--detach", is_flag=True,
+              help="Daemon mode only: refused (no loopd yet).")
+@click.option("--pods", "use_pods", is_flag=True,
+              help="Federated mode: refused (no loopd yet).")
+@click.pass_context
+def loop_group(ctx, parallel, iterations, placement, tenant, tenant_weight,
+               max_inflight_per_worker, warm_pool, image, prompt, worktrees,
+               gitguard, env_kv, failover, orphan_grace, resume_run,
+               metrics_port, sentinel_flag, ship_telemetry, chaos_plan,
+               as_json, keep, use_daemon, use_workerd, detach, use_pods):
+    """Fan autonomous agent loops across the runtime's workers, in
+    process, with fleet anomaly scoring on the GPU."""
+    if ctx.invoked_subcommand is not None:
+        return
+    f = ctx.obj if isinstance(ctx.obj, Factory) else Factory()
+    _run_loops(f, parallel=parallel, iterations=iterations,
+               placement=placement, tenant=tenant,
+               tenant_weight=tenant_weight,
+               max_inflight_per_worker=max_inflight_per_worker,
+               warm_pool=warm_pool, image=image, prompt=prompt,
+               worktrees=worktrees, gitguard=gitguard, env_kv=env_kv,
+               failover=failover, orphan_grace=orphan_grace,
+               resume_run=resume_run, metrics_port=metrics_port,
+               sentinel_flag=sentinel_flag, ship_telemetry=ship_telemetry,
+               chaos_plan=chaos_plan, as_json=as_json, keep=keep,
+               use_daemon=use_daemon, use_workerd=use_workerd,
+               detach=detach, use_pods=use_pods)
+
+
+def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
+               tenant_weight, max_inflight_per_worker, warm_pool, image,
+               prompt, worktrees, gitguard, env_kv, failover, orphan_grace,
+               resume_run, metrics_port, sentinel_flag, ship_telemetry,
+               chaos_plan, as_json, keep, use_daemon, use_workerd, detach,
+               use_pods):
+    from .errors import ClawkerError
+    from .loop import LoopScheduler, LoopSpec
+
+    for flag, what in ((use_daemon, "--daemon"), (detach, "--detach"),
+                       (use_pods, "--pods")):
+        if flag:
+            raise _no_daemon(what)
+    if use_workerd:
+        raise click.ClickException(
+            "--workerd needs the workerd daemon, which is not yet ported "
+            "to clawker_tpu_torch: the port calls the engines directly")
+    if resume_run:
+        raise _not_ported("--resume")
+    if chaos_plan:
+        raise _not_ported("--chaos-plan")
+    env = {}
+    for kv in env_kv:
+        if "=" not in kv:
+            raise click.BadParameter(f"--env {kv!r}: expected KEY=VAL")
+        k, _, v = kv.partition("=")
+        env[k] = v
+    try:
+        cfg = f.config
+        driver = f.driver
+    except ClawkerError as e:
+        raise click.ClickException(str(e))
+    settings = cfg.settings
+    tele = settings.telemetry
+    port = metrics_port if metrics_port is not None else tele.metrics_port
+    if port:
+        raise _not_ported("the metrics server (--metrics-port, settings "
+                          "telemetry.metrics_port)")
+    if tele.otlp:
+        raise _not_ported("the OTLP metrics lane (settings telemetry.otlp)")
+    want_ship = (ship_telemetry if ship_telemetry is not None
+                 else settings.monitoring.shipper.enable)
+    if want_ship:
+        raise _not_ported("the telemetry shipper (--ship-telemetry, "
+                          "settings monitoring.shipper.enable)")
+    # the riders score on the GPU: without one (and without
+    # CLAWKER_TORCH_DEVICE=cpu) the run never starts
+    device = _device("loop")
+    _bring_up("loop", device)
+    defaults = settings.loop
+    pdef = defaults.placement
+    wps = defaults.warm_pool
+    spec = LoopSpec(
+        parallel=parallel or defaults.parallel,
+        iterations=(iterations if iterations >= 0
+                    else defaults.max_iterations),
+        placement=placement or pdef.policy,
+        tenant=tenant or pdef.tenant,
+        tenant_weight=(tenant_weight if tenant_weight is not None
+                       else pdef.tenant_weight),
+        max_inflight_per_worker=max_inflight_per_worker or 0,
+        warm_pool_depth=(warm_pool if warm_pool is not None
+                         else (wps.depth if wps.enable else 0)),
+        image=image,
+        prompt=prompt,
+        worktrees=worktrees,
+        gitguard=gitguard,
+        env=env,
+        failover=failover or defaults.failover,
+        orphan_grace_s=orphan_grace,
+        telemetry=tele.flight_recorder.enable,
+    )
+
+    def on_event(agent, event, detail=""):
+        if event == "trace.span":
+            return      # spans go to the flight recorder; the stderr
+            #             lines stay the lifecycle stream
+        click.echo(f"[{agent}] {event}" + (f" {detail}" if detail else ""),
+                   err=True)
+
+    if settings.capacity.enable:
+        raise _not_ported("the elastic capacity controller (settings "
+                          "capacity.enable)")
+    try:
+        sched = LoopScheduler(cfg, driver, spec, on_event=on_event)
+    except ClawkerError as e:
+        raise click.ClickException(str(e))
+    # fleet anomaly scoring rides along: scores land in the status JSON
+    # and as scheduler events past the threshold.  With --sentinel (or
+    # settings sentinel.enable) the single-file AnomalyWatch is replaced
+    # by the online fleet sentinel.  Strictly observe-only either way.
+    ss = settings.sentinel
+    want_sentinel = (sentinel_flag if sentinel_flag is not None
+                     else ss.enable)
+    if want_sentinel:
+        from .sentinel import FleetSentinel
+
+        watch = FleetSentinel(
+            cfg, driver, run_id=sched.loop_id, interval_s=ss.interval_s,
+            window_s=ss.window_s, train_steps=ss.train_steps,
+            threshold=ss.threshold, baseline_window=ss.baseline_window,
+            device=device)
+        sched.attach_sentinel(watch)
+    else:
+        from .analytics.runtime import AnomalyWatch
+
+        watch = AnomalyWatch(cfg.logs_dir / "ebpf-egress.jsonl",
+                             device=device)
+        sched.attach_anomaly_watch(watch)
+    watch.start()
+    signal.signal(signal.SIGINT, _TwoStageInterrupt(sched))
+    signal.signal(signal.SIGTERM,
+                  lambda *_: sched.request_shutdown("sigterm"))
+    click.echo(
+        f"loop {sched.loop_id}: {spec.parallel} agent(s), "
+        f"{spec.iterations or 'unbounded'} iteration(s), {spec.placement} "
+        f"placement, {spec.failover} failover"
+        + (f", tenant {spec.tenant}" if spec.tenant != "default" else ""),
+        err=True)
+    try:
+        sched.start()
+        loops = sched.run()
+    finally:
+        watch.stop()
+    if not keep:
+        sched.cleanup(remove_containers=True)
+    stor = sched.storage_summary()
+    if as_json:
+        click.echo(json.dumps({"loop_id": sched.loop_id,
+                               "agents": sched.status(),
+                               "storage": stor}, indent=2))
+    else:
+        if stor.get("durability") != "ok":
+            click.echo(f"storage: durability {stor.get('durability')} "
+                       f"({stor.get('faults', 0)} fault(s))", err=True)
+        for l in loops:
+            codes = ",".join(map(str, l.exit_codes)) or "-"
+            click.echo(f"{l.agent}\t{l.worker.id}\t{l.status}\t"
+                       f"iters={l.iteration}\texits={codes}")
+        if sched.flight is not None:
+            click.echo(f"trace: {sched.flight.path}", err=True)
+    # orphaned loops never completed their budget (worker died, no
+    # failover outcome before stop): that is not a success either
+    if any(l.status in ("failed", "orphaned") for l in loops):
+        raise SystemExit(1)
+
+
+@loop_group.command("attach")
+@click.argument("run")
+@click.option("--json", "as_json", is_flag=True, help="Final status as JSON.")
+def loop_attach(run, as_json):
+    """Re-attach to a daemon-owned run: refused (no loopd yet)."""
+    raise _no_daemon("loop attach")
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,7 @@
-"""Fleet wiring shared with the sentinel (copied from the reference package).
+"""Fleet wiring (copied from the reference package).
 
-Only the worker-side egress log path is ported so far; worker
-discovery, the SSH transport and the dashboard's ``EgressFeed`` are not.
+Ported so far: the worker-side egress log path (:mod:`.egress_tail`),
+the pod topology that placement reads (:mod:`.inventory`) and the local
+branch of the side channels (:mod:`.channels`).  Worker discovery, the
+SSH transport and the dashboard's ``EgressFeed`` are not.
 """

@@ -1,0 +1,340 @@
+"""Agent-container orchestration: create -> bootstrap -> start -> attach.
+
+The port's copy of ``clawker_tpu/runtime/orchestrate.py``, without two
+parts that wait for their slice (ROADMAP §1):
+
+- harness config staging (``harness_seed_tar`` and its cache, over the
+  bundle resolver and ``containerfs``): a create stages no host harness
+  state into the config volume.  That changes what is in the
+  container, not any status, journal record or event;
+- warm-pool adoption (``adopt_pooled``, ``prefetch_seeds``), which
+  comes with ``--warm-pool``.
+
+The workspace seed cache (``workspace_seed_tar``) is here: every
+snapshot-mode create journals its digest.
+
+Parity reference: internal/cmd/container/shared/container_create.go:1473
+CreateContainer (workspace prep, config volumes, env assembly, create,
+bootstrap material) and container_start.go (BootstrapServicesPreStart /
+PostStart).  The control-plane/firewall bootstrap hooks are injected as
+callables so this module stays below the CP layer in the import DAG.
+"""
+
+from __future__ import annotations
+
+import sys
+import threading
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import BinaryIO, Callable
+
+from .. import consts
+from ..config import Config
+from ..engine.api import ContainerSpec, Engine
+from ..errors import ConflictError
+from ..util import phases
+from . import attach as attach_mod
+from .labels import agent_labels
+from .names import container_name
+from .resolve import resolve_image
+
+# --- workspace-seed digest cache (docs/loop-worktrees.md#seed-cache) ------
+# The same TTL-cache pattern, extended to the workspace snapshot itself:
+# SnapshotSeed used to re-walk and re-tar the ENTIRE project tree per
+# agent per create, so a 32-agent fan-out on one repo paid 32 identical
+# tree walks.  The tar is deterministic (workspace.strategy._tar_tree
+# normalizes every non-content field), so it digests to a stable sha256;
+# the cache maps project root -> (built_at, digest, tar) and a second
+# digest-keyed view serves the bytes back to whoever fans them out (the
+# scheduler shipping one copy per worker into workerd seed stores).
+_WORKSPACE_TAR_TTL_S = 30.0
+_workspace_tar_cache: dict[str, tuple[float, str, bytes]] = {}
+_workspace_tar_lock = threading.Lock()
+
+
+def clear_workspace_seed_cache() -> None:
+    """Drop cached workspace seed tars (tests; explicit invalidation)."""
+    with _workspace_tar_lock:
+        _workspace_tar_cache.clear()
+
+
+def workspace_seed_tar(root: Path) -> tuple[str, bytes]:
+    """``(digest, tar)`` for the project tree at ``root``: built once,
+    then served from the TTL-bounded cache -- the tree walk is paid per
+    *fan-out*, not per agent.  N git worktrees forked from one base have
+    identical content and therefore collapse to one digest, but each
+    worktree path keys its own entry (the walk is what discovers the
+    content, so a path-keyed probe is the only free lookup)."""
+    from ..workspace.strategy import (
+        _SEED_CACHE_HITS,
+        _SEED_CACHE_MISSES,
+        _tar_tree,
+        seed_digest,
+    )
+
+    key = str(root)
+    now = time.monotonic()
+    with _workspace_tar_lock:
+        hit = _workspace_tar_cache.get(key)
+        if hit is not None and now - hit[0] < _WORKSPACE_TAR_TTL_S:
+            phases.incr("workspace_seed.tar_cache_hit")
+            _SEED_CACHE_HITS.inc()
+            return hit[1], hit[2]
+    phases.incr("workspace_seed.tar_cache_miss")
+    _SEED_CACHE_MISSES.inc()
+    tar = _tar_tree(Path(root))
+    digest = seed_digest(tar)
+    with _workspace_tar_lock:
+        if len(_workspace_tar_cache) > 64:
+            _workspace_tar_cache.clear()
+        _workspace_tar_cache[key] = (now, digest, tar)
+    return digest, tar
+
+
+def workspace_seed_by_digest(digest: str) -> bytes | None:
+    """The cached tar for ``digest`` (any root), or None when the cache
+    no longer holds it -- the content-addressed view the seed fan-out
+    re-serves worker copies from."""
+    with _workspace_tar_lock:
+        for (_ts, d, tar) in _workspace_tar_cache.values():
+            if d == digest:
+                return tar
+    return None
+
+
+@dataclass
+class CreateOptions:
+    agent: str = "dev"
+    image: str = "@"                  # '@' = project default harness image
+    cmd: list[str] = field(default_factory=list)
+    env: dict[str, str] = field(default_factory=dict)
+    tty: bool = True
+    workspace_mode: str = ""          # '' = project config value
+    harness: str = ""
+    worker: str = ""                  # tpu_vm worker id (label only here)
+    loop_id: str = ""
+    extra_labels: dict[str, str] = field(default_factory=dict)  # caller-scoped
+    #                                 labels (loop epoch, ...) on top of the
+    #                                 standard agent label set
+    replace: bool = False             # remove an existing same-name container
+    mount_docker_socket: bool | None = None
+    worktree_git_dir: Path | None = None
+    workspace_root: Path | None = None  # override project root (worktrees)
+    workdir: str = ""                   # override container working dir
+    seed_digest: str = ""               # expected workspace-seed digest
+    #                                 (content-addressed; the workerd path
+    #                                 resolves it in the worker-local store)
+    seed_tar: bytes | None = None       # pre-resolved seed bytes: skip the
+    #                                 tree walk and seed with exactly these
+    #                                 (a worker-local seed-store hit)
+
+
+class AgentRuntime:
+    """Create/start/attach/stop agent containers on one worker engine."""
+
+    def __init__(
+        self,
+        engine: Engine,
+        cfg: Config,
+        *,
+        pre_start: Callable[[str], None] | None = None,
+        post_start: Callable[[str], None] | None = None,
+        bootstrap: Callable[[str, str, str], None] | None = None,
+        channels=None,                 # fleet.channels.SideChannels | None
+    ):
+        self.engine = engine
+        self.cfg = cfg
+        # bootstrap hooks wired by the CLI factory once CP/firewall exist.
+        # ``bootstrap(container_id, project, agent)`` runs between create and
+        # start (reference: InstallAgentBootstrapMaterial in
+        # createAndBootstrapContainer, container_create.go:2074).
+        self.pre_start = pre_start
+        self.post_start = post_start
+        self.bootstrap = bootstrap
+        # side-channel URLs for THIS worker (remote workers: SSH -R tunnel
+        # addresses; local: host-gateway) -- fleet/channels.SideChannels,
+        # or a zero-arg callable resolved lazily on the create path only
+        self.channels = channels
+        # lazy resolution replaces self.channels in place; guard it so a
+        # runtime handed to threaded callers (the Factory exposes one to
+        # arbitrary commands) resolves exactly once.  The loop scheduler
+        # builds per-worker runtimes with channels already resolved, but
+        # the contract must not depend on that.
+        self._channels_lock = threading.Lock()
+
+    def _resolve_channels(self):
+        with self._channels_lock:
+            if callable(self.channels):
+                try:
+                    self.channels = self.channels()
+                except Exception as e:
+                    # best-effort: a failed tunnel degrades the agent (no
+                    # browser-open/OAuth/telemetry), never blocks the create
+                    import logging
+
+                    logging.getLogger("runtime").warning(
+                        "event=side_channels_unavailable error=%s", e)
+                    self.channels = None
+            return self.channels
+
+    # -------------------------------------------------------------- create
+
+    def create(self, opts: CreateOptions) -> str:
+        from ..workspace import setup_mounts  # local import: workspace is a peer
+
+        project = self.cfg.project_name()
+        name = container_name(project, opts.agent)
+
+        if opts.replace and self.engine.container_exists(name):
+            self.engine.remove_container(name, force=True, volumes=False)
+
+        image = resolve_image(self.engine, project, opts.image)
+
+        pconf = self.cfg.project
+        mode = opts.workspace_mode or (pconf.workspace.mode if pconf else "bind")
+        root = opts.workspace_root or self.cfg.project_root or Path.cwd()
+        mount_sock = (
+            opts.mount_docker_socket
+            if opts.mount_docker_socket is not None
+            else bool(pconf and pconf.workspace.mount_docker_socket)
+        )
+        with phases.phase("workspace_mounts"):
+            mounts = setup_mounts(
+                self.engine,
+                project,
+                opts.agent,
+                root,
+                mode=mode,
+                extra_mounts=(pconf.workspace.extra_mounts if pconf else None),
+                worktree_git_dir=opts.worktree_git_dir,
+            )
+
+        env = self._build_env(project, opts)
+        harness = opts.harness or (pconf.build.harness if pconf else "")
+        labels = agent_labels(
+            project,
+            opts.agent,
+            harness=harness,
+            worker=opts.worker,
+            loop_id=opts.loop_id,
+        )
+        labels.update(opts.extra_labels)
+        cmd = opts.cmd or (pconf.agent.cmd if pconf else [])
+        spec = ContainerSpec(
+            image=image,
+            cmd=list(cmd),
+            env=env,
+            labels=labels,
+            tty=opts.tty,
+            open_stdin=True,
+            working_dir=opts.workdir or consts.WORKSPACE_DIR,
+            hostname=f"{project}-{opts.agent}",
+            binds=mounts.binds,
+            memory=(pconf.agent.memory if pconf else ""),
+            nano_cpus=int((pconf.agent.cpus if pconf else 0.0) * 1e9),
+            init=False,  # the harness image's clawkerd is PID 1, not tini
+            mount_docker_socket=mount_sock,
+            # host.docker.internal only resolves on Linux daemons with an
+            # explicit host-gateway mapping; needed whenever any injected
+            # URL (hostproxy OR OTLP telemetry) points there
+            extra_hosts=(
+                ["host.docker.internal:host-gateway"]
+                if any("host.docker.internal" in v for v in env.values())
+                or self.cfg.settings.host_proxy.enable
+                else []
+            ),
+        )
+        try:
+            with phases.phase("engine_create"):
+                cid = self.engine.create_container(name, spec)
+        except ConflictError:
+            raise ConflictError(
+                f"agent {opts.agent!r} already exists for project {project!r} "
+                f"(container {name}); use --replace or `clawker start`"
+            )
+        with phases.phase("workspace_seed"):
+            mounts.seed(self.engine, cid, tar=opts.seed_tar,
+                        worker=opts.worker)
+        if self.bootstrap:
+            with phases.phase("identity_bootstrap"):
+                self.bootstrap(cid, project, opts.agent)
+        return cid
+
+    def _build_env(self, project: str, opts: CreateOptions) -> dict[str, str]:
+        """Create-time env (reference: buildCreateTimeEnv
+        container_create.go:2117): identity, workspace, host-proxy wiring."""
+        env = {
+            "CLAWKER_PROJECT": project,
+            "CLAWKER_AGENT": opts.agent,
+            "CLAWKER_WORKSPACE": consts.WORKSPACE_DIR,
+            # socket-bridge landing point: ssh picks the agent up the
+            # moment the bridge materializes the socket; harmless (key-file
+            # fallback) when no bridge is running
+            "SSH_AUTH_SOCK": "/run/clawker/ssh-agent.sock",
+        }
+        channels = self._resolve_channels()
+        if channels is not None and channels.hostproxy_url:
+            # worker-specific side channel (remote: the SSH -R tunnel bind)
+            env["CLAWKER_HOSTPROXY"] = channels.hostproxy_url
+        elif self.cfg.settings.host_proxy.enable:
+            env["CLAWKER_HOSTPROXY"] = (
+                f"http://host.docker.internal:{self.cfg.settings.host_proxy.port}"
+            )
+        if channels is not None and channels.otlp_endpoint:
+            env["OTEL_EXPORTER_OTLP_ENDPOINT"] = channels.otlp_endpoint
+        pconf = self.cfg.project
+        if pconf:
+            env.update(pconf.agent.env)
+        env.update(opts.env)
+        return env
+
+    # --------------------------------------------------------- start/attach
+
+    def start(self, name_or_id: str) -> None:
+        if self.pre_start:
+            with phases.phase("pre_start"):
+                self.pre_start(name_or_id)
+        with phases.phase("engine_start"):
+            self.engine.start_container(name_or_id)
+        if self.post_start:
+            with phases.phase("post_start"):
+                self.post_start(name_or_id)
+
+    def attach_and_run(
+        self,
+        name_or_id: str,
+        *,
+        tty: bool = True,
+        stdin: BinaryIO | None = None,
+        stdout: BinaryIO | None = None,
+    ) -> int:
+        """Attach first, then start, then pump until exit (mirrors
+        attachThenStart run.go:331 -- attaching before start loses no
+        output).  Returns the container exit code."""
+        out = stdout or sys.stdout.buffer
+        stream = self.engine.attach_container(name_or_id, tty=tty)
+        self.start(name_or_id)
+        attach_mod.wire_resize(self.engine, name_or_id)
+        use_raw = (
+            stdin is None
+            and stdout is None
+            and tty
+            and sys.stdin.isatty()
+            and sys.stdout.isatty()
+        )
+        inp = stdin if stdin is not None else sys.stdin.buffer
+        if use_raw:
+            with attach_mod.raw_terminal(sys.stdin.fileno()):
+                attach_mod.pump_streams(stream, inp, out)
+        else:
+            attach_mod.pump_streams(stream, inp, out)
+        return self.engine.wait_container(name_or_id)
+
+    # --------------------------------------------------------------- query
+
+    def list_agents(self, *, all: bool = True, project: str | None = None) -> list[dict]:
+        filters: dict = {"label": [f"{consts.LABEL_ROLE}=agent"]}
+        if project:
+            filters["label"].append(f"{consts.LABEL_PROJECT}={project}")
+        return self.engine.list_containers(all=all, filters=filters)

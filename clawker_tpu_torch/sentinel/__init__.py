@@ -9,7 +9,8 @@ them, publishes typed ``anomaly.flag`` bus events, registry metrics and
 observe-only: flags never feed breakers or placement.
 
 Surfaces: ``python -m clawker_tpu_torch fleet anomaly`` (one-shot /
---watch / --format json).  The loop's ``--sentinel`` and the daemons'
+--watch / --format json) and ``python -m clawker_tpu_torch loop
+--sentinel`` (``LoopScheduler.attach_sentinel``).  The daemons'
 sentinels are not ported yet.
 """
 

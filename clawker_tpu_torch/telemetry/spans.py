@@ -17,8 +17,8 @@ time) because the scheduler knows both ends of every phase it drives;
 there is no context-propagation machinery to pay for on the hot path.
 Each record is emitted as a typed EventBus record (so dashboards see
 spans interleaved with agent events, in order) and appended to the
-per-run JSONL flight recorder (the reference's ``monitor.ledger.FlightRecorder``,
-not ported yet); ``clawker loop trace`` rebuilds the tree offline.
+per-run JSONL flight recorder (:class:`~clawker_tpu_torch.monitor.ledger.
+FlightRecorder`); ``clawker loop trace`` rebuilds the tree offline.
 
 Reconstruction (:func:`build_trees`) is defensive by design: the flight
 recorder is append-only from many threads, so records land OUT OF

@@ -130,7 +130,9 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["clawker_tpu_torch.graft_entry",
-                                    "clawker_tpu_torch.analytics.mesh"])
+                                    "clawker_tpu_torch.analytics.mesh",
+                                    "clawker_tpu_torch.loop.scheduler",
+                                    "clawker_tpu_torch.cli"])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -195,6 +197,33 @@ def test_fleet_anomaly_without_a_gpu_exits_1_and_names_the_cpu_device(
     assert "no CUDA GPU" in proc.stderr
     assert "CLAWKER_TORCH_DEVICE=cpu" in proc.stderr
     assert proc.stdout == ""
+
+
+@pytest.mark.parametrize("rider", ["--sentinel", "--no-sentinel"])
+def test_loop_without_a_gpu_exits_1_and_names_the_cpu_device(tmp_path,
+                                                             rider):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device runs there")
+    env = {k: v for k, v in ENV.items() if k != "CLAWKER_TORCH_DEVICE"}
+    for name in ("CONFIG", "DATA", "STATE", "CACHE"):
+        (tmp_path / name).mkdir()
+        env[f"CLAWKER_TPU_{name}_DIR"] = str(tmp_path / name)
+    (tmp_path / "CONFIG" / "settings.yaml").write_text(
+        "host_proxy:\n  enable: false\n")
+    (tmp_path / ".clawker.yaml").write_text("project: nogpu\n")
+    env["CLAWKER_TPU_DRIVER"] = "fake"
+    env["CLAWKER_TPU_FAKE_IMAGES"] = "clawker-nogpu:default"
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-m", "clawker_tpu_torch", "loop", "-p", "2", "-n",
+         "1", rider, "--json"], cwd=tmp_path, env=env, capture_output=True,
+        text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "no CUDA GPU" in proc.stderr
+    assert "CLAWKER_TORCH_DEVICE=cpu" in proc.stderr
+    assert proc.stdout == ""
+    # the run never started: no journal, no flight record
+    assert not list((tmp_path / "STATE").rglob("*.journal"))
 
 
 def test_cpu_tensor_calls_leave_launch_counters_at_zero():
