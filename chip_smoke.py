@@ -68,7 +68,8 @@
    and ``bench_lane`` on the card.
 6. Loop phase, the port's own ``LoopScheduler`` over ``FakeDriver`` (4
    workers, 8 loops x 3 iterations of 0.2 s each), its dirs under
-   ``build/chip_smoke/loop/``, the host proxy off: (a) with the live
+   ``build/chip_smoke/loop/``, on default settings (the host proxy up on
+   a free port): (a) with the live
    ``FleetSentinel`` ticking every 0.05 s while a writer fills the
    workers' streams mid-run (live timestamps, an exfil burst on one
    agent): every loop ends ``done`` after 3 iterations, every status row
@@ -81,7 +82,19 @@
    --json`` on the fake driver in a subprocess must exit 0 with every
    agent done.  Prints the runs' wall ms, ticks and (a)'s per-tick stage
    medians.
-7. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+7. loopd phase, its dirs under ``build/chip_smoke/loopd/``: (a) an
+   in-process ``LoopdServer`` over 4 fake workers with its
+   daemon-lifetime sentinel on the card every 0.05 s: two clients submit
+   runs of (6)'s shape, an exfil burst lands mid-run; both runs are
+   daemon-owned over one admission controller, the status RPC's rows
+   hold the burst agent hottest and flagged, each scored tick is one K3
+   and one K1, and ``fleet anomaly`` in a subprocess reads the daemon and
+   exits 2; (b) ``loopd start`` (a forked daemon), ``loop -p 4 -n 2
+   --json`` (submitted to it), ``loop attach``, ``loopd stop``: a
+   ``sentinel.tick`` span scored on the card lands in the daemon's flight
+   record; (c) no proxy or loopd pidfile is left.  One line per case
+   with its host ms.
+8. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -1955,15 +1968,27 @@ LOOP_CLI_TICK_S = 0.001     # the CLI's seeded fake exits at once, so its
 #                             at once to score inside it
 LOOP_WINDOWS, LOOP_PER_WINDOW = 6, 12
 LOOP_HOT_SLOT = 5
-# the host proxy (on by default) is not ported yet
-LOOP_SETTINGS = "host_proxy:\n  enable: false\n"
 _XDG = ("CONFIG", "DATA", "STATE", "CACHE")
+_ISOLATED: list[Path] = []      # every state dir the loop phases used
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 @contextlib.contextmanager
-def _isolated_dirs(base: Path, settings: str = LOOP_SETTINGS):
-    """Fresh XDG dirs under ``base`` (``CLAWKER_TPU_*_DIR``), the loop
-    settings and a project dir; -> the project dir."""
+def _isolated_dirs(base: Path, settings: str = ""):
+    """Fresh XDG dirs under ``base`` (``CLAWKER_TPU_*_DIR``), default
+    settings but for ``settings`` and the host proxy's port (a free one:
+    each run's bootstrap starts its own ``clawker_tpu_torch.hostproxy``,
+    stopped on the way out), and a project dir; -> the project dir."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.hostproxy import manager
+
     if base.exists():
         shutil.rmtree(base)
     saved = {}
@@ -1972,13 +1997,16 @@ def _isolated_dirs(base: Path, settings: str = LOOP_SETTINGS):
         key = f"CLAWKER_TPU_{name}_DIR"
         saved[key] = os.environ.get(key)
         os.environ[key] = str(base / name.lower())
-    (base / "config" / "settings.yaml").write_text(settings)
+    _ISOLATED.append(base / "state")
+    (base / "config" / "settings.yaml").write_text(
+        f"host_proxy:\n  port: {_free_port()}\n" + settings)
     proj = base / "proj"
     proj.mkdir()
     (proj / ".clawker.yaml").write_text(f"project: {LOOP_PROJECT}\n")
     try:
         yield proj
     finally:
+        manager.stop(load_config(proj))
         for key, old in saved.items():
             if old is None:
                 os.environ.pop(key, None)
@@ -2203,8 +2231,7 @@ def loop_cli_case(base: Path, device: str) -> None:
     name = "loop (c)"
     # the check reads the run's flight record, which the soft disk
     # watermark (10% free by default) sheds on a nearly full disk
-    settings = (LOOP_SETTINGS
-                + f"sentinel:\n  interval_s: {LOOP_CLI_TICK_S}\n"
+    settings = (f"sentinel:\n  interval_s: {LOOP_CLI_TICK_S}\n"
                 + "loop:\n  storage_pressure:\n    soft_free_pct: 0.001\n"
                 + "    hard_free_pct: 0.0005\n")
     with _isolated_dirs(base, settings) as proj:
@@ -2268,6 +2295,303 @@ def loop_phase(device) -> collections.Counter:
     print(f"loop launches: {json.dumps(total)}; phase wall "
           f"{(time.perf_counter() - t0) * 1e3!r} ms")
     return total
+
+
+# ------------------------------------------------------------ loopd phase
+
+
+LOOPD_SETTINGS = (f"sentinel:\n  enable: true\n  interval_s: {LOOP_TICK_S}\n"
+                  f"  train_steps: {SENTINEL_STEPS}\n"
+                  # the daemon brings up the card before it answers
+                  "loopd:\n  start_deadline_s: 120\n"
+                  # the flight records keep every span on a full disk
+                  "loop:\n  storage_pressure:\n    soft_free_pct: 0.001\n"
+                  "    hard_free_pct: 0.0005\n")
+
+
+def _loopd_client_run(sock: Path, out: dict, tag: str, acked) -> None:
+    """One client of the in-process daemon: submit a run of loop (a)'s
+    shape and stream it to its end; -> ``out[tag]`` = (ack, run_done)."""
+    from clawker_tpu_torch.loopd.client import LoopdClient
+
+    with LoopdClient(sock) as c:
+        c.hello()
+        ack = c.submit_run({"parallel": LOOP_AGENTS,
+                            "iterations": LOOP_ITERATIONS,
+                            "tenant": f"client-{tag}"})
+        acked.set()
+        final = None
+        for frame in c.events():
+            if frame.get("type") == "run_done":
+                final = frame
+        out[tag] = (ack, final)
+
+
+def loopd_inproc_case(base: Path, device, stages: dict):
+    """(a): ``LoopdServer(cfg, FakeDriver(n_workers=4), device=...)`` with
+    the daemon sentinel every 0.05 s (40 steps), the host proxy on a free
+    port.  Two clients submit runs of loop (a)'s shape at once; a writer
+    fills the workers' streams mid-run, a 55-record burst on one agent of
+    the first run.  Both runs must be daemon-owned over the daemon's one
+    admission controller, the status RPC's sentinel rows must hold the
+    burst agent hottest and flagged, every scored tick one K3 and one K1
+    (K5 and a K1 a card over several), and ``fleet anomaly`` in a
+    subprocess must read the daemon (``source: loopd``) and exit 2."""
+    import threading
+
+    import torch
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.fake import exit_behavior
+    from clawker_tpu_torch.loopd import pidfile_path
+    from clawker_tpu_torch.loopd.client import LoopdClient
+    from clawker_tpu_torch.loopd.server import LoopdServer
+
+    name = "loopd (a)"
+    with _isolated_dirs(base, LOOPD_SETTINGS) as proj:
+        cfg = load_config(proj)
+        drv = FakeDriver(n_workers=LOOP_WORKERS)
+        for api in drv.apis:
+            api.add_image(LOOP_IMAGE)
+            api.set_behavior(LOOP_IMAGE, exit_behavior(
+                b"iteration done\n", 0, delay=LOOP_ITER_S))
+        t0 = time.perf_counter()
+        srv = LoopdServer(cfg, drv, device=device).start()
+        start_ms = (time.perf_counter() - t0) * 1e3
+        log = TickLog(srv.sentinel, stages)
+        try:
+            results: dict = {}
+            acks = [threading.Event(), threading.Event()]
+            clients = [threading.Thread(
+                target=_loopd_client_run,
+                args=(srv.sock_path, results, tag, acked),
+                name=f"loopd-client-{tag}")
+                for tag, acked in zip(("one", "two"), acks)]
+            t0 = time.perf_counter()
+            for c in clients:
+                c.start()
+            check(all(a.wait(30) for a in acks),
+                  f"{name}: a submit was not acknowledged")
+            runs = list(srv.runs)
+            agents = [a for rid in runs
+                      for a in (f"loop-{rid[:6]}-{i}"
+                                for i in range(LOOP_AGENTS))]
+            hot = agents[LOOP_HOT_SLOT]
+            streams = _loop_egress(agents, hot, time.time())
+            for wid, recs in streams.items():
+                _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+            for c in clients:
+                c.join(60)
+            wall = (time.perf_counter() - t0) * 1e3
+            want = sum(len(v) for v in streams.values())
+            deadline = time.perf_counter() + 10
+            while (srv.sentinel._scored_at[0] < want
+                   and time.perf_counter() < deadline):
+                time.sleep(LOOP_TICK_S)
+            shared = all(srv.runs[rid].sched.admission is srv.admission
+                         and srv.runs[rid].sched.lanes is srv.lanes
+                         for rid in runs)
+            with LoopdClient(srv.sock_path) as c:
+                doc = c.status()
+            env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+                       PYTHONPATH=str(ROOT))
+            t1 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "clawker_tpu_torch", "fleet",
+                 "anomaly", "--format", "json"], cwd=proj, env=env,
+                capture_output=True, text=True, timeout=300)
+            cli_ms = (time.perf_counter() - t1) * 1e3
+        finally:
+            srv.stop()
+        check(not pidfile_path(cfg).exists() and not srv.sock_path.exists(),
+              f"{name}: the stopped daemon left its pidfile or socket")
+    check(sorted(results) == ["one", "two"]
+          and all(final and final["ok"] for _, final in results.values()),
+          f"{name}: runs {results}")
+    check(len(runs) == 2 and shared,
+          f"{name}: runs {runs} not both daemon-owned over one admission "
+          "controller and lane registry")
+    tenants = doc["admission"]["tenants"]
+    check(sorted(tenants) == ["client-one", "client-two"]
+          and all(r["state"] == "done" for r in doc["runs"]),
+          f"{name}: status runs {doc['runs']}, tenants {sorted(tenants)}")
+    sent = doc["sentinel"]
+    container = f"clawker.{LOOP_PROJECT}.{hot}"
+    peaks = {r["agent"]: r["peak_z"] for r in sent["rows"]}
+    check(peaks and max(peaks, key=peaks.get) == container,
+          f"{name}: hottest {max(peaks, key=peaks.get) if peaks else None}"
+          f" (peak z {peaks}), want {container}")
+    check(any(r["agent"] == container and r["flagged"]
+              for r in sent["rows"]),
+          f"{name}: {container} not flagged in {sent['flags']}")
+    scored = [entry for entry in log.ticks if entry[0]]
+    check(scored, f"{name}: the daemon sentinel scored no tick")
+    for entry in log.ticks:
+        log.check(name, entry, scored=bool(entry[0]))
+    cards = torch.cuda.device_count()
+    launches = log.launches()
+    fits = launches["anomaly_fit"] if cards == 1 else sum(
+        1 for entry in scored if entry[1]["anomaly_fit_shard_reduce"])
+    check(fits == len(scored)
+          and launches["anomaly_score"] == cards * len(scored),
+          f"{name}: launches {dict(launches)} over {len(scored)} scored "
+          f"ticks on {cards} card(s)")
+    check(proc.returncode == 2,
+          f"{name}: fleet anomaly exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    cli = json.loads(proc.stdout)
+    check(cli["source"].startswith("loopd:")
+          and any(r["agent"] == container and r["flagged"]
+                  for r in cli["rows"]),
+          f"{name}: fleet anomaly read {cli.get('source')}: {cli['rows']}")
+    print(f"loopd (a) in process: start (card up, kernels loaded) "
+          f"{start_ms!r} ms; two clients x {LOOP_AGENTS} loops x "
+          f"{LOOP_ITERATIONS} iterations over {LOOP_WORKERS} fake workers: "
+          f"wall {wall!r} ms, {len(log.ticks)} ticks, {len(scored)} scored "
+          f"(the last over {scored[-1][3].windows} windows), {hot} hottest "
+          f"(peak z {peaks[container]}), flags "
+          f"{sorted((f['agent'], f['kind']) for f in sent['flags'])}; "
+          f"fleet anomaly subprocess exit 2 from {cli['source']} in "
+          f"{cli_ms!r} ms; launches {json.dumps(launches)}")
+    print(f"loopd (a): {log.stage_line()}")
+    return launches
+
+
+def _cli(args: list[str], proj: Path, env: dict, timeout: float = 300):
+    """``python -m clawker_tpu_torch ARGS`` in ``proj``: -> (process,
+    host ms)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "clawker_tpu_torch", *args],
+                          cwd=proj, env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    return proc, (time.perf_counter() - t0) * 1e3
+
+
+def loopd_forked_case(base: Path, device: str) -> None:
+    """(b): ``loopd start`` forks ``python -m clawker_tpu_torch.loopd``
+    (its own seeded fake driver, its sentinel on the card every 0.05 s
+    over egress written beforehand); ``loop -p 4 -n 2 --json`` submits
+    to it by default, ``loop attach`` re-streams the run, and a
+    ``sentinel.tick`` span scored on the card must land in the daemon's
+    flight record before ``loopd stop``."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loopd import socket_path
+    from clawker_tpu_torch.monitor.ledger import FLIGHT_DIR
+
+    name = "loopd (b)"
+    with _isolated_dirs(base, LOOPD_SETTINGS) as proj:
+        cfg = load_config(proj)
+        logs = cfg.logs_dir
+        logs.mkdir(parents=True, exist_ok=True)
+        agents = [f"cli-{i}" for i in range(LOOP_WINDOWS)]
+        records = [r for recs in _loop_egress(agents, agents[-1],
+                                              time.time()).values()
+                   for r in recs]
+        for r in records:
+            r["worker"] = "fake-0"
+        _append(logs / "ebpf-egress-fake-0.jsonl", records)
+        env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+                   CLAWKER_TPU_DRIVER="fake",
+                   CLAWKER_TPU_FAKE_IMAGES=LOOP_IMAGE,
+                   PYTHONPATH=str(ROOT))
+        flight = logs / FLIGHT_DIR / "loopd-loopd.jsonl"
+        t_spawn = time.time()
+        start, start_ms = _cli(["loopd", "start"], proj, env)
+        try:
+            check(start.returncode == 0,
+                  f"{name}: loopd start exited {start.returncode}: "
+                  f"{start.stderr[-2000:]} {start.stdout[-2000:]}")
+            run, run_ms = _cli(["loop", "-p", "4", "-n", "2", "--json"],
+                               proj, env)
+            check(run.returncode == 0 and "daemon-owned" in run.stderr,
+                  f"{name}: loop exited {run.returncode}: "
+                  f"{run.stderr[-2000:]}")
+            doc = json.loads(run.stdout)
+            attach, attach_ms = _cli(["loop", "attach", doc["loop_id"],
+                                      "--json"], proj, env)
+            check(attach.returncode == 0
+                  and json.loads(attach.stdout)["loop_id"] == doc["loop_id"],
+                  f"{name}: loop attach exited {attach.returncode}: "
+                  f"{attach.stderr[-2000:]}")
+            ticks = []
+            deadline = time.perf_counter() + 30
+            while not ticks and time.perf_counter() < deadline:
+                if flight.exists():
+                    ticks = [json.loads(line) for line in
+                             flight.read_text().splitlines()
+                             if '"sentinel.tick"' in line]
+                time.sleep(0.1)
+        finally:
+            stop, stop_ms = _cli(["loopd", "stop"], proj, env)
+        check(stop.returncode == 0 and not socket_path(cfg).exists(),
+              f"{name}: loopd stop exited {stop.returncode}: "
+              f"{stop.stderr[-2000:]}")
+    check(len(doc["agents"]) == 4
+          and all(a["status"] == "done" and a["iteration"] == 2
+                  for a in doc["agents"]), f"{name}: agents {doc['agents']}")
+    check(ticks and all(t["attrs"]["device"].startswith(device)
+                        for t in ticks),
+          f"{name}: scored ticks in the daemon's flight record: "
+          f"{[t['attrs'] for t in ticks]}")
+    print(f"loopd (b) forked: loopd start {start_ms!r} ms, loop (submitted) "
+          f"{run_ms!r} ms, loop attach {attach_ms!r} ms, loopd stop "
+          f"{stop_ms!r} ms; {len(doc['agents'])} agents done; the first "
+          f"daemon tick scored on {ticks[0]['attrs']['device']} over "
+          f"{ticks[0]['attrs']['windows']} windows from "
+          f"{ticks[0]['t_start'] - t_spawn!r} to "
+          f"{ticks[0]['t_end'] - t_spawn!r} s after `loopd start` began")
+
+
+def hostproxy_case(base: Path) -> None:
+    """The host proxy alone, as a run's first create brings it up:
+    ``ensure_running`` forks ``python -m clawker_tpu_torch.hostproxy`` and
+    waits for its /healthz; a second call finds it up; ``stop`` ends
+    it.  Host ms of each."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.hostproxy import manager
+
+    with _isolated_dirs(base) as proj:
+        cfg = load_config(proj)
+        t0 = time.perf_counter()
+        manager.ensure_running(cfg)
+        spawn_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        manager.ensure_running(cfg)
+        again_ms = (time.perf_counter() - t0) * 1e3
+        health = manager.health(cfg)
+        t0 = time.perf_counter()
+        stopped = manager.stop(cfg)
+        stop_ms = (time.perf_counter() - t0) * 1e3
+    check(health == {"ok": True, "sessions": 0} and stopped,
+          f"host proxy: health {health}, stopped {stopped}")
+    print(f"host proxy: spawn to healthy {spawn_ms!r} ms, ensure_running "
+          f"again {again_ms!r} ms, stop {stop_ms!r} ms")
+
+
+def no_daemon_left() -> None:
+    """(c): no host proxy or loopd pidfile under any state dir the loop
+    and loopd phases used."""
+    left = [str(p) for d in _ISOLATED
+            for p in (d / "hostproxy.pid", d / "loopd" / "loopd.pid")
+            if p.exists()]
+    check(not left, f"loopd (c): pidfiles left behind: {left}")
+    print(f"loopd (c): no proxy or loopd pidfile left in {len(_ISOLATED)} "
+          "state dirs")
+
+
+def loopd_phase(device) -> collections.Counter:
+    """Drives the port's loopd with its daemon sentinel; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "loopd"
+    t0 = time.perf_counter()
+    hostproxy_case(out / "proxy")
+    with stage_timers({}) as stages:
+        launches = loopd_inproc_case(out / "a", device, stages)
+    loopd_forked_case(out / "b", device)
+    no_daemon_left()
+    print(f"loopd launches: {json.dumps(launches)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return launches
 
 
 def check_no_reference_imports() -> None:
@@ -2368,6 +2692,8 @@ def main() -> int:
     for k, v in sentinel_phase(device).items():
         main_path["launches"][k] += v
     for k, v in loop_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in loopd_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

@@ -6,3 +6,5 @@ imports ``torch`` and nothing of JAX or of the reference package.  The fit step 
 ``sm_90a`` (``kernels/``), built with nvcc at first use; entry points
 run on the GPU unless the caller passes ``device="cpu"``.
 """
+
+__version__ = "0.2.0"       # the reference's version it ports

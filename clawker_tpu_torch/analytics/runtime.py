@@ -20,6 +20,7 @@ score one K1 launch per shard: the reference's sharded SPMD program.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from dataclasses import dataclass
@@ -37,6 +38,7 @@ from . import mesh as M
 TRAIN_STEPS = 120
 ANOMALY_Z = 3.5          # robust z-score threshold for "anomalous"
 DEFAULT_DEVICE = "cuda"
+DEVICE_ENV = "CLAWKER_TORCH_DEVICE"     # the entry points' device override
 _PAD_BUCKET = 128        # rows padded up to a multiple of this
 
 
@@ -51,6 +53,24 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             f"device {device!r} requested but no CUDA GPU is available; "
             "pass device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
+def env_device() -> str:
+    """The device ``CLAWKER_TORCH_DEVICE`` names, else the card."""
+    return os.environ.get(DEVICE_ENV) or DEFAULT_DEVICE
+
+
+def bring_up(device) -> torch.device:
+    """Resolve ``device`` and, on a CUDA device, open its context and
+    build (where not built yet) and load every kernel, so that a
+    long-running rider's first tick scores at once.  Raises
+    ``RuntimeError`` (no GPU, a CUDA error, a failed build) or
+    ``OSError`` (a kernel library that does not load)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        build_all()
     return dev
 
 

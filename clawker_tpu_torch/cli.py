@@ -6,12 +6,16 @@ of the reference's ``clawker monitor anomalies``
 windows (or no accelerator), 2 when an agent's latest z crosses
 ``--threshold``.  ``fleet anomaly`` those of ``clawker fleet anomaly``
 (``clawker_tpu/cli/cmd_fleet.py:761-900``): 0 scored, 1 no scorable
-windows (or no accelerator), 2 when an agent's window flags.  ``loop``
-is the in-process part of ``clawker loop``
-(``clawker_tpu/cli/cmd_loop.py:87-628``): the port's own
-:class:`~clawker_tpu_torch.loop.LoopScheduler` over the driver that
-``CLAWKER_TPU_DRIVER`` / settings ``runtime.driver`` names, with the
-anomaly riders scoring on the GPU.  The device comes from
+windows (or no accelerator), 2 when an agent's window flags; with a
+loopd answering, the one-shot renders the daemon sentinel's rows
+(``cmd_fleet.py:123-140,806-822``).  ``loop`` is ``clawker loop``
+(``clawker_tpu/cli/cmd_loop.py:87-781``) but for ``--pods``: it
+submits to this project's loopd when one answers (``--detach``, ``loop
+attach``), else runs the port's own
+:class:`~clawker_tpu_torch.loop.LoopScheduler` in process over the
+driver that ``CLAWKER_TPU_DRIVER`` / settings ``runtime.driver`` names,
+with the anomaly riders scoring on the GPU.  ``loopd start|stop|status``
+is ``clawker_tpu/cli/cmd_loopd.py``.  The device comes from
 ``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the plain
 PyTorch versions.
 """
@@ -28,6 +32,8 @@ from types import SimpleNamespace
 
 import click
 
+# analytics.runtime.DEVICE_ENV, spelt here so that importing the CLI
+# loads no torch
 DEVICE_ENV = "CLAWKER_TORCH_DEVICE"
 
 
@@ -112,7 +118,7 @@ def _device(verb: str) -> str:
     CUDA device and there is no GPU."""
     from .analytics import runtime as art
 
-    device = os.environ.get(DEVICE_ENV) or art.DEFAULT_DEVICE
+    device = art.env_device()
     try:
         art.resolve_device(device)
     except RuntimeError as e:
@@ -127,19 +133,12 @@ def _bring_up(verb: str, device: str) -> None:
     verb starts its rider: the rider's first tick then scores at once
     instead of paying seconds of set-up mid-run, and a card or a build
     that fails stops the verb before it starts anything (exit 1)."""
-    import torch
-
     from .analytics import runtime as art
-    from .kernels import build
 
-    dev = art.resolve_device(device)
-    if dev.type != "cuda":
-        return
     try:
-        torch.zeros(1, device=dev)
-        build.build_all()
-    except RuntimeError as e:      # CUDA errors and KernelCompileError
-        click.echo(f"{verb}: cannot bring up {dev}: {e}", err=True)
+        art.bring_up(device)
+    except (RuntimeError, OSError) as e:    # CUDA errors, KernelCompileError
+        click.echo(f"{verb}: cannot bring up {device}: {e}", err=True)
         raise SystemExit(1)
 
 
@@ -184,10 +183,11 @@ class _LocalFleet:
 @click.option("--format", "fmt", type=click.Choice(["table", "json"]),
               default="table")
 @click.option("--no-daemon", is_flag=True,
-              help="Score locally.  The port has no loopd daemon yet, so "
-                   "it always scores locally, with or without this flag.")
-def fleet_anomaly(watch, interval, ticks, window, train_steps, threshold,
-                  streams, fmt, no_daemon):
+              help="Score locally even when a loopd daemon hosts a "
+                   "sentinel.")
+@click.pass_context
+def fleet_anomaly(ctx, watch, interval, ticks, window, train_steps,
+                  threshold, streams, fmt, no_daemon):
     """Live fleet-wide anomaly scores: every agent's fused egress +
     behavior windows fitted and scored on the GPU in one fit and one
     score per tick.
@@ -196,11 +196,28 @@ def fleet_anomaly(watch, interval, ticks, window, train_steps, threshold,
     (``ebpf-egress-local-0.jsonl`` and ``ebpf-egress.jsonl`` under the
     logs dir) and every ``--stream``, score once, and exit 2 when any
     agent's window flags past the threshold.  ``--watch`` keeps ticking
-    and re-prints live scores.
+    and re-prints live scores.  With a loopd daemon hosting a sentinel
+    (settings sentinel.enable) the one-shot renders the daemon's LIVE
+    rows instead of building a second scorer.
     """
     from .sentinel import FleetSentinel
     from .util.xdg import logs_dir
 
+    if not watch:
+        doc = _loopd_status(_factory(ctx), no_daemon)
+        sent = (doc or {}).get("sentinel") if doc else None
+        if sent and sent.get("enabled"):
+            if fmt == "json":
+                click.echo(json.dumps(
+                    {"source": f"loopd:{doc.get('pid')}", **sent}, indent=2))
+            else:
+                click.echo(f"source: loopd (pid {doc.get('pid')}, run "
+                           f"{sent.get('run') or '-'}, "
+                           f"{sent.get('ticks', 0)} tick(s))", err=True)
+                _render_anomaly_rows(sent.get("rows", []))
+            if any(r.get("flagged") for r in sent.get("rows", [])):
+                raise SystemExit(2)
+            return
     device = _device("fleet anomaly")
     settings = {"interval_s": interval, "window_s": window or None,
                 "train_steps": train_steps or None, "threshold": threshold}
@@ -257,6 +274,31 @@ def fleet_anomaly(watch, interval, ticks, window, train_steps, threshold,
         raise SystemExit(2)
 
 
+def _loopd_status(f, no_daemon: bool) -> dict | None:
+    """One status RPC to this project's loopd, or None (score locally).
+    Project-scoped like the loop submit path: another project's daemon
+    state is not this fleet's."""
+    if no_daemon:
+        return None
+    from .errors import ClawkerError
+    from .loopd.client import discover
+
+    try:
+        client = discover(f.config, require_project=_project(f))
+    except ClawkerError:
+        return None         # unreadable settings: no daemon to find
+    if client is None:
+        return None
+    try:
+        doc = client.status()
+    except Exception as e:      # noqa: BLE001 -- view must degrade
+        click.echo(f"loopd status failed ({e}); scoring locally", err=True)
+        return None
+    finally:
+        client.close()
+    return doc
+
+
 def _render_anomaly_rows(rows: list[dict]) -> None:
     click.echo("\t".join(_ANOMALY_COLUMNS))
     for r in rows:
@@ -301,6 +343,9 @@ class Factory:
                           override=os.environ.get(ENV_DRIVER, ""))
 
 
+_hard_exit = os._exit       # seam: tests stub the second-stage exit
+
+
 class _TwoStageInterrupt:
     """First Ctrl-C drains gracefully (a clean ``shutdown`` journal
     record); a second Ctrl-C hard-exits."""
@@ -317,13 +362,37 @@ class _TwoStageInterrupt:
             self.sched.request_shutdown("sigint")
         else:
             click.echo("\nsecond interrupt: hard exit", err=True)
-            os._exit(130)
+            _hard_exit(130)
 
 
-def _no_daemon(what: str) -> click.ClickException:
-    return click.ClickException(
-        f"{what} needs the loopd daemon, which is not yet ported to "
-        "clawker_tpu_torch: the port runs loops in process only")
+class _ClientInterrupt:
+    """Daemon-owned runs invert the Ctrl-C contract: the run belongs to
+    loopd, this CLI is only a viewer -- so the first Ctrl-C DETACHES
+    (the run keeps executing; ``loop attach <run>`` re-streams) instead
+    of journaling a shutdown.  A second Ctrl-C hard-exits the viewer;
+    the run is still untouched."""
+
+    def __init__(self, client, run_id: str):
+        self.client = client
+        self.run_id = run_id
+        self.hits = 0
+        self.detached = False
+
+    def __call__(self, signum=None, frame=None) -> None:
+        self.hits += 1
+        if self.hits == 1:
+            self.detached = True
+            click.echo(
+                f"\ninterrupt: detached -- the run keeps executing under "
+                f"loopd (re-attach with `loop attach {self.run_id}`; stop "
+                "it with `loopd stop`)", err=True)
+            # shuts the socket down too, so a reader blocked in
+            # events() wakes immediately
+            self.client.detach()
+        else:
+            click.echo("\nsecond interrupt: hard exit (run unaffected)",
+                       err=True)
+            _hard_exit(130)
 
 
 def _not_ported(what: str) -> click.ClickException:
@@ -394,24 +463,27 @@ def _not_ported(what: str) -> click.ClickException:
 @click.option("--json", "as_json", is_flag=True, help="Final status as JSON.")
 @click.option("--keep", is_flag=True, help="Keep containers after the run.")
 @click.option("--daemon/--no-daemon", "use_daemon", default=None,
-              help="--no-daemon runs in process, which the port always "
-                   "does; --daemon is refused (no loopd yet).")
+              help="Submit the run to this project's loopd (default when "
+                   "one answers); --daemon requires one, --no-daemon "
+                   "always runs in process.")
 @click.option("--workerd/--no-workerd", "use_workerd", default=None,
               help="--no-workerd keeps the direct engine path, which the "
                    "port always takes; --workerd is refused (no workerd "
                    "yet).")
 @click.option("--detach", is_flag=True,
-              help="Daemon mode only: refused (no loopd yet).")
+              help="Daemon mode only: return once loopd acknowledges the "
+                   "run; re-attach with `loop attach <run>`.")
 @click.option("--pods", "use_pods", is_flag=True,
-              help="Federated mode: refused (no loopd yet).")
+              help="Federated mode (not yet ported: refused).")
 @click.pass_context
 def loop_group(ctx, parallel, iterations, placement, tenant, tenant_weight,
                max_inflight_per_worker, warm_pool, image, prompt, worktrees,
                gitguard, env_kv, failover, orphan_grace, resume_run,
                metrics_port, sentinel_flag, ship_telemetry, chaos_plan,
                as_json, keep, use_daemon, use_workerd, detach, use_pods):
-    """Fan autonomous agent loops across the runtime's workers, in
-    process, with fleet anomaly scoring on the GPU."""
+    """Fan autonomous agent loops across the runtime's workers, with
+    fleet anomaly scoring on the GPU: under this project's loopd when
+    one answers (the run is daemon-owned), else in process."""
     if ctx.invoked_subcommand is not None:
         return
     f = ctx.obj if isinstance(ctx.obj, Factory) else Factory()
@@ -438,14 +510,16 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     from .errors import ClawkerError
     from .loop import LoopScheduler, LoopSpec
 
-    for flag, what in ((use_daemon, "--daemon"), (detach, "--detach"),
-                       (use_pods, "--pods")):
-        if flag:
-            raise _no_daemon(what)
-    if use_workerd:
+    if use_pods:
+        raise _not_ported("--pods (federation)")
+    if use_daemon and (resume_run or chaos_plan):
+        # an explicit --daemon must never silently degrade to a
+        # CLI-owned run -- the exact ownership the user opted out of
         raise click.ClickException(
-            "--workerd needs the workerd daemon, which is not yet ported "
-            "to clawker_tpu_torch: the port calls the engines directly")
+            "--daemon cannot combine with "
+            + ("--resume" if resume_run else "--chaos-plan")
+            + ": these stay in-process by design (docs/loopd.md "
+            "degrade matrix)")
     if resume_run:
         raise _not_ported("--resume")
     if chaos_plan:
@@ -458,26 +532,10 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         env[k] = v
     try:
         cfg = f.config
-        driver = f.driver
     except ClawkerError as e:
         raise click.ClickException(str(e))
     settings = cfg.settings
     tele = settings.telemetry
-    port = metrics_port if metrics_port is not None else tele.metrics_port
-    if port:
-        raise _not_ported("the metrics server (--metrics-port, settings "
-                          "telemetry.metrics_port)")
-    if tele.otlp:
-        raise _not_ported("the OTLP metrics lane (settings telemetry.otlp)")
-    want_ship = (ship_telemetry if ship_telemetry is not None
-                 else settings.monitoring.shipper.enable)
-    if want_ship:
-        raise _not_ported("the telemetry shipper (--ship-telemetry, "
-                          "settings monitoring.shipper.enable)")
-    # the riders score on the GPU: without one (and without
-    # CLAWKER_TORCH_DEVICE=cpu) the run never starts
-    device = _device("loop")
-    _bring_up("loop", device)
     defaults = settings.loop
     pdef = defaults.placement
     wps = defaults.warm_pool
@@ -501,6 +559,64 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         orphan_grace_s=orphan_grace,
         telemetry=tele.flight_recorder.enable,
     )
+    # --- daemon mode (docs/loopd.md): when a loopd answers on this
+    # project's socket the CLI becomes a thin control client -- the run
+    # executes inside the daemon (shared admission caps + fairness
+    # across every concurrent CLI, the daemon's sentinel) and survives
+    # this process exiting.  No daemon = the in-process path below.
+    if use_daemon is not False:
+        client = ensure_daemon(f)
+        if client is not None:
+            for flag, note in (
+                    (use_workerd, "loopd-hosted runs keep the in-process "
+                     "launch path -- --workerd is ignored under the daemon"),
+                    (max_inflight_per_worker, "the admission bucket is "
+                     "daemon-scoped -- --max-inflight-per-worker is ignored "
+                     "under loopd (tune settings loop.placement.* and "
+                     "restart the daemon)"),
+                    (metrics_port, "metrics are daemon-scoped under loopd "
+                     "-- --metrics-port is ignored"),
+                    (sentinel_flag, "the sentinel is daemon-scoped under "
+                     "loopd -- --sentinel is ignored; set settings "
+                     "sentinel.enable and restart the daemon"),
+                    (ship_telemetry, "telemetry shipping is daemon-scoped "
+                     "under loopd -- --ship-telemetry is ignored")):
+                if flag:
+                    click.echo(f"note: {note}", err=True)
+            _run_loops_client(f, client, spec, detach=detach,
+                              as_json=as_json, keep=keep)
+            return
+        if use_daemon:
+            raise click.ClickException(
+                "--daemon: no loopd answering on this project's socket "
+                "(start one with `loopd start`)")
+    if detach:
+        raise click.ClickException(
+            "--detach needs a loopd daemon to own the run (start one "
+            "with `loopd start`)")
+    if use_workerd:
+        raise click.ClickException(
+            "--workerd needs the workerd daemon, which is not yet ported "
+            "to clawker_tpu_torch: the port calls the engines directly")
+    try:
+        driver = f.driver
+    except ClawkerError as e:
+        raise click.ClickException(str(e))
+    port = metrics_port if metrics_port is not None else tele.metrics_port
+    if port:
+        raise _not_ported("the metrics server (--metrics-port, settings "
+                          "telemetry.metrics_port)")
+    if tele.otlp:
+        raise _not_ported("the OTLP metrics lane (settings telemetry.otlp)")
+    want_ship = (ship_telemetry if ship_telemetry is not None
+                 else settings.monitoring.shipper.enable)
+    if want_ship:
+        raise _not_ported("the telemetry shipper (--ship-telemetry, "
+                          "settings monitoring.shipper.enable)")
+    # the riders score on the GPU: without one (and without
+    # CLAWKER_TORCH_DEVICE=cpu) the run never starts
+    device = _device("loop")
+    _bring_up("loop", device)
 
     def on_event(agent, event, detail=""):
         if event == "trace.span":
@@ -576,12 +692,325 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         raise SystemExit(1)
 
 
+# ------------------------------------------------------------ daemon mode
+
+
+def _client_spec_doc(spec) -> dict:
+    """LoopSpec -> the submit_run spec doc (the journal's run-header
+    vocabulary; loopd.server.spec_from_doc is the inverse)."""
+    return {
+        "parallel": spec.parallel, "iterations": spec.iterations,
+        "placement": spec.placement, "image": spec.image,
+        "prompt": spec.prompt, "worktrees": spec.worktrees,
+        "gitguard": spec.gitguard,
+        "workspace_mode": spec.workspace_mode,
+        "agent_prefix": spec.agent_prefix, "env": dict(spec.env),
+        "failover": spec.failover, "tenant": spec.tenant,
+        "tenant_weight": spec.tenant_weight,
+        "tenant_max_inflight": spec.tenant_max_inflight,
+        "max_inflight_per_worker": spec.max_inflight_per_worker,
+        "warm_pool_depth": spec.warm_pool_depth,
+        "orphan_grace_s": spec.orphan_grace_s,
+        "telemetry": spec.telemetry,
+    }
+
+
+def _run_loops_client(f: Factory, client, spec, *, detach: bool,
+                      as_json: bool, keep: bool) -> None:
+    """Submit the run to loopd and (unless ``--detach``) stream it."""
+    from .errors import ClawkerError
+
+    try:
+        ack = client.submit_run(_client_spec_doc(spec), keep=keep,
+                                stream=not detach)
+    except ClawkerError as e:
+        client.close()
+        raise click.ClickException(f"loopd submit failed: {e}")
+    run_id = str(ack.get("run", ""))
+    click.echo(
+        f"loop {run_id}: {spec.parallel} agent(s), "
+        f"{spec.iterations or 'unbounded'} iteration(s), {spec.placement} "
+        f"placement -- daemon-owned (loopd tenant {ack.get('tenant')})",
+        err=True)
+    if detach:
+        client.close()
+        click.echo(f"detached: the run executes under loopd; re-attach "
+                   f"with `loop attach {run_id}`", err=True)
+        if as_json:
+            click.echo(json.dumps({"loop_id": run_id, "detached": True}))
+        return
+    _stream_daemon_run(client, run_id, as_json)
+
+
+def _stream_daemon_run(client, run_id: str, as_json: bool) -> None:
+    """Render a daemon-owned run's event stream; exit semantics match
+    the in-process path (non-zero on failed/orphaned loops).  Ctrl-C
+    DETACHES -- killing the viewer must never kill the run."""
+    from .agentd.protocol import ProtocolError
+    from .errors import ClawkerError
+
+    handler = _ClientInterrupt(client, run_id)
+    signal.signal(signal.SIGINT, handler)
+    final = None
+    try:
+        for frame in client.events():
+            kind = frame.get("type")
+            if kind == "event":
+                detail = frame.get("detail", "")
+                click.echo(f"[{frame.get('agent')}] {frame.get('event')}"
+                           + (f" {detail}" if detail else ""), err=True)
+            elif kind == "run_done":
+                final = frame
+                break
+    except (ProtocolError, ClawkerError, OSError):
+        pass        # daemon gone, or our own detach shut the socket
+    finally:
+        client.close()
+    if final is None:
+        if handler.detached:
+            return      # clean viewer exit; the run lives on
+        raise click.ClickException(
+            f"loopd stream ended unexpectedly (daemon died?) -- run "
+            f"{run_id}'s journal survives")
+    agents = final.get("agents", [])
+    dropped = int(final.get("events_dropped", 0))
+    if dropped:
+        # the live view was lossy (slow subscriber queues); the journal
+        # and flight record were not -- say so instead of looking whole
+        click.echo(f"note: {dropped} event frame(s) dropped on slow "
+                   f"subscriber queues during this run "
+                   f"(loopd_events_dropped_total); the journal and "
+                   f"flight record are complete", err=True)
+    if as_json:
+        click.echo(json.dumps({"loop_id": run_id, "agents": agents,
+                               "events_dropped": dropped}, indent=2))
+    else:
+        for a in agents:
+            codes = ",".join(map(str, a.get("exit_codes", []))) or "-"
+            click.echo(f"{a.get('agent')}\t{a.get('worker')}\t"
+                       f"{a.get('status')}\titers={a.get('iteration')}\t"
+                       f"exits={codes}")
+    if not final.get("ok", False):
+        raise SystemExit(1)
+
+
+def _factory(ctx: click.Context) -> Factory:
+    return ctx.obj if isinstance(ctx.obj, Factory) else Factory()
+
+
+def _project(f: Factory) -> str | None:
+    try:
+        return f.config.project_name()
+    except LookupError:
+        return None
+
+
 @loop_group.command("attach")
 @click.argument("run")
 @click.option("--json", "as_json", is_flag=True, help="Final status as JSON.")
-def loop_attach(run, as_json):
-    """Re-attach to a daemon-owned run: refused (no loopd yet)."""
-    raise _no_daemon("loop attach")
+@click.pass_context
+def loop_attach(ctx, run, as_json):
+    """Re-attach to a daemon-owned run and stream it.
+
+    RUN is the loop id printed at submit time (or an unambiguous
+    prefix).  The stream replays the run's recent events, then follows
+    it live; Ctrl-C detaches again without touching the run.
+    """
+    from .errors import ClawkerError
+    from .loopd.client import discover
+
+    client = discover(_factory(ctx).config)
+    if client is None:
+        raise click.ClickException(
+            "no loopd daemon answering (check `loopd status`)")
+    try:
+        ack = client.attach(run)
+    except ClawkerError as e:
+        client.close()
+        raise click.ClickException(str(e))
+    run_id = str(ack.get("run", run))
+    click.echo(f"attached to run {run_id} ({ack.get('state')})", err=True)
+    _stream_daemon_run(client, run_id, as_json)
+
+
+# ------------------------------------------------------------------ loopd
+
+
+@cli.group("loopd")
+def loopd_group():
+    """Host-resident loop supervisor: runs outlive the CLI."""
+
+
+@loopd_group.command("start")
+@click.option("--foreground", is_flag=True,
+              help="Run the daemon in THIS process (debugging/ops; "
+                   "Ctrl-C drains and exits).")
+@click.pass_context
+def loopd_start(ctx, foreground):
+    """Start the daemon (no-op when one already answers).
+
+    The daemon is project-scoped: start it from the project it will
+    serve.  Once up, every ``loop`` in this project submits its runs to
+    the daemon instead of scheduling in-process.  With settings
+    ``sentinel.enable`` its sentinel scores on the GPU
+    (``CLAWKER_TORCH_DEVICE``, default ``cuda``): without one the daemon
+    refuses to start and this verb exits 1.
+    """
+    from .errors import ClawkerError
+    from .loopd import logfile_path, socket_path, spawn_daemon
+    from .loopd.client import discover
+
+    f = _factory(ctx)
+    client = discover(f.config)
+    if client is not None:
+        pong = client.ping()
+        client.close()
+        click.echo(f"loopd already running (pid {pong.get('pid')}, "
+                   f"{pong.get('runs', 0)} live run(s)) on "
+                   f"{socket_path(f.config)}")
+        return
+    try:
+        if foreground:
+            from .loopd.server import LoopdServer
+
+            server = LoopdServer(f.config, f.driver)
+            signal.signal(signal.SIGINT, lambda *_: server.stop())
+            signal.signal(signal.SIGTERM, lambda *_: server.stop())
+            server.start()
+            click.echo(f"loopd listening on {server.sock_path} "
+                       f"(pid {os.getpid()}; Ctrl-C drains)", err=True)
+            server.serve_forever()
+            return
+        pid = spawn_daemon(f.config, cwd=f.cwd)
+    except ClawkerError as e:
+        raise click.ClickException(str(e))
+    click.echo(f"loopd started (pid {pid}) on {socket_path(f.config)}; "
+               f"log: {logfile_path(f.config)}")
+
+
+@loopd_group.command("stop")
+@click.option("--force", is_flag=True,
+              help="SIGTERM the pidfile's process when the socket does "
+                   "not answer (wedged daemon).")
+@click.pass_context
+def loopd_stop(ctx, force):
+    """Drain every hosted run and stop the daemon.
+
+    Drained runs journal a durable ``shutdown`` record first.
+    """
+    from .loopd import pidfile_path, socket_path
+    from .loopd.client import discover
+
+    f = _factory(ctx)
+    client = discover(f.config)
+    if client is not None:
+        client.shutdown()
+        client.close()
+        # the drain is asynchronous; wait for the socket to go away so
+        # `loopd stop && loopd start` cannot race the old daemon
+        sock = socket_path(f.config)
+        deadline = time.monotonic() + f.config.settings.loopd.drain_grace_s + 5
+        while time.monotonic() < deadline and sock.exists():
+            time.sleep(0.1)
+        if sock.exists():
+            # a wedged drain must not report success: the very next
+            # `loopd start` would hit "already running"
+            raise click.ClickException(
+                "loopd did not drain within the grace period (socket "
+                f"still present at {sock}); retry with --force to "
+                "SIGTERM it")
+        click.echo("loopd stopped")
+        return
+    pidfile = pidfile_path(f.config)
+    if force and pidfile.exists():
+        try:
+            pid = int(pidfile.read_text().strip())
+            os.kill(pid, signal.SIGTERM)
+            click.echo(f"loopd: SIGTERM sent to pid {pid}")
+            return
+        except (OSError, ValueError) as e:
+            raise click.ClickException(f"loopd: force-stop failed: {e}")
+    click.echo("loopd: not running", err=True)
+
+
+_RUN_COLUMNS = ("RUN", "STATE", "TENANT", "CLIENT", "LOOPS", "PLACEMENT",
+                "SUBS", "DROPS")
+
+
+@loopd_group.command("status")
+@click.option("--format", "fmt", type=click.Choice(["table", "json"]),
+              default="table")
+@click.option("--json", "as_json", is_flag=True,
+              help="The same as --format json.")
+@click.pass_context
+def loopd_status(ctx, fmt, as_json):
+    """Daemon status: hosted runs, admission tokens, worker breakers.
+
+    Exits non-zero when no daemon answers -- scriptable as a liveness
+    probe.
+    """
+    from .loopd.client import discover
+    from .loopd.feed import console_feed
+
+    client = discover(_factory(ctx).config)
+    if client is None:
+        click.echo("loopd: not running (start one with `loopd start`)",
+                   err=True)
+        raise SystemExit(1)
+    try:
+        doc = client.status()
+    finally:
+        client.close()
+    doc.pop("type", None)
+    if as_json or fmt == "json":
+        # `console` is THE script-facing schema (docs/fleet-console.md)
+        doc["console"] = console_feed(doc)
+        click.echo(json.dumps(doc, indent=2))
+        return
+    click.echo(f"loopd pid {doc['pid']} project={doc.get('project') or '-'} "
+               f"uptime={doc.get('uptime_s', 0)}s "
+               f"socket={doc.get('socket')}")
+    runs = doc.get("runs", [])
+    if runs:
+        click.echo("\t".join(_RUN_COLUMNS))
+        for r in runs:
+            click.echo("\t".join(str(x) for x in (
+                r["run"], r["state"], r["tenant"], r["client"],
+                r["parallel"], r["placement"], r["subscribers"],
+                r.get("events_dropped", 0))))
+    else:
+        click.echo("no hosted runs")
+    adm = doc.get("admission", {})
+    for wid, w in sorted(adm.get("workers", {}).items()):
+        click.echo(f"worker {wid}: tokens {w['inflight']}/{w['capacity']} "
+                   f"hwm={w['inflight_hwm']} pending={w['pending']} "
+                   f"dispatched={w['dispatched']} rejected={w['rejected']}")
+    for tenant, t in sorted(adm.get("tenants", {}).items()):
+        click.echo(f"tenant {tenant}: weight={t['weight']} "
+                   f"inflight={t['inflight']} queued={t['queued']} "
+                   f"dispatched={t['dispatched']}")
+
+
+def ensure_daemon(f: Factory):
+    """Autostart path for ``loop``: a connected client when a daemon
+    answers (spawning one first if settings ``loopd.autostart`` asks for
+    it), else None -- the caller degrades in-process."""
+    from .loopd import LoopdError, spawn_daemon
+    from .loopd.client import discover
+
+    project = _project(f)
+    client = discover(f.config, require_project=project)
+    if client is not None:
+        return client
+    if not f.config.settings.loopd.autostart:
+        return None
+    try:
+        spawn_daemon(f.config, cwd=f.cwd)
+    except LoopdError as e:
+        click.echo(f"loopd autostart failed ({e}); running in-process",
+                   err=True)
+        return None
+    return discover(f.config, require_project=project)
 
 
 def main(argv=None) -> int:

@@ -1,14 +1,19 @@
 """Pre/post-start service bootstrap hooks.
 
-Port of ``clawker_tpu/controlplane/bootstrap.py``.  None of the services
-these hooks bring up is ported yet (ROADMAP §1: the host proxy and
-socket bridge first).  So :func:`pre_start_services` raises a
-:class:`ConfigError` naming each one that settings enable
-(``control_plane``, ``firewall``, ``host_proxy``; the last is on by
-default), and :func:`post_start_services` takes the reference's own
-degraded path for the best-effort socket bridge: the same
-``event=socketbridge_unavailable`` warning, with "not yet ported" as
-the error.  That path changes no status, journal record or event.
+Parity reference: internal/cmd/container/shared/container_start.go --
+BootstrapServicesPreStart (:103 -- CP EnsureRunning, firewall init+rules,
+host proxy) and BootstrapServicesPostStart (:297 -- firewall enable on the
+container's cgroup, socket bridge).
+
+Port of ``clawker_tpu/controlplane/bootstrap.py``.
+:func:`pre_start_services` starts the port's host proxy
+(``python -m clawker_tpu_torch.hostproxy``) when settings
+``host_proxy.enable`` is set, as the reference does, and
+:func:`post_start_services` runs the socket bridge, with the reference's
+degraded path (the ``event=socketbridge_unavailable`` warning) for the
+reference's reasons.  The control plane and the firewall (both off by
+default) are not ported yet: settings that enable either raise a
+:class:`ConfigError` naming it.
 """
 
 from __future__ import annotations
@@ -21,25 +26,50 @@ from ..errors import ConfigError
 log = logsetup.get("cp.bootstrap")
 
 # settings section -> what the reference brings up for it
-_PRE_START = (
+_NOT_PORTED = (
     ("control_plane", "the control plane"),
     ("firewall", "the firewall"),
-    ("host_proxy", "the host proxy"),
 )
 
 
-def pre_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -> None:
-    for section, what in _PRE_START:
+def _refuse_unported(cfg: Config) -> None:
+    for section, what in _NOT_PORTED:
         if getattr(cfg.settings, section).enable:
             raise ConfigError(
                 f"{what} is not yet ported to clawker_tpu_torch: set "
                 f"{section}: {{enable: false}} in settings.yaml")
 
 
+def pre_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -> None:
+    _refuse_unported(cfg)
+    if cfg.settings.host_proxy.enable:
+        from ..hostproxy.manager import ensure_running as hostproxy_ensure
+
+        hostproxy_ensure(cfg)
+
+
 def post_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -> None:
-    if cfg.settings.firewall.enable:
-        raise ConfigError(
-            "the firewall is not yet ported to clawker_tpu_torch: set "
-            "firewall: {enable: false} in settings.yaml")
-    log.warning("event=socketbridge_unavailable container=%s error=%s",
-                container_ref, "the socket bridge is not yet ported")
+    _refuse_unported(cfg)
+    _ensure_socket_bridge(cfg, driver, container_ref)
+
+
+def _ensure_socket_bridge(cfg: Config, driver: RuntimeDriver, container_ref: str) -> None:
+    """SSH/GPG agent forwarding (reference: container_start.go:349-371
+    socketbridge EnsureBridge).  Best-effort: a missing host agent or a
+    non-exec-capable engine degrades loudly, never fails the start.
+
+    The manager lives ON the engine (not a module global) so it dies with
+    the engine/factory; individual bridges self-close when their exec
+    stream EOFs -- i.e. when the container stops."""
+    try:
+        from ..socketbridge.host import SocketBridgeManager
+
+        engine = driver.engine()
+        mgr = getattr(engine, "_socketbridge_manager", None)
+        if mgr is None:
+            mgr = SocketBridgeManager(engine)
+            engine._socketbridge_manager = mgr
+        mgr.ensure_bridge(container_ref)
+    except Exception as e:
+        log.warning("event=socketbridge_unavailable container=%s error=%s",
+                    container_ref, e)

@@ -84,22 +84,24 @@ drivers (the fake one), with the placement policies and admission,
 failover, the write-ahead journal, the flight recorder, the
 disk-pressure ladder and the two anomaly riders
 (:meth:`LoopScheduler.attach_anomaly_watch` /
-:meth:`LoopScheduler.attach_sentinel`).  What waits for its slice
+:meth:`LoopScheduler.attach_sentinel`), and what loopd hands a hosted
+run: the admission controller and lane registry shared between
+co-tenant runs (``admission=``, ``lanes=``), the cross-process trace
+context (``LoopSpec.trace_parent`` / ``clock_offset_s``, journaled in the
+run record and carried by each iteration root as ``ctx_parent`` /
+``skew_s``; ``_engine_ctx`` around the engine calls), and the daemon's
+crash seam :meth:`LoopScheduler.kill`.  What waits for its slice
 (ROADMAP §1) is refused with a named :class:`ConfigError` and has no
 code path here: the warm pool (``warm_pool_depth`` > 0), worktrees with
-their gitguard and merge queue, ``--resume`` (``resume`` / ``reconcile``
-/ ``kill``), the workerd dispatch (``executors``), the chaos seams and
-the elastic capacity controller (:meth:`LoopScheduler.attach_capacity`).
-loopd's knobs wait with loopd: the lanes and admission controller
-shared between co-tenant runs (the reference's ``lanes=`` and
-``admission=``), and the cross-process trace context (``LoopSpec``'s
-``trace_parent`` and ``clock_offset_s``, the engine-request spans).  The
-run record journals those two fields at the reference's defaults, so
-journals cross-read.
+their gitguard and merge queue, ``--resume`` (``resume`` /
+``reconcile``), the workerd dispatch (``executors``), the scheduler's
+chaos seams and the elastic capacity controller
+(:meth:`LoopScheduler.attach_capacity`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import queue
 import tarfile
@@ -147,6 +149,7 @@ from ..telemetry.spans import (
     SPAN_WAIT,
     Tracer,
 )
+from ..tracing.context import TraceContext, use
 from ..util import ids
 from .journal import (
     REC_ADMIT_QUEUED,
@@ -264,6 +267,15 @@ class LoopSpec:
     #                                  pool normally -- content travels via
     #                                  the workspace seed, not the mount
     #                                  (docs/loop-worktrees.md#degrade-matrix)
+    trace_parent: str = ""           # upstream traceparent (loopd's submit
+    #                                  span): iteration roots carry its
+    #                                  span id as attr ctx_parent so the
+    #                                  cross-process merge can join the
+    #                                  segments (docs/tracing.md)
+    clock_offset_s: float = 0.0      # this scheduler's cumulative clock
+    #                                  offset to the ROOT clock (the
+    #                                  router's), estimated hop by hop;
+    #                                  0 when this process is the root
 
 
 @dataclass
@@ -297,7 +309,7 @@ class AgentLoop:
         }
 
 
-def _refuse_unported(spec: LoopSpec) -> None:
+def refuse_unported(spec: LoopSpec) -> None:
     """Raise a named :class:`ConfigError` for a spec that asks for a part
     of the scheduler the port does not carry yet (ROADMAP §1)."""
     if spec.warm_pool_depth > 0:
@@ -413,23 +425,29 @@ class LaneRegistry:
 class LoopScheduler:
     def __init__(self, cfg: Config, driver: RuntimeDriver, spec: LoopSpec,
                  *, on_event=None, health_config: HealthConfig | None = None,
-                 run_id: str | None = None):
+                 run_id: str | None = None,
+                 admission: AdmissionController | None = None,
+                 lanes: LaneRegistry | None = None):
         if spec.failover not in FAILOVER_POLICIES:
             raise ClawkerError(
                 f"loop: unknown failover policy {spec.failover!r} "
                 f"({'|'.join(FAILOVER_POLICIES)})")
-        _refuse_unported(spec)
+        refuse_unported(spec)
         self.cfg = cfg
         self.driver = driver
         self.spec = spec
         # --- placement & admission (docs/loop-placement.md): the policy
         # plans/picks workers, the admission controller rates launches.
+        # A SHARED controller (the `admission` param) is how two runs
+        # co-tenant one pod in-process: both bill the same token buckets
+        # and the weighted fair queue arbitrates between their tenants.
         ps = cfg.settings.loop.placement
         self.policy = get_policy(spec.placement)     # raises on unknown
-        self.admission = AdmissionController(
-            max_inflight_per_worker=(spec.max_inflight_per_worker
-                                     or ps.max_inflight_per_worker),
-            max_pending_per_worker=ps.max_pending_per_worker)
+        self.admission = admission if admission is not None else (
+            AdmissionController(
+                max_inflight_per_worker=(spec.max_inflight_per_worker
+                                         or ps.max_inflight_per_worker),
+                max_pending_per_worker=ps.max_pending_per_worker))
         self.admission.register_tenant(
             spec.tenant, weight=spec.tenant_weight,
             max_inflight=spec.tenant_max_inflight or ps.tenant_max_inflight)
@@ -453,7 +471,11 @@ class LoopScheduler:
         # on it rides this lock, or an orphan landing mid-create could
         # leak a container into neither container_id nor abandoned
         self._placement_lock = threading.Lock()
-        self.lanes = LaneRegistry()
+        # a SHARED registry (the `lanes` param) is how loopd serializes
+        # several runs' engine calls per worker on one lane; a private
+        # registry (the default) is owned -- and closed -- by this run
+        self.lanes = lanes if lanes is not None else LaneRegistry()
+        self._owns_lanes = lanes is None
         self._inflight: dict[str, Future] = {}   # agent -> launch HANDLE: the
         #                                          admission-to-completion
         #                                          future busy-tracking reads
@@ -491,6 +513,10 @@ class LoopScheduler:
         self.tracer = Tracer(
             self.loop_id,
             on_span=self._record_span if spec.telemetry else None)
+        # cumulative clock offset to the root clock (docs/tracing.md):
+        # loopd stamps it on the spec for federated runs.  0 = this
+        # process IS the root clock.
+        self._trace_offset_s = float(spec.clock_offset_s or 0.0)
         self._queue_wait: dict[str, float] = {}   # agent -> launch queue s
         self._iter_started: dict[tuple[str, int], float] = {}  # wait-span t0
         # --- durability: the write-ahead run journal (docs/loop-resume.md).
@@ -538,6 +564,7 @@ class LoopScheduler:
         #                           was EVER submitted to: the cleanup
         #                           sweep set
         self._shutdown_journaled = False
+        self._aborted = False       # kill(): crash seam, skip all shutdown
         # --- workspace-seed fan-out (docs/loop-worktrees.md): the tree
         # walk is paid once per fan-out (content-addressed TTL cache in
         # runtime/orchestrate) and journaled write-ahead per DIGEST.
@@ -569,8 +596,10 @@ class LoopScheduler:
         no WAL, so there is no durability contract to break.  Storage
         faults surface
         through the journal's ``on_fault`` -> :meth:`_on_journal_fault`,
-        so even receipt-ignoring bookkeeping appends degrade loudly."""
-        if self.journal is None:
+        so even receipt-ignoring bookkeeping appends degrade loudly.
+        After kill() nothing lands: a SIGKILLed process writes no
+        records."""
+        if self.journal is None or self._aborted:
             return NO_JOURNAL_RECEIPT
         return self.journal.append(kind, durable=durable, **fields)
 
@@ -938,9 +967,8 @@ class LoopScheduler:
             "tenant_max_inflight": s.tenant_max_inflight,
             "max_inflight_per_worker": s.max_inflight_per_worker,
             "warm_pool_depth": s.warm_pool_depth,
-            # the reference's defaults: no upstream trace context here
-            "trace_parent": "",
-            "clock_offset_s": 0.0,
+            "trace_parent": s.trace_parent,
+            "clock_offset_s": s.clock_offset_s,
         }
 
     def wait_launched(self, timeout: float | None = None) -> bool:
@@ -996,8 +1024,29 @@ class LoopScheduler:
         qw = self._queue_wait.pop(loop.agent, None)
         if qw is not None:
             attrs["queue_ms"] = round(qw * 1000, 2)
+        # federated runs: link this root to loopd's submit span and carry
+        # the cumulative clock offset so the cross-process merge can both
+        # JOIN the segments and re-base their clocks (docs/tracing.md)
+        tp = TraceContext.from_header(self.spec.trace_parent)
+        if tp is not None and tp.span_id:
+            attrs["ctx_parent"] = tp.span_id
+        if self._trace_offset_s:
+            attrs["skew_s"] = round(self._trace_offset_s, 6)
         self.tracer.begin_iteration(loop.agent, loop.iteration, worker.id,
                                     **attrs)
+
+    def _engine_ctx(self, loop: AgentLoop):
+        """Activate this iteration's trace context around direct-path
+        engine work: an engine client stamps ``engine.request`` spans
+        under the open iteration root, with zero new round-trips (the
+        traceparent rides requests the path already makes)."""
+        if self.flight is None:
+            return contextlib.nullcontext()
+        return use(TraceContext(
+            self.loop_id,
+            self.tracer.open_root(loop.agent, loop.iteration),
+            agent=loop.agent, worker=loop.worker.id,
+            sink=self._record_span))
 
     def _create(self, loop: AgentLoop, epoch: int, worker: Worker) -> None:
         env = {
@@ -1037,7 +1086,8 @@ class LoopScheduler:
             replace=True,
             seed_digest=seed_digest,
         )
-        cid = rt.create(opts)
+        with self._engine_ctx(loop):
+            cid = rt.create(opts)
         # durable before anything acts on the cid: a crash here must find
         # the container again by (deterministic name, journaled cid).
         # The container already exists -- a broken promise here cannot
@@ -1104,18 +1154,19 @@ class LoopScheduler:
             self._write_iteration(loop, engine, cid)
         except ClawkerError:
             pass  # state file is advisory; the loop itself is not
-        if fresh:
-            # first start of THIS container (iteration 0, or the first
-            # iteration after a migration re-created it elsewhere): the
-            # full pre/post bootstrap must run
-            rt.start(cid)
-        else:
-            engine.start_container(cid)
-            # a restarted container gets a fresh cgroup: enforcement
-            # must re-enroll every iteration (the handler's drift
-            # guard keys on exactly this)
-            if rt.post_start:
-                rt.post_start(cid)
+        with self._engine_ctx(loop):
+            if fresh:
+                # first start of THIS container (iteration 0, or the first
+                # iteration after a migration re-created it elsewhere): the
+                # full pre/post bootstrap must run
+                rt.start(cid)
+            else:
+                engine.start_container(cid)
+                # a restarted container gets a fresh cgroup: enforcement
+                # must re-enroll every iteration (the handler's drift
+                # guard keys on exactly this)
+                if rt.post_start:
+                    rt.post_start(cid)
         with self._placement_lock:
             if loop.epoch != epoch:
                 # orphaned mid-start: the orphan already moved this
@@ -1583,6 +1634,11 @@ class LoopScheduler:
             # their cancelled() now reads true, and sweeping completes
             # their handles so wait_launched callers never hang
             self.admission.sweep()
+        if self._aborted:
+            # kill(): the crash seam -- return exactly what SIGKILL would
+            # leave behind (no halts, no span flush, no shutdown records;
+            # the journal's batched tail stays wherever it was)
+            return self.loops
         if self._stop.is_set():
             self._halt_running()
         # iterations still open (stop(), a failed loop's in-flight span)
@@ -1875,6 +1931,16 @@ class LoopScheduler:
         self._stop.set()
         self._wake.set()
 
+    def kill(self) -> None:
+        """Simulate scheduler death (loopd's crash seam): cease all
+        activity WITHOUT journaling, halting containers, flushing spans,
+        or cleaning up -- exactly the state SIGKILL leaves behind.  Lane
+        guards see the stop flag, so queued tasks die the way a killed
+        process's threads would."""
+        self._aborted = True
+        self._stop.set()
+        self._wake.set()
+
     def request_shutdown(self, reason: str = "stop") -> None:
         """Graceful drain with a durable ``shutdown`` journal record --
         the marker that tells a later ``--resume`` this run ended
@@ -1953,7 +2019,11 @@ class LoopScheduler:
                         for w in sweep_workers.values())
             if futs:
                 futures_wait(futs, timeout=HALT_DEADLINE_S)
-        self.lanes.close_all()
+        if self._owns_lanes:
+            # a SHARED registry (loopd) outlives this run: the daemon
+            # closes it at its own shutdown, and other runs' queued
+            # work must not die with ours
+            self.lanes.close_all()
         self.tracer.close_open("stopped")
         if self.flight is not None:
             self.flight.close()

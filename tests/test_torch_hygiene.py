@@ -132,7 +132,10 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
 @pytest.mark.parametrize("module", ["clawker_tpu_torch.graft_entry",
                                     "clawker_tpu_torch.analytics.mesh",
                                     "clawker_tpu_torch.loop.scheduler",
-                                    "clawker_tpu_torch.cli"])
+                                    "clawker_tpu_torch.cli",
+                                    "clawker_tpu_torch.loopd.__main__",
+                                    "clawker_tpu_torch.hostproxy.__main__",
+                                    "clawker_tpu_torch.socketbridge.container"])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -143,6 +146,78 @@ def test_mesh_and_graft_entry_import_alone_without_jax(module):
         "                     or m.startswith(('jax.', 'clawker_tpu.'))))\n"
         "print(json.dumps({'leaked': leaked, 'built': sorted(build._libs)}))\n")
     assert doc == {"leaked": [], "built": []}
+
+
+@pytest.mark.parametrize("module", ["clawker_tpu_torch.hostproxy.__main__",
+                                    "clawker_tpu_torch.socketbridge.container"])
+def test_daemon_entry_points_load_no_torch(module):
+    """The host proxy's and the bridge's processes run without torch."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules}))\n")
+    assert doc == {"torch": False}
+
+
+def _literals(path: Path) -> list[str]:
+    """Every string literal in ``path`` but the docstrings."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if (isinstance(first, ast.Expr)
+                    and isinstance(first.value, ast.Constant)):
+                docs.add(id(first.value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_commands_the_port_runs_name_the_port(path):
+    """A ``-m`` target or exec command string that named the reference
+    would run JAX code under the port's name."""
+    bad = [lit for lit in _literals(ROOT / path)
+           if re.search(r"(?<![\w/])clawker_tpu(?!_torch)\.[a-z]", lit)]
+    assert bad == []
+
+
+def test_spawned_modules_and_exec_commands_name_the_port(tmp_path,
+                                                         monkeypatch):
+    """What the port forks and execs, read from the objects that fork
+    and exec: the host proxy's ``DaemonSpec``, loopd's ``spawn_daemon``
+    and the socket bridge's container command."""
+    import subprocess as sp
+    from types import SimpleNamespace
+
+    from clawker_tpu_torch import loopd
+    from clawker_tpu_torch.config import Settings
+    from clawker_tpu_torch.hostproxy import manager
+    from clawker_tpu_torch.socketbridge import host
+
+    cfg = SimpleNamespace(settings=Settings(), state_dir=tmp_path,
+                          logs_dir=tmp_path / "logs")
+    assert manager._spec(cfg).module == "clawker_tpu_torch.hostproxy"
+    argv = []
+
+    class Stop(Exception):
+        pass
+
+    def popen(args, **kw):
+        argv.append(args)
+        raise Stop
+
+    monkeypatch.setattr(sp, "Popen", popen)
+    with pytest.raises(Stop):
+        loopd.spawn_daemon(cfg)
+    assert argv == [[sys.executable, "-m", "clawker_tpu_torch.loopd"]]
+    assert "from clawker_tpu_torch.socketbridge.container import main" \
+        in host.CONTAINER_CMD[-1]
 
 
 def test_graft_entry_and_bench_lane_raise_without_a_gpu():

@@ -3,8 +3,10 @@
 Every twin runs the reference (``clawker_tpu``) and the port
 (``clawker_tpu_torch``) on their own ``FakeDriver`` with the same worker
 count, image behaviour and ``LoopSpec``, under an isolated ``TestEnv``
-whose settings turn the host proxy off (the port's start-time services
-are not ported yet; the reference honours the same switch).  Both runs
+whose settings turn the host proxy off: on a fake with several workers
+the reference's lanes race two proxy spawns and a loop's start can fail
+(tests/test_torch_hostproxy.py runs the twin on default settings, the
+proxy up, over one worker).  Both runs
 share one run id, so agent and container names agree.  They must give
 the same final ``status()`` rows, the same per-agent sequence of
 scheduler event kinds and the same per-agent sequence of journal record
@@ -19,6 +21,7 @@ import dataclasses
 import json
 import logging
 import io
+import socket
 import tarfile
 import threading
 import time
@@ -30,6 +33,7 @@ import yaml
 from click.testing import CliRunner
 
 import clawker_tpu.cli.factory as ref_factory
+import clawker_tpu.controlplane.bootstrap as ref_bootstrap
 import clawker_tpu.cli.root as ref_root
 import clawker_tpu.config as ref_config
 import clawker_tpu.engine.drivers as ref_drivers
@@ -49,6 +53,7 @@ import clawker_tpu_torch.engine.fake as port_fake
 import clawker_tpu_torch.errors as port_errors
 import clawker_tpu_torch.fleet.channels as port_channels
 import clawker_tpu_torch.health as port_health
+import clawker_tpu_torch.hostproxy.manager as port_manager
 import clawker_tpu_torch.loop as port_loop
 import clawker_tpu_torch.loop.scheduler as port_scheduler
 import clawker_tpu_torch.monitor.ledger as port_ledger
@@ -58,7 +63,7 @@ from clawker_tpu.testenv import TestEnv
 PROJECT = "twin"
 IMAGE = f"clawker-{PROJECT}:default"
 RUN_ID = "twinrun00001"
-# the host proxy is on by default and not ported yet; the soft watermark
+# the host proxy is off (see the module docstring); the soft watermark
 # sits below any real disk so the flight recorder keeps every span
 SETTINGS = """host_proxy:
   enable: false
@@ -113,7 +118,9 @@ class Run:
         return [e for a, e, _ in self.events if a == agent]
 
     def journal(self) -> list[dict]:
-        return self.sched.journal.read(self.sched.journal.path)
+        # through the class: a reference test restores ``RunJournal.read``
+        # as a plain function, which an instance would bind
+        return type(self.sched.journal).read(self.sched.journal.path)
 
     def journal_kinds(self, agent: str) -> list[str]:
         return [r["kind"] for r in self.journal() if r.get("agent") == agent]
@@ -409,7 +416,7 @@ def test_failover_policy_matches_reference(tmp_path, failover):
             while time.monotonic() < deadline and not any(
                     r["kind"] == "created" and r.get("worker") == "fake-1"
                     and r.get("epoch") == 0
-                    for r in sched.journal.read(sched.journal.path)):
+                    for r in type(sched.journal).read(sched.journal.path)):
                 time.sleep(0.005)
             status = sched.status()
             sched.cleanup(remove_containers=True)
@@ -643,17 +650,15 @@ def test_bring_up_on_the_cpu_builds_and_launches_nothing():
     (["--resume", "abc"], "", "--resume"),
     (["--ship-telemetry"], "", "telemetry shipper"),
     (["--metrics-port", "9100"], "", "metrics server"),
-    (["--daemon"], "", "loopd"),
     (["--workerd"], "", "workerd"),
-    (["--detach"], "", "loopd"),
-    (["--pods"], "", "loopd"),
+    (["--pods"], "", "federation"),
     ([], "capacity:\n  enable: true\n", "capacity"),
     ([], "telemetry:\n  otlp: true\n", "OTLP"),
     ([], "telemetry:\n  metrics_port: 9100\n", "metrics server"),
     ([], "monitoring:\n  shipper:\n    enable: true\n", "telemetry shipper"),
     ([], "loop:\n  warm_pool:\n    enable: true\n    depth: 2\n", "warm pool"),
 ], ids=["warm-pool", "worktrees", "gitguard", "resume", "ship-telemetry",
-        "metrics-port", "daemon", "workerd", "detach", "pods", "capacity",
+        "metrics-port", "workerd", "pods", "capacity",
         "otlp", "metrics-setting", "shipper-setting", "warm-pool-setting"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
                                         settings, needle):
@@ -687,10 +692,42 @@ def test_cli_names_an_unported_driver(tmp_path, monkeypatch, name):
     assert f"runtime driver {name!r} is not yet ported" in res.output
 
 
-def test_cli_loop_attach_names_the_missing_daemon():
-    res = CliRunner().invoke(port_cli.cli, ["loop", "attach", "run1"])
+@pytest.mark.parametrize("flag", ["--daemon", "--detach"])
+def test_cli_daemon_flags_need_an_answering_loopd(tmp_path, monkeypatch,
+                                                  flag):
+    """With no loopd answering, ``--daemon`` and ``--detach`` fail as the
+    reference's do, naming the daemon, and launch nothing."""
+    results = []
+    for pkg in ("ref", "port"):
+        m = PKGS[pkg]
+        tenv, proj = _env(tmp_path, pkg)
+        try:
+            drv = _driver(m, 1)
+            if pkg == "ref":
+                res = CliRunner().invoke(
+                    ref_root.cli, ["loop", "-p", "1", "-n", "1", flag],
+                    obj=ref_factory.Factory(cwd=proj, driver=drv))
+            else:
+                monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")
+                res = CliRunner().invoke(
+                    port_cli.cli, ["loop", "-p", "1", "-n", "1", flag],
+                    obj=port_cli.Factory(cwd=proj, driver=drv))
+        finally:
+            tenv.__exit__(None, None, None)
+        results.append((res.exit_code, "loopd" in res.output,
+                        len(drv.api.calls_named("container_create"))))
+    assert results[1] == results[0] == (1, True, 0)
+
+
+def test_cli_loop_attach_names_the_missing_daemon(tmp_path):
+    tenv, proj = _env(tmp_path, "port")
+    try:
+        res = CliRunner().invoke(port_cli.cli, ["loop", "attach", "run1"],
+                                 obj=port_cli.Factory(cwd=proj))
+    finally:
+        tenv.__exit__(None, None, None)
     assert res.exit_code == 1
-    assert "loopd" in res.output and "not yet ported" in res.output
+    assert "no loopd daemon answering" in res.output
 
 
 def test_chaos_plan_is_refused(tmp_path, monkeypatch):
@@ -752,8 +789,7 @@ def test_seeded_fake_driver_matches_reference(monkeypatch):
         port_drivers.get_driver(port_config.Settings(), override="k8s")
 
 
-@pytest.mark.parametrize("section", ["control_plane", "firewall",
-                                     "host_proxy"])
+@pytest.mark.parametrize("section", ["control_plane", "firewall"])
 def test_pre_start_services_name_each_unported_service(section):
     settings = port_config.Settings()
     for other in ("control_plane", "firewall", "host_proxy"):
@@ -764,21 +800,52 @@ def test_pre_start_services_name_each_unported_service(section):
         port_bootstrap.pre_start_services(cfg, None, "cid")
 
 
-def test_post_start_takes_the_degraded_socket_bridge_path():
-    settings = port_config.Settings()
-    settings.host_proxy.enable = False
-    cfg = SimpleNamespace(settings=settings)
-    port_bootstrap.pre_start_services(cfg, None, "cid")
-    seen: list[str] = []
-    handler = logging.Handler(logging.WARNING)
-    handler.emit = lambda rec: seen.append(rec.getMessage())
-    port_bootstrap.log.addHandler(handler)
+def test_pre_start_services_start_the_ports_host_proxy(tmp_path):
+    """``host_proxy.enable`` (the default) starts the port's proxy, and a
+    second start finds it up."""
+    tenv, proj = _env(tmp_path, "port")
     try:
-        port_bootstrap.post_start_services(cfg, None, "cid-1")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            free = s.getsockname()[1]
+        tenv.write_settings(_settings(
+            f"host_proxy:\n  enable: true\n  port: {free}\n"))
+        cfg = port_config.load_config(proj)
+        try:
+            port_bootstrap.pre_start_services(cfg, None, "cid")
+            pid = int((cfg.state_dir / "hostproxy.pid").read_text())
+            port_bootstrap.pre_start_services(cfg, None, "cid")
+            assert int((cfg.state_dir / "hostproxy.pid").read_text()) == pid
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes()
+            assert cmd.endswith(b"-m\0clawker_tpu_torch.hostproxy\0")
+        finally:
+            assert port_manager.stop(cfg)
     finally:
-        port_bootstrap.log.removeHandler(handler)
-    assert seen == ["event=socketbridge_unavailable container=cid-1 "
-                    "error=the socket bridge is not yet ported"]
+        tenv.__exit__(None, None, None)
+
+
+def test_post_start_takes_the_degraded_socket_bridge_path():
+    """An engine the bridge cannot reach takes the reference's degraded
+    path: the same ``socketbridge_unavailable`` warning, no raise."""
+    seen: list[list[str]] = []
+    for bootstrap, config in ((ref_bootstrap, ref_config),
+                              (port_bootstrap, port_config)):
+        settings = config.Settings()
+        settings.host_proxy.enable = False
+        cfg = SimpleNamespace(settings=settings)
+        bootstrap.pre_start_services(cfg, None, "cid")
+        lines: list[str] = []
+        handler = logging.Handler(logging.WARNING)
+        handler.emit = lambda rec, lines=lines: lines.append(rec.getMessage())
+        bootstrap.log.addHandler(handler)
+        try:
+            bootstrap.post_start_services(cfg, None, "cid-1")
+        finally:
+            bootstrap.log.removeHandler(handler)
+        seen.append(lines)
+    assert seen[1] == seen[0] == [
+        "event=socketbridge_unavailable container=cid-1 error='NoneType' "
+        "object has no attribute 'engine'"]
 
 
 @pytest.mark.parametrize("hostproxy,monitoring", [(True, False),
