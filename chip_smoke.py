@@ -94,7 +94,25 @@
    ``sentinel.tick`` span scored on the card lands in the daemon's flight
    record; (c) no proxy or loopd pidfile is left.  One line per case
    with its host ms.
-8. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+8. workerd phase, its dirs and sockets under ``build/chip_smoke/workerd/``:
+   (a) (6a)'s run over workerd, one ``WorkerdServer`` per fake worker on
+   its local engine view and a ``WorkerdExecutor`` for each: exactly 8
+   ``container_create`` calls, all through the local views and no launch
+   call through the remote ones, every server executed intents and
+   streamed exits, each scored sentinel tick one K3 and one K1 on the
+   card, the burst agent hottest and flagged, and ``tracing.merge_run``
+   over the run's flight records one rooted tree per iteration with its
+   ``workerd.*`` children and no ``gap``; (b) the fake-WAN legs of the
+   reference's ``bench_workerd_rtt_independence`` (8 loops, 4 workers, 4
+   iterations of 0.15 s, 50 ms injected RTT), workerd and direct at 0
+   and 50 ms: the workerd leg's ratio at most 1.5; (c) an in-process
+   ``LoopdServer(executors=<factory>)`` with its sentinel on the card
+   hosts (a)'s run: the status RPC reads every worker's workerd
+   ``live``, one is killed mid-run, its row turns ``degraded`` and its
+   loops finish over the direct path, each scored tick one K3 and one
+   K1; (d) ``workerd start`` / ``status`` / ``stop`` forked, no daemon
+   left.  One line per case with its host ms.
+9. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -1686,6 +1704,26 @@ class TickLog:
                   f"{name}: an idle tick scored {n} windows with launches "
                   f"{counts}")
 
+    def check_run(self, name: str) -> list:
+        """Every tick held, and the run's launches: one K3 and one K1 a
+        scored tick on one card, K5 and a K1 a card over several; ->
+        the scored ticks."""
+        import torch
+
+        scored = [entry for entry in self.ticks if entry[0]]
+        check(scored, f"{name}: the sentinel scored no tick")
+        for entry in self.ticks:
+            self.check(name, entry, scored=bool(entry[0]))
+        cards = torch.cuda.device_count()
+        launches = self.launches()
+        fits = launches["anomaly_fit"] if cards == 1 else sum(
+            1 for entry in scored if entry[1]["anomaly_fit_shard_reduce"])
+        check(fits == len(scored)
+              and launches["anomaly_score"] == cards * len(scored),
+              f"{name}: launches {dict(launches)} over {len(scored)} scored "
+              f"ticks on {cards} card(s)")
+        return scored
+
     def tick(self, name: str, *, scored: bool) -> int:
         self.sentinel.refresh_once()
         self.check(name, self.ticks[-1], scored=scored)
@@ -2037,12 +2075,13 @@ def _loop_egress(agents: list[str], hot: str,
     return out
 
 
-def _loop_run(proj: Path, attach, *, writer):
+def _loop_run(proj: Path, attach, *, writer, pod=None):
     """One in-process run of the port's scheduler over the fake driver:
     ``attach(sched, cfg, driver)`` wires the rider (and returns it, not
     yet started); ``writer(cfg, agents)`` appends the fleet's egress on
-    a thread while the loops run.  -> (scheduler, rider, agent names,
-    run wall ms)."""
+    a thread while the loops run; ``pod(cfg, driver)`` -> an executor
+    set puts the launches on workerd.  -> (scheduler, rider, agent
+    names, run wall ms)."""
     import threading
 
     from clawker_tpu_torch.config import load_config
@@ -2057,7 +2096,8 @@ def _loop_run(proj: Path, attach, *, writer):
         api.set_behavior(LOOP_IMAGE, exit_behavior(
             b"iteration done\n", 0, delay=LOOP_ITER_S))
     sched = LoopScheduler(cfg, drv, LoopSpec(parallel=LOOP_AGENTS,
-                                             iterations=LOOP_ITERATIONS))
+                                             iterations=LOOP_ITERATIONS),
+                          executors=pod(cfg, drv) if pod else None)
     rider = attach(sched, cfg, drv)
     agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
     fill = threading.Thread(target=writer, args=(cfg, agents),
@@ -2125,10 +2165,7 @@ def loop_sentinel_case(base: Path, device, stages: dict):
         flags = s.flags()
         sched.cleanup(remove_containers=True)
     hot = agents[LOOP_HOT_SLOT]
-    scored = [entry for entry in log.ticks if entry[0]]
-    for entry in log.ticks:
-        log.check(name, entry, scored=bool(entry[0]))
-    check(scored, f"{name}: the sentinel scored no tick during the run")
+    scored = log.check_run(name)
     _check_loop_rows(name, rows)
     container = f"clawker.{LOOP_PROJECT}.{hot}"
     check(max(peaks, key=peaks.get) == container,
@@ -2141,18 +2178,6 @@ def loop_sentinel_case(base: Path, device, stages: dict):
     check(set(snapshot) == set(agents),
           f"{name}: behaviour snapshot holds {sorted(snapshot)}")
     check(not any(audit.values()), f"{name}: audit {audit}")
-    # each tick's own launches were held by ``log.check`` above (one K3
-    # and one K1 on one card; K5 and one K1 a card over several)
-    import torch
-
-    cards = torch.cuda.device_count()
-    launches = log.launches()
-    fits = launches["anomaly_fit"] if cards == 1 else sum(
-        1 for entry in scored if entry[1]["anomaly_fit_shard_reduce"])
-    check(fits == len(scored)
-          and launches["anomaly_score"] == cards * len(scored),
-          f"{name}: launches {dict(launches)} over {len(scored)} scored "
-          f"ticks on {cards} card(s)")
     print(f"loop (a) {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations over "
           f"{LOOP_WORKERS} fake workers ({LOOP_ITER_S} s each) with the "
           f"sentinel ticking every {LOOP_TICK_S} s: run wall {wall!r} ms, "
@@ -2162,7 +2187,7 @@ def loop_sentinel_case(base: Path, device, stages: dict):
           f"(peak z {peaks[container]}), flags "
           f"{sorted((f['agent'], f['kind']) for f in flags)}")
     print(f"loop (a): {log.stage_line()}")
-    return launches
+    return log.launches()
 
 
 def loop_watch_case(base: Path, device):
@@ -2339,8 +2364,6 @@ def loopd_inproc_case(base: Path, device, stages: dict):
     subprocess must read the daemon (``source: loopd``) and exit 2."""
     import threading
 
-    import torch
-
     from clawker_tpu_torch.config import load_config
     from clawker_tpu_torch.engine.drivers import FakeDriver
     from clawker_tpu_torch.engine.fake import exit_behavior
@@ -2425,18 +2448,8 @@ def loopd_inproc_case(base: Path, device, stages: dict):
     check(any(r["agent"] == container and r["flagged"]
               for r in sent["rows"]),
           f"{name}: {container} not flagged in {sent['flags']}")
-    scored = [entry for entry in log.ticks if entry[0]]
-    check(scored, f"{name}: the daemon sentinel scored no tick")
-    for entry in log.ticks:
-        log.check(name, entry, scored=bool(entry[0]))
-    cards = torch.cuda.device_count()
+    scored = log.check_run(name)
     launches = log.launches()
-    fits = launches["anomaly_fit"] if cards == 1 else sum(
-        1 for entry in scored if entry[1]["anomaly_fit_shard_reduce"])
-    check(fits == len(scored)
-          and launches["anomaly_score"] == cards * len(scored),
-          f"{name}: launches {dict(launches)} over {len(scored)} scored "
-          f"ticks on {cards} card(s)")
     check(proc.returncode == 2,
           f"{name}: fleet anomaly exited {proc.returncode}: "
           f"{proc.stderr[-2000:]}")
@@ -2570,13 +2583,14 @@ def hostproxy_case(base: Path) -> None:
 
 
 def no_daemon_left() -> None:
-    """(c): no host proxy or loopd pidfile under any state dir the loop
-    and loopd phases used."""
+    """No host proxy, loopd or workerd pidfile under any state dir the
+    loop, loopd and workerd phases used."""
     left = [str(p) for d in _ISOLATED
-            for p in (d / "hostproxy.pid", d / "loopd" / "loopd.pid")
+            for p in (d / "hostproxy.pid", d / "loopd" / "loopd.pid",
+                      d / "workerd" / "workerd.pid")
             if p.exists()]
-    check(not left, f"loopd (c): pidfiles left behind: {left}")
-    print(f"loopd (c): no proxy or loopd pidfile left in {len(_ISOLATED)} "
+    check(not left, f"pidfiles left behind: {left}")
+    print(f"no proxy, loopd or workerd pidfile left in {len(_ISOLATED)} "
           "state dirs")
 
 
@@ -2592,6 +2606,413 @@ def loopd_phase(device) -> collections.Counter:
     print(f"loopd launches: {json.dumps(launches)}; phase wall "
           f"{(time.perf_counter() - t0) * 1e3!r} ms")
     return launches
+
+
+# ---------------------------------------------------------- workerd phase
+
+
+WD_RTT_S = 0.05                 # the reference bench's injected WAN RTT
+WD_RTT_ITERATIONS, WD_RTT_ITER_S = 4, 0.15
+WD_RTT_RATIO_MAX = 1.5          # the reference bench's gate
+WD_INTENT_DEADLINE_S = 2.0      # (c): an intent pending at the kill fails
+#                                 over to the rescue pass this fast
+WD_SETTINGS = ("loop:\n  storage_pressure:\n    soft_free_pct: 0.001\n"
+               "    hard_free_pct: 0.0005\n")
+
+
+def _record_calls(drv) -> list[list[tuple[str, bool]]]:
+    """Per fake worker, every gated engine call as (name, through the
+    worker-resident view): the fault gate's ``_gate`` wrapped on each
+    instance."""
+    seen: list[list[tuple[str, bool]]] = [[] for _ in drv.gates]
+    for i, gate in enumerate(drv.gates):
+        inner = gate._gate
+
+        def gated(name, *, local=False, _inner=inner, _seen=seen[i]):
+            _seen.append((name, local))
+            return _inner(name, local=local)
+
+        gate._gate = gated
+    return seen
+
+
+def _launch_calls(calls, *, local: bool, name: str | None = None) -> int:
+    names = (name,) if name else ("container_create", "container_start")
+    return sum(1 for n, loc in calls if loc == local and n in names)
+
+
+def _wd_servers(sock_dir: Path, cfg, drv):
+    """One ``WorkerdServer`` per fake worker on its local engine view:
+    -> (servers, worker id -> socket)."""
+    from clawker_tpu_torch.workerd.server import WorkerdServer
+
+    sock_dir.mkdir(parents=True, exist_ok=True)
+    servers, socks = [], {}
+    for i, w in enumerate(drv.workers()):
+        socks[w.id] = sock_dir / f"wd-{i}.sock"
+        servers.append(WorkerdServer(cfg, drv.local_engine(i),
+                                     worker_id=w.id,
+                                     sock_path=socks[w.id]).start())
+    return servers, socks
+
+
+def _wd_executors(socks: dict, *, rtt_s: float = 0.0,
+                  intent_deadline_s: float = 60.0):
+    from clawker_tpu_torch.workerd.executor import (ExecutorSet,
+                                                    WorkerdExecutor)
+
+    return ExecutorSet({wid: WorkerdExecutor(
+        wid, sock, rtt_s=rtt_s, intent_deadline_s=intent_deadline_s)
+        for wid, sock in socks.items()})
+
+
+def _fake_pod(iter_s: float):
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.fake import exit_behavior
+
+    drv = FakeDriver(n_workers=LOOP_WORKERS)
+    for api in drv.apis:
+        api.add_image(LOOP_IMAGE)
+        api.set_behavior(LOOP_IMAGE, exit_behavior(
+            b"iteration done\n", 0, delay=iter_s))
+    return drv
+
+
+def workerd_inproc_case(base: Path, device, stages: dict):
+    """(a): loop (a)'s run with the launch data plane on workerd."""
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG
+    from clawker_tpu_torch.sentinel import FleetSentinel
+    from clawker_tpu_torch.tracing import merge_run
+
+    name = "workerd (a)"
+    bus_records = []
+    box = {}
+
+    def attach(sched, cfg, drv):
+        s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                          interval_s=LOOP_TICK_S,
+                          train_steps=SENTINEL_STEPS)
+        box["log"] = TickLog(s, stages)
+        sched.attach_sentinel(s)
+        sched.events.add_tap(bus_records.append)
+        return s
+
+    def pod(cfg, drv):
+        box["calls"] = _record_calls(drv)
+        box["servers"], socks = _wd_servers(base / "sock", cfg, drv)
+        box["execset"] = _wd_executors(socks)
+        return box["execset"]
+
+    def writer(cfg, agents):
+        streams = _loop_egress(agents, agents[LOOP_HOT_SLOT], time.time())
+        for wid, recs in streams.items():
+            _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+
+    with _isolated_dirs(base / "dirs", WD_SETTINGS) as proj:
+        try:
+            sched, s, agents, wall = _loop_run(proj, attach, writer=writer,
+                                               pod=pod)
+            log = box["log"]
+            want = sum(len(v) for v in _loop_egress(agents, agents[0],
+                                                    0).values())
+            deadline = time.perf_counter() + 10
+            while s._scored_at[0] < want and time.perf_counter() < deadline:
+                time.sleep(LOOP_TICK_S)
+            s.stop()
+            sched.events.flush()
+            rows = sched.status()
+            peaks = {r["agent"]: r["peak_z"] for r in s.rows()}
+            flags = s.flags()
+            drv = sched.driver
+            creates = sum(len(api.calls_named("container_create"))
+                          for api in drv.apis)
+            stats = [dict(srv.stats) for srv in box["servers"]]
+            sched.cleanup(remove_containers=True)
+        finally:
+            if "execset" in box:
+                box["execset"].close_all()
+            for srv in box.get("servers", ()):
+                srv.stop()
+        t0 = time.perf_counter()
+        res = merge_run(sched.cfg.logs_dir, sched.loop_id)
+        merge_ms = (time.perf_counter() - t0) * 1e3
+    calls = box["calls"]
+    hot = agents[LOOP_HOT_SLOT]
+    scored = log.check_run(name)
+    _check_loop_rows(name, rows)
+    local_creates = sum(_launch_calls(c, local=True,
+                                      name="container_create")
+                        for c in calls)
+    remote = sum(_launch_calls(c, local=False) for c in calls)
+    check(creates == local_creates == LOOP_AGENTS and remote == 0,
+          f"{name}: {creates} creates, {local_creates} on the local views, "
+          f"{remote} launch calls on the remote views")
+    check(all(st["intents"] > 0 and st["events"] >= 2 * 2 * LOOP_ITERATIONS
+              for st in stats), f"{name}: server stats {stats}")
+    container = f"clawker.{LOOP_PROJECT}.{hot}"
+    check(max(peaks, key=peaks.get) == container,
+          f"{name}: hottest {max(peaks, key=peaks.get)} (peak z {peaks}), "
+          f"want {container}")
+    check(any(r.event == ANOMALY_FLAG and r.agent == container
+              for r in bus_records),
+          f"{name}: no {ANOMALY_FLAG} for {container} on the run's bus "
+          f"(flags {flags})")
+    iters = [r for r in res.roots if r.record.name == "iteration"]
+    others = {r.record.name for r in res.roots} - {"iteration"}
+    keys = {(r.record.agent, r.record.attrs.get("iteration")) for r in iters}
+    check(len(iters) == len(keys) == LOOP_AGENTS * LOOP_ITERATIONS
+          and others <= {"sentinel.tick"} and res.gaps == 0
+          and all(any(c.record.name.startswith("workerd.")
+                      for c in r.children) for r in iters),
+          f"{name}: merged {len(iters)} iteration trees ({len(keys)} "
+          f"distinct), other roots {others}, {res.gaps} gaps, sources "
+          f"{res.sources}")
+    remote_spans = collections.Counter(
+        c.record.name for r in iters for c in r.children
+        if c.record.name.startswith("workerd."))
+    print(f"workerd (a) {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations "
+          f"over {LOOP_WORKERS} fake workers' workerd ({LOOP_ITER_S} s "
+          f"each), sentinel every {LOOP_TICK_S} s: run wall {wall!r} ms, "
+          f"{creates} creates all local, intents per server "
+          f"{[st['intents'] for st in stats]}, event batches per server "
+          f"{[st['batches'] for st in stats]}; {len(log.ticks)} ticks, "
+          f"{len(scored)} scored, {hot} hottest (peak z {peaks[container]}),"
+          f" flags {sorted((f['agent'], f['kind']) for f in flags)}; merge "
+          f"{merge_ms!r} ms: {len(iters)} iteration trees, remote children "
+          f"{dict(remote_spans)}, sources {res.sources}")
+    print(f"workerd (a): {log.stage_line()}")
+    return log.launches()
+
+
+def workerd_rtt_case(base: Path) -> None:
+    """(b): the reference bench's four fake-WAN legs."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+
+    name = "workerd (b)"
+
+    def leg(cfg, tag: str, rtt_s: float, workerd: bool) -> float:
+        drv = _fake_pod(WD_RTT_ITER_S)
+        servers, execset = [], None
+        if workerd:
+            servers, socks = _wd_servers(base / "sock" / tag, cfg, drv)
+            execset = _wd_executors(socks, rtt_s=rtt_s,
+                                    intent_deadline_s=30.0)
+        drv.set_rtt_all(rtt_s)
+        try:
+            sched = LoopScheduler(cfg, drv, LoopSpec(
+                parallel=LOOP_AGENTS, iterations=WD_RTT_ITERATIONS,
+                image=LOOP_IMAGE), executors=execset)
+            t0 = time.perf_counter()
+            sched.start()
+            loops = sched.run(poll_s=0.2)
+            wall = time.perf_counter() - t0
+            check(len(loops) == LOOP_AGENTS and all(
+                l.status == "done" and l.iteration == WD_RTT_ITERATIONS
+                for l in loops), f"{name}: leg {tag} ended "
+                f"{[(l.status, l.iteration) for l in loops]}")
+            drv.set_rtt_all(0.0)        # cleanup off the fake WAN
+            sched.cleanup(remove_containers=True)
+        finally:
+            if execset is not None:
+                execset.close_all()
+            for srv in servers:
+                srv.stop()
+            drv.close()
+        return wall
+
+    with _isolated_dirs(base / "dirs") as proj:
+        cfg = load_config(proj)
+        walls = {(wd, rtt): leg(cfg, f"{'wd' if wd else 'direct'}"
+                                     f"{int(rtt * 1000)}", rtt, wd)
+                 for wd in (True, False) for rtt in (0.0, WD_RTT_S)}
+    wd_ratio = walls[True, WD_RTT_S] / walls[True, 0.0]
+    direct_ratio = walls[False, WD_RTT_S] / walls[False, 0.0]
+    print(f"workerd (b) fake WAN, {LOOP_AGENTS} loops x {WD_RTT_ITERATIONS} "
+          f"iterations of {WD_RTT_ITER_S} s over {LOOP_WORKERS} workers: "
+          f"workerd wall {walls[True, 0.0]!r} s at 0 ms, "
+          f"{walls[True, WD_RTT_S]!r} s at {WD_RTT_S * 1000:.0f} ms (ratio "
+          f"{wd_ratio!r}); direct {walls[False, 0.0]!r} s at 0 ms, "
+          f"{walls[False, WD_RTT_S]!r} s at {WD_RTT_S * 1000:.0f} ms (ratio "
+          f"{direct_ratio!r})")
+    check(wd_ratio <= WD_RTT_RATIO_MAX,
+          f"{name}: the workerd leg's RTT ratio {wd_ratio!r} > "
+          f"{WD_RTT_RATIO_MAX}")
+
+
+def workerd_loopd_case(base: Path, device, stages: dict):
+    """(c): loopd hosting (a)'s run over workerd, one workerd killed
+    mid-run."""
+    import threading
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loopd.client import LoopdClient
+    from clawker_tpu_torch.loopd.server import LoopdServer
+
+    name = "workerd (c)"
+    with _isolated_dirs(base / "dirs", LOOPD_SETTINGS) as proj:
+        cfg = load_config(proj)
+        drv = _fake_pod(LOOP_ITER_S)
+        calls = _record_calls(drv)
+        servers, socks = _wd_servers(base / "sock", cfg, drv)
+        made = []
+
+        def factory():
+            made.append(_wd_executors(
+                socks, intent_deadline_s=WD_INTENT_DEADLINE_S))
+            return made[-1]
+
+        srv = None
+        try:
+            t0 = time.perf_counter()
+            srv = LoopdServer(cfg, drv, executors=factory,
+                              device=device).start()
+            start_ms = (time.perf_counter() - t0) * 1e3
+            log = TickLog(srv.sentinel, stages)
+            out: dict = {}
+            acked = threading.Event()
+            client = threading.Thread(
+                target=_loopd_client_run, args=(srv.sock_path, out, "wd",
+                                                acked),
+                name="workerd-loopd-client")
+            t0 = time.perf_counter()
+            client.start()
+            check(acked.wait(30), f"{name}: the submit was not acknowledged")
+            (run_id,) = list(srv.runs)
+            agents = [f"loop-{run_id[:6]}-{i}" for i in range(LOOP_AGENTS)]
+            hot = agents[LOOP_HOT_SLOT]
+            streams = _loop_egress(agents, hot, time.time())
+            for wid, recs in streams.items():
+                _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+            with LoopdClient(srv.sock_path) as c:
+                def rows():
+                    return next((r["agents"] for r in c.status()["runs"]
+                                 if r["run"] == run_id), [])
+
+                deadline = time.perf_counter() + 10
+                while time.perf_counter() < deadline and not (
+                        len(rows()) == LOOP_AGENTS
+                        and all(a["status"] == "running"
+                                and a["iteration"] == 0 for a in rows())):
+                    time.sleep(0.005)
+                live = c.status()["workerd"]
+                first = rows()
+                killed = drv.workers()[0].id
+                mark = len(calls[0])
+                t_kill = time.perf_counter()
+                servers[0].kill()
+                client.join(60)
+                wall = (time.perf_counter() - t0) * 1e3
+                after = c.status()["workerd"]
+            want = sum(len(v) for v in streams.values())
+            deadline = time.perf_counter() + 10
+            while (srv.sentinel._scored_at[0] < want
+                   and time.perf_counter() < deadline):
+                time.sleep(LOOP_TICK_S)
+            direct_starts = _launch_calls(calls[0][mark:], local=False,
+                                          name="container_start")
+            closed = all(not ex.live() for ex in made[0].executors.values())
+        finally:
+            if srv is not None:
+                srv.stop()
+            for w in servers:
+                w.stop()
+            drv.close()
+    ack, final = out.get("wd", (None, None))
+    all_live = {w: "live" for w in socks}
+    check(len(first) == LOOP_AGENTS and live == all_live,
+          f"{name}: rows while every loop ran {first}, workerd {live}")
+    check(after == dict(all_live, **{killed: "degraded"}),
+          f"{name}: workerd rows after the kill {after}")
+    check(final and final["ok"] and all(
+        a["status"] == "done" and a["iteration"] == LOOP_ITERATIONS
+        for a in final["agents"]), f"{name}: run {final}")
+    check(direct_starts >= 1,
+          f"{name}: no direct start on {killed} after its workerd died")
+    check(len(made) == 1 and closed,
+          f"{name}: {len(made)} executor sets made, closed {closed}")
+    scored = log.check_run(name)
+    print(f"workerd (c) loopd over workerd: start {start_ms!r} ms; one "
+          f"client x {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations over "
+          f"{LOOP_WORKERS} workers' workerd: rows {live} while running; "
+          f"{killed}'s workerd killed {(t_kill - t0) * 1e3!r} ms in, row "
+          f"{after[killed]}, {direct_starts} direct starts there after; "
+          f"run wall {wall!r} ms, {len(log.ticks)} ticks, {len(scored)} "
+          f"scored on {scored[-1][3].device}")
+    print(f"workerd (c): {log.stage_line()}")
+    return log.launches()
+
+
+def _pid_running(pid: int, wait_s: float = 5.0) -> bool:
+    """Whether ``pid`` still runs after up to ``wait_s``: a process that
+    exited but waits to be reaped (state Z, its parent gone) has
+    stopped."""
+    deadline = time.perf_counter() + wait_s
+    while True:
+        try:
+            os.kill(pid, 0)
+            state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1]
+        except OSError:
+            return False
+        if state.split()[0] == "Z":
+            return False
+        if time.perf_counter() > deadline:
+            return True
+        time.sleep(0.05)
+
+
+def workerd_forked_case(base: Path) -> None:
+    """(d): ``workerd start`` forks ``python -m clawker_tpu_torch.workerd``
+    over its own seeded fake driver; ``status`` reads it live; ``stop``
+    ends it."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.workerd import pidfile_path, socket_path
+
+    name = "workerd (d)"
+    with _isolated_dirs(base) as proj:
+        cfg = load_config(proj)
+        env = dict(os.environ, CLAWKER_TPU_DRIVER="fake",
+                   CLAWKER_TPU_FAKE_IMAGES=LOOP_IMAGE,
+                   PYTHONPATH=str(ROOT))
+        start, start_ms = _cli(["workerd", "start"], proj, env)
+        try:
+            check(start.returncode == 0 and socket_path(cfg).exists(),
+                  f"{name}: workerd start exited {start.returncode}: "
+                  f"{start.stderr[-2000:]} {start.stdout[-2000:]}")
+            pid = int(pidfile_path(cfg).read_text())
+            status, status_ms = _cli(["workerd", "status", "--json"], proj,
+                                     env)
+        finally:
+            stop, stop_ms = _cli(["workerd", "stop"], proj, env)
+        check(status.returncode == 0
+              and json.loads(status.stdout)["local"]["pid"] == pid,
+              f"{name}: workerd status exited {status.returncode}: "
+              f"{status.stdout[-2000:]} {status.stderr[-2000:]}")
+        check(stop.returncode == 0 and not socket_path(cfg).exists()
+              and not pidfile_path(cfg).exists(),
+              f"{name}: workerd stop exited {stop.returncode}: "
+              f"{stop.stderr[-2000:]}")
+    check(not _pid_running(pid),
+          f"{name}: workerd pid {pid} still running after stop")
+    print(f"workerd (d) forked: workerd start {start_ms!r} ms, status "
+          f"{status_ms!r} ms, stop {stop_ms!r} ms")
+
+
+def workerd_phase(device) -> collections.Counter:
+    """Drives the port's workerd under ``loop`` and loopd; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "workerd"
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    with stage_timers({}) as stages:
+        total.update(workerd_inproc_case(out / "a", device, stages))
+    workerd_rtt_case(out / "b")
+    with stage_timers({}) as stages:
+        total.update(workerd_loopd_case(out / "c", device, stages))
+    workerd_forked_case(out / "d")
+    no_daemon_left()
+    print(f"workerd launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
 
 
 def check_no_reference_imports() -> None:
@@ -2694,6 +3115,8 @@ def main() -> int:
     for k, v in loop_phase(device).items():
         main_path["launches"][k] += v
     for k, v in loopd_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in workerd_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

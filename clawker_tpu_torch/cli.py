@@ -14,8 +14,11 @@ submits to this project's loopd when one answers (``--detach``, ``loop
 attach``), else runs the port's own
 :class:`~clawker_tpu_torch.loop.LoopScheduler` in process over the
 driver that ``CLAWKER_TPU_DRIVER`` / settings ``runtime.driver`` names,
-with the anomaly riders scoring on the GPU.  ``loopd start|stop|status``
-is ``clawker_tpu/cli/cmd_loopd.py``.  The device comes from
+with the anomaly riders scoring on the GPU and the launch data plane on
+any workerd that answers (``--workerd/--no-workerd``).  ``loopd
+start|stop|status`` is ``clawker_tpu/cli/cmd_loopd.py``, ``workerd
+start|stop|status`` ``clawker_tpu/cli/cmd_workerd.py`` and ``trace``
+``clawker_tpu/cli/cmd_trace.py``.  The device comes from
 ``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the plain
 PyTorch versions.
 """
@@ -467,9 +470,12 @@ def _not_ported(what: str) -> click.ClickException:
                    "one answers); --daemon requires one, --no-daemon "
                    "always runs in process.")
 @click.option("--workerd/--no-workerd", "use_workerd", default=None,
-              help="--no-workerd keeps the direct engine path, which the "
-                   "port always takes; --workerd is refused (no workerd "
-                   "yet).")
+              help="Route the launch data plane through worker-resident "
+                   "workerd daemons: batched intents + events over one "
+                   "channel per worker instead of a WAN round trip per "
+                   "engine call.  Default: use any workerd that answers "
+                   "(settings workerd.enable); workers without one keep "
+                   "the direct path.")
 @click.option("--detach", is_flag=True,
               help="Daemon mode only: return once loopd acknowledges the "
                    "run; re-attach with `loop attach <run>`.")
@@ -594,10 +600,6 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         raise click.ClickException(
             "--detach needs a loopd daemon to own the run (start one "
             "with `loopd start`)")
-    if use_workerd:
-        raise click.ClickException(
-            "--workerd needs the workerd daemon, which is not yet ported "
-            "to clawker_tpu_torch: the port calls the engines directly")
     try:
         driver = f.driver
     except ClawkerError as e:
@@ -628,9 +630,13 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     if settings.capacity.enable:
         raise _not_ported("the elastic capacity controller (settings "
                           "capacity.enable)")
+    executors = _discover_workerd(cfg, driver, use_workerd)
     try:
-        sched = LoopScheduler(cfg, driver, spec, on_event=on_event)
+        sched = LoopScheduler(cfg, driver, spec, on_event=on_event,
+                              executors=executors)
     except ClawkerError as e:
+        if executors is not None:
+            executors.close_all()
         raise click.ClickException(str(e))
     # fleet anomaly scoring rides along: scores land in the status JSON
     # and as scheduler events past the threshold.  With --sentinel (or
@@ -669,6 +675,8 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         loops = sched.run()
     finally:
         watch.stop()
+        if executors is not None:
+            executors.close_all()
     if not keep:
         sched.cleanup(remove_containers=True)
     stor = sched.storage_summary()
@@ -690,6 +698,24 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     # failover outcome before stop): that is not a success either
     if any(l.status in ("failed", "orphaned") for l in loops):
         raise SystemExit(1)
+
+
+def _discover_workerd(cfg, driver, use_workerd):
+    """ExecutorSet for the in-process scheduler, or None (direct)."""
+    if use_workerd is False:
+        return None
+    from .workerd.executor import discover_executors
+
+    execset = discover_executors(cfg, driver)
+    if not execset:
+        if use_workerd:
+            raise click.ClickException(
+                "--workerd: no workerd answering on any worker (start one "
+                "per worker with `workerd start`)")
+        return None
+    click.echo(f"workerd: launch data plane on {len(execset)} worker(s) "
+               "(batched intents over one channel each)", err=True)
+    return execset
 
 
 # ------------------------------------------------------------ daemon mode
@@ -989,6 +1015,239 @@ def loopd_status(ctx, fmt, as_json):
         click.echo(f"tenant {tenant}: weight={t['weight']} "
                    f"inflight={t['inflight']} queued={t['queued']} "
                    f"dispatched={t['dispatched']}")
+
+
+# ---------------------------------------------------------------- workerd
+
+
+@cli.group("workerd")
+def workerd_group():
+    """Worker-resident launch daemon (docs/workerd.md)."""
+
+
+@workerd_group.command("start")
+@click.option("--driver", "driver_override", default="",
+              help="Runtime driver the daemon serves (default: settings "
+                   "runtime.driver).")
+@click.pass_context
+def workerd_start(ctx, driver_override):
+    """Start workerd detached on THIS host.
+
+    The daemon binds a 0600 unix socket in a 0700 runtime dir under the
+    state dir and executes launch intents against this host's engine;
+    it outlives this CLI.  Idempotent: a daemon already answering is
+    left alone.
+    """
+    from .errors import ClawkerError
+    from .workerd import socket_path, spawn_daemon
+    from .workerd.executor import ping_socket
+
+    f = _factory(ctx)
+    sock = socket_path(f.config)
+    if ping_socket(sock):
+        click.echo(f"workerd already running on {sock}")
+        return
+    try:
+        pid = spawn_daemon(f.config, cwd=f.cwd,
+                           driver_override=driver_override)
+    except ClawkerError as e:
+        raise click.ClickException(str(e))
+    click.echo(f"workerd started (pid {pid}) on {sock}")
+
+
+@workerd_group.command("status")
+@click.option("--json", "as_json", is_flag=True, help="Status as JSON.")
+@click.pass_context
+def workerd_status(ctx, as_json):
+    """Probe the local workerd (exit 1 when nothing answers).
+
+    Also renders per-worker liveness for the active runtime driver:
+    ``live`` (socket answers), ``degraded`` (socket exists, daemon
+    dead -- that worker's data plane silently fell back to the WAN
+    path), ``absent`` (never provisioned).
+    """
+    import socket as _s
+
+    from .agentd import protocol
+    from .errors import ClawkerError
+    from .workerd import liveness, socket_path
+
+    f = _factory(ctx)
+    try:
+        driver = f.driver
+    except ClawkerError as e:
+        raise click.ClickException(str(e))
+    sock = socket_path(f.config)
+    doc = None
+    try:
+        with _s.socket(_s.AF_UNIX, _s.SOCK_STREAM) as s:
+            s.settimeout(2.0)
+            s.connect(str(sock))
+            protocol.write_msg(s, {"type": "status"})
+            doc = protocol.read_msg(s)
+    except OSError:
+        doc = None
+    fleet = liveness(f.config, driver)
+    if as_json:
+        click.echo(json.dumps({"local": doc, "workers": fleet}, indent=2))
+    else:
+        if doc is not None:
+            click.echo(f"workerd pid {doc.get('pid')} on {sock}: "
+                       f"{doc.get('intents', 0)} intent(s), "
+                       f"{doc.get('events', 0)} event(s) in "
+                       f"{doc.get('batches', 0)} batch(es), "
+                       f"uptime {doc.get('uptime_s', 0)}s")
+        else:
+            click.echo(f"no workerd answering on {sock}", err=True)
+        for wid in sorted(fleet):
+            click.echo(f"{wid}\t{fleet[wid]}")
+    if doc is None:
+        raise SystemExit(1)
+
+
+@workerd_group.command("stop")
+@click.pass_context
+def workerd_stop(ctx):
+    """Stop a running workerd (graceful; in-flight intents finish on
+    the local lane, clients degrade to the direct path)."""
+    import socket as _s
+
+    from .agentd import protocol
+    from .util.daemon import DaemonSpec
+    from .workerd import pidfile_path, socket_path
+
+    f = _factory(ctx)
+    sock = socket_path(f.config)
+    pid_path = pidfile_path(f.config)
+    try:
+        pid = int(pid_path.read_text().strip())
+    except (OSError, ValueError):
+        pid = 0
+    try:
+        with _s.socket(_s.AF_UNIX, _s.SOCK_STREAM) as s:
+            s.settimeout(2.0)
+            s.connect(str(sock))
+            protocol.write_msg(s, {"type": "shutdown"})
+            protocol.read_msg(s)
+    except OSError:
+        # nothing answering: sweep a stale pidfile/socket best-effort
+        if not DaemonSpec._pid_alive(pid):
+            raise click.ClickException(
+                f"no workerd answering on {sock} (and no live pidfile)")
+        DaemonSpec._terminate(pid)
+    # the daemon unlinks its socket, then its pidfile, as it stops
+    deadline = time.monotonic() + 5.0
+    while time.monotonic() < deadline and (sock.exists()
+                                           or pid_path.exists()):
+        time.sleep(0.1)
+    click.echo("workerd stopped" if not sock.exists()
+               else "workerd stop requested (socket still present)")
+
+
+# ------------------------------------------------------------------ trace
+
+
+def _trace_run_id(f: Factory, run: str | None) -> str:
+    """A run id from an id, an unambiguous prefix, a flight-recorder
+    path, or (when omitted) the newest scheduler recorder."""
+    from .monitor.ledger import FLIGHT_DIR
+
+    flight_dir = f.config.logs_dir / FLIGHT_DIR
+    if run:
+        as_path = Path(run)
+        if as_path.is_file():
+            return as_path.stem.removeprefix("loop-")
+        matches = sorted(flight_dir.glob(f"loop-{run}*.jsonl"))
+        if len(matches) == 1:
+            return matches[0].stem.removeprefix("loop-")
+        if matches:
+            names = ", ".join(m.stem.removeprefix("loop-") for m in matches)
+            raise click.ClickException(f"run {run!r} is ambiguous: {names}")
+        return run      # daemon recorders may hold it without a local file
+    latest = max(flight_dir.glob("loop-*.jsonl"), default=None,
+                 key=lambda p: p.stat().st_mtime)
+    if latest is None:
+        raise click.ClickException(
+            f"no flight records under {flight_dir} (runs record one by "
+            "default; check settings telemetry.flight_recorder)")
+    return latest.stem.removeprefix("loop-")
+
+
+def _trace_flags(rec) -> str:
+    out = []
+    wan = rec.attrs.get("wan_ms")
+    if wan is not None:
+        out.append(f"wan={float(wan):.1f}ms")
+    if rec.attrs.get("skew_adjusted"):
+        out.append(f"skew={float(rec.attrs.get('skew_s', 0.0)) * 1000:+.1f}ms")
+    if rec.attrs.get("skew_suspect"):
+        out.append("SKEW-SUSPECT")
+    if rec.attrs.get("gap"):
+        out.append(f"GAP(expect={rec.attrs.get('expect', '?')})")
+    if rec.status not in ("ok", ""):
+        out.append(rec.status)
+    return "  ".join(out)
+
+
+def _trace_render(node, t0: float, depth: int, out: list[str]) -> None:
+    rec = node.record
+    label = (f"iteration {rec.attrs.get('iteration', '?')}"
+             if rec.name == "iteration" else rec.name)
+    who = rec.agent or rec.worker or "-"
+    src = rec.attrs.get("source", "")
+    off = (rec.t_start - t0) * 1000.0
+    wall = rec.wall_s * 1000.0
+    flags = _trace_flags(rec)
+    out.append(f"  {'  ' * depth}{label:<24} {who:<14} "
+               f"{src:<18} +{off:>8.1f}ms {wall:>9.1f}ms"
+               + (f"  {flags}" if flags else ""))
+    for child in node.children:
+        _trace_render(child, t0, depth + 1, out)
+
+
+@cli.command("trace")
+@click.argument("run", required=False)
+@click.option("--json", "as_json", is_flag=True,
+              help="Merged trace forest as JSON.")
+@click.pass_context
+def trace_cmd(ctx, run, as_json):
+    """Cross-process trace waterfall for a loop run.
+
+    RUN is a loop id (as printed by `loop`), an unambiguous id prefix,
+    or a path to a flight-recorder JSONL file; the newest run is traced
+    when omitted.  Joins the router/loopd/scheduler/workerd flight
+    recorders into one causal tree per iteration (docs/tracing.md):
+    per-hop WAN wait, clock-skew-adjusted offsets, explicit gap spans
+    where a daemon's segment is missing.
+    """
+    from .tracing.merge import hop_waits, merge_run
+
+    f = _factory(ctx)
+    run_id = _trace_run_id(f, run)
+    res = merge_run(f.config.logs_dir, run_id)
+    if as_json:
+        click.echo(json.dumps(res.to_dict(), indent=2))
+        return
+    if not res.roots:
+        raise click.ClickException(
+            f"no spans for run {run_id!r} in any recorder under "
+            f"{f.config.logs_dir}")
+    srcs = ", ".join(f"{k}={v}" for k, v in sorted(res.sources.items()))
+    click.echo(f"run {run_id}: {res.spans} span(s) from [{srcs}]")
+    if res.gaps or res.skew_suspects:
+        click.echo(f"  {res.gaps} gap(s), "
+                   f"{res.skew_suspects} skew suspect(s)")
+    t0 = min(r.record.t_start for r in res.roots)
+    out: list[str] = []
+    for root in res.roots:
+        _trace_render(root, t0, 0, out)
+    for line in out:
+        click.echo(line)
+    waits = hop_waits(res.roots)
+    if waits:
+        click.echo("per-hop WAN wait:")
+        for name, ms in waits.items():
+            click.echo(f"  {name:<24} {ms:>9.1f}ms")
 
 
 def ensure_daemon(f: Factory):

@@ -78,9 +78,12 @@ failure: kill -9 mid-run costs at most the batched journal tail, which
 reconcile re-derives from engine state.
 
 **The port.**  This is the port's copy of ``clawker_tpu/loop/scheduler.py``
-for one configuration of ``loop``: the in-process run with direct
-engine calls on the per-worker lanes (no workerd), over the ported
-drivers (the fake one), with the placement policies and admission,
+for one configuration of ``loop``: the in-process run with engine calls
+on the per-worker lanes or, through the workerd seam (``executors=``,
+an :class:`~clawker_tpu_torch.workerd.executor.ExecutorSet`), as
+batched intents to each worker's resident workerd whose event stream
+drives the same journal records, spans and transitions -- over the
+ported drivers (the fake one), with the placement policies and admission,
 failover, the write-ahead journal, the flight recorder, the
 disk-pressure ladder and the two anomaly riders
 (:meth:`LoopScheduler.attach_anomaly_watch` /
@@ -92,10 +95,13 @@ run record and carried by each iteration root as ``ctx_parent`` /
 ``skew_s``; ``_engine_ctx`` around the engine calls), and the daemon's
 crash seam :meth:`LoopScheduler.kill`.  What waits for its slice
 (ROADMAP §1) is refused with a named :class:`ConfigError` and has no
-code path here: the warm pool (``warm_pool_depth`` > 0), worktrees with
-their gitguard and merge queue, ``--resume`` (``resume`` /
-``reconcile``), the workerd dispatch (``executors``), the scheduler's
-chaos seams and the elastic capacity controller
+code path here: the warm pool (``warm_pool_depth`` > 0, and with it
+workerd's pool refills and pooled launches), worktrees with their
+gitguard and merge queue (and the bind-mode runs that stay off
+workerd), ``--resume`` (``resume`` / ``reconcile``, and the adopt
+intent that hands workerd a reconciled container), the scheduler's
+chaos seams (``seams`` is the never-armed ``NULL_SEAMS`` the workerd
+executors fire into) and the elastic capacity controller
 (:meth:`LoopScheduler.attach_capacity`).
 """
 
@@ -113,6 +119,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 from .. import consts, logsetup, telemetry
+from ..agentd.protocol import b64
+from ..chaos.seams import NULL_SEAMS
 from ..config import Config
 from ..engine.drivers import RuntimeDriver, Worker
 from ..errors import ClawkerError, ConfigError, DriverError, NotFoundError
@@ -160,6 +168,7 @@ from .journal import (
     REC_ORPHANED,
     REC_PLACEMENT,
     REC_RUN,
+    REC_SEED_SHIP,
     REC_SEED_TAR,
     REC_SHUTDOWN,
     REC_STARTED,
@@ -427,7 +436,7 @@ class LoopScheduler:
                  *, on_event=None, health_config: HealthConfig | None = None,
                  run_id: str | None = None,
                  admission: AdmissionController | None = None,
-                 lanes: LaneRegistry | None = None):
+                 lanes: LaneRegistry | None = None, executors=None):
         if spec.failover not in FAILOVER_POLICIES:
             raise ClawkerError(
                 f"loop: unknown failover policy {spec.failover!r} "
@@ -560,6 +569,22 @@ class LoopScheduler:
                 check_interval_s=sps.check_interval_s,
                 gc=lambda: retention_gc(cfg.logs_dir, keep=keep),
                 on_event=self._on_pressure_event)
+        # the named crash seams (docs/chaos.md): never armed until the
+        # chaos runner is ported; the workerd executors fire into them
+        self.seams = NULL_SEAMS
+        # --- workerd (docs/workerd.md): the WorkerExecutor seam.  An
+        # ExecutorSet maps workers to live channels into their
+        # worker-resident launch daemons: dispatch sends batched intents
+        # there instead of running engine calls on the local lane, and
+        # the event stream drives the SAME journal records, spans, and
+        # status transitions.  None (the default) or a worker with no
+        # live channel = the direct in-process path, unchanged.  The set
+        # is caller-owned (CLI, loopd, chip_smoke) -- the scheduler
+        # never closes it.
+        self.executors = executors
+        if executors is not None:
+            executors.bind(self)
+        self._remote_exits: queue.SimpleQueue = queue.SimpleQueue()
         self._placed_workers: set[str] = set()  # every worker a launch
         #                           was EVER submitted to: the cleanup
         #                           sweep set
@@ -802,16 +827,34 @@ class LoopScheduler:
                 handle.set_result(None)
 
         def dispatch(release) -> None:
-            def task():
-                # stamp the full pre-create wait (admission queue +
-                # lane queue) where the iteration span can pick it
-                # up: the root opens inside fn, on this lane thread
-                self._queue_wait[agent] = time.monotonic() - t_submit
-                return fn(loop, epoch, worker)
+            # the WorkerExecutor seam (docs/workerd.md): with a live
+            # channel to this worker's workerd, the launch becomes a
+            # batched intent executed against the worker's LOCAL engine
+            # socket -- zero blocking WAN round trips on this side.  A
+            # mid-dispatch degrade (channel just died, restart with no
+            # container yet) falls through to the direct lane.
+            fut: Future | None = None
+            if fn in (self._launch, self._guarded_start):
+                ex = self._workerd_for(worker)
+                if ex is not None:
+                    self._queue_wait[agent] = time.monotonic() - t_submit
+                    # NOTE: == not `is` -- bound-method attribute access
+                    # builds a fresh object per read, so identity never
+                    # matches; equality compares (__self__, __func__)
+                    fut = self._workerd_dispatch(
+                        ex, loop, epoch, worker,
+                        restart=fn == self._guarded_start)
+            if fut is None:
+                def task():
+                    # stamp the full pre-create wait (admission queue +
+                    # lane queue) where the iteration span can pick it
+                    # up: the root opens inside fn, on this lane thread
+                    self._queue_wait[agent] = time.monotonic() - t_submit
+                    return fn(loop, epoch, worker)
 
-            fut = self._lane(worker).submit(task)
-            self._lane_task[agent] = fut
-            lane_fut = fut
+                fut = self._lane(worker).submit(task)
+                self._lane_task[agent] = fut
+            lane_fut = self._lane_task.get(agent)
 
             def done(f: Future) -> None:
                 release()
@@ -858,6 +901,233 @@ class LoopScheduler:
         # ceiling (penalize=False is flow control, not sickness), so
         # --orphan-grace is the only bound on a queue that never drains
         self._orphan_since.pop(agent, None)
+
+    # ------------------------------------------------------------- workerd
+
+    def _workerd_for(self, worker: Worker):
+        """The worker's live executor, or None (= direct path).  While
+        there is one, exits stream over its channel, so run() skips WAN
+        polls and waiters for the worker.  (The reference keeps
+        bind-mode worktree runs direct here; the port refuses
+        worktrees, so every run may dispatch.)"""
+        if self.executors is None:
+            return None
+        return self.executors.for_worker(worker.id)
+
+    def _ship_seed(self, ex, worker: Worker, root: Path) -> str:
+        """Stage the workspace seed in ``worker``'s workerd seed store
+        (once per (digest, worker): the executor tracks what it sent).
+        The WAL lands BEFORE the send -- a resume reads REC_SEED_SHIP to
+        know which workers may hold the digest; re-shipping after a
+        crash is harmless (a content-addressed put is idempotent).  A
+        transfer lost to a dying link only degrades that worker's
+        creates to the per-create fallback walk -- never correctness."""
+        digest, tar = self._workspace_seed(root)
+        if not digest or tar is None or ex is None or ex.seeded(digest):
+            return digest
+        # degraded WAL: still ship -- a resume that lost this record
+        # re-ships, and a content-addressed put is idempotent
+        self._durable_ok(self._journal(REC_SEED_SHIP, durable=True,
+                                       digest=digest, worker=worker.id),
+                         "seed_ship")
+        ex.submit_seed(digest, tar)
+        return digest
+
+    def _launch_env(self, loop: AgentLoop) -> dict[str, str]:
+        return {
+            "CLAWKER_LOOP_ID": self.loop_id,
+            "CLAWKER_LOOP_AGENT": loop.agent,
+            **({"CLAWKER_LOOP_PROMPT": self.spec.prompt}
+               if self.spec.prompt else {}),
+            **self.spec.env,
+        }
+
+    def _launch_opts_doc(self, loop: AgentLoop, worker: Worker,
+                         epoch: int) -> dict:
+        """The CreateOptions a launch intent carries -- the same fields
+        _create builds in-process (workerd constructs the CreateOptions
+        from this doc and runs the full create path locally).  A
+        snapshot create references its workspace seed BY DIGEST: the
+        worker-local seed store resolves it without a WAN transfer or a
+        tree walk (a store miss degrades to the local fallback walk)."""
+        doc = {
+            "agent": loop.agent, "image": self.spec.image,
+            "env": self._launch_env(loop), "tty": False,
+            "workspace_mode": self._effective_mode(),
+            "worker": worker.id, "loop_id": self.loop_id,
+            "extra_labels": {consts.LABEL_LOOP_EPOCH: str(epoch)},
+            "replace": True,
+        }
+        if doc["workspace_mode"] == "snapshot":
+            digest, _tar = self._workspace_seed(self._seed_root())
+            if digest:
+                doc["seed_digest"] = digest
+        return doc
+
+    def _state_doc(self, loop: AgentLoop) -> dict:
+        """The per-iteration context file, shipped in the intent so
+        workerd writes it locally (the direct path's
+        _write_iteration)."""
+        return {"dir": LOOP_STATE_DIR,
+                "tar": b64(self._iteration_state_tar(loop))}
+
+    def _workerd_dispatch(self, ex, loop: AgentLoop, epoch: int,
+                          worker: Worker, *, restart: bool) -> Future | None:
+        """Send one launch/restart intent over the worker's channel.
+        Returns the handle future the admission release rides, or None
+        to fall back to the direct lane (restart with no container --
+        the epoch moved under us)."""
+        if restart:
+            with self._placement_lock:
+                if loop.epoch != epoch or self._stop.is_set():
+                    done: Future = Future()
+                    done.set_result(None)
+                    return done
+                cid = loop.container_id
+                fresh = loop.fresh_container
+            if not cid:
+                return None         # nothing to restart: direct path owns it
+            return ex.submit_start(loop, epoch, worker, cid=cid,
+                                   fresh=fresh, state=self._state_doc(loop))
+        # launch: create + first start
+        if self._effective_mode() == "snapshot":
+            # one transfer per (digest, worker); every create on the
+            # worker then fans out from its local store
+            self._ship_seed(ex, worker, self._seed_root())
+        return ex.submit_launch(loop, epoch, worker,
+                                opts_doc=self._launch_opts_doc(
+                                    loop, worker, epoch),
+                                state=self._state_doc(loop))
+
+    # --- event-stream accounting: these run on the executor's reader
+    # thread and write the SAME journal records, spans, and transitions
+    # the lane-thread path writes, on the same locks, in the same order.
+
+    def _workerd_created(self, loop: AgentLoop, epoch: int, worker: Worker,
+                         cid: str, pool_hit: bool, pool_error: str,
+                         pool_entry, ms: float, *,
+                         wan_ms: float = 0.0) -> None:
+        """(``pool_entry`` is always None here: the warm pool, whose
+        checked-out members a launch adopts, is not ported.)"""
+        # durable before anything acts on the cid -- same contract as
+        # _create: a crash here re-finds the container by (deterministic
+        # name, journaled cid).  The container already exists, so a
+        # broken promise here cannot be unwound -- degrade loudly
+        self._durable_ok(self._journal(
+            REC_CREATED, durable=True, agent=loop.agent,
+            worker=worker.id, epoch=epoch, cid=cid,
+            pool=pool_hit), "created")
+        with self._placement_lock:
+            if loop.epoch != epoch or self._stop.is_set():
+                # orphaned while the create was remote: leftover for
+                # the cleanup/ghost machinery, exactly like _create
+                loop.abandoned.append((worker, cid))
+                return
+            loop.container_id = cid
+            loop.fresh_container = True
+            self._begin_iter_span(loop, worker, epoch)
+        now = self.tracer.now()
+        self.tracer.child(loop.agent, loop.iteration, SPAN_CREATE,
+                          now - ms / 1000.0, now, worker=worker.id,
+                          pool=pool_hit, workerd=True,
+                          wan_ms=round(wan_ms, 3))
+        self.on_event(loop.agent, "created", worker.id)
+
+    def _workerd_started(self, loop: AgentLoop, epoch: int, worker: Worker,
+                         ms: float, *, wan_ms: float = 0.0) -> None:
+        with self._placement_lock:
+            if loop.epoch != epoch or self._stop.is_set():
+                return
+            if loop.status not in ("pending", "running"):
+                # a late started for a loop that already reached a
+                # terminal state must never resurrect it to "running"
+                return
+            self._begin_iter_span(loop, worker, epoch)   # idempotent
+            loop.fresh_container = False
+            loop.status = "running"
+            loop.strands = 0        # the placement genuinely works
+        self._journal(REC_STARTED, agent=loop.agent, worker=worker.id,
+                      epoch=epoch, iteration=loop.iteration)
+        now = self.tracer.now()
+        self.tracer.child(loop.agent, loop.iteration, SPAN_START,
+                          now - ms / 1000.0, now, worker=worker.id,
+                          workerd=True, wan_ms=round(wan_ms, 3))
+        self._iter_started[(loop.agent, loop.iteration)] = now
+        self.on_event(loop.agent, "iteration_start", str(loop.iteration))
+
+    def _workerd_failed(self, loop: AgentLoop, epoch: int, worker: Worker,
+                        phase: str, error: str, *, driverish: bool,
+                        penalize: bool = True, pool_entry=None) -> None:
+        if self._stop.is_set() or loop.epoch != epoch:
+            return
+        if driverish:
+            # the worker-side engine refused (daemon down there), or the
+            # channel itself died (penalize=False: workerd death is not
+            # engine sickness) -- either way the rescue pass re-places
+            self._strand(loop, epoch, f"workerd {phase}: {error}",
+                         penalize=penalize)
+            return
+        loop.status = "failed"
+        self._journal(REC_LOOP_END, agent=loop.agent, status="failed",
+                      reason=f"{phase}: {error}")
+        self.tracer.end_iteration(loop.agent, loop.iteration,
+                                  status="failed",
+                                  reason=f"{phase}: {error}")
+        self.on_event(loop.agent, f"{phase}_failed", error)
+        log.error("loop %s: workerd %s failed: %s", loop.agent, phase, error)
+
+    def _workerd_exited(self, agent: str, epoch: int, iteration: int,
+                        code, detail: str) -> None:
+        """Unsolicited exit from the worker-resident waiter: queued for
+        the run thread, which accounts it through the same
+        _finish_iteration path as a poll result."""
+        self._remote_exits.put((agent, epoch, iteration, code, detail))
+        self._wake.set()
+
+    def _workerd_running_view(self, worker_id: str) -> list[dict]:
+        """The iterations the scheduler has actually OBSERVED start on
+        ``worker_id`` -- what a post-partition resync asks workerd to
+        re-watch.  Gated on the open wait span (_iter_started), not
+        just status: a loop between iterations still reads "running"
+        while its restart is queued, and a view entry for it would make
+        workerd inspect the PREVIOUS iteration's exited container and
+        report a phantom exit for an iteration that never ran."""
+        view = []
+        for loop in list(self.loops):
+            if (loop.status == "running" and loop.container_id
+                    and loop.worker.id == worker_id
+                    and (loop.agent, loop.iteration) in self._iter_started):
+                view.append({"agent": loop.agent, "epoch": loop.epoch,
+                             "iteration": loop.iteration,
+                             "cid": loop.container_id})
+        return view
+
+    def _drain_remote_exits(self) -> list[tuple[AgentLoop, int | None, str]]:
+        """Remote exit events -> (loop, code, detail) rows, dropping
+        stale ones (superseded epoch, already-accounted iteration, or
+        an iteration the scheduler never observed START -- the dedup
+        that makes a post-partition resync's replayed exits idempotent
+        and phantom-proof)."""
+        out: list[tuple[AgentLoop, int | None, str]] = []
+        by_agent = {l.agent: l for l in self.loops}
+        while True:
+            try:
+                agent, epoch, iteration, code, detail = \
+                    self._remote_exits.get_nowait()
+            except queue.Empty:
+                return out
+            loop = by_agent.get(agent)
+            if (loop is None or loop.epoch != epoch
+                    or loop.status != "running"
+                    or loop.iteration != iteration
+                    or (agent, iteration) not in self._iter_started):
+                continue
+            if code is None and not detail:
+                detail = "exit unreadable"
+            out.append((loop, int(code) if code is not None else None,
+                        detail))
+
+    # ------------------------------------------------------------ launches
 
     def _seed_root(self) -> Path:
         """The directory a snapshot create seeds from: the project
@@ -1035,6 +1305,17 @@ class LoopScheduler:
         self.tracer.begin_iteration(loop.agent, loop.iteration, worker.id,
                                     **attrs)
 
+    def _trace_tp(self, loop: AgentLoop) -> str:
+        """Traceparent for one loop's workerd intents: the run id plus
+        the open iteration-root span id when one is open (adopt/start
+        after the root exists), else a root-less header the merge joins
+        by (agent, iteration) -- the launch path, where the root only
+        opens when the created event lands."""
+        if self.flight is None:
+            return ""       # tracing rides telemetry: off together
+        span_id = self.tracer.open_root(loop.agent, loop.iteration)
+        return TraceContext(self.loop_id, span_id).to_header()
+
     def _engine_ctx(self, loop: AgentLoop):
         """Activate this iteration's trace context around direct-path
         engine work: an engine client stamps ``engine.request`` spans
@@ -1049,12 +1330,6 @@ class LoopScheduler:
             sink=self._record_span))
 
     def _create(self, loop: AgentLoop, epoch: int, worker: Worker) -> None:
-        env = {
-            "CLAWKER_LOOP_ID": self.loop_id,
-            "CLAWKER_LOOP_AGENT": loop.agent,
-            **({"CLAWKER_LOOP_PROMPT": self.spec.prompt} if self.spec.prompt else {}),
-            **self.spec.env,
-        }
         rt = self._runtime(worker)
         # isolation default: snapshot copies
         mode = self._effective_mode()
@@ -1074,7 +1349,7 @@ class LoopScheduler:
         opts = CreateOptions(
             agent=loop.agent,
             image=self.spec.image,
-            env=env,
+            env=self._launch_env(loop),
             tty=False,
             workspace_mode=mode,
             worker=worker.id,
@@ -1188,6 +1463,15 @@ class LoopScheduler:
         # the wait span opens here and closes when the poll accounts the
         # exit -- the container-executing phase of the iteration
         self._iter_started[(loop.agent, loop.iteration)] = now
+        # mixed-path window (docs/workerd.md): this start ran DIRECT
+        # (channel was down at submit) but the channel may be live
+        # again -- and a live channel suppresses WAN polls/waiters for
+        # this worker.  Hand workerd the exit watch so the iteration's
+        # end is observed whichever path the launch took; the adopt
+        # intent is idempotent server-side.
+        ex = self._workerd_for(worker)
+        if ex is not None:
+            ex.submit_adopt(loop, epoch)
         self.on_event(loop.agent, "iteration_start", str(loop.iteration))
 
     def _guarded_start(self, loop: AgentLoop, epoch: int,
@@ -1470,6 +1754,11 @@ class LoopScheduler:
                             and self._inflight[l.agent].done()]
                 by_worker: dict[str, list[AgentLoop]] = {}
                 for l in pollable:
+                    if self._workerd_for(l.worker) is not None:
+                        # exits stream over the workerd channel: no WAN
+                        # waiter, no WAN poll.  A degraded channel drops
+                        # the worker back into this table next tick.
+                        continue
                     self._spawn_waiter(l)
                     by_worker.setdefault(l.worker.id, []).append(l)
                 now = time.monotonic()
@@ -1542,7 +1831,11 @@ class LoopScheduler:
                     polls[wid] = fut
                     poll_epochs[wid] = {l.agent: l.epoch for l in group}
                     next_poll_at[wid] = now + poll_s
-                finished: list[tuple[AgentLoop, int | None, str]] = []
+                # workerd-streamed exits first: already deduped against
+                # stale epochs/iterations, accounted through the same
+                # block as poll results below
+                finished: list[tuple[AgentLoop, int | None, str]] = \
+                    self._drain_remote_exits()
                 for wid in list(polls):
                     fut = polls[wid]
                     if not fut.done():

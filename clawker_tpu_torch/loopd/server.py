@@ -32,7 +32,7 @@ semantics.  The daemon fires the chaos seams ``loopd.post_submit`` /
 process death would (the soak/crash-test seam).
 
 **The port.**  The port's copy of ``clawker_tpu/loopd/server.py`` with
-one addition, a ``device`` keyword (default: ``CLAWKER_TORCH_DEVICE``,
+two additions.  One is a ``device`` keyword (default: ``CLAWKER_TORCH_DEVICE``,
 else ``cuda``, as the CLI resolves it) for the daemon-lifetime
 :class:`~clawker_tpu_torch.sentinel.FleetSentinel`: every scored tick is
 one K3 fit and one K1 score on the card (K5 and a K1 per card when its
@@ -43,7 +43,12 @@ with a :class:`LoopdError` when it cannot: the daemon never runs on
 with no sentinel and never scores on the CPU unless asked.  A tick that
 fails after start goes to the daemon's log through ``on_error``.  The
 sentinel writes its ``sentinel.tick`` spans into the daemon's flight
-record.
+record.  The other: the status RPC's ``workerd`` rows probe the
+sockets of the executors the daemon dispatches through (a plain
+:class:`~clawker_tpu_torch.workerd.executor.ExecutorSet` or the sets a
+factory made for its hosted runs) besides the reference's resolution,
+so a fake pod's workers read ``live`` / ``degraded`` where the
+reference's, which passes no socket map, read ``absent``.
 
 What waits for its slice is refused by name: the capacity controller
 (settings ``capacity.enable``, ROADMAP §1 item 9), the telemetry shipper
@@ -51,9 +56,10 @@ and the metrics server (settings ``monitoring.shipper.enable`` and a
 metrics port, §1 item 10) raise a :class:`ConfigError` at start;
 ``adopt_run`` answers with an error until ``--resume`` lands (§1 item
 7); a spec the port's scheduler refuses (the warm pool, worktrees)
-gets an error ack.  Hosted runs call the engines directly: workerd's
-executors (§1 item 4) have no seam here yet, and the scheduler's own
-chaos seams wait for §1 item 8 (the daemon fires its two).
+gets an error ack.  Hosted runs dispatch through workerd when
+``executors=`` is given (a set, or a factory called once per hosted run
+and closed after it); the scheduler's own chaos seams wait for §1 item
+8 (the daemon fires its two).
 """
 
 from __future__ import annotations
@@ -262,9 +268,19 @@ class LoopdServer:
 
     def __init__(self, cfg: Config, driver: RuntimeDriver, *,
                  sock_path=None, seams=None, metrics_port: int | None = None,
-                 device: str | None = None):
+                 executors=None, device: str | None = None):
         self.cfg = cfg
         self.driver = driver
+        # worker-resident launch data plane for hosted runs (an
+        # ExecutorSet, or a factory of one; docs/workerd.md) -- every
+        # hosted scheduler dispatches through it when a worker's
+        # channel is live
+        self.executors = executors
+        # worker id -> the workerd socket the daemon dispatches through:
+        # what the status RPC's liveness rows probe
+        self._workerd_socks: dict = ({} if executors is None
+                                     or callable(executors)
+                                     else executors.sockets())
         # where the daemon sentinel scores: the CLI's rule (the env
         # variable, else the card), resolved and brought up at start()
         from ..analytics import runtime as art
@@ -910,12 +926,20 @@ class LoopdServer:
             run.publish({"type": "event", "run": run.run_id,
                          "agent": agent, "event": event, "detail": detail})
 
+        # an executor set binds to ONE scheduler, so hosted runs get a
+        # fresh set each when a factory was supplied (a plain set is
+        # the single-run convenience: tests, one-shot daemons)
+        execset = (self.executors() if callable(self.executors)
+                   else self.executors)
+        if execset is not None:
+            self._workerd_socks.update(execset.sockets())
         try:
             sched = LoopScheduler(self.cfg, self.driver, run.spec,
                                   on_event=on_event,
                                   run_id=run.run_id,
                                   admission=self.admission,
-                                  lanes=self.lanes)
+                                  lanes=self.lanes,
+                                  executors=execset)
             run.sched = sched
             if self.sentinel is not None:
                 # the hosted run's typed events feed the daemon
@@ -939,6 +963,11 @@ class LoopdServer:
             agents = run.sched.status() if run.sched is not None else []
             ok = False
             run.result["error"] = repr(e)
+        if callable(self.executors) and execset is not None:
+            try:
+                execset.close_all()     # factory-made: this run owned it
+            except Exception:  # noqa: BLE001 -- teardown must not mask
+                pass           #                the run's own result
         if self._aborted:
             return      # killed daemons publish nothing
         run.result.update({"agents": agents, "ok": ok})
@@ -1066,10 +1095,17 @@ class LoopdServer:
         return [best[w] for w in sorted(best)]
 
     def _workerd_rows(self) -> dict:
-        """Per-worker workerd liveness for the status RPC: the
-        reference's degraded ``{}`` -- workerd is not ported yet
-        (ROADMAP §1 item 4), so no worker has a live channel."""
-        return {}
+        """Per-worker workerd liveness for the status RPC: `fleet
+        health` renders it so a worker silently degraded to the WAN
+        launch path is visible instead of just slow (docs/workerd.md).
+        The executors' sockets are probed where the daemon has them."""
+        from ..workerd import liveness
+
+        try:
+            return liveness(self.cfg, self.driver,
+                            sock_by_worker=self._workerd_socks)
+        except Exception:       # noqa: BLE001 -- a probe failure must
+            return {}           # never break the status RPC
 
     def _storage_stats(self) -> dict:
         """Daemon-level storage health: the disk-pressure ladder

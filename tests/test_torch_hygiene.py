@@ -149,9 +149,11 @@ def test_mesh_and_graft_entry_import_alone_without_jax(module):
 
 
 @pytest.mark.parametrize("module", ["clawker_tpu_torch.hostproxy.__main__",
-                                    "clawker_tpu_torch.socketbridge.container"])
+                                    "clawker_tpu_torch.socketbridge.container",
+                                    "clawker_tpu_torch.workerd.__main__"])
 def test_daemon_entry_points_load_no_torch(module):
-    """The host proxy's and the bridge's processes run without torch."""
+    """The host proxy's, the bridge's and workerd's processes run
+    without torch."""
     doc = _run_isolated(
         "import importlib, json\n"
         f"importlib.import_module({module!r})\n"
@@ -190,12 +192,12 @@ def test_commands_the_port_runs_name_the_port(path):
 def test_spawned_modules_and_exec_commands_name_the_port(tmp_path,
                                                          monkeypatch):
     """What the port forks and execs, read from the objects that fork
-    and exec: the host proxy's ``DaemonSpec``, loopd's ``spawn_daemon``
-    and the socket bridge's container command."""
+    and exec: the host proxy's ``DaemonSpec``, loopd's and workerd's
+    ``spawn_daemon`` and the socket bridge's container command."""
     import subprocess as sp
     from types import SimpleNamespace
 
-    from clawker_tpu_torch import loopd
+    from clawker_tpu_torch import loopd, workerd
     from clawker_tpu_torch.config import Settings
     from clawker_tpu_torch.hostproxy import manager
     from clawker_tpu_torch.socketbridge import host
@@ -215,7 +217,10 @@ def test_spawned_modules_and_exec_commands_name_the_port(tmp_path,
     monkeypatch.setattr(sp, "Popen", popen)
     with pytest.raises(Stop):
         loopd.spawn_daemon(cfg)
-    assert argv == [[sys.executable, "-m", "clawker_tpu_torch.loopd"]]
+    with pytest.raises(Stop):
+        workerd.spawn_daemon(cfg)
+    assert argv == [[sys.executable, "-m", "clawker_tpu_torch.loopd"],
+                    [sys.executable, "-m", "clawker_tpu_torch.workerd"]]
     assert "from clawker_tpu_torch.socketbridge.container import main" \
         in host.CONTAINER_CMD[-1]
 

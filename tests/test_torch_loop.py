@@ -339,10 +339,13 @@ def test_stop_halts_unbounded_loops_as_the_reference(tmp_path, how):
         def between(sched, drv):
             def go():
                 held.wait(10)
-                # the container now runs until stopped; the loop reads
-                # "running" once its start returns
+                # the container now runs until stopped; the third
+                # iteration's wait span opens once its start returned (the
+                # loop reads "running" between iterations too, and a stop
+                # landing inside the start raced its "running" commit)
+                loop = sched.loops[0]
                 deadline = time.monotonic() + 10
-                while (sched.loops[0].status != "running"
+                while ((loop.agent, 2) not in sched._iter_started
                        and time.monotonic() < deadline):
                     time.sleep(0.002)
                 getattr(sched, how)()
@@ -650,7 +653,9 @@ def test_bring_up_on_the_cpu_builds_and_launches_nothing():
     (["--resume", "abc"], "", "--resume"),
     (["--ship-telemetry"], "", "telemetry shipper"),
     (["--metrics-port", "9100"], "", "metrics server"),
-    (["--workerd"], "", "workerd"),
+    # ported: with no workerd answering, --workerd fails as the
+    # reference's does (tests/test_torch_workerd.py holds the twin)
+    (["--workerd"], "", "no workerd answering"),
     (["--pods"], "", "federation"),
     ([], "capacity:\n  enable: true\n", "capacity"),
     ([], "telemetry:\n  otlp: true\n", "OTLP"),
@@ -673,7 +678,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
         tenv.__exit__(None, None, None)
     assert res.exit_code == 1, res.output
     assert needle in res.output
-    assert "not yet ported" in res.output
+    assert "not yet ported" in res.output or args == ["--workerd"]
     # nothing was launched
     assert not drv.api.calls_named("container_create")
 

@@ -81,17 +81,23 @@ def _snapshot(tracker) -> dict:
 
 
 def run_with_rider(pkg: str, tmp_path, *, rider: str, hot_slot: int,
-                   ticks: int = 2) -> dict:
+                   ticks: int = 2, pod=None) -> dict:
+    """One package's run with its rider.  ``pod(pkg, cfg, driver, tenv)``
+    -> (workerd servers, executor set) puts the run over workerd; both
+    are torn down with the run."""
     m, r = PKGS[pkg], RIDERS[pkg]
     tenv, proj = _env(tmp_path, pkg)
+    servers, execset = [], None
     try:
         cfg = m.load_config(proj)
         drv = _driver(m, WORKERS)
+        if pod is not None:
+            servers, execset = pod(pkg, cfg, drv, tenv)
         events: list = []
         sched = m.loop.LoopScheduler(
             cfg, drv, m.loop.LoopSpec(parallel=AGENTS, iterations=2),
             on_event=lambda a, e, d="": events.append((a, e, d)),
-            run_id=RUN_ID)
+            run_id=RUN_ID, executors=execset)
         agents = [sched._agent_name(i) for i in range(AGENTS)]
         streams = _egress(agents, agents[hot_slot])
         if rider == "sentinel":
@@ -134,6 +140,10 @@ def run_with_rider(pkg: str, tmp_path, *, rider: str, hot_slot: int,
                                     if s.name == "sentinel.tick")
         return out
     finally:
+        if execset is not None:
+            execset.close_all()
+        for srv in servers:
+            srv.stop()
         tenv.__exit__(None, None, None)
 
 

@@ -310,9 +310,8 @@ def test_status_reports_runs_admission_health(tmp_path):
             "project": doc["project"], "pod": doc["pod"],
             "sections": {k: doc[k] for k in ("warm_pools", "capacity",
                                              "sentinel", "shipper")},
-            # the reference probes its workerd channels; the port has no
-            # workerd yet and answers with the reference's degraded {}
-            "workerd": doc["workerd"] if s.pkg == "port" else {},
+            # no workerd on a fake pod: every worker reads absent
+            "workerd": doc["workerd"],
         }
 
     want, got = twin(tmp_path, scenario)
@@ -326,20 +325,21 @@ def test_status_reports_runs_admission_health(tmp_path):
 def test_stop_drains_to_resumable_journal(tmp_path):
     """`loopd stop` journals a durable shutdown per live run."""
     def scenario(s):
-        hold = threading.Event()
-        drv = driver_with(s.m, 1, behavior=hold_behavior(hold))
+        # the iteration runs until the drain halts it, so the stop, never
+        # the container's own exit, ends the loop (a container released
+        # just before the stop raced it: the exit was accounted or not)
+        drv = driver_with(s.m, 1, behavior=s.m.fake.idle_behavior)
         srv = s.m.server.LoopdServer(s.cfg, drv).start()
         try:
             client = s.m.client.discover(s.cfg)
             ack = client.submit_run({"parallel": 1, "iterations": 1},
                                     stream=False)
             run = srv.runs[ack["run"]]
+            # the wait span opens once REC_STARTED is journaled
             assert wait_for(lambda: run.sched is not None
-                            and any(l.status == "running"
-                                    for l in run.sched.loops))
+                            and bool(run.sched._iter_started))
             client.close()
         finally:
-            hold.set()      # srv.stop() drains: let the iteration finish
             srv.stop()
         records = s.m.journal.RunJournal.read(
             s.m.journal.journal_path(s.cfg.logs_dir, ack["run"]))
