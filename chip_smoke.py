@@ -112,7 +112,32 @@
    loops finish over the direct path, each scored tick one K3 and one
    K1; (d) ``workerd start`` / ``status`` / ``stop`` forked, no daemon
    left.  One line per case with its host ms.
-9. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+9. resume phase, its dirs and sockets under ``build/chip_smoke/resume/``,
+   the warm pool and ``--resume`` over (6)'s fake pod: (a) (6a)'s run
+   with the reference's default warm pool (depth 2 a worker, prefilled:
+   8 members) and the sentinel on the card, the scheduler killed once
+   every loop finished iteration 1, then ``LoopScheduler.resume`` +
+   ``reconcile`` with a fresh sentinel on the same run id: generation
+   1's pool hits at least 1, every loop ``done`` with 3 exit codes
+   journaled once each, the creates after the kill plus generation 2's
+   pool hits equal to ``relaunched``, one container per agent (a create
+   or an adopted member), every journaled pool member restored, swept or
+   never created, the restored sentinel holding baseline samples and
+   generation 1's flags, none of them flagged again, and each scored
+   tick of both generations one K3 and one K1; prints the reconcile
+   summary and wall ms, the create ms of a pool hit and of a cold create
+   (the run's spans and the orchestrator's stages) and generation 2's
+   tick stages; (b) (a)'s pooled run over workerd: fills as ``create``
+   intents, hits as launch intents with a ``pool_cid`` whose ``created``
+   event reads ``pool: True`` with no ``pool_error``, and after a kill
+   and a resume one ``adopt`` intent per adopted container; (c) loopd's
+   ``adopt_run``: a daemon with its sentinel on the card hosting a pooled
+   2-loop run is killed mid-run and a second daemon adopts the run, every
+   loop done with one container per agent, the second daemon's sentinel
+   scoring the adopted run on the card; (d) ``loop --resume <prefix>
+   --sentinel --json``, ``journal verify`` (0), on a copy with one byte
+   flipped (2), ``--repair`` (the copy folds clean again), in process.
+10. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -3015,6 +3040,532 @@ def workerd_phase(device) -> collections.Counter:
     return total
 
 
+# ----------------------------------------------------------- resume phase
+
+
+RESUME_POOL_DEPTH = 2           # the reference's default loop.warm_pool.depth
+RESUME_HOT2_SLOT = 2            # the second generation's burst agent
+
+
+def _tap_servers(servers) -> list[list[tuple]]:
+    """Per ``WorkerdServer``, every intent it executed as (kind, names a
+    ``pool_cid``) and every ``created`` event it emitted as ("created",
+    pool, pool_error): the instance's ``_execute`` and ``_emit``
+    wrapped."""
+    seen: list[list[tuple]] = [[] for _ in servers]
+    for srv, log in zip(servers, seen):
+        execute, emit = srv._execute, srv._emit
+
+        def traced(intent, _execute=execute, _log=log):
+            _log.append((intent.get("kind"), bool(intent.get("pool_cid"))))
+            return _execute(intent)
+
+        def emitted(ev, _emit=emit, _log=log):
+            if ev.get("ev") == "created":
+                _log.append(("created", ev.get("pool"),
+                             ev.get("pool_error")))
+            return _emit(ev)
+
+        srv._execute, srv._emit = traced, emitted
+    return seen
+
+
+def _agent_creates(drv) -> collections.Counter:
+    """container_create calls per loop agent's container name (pool
+    fills, named ``pool-*``, are not counted)."""
+    return collections.Counter(
+        a[0] for api in drv.apis for a, _k in api.calls_named(
+            "container_create") if ".loop-" in a[0])
+
+
+def _wait(pred, timeout: float = 30.0, step: float = 0.01) -> bool:
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        if pred():
+            return True
+        time.sleep(step)
+    return pred()
+
+
+def _pooled_run(cfg, drv, *, executors=None):
+    """A scheduler of loop (a)'s shape with the reference's default
+    warm pool depth, its pool prefilled: -> (scheduler, members)."""
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+
+    sched = LoopScheduler(cfg, drv, LoopSpec(
+        parallel=LOOP_AGENTS, iterations=LOOP_ITERATIONS,
+        warm_pool_depth=RESUME_POOL_DEPTH), executors=executors)
+    members = sched.prefill_pool(timeout=30.0)
+    check(members == RESUME_POOL_DEPTH * LOOP_WORKERS,
+          f"resume: prefill_pool filled {members} members, want "
+          f"{RESUME_POOL_DEPTH * LOOP_WORKERS}")
+    return sched, members
+
+
+def _kill_after_iteration_1(sched):
+    """Run ``sched`` on a thread and kill it once every loop finished
+    its first iteration: -> the thread, joined."""
+    import threading
+
+    t = threading.Thread(target=sched.run, kwargs={"poll_s": 0.05},
+                         daemon=True, name="resume-gen1")
+    t.start()
+    check(_wait(lambda: all(l.iteration >= 1 for l in sched.loops)),
+          f"resume: loops never finished iteration 1: "
+          f"{[(l.agent, l.status, l.iteration) for l in sched.loops]}")
+    sched.kill()
+    t.join(30)
+    check(not t.is_alive(), "resume: the killed scheduler's run() lives on")
+
+
+def _journal_records(cfg, run_id: str) -> list[dict]:
+    from clawker_tpu_torch.loop.journal import RunJournal, journal_path
+
+    return RunJournal.read(journal_path(cfg.logs_dir, run_id))
+
+
+def _journal_image(cfg, run_id: str):
+    from clawker_tpu_torch.loop.journal import replay
+
+    return replay(_journal_records(cfg, run_id))
+
+
+def _pool_accounting(name, drv, image, summary, records_after) -> dict:
+    """Every journaled live member is restored, swept as stale, or was
+    never created; -> the counts."""
+    live = {a: m for a, m in image.pool.items()
+            if m.state in ("pending", "ready")}
+    present = {c["Names"][0].lstrip("/") for api in drv.apis
+               for c in api.container_list(all=True)}
+    never = sum(1 for a in live
+                if f"clawker.{LOOP_PROJECT}.{a}" not in present)
+    stale = sum(1 for r in records_after if r["kind"] == "pool_remove"
+                and r.get("reason") == "stale at resume")
+    check(summary["pool_restored"] + stale + never == len(live),
+          f"{name}: {len(live)} journaled pool members, "
+          f"{summary['pool_restored']} restored + {stale} swept + {never} "
+          f"never created")
+    return {"journaled": len(live), "restored": summary["pool_restored"],
+            "swept": stale, "never_created": never}
+
+
+def _one_create_per_agent(name, drv, records) -> None:
+    """Each loop agent's one placement got exactly one container: a
+    create, or a pool member it adopted -- never both, never two."""
+    creates = _agent_creates(drv)
+    adopts = collections.Counter(r["by"] for r in records
+                                 if r["kind"] == "pool_adopt")
+    per = {a: creates.get(f"clawker.{LOOP_PROJECT}.{a}", 0) + adopts.get(a, 0)
+           for a in {r["agent"] for r in records
+                     if r["kind"] == "placement"}}
+    check(per and all(v == 1 for v in per.values()),
+          f"{name}: creates + pool adoptions per agent {per}")
+
+
+COLD_STAGES = ("workspace_mounts", "engine_create", "workspace_seed")
+HIT_STAGES = ("pool_adopt_env", "pool_adopt_finalize")
+
+
+def _create_ms(sched, totals: dict, counts: dict) -> dict:
+    """Host ms of a create, pool hits apart from cold creates: the
+    median of the run's ``create`` spans (its flight record) of each
+    kind, and the mean per create of the orchestrator's stages
+    (``util.phases``): a cold create's (which every pool fill pays, off
+    the hot path) and an adoption's."""
+    from clawker_tpu_torch import telemetry
+
+    spans = telemetry.load_spans(
+        sched.flight.path.read_text().splitlines())
+    out = {}
+    for hit, label in ((True, "pool hit spans"),
+                       (False, "cold create spans")):
+        ms = [(s.t_end - s.t_start) * 1e3 for s in spans
+              if s.name == "create" and bool(s.attrs.get("pool")) == hit]
+        out[label] = (statistics.median(ms), len(ms)) if ms else None
+    for label, names in (("cold create stages", COLD_STAGES),
+                         ("adoption stages", HIT_STAGES)):
+        n = counts.get(names[1], 0)
+        out[label] = ({k: totals.get(k, 0.0) * 1e3 / n for k in names}, n)\
+            if n else None
+    return out
+
+
+def resume_inproc_case(base: Path, device, stages: dict):
+    """(a): loop (a)'s run with the warm pool (depth 2, prefilled) and the
+    sentinel on the card, killed once every loop finished iteration 1,
+    then ``LoopScheduler.resume`` + ``reconcile`` with a fresh
+    ``FleetSentinel`` on the same run id (its baselines restored from
+    the state file), run to the end."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loop import LoopScheduler
+    from clawker_tpu_torch.sentinel import FleetSentinel
+    from clawker_tpu_torch.util import phases
+
+    name = "resume (a)"
+    with _isolated_dirs(base) as proj:
+        cfg = load_config(proj)
+        drv = _fake_pod(LOOP_ITER_S)
+
+        def sentinel(run_id: str):
+            s = FleetSentinel(cfg, drv, run_id=run_id, device=device,
+                              interval_s=LOOP_TICK_S,
+                              train_steps=SENTINEL_STEPS)
+            return s, TickLog(s, stages)
+
+        def egress(agents, hot):
+            for wid, recs in _loop_egress(agents, hot, time.time()).items():
+                _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+
+        phases.enable()
+        sched1, members = _pooled_run(cfg, drv)
+        agents = [sched1._agent_name(i) for i in range(LOOP_AGENTS)]
+        sen1, log1 = sentinel(sched1.loop_id)
+        sched1.attach_sentinel(sen1)
+        sen1.start()
+        sched1.start()
+        egress(agents, agents[LOOP_HOT_SLOT])
+        _kill_after_iteration_1(sched1)
+        check(_wait(lambda: any(e[0] for e in log1.ticks), 10),
+              f"{name}: generation 1's sentinel scored no tick")
+        sen1.stop()
+        hits1 = sched1.warmpool.stats()["hits"]
+        flagged1 = set(sen1._flagged)
+        image = _journal_image(cfg, sched1.loop_id)
+        n_at_kill = len(_journal_records(cfg, sched1.loop_id))
+        creates_at_kill = _agent_creates(drv)
+        t0 = time.perf_counter()
+        sched2 = LoopScheduler.resume(cfg, drv, image)
+        sen2, log2 = sentinel(sched1.loop_id)
+        restored = sen2.engine.baseline_depth()
+        restored_flags = set(sen2._flagged)
+        sched2.attach_sentinel(sen2)
+        summary = sched2.reconcile()
+        reconcile_ms = (time.perf_counter() - t0) * 1e3
+        sen2.start()
+        egress(agents, agents[RESUME_HOT2_SLOT])
+        sched2.run(poll_s=0.05)
+        counts = phases.counts()
+        create_ms = _create_ms(sched2, phases.disable(), counts)
+        want = sum(len(v) for v in _loop_egress(agents, agents[0],
+                                                0).values())
+        _wait(lambda: sen2._scored_at[0] >= 2 * want, 10, LOOP_TICK_S)
+        sen2.stop()
+        records = _journal_records(cfg, sched1.loop_id)
+        creates_after = _agent_creates(drv) - creates_at_kill
+        hits2 = sched2.warmpool.stats()["hits"]
+        pool = _pool_accounting(name, drv, image, summary,
+                                records[n_at_kill:])
+        _one_create_per_agent(name, drv, records)
+        rows = sched2.status()
+        flagged2 = set(sen2._flagged) - restored_flags
+        sched2.cleanup(remove_containers=True)
+    check(hits1 >= 1, f"{name}: generation 1 pool hits {hits1}")
+    _check_loop_rows(name, rows)
+    exits = collections.Counter(r["agent"] for r in records
+                                if r["kind"] == "exited")
+    check(all(exits[a] == LOOP_ITERATIONS for a in agents),
+          f"{name}: exits journaled per agent {dict(exits)}")
+    check(sum(creates_after.values()) + hits2 == summary["relaunched"],
+          f"{name}: {sum(creates_after.values())} creates and {hits2} pool "
+          f"hits after the kill, {summary['relaunched']} relaunched "
+          f"({summary})")
+    check(restored > 0, f"{name}: the resumed sentinel restored no "
+          "baseline sample")
+    check(restored_flags == flagged1,
+          f"{name}: restored flags {restored_flags}, generation 1 "
+          f"flagged {flagged1}")
+    check(not flagged2 & flagged1,
+          f"{name}: windows flagged again: {flagged2 & flagged1}")
+    scored1 = log1.check_run(f"{name} generation 1")
+    scored2 = log2.check_run(f"{name} generation 2")
+    launches = log1.launches() + log2.launches()
+    print(f"resume (a) {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations "
+          f"over {LOOP_WORKERS} fake workers ({LOOP_ITER_S} s each), warm "
+          f"pool {RESUME_POOL_DEPTH} a worker ({members} prefilled), "
+          f"killed after iteration 1: generation 1 pool hits {hits1}, "
+          f"{len(scored1)} scored ticks, flags {sorted(flagged1)}; "
+          f"reconcile {summary} in {reconcile_ms!r} ms (resume() + "
+          f"reconcile()), pool {pool}; generation 2 pool hits {hits2}, "
+          f"{sum(creates_after.values())} creates after the kill, "
+          f"{restored} baseline samples restored, {len(scored2)} scored "
+          f"ticks, new flags {sorted(flagged2)}; create ms (per kind, "
+          f"count) {create_ms}")
+    print(f"resume (a) generation 2: {log2.stage_line()}")
+    return launches
+
+
+def resume_workerd_case(base: Path) -> None:
+    """(b): (a)'s pooled run over one in-process ``WorkerdServer`` per
+    fake worker: the fills are ``create`` intents, the hits launch
+    intents naming a ``pool_cid`` whose ``created`` event reads ``pool:
+    True`` with no ``pool_error``; after a scheduler kill and a resume
+    over fresh executors, the adopted containers get ``adopt`` intents
+    and no loop agent is created twice."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loop import LoopScheduler
+
+    name = "resume (b)"
+    with _isolated_dirs(base / "dirs", WD_SETTINGS) as proj:
+        cfg = load_config(proj)
+        drv = _fake_pod(LOOP_ITER_S)
+        servers, socks = _wd_servers(base / "sock", cfg, drv)
+        seen = _tap_servers(servers)
+        execsets = [_wd_executors(socks)]
+        try:
+            t0 = time.perf_counter()
+            sched1, _ = _pooled_run(cfg, drv, executors=execsets[0])
+            sched1.start()
+            _kill_after_iteration_1(sched1)
+            execsets[0].close_all()
+            gen1 = [list(s) for s in seen]
+            image = _journal_image(cfg, sched1.loop_id)
+            execsets.append(_wd_executors(socks))
+            sched2 = LoopScheduler.resume(cfg, drv, image,
+                                          executors=execsets[1])
+            summary = sched2.reconcile()
+            loops = sched2.run(poll_s=0.05)
+            wall = (time.perf_counter() - t0) * 1e3
+            records = _journal_records(cfg, sched1.loop_id)
+            _one_create_per_agent(name, drv, records)
+            rows = sched2.status()
+            sched2.cleanup(remove_containers=True)
+        finally:
+            for ex in execsets:
+                ex.close_all()
+            for srv in servers:
+                srv.stop()
+    gen2 = [s[len(g):] for s, g in zip(seen, gen1)]
+    kinds1 = collections.Counter(e for s in gen1 for e in s)
+    kinds2 = collections.Counter(e for s in gen2 for e in s)
+    check(kinds1[("create", False)] >= RESUME_POOL_DEPTH * LOOP_WORKERS,
+          f"{name}: generation 1's fills as create intents: {kinds1}")
+    check(kinds1[("launch", True)] >= 1
+          and kinds1[("created", True, "")] == kinds1[("launch", True)],
+          f"{name}: pooled launch intents and their created events "
+          f"{kinds1}")
+    check(not any(e[0] == "created" and e[2] for s in seen for e in s),
+          f"{name}: a created event with a pool_error: {kinds1 + kinds2}")
+    check(summary["adopted"] >= 1
+          and kinds2[("adopt", False)] == summary["adopted"],
+          f"{name}: {summary['adopted']} adopted, adopt intents {kinds2}")
+    check(all(r["status"] == "done" and r["iteration"] == LOOP_ITERATIONS
+              for r in rows), f"{name}: final rows {rows}")
+    print(f"resume (b) over {LOOP_WORKERS} workerd: generation 1 intents "
+          f"{dict(kinds1)}; reconcile {summary}; generation 2 intents "
+          f"{dict(kinds2)}; wall {wall!r} ms")
+
+
+def resume_loopd_case(base: Path, device, stages: dict):
+    """(c): a ``LoopdServer`` with ``sentinel.enable`` hosts a 2-loop run
+    with warm pool depth 1 and is killed mid-run (its process's threads,
+    the sentinel's among them, die with it); a second ``LoopdServer``
+    on the same logs dir adopts the run (``LoopdClient.adopt_run``):
+    every loop ends done with one container per agent, and the second
+    daemon's sentinel scores the adopted run's ticks on the card."""
+    import threading
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loopd.client import LoopdClient
+    from clawker_tpu_torch.loopd.server import LoopdServer
+
+    name = "resume (c)"
+    hold = threading.Event()
+
+    def held(io) -> int:
+        if not hold.is_set():
+            hold.wait(30.0)
+        return 0
+
+    with _isolated_dirs(base, LOOPD_SETTINGS) as proj:
+        cfg = load_config(proj)
+        drv = _fake_pod(0.0)
+        for api in drv.apis:
+            api.set_behavior(LOOP_IMAGE, held)
+        srv1 = LoopdServer(cfg, drv, device=device).start()
+        log1 = TickLog(srv1.sentinel, stages)
+        srv2 = None
+        try:
+            with LoopdClient(srv1.sock_path) as c:
+                c.hello()
+                ack = c.submit_run({"parallel": 2, "iterations": 1,
+                                    "warm_pool_depth": 1})
+                started = 0
+                for frame in c.events():
+                    if frame.get("event") == "iteration_start":
+                        started += 1
+                        if started == 2:
+                            break
+                srv1.kill()
+                srv1.sentinel.stop()
+            run_id = ack["run"]
+            t0 = time.perf_counter()
+            srv2 = LoopdServer(cfg, drv, device=device).start()
+            log2 = TickLog(srv2.sentinel, stages)
+            with LoopdClient(srv2.sock_path) as c:
+                c.hello()
+                adopted = c.adopt_run(run_id, stream=True)
+                run = srv2.runs[run_id]
+                check(_wait(lambda: run.sched is not None and all(
+                    l.status == "running" for l in run.sched.loops)),
+                      f"{name}: the adopted loops never read running")
+                agents = [l.agent for l in run.sched.loops]
+                for wid, recs in _loop_egress(agents, agents[0],
+                                              time.time()).items():
+                    _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+                check(_wait(lambda: any(e[0] for e in log2.ticks), 10),
+                      f"{name}: the adopting daemon's sentinel scored no "
+                      "tick while the run lived")
+                hold.set()
+                final = None
+                for frame in c.events():
+                    if frame.get("type") == "run_done":
+                        final = frame
+                        break
+            wall = (time.perf_counter() - t0) * 1e3
+            records = _journal_records(cfg, run_id)
+            _one_create_per_agent(name, drv, records)
+        finally:
+            hold.set()
+            if srv2 is not None:
+                srv2.stop()
+            srv1.sock_path.unlink(missing_ok=True)
+    check(adopted["type"] == "adopted" and final is not None
+          and final["ok"]
+          and all(a["status"] == "done" for a in final["agents"]),
+          f"{name}: adopted {adopted}, final {final}")
+    kinds = collections.Counter(r["kind"] for r in records)
+    check(kinds["adopted"] == 2 and kinds["resume"] == 1,
+          f"{name}: journal kinds {dict(kinds)}")
+    if any(e[0] for e in log1.ticks):
+        # the hosted run's events alone can give the first daemon a
+        # scored tick before the kill
+        log1.check_run(f"{name} first daemon")
+    scored = log2.check_run(f"{name} adopting daemon")
+    print(f"resume (c) loopd adopt_run: a daemon killed mid-run, the run "
+          f"adopted by a second daemon and finished in {wall!r} ms, "
+          f"journal {dict(kinds)}; the adopting daemon's sentinel scored "
+          f"{len(scored)} ticks on {scored[-1][3].device}")
+    return log1.launches() + log2.launches()
+
+
+def resume_cli_case(base: Path, device: str) -> None:
+    """(d): the verbs in process through ``CliRunner`` with one shared
+    fake driver (the fake engine dies with a forked CLI): ``loop
+    --resume <6-char prefix> --sentinel --json`` on a killed run exits 0
+    with every agent done; ``journal verify`` exits 0 on its journal and
+    2 on a copy with one byte flipped; ``journal verify --repair`` makes
+    that copy resumable again."""
+    import inspect
+    import threading
+
+    from click.testing import CliRunner
+
+    from clawker_tpu_torch import cli
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.loop.journal import (RunJournal, journal_path,
+                                                replay)
+
+    name = "resume (d)"
+    hold = threading.Event()
+
+    def held(io) -> int:
+        if not hold.is_set():
+            hold.wait(30.0)
+        return 0
+
+    saved = os.environ.get(cli.DEVICE_ENV)
+    os.environ[cli.DEVICE_ENV] = device
+    try:
+        with _isolated_dirs(base) as proj:
+            cfg = load_config(proj)
+            drv = _fake_pod(0.0)
+            for api in drv.apis:
+                api.set_behavior(LOOP_IMAGE, held)
+            sched1 = LoopScheduler(cfg, drv, LoopSpec(parallel=4,
+                                                      iterations=1))
+            t = threading.Thread(target=sched1.run,
+                                 kwargs={"poll_s": 0.05}, daemon=True)
+            sched1.start()
+            t.start()
+            check(_wait(lambda: all(l.status == "running"
+                                    for l in sched1.loops)),
+                  f"{name}: the run never ran")
+            sched1.kill()
+            t.join(30)
+            hold.set()
+            creates = sum(len(api.calls_named("container_create"))
+                          for api in drv.apis)
+            factory = cli.Factory(cwd=proj, driver=drv)
+            # click before 8.2 mixes stderr into stdout unless told not to
+            runner = (CliRunner(mix_stderr=False) if "mix_stderr" in
+                      inspect.signature(CliRunner).parameters else CliRunner())
+
+            def invoke(*args):
+                t0 = time.perf_counter()
+                res = runner.invoke(cli.cli, list(args), obj=factory)
+                return res, (time.perf_counter() - t0) * 1e3
+
+            res, resume_ms = invoke("loop", "--resume", sched1.loop_id[:6],
+                                    "--sentinel", "--json")
+            check(res.exit_code == 0,
+                  f"{name}: loop --resume exited {res.exit_code}: "
+                  f"{res.output[-2000:]}")
+            doc = json.loads(res.stdout)
+            check(doc["loop_id"] == sched1.loop_id
+                  and all(a["status"] == "done" for a in doc["agents"])
+                  and sum(len(api.calls_named("container_create"))
+                          for api in drv.apis) == creates,
+                  f"{name}: resumed run {doc}")
+            summary = next(line for line in res.stderr.splitlines()
+                           if line.startswith("resume:"))
+            path = journal_path(cfg.logs_dir, sched1.loop_id)
+            clean, _ = invoke("journal", "verify", sched1.loop_id)
+            copy = path.with_name("flipped.journal")
+            data = bytearray(path.read_bytes())
+            starts = [0] + [i + 1 for i, b in enumerate(data) if b == 0x0A]
+            data[starts[2] + 3] ^= 0x01
+            copy.write_bytes(bytes(data))
+            flipped, _ = invoke("journal", "verify", str(copy))
+            repaired, _ = invoke("journal", "verify", str(copy), "--repair")
+            again, _ = invoke("journal", "verify", str(copy))
+            records, integrity = RunJournal.read_verified(copy)
+            image = replay(records)
+    finally:
+        if saved is None:
+            os.environ.pop(cli.DEVICE_ENV, None)
+        else:
+            os.environ[cli.DEVICE_ENV] = saved
+    check((clean.exit_code, flipped.exit_code, repaired.exit_code,
+           again.exit_code) == (0, 2, 0, 0),
+          f"{name}: journal verify exits clean {clean.exit_code}, flipped "
+          f"{flipped.exit_code}, --repair {repaired.exit_code}, after "
+          f"{again.exit_code}")
+    check(not integrity.corrupt and image.run_id == sched1.loop_id,
+          f"{name}: the repaired copy folds {integrity.to_doc()}")
+    print(f"resume (d) verbs: loop --resume {sched1.loop_id[:6]} --sentinel "
+          f"--json exit 0 in {resume_ms!r} ms ({summary}); journal verify "
+          f"0, flipped copy 2, --repair 0 ({repaired.stdout.strip()!r}), "
+          f"then 0")
+
+
+def resume_phase(device) -> collections.Counter:
+    """Drives the warm pool and ``--resume``; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "resume"
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    with stage_timers({}) as stages:
+        total.update(resume_inproc_case(out / "a", device, stages))
+    resume_workerd_case(out / "b")
+    with stage_timers({}) as stages:
+        total.update(resume_loopd_case(out / "c", device, stages))
+    resume_cli_case(out / "d", device)
+    no_daemon_left()
+    print(f"resume launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -3118,6 +3669,8 @@ def main() -> int:
         main_path["launches"][k] += v
     for k, v in workerd_phase(device).items():
         main_path["launches"][k] += v
+    for k, v in resume_phase(device).items():
+        main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)
     check_no_reference_imports()
@@ -3150,6 +3703,7 @@ def main() -> int:
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": None,
         })
+    print(card_line())      # again beside the results: a tail shows it
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

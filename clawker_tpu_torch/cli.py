@@ -14,13 +14,16 @@ submits to this project's loopd when one answers (``--detach``, ``loop
 attach``), else runs the port's own
 :class:`~clawker_tpu_torch.loop.LoopScheduler` in process over the
 driver that ``CLAWKER_TPU_DRIVER`` / settings ``runtime.driver`` names,
-with the anomaly riders scoring on the GPU and the launch data plane on
-any workerd that answers (``--workerd/--no-workerd``).  ``loopd
+with the anomaly riders scoring on the GPU, the warm pool
+(``--warm-pool``) and the launch data plane on any workerd that answers
+(``--workerd/--no-workerd``); ``loop --resume RUN`` replays a run's
+journal in process and reconciles it (never under a daemon).  ``loopd
 start|stop|status`` is ``clawker_tpu/cli/cmd_loopd.py``, ``workerd
-start|stop|status`` ``clawker_tpu/cli/cmd_workerd.py`` and ``trace``
-``clawker_tpu/cli/cmd_trace.py``.  The device comes from
-``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the plain
-PyTorch versions.
+start|stop|status`` ``clawker_tpu/cli/cmd_workerd.py``, ``trace``
+``clawker_tpu/cli/cmd_trace.py`` and ``journal verify [--repair]``
+``clawker_tpu/cli/cmd_journal.py`` (exit 0 clean, 2 on corruption).
+The device comes from ``CLAWKER_TORCH_DEVICE`` (default ``cuda``);
+``cpu`` runs the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -350,8 +353,8 @@ _hard_exit = os._exit       # seam: tests stub the second-stage exit
 
 
 class _TwoStageInterrupt:
-    """First Ctrl-C drains gracefully (a clean ``shutdown`` journal
-    record); a second Ctrl-C hard-exits."""
+    """First Ctrl-C drains gracefully -- journal a clean ``shutdown``
+    record and print the ``--resume`` hint; a second Ctrl-C hard-exits."""
 
     def __init__(self, sched):
         self.sched = sched
@@ -360,8 +363,10 @@ class _TwoStageInterrupt:
     def __call__(self, signum=None, frame=None) -> None:
         self.hits += 1
         if self.hits == 1:
-            click.echo("\ninterrupt: draining loops (Ctrl-C again to "
-                       "hard-exit)", err=True)
+            click.echo(
+                f"\ninterrupt: draining loops (resume later with "
+                f"`loop --resume {self.sched.loop_id}`; Ctrl-C again to "
+                "hard-exit)", err=True)
             self.sched.request_shutdown("sigint")
         else:
             click.echo("\nsecond interrupt: hard exit", err=True)
@@ -426,8 +431,10 @@ def _not_ported(what: str) -> click.ClickException:
                    "create/start launches allowed per worker (default: "
                    "settings loop.placement.max_inflight_per_worker).")
 @click.option("--warm-pool", "warm_pool", type=int, default=None,
-              help="Per-worker warm pool depth (not yet ported: any "
-                   "depth above 0 is refused).")
+              help="Per-worker warm pool depth: keep N pre-created agent "
+                   "containers per worker that placements adopt (relabel/"
+                   "env-fixup + start) instead of paying a full create "
+                   "(default: settings loop.warm_pool; 0 = off).")
 @click.option("--image", default="@", help="Agent image ('@' = project default).")
 @click.option("--prompt", default="", help="Prompt handed to each harness loop.")
 @click.option("--worktrees/--no-worktrees", default=False,
@@ -447,7 +454,10 @@ def _not_ported(what: str) -> click.ClickException:
                    "placement before failing (default 600, 0 = fail "
                    "immediately).")
 @click.option("--resume", "resume_run", default=None, metavar="RUN",
-              help="Resume a journaled run (not yet ported: refused).")
+              help="Resume a run from its write-ahead journal (a run id, "
+                   "an unambiguous prefix, or a journal path) after a "
+                   "scheduler death: adopt still-running containers, "
+                   "account missed exits, re-launch the rest.")
 @click.option("--metrics-port", type=int, default=None,
               help="Prometheus scrape port (not yet ported: any port "
                    "above 0 is refused).")
@@ -526,8 +536,6 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
             + ("--resume" if resume_run else "--chaos-plan")
             + ": these stay in-process by design (docs/loopd.md "
             "degrade matrix)")
-    if resume_run:
-        raise _not_ported("--resume")
     if chaos_plan:
         raise _not_ported("--chaos-plan")
     env = {}
@@ -543,34 +551,46 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     settings = cfg.settings
     tele = settings.telemetry
     defaults = settings.loop
-    pdef = defaults.placement
-    wps = defaults.warm_pool
-    spec = LoopSpec(
-        parallel=parallel or defaults.parallel,
-        iterations=(iterations if iterations >= 0
-                    else defaults.max_iterations),
-        placement=placement or pdef.policy,
-        tenant=tenant or pdef.tenant,
-        tenant_weight=(tenant_weight if tenant_weight is not None
-                       else pdef.tenant_weight),
-        max_inflight_per_worker=max_inflight_per_worker or 0,
-        warm_pool_depth=(warm_pool if warm_pool is not None
-                         else (wps.depth if wps.enable else 0)),
-        image=image,
-        prompt=prompt,
-        worktrees=worktrees,
-        gitguard=gitguard,
-        env=env,
-        failover=failover or defaults.failover,
-        orphan_grace_s=orphan_grace,
-        telemetry=tele.flight_recorder.enable,
-    )
+    run_image = None
+    if resume_run:
+        # --resume stays in process: it reconciles against a DEAD
+        # scheduler's journal, so it never submits to a daemon
+        if (parallel or placement or prompt or env_kv or image != "@"
+                or tenant or tenant_weight is not None
+                or max_inflight_per_worker):
+            click.echo("note: --resume takes the run shape from the "
+                       "journal; shape flags are ignored", err=True)
+        run_image = _resume_image(f, resume_run)
+        spec = None
+    else:
+        pdef = defaults.placement
+        wps = defaults.warm_pool
+        spec = LoopSpec(
+            parallel=parallel or defaults.parallel,
+            iterations=(iterations if iterations >= 0
+                        else defaults.max_iterations),
+            placement=placement or pdef.policy,
+            tenant=tenant or pdef.tenant,
+            tenant_weight=(tenant_weight if tenant_weight is not None
+                           else pdef.tenant_weight),
+            max_inflight_per_worker=max_inflight_per_worker or 0,
+            warm_pool_depth=(warm_pool if warm_pool is not None
+                             else (wps.depth if wps.enable else 0)),
+            image=image,
+            prompt=prompt,
+            worktrees=worktrees,
+            gitguard=gitguard,
+            env=env,
+            failover=failover or defaults.failover,
+            orphan_grace_s=orphan_grace,
+            telemetry=tele.flight_recorder.enable,
+        )
     # --- daemon mode (docs/loopd.md): when a loopd answers on this
     # project's socket the CLI becomes a thin control client -- the run
     # executes inside the daemon (shared admission caps + fairness
     # across every concurrent CLI, the daemon's sentinel) and survives
     # this process exiting.  No daemon = the in-process path below.
-    if use_daemon is not False:
+    if use_daemon is not False and run_image is None:
         client = ensure_daemon(f)
         if client is not None:
             for flag, note in (
@@ -596,7 +616,7 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
             raise click.ClickException(
                 "--daemon: no loopd answering on this project's socket "
                 "(start one with `loopd start`)")
-    if detach:
+    if detach and run_image is None:
         raise click.ClickException(
             "--detach needs a loopd daemon to own the run (start one "
             "with `loopd start`)")
@@ -616,7 +636,8 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         raise _not_ported("the telemetry shipper (--ship-telemetry, "
                           "settings monitoring.shipper.enable)")
     # the riders score on the GPU: without one (and without
-    # CLAWKER_TORCH_DEVICE=cpu) the run never starts
+    # CLAWKER_TORCH_DEVICE=cpu) the run never starts -- a resume never
+    # reconciles
     device = _device("loop")
     _bring_up("loop", device)
 
@@ -632,8 +653,18 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
                           "capacity.enable)")
     executors = _discover_workerd(cfg, driver, use_workerd)
     try:
-        sched = LoopScheduler(cfg, driver, spec, on_event=on_event,
-                              executors=executors)
+        if run_image is not None:
+            sched = LoopScheduler.resume(
+                cfg, driver, run_image, on_event=on_event,
+                failover=failover,
+                iterations=iterations if iterations >= 0 else None,
+                orphan_grace_s=orphan_grace,
+                telemetry=tele.flight_recorder.enable,
+                executors=executors)
+            spec = sched.spec
+        else:
+            sched = LoopScheduler(cfg, driver, spec, on_event=on_event,
+                                  executors=executors)
     except ClawkerError as e:
         if executors is not None:
             executors.close_all()
@@ -668,10 +699,22 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         f"loop {sched.loop_id}: {spec.parallel} agent(s), "
         f"{spec.iterations or 'unbounded'} iteration(s), {spec.placement} "
         f"placement, {spec.failover} failover"
-        + (f", tenant {spec.tenant}" if spec.tenant != "default" else ""),
+        + (f", tenant {spec.tenant}" if spec.tenant != "default" else "")
+        + (f", warm-pool {spec.warm_pool_depth}"
+           if spec.warm_pool_depth else "")
+        + (" (resumed)" if run_image is not None else ""),
         err=True)
     try:
-        sched.start()
+        if run_image is not None:
+            summary = sched.reconcile()
+            click.echo(
+                "resume: {adopted} adopted, {continued} continued, "
+                "{relaunched} relaunched, {exits_accounted} exit(s) "
+                "accounted, {ghosts} ghost(s) swept, {orphaned} orphaned, "
+                "{pool_restored} pool member(s) restored".format(**summary),
+                err=True)
+        else:
+            sched.start()
         loops = sched.run()
     finally:
         watch.stop()
@@ -687,17 +730,70 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     else:
         if stor.get("durability") != "ok":
             click.echo(f"storage: durability {stor.get('durability')} "
-                       f"({stor.get('faults', 0)} fault(s))", err=True)
+                       f"({stor.get('faults', 0)} fault(s)) -- inspect "
+                       f"with `journal verify {sched.loop_id}`", err=True)
         for l in loops:
             codes = ",".join(map(str, l.exit_codes)) or "-"
             click.echo(f"{l.agent}\t{l.worker.id}\t{l.status}\t"
                        f"iters={l.iteration}\texits={codes}")
         if sched.flight is not None:
             click.echo(f"trace: {sched.flight.path}", err=True)
+        if sched.journal is not None and any(
+                l.status == "stopped" for l in loops):
+            click.echo(f"resume: loop --resume {sched.loop_id}", err=True)
     # orphaned loops never completed their budget (worker died, no
     # failover outcome before stop): that is not a success either
     if any(l.status in ("failed", "orphaned") for l in loops):
         raise SystemExit(1)
+
+
+def _resolve_journal(f: Factory, run: str) -> Path:
+    """RUN (an id, an unambiguous prefix, or a journal file path) -> the
+    run journal to resume from or verify."""
+    from .loop.journal import RUNS_DIR, journal_path
+
+    runs_dir = f.config.logs_dir / RUNS_DIR
+    as_path = Path(run)
+    if as_path.exists() and as_path.is_file():
+        return as_path
+    exact = journal_path(f.config.logs_dir, run)
+    if exact.exists():
+        return exact
+    matches = sorted(runs_dir.glob(f"{run}*.journal"))
+    if len(matches) == 1:
+        return matches[0]
+    if matches:
+        names = ", ".join(m.stem for m in matches)
+        raise click.ClickException(f"run {run!r} is ambiguous: {names}")
+    raise click.ClickException(
+        f"no run journal for {run!r} under {runs_dir} (runs journal one "
+        "by default; check settings loop.journal.enable)")
+
+
+def _resume_image(f: Factory, run: str):
+    """The replayed image of RUN's journal, folded only as far as its
+    verified prefix: a bit-flipped or torn journal can never seed the
+    resume with garbage state (docs/durability.md#verify)."""
+    from .loop.journal import RunJournal, replay
+
+    jpath = _resolve_journal(f, run)
+    records, integrity = RunJournal.read_verified(jpath)
+    if integrity.corrupt:
+        click.echo(
+            f"warning: {jpath.name}: {integrity.corrupt} corrupt "
+            f"record(s) from line {integrity.first_corrupt_line}; "
+            f"resuming from the last verified prefix "
+            f"({integrity.verified} records) -- inspect with "
+            f"`journal verify {run}`", err=True)
+    elif integrity.torn_tail:
+        click.echo(f"note: {jpath.name}: torn final record "
+                   "(crash mid-append) dropped", err=True)
+    image = replay(records)
+    if not image.run_id:
+        raise click.ClickException(
+            f"{jpath}: no usable run header -- the journal is too "
+            "damaged to resume; start a fresh run")
+    return image
 
 
 def _discover_workerd(cfg, driver, use_workerd):
@@ -1248,6 +1344,96 @@ def trace_cmd(ctx, run, as_json):
         click.echo("per-hop WAN wait:")
         for name, ms in waits.items():
             click.echo(f"  {name:<24} {ms:>9.1f}ms")
+
+
+# ----------------------------------------------------------------- journal
+
+
+@cli.group("journal")
+def journal_group():
+    """Inspect and repair run journals (docs/durability.md)."""
+
+
+def _quarantine_and_rewrite(path: Path) -> dict:
+    """Move every damaged line to ``<path>.quarantine`` (appended, with
+    a line-number prefix) and atomically rewrite the journal with the
+    intact lines verbatim -- kept records are NOT re-encoded, so a
+    repair never invents bytes the writer didn't fsync."""
+    from .monitor.ledger import classify_line
+
+    kept: list[str] = []
+    bad: list[tuple[int, str]] = []
+    with path.open("r", encoding="utf-8", errors="replace") as fh:
+        lines = fh.read().splitlines()
+    for i, line in enumerate(lines, start=1):
+        status, _ = classify_line(line)
+        if status == "blank":
+            continue
+        if status in ("ok", "legacy"):
+            kept.append(line)
+        else:
+            bad.append((i, line))
+    if bad:
+        sidecar = path.with_name(path.name + ".quarantine")
+        with sidecar.open("a", encoding="utf-8") as fh:
+            for i, line in bad:
+                fh.write(f"{i}:{line}\n")
+    tmp = path.with_name(path.name + ".repair")
+    with tmp.open("w", encoding="utf-8") as fh:
+        fh.write("".join(l + "\n" for l in kept))
+        fh.flush()
+        os.fsync(fh.fileno())
+    os.replace(tmp, path)
+    return {"kept": len(kept), "quarantined": len(bad)}
+
+
+@journal_group.command("verify")
+@click.argument("run")
+@click.option("--repair", is_flag=True,
+              help="Quarantine damaged lines to a .quarantine sidecar "
+                   "and atomically rewrite the journal with the intact "
+                   "records.")
+@click.option("--json", "as_json", is_flag=True,
+              help="Integrity report as JSON.")
+@click.pass_context
+def journal_verify(ctx, run, repair, as_json):
+    """Checksum-scan RUN's journal (a run id, unambiguous prefix, or a
+    journal file path).
+
+    Exit 0 when every record verifies (legacy pre-checksum records and
+    a single torn final record are tolerated), exit 2 on corruption.
+    With ``--repair`` the damaged lines move to a sidecar and the exit
+    reflects the REWRITTEN journal.
+    """
+    from .monitor.ledger import verify_jsonl
+
+    path = _resolve_journal(_factory(ctx), run)
+    report = verify_jsonl(path)
+    repaired = None
+    if repair and not report.ok:
+        repaired = _quarantine_and_rewrite(path)
+        report = verify_jsonl(path)
+    if as_json:
+        doc = report.to_doc()
+        if repaired is not None:
+            doc["repaired"] = repaired
+        click.echo(json.dumps(doc, indent=2))
+    else:
+        click.echo(f"{path.name}: {report.total} record(s) -- "
+                   f"{report.verified} verified, {report.legacy} legacy, "
+                   f"{report.corrupt} corrupt"
+                   + (", torn tail" if report.torn_tail else ""))
+        if repaired is not None:
+            click.echo(f"repaired: kept {repaired['kept']}, quarantined "
+                       f"{repaired['quarantined']} -> "
+                       f"{path.name}.quarantine")
+        if not report.ok:
+            click.echo(f"first corrupt record at line "
+                       f"{report.first_corrupt_line} -- resume folds only "
+                       "the prefix above it (docs/durability.md#verify)",
+                       err=True)
+    if not report.ok:
+        raise SystemExit(2)
 
 
 def ensure_daemon(f: Factory):

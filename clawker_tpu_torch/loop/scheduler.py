@@ -93,21 +93,28 @@ co-tenant runs (``admission=``, ``lanes=``), the cross-process trace
 context (``LoopSpec.trace_parent`` / ``clock_offset_s``, journaled in the
 run record and carried by each iteration root as ``ctx_parent`` /
 ``skew_s``; ``_engine_ctx`` around the engine calls), and the daemon's
-crash seam :meth:`LoopScheduler.kill`.  What waits for its slice
-(ROADMAP §1) is refused with a named :class:`ConfigError` and has no
-code path here: the warm pool (``warm_pool_depth`` > 0, and with it
-workerd's pool refills and pooled launches), worktrees with their
-gitguard and merge queue (and the bind-mode runs that stay off
-workerd), ``--resume`` (``resume`` / ``reconcile``, and the adopt
-intent that hands workerd a reconciled container), the scheduler's
-chaos seams (``seams`` is the never-armed ``NULL_SEAMS`` the workerd
+crash seam :meth:`LoopScheduler.kill`.  The warm pool is here
+(``warm_pool_depth`` > 0:
+:class:`~clawker_tpu_torch.loop.warmpool.WarmPool`, the refill tick, the checkout on the direct path and on workerd's
+launch intents, the fills as workerd ``create`` intents, the drain at
+cleanup), and so is the resume path (:meth:`LoopScheduler.resume`,
+:meth:`LoopScheduler.reconcile` with its pool-restore branch, and the
+adopt intent that hands workerd a reconciled container).  What waits
+for its slice (ROADMAP §1) is refused with a named :class:`ConfigError`
+and has no code path here: worktrees with their gitguard and merge
+queue (item 6; a journal that holds their records is refused at
+resume), the scheduler's chaos seams (item 8: ``seams`` is the
+never-armed ``NULL_SEAMS`` that the pool, the reconcile and the workerd
 executors fire into) and the elastic capacity controller
-(:meth:`LoopScheduler.attach_capacity`).
+(:meth:`LoopScheduler.attach_capacity`, item 9; with none attached,
+the capacity-state restore of a resume is a no-op, as in the
+reference).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import queue
 import tarfile
@@ -143,6 +150,7 @@ from ..placement import (
     note_decision,
 )
 from ..monitor.ledger import FlightRecorder, flight_path
+from ..runtime.names import container_name
 from ..runtime.orchestrate import (
     AgentRuntime,
     CreateOptions,
@@ -153,6 +161,7 @@ from ..telemetry.spans import (
     SPAN_EXIT,
     SPAN_MIGRATE,
     SPAN_ORPHAN,
+    SPAN_RESUME,
     SPAN_START,
     SPAN_WAIT,
     Tracer,
@@ -161,12 +170,16 @@ from ..tracing.context import TraceContext, use
 from ..util import ids
 from .journal import (
     REC_ADMIT_QUEUED,
+    REC_ADOPTED,
     REC_CREATED,
     REC_EXITED,
+    REC_GHOST,
     REC_LOOP_END,
     REC_MIGRATED,
     REC_ORPHANED,
     REC_PLACEMENT,
+    REC_POOL_REMOVE,
+    REC_RESUME,
     REC_RUN,
     REC_SEED_SHIP,
     REC_SEED_TAR,
@@ -176,10 +189,12 @@ from .journal import (
     AppendReceipt,
     JournalFault,
     NO_JOURNAL_RECEIPT,
+    RunImage,
     RunJournal,
     journal_path,
     retention_gc,
 )
+from .warmpool import WarmPool
 
 log = logsetup.get("loop.scheduler")
 
@@ -197,6 +212,19 @@ _LANE_EXECUTE_SECONDS = telemetry.histogram(
 _ITERATIONS = telemetry.counter(
     "loop_iterations_total", "Completed loop iterations",
     labels=("status",))           # status: ok | failed
+# resume telemetry (docs/loop-resume.md): how a journal replay landed --
+# adoption is the cheap path (container kept running, zero engine
+# mutations), everything else re-pays part of a cold start
+_RESUMES = telemetry.counter(
+    "loop_resumes_total", "Journal-replay resumes of loop runs")
+_ADOPTIONS = telemetry.counter(
+    "loop_adoptions_total",
+    "Still-running containers adopted in place by --resume",
+    labels=("worker",))
+_GHOSTS = telemetry.counter(
+    "loop_ghosts_swept_total",
+    "Unjournaled leftover containers swept at resume reconcile",
+    labels=("worker",))
 FAILURE_CEILING = 3          # consecutive nonzero exits -> loop failed
 LOOP_STATE_DIR = "/run/clawker"
 HALT_DEADLINE_S = 10.0       # bounded halt/cleanup: a hung worker's lane
@@ -320,11 +348,7 @@ class AgentLoop:
 
 def refuse_unported(spec: LoopSpec) -> None:
     """Raise a named :class:`ConfigError` for a spec that asks for a part
-    of the scheduler the port does not carry yet (ROADMAP §1)."""
-    if spec.warm_pool_depth > 0:
-        raise ConfigError(
-            f"loop: the warm pool (warm_pool_depth={spec.warm_pool_depth}, "
-            "--warm-pool) is not yet ported to clawker_tpu_torch")
+    of the scheduler the port does not carry yet (ROADMAP §1 item 6)."""
     if spec.worktrees:
         raise ConfigError(
             "loop: worktrees (--worktrees, with gitguard and the merge "
@@ -569,8 +593,23 @@ class LoopScheduler:
                 check_interval_s=sps.check_interval_s,
                 gc=lambda: retention_gc(cfg.logs_dir, keep=keep),
                 on_event=self._on_pressure_event)
+        # --- warm pool (docs/loop-warmpool.md): pre-created containers
+        # this run's placements adopt instead of paying a full create.
+        # Refills bill a dedicated low-weight admission tenant so the
+        # WFQ hands real placements the worker's tokens first.  (The
+        # reference keeps bind-mode worktree runs cold here; the port
+        # refuses worktrees, so every pooled spec builds its pool.)
+        self.warmpool: WarmPool | None = None
+        if spec.warm_pool_depth > 0:
+            wps = cfg.settings.loop.warm_pool
+            self.warmpool = WarmPool(
+                self.loop_id, depth=spec.warm_pool_depth,
+                max_age_s=wps.max_age_s, journal=self._journal)
+            self.admission.register_tenant(
+                self.warmpool.tenant, weight=wps.tenant_weight)
         # the named crash seams (docs/chaos.md): never armed until the
-        # chaos runner is ported; the workerd executors fire into them
+        # chaos runner is ported; the pool (pool.*), the reconcile
+        # (resume.*) and the workerd executors fire into them
         self.seams = NULL_SEAMS
         # --- workerd (docs/workerd.md): the WorkerExecutor seam.  An
         # ExecutorSet maps workers to live channels into their
@@ -585,11 +624,16 @@ class LoopScheduler:
         if executors is not None:
             executors.bind(self)
         self._remote_exits: queue.SimpleQueue = queue.SimpleQueue()
-        self._placed_workers: set[str] = set()  # every worker a launch
-        #                           was EVER submitted to: the cleanup
-        #                           sweep set
+        self._placed_workers: set[str] = set()  # every worker a launch or
+        #                           refill was EVER submitted to: the
+        #                           cleanup sweep set
         self._shutdown_journaled = False
         self._aborted = False       # kill(): crash seam, skip all shutdown
+        self._image: RunImage | None = None   # journal image being resumed
+        self._extra_workers: list[Worker] = []  # journaled workers missing
+        #                           from the current fleet: engine-less
+        #                           stand-ins whose pre-opened breakers
+        #                           route their loops into failover
         # --- workspace-seed fan-out (docs/loop-worktrees.md): the tree
         # walk is paid once per fan-out (content-addressed TTL cache in
         # runtime/orchestrate) and journaled write-ahead per DIGEST.
@@ -755,6 +799,12 @@ class LoopScheduler:
         if self.health is not None:
             return self.health
         fleet = list(self.driver.workers())
+        known = {w.id for w in fleet}
+        # a resume may carry loops journaled onto workers the current
+        # fleet no longer has: engine-less stand-ins join the monitored
+        # set so their pre-opened breakers orphan those loops into the
+        # normal failover machinery on the first verdict drain
+        fleet.extend(w for w in self._extra_workers if w.id not in known)
         self.health = HealthMonitor(
             self.driver, fleet,
             config=self._health_config, events=self.events,
@@ -768,7 +818,13 @@ class LoopScheduler:
         """The LIVE context every placement decision reads: current
         fleet, breaker states, recent probe latency, load, topology."""
         ws = list(workers if workers is not None else self.driver.workers())
+        known = {w.id for w in ws}
+        ws.extend(w for w in self._extra_workers if w.id not in known)
         if self._topology is None:
+            # shape from the REAL pod only: resume stand-ins (journaled
+            # workers absent from the fleet) have no coordinates, and
+            # counting them would mis-infer the grid (or invalidate an
+            # explicit topology) for the whole cached run
             self._topology = pod_topology(
                 self.cfg.settings.runtime.tpu, len(self.driver.workers()))
         health = self.health
@@ -989,15 +1045,26 @@ class LoopScheduler:
                 return None         # nothing to restart: direct path owns it
             return ex.submit_start(loop, epoch, worker, cid=cid,
                                    fresh=fresh, state=self._state_doc(loop))
-        # launch: create + first start
+        # launch: create + first start.  Warm-pool checkout stays
+        # scheduler-side (bookkeeping); the engine-side adoption runs
+        # worker-resident, falling back to a cold create there.
         if self._effective_mode() == "snapshot":
             # one transfer per (digest, worker); every create on the
             # worker then fans out from its local store
             self._ship_seed(ex, worker, self._seed_root())
-        return ex.submit_launch(loop, epoch, worker,
-                                opts_doc=self._launch_opts_doc(
-                                    loop, worker, epoch),
-                                state=self._state_doc(loop))
+        pool_cid = ""
+        pool_entry = None
+        if self.warmpool is not None and worker.engine is not None:
+            pool_entry = self.warmpool.checkout(worker.id, by=loop.agent,
+                                                epoch=epoch)
+            if pool_entry is not None:
+                pool_cid = pool_entry.cid
+        opts = self._launch_opts_doc(loop, worker, epoch)
+        if pool_entry is not None:
+            opts["extra_labels"][consts.LABEL_WARMPOOL] = pool_entry.agent
+        return ex.submit_launch(loop, epoch, worker, opts_doc=opts,
+                                state=self._state_doc(loop),
+                                pool_cid=pool_cid, pool_entry=pool_entry)
 
     # --- event-stream accounting: these run on the executor's reader
     # thread and write the SAME journal records, spans, and transitions
@@ -1007,8 +1074,16 @@ class LoopScheduler:
                          cid: str, pool_hit: bool, pool_error: str,
                          pool_entry, ms: float, *,
                          wan_ms: float = 0.0) -> None:
-        """(``pool_entry`` is always None here: the warm pool, whose
-        checked-out members a launch adopts, is not ported.)"""
+        if pool_entry is not None and not pool_hit:
+            # remote adoption failed and workerd cold-created instead:
+            # account the recycled member and discard its container
+            if self.warmpool is not None:
+                self.warmpool.adoption_failed(
+                    pool_entry, pool_error or "remote adoption failed")
+            threading.Thread(
+                target=self._remove_cid, args=(worker, pool_entry.cid),
+                daemon=True, name=f"workerd-recycle-{pool_entry.cid[:12]}",
+            ).start()
         # durable before anything acts on the cid -- same contract as
         # _create: a crash here re-finds the container by (deterministic
         # name, journaled cid).  The container already exists, so a
@@ -1058,6 +1133,18 @@ class LoopScheduler:
     def _workerd_failed(self, loop: AgentLoop, epoch: int, worker: Worker,
                         phase: str, error: str, *, driverish: bool,
                         penalize: bool = True, pool_entry=None) -> None:
+        if pool_entry is not None:
+            # the checked-out pool member never got adopted (intent
+            # failed or expired): account the recycle and discard its
+            # container, exactly like the direct path's adoption-failed
+            # branch -- silent drops would drift pool depth accounting
+            if self.warmpool is not None:
+                self.warmpool.adoption_failed(
+                    pool_entry, f"workerd {phase}: {error}")
+            threading.Thread(
+                target=self._remove_cid, args=(worker, pool_entry.cid),
+                daemon=True,
+                name=f"workerd-recycle-{pool_entry.cid[:12]}").start()
         if self._stop.is_set() or loop.epoch != epoch:
             return
         if driverish:
@@ -1126,6 +1213,203 @@ class LoopScheduler:
                 detail = "exit unreadable"
             out.append((loop, int(code) if code is not None else None,
                         detail))
+
+    # ------------------------------------------------------------ warm pool
+
+    def _pool_tick(self) -> None:
+        """Keep every healthy worker's warm pool at target depth
+        (docs/loop-warmpool.md).  Runs on the run thread each tick:
+        expired members are recycled, and refills are submitted through
+        admission under the pool's low-weight tenant -- the WFQ hands
+        real placements the tokens first, so a refill burst can never
+        starve live launches."""
+        wp = self.warmpool
+        if wp is None or self._stop.is_set() or wp.draining:
+            return
+        for entry in wp.take_expired():
+            self._lane(entry.worker).submit(
+                self._remove_cid, entry.worker, entry.cid)
+        for worker in self.driver.workers():
+            if worker.engine is None:
+                continue
+            if (self.health is not None
+                    and self.health.state(worker.id) != BREAKER_CLOSED):
+                continue
+            while wp.want(worker.id) > 0:
+                pool_agent = wp.begin_refill(worker)
+                if pool_agent is None:
+                    break
+                if not self._submit_refill(worker, pool_agent):
+                    # admission pending queue saturated: the released
+                    # reservation would make want() > 0 again, so retry
+                    # next tick instead of spinning durable journal
+                    # records on the run thread
+                    break
+
+    def prefill_pool(self, timeout: float = 0.0) -> int:
+        """Kick one refill round now and (optionally) wait until every
+        worker's pool reads target depth or ``timeout`` elapses.
+        Returns the number of adoptable members.  Callers that want the
+        FIRST placements to hit the pool (benches, tests, a CLI warm
+        start) call this before :meth:`start`; during a run the tick
+        does the same thing continuously."""
+        if self.warmpool is None:
+            return 0
+        self._pool_tick()
+        deadline = time.monotonic() + max(0.0, timeout)
+        workers = [w for w in self.driver.workers() if w.engine is not None]
+
+        def ready() -> int:
+            return sum(self.warmpool.depth_of(w.id) for w in workers)
+
+        target = self.warmpool.depth * len(workers)
+        while timeout and ready() < target and time.monotonic() < deadline:
+            time.sleep(0.005)
+        return ready()
+
+    def _submit_refill(self, worker: Worker, pool_agent: str) -> bool:
+        """Route one pool fill through admission onto the worker's lane.
+        A REJECTED or failed fill just releases the reservation --
+        refills are opportunistic, never a loop failure and never a
+        breaker report (probes judge the worker).  Returns False on a
+        synchronous admission rejection so the tick stops refilling
+        this worker (the queue is saturated; retrying now would spin)."""
+        wp = self.warmpool
+
+        def cancelled() -> bool:
+            return self._stop.is_set() or wp.draining
+
+        def on_cancel() -> None:
+            wp.fill_done(worker, pool_agent, None, "cancelled")
+
+        def dispatch(release) -> None:
+            # workerd seam: refill creates execute worker-resident too
+            # (the `create` intent), so a pool fill costs one batched
+            # WAN crossing instead of the whole create call chain
+            remote_fill = (self._workerd_for(worker)
+                           if not (self._stop.is_set() or wp.draining)
+                           else None)
+            if remote_fill is not None:
+                # pre-stage the workspace seed (docs/loop-worktrees.md):
+                # the fill's create resolves it from the worker-local
+                # store, so warm_pool_hit_p50 keeps its split even on
+                # WAN-remote workers
+                if self._effective_mode() == "snapshot":
+                    self._ship_seed(remote_fill, worker, self._seed_root())
+                fut = remote_fill.submit_pool_fill(
+                    pool_agent, self._pool_opts_doc(worker, pool_agent))
+            else:
+                fut = self._lane(worker).submit(
+                    self._pool_fill, worker, pool_agent)
+
+            def done(f: Future) -> None:
+                release()
+                exc = f.exception()
+                if exc is not None:
+                    wp.fill_done(worker, pool_agent, None, f"{exc}")
+                    log.info("pool refill on %s failed: %s", worker.id, exc)
+                    return
+                cid = f.result()
+                if remote_fill is not None and cid:
+                    self.seams.fire("pool.post_fill")
+                if cid is None:
+                    wp.fill_done(worker, pool_agent, None, "skipped")
+                elif not wp.fill_done(worker, pool_agent, cid):
+                    # the pool started draining while the fill was on
+                    # the lane: discard on this same lane (ordered
+                    # after us), so drain can never leak it
+                    self._lane(worker).submit(
+                        self._remove_cid, worker, cid)
+
+            fut.add_done_callback(done)
+
+        self._placed_workers.add(worker.id)
+        st = self.admission.submit(worker.id, wp.tenant, dispatch,
+                                   cancelled=cancelled, on_cancel=on_cancel)
+        if st == ADMISSION_REJECTED:
+            wp.fill_done(worker, pool_agent, None, "admission rejected")
+            return False
+        return True
+
+    def _pool_opts_doc(self, worker: Worker, pool_agent: str) -> dict:
+        """The create doc a remote pool-fill intent carries (mirrors
+        _pool_fill's CreateOptions)."""
+        env = {
+            "CLAWKER_LOOP_ID": self.loop_id,
+            **({"CLAWKER_LOOP_PROMPT": self.spec.prompt}
+               if self.spec.prompt else {}),
+            **self.spec.env,
+        }
+        doc = {
+            "agent": pool_agent, "image": self.spec.image, "env": env,
+            "tty": False,
+            "workspace_mode": self._effective_mode(),
+            "worker": worker.id, "loop_id": self.loop_id,
+            "extra_labels": {consts.LABEL_LOOP_EPOCH: consts.POOL_EPOCH,
+                             consts.LABEL_WARMPOOL: pool_agent},
+            "replace": True,
+        }
+        if doc["workspace_mode"] == "snapshot":
+            # pool members seed from the project root: an adopting
+            # agent's worktree has not diverged at adoption time, so
+            # the digests are identical (docs/loop-worktrees.md)
+            digest, _tar = self._workspace_seed(self._seed_root())
+            if digest:
+                doc["seed_digest"] = digest
+        return doc
+
+    def _pool_fill(self, worker: Worker, pool_agent: str) -> str | None:
+        """Create one pool member (the expensive create-time stages) on
+        the owning worker's lane.  Runs under the pool placeholder
+        agent name; adoption finalizes the real agent's surface."""
+        wp = self.warmpool
+        if wp is None or self._stop.is_set() or wp.draining:
+            return None
+        rt = self._runtime(worker)
+        # the fill's own harness seed populates the (harness, root,
+        # credentials) staging-tar cache, so every subsequent create on
+        # this worker -- warm or cold -- reuses the staged tar
+        env = {
+            "CLAWKER_LOOP_ID": self.loop_id,
+            **({"CLAWKER_LOOP_PROMPT": self.spec.prompt}
+               if self.spec.prompt else {}),
+            **self.spec.env,
+        }
+        mode = self._effective_mode()
+        seed_digest = ""
+        if mode == "snapshot":
+            # pre-stage the workspace seed (docs/loop-worktrees.md):
+            # warms the content-addressed tar cache AND journals the
+            # digest, so this fill and every adoption-era create reuse
+            # one tree walk
+            seed_digest, _tar = self._workspace_seed(self._seed_root())
+        # analyze: allow(wal-before-mutation): REC_POOL_ADD is journaled
+        # durable in warmpool.begin_refill BEFORE this fill is submitted
+        # to the lane -- the WAL lives one hop up the flow
+        cid = rt.create(CreateOptions(
+            agent=pool_agent,
+            image=self.spec.image,
+            env=env,
+            tty=False,
+            workspace_mode=mode,
+            seed_digest=seed_digest,
+            worker=worker.id,
+            loop_id=self.loop_id,
+            extra_labels={consts.LABEL_LOOP_EPOCH: consts.POOL_EPOCH,
+                          consts.LABEL_WARMPOOL: pool_agent},
+            replace=True,
+        ))
+        self.seams.fire("pool.post_fill")
+        return cid
+
+    def _drain_pool_worker(self, worker: Worker) -> None:
+        """Remove every pool member on ``worker`` (runs on its lane,
+        AFTER any queued fills -- nothing can be added behind it)."""
+        wp = self.warmpool
+        if wp is None:
+            return
+        for entry in wp.drain_worker(worker.id):
+            self._remove_cid(worker, entry.cid)
 
     # ------------------------------------------------------------ launches
 
@@ -1251,6 +1535,428 @@ class LoopScheduler:
                                       timeout=timeout)
         return not not_done
 
+    # -------------------------------------------------------------- resume
+
+    @classmethod
+    def resume(cls, cfg: Config, driver: RuntimeDriver, image: RunImage, *,
+               on_event=None, health_config: HealthConfig | None = None,
+               failover: str | None = None, iterations: int | None = None,
+               orphan_grace_s: float | None = None,
+               telemetry: bool = True,
+               admission: AdmissionController | None = None,
+               executors=None) -> "LoopScheduler":
+        """Rebuild a scheduler from a replayed run journal.
+
+        The journal is the authority for the run's SHAPE (slot count,
+        image, prompt, placement policy, per-loop iteration counts and
+        exit histories); ``failover`` / ``iterations`` /
+        ``orphan_grace_s`` may be overridden for the resumed leg.  The
+        caller must run :meth:`reconcile` before :meth:`run` -- that is
+        where journaled state meets live container state.
+
+        A journal whose run asked for worktrees or gitguard is refused
+        by name: re-attaching a worktree and re-arming the git firewall
+        wait for their slice (ROADMAP §1 item 6).
+        """
+        if not image.run_id:
+            raise ClawkerError(
+                "loop resume: journal has no run header -- the previous "
+                "scheduler died before its first record landed; start a "
+                "fresh run instead")
+        sd = image.spec
+        spec = LoopSpec(
+            parallel=int(sd.get("parallel") or len(image.loops) or 1),
+            iterations=(iterations if iterations is not None
+                        else int(sd.get("iterations") or 0)),
+            placement=str(sd.get("placement") or "spread"),
+            image=str(sd.get("image") or "@"),
+            prompt=str(sd.get("prompt") or ""),
+            worktrees=bool(sd.get("worktrees") or False),
+            gitguard=sd.get("gitguard"),
+            workspace_mode=str(sd.get("workspace_mode") or ""),
+            agent_prefix=str(sd.get("agent_prefix") or "loop"),
+            env={str(k): str(v) for k, v in (sd.get("env") or {}).items()},
+            failover=failover or str(sd.get("failover") or "migrate"),
+            orphan_grace_s=orphan_grace_s,
+            telemetry=telemetry,
+            tenant=str(sd.get("tenant") or "default"),
+            tenant_weight=float(sd.get("tenant_weight") or 1.0),
+            tenant_max_inflight=int(sd.get("tenant_max_inflight") or 0),
+            max_inflight_per_worker=int(
+                sd.get("max_inflight_per_worker") or 0),
+            warm_pool_depth=int(sd.get("warm_pool_depth") or 0),
+            trace_parent=str(sd.get("trace_parent") or ""),
+            clock_offset_s=float(sd.get("clock_offset_s") or 0.0),
+        )
+        if image.worktrees or image.gitguard_rules:
+            # the run's spec asked for neither (the constructor refuses
+            # those by name), yet its journal holds their records
+            raise ConfigError(
+                "loop resume: the journal holds worktree or gitguard "
+                "records; re-attaching them is not yet ported to "
+                "clawker_tpu_torch (ROADMAP §1 item 6)")
+        sched = cls(cfg, driver, spec, on_event=on_event,
+                    health_config=health_config, run_id=image.run_id,
+                    admission=admission, executors=executors)
+        sched._image = image
+        # seed provisioning replays as DEDUP state, not as work: a
+        # journaled digest is never re-journaled (zero duplicate seeds
+        # -- the REC_SEED_* records exist exactly for this)
+        sched._seeds_journaled.update(image.seeds)
+        sched._build_resumed_loops(image)
+        sched._durable_ok(sched._journal(
+            REC_RESUME, durable=True, generation=image.generation + 1,
+            clean=image.clean_shutdown), "resume")
+        _RESUMES.inc()
+        sched.on_event("scheduler", "resume",
+                       f"run {image.run_id} generation {image.generation + 1}")
+        return sched
+
+    def _build_resumed_loops(self, image: RunImage) -> None:
+        """Journal images -> AgentLoop objects on the CURRENT fleet.
+
+        A journaled worker the fleet no longer has gets an engine-less
+        stand-in ``Worker``: the health monitor pre-opens its breaker,
+        so its loops flow through the ordinary orphan/failover path on
+        the first verdict drain instead of needing a parallel mechanism.
+        """
+        workers_by_id = {w.id: w for w in self.driver.workers()}
+        synthesized: dict[str, Worker] = {}
+
+        def worker_for(wid: str) -> Worker:
+            w = workers_by_id.get(wid)
+            if w is not None:
+                return w
+            if wid not in synthesized:
+                stand_in = Worker(
+                    id=wid, index=len(workers_by_id) + len(synthesized),
+                    hostname=wid, engine=None,
+                    meta={"dial_error": "worker absent from resumed fleet"})
+                synthesized[wid] = stand_in
+                self._extra_workers.append(stand_in)
+            return synthesized[wid]
+
+        # agent names are deterministic per (run, slot): slots the journal
+        # never recorded (crash inside start() before the placement batch
+        # synced) get fresh placements on the live fleet
+        slots = place(self.driver.workers(), self.spec.parallel,
+                      self.spec.placement)
+        for i in range(self.spec.parallel):
+            agent = self._agent_name(i)
+            img = image.loops.get(agent)
+            if img is None:
+                self._journal(REC_PLACEMENT, agent=agent,
+                              worker=slots[i].id, epoch=0)
+                self.loops.append(AgentLoop(agent=agent, worker=slots[i]))
+                continue
+            worker = worker_for(img.worker) if img.worker else slots[i]
+            status = img.status
+            if status in ("running", "stopped"):
+                # "running" is a claim about the DEAD scheduler's world;
+                # reconcile re-earns it.  "stopped" is the clean-drain
+                # state a resume exists to pick back up.
+                status = "pending"
+            if (self.spec.iterations
+                    and img.iteration >= self.spec.iterations
+                    and status in ("pending", "orphaned")):
+                # budget reached; the crash beat the terminal record
+                status = "done"
+            loop = AgentLoop(
+                agent=agent, worker=worker, iteration=img.iteration,
+                consecutive_failures=img.consecutive_failures,
+                exit_codes=list(img.exit_codes), status=status,
+                fresh_container=False, migrations=img.migrations,
+                epoch=img.epoch)
+            loop.abandoned = [(workers_by_id[wid], cid)
+                              for wid, cid in img.abandoned
+                              if wid in workers_by_id]
+            self.loops.append(loop)
+        if self.journal is not None:
+            self.journal.sync()
+
+    def reconcile(self, *, deadline_s: float = 60.0) -> dict:
+        """Reconcile journaled placements against live container state:
+        ONE label-scoped ``list_containers`` per worker (on its lane),
+        then per loop -- adopt a still-running container in place,
+        account an exit the dead scheduler never saw, finish a created-
+        but-never-started launch, re-launch a journaled-but-never-created
+        placement, and sweep unclaimed leftovers as ghosts.  Workers
+        whose listing fails or overruns ``deadline_s`` strand their
+        loops into the normal breaker/failover machinery.
+
+        Returns a summary dict (adopted/continued/relaunched/
+        exits_accounted/ghosts/orphaned counts).  Must run after
+        :meth:`resume` and before :meth:`run`.
+        """
+        image = self._image
+        if image is None:
+            raise ClawkerError("loop resume: reconcile() before resume()")
+        self.seams.fire("resume.pre_reconcile")
+        self._ensure_health()
+        summary = {"adopted": 0, "continued": 0, "relaunched": 0,
+                   "exits_accounted": 0, "ghosts": 0, "orphaned": 0,
+                   "pool_restored": 0}
+        lock = threading.Lock()     # summary is mutated from lane threads
+        # journaled pool members that may still be adoptable: matched by
+        # their deterministic pool name on the owning worker's listing --
+        # restored into this generation's pool while still `created`
+        # (and under target depth), swept as ghosts otherwise
+        pool_by_worker: dict[str, list] = {}
+        workers_by_id = {w.id: w for w in self.driver.workers()}
+        for member in image.pool.values():
+            if (member.state in ("pending", "ready")
+                    and member.worker in workers_by_id):
+                pool_by_worker.setdefault(member.worker, []).append(member)
+        by_worker: dict[str, list[AgentLoop]] = {}
+        # journaled pending-queue order first: loops whose launch was
+        # queued in admission when the scheduler died re-enter each
+        # worker's queue in the order they originally held (satellite
+        # guarantee: --resume restores pending-queue order)
+        queue_rank = {a: i for i, a in enumerate(image.queued_order)}
+        ordered = sorted(
+            self.loops,
+            key=lambda l: (queue_rank.get(l.agent, len(queue_rank)),
+                           self.loops.index(l)))
+        for loop in ordered:
+            if loop.status != "pending" or loop.worker.engine is None:
+                # engine-less stand-ins are handled by the health
+                # pre-trip at run(); terminal loops need nothing
+                continue
+            by_worker.setdefault(loop.worker.id, []).append(loop)
+        # workers hosting only journaled pool members (no pending loops)
+        # still need a listing: their members must be restored or swept
+        for wid in pool_by_worker:
+            if wid not in by_worker:
+                by_worker[wid] = []
+        futs: dict[str, Future] = {}
+        for wid, group in by_worker.items():
+            worker = group[0].worker if group else workers_by_id[wid]
+            futs[wid] = self._lane(worker).submit(
+                self._reconcile_worker, worker, list(group),
+                image, summary, lock, pool_by_worker.get(wid, []))
+        futures_wait(list(futs.values()), timeout=deadline_s)
+        for wid, fut in futs.items():
+            if not fut.done() or fut.exception() is not None:
+                # wedged or crashed reconcile: its un-adopted loops go to
+                # failover now; the epoch bump no-ops the late lane task
+                for loop in by_worker[wid]:
+                    if loop.status == "pending":
+                        self._strand(loop, loop.epoch,
+                                     "resume reconcile "
+                                     + ("timed out" if not fut.done() else
+                                        f"crashed: {fut.exception()!r}"))
+                        with lock:
+                            summary["orphaned"] += 1
+        with lock:
+            return dict(summary)
+
+    def _reconcile_worker(self, worker: Worker, group: list[AgentLoop],
+                          image: RunImage, summary: dict, lock,
+                          pool_members: list | None = None) -> None:
+        engine = worker.require_engine()
+        try:
+            rows = engine.list_containers(all=True, filters={
+                "label": [f"{consts.LABEL_LOOP}={self.loop_id}"]})
+        except ClawkerError as e:
+            # the worker died while the CLI was down: strand its loops
+            # into the breaker/failover machinery
+            for loop in group:
+                self._strand(loop, loop.epoch, f"resume: list failed: {e}")
+            with lock:
+                summary["orphaned"] += len(group)
+            return
+        project = self.cfg.project_name()
+        by_name: dict[str, dict] = {}
+        for row in rows:
+            names = row.get("Names") or []
+            if names:
+                by_name[str(names[0]).lstrip("/")] = row
+        claimed: set[str] = set()
+        for loop in group:
+            row = by_name.get(container_name(project, loop.agent))
+            if row is not None:
+                row_epoch = (row.get("Labels") or {}).get(
+                    consts.LABEL_LOOP_EPOCH, "")
+                if row_epoch and row_epoch != str(loop.epoch):
+                    # engines without in-place relabel leave an adopted
+                    # warm-pool member's create-time epoch label
+                    # ("pool") behind; there the journal is
+                    # authoritative -- the durable REC_CREATED cid
+                    # names the exact container this placement owns
+                    li = image.loops.get(loop.agent)
+                    jcid = li.container_id if li is not None else ""
+                    if not jcid or str(row.get("Id", "")) != jcid:
+                        row = None  # superseded placement's copy: a ghost
+            if row is None:
+                # journaled placement, no current container -- the crash
+                # landed between the WAL record and the create (or the
+                # container was lost with its worker): re-launch
+                rcpt = self._journal(REC_PLACEMENT, durable=True,
+                                     agent=loop.agent, worker=worker.id,
+                                     epoch=loop.epoch,
+                                     tenant=self.spec.tenant)
+                if not self._durable_ok(rcpt, "placement"):
+                    # storage fault, not worker sickness: strand WITHOUT
+                    # breaker penalty -- the WAL-before-create contract
+                    # is never waived, the rescue pass re-places once
+                    # the journal recovers (docs/durability.md)
+                    self._strand(loop, loop.epoch,
+                                 "storage fault: placement not durable",
+                                 penalize=False)
+                    with lock:
+                        summary["orphaned"] += 1
+                    continue
+                self._submit_launch(loop, worker, loop.epoch, self._launch)
+                with lock:
+                    summary["relaunched"] += 1
+                continue
+            claimed.add(str(row.get("Id", "")))
+            try:
+                self._reconcile_loop(loop, worker, row,
+                                     image.loops.get(loop.agent),
+                                     summary, lock)
+            except ClawkerError as e:
+                self._strand(loop, loop.epoch, f"resume: {e}")
+                with lock:
+                    summary["orphaned"] += 1
+        # journaled pool members on this worker: a member still sitting
+        # `created` under its pool name is re-adopted into THIS
+        # generation's pool (exactly once -- checkout/adopt journaled
+        # it consumed otherwise); anything else -- started, exited,
+        # half-adopted, over target depth, pool disabled now -- is left
+        # unclaimed for the ghost sweep below, which counts it in
+        # loop_ghosts_swept_total like every other stale leftover
+        for member in pool_members or []:
+            row = by_name.get(container_name(project, member.agent))
+            if row is None:
+                continue        # never created, or lost with the worker
+            cid = str(row.get("Id", ""))
+            state = str(row.get("State") or "").lower()
+            if (self.warmpool is not None and state == "created"
+                    and self.warmpool.restore(worker, member.agent, cid)):
+                claimed.add(cid)
+                with lock:
+                    summary["pool_restored"] += 1
+            else:
+                self._journal(REC_POOL_REMOVE, agent=member.agent,
+                              worker=worker.id, cid=cid,
+                              reason="stale at resume")
+        # ghost sweep: this run's containers on this worker that no
+        # resumed loop claims -- lost-create-response leftovers, stale
+        # epochs, copies of loops placed elsewhere, finished loops'
+        # remains.  Only a label-scoped list finds these.
+        for row in rows:
+            cid = str(row.get("Id", ""))
+            if cid and cid not in claimed:
+                self._remove_cid(worker, cid)
+                self._journal(REC_GHOST, agent="", worker=worker.id, cid=cid)
+                _GHOSTS.labels(worker.id).inc()
+                with lock:
+                    summary["ghosts"] += 1
+
+    def _reconcile_loop(self, loop: AgentLoop, worker: Worker, row: dict,
+                        hint, summary: dict, lock) -> None:
+        """One loop vs its live container.  Runs on the worker's lane."""
+        cid = str(row.get("Id", ""))
+        state = str(row.get("State") or "").lower()
+        epoch = loop.epoch
+        if state in _ACTIVE_STATES and state != "created":
+            # ADOPT in place: the agent kept working while the scheduler
+            # was dead -- no restart, no create; the ordinary waiter/poll
+            # machinery attaches to the live container from here
+            with self._placement_lock:
+                if loop.epoch != epoch or self._stop.is_set():
+                    return
+                loop.container_id = cid
+                loop.fresh_container = False
+                loop.status = "running"
+            self.tracer.begin_iteration(loop.agent, loop.iteration,
+                                        worker.id, epoch=epoch,
+                                        resumed=True, adopted=True)
+            now = self.tracer.now()
+            self.tracer.child(loop.agent, loop.iteration, SPAN_RESUME,
+                              now, now, worker=worker.id, adopted=True)
+            self._iter_started[(loop.agent, loop.iteration)] = now
+            self._journal(REC_ADOPTED, agent=loop.agent, worker=worker.id,
+                          cid=cid, iteration=loop.iteration)
+            _ADOPTIONS.labels(worker.id).inc()
+            done: Future = Future()
+            done.set_result(None)
+            self._inflight[loop.agent] = done
+            ex = self._workerd_for(worker)
+            if ex is not None:
+                # the adopted iteration's exit streams from a
+                # worker-resident waiter; run() will skip WAN polls for
+                # this worker while the channel is live
+                ex.submit_adopt(loop, epoch)
+            self.on_event(loop.agent, "adopted", f"{worker.id}:{cid[:12]}")
+            with lock:
+                summary["adopted"] += 1
+            self.seams.fire("resume.post_adopt")
+            return
+        if state == "created":
+            # created but never started (crash between the create and the
+            # first start): finish the launch -- full bootstrap, and
+            # crucially NOT a second create
+            with self._placement_lock:
+                if loop.epoch != epoch or self._stop.is_set():
+                    return
+                loop.container_id = cid
+                loop.fresh_container = True
+            self._submit_launch(loop, worker, epoch, self._guarded_start)
+            with lock:
+                summary["continued"] += 1
+            return
+        # exited while the scheduler was dead
+        if hint is not None and hint.started:
+            # the journaled iteration ran to exit unaccounted: account it
+            # exactly once, then continue at the next iteration
+            with self._placement_lock:
+                if loop.epoch != epoch or self._stop.is_set():
+                    return
+                loop.container_id = cid
+                loop.fresh_container = False
+                loop.status = "running"
+            code, detail = self._read_exit(loop)
+            if code is None and not detail:
+                # the list row raced the container back to life: it is
+                # effectively still running -- adopt instead
+                self._reconcile_loop(loop, worker,
+                                     {**row, "State": "running"},
+                                     hint, summary, lock)
+                return
+            self.tracer.begin_iteration(loop.agent, loop.iteration,
+                                        worker.id, epoch=epoch, resumed=True)
+            now = self.tracer.now()
+            self.tracer.child(loop.agent, loop.iteration, SPAN_RESUME,
+                              now, now, worker=worker.id, adopted=False)
+            if code is None:
+                loop.status = "failed"
+                self._journal(REC_LOOP_END, agent=loop.agent,
+                              status="failed", reason=detail)
+                self.tracer.end_iteration(loop.agent, loop.iteration,
+                                          status="failed", reason=detail)
+                self.on_event(loop.agent, "failed", detail)
+                with lock:
+                    summary["exits_accounted"] += 1
+                return
+            self._finish_iteration(loop, code)
+            with lock:
+                summary["exits_accounted"] += 1
+            if loop.status == "running":    # budget left: next iteration
+                self._submit_launch(loop, worker, epoch, self._guarded_start)
+            return
+        # exit already journaled (crash landed between iterations):
+        # restart the same container into the next iteration
+        with self._placement_lock:
+            if loop.epoch != epoch or self._stop.is_set():
+                return
+            loop.container_id = cid
+            loop.fresh_container = False
+        self._submit_launch(loop, worker, epoch, self._guarded_start)
+        with lock:
+            summary["continued"] += 1
+
     def _launch(self, loop: AgentLoop, epoch: int,
                 worker: Worker | None = None) -> None:
         """Create + first iteration start, on the owning worker's lane.
@@ -1361,8 +2067,34 @@ class LoopScheduler:
             replace=True,
             seed_digest=seed_digest,
         )
+        # warm-pool checkout (docs/loop-warmpool.md): an adoptable
+        # pre-created container turns this create into a
+        # relabel/env-fixup + rename -- the expensive stages were paid
+        # at pool fill.  Any adoption failure falls back to the cold
+        # create below, transparently.
+        cid = ""
+        pool_hit = False
         with self._engine_ctx(loop):
-            cid = rt.create(opts)
+            if self.warmpool is not None and worker.engine is not None:
+                entry = self.warmpool.checkout(worker.id, by=loop.agent,
+                                               epoch=epoch)
+                if entry is not None:
+                    aopts = dataclasses.replace(
+                        opts, extra_labels=dict(opts.extra_labels))
+                    # pool-origin marker survives adoption so volume sweeps
+                    # can trace the placeholder's volumes back to it
+                    aopts.extra_labels[consts.LABEL_WARMPOOL] = entry.agent
+                    try:
+                        rt.adopt_pooled(entry.cid, aopts)
+                        cid = entry.cid
+                        pool_hit = True
+                    except ClawkerError as e:
+                        self.warmpool.adoption_failed(entry, str(e))
+                        self._remove_cid(worker, entry.cid)
+                        log.info("loop %s: pool adoption on %s failed (%s); "
+                                 "cold create", loop.agent, worker.id, e)
+            if not pool_hit:
+                cid = rt.create(opts)
         # durable before anything acts on the cid: a crash here must find
         # the container again by (deterministic name, journaled cid).
         # The container already exists -- a broken promise here cannot
@@ -1370,7 +2102,7 @@ class LoopScheduler:
         self._durable_ok(self._journal(
             REC_CREATED, durable=True, agent=loop.agent,
             worker=worker.id, epoch=epoch, cid=cid,
-            pool=False), "created")
+            pool=pool_hit), "created")
         with self._placement_lock:
             if loop.epoch != epoch:
                 # orphaned mid-create: the new placement owns the loop
@@ -1381,7 +2113,7 @@ class LoopScheduler:
             loop.fresh_container = True
         self.tracer.child(loop.agent, loop.iteration, SPAN_CREATE,
                           t_create, self.tracer.now(), worker=worker.id,
-                          pool=False)
+                          pool=pool_hit)
         self.on_event(loop.agent, "created", worker.id)
 
     # ----------------------------------------------------------- iteration
@@ -1737,6 +2469,7 @@ class LoopScheduler:
                 # queue hygiene: melt cancelled tickets (orphaned/stopped
                 # placements) and dispatch anything their removal unblocks
                 self.admission.sweep()
+                self._pool_tick()
                 if self.pressure is not None:
                     # disk-pressure ladder rides the run thread at its
                     # own statvfs cadence (docs/durability.md#ladder)
@@ -2276,6 +3009,18 @@ class LoopScheduler:
         return out
 
     def cleanup(self, *, remove_containers: bool = False) -> None:
+        # the warm pool drains unconditionally (even under --keep): its
+        # members are framework plumbing, not user containers, and
+        # "zero leaked pool containers after drain" is the contract.
+        # The per-lane drain task runs AFTER queued fills; fills that
+        # complete past the flag discard their own container.
+        if self.warmpool is not None:
+            self.warmpool.begin_drain()
+            pool_futs = [self._lane(w).submit(self._drain_pool_worker, w)
+                         for w in self.warmpool.workers()
+                         if w.engine is not None]
+            if pool_futs:
+                futures_wait(pool_futs, timeout=HALT_DEADLINE_S)
         if remove_containers:
             # submit a removal for EVERY loop: it rides the same lane as
             # the loop's launch, so by the time it runs the launch has
@@ -2286,12 +3031,25 @@ class LoopScheduler:
             # containers abandoned on dead/recovered workers by failover
             # ride THEIR worker's lane (a dead worker's removal fails
             # fast or eats the bounded wait, never the healthy lanes').
-            # The label sweep covers every worker a launch was ever
-            # SUBMITTED to -- final placements and failover-abandoned
-            # workers.  Not the whole live fleet: cleanup cost scales
-            # with the run, and a worker the run never touched cannot
-            # hold this run's label.
-            journaled = set(self._placed_workers)
+            # The label sweep covers every worker any GENERATION of this
+            # run touched -- final placements, failover-abandoned
+            # workers, and (for a resumed run) the journaled fleet:
+            # after a kill/resume cycle a worker may hold only an
+            # earlier generation's leftovers (exited copies,
+            # un-restored pool members) that no current loop points at.
+            # Not the whole live fleet -- cleanup cost scales with the
+            # run, and a worker no generation saw cannot hold this run's
+            # label.  Engine-less stand-ins are excluded everywhere: a
+            # sweep on one would die at require_engine before its
+            # guarded list call.
+            journaled = (set(self._image.workers)
+                         if self._image is not None else set())
+            # every worker a launch/refill was ever SUBMITTED to joins
+            # the journaled set: a remote create whose `created` event
+            # died with its workerd (after the loop migrated away)
+            # leaves a labeled container no final placement or
+            # abandoned entry points at
+            journaled |= self._placed_workers
             sweep_workers: dict[str, Worker] = {
                 w.id: w for w in self.driver.workers()
                 if w.engine is not None and w.id in journaled}

@@ -8,9 +8,8 @@ scheduler on ``None``, so a missing/dead daemon costs one failed
 ``connect`` and nothing else.
 
 The port's copy of ``clawker_tpu/loopd/client.py``, whole.  The
-federation verbs (leases, adopt) speak to the port's daemon too; it
-answers ``adopt_run`` with a named error until ``--resume`` lands
-(ROADMAP §1 item 7).
+federation verbs (leases, ``adopt_run``) speak to the port's daemon
+too: it adopts a journaled run from the shared logs dir and resumes it.
 """
 
 from __future__ import annotations

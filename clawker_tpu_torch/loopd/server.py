@@ -54,9 +54,11 @@ What waits for its slice is refused by name: the capacity controller
 (settings ``capacity.enable``, ROADMAP §1 item 9), the telemetry shipper
 and the metrics server (settings ``monitoring.shipper.enable`` and a
 metrics port, §1 item 10) raise a :class:`ConfigError` at start;
-``adopt_run`` answers with an error until ``--resume`` lands (§1 item
-7); a spec the port's scheduler refuses (the warm pool, worktrees)
-gets an error ack.  Hosted runs dispatch through workerd when
+a spec the port's scheduler refuses (worktrees, gitguard: §1 item 6)
+gets an error ack.  ``adopt_run`` replays a run's journal from the
+shared logs dir and resumes it here (``LoopScheduler.resume`` +
+``reconcile`` on the drive thread), and hosted runs take
+``warm_pool_depth``.  Hosted runs dispatch through workerd when
 ``executors=`` is given (a set, or a factory called once per hosted run
 and closed after it); the scheduler's own chaos seams wait for §1 item
 8 (the daemon fires its two).
@@ -175,6 +177,11 @@ class _DaemonRun:
     tenant: str
     client: str                         # submitting client identity
     keep: bool = False
+    resume_image: object | None = None  # adopt_run: the replayed journal
+    #                                     image a drive thread resumes
+    #                                     instead of starting fresh
+    #                                     (cross-pod migration)
+    adopt_orphan_grace_s: float | None = None
     sched: LoopScheduler | None = None
     thread: threading.Thread | None = None
     stop_requested: threading.Event = field(default_factory=threading.Event)
@@ -663,11 +670,9 @@ class LoopdServer:
                 elif kind == "lease_release":
                     protocol.write_msg(conn, self._lease_release(msg))
                 elif kind == "adopt_run":
-                    # cross-pod adoption replays the run's journal and
-                    # resumes it: it waits for --resume
-                    raise LoopdError(
-                        "adopt_run needs `loop --resume`, which is not yet "
-                        "ported to clawker_tpu_torch (ROADMAP §1 item 7)")
+                    self._handle_adopt(conn, msg, ident)
+                    if msg.get("stream", False):
+                        return  # streaming: single-purpose like submit
                 elif kind == "shutdown":
                     protocol.write_msg(conn, {"type": "ok"})
                     threading.Thread(target=self.stop, daemon=True,
@@ -881,7 +886,7 @@ class LoopdServer:
             raise ClawkerError(
                 f"loopd: unknown failover policy {spec.failover!r} "
                 f"({'|'.join(FAILOVER_POLICIES)})")
-        refuse_unported(spec)   # the warm pool, worktrees: an error ack
+        refuse_unported(spec)   # worktrees, gitguard: an error ack
         run = _DaemonRun(run_id=ids.short_id(), spec=spec,
                          tenant=spec.tenant, client=ident, keep=keep)
         with self._runs_lock:
@@ -901,6 +906,67 @@ class LoopdServer:
         log.info("run %s submitted by %s (tenant %s, %d loop(s))",
                  run.run_id, ident, run.tenant, spec.parallel)
         return run
+
+    def _handle_adopt(self, conn, msg: dict, ident: str) -> None:
+        """Adopt a dead pod's journaled run onto THIS pod (cross-pod
+        migration, docs/federation.md#migration): replay the run's WAL
+        from the shared logs dir and resume it under this daemon's
+        admission/lanes.  The dead pod's workers replay as engine-less
+        stand-ins, their breakers pre-open, and the run's own failover
+        policy re-places every orphaned loop onto this pod's workers --
+        journal appends continue under the SAME run id (generation+1),
+        so exit-accounted-once and duplicate-create audits hold across
+        the pod boundary."""
+        from ..loop.journal import RunJournal, journal_path, replay
+        from ..loop.scheduler import refuse_unported
+
+        run_ref = str(msg.get("run", ""))
+        jpath = journal_path(self.cfg.logs_dir, run_ref)
+        if not jpath.exists():
+            raise LoopdError(
+                f"adopt_run: no journal for run {run_ref!r} under "
+                f"{self.cfg.logs_dir} (federation pods must share "
+                "journal storage; docs/federation.md#migration)")
+        image = replay(RunJournal.read(jpath))
+        if not image.run_id:
+            raise LoopdError(
+                f"adopt_run: {jpath}: no usable run header -- the "
+                "journal is too damaged to adopt")
+        spec = spec_from_doc(image.spec)
+        refuse_unported(spec)   # worktrees, gitguard: an error frame
+        if spec.tenant in ("", "default"):
+            spec.tenant = ident
+        run = _DaemonRun(run_id=image.run_id, spec=spec,
+                         tenant=spec.tenant, client=ident,
+                         keep=bool(msg.get("keep")),
+                         resume_image=image,
+                         adopt_orphan_grace_s=(
+                             float(msg["orphan_grace_s"])
+                             if msg.get("orphan_grace_s") is not None
+                             else None))
+        with self._runs_lock:
+            existing = self.runs.get(run.run_id)
+            if existing is not None and not existing.done.is_set():
+                raise LoopdError(
+                    f"adopt_run: run {run.run_id} is already hosted "
+                    "here and live")
+            self.runs[run.run_id] = run
+            active = sum(1 for r in self.runs.values()
+                         if not r.done.is_set())
+        _RUNS.labels(spec.tenant).inc()
+        _ACTIVE_RUNS.set(active)
+        log.info("run %s adopted by %s (tenant %s, %d loop(s))",
+                 run.run_id, ident, run.tenant, spec.parallel)
+        client_gone = False
+        try:
+            protocol.write_msg(conn, {
+                "type": "adopted", "run": run.run_id,
+                "tenant": run.tenant, "pod": self.pod_name()})
+        except (OSError, ClawkerError):
+            client_gone = True      # adoption proceeds regardless
+        self._start_run(run)
+        if not client_gone and msg.get("stream", True):
+            self._stream(conn, run)
 
     def _start_run(self, run: _DaemonRun) -> None:
         """Spawn the drive thread (idempotent)."""
@@ -934,12 +1000,23 @@ class LoopdServer:
         if execset is not None:
             self._workerd_socks.update(execset.sockets())
         try:
-            sched = LoopScheduler(self.cfg, self.driver, run.spec,
-                                  on_event=on_event,
-                                  run_id=run.run_id,
-                                  admission=self.admission,
-                                  lanes=self.lanes,
-                                  executors=execset)
+            if run.resume_image is not None:
+                # cross-pod adoption: resume the replayed journal image
+                # under THIS daemon's shared admission (the run keeps
+                # its id; reconcile() below adopts/relaunches/migrates)
+                sched = LoopScheduler.resume(
+                    self.cfg, self.driver, run.resume_image,
+                    on_event=on_event,
+                    orphan_grace_s=run.adopt_orphan_grace_s,
+                    admission=self.admission,
+                    executors=execset)
+            else:
+                sched = LoopScheduler(self.cfg, self.driver, run.spec,
+                                      on_event=on_event,
+                                      run_id=run.run_id,
+                                      admission=self.admission,
+                                      lanes=self.lanes,
+                                      executors=execset)
             run.sched = sched
             if self.sentinel is not None:
                 # the hosted run's typed events feed the daemon
@@ -951,7 +1028,10 @@ class LoopdServer:
                 return
             if run.stop_requested.is_set():
                 sched.request_shutdown("loopd stop_run")
-            sched.start()
+            if run.resume_image is not None:
+                sched.reconcile()
+            else:
+                sched.start()
             loops = sched.run(poll_s=DRIVE_POLL_S)
             if not (self._aborted or sched._aborted):
                 sched.cleanup(remove_containers=not run.keep)
@@ -1117,6 +1197,12 @@ class LoopdServer:
     def _status_doc(self) -> dict:
         with self._runs_lock:
             runs = [r.status_doc(self.cfg) for r in self.runs.values()]
+        pools = {}
+        with self._runs_lock:
+            for r in self.runs.values():
+                wp = (r.sched.warmpool if r.sched is not None else None)
+                if wp is not None:
+                    pools[r.run_id] = wp.stats()
         return {
             "type": "status",
             "pid": os.getpid(),
@@ -1130,10 +1216,10 @@ class LoopdServer:
             "leases": self._lease_stats(),
             "health": self._health_stats(),
             "workerd": self._workerd_rows(),
-            # the warm pool, the capacity controller and the shipper are
-            # refused (a spec or setting that asks for one never runs):
-            # their sections read as the reference's when they are off
-            "warm_pools": {},
+            "warm_pools": pools,
+            # the capacity controller and the shipper are refused (a
+            # setting that asks for one never starts the daemon): their
+            # sections read as the reference's when they are off
             "capacity": {"enabled": False},
             "storage": self._storage_stats(),
             "sentinel": (self.sentinel.status_doc()

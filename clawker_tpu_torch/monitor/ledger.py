@@ -3,10 +3,11 @@ recorder.
 
 The port's copy of the JSONL half of ``clawker_tpu/monitor/ledger.py``
 (``encode_record``, ``classify_line``, ``IntegrityReport``,
-``parse_jsonl``, ``read_jsonl``, ``read_verified_prefix``, ``TailState``,
-``tail_jsonl``, ``flight_path``, ``read_rotated_lines``,
-``FlightRecorder``): the run journal and the flight recorder write
-through ``encode_record``, and each package reads what the other wrote.
+``parse_jsonl``, ``read_jsonl``, ``read_verified_prefix``,
+``verify_jsonl``, ``TailState``, ``tail_jsonl``, ``flight_path``,
+``read_rotated_lines``, ``FlightRecorder``): the run journal and the
+flight recorder write through ``encode_record``, and each package reads
+what the other wrote.
 The monitoring-units ledger and the rotation-aware tail (``tail_rotated``,
 for the fleet console) are not ported yet.
 
@@ -216,6 +217,20 @@ def read_verified_prefix(path: Path) -> tuple[list[dict], IntegrityReport]:
                 report.first_corrupt_line = report.total
             break
     return out, report
+
+
+def verify_jsonl(path: Path) -> IntegrityReport:
+    """Full-file integrity scan (``journal verify``): every line
+    classified, nothing skipped early.  A truncated final line reads as
+    ``torn_tail`` (a crash artifact, exit 0); anything else
+    unverifiable counts as ``corrupt`` (exit 2)."""
+    report = IntegrityReport(path=str(path))
+    try:
+        text = Path(path).read_text(encoding="utf-8")
+    except OSError:
+        return report
+    parse_jsonl(text.splitlines(), report)
+    return report
 
 
 @dataclass

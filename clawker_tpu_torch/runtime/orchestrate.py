@@ -1,17 +1,17 @@
 """Agent-container orchestration: create -> bootstrap -> start -> attach.
 
-The port's copy of ``clawker_tpu/runtime/orchestrate.py``, without two
-parts that wait for their slice (ROADMAP §1):
-
-- harness config staging (``harness_seed_tar`` and its cache, over the
-  bundle resolver and ``containerfs``): a create stages no host harness
-  state into the config volume.  That changes what is in the
-  container, not any status, journal record or event;
-- warm-pool adoption (``adopt_pooled``, ``prefetch_seeds``), which
-  comes with ``--warm-pool``.
+The port's copy of ``clawker_tpu/runtime/orchestrate.py``, without the
+part that waits for its slice (ROADMAP §1 item 12): harness config
+staging (``harness_seed_tar`` and its cache, over the bundle resolver
+and ``containerfs``).  A create stages no host harness state into the
+config volume, and :meth:`AgentRuntime.prefetch_seeds` warms only the
+workspace seed.  That changes what is in the container, not any
+status, journal record or event.
 
 The workspace seed cache (``workspace_seed_tar``) is here: every
-snapshot-mode create journals its digest.
+snapshot-mode create journals its digest.  So is warm-pool adoption
+(:meth:`AgentRuntime.adopt_pooled`): the relabel, the ``agent-env``
+fixup archive and the rename, last.
 
 Parity reference: internal/cmd/container/shared/container_create.go:1473
 CreateContainer (workspace prep, config volumes, env assembly, create,
@@ -22,7 +22,9 @@ callables so this module stays below the CP layer in the import DAG.
 
 from __future__ import annotations
 
+import io
 import sys
+import tarfile
 import threading
 import time
 from dataclasses import dataclass, field
@@ -260,6 +262,106 @@ class AgentRuntime:
             with phases.phase("identity_bootstrap"):
                 self.bootstrap(cid, project, opts.agent)
         return cid
+
+    def prefetch_seeds(self, harness: str, root: Path) -> str:
+        """Warm the create-time workspace seed cache off the hot path
+        (warm-pool fills call this before their create, so a later
+        adoption -- the hit path -- never pays a tree walk).  Returns
+        the workspace seed digest ("" when the root has nothing to
+        seed).  ``harness`` names the harness whose staging tar the
+        reference also warms here; that half waits for the harness
+        staging (ROADMAP §1 item 12)."""
+        if not Path(root).exists():
+            return ""
+        digest, _tar = workspace_seed_tar(Path(root))
+        return digest
+
+    # ------------------------------------------------------- pool adoption
+
+    def adopt_pooled(self, cid: str, opts: CreateOptions) -> None:
+        """Finalize a warm-pool container for a real agent placement
+        (docs/loop-warmpool.md).
+
+        The pool fill already paid the expensive create-time stages
+        (engine create, workspace seed, harness seed, identity prewarm)
+        under a placeholder agent name; adoption finalizes the
+        agent-specific surface -- labels, env, name -- in place:
+
+        - **relabel**: the full agent label set (plus ``extra_labels``,
+          e.g. the loop epoch) replaces the placeholder's, where the
+          engine supports in-place relabel; the pool-origin marker
+          (``LABEL_WARMPOOL``) survives so volume sweeps can trace the
+          placeholder's volumes.
+        - **env fixup**: create-time env is immutable, so the
+          agent-specific env lands as ``/run/clawker/agent-env``
+          (KEY=VAL lines) -- the same advisory-file channel the loop
+          scheduler already uses for per-iteration context.
+        - **identity**: the bootstrap hook re-runs under the REAL agent
+          name; with the CA session cache prewarmed this is the warm
+          path (leaf reused, only the per-container assertion JWT and
+          session key are fresh).
+        - **rename** (LAST): the deterministic agent name lands only
+          after every other fixup, so a crash mid-adoption leaves
+          either a pool-named container (swept) or a fully-finalized
+          one (continued) -- never a half-adopted name.
+
+        Raises ClawkerError subclasses on failure; the caller owns the
+        fallback to a cold create.
+        """
+        project = self.cfg.project_name()
+        name = container_name(project, opts.agent)
+        pconf = self.cfg.project
+        harness = opts.harness or (pconf.build.harness if pconf else "")
+        labels = agent_labels(
+            project, opts.agent, harness=harness,
+            worker=opts.worker, loop_id=opts.loop_id)
+        labels.update(opts.extra_labels)
+        with phases.phase("pool_adopt_env"):
+            env = self._build_env(project, opts)
+            body = "".join(f"{k}={v}\n" for k, v in sorted(env.items())).encode()
+            buf = io.BytesIO()
+            with tarfile.open(fileobj=buf, mode="w") as tf:
+                ti = tarfile.TarInfo("agent-env")
+                ti.size = len(body)
+                ti.mode = 0o600
+                tf.addfile(ti, io.BytesIO(body))
+            env_tar = buf.getvalue()
+        # without a bootstrap hook the whole fixup batches under ONE
+        # jail check (rename included); with one, the rename waits for
+        # the identity install so a crash mid-adoption can never leave
+        # an agent-named container without identity material
+        with phases.phase("pool_adopt_finalize"):
+            self._finalize_replacing(
+                cid, name, opts.replace, labels=labels,
+                archive_path=consts.RUN_STATE_DIR, archive=env_tar,
+                new_name="" if self.bootstrap else name)
+        if self.bootstrap:
+            with phases.phase("identity_bootstrap"):
+                self.bootstrap(cid, project, opts.agent)
+            with phases.phase("pool_adopt_rename"):
+                self._rename_replacing(cid, name, opts.replace)
+
+    def _finalize_replacing(self, cid: str, name: str, replace: bool,
+                            **kw) -> None:
+        """finalize_adoption with replace-on-conflict semantics: the
+        conflict path (a leftover same-name container) pays the extra
+        remove, the common path pays nothing."""
+        try:
+            self.engine.finalize_adoption(cid, **kw)
+        except ConflictError:
+            if not replace:
+                raise
+            self.engine.remove_container(name, force=True, volumes=False)
+            self.engine.finalize_adoption(cid, **kw)
+
+    def _rename_replacing(self, cid: str, name: str, replace: bool) -> None:
+        try:
+            self.engine.rename_container(cid, name)
+        except ConflictError:
+            if not replace:
+                raise
+            self.engine.remove_container(name, force=True, volumes=False)
+            self.engine.rename_container(cid, name)
 
     def _build_env(self, project: str, opts: CreateOptions) -> dict[str, str]:
         """Create-time env (reference: buildCreateTimeEnv

@@ -47,13 +47,12 @@ direct polling (the same engine socket is still forwarded).  Intents
 are deduplicated by (kind, agent, epoch, iteration) so a client that
 ever re-sends cannot double-create.
 
-The port's copy of ``clawker_tpu/workerd/server.py``, with the whole
-protocol: the kinds only later scheduler slices send (``create``, the
-warm pool's fill; ``adopt``, sent after a ``--resume`` reconcile) run
-as the reference's do.  One part waits for the warm pool (ROADMAP §1
-item 5): the port's ``AgentRuntime`` has no ``adopt_pooled``, so a
-launch intent naming a ``pool_cid`` takes the reference's own degrade
-for a failed adoption -- a cold create, the reason in ``pool_error``.
+The port's copy of ``clawker_tpu/workerd/server.py``, whole: a launch
+intent naming a ``pool_cid`` adopts that warm-pool member
+(``AgentRuntime.adopt_pooled``) and falls back to a cold create, the
+reason in ``pool_error``, when the adoption fails; ``create`` intents
+carry the warm pool's fills and ``adopt`` intents the containers a
+``--resume`` reconcile adopted.
 """
 
 from __future__ import annotations
@@ -657,7 +656,7 @@ class WorkerdServer:
 
     def _do_launch(self, intent: dict, seq: int, agent: str, epoch: int,
                    iteration: int) -> None:
-        """create + first start + exit waiter: the
+        """create (or warm-pool adopt) + first start + exit waiter: the
         whole burst the direct path paid O(engine calls) WAN RTTs for,
         executed against the local socket."""
         opts = self._opts(intent.get("opts") or {})
@@ -665,32 +664,40 @@ class WorkerdServer:
         tp = str(intent.get("tp", ""))
         t0 = time.monotonic()
         t0_wall = time.time()
+        cid = ""
+        pool_hit = False
         pool_cid = str(intent.get("pool_cid", ""))
         pool_error = ""
         sid = self._span_id(tp)
         try:
             with self._engine_ctx(tp, agent, sid):
                 if pool_cid:
-                    # the failed-adoption degrade: adopt_pooled comes
-                    # with the warm pool (ROADMAP §1 item 5)
-                    pool_error = ("warm-pool adoption is not yet ported "
-                                  "to clawker_tpu_torch")
-                # analyze: allow(wal-before-mutation): workerd executes
-                # intents the scheduler journaled write-ahead
-                # (REC_PLACEMENT durable before dispatch) -- the WAL
-                # lives on the control-plane side of the channel
-                cid = rt.create(opts)
+                    try:
+                        # analyze: allow(wal-before-mutation): workerd
+                        # executes intents the scheduler journaled
+                        # write-ahead (REC_PLACEMENT durable before
+                        # dispatch) -- the WAL lives on the control-plane
+                        # side of the channel
+                        rt.adopt_pooled(pool_cid, opts)
+                        cid = pool_cid
+                        pool_hit = True
+                    except ClawkerError as e:
+                        pool_error = str(e)  # cold-create fallback below
+                if not cid:
+                    # analyze: allow(wal-before-mutation): intent WAL'd by
+                    # the dispatching scheduler (see above)
+                    cid = rt.create(opts)
         except ClawkerError as e:
             self._emit({"ev": "failed", "seq": seq, "phase": "create",
                         "error": str(e),
                         "driverish": isinstance(e, DriverError)})
             return
         self._emit({"ev": "created", "seq": seq, "cid": cid,
-                    "pool": False, "pool_error": pool_error,
+                    "pool": pool_hit, "pool_error": pool_error,
                     "ms": round((time.monotonic() - t0) * 1000, 3)})
         self._record_span(tp, SPAN_WORKERD_CREATE, agent, iteration,
                           t0_wall, time.time(), span_id=sid,
-                          cid=cid, pool=False)
+                          cid=cid, pool=pool_hit)
         self._start_cid(rt, seq, agent, epoch, iteration, cid, fresh=True,
                         state_doc=intent.get("state"), tp=tp)
 

@@ -373,3 +373,109 @@ def test_ticking_thread_flags_a_live_storm_and_stops(tmp_path, injected):
     assert HOT in flagged and errors == []
     assert not s._thread.is_alive()
     assert not col.alive                   # stop() stops the collector
+
+
+# ------------------------------------------------------ a resumed run
+
+
+SCORE_RTOL = 1e-3      # ROADMAP §3 item 5: fitted scores across packages
+
+
+def _resumed_run(pkg: str, tmp_path):
+    """A 4-loop run over 2 fake workers with the sentinel riding it,
+    killed while its loops run, then resumed (``LoopScheduler.resume`` +
+    ``reconcile``) with a fresh sentinel on the same run id: -> what each
+    generation's sentinel saw and scored."""
+    import threading
+
+    from test_torch_warmpool import driver_with, side, wait_for
+    from clawker_tpu.sentinel import FleetSentinel as RefFleetSentinel
+
+    cls, extra = ((RefFleetSentinel, {}) if pkg == "ref"
+                  else (FleetSentinel, {"device": "cpu"}))
+    with side(pkg, tmp_path) as s:
+        hold = threading.Event()
+
+        def held(io) -> int:
+            if not hold.is_set():
+                hold.wait(20.0)
+            return 0
+
+        drv = driver_with(s.m, 2, behavior=held)
+        sched1 = s.m.loop.LoopScheduler(
+            s.cfg, drv, s.m.loop.LoopSpec(parallel=4, iterations=2),
+            run_id="resumerun001")
+        agents = [sched1._agent_name(i) for i in range(4)]
+        for w in range(2):
+            _append(s.cfg.logs_dir / f"ebpf-egress-fake-{w}.jsonl", [
+                _rec(BASE + win * 60 + i * 3,
+                     agent=f"clawker.loopproj.{a}", worker=f"fake-{w}",
+                     ip=f"198.51.100.{k * 20 + i}")
+                for k, a in enumerate(agents) if k % 2 == w
+                for win in range(6) for i in range(12)])
+
+        def sentinel():
+            sen = cls(s.cfg, drv, run_id=sched1.loop_id, interval_s=999,
+                      train_steps=TRAIN_STEPS, **extra)
+            sen.behavior.clock = lambda: BASE + 5 * 60 + 30
+            return sen
+
+        sen1 = sentinel()
+        sched1.attach_sentinel(sen1)
+        sched1.start()
+        t = threading.Thread(target=sched1.run, kwargs={"poll_s": 0.05},
+                             daemon=True)
+        t.start()
+        assert wait_for(lambda: all(l.status == "running"
+                                    for l in sched1.loops))
+        first = sen1.refresh_once()
+        depth1, flags1 = sen1.engine.baseline_depth(), _flag_set(sen1)
+        sched1.kill()
+        t.join(10.0)
+        sen1.stop()
+        # the storm lands while the scheduler is dead
+        _append(s.cfg.logs_dir / "ebpf-egress-fake-1.jsonl",
+                _deny_storm(f"clawker.loopproj.{agents[1]}", BASE + 5 * 60))
+        image = s.m.journal.replay(s.m.journal.RunJournal.read(
+            s.m.journal.journal_path(s.cfg.logs_dir, sched1.loop_id)))
+        sched2 = s.m.loop.LoopScheduler.resume(s.cfg, drv, image)
+        sen2 = sentinel()
+        restored = sen2.engine.baseline_depth()
+        sched2.attach_sentinel(sen2)
+        summary = sched2.reconcile()
+        hold.set()
+        loops = sched2.run(poll_s=0.05)
+        second = sen2.refresh_once()
+        rep = sen2.last_tick
+        out = {"first": first, "depth1": depth1, "flags1": flags1,
+               "restored": restored, "summary": summary,
+               "loops": [(l.status, l.iteration) for l in loops],
+               "second": second, "flags2": _flag_set(sen2),
+               "keys": [(k.agent, k.start_unix) for k in rep.keys],
+               "raw": np.asarray(rep.raw), "z": np.asarray(rep.z),
+               "ticks": sen2.ticks, "error": sen2.last_error}
+        sen2.stop()
+        sched2.cleanup(remove_containers=True)
+        return out
+
+
+def test_resumed_run_scores_with_restored_baselines_as_the_reference(
+        tmp_path, injected):
+    """The sentinel riding a resumed scheduler restores the first
+    generation's baselines and scores the resumed generation as the
+    reference's does: the same windows, raw scores within SCORE_RTOL,
+    z within Z_ATOL, the same flags, and no window flagged in the first
+    generation flagged again."""
+    want = _resumed_run("ref", tmp_path)
+    got = _resumed_run("port", tmp_path)
+    for k in ("first", "depth1", "flags1", "restored", "summary", "loops",
+              "second", "flags2", "keys", "ticks", "error"):
+        assert got[k] == want[k], k
+    np.testing.assert_allclose(got["raw"], want["raw"], rtol=SCORE_RTOL)
+    np.testing.assert_allclose(got["z"], want["z"], rtol=0, atol=Z_ATOL)
+    assert got["first"] > 0 and got["second"] > 0
+    assert got["restored"] == got["depth1"] > 0
+    assert got["summary"]["adopted"] == 4
+    assert got["loops"] == [("done", 2)] * 4
+    assert got["error"] == ""
+    assert not (got["flags1"] & got["flags2"])

@@ -132,6 +132,7 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
 @pytest.mark.parametrize("module", ["clawker_tpu_torch.graft_entry",
                                     "clawker_tpu_torch.analytics.mesh",
                                     "clawker_tpu_torch.loop.scheduler",
+                                    "clawker_tpu_torch.loop.warmpool",
                                     "clawker_tpu_torch.cli",
                                     "clawker_tpu_torch.loopd.__main__",
                                     "clawker_tpu_torch.hostproxy.__main__",

@@ -647,10 +647,8 @@ def test_bring_up_on_the_cpu_builds_and_launches_nothing():
 
 
 @pytest.mark.parametrize("args,settings,needle", [
-    (["--warm-pool", "1"], "", "warm pool"),
     (["--worktrees"], "", "worktrees"),
     (["--gitguard"], "", "gitguard"),
-    (["--resume", "abc"], "", "--resume"),
     (["--ship-telemetry"], "", "telemetry shipper"),
     (["--metrics-port", "9100"], "", "metrics server"),
     # ported: with no workerd answering, --workerd fails as the
@@ -661,10 +659,9 @@ def test_bring_up_on_the_cpu_builds_and_launches_nothing():
     ([], "telemetry:\n  otlp: true\n", "OTLP"),
     ([], "telemetry:\n  metrics_port: 9100\n", "metrics server"),
     ([], "monitoring:\n  shipper:\n    enable: true\n", "telemetry shipper"),
-    ([], "loop:\n  warm_pool:\n    enable: true\n    depth: 2\n", "warm pool"),
-], ids=["warm-pool", "worktrees", "gitguard", "resume", "ship-telemetry",
+], ids=["worktrees", "gitguard", "ship-telemetry",
         "metrics-port", "workerd", "pods", "capacity",
-        "otlp", "metrics-setting", "shipper-setting", "warm-pool-setting"])
+        "otlp", "metrics-setting", "shipper-setting"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
                                         settings, needle):
     monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")
@@ -748,7 +745,6 @@ def test_chaos_plan_is_refused(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("spec,needle", [
-    (dict(warm_pool_depth=1), "warm pool"),
     (dict(worktrees=True), "worktrees"),
     (dict(gitguard=True), "gitguard"),
 ])

@@ -21,12 +21,12 @@ cases and what each holds:
   process, ``--daemon`` with ``--resume``/``--chaos-plan`` errors, the
   client's two-stage Ctrl-C, ``loopd start|stop|status``.
 
-``test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates`` has a
-twin of its first half (the SIGKILLed daemon's viewer sees its stream
-die, the socket file stays and discovery reads "no daemon"); its second
-half, ``LoopScheduler.resume`` adopting the run, waits for ``--resume``
-(ROADMAP §1 item 7).  The reference cases with no twin, each waiting for
-its item:
+``test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates`` is
+twinned in both halves, its chaos invariant checker replaced by the
+checks its docstring names.  ``adopt_run`` (a killed daemon's run
+resumed by a second daemon) and a hosted run with a warm pool are held
+against the reference's too.  The reference cases with no twin, each
+waiting for its item:
 
 - ``test_transport_forwards_loopd_socket_over_mux``: the SSH transport
   of the ``gpu_host`` driver (ROADMAP §1 item 12);
@@ -34,8 +34,9 @@ its item:
   ``test_fleet_placement_renders_daemon_admission``: the ``fleet
   health`` / ``fleet placement`` verbs the port lacks (§1 item 13; the
   status RPC they read is held here);
-- ``test_fleet_warmpool_renders_daemon_pools``: the warm pool (§1
-  item 5; a spec that asks for one gets a named error ack here).
+- ``test_fleet_warmpool_renders_daemon_pools``: the ``fleet warmpool``
+  verb (§1 item 13; the status RPC's ``warm_pools`` it reads is held
+  here).
 
 Every test that starts a daemon stops it in a ``finally``, and each
 test has its own time limit.
@@ -74,6 +75,7 @@ import clawker_tpu.monitor.ledger as ref_ledger
 import clawker_tpu_torch.agentd.protocol as port_protocol
 import clawker_tpu_torch.chaos.seams as port_seams
 import clawker_tpu_torch.cli as port_cli
+import clawker_tpu_torch.consts as port_consts
 import clawker_tpu_torch.config as port_config
 import clawker_tpu_torch.engine.drivers as port_drivers
 import clawker_tpu_torch.engine.fake as port_fake
@@ -483,10 +485,14 @@ def test_explicit_detach_frame_keeps_run_alive(tmp_path):
 
 
 def test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates(tmp_path):
-    """The kill half: SIGKILL the daemon mid-run; the viewer's stream
-    dies without a run_done, the socket file survives, discovery reads
-    "no daemon", and no engine call follows the kill.  (The resume half
-    waits for ``--resume``: see the module docstring.)"""
+    """SIGKILL the daemon mid-run; the viewer's stream dies without a
+    run_done, the socket file survives, discovery reads "no daemon", and
+    no engine call follows the kill.  Then ``LoopScheduler.resume`` on
+    the journal the daemon left adopts both containers in place and
+    every loop finishes.  The reference ends with the chaos invariant
+    checker (``chaos.invariants``, not ported: ROADMAP §1 item 8); in
+    its place both packages are held to zero duplicate creates, every
+    loop ``done`` and no container of the run left after cleanup."""
     def scenario(s):
         hold = threading.Event()
         drv = driver_with(s.m, 2, behavior=hold_behavior(hold))
@@ -494,7 +500,7 @@ def test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates(tmp_path):
         try:
             client = s.m.client.LoopdClient(srv.sock_path)
             client.hello()
-            client.submit_run({"parallel": 2, "iterations": 1})
+            ack = client.submit_run({"parallel": 2, "iterations": 1})
             started = 0
             for frame in client.events():
                 if (frame.get("type") == "event"
@@ -509,16 +515,36 @@ def test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates(tmp_path):
                 for frame in client.events():
                     frames.append(frame["type"])
             client.close()
-            result = ("run_done" not in frames, srv.sock_path.exists(),
+            killed = ("run_done" not in frames, srv.sock_path.exists(),
                       s.m.client.discover(s.cfg) is None,
                       total_creates(drv) - creates)
+            # the resume half, from the journal the daemon left behind
+            image = s.m.journal.replay(s.m.journal.RunJournal.read(
+                s.m.journal.journal_path(s.cfg.logs_dir, ack["run"])))
+            sched2 = s.m.loop.LoopScheduler.resume(s.cfg, drv, image)
+            summary = sched2.reconcile()
+            hold.set()
+            t = threading.Thread(target=sched2.run,
+                                 kwargs={"poll_s": 0.05}, daemon=True)
+            t.start()
+            t.join(15.0)
+            statuses = [l.status for l in sched2.loops]
+            duplicates = total_creates(drv) - creates
+            sched2.cleanup(remove_containers=True)
+            left = [c for api in drv.apis for c in api.containers.values()
+                    if (c.config.get("Labels") or {}).get(
+                        port_consts.LABEL_LOOP) == ack["run"]]
+            result = (killed, summary, statuses, duplicates, len(left))
         finally:
             hold.set()
             srv.sock_path.unlink(missing_ok=True)
         return result
 
     want, got = twin(tmp_path, scenario)
-    assert got == want == (True, True, True, 0)
+    assert got == want
+    assert got[0] == (True, True, True, 0)
+    assert got[1]["adopted"] == 2
+    assert got[2:] == (["done", "done"], 0, 0)
 
 
 def test_daemon_killed_at_post_submit_seam_leaves_no_orphan_state(tmp_path):
@@ -824,17 +850,107 @@ def test_done_runs_evicted_past_retention(tmp_path, monkeypatch):
     assert got == want == [False, True, True, True]
 
 
-# ------------------------------------------------ what the port refuses
+# ------------------------------------------------------- adopt_run
 
 
-def test_adopt_run_is_refused_by_name(tmp_path):
-    with side("port", tmp_path) as s:
+def _agent_creates(drv) -> list[str]:
+    return sorted(a[0] for api in drv.apis
+                  for a, _k in api.calls_named("container_create")
+                  if ".loop-" in a[0])
+
+
+def test_adopt_run_resumes_a_killed_daemons_run(tmp_path):
+    """A daemon hosting a pooled 2-loop run is killed mid-run; a second
+    daemon on the same logs dir adopts the run (``adopt_run``, streamed):
+    the drive thread resumes the journal and reconciles, both running
+    containers are adopted in place (no second create for an agent), and
+    the run ends ``ok`` with every loop done, as the reference's does."""
+    def scenario(s):
+        hold = threading.Event()
+        drv = driver_with(s.m, 2, behavior=hold_behavior(hold))
+        srv = s.m.server.LoopdServer(s.cfg, drv).start()
+        srv2 = None
+        try:
+            with s.m.client.LoopdClient(srv.sock_path) as c:
+                c.hello()
+                ack = c.submit_run({"parallel": 2, "iterations": 1,
+                                    "warm_pool_depth": 1})
+                started = 0
+                for frame in c.events():
+                    if frame.get("event") == "iteration_start":
+                        started += 1
+                        if started == 2:
+                            break
+                creates = _agent_creates(drv)
+                srv.kill()
+            srv2 = s.m.server.LoopdServer(s.cfg, drv).start()
+            with s.m.client.LoopdClient(srv2.sock_path) as c:
+                c.hello()
+                adopted = c.adopt_run(ack["run"], stream=True)
+                run = srv2.runs[ack["run"]]
+                # released once the reconcile adopted both containers:
+                # an exit before it would be accounted, not adopted
+                assert wait_for(lambda: run.sched is not None and all(
+                    l.status == "running" for l in run.sched.loops))
+                hold.set()
+                final = None
+                for frame in c.events():
+                    if frame.get("type") == "run_done":
+                        final = frame
+                        break
+            assert run.done.wait(10.0)
+            kinds = [r["kind"] for r in s.m.journal.RunJournal.read(
+                s.m.journal.journal_path(s.cfg.logs_dir, ack["run"]))]
+            return (adopted["type"], adopted["run"] == ack["run"],
+                    final["ok"], [a["status"] for a in final["agents"]],
+                    kinds.count("adopted"),
+                    _agent_creates(drv) == creates, len(creates))
+        finally:
+            hold.set()
+            if srv2 is not None:
+                srv2.stop()
+            srv.sock_path.unlink(missing_ok=True)
+
+    want, got = twin(tmp_path, scenario)
+    assert got == want == ("adopted", True, True, ["done", "done"], 2,
+                           True, 2)
+
+
+def test_adopt_run_without_a_journal_errors_as_the_reference(tmp_path):
+    def scenario(s):
         with daemon(s, driver_with(s.m, 1)) as srv:
-            c = port_client.LoopdClient(srv.sock_path)
-            with pytest.raises(port_loopd.LoopdError,
-                               match="--resume.*not yet ported"):
-                c.adopt_run("somerun")
-            c.close()
+            with s.m.client.LoopdClient(srv.sock_path) as c:
+                with pytest.raises(s.m.loopd.LoopdError) as e:
+                    c.adopt_run("somerun")
+        return str(e.value).split(" under ")[0]
+
+    want, got = twin(tmp_path, scenario)
+    assert got == want == "adopt_run: no journal for run 'somerun'"
+
+
+def test_hosted_run_takes_a_warm_pool(tmp_path):
+    """A submitted spec with ``warm_pool_depth`` runs pooled under the
+    daemon: the same pool stats in the status RPC's ``warm_pools``."""
+    def scenario(s):
+        drv = driver_with(s.m, 2)
+        with daemon(s, drv) as srv:
+            with s.m.client.LoopdClient(srv.sock_path) as c:
+                c.hello()
+                ack, final = run_to_done(c, {"parallel": 2, "iterations": 2,
+                                             "warm_pool_depth": 1})
+            with s.m.client.LoopdClient(srv.sock_path) as c:
+                doc = c.status()
+        pools = doc["warm_pools"][ack["run"]]
+        return (final["ok"], [a["status"] for a in final["agents"]],
+                pools["target_depth"], sorted(pools["workers"]),
+                {w: r["target"] for w, r in pools["workers"].items()})
+
+    want, got = twin(tmp_path, scenario)
+    assert got == want
+    assert got[0] is True and got[2] == 1
+
+
+# ------------------------------------------------ what the port refuses
 
 
 @pytest.mark.parametrize("settings,needle", [
@@ -853,9 +969,8 @@ def test_unported_daemon_riders_refuse_to_start(tmp_path, settings, needle):
 
 
 @pytest.mark.parametrize("spec,needle", [
-    ({"warm_pool_depth": 1}, "warm pool"),
     ({"worktrees": True}, "worktrees"),
-], ids=["warm-pool", "worktrees"])
+], ids=["worktrees"])
 def test_unported_specs_get_an_error_ack(tmp_path, spec, needle):
     with side("port", tmp_path) as s:
         drv = driver_with(s.m, 1)

@@ -17,9 +17,12 @@ status RPC's ``workerd`` rows; a killed workerd turns its row
 riding a run over workerd (its rows held to the reference's with the
 tolerances tests/test_torch_loop_anomaly.py states), and ``loop
 --workerd`` with none answering.  The reference cases with no twin,
-each waiting for its slice (ROADMAP §1): ``--resume`` after a killed
-workerd (item 7), worktree runs (item 6), the chaos plans (item 8),
-``fleet health`` (item 13) and the warm pool (item 5).
+each waiting for its slice (ROADMAP §1): worktree runs (item 6), the
+chaos plans (item 8) and ``fleet health`` (item 13).  The warm pool's
+fills and pooled launches over workerd and ``--resume`` after a killed
+workerd have their twins (tests/test_workerd.py:319 and :627), with the
+intents each server executed and the ``created`` events it emitted
+held beside the reference's.
 
 Every wait has a deadline, every daemon and channel is torn down in a
 ``finally``, and each test has its own time limit.
@@ -572,6 +575,122 @@ def test_rtt_independence_shape(tmp_path):
 
 
 # ----------------------------------------------------- liveness / CLI
+
+
+def tap(servers) -> list[list[tuple]]:
+    """Per server, every intent it executed as (kind, pool_cid) and
+    every ``created`` event it emitted as ("created", pool, pool_error):
+    the instance's ``_execute`` and ``_emit`` wrapped."""
+    seen: list[list[tuple]] = [[] for _ in servers]
+    for srv, log in zip(servers, seen):
+        execute, emit = srv._execute, srv._emit
+
+        def traced(intent, _execute=execute, _log=log):
+            _log.append((intent.get("kind"), bool(intent.get("pool_cid"))))
+            return _execute(intent)
+
+        def emitted(ev, _emit=emit, _log=log):
+            if ev.get("ev") == "created":
+                _log.append(("created", ev.get("pool"),
+                             ev.get("pool_error")))
+            return _emit(ev)
+
+        srv._execute, srv._emit = traced, emitted
+    return seen
+
+
+def test_workerd_sigkill_then_resume_adopts_zero_duplicate_creates(
+        tmp_path):
+    """Kill workerd AND the scheduler mid-run; a resume with no
+    executors adopts the still-running containers in place: zero
+    duplicate creates, every loop reaches its budget."""
+    def scenario(s):
+        hold = threading.Event()
+        drv = driver_with(s.m, 2, hold_behavior(hold))
+        servers, execset = pod(s, drv)
+        try:
+            sched1 = scheduler(s, drv, execset, parallel=4, iterations=1,
+                               agent_prefix="res")
+            sched1.start()
+            runner = threading.Thread(target=sched1.run,
+                                      kwargs={"poll_s": 0.1}, daemon=True)
+            runner.start()
+            assert wait_for(lambda: all(l.status == "running"
+                                        for l in sched1.loops))
+            creates_before = total_creates(drv)
+            for srv in servers:
+                srv.kill()
+            sched1.kill()
+            runner.join(10.0)
+            execset.close_all()
+            image = s.m.journal.replay(s.m.journal.RunJournal.read(
+                s.m.journal.journal_path(s.cfg.logs_dir, sched1.loop_id)))
+            sched2 = s.m.loop.LoopScheduler.resume(s.cfg, drv, image)
+            summary = sched2.reconcile()
+            duplicates = total_creates(drv) - creates_before
+            runner2 = threading.Thread(target=sched2.run,
+                                       kwargs={"poll_s": 0.1}, daemon=True)
+            runner2.start()
+            hold.set()
+            runner2.join(15.0)
+            out = {"summary": summary, "duplicates": duplicates,
+                   "creates": total_creates(drv),
+                   "done": [(l.status, l.iteration) for l in sched2.loops]}
+            sched2.cleanup(remove_containers=True)
+            return out
+        finally:
+            hold.set()
+            teardown(servers, execset, drv)
+
+    want, got = twin(tmp_path, scenario)
+    assert got == want
+    assert got["summary"]["adopted"] == 4 and got["duplicates"] == 0
+    assert got["done"] == [("done", 1)] * 4 and got["creates"] == 4
+
+
+def test_pool_fill_and_adoption_ride_workerd(tmp_path):
+    """Warm-pool refills execute worker-resident (``create`` intents)
+    and placements adopt pool members through launch intents'
+    ``pool_cid``, whose ``created`` event reads ``pool: True`` with no
+    ``pool_error``; no pool container leaks past cleanup."""
+    def scenario(s):
+        drv = driver_with(s.m, 1)
+        servers, execset = pod(s, drv)
+        seen = tap(servers)
+        try:
+            sched = scheduler(s, drv, execset, parallel=1, iterations=2,
+                              agent_prefix="pool", warm_pool_depth=1)
+            sched.prefill_pool(timeout=5.0)
+            prefilled = sched.warmpool.depth_of(drv.workers()[0].id)
+            fill_intents = servers[0].stats["intents"]
+            sched.start()
+            loops = sched.run(poll_s=0.1)
+            hits = sched.warmpool.stats()["hits"]
+            sched.cleanup(remove_containers=True)
+            leftovers = [c for c in drv.apis[0].containers.values()
+                         if c.labels.get(s.m.consts.LABEL_LOOP)
+                         == sched.loop_id]
+            launches = [e for e in seen[0] if e[0] == "launch"]
+            return {"prefilled": prefilled, "fill_intents": fill_intents,
+                    "done": [(l.status, l.iteration) for l in loops],
+                    "hits": hits, "leftovers": leftovers,
+                    # the seed ships first, then the fill's create
+                    "first": next(e for e in seen[0] if e[0] != "seed"),
+                    "launches": launches,
+                    "created": [e for e in seen[0] if e[0] == "created"],
+                    "creates_via_intent": sum(1 for e in seen[0]
+                                              if e[0] == "create")}
+        finally:
+            teardown(servers, execset, drv)
+
+    want, got = twin(tmp_path, scenario)
+    assert got == want
+    assert got["prefilled"] >= 1 and got["fill_intents"] >= 1
+    assert got["first"] == ("create", False)      # the fill
+    assert got["done"] == [("done", 2)] and got["hits"] >= 1
+    assert got["launches"] == [("launch", True)]
+    assert got["created"] == [("created", True, "")]
+    assert got["leftovers"] == []
 
 
 def test_liveness_live_degraded_absent(tmp_path):
