@@ -137,7 +137,35 @@
    scoring the adopted run on the card; (d) ``loop --resume <prefix>
    --sentinel --json``, ``journal verify`` (0), on a copy with one byte
    flipped (2), ``--repair`` (the copy folds clean again), in process.
-10. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+10. worktrees phase, its dirs under ``build/chip_smoke/worktrees/``, each
+   project a git repository with one commit (``git --version`` printed
+   first), gitguard over WT_HOSTS (three run-scoped rule keys) with its
+   socket in a short temporary directory, and a user's rule in the
+   egress store: (a) (6a)'s shape as a bind-mode ``loop --worktrees``
+   swarm with the sentinel on the card: 8 ``seed_worktree`` records
+   with distinct agents, paths and branches ``loop/<run>/<agent>``,
+   each worktree linked (its ``.git`` a file), every agent ``merged``
+   onto ``loop/<run>/merged``, the guard up and running through the
+   run, one ``gitguard_rules`` record holding the 3 keys journaled
+   before the store held them, after ``cleanup`` the guard down, the
+   keys gone and the user's rule kept, each scored tick one K3 and one
+   K1, the burst agent hottest and flagged; prints the provision,
+   guard-setup, merge-tick and drain host ms; (b) a real git client
+   through ``GitguardServer`` over TCP on a seed repository: its own
+   push lands, a sibling's is ``[remote rejected]``, the integration
+   branch takes the merge queue's identity only, ``ls-remote`` hides
+   the sibling, the decisions and the ``gitguard_*`` counters read 2
+   allow and 2 deny; (c) the swarm over the workerd phase's pod: in
+   snapshot mode 8 creates all through workerd and one seed digest an
+   agent, in bind mode every loop direct, the sentinel scoring both;
+   (d) (a)'s swarm killed after iteration 1 and resumed with a fresh
+   sentinel: no new worktree record or branch, the guard re-armed on
+   the journaled keys, every agent landed, the keys gone after
+   ``cleanup``; (e) ``loop --worktrees -p 2 -n 1 --sentinel --no-daemon
+   --json`` through ``CliRunner``, and an in-process ``LoopdServer``
+   with its sentinel hosting a 2-loop swarm, its status RPC's
+   ``gitguard`` row enabled and running, its ticks on the card.
+11. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -3566,6 +3594,642 @@ def resume_phase(device) -> collections.Counter:
     return total
 
 
+# ---------------------------------------------------------- worktrees phase
+
+
+WT_HOSTS = ("git.example.com",)
+WT_RULE_KEYS = frozenset({"git.example.com:https:443",
+                          "git.example.com:ssh:22",
+                          "git.example.com:git:9418"})
+WT_USER_RULE = "pypi.org:https:443"   # a user's standing rule: untouched
+SUN_PATH_MAX = 107                    # AF_UNIX path bytes, less the NUL
+
+
+def _git(cwd: Path, *args, header: str = "", check_rc: bool = True):
+    """``git`` with a fixed identity (a card host may have none), and an
+    identity header for the guard when ``header`` is given."""
+    from clawker_tpu_torch.gitguard.refpolicy import IDENTITY_HEADER
+
+    cmd = ["git", "-c", "user.email=chip@smoke", "-c", "user.name=chip"]
+    if header:
+        cmd += ["-c", f"http.extraHeader={IDENTITY_HEADER}: {header}"]
+    proc = subprocess.run([*cmd, *args], cwd=cwd, capture_output=True,
+                          text=True, timeout=60)
+    if check_rc:
+        check(proc.returncode == 0,
+              f"git {' '.join(args)} in {cwd} exited {proc.returncode}: "
+              f"{proc.stderr[-1000:]}")
+    return proc
+
+
+def _git_repo(root: Path) -> None:
+    """``root`` as a git repository on ``main`` with one commit."""
+    _git(root, "init", "-q", "-b", "main")
+    _git(root, "add", ".")
+    _git(root, "commit", "-q", "-m", "root")
+
+
+def _branches(repo: Path, pattern: str) -> list[str]:
+    return sorted(b.strip(" *+") for b in _git(
+        repo, "branch", "--list", pattern).stdout.splitlines())
+
+
+@contextlib.contextmanager
+def _wt_dirs(base: Path, settings: str = ""):
+    """``_isolated_dirs`` with the swarm's settings (gitguard over
+    WT_HOSTS, its socket in a short directory: the default under the
+    data dir can pass ``sun_path``), the project a git repository with
+    one commit and a user's rule in the egress store: -> (project dir,
+    socket path)."""
+    import tempfile
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.config.schema import EgressRule
+    from clawker_tpu_torch.firewall.rules import RulesStore
+
+    sock_dir = Path(tempfile.mkdtemp(prefix="gg"))
+    sock = sock_dir / "g.sock"
+    check(len(str(sock).encode()) < SUN_PATH_MAX,
+          f"worktrees: the gitguard socket path {sock} passes sun_path")
+    try:
+        with _isolated_dirs(base, (
+                f"gitguard:\n  hosts: [{', '.join(WT_HOSTS)}]\n"
+                f"  socket: {sock}\n" + settings)) as proj:
+            _git_repo(proj)
+            RulesStore(load_config(proj).egress_rules_path).add(
+                [EgressRule(dst="pypi.org")])
+            yield proj, sock
+    finally:
+        shutil.rmtree(sock_dir, ignore_errors=True)
+
+
+def _store_keys(cfg) -> set[str]:
+    from clawker_tpu_torch.firewall.rules import RulesStore
+
+    return {r.key() for r in RulesStore(cfg.egress_rules_path).load()}
+
+
+def _wt_scheduler(cfg, drv, *, executors=None, **spec):
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+
+    return LoopScheduler(cfg, drv, LoopSpec(
+        parallel=LOOP_AGENTS, iterations=LOOP_ITERATIONS, worktrees=True,
+        **spec), executors=executors)
+
+
+def _wt_timed(sched, stages: dict) -> None:
+    """Wrap the swarm's git work on the instance: each ``_maybe_worktree``
+    (the provision under ``_git_lock``), the guard's setup and each
+    merge drain, host ms into ``stages``'s lists."""
+    for name in ("_maybe_worktree", "_gitguard_setup", "_drain_merges",
+                 "_merge_tick"):
+        fn = getattr(sched, name)
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                stages.setdefault(_name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+
+        setattr(sched, name, timed)
+
+
+def _wt_sentinel(sched, cfg, drv, device, stages: dict):
+    from clawker_tpu_torch.sentinel import FleetSentinel
+
+    s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                      interval_s=LOOP_TICK_S, train_steps=SENTINEL_STEPS)
+    log = TickLog(s, stages)
+    sched.attach_sentinel(s)
+    return s, log
+
+
+def _wt_egress(cfg, agents: list[str], hot: str) -> int:
+    streams = _loop_egress(agents, hot, time.time())
+    for wid, recs in streams.items():
+        _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+    return sum(len(v) for v in streams.values())
+
+
+def _wt_worktrees(name: str, records: list[dict], run_id: str) -> list[dict]:
+    """The run's REC_SEED_WORKTREE records, held: one an agent, distinct
+    paths and branches ``loop/<run>/<agent>``, each worktree linked (its
+    ``.git`` a file), never a clone."""
+    wts = [r for r in records if r["kind"] == "seed_worktree"]
+    check(len(wts) == LOOP_AGENTS
+          and len({r["agent"] for r in wts}) == LOOP_AGENTS
+          and len({r["path"] for r in wts}) == LOOP_AGENTS
+          and all(r["branch"] == f"loop/{run_id}/{r['agent']}"
+                  for r in wts),
+          f"{name}: worktree records {wts}")
+    check(all((Path(r["path"]) / ".git").is_file() for r in wts),
+          f"{name}: a worktree is not linked (its .git is not a file)")
+    return wts
+
+
+def _wt_landed(name: str, events: list, agents: list[str],
+               run_id: str) -> None:
+    merged = {a for a, e, d in events if e == "merged"
+              and d.startswith(f"loop/{run_id}/merged:")}
+    check(merged == set(agents),
+          f"{name}: merged onto loop/{run_id}/merged: {sorted(merged)}; "
+          f"merge events {[(a, e, d) for a, e, d in events if 'merge' in e]}")
+
+
+def _wt_torn_down(name: str, cfg, guard) -> None:
+    keys = _store_keys(cfg)
+    check(guard is not None and not guard.running,
+          f"{name}: the guard is still up after cleanup")
+    check(not keys & WT_RULE_KEYS and WT_USER_RULE in keys,
+          f"{name}: the store after cleanup holds {sorted(keys)}")
+
+
+def _ms(xs: list[float]) -> str:
+    return (f"{len(xs)} x median {statistics.median(xs)!r} ms, total "
+            f"{sum(xs)!r} ms" if xs else "none")
+
+
+def worktrees_inproc_case(base: Path, device, stages: dict):
+    """(a): loop (a)'s shape as a bind-mode swarm (the default) with
+    gitguard over WT_HOSTS and the sentinel on the card, in process."""
+    import threading
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG
+
+    name = "worktrees (a)"
+    git_ms: dict = {}
+    with _wt_dirs(base) as (proj, sock):
+        cfg = load_config(proj)
+        drv = _fake_pod(LOOP_ITER_S)
+        sched = _wt_scheduler(cfg, drv)
+        events: list = []
+        sched.events.add_tap(lambda r: events.append(
+            (r.agent, r.event, r.detail)))
+        s, log = _wt_sentinel(sched, cfg, drv, device, stages)
+        _wt_timed(sched, git_ms)
+        journal = sched._journal
+        at_wal = {}
+
+        def spy(kind, **kw):
+            if kind == "gitguard_rules":
+                at_wal["store"] = _store_keys(cfg) & WT_RULE_KEYS
+            return journal(kind, **kw)
+
+        sched._journal = spy
+        agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+        t0 = time.perf_counter()
+        s.start()
+        sched.start()
+        guard = sched.gitguard
+        summary = sched.gitguard_summary()
+        installed = _store_keys(cfg)
+        fill = threading.Thread(target=_wt_egress, args=(
+            cfg, agents, agents[LOOP_HOT_SLOT]), name="wt-egress")
+        fill.start()
+        sched.run(poll_s=0.05)
+        fill.join(30)
+        wall = (time.perf_counter() - t0) * 1e3
+        up_at_end = guard is not None and guard.running
+        want = sum(len(v) for v in _loop_egress(agents, agents[0],
+                                                0).values())
+        _wait(lambda: s._scored_at[0] >= want, 10, LOOP_TICK_S)
+        s.stop()
+        sched.events.flush()
+        rows = sched.status()
+        peaks = {r["agent"]: r["peak_z"] for r in s.rows()}
+        records = _journal_records(cfg, sched.loop_id)
+        branches = _branches(proj, f"loop/{sched.loop_id}/*")
+        t1 = time.perf_counter()
+        sched.cleanup(remove_containers=True)
+        cleanup_ms = (time.perf_counter() - t1) * 1e3
+        _wt_torn_down(name, cfg, guard)
+    run_id = sched.loop_id
+    check(guard is not None and up_at_end and summary["running"]
+          and summary["socket"] == str(sock),
+          f"{name}: the guard was not up and running for the run "
+          f"({summary})")
+    check(set(summary["rules"]) == WT_RULE_KEYS <= installed,
+          f"{name}: rule keys {summary['rules']}, store {sorted(installed)}")
+    rules = [r for r in records if r["kind"] == "gitguard_rules"]
+    check(len(rules) == 1 and set(rules[0]["keys"]) == WT_RULE_KEYS
+          and at_wal.get("store") == set(),
+          f"{name}: gitguard_rules records {rules}; the store held "
+          f"{at_wal} when the keys were journaled")
+    _wt_worktrees(name, records, run_id)
+    check(branches == sorted([f"loop/{run_id}/merged"]
+                             + [f"loop/{run_id}/{a}" for a in agents]),
+          f"{name}: branches {branches}")
+    _wt_landed(name, events, agents, run_id)
+    _check_loop_rows(name, rows)
+    scored = log.check_run(name)
+    hot = f"clawker.{LOOP_PROJECT}.{agents[LOOP_HOT_SLOT]}"
+    check(max(peaks, key=peaks.get) == hot
+          and any(e == ANOMALY_FLAG and a == hot for a, e, _ in events),
+          f"{name}: hottest {max(peaks, key=peaks.get)}, want {hot} "
+          f"flagged")
+    wt = git_ms.get("_maybe_worktree", [])
+    print(f"worktrees (a) bind-mode swarm, {LOOP_AGENTS} loops x "
+          f"{LOOP_ITERATIONS} iterations over {LOOP_WORKERS} fake workers "
+          f"({LOOP_ITER_S} s each), gitguard over {list(WT_HOSTS)}: run wall "
+          f"{wall!r} ms; setup_worktree (under _git_lock) {_ms(wt)}; "
+          f"gitguard setup (rule install + proxy start) "
+          f"{_ms(git_ms.get('_gitguard_setup', []))}; merge ticks "
+          f"{_ms(git_ms.get('_merge_tick', []))}; end-of-run drain "
+          f"{_ms(git_ms.get('_drain_merges', [])[:1])}; cleanup {cleanup_ms!r} "
+          f"ms; {len(log.ticks)} ticks, {len(scored)} scored, "
+          f"{hot} hottest")
+    print(f"worktrees (a): {log.stage_line()}")
+    return log.launches()
+
+
+def worktrees_git_case(base: Path) -> None:
+    """(b): a real git client through the guard (tests/test_gitguard.py:
+    432) over TCP, git having no HTTP over a unix socket:
+    ``GitguardServer(LocalRepoUpstream(repo), RefPolicy(run=...),
+    tcp_addr=("127.0.0.1", 0))``."""
+    from clawker_tpu_torch.gitguard import (GitguardServer,
+                                            LocalRepoUpstream, RefPolicy)
+    from clawker_tpu_torch.gitguard import server as gs
+
+    name = "worktrees (b)"
+    if base.exists():
+        shutil.rmtree(base)
+    seed = base / "seed"
+    seed.mkdir(parents=True)
+    (seed / "f.txt").write_text("base\n")
+    _git_repo(seed)
+    _git(seed, "branch", "loop/r1/a1")      # the sibling to hide
+
+    def counted() -> dict:
+        return {"allow": sum(c.peek() for c in gs.M_ALLOWED.children()),
+                "deny": sum(c.peek() for c in gs.M_REFUSED.children())}
+
+    before = counted()
+    decisions: list = []
+    t0 = time.perf_counter()
+    srv = GitguardServer(LocalRepoUpstream(seed), RefPolicy(run="r1"),
+                         tcp_addr=("127.0.0.1", 0),
+                         on_decision=decisions.append).start()
+    start_ms = (time.perf_counter() - t0) * 1e3
+    push_ms = {}
+    try:
+        url = f"http://127.0.0.1:{srv.port}/seed"
+        clone = base / "agent0"
+        _git(base, "clone", "-q", url, str(clone))
+        (clone / "work.txt").write_text("agent-0 was here\n")
+        _git(clone, "add", ".")
+        _git(clone, "commit", "-q", "-m", "work")
+        pushes = {}
+        for tag, ref, ident in (
+                ("own", "loop/r1/a0", "r1/a0"),
+                ("sibling", "loop/r1/a1", "r1/a0"),
+                ("integration", "loop/r1/merged", "r1/a0"),
+                ("mergeq", "loop/r1/merged", "r1/q/mergeq")):
+            t0 = time.perf_counter()
+            pushes[tag] = _git(clone, "push", "origin",
+                               f"HEAD:refs/heads/{ref}", header=ident,
+                               check_rc=False)
+            push_ms[tag] = (time.perf_counter() - t0) * 1e3
+        ls = _git(clone, "ls-remote", "origin", header="r1/a0").stdout
+    finally:
+        srv.close()
+    after = counted()
+    landed = _branches(seed, "loop/r1/*")
+    check(pushes["own"].returncode == 0 and "loop/r1/a0" in landed,
+          f"{name}: the agent's own push did not land: "
+          f"{pushes['own'].stderr[-500:]}")
+    check(pushes["sibling"].returncode != 0
+          and "[remote rejected]" in pushes["sibling"].stderr
+          and "namespace" in pushes["sibling"].stderr,
+          f"{name}: the sibling push was not refused in-protocol: "
+          f"{pushes['sibling'].stderr[-500:]}")
+    check(pushes["integration"].returncode != 0
+          and "merge-queue" in pushes["integration"].stderr
+          and pushes["mergeq"].returncode == 0
+          and "loop/r1/merged" in landed,
+          f"{name}: the integration branch: {pushes['integration'].stderr}"
+          f" / {pushes['mergeq'].stderr}")
+    refs = [line.split("\t")[1] for line in ls.splitlines()]
+    check("refs/heads/loop/r1/a0" in refs
+          and "refs/heads/loop/r1/a1" not in refs,
+          f"{name}: ls-remote shows {refs}")
+    verdicts = collections.Counter(d.verdict for d in decisions
+                                   if d.service == "git-receive-pack")
+    delta = {k: after[k] - before[k] for k in after}
+    check(verdicts == {"allow": 2, "deny": 2}
+          and delta == {"allow": 2.0, "deny": 2.0},
+          f"{name}: decisions {dict(verdicts)}, gitguard_* counters moved "
+          f"{delta}")
+    print(f"worktrees (b) git {_git(base, '--version').stdout.split()[-1]} "
+          f"through the guard over TCP: start {start_ms!r} ms; pushes "
+          f"(ms) {json.dumps(push_ms)}; decisions {dict(verdicts)}; "
+          f"ls-remote hides the sibling")
+
+
+def _tree_without_git_file(root: Path) -> bytes:
+    """The worktree's seed tar with its linked ``.git`` file left out."""
+    import io
+    import tarfile
+
+    from clawker_tpu_torch.workspace.strategy import _tar_tree
+
+    out = io.BytesIO()
+    with tarfile.open(fileobj=io.BytesIO(_tar_tree(root))) as tin, \
+            tarfile.open(fileobj=out, mode="w",
+                         format=tarfile.GNU_FORMAT) as tout:
+        for ti in tin.getmembers():
+            if ti.name != ".git":
+                tout.addfile(ti, tin.extractfile(ti) if ti.isfile() else None)
+    return out.getvalue()
+
+
+def worktrees_workerd_case(base: Path, device, stages: dict):
+    """(c): the swarm over workerd (the workerd phase's pod): in snapshot
+    mode every launch dispatches through workerd and each agent's seed is
+    its worktree; in bind mode over the same executors every loop
+    launches direct.  The sentinel scores both on the card."""
+    import tempfile
+
+    from clawker_tpu_torch.config import load_config
+
+    name = "worktrees (c)"
+    out = {}
+    launches = collections.Counter()
+    for mode in ("snapshot", "bind"):
+        with _wt_dirs(base / mode, WD_SETTINGS) as (proj, _sock):
+            cfg = load_config(proj)
+            drv = _fake_pod(LOOP_ITER_S)
+            calls = _record_calls(drv)
+            sock_dir = Path(tempfile.mkdtemp(prefix="wd"))
+            servers, socks = _wd_servers(sock_dir, cfg, drv)
+            execset = _wd_executors(socks)
+            try:
+                sched = _wt_scheduler(cfg, drv, executors=execset,
+                                      workspace_mode=mode)
+                events: list = []
+                sched.events.add_tap(lambda r, _e=events: _e.append(
+                    (r.agent, r.event, r.detail)))
+                s, log = _wt_sentinel(sched, cfg, drv, device, stages)
+                agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+                direct = [sched._workerd_for(w) is None
+                          for w in drv.workers()]
+                t0 = time.perf_counter()
+                s.start()
+                sched.start()
+                want = _wt_egress(cfg, agents, agents[LOOP_HOT_SLOT])
+                loops = sched.run(poll_s=0.05)
+                wall = (time.perf_counter() - t0) * 1e3
+                _wait(lambda: s._scored_at[0] >= want, 10, LOOP_TICK_S)
+                s.stop()
+                sched.events.flush()
+                records = _journal_records(cfg, sched.loop_id)
+                trees = {_tree_without_git_file(l.worktree) for l in loops}
+                rows = sched.status()
+                sched.cleanup(remove_containers=True)
+            finally:
+                execset.close_all()
+                for srv in servers:
+                    srv.stop()
+                shutil.rmtree(sock_dir, ignore_errors=True)
+            tag = f"{name} {mode}"
+            _check_loop_rows(tag, rows)
+            _wt_worktrees(tag, records, sched.loop_id)
+            _wt_landed(tag, events, agents, sched.loop_id)
+            scored = log.check_run(tag)
+            launches.update(log.launches())
+            seed_tars = [r for r in records if r["kind"] == "seed_tar"]
+            local = sum(_launch_calls(c, local=True) for c in calls)
+            remote = sum(_launch_calls(c, local=False) for c in calls)
+            creates = sum(_launch_calls(c, local=mode == "snapshot",
+                                        name="container_create")
+                          for c in calls)
+            out[mode] = (wall, len(seed_tars), len(trees), local, remote,
+                         len(scored), direct)
+            if mode == "snapshot":
+                check(not any(direct) and remote == 0
+                      and creates == LOOP_AGENTS,
+                      f"{tag}: launch calls local {local} ({creates} "
+                      f"creates), remote {remote}, direct workers {direct}")
+                # the linked .git file (its gitdir: line names the agent)
+                # rides each seed: one digest an agent, one tree without it
+                check(len(seed_tars) == LOOP_AGENTS and len(trees) == 1,
+                      f"{tag}: {len(seed_tars)} seed digests, "
+                      f"{len(trees)} distinct trees without .git")
+            else:
+                check(all(direct) and local == 0
+                      and creates == LOOP_AGENTS and not seed_tars,
+                      f"{tag}: launch calls local {local}, remote {remote},"
+                      f" direct workers {direct}, seeds {len(seed_tars)}")
+    for mode, (wall, tars, trees, local, remote, n, _d) in out.items():
+        print(f"worktrees (c) {mode}-mode swarm over workerd: run wall "
+              f"{wall!r} ms, launch calls local {local} / remote {remote}, "
+              f"{tars} seed digests ({trees} tree(s) without the linked "
+              f".git file), {n} scored ticks on the card")
+    return launches
+
+
+def worktrees_resume_case(base: Path, device, stages: dict):
+    """(d): (a)'s swarm killed once every loop finished iteration 1 (its
+    guard dies with it), then ``LoopScheduler.resume`` + ``reconcile``
+    with a fresh sentinel, run to the end."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loop import LoopScheduler
+
+    name = "worktrees (d)"
+    with _wt_dirs(base) as (proj, sock):
+        cfg = load_config(proj)
+        drv = _fake_pod(LOOP_ITER_S)
+        sched1 = _wt_scheduler(cfg, drv)
+        s1, log1 = _wt_sentinel(sched1, cfg, drv, device, stages)
+        agents = [sched1._agent_name(i) for i in range(LOOP_AGENTS)]
+        s1.start()
+        sched1.start()
+        _wt_egress(cfg, agents, agents[LOOP_HOT_SLOT])
+        _kill_after_iteration_1(sched1)
+        s1.stop()
+        check(sched1.gitguard is not None and sched1.gitguard.running,
+              f"{name}: generation 1's guard was not running at the kill")
+        sched1.gitguard.close()     # a killed process's listener dies too
+        run_id = sched1.loop_id
+        records1 = _journal_records(cfg, run_id)
+        branches1 = _branches(proj, f"loop/{run_id}/*")
+        image = _journal_image(cfg, run_id)
+        t0 = time.perf_counter()
+        sched2 = LoopScheduler.resume(cfg, drv, image)
+        events: list = []
+        sched2.events.add_tap(lambda r: events.append(
+            (r.agent, r.event, r.detail)))
+        s2, log2 = _wt_sentinel(sched2, cfg, drv, device, stages)
+        summary = sched2.reconcile()
+        reconcile_ms = (time.perf_counter() - t0) * 1e3
+        keys2 = list(sched2._gitguard_rule_keys)
+        guard = sched2.gitguard
+        running = guard is not None and guard.running
+        s2.start()
+        _wt_egress(cfg, agents, agents[RESUME_HOT2_SLOT])
+        loops = sched2.run(poll_s=0.05)
+        want = 2 * sum(len(v) for v in _loop_egress(agents, agents[0],
+                                                    0).values())
+        _wait(lambda: s2._scored_at[0] >= want, 10, LOOP_TICK_S)
+        s2.stop()
+        sched2.events.flush()
+        records2 = _journal_records(cfg, run_id)[len(records1):]
+        branches2 = _branches(proj, f"loop/{run_id}/*")
+        rows = sched2.status()
+        sched2.cleanup(remove_containers=True)
+        _wt_torn_down(name, cfg, guard)
+    new_wt = [r for r in records2 if r["kind"] == "seed_worktree"]
+    check(not new_wt and [b for b in branches2 if not b.endswith("/merged")]
+          == [b for b in branches1 if not b.endswith("/merged")]
+          and len(branches2) == LOOP_AGENTS + 1,
+          f"{name}: after the resume {len(new_wt)} new worktree records, "
+          f"branches {branches1} -> {branches2}")
+    check(sorted(keys2) == sorted(image.gitguard_rules)
+          == sorted(WT_RULE_KEYS) and running,
+          f"{name}: the resumed guard (running {running}) holds keys "
+          f"{keys2}, journaled {image.gitguard_rules}")
+    _check_loop_rows(name, rows)
+    _wt_landed(name, events, agents, run_id)
+    scored1 = log1.check_run(f"{name} generation 1")
+    scored2 = log2.check_run(f"{name} generation 2")
+    print(f"worktrees (d) the swarm killed after iteration 1 and resumed: "
+          f"reconcile {summary} in {reconcile_ms!r} ms (resume() + "
+          f"reconcile(), the guard re-armed on {len(keys2)} journaled keys);"
+          f" 0 new worktrees, {len(branches2)} branches; scored ticks "
+          f"{len(scored1)} + {len(scored2)}; loops "
+          f"{[l.status for l in loops].count('done')} done")
+    print(f"worktrees (d) generation 2: {log2.stage_line()}")
+    return log1.launches() + log2.launches()
+
+
+def worktrees_verbs_case(base: Path, device, stages: dict):
+    """(e): ``loop --worktrees -p 2 -n 1 --sentinel --no-daemon --json``
+    through ``CliRunner`` with one shared fake driver; an in-process
+    ``LoopdServer`` with ``sentinel.enable`` hosting a 2-loop worktree
+    submit, its status RPC's ``gitguard`` row enabled and running, its
+    sentinel scoring the run on the card."""
+    import inspect
+    import threading
+
+    from click.testing import CliRunner
+
+    from clawker_tpu_torch import cli
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loopd.client import LoopdClient
+    from clawker_tpu_torch.loopd.server import LoopdServer
+
+    name = "worktrees (e)"
+    saved = os.environ.get(cli.DEVICE_ENV)
+    os.environ[cli.DEVICE_ENV] = device
+    try:
+        with _wt_dirs(base / "cli") as (proj, _sock):
+            drv = _fake_pod(0.0)
+            runner = (CliRunner(mix_stderr=False) if "mix_stderr" in
+                      inspect.signature(CliRunner).parameters else CliRunner())
+            t0 = time.perf_counter()
+            res = runner.invoke(cli.cli, [
+                "loop", "--worktrees", "-p", "2", "-n", "1", "--sentinel",
+                "--no-daemon", "--json"],
+                obj=cli.Factory(cwd=proj, driver=drv))
+            cli_ms = (time.perf_counter() - t0) * 1e3
+            check(res.exit_code == 0,
+                  f"{name}: loop --worktrees exited {res.exit_code}: "
+                  f"{res.output[-2000:]}")
+            doc = json.loads(res.stdout)
+            cli_branches = _branches(proj, f"loop/{doc['loop_id']}/*")
+    finally:
+        if saved is None:
+            os.environ.pop(cli.DEVICE_ENV, None)
+        else:
+            os.environ[cli.DEVICE_ENV] = saved
+    check(len(doc["agents"]) == 2
+          and all(a["status"] == "done" for a in doc["agents"])
+          and f"loop/{doc['loop_id']}/merged" in cli_branches,
+          f"{name}: agents {doc['agents']}, branches {cli_branches}")
+
+    hold = threading.Event()
+
+    def held(io) -> int:
+        if not hold.is_set():
+            hold.wait(30.0)
+        return 0
+
+    with _wt_dirs(base / "loopd", LOOPD_SETTINGS) as (proj, sock):
+        cfg = load_config(proj)
+        drv = _fake_pod(0.0)
+        for api in drv.apis:
+            api.set_behavior(LOOP_IMAGE, held)
+        srv = LoopdServer(cfg, drv, device=device).start()
+        log = TickLog(srv.sentinel, stages)
+        try:
+            with LoopdClient(srv.sock_path) as c:
+                c.hello()
+                ack = c.submit_run({"parallel": 2, "iterations": 1,
+                                    "worktrees": True}, stream=False)
+            run = srv.runs[ack["run"]]
+            check(_wait(lambda: run.sched is not None and all(
+                l.status == "running" for l in run.sched.loops)),
+                  f"{name}: the hosted swarm never ran")
+            agents = [l.agent for l in run.sched.loops]
+            for wid, recs in _loop_egress(agents, agents[0],
+                                          time.time()).items():
+                _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+            with LoopdClient(srv.sock_path) as c:
+                row = {r["run"]: r for r in c.status()["runs"]}[ack["run"]]
+            check(_wait(lambda: any(e[0] for e in log.ticks), 10),
+                  f"{name}: the daemon's sentinel scored no tick")
+            hold.set()
+            check(run.done.wait(30), f"{name}: the hosted swarm never ended")
+            daemon_branches = _branches(proj, f"loop/{ack['run']}/*")
+        finally:
+            hold.set()
+            srv.stop()
+        keys = _store_keys(cfg)
+    gg = row["gitguard"]
+    check(gg["enabled"] and gg["running"] and gg["socket"] == str(sock)
+          and set(gg["rules"]) == WT_RULE_KEYS,
+          f"{name}: the status RPC's gitguard row {gg}")
+    check(run.result.get("ok") and len(daemon_branches) == 3
+          and not keys & WT_RULE_KEYS,
+          f"{name}: hosted run {run.result}, branches {daemon_branches}, "
+          f"store {sorted(keys)}")
+    scored = log.check_run(f"{name} loopd")
+    print(f"worktrees (e) verbs: loop --worktrees -p 2 -n 1 --sentinel "
+          f"--json exit 0 in {cli_ms!r} ms, branches {len(cli_branches)}; "
+          f"loopd hosted a 2-loop swarm, status gitguard row enabled and "
+          f"running ({len(gg['rules'])} rules), {len(scored)} daemon ticks "
+          f"scored on {scored[-1][3].device}")
+    return log.launches()
+
+
+def worktrees_phase(device) -> collections.Counter:
+    """Drives worktree swarms under ``loop --worktrees``: gitx, the merge
+    queue and gitguard, with the sentinel scoring them; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "worktrees"
+    ver = subprocess.run(["git", "--version"], capture_output=True,
+                         text=True)
+    check(ver.returncode == 0, f"worktrees: no git on this host: {ver}")
+    print(f"worktrees: {ver.stdout.strip()}")
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    with stage_timers({}) as stages:
+        total.update(worktrees_inproc_case(out / "a", device, stages))
+    worktrees_git_case(out / "b")
+    with stage_timers({}) as stages:
+        total.update(worktrees_workerd_case(out / "c", device, stages))
+    with stage_timers({}) as stages:
+        total.update(worktrees_resume_case(out / "d", device, stages))
+    with stage_timers({}) as stages:
+        total.update(worktrees_verbs_case(out / "e", device, stages))
+    no_daemon_left()
+    print(f"worktrees launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -3670,6 +4334,8 @@ def main() -> int:
     for k, v in workerd_phase(device).items():
         main_path["launches"][k] += v
     for k, v in resume_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in worktrees_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

@@ -434,15 +434,24 @@ def _not_ported(what: str) -> click.ClickException:
               help="Per-worker warm pool depth: keep N pre-created agent "
                    "containers per worker that placements adopt (relabel/"
                    "env-fixup + start) instead of paying a full create "
-                   "(default: settings loop.warm_pool; 0 = off).")
+                   "(default: settings loop.warm_pool; 0 = off; ignored "
+                   "with bind-mode --worktrees).")
 @click.option("--image", default="@", help="Agent image ('@' = project default).")
 @click.option("--prompt", default="", help="Prompt handed to each harness loop.")
 @click.option("--worktrees/--no-worktrees", default=False,
-              help="One git worktree per agent loop (not yet ported: "
-                   "refused).")
+              help="One git worktree + branch per agent loop, branched "
+                   "from one base (never N clones); agent branches land "
+                   "serially through the merge queue at iteration end "
+                   "(settings loop.worktrees.*; docs/loop-worktrees.md).")
 @click.option("--gitguard/--no-gitguard", "gitguard", default=None,
-              help="Git-protocol firewall for worktree runs (not yet "
-                   "ported: refused).")
+              help="Worktree runs only: route agent git traffic through "
+                   "the run's gitguard proxy -- advertisements hide "
+                   "out-of-namespace refs, pushes outside the agent's "
+                   "branch namespace are refused with a git-readable "
+                   "error, and run-scoped egress rules pin ssh/22 + "
+                   "git/9418 shut so guarded smart-HTTP is the only git "
+                   "path (default: settings gitguard.enable; "
+                   "docs/git-policy.md).")
 @click.option("--env", "env_kv", multiple=True, help="KEY=VAL extra agent env.")
 @click.option("--failover", type=click.Choice(["migrate", "wait", "fail"]),
               default=None,
@@ -651,7 +660,12 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     if settings.capacity.enable:
         raise _not_ported("the elastic capacity controller (settings "
                           "capacity.enable)")
-    executors = _discover_workerd(cfg, driver, use_workerd)
+    if run_image is not None:
+        executors = _discover_workerd(
+            cfg, driver, use_workerd, bool(run_image.spec.get("worktrees")),
+            str(run_image.spec.get("workspace_mode") or ""))
+    else:
+        executors = _discover_workerd(cfg, driver, use_workerd, worktrees)
     try:
         if run_image is not None:
             sched = LoopScheduler.resume(
@@ -796,10 +810,20 @@ def _resume_image(f: Factory, run: str):
     return image
 
 
-def _discover_workerd(cfg, driver, use_workerd):
-    """ExecutorSet for the in-process scheduler, or None (direct)."""
+def _discover_workerd(cfg, driver, use_workerd, worktree_run: bool,
+                      workspace_mode: str = ""):
+    """ExecutorSet for the in-process scheduler, or None (direct).
+    BIND-mode worktree runs stay direct (the worktree mount is
+    host-local); snapshot-mode worktree runs dispatch -- content travels
+    as a content-addressed workspace seed the worker-local store
+    resolves (docs/loop-worktrees.md)."""
     if use_workerd is False:
         return None
+    if worktree_run:
+        mode = (workspace_mode
+                or cfg.settings.loop.worktrees.workspace_mode or "bind")
+        if mode == "bind":
+            return None
     from .workerd.executor import discover_executors
 
     execset = discover_executors(cfg, driver)

@@ -99,13 +99,16 @@ crash seam :meth:`LoopScheduler.kill`.  The warm pool is here
 launch intents, the fills as workerd ``create`` intents, the drain at
 cleanup), and so is the resume path (:meth:`LoopScheduler.resume`,
 :meth:`LoopScheduler.reconcile` with its pool-restore branch, and the
-adopt intent that hands workerd a reconciled container).  What waits
-for its slice (ROADMAP §1) is refused with a named :class:`ConfigError`
-and has no code path here: worktrees with their gitguard and merge
-queue (item 6; a journal that holds their records is refused at
-resume), the scheduler's chaos seams (item 8: ``seams`` is the
-never-armed ``NULL_SEAMS`` that the pool, the reconcile and the workerd
-executors fire into) and the elastic capacity controller
+adopt intent that hands workerd a reconciled container), and so is the
+worktree swarm (``worktrees=True``: one linked worktree and branch per
+agent, journaled write-ahead; the merge queue landing agent branches on
+the run's integration branch; gitguard, the git-protocol proxy with its
+run-scoped egress rules; all three re-attached by a resume).  What
+waits for its slice (ROADMAP §1) is refused with a named
+:class:`ConfigError` and has no code path here: the scheduler's chaos
+seams (item 8: ``seams`` is the never-armed ``NULL_SEAMS`` that the
+pool, the reconcile and the workerd executors fire into) and the
+elastic capacity controller
 (:meth:`LoopScheduler.attach_capacity`, item 9; with none attached,
 the capacity-state restore of a resume is a no-op, as in the
 reference).
@@ -134,10 +137,12 @@ from ..errors import ClawkerError, ConfigError, DriverError, NotFoundError
 from ..fleet.inventory import pod_topology
 from ..health import BREAKER_CLOSED, BREAKER_OPEN, HealthConfig, HealthMonitor
 from ..monitor.events import (
+    GITGUARD_DECISION,
     PLACEMENT_DECISION,
     STORAGE_FAULT,
     TRACE_SPAN,
     EventBus,
+    GitguardDecisionEvent,
     PlacementEvent,
     StorageFaultEvent,
 )
@@ -174,6 +179,8 @@ from .journal import (
     REC_CREATED,
     REC_EXITED,
     REC_GHOST,
+    REC_GITGUARD_DECISION,
+    REC_GITGUARD_RULES,
     REC_LOOP_END,
     REC_MIGRATED,
     REC_ORPHANED,
@@ -183,6 +190,7 @@ from .journal import (
     REC_RUN,
     REC_SEED_SHIP,
     REC_SEED_TAR,
+    REC_SEED_WORKTREE,
     REC_SHUTDOWN,
     REC_STARTED,
     REC_STORAGE_FAULT,
@@ -194,6 +202,7 @@ from .journal import (
     journal_path,
     retention_gc,
 )
+from .mergeq import MergeQueue
 from .warmpool import WarmPool
 
 log = logsetup.get("loop.scheduler")
@@ -336,6 +345,7 @@ class AgentLoop:
     #                                  tasks for an earlier placement no-op
     abandoned: list[tuple[Worker, str]] = field(default_factory=list)
     #                                  containers left on dead workers
+    worktree: Path | None = None
 
     def summary(self) -> dict:
         return {
@@ -344,19 +354,6 @@ class AgentLoop:
             "exit_codes": list(self.exit_codes),
             "migrations": self.migrations,
         }
-
-
-def refuse_unported(spec: LoopSpec) -> None:
-    """Raise a named :class:`ConfigError` for a spec that asks for a part
-    of the scheduler the port does not carry yet (ROADMAP §1 item 6)."""
-    if spec.worktrees:
-        raise ConfigError(
-            "loop: worktrees (--worktrees, with gitguard and the merge "
-            "queue) are not yet ported to clawker_tpu_torch")
-    if spec.gitguard:
-        raise ConfigError(
-            "loop: gitguard (--gitguard) is not yet ported to "
-            "clawker_tpu_torch")
 
 
 def place(workers: list[Worker], n: int, policy: str) -> list[Worker]:
@@ -465,7 +462,6 @@ class LoopScheduler:
             raise ClawkerError(
                 f"loop: unknown failover policy {spec.failover!r} "
                 f"({'|'.join(FAILOVER_POLICIES)})")
-        refuse_unported(spec)
         self.cfg = cfg
         self.driver = driver
         self.spec = spec
@@ -498,6 +494,7 @@ class LoopScheduler:
         self._health_config = health_config
         self._stop = threading.Event()
         self._wake = threading.Event()        # set by waiters on any exit
+        self._git_lock = threading.Lock()     # worktree setup shares one repo
         # placement state (epoch / container_id / status transitions) is
         # mutated by lane threads (_create tail, _strand) AND the run
         # thread (_orphan_worker, _rescue_orphans): every check-then-act
@@ -596,11 +593,11 @@ class LoopScheduler:
         # --- warm pool (docs/loop-warmpool.md): pre-created containers
         # this run's placements adopt instead of paying a full create.
         # Refills bill a dedicated low-weight admission tenant so the
-        # WFQ hands real placements the worker's tokens first.  (The
-        # reference keeps bind-mode worktree runs cold here; the port
-        # refuses worktrees, so every pooled spec builds its pool.)
+        # WFQ hands real placements the worker's tokens first.  Bind-mode
+        # worktree runs stay cold: a member's mounts are staged before
+        # the adopting agent's worktree exists.
         self.warmpool: WarmPool | None = None
-        if spec.warm_pool_depth > 0:
+        if spec.warm_pool_depth > 0 and not self._bind_worktrees():
             wps = cfg.settings.loop.warm_pool
             self.warmpool = WarmPool(
                 self.loop_id, depth=spec.warm_pool_depth,
@@ -617,9 +614,13 @@ class LoopScheduler:
         # there instead of running engine calls on the local lane, and
         # the event stream drives the SAME journal records, spans, and
         # status transitions.  None (the default) or a worker with no
-        # live channel = the direct in-process path, unchanged.  The set
-        # is caller-owned (CLI, loopd, chip_smoke) -- the scheduler
-        # never closes it.
+        # live channel = the direct in-process path, unchanged.
+        # BIND-mode worktree runs stay direct: a bind worktree is a
+        # host-local mount workerd cannot stage.  Snapshot-mode worktree
+        # runs dispatch normally -- their content travels as a
+        # content-addressed workspace seed the worker-local store
+        # resolves (docs/loop-worktrees.md).  The set is caller-owned
+        # (CLI, loopd, chip_smoke) -- the scheduler never closes it.
         self.executors = executors
         if executors is not None:
             executors.bind(self)
@@ -639,11 +640,43 @@ class LoopScheduler:
         # runtime/orchestrate) and journaled write-ahead per DIGEST.
         self._seed_lock = threading.Lock()
         self._seeds_journaled: set[str] = set()     # REC_SEED_TAR dedup
+        self._worktrees_journaled: set[str] = set()  # REC_SEED_WORKTREE dedup
+        self._branches: dict[str, str] = {}   # agent -> its worktree branch
+        # --- merge queue (docs/loop-worktrees.md#merge-queue): agent
+        # branches land serially on the run's integration branch at
+        # iteration end; conflict losers resubmit with the admission
+        # controller's backoff hint.  Run-thread only, under _git_lock.
+        self.mergeq: MergeQueue | None = None
+        if spec.worktrees:
+            wts = cfg.settings.loop.worktrees
+            if wts.merge_queue:
+                self.mergeq = MergeQueue(retry_s=wts.merge_retry_s,
+                                         max_attempts=wts.merge_attempts)
+        # --- gitguard (docs/git-policy.md): the git-protocol firewall
+        # for worktree swarms.  start() journals + installs run-scoped
+        # egress rules (git hosts via the guard, ssh/git-protocol
+        # denied) and brings the proxy up on a hardened unix socket;
+        # cleanup()/--resume tear down exactly the journaled rule keys.
+        self.gitguard = None                    # GitguardServer when armed
+        self._gitguard_rule_keys: list[str] = []
+        self._gitguard_decisions: dict[str, int] = {}
+
+    def _bind_worktrees(self) -> bool:
+        """True when this run's worktrees are HOST-LOCAL bind mounts --
+        the shape that blocks workerd dispatch and warm pooling (the
+        daemon cannot stage a host path; a pool member's mounts predate
+        the adopting agent's worktree)."""
+        return self.spec.worktrees and self._effective_mode() == "bind"
 
     def _effective_mode(self) -> str:
         """The workspace mode this run's creates resolve to: the
-        explicit spec value, else snapshot."""
-        return self.spec.workspace_mode or "snapshot"
+        explicit spec value, else the worktree settings default (bind)
+        for --worktrees runs, else snapshot."""
+        if self.spec.workspace_mode:
+            return self.spec.workspace_mode
+        if self.spec.worktrees:
+            return self.cfg.settings.loop.worktrees.workspace_mode or "bind"
+        return "snapshot"
 
     def _record_span(self, rec) -> None:
         if self.flight is not None:
@@ -963,10 +996,12 @@ class LoopScheduler:
     def _workerd_for(self, worker: Worker):
         """The worker's live executor, or None (= direct path).  While
         there is one, exits stream over its channel, so run() skips WAN
-        polls and waiters for the worker.  (The reference keeps
-        bind-mode worktree runs direct here; the port refuses
-        worktrees, so every run may dispatch.)"""
-        if self.executors is None:
+        polls and waiters for the worker.  BIND-mode worktree runs are
+        always direct: the worktree mount is a host-local path the
+        worker-resident daemon cannot stage.  Snapshot-mode worktree
+        runs dispatch -- their content rides the content-addressed
+        workspace seed instead of a mount."""
+        if self.executors is None or self._bind_worktrees():
             return None
         return self.executors.for_worker(worker.id)
 
@@ -1015,7 +1050,7 @@ class LoopScheduler:
             "replace": True,
         }
         if doc["workspace_mode"] == "snapshot":
-            digest, _tar = self._workspace_seed(self._seed_root())
+            digest, _tar = self._workspace_seed(self._seed_root(loop))
             if digest:
                 doc["seed_digest"] = digest
         return doc
@@ -1048,10 +1083,17 @@ class LoopScheduler:
         # launch: create + first start.  Warm-pool checkout stays
         # scheduler-side (bookkeeping); the engine-side adoption runs
         # worker-resident, falling back to a cold create there.
+        if self.spec.worktrees and loop.worktree is None:
+            # snapshot-mode worktree dispatch: the branch + worktree
+            # identity lives HOST-side (the merge queue lands it); only
+            # the content travels, as the seed below
+            with self._git_lock:
+                workspace_root, _git_dir = self._maybe_worktree(loop.agent)
+            loop.worktree = workspace_root
         if self._effective_mode() == "snapshot":
             # one transfer per (digest, worker); every create on the
             # worker then fans out from its local store
-            self._ship_seed(ex, worker, self._seed_root())
+            self._ship_seed(ex, worker, self._seed_root(loop))
         pool_cid = ""
         pool_entry = None
         if self.warmpool is not None and worker.engine is not None:
@@ -1413,9 +1455,14 @@ class LoopScheduler:
 
     # ------------------------------------------------------------ launches
 
-    def _seed_root(self) -> Path:
-        """The directory a snapshot create seeds from: the project
-        root."""
+    def _seed_root(self, loop: AgentLoop | None = None) -> Path:
+        """The directory a snapshot create seeds from: the agent's
+        worktree once provisioned (its divergence is exactly what a
+        re-create must carry), else the project root.  While worktrees
+        have not diverged from base their digests COLLAPSE to the
+        project root's -- N agents cost one cache entry."""
+        if loop is not None and loop.worktree is not None:
+            return loop.worktree
         return self.cfg.project_root or Path.cwd()
 
     def _workspace_seed(self, root: Path) -> tuple[str, bytes | None]:
@@ -1458,6 +1505,244 @@ class LoopScheduler:
             channels=channels,
         )
 
+    def _maybe_worktree(self, agent: str) -> tuple[Path | None, Path | None]:
+        """(workspace_root, worktree_git_dir) for this loop agent:
+        branch-per-agent from one base, one linked worktree -- never a
+        clone.  Callers hold ``_git_lock`` (one shared repo).
+
+        Write-ahead: REC_SEED_WORKTREE lands (durable) BEFORE the git
+        mutation, so a crash anywhere inside ``worktree add`` resumes
+        straight back through the idempotent
+        :meth:`~clawker_tpu_torch.gitx.git.GitManager.setup_worktree` with
+        zero duplicate branches or worktrees."""
+        if not self.spec.worktrees:
+            return None, None
+        from ..gitx.git import GitManager
+
+        root = self.cfg.project_root or Path.cwd()
+        gm = GitManager(root)
+        if not gm.is_repo():
+            raise ClawkerError("loop: --worktrees requires a git repository")
+        wts = self.cfg.settings.loop.worktrees
+        branch = f"{wts.branch_prefix}/{self.loop_id}/{agent}"
+        dest = self.cfg.data_dir / "worktrees" / self.cfg.project_name() / agent
+        if agent not in self._worktrees_journaled:
+            self._worktrees_journaled.add(agent)
+            # degraded WAL: setup_worktree is idempotent on resume
+            self._durable_ok(self._journal(
+                REC_SEED_WORKTREE, durable=True, agent=agent,
+                path=str(dest), branch=branch, base=wts.base),
+                "seed_worktree")
+        info = gm.setup_worktree(dest, branch, base=wts.base)
+        self._branches[agent] = branch
+        return info.path, gm.git_dir()
+
+    # ---------------------------------------------------------- gitguard
+
+    def _gitguard_armed(self) -> bool:
+        """--worktrees runs guard their git lane unless explicitly
+        opted out (spec.gitguard False) or disabled in settings."""
+        if not self.spec.worktrees:
+            return False
+        if self.spec.gitguard is not None:
+            return self.spec.gitguard
+        return bool(self.cfg.settings.gitguard.enable)
+
+    def _gitguard_socket_path(self) -> Path:
+        gs = self.cfg.settings.gitguard
+        if gs.socket:
+            return Path(gs.socket)
+        return self.cfg.data_dir / "gitguard" / f"{self.loop_id}.sock"
+
+    def _gitguard_setup(self) -> None:
+        """Arm the git firewall for this run (docs/git-policy.md).
+
+        Two mutations, both fail-closed on error: (1) run-scoped egress
+        rules -- each configured git host's https lane forced through
+        the guard plus ssh/22 + git/9418 deny pins -- journaled
+        write-ahead (REC_GITGUARD_RULES, durable, NEW keys only, so
+        teardown after any crash/resume removes exactly what this run
+        added and never a user's standing rule); (2) the proxy itself
+        on a hardened unix socket over the run's seed repository.
+        Every proxy verdict journals, rides the bus typed, and counts
+        in the gitguard_* metrics."""
+        if not self._gitguard_armed() or self.gitguard is not None:
+            return
+        from ..firewall.rules import RulesStore
+        from ..gitguard import (
+            GitguardServer,
+            LocalRepoUpstream,
+            RefPolicy,
+            git_egress_rules,
+        )
+        from ..gitx.git import GitManager
+
+        gs = self.cfg.settings.gitguard
+        wts = self.cfg.settings.loop.worktrees
+        root = self.cfg.project_root or Path.cwd()
+        gm = GitManager(root)
+        base = wts.base
+        if base == "HEAD":
+            try:
+                base = gm.current_branch() or "main"
+            except ClawkerError:
+                base = "main"
+        merge_ref = (f"refs/heads/{wts.merge_into}" if wts.merge_into
+                     else "")
+        policy = RefPolicy(
+            run=self.loop_id, branch_prefix=wts.branch_prefix,
+            base_refs=(f"refs/heads/{base}",), merge_ref=merge_ref)
+        # rule install: WAL the keys this run is about to ADD (a key
+        # already in the store belongs to the user and is never listed,
+        # so teardown cannot eat it), then mutate the store
+        try:
+            store = RulesStore(self.cfg.egress_rules_path)
+            have = {r.key() for r in store.load()}
+            rules = git_egress_rules(list(gs.hosts))
+            fresh = [r for r in rules if r.key() not in have]
+            keys = [r.key() for r in fresh]
+            if keys:
+                # degraded WAL risks rules outliving the run (teardown
+                # key list lost); install anyway -- refusing git egress
+                # over a disk fault would strand every push
+                self._durable_ok(self._journal(
+                    REC_GITGUARD_RULES, durable=True, keys=keys,
+                    hosts=list(gs.hosts)), "gitguard_rules")
+                if self.journal is not None:
+                    self.journal.sync()
+                store.add(fresh)
+                for k in keys:
+                    if k not in self._gitguard_rule_keys:
+                        self._gitguard_rule_keys.append(k)
+        except ClawkerError as e:
+            self.on_event("scheduler", "gitguard_rules_failed", str(e))
+            log.error("loop %s: gitguard rule install failed: %s",
+                      self.loop_id, e)
+        try:
+            self.gitguard = GitguardServer(
+                LocalRepoUpstream(root), policy,
+                socket_path=self._gitguard_socket_path(),
+                on_decision=self._on_gitguard_decision).start()
+            self.on_event("scheduler", "gitguard_up",
+                          str(self._gitguard_socket_path()))
+        except (ClawkerError, OSError) as e:
+            # fail-closed either way: with the deny pins installed and
+            # no guard socket, every git path is a connection error --
+            # but say so loudly, the run's pushes will all refuse
+            self.gitguard = None
+            self.on_event("scheduler", "gitguard_start_failed", str(e))
+            log.error("loop %s: gitguard start failed (git lane is "
+                      "fail-closed): %s", self.loop_id, e)
+
+    def _on_gitguard_decision(self, d) -> None:
+        self._gitguard_decisions[d.verdict] = (
+            self._gitguard_decisions.get(d.verdict, 0) + 1)
+        self._journal(REC_GITGUARD_DECISION, **d.to_doc())
+        self.on_event("scheduler", GITGUARD_DECISION, GitguardDecisionEvent(
+            d.verdict, d.service, d.ref, d.reason).detail())
+
+    def _gitguard_teardown(self) -> None:
+        """Stop the proxy and remove exactly the journaled rule keys."""
+        guard, self.gitguard = self.gitguard, None
+        if guard is not None:
+            try:
+                guard.close()
+            except Exception:   # noqa: BLE001 -- teardown is best-effort
+                pass
+        keys, self._gitguard_rule_keys = self._gitguard_rule_keys, []
+        if keys:
+            try:
+                from ..firewall.rules import RulesStore
+                store = RulesStore(self.cfg.egress_rules_path)
+                for key in keys:
+                    store.remove(key)
+            except ClawkerError as e:
+                log.warning("loop %s: gitguard rule teardown failed: %s",
+                            self.loop_id, e)
+
+    def gitguard_summary(self) -> dict:
+        """Status surface: what the git firewall is enforcing for this
+        run (loopd status, `clawker fleet placement` run summary)."""
+        gs = self.cfg.settings.gitguard
+        return {
+            "enabled": self._gitguard_armed(),
+            "running": self.gitguard is not None,
+            "socket": str(self._gitguard_socket_path())
+            if self._gitguard_armed() else "",
+            "hosts": list(gs.hosts),
+            "rules": list(self._gitguard_rule_keys),
+            "decisions": dict(self._gitguard_decisions),
+        }
+
+    # ------------------------------------------------------- merge queue
+
+    def _merge_target(self) -> str:
+        """Where agent branches land: an explicit settings override, or
+        a run-scoped integration branch (never a user checkout --
+        publishing is a guarded update-ref, docs/loop-worktrees.md)."""
+        wts = self.cfg.settings.loop.worktrees
+        return wts.merge_into or f"{wts.branch_prefix}/{self.loop_id}/merged"
+
+    def _merge_retry_hint(self) -> float:
+        """Conflict-loser backoff: the admission controller's shed hint
+        when the fleet is backpressured (merge retries must queue
+        behind real launches, not spin ahead of them), else the
+        configured merge_retry_s."""
+        wts = self.cfg.settings.loop.worktrees
+        hint = 0.0
+        try:
+            workers = self.admission.stats().get("workers", {})
+            hint = max((float(g.get("shed_retry_after_s", 0.0))
+                        for g in workers.values()), default=0.0)
+        except Exception:       # noqa: BLE001 -- a stats hiccup must not
+            pass                # stall the merge queue
+        return max(hint, float(wts.merge_retry_s))
+
+    def _merge_tick(self) -> None:
+        """Drain due merge-queue entries (run thread, under _git_lock --
+        the same lock worktree provisioning takes, so a landing never
+        races a ``worktree add``).  Git faults surface as events, never
+        as a run() crash."""
+        if self.mergeq is None or not self.mergeq.pending():
+            return
+        from ..gitx.git import GitManager
+
+        wts = self.cfg.settings.loop.worktrees
+        gm = GitManager(self.cfg.project_root or Path.cwd())
+        target = self._merge_target()
+        try:
+            with self._git_lock:
+                gm.ensure_branch(target, base=wts.base)
+                report = self.mergeq.drain(
+                    gm, target, retry_delay=self._merge_retry_hint,
+                    message_for=lambda a: (
+                        f"loop {self.loop_id}: land {a}"))
+        except ClawkerError as e:
+            self.on_event("scheduler", "merge_tick_failed", str(e))
+            log.error("loop %s: merge tick failed: %s", self.loop_id, e)
+            return
+        for agent, outcome in report.landed:
+            self.on_event(agent, "merged", f"{target}:{outcome}")
+        for agent in report.resubmitted:
+            self.on_event(agent, "merge_conflict",
+                          "resubmitted with backoff")
+        for agent in report.failed:
+            self.on_event(agent, "merge_failed",
+                          f"conflict after {wts.merge_attempts} attempts")
+
+    def _drain_merges(self, deadline_s: float = HALT_DEADLINE_S) -> None:
+        """Run the merge queue dry (bounded): the end-of-run landing
+        pass.  Entries inside a conflict backoff window are waited out
+        up to ``deadline_s``; whatever still cannot land is left on the
+        queue and reported failed at cleanup."""
+        if self.mergeq is None:
+            return
+        deadline = time.monotonic() + max(0.0, deadline_s)
+        self._merge_tick()
+        while self.mergeq.pending() and time.monotonic() < deadline:
+            time.sleep(0.02)
+            self._merge_tick()
+
     def start(self) -> None:
         """Place loops and fan create+first-start across worker lanes.
 
@@ -1496,6 +1781,10 @@ class LoopScheduler:
                           tenant=self.spec.tenant)
         if self.journal is not None:
             self.journal.sync()
+        # the git firewall arms BEFORE any launch is submitted: an
+        # agent's very first iteration must already find ssh/git-proto
+        # denied and the guarded smart-HTTP lane the only git path
+        self._gitguard_setup()
         for loop in self.loops:
             note_decision(self.policy.name, loop.worker.id)
             self.on_event(loop.agent, PLACEMENT_DECISION, PlacementEvent(
@@ -1553,10 +1842,6 @@ class LoopScheduler:
         ``orphan_grace_s`` may be overridden for the resumed leg.  The
         caller must run :meth:`reconcile` before :meth:`run` -- that is
         where journaled state meets live container state.
-
-        A journal whose run asked for worktrees or gitguard is refused
-        by name: re-attaching a worktree and re-arming the git firewall
-        wait for their slice (ROADMAP §1 item 6).
         """
         if not image.run_id:
             raise ClawkerError(
@@ -1588,21 +1873,29 @@ class LoopScheduler:
             trace_parent=str(sd.get("trace_parent") or ""),
             clock_offset_s=float(sd.get("clock_offset_s") or 0.0),
         )
-        if image.worktrees or image.gitguard_rules:
-            # the run's spec asked for neither (the constructor refuses
-            # those by name), yet its journal holds their records
-            raise ConfigError(
-                "loop resume: the journal holds worktree or gitguard "
-                "records; re-attaching them is not yet ported to "
-                "clawker_tpu_torch (ROADMAP §1 item 6)")
         sched = cls(cfg, driver, spec, on_event=on_event,
                     health_config=health_config, run_id=image.run_id,
                     admission=admission, executors=executors)
         sched._image = image
         # seed provisioning replays as DEDUP state, not as work: a
-        # journaled digest is never re-journaled (zero duplicate seeds
-        # -- the REC_SEED_* records exist exactly for this)
+        # journaled digest is never re-journaled, and a journaled
+        # worktree re-attaches through the idempotent setup_worktree
+        # (zero duplicate seeds, branches, or worktree adds -- the
+        # REC_SEED_* records exist exactly for this)
         sched._seeds_journaled.update(image.seeds)
+        sched._worktrees_journaled.update(image.worktrees)
+        for agent, wt in image.worktrees.items():
+            if wt.get("branch"):
+                sched._branches[agent] = str(wt["branch"])
+        # gitguard rules the dead generation installed: re-arm teardown
+        # for exactly these keys (the WAL's pre-add record), and fold
+        # the journaled verdict counts back into the status surface;
+        # the proxy itself re-arms through the ordinary setup when the
+        # resumed generation starts its first launch batch
+        sched._gitguard_rule_keys = list(image.gitguard_rules)
+        sched._gitguard_decisions = dict(image.gitguard_decisions)
+        if sched._gitguard_armed():
+            sched._gitguard_setup()
         sched._build_resumed_loops(image)
         sched._durable_ok(sched._journal(
             REC_RESUME, durable=True, generation=image.generation + 1,
@@ -2036,14 +2329,29 @@ class LoopScheduler:
             sink=self._record_span))
 
     def _create(self, loop: AgentLoop, epoch: int, worker: Worker) -> None:
+        # worktree setup mutates ONE shared git repo (refs, worktree
+        # metadata): serialize it across lanes or concurrent loops race
+        # git's own lock files.  A migrated loop keeps its worktree.
+        if loop.worktree is None:
+            with self._git_lock:
+                workspace_root, git_dir = self._maybe_worktree(loop.agent)
+            loop.worktree = workspace_root
+        else:
+            workspace_root, git_dir = loop.worktree, None
+            if self.spec.worktrees:
+                from ..gitx.git import GitManager
+                git_dir = GitManager(self.cfg.project_root or Path.cwd()).git_dir()
         rt = self._runtime(worker)
-        # isolation default: snapshot copies
+        # isolation default: snapshot copies; a bind worktree IS the
+        # isolation (and the linked .git file only resolves under a
+        # live bind) -- settings loop.worktrees.workspace_mode governs
         mode = self._effective_mode()
         seed_digest = ""
         if mode == "snapshot":
             # journals REC_SEED_TAR + warms the content-addressed tar
             # cache: the create below seeds from it without re-walking
-            seed_digest, _tar = self._workspace_seed(self._seed_root())
+            seed_digest, _tar = self._workspace_seed(
+                self._seed_root(loop))
         with self._placement_lock:
             # epoch re-checked under the lock before opening the span: a
             # stale create racing its own orphaning must not re-open a
@@ -2065,6 +2373,8 @@ class LoopScheduler:
             # and is swept instead of adopted
             extra_labels={consts.LABEL_LOOP_EPOCH: str(epoch)},
             replace=True,
+            workspace_root=workspace_root,
+            worktree_git_dir=git_dir,
             seed_digest=seed_digest,
         )
         # warm-pool checkout (docs/loop-warmpool.md): an adoptable
@@ -2307,6 +2617,13 @@ class LoopScheduler:
         # replay only needs record ORDER, which is preserved
         self._journal(REC_EXITED, agent=loop.agent, iteration=finished,
                       code=code)
+        if (self.mergeq is not None and code == 0
+                and loop.agent in self._branches):
+            # iteration end: the agent's branch holds this iteration's
+            # work; the run-thread merge tick lands branches serially
+            # (docs/loop-worktrees.md#merge-queue).  Failed iterations
+            # never submit -- a branch only lands off a clean exit.
+            self.mergeq.submit(loop.agent, self._branches[loop.agent])
         if loop.consecutive_failures >= FAILURE_CEILING:
             loop.status = "failed"
             self.on_event(loop.agent, "failed",
@@ -2470,6 +2787,7 @@ class LoopScheduler:
                 # placements) and dispatch anything their removal unblocks
                 self.admission.sweep()
                 self._pool_tick()
+                self._merge_tick()
                 if self.pressure is not None:
                     # disk-pressure ladder rides the run thread at its
                     # own statvfs cadence (docs/durability.md#ladder)
@@ -2667,6 +2985,9 @@ class LoopScheduler:
             return self.loops
         if self._stop.is_set():
             self._halt_running()
+        # land whatever the last iterations submitted: the merge queue
+        # must drain before callers read branch state off run()
+        self._drain_merges()
         # iterations still open (stop(), a failed loop's in-flight span)
         # must land in the flight record before callers read it
         self.tracer.close_open(
@@ -3009,6 +3330,24 @@ class LoopScheduler:
         return out
 
     def cleanup(self, *, remove_containers: bool = False) -> None:
+        # merge-queue stragglers land first (a kill() skips this like
+        # everything else); stale worktree registrations are pruned so
+        # the NEXT run's setup_worktree starts clean
+        if not self._aborted:
+            self._drain_merges()
+            if self.spec.worktrees:
+                try:
+                    from ..gitx.git import GitManager
+                    with self._git_lock:
+                        GitManager(self.cfg.project_root
+                                   or Path.cwd()).prune_worktrees()
+                except ClawkerError:
+                    pass
+            # git firewall: stop the proxy, remove the run-scoped rules
+            # (exactly the journaled keys).  A kill() skips this like
+            # everything else -- the next --resume replays the WAL and
+            # tears down then.
+            self._gitguard_teardown()
         # the warm pool drains unconditionally (even under --keep): its
         # members are framework plumbing, not user containers, and
         # "zero leaked pool containers after drain" is the contract.

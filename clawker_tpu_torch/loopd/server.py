@@ -53,9 +53,11 @@ reference's, which passes no socket map, read ``absent``.
 What waits for its slice is refused by name: the capacity controller
 (settings ``capacity.enable``, ROADMAP §1 item 9), the telemetry shipper
 and the metrics server (settings ``monitoring.shipper.enable`` and a
-metrics port, §1 item 10) raise a :class:`ConfigError` at start;
-a spec the port's scheduler refuses (worktrees, gitguard: §1 item 6)
-gets an error ack.  ``adopt_run`` replays a run's journal from the
+metrics port, §1 item 10) raise a :class:`ConfigError` at start.
+Worktree specs run as the reference's do: the scheduler provisions the
+worktrees, lands the branches through its merge queue and arms gitguard,
+and the status RPC's ``gitguard`` row is the run's
+``gitguard_summary()``.  ``adopt_run`` replays a run's journal from the
 shared logs dir and resumes it here (``LoopScheduler.resume`` +
 ``reconcile`` on the drive thread), and hosted runs take
 ``warm_pool_depth``.  Hosted runs dispatch through workerd when
@@ -240,7 +242,7 @@ class _DaemonRun:
                         self.dropped += 1
                         _EVENTS_DROPPED.inc()
 
-    def status_doc(self, cfg: Config) -> dict:
+    def status_doc(self) -> dict:
         sched = self.sched
         return {
             "run": self.run_id,
@@ -251,7 +253,7 @@ class _DaemonRun:
             "iterations": self.spec.iterations,
             "placement": self.spec.placement,
             "agents": sched.status() if sched is not None else [],
-            "gitguard": (_gitguard_off(cfg)
+            "gitguard": (sched.gitguard_summary()
                          if sched is not None else {"enabled": False}),
             "storage": (sched.storage_summary()
                         if sched is not None else {"durability": "unknown"}),
@@ -259,15 +261,6 @@ class _DaemonRun:
             "events_dropped": self.dropped,
             **({"ok": self.result.get("ok")} if self.done.is_set() else {}),
         }
-
-
-def _gitguard_off(cfg: Config) -> dict:
-    """The reference scheduler's ``gitguard_summary()`` for a run whose
-    git firewall is not armed: the port refuses worktrees (and with them
-    gitguard), so a hosted run never arms it."""
-    return {"enabled": False, "running": False, "socket": "",
-            "hosts": list(cfg.settings.gitguard.hosts), "rules": [],
-            "decisions": {}}
 
 
 class LoopdServer:
@@ -877,7 +870,7 @@ class LoopdServer:
         expensive part -- journal/flight-recorder opens, placement,
         launch submission -- happens on the drive thread, so submit
         latency is one socket hop plus this registration."""
-        from ..loop.scheduler import FAILOVER_POLICIES, refuse_unported
+        from ..loop.scheduler import FAILOVER_POLICIES
         from ..placement import get_policy
         from ..util import ids
 
@@ -886,7 +879,6 @@ class LoopdServer:
             raise ClawkerError(
                 f"loopd: unknown failover policy {spec.failover!r} "
                 f"({'|'.join(FAILOVER_POLICIES)})")
-        refuse_unported(spec)   # worktrees, gitguard: an error ack
         run = _DaemonRun(run_id=ids.short_id(), spec=spec,
                          tenant=spec.tenant, client=ident, keep=keep)
         with self._runs_lock:
@@ -918,7 +910,6 @@ class LoopdServer:
         so exit-accounted-once and duplicate-create audits hold across
         the pod boundary."""
         from ..loop.journal import RunJournal, journal_path, replay
-        from ..loop.scheduler import refuse_unported
 
         run_ref = str(msg.get("run", ""))
         jpath = journal_path(self.cfg.logs_dir, run_ref)
@@ -933,7 +924,6 @@ class LoopdServer:
                 f"adopt_run: {jpath}: no usable run header -- the "
                 "journal is too damaged to adopt")
         spec = spec_from_doc(image.spec)
-        refuse_unported(spec)   # worktrees, gitguard: an error frame
         if spec.tenant in ("", "default"):
             spec.tenant = ident
         run = _DaemonRun(run_id=image.run_id, spec=spec,
@@ -1196,7 +1186,7 @@ class LoopdServer:
 
     def _status_doc(self) -> dict:
         with self._runs_lock:
-            runs = [r.status_doc(self.cfg) for r in self.runs.values()]
+            runs = [r.status_doc() for r in self.runs.values()]
         pools = {}
         with self._runs_lock:
             for r in self.runs.values():

@@ -55,6 +55,14 @@ def _modules() -> list[str]:
 def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     mods = _modules()
     assert "clawker_tpu_torch.kernels.anomaly" in mods
+    # the worktree swarm's modules are the port's own copies
+    assert {"clawker_tpu_torch.gitx", "clawker_tpu_torch.gitx.git",
+            "clawker_tpu_torch.gitguard", "clawker_tpu_torch.gitguard.server",
+            "clawker_tpu_torch.gitguard.pktline",
+            "clawker_tpu_torch.gitguard.protocol",
+            "clawker_tpu_torch.gitguard.refpolicy",
+            "clawker_tpu_torch.firewall", "clawker_tpu_torch.firewall.rules",
+            "clawker_tpu_torch.loop.mergeq"} <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -133,6 +141,11 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     "clawker_tpu_torch.analytics.mesh",
                                     "clawker_tpu_torch.loop.scheduler",
                                     "clawker_tpu_torch.loop.warmpool",
+                                    "clawker_tpu_torch.loop.mergeq",
+                                    "clawker_tpu_torch.gitx",
+                                    "clawker_tpu_torch.gitguard",
+                                    "clawker_tpu_torch.firewall.rules",
+                                    "clawker_tpu_torch.storage.yamledit",
                                     "clawker_tpu_torch.cli",
                                     "clawker_tpu_torch.loopd.__main__",
                                     "clawker_tpu_torch.hostproxy.__main__",

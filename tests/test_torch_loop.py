@@ -647,8 +647,6 @@ def test_bring_up_on_the_cpu_builds_and_launches_nothing():
 
 
 @pytest.mark.parametrize("args,settings,needle", [
-    (["--worktrees"], "", "worktrees"),
-    (["--gitguard"], "", "gitguard"),
     (["--ship-telemetry"], "", "telemetry shipper"),
     (["--metrics-port", "9100"], "", "metrics server"),
     # ported: with no workerd answering, --workerd fails as the
@@ -659,7 +657,7 @@ def test_bring_up_on_the_cpu_builds_and_launches_nothing():
     ([], "telemetry:\n  otlp: true\n", "OTLP"),
     ([], "telemetry:\n  metrics_port: 9100\n", "metrics server"),
     ([], "monitoring:\n  shipper:\n    enable: true\n", "telemetry shipper"),
-], ids=["worktrees", "gitguard", "ship-telemetry",
+], ids=["ship-telemetry",
         "metrics-port", "workerd", "pods", "capacity",
         "otlp", "metrics-setting", "shipper-setting"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
@@ -742,21 +740,6 @@ def test_chaos_plan_is_refused(tmp_path, monkeypatch):
                                                   driver=object()))
     assert res.exit_code == 1
     assert "--chaos-plan is not yet ported" in res.output
-
-
-@pytest.mark.parametrize("spec,needle", [
-    (dict(worktrees=True), "worktrees"),
-    (dict(gitguard=True), "gitguard"),
-])
-def test_scheduler_refuses_unported_specs(tmp_path, spec, needle):
-    tenv, proj = _env(tmp_path, "port")
-    try:
-        with pytest.raises(port_errors.ConfigError, match=needle):
-            port_loop.LoopScheduler(port_config.load_config(proj),
-                                    _driver(PKGS["port"], 1),
-                                    port_loop.LoopSpec(**spec))
-    finally:
-        tenv.__exit__(None, None, None)
 
 
 def test_attach_capacity_is_refused(tmp_path):

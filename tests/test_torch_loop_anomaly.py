@@ -81,21 +81,28 @@ def _snapshot(tracker) -> dict:
 
 
 def run_with_rider(pkg: str, tmp_path, *, rider: str, hot_slot: int,
-                   ticks: int = 2, pod=None) -> dict:
+                   ticks: int = 2, pod=None, spec: dict | None = None,
+                   prepare=None, settings: str = "") -> dict:
     """One package's run with its rider.  ``pod(pkg, cfg, driver, tenv)``
     -> (workerd servers, executor set) puts the run over workerd; both
-    are torn down with the run."""
+    are torn down with the run.  ``spec`` adds ``LoopSpec`` fields,
+    ``prepare(proj)`` readies the project dir before the config loads
+    (a git repository for a worktree swarm), ``settings`` is YAML merged
+    over the twins' settings."""
     m, r = PKGS[pkg], RIDERS[pkg]
-    tenv, proj = _env(tmp_path, pkg)
+    tenv, proj = _env(tmp_path, pkg, settings)
     servers, execset = [], None
     try:
+        if prepare is not None:
+            prepare(proj)
         cfg = m.load_config(proj)
         drv = _driver(m, WORKERS)
         if pod is not None:
             servers, execset = pod(pkg, cfg, drv, tenv)
         events: list = []
         sched = m.loop.LoopScheduler(
-            cfg, drv, m.loop.LoopSpec(parallel=AGENTS, iterations=2),
+            cfg, drv, m.loop.LoopSpec(parallel=AGENTS, iterations=2,
+                                      **(spec or {})),
             on_event=lambda a, e, d="": events.append((a, e, d)),
             run_id=RUN_ID, executors=execset)
         agents = [sched._agent_name(i) for i in range(AGENTS)]
@@ -127,6 +134,10 @@ def run_with_rider(pkg: str, tmp_path, *, rider: str, hot_slot: int,
             "anomaly_z": r["anomaly_z"],
         }
         if rider == "sentinel":
+            rep = watch.last_tick
+            out["raw"] = (None if rep is None else
+                          ([(k.agent, k.start_unix) for k in rep.keys],
+                           [float(v) for v in rep.raw]))
             out["snapshot"] = _snapshot(watch.behavior)
             out["audit"] = watch.audit()
             out["flags"] = sorted((f["agent"], f["worker"], f["kind"])

@@ -968,23 +968,6 @@ def test_unported_daemon_riders_refuse_to_start(tmp_path, settings, needle):
         assert not port_loopd.pidfile_path(s.cfg).exists()
 
 
-@pytest.mark.parametrize("spec,needle", [
-    ({"worktrees": True}, "worktrees"),
-], ids=["worktrees"])
-def test_unported_specs_get_an_error_ack(tmp_path, spec, needle):
-    with side("port", tmp_path) as s:
-        drv = driver_with(s.m, 1)
-        with daemon(s, drv) as srv:
-            c = port_client.LoopdClient(srv.sock_path)
-            c.hello()
-            with pytest.raises(port_loopd.LoopdError,
-                               match=f"{needle}.*not yet ported"):
-                c.submit_run({"parallel": 1, "iterations": 1, **spec})
-            c.close()
-            assert not srv.runs
-        assert total_creates(drv) == 0
-
-
 def test_pods_stays_refused(tmp_path, cpu):
     with side("port", tmp_path) as s:
         drv = driver_with(s.m, 1)

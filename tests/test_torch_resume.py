@@ -13,9 +13,7 @@ summaries, journal record kinds and counts and engine call counts; each
 side must hold the reference test's own assertions.
 
 Besides: ``journal verify [--repair]`` on clean, torn and bit-flipped
-journals against the reference verb; a journal whose run asked for
-worktrees is refused by name at resume (ROADMAP §1 item 6); and
-``loop --resume`` with ``CLAWKER_TORCH_DEVICE=cuda`` and no GPU exits 1
+journals against the reference verb; and ``loop --resume`` with ``CLAWKER_TORCH_DEVICE=cuda`` and no GPU exits 1
 before it reconciles (the journal gains no record).
 """
 
@@ -922,18 +920,6 @@ def test_cli_loop_resume_without_a_gpu_exits_before_reconcile(
         assert "loop:" in res.output and "cpu" in res.output
         assert len(journal_of(s, sched1)) == n_records
         assert sum(len(api.calls) for api in drv.apis) == calls
-
-
-def test_resume_of_a_worktree_run_is_refused_by_name(tmp_path):
-    records = [{"kind": "run", "seq": 1, "run": "deadbeefcafe",
-                "project": PROJECT,
-                "spec": {"parallel": 1, "iterations": 1, "worktrees": True},
-                "workers": ["fake-0"]}]
-    with side("port", tmp_path) as s:
-        image = s.m.journal.replay(records)
-        with pytest.raises(s.m.errors.ConfigError,
-                           match="worktrees.*not yet ported"):
-            s.m.loop.LoopScheduler.resume(s.cfg, driver_with(s.m, 1), image)
 
 
 # ------------------------------------------------------ journal verify

@@ -419,21 +419,24 @@ def test_refill_admission_rejection_stops_tick(tmp_path):
     assert got == want == (["fake-0"], 0, 0, 1)
 
 
-def test_pool_disabled_with_worktrees(tmp_path):
+@pytest.mark.parametrize("mode", ["", "bind", "snapshot"])
+def test_pool_disabled_with_worktrees(tmp_path, mode):
     """A pool member's mounts are staged before the adopting agent's
-    worktree exists, so the reference keeps --worktrees runs cold (no
-    pool).  The port refuses worktrees by name (ROADMAP §1 item 6) --
-    the worktrees refusal, not a warm-pool one."""
-    with side("ref", tmp_path) as s:
+    worktree exists: bind-mode --worktrees runs (the default) keep the
+    cold path, in both packages; a snapshot-mode swarm keeps its pool."""
+    def scenario(s):
         sched = scheduler(s, driver_with(s.m, 1), parallel=1, iterations=1,
-                          warm_pool_depth=2, worktrees=True)
-        assert sched.warmpool is None
+                          warm_pool_depth=2, worktrees=True,
+                          workspace_mode=mode)
+        out = (sched.warmpool is None, sched._effective_mode(),
+               sched._bind_worktrees())
         sched.cleanup()
-    with side("port", tmp_path) as s:
-        with pytest.raises(port_errors.ConfigError,
-                           match="worktrees.*not yet ported"):
-            scheduler(s, driver_with(s.m, 1), parallel=1, iterations=1,
-                      warm_pool_depth=2, worktrees=True)
+        return out
+
+    want, got = twin(tmp_path, scenario)
+    assert got == want
+    assert got == ((False, "snapshot", False) if mode == "snapshot"
+                   else (True, "bind", True))
 
 
 # ------------------------------------------------------------- journal fold

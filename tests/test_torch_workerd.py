@@ -17,8 +17,10 @@ status RPC's ``workerd`` rows; a killed workerd turns its row
 riding a run over workerd (its rows held to the reference's with the
 tolerances tests/test_torch_loop_anomaly.py states), and ``loop
 --workerd`` with none answering.  The reference cases with no twin,
-each waiting for its slice (ROADMAP §1): worktree runs (item 6), the
-chaos plans (item 8) and ``fleet health`` (item 13).  The warm pool's
+each waiting for its slice (ROADMAP §1): the chaos plans (item 8) and
+``fleet health`` (item 13).  Worktree runs' dispatch (bind-mode runs
+direct, snapshot-mode ones over workerd, tests/test_workerd.py:391) is
+twinned in tests/test_torch_worktrees.py.  The warm pool's
 fills and pooled launches over workerd and ``--resume`` after a killed
 workerd have their twins (tests/test_workerd.py:319 and :627), with the
 intents each server executed and the ``created`` events it emitted
