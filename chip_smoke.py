@@ -25,7 +25,11 @@
    and at RELOAD_SHAPE, too large for its x tiles to stay in shared
    memory, K3 must still be bit-identical to K2's loop.  At OPT_IN_SHAPE
    K1, K2 and K3 run on every visible device, each of which opts in to
-   more than 48 KB of shared memory on its own.  The three kernels'
+   more than 48 KB of shared memory on its own.  At CHAOS_SHAPE x
+   CHAOS_STEPS (the chaos sentinel's tick) K3 must be bit-identical to
+   K2's loop and to itself, within the fit tolerances of the plain fit,
+   and K1 after it within the score tolerances of the plain score; both
+   timed beside their bounds.  The three kernels'
    registers and spills as ptxas reports them (spills must be 0).
 3. Main-path phase, at full width (F = 32 / 40, H = 128): ``score_windows``
    on the bench's synthetic fleet ([640, 32] padded) and on an hour of a
@@ -165,7 +169,26 @@
    --json`` through ``CliRunner``, and an in-process ``LoopdServer``
    with its sentinel hosting a 2-loop swarm, its status RPC's
    ``gitguard`` row enabled and running, its ticks on the card.
-11. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+11. chaos phase, its dirs under ``build/chip_smoke/chaos/`` (the soft
+   disk watermark below any disk, the host proxy off): (a) ``run_soak(4,
+   20260803, keep_going=True, device="cuda")``, each scenario's verdict,
+   kills, generations, injections and wall printed: all four hold every
+   invariant, the observe-only twin passes, and every scored tick of the
+   sentinel scenarios (1 and 3) and of the twin's sentinel run is one K3
+   and one K1 on the card; (b) ``run_observe_only_check(device="cuda")``
+   is ``[]`` with its sentinel scored on the card; (c) one hand-written
+   plan with the sentinel, capacity (a traffic burst, a scale-down), the
+   shipper (its index down) and a ``cli_sigkill`` armed at 0.0 s holds
+   every invariant with one kill over two generations, the controller's
+   decisions and the shipper's failed flushes and drops counted; (d)
+   ``python -m clawker_tpu_torch chaos run --scenarios 4 --seed 20260803
+   --json`` and ``chaos replay --seed 20260803 --scenario 1`` forked,
+   exit 0; (e) an in-process ``LoopdServer`` with settings
+   ``capacity.enable``, ``monitoring.shipper.enable`` and
+   ``sentinel.enable`` hosts a run: its status RPC's ``capacity`` row
+   ticked, its ``shipper`` row took docs, each scored tick one K3 and
+   one K1.
+12. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -189,6 +212,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -253,6 +277,10 @@ OPT_IN_SHAPE = (260, 61)
 TIMED_SHAPE = (4224, 32)
 FIT_STEPS = 120
 SPIN_CYCLES = 1_000_000   # ~0.5 ms: covers the host's enqueue in event_ms
+# The chaos sentinel's tick (chaos.runner.SENTINEL_TRAIN_STEPS): its
+# feeder writes 4 workers x 3 agents, one window each, padded to 128 rows
+CHAOS_SHAPE = (128, 40)
+CHAOS_STEPS = 20
 # The live sentinel (sentinel_phase): its fit steps per tick, and the
 # flag-latency scenario of the reference bench (bench.py:2376-2440)
 SENTINEL_STEPS = 40
@@ -732,6 +760,9 @@ def kernel_phase(device) -> dict:
               f"fit {plain:.3f} ms, bound {bound:.4f} ms by {by})")
         timings[(n, f)] = row
     reload_check(device)
+    chaos = chaos_shape_check(device)
+    errs[K.FIT] = max(errs[K.FIT], chaos["fit_err"])
+    errs[K.SCORE] = max(errs[K.SCORE], chaos["score_err"])
     print(f"kernel tolerances: score rtol {SCORE_RTOL} atol {SCORE_ATOL}; "
           f"fit step 1: params atol {STEP1_PARAM_ATOL}, loss rtol "
           f"{STEP1_LOSS_RTOL}; after {FIT_STEPS} steps: params atol "
@@ -794,6 +825,73 @@ def reload_check(device) -> None:
     print(f"K3 [{n},{f}], x tiles reloaded, {RELOAD_STEPS} steps: "
           f"bit-identical to the K2 loop and to itself; off the plain fit: "
           f"params {err:.3g}, losses {_rel(f_loss, r_loss):.3g} relative")
+
+
+def chaos_shape_check(device) -> dict:
+    """K3 at the chaos sentinel's tick shape (CHAOS_SHAPE x CHAOS_STEPS,
+    ``chaos.runner.SENTINEL_TRAIN_STEPS``): bit for bit the loop of K2
+    launches and itself, within K2's tolerances of the plain fit; then K1
+    on the fitted params against the plain score.  Prints both kernels'
+    device times beside their plain versions' and their bounds.  -> the
+    largest errors."""
+    import torch
+
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    (n, f), steps = CHAOS_SHAPE, CHAOS_STEPS
+    params, x, noises = _inputs(n, f, steps, device, seed=n + f + steps)
+    scratch = torch.empty(K.scratch_floats(n, f), device=device)
+    kp = tuple(p.clone() for p in params)
+    k_loss = torch.empty(steps, device=device)
+    for s in range(steps):
+        K.fit_step_(kp, x, noises[s], lr=1e-2, sigma=0.25, loss_out=k_loss,
+                    step=s, scratch=scratch)
+    rp, r_loss = R.fit(*params, x, noises, 1e-2, 0.25)
+    fits = []
+    for _ in range(2):
+        fp = tuple(p.clone() for p in params)
+        f_loss = torch.empty(steps, device=device)
+        K.fit_(fp, x, noises, lr=1e-2, sigma=0.25, losses_out=f_loss,
+               scratch=scratch)
+        fits.append((fp, f_loss))
+    torch.cuda.synchronize()
+    (fp, f_loss), (fq, q_loss) = fits
+    check(all(torch.equal(p, q) for p, q in zip(fp, kp))
+          and torch.equal(f_loss, k_loss),
+          f"K3 [{n},{f}] x{steps}: not bit-identical to {steps} K2 "
+          f"launches: params {_max_abs(fp, kp):.3g} apart")
+    check(all(torch.equal(p, q) for p, q in zip(fp, fq))
+          and torch.equal(f_loss, q_loss),
+          f"K3 [{n},{f}] x{steps}: two fits from the same inputs differ")
+    fit_err = _max_abs(fp, rp)
+    check(fit_err <= FIT_PARAM_ATOL,
+          f"K3 [{n},{f}] x{steps} params off by {fit_err:.3g}")
+    ok, lerr = _close(f_loss, r_loss, rtol=FIT_LOSS_RTOL)
+    check(ok, f"K3 [{n},{f}] x{steps} losses off by {lerr:.3g}")
+    ok, score_err = _close(K.score(fp, x), R.score(*rp, x),
+                           rtol=SCORE_RTOL, atol=SCORE_ATOL)
+    check(ok, f"K1 [{n},{f}] after the chaos fit off the plain score of the "
+              f"plain fit by {score_err:.3g}")
+    tq = tuple(p.clone() for p in params)
+    losses = torch.empty(steps, device=device)
+    fit_ms = event_ms(lambda: K.fit_(tq, x, noises, lr=1e-2, sigma=0.25,
+                                     losses_out=losses, scratch=scratch))
+    fit_plain = event_ms(lambda: R.fit(*params, x, noises, 1e-2, 0.25),
+                         reps=5)
+    fit_b, fit_by = fit_bound(n, f, steps)
+    score_ms = cuda_ms(lambda: K.score(fp, x))
+    score_plain = cuda_ms(lambda: R.score(*fp, x))
+    score_b, score_by = score_bound(n, f)
+    print(f"K3 [{n},{f}] x{steps} (the chaos sentinel's tick): bit-identical "
+          f"to the K2 loop and to itself; off the plain fit: params "
+          f"{fit_err:.3g}, losses {_rel(f_loss, r_loss):.3g} relative; device "
+          f"{fit_ms!r} ms per fit (plain fit {fit_plain!r} ms, bound "
+          f"{fit_b!r} ms by {fit_by}); K1 after it {score_err:.3g} off the "
+          f"plain score (rtol {SCORE_RTOL} atol {SCORE_ATOL}), device "
+          f"{score_ms * 1e3!r} us (plain {score_plain * 1e3!r} us, bound "
+          f"{score_b * 1e3!r} us by {score_by})")
+    return {"fit_err": fit_err, "score_err": score_err}
 
 
 def every_device_check() -> None:
@@ -1715,7 +1813,12 @@ class TickLog:
     instance too), run through ``_counted``: -> ``ticks``, each (windows
     scored, launches, host ms of the tick and of its stages, the
     TickReport or None).  The sentinel's ``on_error`` messages land in
-    ``errors``."""
+    ``errors``.  Ticks run one at a time: ``_counted`` zeroes the
+    process-wide launch counters, so two ticks at once (the ticking
+    thread and a caller's ``refresh_once``, as the chaos observe-only
+    twin makes them) would zero each other's counts."""
+
+    _serial = threading.Lock()
 
     def __init__(self, sentinel, stages: dict):
         self.sentinel = sentinel
@@ -1729,12 +1832,13 @@ class TickLog:
         tick = sentinel.refresh_once
 
         def refresh_once() -> int:
-            stages.clear()
-            t0 = time.perf_counter()
-            n, counts = _counted(tick)
-            ms = dict(stages, wall=(time.perf_counter() - t0) * 1e3)
-            self.ticks.append((n, counts, ms, sentinel.last_tick if n
-                               else None))
+            with TickLog._serial:
+                stages.clear()
+                t0 = time.perf_counter()
+                n, counts = _counted(tick)
+                ms = dict(stages, wall=(time.perf_counter() - t0) * 1e3)
+                self.ticks.append((n, counts, ms, sentinel.last_tick if n
+                                   else None))
             return n
 
         sentinel.refresh_once = refresh_once
@@ -2072,11 +2176,12 @@ def _free_port() -> int:
 
 
 @contextlib.contextmanager
-def _isolated_dirs(base: Path, settings: str = ""):
+def _isolated_dirs(base: Path, settings: str = "", *, proxy: bool = True):
     """Fresh XDG dirs under ``base`` (``CLAWKER_TPU_*_DIR``), default
     settings but for ``settings`` and the host proxy's port (a free one:
     each run's bootstrap starts its own ``clawker_tpu_torch.hostproxy``,
-    stopped on the way out), and a project dir; -> the project dir."""
+    stopped on the way out; with ``proxy`` false, the proxy off), and a
+    project dir; -> the project dir."""
     from clawker_tpu_torch.config import load_config
     from clawker_tpu_torch.hostproxy import manager
 
@@ -2090,7 +2195,8 @@ def _isolated_dirs(base: Path, settings: str = ""):
         os.environ[key] = str(base / name.lower())
     _ISOLATED.append(base / "state")
     (base / "config" / "settings.yaml").write_text(
-        f"host_proxy:\n  port: {_free_port()}\n" + settings)
+        (f"host_proxy:\n  port: {_free_port()}\n" if proxy
+         else "host_proxy:\n  enable: false\n") + settings)
     proj = base / "proj"
     proj.mkdir()
     (proj / ".clawker.yaml").write_text(f"project: {LOOP_PROJECT}\n")
@@ -4230,6 +4336,315 @@ def worktrees_phase(device) -> collections.Counter:
     return total
 
 
+# ------------------------------------------------------------ chaos phase
+
+CHAOS_SEED = 20260803           # the reference's fixed soak
+CHAOS_SCENARIOS = 4
+# the scenarios' flight records keep every span on a nearly full disk:
+# below the soft watermark the scheduler sheds its spans while workerd
+# keeps its own, which the span audits would read as broken trees
+CHAOS_SETTINGS = ("loop:\n  storage_pressure:\n    soft_free_pct: 0.001\n"
+                  "    hard_free_pct: 0.0005\n")
+
+
+@contextlib.contextmanager
+def _chaos_tick_logs(stages: dict):
+    """Every ``FleetSentinel`` the chaos runner builds (it takes the
+    class from ``clawker_tpu_torch.sentinel`` as it builds one), wrapped
+    in a ``TickLog`` before it starts ticking: -> the logs, in order."""
+    import clawker_tpu_torch.sentinel as S
+
+    real = S.FleetSentinel
+    logs: list[TickLog] = []
+
+    def make(*args, **kw):
+        sentinel = real(*args, **kw)
+        logs.append(TickLog(sentinel, stages))
+        return sentinel
+
+    S.FleetSentinel = make
+    try:
+        yield logs
+    finally:
+        S.FleetSentinel = real
+
+
+def _chaos_logs_check(name: str, logs: list) -> tuple[collections.Counter,
+                                                      int]:
+    """Each log's ticks: a scored one is one K3 and one K1 on the card, an
+    idle one launches nothing, and each sentinel scored; -> (launches,
+    scored ticks)."""
+    launches = collections.Counter()
+    scored = 0
+    for i, log in enumerate(logs):
+        scored += len(log.check_run(f"{name} sentinel {i}"))
+        launches.update(log.launches())
+    return launches, scored
+
+
+def _decisions() -> float:
+    from clawker_tpu_torch import telemetry
+
+    return sum(r["value"] for r in telemetry.REGISTRY.snapshot()
+               if r["metric"] == "capacity_decisions_total")
+
+
+def chaos_soak_case(base: Path, device, stages: dict):
+    """(a): ``run_soak(4, 20260803, keep_going=True, device=...)``, each
+    scenario's verdict, kills, generations, injections and wall; every
+    scenario holds every invariant (the CPU twins: tests/test_torch_
+    chaos.py), the observe-only twin passes, and every scored tick of the
+    sentinel scenarios and of the twin's sentinel run is one K3 and one
+    K1 on the card."""
+    from clawker_tpu_torch.chaos.runner import run_soak
+    from clawker_tpu_torch.config import load_config
+
+    name = "chaos (a)"
+    rows = []
+    with _isolated_dirs(base, CHAOS_SETTINGS, proxy=False) as proj, \
+            _chaos_tick_logs(stages) as logs:
+        cfg = load_config(proj)
+        t0 = time.perf_counter()
+        report = run_soak(CHAOS_SCENARIOS, CHAOS_SEED, keep_going=True,
+                          shrink=False, cfg=cfg, device=device,
+                          on_progress=rows.append)
+        wall = (time.perf_counter() - t0) * 1e3
+    for r in rows:
+        riders = [k for k in ("sentinel", "workerd", "shipper", "capacity",
+                              "gitguard") if r.plan_doc.get(k)]
+        print(f"{name} scenario {r.scenario}: "
+              f"{'ok' if r.ok else 'FAIL'}, kills {r.kills}, generations "
+              f"{r.generations}, injected {r.injected}, wall {r.wall_s!r} s,"
+              f" riders {riders}, events "
+              f"{[e['kind'] for e in r.plan_doc['events']]}")
+    check(len(rows) == CHAOS_SCENARIOS and all(r.ok for r in rows),
+          f"{name}: failures {report['failures']}")
+    check(report["observe_only"] == {"ok": True, "violations": []},
+          f"{name}: observe-only {report['observe_only']}")
+    sentinels = [r.scenario for r in rows if r.plan_doc.get("sentinel")]
+    check(len(logs) == len(sentinels) + 1,
+          f"{name}: {len(logs)} sentinels for the sentinel scenarios "
+          f"{sentinels} and the twin")
+    launches, scored = _chaos_logs_check(name, logs)
+    print(f"{name}: {report['passed']}/{CHAOS_SCENARIOS} passed, "
+          f"{report['kills']} kills, {report['injected']} injections, soak "
+          f"wall {report['wall_s']!r} s ({wall!r} ms with the twin), "
+          f"observe-only {report['observe_only']}; {scored} scored ticks "
+          f"over {len(logs)} sentinels (scenarios {sentinels} and the twin),"
+          f" launches {json.dumps(launches)}")
+    return launches
+
+
+def chaos_observe_case(device, stages: dict):
+    """(b): ``run_observe_only_check(device=...)`` alone: no violation,
+    and its sentinel scored on the card."""
+    from clawker_tpu_torch.chaos.runner import run_observe_only_check
+
+    name = "chaos (b)"
+    with _chaos_tick_logs(stages) as logs:
+        t0 = time.perf_counter()
+        out = run_observe_only_check(CHAOS_SEED, device=device)
+        wall = (time.perf_counter() - t0) * 1e3
+    check(out == [], f"{name}: observe-only violations {out}")
+    check(len(logs) == 1, f"{name}: {len(logs)} sentinels, want 1")
+    launches, scored = _chaos_logs_check(name, logs)
+    print(f"{name}: observe-only twin check [] in {wall!r} ms, {scored} "
+          f"scored ticks, launches {json.dumps(launches)}")
+    return launches
+
+
+def chaos_riders_case(base: Path, device, stages: dict):
+    """(c): one hand-written plan with every rider of this slice -- the
+    sentinel (an egress flood), capacity (a traffic burst, a scale-down),
+    the shipper (its index down) -- and a ``cli_sigkill`` armed at 0.0 s
+    on ``launch.post_start`` with a torn tail: the scenario holds every
+    invariant, one kill and two generations, the controller's decisions
+    and the shipper's failed flushes and drops counted.  Each iteration
+    holds its container LOOP_ITER_S, so the sentinel scores mid-run."""
+    from clawker_tpu_torch.chaos.plan import FaultEvent, FaultPlan
+    from clawker_tpu_torch.chaos.runner import ChaosRunner
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.fake import exit_behavior
+
+    name = "chaos (c)"
+    plan = FaultPlan(
+        seed=CHAOS_SEED, scenario=99, n_workers=4, n_loops=8, iterations=3,
+        warm_pool_depth=1, sentinel=True, capacity=True, shipper=True,
+        events=[
+            FaultEvent(at_s=0.0, kind="cli_sigkill", worker=-1,
+                       arg="launch.post_start", torn_tail=20),
+            FaultEvent(at_s=0.05, kind="traffic_burst", worker=1, arg=8),
+            FaultEvent(at_s=0.1, kind="index_down", worker=-1),
+            FaultEvent(at_s=0.15, kind="egress_flood", worker=2, arg=100),
+            FaultEvent(at_s=0.2, kind="scale_down", worker=3)])
+    with _isolated_dirs(base, CHAOS_SETTINGS, proxy=False) as proj, \
+            _chaos_tick_logs(stages) as logs:
+        before = _decisions()
+        # iterations of LOOP_ITER_S: the run spans several sentinel ticks
+        runner = ChaosRunner(load_config(proj), plan, device=device,
+                             behavior=exit_behavior(b"", 0,
+                                                    delay=LOOP_ITER_S))
+        res = runner.run_scenario()
+        decisions = _decisions() - before
+        shipped = runner._shipper_audit()
+        state = runner.capacity_ctrl.state()
+    targets = {w: r["pool_target"] for w, r in state["workers"].items()}
+    print(f"{name}: {'ok' if res.ok else 'FAIL'}, kills {res.kills}, "
+          f"generations {res.generations}, injected {res.injected}, wall "
+          f"{res.wall_s!r} s; capacity decisions {decisions!r}, pool "
+          f"targets {targets}, drained {state['autoscale']['drained']}; "
+          f"shipper ingested "
+          f"{shipped['ingested_docs']}, flushed {shipped['flushed_docs']}, "
+          f"dropped {shipped['dropped_docs']}, failed flushes "
+          f"{shipped['failed_flushes']}")
+    check(res.ok, f"{name}: violations {res.violations}")
+    check((res.kills, res.generations) == (1, 2),
+          f"{name}: {res.kills} kills over {res.generations} generations, "
+          "want 1 over 2")
+    check(decisions > 0, f"{name}: the controller decided nothing")
+    check(shipped["down_injected"] and shipped["failed_flushes"] > 0
+          and shipped["dropped_docs"] > 0,
+          f"{name}: the down index cost no failed flush or drop: {shipped}")
+    check(len(logs) == 1, f"{name}: {len(logs)} sentinels, want 1")
+    launches, scored = _chaos_logs_check(name, logs)
+    print(f"{name}: {scored} scored ticks over both generations, launches "
+          f"{json.dumps(launches)}")
+    return launches
+
+
+def chaos_cli_case(base: Path, device: str) -> None:
+    """(d): ``chaos run --scenarios 4 --seed 20260803 --json`` and ``chaos
+    replay --seed 20260803 --scenario 1``, forked, on the card."""
+    name = "chaos (d)"
+    with _isolated_dirs(base, CHAOS_SETTINGS, proxy=False) as proj:
+        env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+                   PYTHONPATH=str(ROOT))
+        run, run_ms = _cli(["chaos", "run", "--scenarios",
+                            str(CHAOS_SCENARIOS), "--seed", str(CHAOS_SEED),
+                            "--json"], proj, env)
+        replay, replay_ms = _cli(["chaos", "replay", "--seed",
+                                  str(CHAOS_SEED), "--scenario", "1"],
+                                 proj, env)
+    check(run.returncode == 0,
+          f"{name}: chaos run exited {run.returncode}: {run.stderr[-2000:]}")
+    doc = json.loads(run.stdout)
+    check(doc["ok"] and doc["passed"] == CHAOS_SCENARIOS
+          and doc["observe_only"] == {"ok": True, "violations": []},
+          f"{name}: chaos run report {doc}")
+    check(replay.returncode == 0 and "ok" in replay.stdout,
+          f"{name}: chaos replay exited {replay.returncode}: "
+          f"{replay.stdout[-500:]} {replay.stderr[-2000:]}")
+    print(f"{name}: chaos run --scenarios {CHAOS_SCENARIOS} exit 0 in "
+          f"{run_ms!r} ms (soak wall {doc['wall_s']!r} s, {doc['kills']} "
+          f"kills, {doc['injected']} injections); chaos replay --scenario 1 "
+          f"exit 0 in {replay_ms!r} ms: {replay.stdout.strip()}")
+
+
+def chaos_loopd_case(base: Path, device, stages: dict):
+    """(e): an in-process ``LoopdServer`` with settings
+    ``capacity.enable``, ``monitoring.shipper.enable`` (into an in-memory
+    index) and ``sentinel.enable`` hosts one run of loop (a)'s shape with
+    a warm pool; the status RPC's ``capacity`` row has ticked, its
+    ``shipper`` row has taken docs, and every scored tick of the daemon
+    sentinel is one K3 and one K1."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.fake import exit_behavior
+    from clawker_tpu_torch.loopd.client import LoopdClient
+    from clawker_tpu_torch.loopd.server import LoopdServer
+    from clawker_tpu_torch.monitor import shipper as shipmod
+    from clawker_tpu_torch.testenv import FakeBulkIndex
+
+    name = "chaos (e)"
+    settings = LOOPD_SETTINGS + (
+        "capacity:\n  enable: true\n  interval_s: 0.05\n"
+        "  pool_max_depth: 2\n"
+        "monitoring:\n  shipper:\n    enable: true\n    interval_s: 0.05\n")
+    index = FakeBulkIndex()
+    real_sink = shipmod.resolve_sink
+    shipmod.resolve_sink = lambda _cfg: index
+    try:
+        with _isolated_dirs(base, settings) as proj:
+            cfg = load_config(proj)
+            drv = FakeDriver(n_workers=LOOP_WORKERS)
+            for api in drv.apis:
+                api.add_image(LOOP_IMAGE)
+                api.set_behavior(LOOP_IMAGE, exit_behavior(
+                    b"iteration done\n", 0, delay=LOOP_ITER_S))
+            srv = LoopdServer(cfg, drv, device=device).start()
+            log = TickLog(srv.sentinel, stages)
+            try:
+                t0 = time.perf_counter()
+                with LoopdClient(srv.sock_path) as c:
+                    c.hello()
+                    ack = c.submit_run({"parallel": LOOP_AGENTS,
+                                        "iterations": LOOP_ITERATIONS,
+                                        "warm_pool_depth": 1})
+                    agents = [f"loop-{ack['run'][:6]}-{i}"
+                              for i in range(LOOP_AGENTS)]
+                    streams = _loop_egress(agents, agents[LOOP_HOT_SLOT],
+                                           time.time())
+                    for wid, recs in streams.items():
+                        _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl",
+                                recs)
+                    final = None
+                    for frame in c.events():
+                        if frame.get("type") == "run_done":
+                            final = frame
+                wall = (time.perf_counter() - t0) * 1e3
+                want = sum(len(v) for v in streams.values())
+                deadline = time.perf_counter() + 10
+                while (srv.sentinel._scored_at[0] < want
+                       and time.perf_counter() < deadline):
+                    time.sleep(LOOP_TICK_S)
+                with LoopdClient(srv.sock_path) as c:
+                    doc = c.status()
+            finally:
+                srv.stop()
+    finally:
+        shipmod.resolve_sink = real_sink
+    check(final and final["ok"], f"{name}: run_done {final}")
+    cap, ship = doc["capacity"], doc["shipper"]
+    check(cap["enabled"] and cap["ticks"] >= 1,
+          f"{name}: status capacity row {cap}")
+    check(ship["enabled"] and ship["ingested_docs"] > 0,
+          f"{name}: status shipper row {ship}")
+    check("capacity_wal" in doc["storage"],
+          f"{name}: status storage row {doc['storage']}")
+    scored = log.check_run(name)
+    launches = log.launches()
+    print(f"{name}: loopd with capacity, the shipper and the sentinel "
+          f"hosted {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations in "
+          f"{wall!r} ms; capacity {cap['ticks']} ticks, pool targets "
+          f"{ {w: r['pool_target'] for w, r in cap['workers'].items()} }; "
+          f"shipper ingested {ship['ingested_docs']}, flushed "
+          f"{ship['flushed_docs']}, index holds "
+          f"{sum(len(v) for v in index.docs.values())}; {len(scored)} scored"
+          f" ticks, launches {json.dumps(launches)}")
+    return launches
+
+
+def chaos_phase(device) -> collections.Counter:
+    """Drives chaos soaks with the capacity and shipper riders and the
+    observe-only twin, the sentinel scoring on the card; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "chaos"
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    with stage_timers({}) as stages:
+        total.update(chaos_soak_case(out / "a", device, stages))
+    with stage_timers({}) as stages:
+        total.update(chaos_observe_case(device, stages))
+    with stage_timers({}) as stages:
+        total.update(chaos_riders_case(out / "c", device, stages))
+    chaos_cli_case(out / "d", device)
+    with stage_timers({}) as stages:
+        total.update(chaos_loopd_case(out / "e", device, stages))
+    no_daemon_left()
+    print(f"chaos launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -4336,6 +4751,8 @@ def main() -> int:
     for k, v in resume_phase(device).items():
         main_path["launches"][k] += v
     for k, v in worktrees_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in chaos_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

@@ -17,10 +17,7 @@ from ``BaseException`` on purpose: the scheduler's own error handling
 (strand/fail accounting) must NOT observe it, because a killed process
 does no accounting.
 
-The port's copy of ``clawker_tpu/chaos/seams.py``, whole.  Of the
-seams below, the port fires loopd's two (``loopd.post_submit``,
-``loopd.post_ack``); the scheduler's wait with the chaos runner
-(ROADMAP §1 item 8).
+The port's copy of ``clawker_tpu/chaos/seams.py``, whole.
 """
 
 from __future__ import annotations

@@ -22,8 +22,13 @@ start|stop|status`` is ``clawker_tpu/cli/cmd_loopd.py``, ``workerd
 start|stop|status`` ``clawker_tpu/cli/cmd_workerd.py``, ``trace``
 ``clawker_tpu/cli/cmd_trace.py`` and ``journal verify [--repair]``
 ``clawker_tpu/cli/cmd_journal.py`` (exit 0 clean, 2 on corruption).
-The device comes from ``CLAWKER_TORCH_DEVICE`` (default ``cuda``);
-``cpu`` runs the plain PyTorch versions.
+``loop`` takes ``--chaos-plan`` (in process only), ``--ship-telemetry``
+and settings ``capacity.enable`` as the reference's does, and ``chaos
+run|replay|plan`` is ``clawker_tpu/cli/cmd_chaos.py``: the soak, whose
+sentinel scenarios and observe-only twin score on the GPU (without one
+``chaos run`` exits 1 before any scenario runs).  The device comes from
+``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the plain
+PyTorch versions.
 """
 
 from __future__ import annotations
@@ -478,10 +483,19 @@ def _not_ported(what: str) -> click.ClickException:
                    "sentinel.enable).")
 @click.option("--ship-telemetry/--no-ship-telemetry", "ship_telemetry",
               default=None,
-              help="Bulk-ship telemetry into the monitor stack (not yet "
-                   "ported: refused).")
+              help="Bulk-ship this run's registry snapshots, typed bus "
+                   "events, and flight spans into the monitor stack's "
+                   "OpenSearch index (default: settings "
+                   "monitoring.shipper.enable).  Bounded backpressure: "
+                   "a slow or down index drops oldest batches, never "
+                   "stalls the run (docs/fleet-console.md#ingestion).")
 @click.option("--chaos-plan", "chaos_plan", type=click.Path(exists=True),
-              default=None, help="Chaos fault plan (not yet ported: refused).")
+              default=None,
+              help="DEV: apply a chaos fault plan (`chaos plan --out`) to "
+                   "this live run -- worker faults where the driver is "
+                   "injectable (fake), cli_sigkill events as a REAL "
+                   "SIGKILL at the named crash seam (crash-test "
+                   "--resume).  In process only.")
 @click.option("--json", "as_json", is_flag=True, help="Final status as JSON.")
 @click.option("--keep", is_flag=True, help="Keep containers after the run.")
 @click.option("--daemon/--no-daemon", "use_daemon", default=None,
@@ -545,8 +559,6 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
             + ("--resume" if resume_run else "--chaos-plan")
             + ": these stay in-process by design (docs/loopd.md "
             "degrade matrix)")
-    if chaos_plan:
-        raise _not_ported("--chaos-plan")
     env = {}
     for kv in env_kv:
         if "=" not in kv:
@@ -599,7 +611,10 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     # executes inside the daemon (shared admission caps + fairness
     # across every concurrent CLI, the daemon's sentinel) and survives
     # this process exiting.  No daemon = the in-process path below.
-    if use_daemon is not False and run_image is None:
+    # --resume and --chaos-plan stay in process: resume reconciles
+    # against a DEAD scheduler's journal, and the chaos controller needs
+    # the scheduler in process to kill it
+    if use_daemon is not False and run_image is None and chaos_plan is None:
         client = ensure_daemon(f)
         if client is not None:
             for flag, note in (
@@ -641,9 +656,6 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         raise _not_ported("the OTLP metrics lane (settings telemetry.otlp)")
     want_ship = (ship_telemetry if ship_telemetry is not None
                  else settings.monitoring.shipper.enable)
-    if want_ship:
-        raise _not_ported("the telemetry shipper (--ship-telemetry, "
-                          "settings monitoring.shipper.enable)")
     # the riders score on the GPU: without one (and without
     # CLAWKER_TORCH_DEVICE=cpu) the run never starts -- a resume never
     # reconciles
@@ -657,9 +669,6 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         click.echo(f"[{agent}] {event}" + (f" {detail}" if detail else ""),
                    err=True)
 
-    if settings.capacity.enable:
-        raise _not_ported("the elastic capacity controller (settings "
-                          "capacity.enable)")
     if run_image is not None:
         executors = _discover_workerd(
             cfg, driver, use_workerd, bool(run_image.spec.get("worktrees")),
@@ -683,6 +692,55 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         if executors is not None:
             executors.close_all()
         raise click.ClickException(str(e))
+    # --- elastic capacity (docs/elastic-capacity.md): for in-process
+    # runs the controller ticks on the scheduler's run thread -- the
+    # same three loops loopd runs daemon-wide.  Settings-driven: a
+    # loopd-hosted run gets the daemon's controller instead.
+    cs = settings.capacity
+    if cs.enable:
+        from .capacity import CapacityController, make_scaler
+
+        try:
+            scaler = (make_scaler(driver, cfg,
+                                  max_workers=cs.autoscale.max_workers)
+                      if cs.autoscale.enable else None)
+        except ClawkerError as e:
+            if executors is not None:
+                executors.close_all()
+            raise click.ClickException(str(e))
+        sched.attach_capacity(CapacityController(cs, scaler=scaler))
+        click.echo("capacity: elastic controller attached (pool "
+                   f"[{cs.pool_min_depth},{cs.pool_max_depth}], "
+                   f"slo={cs.slo.default_s or 'off'}, "
+                   f"autoscale={'on' if cs.autoscale.enable else 'off'})",
+                   err=True)
+    chaos = None
+    if chaos_plan:
+        from .chaos.plan import FaultPlan
+        from .chaos.runner import ChaosController
+
+        try:
+            plan = FaultPlan.load(chaos_plan)
+        except ClawkerError as e:
+            if executors is not None:
+                executors.close_all()
+            raise click.ClickException(str(e))
+        chaos = ChaosController(sched, driver, plan)
+        click.echo(f"chaos: applying {len(plan.events)} event(s) from "
+                   f"{chaos_plan} (seed {plan.seed})", err=True)
+    # --- bulk ingestion into the monitor stack (docs/fleet-console.md):
+    # registry snapshots + typed bus events + flight spans into the
+    # OpenSearch bulk API under bounded batching -- a down index drops
+    # oldest batches, never the run
+    bulk_shipper = None
+    if want_ship:
+        from .monitor.shipper import TelemetryShipper
+
+        bulk_shipper = TelemetryShipper.from_config(
+            cfg, source=f"loop:{sched.loop_id}").start()
+        sched.attach_shipper(bulk_shipper)
+        click.echo("telemetry: shipping into the monitor stack "
+                   "(bounded; see monitor_ingest_* metrics)", err=True)
     # fleet anomaly scoring rides along: scores land in the status JSON
     # and as scheduler events past the threshold.  With --sentinel (or
     # settings sentinel.enable) the single-file AnomalyWatch is replaced
@@ -718,6 +776,11 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
            if spec.warm_pool_depth else "")
         + (" (resumed)" if run_image is not None else ""),
         err=True)
+    # chaos starts BEFORE start()/reconcile(): run.post_placement fires
+    # inside start() and the resume.* seams inside reconcile(), so a
+    # controller started after them could never land those kills
+    if chaos is not None:
+        chaos.start()
     try:
         if run_image is not None:
             summary = sched.reconcile()
@@ -731,7 +794,11 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
             sched.start()
         loops = sched.run()
     finally:
+        if chaos is not None:
+            chaos.stop()
         watch.stop()
+        if bulk_shipper is not None:
+            bulk_shipper.stop()
         if executors is not None:
             executors.close_all()
     if not keep:
@@ -1458,6 +1525,209 @@ def journal_verify(ctx, run, repair, as_json):
                        err=True)
     if not report.ok:
         raise SystemExit(2)
+
+
+# ------------------------------------------------------------------- chaos
+#
+# ``chaos run|replay|plan``: clawker_tpu/cli/cmd_chaos.py.  ``run``
+# resolves the sentinel's device as ``loop`` does (exit 1 before any
+# scenario without a GPU unless CLAWKER_TORCH_DEVICE=cpu); ``replay``
+# does so for a sentinel plan.
+
+
+@cli.group("chaos")
+def chaos_group():
+    """Deterministic chaos injection against the loop scheduler's
+    robustness stack (breakers/failover, journal/--resume, admission,
+    warm pools)."""
+
+
+@chaos_group.command("run")
+@click.option("--scenarios", "-n", type=int, default=None,
+              help="Seeded scenarios to execute "
+                   "(default: settings chaos.scenarios).")
+@click.option("--seed", "-s", type=int, default=None,
+              help="Soak seed: scenario i replays as (seed, i) "
+                   "(default: settings chaos.seed).")
+@click.option("--parallel", "-p", type=int, default=None,
+              help="Agent loops per scenario (default: settings "
+                   "chaos.parallel).")
+@click.option("--workers", "-w", type=int, default=None,
+              help="Fake pod size per scenario (default: settings "
+                   "chaos.workers).")
+@click.option("--iterations", type=int, default=None,
+              help="Iteration budget per loop (default: settings "
+                   "chaos.iterations).")
+@click.option("--keep-going", is_flag=True,
+              help="Run every scenario even after a failure "
+                   "(default: stop and shrink the first).")
+@click.option("--no-shrink", is_flag=True,
+              help="Skip minimal-repro shrinking of failing schedules.")
+@click.option("--json", "as_json", is_flag=True, help="Report as JSON.")
+@click.pass_context
+def chaos_run(ctx, scenarios, seed, parallel, workers, iterations,
+              keep_going, no_shrink, as_json):
+    """Run a seeded chaos soak and audit fleet invariants.
+
+    Every scenario builds a fresh fake pod, executes its generated
+    fault schedule (kill/resume cycles included), and cross-audits
+    engine state vs journal replay vs telemetry.  Exit is non-zero on
+    any invariant violation; the report names the exact
+    ``chaos replay --seed S --scenario I`` repro and, unless
+    --no-shrink, the minimal failing schedule.
+    """
+    from .chaos.runner import run_soak
+
+    f = _factory(ctx)
+    # the sentinel scenarios and the observe-only twin score on the GPU:
+    # without one (and without CLAWKER_TORCH_DEVICE=cpu) no scenario runs
+    device = _device("chaos run")
+    _bring_up("chaos run", device)
+    cs = f.config.settings.chaos
+    scenarios = scenarios if scenarios is not None else cs.scenarios
+    seed = seed if seed is not None else cs.seed
+
+    def progress(result):
+        if not as_json:
+            mark = "ok" if result.ok else "FAIL"
+            click.echo(
+                f"scenario {result.scenario}: {mark} "
+                f"({result.wall_s:.2f}s, {result.injected} fault(s), "
+                f"{result.kills} kill(s), gen {result.generations})",
+                err=True)
+
+    report = run_soak(
+        scenarios, seed,
+        n_workers=workers if workers is not None else cs.workers,
+        n_loops=parallel if parallel is not None else cs.parallel,
+        iterations=(iterations if iterations is not None
+                    else cs.iterations),
+        shrink=not no_shrink, keep_going=keep_going,
+        on_progress=progress, cfg=f.config, device=device)
+    if as_json:
+        click.echo(json.dumps(report, indent=2))
+    else:
+        click.echo(
+            f"chaos: {report['passed']}/{report['scenarios']} scenario(s) "
+            f"passed (seed {report['seed']}, {report['injected']} "
+            f"injection(s), {report['kills']} kill/resume cycle(s), "
+            f"{report['wall_s']}s)")
+        for fail in report["failures"]:
+            click.echo(f"FAILED scenario {fail['scenario']}:", err=True)
+            for v in fail["violations"]:
+                click.echo(f"  - {v}", err=True)
+            click.echo(f"  repro: {fail['repro']}", err=True)
+            if "minimal_plan" in fail:
+                click.echo("  minimal schedule: "
+                           + json.dumps(fail["minimal_plan"]["events"]),
+                           err=True)
+    if not report["ok"]:
+        raise SystemExit(1)
+
+
+@chaos_group.command("replay")
+@click.option("--seed", "-s", type=int, default=None,
+              help="Seed of the soak that found the failure.")
+@click.option("--scenario", "-i", type=int, default=0,
+              help="Scenario index within the soak (default 0).")
+@click.option("--workers", "-w", type=int, default=None,
+              help="Fleet shape of the soak that found the failure "
+                   "(default: settings chaos.workers).")
+@click.option("--parallel", "-p", type=int, default=None,
+              help="Loops per scenario of that soak (default: settings "
+                   "chaos.parallel).")
+@click.option("--iterations", type=int, default=None,
+              help="Iteration budget of that soak (default: settings "
+                   "chaos.iterations).")
+@click.option("--plan", "plan_file", type=click.Path(exists=True),
+              default=None,
+              help="Replay a saved plan JSON instead of (seed, scenario).")
+@click.option("--json", "as_json", is_flag=True, help="Result as JSON.")
+@click.pass_context
+def chaos_replay(ctx, seed, scenario, workers, parallel, iterations,
+                 plan_file, as_json):
+    """Deterministically re-execute one scenario.
+
+    Either --seed/--scenario (regenerates the exact schedule the soak
+    ran -- pass the soak's --workers/--parallel/--iterations too if it
+    used a non-default fleet shape, as the schedule depends on it) or
+    --plan FILE (a saved or hand-edited schedule).  Exit is non-zero
+    when an invariant is violated.
+    """
+    from .chaos.plan import FaultPlan, generate_plan
+    from .chaos.runner import run_plan
+
+    f = _factory(ctx)
+    cs = f.config.settings.chaos
+    if plan_file is not None:
+        plan = FaultPlan.load(plan_file)
+    elif seed is not None:
+        plan = generate_plan(
+            seed, scenario,
+            n_workers=workers if workers is not None else cs.workers,
+            n_loops=parallel if parallel is not None else cs.parallel,
+            iterations=(iterations if iterations is not None
+                        else cs.iterations))
+    else:
+        raise click.UsageError("need --seed (with --scenario) or --plan")
+    # a sentinel plan scores on the GPU: without one (and without
+    # CLAWKER_TORCH_DEVICE=cpu) it exits 1 before the scenario runs
+    kw = {}
+    if plan.sentinel:
+        kw["device"] = _device("chaos replay")
+        _bring_up("chaos replay", kw["device"])
+    result = run_plan(plan, cfg=f.config, **kw)
+    if as_json:
+        click.echo(json.dumps({**result.to_doc(),
+                               "plan": plan.to_doc()}, indent=2))
+    else:
+        click.echo(f"scenario ({plan.seed}, {plan.scenario}): "
+                   + ("ok" if result.ok else "FAILED"))
+        for v in result.violations:
+            click.echo(f"  - {v}", err=True)
+    if not result.ok:
+        raise SystemExit(1)
+
+
+@chaos_group.command("plan")
+@click.option("--seed", "-s", type=int, required=True,
+              help="Soak seed to generate from.")
+@click.option("--scenario", "-i", type=int, default=0,
+              help="Scenario index (default 0).")
+@click.option("--workers", "-w", type=int, default=None,
+              help="Fleet shape the soak used (default: settings "
+                   "chaos.workers; the schedule depends on it).")
+@click.option("--parallel", "-p", type=int, default=None,
+              help="Loops per scenario (default: settings chaos.parallel).")
+@click.option("--iterations", type=int, default=None,
+              help="Iteration budget (default: settings chaos.iterations).")
+@click.option("--out", "out_file", type=click.Path(), default=None,
+              help="Write the plan JSON here instead of stdout "
+                   "(editable; replay with --plan).")
+@click.pass_context
+def chaos_plan(ctx, seed, scenario, workers, parallel, iterations,
+               out_file):
+    """Print (or save) the fault schedule for one (seed, scenario).
+
+    The schedule is exactly what ``chaos run``/``chaos replay`` would
+    execute under the same fleet shape -- save it, edit the events, and
+    replay the edited plan to bisect a failure by hand.
+    """
+    from .chaos.plan import generate_plan
+
+    f = _factory(ctx)
+    cs = f.config.settings.chaos
+    plan = generate_plan(
+        seed, scenario,
+        n_workers=workers if workers is not None else cs.workers,
+        n_loops=parallel if parallel is not None else cs.parallel,
+        iterations=(iterations if iterations is not None
+                    else cs.iterations))
+    if out_file:
+        path = plan.save(out_file)
+        click.echo(f"wrote {path}")
+    else:
+        click.echo(plan.to_json(), nl=False)
 
 
 def ensure_daemon(f: Factory):

@@ -1,10 +1,6 @@
 """Durable run journal: the loop scheduler's write-ahead log.
 
-The port's copy of ``clawker_tpu/loop/journal.py``, whole.  The
-capacity controller's record kinds (``REC_CAPACITY_*``, from
-``clawker_tpu/capacity/controller.py``) are constants here, so a journal
-either package wrote replays the same; the controller itself waits
-(ROADMAP §1).
+The port's copy of ``clawker_tpu/loop/journal.py``, whole.
 
 The scheduler's whole fleet state -- placements, iteration counts, exit
 histories -- used to live in one CLI process: a killed ``clawker loop``
@@ -58,6 +54,12 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 from .. import telemetry
+from ..capacity import (
+    REC_CAPACITY_POOL,
+    REC_CAPACITY_QUEUE,
+    REC_CAPACITY_SCALE,
+    REC_CAPACITY_TOKENS,
+)
 from ..errors import ClawkerError
 from ..monitor.ledger import (
     IntegrityReport,
@@ -66,12 +68,6 @@ from ..monitor.ledger import (
     read_jsonl,
     read_verified_prefix,
 )
-
-# the capacity controller's record kinds (clawker_tpu/capacity/controller.py)
-REC_CAPACITY_POOL = "capacity_pool"      # adaptive pool target changed
-REC_CAPACITY_TOKENS = "capacity_tokens"  # SLO-scaled token cap changed
-REC_CAPACITY_QUEUE = "capacity_queue"    # queue mode flip (reject|queue)
-REC_CAPACITY_SCALE = "capacity_scale"    # fleet provision/drain decision
 
 # storage-fault telemetry (docs/durability.md, docs/telemetry.md): the
 # no-silent-drop invariant audits these -- any dropped or poisoned

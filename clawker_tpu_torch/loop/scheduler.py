@@ -103,15 +103,13 @@ adopt intent that hands workerd a reconciled container), and so is the
 worktree swarm (``worktrees=True``: one linked worktree and branch per
 agent, journaled write-ahead; the merge queue landing agent branches on
 the run's integration branch; gitguard, the git-protocol proxy with its
-run-scoped egress rules; all three re-attached by a resume).  What
-waits for its slice (ROADMAP §1) is refused with a named
-:class:`ConfigError` and has no code path here: the scheduler's chaos
-seams (item 8: ``seams`` is the never-armed ``NULL_SEAMS`` that the
-pool, the reconcile and the workerd executors fire into) and the
-elastic capacity controller
-(:meth:`LoopScheduler.attach_capacity`, item 9; with none attached,
-the capacity-state restore of a resume is a no-op, as in the
-reference).
+run-scoped egress rules; all three re-attached by a resume).  So are
+the chaos crash seams (``seams=``, a
+:class:`~clawker_tpu_torch.chaos.seams.SeamRegistry`, fired at the
+reference's journaled boundaries), the elastic capacity controller
+(:meth:`LoopScheduler.attach_capacity`, restored from
+``RunImage.capacity`` on a resume and ticked on the run thread) and the
+telemetry shipper (:meth:`LoopScheduler.attach_shipper`).
 """
 
 from __future__ import annotations
@@ -130,13 +128,15 @@ from pathlib import Path
 
 from .. import consts, logsetup, telemetry
 from ..agentd.protocol import b64
+from ..capacity import CapacityHooks
 from ..chaos.seams import NULL_SEAMS
 from ..config import Config
 from ..engine.drivers import RuntimeDriver, Worker
-from ..errors import ClawkerError, ConfigError, DriverError, NotFoundError
+from ..errors import ClawkerError, DriverError, NotFoundError
 from ..fleet.inventory import pod_topology
 from ..health import BREAKER_CLOSED, BREAKER_OPEN, HealthConfig, HealthMonitor
 from ..monitor.events import (
+    CAPACITY_DECISION,
     GITGUARD_DECISION,
     PLACEMENT_DECISION,
     STORAGE_FAULT,
@@ -200,6 +200,7 @@ from .journal import (
     RunImage,
     RunJournal,
     journal_path,
+    replay,
     retention_gc,
 )
 from .mergeq import MergeQueue
@@ -457,7 +458,8 @@ class LoopScheduler:
                  *, on_event=None, health_config: HealthConfig | None = None,
                  run_id: str | None = None,
                  admission: AdmissionController | None = None,
-                 lanes: LaneRegistry | None = None, executors=None):
+                 lanes: LaneRegistry | None = None,
+                 seams=None, executors=None):
         if spec.failover not in FAILOVER_POLICIES:
             raise ClawkerError(
                 f"loop: unknown failover policy {spec.failover!r} "
@@ -547,6 +549,9 @@ class LoopScheduler:
         # loopd stamps it on the spec for federated runs.  0 = this
         # process IS the root clock.
         self._trace_offset_s = float(spec.clock_offset_s or 0.0)
+        self._span_sinks: list = []     # extra structured-span consumers
+        #                                 (the monitor shipper); tee'd in
+        #                                 _record_span, never load-bearing
         self._queue_wait: dict[str, float] = {}   # agent -> launch queue s
         self._iter_started: dict[tuple[str, int], float] = {}  # wait-span t0
         # --- durability: the write-ahead run journal (docs/loop-resume.md).
@@ -604,10 +609,12 @@ class LoopScheduler:
                 max_age_s=wps.max_age_s, journal=self._journal)
             self.admission.register_tenant(
                 self.warmpool.tenant, weight=wps.tenant_weight)
-        # the named crash seams (docs/chaos.md): never armed until the
-        # chaos runner is ported; the pool (pool.*), the reconcile
-        # (resume.*) and the workerd executors fire into them
-        self.seams = NULL_SEAMS
+        # --- chaos (docs/chaos.md): the named crash-seam registry.  The
+        # scheduler FIRES seams at journaled transition boundaries; the
+        # default registry is never armed and fire() is a no-op check.
+        # Chaos tests / `chaos run` arm hooks that kill() + abort
+        # mid-flight -- the enumerable replacement for ad-hoc stubbing.
+        self.seams = seams if seams is not None else NULL_SEAMS
         # --- workerd (docs/workerd.md): the WorkerExecutor seam.  An
         # ExecutorSet maps workers to live channels into their
         # worker-resident launch daemons: dispatch sends batched intents
@@ -625,6 +632,11 @@ class LoopScheduler:
         if executors is not None:
             executors.bind(self)
         self._remote_exits: queue.SimpleQueue = queue.SimpleQueue()
+        # --- elastic capacity (docs/elastic-capacity.md): the rank-2
+        # controller attached via attach_capacity; ticked on the run
+        # thread for in-process (--no-daemon) runs, exactly like the
+        # pool tick.  None = every capacity knob stays static.
+        self.capacity = None
         self._placed_workers: set[str] = set()  # every worker a launch or
         #                           refill was EVER submitted to: the
         #                           cleanup sweep set
@@ -690,6 +702,16 @@ class LoopScheduler:
             else:
                 self.flight.append(rec.to_json())
         self.events.emit(rec.agent, TRACE_SPAN, rec.detail())
+        if (self.pressure is not None
+                and self.pressure.is_shedding("shipper")
+                and self._span_sinks):
+            note_shed("shipper", len(self._span_sinks))
+            return
+        for sink in self._span_sinks:
+            try:
+                sink(rec)
+            except Exception:   # noqa: BLE001 -- telemetry never raises
+                pass            # into the scheduler hot path
 
     def _journal(self, kind: str, *, durable: bool = False,
                  **fields) -> AppendReceipt:
@@ -813,12 +835,79 @@ class LoopScheduler:
                           flight=self.flight)
 
     def attach_capacity(self, controller) -> None:
-        """The elastic-capacity controller is not ported yet (ROADMAP
-        §1): refused, never attached half-way."""
-        raise ConfigError(
-            "loop: the elastic capacity controller (attach_capacity, "
-            "settings capacity.enable) is not yet ported to "
-            "clawker_tpu_torch")
+        """Wire the elastic-capacity controller
+        (:class:`~clawker_tpu_torch.capacity.CapacityController`,
+        docs/elastic-capacity.md) to this run's surfaces.
+
+        The controller is rank-2 and never imports the scheduler: it
+        acts through callables over the warm pool's per-worker targets,
+        the admission controller's token caps and queue mode, this
+        run's write-ahead journal (``REC_CAPACITY_*`` records), and the
+        event bus (typed ``capacity.decision`` events).  The drain gate
+        is a literal journal replay -- a scale-down can only fire once
+        this run's WAL proves zero live placements (loops or pool
+        members) on the victim.  A resumed run restores the journaled
+        controller state before the first tick."""
+        if self.warmpool is None and not self._bind_worktrees():
+            # adaptive sizing needs a pool to size, even when the run
+            # was configured depth-0: targets start at zero and only
+            # the controller raises them
+            wps = self.cfg.settings.loop.warm_pool
+            self.warmpool = WarmPool(
+                self.loop_id, depth=0, max_age_s=wps.max_age_s,
+                journal=self._journal)
+            self.admission.register_tenant(
+                self.warmpool.tenant, weight=wps.tenant_weight)
+        wp = self.warmpool
+        controller.bind(CapacityHooks(
+            workers=lambda: [w.id for w in self.driver.workers()
+                             if w.engine is not None],
+            admission_stats=self.admission.stats,
+            set_token_cap=self.admission.set_worker_capacity,
+            set_shed=self.admission.set_shed,
+            pool_stats=wp.stats if wp is not None else None,
+            set_pool_target=wp.set_target if wp is not None else None,
+            live_placements=self._journaled_live_placements,
+            journal=self._journal,
+            emit=lambda ev: self.on_event(
+                "capacity", CAPACITY_DECISION, ev.detail()),
+        ))
+        self.capacity = controller
+        if self._image is not None and self._image.capacity:
+            controller.restore(self._image.capacity)
+
+    def _journaled_live_placements(self, worker_id: str) -> int:
+        """Live placements on ``worker_id`` according to this run's
+        write-ahead journal -- the scale-down gate.  A drain decision
+        reads the REPLAYED journal, not in-memory loop state, so the
+        proof is exactly what a post-crash resume would reconstruct: a
+        journaled run can never be stranded by a drain its own WAL
+        didn't authorize.  With journaling disabled, the live loop
+        table is the (weaker) fallback."""
+        if self.journal is None:
+            return sum(
+                1 for l in self.loops
+                if l.worker.id == worker_id
+                and l.status in ("pending", "running", "orphaned"))
+        self.journal.sync()
+        image = replay(RunJournal.read(self.journal.path))
+        live = sum(1 for li in image.loops.values()
+                   if li.worker == worker_id
+                   and li.status not in ("done", "failed"))
+        live += sum(1 for m in image.pool.values()
+                    if m.worker == worker_id
+                    and m.state in ("pending", "ready"))
+        return live
+
+    def attach_shipper(self, shipper) -> None:
+        """Attach a :class:`~clawker_tpu_torch.monitor.shipper.
+        TelemetryShipper`: this run's typed bus events and completed
+        spans flow into its bounded batches tagged with the run id.
+        Strictly observe-only and non-blocking by the shipper's intake
+        contract -- a slow or down index can never stall the bus or a
+        lane (docs/fleet-console.md#degrade-matrix)."""
+        self.events.add_tap(shipper.bus_tap_for(self.loop_id))
+        self._span_sinks.append(shipper.span_sink_for(self.loop_id))
 
     # -------------------------------------------------------------- set up
 
@@ -1068,6 +1157,7 @@ class LoopScheduler:
         Returns the handle future the admission release rides, or None
         to fall back to the direct lane (restart with no container --
         the epoch moved under us)."""
+        self.seams.fire("workerd.pre_dispatch")
         if restart:
             with self._placement_lock:
                 if loop.epoch != epoch or self._stop.is_set():
@@ -1083,6 +1173,7 @@ class LoopScheduler:
         # launch: create + first start.  Warm-pool checkout stays
         # scheduler-side (bookkeeping); the engine-side adoption runs
         # worker-resident, falling back to a cold create there.
+        self.seams.fire("launch.pre_create")
         if self.spec.worktrees and loop.worktree is None:
             # snapshot-mode worktree dispatch: the branch + worktree
             # identity lives HOST-side (the merge queue lands it); only
@@ -1134,6 +1225,7 @@ class LoopScheduler:
             REC_CREATED, durable=True, agent=loop.agent,
             worker=worker.id, epoch=epoch, cid=cid,
             pool=pool_hit), "created")
+        self.seams.fire("launch.post_create")
         with self._placement_lock:
             if loop.epoch != epoch or self._stop.is_set():
                 # orphaned while the create was remote: leftover for
@@ -1165,6 +1257,7 @@ class LoopScheduler:
             loop.strands = 0        # the placement genuinely works
         self._journal(REC_STARTED, agent=loop.agent, worker=worker.id,
                       epoch=epoch, iteration=loop.iteration)
+        self.seams.fire("launch.post_start")
         now = self.tracer.now()
         self.tracer.child(loop.agent, loop.iteration, SPAN_START,
                           now - ms / 1000.0, now, worker=worker.id,
@@ -1277,7 +1370,11 @@ class LoopScheduler:
             if (self.health is not None
                     and self.health.state(worker.id) != BREAKER_CLOSED):
                 continue
-            while wp.want(worker.id) > 0:
+            # a stop or kill() that lands mid-loop cancels each fill at
+            # admission, which releases its reservation at once: without
+            # the stop check, want() stays > 0 and the run thread spins
+            # here (the reference's loop does; the chaos kills find it)
+            while not self._stop.is_set() and wp.want(worker.id) > 0:
                 pool_agent = wp.begin_refill(worker)
                 if pool_agent is None:
                     break
@@ -1785,6 +1882,7 @@ class LoopScheduler:
         # agent's very first iteration must already find ssh/git-proto
         # denied and the guarded smart-HTTP lane the only git path
         self._gitguard_setup()
+        self.seams.fire("run.post_placement")
         for loop in self.loops:
             note_decision(self.policy.name, loop.worker.id)
             self.on_event(loop.agent, PLACEMENT_DECISION, PlacementEvent(
@@ -1833,7 +1931,7 @@ class LoopScheduler:
                orphan_grace_s: float | None = None,
                telemetry: bool = True,
                admission: AdmissionController | None = None,
-               executors=None) -> "LoopScheduler":
+               seams=None, executors=None) -> "LoopScheduler":
         """Rebuild a scheduler from a replayed run journal.
 
         The journal is the authority for the run's SHAPE (slot count,
@@ -1875,7 +1973,7 @@ class LoopScheduler:
         )
         sched = cls(cfg, driver, spec, on_event=on_event,
                     health_config=health_config, run_id=image.run_id,
-                    admission=admission, executors=executors)
+                    admission=admission, seams=seams, executors=executors)
         sched._image = image
         # seed provisioning replays as DEDUP state, not as work: a
         # journaled digest is never re-journaled, and a journaled
@@ -2384,6 +2482,7 @@ class LoopScheduler:
         # create below, transparently.
         cid = ""
         pool_hit = False
+        self.seams.fire("launch.pre_create")
         with self._engine_ctx(loop):
             if self.warmpool is not None and worker.engine is not None:
                 entry = self.warmpool.checkout(worker.id, by=loop.agent,
@@ -2413,6 +2512,7 @@ class LoopScheduler:
             REC_CREATED, durable=True, agent=loop.agent,
             worker=worker.id, epoch=epoch, cid=cid,
             pool=pool_hit), "created")
+        self.seams.fire("launch.post_create")
         with self._placement_lock:
             if loop.epoch != epoch:
                 # orphaned mid-create: the new placement owns the loop
@@ -2471,6 +2571,7 @@ class LoopScheduler:
             self._write_iteration(loop, engine, cid)
         except ClawkerError:
             pass  # state file is advisory; the loop itself is not
+        self.seams.fire("launch.pre_start")
         with self._engine_ctx(loop):
             if fresh:
                 # first start of THIS container (iteration 0, or the first
@@ -2499,6 +2600,7 @@ class LoopScheduler:
         # reconcile pass adopts at this same iteration anyway
         self._journal(REC_STARTED, agent=loop.agent, worker=worker.id,
                       epoch=epoch, iteration=loop.iteration)
+        self.seams.fire("launch.post_start")
         now = self.tracer.now()
         self.tracer.child(loop.agent, loop.iteration, SPAN_START,
                           t_start, now, worker=worker.id)
@@ -2617,6 +2719,7 @@ class LoopScheduler:
         # replay only needs record ORDER, which is preserved
         self._journal(REC_EXITED, agent=loop.agent, iteration=finished,
                       code=code)
+        self.seams.fire("iteration.post_exit")
         if (self.mergeq is not None and code == 0
                 and loop.agent in self._branches):
             # iteration end: the agent's branch holds this iteration's
@@ -2788,6 +2891,11 @@ class LoopScheduler:
                 self.admission.sweep()
                 self._pool_tick()
                 self._merge_tick()
+                if self.capacity is not None:
+                    # elastic capacity rides the run thread at its own
+                    # interval (docs/elastic-capacity.md); in loopd the
+                    # daemon ticks one controller across hosted runs
+                    self.capacity.maybe_tick()
                 if self.pressure is not None:
                     # disk-pressure ladder rides the run thread at its
                     # own statvfs cadence (docs/durability.md#ladder)

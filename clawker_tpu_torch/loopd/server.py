@@ -50,10 +50,13 @@ factory made for its hosted runs) besides the reference's resolution,
 so a fake pod's workers read ``live`` / ``degraded`` where the
 reference's, which passes no socket map, read ``absent``.
 
-What waits for its slice is refused by name: the capacity controller
-(settings ``capacity.enable``, ROADMAP §1 item 9), the telemetry shipper
-and the metrics server (settings ``monitoring.shipper.enable`` and a
-metrics port, §1 item 10) raise a :class:`ConfigError` at start.
+The daemon-lifetime riders of the reference come up as its do, and a
+rider that fails to start is logged and left out: the telemetry shipper
+(settings ``monitoring.shipper.enable``) and the elastic capacity
+controller (settings ``capacity.enable``, with its own ``loopd-capacity``
+WAL and tick thread); the status RPC carries their ``shipper`` and
+``capacity`` rows.  The metrics server (a metrics port, ROADMAP §1 item
+10) waits for its slice and raises a :class:`ConfigError` at start.
 Worktree specs run as the reference's do: the scheduler provisions the
 worktrees, lands the branches through its merge queue and arms gitguard,
 and the status RPC's ``gitguard`` row is the run's
@@ -62,8 +65,8 @@ shared logs dir and resumes it here (``LoopScheduler.resume`` +
 ``reconcile`` on the drive thread), and hosted runs take
 ``warm_pool_depth``.  Hosted runs dispatch through workerd when
 ``executors=`` is given (a set, or a factory called once per hosted run
-and closed after it); the scheduler's own chaos seams wait for §1 item
-8 (the daemon fires its two).
+and closed after it); the daemon's ``seams`` registry reaches its hosted
+schedulers.
 """
 
 from __future__ import annotations
@@ -315,6 +318,14 @@ class LoopdServer:
                               else cfg.settings.loopd.metrics_port)
         self.sentinel = None        # daemon-lifetime FleetSentinel when
         #                             settings sentinel.enable
+        self.shipper = None         # daemon-lifetime TelemetryShipper when
+        #                             settings monitoring.shipper.enable
+        self.capacity = None        # daemon-lifetime CapacityController
+        #                             when settings capacity.enable
+        #                             (docs/elastic-capacity.md)
+        self._capacity_journal = None   # the daemon's own capacity WAL:
+        #                             durable scale intents land here even
+        #                             with zero hosted runs to fan out to
         # distributed tracing (docs/tracing.md): daemon-lifetime recorder
         # for ``loopd.submit`` hop spans -- one file per pod, every hosted
         # run's hop in it (the merge filters by trace id)
@@ -386,6 +397,8 @@ class LoopdServer:
         self.health = HealthMonitor(self.driver)
         self.health.start()
         self._start_sentinel()
+        self._start_shipper()
+        self._start_capacity()
         if self.pressure is not None:
             threading.Thread(target=self._pressure_loop, daemon=True,
                              name="loopd-pressure").start()
@@ -397,21 +410,14 @@ class LoopdServer:
         return self
 
     def _refuse_unported(self) -> None:
-        """The daemon riders the port does not carry yet, each named
-        only when settings (or the ``metrics_port`` argument) ask for
-        it."""
-        st = self.cfg.settings
-        for on, what, item in (
-                (st.capacity.enable, "the elastic capacity controller "
-                 "(settings capacity.enable)", 9),
-                (st.monitoring.shipper.enable, "the telemetry shipper "
-                 "(settings monitoring.shipper.enable)", 10),
-                (self._metrics_port, "the metrics server (settings "
-                 "loopd.metrics_port)", 10)):
-            if on:
-                raise ConfigError(
-                    f"loopd: {what} is not yet ported to clawker_tpu_torch "
-                    f"(ROADMAP §1 item {item})")
+        """The daemon rider the port does not carry yet, named only when
+        the ``metrics_port`` argument (settings ``loopd.metrics_port``)
+        asks for it."""
+        if self._metrics_port:
+            raise ConfigError(
+                "loopd: the metrics server (settings loopd.metrics_port) "
+                "is not yet ported to clawker_tpu_torch (ROADMAP §1 item "
+                "10)")
 
     def _bring_up(self) -> None:
         """With settings ``sentinel.enable``: resolve the sentinel's
@@ -456,6 +462,167 @@ class LoopdServer:
         self.sentinel.start()
         log.info("loopd sentinel up on %s (interval %.1fs)", self.device,
                  ss.interval_s)
+
+
+    def _start_shipper(self) -> None:
+        """Bring up the daemon-lifetime fleet-telemetry shipper when
+        settings ``monitoring.shipper.enable`` is set: every hosted
+        run's typed events + spans, plus periodic registry snapshots,
+        batch into the monitor stack's bulk API
+        (docs/fleet-console.md#ingestion).  Failure degrades to no
+        shipper -- indexing is a rider, never the daemon's job."""
+        if not self.cfg.settings.monitoring.shipper.enable:
+            return
+        try:
+            from ..monitor.shipper import TelemetryShipper
+
+            self.shipper = TelemetryShipper.from_config(
+                self.cfg, source=f"loopd:{os.getpid()}").start()
+            log.info("loopd shipper up (interval %.1fs)",
+                     self.shipper.interval_s)
+        except Exception:           # noqa: BLE001 -- observe-only rider
+            log.exception("loopd shipper failed to start; continuing")
+            self.shipper = None
+
+    def _start_capacity(self) -> None:
+        """Bring up the daemon-lifetime elastic-capacity controller
+        when settings ``capacity.enable`` is set
+        (docs/elastic-capacity.md).  The controller governs the
+        DAEMON's shared admission buckets and every live hosted run's
+        warm pool: pool targets split across pooled runs, journal
+        records fan out to each live run's WAL (so any of them resumes
+        the controller state), and the drain gate is the max of every
+        live run's journal-replay count -- a drain fires only when NO
+        hosted run has a live placement on the victim.  Failure
+        degrades to static capacity -- supervision, not scaling, is the
+        daemon's job."""
+        cs = self.cfg.settings.capacity
+        if not cs.enable:
+            return
+        try:
+            from ..capacity import (
+                CapacityController,
+                CapacityHooks,
+                make_scaler,
+            )
+            from ..loop.journal import RunJournal, journal_path
+
+            # the daemon's own capacity WAL: decisions fan out to every
+            # live run's journal, but with ZERO hosted runs a durable
+            # provision/drain intent must still land SOMEWHERE before
+            # the scaler acts -- an idle daemon deleting a VM with no
+            # auditable intent would break exactly the write-ahead
+            # promise the controller makes
+            self._capacity_journal = RunJournal(
+                journal_path(self.cfg.logs_dir, "loopd-capacity"),
+                on_fault=lambda f: log.warning(
+                    "loopd capacity WAL fault: op=%s recovered=%s "
+                    "dropped=%d %s", f.op, f.recovered, f.dropped, f.error))
+            scaler = (make_scaler(self.driver, self.cfg,
+                                  max_workers=cs.autoscale.max_workers)
+                      if cs.autoscale.enable else None)
+            self.capacity = CapacityController(
+                cs, hooks=self._capacity_hooks(CapacityHooks),
+                scaler=scaler)
+            threading.Thread(target=self._capacity_loop, daemon=True,
+                             name="loopd-capacity").start()
+            log.info("loopd capacity controller up (interval %.1fs)",
+                     cs.interval_s)
+        except Exception:       # noqa: BLE001 -- elastic is a rider
+            log.exception("loopd capacity controller failed to start")
+            self.capacity = None
+
+    def _live_scheds(self) -> list:
+        with self._runs_lock:
+            return [r.sched for r in self.runs.values()
+                    if not r.done.is_set() and r.sched is not None]
+
+    def _capacity_hooks(self, hooks_cls):
+        def pooled():
+            return [s for s in self._live_scheds() if s.warmpool is not None]
+
+        def pool_stats() -> dict:
+            agg: dict = {"workers": {}}
+            for sched in pooled():
+                for wid, row in sched.warmpool.stats()["workers"].items():
+                    cur = agg["workers"].setdefault(
+                        wid, {"ready": 0, "inflight": 0, "target": 0})
+                    cur["ready"] += row.get("ready", 0)
+                    cur["inflight"] += row.get("inflight", 0)
+                    cur["target"] += row.get("target", 0)
+            return agg
+
+        def set_pool_target(wid: str, target: int) -> None:
+            runs = pooled()
+            if not runs:
+                return
+            # the fleet-wide target splits across pooled runs (their
+            # arrival counters all feed the same registry): floor plus
+            # one-each of the remainder, so the sum equals the
+            # controller's ask exactly -- a ceil-everywhere split would
+            # overshoot by up to len(runs)-1 idle containers per worker
+            target = max(0, int(target))
+            base, extra = divmod(target, len(runs))
+            for i, sched in enumerate(runs):
+                sched.warmpool.set_target(wid, base + (1 if i < extra
+                                                       else 0))
+
+        def live_placements(wid: str) -> int:
+            return sum(s._journaled_live_placements(wid)
+                       for s in self._live_scheds())
+
+        def journal(kind: str, *, durable: bool = False, **fields):
+            # the daemon WAL first (it exists even with zero hosted
+            # runs), then fan out so every run's --resume can restore
+            # the controller state.  The daemon-WAL receipt is the
+            # return value: it is the one that must be durable before
+            # the scaler may act (controller consumes it)
+            rcpt = None
+            if self._capacity_journal is not None:
+                rcpt = self._capacity_journal.append(kind, durable=durable,
+                                                     **fields)
+            for sched in self._live_scheds():
+                sched._journal(kind, durable=durable, **fields)
+            return rcpt
+
+        def emit(ev) -> None:
+            from ..monitor.events import CAPACITY_DECISION
+
+            for sched in self._live_scheds():
+                sched.on_event("capacity", CAPACITY_DECISION, ev.detail())
+
+        return hooks_cls(
+            workers=lambda: [w.id for w in self.driver.workers()
+                             if w.engine is not None],
+            admission_stats=self.admission.stats,
+            set_token_cap=self.admission.set_worker_capacity,
+            set_shed=self.admission.set_shed,
+            pool_stats=pool_stats,
+            set_pool_target=set_pool_target,
+            live_placements=live_placements,
+            journal=journal,
+            emit=emit,
+        )
+
+    def _pressure_loop(self) -> None:
+        """Tick the daemon disk-pressure ladder at its own cadence."""
+        monitor = self.pressure
+        while not self._stop.wait(monitor.check_interval_s):
+            try:
+                monitor.tick()
+            except Exception:   # noqa: BLE001 -- pressure must never
+                log.exception("pressure tick failed")   # kill the daemon
+
+    def _capacity_loop(self) -> None:
+        interval = max(0.05, self.cfg.settings.capacity.interval_s)
+        while not self._stop.wait(interval):
+            controller = self.capacity
+            if controller is None:
+                return
+            try:
+                controller.tick()
+            except Exception:   # noqa: BLE001 -- a bad tick must never
+                log.exception("capacity tick failed")  # kill the loop
 
     def _pressure_loop(self) -> None:
         """Tick the daemon disk-pressure ladder at its own cadence."""
@@ -513,6 +680,10 @@ class LoopdServer:
             self.health.stop()
         if self.sentinel is not None:
             self.sentinel.stop()
+        if self.shipper is not None:
+            self.shipper.stop()
+        if self._capacity_journal is not None:
+            self._capacity_journal.close()
         if self.flight is not None:
             self.flight.close()
         self.lanes.close_all()
@@ -541,6 +712,8 @@ class LoopdServer:
             self.health.stop()
         if self.sentinel is not None:
             self.sentinel.kill_collector()
+        if self.shipper is not None:
+            self.shipper.kill()
         if self.flight is not None:
             # the recorder FILE stays behind: a killed pod's submit
             # spans are exactly the surviving trace evidence the merge
@@ -999,6 +1172,7 @@ class LoopdServer:
                     on_event=on_event,
                     orphan_grace_s=run.adopt_orphan_grace_s,
                     admission=self.admission,
+                    seams=self.seams,
                     executors=execset)
             else:
                 sched = LoopScheduler(self.cfg, self.driver, run.spec,
@@ -1006,6 +1180,7 @@ class LoopdServer:
                                       run_id=run.run_id,
                                       admission=self.admission,
                                       lanes=self.lanes,
+                                      seams=self.seams,
                                       executors=execset)
             run.sched = sched
             if self.sentinel is not None:
@@ -1013,6 +1188,11 @@ class LoopdServer:
                 # sentinel's behavioral features (observe-only: the tap
                 # reads records, the sentinel holds no scheduler ref)
                 sched.events.add_tap(self.sentinel.behavior)
+            if self.shipper is not None:
+                # typed events + spans into the monitor stack, tagged
+                # with this run id (bounded intake: a down index can
+                # never stall the bus -- docs/fleet-console.md)
+                sched.attach_shipper(self.shipper)
             if self._aborted:
                 sched.kill()        # kill() raced the construction
                 return
@@ -1178,11 +1358,18 @@ class LoopdServer:
             return {}           # never break the status RPC
 
     def _storage_stats(self) -> dict:
-        """Daemon-level storage health: the disk-pressure ladder
-        (per-run journal health rides each run's ``status_doc``; the
-        capacity WAL comes with the capacity controller)."""
-        return {"pressure": (self.pressure.summary()
-                             if self.pressure is not None else None)}
+        """Daemon-level storage health: the disk-pressure ladder plus
+        the daemon's own capacity WAL (per-run journal health rides
+        each run's ``status_doc``)."""
+        doc: dict = {"pressure": (self.pressure.summary()
+                                  if self.pressure is not None else None)}
+        j = self._capacity_journal
+        if j is not None:
+            doc["capacity_wal"] = {
+                "healthy": j.healthy, "dropped": j.dropped,
+                "recoveries": j.recoveries, "poisoned": j.poisoned,
+            }
+        return doc
 
     def _status_doc(self) -> dict:
         with self._runs_lock:
@@ -1207,15 +1394,16 @@ class LoopdServer:
             "health": self._health_stats(),
             "workerd": self._workerd_rows(),
             "warm_pools": pools,
-            # the capacity controller and the shipper are refused (a
-            # setting that asks for one never starts the daemon): their
-            # sections read as the reference's when they are off
-            "capacity": {"enabled": False},
+            "capacity": ({"enabled": True, **self.capacity.state()}
+                         if self.capacity is not None
+                         else {"enabled": False}),
             "storage": self._storage_stats(),
             "sentinel": (self.sentinel.status_doc()
                          if self.sentinel is not None
                          else {"enabled": False}),
-            "shipper": {"enabled": False},
+            "shipper": ({"enabled": True, **self.shipper.stats()}
+                        if self.shipper is not None
+                        else {"enabled": False}),
             "events_dropped_total": sum(r.get("events_dropped", 0)
                                         for r in runs),
             "settings": {

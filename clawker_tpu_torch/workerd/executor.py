@@ -30,8 +30,7 @@ The port's copy of ``clawker_tpu/workerd/executor.py``.  One branch of
 item 12): the socket its transport forwards over the SSH mux
 (``transport.forward_workerd``); the port discovers the local worker's
 canonical socket.  The seam it fires (``workerd.post_reconnect``) rides
-the scheduler's ``seams``, which stay the never-armed ``NULL_SEAMS``
-until the chaos runner is ported (ROADMAP §1 item 8).
+the scheduler's ``seams``.
 """
 
 from __future__ import annotations

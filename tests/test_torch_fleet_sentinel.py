@@ -6,8 +6,9 @@ and the reference ``FleetSentinel`` over the same stream files, with
 the same params and noise injected (made with numpy), and holds the
 windows, the flags (agent, worker, kind), the worker-relative z and the
 baselines together.  The state file crosses between the two packages in
-both directions.  The reference's chaos twin check (``chaos.runner``)
-is not ported; ``audit()`` stands in for it here.
+both directions.  Beside ``audit()``'s zero mutation counters, the
+reference's observe-only twin check (``chaos.runner.run_observe_only_
+check``, tests/test_sentinel.py:362) runs in the port on the CPU.
 """
 
 from __future__ import annotations
@@ -324,6 +325,15 @@ def test_audit_stays_zero_after_flagging_ticks(tmp_path, injected):
     assert port.flags()
     assert port.audit() == ref.audit() == {
         "engine_calls": 0, "breaker_reports": 0, "placement_calls": 0}
+
+
+def test_observe_only_twin_check_holds():
+    """tests/test_sentinel.py:362: the benign fleet with and without the
+    sentinel (its streams silenced and flooded mid-run) schedules
+    identically.  The port returns a list of violations, never a skip."""
+    from clawker_tpu_torch.chaos.runner import run_observe_only_check
+
+    assert run_observe_only_check(20260803, device="cpu") == []
 
 
 def test_tick_span_lands_in_the_flight_recorder(tmp_path, injected):

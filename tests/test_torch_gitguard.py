@@ -10,10 +10,11 @@ what comes out exactly: the bytes of every encoded or filtered body,
 decisions' documents and verdicts, rule keys and their dicts, HTTP
 statuses and acknowledged updates, and ``gitguard_summary()``.
 
-Left out: tests/test_gitguard.py:521-600, the chaos rider
-(``FaultPlan.gitguard``, ``gitguard_probe_script``, the
-``ref-isolation-at-proxy`` invariant), which waits for the chaos runner
-(ROADMAP §1 item 8).
+And tests/test_gitguard.py:521-600, the chaos rider: the push-probe
+script (``gitguard_probe_script``), the ``ref-isolation-at-proxy``
+invariant of each package's checker over the same poisoned evidence,
+and a ``gitguard_down`` scenario through each package's
+``ChaosRunner`` (helpers from tests/test_torch_chaos.py).
 
 Besides, the egress rule store (``firewall/rules.py``): validation,
 the dedupe-by-key add with its collision merge, removal, the effective
@@ -29,6 +30,7 @@ from types import SimpleNamespace
 
 import pytest
 
+import clawker_tpu.chaos.runner as ref_chaos_runner
 import clawker_tpu.config.schema as ref_schema
 import clawker_tpu.firewall.rules as ref_rules
 import clawker_tpu.gitguard as ref_gg
@@ -37,6 +39,7 @@ import clawker_tpu.gitguard.protocol as ref_proto
 import clawker_tpu.gitguard.refpolicy as ref_pol
 import clawker_tpu.gitguard.server as ref_server
 import clawker_tpu.storage.yamledit as ref_yamledit
+import clawker_tpu_torch.chaos.runner as port_chaos_runner
 import clawker_tpu_torch.config.schema as port_schema
 import clawker_tpu_torch.firewall.rules as port_rules
 import clawker_tpu_torch.gitguard as port_gg
@@ -45,6 +48,8 @@ import clawker_tpu_torch.gitguard.protocol as port_proto
 import clawker_tpu_torch.gitguard.refpolicy as port_pol
 import clawker_tpu_torch.gitguard.server as port_server
 import clawker_tpu_torch.storage.yamledit as port_yamledit
+from test_torch_chaos import SEED, _clean_run, run_plan_twin
+from test_torch_chaos import twin as chaos_twin
 from test_torch_worktrees import (
     HOSTS,
     RULE_KEYS,
@@ -911,3 +916,79 @@ def test_guard_decisions_journal_and_ride_the_bus(tmp_path, short_sock):
     assert got == want
     assert got[0] == {"deny": 1, "allow": 1}
     assert [v for v, _r, _a in got[1]] == ["deny", "allow"]
+
+
+# ------------------------------------------------------------ chaos rider
+
+
+def test_gitguard_probe_script_matches_reference():
+    for seed, i in ((99, 4), (SEED, 0), (5, 17)):
+        assert (port_chaos_runner.gitguard_probe_script(seed, i)
+                == ref_chaos_runner.gitguard_probe_script(seed, i))
+
+
+def test_poisoned_gitguard_evidence_gives_the_reference_violations(
+        tmp_path):
+    """tests/test_gitguard.py's ``test_invariant_flags_poisoned_gitguard_
+    evidence``: an out-of-namespace landing, a landing after the kill
+    and an impossible allow verdict, each through both checkers."""
+    cases = [
+        {},
+        {"acknowledged": [(1.0, "r1/a0", "refs/heads/loop/r1/a1")]},
+        {"downed_at": 10.0,
+         "acknowledged": [(11.0, "r1/a0", "refs/heads/loop/r1/a0")]},
+        {"decisions": [(1.0, {"verdict": "allow", "run": "r1",
+                              "agent": "a0",
+                              "ref": "refs/heads/loop/r1/a1"})]},
+        {"acknowledged": [(1.0, "r1/queue/mergeq",
+                           "refs/heads/loop/r1/merged")]},
+    ]
+
+    def scenario(s):
+        drv, sched = _clean_run(s, n_loops=1, n_workers=1)
+        out = []
+        for kw in cases:
+            audit = {"run": "r1", "branch_prefix": "loop", "downed_at": None,
+                     "acknowledged": [], "decisions": [], "probes": []}
+            audit.update(kw)
+            out.append(s.m.inv.check_invariants(
+                drv, s.cfg, sched.loop_id, loops=sched.loops,
+                gitguard=audit))
+        drv.close()
+        return out
+
+    want, got = chaos_twin(tmp_path, scenario)
+    assert got == want
+    assert got[0] == [] and got[4] == []
+    assert all(any(v.startswith("ref-isolation-at-proxy") for v in out)
+               for out in got[1:4])
+
+
+def test_gitguard_down_scenario_holds_invariants_as_reference(tmp_path):
+    """tests/test_gitguard.py's ``test_chaos_scenario_with_gitguard_down_
+    holds_invariants``: the probes after the kill are refused, nothing
+    lands after the down, and the probe script is the reference's."""
+    def make(m):
+        return m.plan.FaultPlan(
+            seed=5, scenario=0, n_workers=2, n_loops=2, iterations=1,
+            gitguard=True, events=[
+                m.plan.FaultEvent(at_s=0.05, kind="worker_kill", worker=1),
+                m.plan.FaultEvent(at_s=0.2, kind="gitguard_down",
+                                  worker=-1),
+                m.plan.FaultEvent(at_s=0.35, kind="worker_revive",
+                                  worker=1)])
+
+    (ref, want), (port, got) = run_plan_twin(tmp_path, make)
+    assert got.ok, got.violations
+    assert want.ok, want.violations
+
+    def probes(runner):
+        return [(p["kind"], p["identity"], p["ref"], p["outcome"])
+                for p in runner._gitguard_probes]
+
+    assert probes(port) == probes(ref)
+    assert any(p[3] == "refused" for p in probes(port))
+    downed = port._gitguard_downed_at
+    assert downed is not None
+    assert all(ts <= downed
+               for ts, _i, _r in port.gitguard_upstream.acknowledged)

@@ -63,6 +63,15 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
             "clawker_tpu_torch.gitguard.refpolicy",
             "clawker_tpu_torch.firewall", "clawker_tpu_torch.firewall.rules",
             "clawker_tpu_torch.loop.mergeq"} <= set(mods)
+    # and so are chaos, capacity, the shipper and the test support
+    assert {"clawker_tpu_torch.chaos.plan",
+            "clawker_tpu_torch.chaos.invariants",
+            "clawker_tpu_torch.chaos.runner", "clawker_tpu_torch.capacity",
+            "clawker_tpu_torch.capacity.controller",
+            "clawker_tpu_torch.capacity.scaler",
+            "clawker_tpu_torch.capacity.signals",
+            "clawker_tpu_torch.monitor.shipper",
+            "clawker_tpu_torch.testenv"} <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -147,6 +156,12 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     "clawker_tpu_torch.firewall.rules",
                                     "clawker_tpu_torch.storage.yamledit",
                                     "clawker_tpu_torch.cli",
+                                    "clawker_tpu_torch.chaos",
+                                    "clawker_tpu_torch.chaos.runner",
+                                    "clawker_tpu_torch.chaos.invariants",
+                                    "clawker_tpu_torch.capacity",
+                                    "clawker_tpu_torch.monitor.shipper",
+                                    "clawker_tpu_torch.testenv",
                                     "clawker_tpu_torch.loopd.__main__",
                                     "clawker_tpu_torch.hostproxy.__main__",
                                     "clawker_tpu_torch.socketbridge.container"])

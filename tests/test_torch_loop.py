@@ -647,19 +647,14 @@ def test_bring_up_on_the_cpu_builds_and_launches_nothing():
 
 
 @pytest.mark.parametrize("args,settings,needle", [
-    (["--ship-telemetry"], "", "telemetry shipper"),
     (["--metrics-port", "9100"], "", "metrics server"),
     # ported: with no workerd answering, --workerd fails as the
     # reference's does (tests/test_torch_workerd.py holds the twin)
     (["--workerd"], "", "no workerd answering"),
     (["--pods"], "", "federation"),
-    ([], "capacity:\n  enable: true\n", "capacity"),
     ([], "telemetry:\n  otlp: true\n", "OTLP"),
     ([], "telemetry:\n  metrics_port: 9100\n", "metrics server"),
-    ([], "monitoring:\n  shipper:\n    enable: true\n", "telemetry shipper"),
-], ids=["ship-telemetry",
-        "metrics-port", "workerd", "pods", "capacity",
-        "otlp", "metrics-setting", "shipper-setting"])
+], ids=["metrics-port", "workerd", "pods", "otlp", "metrics-setting"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
                                         settings, needle):
     monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")
@@ -728,31 +723,6 @@ def test_cli_loop_attach_names_the_missing_daemon(tmp_path):
         tenv.__exit__(None, None, None)
     assert res.exit_code == 1
     assert "no loopd daemon answering" in res.output
-
-
-def test_chaos_plan_is_refused(tmp_path, monkeypatch):
-    plan = tmp_path / "plan.json"
-    plan.write_text("{}")
-    monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")
-    res = CliRunner().invoke(port_cli.cli, ["loop", "--chaos-plan",
-                                            str(plan)],
-                             obj=port_cli.Factory(cwd=tmp_path,
-                                                  driver=object()))
-    assert res.exit_code == 1
-    assert "--chaos-plan is not yet ported" in res.output
-
-
-def test_attach_capacity_is_refused(tmp_path):
-    tenv, proj = _env(tmp_path, "port")
-    try:
-        sched = port_loop.LoopScheduler(port_config.load_config(proj),
-                                        _driver(PKGS["port"], 1),
-                                        port_loop.LoopSpec())
-        with pytest.raises(port_errors.ConfigError, match="capacity"):
-            sched.attach_capacity(object())
-        sched.cleanup()
-    finally:
-        tenv.__exit__(None, None, None)
 
 
 @pytest.mark.parametrize("name", ["local", "nsd", "tpu_vm"])

@@ -22,8 +22,8 @@ cases and what each holds:
   client's two-stage Ctrl-C, ``loopd start|stop|status``.
 
 ``test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates`` is
-twinned in both halves, its chaos invariant checker replaced by the
-checks its docstring names.  ``adopt_run`` (a killed daemon's run
+twinned in both halves and ends with each package's chaos invariant
+checker, as the reference's does.  ``adopt_run`` (a killed daemon's run
 resumed by a second daemon) and a hosted run with a warm pool are held
 against the reference's too.  The reference cases with no twin, each
 waiting for its item:
@@ -59,6 +59,7 @@ import pytest
 from click.testing import CliRunner
 
 import clawker_tpu.agentd.protocol as ref_protocol
+import clawker_tpu.chaos.invariants as ref_inv
 import clawker_tpu.chaos.seams as ref_seams
 import clawker_tpu.cli.cmd_loop as ref_cmd_loop
 import clawker_tpu.cli.factory as ref_factory
@@ -73,6 +74,7 @@ import clawker_tpu.loopd.client as ref_client
 import clawker_tpu.loopd.server as ref_server
 import clawker_tpu.monitor.ledger as ref_ledger
 import clawker_tpu_torch.agentd.protocol as port_protocol
+import clawker_tpu_torch.chaos.invariants as port_inv
 import clawker_tpu_torch.chaos.seams as port_seams
 import clawker_tpu_torch.cli as port_cli
 import clawker_tpu_torch.consts as port_consts
@@ -97,12 +99,12 @@ PKGS = {
         config=ref_config, drivers=ref_drivers, fake=ref_fake,
         loop=ref_loop, journal=ref_journal, loopd=ref_loopd,
         client=ref_client, server=ref_server, protocol=ref_protocol,
-        seams=ref_seams, ledger=ref_ledger),
+        seams=ref_seams, ledger=ref_ledger, inv=ref_inv),
     "port": SimpleNamespace(
         config=port_config, drivers=port_drivers, fake=port_fake,
         loop=port_loop, journal=port_journal, loopd=port_loopd,
         client=port_client, server=port_server, protocol=port_protocol,
-        seams=port_seams, ledger=port_ledger),
+        seams=port_seams, ledger=port_ledger, inv=port_inv),
 }
 
 
@@ -489,10 +491,10 @@ def test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates(tmp_path):
     run_done, the socket file survives, discovery reads "no daemon", and
     no engine call follows the kill.  Then ``LoopScheduler.resume`` on
     the journal the daemon left adopts both containers in place and
-    every loop finishes.  The reference ends with the chaos invariant
-    checker (``chaos.invariants``, not ported: ROADMAP §1 item 8); in
-    its place both packages are held to zero duplicate creates, every
-    loop ``done`` and no container of the run left after cleanup."""
+    every loop finishes.  Both packages are held to zero duplicate
+    creates, every loop ``done`` and no container of the run left after
+    cleanup, and each package's chaos invariant checker
+    (``chaos.invariants``) finds nothing, as the reference's test asks."""
     def scenario(s):
         hold = threading.Event()
         drv = driver_with(s.m, 2, behavior=hold_behavior(hold))
@@ -534,7 +536,10 @@ def test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates(tmp_path):
             left = [c for api in drv.apis for c in api.containers.values()
                     if (c.config.get("Labels") or {}).get(
                         port_consts.LABEL_LOOP) == ack["run"]]
-            result = (killed, summary, statuses, duplicates, len(left))
+            violations = s.m.inv.check_invariants(
+                drv, s.cfg, ack["run"], loops=sched2.loops, kills=1)
+            result = (killed, summary, statuses, duplicates, len(left),
+                      violations)
         finally:
             hold.set()
             srv.sock_path.unlink(missing_ok=True)
@@ -544,7 +549,7 @@ def test_daemon_sigkill_mid_run_resume_adopts_zero_duplicates(tmp_path):
     assert got == want
     assert got[0] == (True, True, True, 0)
     assert got[1]["adopted"] == 2
-    assert got[2:] == (["done", "done"], 0, 0)
+    assert got[2:] == (["done", "done"], 0, 0, [])
 
 
 def test_daemon_killed_at_post_submit_seam_leaves_no_orphan_state(tmp_path):
@@ -954,10 +959,8 @@ def test_hosted_run_takes_a_warm_pool(tmp_path):
 
 
 @pytest.mark.parametrize("settings,needle", [
-    ("capacity:\n  enable: true\n", "capacity"),
-    ("monitoring:\n  shipper:\n    enable: true\n", "telemetry shipper"),
     ("loopd:\n  metrics_port: 9100\n", "metrics server"),
-], ids=["capacity", "shipper", "metrics-port"])
+], ids=["metrics-port"])
 def test_unported_daemon_riders_refuse_to_start(tmp_path, settings, needle):
     with side("port", tmp_path, settings) as s:
         srv = port_server.LoopdServer(s.cfg, driver_with(s.m, 1))

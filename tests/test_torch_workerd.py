@@ -16,9 +16,12 @@ status RPC's ``workerd`` rows; a killed workerd turns its row
 ``degraded`` and its loops finish on the direct path), the sentinel
 riding a run over workerd (its rows held to the reference's with the
 tolerances tests/test_torch_loop_anomaly.py states), and ``loop
---workerd`` with none answering.  The reference cases with no twin,
-each waiting for its slice (ROADMAP §1): the chaos plans (item 8) and
-``fleet health`` (item 13).  Worktree runs' dispatch (bind-mode runs
+--workerd`` with none answering.  The partition and kill twins end with
+each package's chaos invariant checker (``chaos.invariants``), and the
+reference's chaos plans over workerd (tests/test_workerd.py:481-535)
+are twinned in tests/test_torch_chaos.py.  The reference case with no
+twin waits for its slice (ROADMAP §1): ``fleet health`` (item 13).
+Worktree runs' dispatch (bind-mode runs
 direct, snapshot-mode ones over workerd, tests/test_workerd.py:391) is
 twinned in tests/test_torch_worktrees.py.  The warm pool's
 fills and pooled launches over workerd and ``--resume`` after a killed
@@ -45,6 +48,7 @@ import pytest
 from click.testing import CliRunner
 
 import clawker_tpu.agentd.protocol as ref_protocol
+import clawker_tpu.chaos.invariants as ref_inv
 import clawker_tpu.cli.factory as ref_factory
 import clawker_tpu.cli.root as ref_root
 import clawker_tpu.config as ref_config
@@ -60,6 +64,7 @@ import clawker_tpu.workerd as ref_workerd
 import clawker_tpu.workerd.executor as ref_executor
 import clawker_tpu.workerd.server as ref_wserver
 import clawker_tpu_torch.agentd.protocol as port_protocol
+import clawker_tpu_torch.chaos.invariants as port_inv
 import clawker_tpu_torch.cli as port_cli
 import clawker_tpu_torch.config as port_config
 import clawker_tpu_torch.consts as port_consts
@@ -91,13 +96,15 @@ PKGS = {
         fake=ref_fake, errors=ref_errors, loop=ref_loop,
         journal=ref_journal, workerd=ref_workerd, executor=ref_executor,
         server=ref_wserver, protocol=ref_protocol,
-        loopd_server=ref_loopd_server, loopd_client=ref_loopd_client),
+        loopd_server=ref_loopd_server, loopd_client=ref_loopd_client,
+        inv=ref_inv),
     "port": SimpleNamespace(
         config=port_config, consts=port_consts, drivers=port_drivers,
         fake=port_fake, errors=port_errors, loop=port_loop,
         journal=port_journal, workerd=port_workerd, executor=port_executor,
         server=port_wserver, protocol=port_protocol,
-        loopd_server=port_loopd_server, loopd_client=port_loopd_client),
+        loopd_server=port_loopd_server, loopd_client=port_loopd_client,
+        inv=port_inv),
 }
 
 
@@ -427,6 +434,12 @@ def test_partition_mid_run_reconnects_zero_duplicate_creates(tmp_path):
                    "reconnected": reconnects >= 2}
             sched.cleanup(remove_containers=True)
             out["undelivered"] = [srv.undelivered() for srv in servers]
+            out["violations"] = s.m.inv.check_invariants(
+                drv, s.cfg, sched.loop_id, loops=sched.loops, cap=2,
+                workerd=[{"worker": srv.worker_id, "alive": True,
+                          "channel_live": True,
+                          "undelivered": srv.undelivered()}
+                         for srv in servers])
             return out
         finally:
             hold.set()
@@ -439,6 +452,7 @@ def test_partition_mid_run_reconnects_zero_duplicate_creates(tmp_path):
                for r in got["status"])
     assert got["creates"] == 4 and got["exits_once"]
     assert len(got["exits"]) == 4 and got["undelivered"] == [0, 0]
+    assert got["violations"] == []
 
 
 def test_workerd_kill_degrades_to_direct_path(tmp_path):
@@ -458,6 +472,10 @@ def test_workerd_kill_degrades_to_direct_path(tmp_path):
                    "breakers": [sched.health.state(w.id)
                                 for w in drv.workers()]}
             sched.cleanup(remove_containers=True)
+            out["violations"] = s.m.inv.check_invariants(
+                drv, s.cfg, sched.loop_id, loops=loops,
+                unfaulted={w.id for w in drv.workers()},
+                health=sched.health)
             return out
         finally:
             teardown(servers, execset, drv)
@@ -467,6 +485,7 @@ def test_workerd_kill_degrades_to_direct_path(tmp_path):
     assert got["done"] == [("done", 2)] * 4
     # workerd death is not engine sickness: no worker quarantined
     assert got["breakers"] == ["closed", "closed"]
+    assert got["violations"] == []
 
 
 # ------------------------------------------------------------ degrade
