@@ -188,7 +188,29 @@
    ``sentinel.enable`` hosts a run: its status RPC's ``capacity`` row
    ticked, its ``shipper`` row took docs, each scored tick one K3 and
    one K1.
-12. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+12. views phase, its dirs under ``build/chip_smoke/views/`` (the host
+   proxy off): (a) loop (a)'s run inside a ``LoopDashboard`` painting on
+   the slave end of a 120x40 pseudo-terminal: the final frame (the
+   escapes applied, then stripped) has the ANOM-Z column, each agent's
+   cell ``sched.status()``'s ``anomaly_z`` to one decimal, the burst
+   agent at or over ``ANOMALY_Z`` and red, the status bar's
+   ``anom-max`` the largest z; (b) ``python -m clawker_tpu_torch loop
+   --parallel 8 --iterations 3 --sentinel`` forked onto such a terminal
+   (``pty.fork``) exits 0 having painted frames and no per-event lines,
+   its final frame with the ANOM-Z column, and with ``--json`` paints
+   nothing; (c) loopd with ``loopd.metrics_port`` hosts two 8-loop runs:
+   ``fleet console --once`` and ``--format json`` (forked) show the burst
+   agent's ANOM-Z equal to the status RPC's sentinel row,
+   ``FleetConsole.snapshot()`` both runs, the daemon's ``/metrics`` that
+   agent's ``anomaly_score`` and ``sentinel_ticks_total{result=
+   "scored"}``; (d) ``loop --metrics-port`` in process with settings
+   ``telemetry.otlp`` and a stub collector: a scrape mid-run carries the
+   burst agent's ``anomaly_score``, the stub holds ``clawker-telemetry``
+   batches, the last (``stop()``'s final flush) with that sample; (e)
+   the reference bench's console repaint (256 agents over 4 runs, 80
+   frames; host work): p95 under 50 ms, the frame at most 140 lines.
+   Every scored tick of (a), (c) and (d) is one K3 and one K1.
+13. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -3582,6 +3604,18 @@ def resume_loopd_case(base: Path, device, stages: dict):
     return log1.launches() + log2.launches()
 
 
+def _cli_runner():
+    """A ``CliRunner`` whose ``stdout`` holds stdout alone: click before
+    8.2 mixes stderr into it unless told not to."""
+    import inspect
+
+    from click.testing import CliRunner
+
+    if "mix_stderr" in inspect.signature(CliRunner).parameters:
+        return CliRunner(mix_stderr=False)
+    return CliRunner()
+
+
 def resume_cli_case(base: Path, device: str) -> None:
     """(d): the verbs in process through ``CliRunner`` with one shared
     fake driver (the fake engine dies with a forked CLI): ``loop
@@ -3589,10 +3623,7 @@ def resume_cli_case(base: Path, device: str) -> None:
     with every agent done; ``journal verify`` exits 0 on its journal and
     2 on a copy with one byte flipped; ``journal verify --repair`` makes
     that copy resumable again."""
-    import inspect
     import threading
-
-    from click.testing import CliRunner
 
     from clawker_tpu_torch import cli
     from clawker_tpu_torch.config import load_config
@@ -3631,9 +3662,7 @@ def resume_cli_case(base: Path, device: str) -> None:
             creates = sum(len(api.calls_named("container_create"))
                           for api in drv.apis)
             factory = cli.Factory(cwd=proj, driver=drv)
-            # click before 8.2 mixes stderr into stdout unless told not to
-            runner = (CliRunner(mix_stderr=False) if "mix_stderr" in
-                      inspect.signature(CliRunner).parameters else CliRunner())
+            runner = _cli_runner()
 
             def invoke(*args):
                 t0 = time.perf_counter()
@@ -4217,10 +4246,7 @@ def worktrees_verbs_case(base: Path, device, stages: dict):
     ``LoopdServer`` with ``sentinel.enable`` hosting a 2-loop worktree
     submit, its status RPC's ``gitguard`` row enabled and running, its
     sentinel scoring the run on the card."""
-    import inspect
     import threading
-
-    from click.testing import CliRunner
 
     from clawker_tpu_torch import cli
     from clawker_tpu_torch.config import load_config
@@ -4233,8 +4259,7 @@ def worktrees_verbs_case(base: Path, device, stages: dict):
     try:
         with _wt_dirs(base / "cli") as (proj, _sock):
             drv = _fake_pod(0.0)
-            runner = (CliRunner(mix_stderr=False) if "mix_stderr" in
-                      inspect.signature(CliRunner).parameters else CliRunner())
+            runner = _cli_runner()
             t0 = time.perf_counter()
             res = runner.invoke(cli.cli, [
                 "loop", "--worktrees", "-p", "2", "-n", "1", "--sentinel",
@@ -4645,6 +4670,813 @@ def chaos_phase(device) -> collections.Counter:
     return total
 
 
+# ------------------------------------------------------------ views phase
+
+
+VIEWS_COLS, VIEWS_ROWS = 120, 40        # the pseudo-terminal's window
+CONSOLE_REPAINT_BUDGET_MS = 50.0        # bench.py:2075, p95 frame build +
+#                                         paint at 256 agents over 4 runs
+CONSOLE_FRAME_LINE_BOUND = 140          # bench.py:2078
+CONSOLE_AGENTS, CONSOLE_RUNS, CONSOLE_FRAMES = 256, 4, 80
+VIEWS_SETTINGS = ("loop:\n  storage_pressure:\n    soft_free_pct: 0.001\n"
+                  "    hard_free_pct: 0.0005\n")
+_SGR = re.compile(r"\x1b\[[\d;]*m")
+
+
+def _screen(text: str) -> list[str]:
+    """The rows a terminal shows after ``text``: the damage painter's
+    cursor-up, cursor-down and erase-line escapes applied (its rows never
+    wrap), colour escapes kept, carriage returns dropped."""
+    rows, cur = [""], 0
+    for tok in re.split(r"(\x1b\[\d*[ABK]|\n)", text.replace("\r", "")):
+        esc = re.fullmatch(r"\x1b\[(\d*)([ABK])", tok)
+        if tok == "\n" or (esc and esc[2] == "B"):
+            cur += 1 if tok == "\n" else int(esc[1] or 1)
+            rows += [""] * (cur + 1 - len(rows))
+        elif esc and esc[2] == "A":
+            cur = max(0, cur - int(esc[1] or 1))
+        elif esc:
+            rows[cur] = ""
+        else:
+            rows[cur] += tok
+    return rows
+
+
+def _final_frame(rows: list[str], loop_id: str) -> list[str]:
+    """The dashboard's last frame on the screen: from its head row to its
+    status bar."""
+    heads = [i for i, r in enumerate(rows)
+             if _SGR.sub("", r).startswith(f"loop {loop_id}  ")]
+    check(heads, f"no dashboard frame of loop {loop_id} on the screen")
+    start = heads[-1]
+    end = next((i for i in range(start, len(rows))
+                if "ctrl-c stops" in rows[i]), None)
+    check(end is not None, f"the frame of loop {loop_id} has no status bar")
+    return rows[start:end + 1]
+
+
+def _anom_cells(frame: list[str], why: str = "") -> dict[str, str]:
+    """Agent -> its ANOM-Z cell, colour escapes kept, from a frame."""
+    plain = [_SGR.sub("", r) for r in frame]
+    head = next(i for i, r in enumerate(plain) if r.startswith("AGENT"))
+    check(plain[head].split()[-1] == "ANOM-Z",
+          f"the frame's table has no ANOM-Z column: {plain[head]!r}{why}")
+    cells = {}
+    for raw, row in zip(frame[head + 1:], plain[head + 1:]):
+        if not row.strip():
+            break
+        cells[row.split()[0]] = raw.rstrip().rsplit(" ", 1)[-1]
+    return cells
+
+
+class _PtyDrain:
+    """A pseudo-terminal of VIEWS_COLS x VIEWS_ROWS whose master end a
+    thread drains into ``data``; ``tty`` is the slave end as a text
+    stream."""
+
+    def __init__(self):
+        import fcntl
+        import struct
+        import termios
+
+        self.master, slave = os.openpty()
+        fcntl.ioctl(slave, termios.TIOCSWINSZ,
+                    struct.pack("HHHH", VIEWS_ROWS, VIEWS_COLS, 0, 0))
+        self.tty = os.fdopen(slave, "w", encoding="utf-8", buffering=1)
+        self.data = bytearray()
+        self._thread = threading.Thread(target=self._drain, daemon=True,
+                                        name="pty-drain")
+        self._thread.start()
+
+    def _drain(self) -> None:
+        while True:
+            try:
+                chunk = os.read(self.master, 65536)
+            except OSError:
+                return
+            if not chunk:
+                return
+            self.data += chunk
+
+    def close(self) -> str:
+        self.tty.flush()
+        deadline = time.perf_counter() + 5
+        while time.perf_counter() < deadline:      # let the drain catch up
+            n = len(self.data)
+            time.sleep(0.05)
+            if len(self.data) == n:
+                break
+        self.tty.close()
+        self._thread.join(5)
+        os.close(self.master)
+        return self.data.decode("utf-8", "replace")
+
+
+def _settled(log: TickLog, settle_s: float = 0.5,
+             timeout: float = 30.0) -> bool:
+    """Wait until ``log``'s sentinel has scored no tick for ``settle_s``
+    and none is running; -> whether it did before ``timeout``."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        n = sum(1 for entry in log.ticks if entry[0])
+        time.sleep(settle_s)
+        if (n == sum(1 for entry in log.ticks if entry[0])
+                and not TickLog._serial.locked()):
+            return True
+    return False
+
+
+def views_dashboard_case(base: Path, device, stages: dict):
+    """(a): loop (a)'s run (8 loops x 3 iterations on 4 fake workers, the
+    sentinel on the card every 0.05 s, a burst on one agent) inside a
+    ``LoopDashboard`` whose ``IOStreams`` stdout is the slave end of a
+    120x40 pseudo-terminal (the in-process dashboard reads its width
+    through ``shutil``, from ``COLUMNS``).  The final frame must carry
+    the ANOM-Z column, each agent's cell ``sched.status()``'s
+    ``anomaly_z`` formatted ``:.1f``, the burst agent at or over
+    ``ANOMALY_Z`` and red, the status bar's ``anom-max`` the largest z,
+    and each scored tick one K3 and one K1."""
+    from clawker_tpu_torch.analytics.runtime import ANOMALY_Z
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.fake import exit_behavior
+    from clawker_tpu_torch.fleet.egress_tail import EgressFeed
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.sentinel import FleetSentinel
+    from clawker_tpu_torch.ui import IOStreams
+    from clawker_tpu_torch.ui.dashboard import LoopDashboard
+
+    name = "views (a)"
+    pty_out = _PtyDrain()
+    saved = {k: os.environ.get(k) for k in ("COLUMNS", "LINES")}
+    os.environ["COLUMNS"], os.environ["LINES"] = (str(VIEWS_COLS),
+                                                  str(VIEWS_ROWS))
+    try:
+        with _isolated_dirs(base, VIEWS_SETTINGS, proxy=False) as proj:
+            cfg = load_config(proj)
+            drv = FakeDriver(n_workers=LOOP_WORKERS)
+            for api in drv.apis:
+                api.add_image(LOOP_IMAGE)
+                api.set_behavior(LOOP_IMAGE, exit_behavior(
+                    b"iteration done\n", 0, delay=LOOP_ITER_S))
+            box: dict = {}
+
+            def on_event(agent, event, detail=""):
+                if event != "trace.span" and "dash" in box:
+                    box["dash"].record_event(agent, event, detail)
+
+            sched = LoopScheduler(cfg, drv, LoopSpec(
+                parallel=LOOP_AGENTS, iterations=LOOP_ITERATIONS),
+                on_event=on_event)
+            s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                              interval_s=LOOP_TICK_S,
+                              train_steps=SENTINEL_STEPS)
+            log = TickLog(s, stages)
+            sched.attach_sentinel(s)
+            agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+            hot = agents[LOOP_HOT_SLOT]
+            # the ticker tails each fake worker's own stream, the file
+            # the sentinel reads for it
+            feed = EgressFeed()
+            for w in drv.workers():
+                feed.add_local(w.id, cfg.logs_dir / f"ebpf-egress-{w.id}.jsonl")
+            streams = IOStreams(stdout=pty_out.tty, env={"TERM": "xterm"})
+            dash = box["dash"] = LoopDashboard(streams, sched,
+                                               egress_feed=feed)
+            egress = _loop_egress(agents, hot, time.time())
+            want = sum(len(v) for v in egress.values())
+            t0 = time.perf_counter()
+            s.start()
+            sched.start()
+            try:
+                with dash:
+                    for wid, recs in egress.items():
+                        _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl",
+                                recs)
+                    sched.run(poll_s=0.05)
+                    wall = (time.perf_counter() - t0) * 1e3
+                    # the final frame follows the last scored tick
+                    deadline = time.perf_counter() + 10
+                    while (s._scored_at[0] < want
+                           and time.perf_counter() < deadline):
+                        time.sleep(LOOP_TICK_S)
+                    s.stop()
+            finally:
+                feed.stop()
+                s.stop()
+            rows = sched.status()
+            painted = dash.painter.stats()
+            sched.cleanup(remove_containers=True)
+    finally:
+        text = pty_out.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    scored = log.check_run(name)
+    _check_loop_rows(name, rows)
+    frame = _final_frame(_screen(text), sched.loop_id)
+    cells = _anom_cells(frame)
+    zs = {r["agent"]: r["anomaly_z"] for r in rows}
+    check({a: _SGR.sub("", c) for a, c in cells.items()}
+          == {a: f"{z:.1f}" for a, z in zs.items()},
+          f"{name}: ANOM-Z cells {cells} against status {zs}")
+    check(zs[hot] >= ANOMALY_Z and max(zs, key=zs.get) == hot
+          and cells[hot] == f"\x1b[31m{zs[hot]:.1f}\x1b[0m",
+          f"{name}: {hot} z {zs[hot]}, cell {cells[hot]!r} (threshold "
+          f"{ANOMALY_Z}, hottest {max(zs, key=zs.get)})")
+    bar = _SGR.sub("", frame[-1])
+    check(f"anom-max:{max(zs.values()):.1f}" in bar and "done:8" in bar,
+          f"{name}: status bar {bar!r}, largest z {max(zs.values())}")
+    check(len(frame) < VIEWS_ROWS and painted["frames"] >= 2,
+          f"{name}: {len(frame)} rows a frame, {painted['frames']} frames")
+    print(f"{name} LoopDashboard on a {VIEWS_COLS}x{VIEWS_ROWS} pty over "
+          f"loop (a)'s run: run wall {wall!r} ms, {painted['frames']} frames"
+          f" ({painted['rows_painted']} of {painted['rows_total']} rows "
+          f"rewritten), final frame {len(frame)} rows, {len(pty_out.data)} "
+          f"bytes; {len(log.ticks)} ticks, {len(scored)} scored; {hot} "
+          f"ANOM-Z {zs[hot]} (red), anom-max {max(zs.values())}")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches()
+
+
+def _pty_cli(args: list[str], proj: Path, env: dict,
+             timeout: float = 300) -> tuple[int, str, float]:
+    """``python -m clawker_tpu_torch ARGS`` in ``proj`` on a fresh
+    VIEWS_COLS x VIEWS_ROWS pseudo-terminal (``pty.fork``; the window set
+    in the child before it execs, ``COLUMNS``/``LINES`` cleared): ->
+    (exit code, what the terminal received, host ms)."""
+    import fcntl
+    import pty
+    import select
+    import signal
+    import struct
+    import termios
+
+    env = {k: v for k, v in env.items() if k not in ("COLUMNS", "LINES")}
+    t0 = time.perf_counter()
+    pid, fd = pty.fork()
+    if pid == 0:            # the child: set the window, become the CLI
+        try:
+            fcntl.ioctl(1, termios.TIOCSWINSZ,
+                        struct.pack("HHHH", VIEWS_ROWS, VIEWS_COLS, 0, 0))
+            os.chdir(proj)
+            os.execvpe(sys.executable, [sys.executable, "-m",
+                                        "clawker_tpu_torch", *args], env)
+        finally:
+            os._exit(127)
+    data = bytearray()
+    deadline = time.perf_counter() + timeout
+    status = None
+    try:
+        while True:
+            ready, _, _ = select.select([fd], [], [], 0.2)
+            if ready:
+                try:
+                    chunk = os.read(fd, 65536)
+                except OSError:     # EIO: every holder closed the terminal
+                    chunk = b""
+                if chunk:
+                    data += chunk
+                    continue
+                break
+            done, st = os.waitpid(pid, os.WNOHANG)
+            if done:
+                status = st
+                break
+            if time.perf_counter() > deadline:
+                os.kill(pid, signal.SIGKILL)
+                break
+        while select.select([fd], [], [], 0)[0]:    # what is left
+            try:
+                chunk = os.read(fd, 65536)
+            except OSError:
+                break
+            if not chunk:
+                break
+            data += chunk
+    finally:
+        os.close(fd)
+    if status is None:
+        _, status = os.waitpid(pid, 0)
+    return (os.waitstatus_to_exitcode(status), data.decode("utf-8",
+                                                           "replace"),
+            (time.perf_counter() - t0) * 1e3)
+
+
+def views_cli_case(base: Path, device: str) -> None:
+    """(b): ``python -m clawker_tpu_torch loop --parallel 8 --iterations
+    3 --sentinel`` on the seeded fake driver, forked onto a 120x40
+    pseudo-terminal: it must exit 0 having painted dashboard frames
+    (and no per-event lines), the final frame with the ANOM-Z column;
+    the same run with ``--json`` on the same terminal paints no frame.
+    As in loop (c), egress written beforehand gives the sentinel's first
+    tick (it starts before the run does) real work: the process's first
+    fit pays its set-up there, not after the loops' first events, so the
+    ticks scoring the loops land inside the short run."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.monitor.ledger import flight_path
+    from clawker_tpu_torch.telemetry import SPAN_SENTINEL_TICK, load_spans
+
+    name = "views (b)"
+    settings = VIEWS_SETTINGS + f"sentinel:\n  interval_s: {LOOP_CLI_TICK_S}\n"
+    with _isolated_dirs(base, settings, proxy=False) as proj:
+        logs = load_config(proj).logs_dir
+        logs.mkdir(parents=True, exist_ok=True)
+        others = [f"cli-{i}" for i in range(LOOP_WINDOWS)]
+        records = [r for recs in _loop_egress(others, others[-1],
+                                              time.time()).values()
+                   for r in recs]
+        for r in records:
+            r["worker"] = "fake-0"
+        _append(logs / "ebpf-egress-fake-0.jsonl", records)
+        env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+                   CLAWKER_TPU_DRIVER="fake",
+                   CLAWKER_TPU_FAKE_IMAGES=LOOP_IMAGE,
+                   PYTHONPATH=str(ROOT))
+        args = ["loop", "--parallel", str(LOOP_AGENTS), "--iterations",
+                str(LOOP_ITERATIONS), "--sentinel"]
+        rc, text, ms = _pty_cli(args, proj, env)
+        run = re.search(r"loop ([0-9a-f]{12}): ", text)
+        spans = []
+        if run and flight_path(logs, run[1]).exists():
+            spans = load_spans(flight_path(logs, run[1]).read_text()
+                               .splitlines())
+        rc_json, text_json, ms_json = _pty_cli([*args, "--json"], proj, env)
+    check(rc == 0, f"{name}: exited {rc}: {text[-3000:]}")
+    check(run, f"{name}: no run line: {text[-3000:]}")
+    check("\x1b[2K" in text and not re.search(r"^\[loop-", text, re.M),
+          f"{name}: no frame painted, or per-event lines: {text[-3000:]}")
+    iters = [sp for sp in spans if sp.name == "iteration"]
+    t0 = min((sp.t_start for sp in iters), default=0.0)
+    timing = (f"; iterations from 0 to "
+              f"{max((sp.t_end for sp in iters), default=0.0) - t0!r} s, "
+              f"sentinel ticks (start, end, windows) "
+              f"{[(sp.t_start - t0, sp.t_end - t0, sp.attrs.get('windows')) for sp in spans if sp.name == SPAN_SENTINEL_TICK]}")
+    frame = _final_frame(_screen(text), run[1])
+    cells = _anom_cells(frame, timing)
+    table = [line for line in text.splitlines()
+             if re.match(rf"loop-{run[1][:6]}-\d+\t", line)]
+    check(len(cells) == LOOP_AGENTS and len(table) == LOOP_AGENTS
+          and all("\tdone\t" in line for line in table),
+          f"{name}: cells {cells}, final lines {table}")
+    check(rc_json == 0 and "\x1b[" not in text_json
+          and "ctrl-c stops" not in text_json,
+          f"{name}: --json exited {rc_json} or painted: {text_json[-3000:]}")
+    doc = json.loads(text_json[text_json.index("\n{") + 1:
+                               text_json.rindex("}") + 1])
+    check(all(a["status"] == "done" for a in doc["agents"]),
+          f"{name}: --json agents {doc['agents']}")
+    print(f"{name} forked on a {VIEWS_COLS}x{VIEWS_ROWS} pty: exit 0 in "
+          f"{ms!r} ms, {text.count(chr(27) + '[2K')} rows painted, "
+          f"{text.count('ctrl-c stops')} status bars; final frame "
+          f"{len(frame)} rows, ANOM-Z "
+          f"{ {a: _SGR.sub('', c) for a, c in cells.items()} }{timing}; "
+          f"with --json: exit 0 in {ms_json!r} ms, no frame")
+
+
+def views_loopd_case(base: Path, device, stages: dict):
+    """(c): an in-process ``LoopdServer`` with ``sentinel.enable`` and
+    ``loopd.metrics_port`` on a free port hosts two runs of 8 loops (a
+    burst on one agent of the first, the egress keyed by the loops'
+    names, which the console's feed joins on); ``fleet console --once`` and
+    ``fleet console --format json``, forked, must show the burst agent's
+    ANOM-Z equal to the status RPC's sentinel row, ``FleetConsole
+    .snapshot()`` both runs, the daemon's ``/metrics``
+    ``anomaly_score{agent="<burst>"}`` at the same z and
+    ``sentinel_ticks_total{result="scored"}`` at least 1, and each
+    daemon tick one K3 and one K1."""
+    import urllib.request
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.fake import exit_behavior
+    from clawker_tpu_torch.loopd.client import LoopdClient
+    from clawker_tpu_torch.loopd.feed import console_feed, merge_feeds
+    from clawker_tpu_torch.loopd.server import LoopdServer
+    from clawker_tpu_torch.ui import IOStreams
+    from clawker_tpu_torch.ui.fleetconsole import FleetConsole
+
+    name = "views (c)"
+    port = _free_port()
+    settings = LOOPD_SETTINGS.replace(
+        "loopd:\n", f"loopd:\n  metrics_port: {port}\n")
+    with _isolated_dirs(base, settings, proxy=False) as proj:
+        cfg = load_config(proj)
+        drv = FakeDriver(n_workers=LOOP_WORKERS)
+        for api in drv.apis:
+            api.add_image(LOOP_IMAGE)
+            api.set_behavior(LOOP_IMAGE, exit_behavior(
+                b"iteration done\n", 0, delay=LOOP_ITER_S))
+        srv = LoopdServer(cfg, drv, device=device).start()
+        log = TickLog(srv.sentinel, stages)
+        try:
+            results: dict = {}
+            acks = [threading.Event(), threading.Event()]
+            clients = [threading.Thread(
+                target=_loopd_client_run,
+                args=(srv.sock_path, results, tag, acked),
+                name=f"views-client-{tag}")
+                for tag, acked in zip(("one", "two"), acks)]
+            t0 = time.perf_counter()
+            for c in clients:
+                c.start()
+            check(all(a.wait(30) for a in acks),
+                  f"{name}: a submit was not acknowledged")
+            runs = list(srv.runs)
+            agents = [f"loop-{rid[:6]}-{i}" for rid in runs
+                      for i in range(LOOP_AGENTS)]
+            hot = agents[LOOP_HOT_SLOT]
+            egress = _loop_egress(agents, hot, time.time())
+            for wid, recs in egress.items():
+                # keyed by the loop agent's own name: the console's feed
+                # joins the sentinel's rows to a run's agents by exact
+                # name, as the reference's does (a container-named row
+                # shows "-" there)
+                for r in recs:
+                    r["container"] = r["container"].rsplit(".", 1)[-1]
+                _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+            for c in clients:
+                c.join(60)
+            wall = (time.perf_counter() - t0) * 1e3
+            want = sum(len(v) for v in egress.values())
+            deadline = time.perf_counter() + 10
+            while (srv.sentinel._scored_at[0] < want
+                   and time.perf_counter() < deadline):
+                time.sleep(LOOP_TICK_S)
+            # the runs' last events re-score once more: read the rows
+            # after the sentinel has gone quiet
+            quiet = _settled(log)
+            with LoopdClient(srv.sock_path) as c:
+                before = c.status()
+            env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+                       PYTHONPATH=str(ROOT))
+            once, once_ms = _cli(["fleet", "console", "--once"], proj, env)
+            js, js_ms = _cli(["fleet", "console", "--format", "json"], proj,
+                             env)
+            with LoopdClient(srv.sock_path) as c:
+                after = c.status()
+                streams, _, _, _ = IOStreams.test()
+                t1 = time.perf_counter()
+                snapshot = FleetConsole(
+                    streams,
+                    lambda: merge_feeds([console_feed(c.status())]),
+                    logs_dir=cfg.logs_dir).snapshot()
+                snapshot_ms = (time.perf_counter() - t1) * 1e3
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                body = r.read().decode()
+        finally:
+            srv.stop()
+    check(sorted(results) == ["one", "two"]
+          and all(final and final["ok"] for _, final in results.values()),
+          f"{name}: runs {results}")
+    row = {r["agent"]: r for r in before["sentinel"]["rows"]}.get(hot)
+    check(row is not None and row["flagged"],
+          f"{name}: {hot} not flagged in {before['sentinel']['rows']}")
+    check(quiet, f"{name}: the daemon's sentinel kept scoring after the runs")
+    moved = [(a, b) for a, b in zip(before["sentinel"]["rows"],
+                                    after["sentinel"]["rows"]) if a != b]
+    check(not moved and len(before["sentinel"]["rows"])
+          == len(after["sentinel"]["rows"]),
+          f"{name}: the sentinel's rows moved while the consoles read them: "
+          f"{moved[:4]}")
+    check(once.returncode == 0 and js.returncode == 0,
+          f"{name}: fleet console exited {once.returncode} / "
+          f"{js.returncode}: {once.stderr[-2000:]} {js.stderr[-2000:]}")
+    feed = json.loads(js.stdout)
+    json_z = {a["agent"]: a["anomaly_z"] for r in feed["runs"]
+              for a in r["agents"]}
+    check(json_z.get(hot) == round(row["latest_z"], 2),
+          f"{name}: --format json z {json_z.get(hot)}, sentinel row "
+          f"{row['latest_z']}")
+    line = next((ln for ln in once.stdout.splitlines()
+                 if ln.strip().startswith(hot + " ")), "")
+    check(line.split()[-1:] == [f"{json_z[hot]:.1f}"]
+          and "ANOM-Z" in once.stdout,
+          f"{name}: --once row {line!r}, want ANOM-Z {json_z[hot]:.1f}")
+    check(all(f"run {rid}" in snapshot for rid in runs),
+          f"{name}: snapshot lacks a run: {snapshot[:3000]}")
+    sample = re.search(
+        rf'^anomaly_score\{{agent="{re.escape(hot)}"\}} (\S+)$', body, re.M)
+    ticks = re.search(r'^sentinel_ticks_total\{result="scored"\} (\S+)$',
+                      body, re.M)
+    check(sample and abs(float(sample[1]) - row["latest_z"]) <= 0.005
+          and ticks and float(ticks[1]) >= 1,
+          f"{name}: /metrics anomaly_score {sample and sample[1]}, scored "
+          f"ticks {ticks and ticks[1]}, sentinel row {row['latest_z']}")
+    scored = log.check_run(name)
+    launches = log.launches()
+    print(f"{name} loopd with its metrics port: two runs x {LOOP_AGENTS} "
+          f"loops in {wall!r} ms; {hot} ANOM-Z {json_z[hot]} in `fleet "
+          f"console --once` ({once_ms!r} ms) and --format json "
+          f"({js_ms!r} ms) = sentinel row {row['latest_z']} = /metrics "
+          f"{sample[1]}; scored ticks in /metrics {ticks[1]}; snapshot of "
+          f"{len(runs)} runs in {snapshot_ms!r} ms; {len(log.ticks)} ticks, "
+          f"{len(scored)} scored, launches {json.dumps(launches)}")
+    return launches
+
+
+class _StubCollector:
+    """An OTLP/HTTP collector on a free loopback port that keeps each
+    ``POST /v1/logs`` body."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, HTTPServer
+
+        bodies = self.bodies = []
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):          # noqa: N802 -- http.server contract
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n)
+                if self.path == "/v1/logs":
+                    bodies.append(json.loads(raw))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.srv = HTTPServer(("127.0.0.1", 0), Handler)
+        self.endpoint = f"http://127.0.0.1:{self.srv.server_address[1]}"
+        self._thread = threading.Thread(
+            target=self.srv.serve_forever, kwargs={"poll_interval": 0.05},
+            daemon=True, name="otlp-stub")
+        self._thread.start()
+
+    def stop(self) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self._thread.join(5)
+
+    def samples(self, body: dict) -> list[dict]:
+        return [json.loads(r["body"]["stringValue"])
+                for rl in body["resourceLogs"] for sl in rl["scopeLogs"]
+                for r in sl["logRecords"]]
+
+
+def views_export_case(base: Path, device, stages: dict):
+    """(d): ``loop -p 8 -n 3 --sentinel --metrics-port <free> --json`` in
+    process (``CliRunner``) with settings ``telemetry.otlp`` and
+    ``CLAWKER_TPU_OTLP`` naming a stub collector: a scrape during the run
+    must carry the burst agent's ``anomaly_score``; after it the stub
+    must hold batches of service ``clawker-telemetry`` only, the last (the
+    final flush of ``stop()``) with that agent's ``anomaly_score``; each
+    scored tick one K3 and one K1."""
+    import urllib.request
+
+    import clawker_tpu_torch.sentinel as S
+    from clawker_tpu_torch import cli
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.fake import exit_behavior
+
+    name = "views (d)"
+    port = _free_port()
+    settings = VIEWS_SETTINGS + (
+        f"telemetry:\n  otlp: true\nsentinel:\n  interval_s: {LOOP_TICK_S}\n"
+        f"  train_steps: {SENTINEL_STEPS}\n")
+    stub = _StubCollector()
+    real = S.FleetSentinel
+    box: dict = {}
+
+    def make(cfg, driver, *, run_id, **kw):
+        # the run's agents are known once its id is: their egress lands
+        # before the sentinel's first tick
+        sentinel = real(cfg, driver, run_id=run_id, **kw)
+        box["log"] = TickLog(sentinel, stages)
+        agents = [f"loop-{run_id[:6]}-{i}" for i in range(LOOP_AGENTS)]
+        box["hot"] = agents[LOOP_HOT_SLOT]
+        egress = _loop_egress(agents, box["hot"], time.time())
+        box["want"] = sum(len(v) for v in egress.values())
+        for wid, recs in egress.items():
+            _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+        box["sentinel"] = sentinel
+        return sentinel
+
+    scrapes: list[str] = []
+    done = threading.Event()
+
+    def scraper():
+        while not done.is_set():
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
+                    body = r.read().decode()
+            except OSError:
+                time.sleep(0.02)
+                continue
+            hot = box.get("hot")
+            if hot and f'anomaly_score{{agent="clawker.{LOOP_PROJECT}.{hot}"}}' \
+                    in body:
+                scrapes.append(body)
+                return
+            time.sleep(0.02)
+
+    env = {"CLAWKER_TPU_OTLP": stub.endpoint, "CLAWKER_TORCH_DEVICE": device}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    S.FleetSentinel = make
+    thread = threading.Thread(target=scraper, daemon=True, name="scraper")
+    try:
+        with _isolated_dirs(base, settings, proxy=False) as proj:
+            drv = FakeDriver(n_workers=LOOP_WORKERS)
+            for api in drv.apis:
+                api.add_image(LOOP_IMAGE)
+                api.set_behavior(LOOP_IMAGE, exit_behavior(
+                    b"iteration done\n", 0, delay=LOOP_ITER_S))
+            thread.start()
+            t0 = time.perf_counter()
+            res = _cli_runner().invoke(
+                cli.cli, ["loop", "-p", str(LOOP_AGENTS), "-n",
+                          str(LOOP_ITERATIONS), "--sentinel", "--no-daemon",
+                          "--metrics-port", str(port), "--json"],
+                obj=cli.Factory(cwd=proj, driver=drv))
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        done.set()
+        thread.join(5)
+        S.FleetSentinel = real
+        stub.stop()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(res.exit_code == 0, f"{name}: exited {res.exit_code}: "
+          f"{res.output[-3000:]} {res.exception!r}")
+    doc = json.loads(res.stdout)
+    check(all(a["status"] == "done" for a in doc["agents"]),
+          f"{name}: agents {doc['agents']}")
+    container = f"clawker.{LOOP_PROJECT}.{box['hot']}"
+    check(scrapes, f"{name}: no scrape during the run carried "
+          f"anomaly_score for {container}")
+    services = {rl["resource"]["attributes"][0]["value"]["stringValue"]
+                for b in stub.bodies for rl in b["resourceLogs"]}
+    check(stub.bodies and services == {"clawker-telemetry"},
+          f"{name}: {len(stub.bodies)} batches of services {services}")
+    last = [r for r in stub.samples(stub.bodies[-1])
+            if r["metric"] == "anomaly_score"
+            and r["labels"].get("agent") == container]
+    z = {a["agent"]: a.get("anomaly_z") for a in doc["agents"]}[box["hot"]]
+    check(last and abs(last[0]["value"] - z) <= 0.005,
+          f"{name}: the final flush's anomaly_score for {container} "
+          f"{last}, status z {z}")
+    scored = box["log"].check_run(name)
+    launches = box["log"].launches()
+    print(f"{name} loop in process with --metrics-port and telemetry.otlp:"
+          f" run wall {wall!r} ms; a scrape mid-run carried {container}; "
+          f"the stub took {len(stub.bodies)} batches of clawker-telemetry, "
+          f"the last with anomaly_score {last[0]['value']} (status z {z}); "
+          f"{len(box['log'].ticks)} ticks, {len(scored)} scored, launches "
+          f"{json.dumps(launches)}")
+    return launches
+
+
+def _console_status_doc(runs: int, per_run: int, tick: int,
+                        statuses: dict) -> dict:
+    """A copy of bench.py:2084-2135: a loopd status RPC doc for ``runs``
+    hosted runs of ``per_run`` agents each."""
+    workers = [f"w{i}" for i in range(4)]
+    run_docs = []
+    for r in range(runs):
+        agents = []
+        for i in range(per_run):
+            status, iteration = statuses.get((r, i), ("running", 1))
+            agents.append({
+                "agent": f"loop-r{r}-{i:03d}", "worker": workers[i % 4],
+                "status": status, "iteration": iteration,
+                "exit_codes": [0],
+                **({"anomaly_z": 4.2} if i == 7 else {}),
+            })
+        run_docs.append({
+            "run": f"run{r:02d}", "state": "running", "tenant": f"t{r}",
+            "client": "bench", "parallel": per_run, "iterations": 4,
+            "placement": "spread", "agents": agents, "subscribers": 1,
+            "events_dropped": tick % 3,
+        })
+    return {
+        "pid": 4242, "project": "bench", "uptime_s": float(tick),
+        "runs": run_docs,
+        "admission": {
+            "workers": {w: {"inflight": 2, "capacity": 4, "pending": 0,
+                            "inflight_hwm": 3, "dispatched": 40 + tick,
+                            "rejected": 0} for w in workers},
+            "tenants": {f"t{r}": {"weight": 1.0, "inflight": 2,
+                                  "queued": 1, "dispatched": 10 + tick}
+                        for r in range(runs)},
+        },
+        "health": [{"worker": w, "state": "closed",
+                    "breaker_state_gauge": 0, "probe_p50_ms": 1.2,
+                    "probe_p95_ms": 2.0, "probes": 100 + tick,
+                    "probe_failures": 0, "orphaned": 0,
+                    "migrations_out": 0, "migrations_in": 0,
+                    "last_error": ""} for w in workers],
+        "workerd": {w: "ok" for w in workers},
+        "warm_pools": {"run00": {"target_depth": 2, "hits": 9, "misses": 1,
+                                 "refills": 3, "recycled": 0,
+                                 "workers": {w: {"ready": 2, "inflight": 0}
+                                             for w in workers}}},
+        "sentinel": {"enabled": True, "ticks": tick, "rows": []},
+        "shipper": {"enabled": True, "ingested_docs": 100 * tick,
+                    "pending_batches": 0, "dropped_docs": 0},
+        "events_dropped_total": tick % 3,
+    }
+
+
+def views_repaint_case(base: Path) -> None:
+    """(e): the reference bench's ``bench_console_repaint``
+    (bench.py:2137-2210) on the port: 256 agents over 4 runs, 8 rows
+    changing a frame, 80 frames, span waterfalls tailed from a real
+    flight file; the p95 of a frame's build + paint must be under
+    CONSOLE_REPAINT_BUDGET_MS and the frame no taller than
+    CONSOLE_FRAME_LINE_BOUND.  Host work, on the chip host's CPU."""
+    from clawker_tpu_torch.loopd.feed import console_feed
+    from clawker_tpu_torch.monitor.ledger import flight_path
+    from clawker_tpu_torch.telemetry.spans import SpanRecord
+    from clawker_tpu_torch.ui import IOStreams
+    from clawker_tpu_torch.ui.fleetconsole import FleetConsole
+
+    name = "views (e)"
+    per_run = CONSOLE_AGENTS // CONSOLE_RUNS
+    statuses: dict = {}
+    tick = [0]
+    if base.exists():
+        shutil.rmtree(base)
+    fpath = flight_path(base, "run00")
+    fpath.parent.mkdir(parents=True)
+    with open(fpath, "w", encoding="utf-8") as fh:
+        for i in range(64):
+            root = SpanRecord(
+                trace_id="run00", span_id=f"s{i}", parent_id="",
+                name="iteration", agent=f"loop-r0-{i % 8:03d}",
+                worker=f"w{i % 4}", t_start=float(i),
+                t_end=float(i) + 0.5, attrs={"iteration": i})
+            child = SpanRecord(
+                trace_id="run00", span_id=f"c{i}", parent_id=f"s{i}",
+                name="wait", agent=root.agent, worker=root.worker,
+                t_start=float(i) + 0.1, t_end=float(i) + 0.4,
+                attrs={"iteration": i})
+            fh.write(json.dumps(root.to_json()) + "\n")
+            fh.write(json.dumps(child.to_json()) + "\n")
+
+    def feed_fn() -> dict:
+        return console_feed(_console_status_doc(
+            CONSOLE_RUNS, per_run, tick[0], statuses))
+
+    streams, _, out, _ = IOStreams.test()
+    console = FleetConsole(streams, feed_fn, logs_dir=base)
+    samples = []
+    for f in range(CONSOLE_FRAMES):
+        tick[0] = f
+        for j in range(8):
+            statuses[(j % CONSOLE_RUNS, (f + j) % per_run)] = (
+                "running" if (f + j) % 5 else "done", f)
+        t0 = time.perf_counter()
+        console.render_once()
+        samples.append((time.perf_counter() - t0) * 1000)
+        out.truncate(0)
+        out.seek(0)
+    lines = len(console.frame_lines(feed_fn()))
+    stats = console.painter.stats()
+    samples.sort()
+    p50 = samples[len(samples) // 2]
+    p95 = samples[int(len(samples) * 0.95) - 1]
+    ratio = stats["rows_painted"] / max(1, stats["rows_total"])
+    check(p95 < CONSOLE_REPAINT_BUDGET_MS and lines <= CONSOLE_FRAME_LINE_BOUND,
+          f"{name}: p95 {p95} ms (budget {CONSOLE_REPAINT_BUDGET_MS}), "
+          f"frame {lines} lines (bound {CONSOLE_FRAME_LINE_BOUND})")
+    print(card_line())
+    print(f"{name} fleet console repaint, host work on the chip host's CPU "
+          f"(no device time): {CONSOLE_AGENTS} agents over {CONSOLE_RUNS} "
+          f"runs, {CONSOLE_FRAMES} frames: frame p50 {p50!r} ms, p95 "
+          f"{p95!r} ms (budget {CONSOLE_REPAINT_BUDGET_MS}), frame {lines} "
+          f"lines (bound {CONSOLE_FRAME_LINE_BOUND}), damage ratio {ratio!r}"
+          f" ({stats['rows_painted']} of {stats['rows_total']} rows)")
+
+
+def views_phase(device) -> collections.Counter:
+    """Drives the live views of a run -- the loop dashboard, the fleet
+    console, the metrics scrape and the OTLP lane -- over the sentinel
+    scoring on the card; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "views"
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    with stage_timers({}) as stages:
+        total.update(views_dashboard_case(out / "a", device, stages))
+    views_cli_case(out / "b", device)
+    with stage_timers({}) as stages:
+        total.update(views_loopd_case(out / "c", device, stages))
+    with stage_timers({}) as stages:
+        total.update(views_export_case(out / "d", device, stages))
+    views_repaint_case(out / "e")
+    no_daemon_left()
+    print(f"views launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -4753,6 +5585,8 @@ def main() -> int:
     for k, v in worktrees_phase(device).items():
         main_path["launches"][k] += v
     for k, v in chaos_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in views_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

@@ -26,7 +26,13 @@ start|stop|status`` ``clawker_tpu/cli/cmd_workerd.py``, ``trace``
 and settings ``capacity.enable`` as the reference's does, and ``chaos
 run|replay|plan`` is ``clawker_tpu/cli/cmd_chaos.py``: the soak, whose
 sentinel scenarios and observe-only twin score on the GPU (without one
-``chaos run`` exits 1 before any scenario runs).  The device comes from
+``chaos run`` exits 1 before any scenario runs).  On a terminal, and
+without ``--json``, an in-process ``loop`` paints the reference's
+``LoopDashboard`` (its ANOM-Z column holds the riders' scores);
+``--metrics-port`` (settings ``telemetry.metrics_port``) serves the
+metrics registry and settings ``telemetry.otlp`` ships it to a
+collector.  ``fleet console`` is ``clawker fleet console``
+(``clawker_tpu/cli/cmd_fleet.py:901-972``).  The device comes from
 ``CLAWKER_TORCH_DEVICE`` (default ``cuda``); ``cpu`` runs the plain
 PyTorch versions.
 """
@@ -285,6 +291,71 @@ def fleet_anomaly(ctx, watch, interval, ticks, window, train_steps,
         raise SystemExit(2)
 
 
+@fleet_group.command("console")
+@click.option("--fps", type=float, default=4.0,
+              help="Repaint rate for the live view.")
+@click.option("--once", is_flag=True,
+              help="Render one plain frame and exit (scripts/CI).")
+@click.option("--format", "fmt", type=click.Choice(["table", "json"]),
+              default="table",
+              help="json emits the console feed document -- the same "
+                   "schema `loopd status --format json` carries under its "
+                   "`console` key.")
+@click.option("--no-spans", is_flag=True,
+              help="Skip the flight-recorder span waterfalls.")
+@click.pass_context
+def fleet_console(ctx, fps, once, fmt, no_spans):
+    """Live multi-run fleet console over the loopd status RPC.
+
+    One pane of glass over every run the daemon hosts: per-loop status
+    with the daemon sentinel's ANOM-Z, per-worker breaker/admission-token/
+    workerd rows, tenant queues, warm pools, ingest state, and span
+    waterfalls tailed from each run's flight recorder.  Requires a
+    running loopd (`loopd start`); Ctrl-C exits the console, never a
+    run.  ``clawker_tpu/cli/cmd_fleet.py:901-972``.
+    """
+    from .errors import ClawkerError
+    from .loopd.client import discover_all
+    from .loopd.feed import console_feed, merge_feeds
+    from .ui.fleetconsole import FleetConsole
+
+    f = _factory(ctx)
+    # every federated pod's daemon (single-pod fleets get exactly the
+    # one canonical socket)
+    clients = discover_all(f.config, require_project=_project(f))
+    if not clients:
+        click.echo("fleet console: no loopd daemon answering (start one "
+                   "with `loopd start`)", err=True)
+        raise SystemExit(1)
+
+    def feed_fn() -> dict:
+        return merge_feeds([console_feed(c.status()) for c in clients])
+
+    try:
+        if fmt == "json":
+            click.echo(json.dumps(feed_fn(), indent=2))
+            return
+        console = FleetConsole(
+            f.streams, feed_fn,
+            logs_dir=None if no_spans else f.config.logs_dir, fps=fps)
+        if once or not f.streams.is_stdout_tty():
+            click.echo(console.snapshot())
+            return
+        try:
+            while True:
+                console.render_once()
+                time.sleep(1.0 / max(0.5, fps))
+        except KeyboardInterrupt:
+            pass
+    except (ClawkerError, OSError) as e:
+        # OSError too: a daemon killed mid-poll surfaces as a raw
+        # BrokenPipe from the socket send, not a wrapped protocol error
+        raise click.ClickException(f"fleet console: loopd went away ({e})")
+    finally:
+        for c in clients:
+            c.close()
+
+
 def _loopd_status(f, no_daemon: bool) -> dict | None:
     """One status RPC to this project's loopd, or None (score locally).
     Project-scoped like the loop submit path: another project's daemon
@@ -325,8 +396,8 @@ ENV_DRIVER = "CLAWKER_TPU_DRIVER"
 
 
 class Factory:
-    """The dependencies ``loop`` needs, built lazily: the port's copy of
-    the ``config`` and ``driver`` properties of
+    """The dependencies the verbs need, built lazily: the port's copy of
+    the ``streams``, ``config`` and ``driver`` properties of
     ``clawker_tpu/cli/factory.py``.  Tests pass a driver in; the CLI
     takes it from ``CLAWKER_TPU_DRIVER`` or settings ``runtime.driver``."""
 
@@ -335,6 +406,12 @@ class Factory:
         self.cwd = cwd or Path.cwd()
         self._driver_override = driver
         self._config_override = config
+
+    @functools.cached_property
+    def streams(self):
+        from .ui import IOStreams
+
+        return IOStreams()
 
     @functools.cached_property
     def config(self):
@@ -473,8 +550,8 @@ def _not_ported(what: str) -> click.ClickException:
                    "scheduler death: adopt still-running containers, "
                    "account missed exits, re-launch the rest.")
 @click.option("--metrics-port", type=int, default=None,
-              help="Prometheus scrape port (not yet ported: any port "
-                   "above 0 is refused).")
+              help="Serve Prometheus metrics on 127.0.0.1:PORT during the "
+                   "run (default: settings telemetry.metrics_port; 0 = off).")
 @click.option("--sentinel/--no-sentinel", "sentinel_flag", default=None,
               help="Attach the online fleet sentinel in place of the "
                    "egress AnomalyWatch: fused egress + behavior windows "
@@ -572,6 +649,8 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     settings = cfg.settings
     tele = settings.telemetry
     defaults = settings.loop
+    live = f.streams.is_stdout_tty() and not as_json
+    dashboard = None
     run_image = None
     if resume_run:
         # --resume stays in process: it reconciles against a DEAD
@@ -648,12 +727,6 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         driver = f.driver
     except ClawkerError as e:
         raise click.ClickException(str(e))
-    port = metrics_port if metrics_port is not None else tele.metrics_port
-    if port:
-        raise _not_ported("the metrics server (--metrics-port, settings "
-                          "telemetry.metrics_port)")
-    if tele.otlp:
-        raise _not_ported("the OTLP metrics lane (settings telemetry.otlp)")
     want_ship = (ship_telemetry if ship_telemetry is not None
                  else settings.monitoring.shipper.enable)
     # the riders score on the GPU: without one (and without
@@ -665,7 +738,11 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
     def on_event(agent, event, detail=""):
         if event == "trace.span":
             return      # spans go to the flight recorder; the stderr
-            #             lines stay the lifecycle stream
+            #             lines / dashboard ticker stay the lifecycle
+            #             stream
+        if dashboard is not None:
+            dashboard.record_event(agent, event, detail)
+            return
         click.echo(f"[{agent}] {event}" + (f" {detail}" if detail else ""),
                    err=True)
 
@@ -728,6 +805,27 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
         chaos = ChaosController(sched, driver, plan)
         click.echo(f"chaos: applying {len(plan.events)} event(s) from "
                    f"{chaos_plan} (seed {plan.seed})", err=True)
+    from . import telemetry
+
+    feed = None
+    metrics_server = None
+    shipper = None
+    port = metrics_port if metrics_port is not None else tele.metrics_port
+    if port:
+        metrics_server = telemetry.MetricsServer(port).start()
+        click.echo(f"metrics: http://127.0.0.1:{metrics_server.port}/metrics",
+                   err=True)
+    if tele.otlp:
+        try:
+            lane = telemetry.telemetry_lane(cfg)
+        except ClawkerError as e:
+            if metrics_server is not None:
+                metrics_server.stop()
+            if executors is not None:
+                executors.close_all()
+            raise click.ClickException(str(e))
+        if lane is not None:
+            shipper = telemetry.MetricsOtlpShipper(lane).start()
     # --- bulk ingestion into the monitor stack (docs/fleet-console.md):
     # registry snapshots + typed bus events + flight spans into the
     # OpenSearch bulk API under bounded batching -- a down index drops
@@ -764,6 +862,18 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
                              device=device)
         sched.attach_anomaly_watch(watch)
     watch.start()
+    if live:
+        # the shared monitor TUI over the fan-out, with every worker's
+        # egress stream merged into the ticker
+        from .fleet.egress_tail import EgressFeed
+        from .ui.dashboard import LoopDashboard
+
+        feed = EgressFeed()
+        local_log = cfg.logs_dir / "ebpf-egress.jsonl"
+        for w in driver.workers():
+            feed.add_worker(w, local_path=local_log)
+        dashboard = LoopDashboard(f.streams, sched, egress_path=local_log,
+                                  egress_feed=feed)
     signal.signal(signal.SIGINT, _TwoStageInterrupt(sched))
     signal.signal(signal.SIGTERM,
                   lambda *_: sched.request_shutdown("sigterm"))
@@ -792,13 +902,25 @@ def _run_loops(f: Factory, *, parallel, iterations, placement, tenant,
                 err=True)
         else:
             sched.start()
-        loops = sched.run()
+        if dashboard is not None:
+            with dashboard:
+                loops = sched.run()
+        else:
+            loops = sched.run()
     finally:
+        # the dashboard's last frame is painted by now: the feed, the
+        # rider and the exporters stop after it, in the reference's order
         if chaos is not None:
             chaos.stop()
+        if feed is not None:
+            feed.stop()
         watch.stop()
+        if shipper is not None:
+            shipper.stop()
         if bulk_shipper is not None:
             bulk_shipper.stop()
+        if metrics_server is not None:
+            metrics_server.stop()
         if executors is not None:
             executors.close_all()
     if not keep:

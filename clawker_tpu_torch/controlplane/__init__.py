@@ -1,2 +1,3 @@
-"""Control plane: only its start-time service hooks are ported
-(:mod:`.bootstrap`); the control-plane daemon waits (ROADMAP §1)."""
+"""Control plane: only its start-time service hooks (:mod:`.bootstrap`)
+and its OTLP log lanes (:mod:`.otel`) are ported; the control-plane
+daemon waits (ROADMAP §1)."""

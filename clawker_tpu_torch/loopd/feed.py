@@ -20,8 +20,8 @@ Normalizations over the raw RPC doc:
   stable keys with absent sections as empty containers, so consumers
   never need ``.get`` chains.
 
-The port's copy of ``clawker_tpu/loopd/feed.py``, whole (the fleet
-console that renders it waits for ROADMAP §1 item 11).
+The port's copy of ``clawker_tpu/loopd/feed.py``, whole; the port's
+``fleet console`` (:mod:`clawker_tpu_torch.ui.fleetconsole`) renders it.
 """
 
 from __future__ import annotations

@@ -55,8 +55,10 @@ rider that fails to start is logged and left out: the telemetry shipper
 (settings ``monitoring.shipper.enable``) and the elastic capacity
 controller (settings ``capacity.enable``, with its own ``loopd-capacity``
 WAL and tick thread); the status RPC carries their ``shipper`` and
-``capacity`` rows.  The metrics server (a metrics port, ROADMAP §1 item
-10) waits for its slice and raises a :class:`ConfigError` at start.
+``capacity`` rows.  With a metrics port (the ``metrics_port`` argument or
+settings ``loopd.metrics_port``) the daemon serves its registry -- the
+sentinel's ``anomaly_score`` among it -- on ``127.0.0.1:<port>/metrics``,
+and the status RPC reports the port.
 Worktree specs run as the reference's do: the scheduler provisions the
 worktrees, lands the branches through its merge queue and arms gitguard,
 and the status RPC's ``gitguard`` row is the run's
@@ -85,7 +87,7 @@ from ..agentd import protocol
 from ..chaos.seams import NULL_SEAMS
 from ..config import Config
 from ..engine.drivers import RuntimeDriver
-from ..errors import ClawkerError, ConfigError
+from ..errors import ClawkerError
 from ..health import HealthMonitor
 from ..loop import LaneRegistry, LoopScheduler, LoopSpec
 from ..monitor.events import TRACE_SPAN
@@ -316,6 +318,7 @@ class LoopdServer:
         self._started_at = 0.0
         self._metrics_port = (metrics_port if metrics_port is not None
                               else cfg.settings.loopd.metrics_port)
+        self._metrics_server = None
         self.sentinel = None        # daemon-lifetime FleetSentinel when
         #                             settings sentinel.enable
         self.shipper = None         # daemon-lifetime TelemetryShipper when
@@ -364,10 +367,8 @@ class LoopdServer:
     def start(self) -> "LoopdServer":
         """Bind the control socket (0700 dir / 0600 socket -- the
         bksession/nsd hardening pattern), start the accept loop, the
-        daemon health monitor and the sentinel.  Before anything binds:
-        refuse by name what settings enable and the port does not carry,
-        and bring up the sentinel's card (:meth:`_bring_up`)."""
-        self._refuse_unported()
+        daemon health monitor, the sentinel and the metrics port.  Before
+        anything binds, bring up the sentinel's card (:meth:`_bring_up`)."""
         self._bring_up()
         rt = self.sock_path.parent
         rt.mkdir(parents=True, exist_ok=True)
@@ -402,22 +403,15 @@ class LoopdServer:
         if self.pressure is not None:
             threading.Thread(target=self._pressure_loop, daemon=True,
                              name="loopd-pressure").start()
+        if self._metrics_port:
+            self._metrics_server = telemetry.MetricsServer(
+                self._metrics_port).start()
         self._accept_thread = threading.Thread(
             target=self._accept_loop, daemon=True, name="loopd-accept")
         self._accept_thread.start()
         log.info("loopd listening on %s (pid %d)", self.sock_path,
                  os.getpid())
         return self
-
-    def _refuse_unported(self) -> None:
-        """The daemon rider the port does not carry yet, named only when
-        the ``metrics_port`` argument (settings ``loopd.metrics_port``)
-        asks for it."""
-        if self._metrics_port:
-            raise ConfigError(
-                "loopd: the metrics server (settings loopd.metrics_port) "
-                "is not yet ported to clawker_tpu_torch (ROADMAP §1 item "
-                "10)")
 
     def _bring_up(self) -> None:
         """With settings ``sentinel.enable``: resolve the sentinel's
@@ -682,6 +676,8 @@ class LoopdServer:
             self.sentinel.stop()
         if self.shipper is not None:
             self.shipper.stop()
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
         if self._capacity_journal is not None:
             self._capacity_journal.close()
         if self.flight is not None:
@@ -714,6 +710,8 @@ class LoopdServer:
             self.sentinel.kill_collector()
         if self.shipper is not None:
             self.shipper.kill()
+        if self._metrics_server is not None:
+            self._metrics_server.stop()
         if self.flight is not None:
             # the recorder FILE stays behind: a killed pod's submit
             # spans are exactly the surviving trace evidence the merge

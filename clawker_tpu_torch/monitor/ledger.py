@@ -5,11 +5,11 @@ The port's copy of the JSONL half of ``clawker_tpu/monitor/ledger.py``
 (``encode_record``, ``classify_line``, ``IntegrityReport``,
 ``parse_jsonl``, ``read_jsonl``, ``read_verified_prefix``,
 ``verify_jsonl``, ``TailState``, ``tail_jsonl``, ``flight_path``,
-``read_rotated_lines``, ``FlightRecorder``): the run journal and the
-flight recorder write through ``encode_record``, and each package reads
-what the other wrote.
-The monitoring-units ledger and the rotation-aware tail (``tail_rotated``,
-for the fleet console) are not ported yet.
+``read_rotated_lines``, ``read_rotated``, ``tail_rotated``,
+``FlightRecorder``): the run journal and the flight recorder write
+through ``encode_record``, and each package reads what the other wrote;
+the fleet console's ``SpanTail`` follows capped recorders through
+``tail_rotated``.  The monitoring-units ledger is not ported yet.
 
 **Flight recorder** -- the post-mortem half of the telemetry subsystem:
 an append-only JSONL ledger of one loop run's trace spans (and any
@@ -307,6 +307,45 @@ def read_rotated_lines(path: Path) -> list[str]:
     return lines
 
 
+def read_rotated(path: Path) -> list[dict]:
+    """:func:`read_jsonl` across the rotation boundary."""
+    return parse_jsonl(read_rotated_lines(path))
+
+
+def tail_rotated(path: Path, state: TailState) -> list[dict]:
+    """Rotation-aware incremental tail: like :func:`tail_jsonl`, but
+    when the file shrank because the recorder ROTATED (current ->
+    ``.1``), the old generation's remaining records are drained from
+    the prior offset before the cursor restarts on the new file -- a
+    console tailing a capped recorder loses nothing at the boundary.
+    ``state.resets`` still bumps, but only genuinely (a truncation, or
+    a second rotation between polls) loses records."""
+    path = Path(path)
+    try:
+        st = path.stat()
+        size, ino = st.st_size, st.st_ino
+    except OSError:
+        size, ino = -1, -1
+    out: list[dict] = []
+    if size >= 0 and (size < state.offset
+                      or (state.ino >= 0 and ino != state.ino)):
+        try:
+            with open(rotated_path(path), "rb") as f:
+                f.seek(state.offset - len(state.carry))
+                data = f.read()
+            lines = data.split(b"\n")
+            out.extend(parse_jsonl(
+                line.decode("utf-8", "replace") for line in lines))
+        except OSError:
+            pass        # double rotation / no .1: the remainder is gone
+        state.offset = 0
+        state.carry = b""
+        state.ino = -1          # adopt the new generation without a
+        state.resets += 1       # second reset inside tail_jsonl
+    out.extend(tail_jsonl(path, state))
+    return out
+
+
 class FlightRecorder:
     """Append-only JSONL record sink for one run.
 
@@ -321,7 +360,7 @@ class FlightRecorder:
     current file rotates to ``<path>.1`` (replacing any prior ``.1``)
     and a fresh generation starts, so the newest records are always in
     a readable, bounded pair of files.  Readers cross the boundary via
-    :func:`read_rotated_lines`.  0 = unbounded.
+    :func:`read_rotated` / :func:`tail_rotated`.  0 = unbounded.
     """
 
     def __init__(self, path: Path, *, max_bytes: int = 0):

@@ -39,6 +39,19 @@ def _run_isolated(code: str) -> dict:
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+# the terminal views, the egress feed and the metrics exporters
+VIEW_MODULES = ["clawker_tpu_torch.ui", "clawker_tpu_torch.ui.colors",
+                "clawker_tpu_torch.ui.iostreams", "clawker_tpu_torch.ui.table",
+                "clawker_tpu_torch.ui.damage",
+                "clawker_tpu_torch.ui.dashboard",
+                "clawker_tpu_torch.ui.fleetconsole",
+                "clawker_tpu_torch.fleet.egress_tail",
+                "clawker_tpu_torch.telemetry.httpserv",
+                "clawker_tpu_torch.telemetry.otlp",
+                "clawker_tpu_torch.controlplane.otel",
+                "clawker_tpu_torch.firewall.pki"]
+
+
 def _modules() -> list[str]:
     out = []
     for path in sorted(PKG.rglob("*.py")):
@@ -72,6 +85,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
             "clawker_tpu_torch.capacity.signals",
             "clawker_tpu_torch.monitor.shipper",
             "clawker_tpu_torch.testenv"} <= set(mods)
+    # and the live views of a run and the metrics exporters
+    assert set(VIEW_MODULES) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -164,7 +179,8 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     "clawker_tpu_torch.testenv",
                                     "clawker_tpu_torch.loopd.__main__",
                                     "clawker_tpu_torch.hostproxy.__main__",
-                                    "clawker_tpu_torch.socketbridge.container"])
+                                    "clawker_tpu_torch.socketbridge.container",
+                                    *VIEW_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -188,6 +204,20 @@ def test_daemon_entry_points_load_no_torch(module):
         f"importlib.import_module({module!r})\n"
         "print(json.dumps({'torch': 'torch' in sys.modules}))\n")
     assert doc == {"torch": False}
+
+
+@pytest.mark.parametrize("module", [m for m in VIEW_MODULES
+                                    if not m.endswith(".pki")])
+def test_views_and_exporters_load_no_torch_and_no_cryptography(module):
+    """The ui, the egress feed and the exporters are plain Python: they
+    load torch only when a frame needs the anomaly threshold, and the
+    OTLP lanes load ``cryptography`` only for an https collector."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'cryptography': 'cryptography' in sys.modules}))\n")
+    assert doc == {"torch": False, "cryptography": False}
 
 
 def _literals(path: Path) -> list[str]:

@@ -21,6 +21,7 @@ import dataclasses
 import json
 import logging
 import io
+import re
 import socket
 import tarfile
 import threading
@@ -632,6 +633,118 @@ def test_cli_loop_table_matches_reference(tmp_path, monkeypatch):
     assert table(got) == table(want) == [["done", "iters=1", "exits=0"]] * 2
 
 
+def _screen(text: str) -> list[str]:
+    """The rows a terminal shows after ``text``: the painter's
+    cursor-up, cursor-down and erase-line escapes applied (its rows
+    never wrap), colour escapes kept."""
+    rows, cur = [""], 0
+    for tok in re.split(r"(\x1b\[\d*[ABK]|\n)", text):
+        esc = re.fullmatch(r"\x1b\[(\d*)([ABK])", tok)
+        if tok == "\n" or (esc and esc[2] == "B"):
+            cur += 1 if tok == "\n" else int(esc[1] or 1)
+            rows += [""] * (cur + 1 - len(rows))
+        elif esc and esc[2] == "A":
+            cur -= int(esc[1] or 1)
+        elif esc:
+            rows[cur] = ""
+        else:
+            rows[cur] += tok
+    return rows
+
+
+# the sentinel's scores, injected: agent index -> latest z (None: no row)
+INJECTED_Z = {0: 0.25, 1: 1.5, 2: None, 3: 4.25}
+
+
+def _tty_cli(pkg: str, tmp_path: Path, monkeypatch, colour: str,
+             args: list[str]):
+    """``loop -p 4 -n 1 --sentinel ARGS`` with the package's Factory on
+    a stdout whose ``isatty()`` is true and a sentinel whose scores are
+    :data:`INJECTED_Z`: -> (CliRunner result, the screen's rows)."""
+    from test_torch_ui import COLOUR, FixedTime
+
+    m = PKGS[pkg]
+    if pkg == "ref":
+        import clawker_tpu.sentinel as sentinel
+        import clawker_tpu.ui.dashboard as dashboard
+        from clawker_tpu.ui.iostreams import IOStreams
+    else:
+        import clawker_tpu_torch.sentinel as sentinel
+        import clawker_tpu_torch.ui.dashboard as dashboard
+        from clawker_tpu_torch.ui.iostreams import IOStreams
+
+        monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")
+
+    def score_for(self, agent):
+        z = INJECTED_Z.get(int(agent.rsplit("-", 1)[1]))
+        return None if z is None else SimpleNamespace(latest=z)
+
+    cls = sentinel.FleetSentinel
+    monkeypatch.setattr(cls, "start", lambda self: None)
+    monkeypatch.setattr(cls, "stop", lambda self: None)
+    monkeypatch.setattr(cls, "score_for", score_for)
+    monkeypatch.setattr(dashboard, "time", FixedTime())
+    streams, _, out, _ = IOStreams.test()
+    streams.env = dict(COLOUR[colour])
+    streams.stdout.isatty = lambda: True
+    tenv, proj = _env(tmp_path, pkg)
+    try:
+        drv = _driver(m, 2)
+        if pkg == "ref":
+            f = ref_factory.Factory(cwd=proj, driver=drv)
+            argv = ["loop", *args, "--no-daemon", "--no-workerd"]
+            cli = ref_root.cli
+        else:
+            f = port_cli.Factory(cwd=proj, driver=drv)
+            argv = ["loop", *args]
+            cli = port_cli.cli
+        f.streams = streams
+        res = CliRunner().invoke(cli, argv, obj=f, catch_exceptions=False)
+    finally:
+        tenv.__exit__(None, None, None)
+    return res, _screen(out.getvalue())
+
+
+@pytest.mark.parametrize("colour", ["on", "off"])
+def test_cli_loop_on_a_tty_paints_the_dashboard_with_anom_z(
+        tmp_path, monkeypatch, colour):
+    """On a terminal ``loop`` paints the reference's dashboard: the same
+    final table with its ANOM-Z column and the same status bar, events
+    to the dashboard's ticker and not to stderr, and the same plain
+    lines on stdout after it."""
+    args = ["-p", "4", "-n", "1", "--sentinel"]
+    frames, outs = {}, {}
+    for pkg in ("ref", "port"):
+        res, rows = _tty_cli(pkg, tmp_path, monkeypatch, colour, args)
+        assert res.exit_code == 0, res.output
+        assert not re.search(r"^\[loop-", res.stderr, re.M), res.stderr
+        run = re.search(r"loop ([0-9a-f]{12})", rows[0])[1]
+        start = next(i for i, r in enumerate(rows) if "AGENT" in r)
+        table = rows[start:rows.index("", start)]
+        bar = [r for r in rows if "ctrl-c stops" in r]
+        frames[pkg] = [r.replace(run, "RUN").replace(run[:6], "RUN")
+                       for r in table + bar]
+        outs[pkg] = [line.split("\t")[2:] for line in res.stdout.splitlines()]
+    assert frames["port"] == frames["ref"]
+    assert outs["port"] == outs["ref"] == [["done", "iters=1", "exits=0"]] * 4
+    plain = [re.sub(r"\x1b\[[\d;]*m", "", r) for r in frames["port"]]
+    assert plain[0].split() == ["AGENT", "WORKER", "STATUS", "ITER",
+                                "EXITS", "ANOM-Z"]
+    assert [r.split()[-1] for r in plain[1:5]] == ["0.2", "1.5", "-", "4.2"]
+    assert "anom-max:4.2" in plain[-1] and "done:4" in plain[-1]
+    if colour == "on":
+        assert frames["port"][4].rstrip().endswith("\x1b[31m4.2\x1b[0m")
+
+
+def test_cli_loop_json_on_a_tty_paints_no_frame(tmp_path, monkeypatch):
+    for pkg in ("ref", "port"):
+        res, rows = _tty_cli(pkg, tmp_path, monkeypatch, "on",
+                             ["-p", "2", "-n", "1", "--sentinel", "--json"])
+        assert res.exit_code == 0, res.output
+        assert rows == [""], (pkg, rows)
+        assert json.loads(res.stdout)["agents"][1]["anomaly_z"] == 1.5
+
+
 def test_bring_up_on_the_cpu_builds_and_launches_nothing():
     from clawker_tpu_torch.kernels import anomaly as K
     from clawker_tpu_torch.kernels import build
@@ -647,14 +760,11 @@ def test_bring_up_on_the_cpu_builds_and_launches_nothing():
 
 
 @pytest.mark.parametrize("args,settings,needle", [
-    (["--metrics-port", "9100"], "", "metrics server"),
     # ported: with no workerd answering, --workerd fails as the
     # reference's does (tests/test_torch_workerd.py holds the twin)
     (["--workerd"], "", "no workerd answering"),
     (["--pods"], "", "federation"),
-    ([], "telemetry:\n  otlp: true\n", "OTLP"),
-    ([], "telemetry:\n  metrics_port: 9100\n", "metrics server"),
-], ids=["metrics-port", "workerd", "pods", "otlp", "metrics-setting"])
+], ids=["workerd", "pods"])
 def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
                                         settings, needle):
     monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")

@@ -81,7 +81,6 @@ import clawker_tpu_torch.consts as port_consts
 import clawker_tpu_torch.config as port_config
 import clawker_tpu_torch.engine.drivers as port_drivers
 import clawker_tpu_torch.engine.fake as port_fake
-import clawker_tpu_torch.errors as port_errors
 import clawker_tpu_torch.loop as port_loop
 import clawker_tpu_torch.loop.journal as port_journal
 import clawker_tpu_torch.loopd as port_loopd
@@ -956,19 +955,6 @@ def test_hosted_run_takes_a_warm_pool(tmp_path):
 
 
 # ------------------------------------------------ what the port refuses
-
-
-@pytest.mark.parametrize("settings,needle", [
-    ("loopd:\n  metrics_port: 9100\n", "metrics server"),
-], ids=["metrics-port"])
-def test_unported_daemon_riders_refuse_to_start(tmp_path, settings, needle):
-    with side("port", tmp_path, settings) as s:
-        srv = port_server.LoopdServer(s.cfg, driver_with(s.m, 1))
-        with pytest.raises(port_errors.ConfigError,
-                           match=f"{needle}.*not yet ported"):
-            srv.start()
-        assert not srv.sock_path.exists()
-        assert not port_loopd.pidfile_path(s.cfg).exists()
 
 
 def test_pods_stays_refused(tmp_path, cpu):
