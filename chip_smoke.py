@@ -210,7 +210,39 @@
    the reference bench's console repaint (256 agents over 4 runs, 80
    frames; host work): p95 under 50 ms, the frame at most 140 lines.
    Every scored tick of (a), (c) and (d) is one K3 and one K1.
-13. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+13. engines phase, its dirs under ``build/chip_smoke/engines/``, every
+   case over ``LocalDriver`` (the ``local`` driver's Docker HTTP
+   client) and a ``FakeEngineDaemon`` on a unix socket in its dir (the
+   loop image with (6)'s 0.2 s behaviour), stopped in a ``finally``;
+   HOME at a home holding the claude harness's host files: (a) (6a)'s
+   run on the one worker ``local-0`` with the reference's default warm
+   pool depth (prefilled) and the sentinel on the card: every loop
+   done, each agent's placement one create on the daemon (its own, or
+   the fill of the pool member it adopted) and its starts, the
+   client's pool ``reuses > 0`` and ``stale_retries == 0``, every
+   ``engine.request`` span of the flight record a child of a span of
+   the run's trace (unless the disk ladder sheds the record), the
+   burst agent's z at least ``ANOMALY_Z`` and flagged,
+   ``harness_seed.tar_cache_hit`` above 0; prints the run's wall, the
+   requests and the dials beside the card line; (b) one create: the
+   archive the daemon received at the container home holds
+   settings.json with only ``enabledPlugins``, CLAUDE.md byte for byte
+   and no credentials, and with settings ``credentials.stage: true``
+   the credentials too; (c) (a)'s run killed after iteration 1 and
+   resumed over a fresh ``LocalDriver``: the engine cannot relabel, so
+   an adopted pool member keeps its ``pool`` epoch label, and at least
+   one such row held by the journal is kept, with no create after the
+   kill for it; (d) ``python -m clawker_tpu_torch loop -p 4 -n 2
+   --sentinel --json`` forked with ``DOCKER_HOST`` at the daemon and
+   no ``CLAWKER_TPU_DRIVER`` exits 0 with its creates served; at an
+   absent socket it exits 1 with the reference's "Docker socket ...
+   not found" and the daemon sees no request; ``loopd start`` with
+   settings ``sentinel.enable`` hosts a 4-loop run against the daemon,
+   a scored daemon tick lands in its flight record, ``loopd stop``; (e)
+   the reference bench's ``bench_engine_dials`` (host work) through the
+   port's client over its ``StubDockerDaemon``: ``dial_reduction`` at
+   least 2.  Every scored tick of (a) and (c) is one K3 and one K1.
+14. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -5477,6 +5509,619 @@ def views_phase(device) -> collections.Counter:
     return total
 
 
+# --------------------------------------------------------- engines phase
+
+
+ENGINES_SETTINGS = ("loop:\n  storage_pressure:\n    soft_free_pct: 0.001\n"
+                    "    hard_free_pct: 0.0005\n")
+ENGINES_LOCAL = "local-0"       # the local driver's one worker
+BENCH_DIAL_DELAY_S = 0.01       # bench.py:1828's per-dial delay
+BENCH_DIAL_REDUCTION_MIN = 2.0  # its docstring's bar
+HARNESS_SETTINGS = {"enabledPlugins": {"chip-smoke@local": True},
+                    "apiKey": "not-for-the-container"}
+HARNESS_MEMORY = b"# chip smoke: the user's global memory\n"
+HARNESS_CREDENTIALS = b'{"claudeAiOauth": {"accessToken": "tok"}}'
+
+
+@contextlib.contextmanager
+def _engine_daemon(base: Path):
+    """A ``FakeEngineDaemon`` on a unix socket in ``base`` (a short
+    temporary directory when that path is too long for AF_UNIX),
+    serving a fake that holds the loop image with loop (a)'s
+    behaviour; stopped on the way out."""
+    import tempfile
+
+    from clawker_tpu_torch.engine.fake import FakeDockerAPI, exit_behavior
+    from clawker_tpu_torch.testenv import FakeEngineDaemon
+
+    sock = base / "engine.sock"
+    tmp = None
+    if len(str(sock).encode()) >= SUN_PATH_MAX:
+        tmp = Path(tempfile.mkdtemp(prefix="clawker-eng-"))
+        sock = tmp / "engine.sock"
+    api = FakeDockerAPI()
+    api.add_image(LOOP_IMAGE)
+    api.set_behavior(LOOP_IMAGE, exit_behavior(b"iteration done\n", 0,
+                                               delay=LOOP_ITER_S))
+    daemon = FakeEngineDaemon(sock, api).start()
+    try:
+        yield daemon
+    finally:
+        daemon.stop()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+@contextlib.contextmanager
+def _pinned_home(home: Path):
+    """HOME at ``home`` and ``CLAUDE_CONFIG_DIR`` unset (the harness
+    staging expands ``${CLAUDE_CONFIG_DIR:-~/.claude}``), the harness
+    tar cache dropped on the way in and out."""
+    from clawker_tpu_torch.runtime.orchestrate import clear_harness_seed_cache
+
+    saved = {k: os.environ.get(k) for k in ("HOME", "CLAUDE_CONFIG_DIR")}
+    os.environ["HOME"] = str(home)
+    os.environ.pop("CLAUDE_CONFIG_DIR", None)
+    clear_harness_seed_cache()
+    try:
+        yield home
+    finally:
+        clear_harness_seed_cache()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _harness_home(base: Path) -> Path:
+    """A home with the three host files the claude harness stages from."""
+    claude = base / "home" / ".claude"
+    if claude.exists():
+        shutil.rmtree(claude)
+    claude.mkdir(parents=True)
+    (claude / "settings.json").write_text(json.dumps(HARNESS_SETTINGS))
+    (claude / "CLAUDE.md").write_bytes(HARNESS_MEMORY)
+    (claude / ".credentials.json").write_bytes(HARNESS_CREDENTIALS)
+    return base / "home"
+
+
+def _local_egress(agents: list[str], hot: str) -> list[dict]:
+    """``_loop_egress`` with every record on the local driver's worker."""
+    out = [r for recs in _loop_egress(agents, hot, time.time()).values()
+           for r in recs]
+    for r in out:
+        r["worker"] = ENGINES_LOCAL
+    return out
+
+
+def _local_driver(daemon):
+    from clawker_tpu_torch.engine.drivers import LocalDriver
+
+    return LocalDriver(docker_host=f"unix://{daemon.sock_path}")
+
+
+def _creates_by_name(daemon) -> collections.Counter:
+    """Container names of the ``POST /containers/create`` requests in
+    the daemon's log."""
+    import urllib.parse
+
+    return collections.Counter(
+        urllib.parse.parse_qs(query).get("name", [""])[0]
+        for method, path, query, _ in list(daemon.log)
+        if (method, path) == ("POST", "/containers/create"))
+
+
+def _placements_served(name: str, daemon, records: list[dict]) -> dict:
+    """From the daemon's request log: each loop agent's placement was
+    one create -- its own cold create, or the pool fill of the member it
+    adopted, never both, never two -- and its container was started.
+    -> the counts."""
+    creates = _creates_by_name(daemon)
+    adopted = {r["by"]: r["agent"] for r in records
+               if r["kind"] == "pool_adopt"}
+    agents = sorted({r["agent"] for r in records if r["kind"] == "placement"})
+    per = {}
+    for a in agents:
+        cold = creates.get(f"clawker.{LOOP_PROJECT}.{a}", 0)
+        fill = creates.get(f"clawker.{LOOP_PROJECT}.{adopted[a]}", 0) \
+            if a in adopted else 0
+        per[a] = (cold, fill)
+    check(per and all(cold + fill == 1 for cold, fill in per.values()),
+          f"{name}: (cold creates, adopted pool fills) per agent {per}")
+    started = collections.Counter(
+        path.split("/")[2] for method, path, _, _ in list(daemon.log)
+        if method == "POST" and path.endswith("/start")
+        and path.startswith("/containers/"))
+    cids = collections.defaultdict(set)
+    for r in records:
+        if r["kind"] == "created" and r.get("cid"):
+            cids[r["agent"]].add(r["cid"])
+    starts = {a: started.get(f"clawker.{LOOP_PROJECT}.{a}", 0)
+              + sum(started.get(c, 0) for c in cids[a]) for a in agents}
+    check(all(n >= 1 for n in starts.values()),
+          f"{name}: container starts per agent {starts}")
+    return {"cold": sum(c for c, _ in per.values()),
+            "adopted": sum(f for _, f in per.values()),
+            "starts": sum(starts.values())}
+
+
+def _engine_spans(name: str, sched) -> tuple[int, str]:
+    """The run's flight record holds ``engine.request`` spans, each a
+    child of a span of the run's trace; a flight record the disk ladder
+    sheds is reported, not failed.  -> (spans, note)."""
+    from clawker_tpu_torch.telemetry import load_spans
+
+    if sched.pressure is not None and sched.pressure.is_shedding("flight"):
+        return 0, "flight record shed by the disk-pressure ladder"
+    spans = load_spans(sched.flight.path.read_text().splitlines())
+    eng = [sp for sp in spans if sp.name == "engine.request"]
+    ids = {sp.span_id for sp in spans}
+    orphans = [(sp.attrs.get("verb"), sp.attrs.get("path"), sp.parent_id)
+               for sp in eng if sp.trace_id != sched.loop_id
+               or sp.parent_id not in ids]
+    check(eng and not orphans,
+          f"{name}: {len(eng)} engine.request spans, {len(orphans)} without "
+          f"a parent in run {sched.loop_id}'s trace: {orphans[:5]}; span "
+          f"kinds {collections.Counter(sp.name for sp in spans)}")
+    verbs = collections.Counter(sp.attrs.get("verb") for sp in eng)
+    return len(eng), f"verbs {dict(verbs)}"
+
+
+def engines_loop_case(base: Path, device, stages: dict, home: Path):
+    """(a): loop (a)'s shape over ``LocalDriver`` and the daemon's unix
+    socket -- 8 loops x 3 iterations on the one worker, the reference's
+    default warm pool depth, the sentinel on the card, one hot agent in
+    the egress."""
+    from clawker_tpu_torch.analytics.runtime import ANOMALY_Z
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.sentinel import FleetSentinel
+    from clawker_tpu_torch.util import phases
+
+    name = "engines (a)"
+    with _pinned_home(home), _isolated_dirs(base, ENGINES_SETTINGS) as proj, \
+            _engine_daemon(base) as daemon:
+        cfg = load_config(proj)
+        drv = _local_driver(daemon)
+        sched = LoopScheduler(cfg, drv, LoopSpec(
+            parallel=LOOP_AGENTS, iterations=LOOP_ITERATIONS,
+            warm_pool_depth=RESUME_POOL_DEPTH))
+        members = sched.prefill_pool(timeout=30.0)
+        s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                          interval_s=LOOP_TICK_S, train_steps=SENTINEL_STEPS)
+        log = TickLog(s, stages)
+        sched.attach_sentinel(s)
+        agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+        hot = agents[LOOP_HOT_SLOT]
+        egress = _local_egress(agents, hot)
+        phases.enable()
+        t0 = time.perf_counter()
+        try:
+            s.start()
+            sched.start()
+            _append(cfg.logs_dir / f"ebpf-egress-{ENGINES_LOCAL}.jsonl",
+                    egress)
+            sched.run(poll_s=0.05)
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            counts = phases.counts()
+            phases.disable()
+        _wait(lambda: s._scored_at[0] >= len(egress), 10, LOOP_TICK_S)
+        s.stop()
+        sched.events.flush()
+        rows = sched.status()
+        flags = {f["agent"] for f in s.flags()}
+        stats = drv.engine().pool_stats()
+        spans, span_note = _engine_spans(name, sched)
+        records = _journal_records(cfg, sched.loop_id)
+        served = _placements_served(name, daemon, records)
+        sched.cleanup(remove_containers=True)
+        drv.close()
+        requests, unrouted = daemon.requests, list(daemon.unrouted)
+        routes = collections.Counter(daemon.routes)
+    scored = log.check_run(name)
+    _check_loop_rows(name, rows)
+    check(not unrouted, f"{name}: requests the daemon has no route for: "
+          f"{unrouted}")
+    check(stats["reuses"] > 0 and stats["stale_retries"] == 0,
+          f"{name}: the client's pool {stats}")
+    check(members == RESUME_POOL_DEPTH and served["adopted"] >= 1,
+          f"{name}: {members} pool members prefilled, placements {served}")
+    zs = {r["agent"]: r["anomaly_z"] for r in rows}
+    container = f"clawker.{LOOP_PROJECT}.{hot}"
+    check(zs[hot] >= ANOMALY_Z and max(zs, key=zs.get) == hot
+          and (container in flags or hot in flags),
+          f"{name}: {hot} z {zs[hot]} (threshold {ANOMALY_Z}, hottest "
+          f"{max(zs, key=zs.get)}), flags {sorted(flags)}")
+    check(counts.get("harness_seed.tar_cache_hit", 0) > 0,
+          f"{name}: harness seed cache {counts}")
+    dedicated = sum(routes[r] for r in ("container_wait", "container_stop",
+                                        "container_remove", "put_archive"))
+    print(card_line())
+    print(f"{name} {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations "
+          f"({LOOP_ITER_S} s each) on {ENGINES_LOCAL} over a unix socket "
+          f"(LocalDriver -> FakeEngineDaemon), warm pool "
+          f"{RESUME_POOL_DEPTH} (prefilled), the sentinel every "
+          f"{LOOP_TICK_S} s: run "
+          f"wall {wall!r} ms; {requests} requests served ({requests - dedicated}"
+          f" unary on the pool, {dedicated} wait/stop/remove/put_archive on "
+          f"dedicated sockets), client pool {stats}; placements {served}; "
+          f"harness seed cache hits {counts.get('harness_seed.tar_cache_hit')}"
+          f" misses {counts.get('harness_seed.tar_cache_miss')}; "
+          f"{spans} engine.request spans ({span_note}); {len(log.ticks)} "
+          f"ticks, {len(scored)} scored; {hot} z {zs[hot]}")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches()
+
+
+def engines_staging_case(base: Path, home: Path) -> None:
+    """(b): one agent created through ``LocalDriver`` with HOME at a
+    home holding the claude harness's three host files: the archive the
+    daemon received at the container home holds settings.json with
+    only ``enabledPlugins``, CLAUDE.md byte for byte and no credentials
+    -- and, with settings ``credentials.stage: true``, the credentials
+    too."""
+    import io
+    import tarfile
+
+    from clawker_tpu_torch import consts
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.runtime.orchestrate import AgentRuntime, CreateOptions
+
+    name = "engines (b)"
+    out = {}
+    for stage in (False, True):
+        settings = ENGINES_SETTINGS + ("credentials:\n  stage: true\n"
+                                       if stage else "")
+        case = base / ("stage" if stage else "default")
+        with _pinned_home(home), \
+                _isolated_dirs(case, settings, proxy=False) as proj, \
+                _engine_daemon(case) as daemon:
+            drv = _local_driver(daemon)
+            rt = AgentRuntime(drv.engine(), load_config(proj))
+            t0 = time.perf_counter()
+            cid = rt.create(CreateOptions(agent="dev",
+                                          workspace_mode="snapshot"))
+            create_ms = (time.perf_counter() - t0) * 1e3
+            tar = daemon.api.containers[cid].archives.get(
+                consts.CONTAINER_HOME)
+            puts = [r for r in daemon.log if r[0] == "PUT"
+                    and r[2] == "path=%2Fhome%2Fagent"]
+            rt.engine.remove_container(cid, force=True)
+            drv.close()
+        check(tar and len(puts) == 1,
+              f"{name}: archive at {consts.CONTAINER_HOME}: "
+              f"{len(tar or b'')} bytes, puts {puts}")
+        tf = tarfile.open(fileobj=io.BytesIO(tar))
+        files = {m.name: tf.extractfile(m).read() for m in tf.getmembers()
+                 if m.isfile()}
+        check(json.loads(files.get(".claude/settings.json", b"{}"))
+              == {"enabledPlugins": HARNESS_SETTINGS["enabledPlugins"]},
+              f"{name}: staged settings.json {files.get('.claude/settings.json')}")
+        check(files.get(".claude/CLAUDE.md") == HARNESS_MEMORY,
+              f"{name}: staged CLAUDE.md {files.get('.claude/CLAUDE.md')!r}")
+        creds = files.get(".claude/.credentials.json")
+        check(creds == (HARNESS_CREDENTIALS if stage else None),
+              f"{name}: credentials staged {creds!r} with "
+              f"credentials.stage {stage}")
+        out[stage] = (sorted(files), len(tar), create_ms)
+    print(f"{name} harness staging through the socket: default settings "
+          f"{out[False][0]} ({out[False][1]} tar bytes, create "
+          f"{out[False][2]!r} ms), credentials.stage {out[True][0]} "
+          f"({out[True][1]} bytes, create {out[True][2]!r} ms)")
+
+
+def engines_resume_case(base: Path, device, stages: dict, home: Path):
+    """(c): (a)'s run with its pool prefilled, killed once every loop
+    finished iteration 1, resumed over a fresh ``LocalDriver`` to the
+    same daemon.  Over HTTP the engine cannot relabel, so an adopted
+    pool member keeps its ``pool`` epoch label and the journal's
+    container id decides."""
+    from clawker_tpu_torch import consts
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.sentinel import FleetSentinel
+
+    name = "engines (c)"
+    with _pinned_home(home), _isolated_dirs(base, ENGINES_SETTINGS) as proj, \
+            _engine_daemon(base) as daemon:
+        cfg = load_config(proj)
+        drv1 = _local_driver(daemon)
+        check(not drv1.engine().supports_relabel,
+              f"{name}: the HTTP engine claims an in-place relabel")
+
+        def sentinel(drv, run_id: str):
+            s = FleetSentinel(cfg, drv, run_id=run_id, device=device,
+                              interval_s=LOOP_TICK_S,
+                              train_steps=SENTINEL_STEPS)
+            return s, TickLog(s, stages)
+
+        sched1 = LoopScheduler(cfg, drv1, LoopSpec(
+            parallel=LOOP_AGENTS, iterations=LOOP_ITERATIONS,
+            warm_pool_depth=RESUME_POOL_DEPTH))
+        members = sched1.prefill_pool(timeout=30.0)
+        check(members == RESUME_POOL_DEPTH,
+              f"{name}: prefill_pool filled {members} members")
+        agents = [sched1._agent_name(i) for i in range(LOOP_AGENTS)]
+        log_path = cfg.logs_dir / f"ebpf-egress-{ENGINES_LOCAL}.jsonl"
+        sen1, log1 = sentinel(drv1, sched1.loop_id)
+        sched1.attach_sentinel(sen1)
+        sen1.start()
+        sched1.start()
+        _append(log_path, _local_egress(agents, agents[LOOP_HOT_SLOT]))
+        _kill_after_iteration_1(sched1)
+        check(_wait(lambda: any(e[0] for e in log1.ticks), 10),
+              f"{name}: generation 1's sentinel scored no tick")
+        sen1.stop()
+        image = _journal_image(cfg, sched1.loop_id)
+        n_at_kill = len(_journal_records(cfg, sched1.loop_id))
+        creates_at_kill = _creates_by_name(daemon)
+        pool_epoch = {c.name.removeprefix(f"clawker.{LOOP_PROJECT}."): c.id
+                      for c in list(daemon.api.containers.values())
+                      if c.labels.get(consts.LABEL_LOOP_EPOCH)
+                      == consts.POOL_EPOCH and ".loop-" in c.name}
+        held = sorted(a for a, cid in pool_epoch.items()
+                      if a in image.loops
+                      and image.loops[a].container_id == cid)
+        drv1.close()
+        drv2 = _local_driver(daemon)
+        t0 = time.perf_counter()
+        sched2 = LoopScheduler.resume(cfg, drv2, image)
+        sen2, log2 = sentinel(drv2, sched1.loop_id)
+        sched2.attach_sentinel(sen2)
+        summary = sched2.reconcile()
+        reconcile_ms = (time.perf_counter() - t0) * 1e3
+        kept = sorted(a for a in held
+                      if pool_epoch[a] in daemon.api.containers)
+        sen2.start()
+        _append(log_path, _local_egress(agents, agents[RESUME_HOT2_SLOT]))
+        sched2.run(poll_s=0.05)
+        want = 2 * len(_local_egress(agents, agents[0]))
+        _wait(lambda: sen2._scored_at[0] >= want, 10, LOOP_TICK_S)
+        sen2.stop()
+        records = _journal_records(cfg, sched1.loop_id)
+        served = _placements_served(name, daemon, records)
+        dup = {n: k for n, k in (_creates_by_name(daemon)
+                                 - creates_at_kill).items()
+               if any(n.endswith("." + a) for a in held)}
+        rows = sched2.status()
+        sched2.cleanup(remove_containers=True)
+        drv2.close()
+        unrouted = list(daemon.unrouted)
+    _check_loop_rows(name, rows)
+    check(not unrouted, f"{name}: unrouted requests {unrouted}")
+    check(kept and not dup,
+          f"{name}: adopted rows still labelled with the pool epoch and "
+          f"held by the journal {held}, kept by reconcile {kept}, creates "
+          f"after the kill for them {dup} (summary {summary})")
+    check(summary["ghosts"] == 0 and summary["adopted"] + summary[
+        "exits_accounted"] + summary["continued"] > 0,
+          f"{name}: reconcile summary {summary}")
+    scored1 = log1.check_run(f"{name} generation 1")
+    scored2 = log2.check_run(f"{name} generation 2")
+    print(f"{name} warm pool over HTTP (no in-place relabel), {members} "
+          f"members prefilled, killed after iteration 1: reconcile "
+          f"{summary} in {reconcile_ms!r} ms over a fresh LocalDriver; "
+          f"pool-epoch rows taken as the journal's containers {kept}; "
+          f"{len(records) - n_at_kill} journal records after the kill, "
+          f"placements over both generations {served}; "
+          f"{len(scored1)} + {len(scored2)} scored ticks")
+    return log1.launches() + log2.launches()
+
+
+def engines_cli_case(base: Path, device: str) -> None:
+    """(d): ``loop -p 4 -n 2 --sentinel --json`` forked on default
+    settings with ``DOCKER_HOST`` at the daemon and no
+    ``CLAWKER_TPU_DRIVER``: exit 0, its creates served; at an absent
+    socket: exit 1 with the reference's text and no request; then
+    ``loopd start`` on default settings with ``sentinel.enable`` against
+    the daemon hosts a run of 4 loops with a scored daemon tick, and
+    ``loopd stop``."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.loopd import socket_path
+    from clawker_tpu_torch.monitor.ledger import FLIGHT_DIR
+
+    name = "engines (d)"
+
+    def env_for(host: str) -> dict:
+        env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+                   DOCKER_HOST=host, PYTHONPATH=str(ROOT))
+        for k in ("CLAWKER_TPU_DRIVER", "CLAWKER_TPU_FAKE_IMAGES"):
+            env.pop(k, None)
+        return env
+
+    def egress(cfg, tag: str) -> None:
+        agents = [f"{tag}-{i}" for i in range(LOOP_WINDOWS)]
+        cfg.logs_dir.mkdir(parents=True, exist_ok=True)
+        _append(cfg.logs_dir / f"ebpf-egress-{ENGINES_LOCAL}.jsonl",
+                _local_egress(agents, agents[-1]))
+
+    settings = (f"sentinel:\n  interval_s: {LOOP_CLI_TICK_S}\n"
+                + ENGINES_SETTINGS)
+    with _isolated_dirs(base / "loop", settings) as proj, \
+            _engine_daemon(base / "loop") as daemon:
+        egress(load_config(proj), "cli")
+        run, run_ms = _cli(["loop", "-p", "4", "-n", "2", "--sentinel",
+                            "--json"], proj,
+                           env_for(f"unix://{daemon.sock_path}"))
+        check(run.returncode == 0,
+              f"{name}: loop exited {run.returncode}: {run.stderr[-2000:]}")
+        doc = json.loads(run.stdout)
+        creates = daemon.routes["container_create"]
+        before = daemon.requests
+        absent = base / "loop" / "absent.sock"
+        gone, gone_ms = _cli(["loop", "-p", "4", "-n", "2", "--sentinel",
+                              "--json"], proj, env_for(f"unix://{absent}"))
+        after = daemon.requests
+    text = f"Docker socket {absent} not found -- is the Docker daemon running?"
+    check(len(doc["agents"]) == 4
+          and all(a["status"] == "done" and a["iteration"] == 2
+                  and a["worker"] == ENGINES_LOCAL for a in doc["agents"]),
+          f"{name}: agents {doc['agents']}")
+    check(creates >= 4, f"{name}: the daemon served {creates} creates")
+    check(gone.returncode == 1 and text in gone.stderr and after == before,
+          f"{name}: at an absent socket exited {gone.returncode} "
+          f"({gone.stderr[-1000:]!r}), the daemon saw "
+          f"{after - before} requests")
+    with _isolated_dirs(base / "loopd", LOOPD_SETTINGS) as proj, \
+            _engine_daemon(base / "loopd") as daemon:
+        cfg = load_config(proj)
+        egress(cfg, "daemon")
+        env = env_for(f"unix://{daemon.sock_path}")
+        flight = cfg.logs_dir / FLIGHT_DIR / "loopd-loopd.jsonl"
+        start, start_ms = _cli(["loopd", "start"], proj, env)
+        try:
+            check(start.returncode == 0,
+                  f"{name}: loopd start exited {start.returncode}: "
+                  f"{start.stderr[-2000:]} {start.stdout[-2000:]}")
+            hosted, hosted_ms = _cli(["loop", "-p", "4", "-n", "2", "--json"],
+                                     proj, env)
+            check(hosted.returncode == 0 and "daemon-owned" in hosted.stderr,
+                  f"{name}: loop under loopd exited {hosted.returncode}: "
+                  f"{hosted.stderr[-2000:]}")
+            hdoc = json.loads(hosted.stdout)
+            ticks = []
+            deadline = time.perf_counter() + 30
+            while not ticks and time.perf_counter() < deadline:
+                if flight.exists():
+                    ticks = [json.loads(line) for line in
+                             flight.read_text().splitlines()
+                             if '"sentinel.tick"' in line]
+                time.sleep(0.1)
+        finally:
+            stop, stop_ms = _cli(["loopd", "stop"], proj, env)
+        check(stop.returncode == 0 and not socket_path(cfg).exists(),
+              f"{name}: loopd stop exited {stop.returncode}: "
+              f"{stop.stderr[-2000:]}")
+        loopd_creates = daemon.routes["container_create"]
+    check(len(hdoc["agents"]) == 4
+          and all(a["status"] == "done" for a in hdoc["agents"])
+          and loopd_creates >= 4,
+          f"{name}: loopd's run {hdoc['agents']}, {loopd_creates} creates")
+    check(ticks and all(t["attrs"]["device"].startswith(device)
+                        for t in ticks),
+          f"{name}: scored ticks in loopd's flight record: "
+          f"{[t['attrs'] for t in ticks]}")
+    print(f"{name} forked on default settings over DOCKER_HOST: loop "
+          f"--sentinel {run_ms!r} ms, {creates} creates served; at an "
+          f"absent socket exit 1 in {gone_ms!r} ms, no request; loopd start "
+          f"{start_ms!r} ms, a hosted run of 4 loops {hosted_ms!r} ms "
+          f"({loopd_creates} creates), its first scored daemon tick on "
+          f"{ticks[0]['attrs']['device']} over "
+          f"{ticks[0]['attrs']['windows']} windows, loopd stop "
+          f"{stop_ms!r} ms")
+
+
+def bench_engine_dials(per_dial_delay: float = BENCH_DIAL_DELAY_S) -> dict:
+    """The reference bench's ``bench_engine_dials`` (bench.py:1828-1895)
+    over the port: the unary daemon calls of one create + start
+    (``AgentRuntime`` over the fake driver) replayed through the port's
+    ``HTTPDockerAPI`` over its ``StubDockerDaemon``, each dial paying
+    ``per_dial_delay``, once pooled and once dial-per-request
+    (``pool_max_idle=0``).  Host work: no kernel runs."""
+    import tempfile
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.httpapi import (HTTPDockerAPI,
+                                                  unix_socket_factory)
+    from clawker_tpu_torch.runtime.orchestrate import (AgentRuntime,
+                                                       CreateOptions)
+    from clawker_tpu_torch.testenv import StubDockerDaemon, TestEnv
+
+    non_unary = {"container_attach", "container_logs", "events", "exec_start",
+                 "image_build", "image_build_buildkit", "image_pull",
+                 "session_attach", "close", "close_events"}
+    with TestEnv() as tenv:
+        proj = tenv.base / "proj"
+        tenv.make_project(proj, "project: benchdials\n")
+        cfg = load_config(proj)
+        driver = FakeDriver()
+        driver.api.add_image("clawker-benchdials:default")
+        rt = AgentRuntime(driver.engine(), cfg)
+        cid = rt.create(CreateOptions(agent="a0", workspace_mode="snapshot"))
+        rt.start(cid)
+        unary = [(n, a, k) for n, a, k in driver.api.calls
+                 if n not in non_unary and hasattr(HTTPDockerAPI, n)]
+
+    with tempfile.TemporaryDirectory(prefix="clawker-bench-dials-") as td:
+        sock = Path(td) / "stub.sock"
+        daemon = StubDockerDaemon(sock).start()
+        try:
+            def replay(pooled: bool) -> tuple[int, float, dict]:
+                base = unix_socket_factory(sock)
+                dials = [0]
+
+                def counting_factory():
+                    dials[0] += 1
+                    time.sleep(per_dial_delay)
+                    return base()
+
+                api = HTTPDockerAPI(counting_factory,
+                                    pool_max_idle=None if pooled else 0)
+                t0 = time.perf_counter()
+                for name, args, kw in unary:
+                    if name == "put_archive":  # fake records (cid, path) only
+                        api.put_archive(args[0], args[1], b"")
+                    else:
+                        getattr(api, name)(*args, **kw)
+                wall = time.perf_counter() - t0
+                stats = api.pool_stats()
+                api.close()
+                return dials[0], wall, stats
+
+            dials_pooled, wall_pooled, stats = replay(True)
+            dials_per_req, wall_per_req, _ = replay(False)
+        finally:
+            daemon.stop()
+    return {
+        "unary_calls": len(unary),
+        "dials_pooled": dials_pooled,
+        "dials_per_request": dials_per_req,
+        "dial_reduction": dials_per_req / max(dials_pooled, 1),
+        "reuses": stats["reuses"],
+        "stale_retries": stats["stale_retries"],
+        "per_dial_delay_s": per_dial_delay,
+        "wall_pooled_s": wall_pooled,
+        "wall_per_request_s": wall_per_req,
+    }
+
+
+def engines_dials_case() -> None:
+    """(e): the reference bench's dial count through the port's client."""
+    doc = bench_engine_dials()
+    check(doc["dial_reduction"] >= BENCH_DIAL_REDUCTION_MIN,
+          f"engines (e): dial_reduction {doc['dial_reduction']} under "
+          f"{BENCH_DIAL_REDUCTION_MIN} ({doc})")
+    print(f"engines (e) bench_engine_dials (host work, no kernel): "
+          f"{json.dumps(doc)}")
+
+
+def engines_phase(device) -> collections.Counter:
+    """Drives ``loop`` and loopd on the ``local`` driver over a real
+    Docker-API socket (the port's test daemon), the harness staging of
+    a create and the client's keep-alive pool, with the sentinel
+    scoring on the card; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "engines"
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    home = _harness_home(out)
+    with stage_timers({}) as stages:
+        total.update(engines_loop_case(out / "a", device, stages, home))
+    engines_staging_case(out / "b", home)
+    with stage_timers({}) as stages:
+        total.update(engines_resume_case(out / "c", device, stages, home))
+    engines_cli_case(out / "d", device)
+    engines_dials_case()
+    no_daemon_left()
+    print(f"engines launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -5587,6 +6232,8 @@ def main() -> int:
     for k, v in chaos_phase(device).items():
         main_path["launches"][k] += v
     for k, v in views_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in engines_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

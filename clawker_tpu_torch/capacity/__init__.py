@@ -1,7 +1,7 @@
 """Elastic capacity: telemetry-driven warm-pool sizing, SLO-aware
 
 The port's copy of ``clawker_tpu/capacity``, but for ``TPUVMScaler``,
-which waits for the ``gpu_host`` driver (ROADMAP §1 item 12).
+which waits for the ``gpu_host`` driver (ROADMAP §1 item 12b).
 admission, and fleet autoscaling (docs/elastic-capacity.md).
 
 Every capacity knob used to be a static setting tuned for one traffic

@@ -3,7 +3,7 @@
 The port's copy of ``clawker_tpu/capacity/scaler.py`` but for
 ``TPUVMScaler`` (the reference's ``scaler.py:99``): it provisions
 through ``fleet/provision.py`` over ``SSHTransport``, which wait for
-the ``gpu_host`` driver (ROADMAP §1 item 12).  :func:`make_scaler`
+the ``gpu_host`` driver (ROADMAP §1 item 12b).  :func:`make_scaler`
 refuses a ``tpu_vm`` driver by name.
 
 The controller decides *when* to grow or shrink the fleet; a
@@ -44,7 +44,7 @@ def make_scaler(driver, cfg, *, max_workers: int) -> "FleetScaler":
     if getattr(driver, "name", "") == "tpu_vm":
         raise ConfigError(
             "capacity: the tpu_vm fleet scaler (TPUVMScaler) is not yet "
-            "ported to clawker_tpu_torch (ROADMAP §1 item 12, gpu_host)")
+            "ported to clawker_tpu_torch (ROADMAP §1 item 12b, gpu_host)")
     return NullScaler()
 
 

@@ -1875,6 +1875,8 @@ def ensure_daemon(f: Factory):
 
 
 def main(argv=None) -> int:
+    from .errors import ClawkerError
+
     try:
         cli.main(args=argv, prog_name="python -m clawker_tpu_torch",
                  standalone_mode=False)
@@ -1884,5 +1886,11 @@ def main(argv=None) -> int:
         e.show()
         return e.exit_code
     except click.exceptions.Abort:
+        return 1
+    except ClawkerError as e:
+        # a domain error (a daemon that is not there, a refused
+        # setting) is one clean line, as the reference's root group
+        # renders it (clawker_tpu/cli/root.py:_RootGroup.invoke)
+        click.ClickException(str(e)).show()
         return 1
     return 0

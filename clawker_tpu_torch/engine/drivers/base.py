@@ -1,9 +1,9 @@
 """RuntimeDriver seam: pluggable container backends.
 
 The port's copy of ``clawker_tpu/engine/drivers/base.py``.  Of the
-reference's drivers only ``fake`` is ported: ``get_driver`` raises a
-:class:`ConfigError` naming ``local``, ``nsd`` or ``tpu_vm`` as not yet
-ported (ROADMAP §1: the ``local`` and ``gpu_host`` drivers).
+reference's drivers ``local`` and ``fake`` are ported: ``get_driver``
+raises a :class:`ConfigError` naming ``nsd`` or ``tpu_vm`` as not yet
+ported (ROADMAP §1 items 12b and 13).
 """
 
 from __future__ import annotations
@@ -120,17 +120,21 @@ def _seeded_fake_driver() -> "RuntimeDriver":
 
 
 # the reference's other drivers (clawker_tpu/engine/drivers/__init__.py)
-UNPORTED_DRIVERS = ("local", "nsd", "tpu_vm")
+UNPORTED_DRIVERS = ("nsd", "tpu_vm")
 
 
 def get_driver(settings: "Settings", *, override: str = "") -> RuntimeDriver:
     """Driver factory from settings.runtime.driver (or explicit override)."""
+    from .local import LocalDriver
+
     name = override or settings.runtime.driver
+    if name == "local":
+        return LocalDriver(docker_host=settings.runtime.docker_host)
     if name == "fake":
         return _seeded_fake_driver()
     if name in UNPORTED_DRIVERS:
         raise ConfigError(
             f"runtime driver {name!r} is not yet ported to clawker_tpu_torch "
-            "(only 'fake' is; set CLAWKER_TPU_DRIVER=fake)")
+            "(only 'local' and 'fake' are)")
     raise ConfigError(
         f"unknown runtime driver {name!r} (expected local|tpu_vm|nsd|fake)")

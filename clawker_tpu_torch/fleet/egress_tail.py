@@ -15,8 +15,8 @@ reference transport substrate SURVEY.md 2.13.
 The port's copy of ``clawker_tpu/fleet/egress_tail.py``, whole.
 ``add_remote`` needs only a transport's ``ssh_base()`` and
 ``runner.spawn_piped``; the port's SSH transport, its producer, waits
-for ROADMAP §1 item 12, so on the fake engine every worker tails its
-local file.
+for ROADMAP §1 item 12b, so every worker of the fake and the local
+drivers tails its local file.
 """
 
 from __future__ import annotations

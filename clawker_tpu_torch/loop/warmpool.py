@@ -30,10 +30,9 @@ Thread-safety: checkout runs on lane threads (inside ``_create``),
 refill accounting on the run thread, fill completions on lane
 done-callbacks -- one lock guards all membership state.
 
-The port's copy of ``clawker_tpu/loop/warmpool.py``, whole.  The
-harness half of a fill's create-time stages waits for the harness
-staging (ROADMAP §1 item 12): a port fill pays engine create and
-workspace seed, and an adoption the relabel, env fixup and rename.
+The port's copy of ``clawker_tpu/loop/warmpool.py``, whole: a fill
+pays engine create, workspace seed and harness seed, and an adoption
+the relabel, env fixup and rename.
 """
 
 from __future__ import annotations

@@ -1,17 +1,11 @@
 """Agent-container orchestration: create -> bootstrap -> start -> attach.
 
-The port's copy of ``clawker_tpu/runtime/orchestrate.py``, without the
-part that waits for its slice (ROADMAP §1 item 12): harness config
-staging (``harness_seed_tar`` and its cache, over the bundle resolver
-and ``containerfs``).  A create stages no host harness state into the
-config volume, and :meth:`AgentRuntime.prefetch_seeds` warms only the
-workspace seed.  That changes what is in the container, not any
-status, journal record or event.
-
-The workspace seed cache (``workspace_seed_tar``) is here: every
-snapshot-mode create journals its digest.  So is warm-pool adoption
-(:meth:`AgentRuntime.adopt_pooled`): the relabel, the ``agent-env``
-fixup archive and the rename, last.
+The port's copy of ``clawker_tpu/runtime/orchestrate.py``, whole: the
+harness config staging (``harness_seed_tar`` and its TTL cache, over the
+bundle resolver and ``containerfs``), the workspace seed cache
+(``workspace_seed_tar``: every snapshot-mode create journals its
+digest) and warm-pool adoption (:meth:`AgentRuntime.adopt_pooled`: the
+relabel, the ``agent-env`` fixup archive and the rename, last).
 
 Parity reference: internal/cmd/container/shared/container_create.go:1473
 CreateContainer (workspace prep, config volumes, env assembly, create,
@@ -40,6 +34,26 @@ from . import attach as attach_mod
 from .labels import agent_labels
 from .names import container_name
 from .resolve import resolve_image
+
+# --- harness-seed staging cache (docs/loop-warmpool.md) -------------------
+# Building the harness staging tar (walk host harness state, copy into a
+# staging dir, tar it) was 3.3ms of an 8.95ms framework cold start
+# (BENCH_r05 harness_seed) and its content depends only on
+# (harness, project root, credential staging policy) -- NOT on the agent
+# or container.  Cache the finished tar bytes per key so a loop fan-out
+# (or a warm-pool fill) stages once and every create after it pays one
+# put_archive.  TTL-bounded: host harness state may change under a
+# long-lived process, and a warm pool must not serve hour-old seeds.
+_HARNESS_TAR_TTL_S = 30.0
+_harness_tar_cache: dict[tuple, tuple[float, bytes]] = {}
+_harness_tar_lock = threading.Lock()
+
+
+def clear_harness_seed_cache() -> None:
+    """Drop cached harness staging tars (tests; explicit invalidation)."""
+    with _harness_tar_lock:
+        _harness_tar_cache.clear()
+
 
 # --- workspace-seed digest cache (docs/loop-worktrees.md#seed-cache) ------
 # The same TTL-cache pattern, extended to the workspace snapshot itself:
@@ -258,19 +272,20 @@ class AgentRuntime:
         with phases.phase("workspace_seed"):
             mounts.seed(self.engine, cid, tar=opts.seed_tar,
                         worker=opts.worker)
+        with phases.phase("harness_seed"):
+            self._seed_harness_config(cid, harness, root)
         if self.bootstrap:
             with phases.phase("identity_bootstrap"):
                 self.bootstrap(cid, project, opts.agent)
         return cid
 
     def prefetch_seeds(self, harness: str, root: Path) -> str:
-        """Warm the create-time workspace seed cache off the hot path
-        (warm-pool fills call this before their create, so a later
-        adoption -- the hit path -- never pays a tree walk).  Returns
+        """Warm both create-time seed caches off the hot path (warm-pool
+        fills call this before their create, so a later adoption -- the
+        hit path -- never pays a tree walk or harness staging).  Returns
         the workspace seed digest ("" when the root has nothing to
-        seed).  ``harness`` names the harness whose staging tar the
-        reference also warms here; that half waits for the harness
-        staging (ROADMAP §1 item 12)."""
+        seed)."""
+        self.harness_seed_tar(harness, root)
         if not Path(root).exists():
             return ""
         digest, _tar = workspace_seed_tar(Path(root))
@@ -362,6 +377,65 @@ class AgentRuntime:
                 raise
             self.engine.remove_container(name, force=True, volumes=False)
             self.engine.rename_container(cid, name)
+
+    def _seed_harness_config(self, cid: str, harness: str, root: Path) -> None:
+        """Stage host harness state into the config volume per the harness
+        bundle's staging manifest (containerfs; reference
+        container_create.go:1907 initConfigVolume).  A host with zero
+        harness state, or no staging manifest, degrades to a no-op.
+        The staging tar is built once per (harness, root, credentials)
+        and reused (see the module cache above)."""
+        tar = self.harness_seed_tar(harness, root)
+        if tar:
+            self.engine.put_archive(cid, consts.CONTAINER_HOME, tar)
+
+    def harness_seed_tar(self, harness: str, root: Path) -> bytes:
+        """The staging tar for (harness, root, credential policy), built
+        once and served from the TTL-bounded module cache afterwards --
+        a warm-pool fill's own seed pays this cost off the hot path for
+        every later create on the worker.  Returns b"" when the harness
+        has nothing to stage."""
+        stage_creds = self.cfg.settings.credentials.stage
+        key = (harness or "claude", str(root), bool(stage_creds),
+               consts.CONTAINER_HOME, consts.WORKSPACE_DIR)
+        now = time.monotonic()
+        with _harness_tar_lock:
+            hit = _harness_tar_cache.get(key)
+            if hit is not None and now - hit[0] < _HARNESS_TAR_TTL_S:
+                phases.incr("harness_seed.tar_cache_hit")
+                return hit[1]
+        phases.incr("harness_seed.tar_cache_miss")
+        tar = self._build_harness_seed_tar(harness, root, stage_creds)
+        with _harness_tar_lock:
+            if len(_harness_tar_cache) > 64:
+                _harness_tar_cache.clear()
+            _harness_tar_cache[key] = (now, tar)
+        return tar
+
+    def _build_harness_seed_tar(self, harness: str, root: Path,
+                                stage_creds: bool) -> bytes:
+        from .. import containerfs
+        from ..bundle.resolver import Resolver
+        from ..errors import NotFoundError
+
+        try:
+            h = Resolver(self.cfg).harness(harness or "claude")
+        except NotFoundError:
+            return b""
+        staging = containerfs.Staging.from_raw(h.staging)
+        if not staging.copy and not (stage_creds and staging.credentials):
+            return b""
+        sdir, cleanup = containerfs.prepare_config(
+            staging,
+            container_home=consts.CONTAINER_HOME,
+            container_work=consts.WORKSPACE_DIR,
+            host_project_root=str(root),
+            include_credentials=stage_creds,
+        )
+        try:
+            return containerfs.staging_tar(sdir)
+        finally:
+            cleanup()
 
     def _build_env(self, project: str, opts: CreateOptions) -> dict[str, str]:
         """Create-time env (reference: buildCreateTimeEnv

@@ -12,6 +12,7 @@ exist -- ``host`` (which pulls framework modules) is host-side only.
 
 The port's copy of ``clawker_tpu/socketbridge``.  The agentd zipapp that
 carries ``protocol`` and ``container`` into a real container comes with
-the port's ``bundle/`` (ROADMAP §1 item 12); on the fake engine the
-bridge runs against the fake's exec handler.
+the agentd zipapp builder (ROADMAP §1 item 12b); on the fake engine
+the bridge runs against the fake's exec handler, and over the ``local``
+driver its exec rides the HTTP client's ``101`` hijack.
 """

@@ -12,8 +12,8 @@ binary (internal/hostproxy/internals/cmd), reached the same way (exec'd
 by the host, stdio as the channel).
 
 The port's copy of ``clawker_tpu/socketbridge/container.py``, whole.
-The zipapp it ships in comes with the port's ``bundle/`` (ROADMAP §1
-item 12).
+The agentd zipapp it ships in waits for its builder (ROADMAP §1 item
+12b).
 """
 
 from __future__ import annotations

@@ -22,9 +22,9 @@ through the context's sink.  No active context means zero work on the
 engine hot path -- health probes and CLI one-shots pay nothing.
 
 The port's copy of ``clawker_tpu/tracing/context.py``, whole.  The
-port's engines are the fake one only, so nothing reads the ambient
-context yet: the Docker HTTP client that records ``engine.request``
-spans comes with the real engines (ROADMAP §1 item 12).
+port's Docker HTTP client (``engine/httpapi.py``) reads the ambient
+context and records the ``engine.request`` spans; the fake engine
+reads none.
 """
 
 from __future__ import annotations

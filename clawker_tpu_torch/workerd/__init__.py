@@ -41,9 +41,10 @@ The port's copy of ``clawker_tpu/workerd/__init__.py``: the daemon it
 forks is ``python -m clawker_tpu_torch.workerd``, spawned under the
 port's process-wide spawn lock (``util/daemon.py``) so two callers in
 one process never race two daemons onto one socket.  ``liveness``
-resolves the fake and the local workers' sockets; the socket a
-``tpu_vm`` engine's transport forwards waits for that driver (ROADMAP
-§1 item 12), so such a worker reads ``absent`` here.  workerd's host
+resolves the fake and the ``local`` driver's worker sockets (the local
+worker's the host's canonical one); the socket a ``tpu_vm`` engine's
+transport forwards waits for that driver (ROADMAP §1 item 12b), so such
+a worker reads ``absent`` here.  workerd's host
 code runs no kernel: the card's work on its path is the sentinel that
 rides the runs it launches.
 """
@@ -166,7 +167,7 @@ def liveness(cfg, driver, *, sock_by_worker: dict | None = None) -> dict:
     single local worker -- the host's canonical socket path.  Fake
     workers with no mapping read ``absent`` (no daemon was ever
     provisioned), as does a ``tpu_vm`` worker until its transport's
-    forwarded socket is ported (ROADMAP §1 item 12)."""
+    forwarded socket is ported (ROADMAP §1 item 12b)."""
     from .executor import ping_socket
 
     out: dict[str, str] = {}

@@ -27,7 +27,7 @@ Failure model:
 
 The port's copy of ``clawker_tpu/workerd/executor.py``.  One branch of
 :func:`discover_executors` waits for the ``tpu_vm`` driver (ROADMAP §1
-item 12): the socket its transport forwards over the SSH mux
+item 12b): the socket its transport forwards over the SSH mux
 (``transport.forward_workerd``); the port discovers the local worker's
 canonical socket.  The seam it fires (``workerd.post_reconnect``) rides
 the scheduler's ``seams``.

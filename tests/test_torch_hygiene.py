@@ -52,6 +52,18 @@ VIEW_MODULES = ["clawker_tpu_torch.ui", "clawker_tpu_torch.ui.colors",
                 "clawker_tpu_torch.firewall.pki"]
 
 
+# the Docker HTTP client, the local driver and the create path's harness
+# staging
+ENGINE_MODULES = ["clawker_tpu_torch.engine.errors_map",
+                  "clawker_tpu_torch.engine.pool",
+                  "clawker_tpu_torch.engine.httpapi",
+                  "clawker_tpu_torch.engine.drivers.local",
+                  "clawker_tpu_torch.containerfs",
+                  "clawker_tpu_torch.bundle",
+                  "clawker_tpu_torch.bundle.model",
+                  "clawker_tpu_torch.bundle.resolver"]
+
+
 def _modules() -> list[str]:
     out = []
     for path in sorted(PKG.rglob("*.py")):
@@ -87,6 +99,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
             "clawker_tpu_torch.testenv"} <= set(mods)
     # and the live views of a run and the metrics exporters
     assert set(VIEW_MODULES) <= set(mods)
+    # and the Docker HTTP client, the local driver and harness staging
+    assert set(ENGINE_MODULES) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -180,7 +194,7 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     "clawker_tpu_torch.loopd.__main__",
                                     "clawker_tpu_torch.hostproxy.__main__",
                                     "clawker_tpu_torch.socketbridge.container",
-                                    *VIEW_MODULES])
+                                    *VIEW_MODULES, *ENGINE_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -199,6 +213,17 @@ def test_mesh_and_graft_entry_import_alone_without_jax(module):
 def test_daemon_entry_points_load_no_torch(module):
     """The host proxy's, the bridge's and workerd's processes run
     without torch."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules}))\n")
+    assert doc == {"torch": False}
+
+
+@pytest.mark.parametrize("module", ENGINE_MODULES)
+def test_engine_client_and_staging_load_no_torch(module):
+    """The HTTP client, the local driver and the harness staging are
+    plain Python: workerd's process runs them without torch."""
     doc = _run_isolated(
         "import importlib, json\n"
         f"importlib.import_module({module!r})\n"

@@ -783,7 +783,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
     assert not drv.api.calls_named("container_create")
 
 
-@pytest.mark.parametrize("name", ["local", "nsd", "tpu_vm"])
+@pytest.mark.parametrize("name", ["nsd", "tpu_vm"])
 def test_cli_names_an_unported_driver(tmp_path, monkeypatch, name):
     monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")
     monkeypatch.setenv(port_cli.ENV_DRIVER, name)
@@ -835,7 +835,7 @@ def test_cli_loop_attach_names_the_missing_daemon(tmp_path):
     assert "no loopd daemon answering" in res.output
 
 
-@pytest.mark.parametrize("name", ["local", "nsd", "tpu_vm"])
+@pytest.mark.parametrize("name", ["nsd", "tpu_vm"])
 def test_unported_drivers_are_named(name):
     settings = port_config.Settings()
     with pytest.raises(port_errors.ConfigError,

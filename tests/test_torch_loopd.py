@@ -29,7 +29,7 @@ against the reference's too.  The reference cases with no twin, each
 waiting for its item:
 
 - ``test_transport_forwards_loopd_socket_over_mux``: the SSH transport
-  of the ``gpu_host`` driver (ROADMAP §1 item 12);
+  of the ``gpu_host`` driver (ROADMAP §1 item 12b);
 - ``test_fleet_health_renders_daemon_breakers`` and
   ``test_fleet_placement_renders_daemon_admission``: the ``fleet
   health`` / ``fleet placement`` verbs the port lacks (§1 item 13; the

@@ -517,8 +517,10 @@ def _loop_cli(s, drv, args: list[str], monkeypatch):
         catch_exceptions=False)
 
 
-def _scrape_until(port: int, needle: str, out: list, stop: threading.Event):
-    """Scrape ``port`` until a body holds ``needle`` or ``stop``."""
+def _scrape_until(port: int, needle, out: list, stop: threading.Event):
+    """Scrape ``port`` until a body holds ``needle`` (a string, or a
+    predicate on the body) or ``stop``."""
+    done = needle if callable(needle) else (lambda body: needle in body)
     while not stop.is_set():
         try:
             body = scrape(port)[2]
@@ -526,9 +528,20 @@ def _scrape_until(port: int, needle: str, out: list, stop: threading.Event):
             time.sleep(0.02)
             continue
         out.append(body)
-        if needle in body:
+        if done(body):
             return
         time.sleep(0.02)
+
+
+SCORED_TICKS = 'sentinel_ticks_total{result="scored"}'
+
+
+def _scored_ticks(body: str) -> float:
+    """The scored-tick counter in an exposition body (0 before any)."""
+    for line in body.splitlines():
+        if line.startswith(SCORED_TICKS + " "):
+            return float(line.split()[-1])
+    return 0.0
 
 
 @pytest.mark.parametrize("how", ["flag", "setting"])
@@ -622,8 +635,11 @@ def test_cli_loop_metrics_port_carries_the_sentinels_scores(tmp_path,
             _write(s.cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
         scraped: list[str] = []
         stop = threading.Event()
+        # the registry is process-wide: an earlier test in this worker
+        # may have scored ticks already, so wait for this run's
+        before = _scored_ticks(port_telemetry.REGISTRY.exposition())
         t = threading.Thread(target=_scrape_until, daemon=True, args=(
-            port, 'sentinel_ticks_total{result="scored"}', scraped, stop))
+            port, lambda body: _scored_ticks(body) > before, scraped, stop))
         t.start()
         try:
             res = _loop_cli(s, drv, ["-p", "4", "-n", "2", "--sentinel",
@@ -634,5 +650,5 @@ def test_cli_loop_metrics_port_carries_the_sentinels_scores(tmp_path,
             t.join(10)
     assert res.exit_code == 0, res.output
     body = scraped[-1]
-    assert 'sentinel_ticks_total{result="scored"}' in body
+    assert _scored_ticks(body) > before
     assert 'anomaly_score{agent="clawker.twin.' in body

@@ -6,8 +6,8 @@ container-side endpoint as a subprocess on stdio pipes, a throwaway unix
 "ssh agent" on the host side, clients dialing the container-side
 socket), and the CLOSE answer to an OPEN with nothing to forward.  The
 reference's ``test_pyz_contains_container_side`` reads the agentd
-zipapp, which comes with the port's ``bundle/`` (ROADMAP §1
-item 12); its twin builds a zip of the container side's files alone and
+zipapp, which comes with the agentd zipapp builder (ROADMAP §1
+item 12b); its twin builds a zip of the container side's files alone and
 runs the port's own exec command (``host.CONTAINER_CMD``) against it.
 
 On the fake engine the bridge runs against the fake's exec handler: the

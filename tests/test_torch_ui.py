@@ -15,7 +15,7 @@ through each ui module's ``time``.
 Waiting, each for its item: the two SSH-tail cases of
 tests/test_egress_feed.py (``test_remote_tail_rides_ssh_mux`` and the
 transport half of ``add_worker``) need the port's ``SSHTransport``
-(ROADMAP §1 item 12); tests/test_ui.py's progress, buildview and
+(ROADMAP §1 item 12b); tests/test_ui.py's progress, buildview and
 prompter cases need those modules (§1 item 13).
 """
 
