@@ -242,12 +242,43 @@
    the reference bench's ``bench_engine_dials`` (host work) through the
    port's client over its ``StubDockerDaemon``: ``dial_reduction`` at
    least 2.  Every scored tick of (a) and (c) is one K3 and one K1.
-14. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+14. pod phase, its dirs under short temporary dirs (unix socket paths
+   hold 107 bytes), every case over four worker hosts ``w0``..``w3`` on
+   the loopback ssh (``testenv.install_ssh_shim``, first on ``PATH``),
+   each a root with its own ``FakeEngineDaemon`` and egress file,
+   settings ``runtime.driver: tpu_vm`` with the four workers and
+   topology 2x2; no seam process, and no process whose home or cwd lies
+   under a worker's root, may outlive a case: (a) (6a)'s run
+   over ``get_driver`` (``TPUVMDriver``, its real ``Runner``) with the
+   host proxy on and the sentinel on the card wired by ``wire_fleet``,
+   the hot agent's egress on ``w2`` only: every loop done, creates and
+   starts on all four daemons, one ``-L`` docker forward, one ``-R`` and
+   one remote ``tail -F`` a worker, records tagged ``tpu-0``..``tpu-3``,
+   the hot container flagged at ``ANOMALY_Z`` or more on ``tpu-2``, no
+   forward left after ``close()``; (b) the port's workerd forked on
+   ``w0``/``w1`` at the canonical socket under the worker's home:
+   ``discover_executors`` finds those two over forwarded sockets,
+   ``liveness`` reads them live and the others not live, and an 8 x 2
+   run launches through workerd there and directly on ``tpu-2``/
+   ``tpu-3``; the host proxy workerd's side channels left up on each
+   worker is stopped as the worker; (c) an 8 x 4 run loses ``w1``'s daemon ("docker daemon
+   unreachable but host ssh alive") and then ``w3``'s host ("host
+   unreachable over ssh"), every loop ending on ``tpu-0``/``tpu-2``,
+   and a pod whose ``w2`` is down from the start dials it engine-less
+   and runs on the other three; (d) ``loop --sentinel``, ``fleet
+   workers``, ``fleet anomaly`` (exit 2, the hot agent on ``tpu-2``),
+   ``fleet provision --dry-run --no-cp`` and ``fleet provision``
+   (refused with no ssh) forked on default settings; (e) ``connect()``
+   timed with and without 50 ms a seam call (host work).  Every scored
+   tick of (a), (b) and (c) is one K3 and one K1.
+15. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
 
-Any failure exits non-zero.  Without a GPU, or without the repository
+Every process the run starts carries ``CHIP_SMOKE_RUN`` in its
+environment; one still running at the end of the pod phase or of the
+run fails it (and is killed).  Any failure exits non-zero.  Without a GPU, or without the repository
 beside it, the script fails before printing any result.  The last line
 is ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``;
 the line before it the per-kernel JSON record.  Imports nothing of JAX
@@ -263,6 +294,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -2184,8 +2216,11 @@ def fleet_cli_phase(device: str) -> None:
         agents=8, windows=6, per_window=16), 2)
     hot = "clawker.hot"
     _append(paths[1], exfil_burst(hot, window=2, n=60))
+    # the verb tails the configured driver's workers too: the fake's one
+    # worker, whose streams under the state dir are empty
     env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
-               CLAWKER_TPU_STATE_DIR=str(out / "state"))
+               CLAWKER_TPU_STATE_DIR=str(out / "state"),
+               CLAWKER_TPU_DRIVER="fake")
     proc = subprocess.run(
         [sys.executable, "-m", "clawker_tpu_torch", "fleet", "anomaly",
          "--no-daemon", "--format", "json",
@@ -2793,6 +2828,61 @@ def hostproxy_case(base: Path) -> None:
           f"host proxy: health {health}, stopped {stopped}")
     print(f"host proxy: spawn to healthy {spawn_ms!r} ms, ensure_running "
           f"again {again_ms!r} ms, stop {stop_ms!r} ms")
+
+
+RUN_MARK = "CHIP_SMOKE_RUN"  # in every process this run starts (main sets it)
+
+
+def _procs(pred) -> list[tuple[int, str]]:
+    """Running processes other than this one (not zombies) for which
+    ``pred(environ bytes, cwd)`` holds: -> [(pid, command line)]."""
+    out = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit() or int(d.name) == os.getpid():
+            continue
+        try:
+            state = (d / "stat").read_text().rsplit(")", 1)[1].split()[0]
+            environ = (d / "environ").read_bytes()
+            cwd = os.readlink(d / "cwd")
+            cmd = (d / "cmdline").read_bytes()
+        except OSError:
+            continue
+        if state != "Z" and pred(environ, cwd):
+            out.append((int(d.name), cmd.replace(b"\0", b" ").decode(
+                errors="replace").strip()))
+    return out
+
+
+def _spawned_left(wait_s: float = 0.0) -> list[tuple[int, str]]:
+    """The processes this run started (they carry its ``RUN_MARK``)
+    still running after up to ``wait_s``."""
+    mark = os.environ.get(RUN_MARK)
+    if not mark:
+        return []
+    needle = f"\0{RUN_MARK}={mark}\0".encode()
+
+    def left():
+        return _procs(lambda env, _: needle in b"\0" + env)
+
+    _wait(lambda: not left(), wait_s, 0.05)
+    return left()
+
+
+def _kill(procs: list[tuple[int, str]]) -> None:
+    for pid, _ in procs:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+
+
+def no_process_left(where: str) -> None:
+    """Every process this run started has ended: what is left after 5 s
+    is killed, and fails the run."""
+    left = _spawned_left(5.0)
+    _kill(left)
+    check(not left, f"{where}: processes left running: {left}")
+    print(f"{where}: no process of this run left")
 
 
 def no_daemon_left() -> None:
@@ -6122,6 +6212,672 @@ def engines_phase(device) -> collections.Counter:
     return total
 
 
+# -------------------------------------------------------------- pod phase
+
+
+POD_HOSTS = ("w0", "w1", "w2", "w3")
+POD_TOPOLOGY = "2x2"
+POD_HOT_WORKER = 2              # the hot agent's egress lands on w2 only
+POD_FAIL_ITERATIONS, POD_FAIL_ITER_S = 4, 0.5
+POD_WAN_S = 0.05                # (e): a fake WAN, each seam call delayed
+POD_DIAL_REPS = 5
+POD_DIAL_SLACK_MS = 500.0       # (e): concurrent dial bound's slack
+POD_SETTINGS = (ENGINES_SETTINGS + "runtime:\n  driver: tpu_vm\n  tpu:\n"
+                f"    workers: [{', '.join(POD_HOSTS)}]\n"
+                f"    topology: {POD_TOPOLOGY}\n")
+# a worker's own paths, under its root (the ssh user's home)
+POD_EGRESS = "home/clawker/.local/state/clawker-tpu/logs/ebpf-egress.jsonl"
+POD_WORKERD = "home/clawker/.local/state/clawker-tpu/workerd/workerd.sock"
+
+
+def _seam_left(shim, wait_s: float = 5.0) -> list[int]:
+    """The seam's processes still running after ``wait_s`` at most."""
+    _wait(lambda: not shim.live_pids(), wait_s, 0.05)
+    return shim.live_pids()
+
+
+@contextlib.contextmanager
+def _pod(iter_s: float = LOOP_ITER_S, down=()):
+    """Four worker hosts ``w0``..``w3`` on the loopback ssh
+    (``testenv.install_ssh_shim``), first on ``PATH``: each a root under
+    a short temporary dir with its own ``FakeEngineDaemon`` at
+    ``<root>/var/run/docker.sock`` (the loop image, ``iter_s`` an
+    iteration); hosts in ``down`` are down from the start.  Every daemon
+    stops on the way out, and no seam process may be left."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from clawker_tpu_torch.engine.fake import FakeDockerAPI, exit_behavior
+    from clawker_tpu_torch.testenv import FakeEngineDaemon, install_ssh_shim
+
+    base = Path(tempfile.mkdtemp(prefix="p", dir="/tmp"))
+    roots = {h: base / h for h in POD_HOSTS}
+    shim = install_ssh_shim(base / "bin", roots)
+    path = os.environ.get("PATH", "")
+    os.environ["PATH"] = shim.env()["PATH"]
+    for i in down:
+        shim.set_down(POD_HOSTS[i])
+    daemons = []
+    try:
+        for root in roots.values():
+            api = FakeDockerAPI()
+            api.add_image(LOOP_IMAGE)
+            api.set_behavior(LOOP_IMAGE, exit_behavior(
+                b"iteration done\n", 0, delay=iter_s))
+            daemons.append(FakeEngineDaemon(root / "var/run/docker.sock",
+                                            api).start())
+        yield SimpleNamespace(shim=shim, roots=list(roots.values()),
+                              daemons=daemons)
+    finally:
+        for d in daemons:
+            d.stop()
+        os.environ["PATH"] = path
+        left = _seam_left(shim)
+        for pid in left:        # a case that failed may leave forwards
+            os.kill(pid, signal.SIGKILL)
+        # a worker's own daemons: their home or their cwd under its root
+        prefix = str(base) + "/"
+        on_workers = _procs(lambda env, cwd: cwd.startswith(prefix) or (
+            f"\0HOME={prefix}".encode() in b"\0" + env))
+        _kill(on_workers)
+        shutil.rmtree(base, ignore_errors=True)
+    check(not left, f"pod: seam processes left after the case: {left}")
+    check(not on_workers,
+          f"pod: processes left on the workers after the case: {on_workers}")
+
+
+def _pod_egress(roots: list[Path], agents: list[str], hot: str) -> int:
+    """(6)'s egress of ``agents`` on each loop's worker file (agent i
+    on ``w(i % 4)``), the hot agent's, burst and all, on ``w2``'s only,
+    written where the worker's netlogger writes it; the records carry
+    no ``worker``: the remote tail tags each with its worker.  -> the
+    records written."""
+    index = {f"clawker.{LOOP_PROJECT}.{a}": i for i, a in enumerate(agents)}
+    by = collections.defaultdict(list)
+    n = 0
+    for recs in _loop_egress(agents, hot, time.time()).values():
+        for r in recs:
+            r.pop("worker", None)
+            i = index[r["container"]]
+            by[POD_HOT_WORKER if agents[i] == hot
+               else i % len(roots)].append(r)
+            n += 1
+    for w, recs in by.items():
+        path = roots[w] / POD_EGRESS
+        path.parent.mkdir(parents=True, exist_ok=True)
+        _append(path, recs)
+    return n
+
+
+def _seam_kinds(shim) -> collections.Counter:
+    """The seam's invocations by (kind, host): ``L docker``, ``L
+    workerd``, ``R``, ``probe`` (a reverse forward's readiness),
+    ``tail``, ``true``, ``O`` (the mux exit), ``refused``."""
+    out = collections.Counter()
+    for r in shim.invocations():
+        kind, cmd = r["kind"], r.get("cmd") or ""
+        if kind == "L":
+            kind = "L " + ("workerd" if "workerd.sock" in " ".join(r["argv"])
+                           else "docker")
+        elif kind == "cmd":
+            kind = ("tail" if cmd.startswith("tail -n +1 -F ")
+                    else "probe" if "/dev/tcp/" in cmd
+                    else "true" if cmd == "true" else "refused")
+        out[(kind, r["host"])] += 1
+    return out
+
+
+def _by_kind(kinds: collections.Counter) -> dict:
+    out = collections.Counter()
+    for (kind, _), n in kinds.items():
+        out[kind] += n
+    return dict(sorted(out.items()))
+
+
+def _pod_sentinel(cfg, drv, sched, device, stages: dict):
+    """The sentinel on the card over the pod, wired by ``wire_fleet``
+    (one remote ``tail -F`` a worker) and attached to ``sched``: ->
+    (sentinel, its TickLog)."""
+    from clawker_tpu_torch.sentinel import FleetSentinel
+
+    s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                      interval_s=LOOP_TICK_S, train_steps=SENTINEL_STEPS)
+    log = TickLog(s, stages)
+    sched.attach_sentinel(s)
+    return s, log
+
+
+def _settle(s, n: int) -> None:
+    """Until the sentinel scored a tick over all ``n`` records the
+    remote tails carried."""
+    _wait(lambda: s.collector.total() >= n and s._scored_at[0] >= n, 15,
+          LOOP_TICK_S)
+
+
+def pod_loop_case(base: Path, device, stages: dict):
+    """(a): loop (a)'s shape over ``get_driver`` on ``runtime.driver:
+    tpu_vm`` (``TPUVMDriver``, its real ``Runner``) and the four-worker
+    pod, the host proxy on, the sentinel on the card tailing every
+    worker over its ssh, one hot agent whose egress is on ``w2`` only."""
+    from clawker_tpu_torch.analytics.runtime import ANOMALY_Z
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import get_driver
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+
+    name = "pod (a)"
+    with _isolated_dirs(base, POD_SETTINGS) as proj, _pod() as p:
+        cfg = load_config(proj)
+        drv = get_driver(cfg.settings)
+        check(type(drv).__name__ == "TPUVMDriver",
+              f"{name}: get_driver built {type(drv).__name__}")
+        sched = LoopScheduler(cfg, drv, LoopSpec(parallel=LOOP_AGENTS,
+                                                 iterations=LOOP_ITERATIONS))
+        t0 = time.perf_counter()
+        s, log = _pod_sentinel(cfg, drv, sched, device, stages)
+        dial_ms = (time.perf_counter() - t0) * 1e3
+        agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+        hot = agents[LOOP_HOT_SLOT]
+        s.start()
+        sched.start()
+        n = _pod_egress(p.roots, agents, hot)
+        sched.run(poll_s=0.05)
+        wall = (time.perf_counter() - t0) * 1e3
+        _settle(s, n)
+        s.stop()
+        rows = sched.status()
+        srows = {r["agent"]: r for r in s.rows()}
+        flags = {f["agent"] for f in s.flags()}
+        counts = s.collector.counts()
+        sched.cleanup(remove_containers=True)
+        drv.close()
+        left = _seam_left(p.shim)
+        kinds = _seam_kinds(p.shim)
+        served = [dict(d.routes) for d in p.daemons]
+        requests = [d.requests for d in p.daemons]
+        unrouted = [list(d.unrouted) for d in p.daemons]
+    scored = log.check_run(name)
+    _check_loop_rows(name, rows)
+    check(not any(unrouted), f"{name}: unrouted requests {unrouted}")
+    check(all(r.get("container_create", 0) >= 1
+              and r.get("container_start", 0) >= 1 for r in served),
+          f"{name}: creates/starts per worker's daemon "
+          f"{[(r.get('container_create'), r.get('container_start')) for r in served]}")
+    for kind in ("L docker", "R", "tail"):
+        per = [kinds[(kind, h)] for h in POD_HOSTS]
+        check(per == [1] * len(POD_HOSTS),
+              f"{name}: {kind} per worker {per} (want one each)")
+    check(all(kinds[("probe", h)] >= 1 for h in POD_HOSTS),
+          f"{name}: reverse-forward probes {dict(kinds)}")
+    check(set(counts) == {f"tpu-{i}" for i in range(len(POD_HOSTS))},
+          f"{name}: the sentinel's records by worker {counts}")
+    # the sentinel's own rows: a loop row's z is its behaviour window's
+    # when the run crossed into a minute its egress does not cover
+    zs = {a: r["latest_z"] for a, r in srows.items()}
+    container = f"clawker.{LOOP_PROJECT}.{hot}"
+    hottest = max(zs, key=zs.get) if zs else None
+    check(zs.get(container, 0) >= ANOMALY_Z and hottest == container
+          and container in flags
+          and srows[container]["worker"] == f"tpu-{POD_HOT_WORKER}",
+          f"{name}: {container} (threshold {ANOMALY_Z}, hottest "
+          f"{hottest}), flags {sorted(flags)}, its row "
+          f"{srows.get(container)}")
+    check(not left, f"{name}: seam processes after driver.close(): {left}")
+    print(card_line())
+    print(f"{name} {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations "
+          f"({LOOP_ITER_S} s each) over TPUVMDriver and the loopback ssh "
+          f"on {len(POD_HOSTS)} workers ({POD_TOPOLOGY}), the sentinel every "
+          f"{LOOP_TICK_S} s over the remote tails: run wall {wall!r} ms "
+          f"(the dial and wiring {dial_ms!r} ms of it); seam invocations "
+          f"{_by_kind(kinds)}; engine requests per worker {requests}; "
+          f"records per worker {dict(sorted(counts.items()))}; "
+          f"{len(log.ticks)} ticks, {len(scored)} scored; {container} z "
+          f"{zs[container]} on {srows[container]['worker']}")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches()
+
+
+def _worker_env(root: Path) -> dict:
+    """The environment a process on the worker at ``root`` runs in: HOME
+    the ssh user's, ``DOCKER_HOST`` the worker's daemon, default
+    settings."""
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("CLAWKER_TPU_", "XDG_"))}
+    env.update(HOME=str(root / "home" / "clawker"), PYTHONPATH=str(ROOT),
+               DOCKER_HOST=f"unix://{root}/var/run/docker.sock")
+    return env
+
+
+def _stop_worker_proxies(roots: list[Path]) -> list[bool]:
+    """Stop the host proxy each worker's workerd brought up (its side
+    channels' ``ensure_running``, under the worker's home, a daemon
+    that outlives workerd as it does on a worker VM), with the port's
+    ``hostproxy.manager.stop`` run as the worker: -> whether one ran
+    on each."""
+    code = ("import sys; from pathlib import Path; "
+            "from clawker_tpu_torch.config import load_config; "
+            "from clawker_tpu_torch.hostproxy import manager; "
+            "sys.exit(0 if manager.stop(load_config(Path.cwd())) else 3)")
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=root / "proj",
+                              env=_worker_env(root),
+                              stdin=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE)
+             for root in roots]
+    out = []
+    for root, proc in zip(roots, procs):
+        _, err = proc.communicate(timeout=30)
+        check(proc.returncode in (0, 3),
+              f"stopping {root}'s host proxy exited {proc.returncode}: "
+              f"{err.decode(errors='replace')[-1000:]}")
+        out.append(proc.returncode == 0)
+    return out
+
+
+def _start_workerd(root: Path):
+    """``python -m clawker_tpu_torch.workerd`` as the worker at ``root``
+    runs it: HOME the ssh user's, ``DOCKER_HOST`` the worker's daemon,
+    default settings, in a project dir of the loop's project; -> the
+    process, once its socket answers."""
+    from clawker_tpu_torch.workerd.executor import ping_socket
+
+    proj = root / "proj"
+    proj.mkdir(exist_ok=True)
+    (proj / ".clawker.yaml").write_text(f"project: {LOOP_PROJECT}\n")
+    with open(root / "workerd.log", "wb") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "clawker_tpu_torch.workerd"], cwd=proj,
+            env=_worker_env(root), stdout=logf, stderr=subprocess.STDOUT,
+            stdin=subprocess.DEVNULL)
+    if not _wait(lambda: ping_socket(root / POD_WORKERD)
+                 or proc.poll() is not None, 30, 0.05) \
+            or proc.poll() is not None:
+        proc.kill()
+        proc.wait()
+        check(False, f"pod (b): workerd at {root} never answered: "
+              f"{(root / 'workerd.log').read_text()[-2000:]}")
+    return proc
+
+
+def _count_creates(drv) -> dict:
+    """Wrap each worker engine's ``container_create`` (the laptop's own
+    calls, never workerd's): -> worker id -> a one-item list counting
+    them."""
+    out = {}
+    for w in drv.workers():
+        api = w.engine.api
+        box = out[w.id] = [0]
+        real = api.container_create
+
+        def create(*a, _real=real, _box=box, **kw):
+            _box[0] += 1
+            return _real(*a, **kw)
+
+        api.container_create = create
+    return out
+
+
+def pod_workerd_case(base: Path, device, stages: dict):
+    """(b): the port's workerd on ``w0`` and ``w1`` only, each on its
+    worker's canonical socket, reached through the forward of its
+    transport: discovered, live, and serving those workers' launches of
+    an 8 x 2 run while ``tpu-2``/``tpu-3`` launch directly."""
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import get_driver
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.workerd import liveness
+    from clawker_tpu_torch.workerd.executor import discover_executors
+
+    name = "pod (b)"
+    with _isolated_dirs(base, POD_SETTINGS) as proj, _pod() as p:
+        procs = [_start_workerd(p.roots[i]) for i in (0, 1)]
+        try:
+            cfg = load_config(proj)
+            drv = get_driver(cfg.settings)
+            execs = discover_executors(cfg, drv)
+            found = sorted(execs.executors)
+            live = liveness(cfg, drv)
+            laptop = _count_creates(drv)
+            sched = LoopScheduler(cfg, drv, LoopSpec(parallel=LOOP_AGENTS,
+                                                     iterations=2),
+                                  executors=execs)
+            s, log = _pod_sentinel(cfg, drv, sched, device, stages)
+            agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+            t0 = time.perf_counter()
+            s.start()
+            sched.start()
+            n = _pod_egress(p.roots, agents, agents[LOOP_HOT_SLOT])
+            sched.run(poll_s=0.05)
+            wall = (time.perf_counter() - t0) * 1e3
+            _settle(s, n)
+            s.stop()
+            rows = sched.status()
+            intents = {w: ex.stats["intents"]
+                       for w, ex in execs.executors.items()}
+            sched.cleanup(remove_containers=True)
+            execs.close_all()
+            drv.close()
+        finally:
+            for proc in procs:
+                proc.terminate()
+            rcs = [proc.wait(15) for proc in procs]
+            proxies = _stop_worker_proxies(p.roots[:2])
+        creates = [d.routes.get("container_create", 0) for d in p.daemons]
+        kinds = _seam_kinds(p.shim)
+    scored = log.check_run(name)
+    check(found == ["tpu-0", "tpu-1"], f"{name}: executors for {found}")
+    check(live["tpu-0"] == live["tpu-1"] == "live"
+          and live["tpu-2"] != "live" and live["tpu-3"] != "live",
+          f"{name}: liveness {live}")
+    check(len(rows) == LOOP_AGENTS
+          and all(r["status"] == "done" and r["iteration"] == 2
+                  for r in rows), f"{name}: rows {rows}")
+    placed = collections.Counter(r["worker"] for r in rows)
+    check(all(placed[f"tpu-{i}"] for i in range(len(POD_HOSTS))),
+          f"{name}: placements {dict(placed)}")
+    direct = {w: box[0] for w, box in laptop.items()}
+    check(direct["tpu-0"] == direct["tpu-1"] == 0
+          and all(direct[f"tpu-{i}"] >= placed[f"tpu-{i}"] for i in (2, 3))
+          and all(creates[i] >= placed[f"tpu-{i}"] for i in range(4))
+          and all(intents[f"tpu-{i}"] >= placed[f"tpu-{i}"] for i in (0, 1)),
+          f"{name}: the laptop's creates {direct}, the daemons' "
+          f"{creates}, workerd intents {intents}, placements "
+          f"{dict(placed)}")
+    check([kinds[("L workerd", h)] for h in POD_HOSTS] == [1] * 4,
+          f"{name}: workerd forwards {_by_kind(kinds)}")
+    check(rcs == [0, 0], f"{name}: workerd exits {rcs}")
+    print(f"{name} workerd on w0/w1 over forwarded sockets: executors "
+          f"{found}, liveness {live}; {LOOP_AGENTS} loops x 2 run wall "
+          f"{wall!r} ms, placements {dict(sorted(placed.items()))}, "
+          f"workerd intents {intents}, the laptop's own creates {direct}; "
+          f"a host proxy left up by workerd and stopped on w0/w1 "
+          f"{proxies}; "
+          f"seam invocations {_by_kind(kinds)}; {len(log.ticks)} ticks, "
+          f"{len(scored)} scored")
+    return log.launches()
+
+
+def _pod_health(m):
+    """Probes every 0.1 s; two failures open a breaker for the run."""
+    return m.HealthConfig(
+        probe_interval_s=0.1, probe_deadline_s=2.0,
+        breaker=m.BreakerConfig(failure_threshold=2, backoff_base_s=60.0,
+                                backoff_max_s=60.0, backoff_jitter=0.0,
+                                half_open_successes=2))
+
+
+def _probe_error(drv, worker_id: str) -> str:
+    """``drv.probe`` of one worker: -> its DriverError's text, or ""."""
+    from clawker_tpu_torch.errors import DriverError
+
+    worker = next(w for w in drv.workers() if w.id == worker_id)
+    try:
+        drv.probe(worker)
+    except DriverError as e:
+        return str(e)
+    return ""
+
+
+def pod_failover_case(base: Path, device, stages: dict):
+    """(c): an 8 x 4 run; once every loop finished iteration 1, ``w1``'s
+    daemon stops (its probe reads "docker daemon unreachable but host
+    ssh alive", the breaker opens, its loops fail over), then ``w3`` is
+    marked down ("host unreachable over ssh"): every loop ends on
+    ``tpu-0``/``tpu-2``.  Then a pod whose ``w2`` is down from the
+    start: ``connect()`` gives ``tpu-2`` engine-less with its
+    ``dial_error``, its breaker opens at once, and a run lands on the
+    other three."""
+    from clawker_tpu_torch import health
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import get_driver
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+
+    name = "pod (c)"
+    with _isolated_dirs(base / "dead", POD_SETTINGS) as proj, \
+            _pod(iter_s=POD_FAIL_ITER_S) as p:
+        cfg = load_config(proj)
+        drv = get_driver(cfg.settings)
+        sched = LoopScheduler(cfg, drv, LoopSpec(
+            parallel=LOOP_AGENTS, iterations=POD_FAIL_ITERATIONS,
+            failover="migrate"), health_config=_pod_health(health))
+        s, log = _pod_sentinel(cfg, drv, sched, device, stages)
+        agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+        t0 = time.perf_counter()
+        s.start()
+        sched.start()
+        n = _pod_egress(p.roots, agents, agents[LOOP_HOT_SLOT])
+        t = threading.Thread(target=sched.run, kwargs={"poll_s": 0.05},
+                             daemon=True, name="pod-failover")
+        t.start()
+        first = _wait(lambda: all(l.iteration >= 1 for l in sched.loops), 60)
+        p.daemons[1].stop()
+        opened1 = _wait(lambda: sched.health.state("tpu-1")
+                        == health.BREAKER_OPEN, 20)
+        err1 = _probe_error(drv, "tpu-1")
+        p.shim.set_down(POD_HOSTS[3])
+        opened3 = _wait(lambda: sched.health.state("tpu-3")
+                        == health.BREAKER_OPEN, 20)
+        err3 = _probe_error(drv, "tpu-3")
+        t.join(120)
+        wall = (time.perf_counter() - t0) * 1e3
+        _settle(s, n)
+        s.stop()
+        rows = sched.status()
+        sched.cleanup(remove_containers=True)
+        drv.close()
+    check(first and not t.is_alive(), f"{name}: the run never got past "
+          f"iteration 1 or never ended: "
+          f"{[(l.agent, l.status, l.iteration) for l in sched.loops]}")
+    check(opened1 and "docker daemon unreachable but host ssh alive" in err1,
+          f"{name}: tpu-1's breaker open {opened1}, its probe {err1!r}")
+    check(opened3 and "host unreachable over ssh" in err3,
+          f"{name}: tpu-3's breaker open {opened3}, its probe {err3!r}")
+    check(len(rows) == LOOP_AGENTS
+          and all(r["status"] == "done"
+                  and r["iteration"] == POD_FAIL_ITERATIONS
+                  and r["worker"] in ("tpu-0", "tpu-2") for r in rows),
+          f"{name}: rows {rows}")
+    scored = log.check_run(name)
+    with _isolated_dirs(base / "down", POD_SETTINGS) as proj, \
+            _pod(down=(2,)) as p:
+        cfg = load_config(proj)
+        drv = get_driver(cfg.settings)
+        ws = drv.connect()
+        sched2 = LoopScheduler(cfg, drv, LoopSpec(parallel=6, iterations=1),
+                               health_config=_pod_health(health))
+        sched2.start()
+        pre_open = sched2.health.state("tpu-2") == health.BREAKER_OPEN
+        sched2.run(poll_s=0.05)
+        rows2 = sched2.status()
+        sched2.cleanup(remove_containers=True)
+        drv.close()
+        creates2 = [d.routes.get("container_create", 0) for d in p.daemons]
+    dial_error = ws[2].meta.get("dial_error", "")
+    check([w.engine is None for w in ws] == [False, False, True, False]
+          and "did not come up" in dial_error,
+          f"{name}: a pod with w2 down dialed "
+          f"{[(w.id, w.engine is not None, w.meta) for w in ws]}")
+    check(pre_open and all(r["status"] == "done"
+                           and r["worker"] in ("tpu-0", "tpu-1", "tpu-3")
+                           for r in rows2) and creates2[2] == 0,
+          f"{name}: tpu-2's breaker open at start {pre_open}, rows {rows2}, "
+          f"creates per daemon {creates2}")
+    print(f"{name} {LOOP_AGENTS} loops x {POD_FAIL_ITERATIONS} iterations "
+          f"({POD_FAIL_ITER_S} s each), w1's daemon stopped then w3 down: "
+          f"run wall {wall!r} ms; tpu-1 {err1!r}; tpu-3 {err3!r}; final "
+          f"workers {dict(collections.Counter(r['worker'] for r in rows))}; "
+          f"{len(log.ticks)} ticks, {len(scored)} scored; w2 down from the "
+          f"start: tpu-2 dial_error {dial_error!r}, 6 loops on "
+          f"{dict(collections.Counter(r['worker'] for r in rows2))}")
+    return log.launches()
+
+
+def pod_cli_case(base: Path, device: str) -> None:
+    """(d): the verbs forked on default settings that hold ``runtime.
+    driver: tpu_vm`` and the four workers, no ``CLAWKER_TPU_DRIVER``:
+    ``loop -p 8 -n 2 --sentinel --json`` exits 0 with creates on every
+    worker's daemon; ``fleet workers`` lists them in pod order; a
+    one-shot ``fleet anomaly`` with no loopd tails the four workers,
+    scores on the card and flags the hot agent on ``tpu-2`` (exit 2);
+    ``fleet provision --dry-run --no-cp`` prints the plan; ``fleet
+    provision`` refuses the control plane (exit 1) before any ssh."""
+    from clawker_tpu_torch.config import load_config
+
+    name = "pod (d)"
+    settings = f"sentinel:\n  interval_s: {LOOP_CLI_TICK_S}\n" + POD_SETTINGS
+    with _isolated_dirs(base, settings) as proj, _pod() as p:
+        cfg = load_config(proj)
+        env = dict(os.environ, CLAWKER_TORCH_DEVICE=device,
+                   PYTHONPATH=str(ROOT))
+        for k in ("CLAWKER_TPU_DRIVER", "CLAWKER_TPU_FAKE_IMAGES",
+                  "DOCKER_HOST"):
+            env.pop(k, None)
+        agents = [f"cli-{i}" for i in range(LOOP_AGENTS)]
+        _pod_egress(p.roots, agents, agents[LOOP_HOT_SLOT])
+        hot = f"clawker.{LOOP_PROJECT}.{agents[LOOP_HOT_SLOT]}"
+        run, run_ms = _cli(["loop", "-p", "8", "-n", "2", "--sentinel",
+                            "--json"], proj, env)
+        creates = [d.routes.get("container_create", 0) for d in p.daemons]
+        check(run.returncode == 0,
+              f"{name}: loop exited {run.returncode}: {run.stderr[-2000:]}")
+        doc = json.loads(run.stdout)
+        workers, workers_ms = _cli(["fleet", "workers"], proj, env)
+        anom, anom_ms = _cli(["fleet", "anomaly", "--format", "json"], proj,
+                             env)
+        dry, dry_ms = _cli(["fleet", "provision", "--dry-run", "--no-cp"],
+                           proj, env)
+        before = len(p.shim.invocations())
+        refused, _ = _cli(["fleet", "provision"], proj, env)
+        after = len(p.shim.invocations())
+        kinds = _seam_kinds(p.shim)
+    check(len(doc["agents"]) == 8
+          and all(a["status"] == "done" and a["iteration"] == 2
+                  for a in doc["agents"]) and all(c >= 1 for c in creates),
+          f"{name}: agents {doc['agents']}, creates per daemon {creates}")
+    check(workers.returncode == 0 and workers.stdout == "".join(
+        f"{i}\t{h}\n" for i, h in enumerate(POD_HOSTS)),
+        f"{name}: fleet workers exited {workers.returncode}: "
+        f"{workers.stdout!r} {workers.stderr[-500:]}")
+    check(anom.returncode == 2,
+          f"{name}: fleet anomaly exited {anom.returncode}, want 2: "
+          f"{anom.stderr[-2000:]}")
+    adoc = json.loads(anom.stdout)
+    arows = {r["agent"]: r for r in adoc["rows"]}
+    check(hot in arows and arows[hot]["flagged"]
+          and arows[hot]["worker"] == f"tpu-{POD_HOT_WORKER}"
+          and set(adoc["stream_counts"]) == {f"tpu-{i}" for i in range(4)},
+          f"{name}: fleet anomaly rows {adoc['rows']}, stream counts "
+          f"{adoc['stream_counts']}")
+    check(dry.returncode == 0 and "preflight-docker" in dry.stdout
+          and "verify-healthz" not in dry.stdout,
+          f"{name}: provision --dry-run --no-cp exited {dry.returncode}: "
+          f"{dry.stdout[-500:]} {dry.stderr[-500:]}")
+    check(refused.returncode == 1 and "control plane" in refused.stderr
+          and after == before,
+          f"{name}: fleet provision exited {refused.returncode} "
+          f"({refused.stderr[-500:]!r}), {after - before} seam invocations")
+    print(f"{name} forked on default settings (runtime.driver tpu_vm): loop "
+          f"--sentinel {run_ms!r} ms, creates per worker {creates}; fleet "
+          f"workers {workers_ms!r} ms; fleet anomaly {anom_ms!r} ms, exit 2, "
+          f"{hot} z {arows[hot]['latest_z']} on {arows[hot]['worker']}, "
+          f"records {adoc['stream_counts']}; provision --dry-run --no-cp "
+          f"{dry_ms!r} ms; provision without --no-cp refused with no ssh; "
+          f"seam invocations {_by_kind(kinds)}")
+
+
+def pod_dial_case() -> None:
+    """(e): ``TPUVMDriver.connect()`` of the four-worker pod, each time
+    with a fresh mux dir, ``POD_DIAL_REPS`` times with no injected delay
+    and again with every seam invocation delayed ``POD_WAN_S``: the
+    dial is concurrent, so the delayed connect stays under twice one
+    worker's dial plus ``POD_DIAL_SLACK_MS``.  Host work, no kernel."""
+    import tempfile
+
+    import clawker_tpu_torch.fleet.transport as fleet_transport
+    from clawker_tpu_torch.config.schema import TPUSettings
+    from clawker_tpu_torch.engine.drivers import TPUVMDriver
+
+    name = "pod (e)"
+    real = fleet_transport.connect_worker_engine
+    per: dict = {}
+
+    def timed(tpu, host, index, *, runner=None):
+        t0 = time.perf_counter()
+        try:
+            return real(tpu, host, index, runner=runner)
+        finally:
+            per[host] = (time.perf_counter() - t0) * 1e3
+
+    saved = os.environ.get("CLAWKER_TPU_STATE_DIR")
+    out = {}
+    fleet_transport.connect_worker_engine = timed
+    try:
+        with _pod() as p:
+            for delay in (0.0, POD_WAN_S):
+                p.shim.set_delay(delay)
+                walls, dials = [], collections.defaultdict(list)
+                for _ in range(POD_DIAL_REPS):
+                    state = Path(tempfile.mkdtemp(prefix="m", dir="/tmp"))
+                    os.environ["CLAWKER_TPU_STATE_DIR"] = str(state)
+                    per.clear()
+                    drv = TPUVMDriver(TPUSettings(workers=list(POD_HOSTS)))
+                    t0 = time.perf_counter()
+                    ws = drv.connect()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    check(all(w.engine is not None for w in ws),
+                          f"{name}: a dial failed: {[w.meta for w in ws]}")
+                    drv.close()
+                    shutil.rmtree(state, ignore_errors=True)
+                    for h, ms in per.items():
+                        dials[h].append(ms)
+                out[delay] = (statistics.median(walls),
+                              {h: statistics.median(v)
+                               for h, v in sorted(dials.items())})
+            p.shim.set_delay(0.0)
+    finally:
+        fleet_transport.connect_worker_engine = real
+        if saved is None:
+            os.environ.pop("CLAWKER_TPU_STATE_DIR", None)
+        else:
+            os.environ["CLAWKER_TPU_STATE_DIR"] = saved
+    wan_wall, wan_dials = out[POD_WAN_S]
+    one = statistics.median(wan_dials.values())
+    check(wan_wall < 2 * one + POD_DIAL_SLACK_MS,
+          f"{name}: connect {wan_wall!r} ms with {POD_WAN_S} s a call, one "
+          f"worker's dial {one!r} ms: not concurrent")
+    for delay, (wall, dials) in out.items():
+        print(f"{name} connect() of {len(POD_HOSTS)} workers over the "
+              f"loopback ssh (host work, no kernel), {delay} s injected a "
+              f"call: median of {POD_DIAL_REPS} {wall!r} ms, each worker's "
+              f"forward-ready median ms {dials}")
+
+
+def pod_phase(device) -> collections.Counter:
+    """Drives ``loop``, workerd discovery, failover and the fleet verbs
+    on the ``tpu_vm`` driver over a pod of four SSH workers on this
+    machine (the loopback ssh), with the sentinel scoring on the card
+    over each worker's remote tail; -> launches."""
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="c", dir="/tmp"))
+    total = collections.Counter()
+    t0 = time.perf_counter()
+    try:
+        with stage_timers({}) as stages:
+            total.update(pod_loop_case(out / "a", device, stages))
+        with stage_timers({}) as stages:
+            total.update(pod_workerd_case(out / "b", device, stages))
+        with stage_timers({}) as stages:
+            total.update(pod_failover_case(out / "c", device, stages))
+        pod_cli_case(out / "d", device)
+        pod_dial_case()
+        no_daemon_left()
+        no_process_left("pod")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    print(f"pod launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -6191,6 +6947,7 @@ def main() -> int:
     from clawker_tpu_torch.kernels import anomaly as K
     from clawker_tpu_torch.kernels import build
 
+    os.environ[RUN_MARK] = f"{os.getpid()}.{time.time_ns()}"
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in fp32
     torch.backends.cudnn.allow_tf32 = False
     print(card_line())
@@ -6235,9 +6992,12 @@ def main() -> int:
         main_path["launches"][k] += v
     for k, v in engines_phase(device).items():
         main_path["launches"][k] += v
+    for k, v in pod_phase(device).items():
+        main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)
     check_no_reference_imports()
+    no_process_left("every phase")
 
     n, f = TIMED_SHAPE
     replaces = {
@@ -6281,3 +7041,5 @@ if __name__ == "__main__":
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         sys.exit(1)
+    finally:
+        _kill(_spawned_left())  # a failed phase may leave its daemons

@@ -1,8 +1,9 @@
 """Elastic capacity: telemetry-driven warm-pool sizing, SLO-aware
-
-The port's copy of ``clawker_tpu/capacity``, but for ``TPUVMScaler``,
-which waits for the ``gpu_host`` driver (ROADMAP §1 item 12b).
 admission, and fleet autoscaling (docs/elastic-capacity.md).
+
+The port's copy of ``clawker_tpu/capacity``, whole; its
+``TPUVMScaler`` provisions standby hosts without the per-worker control
+plane, whose half of provisioning waits for ROADMAP §1 item 13.
 
 Every capacity knob used to be a static setting tuned for one traffic
 shape: warm-pool depth, per-worker admission tokens, the fleet size
@@ -36,6 +37,7 @@ from .scaler import (
     FakeFleetScaler,
     FleetScaler,
     NullScaler,
+    TPUVMScaler,
     make_scaler,
 )
 from .signals import EwmaRate, RegistrySampler
@@ -44,5 +46,5 @@ __all__ = [
     "REC_CAPACITY_POOL", "REC_CAPACITY_QUEUE", "REC_CAPACITY_SCALE",
     "REC_CAPACITY_TOKENS", "CapacityController", "CapacityHooks",
     "EwmaRate", "FakeFleetScaler", "FleetScaler", "NullScaler",
-    "RegistrySampler", "make_scaler", "tokens_for",
+    "RegistrySampler", "TPUVMScaler", "make_scaler", "tokens_for",
 ]

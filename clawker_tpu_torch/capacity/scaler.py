@@ -1,10 +1,11 @@
 """Fleet scalers: how a capacity decision becomes workers.
 
-The port's copy of ``clawker_tpu/capacity/scaler.py`` but for
-``TPUVMScaler`` (the reference's ``scaler.py:99``): it provisions
-through ``fleet/provision.py`` over ``SSHTransport``, which wait for
-the ``gpu_host`` driver (ROADMAP §1 item 12b).  :func:`make_scaler`
-refuses a ``tpu_vm`` driver by name.
+The port's copy of ``clawker_tpu/capacity/scaler.py``, whole.
+:class:`TPUVMScaler` provisions through ``fleet/provision.py`` over
+``SSHTransport``; its default (``with_cp=True``) provisions the
+per-worker control plane, which is refused by name until that daemon
+is ported (ROADMAP §1 item 13), so :func:`make_scaler` raises a
+:class:`ConfigError` for a ``tpu_vm`` driver.
 
 The controller decides *when* to grow or shrink the fleet; a
 :class:`FleetScaler` owns *how*.  Three implementations:
@@ -16,8 +17,8 @@ The controller decides *when* to grow or shrink the fleet; a
 - :class:`FakeFleetScaler` -- grows/shrinks a
   :class:`~clawker_tpu_torch.engine.drivers.FakeDriver` pod in place (tests,
   chaos, the elastic bench).
-- ``TPUVMScaler`` -- the reference's standby-host provisioner; not
-  ported (above).
+- :class:`TPUVMScaler` -- provisions ``tpu_vm`` standby hosts
+  through the concurrent provisioner.
 
 Every scaler call happens AFTER the controller journaled the decision
 durable (WAL-before-mutation: a crash between the record and the
@@ -28,7 +29,6 @@ an untracked worker).
 from __future__ import annotations
 
 from .. import logsetup
-from ..errors import ConfigError
 
 log = logsetup.get("capacity.scaler")
 
@@ -36,15 +36,13 @@ log = logsetup.get("capacity.scaler")
 def make_scaler(driver, cfg, *, max_workers: int) -> "FleetScaler":
     """The one scaler-selection rule both wiring layers (loopd and the
     in-process CLI path) share: an elastically growable fake pod gets
-    the in-place scaler, ``tpu_vm`` is refused by name (its provisioner
-    waits for the ``gpu_host`` driver), anything else degrades to
-    decisions-without-side-effects."""
+    the in-place scaler, ``tpu_vm`` gets the concurrent provisioner
+    (which refuses its control-plane default by name, above),
+    anything else degrades to decisions-without-side-effects."""
     if hasattr(driver, "add_worker"):
         return FakeFleetScaler(driver, max_workers=max_workers)
     if getattr(driver, "name", "") == "tpu_vm":
-        raise ConfigError(
-            "capacity: the tpu_vm fleet scaler (TPUVMScaler) is not yet "
-            "ported to clawker_tpu_torch (ROADMAP §1 item 12b, gpu_host)")
+        return TPUVMScaler(cfg)
     return NullScaler()
 
 
@@ -103,3 +101,66 @@ class FakeFleetScaler(FleetScaler):
         if ok:
             self.drained.append(worker_id)
         return ok
+
+
+class TPUVMScaler(FleetScaler):
+    """Provision/drain ``tpu_vm`` standby hosts via the concurrent
+    provisioner.
+
+    ``standby_hosts`` are hosts present in the pod but not yet serving
+    (``runtime.tpu.workers`` beyond the active set): ``provision``
+    installs the worker stack on the next ``n`` of them concurrently
+    (fleet/provision.py -- one shared payload tar, streamed steps).
+    ``drain`` has no remote teardown: the engine-side drain (pool
+    members removed, lane retired) is the scheduler's, gated by the
+    controller; the VM just stops receiving placements.
+    """
+
+    def __init__(self, cfg, *, with_firewall: bool = True,
+                 with_cp: bool = True):
+        from ..fleet.provision import refuse_cp
+
+        refuse_cp(with_cp)
+        self.cfg = cfg
+        self.with_firewall = with_firewall
+        self.with_cp = with_cp
+        self._active: set[str] = set()
+        self.provisioned: list[str] = []
+        self.drained: list[str] = []
+
+    def _standby(self) -> list[str]:
+        from ..fleet.inventory import discover_workers
+
+        hosts = discover_workers(self.cfg.settings.runtime.tpu)
+        return [h for h in hosts if h not in self._active]
+
+    def provision(self, n: int) -> list[str]:
+        from pathlib import Path
+
+        from ..fleet.provision import provision_fleet
+        from ..fleet.transport import SSHTransport
+
+        tpu = self.cfg.settings.runtime.tpu
+        targets = self._standby()[:max(0, int(n))]
+        if not targets:
+            return []
+        transports = [
+            SSHTransport(tpu, h, i, mux_dir=self.cfg.ssh_mux_dir)
+            for i, h in enumerate(targets)]
+        repo_root = Path(__file__).resolve().parents[2]
+        reports = provision_fleet(
+            transports, repo_root, with_firewall=self.with_firewall,
+            with_cp=self.with_cp,
+            monitor=self.cfg.settings.monitoring.enable)
+        out = [r.host for r in reports if r.ok]
+        self._active.update(out)
+        self.provisioned.extend(out)
+        for r in reports:
+            if not r.ok:
+                log.warning("capacity provision of %s failed", r.host)
+        return out
+
+    def drain(self, worker_id: str) -> bool:
+        self._active.discard(worker_id)
+        self.drained.append(worker_id)
+        return True

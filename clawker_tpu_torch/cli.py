@@ -6,9 +6,14 @@ of the reference's ``clawker monitor anomalies``
 windows (or no accelerator), 2 when an agent's latest z crosses
 ``--threshold``.  ``fleet anomaly`` those of ``clawker fleet anomaly``
 (``clawker_tpu/cli/cmd_fleet.py:761-900``): 0 scored, 1 no scorable
-windows (or no accelerator), 2 when an agent's window flags; with a
-loopd answering, the one-shot renders the daemon sentinel's rows
-(``cmd_fleet.py:123-140,806-822``).  ``loop`` is ``clawker loop``
+windows (or no accelerator), 2 when an agent's window flags; its
+sentinel tails the configured driver's workers with settings
+``sentinel``'s defaults under the flags, and with a loopd answering,
+the one-shot renders the daemon sentinel's rows
+(``cmd_fleet.py:123-140,806-822``).  ``fleet workers|provision|status``
+are the reference's (``cmd_fleet.py:23-121,973-996``) but that
+``provision`` refuses the per-worker control plane by name (pass
+``--no-cp``).  ``loop`` is ``clawker loop``
 (``clawker_tpu/cli/cmd_loop.py:87-781``) but for ``--pods``: it
 submits to this project's loopd when one answers (``--detach``, ``loop
 attach``), else runs the port's own
@@ -43,9 +48,9 @@ import functools
 import json
 import os
 import signal
+import threading
 import time
 from pathlib import Path
-from types import SimpleNamespace
 
 import click
 
@@ -55,8 +60,15 @@ DEVICE_ENV = "CLAWKER_TORCH_DEVICE"
 
 
 @click.group()
-def cli():
+@click.pass_context
+def cli(ctx):
     """clawker fleet analytics on PyTorch/CUDA."""
+    # one Factory for the whole command; the driver it builds is closed
+    # when the command ends, so no forward of a tpu_vm driver outlives
+    # the verb (the reference's CLI leaves its ssh forwards running)
+    if not isinstance(ctx.obj, Factory):
+        ctx.obj = Factory()
+    ctx.call_on_close(ctx.obj.close)
 
 
 @cli.group("monitor")
@@ -164,36 +176,154 @@ def fleet_group():
     """Fleet-wide verbs."""
 
 
-# The host's one worker when no fleet is configured, named as the
-# reference names it (clawker_tpu/engine/drivers/local.py:42).
-LOCAL_WORKER = "local-0"
-
 _ANOMALY_COLUMNS = ("AGENT", "WORKER", "WINDOWS", "LATEST-Z", "PEAK-Z",
                     "RECORDS", "FLAG")
 
 
-class _LocalFleet:
-    """The host's one worker, for ``wire_fleet``: its stream is a host
-    file under the logs dir, never a remote tail."""
+def _transports(f):
+    """One SSH transport per discovered pod worker, in pod order
+    (``clawker_tpu/cli/cmd_fleet.py:23-35``)."""
+    from .fleet.inventory import discover_workers
+    from .fleet.transport import SSHTransport
 
-    def workers(self):
-        return [SimpleNamespace(id=LOCAL_WORKER, engine=None)]
+    tpu = f.config.settings.runtime.tpu
+    hosts = discover_workers(tpu)
+    if not hosts:
+        raise click.ClickException(
+            "no TPU workers configured (runtime.tpu.workers / runtime.tpu.pod)"
+        )
+    mux = f.config.ssh_mux_dir
+    return [SSHTransport(tpu, h, i, mux_dir=mux) for i, h in enumerate(hosts)]
+
+
+@fleet_group.command("workers")
+@click.pass_context
+def fleet_workers(ctx):
+    """List the pod's worker hosts in pod order."""
+    from .fleet.inventory import discover_workers
+
+    hosts = discover_workers(_factory(ctx).config.settings.runtime.tpu)
+    for i, h in enumerate(hosts):
+        click.echo(f"{i}\t{h}")
+    if not hosts:
+        raise SystemExit(1)
+
+
+@fleet_group.command("provision")
+@click.option("--dry-run", is_flag=True, help="Print the plan, touch nothing.")
+@click.option("--no-firewall", is_flag=True, help="Skip the eBPF/kernel half.")
+@click.option("--no-cp", is_flag=True, help="Skip the per-worker control plane.")
+@click.option("--worker", "only", type=int, default=-1,
+              help="Provision a single worker index.")
+@click.option("--jobs", "-j", type=int, default=8,
+              help="Concurrent worker provisions (bounded pool).")
+@click.pass_context
+def fleet_provision(ctx, dry_run, no_firewall, no_cp, only, jobs):
+    """Install the worker stack (native bits, eBPF).
+
+    Workers provision concurrently (one payload tar shared by all);
+    step results stream as they land, prefixed with the worker index.
+    The per-worker control plane is not ported yet: without --no-cp
+    the verb refuses (exit 1) before it dials any worker.
+    """
+    from .errors import ConfigError
+    from .fleet.provision import build_plan, provision_fleet
+
+    f = _factory(ctx)
+    try:
+        plan = build_plan(with_firewall=not no_firewall, with_cp=not no_cp)
+    except ConfigError as e:
+        raise click.ClickException(str(e))
+    if dry_run:
+        for step in plan:
+            opt = " (optional)" if step.optional else ""
+            click.echo(f"{step.name}{opt}\n    {step.cmd}")
+        return
+    repo_root = Path(__file__).resolve().parents[1]
+    transports = _transports(f)
+    if only >= 0:
+        chosen = [t for t in transports if t.index == only]
+        if not chosen:
+            valid = ", ".join(str(t.index) for t in transports)
+            raise click.ClickException(
+                f"--worker {only}: no such worker index (valid: {valid})")
+        transports = chosen
+
+    echo_lock = threading.Lock()   # step lines land from worker threads
+
+    def on_step(index, r):
+        mark = "+" if r.ok else "!"
+        with echo_lock:
+            click.echo(f"worker {index}: {mark} {r.name}"
+                       + (f": {r.detail}" if r.detail else ""))
+
+    def on_report(report):
+        """Per-worker summary the moment THAT worker finishes: a slow
+        worker must not hold back the fast workers' verdicts."""
+        if report.ok:
+            line = f"worker {report.index} ({report.host}): ok"
+        else:
+            # the streamed '!' line may be interleaved far above: the
+            # summary must carry the failure on its own
+            bad = next((r for r in report.results if not r.ok), None)
+            why = ""
+            if bad is not None:
+                why = f" at {bad.name}" + (f": {bad.detail}" if bad.detail else "")
+            line = f"worker {report.index} ({report.host}): FAILED{why}"
+        with echo_lock:
+            click.echo(line)
+
+    reports = provision_fleet(
+        transports, repo_root,
+        with_firewall=not no_firewall, with_cp=not no_cp,
+        monitor=f.config.settings.monitoring.enable,
+        max_workers=max(1, jobs), on_step=on_step, on_report=on_report)
+    if any(not r.ok for r in reports):
+        raise SystemExit(1)
+
+
+@fleet_group.command("status")
+@click.option("--format", "fmt", type=click.Choice(["table", "json"]), default="table")
+@click.pass_context
+def fleet_status(ctx, fmt):
+    """Per-worker daemon + control-plane health over SSH."""
+    from . import consts
+
+    rows = []
+    for t in _transports(_factory(ctx)):
+        docker = t.run("docker info --format '{{.ServerVersion}}'", timeout=20.0)
+        cp = t.run(
+            f"curl -fsS -m 3 http://127.0.0.1:{consts.CP_HEALTH_PORT}/healthz",
+            timeout=20.0,
+        )
+        rows.append({
+            "worker": t.index, "host": t.host,
+            "docker": docker.out.strip() if docker.rc == 0 else "DOWN",
+            "control_plane": "ok" if cp.rc == 0 else "DOWN",
+        })
+    if fmt == "json":
+        click.echo(json.dumps(rows, indent=2))
+        return
+    for r in rows:
+        click.echo(f"{r['worker']}\t{r['host']}\tdocker={r['docker']}\tcp={r['control_plane']}")
 
 
 @fleet_group.command("anomaly")
 @click.option("--watch", is_flag=True,
               help="Keep scoring and re-print the table every interval.")
 @click.option("--interval", type=float, default=None,
-              help="Scoring tick seconds with --watch (default 5).")
+              help="Scoring tick seconds with --watch (default: settings "
+                   "sentinel.interval_s).")
 @click.option("--ticks", type=int, default=0,
               help="With --watch: stop after N ticks (0 = until Ctrl-C).")
 @click.option("--window", type=int, default=None,
-              help="Window seconds (default 60).")
+              help="Window seconds (default: settings sentinel.window_s).")
 @click.option("--train-steps", type=int, default=None,
-              help="Denoising fit steps per tick (default 40).")
+              help="Denoising fit steps per tick (default: settings "
+                   "sentinel.train_steps).")
 @click.option("--threshold", type=float, default=None,
               help="Worker-relative robust z past which an agent flags "
-                   "(default 3.5).")
+                   "(default: settings sentinel.threshold).")
 @click.option("--stream", "streams", multiple=True, metavar="WORKER=PATH",
               help="Extra local stream source(s): tail PATH as WORKER's "
                    "egress jsonl (besides the fleet's own streams).")
@@ -209,19 +339,20 @@ def fleet_anomaly(ctx, watch, interval, ticks, window, train_steps,
     behavior windows fitted and scored on the GPU in one fit and one
     score per tick.
 
-    One-shot by default: collect the host worker's streams
-    (``ebpf-egress-local-0.jsonl`` and ``ebpf-egress.jsonl`` under the
-    logs dir) and every ``--stream``, score once, and exit 2 when any
-    agent's window flags past the threshold.  ``--watch`` keeps ticking
-    and re-prints live scores.  With a loopd daemon hosting a sentinel
-    (settings sentinel.enable) the one-shot renders the daemon's LIVE
-    rows instead of building a second scorer.
+    One-shot by default: collect every worker's stream (local reads on
+    local/fake, ``tail -F`` over the SSH mux for tpu_vm) and every
+    ``--stream``, score once, and exit 2 when any agent's window flags
+    past the threshold (default: settings ``sentinel``).  ``--watch``
+    keeps ticking and re-prints live scores.  With a loopd daemon
+    hosting a sentinel (settings sentinel.enable) the one-shot renders
+    the daemon's LIVE rows instead of building a second scorer.
     """
     from .sentinel import FleetSentinel
-    from .util.xdg import logs_dir
 
+    f = _factory(ctx)
+    ss = f.config.settings.sentinel
     if not watch:
-        doc = _loopd_status(_factory(ctx), no_daemon)
+        doc = _loopd_status(f, no_daemon)
         sent = (doc or {}).get("sentinel") if doc else None
         if sent and sent.get("enabled"):
             if fmt == "json":
@@ -236,11 +367,13 @@ def fleet_anomaly(ctx, watch, interval, ticks, window, train_steps,
                 raise SystemExit(2)
             return
     device = _device("fleet anomaly")
-    settings = {"interval_s": interval, "window_s": window or None,
-                "train_steps": train_steps or None, "threshold": threshold}
     sentinel = FleetSentinel(
-        SimpleNamespace(logs_dir=logs_dir()), _LocalFleet(), device=device,
-        **{k: v for k, v in settings.items() if v is not None})
+        f.config, f.driver,
+        interval_s=(interval if interval is not None else ss.interval_s),
+        window_s=window or ss.window_s,
+        train_steps=train_steps or ss.train_steps,
+        threshold=(threshold if threshold is not None else ss.threshold),
+        baseline_window=ss.baseline_window, device=device)
     for kv in streams:
         wid, _, path = kv.partition("=")
         if not wid or not path:
@@ -275,6 +408,9 @@ def fleet_anomaly(ctx, watch, interval, ticks, window, train_steps,
             except KeyboardInterrupt:
                 rows = sentinel.rows()
         else:
+            # remote (tpu_vm) tails replay worker history asynchronously
+            # over the SSH mux: let the feed settle before the one
+            # verdict tick, or a busy fleet reads as empty
             sentinel.collector.wait_quiescent(2.0)
             n = sentinel.refresh_once()
             if n == 0 and not sentinel.rows():
@@ -429,6 +565,11 @@ class Factory:
             return self._driver_override
         return get_driver(self.config.settings,
                           override=os.environ.get(ENV_DRIVER, ""))
+
+    def close(self) -> None:
+        """Close the driver this factory built (never one passed in)."""
+        if self._driver_override is None and "driver" in self.__dict__:
+            self.__dict__.pop("driver").close()
 
 
 _hard_exit = os._exit       # seam: tests stub the second-stage exit

@@ -1,9 +1,9 @@
 """RuntimeDriver seam: pluggable container backends.
 
 The port's copy of ``clawker_tpu/engine/drivers/base.py``.  Of the
-reference's drivers ``local`` and ``fake`` are ported: ``get_driver``
-raises a :class:`ConfigError` naming ``nsd`` or ``tpu_vm`` as not yet
-ported (ROADMAP §1 items 12b and 13).
+reference's drivers ``local``, ``tpu_vm`` and ``fake`` are ported:
+``get_driver`` raises a :class:`ConfigError` naming ``nsd`` as not yet
+ported (ROADMAP §1 item 13).
 """
 
 from __future__ import annotations
@@ -120,7 +120,7 @@ def _seeded_fake_driver() -> "RuntimeDriver":
 
 
 # the reference's other drivers (clawker_tpu/engine/drivers/__init__.py)
-UNPORTED_DRIVERS = ("nsd", "tpu_vm")
+UNPORTED_DRIVERS = ("nsd",)
 
 
 def get_driver(settings: "Settings", *, override: str = "") -> RuntimeDriver:
@@ -132,9 +132,13 @@ def get_driver(settings: "Settings", *, override: str = "") -> RuntimeDriver:
         return LocalDriver(docker_host=settings.runtime.docker_host)
     if name == "fake":
         return _seeded_fake_driver()
+    if name == "tpu_vm":
+        from .tpu_vm import TPUVMDriver
+
+        return TPUVMDriver(settings.runtime.tpu)
     if name in UNPORTED_DRIVERS:
         raise ConfigError(
             f"runtime driver {name!r} is not yet ported to clawker_tpu_torch "
-            "(only 'local' and 'fake' are)")
+            "(only 'local', 'tpu_vm' and 'fake' are)")
     raise ConfigError(
         f"unknown runtime driver {name!r} (expected local|tpu_vm|nsd|fake)")

@@ -1,7 +1,17 @@
-"""Fleet wiring (copied from the reference package).
+"""Fleet: TPU-pod worker discovery, SSH transport, remote provisioning.
 
-Ported so far: the dashboard's merged egress feed and the worker-side
-egress log path (:mod:`.egress_tail`), the pod topology that placement
-reads (:mod:`.inventory`) and the local branch of the side channels
-(:mod:`.channels`).  Worker discovery and the SSH transport are not.
+The tpu_vm runtime driver's substrate (SURVEY.md 2.13): every worker VM
+of a TPU pod runs its own Docker daemon + control plane; the laptop CLI
+reaches them over SSH (DCN) with the docker socket and CP ports
+forwarded through a ControlMaster mux.  ICI never carries control
+traffic -- pod topology only informs loop-scheduler placement.
+
+The port's copy of ``clawker_tpu/fleet/__init__.py``, whole.  Its
+provisioning plan (:mod:`.provision`) refuses the control-plane half
+until that daemon is ported (ROADMAP §1 item 13).
 """
+
+from .inventory import discover_workers
+from .transport import SSHTransport, connect_worker_engine
+
+__all__ = ["discover_workers", "SSHTransport", "connect_worker_engine"]

@@ -1,9 +1,8 @@
 """Per-worker side channels: host proxy + monitor streams over SSH -R.
 
-The port's copy of ``clawker_tpu/fleet/channels.py``, local branch
-only: a local or fake engine (no SSH transport) gets the host-gateway
-URLs.  A remote engine raises: the SSH reverse forwards come with the
-``gpu_host`` driver (ROADMAP §1).
+The port's copy of ``clawker_tpu/fleet/channels.py``, whole: a local
+or fake engine (no SSH transport) gets the host-gateway URLs, a
+``tpu_vm`` engine the SSH reverse forwards of its transport.
 
 The host proxy (browser-open / OAuth / git-credential --
 hostproxy/server.py) and the monitor stack's OTLP collector run on the
@@ -25,7 +24,6 @@ from dataclasses import dataclass
 
 from .. import consts, logsetup
 from ..config import Config
-from ..errors import ClawkerError
 
 log = logsetup.get("fleet.channels")
 
@@ -66,6 +64,31 @@ def open_side_channels(engine, cfg: Config) -> SideChannels:
         engine._side_channels = ch
         return ch
 
-    raise ClawkerError(
-        "side channels to a remote worker (SSH reverse forwards) are not "
-        "yet ported to clawker_tpu_torch")
+    ch.remote = True
+    # the network may not exist yet on a fresh worker (firewall bring-up
+    # creates it during start; this runs before create)
+    engine.ensure_network(consts.NETWORK_NAME)
+    gateway = engine.network_static_ip(consts.NETWORK_NAME, 1)
+    if hp.enable:
+        from ..hostproxy import manager as hostproxy_manager
+
+        hostproxy_manager.ensure_running(cfg)
+        transport.reverse_forward_tcp(gateway, hp.port, "127.0.0.1", hp.port,
+                                      tag="hostproxy")
+        ch.hostproxy_url = f"http://{gateway}:{hp.port}"
+        log.info("worker %s: hostproxy channel %s -> laptop :%d",
+                 transport.index, ch.hostproxy_url, hp.port)
+    if mon.enable:
+        # worker CP netlogger + harness OTLP -> laptop collector.  Two
+        # binds: the gateway (for containers) and worker loopback (for the
+        # worker-resident CP daemon, whose default endpoint is loopback).
+        transport.reverse_forward_tcp(gateway, OTLP_HTTP_PORT,
+                                      "127.0.0.1", OTLP_HTTP_PORT, tag="otlp")
+        transport.reverse_forward_tcp("127.0.0.1", OTLP_HTTP_PORT,
+                                      "127.0.0.1", OTLP_HTTP_PORT,
+                                      tag="otlp-local")
+        ch.otlp_endpoint = f"http://{gateway}:{OTLP_HTTP_PORT}"
+        log.info("worker %s: otlp channel %s -> laptop :%d",
+                 transport.index, ch.otlp_endpoint, OTLP_HTTP_PORT)
+    engine._side_channels = ch
+    return ch

@@ -1,11 +1,10 @@
 """Worker discovery + pod topology: which hosts make up the TPU pod,
 and how they sit on the ICI mesh.
 
-The port's copy of ``clawker_tpu/fleet/inventory.py``: the topology
-half (:class:`WorkerTopology`, :func:`pod_topology`,
-:func:`federation_topology`).  Host discovery (the GCE metadata server
-and ``gcloud``) waits for the ``gpu_host`` driver, which takes workers
-from an explicit host list (ROADMAP §1).
+The port's copy of ``clawker_tpu/fleet/inventory.py``, whole: host
+discovery (:func:`discover_workers`, for the ``tpu_vm`` driver and the
+``fleet`` verbs) and the topology half (:class:`WorkerTopology`,
+:func:`pod_topology`, :func:`federation_topology`).
 
 Resolution order for hosts (first hit wins):
 
@@ -30,12 +29,73 @@ is the net-new inventory half of the BASELINE.json north star.
 
 from __future__ import annotations
 
+import json
+import subprocess
 from dataclasses import dataclass, field
+from urllib import error as urlerror
+from urllib import request as urlrequest
 
-from .. import logsetup
+from .. import consts, logsetup
 from ..config.schema import TPUSettings
+from ..errors import DriverError
 
 log = logsetup.get("fleet.inventory")
+
+METADATA_URL = (
+    f"http://{consts.TPU_METADATA_HOST}/computeMetadata/v1/instance/attributes/"
+    "worker-network-endpoints"
+)
+
+
+def parse_worker_endpoints(raw: str) -> list[str]:
+    """The metadata attribute is comma-separated ``ip:port:index`` triples
+    (historically) or plain IPs; accept both."""
+    hosts = []
+    for part in raw.strip().split(","):
+        part = part.strip()
+        if not part:
+            continue
+        hosts.append(part.split(":")[0])
+    return hosts
+
+
+def parse_describe_json(raw: str) -> list[str]:
+    """gcloud describe --format=json -> worker IPs, pod order preserved."""
+    data = json.loads(raw)
+    out = []
+    for ep in data.get("networkEndpoints") or []:
+        ip = (ep.get("accessConfig") or {}).get("externalIp") or ep.get("ipAddress")
+        if ip:
+            out.append(ip)
+    return out
+
+
+def _from_metadata(timeout: float = 2.0) -> list[str]:
+    req = urlrequest.Request(METADATA_URL, headers={"Metadata-Flavor": "Google"})
+    try:
+        with urlrequest.urlopen(req, timeout=timeout) as r:
+            return parse_worker_endpoints(r.read().decode())
+    except (urlerror.URLError, OSError):
+        return []
+
+
+def _from_gcloud(tpu: TPUSettings, timeout: float = 30.0) -> list[str]:
+    if not tpu.pod:
+        return []
+    cmd = ["gcloud", "compute", "tpus", "tpu-vm", "describe", tpu.pod,
+           "--format", "json"]
+    if tpu.zone:
+        cmd += ["--zone", tpu.zone]
+    if tpu.project:
+        cmd += ["--project", tpu.project]
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+    except (OSError, subprocess.TimeoutExpired) as e:
+        raise DriverError(f"gcloud describe failed: {e}") from None
+    if res.returncode != 0:
+        raise DriverError(f"gcloud describe {tpu.pod}: {res.stderr.strip()}")
+    return parse_describe_json(res.stdout)
+
 
 # ---------------------------------------------------------------- topology
 
@@ -137,3 +197,16 @@ def federation_topology(shape: str, n_pods: int) -> WorkerTopology:
     rows, cols = parsed if parsed is not None else _near_square(n_pods)
     coords = {i: (i // cols, i % cols) for i in range(n_pods)}
     return WorkerTopology(known=True, rows=rows, cols=cols, coords=coords)
+
+
+def discover_workers(tpu: TPUSettings) -> list[str]:
+    if tpu.workers:
+        return list(tpu.workers)
+    hosts = _from_metadata()
+    if hosts:
+        log.info("discovered %d workers via metadata server", len(hosts))
+        return hosts
+    hosts = _from_gcloud(tpu)
+    if hosts:
+        log.info("discovered %d workers via gcloud for pod %s", len(hosts), tpu.pod)
+    return hosts

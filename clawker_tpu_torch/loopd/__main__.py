@@ -12,7 +12,8 @@ The port's copy of ``clawker_tpu/loopd/__main__.py``.  With settings
 ``sentinel.enable`` the daemon's sentinel scores on
 ``CLAWKER_TORCH_DEVICE`` (default ``cuda``): a card or a kernel build
 that fails stops the daemon before it serves (exit 1, the reason in
-its log).
+its log).  It closes its driver on the way out, so a ``tpu_vm``
+driver's ssh forwards stop with the daemon.
 """
 
 from __future__ import annotations
@@ -43,11 +44,15 @@ def main() -> int:
     signal.signal(signal.SIGTERM, _term)
     signal.signal(signal.SIGINT, _term)
     try:
-        server.start()
-    except ClawkerError as e:
-        log.error("loopd refused to start: %s", e)
-        return 1
-    server.serve_forever()
+        try:
+            server.start()
+        except ClawkerError as e:
+            log.error("loopd refused to start: %s", e)
+            return 1
+        server.serve_forever()
+    finally:
+        # a tpu_vm driver's ssh forwards go with the daemon
+        driver.close()
     return 0
 
 

@@ -1,9 +1,10 @@
 """Fused fleet egress collection for the sentinel.
 
 A copy of ``clawker_tpu/sentinel/collector.py`` over the port's own
-``monitor.ledger`` reader.  ``add_remote`` takes any transport with the
-reference's shape (``ssh_base()``, ``runner.spawn_piped(cmd)``); the
-port has no SSH transport of its own yet.
+``monitor.ledger`` reader.  ``add_remote`` tails a ``tpu_vm`` worker
+over its :class:`~clawker_tpu_torch.fleet.transport.SSHTransport`
+(``ssh_base()``, ``runner.spawn_piped(cmd)``), and :meth:`stop` reaps
+each tail it started.
 
 One :class:`StreamCollector` owns every worker's ``ebpf-egress.jsonl``
 tail and merges the records into one bounded, worker-tagged feed:
@@ -31,6 +32,7 @@ stale scores, never crash, and the scheduler must not notice at all.
 from __future__ import annotations
 
 import collections
+import subprocess
 import threading
 import time
 from pathlib import Path
@@ -198,6 +200,12 @@ class StreamCollector:
                 proc.terminate()
             except OSError:
                 pass
+        for proc in self._procs:
+            try:
+                proc.wait(timeout=3)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
         for t in self._threads:
             t.join(1.0)
         self._threads.clear()

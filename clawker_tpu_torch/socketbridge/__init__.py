@@ -12,7 +12,8 @@ exist -- ``host`` (which pulls framework modules) is host-side only.
 
 The port's copy of ``clawker_tpu/socketbridge``.  The agentd zipapp that
 carries ``protocol`` and ``container`` into a real container comes with
-the agentd zipapp builder (ROADMAP §1 item 12b); on the fake engine
+the agentd zipapp builder, with the image builds (ROADMAP §1 item 13);
+on the fake engine
 the bridge runs against the fake's exec handler, and over the ``local``
 driver its exec rides the HTTP client's ``101`` hijack.
 """

@@ -20,8 +20,14 @@ piece of its own:
   where no Docker daemon exists.  Its wire handling follows the
   reference's namespace daemon (``clawker_tpu/nsd/server.py``).
 
+- :func:`install_ssh_shim` (the port's own) -- the loopback ``ssh``
+  (:mod:`clawker_tpu_torch.sshseam`): a pod of SSH workers on this
+  machine, each host a directory with its own Docker socket, so the
+  ``tpu_vm`` driver's real transport runs its forwards, side channels
+  and remote tails where no SSH server exists.
+
 The reference's lock-order tracer and WAN-RTT helper wait for the
-tooling they serve (ROADMAP §1 items 12b-13).
+tooling they serve (ROADMAP §1 item 13).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import os
 import re
 import socket
 import struct
+import sys
 import tempfile
 import threading
 import time
@@ -987,3 +994,138 @@ def _shut(conn: socket.socket) -> None:
         conn.close()
     except OSError:
         pass
+
+
+# ------------------------------------------------------------ loopback ssh
+
+# the longest worker-side socket path the fleet transport forwards
+# (``SSHTransport.remote_workerd_sock`` / ``remote_loopd_sock``)
+_REMOTE_SOCKS = ("/var/run/docker.sock",
+                 "/home/{user}/.local/state/clawker-tpu/workerd/workerd.sock",
+                 "/home/{user}/.local/state/clawker-tpu/loopd/loopd.sock")
+
+
+class SSHShim:
+    """An installed loopback ``ssh``: its host map and its log.
+
+    ``hosts`` maps each worker host to its root directory; the worker's
+    ``/var/run/docker.sock`` is ``<root>/var/run/docker.sock`` and its
+    home ``<root>/home/<user>``.  :meth:`set_down` and :meth:`set_delay`
+    rewrite the map while forwards run."""
+
+    __test__ = False
+
+    def __init__(self, bin_dir: Path, hosts: dict, user: str):
+        self.bin_dir = Path(bin_dir)
+        self.program = self.bin_dir / "ssh"
+        self.map_path = self.bin_dir / "ssh-hosts.json"
+        self.log_path = self.bin_dir / "ssh-invocations.jsonl"
+        self.user = user
+        self._lock = threading.Lock()
+        # two loopback addresses a worker (its gateway, its 127.0.0.1):
+        # four workers' reverse forwards then bind one port side by side
+        h = int(hashlib.sha256(str(self.bin_dir).encode()).hexdigest(), 16)
+        a, b = 64 + h % 128, (h >> 8) % 256
+        self._map = {"user": user, "log": str(self.log_path), "delay_s": 0.0,
+                     "hosts": {}}
+        for i, (host, root) in enumerate(hosts.items()):
+            root = Path(root)
+            self._map["hosts"][host] = {
+                "root": str(root), "down": False,
+                "gateway": f"127.{a}.{b}.{2 + 2 * i}",
+                "loopback": f"127.{a}.{b}.{3 + 2 * i}"}
+
+    def _write(self) -> None:
+        tmp = self.map_path.with_suffix(".tmp")
+        tmp.write_text(json.dumps(self._map, indent=1))
+        os.replace(tmp, self.map_path)
+
+    def address(self, host: str) -> str:
+        """The loopback address a worker's gateway maps to: where a
+        reverse forward bound at the gateway listens here."""
+        return self._map["hosts"][host]["gateway"]
+
+    def set_down(self, host: str, down: bool = True) -> None:
+        """Mark a host down (its forwards exit 255, every new call is
+        refused) or up again."""
+        with self._lock:
+            self._map["hosts"][host]["down"] = bool(down)
+            self._write()
+
+    def set_delay(self, seconds: float) -> None:
+        """A fake WAN: every invocation sleeps this long first."""
+        with self._lock:
+            self._map["delay_s"] = float(seconds)
+            self._write()
+
+    def env(self, base: dict | None = None) -> dict:
+        """``base`` (default: this process's environment) with the
+        shim first on ``PATH``."""
+        env = dict(os.environ if base is None else base)
+        env["PATH"] = f"{self.bin_dir}{os.pathsep}{env.get('PATH', '')}"
+        return env
+
+    def invocations(self) -> list[dict]:
+        """Every logged invocation, oldest first: ``kind`` (``L``,
+        ``R``, ``O``, ``cmd``, or ``L-failed``/``R-failed``), ``host``,
+        ``argv`` and the remote ``cmd``."""
+        try:
+            lines = self.log_path.read_text().splitlines()
+        except FileNotFoundError:
+            return []
+        return [json.loads(line) for line in lines if line.strip()]
+
+    def live_pids(self) -> list[int]:
+        """Processes still running that this shim started: the shim
+        itself (its program path on the command line) or a remote
+        command it exec'd (a worker root on the command line)."""
+        needles = [str(self.program).encode()] + [
+            (e["root"].rstrip("/") + "/").encode()
+            for e in self._map["hosts"].values()]
+        out = []
+        for d in Path("/proc").iterdir():
+            if not d.name.isdigit() or int(d.name) == os.getpid():
+                continue
+            try:
+                cmdline = (d / "cmdline").read_bytes()
+                state = (d / "stat").read_text().rsplit(")", 1)[1].split()[0]
+            except OSError:
+                continue
+            if state != "Z" and any(n in cmdline for n in needles):
+                out.append(int(d.name))
+        return out
+
+
+def install_ssh_shim(bin_dir: str | Path, hosts: dict, *,
+                     user: str = consts.TPU_SSH_USER_DEFAULT) -> SSHShim:
+    """Write an executable ``ssh`` into ``bin_dir`` that serves each host
+    of ``hosts`` ({host: root dir}) from this machine
+    (:mod:`clawker_tpu_torch.sshseam`), and its host map.  Put
+    ``bin_dir`` first on ``PATH`` (:meth:`SSHShim.env`).  Raises
+    ``ValueError`` when a root is so deep that a worker socket path
+    under it would pass the 107 bytes a unix socket path may hold."""
+    from . import sshseam
+
+    bin_dir = Path(bin_dir)
+    bin_dir.mkdir(parents=True, exist_ok=True)
+    for host, root in hosts.items():
+        for sock in _REMOTE_SOCKS:
+            path = str(Path(root)) + sock.format(user=user)
+            if len(path.encode()) > sshseam.SUN_PATH_MAX:
+                raise ValueError(
+                    f"loopback ssh: {host}'s root {root} is too deep: "
+                    f"{path} passes {sshseam.SUN_PATH_MAX} bytes")
+        for sub in ("var/run", f"home/{user}"):
+            (Path(root) / sub).mkdir(parents=True, exist_ok=True)
+    shim = SSHShim(bin_dir, hosts, user)
+    shim._write()
+    shim.program.write_text(
+        f"#!{sys.executable} -IS\n"
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('sshseam', "
+        f"{sshseam.__file__!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        f"sys.exit(mod.main({str(shim.map_path)!r}, sys.argv[1:]))\n")
+    shim.program.chmod(0o755)
+    return shim

@@ -41,10 +41,9 @@ The port's copy of ``clawker_tpu/workerd/__init__.py``: the daemon it
 forks is ``python -m clawker_tpu_torch.workerd``, spawned under the
 port's process-wide spawn lock (``util/daemon.py``) so two callers in
 one process never race two daemons onto one socket.  ``liveness``
-resolves the fake and the ``local`` driver's worker sockets (the local
-worker's the host's canonical one); the socket a ``tpu_vm`` engine's
-transport forwards waits for that driver (ROADMAP §1 item 12b), so such
-a worker reads ``absent`` here.  workerd's host
+resolves every driver's worker sockets as the reference does: the
+socket a ``tpu_vm`` engine's transport forwards, the local worker's
+canonical one.  workerd's host
 code runs no kernel: the card's work on its path is the sentinel that
 rides the runs it launches.
 """
@@ -163,18 +162,23 @@ def liveness(cfg, driver, *, sock_by_worker: dict | None = None) -> dict:
     a fleet view must surface instead of hiding.
 
     Resolution order per worker: an explicit ``sock_by_worker`` entry
-    (tests, loop --workerd wiring, loopd's executors), else -- for the
+    (tests, loop --workerd wiring, loopd's executors), else the
+    transport-forwarded socket a tpu_vm engine carries, else -- for the
     single local worker -- the host's canonical socket path.  Fake
     workers with no mapping read ``absent`` (no daemon was ever
-    provisioned), as does a ``tpu_vm`` worker until its transport's
-    forwarded socket is ported (ROADMAP §1 item 12b)."""
+    provisioned)."""
     from .executor import ping_socket
 
     out: dict[str, str] = {}
     for worker in driver.workers():
         sock = (sock_by_worker or {}).get(worker.id)
-        if sock is None and getattr(driver, "name", "") == "local":
-            sock = socket_path(cfg)
+        if sock is None:
+            transport = getattr(worker.engine, "transport", None)
+            if transport is not None:
+                local = transport.mux_dir / f"workerd-{transport.index}.sock"
+                sock = local if local.exists() else None
+            elif getattr(driver, "name", "") == "local":
+                sock = socket_path(cfg)
         if sock is None or not Path(sock).exists():
             out[worker.id] = ABSENT
         elif ping_socket(Path(sock)):

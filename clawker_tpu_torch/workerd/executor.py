@@ -25,12 +25,12 @@ Failure model:
   direct polling and launches fall back to the in-process lane -- the
   degrade matrix row `fleet health` renders as ``degraded``.
 
-The port's copy of ``clawker_tpu/workerd/executor.py``.  One branch of
-:func:`discover_executors` waits for the ``tpu_vm`` driver (ROADMAP §1
-item 12b): the socket its transport forwards over the SSH mux
-(``transport.forward_workerd``); the port discovers the local worker's
-canonical socket.  The seam it fires (``workerd.post_reconnect``) rides
-the scheduler's ``seams``.
+The port's copy of ``clawker_tpu/workerd/executor.py``, whole:
+:func:`discover_executors` dials a ``tpu_vm`` worker's workerd through
+the socket its transport forwards over the SSH mux
+(``transport.forward_workerd``) and the local worker's canonical
+socket.  The seam it fires (``workerd.post_reconnect``) rides the
+scheduler's ``seams``.
 """
 
 from __future__ import annotations
@@ -575,9 +575,9 @@ class ExecutorSet:
 
 def discover_executors(cfg, driver) -> ExecutorSet:
     """Build executors for every worker whose workerd answers
-    (docs/workerd.md#discovery): the host's canonical socket for the
-    single local worker (the ``tpu_vm`` workers' forwarded sockets wait
-    for that driver).  Workers with nothing
+    (docs/workerd.md#discovery): the transport-forwarded socket for
+    ``tpu_vm`` workers (tunneled over the existing SSH mux), the host's
+    canonical socket for the single local worker.  Workers with nothing
     answering get no executor -- the scheduler's direct path serves
     them unchanged."""
     from . import socket_path
@@ -588,7 +588,13 @@ def discover_executors(cfg, driver) -> ExecutorSet:
         return ExecutorSet(out)
     for worker in driver.workers():
         sock: Path | None = None
-        if getattr(driver, "name", "") == "local":
+        transport = getattr(worker.engine, "transport", None)
+        if transport is not None:
+            try:
+                sock = transport.forward_workerd()
+            except ClawkerError:
+                sock = None
+        elif getattr(driver, "name", "") == "local":
             cand = socket_path(cfg)
             sock = cand if cand.exists() else None
         if sock is None or not ping_socket(sock):

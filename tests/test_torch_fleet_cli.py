@@ -2,11 +2,18 @@
 verb's tests (tests/test_sentinel.py::TestFleetAnomalyCLI) on the CPU,
 with ``CLAWKER_TORCH_DEVICE=cpu`` and the state dir under ``tmp_path``
 (so the host worker's own streams are empty), and one run of both verbs
-on the same streams."""
+on the same streams.  The verb's sentinel tails the configured driver's
+workers, as the reference's does: on default settings the ``local``
+driver, here over a ``FakeEngineDaemon`` at ``DOCKER_HOST``, whose one
+worker is the host's ``local-0``."""
 
 from __future__ import annotations
 
+import contextlib
 import json
+import shutil
+import tempfile
+from pathlib import Path
 
 import torch
 from click.testing import CliRunner
@@ -14,6 +21,8 @@ from test_torch_fleet_sentinel import BASE, HOT, _benign_fleet_records, _deny_st
 from test_torch_sentinel import injected  # noqa: F401 -- fixture
 
 from clawker_tpu_torch.cli import cli
+from clawker_tpu_torch.engine.fake import FakeDockerAPI
+from clawker_tpu_torch.testenv import FakeEngineDaemon
 
 # small shapes: one intra-op thread keeps torch's pool from spinning on
 # every core beside the other test workers
@@ -22,12 +31,29 @@ torch.set_num_threads(1)
 TRAIN_STEPS = 40
 
 
+@contextlib.contextmanager
+def _host_daemon():
+    """The host's Docker daemon: a ``FakeEngineDaemon`` on a short
+    socket path (a unix socket path holds 107 bytes)."""
+    d = tempfile.mkdtemp(prefix="d", dir="/tmp")
+    daemon = FakeEngineDaemon(Path(d) / "docker.sock",
+                              FakeDockerAPI()).start()
+    try:
+        yield daemon
+    finally:
+        daemon.stop()
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def _invoke(tmp_path, *args):
-    env = {"CLAWKER_TORCH_DEVICE": "cpu",
-           "CLAWKER_TPU_STATE_DIR": str(tmp_path / "state")}
-    return CliRunner().invoke(
-        cli, ["fleet", "anomaly", "--no-daemon", "--train-steps",
-              str(TRAIN_STEPS), *args], env=env, catch_exceptions=False)
+    with _host_daemon() as daemon:
+        env = {"CLAWKER_TORCH_DEVICE": "cpu",
+               "CLAWKER_TPU_STATE_DIR": str(tmp_path / "state"),
+               "DOCKER_HOST": f"unix://{daemon.sock_path}",
+               "CLAWKER_TPU_DRIVER": None}
+        return CliRunner().invoke(
+            cli, ["fleet", "anomaly", "--no-daemon", "--train-steps",
+                  str(TRAIN_STEPS), *args], env=env, catch_exceptions=False)
 
 
 def _streams(tmp_path, *, hot=False):

@@ -64,6 +64,17 @@ ENGINE_MODULES = ["clawker_tpu_torch.engine.errors_map",
                   "clawker_tpu_torch.bundle.resolver"]
 
 
+# the fleet transport, provisioning, discovery, the tpu_vm driver and
+# the loopback ssh its tests and chip_smoke run it over
+FLEET_MODULES = ["clawker_tpu_torch.fleet",
+                 "clawker_tpu_torch.fleet.transport",
+                 "clawker_tpu_torch.fleet.inventory",
+                 "clawker_tpu_torch.fleet.provision",
+                 "clawker_tpu_torch.fleet.channels",
+                 "clawker_tpu_torch.engine.drivers.tpu_vm",
+                 "clawker_tpu_torch.sshseam"]
+
+
 def _modules() -> list[str]:
     out = []
     for path in sorted(PKG.rglob("*.py")):
@@ -101,6 +112,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(VIEW_MODULES) <= set(mods)
     # and the Docker HTTP client, the local driver and harness staging
     assert set(ENGINE_MODULES) <= set(mods)
+    # and the fleet transport and the tpu_vm driver
+    assert set(FLEET_MODULES) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -194,7 +207,8 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     "clawker_tpu_torch.loopd.__main__",
                                     "clawker_tpu_torch.hostproxy.__main__",
                                     "clawker_tpu_torch.socketbridge.container",
-                                    *VIEW_MODULES, *ENGINE_MODULES])
+                                    *VIEW_MODULES, *ENGINE_MODULES,
+                                    *FLEET_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"

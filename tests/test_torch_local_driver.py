@@ -140,7 +140,7 @@ def test_get_driver_builds_local_on_default_settings(tmp_path):
     drv = port_drivers.get_driver(settings)
     assert isinstance(drv, port_drivers.LocalDriver)
     assert drv._docker_host == settings.runtime.docker_host
-    assert port_drivers.base.UNPORTED_DRIVERS == ("nsd", "tpu_vm")
+    assert port_drivers.base.UNPORTED_DRIVERS == ("nsd",)
 
 
 def test_cli_without_a_daemon_exits_1_with_the_reference_text(

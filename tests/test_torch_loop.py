@@ -41,6 +41,7 @@ import clawker_tpu.engine.drivers as ref_drivers
 import clawker_tpu.engine.fake as ref_fake
 import clawker_tpu.errors as ref_errors
 import clawker_tpu.fleet.channels as ref_channels
+import clawker_tpu.fleet.transport as ref_transport
 import clawker_tpu.health as ref_health
 import clawker_tpu.loop as ref_loop
 import clawker_tpu.loop.scheduler as ref_scheduler
@@ -53,6 +54,7 @@ import clawker_tpu_torch.engine.drivers as port_drivers
 import clawker_tpu_torch.engine.fake as port_fake
 import clawker_tpu_torch.errors as port_errors
 import clawker_tpu_torch.fleet.channels as port_channels
+import clawker_tpu_torch.fleet.transport as port_transport
 import clawker_tpu_torch.health as port_health
 import clawker_tpu_torch.hostproxy.manager as port_manager
 import clawker_tpu_torch.loop as port_loop
@@ -783,7 +785,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
     assert not drv.api.calls_named("container_create")
 
 
-@pytest.mark.parametrize("name", ["nsd", "tpu_vm"])
+@pytest.mark.parametrize("name", ["nsd"])
 def test_cli_names_an_unported_driver(tmp_path, monkeypatch, name):
     monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")
     monkeypatch.setenv(port_cli.ENV_DRIVER, name)
@@ -835,7 +837,7 @@ def test_cli_loop_attach_names_the_missing_daemon(tmp_path):
     assert "no loopd daemon answering" in res.output
 
 
-@pytest.mark.parametrize("name", ["nsd", "tpu_vm"])
+@pytest.mark.parametrize("name", ["nsd"])
 def test_unported_drivers_are_named(name):
     settings = port_config.Settings()
     with pytest.raises(port_errors.ConfigError,
@@ -914,7 +916,8 @@ def test_post_start_takes_the_degraded_socket_bridge_path():
 
 @pytest.mark.parametrize("hostproxy,monitoring", [(True, False),
                                                   (False, True)])
-def test_local_side_channels_match_reference(hostproxy, monitoring):
+def test_local_side_channels_match_reference(hostproxy, monitoring,
+                                             tmp_path):
     def channels(m, cfgmod):
         settings = cfgmod.Settings()
         settings.host_proxy.enable = hostproxy
@@ -925,7 +928,23 @@ def test_local_side_channels_match_reference(hostproxy, monitoring):
 
     assert channels(port_channels, port_config) == \
         channels(ref_channels, ref_config)
-    remote = SimpleNamespace(transport=object())
-    with pytest.raises(port_errors.ClawkerError, match="not yet ported"):
-        port_channels.open_side_channels(
-            remote, SimpleNamespace(settings=port_config.Settings()))
+
+    def remote(m, cfgmod, drivers, transport):
+        """A fake engine dressed as a remote worker (an SSH transport
+        over the scripted runner); the proxy stays off, so nothing
+        spawns it here."""
+        settings = cfgmod.Settings()
+        settings.host_proxy.enable = False
+        settings.monitoring.enable = monitoring
+        engine = drivers.FakeDriver().engine()
+        runner = transport.FakeRunner()
+        engine.transport = transport.SSHTransport(
+            settings.runtime.tpu, "10.0.0.7", 0, mux_dir=tmp_path / "mux",
+            runner=runner)
+        ch = m.open_side_channels(engine, SimpleNamespace(settings=settings))
+        return dataclasses.asdict(ch), [a[-2] for a in runner.spawned]
+
+    got = remote(port_channels, port_config, port_drivers, port_transport)
+    assert got == remote(ref_channels, ref_config, ref_drivers, ref_transport)
+    assert got[0]["remote"]
+    assert len(got[1]) == (2 if monitoring else 0)

@@ -12,11 +12,12 @@ bytes, the frame lines with colour on and with colour off, the tails.
 The frames' clocks (elapsed seconds, event timestamps) are fixed
 through each ui module's ``time``.
 
-Waiting, each for its item: the two SSH-tail cases of
-tests/test_egress_feed.py (``test_remote_tail_rides_ssh_mux`` and the
-transport half of ``add_worker``) need the port's ``SSHTransport``
-(ROADMAP §1 item 12b); tests/test_ui.py's progress, buildview and
-prompter cases need those modules (§1 item 13).
+The two SSH-tail cases of tests/test_egress_feed.py
+(``test_remote_tail_rides_ssh_mux`` and the transport half of
+``add_worker``) are twinned over the port's ``SSHTransport`` in
+tests/test_torch_fleet.py.  Waiting for its item: tests/test_ui.py's
+progress, buildview and prompter cases need those modules (ROADMAP §1
+item 13).
 """
 
 from __future__ import annotations
