@@ -6878,6 +6878,446 @@ def pod_phase(device) -> collections.Counter:
     return total
 
 
+# ------------------------------------------------------------ verbs phase
+
+
+VERBS_PROJECT = "verbs"
+VERBS_AGENTS = tuple("abcdefgh")       # one worktree and one agent each
+VERBS_HOT = "e"                        # the agent given the deny burst
+VERBS_EXEC_CODE = 4                    # what ``exec`` must propagate
+VERBS_FG_CODE = 3                      # the foreground run's container exit
+VERBS_REPS = 5                         # (e): forked walls, median of 5
+VERBS_WINDOWS = 6                      # egress minutes per agent
+VERBS_PER_WINDOW = 16
+VERBS_SETTINGS = ENGINES_SETTINGS + "runtime:\n  driver: local\n"
+VERBS_ENV_FILE = 'VERBS_NOTE="a b"\nexport VERBS_FROM=${VERBS_NOTE}-file\n'
+VERBS_ALIAS = "fleet anomaly --no-daemon --format json"
+BOOTSTRAP_MEMBERS = [                  # the reference's names and modes
+    ("bootstrap", 0o700), ("bootstrap/agent.crt", 0o644),
+    ("bootstrap/agent.key", 0o600), ("bootstrap/ca.crt", 0o644),
+    ("bootstrap/assertion.jwt", 0o600), ("bootstrap/session.key", 0o600)]
+# a forked CLI process that calls the port's ``main`` with the phase
+# stopwatch on, and at exit appends what it loaded and its phases'
+# totals to ``$VERBS_PROBE``
+VERBS_PROBE = (
+    "import atexit, json, os, sys\n"
+    "from clawker_tpu_torch.util import phases\n"
+    "phases.enable()\n"
+    "def probe():\n"
+    "    with open(os.environ['VERBS_PROBE'], 'a') as f:\n"
+    "        f.write(json.dumps({'argv': sys.argv[1:],\n"
+    "                            'torch': 'torch' in sys.modules,\n"
+    "                            'phases': phases.totals()}) + '\\n')\n"
+    "atexit.register(probe)\n"
+    "from clawker_tpu_torch.cli import main\n"
+    "sys.exit(main(sys.argv[1:]))\n")
+
+
+@contextlib.contextmanager
+def _verbs_daemon(base: Path):
+    """``_engine_daemon``'s socket over a fake holding the project image
+    (each container prints a line and runs until stopped), an image
+    whose container exits ``VERBS_FG_CODE``, and an ``exec`` that exits
+    with the number its command ends in."""
+    import tempfile
+
+    from clawker_tpu_torch.engine.fake import FakeDockerAPI, exit_behavior
+    from clawker_tpu_torch.testenv import FakeEngineDaemon
+
+    def hold(io) -> int:
+        io.write_stdout(b"agent up\n")
+        io.kill_event.wait(600)
+        return 0
+
+    def exec_handler(c, cmd: list[str]) -> tuple[int, bytes]:
+        words = " ".join(cmd)
+        m = re.search(r"exit (\d+)", words)
+        return (int(m.group(1)) if m else 0), f"{c.name}: {words}\n".encode()
+
+    tmp = Path(tempfile.mkdtemp(prefix="clawker-verbs-"))
+    api = FakeDockerAPI()
+    api.add_image(f"clawker-{VERBS_PROJECT}:default")
+    api.set_behavior(f"clawker-{VERBS_PROJECT}:default", hold)
+    api.add_image(f"clawker-{VERBS_PROJECT}:exit3")
+    api.set_behavior(f"clawker-{VERBS_PROJECT}:exit3", exit_behavior(
+        b"exiting\n", VERBS_FG_CODE))
+    api.exec_handler = exec_handler
+    daemon = FakeEngineDaemon(tmp / "engine.sock", api).start()
+    try:
+        yield daemon
+    finally:
+        daemon.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class _Verbs:
+    """The forked verbs of one project: ``run(args)`` is one process of
+    ``VERBS_PROBE`` (-> process, host ms), ``probes()`` what each left."""
+
+    def __init__(self, proj: Path, env: dict, probe: Path):
+        self.proj, self.probe = proj, probe
+        self.env = dict(env, VERBS_PROBE=str(probe))
+        self.ms: dict[str, list[float]] = collections.defaultdict(list)
+
+    def run(self, args: list[str], want: int = 0, timeout: float = 300,
+            stdin=None):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", VERBS_PROBE, *args],
+                              cwd=self.proj, env=self.env, stdin=stdin,
+                              capture_output=True, text=True, timeout=timeout)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.ms[args[0]].append(ms)
+        check(proc.returncode == want,
+              f"verbs: `{' '.join(args)}` exited {proc.returncode}, want "
+              f"{want}: {proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+        return proc, ms
+
+    def probes(self) -> list[dict]:
+        return [json.loads(line) for line in
+                self.probe.read_text().splitlines()]
+
+
+def _verbs_egress(cfg) -> str:
+    """``synth_egress_records`` renamed onto the running agents'
+    containers on ``local-0``, with the hot agent's deny burst in the
+    last minute; -> the hot container's name."""
+    names = [f"clawker.{VERBS_PROJECT}.{a}" for a in VERBS_AGENTS]
+    hot = f"clawker.{VERBS_PROJECT}.{VERBS_HOT}"
+    recs = synth_egress_records(agents=len(names), windows=VERBS_WINDOWS,
+                                per_window=VERBS_PER_WINDOW)
+    for r in recs:      # clawker.loop-<i> -> the i-th agent's container
+        r["container"] = names[int(r["container"].rsplit("-", 1)[1])]
+    recs += exfil_burst(hot, window=VERBS_WINDOWS - 1)
+    for r in recs:
+        r["worker"] = ENGINES_LOCAL
+    cfg.logs_dir.mkdir(parents=True, exist_ok=True)
+    _append(cfg.logs_dir / f"ebpf-egress-{ENGINES_LOCAL}.jsonl", recs)
+    return hot
+
+
+def _jwt_claims(token: bytes) -> dict:
+    import base64
+
+    payload = token.decode().split(".")[1]
+    return json.loads(base64.urlsafe_b64decode(payload + "=" * (-len(payload) % 4)))
+
+
+def verbs_lifecycle_case(v: _Verbs, daemon) -> dict:
+    """(a), up to the running fleet: ``init``, ``project register``,
+    eight worktrees, eight ``run -d --worktree --env-file``, then ``ps``,
+    ``container inspect``, ``exec`` and ``logs``; -> agent -> container
+    id."""
+    name = "verbs (a)"
+    proc, _ = v.run(["init", "--yes", "--name", VERBS_PROJECT])
+    check(f"initialized project {VERBS_PROJECT!r}" in proc.stdout,
+          f"{name}: init printed {proc.stdout!r}")
+    proc, _ = v.run(["project", "register"])
+    check(proc.stdout == f"registered {VERBS_PROJECT} -> {v.proj}\n",
+          f"{name}: project register printed {proc.stdout!r}")
+    (v.proj / "agent.env").write_text(VERBS_ENV_FILE)
+    for a in VERBS_AGENTS:
+        proc, _ = v.run(["worktree", "add", a])
+        check(proc.stdout.split("\t")[::2] == [a, f"clawker/{a}\n"],
+              f"{name}: worktree add {a} printed {proc.stdout!r}")
+    for a in VERBS_AGENTS:
+        proc, _ = v.run(["run", "-d", "--worktree", a, "--agent", a,
+                         "--env-file", "agent.env"])
+        check(proc.stdout == f"clawker.{VERBS_PROJECT}.{a}\n",
+              f"{name}: run -d {a} printed {proc.stdout!r}")
+    proc, _ = v.run(["ps", "--format", "json"])
+    rows = json.loads(proc.stdout)
+    check(sorted(r["name"] for r in rows)
+          == [f"clawker.{VERBS_PROJECT}.{a}" for a in VERBS_AGENTS]
+          and all(r["state"] == "running" and r["worker"] == ENGINES_LOCAL
+                  and r["project"] == VERBS_PROJECT
+                  and r["name"].endswith("." + r["agent"]) for r in rows),
+          f"{name}: ps rows {rows}")
+    ids = {}
+    for cid, c in daemon.api.containers.items():
+        labels = c.config.get("Labels") or {}
+        if labels.get("dev.clawker-tpu.project") == VERBS_PROJECT:
+            ids[labels["dev.clawker-tpu.agent"]] = cid
+    for a in VERBS_AGENTS:
+        c = daemon.api.containers[ids[a]].config
+        binds = c["HostConfig"]["Binds"]
+        check("VERBS_NOTE=a b" in c["Env"] and "VERBS_FROM=a b-file" in c["Env"]
+              and any(f"worktrees/{VERBS_PROJECT}/{a}:/workspace" in b
+                      for b in binds)
+              and any(b.endswith(":ro") and "/.git" in b for b in binds),
+              f"{name}: {a}'s env {c['Env']} and binds {binds}")
+    proc, _ = v.run(["container", "inspect", VERBS_AGENTS[0]])
+    info = json.loads(proc.stdout)
+    check(info["Name"].lstrip("/") == f"clawker.{VERBS_PROJECT}.a"
+          and info["State"]["Running"],
+          f"{name}: inspect read {info.get('Name')} {info.get('State')}")
+    proc, _ = v.run(["exec", "a", "sh", "-c", f"echo hi; exit {VERBS_EXEC_CODE}"],
+                    want=VERBS_EXEC_CODE)
+    check(proc.stdout == f"clawker.{VERBS_PROJECT}.a: sh -c echo hi; exit "
+          f"{VERBS_EXEC_CODE}\n", f"{name}: exec printed {proc.stdout!r}")
+    proc, _ = v.run(["logs", "a"])
+    check(proc.stdout == "agent up\n", f"{name}: logs printed {proc.stdout!r}")
+    return ids
+
+
+def verbs_bootstrap_case(v: _Verbs, daemon, ids: dict, cfg) -> None:
+    """(b): each created container's archive at ``/run/clawker`` holds
+    the bootstrap files with the reference's names and modes, its
+    assertion names the project and the agent, and ``agents.db`` binds
+    one row per agent to that container; the median
+    ``identity_bootstrap`` of the eight forked creates."""
+    import io
+    import tarfile
+
+    from clawker_tpu_torch.controlplane.registry import Registry
+
+    name = "verbs (b)"
+    for a, cid in ids.items():
+        tar = daemon.api.containers[cid].archives.get("/run/clawker", b"")
+        with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+            members = [(m.name, m.mode) for m in tf.getmembers()]
+            claims = _jwt_claims(tf.extractfile(
+                "bootstrap/assertion.jwt").read())
+        check(members == BOOTSTRAP_MEMBERS,
+              f"{name}: {a}'s bootstrap archive {members}")
+        check(claims["project"] == VERBS_PROJECT and claims["agent"] == a
+              and claims["sub"] == f"{VERBS_PROJECT}.{a}"
+              and claims["container_id"] == cid,
+              f"{name}: {a}'s assertion claims {claims}")
+    reg = Registry(cfg.data_dir / "agents.db")
+    try:
+        rows = {r.agent: r.container_id for r in reg.list(VERBS_PROJECT)}
+    finally:
+        reg.close()
+    check(rows == ids, f"{name}: agents.db rows {rows}, containers {ids}")
+    boot = [p["phases"]["identity_bootstrap"] * 1e3 for p in v.probes()
+            if p["argv"][:2] == ["run", "-d"]]
+    check(len(boot) == len(VERBS_AGENTS), f"{name}: {len(boot)} bootstraps")
+    print(f"{name}: {len(ids)} bootstrap archives with the reference's "
+          f"names and modes, assertions naming {VERBS_PROJECT}.<agent>, "
+          f"{len(rows)} agents.db rows; identity_bootstrap "
+          f"{statistics.median(boot)!r} ms median of {len(boot)} forked "
+          f"creates (min {min(boot)!r}, max {max(boot)!r}; host work)")
+
+
+def verbs_surface_case(v: _Verbs) -> None:
+    """(c): ``settings``, ``alias``, ``network``, ``volume``, ``harness``,
+    ``version`` and ``auth`` forked."""
+    name = "verbs (c)"
+    outs = {}
+    for args, want in (
+            (["settings", "set", "sentinel.threshold", "3.5"],
+             "sentinel.threshold = 3.5\n"),
+            (["settings", "get", "sentinel.threshold"], "3.5\n"),
+            (["alias", "set", "pl", "project list"], "pl -> project list\n"),
+            (["alias", "ls"], "pl\tproject list\n"),
+            (["pl"], None),
+            (["alias", "rm", "pl"], "removed alias pl\n"),
+            (["network", "ensure"], "clawker-net ready\n"),
+            (["network", "ls"], None),
+            (["network", "inspect", "clawker-net"], None),
+            (["network", "rm", "clawker-net"], "removed network clawker-net\n"),
+            (["volume", "ls"], None),
+            (["harness", "ls"], None),
+            (["version"], None),
+            (["auth", "status"], None)):
+        proc, ms = v.run(args)
+        if want is not None:
+            check(proc.stdout == want,
+                  f"{name}: `{' '.join(args)}` printed {proc.stdout!r}")
+        outs[" ".join(args)] = (proc.stdout, ms)
+    check(outs["pl"][0].startswith(f"{VERBS_PROJECT}\t"),
+          f"{name}: the alias pl printed {outs['pl'][0]!r}")
+    check(outs["network ls"][0].startswith("clawker-net\t")
+          and json.loads(outs["network inspect clawker-net"][0])["Name"]
+          == "clawker-net", f"{name}: network ls/inspect "
+          f"{outs['network ls'][0]!r}")
+    vols = outs["volume ls"][0]
+    check(all(f"clawker.{VERBS_PROJECT}.{a}.config" in vols
+              for a in VERBS_AGENTS), f"{name}: volume ls {vols!r}")
+    check("claude\t" in outs["harness ls"][0],
+          f"{name}: harness ls {outs['harness ls'][0]!r}")
+    check(outs["version"][0].startswith("clawker-tpu "),
+          f"{name}: version {outs['version'][0]!r}")
+    check(outs["auth status"][0].startswith("CA: "),
+          f"{name}: auth status {outs['auth status'][0]!r}")
+    print(f"{name} forked, host ms: " + ", ".join(
+        f"{k} {ms!r}" for k, (_, ms) in outs.items()))
+
+
+def verbs_card_case(v: _Verbs, cfg, device: str) -> collections.Counter:
+    """(d): egress for the running agents under their container names,
+    a user alias ``hot`` that expands to ``fleet anomaly``; ``hot``
+    forked exits 2 and names the hot container, and ``main(["hot"])`` in
+    this process launches exactly one K3 and one K1 on the card."""
+    import io
+
+    from clawker_tpu_torch.cli import DEVICE_ENV
+    from clawker_tpu_torch.cli import main as cli_main
+
+    name = "verbs (d)"
+    hot = _verbs_egress(cfg)
+    v.run(["alias", "set", "hot", VERBS_ALIAS])
+    env = dict(v.env, CLAWKER_TORCH_DEVICE=device)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", VERBS_PROBE, "hot"],
+                          cwd=v.proj, env=env, capture_output=True, text=True,
+                          timeout=300)
+    forked_ms = (time.perf_counter() - t0) * 1e3
+    check(proc.returncode == 2,
+          f"{name}: hot exited {proc.returncode}, want 2: "
+          f"{proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    check(doc["flags"] and doc["flags"][0]["agent"] == hot,
+          f"{name}: hot's flags {doc['flags']}")
+    z = {r["agent"]: r["latest_z"] for r in doc["rows"]}
+    check(max(z, key=z.get) == hot and len(z) == len(VERBS_AGENTS),
+          f"{name}: hot's rows {doc['rows']}")
+    # this process as the forked one: the project dir, the daemon's
+    # socket and the device
+    saved_cwd = os.getcwd()
+    saved = {k: os.environ.get(k) for k in (DEVICE_ENV, "DOCKER_HOST")}
+    os.chdir(v.proj)
+    os.environ.update({DEVICE_ENV: device,
+                       "DOCKER_HOST": v.env["DOCKER_HOST"]})
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            code, counts = _counted(lambda: cli_main(["hot"]))
+    finally:
+        os.chdir(saved_cwd)
+        for k, old in saved.items():
+            if old is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = old
+    inproc_ms = (time.perf_counter() - t0) * 1e3
+    check(code == 2, f"{name}: main(['hot']) returned {code}, want 2")
+    _check_fit_launches(name, counts)
+    idoc = json.loads(buf.getvalue())
+    check(idoc["flags"] and idoc["flags"][0]["agent"] == hot,
+          f"{name}: in-process flags {idoc['flags']}")
+    windows = sum(r["windows"] for r in idoc["rows"])
+    print(f"{name} through the alias hot -> `{VERBS_ALIAS}`: forked exit 2 "
+          f"in {forked_ms!r} ms, in process exit 2 in {inproc_ms!r} ms, "
+          f"launches {json.dumps(counts)}; hot {hot} z {z[hot]!r} "
+          f"(next {sorted(z.values())[-2]!r}); {len(idoc['rows'])} rows, "
+          f"the fit [{windows}, 40]")
+    return collections.Counter(counts)
+
+
+def verbs_teardown_case(v: _Verbs, daemon) -> None:
+    """(a), the end: ``stop`` and ``rm -f`` of the eight, ``ps`` empty,
+    and a foreground ``run --no-tty`` whose container exits
+    ``VERBS_FG_CODE`` makes the CLI exit with it."""
+    name = "verbs (a)"
+    proc, _ = v.run(["stop", *VERBS_AGENTS])
+    check(proc.stdout.split() == list(VERBS_AGENTS),
+          f"{name}: stop printed {proc.stdout!r}")
+    proc, _ = v.run(["rm", "-f", *VERBS_AGENTS])
+    check(proc.stdout.split() == list(VERBS_AGENTS),
+          f"{name}: rm -f printed {proc.stdout!r}")
+    proc, _ = v.run(["ps"])
+    check(proc.stdout == "no agent containers\n",
+          f"{name}: ps after rm printed {proc.stdout!r}")
+    # its stdin stays open, as a user's terminal does, after the
+    # container exits (the repair of the port's runtime/attach.py)
+    r, w = os.pipe()
+    try:
+        proc, _ = v.run(["run", "--no-tty", "--image", "@exit3", "--agent",
+                         "fg"], want=VERBS_FG_CODE, stdin=r)
+    finally:
+        os.close(r)
+        os.close(w)
+    check(proc.stdout == "exiting\n", f"{name}: the foreground run printed "
+          f"{proc.stdout!r}")
+    v.run(["rm", "-f", "fg"])
+    left = [c.name for c in daemon.api.containers.values()]
+    check(not left, f"{name}: containers left {left}")
+    print(f"{name} forked, host ms: " + ", ".join(
+        f"{verb} {statistics.median(ms)!r} (median of {len(ms)})"
+        for verb, ms in v.ms.items()))
+
+
+def verbs_host_case(v: _Verbs) -> None:
+    """(e): the forked wall of ``ps``, ``version`` and ``run -d`` as a
+    user runs them (``python -m``, median of 5), and once more each as
+    ``python -c`` over the port's ``main``: no torch loaded (host
+    work, no budget)."""
+    name = "verbs (e)"
+    walls = {}
+    for verb, args in (("ps", lambda i: ["ps"]),
+                       ("version", lambda i: ["version"]),
+                       ("run -d", lambda i: ["run", "-d", "--agent",
+                                             f"t{i}"])):
+        ms = []
+        for i in range(VERBS_REPS):
+            proc, wall = _cli(args(i), v.proj, v.env)
+            check(proc.returncode == 0,
+                  f"{name}: `{verb}` exited {proc.returncode}: "
+                  f"{proc.stderr[-2000:]}")
+            ms.append(wall)
+        walls[verb] = ms
+        v.run(args(VERBS_REPS))
+    v.run(["rm", "-f", *(f"t{i}" for i in range(VERBS_REPS + 1))])
+    loaded = {" ".join(p["argv"][:2]): p["torch"] for p in v.probes()
+              if p["argv"][0] in ("ps", "version")
+              or p["argv"][:2] == ["run", "-d"]}
+    check(not any(loaded.values()), f"{name}: torch loaded by {loaded}")
+    print(f"{name} host work, forked wall ms (median of {VERBS_REPS}): "
+          + ", ".join(f"{verb} {statistics.median(ms)!r}"
+                      for verb, ms in walls.items())
+          + f"; torch loaded by ps/version/run -d: {any(loaded.values())}")
+
+
+def verbs_phase(device) -> collections.Counter:
+    """Drives the everyday verbs forked over a Docker-API socket (the
+    port's test daemon) on the ``local`` driver -- ``init``, worktrees,
+    eight detached agents, ``ps``/``exec``/``logs``/``stop``/``rm``, the
+    surface verbs -- checks the create path's identity bootstrap, and
+    reaches the card through a user alias to ``fleet anomaly``;
+    -> launches."""
+    from clawker_tpu_torch.cli import DEVICE_ENV
+    from clawker_tpu_torch.config import load_config
+
+    out = ROOT / "build" / "chip_smoke" / "verbs"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    home = _harness_home(out)
+    with _pinned_home(home), _isolated_dirs(out / "x", VERBS_SETTINGS) as proj, \
+            _verbs_daemon(out) as daemon:
+        (proj / ".clawker.yaml").unlink()       # init writes it
+        (proj / "README").write_text("verbs\n")
+        _git_repo(proj)
+        env = dict(os.environ, DOCKER_HOST=f"unix://{daemon.sock_path}",
+                   PYTHONPATH=str(ROOT))
+        for k in ("CLAWKER_TPU_DRIVER", "CLAWKER_TPU_FAKE_IMAGES", DEVICE_ENV):
+            env.pop(k, None)
+        v = _Verbs(proj, env, out / "probes.jsonl")
+        ids = verbs_lifecycle_case(v, daemon)
+        cfg = load_config(proj)
+        verbs_bootstrap_case(v, daemon, ids, cfg)
+        verbs_surface_case(v)
+        total = verbs_card_case(v, cfg, device)
+        verbs_teardown_case(v, daemon)
+        verbs_host_case(v)
+        check(not daemon.unrouted,
+              f"verbs: requests the daemon has no route for: "
+              f"{daemon.unrouted}")
+        torch_procs = [p["argv"] for p in v.probes() if p["torch"]]
+        check(torch_procs == [["hot"]],
+              f"verbs: processes that loaded torch {torch_procs}")
+        print(f"verbs: {len(v.probes())} forked CLI processes, only `hot` "
+              "loaded torch; requests served "
+              f"{dict(sorted(daemon.routes.items()))}")
+    no_daemon_left()
+    no_process_left("verbs")
+    print(f"verbs launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -6993,6 +7433,8 @@ def main() -> int:
     for k, v in engines_phase(device).items():
         main_path["launches"][k] += v
     for k, v in pod_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in verbs_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

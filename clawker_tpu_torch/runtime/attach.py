@@ -1,6 +1,12 @@
 """Attach/stream plumbing: the hot TTY copy loop.
 
-The port's copy of ``clawker_tpu/runtime/attach.py``, whole.
+The port's copy of ``clawker_tpu/runtime/attach.py``, whole but for one
+repair: the stdin writer reads a process's standard input through its
+file descriptor, never through ``sys.stdin.buffer``.  The reference's
+writer blocks inside the buffered reader, holding its lock, and when the
+container exits while the user's stdin is still open, the interpreter
+aborts at exit taking that lock (``Fatal Python error:
+_enter_buffered_busy``, exit 134 instead of the container's code).
 
 Parity reference: internal/docker/pty.go (raw-mode attach) and the stream
 select in internal/cmd/container/run/run.go:331-527 (attachThenStart,
@@ -10,6 +16,7 @@ waitForContainerExit).
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import signal
 import sys
@@ -44,11 +51,18 @@ def pump_streams(
     fully drained.
     """
 
+    read = stdin.read if stdin is not None else None
+    if stdin is sys.stdin.buffer:
+        # the descriptor itself: a thread blocked inside the buffered
+        # reader holds its lock, which the interpreter takes at exit
+        with contextlib.suppress(OSError, ValueError):     # no descriptor
+            read = functools.partial(os.read, stdin.fileno())
+
     def feed() -> None:
-        assert stdin is not None
+        assert read is not None
         try:
             while True:
-                chunk = stdin.read(4096)
+                chunk = read(4096)
                 if not chunk:
                     break
                 if isinstance(chunk, str):

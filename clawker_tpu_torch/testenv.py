@@ -562,10 +562,10 @@ class FakeEngineDaemon:
     ``101 UPGRADED`` hijack with raw bytes both ways (attach, exec
     start; non-TTY output framed as dockerd frames it).  It serves
     exactly the routes the port's ``HTTPDockerAPI`` speaks for the
-    loop path -- ping, version, info; containers create, list, inspect,
-    start, stop, kill, wait, remove, rename, resize, attach and archive
-    put/get; exec create, start and inspect; image list, inspect and
-    pull; volumes; networks; events -- and answers any other route with
+    loop path and the everyday verbs -- ping, version, info; containers create, list, inspect,
+    start, stop, kill, wait, remove, rename, resize, attach, logs and
+    archive put/get; exec create, start and inspect; image list, inspect
+    and pull; volumes; networks; events -- and answers any other route with
     a 404 that it also keeps in ``unrouted``.  The fake's
     ``NotFoundError`` answers 404, ``ConflictError`` 409 and anything
     else 500, the statuses ``errors_map.raise_for`` reads back to the
@@ -838,6 +838,14 @@ class FakeEngineDaemon:
         return "hijack", self.api.container_attach(
             cid, tty=tty, stdin=req.qbool("stdin"), logs=req.qbool("logs")), tty
 
+    def h_container_logs(self, req, cid):
+        # the whole body at once, non-TTY output stdcopy-framed as the
+        # fake frames it (``follow`` waits for the exit first)
+        body = b"".join(self.api.container_logs(
+            cid, follow=req.qbool("follow"),
+            tail=req.query.get("tail", "all")))
+        return "json", 200, (body, "application/vnd.docker.raw-stream")
+
     def h_put_archive(self, req, cid):
         self.api.put_archive(cid, req.query.get("path", ""), req.body)
         return "json", 200, None
@@ -935,6 +943,7 @@ FakeEngineDaemon._ROUTES = [
     _route("POST", r"/containers/([^/]+)/rename", _D.h_container_rename),
     _route("POST", r"/containers/([^/]+)/resize", _D.h_container_resize),
     _route("POST", r"/containers/([^/]+)/attach", _D.h_container_attach),
+    _route("GET", r"/containers/([^/]+)/logs", _D.h_container_logs),
     _route("PUT", r"/containers/([^/]+)/archive", _D.h_put_archive),
     _route("GET", r"/containers/([^/]+)/archive", _D.h_get_archive),
     _route("POST", r"/containers/([^/]+)/exec", _D.h_exec_create),

@@ -1020,7 +1020,7 @@ def test_fleet_cli_provision_bad_worker_index_errors(cli_env):
 def test_fleet_cli_provision_without_no_cp_is_refused(cli_env, monkeypatch):
     tenv, proj = cli_env
     dialed = []
-    monkeypatch.setattr(port_cli, "_transports",
+    monkeypatch.setattr(port_cli.cmd_fleet, "_transports",
                         lambda f: dialed.append(f) or [])
     for argv in (["fleet", "provision"], ["fleet", "provision", "--dry-run"]):
         res = _cli("port", proj, argv)
@@ -1035,7 +1035,7 @@ def test_cli_provision_streams_per_worker_summaries(cli_env, tmp_path,
     worker exits 1."""
     tenv, proj = cli_env
     got = {}
-    for pkg, cmd in (("ref", ref_cmd_fleet), ("port", port_cli)):
+    for pkg, cmd in (("ref", ref_cmd_fleet), ("port", port_cli.cmd_fleet)):
         m = PKGS[pkg]
         ts = _fleet_transports(m, tmp_path / pkg, n=3)
         ts[1].runner.script["docker info"] = (1, "Cannot connect")
@@ -1068,7 +1068,7 @@ def test_fleet_status_over_scripted_workers(cli_env, tmp_path, monkeypatch,
                                             fmt):
     tenv, proj = cli_env
     got = {}
-    for pkg, cmd in (("ref", ref_cmd_fleet), ("port", port_cli)):
+    for pkg, cmd in (("ref", ref_cmd_fleet), ("port", port_cli.cmd_fleet)):
         m = PKGS[pkg]
         ts = _fleet_transports(m, tmp_path, n=3)
         ts[0].runner.script["docker info"] = (0, "27.0.1\n")

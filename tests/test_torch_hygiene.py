@@ -75,6 +75,31 @@ FLEET_MODULES = ["clawker_tpu_torch.fleet",
                  "clawker_tpu_torch.sshseam"]
 
 
+# the everyday verbs and what they stand on: plain Python, no torch
+VERB_MODULES = ["clawker_tpu_torch.cli", "clawker_tpu_torch.cli.root",
+                "clawker_tpu_torch.cli.factory",
+                "clawker_tpu_torch.cli.cmd_container",
+                "clawker_tpu_torch.cli.cmd_init",
+                "clawker_tpu_torch.cli.cmd_project",
+                "clawker_tpu_torch.cli.cmd_settings",
+                "clawker_tpu_torch.cli.cmd_network",
+                "clawker_tpu_torch.cli.cmd_volume",
+                "clawker_tpu_torch.cli.cmd_harness",
+                "clawker_tpu_torch.cli.cmd_monitor",
+                "clawker_tpu_torch.cli.cmd_fleet",
+                "clawker_tpu_torch.cli.cmd_loop",
+                "clawker_tpu_torch.cli.cmd_loopd",
+                "clawker_tpu_torch.cli.cmd_workerd",
+                "clawker_tpu_torch.cli.cmd_trace",
+                "clawker_tpu_torch.cli.cmd_journal",
+                "clawker_tpu_torch.cli.cmd_chaos",
+                "clawker_tpu_torch.project",
+                "clawker_tpu_torch.project.manager",
+                "clawker_tpu_torch.util.dotenv",
+                "clawker_tpu_torch.ui.prompter",
+                "clawker_tpu_torch.controlplane.registry"]
+
+
 def _modules() -> list[str]:
     out = []
     for path in sorted(PKG.rglob("*.py")):
@@ -114,6 +139,10 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(ENGINE_MODULES) <= set(mods)
     # and the fleet transport and the tpu_vm driver
     assert set(FLEET_MODULES) <= set(mods)
+    # and the everyday verbs, laid out as the reference's cli/, and the
+    # create path's identity
+    assert set(VERB_MODULES) <= set(mods)
+    assert "clawker_tpu_torch.controlplane.identity" in mods
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -207,8 +236,9 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     "clawker_tpu_torch.loopd.__main__",
                                     "clawker_tpu_torch.hostproxy.__main__",
                                     "clawker_tpu_torch.socketbridge.container",
+                                    "clawker_tpu_torch.controlplane.identity",
                                     *VIEW_MODULES, *ENGINE_MODULES,
-                                    *FLEET_MODULES])
+                                    *FLEET_MODULES, *VERB_MODULES[1:]])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -232,6 +262,61 @@ def test_daemon_entry_points_load_no_torch(module):
         f"importlib.import_module({module!r})\n"
         "print(json.dumps({'torch': 'torch' in sys.modules}))\n")
     assert doc == {"torch": False}
+
+
+@pytest.mark.parametrize("module", VERB_MODULES)
+def test_everyday_verbs_load_no_torch(module):
+    """The CLI, the project registry, dotenv, the prompter and the agent
+    registry are plain Python: only a verb that scores loads torch, and
+    only when it runs."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'cryptography': 'cryptography' in sys.modules}))\n")
+    assert doc == {"torch": False, "cryptography": False}
+
+
+def _verb_env(tmp_path: Path) -> dict:
+    """Isolated XDG dirs with the host proxy off, the fake driver
+    seeded with the project's image, a project dir at ``tmp_path``."""
+    env = dict(ENV, CLAWKER_TPU_DRIVER="fake",
+               CLAWKER_TPU_FAKE_IMAGES="clawker-verbs:default")
+    for name in ("CONFIG", "DATA", "STATE", "CACHE"):
+        (tmp_path / name).mkdir(exist_ok=True)
+        env[f"CLAWKER_TPU_{name}_DIR"] = str(tmp_path / name)
+    (tmp_path / "CONFIG" / "settings.yaml").write_text(
+        "host_proxy:\n  enable: false\n")
+    (tmp_path / ".clawker.yaml").write_text("project: verbs\n")
+    return env
+
+
+@pytest.mark.parametrize("argv,out", [
+    (["ps"], "no agent containers\n"),
+    (["version"], "clawker-tpu 0.2.0\n"),
+    (["run", "-d", "--agent", "a1"], "clawker.verbs.a1\n"),
+])
+def test_everyday_verbs_run_without_torch(tmp_path, argv, out):
+    """``ps``, ``version`` and ``run -d`` in a process where any
+    ``import torch`` raises; only the create path loads
+    ``cryptography`` (the identity bootstrap)."""
+    code = (
+        "import contextlib, io, json, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['torch'] = None\n"
+        f"sys.path.insert(0, {str(ROOT)!r})\n"
+        "from clawker_tpu_torch.cli import main\n"
+        "buf = io.StringIO()\n"
+        "with contextlib.redirect_stdout(buf):\n"
+        f"    rc = main({argv!r})\n"
+        "print(json.dumps({'rc': rc, 'out': buf.getvalue(),\n"
+        "                  'cryptography': 'cryptography' in sys.modules}))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          env=_verb_env(tmp_path), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert doc == {"rc": 0, "out": out, "cryptography": argv[0] == "run"}
 
 
 @pytest.mark.parametrize("module", ENGINE_MODULES)
@@ -374,6 +459,24 @@ def test_fleet_anomaly_without_a_gpu_exits_1_and_names_the_cpu_device(
     assert proc.returncode == 1
     assert "no CUDA GPU" in proc.stderr
     assert "CLAWKER_TORCH_DEVICE=cpu" in proc.stderr
+    assert proc.stdout == ""
+
+
+def test_fleet_anomaly_through_an_alias_without_a_gpu_exits_1(tmp_path):
+    """A user alias that expands to ``fleet anomaly`` reaches the same
+    device check as the verb by name: no fallback to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device runs there")
+    env = {k: v for k, v in _verb_env(tmp_path).items()
+           if k != "CLAWKER_TORCH_DEVICE"}
+    env["PYTHONPATH"] = str(ROOT)
+    (tmp_path / "CONFIG" / "aliases.yaml").write_text(
+        "hot: fleet anomaly --no-daemon --format json\n")
+    proc = subprocess.run([sys.executable, "-m", "clawker_tpu_torch", "hot"],
+                          cwd=tmp_path, env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 1
+    assert "fleet anomaly: " in proc.stderr and "no CUDA GPU" in proc.stderr
     assert proc.stdout == ""
 
 

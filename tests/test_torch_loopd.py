@@ -757,7 +757,7 @@ def test_client_interrupt_first_detaches_then_hard_exits(monkeypatch):
         handler()
         return first, exits, stub.detaches
 
-    assert scenario(port_cli) == scenario(ref_cmd_loop) == (
+    assert scenario(port_cli.cmd_loop) == scenario(ref_cmd_loop) == (
         (1, True, []), [130], 1)
 
 

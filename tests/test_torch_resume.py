@@ -807,7 +807,7 @@ def test_lane_retired_at_breaker_close(tmp_path):
 
 @pytest.mark.parametrize("pkg", ["ref", "port"])
 def test_two_stage_sigint_drains_then_hard_exits(monkeypatch, pkg, capsys):
-    mod = ref_cmd_loop if pkg == "ref" else port_cli
+    mod = ref_cmd_loop if pkg == "ref" else port_cli.cmd_loop
     exits = []
     monkeypatch.setattr(mod, "_hard_exit", exits.append)
 
