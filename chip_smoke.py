@@ -271,7 +271,30 @@
    (refused with no ssh) forked on default settings; (e) ``connect()``
    timed with and without 50 ms a seam call (host work).  Every scored
    tick of (a), (b) and (c) is one K3 and one K1.
-15. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+15. images phase, its dirs under ``build/chip_smoke/images/``, every
+   case forked over a ``FakeEngineDaemon`` socket on the ``local``
+   driver that holds no image before the build, the supervisor built
+   from ``native/`` into ``build/native/`` (``CLAWKER_TPU_SUPERVISOR_BIN``
+   points at it): (a) ``init``, ``build`` off a TTY and ``build
+   --plain`` with ``firewall.enable`` on the BuildKit lane: two
+   ``version=2`` builds a command tagged ``:base`` and ``:claude`` and
+   one ``:default`` tag, the decoded ``#N`` vertex lines, ``image ls``,
+   each context's Dockerfile byte for byte the one ``generate_base`` /
+   ``generate_harness`` write in this process, the harness context's
+   tail (the CA, the supervisor, the zipapp); (b) ``build --plain`` on
+   a legacy daemon, on one that refuses BuildKit (one refused request,
+   then legacy for both stages) and on one whose stream carries an
+   ``errorDetail`` (exit 1, nothing tagged), and ``image rm`` of the
+   three tags; (c) the context's supervisor and the port's zipapp
+   (deterministic, exactly the port's closure, ``python3 -I`` over it
+   loads neither torch nor JAX), the supervisor running the zipapp as
+   its ``--child`` with a session over mTLS that brings up the image
+   command on ``AgentReady``; (d) the behaviour set on the built
+   ``:default`` only then, ``loop -p 8 -n 3 --sentinel`` forked on it
+   (the hot agent hottest, a flagged tick on the card) and the same run
+   in this process over ``LocalDriver`` (the hot agent flagged first,
+   every scored tick one K3 and one K1); (e) the host walls.
+16. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -7318,6 +7341,538 @@ def verbs_phase(device) -> collections.Counter:
     return total
 
 
+# ------------------------------------------------------------ images phase
+
+
+IMAGES_REPO = f"clawker-{LOOP_PROJECT}"
+IMAGES_TAGS = tuple(f"{IMAGES_REPO}:{t}" for t in ("base", "claude", "default"))
+IMAGES_TAG_REQUEST = ("POST", f"/images/{IMAGES_REPO}%3Aclaude/tag",
+                      f"repo={IMAGES_REPO}&tag=default")
+IMAGES_ITER_S = 0.5             # (d): an iteration of the built image
+IMAGES_SETTINGS = f"sentinel:\n  interval_s: {LOOP_TICK_S}\n" + ENGINES_SETTINGS
+IMAGES_FIREWALL = "firewall:\n  enable: true\n"
+SUPERVISOR_OUT = ROOT / "build" / "native"   # (c): make -C native BUILD=
+# the agentd zipapp's members: the port's stdlib-only closure
+PYZ_CLOSURE = ["__main__.py"] + [f"clawker_tpu_torch/{m}" for m in (
+    "__init__.py", "agentd/__init__.py", "agentd/__main__.py",
+    "agentd/daemon.py", "agentd/protocol.py", "agentd/register.py",
+    "agentd/supervisor_client.py", "consts.py", "errors.py",
+    "socketbridge/__init__.py", "socketbridge/container.py",
+    "socketbridge/protocol.py")]
+
+
+@contextlib.contextmanager
+def _images_daemon(version: str, *, refuse: bool = False,
+                   error: bool = False):
+    """A ``FakeEngineDaemon`` on a short temporary socket over a fake
+    that holds no image, reports ``BuilderVersion`` ``version`` and
+    refuses the BuildKit lane (``refuse``) or streams an
+    ``errorDetail`` from every legacy build (``error``); each build's
+    (tags, context tar) lands in ``daemon.contexts``."""
+    import tempfile
+
+    from clawker_tpu_torch.engine.fake import FakeDockerAPI
+    from clawker_tpu_torch.testenv import FakeEngineDaemon
+
+    api = FakeDockerAPI()
+    api.builder_version = version
+    api.buildkit_refuse = refuse
+    contexts: list = []
+    api.build_hook = lambda tar, tags: contexts.append((list(tags), tar))
+    if error:
+        def failing_build(context_tar, *, tags, **kw):
+            api._record("image_build", tags=tags)
+            contexts.append((list(tags), context_tar))
+            return iter([{"stream": "Step 1/1 : RUN false\n"},
+                         {"errorDetail": {"message": "exit code 1"},
+                          "error": "exit code 1"}])
+        api.image_build = failing_build
+    tmp = Path(tempfile.mkdtemp(prefix="clawker-img-"))
+    daemon = FakeEngineDaemon(tmp / "engine.sock", api).start()
+    daemon.contexts = contexts
+    try:
+        yield daemon
+    finally:
+        daemon.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _images_env(daemon, device: str = "") -> dict:
+    """A forked CLI's environment: the daemon at ``DOCKER_HOST`` on
+    default settings (no fake driver), the card for ``device``."""
+    from clawker_tpu_torch.cli import DEVICE_ENV
+
+    env = dict(os.environ, DOCKER_HOST=f"unix://{daemon.sock_path}",
+               PYTHONPATH=str(ROOT))
+    for k in ("CLAWKER_TPU_DRIVER", "CLAWKER_TPU_FAKE_IMAGES", DEVICE_ENV):
+        env.pop(k, None)
+    if device:
+        env[DEVICE_ENV] = device
+    return env
+
+
+def _images_run(name: str, args: list[str], proj: Path, env: dict,
+                want: int = 0):
+    proc, ms = _cli(args, proj, env)
+    check(proc.returncode == want,
+          f"{name}: `{' '.join(args)}` exited {proc.returncode}, want {want}: "
+          f"{proc.stdout[-1500:]} {proc.stderr[-2000:]}")
+    return proc, ms
+
+
+def _lanes(daemon) -> list[tuple]:
+    return [(b["version"], b["tags"]) for b in daemon.builds]
+
+
+def _tag_requests(daemon) -> list[tuple]:
+    return [(m, p, q) for m, p, q, _ in list(daemon.log)
+            if p.endswith("/tag")]
+
+
+def _ctx_members(tar: bytes) -> dict:
+    import io
+    import tarfile
+
+    with tarfile.open(fileobj=io.BytesIO(tar)) as tf:
+        return {m.name: tf.extractfile(m).read() for m in tf.getmembers()}
+
+
+def _build_supervisor() -> tuple[Path, float]:
+    """The native supervisor compiled from the checkout's source into
+    ``build/native`` (always: ``make -B``, whatever a copy of the tree
+    brought along): -> (binary, compile s)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(["make", "-B", "-C", str(ROOT / "native"),
+                           f"BUILD={SUPERVISOR_OUT}"],
+                          capture_output=True, text=True, timeout=300)
+    secs = time.perf_counter() - t0
+    binary = SUPERVISOR_OUT / "clawker-supervisord"
+    check(proc.returncode == 0 and binary.is_file(),
+          f"images (c): make -C native exited {proc.returncode}: "
+          f"{proc.stdout[-1000:]} {proc.stderr[-2000:]}")
+    return binary, secs
+
+
+def images_buildkit_case(proj: Path, daemon, walls: dict) -> None:
+    """(a): ``init``, then ``build`` off a TTY (the progress tree's state
+    lines) and ``build --plain`` with ``firewall.enable``, on the
+    BuildKit lane: two ``version=2`` builds a command tagged ``:base``
+    and ``:claude``, then the ``:default`` tag; the decoded vertex
+    lines; ``image ls``; each context's Dockerfile as the port writes it
+    in this process, and the harness context's cache tail."""
+    from clawker_tpu_torch.bundle import Resolver
+    from clawker_tpu_torch.bundler import generate_base, generate_harness
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.firewall.pki import ensure_ca
+
+    name = "images (a)"
+    env = _images_env(daemon)
+    check(not daemon.api.images, f"{name}: the fake holds images before the "
+          f"build: {sorted(daemon.api.images)}")
+    (proj / ".clawker.yaml").unlink()           # init writes it
+    _images_run(name, ["init", "--yes", "--name", LOOP_PROJECT], proj, env)
+    proc, walls["buildkit"] = _images_run(name, ["build"], proj, env)
+    tree = proc.stdout.splitlines()
+    check(tree[0].startswith(f"• building {IMAGES_TAGS[0]} (stack ")
+          and any(l.startswith("+ [internal] load build definition")
+                  for l in tree)
+          and any(l.startswith("+ [1/1] FROM scratch") for l in tree)
+          and any(l.startswith(f"+ tagged {IMAGES_TAGS[2]}") for l in tree)
+          and tree[-1] == IMAGES_TAGS[2],
+          f"{name}: build off a TTY printed {tree}")
+    lanes = [("2", [IMAGES_TAGS[0]]), ("2", [IMAGES_TAGS[1]])]
+    check(_lanes(daemon) == lanes and _tag_requests(daemon)
+          == [IMAGES_TAG_REQUEST],
+          f"{name}: builds {_lanes(daemon)}, tags {_tag_requests(daemon)}")
+    settings = Path(os.environ["CLAWKER_TPU_CONFIG_DIR"]) / "settings.yaml"
+    plain_settings = settings.read_text()
+    settings.write_text(plain_settings + IMAGES_FIREWALL)
+    try:
+        proc, walls["buildkit --plain"] = _images_run(
+            name, ["build", "--plain"], proj, env)
+        cfg = load_config(proj)
+    finally:
+        settings.write_text(plain_settings)
+    lines = proc.stdout.splitlines()
+    check(lines.count("#1 [internal] load build definition") == 2
+          and lines.count("#2 hello from buildkit") == 2
+          and sum(l.startswith("#2 DONE ") for l in lines) == 2
+          and lines[-2:] == [f"tagged {IMAGES_TAGS[2]}", IMAGES_TAGS[2]],
+          f"{name}: build --plain printed {lines}")
+    check(_lanes(daemon) == lanes * 2
+          and all(b["buildid"] for b in daemon.builds)
+          and _tag_requests(daemon) == [IMAGES_TAG_REQUEST] * 2,
+          f"{name}: builds {_lanes(daemon)}, tags {_tag_requests(daemon)}")
+    proc, _ = _images_run(name, ["image", "ls"], proj, env)
+    check(proc.stdout.splitlines() == list(IMAGES_TAGS),
+          f"{name}: image ls printed {proc.stdout!r}")
+    # each context's Dockerfile, as the port writes it in this process
+    pconf = cfg.project
+    r = Resolver(cfg)
+    harness = r.harness(pconf.build.harness or "claude")
+    extra = list(harness.files) if harness.source_dir is not None else []
+    base_df = generate_base(LOOP_PROJECT, r.stack(pconf.build.stack or "python"),
+                            pconf.build)
+    want = [base_df] + [generate_harness(
+        LOOP_PROJECT, harness, pconf.build, base_ref=IMAGES_TAGS[0],
+        with_ca_cert=ca, with_agentd=True, extra_files=extra)
+        for ca in (False, True)]
+    got = [_ctx_members(tar)["Dockerfile"].decode()
+           for _, tar in daemon.contexts]
+    check(got == [want[0], want[1], want[0], want[2]],
+          f"{name}: the contexts' Dockerfiles differ from generate_base / "
+          f"generate_harness in this process")
+    # the cache tail: the CA, then the supervisor, then the zipapp
+    df = want[2]
+    tail = [df.index(s) for s in ("COPY clawker-ca.crt", "COPY clawker-supervisord",
+                                  "COPY clawker-agentd.pyz", "ENTRYPOINT ")]
+    runs = [i for i in range(len(df)) if df.startswith("RUN ", i)
+            and i < tail[0]]
+    check(tail == sorted(tail) and runs and df.rstrip().split("\n")[-1]
+          .startswith("CMD "), f"{name}: the harness Dockerfile's tail "
+          f"{df.splitlines()[-12:]}")
+    ca_member = _ctx_members(daemon.contexts[3][1]).get("clawker-ca.crt")
+    check(ca_member == ensure_ca(cfg.pki_dir).cert_pem
+          and "clawker-ca.crt" not in _ctx_members(daemon.contexts[1][1]),
+          f"{name}: the CA in the harness contexts")
+    print(f"{name} BuildKit lane, forked: build {walls['buildkit']!r} ms "
+          f"(the progress tree off a TTY, {len(tree)} lines), build --plain "
+          f"with firewall.enable {walls['buildkit --plain']!r} ms "
+          f"({sum(l.startswith('#') for l in lines)} vertex lines); "
+          f"{len(daemon.builds)} version=2 builds, 2 :default tags; the "
+          f"contexts' Dockerfiles as written in process; context bytes "
+          f"{[len(tar) for _, tar in daemon.contexts]}")
+
+
+def images_lanes_case(proj: Path, walls: dict) -> None:
+    """(b): ``build --plain`` on a legacy daemon (two legacy builds), on
+    one that advertises BuildKit and refuses it (one refused ``version=2``
+    request, then legacy for both stages: the refusal is remembered),
+    and on one whose stream carries an ``errorDetail`` (exit 1, "build
+    of ... failed", nothing tagged); then ``image rm`` of the three
+    tags."""
+    name = "images (b)"
+    base_only = [("1", [IMAGES_TAGS[0]]), ("1", [IMAGES_TAGS[1]])]
+    with _images_daemon("1") as legacy:
+        env = _images_env(legacy)
+        proc, walls["legacy"] = _images_run(name, ["build", "--plain"], proj, env)
+        check(_lanes(legacy) == base_only
+              and proc.stdout.count("Step 1/1 : FROM scratch") == 2
+              and _tag_requests(legacy) == [IMAGES_TAG_REQUEST],
+              f"{name}: legacy builds {_lanes(legacy)}: {proc.stdout!r}")
+        proc, _ = _images_run(name, ["image", "rm", *IMAGES_TAGS], proj, env)
+        check(proc.stdout.splitlines() == list(IMAGES_TAGS),
+              f"{name}: image rm printed {proc.stdout!r}")
+        proc, _ = _images_run(name, ["image", "ls"], proj, env)
+        check(proc.stdout == "" and not legacy.api.images,
+              f"{name}: after image rm: {proc.stdout!r} "
+              f"{sorted(legacy.api.images)}")
+        legacy_routes = dict(legacy.routes)
+    with _images_daemon("2", refuse=True) as refused:
+        proc, walls["refused"] = _images_run(name, ["build", "--plain"], proj,
+                                             _images_env(refused))
+        check(_lanes(refused) == [("2", [IMAGES_TAGS[0]])] + base_only
+              and _tag_requests(refused) == [IMAGES_TAG_REQUEST]
+              and "buildkit lane refused" in proc.stderr,
+              f"{name}: refused lane builds {_lanes(refused)}: "
+              f"{proc.stderr[-1500:]}")
+    with _images_daemon("1", error=True) as failing:
+        proc, walls["errorDetail"] = _images_run(
+            name, ["build", "--plain"], proj, _images_env(failing), want=1)
+        check(f"build of {IMAGES_TAGS[0]} failed: exit code 1" in proc.stderr
+              and not _tag_requests(failing) and not failing.api.images
+              and len(failing.contexts) == 1,
+              f"{name}: the failing build: {proc.stderr[-1500:]}, tags "
+              f"{_tag_requests(failing)}, images {sorted(failing.api.images)}")
+    print(f"{name} forked build --plain: legacy {walls['legacy']!r} ms (2 "
+          f"legacy builds, image rm of 3 tags; routes {legacy_routes}), "
+          f"BuildKit refused {walls['refused']!r} ms (1 refused v2 request, "
+          f"then legacy for both stages), errorDetail {walls['errorDetail']!r}"
+          f" ms (exit 1, nothing tagged)")
+
+
+def images_payload_case(base: Path, daemon, supervisor: Path) -> dict:
+    """(c): the harness context's tail holds the supervisor built from
+    the checkout and the port's zipapp, deterministic and exactly the
+    port's closure; ``python3 -I`` with only the zipapp on ``sys.path``
+    imports the session daemon and loads neither torch nor JAX; then
+    the supervisor runs the zipapp as its ``--child`` with the image
+    command after ``--default-cmd``, and a session over mTLS from the
+    port's ``dial_with_retry`` (material from the port's ``identity``
+    and ``pki``) brings up the image command on ``AgentReady``; -> the
+    sizes."""
+    import io
+    import zipfile
+
+    from clawker_tpu_torch.agentd import SupervisorClient
+    from clawker_tpu_torch.bundler.payload import build_agentd_pyz
+    from clawker_tpu_torch.controlplane import identity
+    from clawker_tpu_torch.controlplane.session_client import dial_with_retry
+    from clawker_tpu_torch.firewall import pki
+
+    name = "images (c)"
+    members = _ctx_members(daemon.contexts[-1][1])
+    sup = supervisor.read_bytes()
+    pyz = build_agentd_pyz()
+    check(members.get("clawker-supervisord") == sup and sup[:4] == b"\x7fELF",
+          f"{name}: the context's supervisor is not the binary just built")
+    check(pyz == build_agentd_pyz() == members.get("clawker-agentd.pyz"),
+          f"{name}: the zipapp is not deterministic or not the context's")
+    zf = zipfile.ZipFile(io.BytesIO(pyz))
+    names = zf.namelist()
+    check(names == PYZ_CLOSURE, f"{name}: the zipapp's members {names}")
+    differ = [n for n in names[1:] if zf.read(n) != (ROOT / n).read_bytes()]
+    check(not differ, f"{name}: members that are not the checkout's files "
+          f"{differ}")
+    base.mkdir(parents=True, exist_ok=True)
+    pyz_path = base / "clawker-agentd.pyz"
+    pyz_path.write_bytes(pyz)
+    probe = subprocess.run(
+        [sys.executable, "-I", "-c",
+         "import json, sys\n"
+         f"sys.path.insert(0, {str(pyz_path)!r})\n"
+         "import clawker_tpu_torch.agentd.daemon\n"
+         "import clawker_tpu_torch.socketbridge.container\n"
+         "import clawker_tpu_torch\n"
+         "print(json.dumps({'file': clawker_tpu_torch.__file__,\n"
+         "                  'torch': 'torch' in sys.modules,\n"
+         "                  'jax': 'jax' in sys.modules}))\n"],
+        cwd=base, capture_output=True, text=True, timeout=60)
+    check(probe.returncode == 0 and json.loads(probe.stdout) == {
+        "file": f"{pyz_path}/clawker_tpu_torch/__init__.py", "torch": False,
+        "jax": False}, f"{name}: python3 -I over the zipapp: "
+        f"{probe.stdout!r} {probe.stderr[-1500:]}")
+    # tests/test_agentd_payload.py's composition over the port
+    ca = pki.generate_ca()
+    cp = pki.generate_cp_cert(ca)
+    certs = base / "certs"
+    certs.mkdir()
+    (certs / "cp.crt").write_bytes(cp.cert_pem)
+    (certs / "cp.key").write_bytes(cp.key_pem)
+    (certs / "ca.crt").write_bytes(ca.cert_pem)
+    bdir = base / "bootstrap"
+    bdir.mkdir()
+    for fname, data in identity.mint_bootstrap_material(
+            ca, LOOP_PROJECT, "dev").files().items():
+        (bdir / fname).write_bytes(data)
+    sock, marker = base / "sup.sock", base / "image-cmd-ran"
+    port = _free_port()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [str(supervisor), "--socket", str(sock), "--child",
+         "python3", str(pyz_path), "--bootstrap-dir", str(bdir),
+         "--host", "127.0.0.1", "--port", str(port),
+         "--ready-file", str(base / "ready"),
+         "--init-marker", str(base / "init"),
+         "--supervisor-socket", str(sock), "--default-cmd",
+         "/bin/sh", "-c", f"touch {marker}; exit 21"],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE)
+    try:
+        s = dial_with_retry("127.0.0.1", port, cert_file=certs / "cp.crt",
+                            key_file=certs / "cp.key",
+                            ca_file=certs / "ca.crt", deadline_s=15)
+        with s:
+            h = s.hello()
+            shell = s.run_shell([{"argv": ["/bin/echo", "plan-step"]}])
+            s.agent_initialized()
+            pid = s.agent_ready([], cwd=str(base))
+        _wait(marker.exists, 10, 0.05)
+        with SupervisorClient(sock) as c:
+            code = c.wait(timeout=10)
+        ready_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        if proc.poll() is None:
+            proc.terminate()
+        try:
+            proc.wait(5)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(5)
+        err = proc.stderr.read().decode(errors="replace")
+        proc.stderr.close()
+    check(not h.initialized and not h.cmd_running
+          and shell.stdout.strip() == b"plan-step" and shell.code == 0
+          and pid > 0 and marker.exists() and code == 21,
+          f"{name}: the composition: hello {h}, shell {shell}, pid {pid}, "
+          f"marker {marker.exists()}, exit {code}; supervisor {err[-1500:]}")
+    print(f"{name} the supervisor (ELF, {len(sup)} bytes, built from "
+          f"native/) and the port's zipapp ({len(pyz)} bytes, "
+          f"{len(names)} members, the closure, deterministic) in the harness "
+          f"context; python3 -I over it loads no torch or JAX; supervisor "
+          f"--child python3 <pyz> --default-cmd: session over mTLS, shell "
+          f"stage, AgentInitialized, AgentReady ran the image command (exit "
+          f"{code}) in {ready_ms!r} ms from spawn")
+    return {"supervisor": len(sup), "pyz": len(pyz)}
+
+
+def _write_when_created(daemon, cfg, out: dict, stop) -> None:
+    """The forked loop's egress, written once its containers exist:
+    every agent's benign minutes and the hot slot's burst, keyed by the
+    names its creates carry."""
+    pattern = re.compile(rf"^clawker\.{LOOP_PROJECT}\.(loop-[0-9a-z]+)-\d+$")
+    while not stop.is_set():
+        names = [c.name.lstrip("/") for c in list(daemon.api.containers.values())]
+        hits = [m.group(1) for m in map(pattern.match, names) if m]
+        if hits:
+            agents = [f"{hits[0]}-{i}" for i in range(LOOP_AGENTS)]
+            out["agents"] = agents
+            out["hot"] = agents[LOOP_HOT_SLOT]
+            cfg.logs_dir.mkdir(parents=True, exist_ok=True)
+            _append(cfg.logs_dir / f"ebpf-egress-{ENGINES_LOCAL}.jsonl",
+                    _local_egress(agents, out["hot"]))
+            return
+        time.sleep(0.01)
+
+
+def images_card_case(base: Path, proj: Path, daemon, device: str,
+                     stages: dict, home: Path) -> tuple:
+    """(d): the behaviour set on the BUILT ``:default`` (nothing was
+    pre-seeded), then ``loop -p 8 -n 3 --sentinel --json`` forked on it
+    with the agents' egress and a hot agent (the hot agent hottest, at
+    ``ANOMALY_Z`` or more, and a scored tick on the card with a flag in
+    its flight record), and the same run in this process over
+    ``LocalDriver`` under the launch counters: the hot agent flagged
+    first, every scored tick one K3 and one K1; -> (launches, walls)."""
+    from clawker_tpu_torch.analytics.runtime import ANOMALY_Z
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.fake import exit_behavior
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.monitor.ledger import flight_path
+    from clawker_tpu_torch.sentinel import FleetSentinel
+    from clawker_tpu_torch.telemetry import SPAN_SENTINEL_TICK, load_spans
+
+    name = "images (d)"
+    check(set(IMAGES_TAGS) <= set(daemon.api.images),
+          f"{name}: the built images {sorted(daemon.api.images)}")
+    daemon.api.set_behavior(IMAGES_TAGS[2], exit_behavior(
+        b"iteration done\n", 0, delay=IMAGES_ITER_S))
+    cfg = load_config(proj)
+    seen: dict = {}
+    stop = threading.Event()
+    writer = threading.Thread(target=_write_when_created,
+                              args=(daemon, cfg, seen, stop),
+                              name="images-egress-writer")
+    writer.start()
+    try:
+        proc, forked_ms = _images_run(
+            name, ["loop", "-p", str(LOOP_AGENTS), "-n", str(LOOP_ITERATIONS),
+                   "--sentinel", "--json"], proj, _images_env(daemon, device))
+    finally:
+        stop.set()
+        writer.join(10)
+    for bad in ("anomaly_watch_error", "no CUDA GPU"):
+        check(bad not in proc.stderr,
+              f"{name}: the rider failed: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    hot = seen.get("hot")
+    zs = {a["agent"]: a.get("anomaly_z") for a in doc["agents"]}
+    check(len(doc["agents"]) == LOOP_AGENTS
+          and all(a["status"] == "done" and a["iteration"] == LOOP_ITERATIONS
+                  and a["worker"] == ENGINES_LOCAL for a in doc["agents"]),
+          f"{name}: forked agents {doc['agents']}")
+    check(hot in zs and None not in zs.values() and zs[hot] >= ANOMALY_Z
+          and max(zs, key=zs.get) == hot,
+          f"{name}: forked z {zs}, hot {hot} (threshold {ANOMALY_Z})")
+    spans = load_spans(flight_path(cfg.logs_dir, doc["loop_id"]).read_text()
+                       .splitlines())
+    ticks = [sp for sp in spans if sp.name == SPAN_SENTINEL_TICK]
+    check(ticks and all(sp.attrs["device"].startswith(device) for sp in ticks)
+          and any(sp.attrs.get("flags") for sp in ticks),
+          f"{name}: forked sentinel ticks {[sp.attrs for sp in ticks]}")
+    creates = _creates_by_name(daemon)
+    # in this process, its own dirs, the same daemon and built image
+    with _pinned_home(home), _isolated_dirs(base / "inproc", IMAGES_SETTINGS) \
+            as proj2:
+        cfg2 = load_config(proj2)
+        drv = _local_driver(daemon)
+        sched = LoopScheduler(cfg2, drv, LoopSpec(
+            parallel=LOOP_AGENTS, iterations=LOOP_ITERATIONS))
+        s = FleetSentinel(cfg2, drv, run_id=sched.loop_id, device=device,
+                          interval_s=LOOP_TICK_S, train_steps=SENTINEL_STEPS)
+        log = TickLog(s, stages)
+        sched.attach_sentinel(s)
+        agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+        hot2 = agents[LOOP_HOT_SLOT]
+        egress = _local_egress(agents, hot2)
+        t0 = time.perf_counter()
+        s.start()
+        sched.start()
+        _append(cfg2.logs_dir / f"ebpf-egress-{ENGINES_LOCAL}.jsonl", egress)
+        sched.run(poll_s=0.05)
+        wall = (time.perf_counter() - t0) * 1e3
+        _wait(lambda: s._scored_at[0] >= len(egress), 10, LOOP_TICK_S)
+        s.stop()
+        rows = sched.status()
+        flags = [f["agent"] for f in s.flags()]
+        sched.cleanup(remove_containers=True)
+        drv.close()
+    scored = log.check_run(name)
+    _check_loop_rows(name, rows)
+    zs2 = {r["agent"]: r["anomaly_z"] for r in rows}
+    check(flags and flags[0] in (hot2, f"clawker.{LOOP_PROJECT}.{hot2}")
+          and zs2[hot2] >= ANOMALY_Z and max(zs2, key=zs2.get) == hot2,
+          f"{name}: in process flags {flags}, z {zs2}, hot {hot2}")
+    tick_ms = [ms["wall"] for n, _, ms, _ in log.ticks if n]
+    print(card_line())
+    print(f"{name} on the image the build tagged ({IMAGES_TAGS[2]}, "
+          f"behaviour set after the build): loop -p {LOOP_AGENTS} -n "
+          f"{LOOP_ITERATIONS} --sentinel forked {forked_ms!r} ms, "
+          f"{sum(creates.values())} creates, {hot} hottest at z {zs[hot]} "
+          f"(threshold {ANOMALY_Z}), {len(ticks)} ticks scored on "
+          f"{ticks[0].attrs['device']}; in process over LocalDriver: run "
+          f"wall {wall!r} ms, {len(log.ticks)} ticks, {len(scored)} scored "
+          f"(tick ms median {statistics.median(tick_ms)!r}), first flag "
+          f"{flags[0]} (z {zs2[hot2]}), launches "
+          f"{json.dumps(dict(log.launches()))}")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches(), {"forked loop": forked_ms, "loop": wall,
+                            "tick": statistics.median(tick_ms)}
+
+
+def images_phase(device) -> collections.Counter:
+    """Builds the project image with the port's ``build`` over a
+    Docker-API socket (the port's test daemon) on every builder lane,
+    checks the contexts, the agentd zipapp and the supervisor it ships
+    with, then runs ``loop --sentinel`` on the image the build tagged,
+    the sentinel scoring on the card; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "images"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    supervisor, compile_s = _build_supervisor()
+    saved = os.environ.get("CLAWKER_TPU_SUPERVISOR_BIN")
+    os.environ["CLAWKER_TPU_SUPERVISOR_BIN"] = str(supervisor)
+    walls: dict = {}
+    home = _harness_home(out)
+    try:
+        with _pinned_home(home), _isolated_dirs(out / "a", IMAGES_SETTINGS) \
+                as proj, _images_daemon("2") as daemon:
+            images_buildkit_case(proj, daemon, walls)
+            sizes = images_payload_case(out / "c", daemon, supervisor)
+            with stage_timers({}) as stages:
+                total, loop_ms = images_card_case(out / "d", proj, daemon,
+                                                  device, stages, home)
+            ctx_bytes = [len(tar) for _, tar in daemon.contexts]
+            check(not daemon.unrouted, f"images: requests the daemon has no "
+                  f"route for: {daemon.unrouted}")
+            images_lanes_case(proj, walls)
+    finally:
+        if saved is None:
+            os.environ.pop("CLAWKER_TPU_SUPERVISOR_BIN", None)
+        else:
+            os.environ["CLAWKER_TPU_SUPERVISOR_BIN"] = saved
+    no_daemon_left()
+    no_process_left("images")
+    print(f"images (e) host walls: forked build ms by lane "
+          f"{json.dumps(walls)}; context bytes (base, harness, base, "
+          f"harness with the CA) {ctx_bytes}; the zipapp {sizes['pyz']} "
+          f"bytes, the supervisor {sizes['supervisor']} bytes compiled in "
+          f"{compile_s!r} s; loop ms {json.dumps(loop_ms)}")
+    print(f"images launches: {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -7435,6 +7990,8 @@ def main() -> int:
     for k, v in pod_phase(device).items():
         main_path["launches"][k] += v
     for k, v in verbs_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in images_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

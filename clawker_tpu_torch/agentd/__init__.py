@@ -1,7 +1,13 @@
-"""agentd: the in-container daemon's wire pieces.
+"""agentd: the in-container daemon (session listener + PID-1 supervision).
 
-The port has only ``protocol`` so far: the length-prefixed JSON framing
-that the loopd socket speaks.  The session daemon, the supervisor client
-and the native supervisor wait with the enforcement layer (ROADMAP §1
-item 13).
+Parity reference: clawkerd/ (SURVEY.md 2.9).  Split design: the PID-1
+process-supervision core is the native ``clawker-supervisord`` binary
+(native/agentsup/supervisor.cpp); this package is the mTLS session daemon
+that rides beside it and the client used to drive the supervisor socket.
+
+The port's copy of ``clawker_tpu/agentd/__init__.py``, whole.  Every
+module here is stdlib-only: the agentd zipapp (``bundler/payload.py``)
+carries them into each image.
 """
+
+from .supervisor_client import SupervisorClient, SupervisorError

@@ -4,7 +4,7 @@ logs / inspect, as a ``container`` group plus Docker-style top-level aliases
 
 The port's copy of ``clawker_tpu/cli/cmd_container.py``, whole but for
 ``run``'s bundle auto-update (``BundleManager.auto_update_check``), which
-waits for ``bundle/manager.py`` with the image builds (ROADMAP §1).
+waits for ``bundle/manager.py`` and the ``bundle`` verbs (ROADMAP §1).
 These verbs compute nothing on the card and load no torch.
 """
 
@@ -66,7 +66,7 @@ def run_cmd(f: Factory, agent, image, env, env_files, workspace, replace,
     cfg = f.config
     # the reference refreshes bundles here (BundleManager.auto_update_check,
     # reference cmdutil.RunBundleAutoUpdate, run.go:166): not ported yet,
-    # bundle/manager.py waits with the image builds
+    # bundle/manager.py waits with the bundle verbs
     agent = agent or (cfg.project.agent.default if cfg.project else "dev")
     envd = _assemble_env(env, env_files)
     opts = CreateOptions(

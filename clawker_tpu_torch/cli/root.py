@@ -24,8 +24,8 @@ from .factory import Factory, _not_ported
 CONTEXT_SETTINGS = {"help_option_names": ["-h", "--help"], "max_content_width": 100}
 
 # the reference's verbs whose modules are not ported yet (ROADMAP §1)
-WAITING = ("analyze", "build", "bundle", "controlplane", "fed", "firewall",
-           "gen-docs", "image", "plugin")
+WAITING = ("analyze", "bundle", "controlplane", "fed", "firewall",
+           "gen-docs", "plugin")
 
 
 class _RootGroup(click.Group):
@@ -110,10 +110,12 @@ def main(argv: list[str] | None = None) -> int:
 def register_commands() -> None:
     """Attach all command groups (import-cycle-free late binding)."""
     from . import (
+        cmd_build,
         cmd_chaos,
         cmd_container,
         cmd_fleet,
         cmd_harness,
+        cmd_image,
         cmd_init,
         cmd_journal,
         cmd_loop,
@@ -127,10 +129,12 @@ def register_commands() -> None:
         cmd_workerd,
     )
 
+    cmd_build.register(cli)
     cmd_chaos.register(cli)
     cmd_container.register(cli)
     cmd_fleet.register(cli)
     cmd_harness.register(cli)
+    cmd_image.register(cli)
     cmd_init.register(cli)
     cmd_journal.register(cli)
     cmd_loop.register(cli)

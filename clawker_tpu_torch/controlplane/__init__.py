@@ -1,3 +1,5 @@
-"""Control plane: only its start-time service hooks (:mod:`.bootstrap`)
-and its OTLP log lanes (:mod:`.otel`) are ported; the control-plane
-daemon waits (ROADMAP §1)."""
+"""Control plane: only its start-time service hooks (:mod:`.bootstrap`),
+its OTLP log lanes (:mod:`.otel`), the create path's identity and agent
+registry, and the host half of the agentd session
+(:mod:`.session_client`) are ported; the control-plane daemon waits
+(ROADMAP §1)."""

@@ -1,7 +1,6 @@
 """Label-jailed engine: the safety boundary over any Docker-API daemon.
 
-The port's copy of ``clawker_tpu/engine/api.py``, whole but for
-``build_image`` (the BuildKit client waits for image builds, ROADMAP §1).
+The port's copy of ``clawker_tpu/engine/api.py``, whole.
 
 Parity reference: pkg/whail/engine.go -- ``injectManagedFilter`` (engine.go:135)
 scopes every list to managed objects, and every mutate op verifies the target
@@ -387,6 +386,37 @@ class Engine:
 
     def inspect_image(self, ref: str) -> dict:
         return self.api.image_inspect(ref)
+
+    def build_image(
+        self,
+        context_tar: bytes,
+        *,
+        tags: list[str],
+        labels: dict[str, str] | None = None,
+        dockerfile: str = "Dockerfile",
+        buildargs: dict[str, str] | None = None,
+        target: str = "",
+        pull: bool = False,
+        no_cache: bool = False,
+        secrets: dict[str, bytes] | None = None,
+        ssh_auth_sock: str = "",
+    ) -> Iterator[dict]:
+        from .buildkit import Builder
+
+        if self._builder is None:
+            self._builder = Builder(self.api)
+        return self._builder.build(
+            context_tar,
+            tags=tags,
+            labels=self._managed_labels(labels),
+            dockerfile=dockerfile,
+            buildargs=buildargs,
+            target=target,
+            pull=pull,
+            no_cache=no_cache,
+            secrets=secrets,
+            ssh_auth_sock=ssh_auth_sock,
+        )
 
     def tag_image(self, ref: str, repo: str, tag: str) -> None:
         self.api.image_tag(ref, repo, tag)

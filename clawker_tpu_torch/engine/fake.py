@@ -1,8 +1,6 @@
 """In-process fake Docker daemon: the universal unit-test seam.
 
-The port's copy of ``clawker_tpu/engine/fake.py``, whole but for the
-BuildKit lane (``image_build_buildkit``), which waits for image builds
-(ROADMAP §1).
+The port's copy of ``clawker_tpu/engine/fake.py``, whole.
 
 Parity reference: pkg/whail/whailtest FakeAPIClient (SURVEY.md 4) -- the
 fake sits at the same method surface as :class:`HTTPDockerAPI`, so all real
@@ -626,6 +624,46 @@ class FakeDockerAPI:
             yield {"stream": "Step 1/1 : FROM scratch\n"}
             yield {"aux": {"ID": "sha256:" + short_id(32)}}
             yield {"stream": "Successfully built\n"}
+
+        return gen()
+
+    def image_build_buildkit(self, context_tar: bytes, **kw) -> Iterator[dict]:
+        """BuildKit lane over the fake daemon: a recorded version=2
+        transcript (aux trace records carrying real protobuf bytes) so
+        the whole decode path runs in tests."""
+        import base64
+
+        from .bkproto import StatusResponse, Vertex, VertexLog, encode_status
+        from ..errors import DriverError
+
+        tags = kw.get("tags") or []
+        self._record("image_build_buildkit", tags=tags)
+        if self.buildkit_refuse:
+            raise DriverError("buildkit session required (fake refusal)")
+        if self.build_hook:
+            self.build_hook(context_tar, tags)
+        for t in tags:
+            self.add_image(t, labels=kw.get("labels") or {})
+
+        def aux(resp: StatusResponse) -> dict:
+            return {"id": "moby.buildkit.trace",
+                    "aux": base64.b64encode(encode_status(resp)).decode()}
+
+        def gen() -> Iterator[dict]:
+            d1, d2 = "sha256:aaa1", "sha256:bbb2"
+            yield aux(StatusResponse(vertexes=[
+                Vertex(digest=d1, name="[internal] load build definition",
+                       started=1.0)]))
+            yield aux(StatusResponse(
+                vertexes=[Vertex(digest=d1, name="[internal] load build definition",
+                                 started=1.0, completed=1.2),
+                          Vertex(digest=d2, name="[1/1] FROM scratch",
+                                 started=1.2)],
+                logs=[VertexLog(vertex=d2, msg=b"hello from buildkit\n")]))
+            yield aux(StatusResponse(vertexes=[
+                Vertex(digest=d2, name="[1/1] FROM scratch",
+                       started=1.2, completed=2.0)]))
+            yield {"aux": {"ID": "sha256:" + short_id(32)}}
 
         return gen()
 

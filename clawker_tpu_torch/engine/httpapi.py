@@ -26,9 +26,8 @@ See docs/engine-connection-pool.md and docs/telemetry.md.
 
 The port's copy of ``clawker_tpu/engine/httpapi.py``, whole.  The
 image-build methods (``image_build``, ``image_build_buildkit``,
-``session_attach``, ``build_cancel``) are here as they are; the
-BuildKit session that drives them waits for image builds (ROADMAP §1
-item 13).
+``session_attach``, ``build_cancel``) are driven by
+``engine/buildkit.py``'s ``Builder`` and ``engine/bksession.py``.
 """
 
 from __future__ import annotations

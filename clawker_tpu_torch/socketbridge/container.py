@@ -12,8 +12,7 @@ binary (internal/hostproxy/internals/cmd), reached the same way (exec'd
 by the host, stdio as the channel).
 
 The port's copy of ``clawker_tpu/socketbridge/container.py``, whole.
-The agentd zipapp it ships in waits for its builder, with the image
-builds (ROADMAP §1 item 13).
+It ships in the port's agentd zipapp (``bundler/payload.py``).
 """
 
 from __future__ import annotations

@@ -564,16 +564,19 @@ class FakeEngineDaemon:
     exactly the routes the port's ``HTTPDockerAPI`` speaks for the
     loop path and the everyday verbs -- ping, version, info; containers create, list, inspect,
     start, stop, kill, wait, remove, rename, resize, attach, logs and
-    archive put/get; exec create, start and inspect; image list, inspect
-    and pull; volumes; networks; events -- and answers any other route with
-    a 404 that it also keeps in ``unrouted``.  The fake's
+    archive put/get; exec create, start and inspect; image list, inspect,
+    pull, tag and remove; both build lanes and the build cancel; volumes;
+    networks; events -- and answers any other route with a 404 that it
+    also keeps in ``unrouted``.  The fake's
     ``NotFoundError`` answers 404, ``ConflictError`` 409 and anything
     else 500, the statuses ``errors_map.raise_for`` reads back to the
     same classes.
 
     Records: ``log`` (method, path, query string, and the first 16 hex
     digits of the body's sha256 or ""), ``routes`` (a counter by route: the
-    fake's method name), ``connections`` (accepts) and ``requests``.
+    fake's method name), ``builds`` (each ``/build``'s lane and parameters
+    as read off the query), ``cancelled`` (the build ids of
+    ``/build/cancel``), ``connections`` (accepts) and ``requests``.
     ``stop()`` closes every connection, parked waits and open streams
     too, so a client blocked on one fails instead of hanging.
     """
@@ -586,6 +589,8 @@ class FakeEngineDaemon:
         self.log: list[tuple[str, str, str, str]] = []
         self.routes: collections.Counter = collections.Counter()
         self.unrouted: list[tuple[str, str]] = []
+        self.builds: list[dict] = []
+        self.cancelled: list[str] = []
         self.connections = 0
         self.requests = 0
         self._lock = threading.Lock()
@@ -873,6 +878,42 @@ class FakeEngineDaemon:
     def h_image_inspect(self, req, ref):
         return "json", 200, self.api.image_inspect(ref)
 
+    def h_image_tag(self, req, ref):
+        self.api.image_tag(ref, req.query.get("repo", ""),
+                           req.query.get("tag", ""))
+        return "json", 201, None
+
+    def h_image_remove(self, req, ref):
+        self.api.image_remove(ref, force=req.qbool("force"))
+        return "json", 200, [{"Untagged": ref}]
+
+    def h_build(self, req):
+        """Both build lanes: ``version=2`` streams the fake's recorded
+        BuildKit transcript, anything else the legacy stream.  Every
+        ``t=`` is kept (the client sends one per tag); ``labels`` and
+        ``buildargs`` are JSON as the client writes them."""
+        tags = [v for k, v in urllib.parse.parse_qsl(
+            req.raw_query, keep_blank_values=True) if k == "t"]
+        kw = {"tags": tags, "labels": req.qjson("labels"),
+              "dockerfile": req.query.get("dockerfile") or "Dockerfile",
+              "buildargs": req.qjson("buildargs"),
+              "target": req.query.get("target", ""),
+              "pull": req.qbool("pull"), "no_cache": req.qbool("nocache")}
+        v2 = req.query.get("version") == "2"
+        record = {"version": "2" if v2 else "1", **kw}
+        if v2:
+            record.update(buildid=req.query.get("buildid", ""),
+                          session=req.query.get("session", ""))
+        with self._lock:
+            self.builds.append(record)
+        build = self.api.image_build_buildkit if v2 else self.api.image_build
+        return "stream", build(req.body, **kw)
+
+    def h_build_cancel(self, req):
+        with self._lock:
+            self.cancelled.append(req.query.get("id", ""))
+        return "json", 200, None
+
     def h_image_pull(self, req):
         ref = req.query.get("fromImage", "")
         tag = req.query.get("tag", "")
@@ -952,6 +993,10 @@ FakeEngineDaemon._ROUTES = [
     _route("GET", r"/images/json", _D.h_image_list),
     _route("GET", r"/images/([^/]+)/json", _D.h_image_inspect),
     _route("POST", r"/images/create", _D.h_image_pull),
+    _route("POST", r"/images/([^/]+)/tag", _D.h_image_tag),
+    _route("DELETE", r"/images/([^/]+)", _D.h_image_remove),
+    _route("POST", r"/build", _D.h_build),
+    _route("POST", r"/build/cancel", _D.h_build_cancel),
     _route("POST", r"/volumes/create", _D.h_volume_create),
     _route("GET", r"/volumes", _D.h_volume_list),
     _route("GET", r"/volumes/([^/]+)", _D.h_volume_inspect),

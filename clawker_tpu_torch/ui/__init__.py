@@ -9,15 +9,19 @@ non-interactive path is the contract, the animation is the garnish.
 
 The port's copy of ``clawker_tpu/ui``: ``colors``, ``iostreams``,
 ``table``, ``damage``, ``dashboard`` (``LoopDashboard``),
-``fleetconsole`` (``FleetConsole``) and ``prompter`` (``Prompter``).
-``progress``, ``buildview`` and ``fieldbrowser`` wait for the verbs that
-use them (image builds, ``project edit``, ``settings edit``: ROADMAP §1
-item 13), so this package exports only what is ported.
+``fleetconsole`` (``FleetConsole``), ``prompter`` (``Prompter``),
+``progress`` (``ProgressTree``) and ``buildview``.  ``fieldbrowser``
+waits for the verbs that use it (``project edit``, ``settings edit``:
+ROADMAP §1 item 13), so this package exports only what is ported.
 """
 
 from .colors import ColorScheme
 from .iostreams import IOStreams
+from .progress import Node, ProgressTree
 from .prompter import Prompter
 from .table import render_table
 
-__all__ = ["IOStreams", "ColorScheme", "render_table", "Prompter"]
+__all__ = [
+    "IOStreams", "ColorScheme", "ProgressTree", "Node", "render_table",
+    "Prompter",
+]

@@ -100,6 +100,29 @@ VERB_MODULES = ["clawker_tpu_torch.cli", "clawker_tpu_torch.cli.root",
                 "clawker_tpu_torch.controlplane.registry"]
 
 
+# image builds: the bundler, the BuildKit lanes, the agentd zipapp's
+# modules and the session's host half, the build views and verbs
+IMAGE_MODULES = ["clawker_tpu_torch.bundler",
+                 "clawker_tpu_torch.bundler.build",
+                 "clawker_tpu_torch.bundler.context",
+                 "clawker_tpu_torch.bundler.dockerfile",
+                 "clawker_tpu_torch.bundler.egress",
+                 "clawker_tpu_torch.bundler.payload",
+                 "clawker_tpu_torch.engine.buildkit",
+                 "clawker_tpu_torch.engine.bkproto",
+                 "clawker_tpu_torch.engine.bksession",
+                 "clawker_tpu_torch.agentd",
+                 "clawker_tpu_torch.agentd.daemon",
+                 "clawker_tpu_torch.agentd.protocol",
+                 "clawker_tpu_torch.agentd.register",
+                 "clawker_tpu_torch.agentd.supervisor_client",
+                 "clawker_tpu_torch.controlplane.session_client",
+                 "clawker_tpu_torch.ui.progress",
+                 "clawker_tpu_torch.ui.buildview",
+                 "clawker_tpu_torch.cli.cmd_build",
+                 "clawker_tpu_torch.cli.cmd_image"]
+
+
 def _modules() -> list[str]:
     out = []
     for path in sorted(PKG.rglob("*.py")):
@@ -143,6 +166,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     # create path's identity
     assert set(VERB_MODULES) <= set(mods)
     assert "clawker_tpu_torch.controlplane.identity" in mods
+    # and image builds
+    assert set(IMAGE_MODULES) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -238,7 +263,8 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     "clawker_tpu_torch.socketbridge.container",
                                     "clawker_tpu_torch.controlplane.identity",
                                     *VIEW_MODULES, *ENGINE_MODULES,
-                                    *FLEET_MODULES, *VERB_MODULES[1:]])
+                                    *FLEET_MODULES, *VERB_MODULES[1:],
+                                    *IMAGE_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -277,6 +303,19 @@ def test_everyday_verbs_load_no_torch(module):
     assert doc == {"torch": False, "cryptography": False}
 
 
+@pytest.mark.parametrize("module", IMAGE_MODULES)
+def test_image_builds_load_no_torch_and_no_grpc(module):
+    """The bundler, the BuildKit lanes, the agentd zipapp's modules and
+    the build verbs are plain Python: the session lane imports ``grpc``
+    only when a build forwards secrets or an ssh agent."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'grpc': 'grpc' in sys.modules}))\n")
+    assert doc == {"torch": False, "grpc": False}
+
+
 def _verb_env(tmp_path: Path) -> dict:
     """Isolated XDG dirs with the host proxy off, the fake driver
     seeded with the project's image, a project dir at ``tmp_path``."""
@@ -295,10 +334,11 @@ def _verb_env(tmp_path: Path) -> dict:
     (["ps"], "no agent containers\n"),
     (["version"], "clawker-tpu 0.2.0\n"),
     (["run", "-d", "--agent", "a1"], "clawker.verbs.a1\n"),
+    (["build", "-q"], "clawker-verbs:default\n"),
 ])
 def test_everyday_verbs_run_without_torch(tmp_path, argv, out):
-    """``ps``, ``version`` and ``run -d`` in a process where any
-    ``import torch`` raises; only the create path loads
+    """``ps``, ``version``, ``run -d`` and ``build -q`` in a process
+    where any ``import torch`` raises; only the create path loads
     ``cryptography`` (the identity bootstrap)."""
     code = (
         "import contextlib, io, json, sys\n"

@@ -15,9 +15,10 @@ through each ui module's ``time``.
 The two SSH-tail cases of tests/test_egress_feed.py
 (``test_remote_tail_rides_ssh_mux`` and the transport half of
 ``add_worker``) are twinned over the port's ``SSHTransport`` in
-tests/test_torch_fleet.py.  Waiting for its item: tests/test_ui.py's
-progress, buildview and prompter cases need those modules (ROADMAP §1
-item 13).
+tests/test_torch_fleet.py.  tests/test_ui.py's progress and buildview
+cases (:130-200) are twinned at the end, their clocks fixed through each
+``progress`` module's ``time``; its prompter cases are twinned in
+tests/test_torch_verbs.py.
 """
 
 from __future__ import annotations
@@ -35,22 +36,26 @@ import clawker_tpu.fleet.egress_tail as ref_egress
 import clawker_tpu.loopd.feed as ref_feed
 import clawker_tpu.monitor.ledger as ref_ledger
 import clawker_tpu.telemetry.spans as ref_spans
+import clawker_tpu.ui.buildview as ref_buildview
 import clawker_tpu.ui.colors as ref_colors
 import clawker_tpu.ui.damage as ref_damage
 import clawker_tpu.ui.dashboard as ref_dashboard
 import clawker_tpu.ui.fleetconsole as ref_console
 import clawker_tpu.ui.iostreams as ref_iostreams
+import clawker_tpu.ui.progress as ref_progress
 import clawker_tpu.ui.table as ref_table
 import clawker_tpu_torch.engine.drivers as port_drivers
 import clawker_tpu_torch.fleet.egress_tail as port_egress
 import clawker_tpu_torch.loopd.feed as port_feed
 import clawker_tpu_torch.monitor.ledger as port_ledger
 import clawker_tpu_torch.telemetry.spans as port_spans
+import clawker_tpu_torch.ui.buildview as port_buildview
 import clawker_tpu_torch.ui.colors as port_colors
 import clawker_tpu_torch.ui.damage as port_damage
 import clawker_tpu_torch.ui.dashboard as port_dashboard
 import clawker_tpu_torch.ui.fleetconsole as port_console
 import clawker_tpu_torch.ui.iostreams as port_iostreams
+import clawker_tpu_torch.ui.progress as port_progress
 import clawker_tpu_torch.ui.table as port_table
 from test_torch_loopd import (  # noqa: F401
     _time_limit,
@@ -67,12 +72,14 @@ PKGS = {
         colors=ref_colors, iostreams=ref_iostreams, table=ref_table,
         damage=ref_damage, dashboard=ref_dashboard, console=ref_console,
         feed=ref_feed, egress=ref_egress, ledger=ref_ledger,
-        spans=ref_spans, drivers=ref_drivers),
+        spans=ref_spans, drivers=ref_drivers, progress=ref_progress,
+        buildview=ref_buildview),
     "port": SimpleNamespace(
         colors=port_colors, iostreams=port_iostreams, table=port_table,
         damage=port_damage, dashboard=port_dashboard, console=port_console,
         feed=port_feed, egress=port_egress, ledger=port_ledger,
-        spans=port_spans, drivers=port_drivers),
+        spans=port_spans, drivers=port_drivers, progress=port_progress,
+        buildview=port_buildview),
 }
 COLOUR = {"on": {"TERM": "xterm-256color"}, "off": {"NO_COLOR": "1"}}
 
@@ -970,3 +977,106 @@ def test_cli_fleet_console_without_daemon_exits_nonzero(tmp_path):
 
     want, got = twin(tmp_path, scenario)
     assert got == want == (1, True)
+
+
+# ------------------------------------------- progress tree and build view
+
+
+@pytest.fixture
+def progress_clock(monkeypatch):
+    """Both packages' progress trees on a clock that does not move, so
+    no elapsed time reaches a line."""
+    for m in PKGS.values():
+        monkeypatch.setattr(m.progress, "time", FixedTime())
+
+
+def test_progress_tree_nontty_emits_state_lines(progress_clock):
+    def run(m):
+        s, _, fout, _ = m.iostreams.IOStreams.test()
+        tree = m.progress.ProgressTree(s)
+        tree.add("a", "stage one")
+        with tree:
+            tree.update("a", "running")
+            tree.add("a.1", "step", parent="a")
+            tree.update("a.1", "running")
+            tree.update("a.1", "done")
+            tree.update("a", "done")
+        return fout.getvalue(), [n.key for n in tree.failed()]
+
+    want, got = both(run)
+    assert got == want
+    assert "• stage one" in got[0] and "+ step" in got[0]
+    assert got[1] == []
+
+
+def test_progress_tree_failure_carries_detail(progress_clock):
+    def run(m):
+        s, _, fout, _ = m.iostreams.IOStreams.test()
+        tree = m.progress.ProgressTree(s)
+        tree.add("a", "stage")
+        tree.update("a", "running")
+        tree.update("a", "failed", "exit 1")
+        return fout.getvalue(), [n.key for n in tree.failed()]
+
+    want, got = both(run)
+    assert got == want
+    assert "x stage" in got[0] and "exit 1" in got[0]
+    assert got[1] == ["a"]
+
+
+@pytest.mark.parametrize("colour", sorted(COLOUR))
+def test_progress_tree_live_repaints_in_place(progress_clock, colour):
+    def run(m):
+        s, out = streams_for(m, colour)
+        tree = m.progress.ProgressTree(s)
+        tree.add("a", "stage")
+        tree.update("a", "running")
+        tree.render_once()
+        tree.render_once()
+        return out.getvalue()
+
+    want, got = both(run)
+    assert got == want
+    assert "\x1b[2K" in got            # line clear
+    assert "\x1b[1A" in got            # cursor-up repaint on second frame
+
+
+def test_buildview_maps_docker_steps_to_tree(progress_clock):
+    def run(m):
+        s, _, fout, _ = m.iostreams.IOStreams.test()
+        view = m.buildview.BuildProgressView(m.progress.ProgressTree(s))
+        view.stage("building clawker-p:base (stack python)")
+        view.line("Step 1/3 : FROM python:3.12-slim")
+        view.line(" ---> abc123")                       # detail, no new node
+        view.line("Step 2/3 : RUN pip install x")
+        view.stage("building clawker-p:claude (harness claude)")
+        view.line("Step 1/2 : FROM clawker-p:base")
+        view.line("#1 [internal] load build definition")
+        view.line("#1 DONE 0.2s")
+        view.line("#2 [1/1] COPY . .")
+        view.line("#2 CACHED")
+        view.done()
+        return fout.getvalue(), [n.key for n in view.tree.failed()]
+
+    want, got = both(run)
+    assert got == want
+    out, failed = got
+    assert "[1/3] FROM python:3.12-slim" in out
+    assert "[2/3] RUN pip install x" in out
+    assert out.count("• building ") == 2   # each stage started once
+    assert "+ [internal] load build definition" in out
+    assert failed == []
+
+
+def test_buildview_failure_marks_current_step(progress_clock):
+    def run(m):
+        s, _, fout, _ = m.iostreams.IOStreams.test()
+        view = m.buildview.BuildProgressView(m.progress.ProgressTree(s))
+        view.stage("building x")
+        view.line("Step 1/1 : RUN false")
+        view.failed("exit code 1")
+        return fout.getvalue(), sorted(n.key for n in view.tree.failed())
+
+    want, got = both(run)
+    assert got == want
+    assert got[1] == ["stage-1", "stage-1.1"]

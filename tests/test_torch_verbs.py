@@ -730,7 +730,7 @@ def test_destructive_prompt_on_a_tty_declines(tmp_path):
 @pytest.mark.parametrize("argv,name", [
     (["project", "edit"], "project edit"),
     (["settings", "edit"], "settings edit"),
-    (["build"], "clawker build"),
+    (["fed", "status"], "clawker fed"),
     (["gen-docs"], "clawker gen-docs"),
     (["firewall", "status"], "clawker firewall"),
 ])
@@ -753,7 +753,7 @@ def test_help_lists_the_everyday_verbs_beside_the_earlier_ones():
         "logs", "exec", "init", "project", "worktree", "settings", "auth",
         "version", "alias", "network", "volume", "harness", "stack",
         "monitor", "fleet", "loop", "loopd", "workerd", "trace", "journal",
-        "chaos"}
+        "chaos", "build", "image"}
 
 
 def test_exec_passes_every_word_after_the_name(tmp_path):
