@@ -323,14 +323,35 @@
    (b) settings ``build.harness: echo``: ``build --plain`` over a
    ``FakeEngineDaemon`` on the installed harness, a drifting commit,
    ``run -d`` reporting the bundle update, then images (d)'s ``loop -p
-   8 -n 3 --sentinel`` on the built image, forked and in process (every
-   scored tick one K3 and one K1); (c) ``plugin install|list|remove`` of
+   8 -n 3 --sentinel`` run on the built image in process (every scored
+   tick one K3 and one K1; images (d) forks that same loop); (c) ``plugin install|list|remove`` of
    ``examples/clawker-plugin`` into a skills dir under ``build/``,
    ``gen-docs --out build/chip_smoke/docs/cli-reference`` (nothing under
    ``docs/`` changes), the update check with a stubbed fetcher.  No
    process this run starts checks for a release over the network
    (``CLAWKER_TPU_NO_NOTICES``).
-18. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+18. egress phase, its dirs under ``build/chip_smoke/egress/`` (the host
+   proxy off): (a) ``egress_traffic`` through the port's lane: 64
+   cgroups enrolled with ``FLAG_ENFORCE`` in a ``FakeMaps``, routes from
+   ``build_routes`` for two allowed zones, a ``DnsGate`` on loopback
+   (port 0) forwarding to a loopback upstream (``LoopbackUpstream``,
+   through the gate's ``_forward`` seam) that answers each container's
+   query and writes ``dns_cache``, ``connect4`` decisions over three
+   drains in three seconds (routed connects and a few ``NO_DNS_ENTRY``
+   denies, then a 55-connect deny storm from one container), a
+   ``NetLogger`` draining into the logs dir's ``ebpf-egress.jsonl``:
+   ``emitted`` equals the decisions that emit an event, none dropped,
+   and ``monitor egress --deny-only --tail 5`` forked prints the storm's
+   lines; (b) ``monitor anomalies --window 1 --threshold 3.5`` forked on
+   the card over that file exits 2 with the storm container first and
+   anomalous; (c) a live ``FleetSentinel`` tailing the file (one-second
+   windows) flags the storm container on the bus, ranks it first, and
+   each scored tick is one K3 and one K1; (d) ``monitor init`` and
+   ``monitor units`` forked (the five compose services, the seven log
+   indices, the floor's ``claude-code`` unit seeded), then ``up``,
+   ``status`` and ``down`` in process over a recording runner (the ``up
+   -d`` argv, the units ledger reset on ``down``).  Each step's host ms.
+19. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -2311,6 +2332,9 @@ LOOP_CLI_TICK_S = 0.001     # the CLI's seeded fake exits at once, so its
 #                             at once to score inside it
 LOOP_WINDOWS, LOOP_PER_WINDOW = 6, 12
 LOOP_HOT_SLOT = 5
+LIVE_RUN_MARGIN_S = 8.0     # what an in-process live run needs of its
+FORKED_RUN_MARGIN_S = 20.0  # minute (``_clear_of_minute_end``), and a
+#                             forked one with its interpreter's start
 _XDG = ("CONFIG", "DATA", "STATE", "CACHE")
 _ISOLATED: list[Path] = []      # every state dir the loop phases used
 
@@ -2357,6 +2381,17 @@ def _isolated_dirs(base: Path, settings: str = "", *, proxy: bool = True):
                 os.environ.pop(key, None)
             else:
                 os.environ[key] = old
+
+
+def _clear_of_minute_end(need_s: float) -> None:
+    """Sleep into the next wall-clock minute when fewer than ``need_s``
+    seconds are left in this one.  A live run's egress lies in the
+    current minute (``_loop_egress``); a run that crosses into the next
+    opens a window of bus events only for every agent, and that window's
+    z becomes each status row's ``anomaly_z``."""
+    left = 60 - time.time() % 60
+    if left < need_s:
+        time.sleep(left + 0.2)
 
 
 def _loop_egress(agents: list[str], hot: str, now: float,
@@ -5027,6 +5062,7 @@ def views_dashboard_case(base: Path, device, stages: dict):
             streams = IOStreams(stdout=pty_out.tty, env={"TERM": "xterm"})
             dash = box["dash"] = LoopDashboard(streams, sched,
                                                egress_feed=feed)
+            _clear_of_minute_end(LIVE_RUN_MARGIN_S)
             egress = _loop_egress(agents, hot, time.time())
             want = sum(len(v) for v in egress.values())
             t0 = time.perf_counter()
@@ -5846,6 +5882,7 @@ def engines_loop_case(base: Path, device, stages: dict, home: Path):
         sched.attach_sentinel(s)
         agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
         hot = agents[LOOP_HOT_SLOT]
+        _clear_of_minute_end(LIVE_RUN_MARGIN_S)
         egress = _local_egress(agents, hot)
         phases.enable()
         t0 = time.perf_counter()
@@ -7763,32 +7800,20 @@ def _write_when_created(daemon, cfg, out: dict, stop) -> None:
         time.sleep(0.01)
 
 
-def images_card_case(base: Path, proj: Path, daemon, device: str,
-                     stages: dict, home: Path, *, tags=IMAGES_TAGS,
-                     name: str = "images (d)") -> tuple:
-    """(d): the behaviour set on the BUILT ``:default`` (nothing was
-    pre-seeded; ``tags`` are the build's base, harness and default
-    tags), then ``loop -p 8 -n 3 --sentinel --json`` forked on it
-    with the agents' egress and a hot agent (the hot agent hottest, at
+def images_forked_loop(name: str, proj: Path, daemon, device: str) -> dict:
+    """``loop -p 8 -n 3 --sentinel --json`` forked on the built image
+    with the agents' egress and a hot agent: the hot agent hottest, at
     ``ANOMALY_Z`` or more, and a scored tick on the card with a flag in
-    its flight record), and the same run in this process over
-    ``LocalDriver`` under the launch counters: the hot agent flagged
-    first, every scored tick one K3 and one K1; -> (launches, walls)."""
+    its flight record; -> what the summary line prints."""
     from clawker_tpu_torch.analytics.runtime import ANOMALY_Z
     from clawker_tpu_torch.config import load_config
-    from clawker_tpu_torch.engine.fake import exit_behavior
-    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
     from clawker_tpu_torch.monitor.ledger import flight_path
-    from clawker_tpu_torch.sentinel import FleetSentinel
     from clawker_tpu_torch.telemetry import SPAN_SENTINEL_TICK, load_spans
 
-    check(set(tags) <= set(daemon.api.images),
-          f"{name}: the built images {sorted(daemon.api.images)}")
-    daemon.api.set_behavior(tags[2], exit_behavior(
-        b"iteration done\n", 0, delay=IMAGES_ITER_S))
     cfg = load_config(proj)
     seen: dict = {}
     stop = threading.Event()
+    _clear_of_minute_end(FORKED_RUN_MARGIN_S)
     writer = threading.Thread(target=_write_when_created,
                               args=(daemon, cfg, seen, stop),
                               name="images-egress-writer")
@@ -7820,6 +7845,31 @@ def images_card_case(base: Path, proj: Path, daemon, device: str,
           and any(sp.attrs.get("flags") for sp in ticks),
           f"{name}: forked sentinel ticks {[sp.attrs for sp in ticks]}")
     creates = _creates_by_name(daemon)
+    return {"ms": forked_ms, "creates": sum(creates.values()), "hot": hot,
+            "z": zs[hot], "ticks": len(ticks),
+            "device": ticks[0].attrs["device"]}
+
+
+def images_card_case(base: Path, proj: Path, daemon, device: str,
+                     stages: dict, home: Path, *, tags=IMAGES_TAGS,
+                     name: str = "images (d)", fork: bool = True) -> tuple:
+    """(d): the behaviour set on the BUILT ``:default`` (nothing was
+    pre-seeded; ``tags`` are the build's base, harness and default
+    tags), then, with ``fork``, ``images_forked_loop``, and the same run
+    in this process over ``LocalDriver`` under the launch counters: the
+    hot agent flagged first, every scored tick one K3 and one K1; ->
+    (launches, walls)."""
+    from clawker_tpu_torch.analytics.runtime import ANOMALY_Z
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.fake import exit_behavior
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.sentinel import FleetSentinel
+
+    check(set(tags) <= set(daemon.api.images),
+          f"{name}: the built images {sorted(daemon.api.images)}")
+    daemon.api.set_behavior(tags[2], exit_behavior(
+        b"iteration done\n", 0, delay=IMAGES_ITER_S))
+    forked = images_forked_loop(name, proj, daemon, device) if fork else None
     # in this process, its own dirs, the same daemon and built image
     with _pinned_home(home), _isolated_dirs(base / "inproc", IMAGES_SETTINGS) \
             as proj2:
@@ -7833,6 +7883,7 @@ def images_card_case(base: Path, proj: Path, daemon, device: str,
         sched.attach_sentinel(s)
         agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
         hot2 = agents[LOOP_HOT_SLOT]
+        _clear_of_minute_end(LIVE_RUN_MARGIN_S)
         egress = _local_egress(agents, hot2)
         t0 = time.perf_counter()
         s.start()
@@ -7854,19 +7905,23 @@ def images_card_case(base: Path, proj: Path, daemon, device: str,
           f"{name}: in process flags {flags}, z {zs2}, hot {hot2}")
     tick_ms = [ms["wall"] for n, _, ms, _ in log.ticks if n]
     print(card_line())
+    said = (f"loop -p {LOOP_AGENTS} -n {LOOP_ITERATIONS} --sentinel forked "
+            f"{forked['ms']!r} ms, {forked['creates']} creates, "
+            f"{forked['hot']} hottest at z {forked['z']} (threshold "
+            f"{ANOMALY_Z}), {forked['ticks']} ticks scored on "
+            f"{forked['device']}; " if forked else "no forked loop (images "
+            "(d) forks it); ")
     print(f"{name} on the image the build tagged ({tags[2]}, "
-          f"behaviour set after the build): loop -p {LOOP_AGENTS} -n "
-          f"{LOOP_ITERATIONS} --sentinel forked {forked_ms!r} ms, "
-          f"{sum(creates.values())} creates, {hot} hottest at z {zs[hot]} "
-          f"(threshold {ANOMALY_Z}), {len(ticks)} ticks scored on "
-          f"{ticks[0].attrs['device']}; in process over LocalDriver: run "
-          f"wall {wall!r} ms, {len(log.ticks)} ticks, {len(scored)} scored "
-          f"(tick ms median {statistics.median(tick_ms)!r}), first flag "
-          f"{flags[0]} (z {zs2[hot2]}), launches "
-          f"{json.dumps(dict(log.launches()))}")
+          f"behaviour set after the build): {said}in process over "
+          f"LocalDriver: run wall {wall!r} ms, {len(log.ticks)} ticks, "
+          f"{len(scored)} scored (tick ms median "
+          f"{statistics.median(tick_ms)!r}), first flag {flags[0]} (z "
+          f"{zs2[hot2]}), launches {json.dumps(dict(log.launches()))}")
     print(f"{name}: {log.stage_line()}")
-    return log.launches(), {"forked loop": forked_ms, "loop": wall,
-                            "tick": statistics.median(tick_ms)}
+    walls = {"loop": wall, "tick": statistics.median(tick_ms)}
+    if forked:
+        walls["forked loop"] = forked["ms"]
+    return log.launches(), walls
 
 
 def images_phase(device) -> collections.Counter:
@@ -8384,9 +8439,10 @@ def bundles_card_case(base: Path, proj: Path, repo: Path, device: str,
     over a ``FakeEngineDaemon`` tags the bundle's harness stage with its
     updated command; a second commit, the auto-update's day stamp
     cleared, then ``run -d`` reports the drifted bundle and starts; then
-    images (d)'s ``loop -p 8 -n 3 --sentinel`` on the built image,
-    forked and in process (every scored tick one K3 and one K1, the hot
-    agent flagged); -> launches."""
+    images (d)'s ``loop -p 8 -n 3 --sentinel`` run on the built image in
+    process (every scored tick one K3 and one K1, the hot agent
+    flagged); images (d) forks that same loop, so this case does not;
+    -> launches."""
     from clawker_tpu_torch.engine.fake import exit_behavior
     from clawker_tpu_torch.state import StateStore
 
@@ -8415,7 +8471,7 @@ def bundles_card_case(base: Path, proj: Path, repo: Path, device: str,
         with stage_timers({}) as stages:
             launches, walls = images_card_case(
                 base / "d", proj, daemon, device, stages, home,
-                tags=BUNDLE_TAGS, name=name)
+                tags=BUNDLE_TAGS, name=name, fork=False)
         check(not daemon.unrouted, f"{name}: requests the daemon has no "
               f"route for: {daemon.unrouted}")
     print(f"{name}: build --plain with the installed harness {build_ms!r} ms, "
@@ -8524,6 +8580,446 @@ def bundles_phase(device) -> collections.Counter:
     no_daemon_left()
     no_process_left("bundles")
     print(f"bundles launches: {json.dumps(launches)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return launches
+
+
+# ------------------------------------------------------------ egress phase
+
+
+EGRESS_SEED = 20260822
+EGRESS_CONTAINERS = 64
+EGRESS_ROUNDS = 3               # drains, each in its own second: the
+#                                 netlogger stamps a record with the
+#                                 second it drained it in
+EGRESS_STORM = 55               # the storm's connects (exfil_burst's n)
+EGRESS_STORM_SLOT = 37
+EGRESS_CGROUP0 = 7000           # cgroup ids 7000..7063
+EGRESS_ENVOY, EGRESS_GATE_IP = "10.99.0.2", "10.99.0.3"
+EGRESS_TLS_PORT = 10000
+EGRESS_RULES = (("*.alpha.example", "https", 0),     # Envoy redirect
+                ("*.beta.example", "tcp", 443))      # direct allow
+EGRESS_HOSTS = {"api.alpha.example": ["198.51.100.10", "198.51.100.11"],
+                "cdn.beta.example": ["198.51.100.20"]}
+EGRESS_QUERY_TIMEOUT_S = 2.0    # each DNS query's own timeout
+EGRESS_THRESHOLD = 3.5
+EGRESS_WINDOW_S = 1
+EGRESS_FLAG_DEADLINE_S = 10.0
+MONITOR_SERVICES = {"otel-collector", "opensearch", "opensearch-bootstrap",
+                    "opensearch-dashboards", "prometheus"}
+# the verdicts' reasons for which a decision emits an event
+# (``firewall/policy.py`` ``decide``: every verdict but the early allows)
+EMITTING_REASONS = {"BYPASS", "ROUTE", "NO_ROUTE", "NO_DNS_ENTRY", "MONITOR",
+                    "IPV6", "RAW_SOCKET"}
+
+
+def egress_modules():
+    """The port's egress lane, as ``egress_traffic`` takes it."""
+    from types import SimpleNamespace
+
+    from clawker_tpu_torch.config import schema
+    from clawker_tpu_torch.firewall import dnsgate, hashes, maps, model, policy
+    from clawker_tpu_torch.monitor import netlogger
+
+    return SimpleNamespace(dnsgate=dnsgate, hashes=hashes, maps=maps,
+                           model=model, policy=policy, netlogger=netlogger,
+                           schema=schema)
+
+
+def egress_container(i: int) -> str:
+    return f"clawker.{LOOP_PROJECT}.egress-{i:02d}"
+
+
+class LoopbackUpstream:
+    """A resolver on ``127.0.0.1``, port 0, answering A queries from
+    ``EGRESS_HOSTS`` (NXDOMAIN otherwise): the DNS gate's upstream, as
+    tests/test_dnsgate.py's fake; nothing leaves the host."""
+
+    TTL_S = 120
+
+    def __init__(self):
+        import socket
+        import socketserver
+        import struct
+
+        from clawker_tpu_torch.firewall import dnsgate
+
+        def answer(data: bytes) -> bytes:
+            q = dnsgate.parse_query(data)
+            ips = EGRESS_HOSTS.get(q.qname)
+            if ips is None:
+                return dnsgate.synthesize(q, dnsgate.RCODE_NXDOMAIN)
+            hdr = struct.pack(">HHHHHH", q.qid, 0x8180, 1, len(ips), 0, 0)
+            return hdr + q.raw_question + b"".join(
+                struct.pack(">HHHIH", 0xC00C, dnsgate.QTYPE_A, 1, self.TTL_S,
+                            4)
+                + socket.inet_aton(ip) for ip in ips)
+
+        class _H(socketserver.BaseRequestHandler):
+            def handle(self):
+                data, sock = self.request
+                try:
+                    sock.sendto(answer(data), self.client_address)
+                except dnsgate.DnsWireError:
+                    pass
+
+        self.srv = socketserver.ThreadingUDPServer(("127.0.0.1", 0), _H)
+        self.addr = f"127.0.0.1:{self.srv.server_address[1]}"
+        self.thread = threading.Thread(target=self.srv.serve_forever,
+                                       kwargs={"poll_interval": 0.05},
+                                       name="loopback-upstream", daemon=True)
+        self.thread.start()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(2)
+
+
+def loopback_forward(data: bytes, resolvers, *, tcp: bool):
+    """``DnsGate._forward`` over resolvers named ``host:port`` on
+    loopback (the gate's own forwards to port 53): UDP whichever lane
+    the query came in on, a timeout per query, the reply's transaction
+    id checked."""
+    import socket
+
+    for resolver in resolvers:
+        host, port = resolver.rsplit(":", 1)
+        try:
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+                s.settimeout(EGRESS_QUERY_TIMEOUT_S)
+                s.connect((host, int(port)))
+                s.send(data)
+                reply = s.recv(4096)
+                if reply[:2] == data[:2]:
+                    return reply
+        except OSError:
+            continue
+    return None
+
+
+def _gate_query(m, port: int, name: str, qid: int) -> bytes:
+    """One A query to the gate over UDP, with its own timeout."""
+    import socket
+    import struct
+
+    q = (struct.pack(">HHHHHH", qid, 0x0100, 1, 0, 0, 0)
+         + m.dnsgate._encode_name(name)
+         + struct.pack(">HH", m.dnsgate.QTYPE_A, 1))
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.settimeout(EGRESS_QUERY_TIMEOUT_S)
+        s.sendto(q, ("127.0.0.1", port))
+        return s.recvfrom(4096)[0]
+
+
+def egress_traffic(m, out_path: Path, upstream: str, *, next_drain,
+                   containers: int = EGRESS_CONTAINERS,
+                   storm_slot: int = EGRESS_STORM_SLOT) -> dict:
+    """Seeded egress through one package's lane ``m`` (``dnsgate``,
+    ``hashes``, ``maps``, ``model``, ``policy``, ``netlogger``,
+    ``schema``): ``containers`` cgroups enrolled with ``FLAG_ENFORCE`` in
+    a ``FakeMaps``, the routes ``build_routes`` makes of
+    ``EGRESS_RULES``, a ``DnsGate`` on loopback forwarding to
+    ``upstream``.  Each round every container connects to the gate (an
+    allow, no event), resolves one of ``EGRESS_HOSTS`` through it (the
+    gate writes ``dns_cache``), makes 6-10 connects to the answers
+    (routed) and 1-2 to addresses it never resolved (``NO_DNS_ENTRY``
+    denies), for ``EGRESS_ROUNDS`` rounds; in the last the storm
+    container adds ``EGRESS_STORM`` connects to unresolved addresses on
+    odd ports.
+    ``next_drain()`` runs before each round's drains (the caller's
+    clock: a new second), and a ``NetLogger`` with resolvers from this
+    run's cgroup and zone tables drains the ring into ``out_path`` until
+    it is empty; -> the run's counts."""
+    import random
+
+    M, P = m.model, m.policy
+    rng = random.Random(EGRESS_SEED)
+    rules = [m.schema.EgressRule(dst=d, proto=proto, port=port)
+             for d, proto, port in EGRESS_RULES]
+    maps = m.maps.FakeMaps()
+    maps.sync_routes(P.build_routes(rules, envoy_ip=EGRESS_ENVOY,
+                                    tls_port=EGRESS_TLS_PORT))
+    names = {EGRESS_CGROUP0 + i: egress_container(i)
+             for i in range(containers)}
+    for cg in names:
+        maps.enroll(cg, M.ContainerPolicy(envoy_ip=EGRESS_ENVOY,
+                                          dns_ip=EGRESS_GATE_IP,
+                                          flags=M.FLAG_ENFORCE))
+    zones = {m.hashes.zone_hash(d[2:]): d[2:] for d, _, _ in EGRESS_RULES}
+    nl = m.netlogger.NetLogger(
+        maps, out_path=out_path, resolve_cgroup=lambda cg: names.get(cg, ""),
+        resolve_zone=lambda zh: zones.get(zh, ""))
+    gate = m.dnsgate.DnsGate(m.dnsgate.ZonePolicy.from_rules(rules), maps,
+                             upstreams=(upstream,), host="127.0.0.1", port=0)
+    gate._forward = loopback_forward
+    hosts = sorted(EGRESS_HOSTS)
+    verdicts = []
+    drained = []
+    gate.start()
+    try:
+        for r in range(EGRESS_ROUNDS):
+            for i, cg in enumerate(names):
+                verdicts.append(P.connect4(maps, cg, EGRESS_GATE_IP, 53,
+                                           M.PROTO_UDP))
+                reply = _gate_query(m, gate.bound_port,
+                                    hosts[(i + r) % len(hosts)],
+                                    qid=1 + r * containers + i)
+                ips = [ip for ip, _ in m.dnsgate.parse_a_records(reply)]
+                check(ips, f"egress: the gate answered {reply!r}")
+                for k in range(rng.randint(6, 10)):
+                    verdicts.append(P.connect4(maps, cg, ips[k % len(ips)],
+                                               443))
+                for _ in range(rng.randint(1, 2)):
+                    verdicts.append(P.connect4(
+                        maps, cg, f"192.0.2.{rng.randint(1, 254)}", 443))
+            if r == EGRESS_ROUNDS - 1:
+                storm = EGRESS_CGROUP0 + storm_slot
+                for k in range(EGRESS_STORM):
+                    verdicts.append(P.connect4(maps, storm, f"203.0.113.{k}",
+                                               4444 + k))
+            next_drain()
+            n = 0
+            while (got := nl.drain_once()):
+                n += got
+            drained.append(n)
+    finally:
+        gate.stop()
+    return {
+        "decisions": len(verdicts),
+        "emitting": sum(1 for v in verdicts
+                        if v.reason.name in EMITTING_REASONS
+                        or v.action.name == "REDIRECT_DNS"),
+        "denies": sum(1 for v in verdicts if v.action.name == "DENY"),
+        "emitted": nl.emitted, "drained": drained,
+        "events_dropped": maps.events_dropped,
+        "dns_cache": len(maps.dns_entries()),
+        "gate": dict(vars(gate.stats)),
+        "storm": egress_container(storm_slot),
+    }
+
+
+def _next_second() -> None:
+    """Sleep into the next wall-clock second (20 ms past its start), so a
+    round's drains share one second and the next round's come at least
+    one second later."""
+    now = time.time()
+    time.sleep(int(now) + 1.02 - now)
+
+
+def egress_traffic_case(proj: Path, env: dict) -> tuple:
+    """(a): ``egress_traffic`` through the port's lane into the logs
+    dir's ``ebpf-egress.jsonl``; every event emitted, none dropped; the
+    forked ``monitor egress --deny-only --tail 5`` prints the storm's
+    last five denies; -> (the stream, the storm container)."""
+    from clawker_tpu_torch.config import load_config
+
+    name = "egress (a)"
+    path = load_config(proj).logs_dir / "ebpf-egress.jsonl"
+    t0 = time.perf_counter()
+    with LoopbackUpstream() as up:
+        run = egress_traffic(egress_modules(), path, up.addr,
+                             next_drain=_next_second)
+    traffic_ms = (time.perf_counter() - t0) * 1e3
+    storm = run["storm"]
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    seconds = sorted({r["@timestamp"] for r in recs})
+    check(run["emitted"] == run["emitting"] == len(recs)
+          == sum(run["drained"]) and run["events_dropped"] == 0,
+          f"{name}: {run}, {len(recs)} records")
+    check(len(seconds) == EGRESS_ROUNDS and all(run["drained"]),
+          f"{name}: drains {run['drained']} stamped {seconds}")
+    check(run["gate"]["queries"] == run["gate"]["allowed"]
+          == EGRESS_CONTAINERS * EGRESS_ROUNDS
+          and run["gate"]["refused"] == run["gate"]["upstream_errors"] == 0
+          and run["dns_cache"] == sum(map(len, EGRESS_HOSTS.values())),
+          f"{name}: gate {run['gate']}, dns_cache {run['dns_cache']}")
+    by_reason = collections.Counter((r["verdict"], r["reason"]) for r in recs)
+    check(set(by_reason) == {("REDIRECT", "ROUTE"), ("ALLOW", "ROUTE"),
+                             ("DENY", "NO_DNS_ENTRY")}
+          and all(r["container"] for r in recs)
+          and all(r["zone"] for r in recs if r["reason"] == "ROUTE"),
+          f"{name}: verdicts {dict(by_reason)}")
+    proc, tail_ms = _cli(["monitor", "egress", "--deny-only", "--tail", "5"],
+                         proj, env)
+    shown = proc.stdout.splitlines()
+    check(proc.returncode == 0 and len(shown) == 5
+          and all(f"\tDENY\t{storm}\t203.0.113." in line
+                  and line.endswith("\t-\tNO_DNS_ENTRY") for line in shown),
+          f"{name}: monitor egress exited {proc.returncode}: {shown} "
+          f"{proc.stderr[-1500:]}")
+    print(f"{name}: {run['decisions']} decisions ({run['denies']} denies) by "
+          f"{EGRESS_CONTAINERS} containers over {EGRESS_ROUNDS} drains "
+          f"{run['drained']} stamped {seconds}, {run['emitted']} events "
+          f"emitted and written, 0 dropped; gate {json.dumps(run['gate'])}; "
+          f"storm {storm}")
+    print(f"{name} host ms: traffic with the drains {traffic_ms!r}, forked "
+          f"monitor egress --deny-only --tail 5 {tail_ms!r}")
+    return path, storm
+
+
+def egress_cli_case(path: Path, storm: str, proj: Path, env: dict,
+                    device: str) -> None:
+    """(b): ``monitor anomalies --window 1 --threshold 3.5`` forked on
+    the card over the netlogger's file: exit 2, the storm container
+    first and anomalous."""
+    name = "egress (b)"
+    proc, ms = _cli(["monitor", "anomalies", "--input", str(path), "--window",
+                     str(EGRESS_WINDOW_S), "--format", "json", "--threshold",
+                     str(EGRESS_THRESHOLD)], proj,
+                    dict(env, CLAWKER_TORCH_DEVICE=device))
+    check(proc.returncode == 2, f"{name}: monitor anomalies exited "
+          f"{proc.returncode}, want 2: {proc.stderr[-2000:]}")
+    doc = json.loads(proc.stdout)
+    top = doc["agents"][0]
+    check(doc["device"].startswith(device)
+          and top["agent"] == storm and top["anomalous"]
+          and top["latest_z"] >= EGRESS_THRESHOLD,
+          f"{name}: device {doc['device']}, top rows {doc['agents'][:3]}")
+    flagged = [a["agent"] for a in doc["agents"] if a["anomalous"]]
+    print(f"{name}: monitor anomalies exit 2, {doc['windows']} windows on "
+          f"{doc['device']} (fit {doc['train_ms']} ms, score "
+          f"{doc['score_ms']} ms), {storm} first at z {top['latest_z']}, "
+          f"{len(flagged)} agent(s) anomalous")
+    print(f"{name} host ms: forked monitor anomalies {ms!r}")
+
+
+def egress_sentinel_case(base: Path, path: Path, storm: str, device: str,
+                         stages: dict) -> collections.Counter:
+    """(c): a live ``FleetSentinel`` whose collector tails the
+    netlogger's file, one-second windows, ticking on its thread: the
+    storm container's ``anomaly.flag`` reaches the bus, its row ranks
+    first and is flagged, and every scored tick is one K3 and one K1;
+    -> launches."""
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG, EventBus
+    from clawker_tpu_torch.sentinel import FleetSentinel, StreamCollector
+
+    name = "egress (c)"
+    col = StreamCollector()
+    col.add_local("egress", path)
+    s = FleetSentinel(_Cfg(base), collector=col, window_s=EGRESS_WINDOW_S,
+                      train_steps=SENTINEL_STEPS, interval_s=LOOP_TICK_S,
+                      threshold=EGRESS_THRESHOLD, device=device)
+    log = TickLog(s, stages)
+    flags: dict = {}
+    bus = EventBus(lambda agent, ev, detail:
+                   flags.setdefault(agent, time.perf_counter())
+                   if ev == ANOMALY_FLAG else None)
+    s.bind_run(events=bus)
+    t0 = time.perf_counter()
+    s.start()
+    _wait(lambda: storm in flags, EGRESS_FLAG_DEADLINE_S, 0.005)
+    _wait(lambda: len(log.ticks) >= 2, 5.0, 0.005)   # an idle tick too
+    s.stop()
+    bus.close()
+    check(storm in flags, f"{name}: no flag for {storm} within "
+          f"{EGRESS_FLAG_DEADLINE_S} s: {s.flags()}")
+    scored = log.check_run(name)
+    rows = sorted(s.rows(), key=lambda r: -r["latest_z"])
+    check(rows[0]["agent"] == storm and rows[0]["flagged"],
+          f"{name}: rows {rows[:3]}")
+    flagged = [r["agent"] for r in rows if r["flagged"]]
+    print(f"{name}: live sentinel over the netlogger's file "
+          f"({s.collector.total()} records, windows of {EGRESS_WINDOW_S} s): "
+          f"{len(log.ticks)} ticks, {len(scored)} scored "
+          f"({scored[0][0]} windows), {storm} first at z "
+          f"{rows[0]['latest_z']} and flagged on the bus "
+          f"{(flags[storm] - t0) * 1e3!r} ms after start; flagged "
+          f"{flagged}; launches {json.dumps(dict(log.launches()))}")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches()
+
+
+class _ComposeRecorder:
+    """The monitor stack's runner seam: records each ``docker compose``
+    argv and answers as compose would."""
+
+    def __init__(self, stdout: str = ""):
+        self.calls: list[tuple] = []
+        self.stdout = stdout
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return subprocess.CompletedProcess(args, 0, self.stdout, "")
+
+
+def egress_stack_case(proj: Path, env: dict) -> None:
+    """(d): forked ``monitor init`` (the five compose services, the seven
+    log indices) and ``monitor units`` (the floor's ``claude-code``
+    seeded); then ``up``, ``status`` and ``down`` in process over a
+    recording runner: the ``up -d`` argv and the units ledger reset."""
+    import yaml
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.monitor.ledger import LEDGER_FILE
+    from clawker_tpu_torch.monitor.stack import LOG_INDICES, MonitorStack
+
+    name = "egress (d)"
+    cfg = load_config(proj)
+    stack_dir = cfg.data_dir / "monitor"
+    proc, init_ms = _cli(["monitor", "init"], proj, env)
+    check(proc.returncode == 0 and proc.stdout == (
+        f"rendered monitor stack under {stack_dir}\nindices: "
+        + ", ".join(LOG_INDICES) + "\n") and len(LOG_INDICES) == 7,
+          f"{name}: monitor init exited {proc.returncode}: {proc.stdout!r} "
+          f"{proc.stderr[-1500:]}")
+    compose = yaml.safe_load((stack_dir / "compose.yaml").read_text())
+    check(set(compose["services"]) == MONITOR_SERVICES,
+          f"{name}: services {sorted(compose['services'])}")
+    proc, units_ms = _cli(["monitor", "units"], proj, env)
+    rows = [line.split("\t") for line in proc.stdout.splitlines()]
+    check(proc.returncode == 0
+          and ["claude-code", "seeded", "claude-code"] in
+          [r[:3] for r in rows], f"{name}: monitor units said {rows}")
+    runner = _ComposeRecorder(
+        '{"Service": "opensearch", "State": "running"}\n'
+        '[{"Service": "prometheus", "State": "running"}]\n')
+    stack = MonitorStack(cfg, runner=runner)
+    t0 = time.perf_counter()
+    stack.up()
+    status = stack.status()
+    had_ledger = (stack.dir / LEDGER_FILE).exists()
+    stack.down()
+    inproc_ms = (time.perf_counter() - t0) * 1e3
+    check(runner.calls == [("up", "-d", "--remove-orphans"),
+                           ("ps", "--format", "json"), ("down", "--volumes")]
+          and status == [{"Service": "opensearch", "State": "running"},
+                         {"Service": "prometheus", "State": "running"}]
+          and had_ledger and not (stack.dir / LEDGER_FILE).exists(),
+          f"{name}: runner calls {runner.calls}, status {status}, ledger "
+          f"before down {had_ledger}")
+    print(f"{name}: monitor init rendered {sorted(compose['services'])} and "
+          f"the indices {list(LOG_INDICES)}; monitor units {rows}; up, "
+          f"status and down over the recording runner: {runner.calls}, the "
+          f"units ledger reset")
+    print(f"{name} host ms: forked monitor init {init_ms!r}, forked monitor "
+          f"units {units_ms!r}, up+status+down in process {inproc_ms!r}")
+
+
+def egress_phase(device) -> collections.Counter:
+    """The egress lane and the monitor stack: policy decisions on names
+    the DNS gate resolved, the netlogger's file, that file scored on the
+    card through ``monitor anomalies`` and a live sentinel, and the
+    stack's verbs; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "egress"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    with _isolated_dirs(out / "a", proxy=False) as proj:
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        for k in ("CLAWKER_TPU_DRIVER", "CLAWKER_TPU_FAKE_IMAGES"):
+            env.pop(k, None)
+        path, storm = egress_traffic_case(proj, env)
+        egress_cli_case(path, storm, proj, env, device)
+        with stage_timers({}) as stages:
+            launches = egress_sentinel_case(out / "c", path, storm, device,
+                                            stages)
+        egress_stack_case(proj, env)
+    no_process_left("egress")
+    print(f"egress launches: {json.dumps(launches)}; phase wall "
           f"{(time.perf_counter() - t0) * 1e3!r} ms")
     return launches
 
@@ -8654,6 +9150,8 @@ def main() -> int:
     for k, v in federation_phase(device).items():
         main_path["launches"][k] += v
     for k, v in bundles_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in egress_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

@@ -1,9 +1,15 @@
-"""``monitor anomalies``: the port's copy of that verb of
-``clawker_tpu/cli/cmd_monitor.py`` (:115-185), with its options,
-table/JSON output and exit codes: 0 scored, 1 no scorable windows (or no
-accelerator), 2 when an agent's latest z crosses ``--threshold``.  The
-monitoring stack's verbs (``init``, ``up``, ``down``, ``status``,
-``units``, ``egress``) are not ported yet (ROADMAP §1 item 13).
+"""monitor verbs: init/up/down/status/units + egress log tail, and
+``anomalies``.
+
+The port's copy of ``clawker_tpu/cli/cmd_monitor.py``, whole.
+``anomalies`` scores on the GPU (``CLAWKER_TORCH_DEVICE`` picks the
+device) with the reference's options, table/JSON output and exit codes:
+0 scored, 1 no scorable windows (or no accelerator), 2 when an agent's
+latest z crosses ``--threshold``.  Its default input is the one
+``egress`` reads, ``<logs>/ebpf-egress.jsonl``.
+
+Parity reference: internal/cmd/monitor (init/up/down/status/reload,
+SURVEY.md 2.4); `up` drives docker compose over the rendered stack.
 """
 
 from __future__ import annotations
@@ -13,12 +19,105 @@ from pathlib import Path
 
 import click
 
-from .factory import _device
+from ..monitor.stack import LOG_INDICES, MonitorStack
+from .factory import Factory, _device
+
+pass_factory = click.make_pass_decorator(Factory)
 
 
 @click.group("monitor")
 def monitor_group():
-    """Fleet monitoring verbs."""
+    """Manage the observability stack (OTel, OpenSearch, Prometheus)."""
+
+
+@monitor_group.command("init")
+@pass_factory
+def monitor_init(f: Factory):
+    """Render the compose stack + configs without starting anything."""
+    path = MonitorStack(f.config).render()
+    click.echo(f"rendered monitor stack under {path}")
+    click.echo("indices: " + ", ".join(LOG_INDICES))
+
+
+@monitor_group.command("up")
+@pass_factory
+def monitor_up(f: Factory):
+    MonitorStack(f.config).up()
+    s = f.config.settings.monitoring
+    click.echo(f"monitor stack up: dashboards http://localhost:{s.dashboards_port} "
+               f"prometheus http://localhost:{s.prometheus_port}")
+
+
+@monitor_group.command("down")
+@pass_factory
+def monitor_down(f: Factory):
+    MonitorStack(f.config).down()
+    click.echo("monitor stack down")
+
+
+@monitor_group.command("status")
+@click.option("--format", "fmt", type=click.Choice(["table", "json"]), default="table")
+@pass_factory
+def monitor_status(f: Factory, fmt):
+    rows = MonitorStack(f.config).status()
+    if fmt == "json":
+        click.echo(json.dumps(rows, indent=2))
+        return
+    if not rows:
+        click.echo("monitor stack: not running")
+        raise SystemExit(1)
+    for r in rows:
+        click.echo(f"{r.get('Service', r.get('Name', '?'))}\t{r.get('State', '?')}")
+
+
+@monitor_group.command("units")
+@pass_factory
+def monitor_units(f: Factory):
+    """List monitoring units: discovered (floor + loose) and seeded.
+
+    Reference: `clawker monitor extensions` over the units ledger
+    (internal/monitor/ledger.go)."""
+    from ..monitor.ledger import Ledger
+    from ..monitor.unit import discover_units
+
+    stack = MonitorStack(f.config)
+    units = discover_units(stack.unit_roots())
+    ledger = Ledger(stack.dir)
+    for name, unit in sorted(units.items()):
+        seeded = ledger.units.get(name)
+        state = "seeded" if seeded and seeded.content_hash == unit.content_hash() \
+            else ("stale" if seeded else "unseeded")
+        lanes = ",".join(l.index for l in unit.manifest.logs)
+        click.echo(f"{name}\t{state}\t{lanes}\t{unit.manifest.description}")
+    if not units:
+        click.echo("no monitoring units discovered")
+
+
+@monitor_group.command("egress")
+@click.option("--tail", type=int, default=20, help="Last N egress decisions.")
+@click.option("--deny-only", is_flag=True, help="Only DENY verdicts.")
+@pass_factory
+def monitor_egress(f: Factory, tail, deny_only):
+    """Show recent kernel egress decisions (netlogger output)."""
+    path = f.config.logs_dir / "ebpf-egress.jsonl"
+    if not path.exists():
+        click.echo("no egress log yet (is the control plane running with "
+                   "the firewall enabled?)", err=True)
+        raise SystemExit(1)
+    records = []
+    for line in path.read_text().splitlines():
+        try:
+            rec = json.loads(line)
+        except json.JSONDecodeError:
+            continue
+        if deny_only and rec.get("verdict") != "DENY":
+            continue
+        records.append(rec)
+    for rec in records[-tail:]:  # the NEWEST N matching decisions
+        click.echo(f"{rec.get('@timestamp','')}\t{rec.get('verdict','')}\t"
+                   f"{rec.get('container') or rec.get('cgroup_id')}\t"
+                   f"{rec.get('dst_ip')}:{rec.get('dst_port')}\t"
+                   f"{rec.get('zone') or '-'}\t{rec.get('reason','')}")
 
 
 @monitor_group.command("anomalies")

@@ -1,15 +1,21 @@
-"""Crash-tolerant JSONL: the record framing, the readers, and the flight
-recorder.
+"""Monitoring ledgers: seeded stack units, crash-tolerant JSONL and the
+per-run flight recorder.
 
-The port's copy of the JSONL half of ``clawker_tpu/monitor/ledger.py``
-(``encode_record``, ``classify_line``, ``IntegrityReport``,
+The port's copy of ``clawker_tpu/monitor/ledger.py``, whole: the JSONL
+half (``encode_record``, ``classify_line``, ``IntegrityReport``,
 ``parse_jsonl``, ``read_jsonl``, ``read_verified_prefix``,
 ``verify_jsonl``, ``TailState``, ``tail_jsonl``, ``flight_path``,
 ``read_rotated_lines``, ``read_rotated``, ``tail_rotated``,
-``FlightRecorder``): the run journal and the flight recorder write
-through ``encode_record``, and each package reads what the other wrote;
-the fleet console's ``SpanTail`` follows capped recorders through
-``tail_rotated``.  The monitoring-units ledger is not ported yet.
+``FlightRecorder``), through which the run journal and the flight
+recorder write and each package reads what the other wrote, and the
+units half (``SeedCollision``, ``SeededUnit``, ``Ledger``), which
+``monitor init|up`` record the seeded monitoring units in.
+
+**Units ledger** -- which monitoring units this host's stack carries.
+A bare unit name is one cluster-wide namespace: the ledger refuses to
+re-seed a name with DIFFERENT content from a DIFFERENT source (a silent
+last-write-wins PUT would let one project's stack artifacts clobber
+another's).  Same source updating in place is always fine.
 
 **Flight recorder** -- the post-mortem half of the telemetry subsystem:
 an append-only JSONL ledger of one loop run's trace spans (and any
@@ -17,6 +23,9 @@ other typed record a subsystem wants preserved), written as events
 happen so a crashed run leaves a readable record up to the crash.
 Records may land out of order (lane threads, waiter threads, the run
 loop all append).
+
+Parity reference: internal/monitor/ledger.go:63 (SeededUnit,
+SeedCollisionError, LoadLedger) -- semantics re-derived.
 """
 
 from __future__ import annotations
@@ -25,10 +34,18 @@ import json
 import os
 import re
 import threading
+import time
 import zlib
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from pathlib import Path
 
+import yaml
+
+from ..errors import ClawkerError
+from ..util.fs import atomic_write
+from .unit import MonitoringUnit
+
+LEDGER_FILE = "units-ledger.yaml"
 FLIGHT_DIR = "flight"           # under Config.logs_dir
 
 # --------------------------------------------------------------------------
@@ -430,3 +447,58 @@ class FlightRecorder:
         """Every parseable record in the file, skipping a truncated tail
         (the writer may have died mid-line)."""
         return read_jsonl(path)
+
+
+class SeedCollision(ClawkerError):
+    def __init__(self, name: str, prev_source: str, new_source: str):
+        super().__init__(
+            f"monitoring unit {name!r} from {new_source} has different "
+            f"content than the same-named unit already seeded from "
+            f"{prev_source} -- a bare unit name is one cluster-wide "
+            "namespace.  Rename or remove one side, or reset the stack "
+            "with `clawker monitor down` (this deletes indexed telemetry)")
+
+
+@dataclass
+class SeededUnit:
+    name: str = ""
+    source: str = ""          # provenance: "floor" | path of a loose dir
+    content_hash: str = ""
+    indices: list[str] = field(default_factory=list)
+    seeded_at: float = 0.0
+
+
+class Ledger:
+    def __init__(self, monitor_dir: Path):
+        self.path = Path(monitor_dir) / LEDGER_FILE
+        self.units: dict[str, SeededUnit] = {}
+        if self.path.exists():
+            raw = yaml.safe_load(self.path.read_text()) or {}
+            for name, rec in (raw.get("units") or {}).items():
+                self.units[name] = SeededUnit(
+                    name=name, source=str(rec.get("source") or ""),
+                    content_hash=str(rec.get("content_hash") or ""),
+                    indices=[str(i) for i in rec.get("indices") or []],
+                    seeded_at=float(rec.get("seeded_at") or 0.0))
+
+    def seed(self, unit: MonitoringUnit, *, source: str) -> SeededUnit:
+        """Record a unit as seeded; refuse cross-source content clashes."""
+        content = unit.content_hash()
+        prev = self.units.get(unit.name)
+        if prev and prev.content_hash != content and prev.source != source:
+            raise SeedCollision(unit.name, prev.source, source)
+        rec = SeededUnit(
+            name=unit.name, source=source, content_hash=content,
+            indices=[l.index for l in unit.manifest.logs],
+            seeded_at=time.time())
+        self.units[unit.name] = rec
+        return rec
+
+    def save(self) -> None:
+        body = yaml.safe_dump({"units": {
+            name: {"source": u.source, "content_hash": u.content_hash,
+                   "indices": u.indices, "seeded_at": u.seeded_at}
+            for name, u in sorted(self.units.items())
+        }}, sort_keys=True)
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        atomic_write(self.path, body.encode())

@@ -690,11 +690,9 @@ def _page(path: tuple) -> str:
 
 
 # the reference's commands the port has no counterpart of yet (ROADMAP
-# §1): the verbs refused by name, the monitor stack's verbs and ``loop
-# trace`` (the port's is the top-level ``trace``)
+# §1): the verbs refused by name and ``loop trace`` (the port's is the
+# top-level ``trace``)
 ABSENT = ({("analyze",), ("loop", "trace")}
-          | {("monitor", v) for v in ("down", "egress", "init", "status",
-                                      "units", "up")}
           | {p for p in _command_paths(ref_root.cli)
              if p[:1] in (("controlplane",), ("firewall",))})
 

@@ -142,6 +142,22 @@ LEFTOVER_MODULES = ["clawker_tpu_torch.federation",
                     "clawker_tpu_torch.plugin"]
 
 
+# the egress lane and the monitor stack: the firewall's model, maps,
+# policy and DNS gate, the netlogger, the bootstrap corpus, monitoring
+# units with the units ledger, and the compose stack
+EGRESS_MODULES = ["clawker_tpu_torch.firewall.hashes",
+                  "clawker_tpu_torch.firewall.model",
+                  "clawker_tpu_torch.firewall.maps",
+                  "clawker_tpu_torch.firewall.policy",
+                  "clawker_tpu_torch.firewall.dnsgate",
+                  "clawker_tpu_torch.monitor",
+                  "clawker_tpu_torch.monitor.netlogger",
+                  "clawker_tpu_torch.monitor.corpus",
+                  "clawker_tpu_torch.monitor.unit",
+                  "clawker_tpu_torch.monitor.ledger",
+                  "clawker_tpu_torch.monitor.stack"]
+
+
 def _modules() -> list[str]:
     out = []
     for path in sorted(PKG.rglob("*.py")):
@@ -189,6 +205,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(IMAGE_MODULES) <= set(mods)
     # and federation and the CLI's leftovers
     assert set(LEFTOVER_MODULES) <= set(mods)
+    # and the egress lane and the monitor stack
+    assert set(EGRESS_MODULES) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -285,7 +303,8 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     "clawker_tpu_torch.controlplane.identity",
                                     *VIEW_MODULES, *ENGINE_MODULES,
                                     *FLEET_MODULES, *VERB_MODULES[1:],
-                                    *IMAGE_MODULES, *LEFTOVER_MODULES])
+                                    *IMAGE_MODULES, *LEFTOVER_MODULES,
+                                    *EGRESS_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -311,11 +330,12 @@ def test_daemon_entry_points_load_no_torch(module):
     assert doc == {"torch": False}
 
 
-@pytest.mark.parametrize("module", VERB_MODULES + LEFTOVER_MODULES)
+@pytest.mark.parametrize("module", VERB_MODULES + LEFTOVER_MODULES
+                         + EGRESS_MODULES)
 def test_everyday_verbs_load_no_torch(module):
     """The CLI, the project registry, dotenv, the prompter and the agent
-    registry are plain Python: only a verb that scores loads torch, and
-    only when it runs."""
+    registry are plain Python, and so are the egress lane and the monitor
+    stack: only a verb that scores loads torch, and only when it runs."""
     doc = _run_isolated(
         "import importlib, json\n"
         f"importlib.import_module({module!r})\n"

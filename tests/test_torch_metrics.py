@@ -14,8 +14,9 @@ are the same bytes with the wall clock fixed through each ``otel``
 module's ``time`` (or with ``timeUnixNano`` removed where a real lane
 stamps it).
 
-Waiting: tests/test_otel_lanes.py's two netlogger cases need the port's
-``monitor/netlogger.py`` (ROADMAP §1 item 13).
+The netlogger's two lane cases (tests/test_otel_lanes.py:164, :188)
+ship one drained event each over a plain lane and over a prebuilt mTLS
+lane: the same bodies, their stamps removed.
 """
 
 from __future__ import annotations
@@ -331,6 +332,64 @@ def test_mint_infra_cert_is_stable(tmp_path):
     assert got == want
     assert got[0][:3] == ["infra/ebpf-egress.crt", "infra/ebpf-egress.key",
                           "ca.crt"]
+
+
+def _drain_one_event(m, tmp: Path, **lane_kw) -> int:
+    """One ``NO_DNS_ENTRY`` deny drained by the package's netlogger."""
+    maps = m.maps.FakeMaps()
+    nl = m.netlogger.NetLogger(maps, out_path=tmp / "egress.jsonl",
+                               **lane_kw)
+    maps.emit_event(m.model.EgressEvent(
+        ts_ns=1, cgroup_id=1, dst_ip="1.2.3.4", dst_port=443, zone_hash=0,
+        verdict=m.model.Action.DENY, proto=6,
+        reason=m.model.Reason.NO_DNS_ENTRY))
+    return nl.drain_once()
+
+
+def _with_netlogger(m):
+    from importlib import import_module
+
+    root = m.otel.__name__.split(".")[0]
+    return SimpleNamespace(
+        maps=import_module(f"{root}.firewall.maps"),
+        model=import_module(f"{root}.firewall.model"),
+        netlogger=import_module(f"{root}.monitor.netlogger"))
+
+
+def test_netlogger_rides_the_lane(tmp_path):
+    def run(m):
+        base = tmp_path / m.otel.__name__.split(".")[0]
+        base.mkdir()
+        with Collector(base, mtls=False) as col:
+            n = _drain_one_event(_with_netlogger(m), base,
+                                 otlp_endpoint=col.endpoint + "/")
+            return n, [unstamped(b) for b in col.bodies], col.paths
+
+    want, got = both(run)
+    assert got == want
+    n, bodies, paths = got
+    assert n == 1 and paths == ["/v1/logs"]
+    assert "ebpf-egress" in json.dumps(bodies[0])
+    rec = bodies[0]["resourceLogs"][0]["scopeLogs"][0]["logRecords"][0]
+    assert rec["severityText"] == "WARN"
+
+
+def test_netlogger_accepts_prebuilt_mtls_lane(tmp_path):
+    """The lane handed in carries the mTLS material, and the netlogger
+    takes its endpoint from it."""
+    def run(m):
+        base = tmp_path / m.otel.__name__.split(".")[0]
+        with Collector(base, mtls=True, pki=m.pki) as col:
+            cert, key, ca = m.otel.mint_infra_cert(base / "pki",
+                                                   "ebpf-egress")
+            lane = m.otel.OtlpLane(col.endpoint, "ebpf-egress",
+                                   client_cert=cert, client_key=key, ca=ca)
+            n = _drain_one_event(_with_netlogger(m), base, lane=lane)
+            return n, [unstamped(b) for b in col.bodies]
+
+    want, got = both(run)
+    assert got == want
+    assert got[0] == 1 and "ebpf-egress" in json.dumps(got[1][0])
 
 
 def test_mint_infra_cert_reads_the_references_ca(tmp_path):
