@@ -351,7 +351,30 @@
    indices, the floor's ``claude-code`` unit seeded), then ``up``,
    ``status`` and ``down`` in process over a recording runner (the ``up
    -d`` argv, the units ledger reset on ``down``).  Each step's host ms.
-19. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+19. firewall phase, its dirs under ``build/chip_smoke/firewall/`` (the
+   host proxy off), settings ``firewall: {enable: true, default_deny:
+   false, dns_upstreams: [the loopback upstream]}``: (a) ``firewall
+   add-rule '*.pypi.org'``, ``rules``, ``resolve files.pypi.org`` and
+   ``status`` forked over the fake driver seeded with Envoy's image (the
+   rule persists into the next process, resolves to zone ``pypi.org``);
+   (b) ``loop -p 8 -n 3 --sentinel`` in process on the card, each
+   iteration's container held: the run's own creates bring up the data
+   plane (Envoy's container, the DNS gate on loopback, the routes) and
+   enroll every agent with ``FLAG_ENFORCE``, by its container id; each
+   agent resolves through the handler's gate and connects over its maps
+   for three drains a second apart, one adding the 55-connect deny
+   storm; a ``NetLogger`` with ``handler_resolvers`` drains into the
+   run's stream, none dropped; the storm agent's container id is flagged
+   and ranks first, each scored tick one K3 and one K1; (c) on that
+   handler: ``bypass`` of two agents (connects pass inside the deadline
+   and are denied past it; one dead-man timer clears its entry, the
+   other is lost and ``gc_tick`` clears it), ``add-rule`` while the run
+   lives (more routes, Envoy recreated under a new sha), ``disable``
+   unenrolls, ``remove`` after the run stops the gate and removes Envoy;
+   (d) forked ``firewall status`` in strict mode exits 1 with
+   ``FirewallUnavailable``'s text, and with ``control_plane.enable``
+   names the control plane.  Each step's host ms.
+20. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -5506,6 +5529,10 @@ def views_export_case(base: Path, device, stages: dict):
                 api.add_image(LOOP_IMAGE)
                 api.set_behavior(LOOP_IMAGE, exit_behavior(
                     b"iteration done\n", 0, delay=LOOP_ITER_S))
+            # the burst lies in this minute's window: a run that crosses
+            # into the next scores the agent's bus events alone there, a
+            # row by its name that status reads before the container's
+            _clear_of_minute_end(LIVE_RUN_MARGIN_S)
             thread.start()
             t0 = time.perf_counter()
             res = _cli_runner().invoke(
@@ -9024,6 +9051,418 @@ def egress_phase(device) -> collections.Counter:
     return launches
 
 
+# ---------------------------------------------------------- firewall phase
+
+
+FW_ENVOY_IMAGE = "envoyproxy/envoy:v1.30.2"
+FW_ROUNDS = 3                   # drains, each in its own second
+FW_HOLD_S = 60.0                # the longest an iteration holds its container
+FW_BYPASS_S = 1.0
+FW_VERB_TIMEOUT_S = 120
+FW_ADDED = "*.gamma.example"    # the rule (c) adds while the run lives
+FW_VERBS = (("add-rule", "*.pypi.org"), ("rules",),
+            ("resolve", "files.pypi.org"), ("status",))
+
+
+def _fw_settings(upstream: str, extra: str = "") -> str:
+    """Settings of the monitor-mode firewall: no kernel half, so
+    ``default_deny`` off, and the gate's upstream the loopback fake."""
+    return ("firewall:\n  enable: true\n  default_deny: false\n"
+            f"  dns_upstreams: ['{upstream}']\n" + extra)
+
+
+def _fw_project(proj: Path) -> None:
+    """The project's egress rules are ``EGRESS_RULES``."""
+    lines = [f"project: {LOOP_PROJECT}", "security:", "  egress:"]
+    for dst, proto, port in EGRESS_RULES:
+        lines += [f"    - dst: '{dst}'", f"      proto: {proto}"]
+        lines += [f"      port: {port}"] if port else []
+    (proj / ".clawker.yaml").write_text("\n".join(lines) + "\n")
+
+
+def _fw_env() -> dict:
+    """A forked verb's environment: the fake driver seeded with Envoy's
+    image, so ``ensure_envoy`` pulls nothing."""
+    return dict(os.environ, PYTHONPATH=str(ROOT), CLAWKER_TPU_DRIVER="fake",
+                CLAWKER_TPU_FAKE_IMAGES=FW_ENVOY_IMAGE)
+
+
+def firewall_verbs_case(proj: Path, env: dict) -> None:
+    """(a): ``firewall add-rule '*.pypi.org'``, ``rules``, ``resolve
+    files.pypi.org`` and ``status``, each forked: the rule persists into
+    the next process, resolves to zone ``pypi.org``, and each process's
+    monitor-mode handler exits with its verb."""
+    name = "firewall (a)"
+    docs, ms = {}, {}
+    for argv in FW_VERBS:
+        proc, ms[" ".join(argv)] = _cli(["firewall", *argv], proj, env,
+                                        timeout=FW_VERB_TIMEOUT_S)
+        check(proc.returncode == 0, f"{name}: firewall {' '.join(argv)} "
+              f"exited {proc.returncode}: {proc.stderr[-2000:]}")
+        check("userspace monitor mode only, NO enforcement" in proc.stderr,
+              f"{name}: no monitor-mode warning: {proc.stderr[-1500:]}")
+        docs[argv[0]] = json.loads(proc.stdout)
+    key = "*.pypi.org:https:443"
+    rules = {r["key"]: r["source"] for r in docs["rules"]["rules"]}
+    res, st = docs["resolve"], docs["status"]
+    check(docs["add-rule"]["added"] == [key] and rules.get(key) == "dynamic",
+          f"{name}: add-rule {docs['add-rule']}, rules {rules}")
+    check(res["allowed"] and res["zone"] == "pypi.org" and res["wildcard"],
+          f"{name}: resolve {res}")
+    # a fresh process's handler: nothing initialized, nothing enrolled
+    check(not st["initialized"] and st["enrolled"] == []
+          and not st["stack"]["running"], f"{name}: status {st}")
+    print(f"{name}: add-rule added {docs['add-rule']['added']} "
+          f"({docs['add-rule']['routes']} routes), rules lists "
+          f"{len(rules)} ({key} {rules[key]}), resolve files.pypi.org -> "
+          f"zone {res['zone']} allowed, {len(res['routes'])} route(s); "
+          f"status initialized {st['initialized']}")
+    print(f"{name} host ms: " + ", ".join(f"forked firewall {k} {v!r}"
+                                          for k, v in ms.items()))
+
+
+def _held(hold: threading.Event):
+    """A fake behaviour: each iteration holds its container for
+    ``LOOP_ITER_S`` and then until ``hold`` is set (at most
+    ``FW_HOLD_S``), and exits 0.  A container that exits at once is gone
+    before the post-start hook can enroll it, and the start fails."""
+    def run(io) -> int:
+        deadline = time.monotonic() + FW_HOLD_S
+        if io.kill_event.wait(LOOP_ITER_S):
+            return 137
+        while not hold.wait(0.02):
+            if io.kill_event.is_set():
+                return 137
+            if time.monotonic() > deadline:
+                break
+        return 0
+    return run
+
+
+def _fw_round(m, handler, cids: list[str], r: int, rng, storm: str,
+              verdicts: list) -> None:
+    """One round of every enrolled agent's egress over the handler's
+    own maps: a connect to the gate, a query through it, 6-10 connects
+    to the answers and 1-2 to addresses never resolved; in the last
+    round ``storm`` adds ``EGRESS_STORM`` connects to unresolved
+    addresses on odd ports."""
+    M, P = m.model, m.policy
+    maps, gate = handler.maps, handler.stack.gate
+    hosts = sorted(EGRESS_HOSTS)
+    for i, cid in enumerate(cids):
+        cg = handler.enrollments[cid].cgroup_id
+        verdicts.append(P.connect4(maps, cg, gate.host, 53, M.PROTO_UDP))
+        reply = _gate_query(m, gate.bound_port, hosts[(i + r) % len(hosts)],
+                            qid=1 + r * len(cids) + i)
+        ips = [ip for ip, _ in m.dnsgate.parse_a_records(reply)]
+        check(ips, f"firewall (b): the gate answered {reply!r}")
+        for k in range(rng.randint(6, 10)):
+            verdicts.append(P.connect4(maps, cg, ips[k % len(ips)], 443))
+        for _ in range(rng.randint(1, 2)):
+            verdicts.append(P.connect4(maps, cg,
+                                       f"192.0.2.{rng.randint(1, 254)}", 443))
+    if r == FW_ROUNDS - 1:
+        cg = handler.enrollments[storm].cgroup_id
+        for k in range(EGRESS_STORM):
+            verdicts.append(P.connect4(maps, cg, f"203.0.113.{k}", 4444 + k))
+
+
+def _fw_drain(nl) -> int:
+    n = 0
+    while (got := nl.drain_once()):
+        n += got
+    return n
+
+
+def _fw_bypass_case(m, handler, cids: list[str], drain) -> dict:
+    """(c), the bypass: two agents bypassed for ``FW_BYPASS_S``; the
+    first keeps its dead-man timer, the second loses it (as a handler
+    that died would); connects to an unresolved address pass while the
+    deadline stands; past it the first's timer has cleared its entry,
+    ``gc_tick`` clears the second's (``bypass_cleared`` 1), and both are
+    denied."""
+    name = "firewall (c)"
+    M, P = m.model, m.policy
+    (timed, lost), maps = cids[:2], handler.maps
+    cgs = [handler.enrollments[c].cgroup_id for c in (timed, lost)]
+
+    def verdicts():
+        return [P.connect4(maps, cg, "192.0.2.250", 443) for cg in cgs]
+
+    t0 = time.perf_counter()
+    until = [handler.bypass({"container_id": c, "duration_s": FW_BYPASS_S})
+             ["until_unix"] for c in (timed, lost)]
+    bypass_ms = (time.perf_counter() - t0) * 1e3
+    handler._cancel_bypass(lost)
+    during = verdicts()
+    check(all(v.allowed and v.reason.name == "BYPASS" for v in during),
+          f"{name}: connects while bypassed: {during}")
+    _wait(lambda: time.time() > max(until) + 0.05
+          and cgs[0] not in maps.bypass_entries(), max(until) - time.time()
+          + 5, 0.01)
+    entries = maps.bypass_entries()
+    check(cgs[0] not in entries and cgs[1] in entries,
+          f"{name}: bypass entries past the deadline {entries}")
+    t0 = time.perf_counter()
+    gc = handler.gc_tick()
+    gc_ms = (time.perf_counter() - t0) * 1e3
+    after = verdicts()
+    check(gc["bypass_cleared"] == 1 and not maps.bypass_entries()
+          and all(v.action.name == "DENY" for v in after),
+          f"{name}: gc_tick {gc}, connects after the deadline {after}")
+    drain()
+    print(f"{name} bypass: two agents until {until} (unix s); during it "
+          f"{[v.reason.name for v in during]}; past it the timer cleared "
+          f"one entry, gc_tick {gc} the other, then "
+          f"{[(v.action.name, v.reason.name) for v in after]}")
+    return {"bypass (2 verbs)": bypass_ms, "gc_tick": gc_ms}
+
+
+def firewall_run_case(proj: Path, device, stages: dict) -> collections.Counter:
+    """(b) and (c): ``loop -p 8 -n 3 --sentinel`` in this process over
+    the fake driver with the firewall on, each iteration's container held
+    until the checks are done.  The run's own creates bring up the data
+    plane (``FirewallInit``) and enroll each agent (``FirewallEnable``);
+    each agent then resolves through the handler's gate and connects
+    over its maps for ``FW_ROUNDS`` drains a second apart, one agent
+    adding the deny storm, and a ``NetLogger`` with
+    ``handler_resolvers`` drains into the stream the run's sentinel
+    reads.  The storm agent's container id, the key its enrollment and
+    so its egress carry, is flagged and ranks first; each scored tick is
+    one K3 and one K1.  Then the verbs on that handler: ``bypass``,
+    ``add-rule`` while the run lives, ``disable`` and ``remove``; ->
+    launches."""
+    import random
+
+    from clawker_tpu_torch import consts
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.firewall import lifecycle
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG
+    from clawker_tpu_torch.monitor.netlogger import (NetLogger,
+                                                     handler_resolvers)
+    from clawker_tpu_torch.sentinel import FleetSentinel
+
+    name = "firewall (b)"
+    m = egress_modules()
+    cfg = load_config(proj)
+    drv = FakeDriver()
+    drv.api.add_image(LOOP_IMAGE)
+    drv.api.add_image(FW_ENVOY_IMAGE)
+    hold = threading.Event()
+    drv.api.set_behavior(LOOP_IMAGE, _held(hold))
+    sched = LoopScheduler(cfg, drv, LoopSpec(parallel=LOOP_AGENTS,
+                                             iterations=LOOP_ITERATIONS))
+    s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                      interval_s=LOOP_TICK_S, window_s=EGRESS_WINDOW_S,
+                      threshold=EGRESS_THRESHOLD, train_steps=SENTINEL_STEPS)
+    log = TickLog(s, stages)
+    sched.attach_sentinel(s)
+    flags: dict = {}
+    sched.events.add_tap(lambda r: flags.setdefault(r.agent, time.perf_counter())
+                         if r.event == ANOMALY_FLAG else None)
+    agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+    key = str(cfg.data_dir)
+    runner = threading.Thread(target=sched.run, kwargs={"poll_s": 0.05},
+                              name="firewall-loop")
+    ms = {}
+    handler = None
+    t0 = time.perf_counter()
+    s.start()
+    sched.start()
+    runner.start()
+    try:
+        check(_wait(lambda: key in lifecycle._local_handlers and len(
+            lifecycle._local_handlers[key].enrollments) == LOOP_AGENTS, 60),
+              f"{name}: the run's creates enrolled "
+              f"{len(getattr(lifecycle._local_handlers.get(key), 'enrollments', ()))}"
+              f" of {LOOP_AGENTS} agents: {sched.status()}")
+        ms["creates through FirewallInit + FirewallEnable"] = \
+            (time.perf_counter() - t0) * 1e3
+        handler = lifecycle._local_handlers[key]
+        rows = {r["agent"]: r for r in sched.status()}
+        cid_of = {c.name.lstrip("/"): c.id for c in drv.api.containers.values()}
+        cids = [cid_of[f"clawker.{LOOP_PROJECT}.{a}"] for a in agents]
+        storm = cids[LOOP_HOT_SLOT]
+        envoy = drv.engine().inspect_container(consts.ENVOY_CONTAINER)
+        policies = [handler.maps.lookup_container(
+            handler.enrollments[c].cgroup_id) for c in cids]
+        check(handler.initialized and sorted(handler.enrollments) == sorted(cids)
+              and all(p is not None and p.flags & m.model.FLAG_ENFORCE
+                      for p in policies)
+              and envoy["State"]["Running"] and handler.stack.gate.bound_port,
+              f"{name}: initialized {handler.initialized}, enrolled "
+              f"{sorted(handler.enrollments)} of {cids}, policies {policies}, "
+              f"envoy {envoy['State']}, rows {rows}")
+        print(f"{name}: the run's creates initialized the data plane (envoy "
+              f"{envoy['Id'][:12]} sha "
+              f"{envoy['Config']['Labels'][consts.LABEL_CONTENT_SHA]}, "
+              f"gate 127.0.0.1:{handler.stack.gate.bound_port}, "
+              f"{len(handler.maps.routes())} routes) and enrolled "
+              f"{len(cids)} agents with FLAG_ENFORCE, each by its container id")
+        handler.stack.gate._forward = loopback_forward
+        rc, rz = handler_resolvers(handler)
+        nl = NetLogger(handler.maps, out_path=cfg.logs_dir / "ebpf-egress.jsonl",
+                       resolve_cgroup=rc, resolve_zone=rz)
+        rng = random.Random(EGRESS_SEED)
+        verdicts: list = []
+        drained = []
+        t1 = time.perf_counter()
+        for r in range(FW_ROUNDS):
+            _fw_round(m, handler, cids, r, rng, storm, verdicts)
+            _next_second()
+            drained.append(_fw_drain(nl))
+        ms["traffic with the drains"] = (time.perf_counter() - t1) * 1e3
+        emitting = sum(1 for v in verdicts
+                       if v.reason.name in EMITTING_REASONS
+                       or v.action.name == "REDIRECT_DNS")
+        recs = [json.loads(line) for line in
+                (cfg.logs_dir / "ebpf-egress.jsonl").read_text().splitlines()]
+        check(nl.emitted == emitting == len(recs) == sum(drained)
+              and all(drained) and handler.maps.events_dropped == 0
+              and {r["container"] for r in recs} <= set(cids),
+              f"{name}: {len(verdicts)} decisions, {emitting} emitting, "
+              f"emitted {nl.emitted}, drained {drained}, dropped "
+              f"{handler.maps.events_dropped}, containers "
+              f"{sorted({r['container'] for r in recs})}")
+        check(_wait(lambda: storm in flags, EGRESS_FLAG_DEADLINE_S, 0.005)
+              and _wait(lambda: s._scored_at[0] >= len(recs), 10, 0.005),
+              f"{name}: no flag for {storm} within {EGRESS_FLAG_DEADLINE_S} s: "
+              f"{s.flags()}")
+        ms["flag on the bus after the last drain"] = \
+            (flags[storm] - t1) * 1e3 - ms["traffic with the drains"]
+        by_z = sorted(s.rows(), key=lambda row: -row["latest_z"])
+        check(by_z[0]["agent"] == storm and by_z[0]["flagged"],
+              f"{name}: rows {by_z[:3]}")
+        print(f"{name}: {len(verdicts)} decisions over the handler's maps "
+              f"({sum(1 for v in verdicts if v.action.name == 'DENY')} "
+              f"denies), {nl.emitted} events drained {drained} into the "
+              f"run's stream, 0 dropped; gate {json.dumps(vars(handler.stack.gate.stats))}; "
+              f"storm {agents[LOOP_HOT_SLOT]} (container id {storm[:12]}) "
+              f"flagged and first at z {by_z[0]['latest_z']}, next "
+              f"{by_z[1]['agent'][:24]} at {by_z[1]['latest_z']}")
+        # (c) the verbs on live state
+        ms.update(_fw_bypass_case(m, handler, cids, lambda: _fw_drain(nl)))
+        routes0, sha0 = len(handler.maps.routes()), handler.stack.config_sha()
+        t2 = time.perf_counter()
+        added = handler.add_rules({"rules": [{"dst": FW_ADDED,
+                                              "proto": "https"}]})
+        ms["add-rule"] = (time.perf_counter() - t2) * 1e3
+        envoy2 = drv.engine().inspect_container(consts.ENVOY_CONTAINER)
+        sha1 = handler.stack.config_sha()
+        check(added["added"] == [f"{FW_ADDED}:https:443"]
+              and len(handler.maps.routes()) > routes0
+              and envoy2["Id"] != envoy["Id"] and sha1 != sha0
+              and sha1 in envoy2["Config"]["Labels"].values(),
+              f"firewall (c): add-rule {added}, routes {routes0} -> "
+              f"{len(handler.maps.routes())}, envoy {envoy['Id'][:12]} -> "
+              f"{envoy2['Id'][:12]}, sha {sha0} -> {sha1}")
+        print(f"firewall (c) add-rule {FW_ADDED} while the run lives: routes "
+              f"{routes0} -> {len(handler.maps.routes())}, envoy recreated "
+              f"{envoy['Id'][:12]} -> {envoy2['Id'][:12]} under sha {sha0} "
+              f"-> {sha1}")
+    finally:
+        hold.set()
+        runner.join(60)
+    wall = (time.perf_counter() - t0) * 1e3
+    try:
+        s.stop()
+        rows = sched.status()
+        _check_loop_rows(name, rows)
+        scored = log.check_run(name)
+        off = cids[2]
+        off_cg = handler.enrollments[off].cgroup_id
+        t3 = time.perf_counter()
+        res = handler.disable({"container_id": off})
+        ms["disable"] = (time.perf_counter() - t3) * 1e3
+        check(res == {"disabled": True} and off not in handler.enrollments
+              and handler.maps.lookup_container(off_cg) is None,
+              f"firewall (c): disable {res}, cgroup {off_cg} "
+              f"{handler.maps.lookup_container(off_cg)}")
+        t4 = time.perf_counter()
+        gone = handler.remove({})
+        ms["remove"] = (time.perf_counter() - t4) * 1e3
+        check(gone == {"removed": True}
+              and not drv.engine().container_exists(consts.ENVOY_CONTAINER)
+              and handler.stack.gate is None and not handler.enrollments
+              and handler.maps.enrolled() == {},
+              f"firewall (c): remove {gone}, envoy left "
+              f"{drv.engine().container_exists(consts.ENVOY_CONTAINER)}, gate "
+              f"{handler.stack.gate}")
+        check(_fw_drain(nl) == 0 and handler.maps.events_dropped == 0,
+              f"firewall (c): events left or dropped")
+        print(f"firewall (c): disable unenrolled {off[:12]}; remove after "
+              f"the run: envoy gone, gate stopped, maps flushed")
+        sched.cleanup(remove_containers=True)
+    finally:
+        if handler is not None:
+            handler.close()
+            if handler.stack.gate is not None:
+                handler.stack.gate.stop()
+        lifecycle._local_handlers.pop(key, None)
+    print(f"{name} run: {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations, "
+          f"run wall {wall!r} ms, {len(log.ticks)} ticks, {len(scored)} "
+          f"scored (the last over {scored[-1][3].windows} windows), launches "
+          f"{json.dumps(dict(log.launches()))}")
+    print(f"{name}: {log.stage_line()}")
+    print("firewall (b)+(c) host ms: " + ", ".join(f"{k} {v!r}"
+                                                 for k, v in ms.items()))
+    return log.launches()
+
+
+def firewall_refusals_case(base: Path, upstream: str) -> None:
+    """(d): forked ``firewall status`` in strict mode (``default_deny``,
+    the default, with no kernel half) exits 1 with
+    ``FirewallUnavailable``'s text, and with ``control_plane.enable``
+    names the control plane."""
+    name = "firewall (d)"
+    cases = (("strict", "firewall:\n  enable: true\n",
+              "firewall enabled but no pinned programs under "
+              "/sys/fs/bpf/clawker-tpu"),
+             ("control_plane", _fw_settings(upstream, "control_plane:\n"
+                                            "  enable: true\n"),
+              "the control plane is not yet ported to clawker_tpu_torch: "
+              "set control_plane: {enable: false}"))
+    ms = {}
+    for tag, settings, said in cases:
+        with _isolated_dirs(base / tag, settings, proxy=False) as proj:
+            proc, ms[tag] = _cli(["firewall", "status"], proj, _fw_env(),
+                                 timeout=FW_VERB_TIMEOUT_S)
+        check(proc.returncode == 1 and said in proc.stderr
+              and not proc.stdout,
+              f"{name} {tag}: exited {proc.returncode}: {proc.stdout!r} "
+              f"{proc.stderr[-1500:]!r}")
+    print(f"{name}: strict mode without the kernel half and the control "
+          f"plane's lane each refused by name, exit 1")
+    print(f"{name} host ms: " + ", ".join(f"forked firewall status ({k}) "
+                                          f"{v!r}" for k, v in ms.items()))
+
+
+def firewall_phase(device) -> collections.Counter:
+    """The firewall's user-space enforcement in monitor mode: the verbs
+    forked, ``loop --sentinel`` whose creates bring up and enroll, the
+    agents' egress through the handler's gate and maps scored on the
+    card, the verbs on that live handler, and the refusals; ->
+    launches."""
+    out = ROOT / "build" / "chip_smoke" / "firewall"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    with LoopbackUpstream() as up:
+        with _isolated_dirs(out / "a", _fw_settings(up.addr),
+                            proxy=False) as proj:
+            _fw_project(proj)
+            firewall_verbs_case(proj, _fw_env())
+            with stage_timers({}) as stages:
+                launches = firewall_run_case(proj, device, stages)
+        firewall_refusals_case(out / "d", up.addr)
+    no_process_left("firewall")
+    print(f"firewall launches: {json.dumps(launches)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return launches
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -9152,6 +9591,8 @@ def main() -> int:
     for k, v in bundles_phase(device).items():
         main_path["launches"][k] += v
     for k, v in egress_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in firewall_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

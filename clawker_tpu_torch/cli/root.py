@@ -9,9 +9,12 @@ start-up notices (``_start_notices``/``_finish_notices``: the update
 check and the changelog teaser over ``state.py`` and ``changelog.py``)
 run on a thread beside the command, only on a TTY, unless
 ``CLAWKER_TPU_NO_NOTICES`` is set.  Left out: the verbs that wait for
-their modules (``WAITING``), which are refused by name.  One departure:
-the root closes the driver that the factory built when the command
-ends, so no forward of a ``tpu_vm`` driver outlives the verb.
+their modules (``WAITING``: ``analyze`` and ``controlplane``), which are
+refused by name.  One departure: the root closes the driver that the
+factory built when the command ends, so no forward of a ``tpu_vm``
+driver outlives the verb.  The firewall's monitor-mode handler is not
+the driver's: it lives as long as the process, as the reference's does
+(``firewall/lifecycle.py``).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from .factory import Factory, _not_ported
 CONTEXT_SETTINGS = {"help_option_names": ["-h", "--help"], "max_content_width": 100}
 
 # the reference's verbs whose modules are not ported yet (ROADMAP §1)
-WAITING = ("analyze", "controlplane", "firewall")
+WAITING = ("analyze", "controlplane")
 
 
 class _RootGroup(click.Group):
@@ -156,6 +159,7 @@ def register_commands() -> None:
         cmd_chaos,
         cmd_container,
         cmd_fed,
+        cmd_firewall,
         cmd_fleet,
         cmd_harness,
         cmd_image,
@@ -178,6 +182,7 @@ def register_commands() -> None:
     cmd_chaos.register(cli)
     cmd_container.register(cli)
     cmd_fed.register(cli)
+    cmd_firewall.register(cli)
     cmd_fleet.register(cli)
     cmd_harness.register(cli)
     cmd_image.register(cli)

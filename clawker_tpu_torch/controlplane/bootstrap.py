@@ -11,8 +11,11 @@ Port of ``clawker_tpu/controlplane/bootstrap.py``.
 ``host_proxy.enable`` is set, as the reference does, and
 :func:`post_start_services` runs the socket bridge, with the reference's
 degraded path (the ``event=socketbridge_unavailable`` warning) for the
-reference's reasons.  The control plane and the firewall (both off by
-default) are not ported yet: settings that enable either raise a
+reference's reasons.  With settings ``firewall.enable`` they run the
+firewall's hooks where the reference does (``firewall_pre_start`` brings
+up the data plane, ``firewall_post_start`` enrolls the started
+container), over the port's monitor-mode handler.  The control plane
+(off by default) is not ported yet: settings that enable it raise a
 :class:`ConfigError` naming it.
 """
 
@@ -28,7 +31,6 @@ log = logsetup.get("cp.bootstrap")
 # settings section -> what the reference brings up for it
 _NOT_PORTED = (
     ("control_plane", "the control plane"),
-    ("firewall", "the firewall"),
 )
 
 
@@ -42,6 +44,10 @@ def _refuse_unported(cfg: Config) -> None:
 
 def pre_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -> None:
     _refuse_unported(cfg)
+    if cfg.settings.firewall.enable:
+        from ..firewall.lifecycle import firewall_pre_start
+
+        firewall_pre_start(cfg, driver, container_ref)
     if cfg.settings.host_proxy.enable:
         from ..hostproxy.manager import ensure_running as hostproxy_ensure
 
@@ -50,6 +56,10 @@ def pre_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -
 
 def post_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -> None:
     _refuse_unported(cfg)
+    if cfg.settings.firewall.enable:
+        from ..firewall.lifecycle import firewall_post_start
+
+        firewall_post_start(cfg, driver, container_ref)
     _ensure_socket_bridge(cfg, driver, container_ref)
 
 

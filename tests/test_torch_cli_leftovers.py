@@ -694,7 +694,7 @@ def _page(path: tuple) -> str:
 # top-level ``trace``)
 ABSENT = ({("analyze",), ("loop", "trace")}
           | {p for p in _command_paths(ref_root.cli)
-             if p[:1] in (("controlplane",), ("firewall",))})
+             if p[:1] == ("controlplane",)})
 
 
 def test_gen_docs_page_names(tmp_path):

@@ -8,9 +8,9 @@ case, the bytes served over UDP and TCP are compared.  The gates
 forward to a loopback fake upstream (``FakeUpstream``) through the same
 ``_forward`` seam the reference's cases patch; no query leaves the
 host.  The cache's clock (``dnsgate.time.time``) is pinned in both
-packages so the entries' expiry agrees.  Waiting:
-``test_stack_internal_lookup_resolves_via_inspect`` needs the port's
-``firewall/stack.py`` (ROADMAP §1 item 13 (d)).
+packages so the entries' expiry agrees.  The stack's
+``internal_lookup``, which answers ``<name>.docker.internal`` from the
+engine's inventory, is held over each package's ``FakeDriver``.
 """
 
 from __future__ import annotations
@@ -353,6 +353,40 @@ def test_internal_zone_answered_from_engine_inventory():
         "172.28.0.4"]
     assert sorted(dns) == ["172.28.0.4", "172.28.0.9"]
     assert stats["internal"] == 4 and stats["cached_ips"] == 2
+
+
+def test_stack_internal_lookup_resolves_via_inspect(tmp_path):
+    """``FirewallStack.internal_lookup``: <name>.docker.internal -> the
+    container's clawker-net address via the engine API."""
+    from importlib import import_module
+
+    def run(m):
+        root = m.dnsgate.__name__.split(".")[0]
+        consts = import_module(f"{root}.consts")
+        api = import_module(f"{root}.engine.api")
+        drivers = import_module(f"{root}.engine.drivers")
+        stack_mod = import_module(f"{root}.firewall.stack")
+        driver = drivers.FakeDriver()
+        driver.api.add_image("img:1")
+        eng = driver.engine()
+        eng.ensure_network(consts.NETWORK_NAME)
+        ip = eng.network_static_ip(consts.NETWORK_NAME, 9)
+        cid = eng.create_container("clawker.proj.db", api.ContainerSpec(
+            image="img:1", network=consts.NETWORK_NAME, static_ip=ip))
+        eng.start_container(cid)
+        base = tmp_path / root
+        stack = stack_mod.FirewallStack(eng, m.maps.FakeMaps(),
+                                        conf_dir=base / "conf",
+                                        pki_dir=base / "pki")
+        return [ip, stack.internal_lookup("clawker.proj.db.docker.internal"),
+                stack.internal_lookup("CLAWKER.proj.db.docker.internal."),
+                stack.internal_lookup("clawker.proj.db"),
+                stack.internal_lookup("nope.docker.internal"),
+                stack.internal_lookup(".docker.internal")]
+
+    got = both(run)
+    assert got[1] == got[2] == got[3] == got[0]
+    assert got[4] is None and got[5] is None
 
 
 def test_upstream_down_servfail():

@@ -158,6 +158,21 @@ EGRESS_MODULES = ["clawker_tpu_torch.firewall.hashes",
                   "clawker_tpu_torch.monitor.stack"]
 
 
+# the firewall's user-space enforcement: the action queue, Envoy's
+# bootstrap, the stack, enrollment, the handler, its runtime and run-path
+# hooks, and the firewall verbs; the ones that reach ``pki`` load
+# ``cryptography``
+FIREWALL_MODULES = ["clawker_tpu_torch.firewall.queue",
+                    "clawker_tpu_torch.firewall.envoy",
+                    "clawker_tpu_torch.firewall.enroll",
+                    "clawker_tpu_torch.firewall.lifecycle",
+                    "clawker_tpu_torch.cli.cmd_firewall",
+                    "clawker_tpu_torch.firewall.stack",
+                    "clawker_tpu_torch.firewall.handler",
+                    "clawker_tpu_torch.firewall.runtime"]
+FIREWALL_PKI = FIREWALL_MODULES[5:]
+
+
 def _modules() -> list[str]:
     out = []
     for path in sorted(PKG.rglob("*.py")):
@@ -207,6 +222,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(LEFTOVER_MODULES) <= set(mods)
     # and the egress lane and the monitor stack
     assert set(EGRESS_MODULES) <= set(mods)
+    # and the firewall's user-space enforcement
+    assert set(FIREWALL_MODULES) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -304,7 +321,7 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     *VIEW_MODULES, *ENGINE_MODULES,
                                     *FLEET_MODULES, *VERB_MODULES[1:],
                                     *IMAGE_MODULES, *LEFTOVER_MODULES,
-                                    *EGRESS_MODULES])
+                                    *EGRESS_MODULES, *FIREWALL_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -342,6 +359,19 @@ def test_everyday_verbs_load_no_torch(module):
         "print(json.dumps({'torch': 'torch' in sys.modules,\n"
         "                  'cryptography': 'cryptography' in sys.modules}))\n")
     assert doc == {"torch": False, "cryptography": False}
+
+
+@pytest.mark.parametrize("module", FIREWALL_MODULES)
+def test_firewall_modules_load_no_torch(module):
+    """The firewall's user-space half is plain Python; only the modules
+    that reach ``pki`` (the stack mints MITM certificates) load
+    ``cryptography``."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'cryptography': 'cryptography' in sys.modules}))\n")
+    assert doc == {"torch": False, "cryptography": module in FIREWALL_PKI}
 
 
 @pytest.mark.parametrize("module", IMAGE_MODULES)

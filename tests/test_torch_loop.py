@@ -859,13 +859,20 @@ def test_seeded_fake_driver_matches_reference(monkeypatch):
 
 
 @pytest.mark.parametrize("section", ["control_plane", "firewall"])
-def test_pre_start_services_name_each_unported_service(section):
+def test_pre_start_services_name_each_unported_service(section, monkeypatch):
+    """``control_plane.enable`` names the control plane.  ``firewall.enable``
+    runs the firewall's pre-start hook, whose lane over pinned programs
+    (present here) is the control plane's, named too."""
+    import clawker_tpu_torch.firewall.runtime as port_fw_runtime
+
+    monkeypatch.setattr(port_fw_runtime, "kernel_available", lambda *a: True)
     settings = port_config.Settings()
     for other in ("control_plane", "firewall", "host_proxy"):
         getattr(settings, other).enable = other == section
     cfg = SimpleNamespace(settings=settings)
     with pytest.raises(port_errors.ConfigError,
-                       match=f"{section}: {{enable: false}}"):
+                       match="the control plane is not yet ported to "
+                             "clawker_tpu_torch"):
         port_bootstrap.pre_start_services(cfg, None, "cid")
 
 

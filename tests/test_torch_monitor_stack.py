@@ -17,9 +17,9 @@ netlogger writes the same file, and each package's
 drawing the same params and noise) flags the same agents in the same
 order, the z within the fitted scores' tolerance.
 
-Waiting: ``test_monitor.py::test_handler_resolvers`` needs the port's
-``firewall/runtime.build_handler`` (ROADMAP §1 item 13 (d));
-``handler_resolvers`` is held here against a stub handler.
+``handler_resolvers`` is held over a real ``build_handler`` handler
+(``test_monitor.py::test_handler_resolvers``) and, beside it, over a
+stub handler that counts the rule reads its cache saves.
 """
 
 from __future__ import annotations
@@ -676,6 +676,49 @@ def test_netlogger_survives_a_failing_drain(tmp_path):
 
     want, got = both(run)
     assert got == want == (1, 512)
+
+
+def test_handler_resolvers(tmp_path):
+    """``test_monitor.py::test_handler_resolvers`` over each package's
+    ``build_handler``: an enrolled container's cgroup names it, the
+    base rules' zones name their apexes.  The gate listens on a port no
+    TCP socket held (``test_torch_firewall_handler.py``'s rigs)."""
+    from importlib import import_module
+
+    from test_torch_firewall_handler import tcp_free_port
+
+    def run(m, tag):
+        root = m.netlogger.__name__.split(".")[0]
+        api = import_module(f"{root}.engine.api")
+        enroll = import_module(f"{root}.firewall.enroll")
+        runtime = import_module(f"{root}.firewall.runtime")
+        with side(tag, tmp_path) as s:
+            driver = m.drivers.FakeDriver()
+            driver.api.add_image("envoyproxy/envoy:v1.30.2")
+            handler = runtime.build_handler(
+                s.cfg, driver.engine(), maps=m.maps.FakeMaps(),
+                resolver=enroll.FakeCgroupResolver(),
+                attacher=enroll.FakeAttacher(), dns_host="127.0.0.1",
+                dns_port=tcp_free_port())
+            try:
+                driver.api.add_image("a:1")
+                eng = driver.engine()
+                cid = eng.create_container("clawker.mon.dev",
+                                           api.ContainerSpec(image="a:1"))
+                eng.start_container(cid)
+                cgid = handler.enable({"container_id": cid})["cgroup_id"]
+                rc, rz = m.netlogger.handler_resolvers(handler)
+                zh = m.hashes.zone_hash
+                return [rc(cgid) == cid, cgid == int.from_bytes(
+                            cid.encode()[:6], "big"), rc(999999),
+                        rz(zh("api.anthropic.com")), rz(0), rz(12345)]
+            finally:
+                handler.close()
+                if handler.stack.gate is not None:
+                    handler.stack.gate.stop()
+
+    want, got = both(run)
+    assert got == want == [True, True, "", "api.anthropic.com", "", ""]
 
 
 class _StubHandler:
