@@ -374,7 +374,27 @@
    (d) forked ``firewall status`` in strict mode exits 1 with
    ``FirewallUnavailable``'s text, and with ``control_plane.enable``
    names the control plane.  Each step's host ms.
-20. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+20. fwkernel phase, its files under ``build/chip_smoke/fwkernel/``:
+   (a) the nine eBPF programs assembled over ``FwMapFds(*range(3,
+   11))``, each one's instruction count and sha256 printed and held
+   against ``BPF_PROGRAM_SHA256``, and the port's ``RingBufReader`` over
+   a memfd laid out as the kernel lays out a ring (``ring_sample``:
+   records that wrap, one discarded, one busy); (b) one line of the
+   probe's facts (euid, ``CapEff``, ``cgroup2_root()``,
+   ``bpfkern.kernel_available()``, ``runtime.inprocess_kernel_available()``);
+   (c) where the probe passes: the nine programs through the verifier in
+   a ``KernelAttacher``, eight scratch cgroups attached and enrolled with
+   ``FLAG_ENFORCE`` in its ``LiveMaps``, probe children forked into them
+   making routed connects (landing on a loopback Envoy double, reading
+   back the address they aimed at), denied literals (EPERM) and one
+   agent's 50-connect deny storm over three drains a second apart, a
+   ``NetLogger`` naming each cgroup draining the kernel's ring into the
+   stream of a live sentinel, which flags the storm agent first, each
+   scored tick one K3 and one K1; (d) where it fails: the reason
+   printed, and the same storm's records decoded from a memfd ring by
+   ``LiveMaps``' drain into the same netlogger and sentinel, labelled
+   decoded, not enforced.
+21. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -392,6 +412,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import importlib
 import json
 import os
@@ -399,6 +420,7 @@ import re
 import shutil
 import signal
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -9065,7 +9087,8 @@ FW_VERBS = (("add-rule", "*.pypi.org"), ("rules",),
 
 
 def _fw_settings(upstream: str, extra: str = "") -> str:
-    """Settings of the monitor-mode firewall: no kernel half, so
+    """Settings of the monitor-mode firewall: the fake driver's
+    containers have no cgroups for the kernel half to enforce, so
     ``default_deny`` off, and the gate's upstream the loopback fake."""
     return ("firewall:\n  enable: true\n  default_deny: false\n"
             f"  dns_upstreams: ['{upstream}']\n" + extra)
@@ -9413,7 +9436,8 @@ def firewall_run_case(proj: Path, device, stages: dict) -> collections.Counter:
 
 def firewall_refusals_case(base: Path, upstream: str) -> None:
     """(d): forked ``firewall status`` in strict mode (``default_deny``,
-    the default, with no kernel half) exits 1 with
+    the default, over the fake driver, whose containers have no cgroups
+    for the kernel lane) exits 1 with
     ``FirewallUnavailable``'s text, and with ``control_plane.enable``
     names the control plane."""
     name = "firewall (d)"
@@ -9433,7 +9457,7 @@ def firewall_refusals_case(base: Path, upstream: str) -> None:
               and not proc.stdout,
               f"{name} {tag}: exited {proc.returncode}: {proc.stdout!r} "
               f"{proc.stderr[-1500:]!r}")
-    print(f"{name}: strict mode without the kernel half and the control "
+    print(f"{name}: strict mode without a kernel lane and the control "
           f"plane's lane each refused by name, exit 1")
     print(f"{name} host ms: " + ", ".join(f"forked firewall status ({k}) "
                                           f"{v!r}" for k, v in ms.items()))
@@ -9459,6 +9483,464 @@ def firewall_phase(device) -> collections.Counter:
         firewall_refusals_case(out / "d", up.addr)
     no_process_left("firewall")
     print(f"firewall launches: {json.dumps(launches)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return launches
+
+
+# --------------------------------------------------- firewall kernel phase
+
+# each of the nine programs assembled over ``FwMapFds(*range(3, 11))``:
+# (instructions, sha256 of the bytecode); tests/test_torch_bpf.py holds
+# this table against the reference's assembler
+BPF_PROGRAM_SHA256 = {
+    "fw_connect4": (256, "8ab227bf6d35c19501525c4724bcebca"
+                         "51d2914f9a540de5932028663d299886"),
+    "fw_sendmsg4": (252, "8480b8e9b29bc23ddde033fbe87690b2"
+                         "4aee8c6c73a64c0631009ba713f17217"),
+    "fw_recvmsg4": (36, "33f512e55dfc1535b4d6ca53fbdd3bf7"
+                        "544bb488fa21daaca8b0be31cb63a5b3"),
+    "fw_getpeername4": (42, "18332df3dc4387fcc78ffefd96e32224"
+                            "7e0e1c1fa2709f9a4e729ed3302d41cb"),
+    "fw_connect6": (299, "8540d6b01b3c6dca4f16b22e611d75a0"
+                         "d2c15b796c28ccc69c19bd010b5c8b0b"),
+    "fw_sendmsg6": (295, "0ff024a5e3d731f8832e5e8f00266479"
+                         "e08f22e36833d98f8b8f7c2f2cc312b9"),
+    "fw_recvmsg6": (43, "06bbdd258655108517797744ddb7be49"
+                        "7c82ec6dcf489cfb1c6cc1a1fa505789"),
+    "fw_getpeername6": (49, "244defbe95902f508ee87989c0b59d60"
+                            "7092c86da34a443e53f84c7ba1113ef8"),
+    "fw_sock_create": (111, "03573c91d241e7a781d01ad689c350cd"
+                            "f62c27b9c36e9e69bf1f28e64992be61"),
+}
+BPF_AGENTS = 8
+BPF_ROUNDS = 3                  # drains, each in its own second
+BPF_STORM = 50                  # the storm's denied connects, one child
+BPF_STORM_SLOT = 5
+BPF_ZONE = "alpha.example"
+BPF_ROUTED = ("198.51.100.10", "198.51.100.11")   # the zone's cached answers
+BPF_CGROUP0 = 8000              # the decoded lane's cgroup ids
+BPF_RING_BYTES = 1 << 14
+BPF_CONNECT_TIMEOUT_S = 1.0
+BPF_RL_GAP_S = 0.15             # past the programs' 100 ms rate-limit window
+CAP_SYS_ADMIN, CAP_BPF = 21, 39
+
+
+class MemfdRing:
+    """A BPF ring buffer's memory as the kernel lays it out, in a memfd:
+    the consumer page, the producer page, then the data pages twice (the
+    kernel maps them twice, so a record that wraps reads on past the
+    end; here each write lands in both copies).  ``push`` leaves a record
+    as ``bpf_ringbuf_reserve`` and ``submit`` do: an 8-byte header (the
+    length with bit 31 busy and bit 30 discarded, the page offset), then
+    the payload, the producer position advanced by the 8-byte-aligned
+    total."""
+
+    BUSY, DISCARD = 1 << 31, 1 << 30
+
+    def __init__(self, size: int = BPF_RING_BYTES, start: int = 0):
+        import mmap
+
+        self.page = mmap.PAGESIZE
+        self.size = size
+        self.fd = os.memfd_create("clawker-ringbuf")
+        os.ftruncate(self.fd, 2 * self.page + 2 * size)
+        self.producer = start
+        os.pwrite(self.fd, struct.pack("<Q", start), 0)
+        os.pwrite(self.fd, struct.pack("<Q", start), self.page)
+
+    def push(self, payload: bytes, flags: int = 0) -> int:
+        """-> the record's position."""
+        at = self.producer
+        check(at + 8 + len(payload) - self.consumer() <= self.size,
+              f"MemfdRing: no room for {len(payload)} bytes")
+        off = at & (self.size - 1)
+        rec = struct.pack("<II", len(payload) | flags,
+                          (2 * self.page + off) // self.page) + payload
+        head = min(len(rec), self.size - off)
+        for copy in (0, self.size):
+            data = 2 * self.page + copy
+            os.pwrite(self.fd, rec[:head], data + off)
+            if head < len(rec):
+                os.pwrite(self.fd, rec[head:], data)
+        self.producer += (len(rec) + 7) & ~7
+        os.pwrite(self.fd, struct.pack("<Q", self.producer), self.page)
+        return at
+
+    def consumer(self) -> int:
+        return struct.unpack("<Q", os.pread(self.fd, 8, 0))[0]
+
+    def close(self) -> None:
+        os.close(self.fd)
+
+
+def ring_sample(model) -> tuple:
+    """A ring whose records start 88 bytes before the end of its third
+    lap, so that the second record's payload runs past the end of the
+    data pages: eight ``model.EgressEvent`` records, the fourth
+    discarded, then one still busy; -> (ring, the events a reader
+    returns, the busy record's position)."""
+    ring = MemfdRing(BPF_RING_BYTES, start=3 * BPF_RING_BYTES - 88)
+    kept = []
+    for i in range(8):
+        ev = model.EgressEvent(
+            ts_ns=10**12 + i, cgroup_id=BPF_CGROUP0 + i % 3,
+            dst_ip=f"203.0.113.{i}", dst_port=4444 + i, zone_hash=i * 0x1111,
+            verdict=model.Action(i % 2), proto=model.PROTO_TCP,
+            reason=model.Reason.NO_DNS_ENTRY)
+        discard = i == 3
+        ring.push(ev.pack(), MemfdRing.DISCARD if discard else 0)
+        if not discard:
+            kept.append(ev)
+    busy = ring.push(bytes(model.EgressEvent.SIZE), MemfdRing.BUSY)
+    return ring, kept, busy
+
+
+def bpf_assembly_case() -> None:
+    """(a), no privilege: the nine programs assembled against
+    ``FwMapFds(*range(3, 11))`` match ``BPF_PROGRAM_SHA256``, and the
+    port's ``RingBufReader`` over ``ring_sample``'s memfd returns the
+    submitted records, skips the discarded one, stops at the busy one
+    and leaves the consumer position there."""
+    from clawker_tpu_torch.firewall import bpfkern, fwprogs
+    from clawker_tpu_torch.firewall import model as M
+
+    name = "fwkernel (a)"
+    fds = fwprogs.FwMapFds(*range(3, 11))
+    got = {}
+    t0 = time.perf_counter()
+    for prog, _, _, build in fwprogs.PROGRAM_SPECS:
+        asm = build(fds)
+        code = asm.assemble()
+        check(len(code) == 8 * asm.insn_count, f"{name}: {prog} is "
+              f"{len(code)} bytes for {asm.insn_count} instructions")
+        got[prog] = (asm.insn_count, hashlib.sha256(code).hexdigest())
+    asm_ms = (time.perf_counter() - t0) * 1e3
+    for prog, (n, digest) in got.items():
+        print(f"{name}: {prog} {n} insns sha256 {digest}")
+    check(got == BPF_PROGRAM_SHA256, f"{name}: the programs differ from "
+          f"BPF_PROGRAM_SHA256: "
+          f"{sorted(k for k in got if got[k] != BPF_PROGRAM_SHA256.get(k))}")
+    ring, kept, busy = ring_sample(M)
+    try:
+        reader = bpfkern.RingBufReader(ring.fd, ring.size)
+        try:
+            raw = reader.drain()
+        finally:
+            reader.close()
+        decoded = [M.EgressEvent.unpack(r) for r in raw]
+        check(decoded == kept and ring.consumer() == busy,
+              f"{name}: the ring decoded {decoded}, consumer at "
+              f"{ring.consumer()}; want {len(kept)} records and {busy}")
+    finally:
+        ring.close()
+    print(f"{name}: the nine programs match BPF_PROGRAM_SHA256 (assembled in "
+          f"{asm_ms!r} ms); the memfd ring decoded {len(decoded)} of 9 "
+          f"records (one discarded, one busy, one wrapping), consumer left "
+          f"at the busy record ({busy})")
+
+
+def bpf_probe_case() -> tuple:
+    """(b): the probe's facts on one line; -> (the lane is in, and if
+    it is out why: the probe swallows the reason, so its two-instruction
+    load is made again here to read the kernel's answer)."""
+    from clawker_tpu_torch.firewall import bpfkern, runtime
+    from clawker_tpu_torch.firewall.bpfasm import Asm
+
+    status = Path("/proc/self/status").read_text()
+    cap = next((line.split()[1] for line in status.splitlines()
+                if line.startswith("CapEff:")), "")
+    bits = int(cap, 16) if cap else 0
+    root = bpfkern.cgroup2_root()
+    probe = bpfkern.kernel_available()
+    lane = runtime.inprocess_kernel_available()
+    why = ""
+    if root is None:
+        why = "no writable cgroup-v2 mount"
+    elif not lane:
+        a = Asm("probe")
+        a.ret_imm(1)
+        try:
+            fd, _ = bpfkern.prog_load(
+                bpfkern.BPF_PROG_TYPE_CGROUP_SOCK, a.assemble(),
+                expected_attach_type=bpfkern.BPF_CGROUP_INET_SOCK_CREATE,
+                name="probe", log_level=0)
+            os.close(fd)
+        except (bpfkern.BpfError, OSError) as e:
+            why = f"PROG_LOAD: {str(e).splitlines()[0]}"
+    print(f"fwkernel (b): euid {os.geteuid()}, CapEff {cap} (CAP_BPF "
+          f"{bool(bits >> CAP_BPF & 1)}, CAP_SYS_ADMIN "
+          f"{bool(bits >> CAP_SYS_ADMIN & 1)}), cgroup2_root {root}, "
+          f"bpfkern.kernel_available() {probe}, "
+          f"runtime.inprocess_kernel_available() {lane}"
+          + (f"; {why}" if why else ""))
+    check(probe == lane, "fwkernel (b): the runtime's probe disagrees with "
+          "bpfkern's")
+    return lane, why
+
+
+def bpf_agent(i: int) -> str:
+    return f"clawker.{LOOP_PROJECT}.bpf-{i:02d}"
+
+
+def bpf_plan(rng, i: int) -> list:
+    """One agent's connects in a round: 6-10 to the zone's cached answers
+    (routed to the Envoy double) and 1-2 to addresses never resolved;
+    -> [(ip, port, routed)]."""
+    plan = [(BPF_ROUTED[k % len(BPF_ROUTED)], 443, True)
+            for k in range(rng.randint(6, 10))]
+    plan += [(f"192.0.2.{rng.randint(1, 254)}", 443, False)
+             for _ in range(rng.randint(1, 2))]
+    return plan
+
+
+def bpf_connects(plan: list, timeout: float) -> list:
+    """Runs in a probe child inside an agent's cgroup."""
+    from clawker_tpu_torch.firewall.bpflive import probe_tcp_connect
+
+    return [probe_tcp_connect(ip, port, timeout) for ip, port, _ in plan]
+
+
+def bpf_score(base: Path, nl, act, device, stages: dict,
+              name: str) -> collections.Counter:
+    """The storm through one lane, scored live: a ``FleetSentinel``
+    tails the netlogger's file; for ``BPF_ROUNDS`` rounds every agent
+    makes ``bpf_plan``'s connects through ``act(i, plan)`` (-> each
+    connect's outcome), the last round adding the storm agent's
+    ``BPF_STORM`` denied connects, and the netlogger drains once a
+    second.  Routed connects land on the Envoy double and read back the
+    address they aimed at; the rest are refused with EPERM.  The storm
+    agent is flagged on the bus and ranks first; every scored tick is
+    one K3 and one K1; -> launches."""
+    import random
+
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG, EventBus
+    from clawker_tpu_torch.sentinel import FleetSentinel, StreamCollector
+
+    col = StreamCollector()
+    col.add_local("fwkernel", nl.out_path)
+    s = FleetSentinel(_Cfg(base), collector=col, window_s=EGRESS_WINDOW_S,
+                      train_steps=SENTINEL_STEPS, interval_s=LOOP_TICK_S,
+                      threshold=EGRESS_THRESHOLD, device=device)
+    log = TickLog(s, stages)
+    flags: dict = {}
+    bus = EventBus(lambda agent, ev, detail:
+                   flags.setdefault(agent, time.perf_counter())
+                   if ev == ANOMALY_FLAG else None)
+    s.bind_run(events=bus)
+    storm = bpf_agent(BPF_STORM_SLOT)
+    rng = random.Random(EGRESS_SEED)
+    outcomes: collections.Counter = collections.Counter()
+    drained = []
+
+    def run(i: int, plan: list) -> None:
+        got = act(i, plan)
+        check(isinstance(got, list) and len(got) == len(plan),
+              f"{name}: agent {i}'s probe answered {got}")
+        for (ip, port, routed), out in zip(plan, got):
+            want = ({"result": "connected", "peer": [ip, port]} if routed
+                    else {"result": "eperm"})
+            check(out == want, f"{name}: agent {i} connect {ip}:{port} -> "
+                  f"{out}, want {want}")
+            outcomes["routed" if routed else "denied"] += 1
+
+    s.start()
+    try:
+        t0 = time.perf_counter()
+        for r in range(BPF_ROUNDS):
+            for i in range(BPF_AGENTS):
+                run(i, bpf_plan(rng, i))
+            if r == BPF_ROUNDS - 1:
+                time.sleep(BPF_RL_GAP_S)
+                run(BPF_STORM_SLOT, [(f"203.0.113.{k}", 4444 + k, False)
+                                     for k in range(BPF_STORM)])
+            _next_second()
+            drained.append(_fw_drain(nl))
+        t_last = time.perf_counter()
+        traffic_ms = (t_last - t0) * 1e3
+        check(_wait(lambda: storm in flags, EGRESS_FLAG_DEADLINE_S, 0.005),
+              f"{name}: no flag for {storm} within {EGRESS_FLAG_DEADLINE_S} "
+              f"s: {s.flags()}")
+        _wait(lambda: s._scored_at[0] >= nl.emitted, 10, 0.005)
+    finally:
+        s.stop()
+        bus.close()
+    scored = log.check_run(name)
+    rows = sorted(s.rows(), key=lambda row: -row["latest_z"])
+    check(rows[0]["agent"] == storm and rows[0]["flagged"],
+          f"{name}: rows {rows[:3]}")
+    expected = sum(outcomes.values())
+    dropped = expected - sum(drained)
+    check(dropped == 0 and all(drained),
+          f"{name}: {expected} connects emitted {sum(drained)} events "
+          f"({drained} a drain)")
+    print(f"{name}: {BPF_AGENTS} agents x {BPF_ROUNDS} rounds, "
+          f"{outcomes['routed']} routed connects landed on the Envoy double "
+          f"and read back their address, {outcomes['denied']} refused with "
+          f"EPERM ({BPF_STORM} the storm's); events drained {drained} "
+          f"({sum(drained)}) against {dropped} dropped; traffic "
+          f"{traffic_ms!r} ms; {storm} flagged "
+          f"{(flags[storm] - t_last) * 1e3!r} ms after the last drain, first "
+          f"at z {rows[0]['latest_z']}, next {rows[1]['agent']} at "
+          f"{rows[1]['latest_z']}; {len(log.ticks)} ticks, {len(scored)} "
+          f"scored, launches {json.dumps(dict(log.launches()))}")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches()
+
+
+def bpf_live_case(base: Path, device, stages: dict) -> collections.Counter:
+    """(c), where the probe passes: the nine programs through the
+    verifier in a ``KernelAttacher``, ``BPF_AGENTS`` scratch cgroups
+    attached through it and enrolled with ``FLAG_ENFORCE`` in its
+    ``LiveMaps``, the zone's answers in ``dns_cache`` and its route
+    redirecting :443 to a loopback Envoy double; a raw socket refused in
+    the first cgroup shows the programs enforce before any connect is
+    made (a connect that escaped them would leave the host); each
+    agent's connects
+    are made by a probe child forked into its cgroup, and a
+    ``NetLogger`` whose resolvers name each cgroup drains the kernel's
+    ring buffer (``bpf_score``); -> launches."""
+    from types import SimpleNamespace
+
+    from clawker_tpu_torch.firewall import bpfkern, hashes
+    from clawker_tpu_torch.firewall import model as M
+    from clawker_tpu_torch.firewall.bpflive import (LiveSandbox, TcpEcho,
+                                                    probe_raw_socket)
+    from clawker_tpu_torch.firewall.enroll import KernelAttacher
+    from clawker_tpu_torch.monitor.netlogger import NetLogger
+
+    name = "fwkernel (c)"
+    t0 = time.perf_counter()
+    ka = KernelAttacher()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    root = bpfkern.cgroup2_root()
+    dirs = [root / f"clawker-smoke-{os.getpid()}-{i}"
+            for i in range(BPF_AGENTS)]
+    made: list = []
+    echo = TcpEcho()
+    echo.sock.listen(128)
+    echo.start()
+    try:
+        progs = ka.kern.progs
+        check(len(progs) == 9 and all(p.fd > 0 and "processed" in
+                                      p.verifier_log for p in progs.values()),
+              f"{name}: verifier loaded {sorted(progs)}")
+        t1 = time.perf_counter()
+        for d in dirs:
+            d.mkdir()
+            made.append(d)
+            ka.attach(str(d))
+        names = {bpfkern.cgroup_id(d): bpf_agent(i)
+                 for i, d in enumerate(dirs)}
+        for cg in names:
+            ka.maps.enroll(cg, M.ContainerPolicy(
+                envoy_ip="127.0.0.1", dns_ip="127.0.0.1",
+                flags=M.FLAG_ENFORCE))
+        zh = hashes.zone_hash(BPF_ZONE)
+        for ip in BPF_ROUTED:
+            ka.maps.cache_dns(ip, M.DnsEntry(zh, int(time.time()) + 300))
+        ka.maps.sync_routes({M.RouteKey(zh, 443, M.PROTO_TCP): M.RouteVal(
+            M.Action.REDIRECT, "127.0.0.1", echo.port)})
+        enroll_ms = (time.perf_counter() - t1) * 1e3
+        guard = LiveSandbox.run_in_cgroup(SimpleNamespace(cg_dir=dirs[0]),
+                                          probe_raw_socket)
+        check(guard.get("result") == "eperm", f"{name}: an enrolled cgroup "
+              f"still opens a raw socket ({guard}): the programs do not "
+              f"enforce, so no connect is made")
+        print(f"{name}: the nine programs passed the verifier in "
+              f"{load_ms!r} ms ({sum(p.insn_count for p in progs.values())} "
+              f"insns); {BPF_AGENTS} scratch cgroups attached and enrolled "
+              f"with FLAG_ENFORCE in {enroll_ms!r} ms")
+        nl = NetLogger(ka.maps, out_path=base / "ebpf-egress.jsonl",
+                       resolve_cgroup=lambda cg: names.get(cg, ""),
+                       resolve_zone=lambda z: BPF_ZONE if z == zh else "")
+
+        def act(i: int, plan: list) -> list:
+            return LiveSandbox.run_in_cgroup(SimpleNamespace(cg_dir=dirs[i]),
+                                             bpf_connects, plan,
+                                             BPF_CONNECT_TIMEOUT_S)
+
+        return bpf_score(base, nl, act, device, stages, name)
+    finally:
+        echo.stop()
+        for d in made:
+            ka.detach(str(d))
+        ka.close()
+        for d in made:
+            d.rmdir()
+
+
+def bpf_decoded_case(base: Path, device, stages: dict) -> collections.Counter:
+    """(d), where the probe fails: the storm of (c) decided as the
+    programs decide it (routed connects redirected, the rest denied
+    ``NO_DNS_ENTRY``), each decision's event packed by the port's
+    ``EgressEvent`` into a ``MemfdRing``; ``LiveMaps``' drain reads that
+    ring through ``RingBufReader``, so the netlogger, the stream and the
+    sentinel run as in (c), decoded, not enforced; -> launches."""
+    from clawker_tpu_torch.firewall import bpfkern, hashes
+    from clawker_tpu_torch.firewall import model as M
+    from clawker_tpu_torch.firewall.fwprogs import LiveMaps
+    from clawker_tpu_torch.monitor.netlogger import NetLogger
+
+    class RingMaps(LiveMaps):
+        """``LiveMaps`` over a memfd ring instead of a kernel's."""
+
+        def __init__(self, ring: MemfdRing):
+            self._reader = bpfkern.RingBufReader(ring.fd, ring.size)
+
+    zh = hashes.zone_hash(BPF_ZONE)
+    names = {BPF_CGROUP0 + i: bpf_agent(i) for i in range(BPF_AGENTS)}
+    ring = MemfdRing()
+    maps = RingMaps(ring)
+
+    def act(i: int, plan: list) -> list:
+        out = []
+        for ip, port, routed in plan:
+            ring.push(M.EgressEvent(
+                ts_ns=time.monotonic_ns(), cgroup_id=BPF_CGROUP0 + i,
+                dst_ip=ip, dst_port=port, zone_hash=zh if routed else 0,
+                verdict=M.Action.REDIRECT if routed else M.Action.DENY,
+                proto=M.PROTO_TCP,
+                reason=M.Reason.ROUTE if routed else M.Reason.NO_DNS_ENTRY,
+            ).pack())
+            out.append({"result": "connected", "peer": [ip, port]}
+                       if routed else {"result": "eperm"})
+        return out
+
+    nl = NetLogger(maps, out_path=base / "ebpf-egress.jsonl",
+                   resolve_cgroup=lambda cg: names.get(cg, ""),
+                   resolve_zone=lambda z: BPF_ZONE if z == zh else "")
+    try:
+        return bpf_score(base, nl, act, device, stages,
+                         "fwkernel (d) decoded, not enforced")
+    finally:
+        maps.close()
+        ring.close()
+
+
+def fwkernel_phase(device) -> collections.Counter:
+    """The firewall's kernel half: (a) the nine programs' bytecode and the
+    ring-buffer reader, (b) the probe, then (c) the in-kernel lane
+    enforcing a storm scored on the card where the probe passes, or (d)
+    the same storm decoded from a memfd ring where it fails; ->
+    launches."""
+    out = ROOT / "build" / "chip_smoke" / "fwkernel"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    bpf_assembly_case()
+    lane, why = bpf_probe_case()
+    with stage_timers({}) as stages:
+        if lane:
+            launches = bpf_live_case(out, device, stages)
+        else:
+            print(f"fwkernel (d): the in-kernel lane is out on this host "
+                  f"({why}): the storm's records are decoded from a memfd "
+                  f"ring, not enforced")
+            launches = bpf_decoded_case(out, device, stages)
+    no_process_left("fwkernel")
+    print(f"fwkernel lane {'in-kernel (c)' if lane else 'decoded (d)'}; "
+          f"launches: {json.dumps(launches)}; phase wall "
           f"{(time.perf_counter() - t0) * 1e3!r} ms")
     return launches
 
@@ -9593,6 +10075,8 @@ def main() -> int:
     for k, v in egress_phase(device).items():
         main_path["launches"][k] += v
     for k, v in firewall_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in fwkernel_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

@@ -1,12 +1,7 @@
 """Firewall runtime assembly: one factory both the CP daemon and the
 CLI-local path use to build a working handler.
 
-The port's copy of ``clawker_tpu/firewall/runtime.py``, whole, but
-that the kernel half (``bpfsys``, ``bpfkern``, ``fwprogs``) is not
-ported yet: the pinned-maps lane raises a :class:`ConfigError` naming it
-(:func:`kernel_half_unported`), and the in-process lane's probe finds
-no ``bpfkern`` and returns False, so the port monitors where the
-reference, on a host whose probe passes, enforces in the kernel.
+The port's copy of ``clawker_tpu/firewall/runtime.py``, whole.
 
 Map backend selection is explicit and loud: with loaded+pinned kernel
 programs (``/sys/fs/bpf/clawker-tpu`` present) the handler drives
@@ -24,7 +19,7 @@ from pathlib import Path
 from .. import consts, logsetup
 from ..config import Config
 from ..engine.api import Engine
-from ..errors import ClawkerError, ConfigError
+from ..errors import ClawkerError
 from .enroll import Attacher, CgroupResolver, FakeAttacher, FakeCgroupResolver
 from .handler import FirewallHandler
 from .maps import FakeMaps, FirewallMaps
@@ -38,23 +33,12 @@ class FirewallUnavailable(ClawkerError):
     pass
 
 
-def kernel_half_unported(lane: str) -> ConfigError:
-    return ConfigError(
-        f"{lane} is not yet ported to clawker_tpu_torch (the firewall's "
-        f"kernel half: bpfsys, bpfkern, fwprogs)")
-
-
 def kernel_available(pin_dir: str = consts.BPF_PIN_DIR) -> bool:
     return (Path(pin_dir) / "containers").exists()
 
 
 def inprocess_kernel_available() -> bool:
-    """bpf(2) PROG_LOAD + writable cgroup-v2 from this process.
-
-    In the port the probe's lazy ``bpfkern`` import fails until the
-    kernel half lands, so this returns False on every host: the lane
-    is out, and ``build_handler`` takes the monitor fallback (with its
-    "NO enforcement" warning) or raises in strict mode."""
+    """bpf(2) PROG_LOAD + writable cgroup-v2 from this process."""
     try:
         from .bpfkern import kernel_available as probe
 
@@ -95,10 +79,7 @@ def build_handler(
                 log.warning("firewall: in-process kernel lane failed "
                             "(%s); falling back", e)
         if kernel_available():
-            try:
-                from .bpfsys import PinnedMaps
-            except ImportError:
-                raise kernel_half_unported("the pinned-maps lane") from None
+            from .bpfsys import PinnedMaps
 
             maps = PinnedMaps()
             resolver = resolver or CgroupResolver()

@@ -22,9 +22,10 @@ another TCP socket of the host holds (ROADMAP §3 item 16, kept from the
 reference and held by ``test_torch_dnsgate.py``).  The verbs' and the
 run path's handlers bind port 0, as the reference's monitor mode does.
 
-Then the lanes that wait, each refused by name: the control plane
-(``control_plane.enable``, or pinned programs present), the pinned maps
-and the in-process kernel lane, and strict mode without the kernel half
+Then the lanes: the control plane, which waits and is refused by name
+(``control_plane.enable``, or pinned programs present); the pinned maps
+and the in-process kernel lane, each held against the reference's
+choice on this host; and strict mode without the kernel half
 (``FirewallUnavailable`` with the reference's text).
 """
 
@@ -859,7 +860,7 @@ def test_loop_run_enrolls_each_agent_by_container_id(tmp_path):
     assert names == [f"clawker.loopfw.loop-fwtwin-{i}" for i in range(3)]
 
 
-# ------------------------------------------------- the lanes that wait
+# ------------------------------- the kernel lanes and the lanes that wait
 
 
 def test_control_plane_lane_is_refused_by_name(tmp_path):
@@ -897,49 +898,89 @@ def test_pinned_programs_lane_is_refused_by_name(tmp_path, monkeypatch):
 
 def test_pinned_maps_lane_is_refused_by_name(tmp_path, monkeypatch):
     """``build_handler`` called directly with pinned programs present
-    reaches the pinned-maps lane, whose ``bpfsys`` is not ported."""
-    monkeypatch.setattr(port_runtime, "kernel_available", lambda *a: True)
-    with cli_side(PKGS["port"], tmp_path, MONITOR, "project: pin\n") \
-            as (_, proj):
-        cfg = port_config.load_config(proj)
-        with pytest.raises(port_errors.ConfigError,
-                           match="the pinned-maps lane is not yet ported"):
-            port_runtime.build_handler(cfg, port_drivers.FakeDriver().engine(),
-                                       monitor_fallback=True)
+    (``kernel_available`` patched True in both packages) reaches the
+    pinned-maps lane in both: ``PinnedMaps`` opens the pins under
+    ``/sys/fs/bpf/clawker-tpu``, and where they are absent both raise
+    the same error type with the same text."""
+    def run(m):
+        monkeypatch.setattr(m.runtime, "kernel_available", lambda *a: True)
+        with cli_side(m, tmp_path / m.tag, MONITOR, "project: pin\n") \
+                as (_, proj):
+            cfg = m.config.load_config(proj)
+            try:
+                h = m.runtime.build_handler(
+                    cfg, m.drivers.FakeDriver().engine(),
+                    monitor_fallback=True)
+            except Exception as e:  # noqa: BLE001 - the twin compares it
+                return type(e).__name__, str(e)
+            try:
+                return type(h.maps).__name__, type(h.attacher).__name__
+            finally:
+                _close(h)
+                h.maps.close()
+
+    want, got = both(run)
+    assert got == want
+    assert got[0] in ("BpfError", "PinnedMaps")
 
 
 def test_inprocess_kernel_lane_probe_is_out(tmp_path):
-    """The in-process lane's probe imports ``bpfkern``, which the port
-    lacks: False, and the monitor fallback warns that nothing is
-    enforced, in the reference's words."""
+    """The in-process lane's probe answers as the reference's does on
+    this host.  Where it passes, ``build_handler(...,
+    monitor_fallback=True)`` takes the in-process lane in both packages:
+    ``LiveMaps`` over a ``KernelAttacher`` whose nine programs passed the
+    verifier, and the same log line; both are closed after.  Where it
+    fails, both take the monitor fallback and warn that nothing is
+    enforced, in the same words."""
     import logging
 
-    assert port_runtime.inprocess_kernel_available() is False
-    with pytest.raises(ImportError):
-        port_enroll.KernelAttacher()
-    said: list[str] = []
-    tap = logging.Handler(logging.WARNING)
-    tap.emit = lambda rec: said.append(rec.getMessage())
-    port_runtime.log.addHandler(tap)
-    try:
-        with cli_side(PKGS["port"], tmp_path, MONITOR, "project: mon\n") \
-                as (_, proj):
-            cfg = port_config.load_config(proj)
-            driver = port_drivers.FakeDriver()
-            driver.api.add_image(ENVOY_IMAGE)
-            h = port_runtime.build_handler(cfg, driver.engine(),
-                                           monitor_fallback=True)
-            try:
-                assert isinstance(h.maps, port_maps.FakeMaps)
-                assert isinstance(h.resolver, port_enroll.FakeCgroupResolver)
-                assert (h.stack.dns_host, h.stack.dns_port) == \
-                    ("127.0.0.1", 0)
-            finally:
-                _close(h)
-    finally:
-        port_runtime.log.removeHandler(tap)
-    assert said == ["firewall: kernel programs not loaded -- userspace "
-                    "monitor mode only, NO enforcement"]
+    probe = ref_runtime.inprocess_kernel_available()
+    assert port_runtime.inprocess_kernel_available() is probe
+
+    def run(m):
+        said: list = []
+        tap = logging.Handler(logging.INFO)
+        tap.emit = lambda rec: said.append([rec.levelname, rec.getMessage()])
+        level = m.runtime.log.level
+        m.runtime.log.setLevel(logging.INFO)
+        m.runtime.log.addHandler(tap)
+        try:
+            with cli_side(m, tmp_path / m.tag, MONITOR, "project: mon\n") \
+                    as (_, proj):
+                cfg = m.config.load_config(proj)
+                driver = m.drivers.FakeDriver()
+                driver.api.add_image(ENVOY_IMAGE)
+                h = m.runtime.build_handler(cfg, driver.engine(),
+                                            monitor_fallback=True)
+                try:
+                    out = [type(h.maps).__name__, type(h.resolver).__name__,
+                           type(h.attacher).__name__,
+                           [h.stack.dns_host, h.stack.dns_port]]
+                    if isinstance(h.attacher, m.enroll.KernelAttacher):
+                        out.append(sorted(h.attacher.kern.progs))
+                finally:
+                    _close(h)
+                    if isinstance(h.attacher, m.enroll.KernelAttacher):
+                        h.attacher.close()
+        finally:
+            m.runtime.log.removeHandler(tap)
+            m.runtime.log.setLevel(level)
+        return out, said
+
+    want, got = both(run)
+    assert got == want
+    out, said = got
+    if probe:
+        assert out[:3] == ["LiveMaps", "CgroupResolver", "KernelAttacher"]
+        assert len(out[4]) == 9
+        assert said == [["INFO", "firewall: kernel enforcement (in-process "
+                                 "verifier-loaded programs)"]]
+    else:
+        assert out == ["FakeMaps", "FakeCgroupResolver", "FakeAttacher",
+                       ["127.0.0.1", 0]]
+        assert said == [["WARNING", "firewall: kernel programs not loaded -- "
+                                    "userspace monitor mode only, NO "
+                                    "enforcement"]]
 
 
 def test_strict_mode_without_the_kernel_half_is_unavailable(tmp_path):

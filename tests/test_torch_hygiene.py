@@ -172,6 +172,15 @@ FIREWALL_MODULES = ["clawker_tpu_torch.firewall.queue",
                     "clawker_tpu_torch.firewall.runtime"]
 FIREWALL_PKI = FIREWALL_MODULES[5:]
 
+# the firewall's kernel half: the eBPF assembler, the bpf(2) map and
+# loader layers, the nine programs with the ring-buffer reader, and the
+# live sandbox
+KERNEL_HALF_MODULES = ["clawker_tpu_torch.firewall.bpfasm",
+                       "clawker_tpu_torch.firewall.bpfsys",
+                       "clawker_tpu_torch.firewall.bpfkern",
+                       "clawker_tpu_torch.firewall.fwprogs",
+                       "clawker_tpu_torch.firewall.bpflive"]
+
 
 def _modules() -> list[str]:
     out = []
@@ -224,6 +233,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(EGRESS_MODULES) <= set(mods)
     # and the firewall's user-space enforcement
     assert set(FIREWALL_MODULES) <= set(mods)
+    # and the firewall's kernel half
+    assert set(KERNEL_HALF_MODULES) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -321,7 +332,8 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     *VIEW_MODULES, *ENGINE_MODULES,
                                     *FLEET_MODULES, *VERB_MODULES[1:],
                                     *IMAGE_MODULES, *LEFTOVER_MODULES,
-                                    *EGRESS_MODULES, *FIREWALL_MODULES])
+                                    *EGRESS_MODULES, *FIREWALL_MODULES,
+                                    *KERNEL_HALF_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -372,6 +384,18 @@ def test_firewall_modules_load_no_torch(module):
         "print(json.dumps({'torch': 'torch' in sys.modules,\n"
         "                  'cryptography': 'cryptography' in sys.modules}))\n")
     assert doc == {"torch": False, "cryptography": module in FIREWALL_PKI}
+
+
+@pytest.mark.parametrize("module", KERNEL_HALF_MODULES)
+def test_firewall_kernel_half_loads_no_torch(module):
+    """The kernel half speaks bpf(2) through ``ctypes``: it loads no
+    torch and no ``cryptography``."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'cryptography': 'cryptography' in sys.modules}))\n")
+    assert doc == {"torch": False, "cryptography": False}
 
 
 @pytest.mark.parametrize("module", IMAGE_MODULES)
