@@ -195,10 +195,10 @@
    cell ``sched.status()``'s ``anomaly_z`` to one decimal, the burst
    agent at or over ``ANOMALY_Z`` and red, the status bar's
    ``anom-max`` the largest z; (b) ``python -m clawker_tpu_torch loop
-   --parallel 8 --iterations 3 --sentinel`` forked onto such a terminal
+   --parallel 8 --iterations 6 --sentinel`` forked onto such a terminal
    (``pty.fork``) exits 0 having painted frames and no per-event lines,
-   its final frame with the ANOM-Z column, and with ``--json`` paints
-   nothing; (c) loopd with ``loopd.metrics_port`` hosts two 8-loop runs:
+   its final frame with the ANOM-Z column and the run's lines below it
+   as the terminal shows them, and with ``--json`` paints nothing; (c) loopd with ``loopd.metrics_port`` hosts two 8-loop runs:
    ``fleet console --once`` and ``--format json`` (forked) show the burst
    agent's ANOM-Z equal to the status RPC's sentinel row,
    ``FleetConsole.snapshot()`` both runs, the daemon's ``/metrics`` that
@@ -267,8 +267,9 @@
    and a pod whose ``w2`` is down from the start dials it engine-less
    and runs on the other three; (d) ``loop --sentinel``, ``fleet
    workers``, ``fleet anomaly`` (exit 2, the hot agent on ``tpu-2``),
-   ``fleet provision --dry-run --no-cp`` and ``fleet provision``
-   (refused with no ssh) forked on default settings; (e) ``connect()``
+   ``fleet provision --dry-run --no-cp`` and ``fleet provision
+   --dry-run`` (the control plane's steps in the plan, no ssh) forked
+   on default settings; (e) ``connect()``
    timed with and without 50 ms a seam call (host work).  Every scored
    tick of (a), (b) and (c) is one K3 and one K1.
 15. images phase, its dirs under ``build/chip_smoke/images/``, every
@@ -373,7 +374,9 @@
    unenrolls, ``remove`` after the run stops the gate and removes Envoy;
    (d) forked ``firewall status`` in strict mode exits 1 with
    ``FirewallUnavailable``'s text, and with ``control_plane.enable``
-   names the control plane.  Each step's host ms.
+   starts the control plane (forked, on free ports) and answers over
+   its AdminService; ``controlplane down`` stops it.  Each step's host
+   ms.
 20. fwkernel phase, its files under ``build/chip_smoke/fwkernel/``:
    (a) the nine eBPF programs assembled over ``FwMapFds(*range(3,
    11))``, each one's instruction count and sha256 printed and held
@@ -394,7 +397,31 @@
    printed, and the same storm's records decoded from a memfd ring by
    ``LiveMaps``' drain into the same netlogger and sentinel, labelled
    decoded, not enforced.
-21. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+21. controlplane phase, its dirs under ``build/chip_smoke/controlplane/``
+   (the host proxy off), the firewall phase's settings with
+   ``control_plane: {enable: true}`` on free ports: (b) an in-process
+   ``ControlPlaneDaemon`` on those ports and the settings' PKI dir holds
+   the monitor-mode handler (its gate on a port free for TCP) and a
+   ``NetLogger`` into the run's stream, its dialer resolving no endpoint
+   for the fake driver's containers; ``loop -p 8 -n 3 --sentinel`` in
+   process on the card, so every create's ``FirewallInit`` (a fresh
+   container) and ``FirewallEnable`` (every start) arrive over the
+   AdminService, counted by method; the firewall phase's rounds and
+   storm from the run's enrolled agents over the daemon's maps; the
+   storm agent flagged and first, each scored tick one K3 and one K1;
+   ``ListAgents`` lists the run's 8 agents once the factory's
+   bootstrapper bound their rows; the GC ticker ran; (c) the port's
+   ``Agentd`` on loopback over material minted from the control plane's
+   CA: ``Dialer.drive`` returns ``ready`` (registered through the
+   daemon's AgentService, initialized, AgentReady) and again on the
+   idempotent path; (d) once the run's containers are gone the watcher
+   drains to zero, and the drain runs in the reference's order, teardown
+   flushing the maps and removing Envoy; (a) while the drain waits out
+   its two five-second joins, ``controlplane up``, ``status --format
+   json`` (healthy, nothing unavailable), ``agents --format json``,
+   ``down`` and ``status`` (exit 1) forked over their own daemon.  Each
+   step's host ms.
+22. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -4938,6 +4965,10 @@ def chaos_phase(device) -> collections.Counter:
 
 
 VIEWS_COLS, VIEWS_ROWS = 120, 40        # the pseudo-terminal's window
+# views (b)'s forked run: its seeded fake exits at once, so 3 iterations
+# last 0.25-0.52 s against the 0.16-0.26 s of the first sentinel tick
+# (the process's set-up); 6 leave the ticks that score the loops room
+VIEWS_CLI_ITERATIONS = 6
 CONSOLE_REPAINT_BUDGET_MS = 50.0        # bench.py:2075, p95 frame build +
 #                                         paint at 256 agents over 4 runs
 CONSOLE_FRAME_LINE_BOUND = 140          # bench.py:2078
@@ -5232,7 +5263,7 @@ def _pty_cli(args: list[str], proj: Path, env: dict,
 
 def views_cli_case(base: Path, device: str) -> None:
     """(b): ``python -m clawker_tpu_torch loop --parallel 8 --iterations
-    3 --sentinel`` on the seeded fake driver, forked onto a 120x40
+    6 --sentinel`` on the seeded fake driver, forked onto a 120x40
     pseudo-terminal: it must exit 0 having painted dashboard frames
     (and no per-event lines), the final frame with the ANOM-Z column;
     the same run with ``--json`` on the same terminal paints no frame.
@@ -5261,7 +5292,7 @@ def views_cli_case(base: Path, device: str) -> None:
                    CLAWKER_TPU_FAKE_IMAGES=LOOP_IMAGE,
                    PYTHONPATH=str(ROOT))
         args = ["loop", "--parallel", str(LOOP_AGENTS), "--iterations",
-                str(LOOP_ITERATIONS), "--sentinel"]
+                str(VIEWS_CLI_ITERATIONS), "--sentinel"]
         rc, text, ms = _pty_cli(args, proj, env)
         run = re.search(r"loop ([0-9a-f]{12}): ", text)
         spans = []
@@ -5281,7 +5312,9 @@ def views_cli_case(base: Path, device: str) -> None:
               f"{[(sp.t_start - t0, sp.t_end - t0, sp.attrs.get('windows')) for sp in spans if sp.name == SPAN_SENTINEL_TICK]}")
     frame = _final_frame(_screen(text), run[1])
     cells = _anom_cells(frame, timing)
-    table = [line for line in text.splitlines()
+    # the run's lines as the terminal shows them: the painter may leave
+    # its cursor with a cursor-down escape, not a newline, before them
+    table = [line for line in (_SGR.sub("", r) for r in _screen(text))
              if re.match(rf"loop-{run[1][:6]}-\d+\t", line)]
     check(len(cells) == LOOP_AGENTS and len(table) == LOOP_AGENTS
           and all("\tdone\t" in line for line in table),
@@ -6866,7 +6899,8 @@ def pod_cli_case(base: Path, device: str) -> None:
     one-shot ``fleet anomaly`` with no loopd tails the four workers,
     scores on the card and flags the hot agent on ``tpu-2`` (exit 2);
     ``fleet provision --dry-run --no-cp`` prints the plan; ``fleet
-    provision`` refuses the control plane (exit 1) before any ssh."""
+    provision --dry-run`` prints it with the control plane's
+    ``cp-unit`` and ``verify-healthz`` steps, with no ssh."""
     from clawker_tpu_torch.config import load_config
 
     name = "pod (d)"
@@ -6893,7 +6927,7 @@ def pod_cli_case(base: Path, device: str) -> None:
         dry, dry_ms = _cli(["fleet", "provision", "--dry-run", "--no-cp"],
                            proj, env)
         before = len(p.shim.invocations())
-        refused, _ = _cli(["fleet", "provision"], proj, env)
+        full, full_ms = _cli(["fleet", "provision", "--dry-run"], proj, env)
         after = len(p.shim.invocations())
         kinds = _seam_kinds(p.shim)
     check(len(doc["agents"]) == 8
@@ -6918,16 +6952,20 @@ def pod_cli_case(base: Path, device: str) -> None:
           and "verify-healthz" not in dry.stdout,
           f"{name}: provision --dry-run --no-cp exited {dry.returncode}: "
           f"{dry.stdout[-500:]} {dry.stderr[-500:]}")
-    check(refused.returncode == 1 and "control plane" in refused.stderr
+    check(full.returncode == 0 and "cp-unit" in full.stdout
+          and "verify-healthz" in full.stdout
+          and "-m clawker_tpu_torch.controlplane" in full.stdout
           and after == before,
-          f"{name}: fleet provision exited {refused.returncode} "
-          f"({refused.stderr[-500:]!r}), {after - before} seam invocations")
+          f"{name}: fleet provision --dry-run exited {full.returncode} "
+          f"({full.stdout[-800:]!r} {full.stderr[-500:]!r}), "
+          f"{after - before} seam invocations")
     print(f"{name} forked on default settings (runtime.driver tpu_vm): loop "
           f"--sentinel {run_ms!r} ms, creates per worker {creates}; fleet "
           f"workers {workers_ms!r} ms; fleet anomaly {anom_ms!r} ms, exit 2, "
           f"{hot} z {arows[hot]['latest_z']} on {arows[hot]['worker']}, "
           f"records {adoc['stream_counts']}; provision --dry-run --no-cp "
-          f"{dry_ms!r} ms; provision without --no-cp refused with no ssh; "
+          f"{dry_ms!r} ms; provision --dry-run with the control plane's "
+          f"steps {full_ms!r} ms, no ssh; "
           f"seam invocations {_by_kind(kinds)}")
 
 
@@ -9437,30 +9475,39 @@ def firewall_run_case(proj: Path, device, stages: dict) -> collections.Counter:
 def firewall_refusals_case(base: Path, upstream: str) -> None:
     """(d): forked ``firewall status`` in strict mode (``default_deny``,
     the default, over the fake driver, whose containers have no cgroups
-    for the kernel lane) exits 1 with
-    ``FirewallUnavailable``'s text, and with ``control_plane.enable``
-    names the control plane."""
+    for the kernel lane) exits 1 with ``FirewallUnavailable``'s text;
+    with ``control_plane.enable`` the verb starts the control plane
+    (forked, on free ports) and answers over its AdminService, and
+    ``controlplane down`` stops it."""
     name = "firewall (d)"
-    cases = (("strict", "firewall:\n  enable: true\n",
-              "firewall enabled but no pinned programs under "
-              "/sys/fs/bpf/clawker-tpu"),
-             ("control_plane", _fw_settings(upstream, "control_plane:\n"
-                                            "  enable: true\n"),
-              "the control plane is not yet ported to clawker_tpu_torch: "
-              "set control_plane: {enable: false}"))
     ms = {}
-    for tag, settings, said in cases:
-        with _isolated_dirs(base / tag, settings, proxy=False) as proj:
-            proc, ms[tag] = _cli(["firewall", "status"], proj, _fw_env(),
-                                 timeout=FW_VERB_TIMEOUT_S)
-        check(proc.returncode == 1 and said in proc.stderr
-              and not proc.stdout,
-              f"{name} {tag}: exited {proc.returncode}: {proc.stdout!r} "
-              f"{proc.stderr[-1500:]!r}")
-    print(f"{name}: strict mode without a kernel lane and the control "
-          f"plane's lane each refused by name, exit 1")
-    print(f"{name} host ms: " + ", ".join(f"forked firewall status ({k}) "
-                                          f"{v!r}" for k, v in ms.items()))
+    with _isolated_dirs(base / "strict", "firewall:\n  enable: true\n",
+                        proxy=False) as proj:
+        proc, ms["strict"] = _cli(["firewall", "status"], proj, _fw_env(),
+                                  timeout=FW_VERB_TIMEOUT_S)
+    said = ("firewall enabled but no pinned programs under "
+            "/sys/fs/bpf/clawker-tpu")
+    check(proc.returncode == 1 and said in proc.stderr and not proc.stdout,
+          f"{name} strict: exited {proc.returncode}: {proc.stdout!r} "
+          f"{proc.stderr[-1500:]!r}")
+    with _isolated_dirs(base / "control_plane",
+                        _fw_settings(upstream, cp_settings(cp_ports())),
+                        proxy=False) as proj:
+        proc, ms["control_plane"] = _cli(["firewall", "status"], proj,
+                                         _fw_env(), timeout=FW_VERB_TIMEOUT_S)
+        down, ms["controlplane down"] = _cli(["controlplane", "down"], proj,
+                                             _fw_env())
+    check(proc.returncode == 0 and not json.loads(proc.stdout)["initialized"]
+          and "NO enforcement" not in proc.stderr
+          and down.returncode == 0
+          and down.stdout == "control plane stopped\n",
+          f"{name} control_plane: status exited {proc.returncode}: "
+          f"{proc.stdout!r} {proc.stderr[-1500:]!r}; down {down.stdout!r}")
+    print(f"{name}: strict mode without a kernel lane refused by name, exit "
+          f"1; with control_plane.enable the verb started the control plane "
+          f"and answered over its AdminService, then controlplane down")
+    print(f"{name} host ms: " + ", ".join(f"forked {k} {v!r}"
+                                          for k, v in ms.items()))
 
 
 def firewall_phase(device) -> collections.Counter:
@@ -9945,6 +9992,423 @@ def fwkernel_phase(device) -> collections.Counter:
     return launches
 
 
+# ------------------------------------------------------ control plane phase
+
+# the reference's drain sequence (controlplane/daemon.py ``drain``,
+# ordering INV-B2-007): the firewall queue first, the netlogger before
+# teardown, teardown only after drain-to-zero
+CP_DRAIN_ORDER = ["firewall_queue", "admin", "agent_service", "watcher",
+                  "dialer", "netlogger", "firewall_teardown", "feeder",
+                  "registry"]
+CP_WATCH_S = 0.5                # the watcher's poll: drain-to-zero after
+CP_GRACE_POLLS = 2              # two polls with no agent running
+CP_GC_S = 0.1                   # the dns_cache + bypass GC ticker
+CP_DIAL_PROJECT = "cpdial"
+
+
+def cp_ports() -> tuple[int, int, int]:
+    """(admin, agent, health) ports free now: the control plane's fixed
+    7443, 7444 and 7080 may be held on a shared host."""
+    return _free_port(), _free_port(), _free_port()
+
+
+def cp_settings(ports: tuple[int, int, int], enable: bool = True) -> str:
+    return (f"control_plane:\n  enable: {str(enable).lower()}\n"
+            f"  admin_port: {ports[0]}\n  agent_port: {ports[1]}\n"
+            f"  health_port: {ports[2]}\n")
+
+
+def controlplane_verbs_case(base: Path) -> None:
+    """(a): ``controlplane up`` forks ``python -m
+    clawker_tpu_torch.controlplane`` over its own fake driver;
+    ``status --format json`` answers healthy with nothing unavailable,
+    ``agents --format json`` lists the (empty) registry, ``down`` stops
+    it, and ``status`` after ``down`` exits 1."""
+    name = "controlplane (a)"
+    ms, out = {}, {}
+    with _isolated_dirs(base, cp_settings(cp_ports()), proxy=False) as proj:
+        env = dict(os.environ, PYTHONPATH=str(ROOT),
+                   CLAWKER_TPU_DRIVER="fake")
+        for argv in (["up"], ["status", "--format", "json"],
+                     ["agents", "--format", "json"], ["down"], ["status"]):
+            key = " ".join(argv)
+            out[key], ms[key] = _cli(["controlplane", *argv], proj, env)
+    up, status, agents, down, after = out.values()
+    check(up.returncode == 0 and up.stdout == "control plane running\n",
+          f"{name}: up exited {up.returncode}: {up.stderr[-1500:]}")
+    doc = json.loads(status.stdout or "{}")
+    check(status.returncode == 0 and doc.get("running")
+          and doc.get("admin") and doc.get("agent_service")
+          and doc.get("feeder") and doc.get("unavailable") == [],
+          f"{name}: status exited {status.returncode}: {status.stdout!r} "
+          f"{status.stderr[-1500:]}")
+    check(agents.returncode == 0 and json.loads(agents.stdout) == [],
+          f"{name}: agents exited {agents.returncode}: {agents.stdout!r} "
+          f"{agents.stderr[-1500:]}")
+    check(down.returncode == 0 and down.stdout == "control plane stopped\n",
+          f"{name}: down exited {down.returncode}: {down.stdout!r}")
+    check(after.returncode == 1
+          and after.stdout == "control plane: not running\n",
+          f"{name}: status after down exited {after.returncode}: "
+          f"{after.stdout!r}")
+    print(f"{name}: up, status healthy ({', '.join(k for k in ('admin', 'agent_service', 'feeder', 'watcher') if doc.get(k))}; "
+          f"unavailable []), agents [], down, status after down exit 1")
+    print(f"{name} host ms: " + ", ".join(f"forked controlplane {k} {v!r}"
+                                          for k, v in ms.items()))
+
+
+def _no_agentd(container_id: str):
+    """The daemon dialer's endpoint for a fake driver's container: none.
+    Its containers run no agentd, and their bridge addresses lead
+    nowhere on this host, so no dial leaves loopback; (c) dials a real
+    agentd."""
+    from clawker_tpu_torch.errors import ClawkerError
+
+    raise ClawkerError(f"container {container_id[:12]}: a fake driver's "
+                       f"container runs no agentd")
+
+
+def _cp_daemon(cfg, drv, ports, handler, nl):
+    """The port's daemon in process on the settings' ports and PKI dir,
+    holding ``handler`` and ``nl``, its dialer resolving no endpoint for
+    the fake driver's containers: -> (daemon, admin calls by method, gc
+    ticks, drain order)."""
+    from clawker_tpu_torch.controlplane.daemon import (ControlPlaneDaemon,
+                                                       CPConfig)
+
+    ticks, order = [], []
+    gc_tick = handler.gc_tick
+    handler.gc_tick = lambda: ticks.append(time.perf_counter()) or gc_tick()
+    daemon = ControlPlaneDaemon(
+        CPConfig(pki_dir=cfg.pki_dir, registry_path=cfg.data_dir / "agents.db",
+                 host="127.0.0.1", admin_port=ports[0], agent_port=ports[1],
+                 health_port=ports[2], cp_host="127.0.0.1",
+                 watch_interval_s=CP_WATCH_S, drain_to_zero=True,
+                 drain_grace_polls=CP_GRACE_POLLS, dns_gc_interval_s=CP_GC_S),
+        drv.engine(), firewall=handler, netlogger=nl)
+    daemon.start()
+    # no agent container has started yet: every dial the run's starts
+    # trigger resolves through this
+    daemon.subs.dialer.resolve = _no_agentd
+    calls = collections.Counter()
+    handlers = daemon.subs.admin._handlers
+    for method, fn in list(handlers.items()):
+        def counted(req, _m=method, _f=fn):
+            calls[_m] += 1
+            return _f(req)
+        handlers[method] = counted
+    s = daemon.subs
+    for key, obj, attr in (("firewall_queue", handler, "close"),
+                           ("admin", s.admin, "stop"),
+                           ("agent_service", s.agent_service, "stop"),
+                           ("watcher", s.watcher, "stop"),
+                           ("dialer", s.dialer, "stop"),
+                           ("netlogger", nl, "stop"),
+                           ("firewall_teardown", handler, "teardown"),
+                           ("feeder", s.feeder, "stop"),
+                           ("registry", s.registry, "close")):
+        def recorded(*a, _k=key, _f=getattr(obj, attr), **kw):
+            order.append(_k)
+            return _f(*a, **kw)
+        setattr(obj, attr, recorded)
+    return daemon, calls, ticks, order
+
+
+def controlplane_dial_case(cfg, daemon) -> dict:
+    """(c): the port's ``Agentd`` on loopback over bootstrap material
+    minted from the control plane's CA, its row bound in the daemon's
+    registry file; a ``Dialer`` on the control plane's identity drives it
+    to ``ready`` (Hello, RegisterRequired back to the daemon's
+    AgentService, InitPlan, AgentInitialized, BootPlan, AgentReady), and
+    again on the idempotent path (initialized, command running)."""
+    from clawker_tpu_torch.agentd.daemon import Agentd, AgentdConfig
+    from clawker_tpu_torch.controlplane import identity
+    from clawker_tpu_torch.controlplane.daemon import ensure_cp_material
+    from clawker_tpu_torch.controlplane.dialer import Dialer, DialerConfig
+    from clawker_tpu_torch.controlplane.executor import AgentProfile
+    from clawker_tpu_torch.controlplane.registry import Registry
+    from clawker_tpu_torch.firewall import pki
+
+    name = "controlplane (c)"
+    base = cfg.data_dir / "agentd"
+    (base / "bootstrap").mkdir(parents=True)
+    ca = pki.ensure_ca(cfg.pki_dir)
+    material = identity.mint_bootstrap_material(ca, CP_DIAL_PROJECT, "dev",
+                                                container_id="c-dial")
+    for fname, data in material.files().items():
+        (base / "bootstrap" / fname).write_bytes(data)
+    full = f"{CP_DIAL_PROJECT}.dev"
+    reg = Registry(cfg.data_dir / "agents.db")
+    reg.bind(full, CP_DIAL_PROJECT, "dev", container_id="c-dial",
+             cert_sha256=identity.cert_fingerprint(material.agent_cert))
+    reg.close()
+    d = Agentd(AgentdConfig(bootstrap_dir=base / "bootstrap", port=0,
+                            host="127.0.0.1", ready_file=base / "ready",
+                            init_marker=base / "initialized"))
+    threading.Thread(target=d.serve_forever, daemon=True).start()
+    check(_wait(lambda: d.bound_port != 0, 10), f"{name}: agentd never bound")
+    cert, key, ca_file = ensure_cp_material(cfg.pki_dir)
+    dialer = Dialer(
+        DialerConfig(cert_file=cert, key_file=key, ca_file=ca_file,
+                     cp_host="127.0.0.1",
+                     cp_agent_port=daemon.subs.agent_service.bound_port,
+                     dial_deadline_s=10),
+        daemon.subs.registry, resolve=lambda cid: ("127.0.0.1", d.bound_port),
+        build_profile=lambda cid: AgentProfile(
+            project=CP_DIAL_PROJECT, agent="dev", cmd=["/bin/sleep", "60"],
+            workdir="/"))
+    ms = {}
+    try:
+        t0 = time.perf_counter()
+        first = dialer.drive("c-dial")
+        ms["drive (register, init, boot)"] = (time.perf_counter() - t0) * 1e3
+        rec = daemon.subs.registry.get(full)
+        t1 = time.perf_counter()
+        again = dialer.drive("c-dial")
+        ms["drive again (idempotent)"] = (time.perf_counter() - t1) * 1e3
+        child = d._direct_child
+    finally:
+        d.stop()
+        if d._direct_child is not None:
+            d._direct_child.kill()
+            d._direct_child.wait()
+    check(first == again == "ready" and rec.registered_at > 0
+          and rec.initialized and rec.state == "ready"
+          and child is not None and (base / "initialized").exists(),
+          f"{name}: drive {first!r} then {again!r}, registry row "
+          f"{vars(rec) if rec else None}")
+    print(f"{name}: Dialer.drive -> {first!r} (registered_at "
+          f"{rec.registered_at!r} through the daemon's AgentService, "
+          f"initialized, AgentReady spawned pid {child.pid}), again -> "
+          f"{again!r} on the idempotent path")
+    return ms
+
+
+def controlplane_run_case(proj: Path, ports, device, stages: dict,
+                          meanwhile) -> collections.Counter:
+    """(b), (c) and (d): an in-process ``ControlPlaneDaemon`` on the
+    settings' ports and PKI dir holds the monitor-mode handler (its gate
+    on a port free for TCP as well as UDP) and a ``NetLogger`` into the
+    run's ``ebpf-egress.jsonl``; ``loop -p 8 -n 3 --sentinel`` in this
+    process with ``control_plane.enable``, so each create's
+    ``FirewallInit`` and ``FirewallEnable`` reach the handler over the
+    AdminService (counted by method).  The firewall phase's rounds run
+    from the run's enrolled agents over the daemon's maps, each round
+    drained into the stream a second apart; the storm is flagged on the
+    card (one K3 and one K1 a scored tick); ``ListAgents`` lists the
+    run's 8 agents (bound by the factory's identity bootstrap); the GC
+    ticker runs.  (c) dials an agentd.  (d): once the run's containers
+    are gone the watcher drains to zero, and the drain runs in the
+    reference's order with teardown last but for the feeder and the
+    registry.  ``meanwhile()`` runs while the drain waits out its two
+    five-second joins (kept from the reference: the dialer's consumer of
+    a topic the drain never closes, and an ``accept`` that closing the
+    AgentService's listener does not wake); -> launches."""
+    import random
+
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.controlplane import manager
+    from clawker_tpu_torch.controlplane.identity import make_bootstrapper
+    from clawker_tpu_torch.controlplane.registry import Registry
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.firewall import lifecycle
+    from clawker_tpu_torch.firewall.runtime import build_handler
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG
+    from clawker_tpu_torch.monitor.netlogger import (NetLogger,
+                                                     handler_resolvers)
+    from clawker_tpu_torch.sentinel import FleetSentinel
+
+    name = "controlplane (b)"
+    m = egress_modules()
+    cfg = load_config(proj)
+    drv = FakeDriver()
+    drv.api.add_image(LOOP_IMAGE)
+    drv.api.add_image(FW_ENVOY_IMAGE)
+    hold = threading.Event()
+    drv.api.set_behavior(LOOP_IMAGE, _held(hold))
+    ms = {}
+    t0 = time.perf_counter()
+    handler = build_handler(cfg, drv.engine(), monitor_fallback=True,
+                            inprocess_ok=drv.real_cgroups,
+                            dns_host="127.0.0.1", dns_port=_free_port())
+    rc, rz = handler_resolvers(handler)
+    # drained a round at a time below, so each round's records share a
+    # second; the daemon starts it and its drain stops it (final sweep)
+    nl = NetLogger(handler.maps, out_path=cfg.logs_dir / "ebpf-egress.jsonl",
+                   resolve_cgroup=rc, resolve_zone=rz, poll_s=3600.0)
+    daemon, calls, gc_ticks, order = _cp_daemon(cfg, drv, ports, handler, nl)
+    ms["daemon start"] = (time.perf_counter() - t0) * 1e3
+    check(daemon.healthy() and manager.health(cfg) is not None,
+          f"{name}: daemon health {daemon.health()}")
+    sched = LoopScheduler(cfg, drv, LoopSpec(parallel=LOOP_AGENTS,
+                                             iterations=LOOP_ITERATIONS))
+    s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                      interval_s=LOOP_TICK_S, window_s=EGRESS_WINDOW_S,
+                      threshold=EGRESS_THRESHOLD, train_steps=SENTINEL_STEPS)
+    log = TickLog(s, stages)
+    sched.attach_sentinel(s)
+    flags: dict = {}
+    sched.events.add_tap(lambda r: flags.setdefault(r.agent, time.perf_counter())
+                         if r.event == ANOMALY_FLAG else None)
+    agents = [sched._agent_name(i) for i in range(LOOP_AGENTS)]
+    runner = threading.Thread(target=sched.run, kwargs={"poll_s": 0.05},
+                              name="controlplane-loop")
+    drained_at = None
+    try:
+        t1 = time.perf_counter()
+        s.start()
+        sched.start()
+        runner.start()
+        check(_wait(lambda: len(handler.enrollments) == LOOP_AGENTS, 60),
+              f"{name}: the run's creates enrolled {len(handler.enrollments)}"
+              f" of {LOOP_AGENTS} agents over the daemon: calls "
+              f"{dict(calls)}, {sched.status()}")
+        ms["creates through the AdminService"] = \
+            (time.perf_counter() - t1) * 1e3
+        local = str(cfg.data_dir) in lifecycle._local_handlers
+        first = dict(calls)
+        check(first.get("FirewallInit", 0) >= LOOP_AGENTS
+              and first.get("FirewallEnable", 0) >= LOOP_AGENTS
+              and handler.initialized and not local,
+              f"{name}: AdminService calls {first}, handler initialized "
+              f"{handler.initialized}, in-process handler {local}")
+        cid_of = {c.name.lstrip("/"): c.id for c in drv.api.containers.values()}
+        cids = [cid_of[f"clawker.{LOOP_PROJECT}.{a}"] for a in agents]
+        storm = cids[LOOP_HOT_SLOT]
+        # the factory's create path binds each agent's identity row in
+        # agents.db (a loop's own creates bind none, as the reference's)
+        reg = Registry(cfg.data_dir / "agents.db")
+        bind = make_bootstrapper(cfg, drv.engine(), reg)
+        for a, cid in zip(agents, cids):
+            bind(cid, LOOP_PROJECT, a)
+        reg.close()
+        client = manager.admin_client(cfg)
+        t2 = time.perf_counter()
+        listed = client.call("ListAgents", {"project": LOOP_PROJECT})["agents"]
+        ms["ListAgents"] = (time.perf_counter() - t2) * 1e3
+        check(sorted(a["agent"] for a in listed) == sorted(agents)
+              and sorted(a["container_id"] for a in listed) == sorted(cids),
+              f"{name}: ListAgents {listed}")
+        handler.stack.gate._forward = loopback_forward
+        rng = random.Random(EGRESS_SEED)
+        verdicts: list = []
+        drained = []
+        t3 = time.perf_counter()
+        for r in range(FW_ROUNDS):
+            _fw_round(m, handler, cids, r, rng, storm, verdicts)
+            _next_second()
+            drained.append(_fw_drain(nl))
+        ms["traffic with the drains"] = (time.perf_counter() - t3) * 1e3
+        recs = [json.loads(line) for line in
+                (cfg.logs_dir / "ebpf-egress.jsonl").read_text().splitlines()]
+        check(nl.emitted == len(recs) == sum(drained) and all(drained)
+              and handler.maps.events_dropped == 0
+              and {r["container"] for r in recs} <= set(cids),
+              f"{name}: {len(verdicts)} decisions, emitted {nl.emitted}, "
+              f"drained {drained}, dropped {handler.maps.events_dropped}")
+        check(_wait(lambda: storm in flags, EGRESS_FLAG_DEADLINE_S, 0.005)
+              and _wait(lambda: s._scored_at[0] >= len(recs), 10, 0.005),
+              f"{name}: no flag for {storm} within {EGRESS_FLAG_DEADLINE_S} s: "
+              f"{s.flags()}")
+        ms["flag on the bus after the last drain"] = \
+            (flags[storm] - t3) * 1e3 - ms["traffic with the drains"]
+        by_z = sorted(s.rows(), key=lambda row: -row["latest_z"])
+        check(by_z[0]["agent"] == storm and by_z[0]["flagged"],
+              f"{name}: rows {by_z[:3]}")
+        check(_wait(lambda: len(gc_ticks) >= 1, 5),
+              f"{name}: the GC ticker never ran")
+        print(f"{name}: the run's creates reached the daemon's handler over "
+              f"the AdminService: {json.dumps(first)}; {len(verdicts)} "
+              f"decisions over its maps, {nl.emitted} events drained "
+              f"{drained} into the run's stream, 0 dropped; storm "
+              f"{agents[LOOP_HOT_SLOT]} (container id {storm[:12]}) flagged "
+              f"and first at z {by_z[0]['latest_z']}; ListAgents lists "
+              f"{len(listed)} agents of {LOOP_PROJECT}; GC ticks "
+              f"{len(gc_ticks)}")
+        ms.update(controlplane_dial_case(cfg, daemon))
+    finally:
+        hold.set()
+        runner.join(60)
+        s.stop()
+    try:
+        scored = log.check_run(name)
+        _check_loop_rows(name, sched.status())
+        final = dict(calls)
+        # a fresh container's start runs both hooks, a restart the
+        # post-start one only
+        check(final.get("FirewallInit") == LOOP_AGENTS
+              and final.get("FirewallEnable") == LOOP_AGENTS * LOOP_ITERATIONS,
+              f"{name}: AdminService calls over the whole run {final}")
+        t4 = time.perf_counter()
+        sched.cleanup(remove_containers=True)
+        # (d) no agent runs: the watcher drains to zero, then the drain
+        check(_wait(lambda: daemon._stop.is_set(), 30),
+              f"controlplane (d): no drain-to-zero: watcher polls "
+              f"{daemon.subs.watcher.polls}, last count "
+              f"{daemon.subs.watcher.last_count}")
+        ms["drain-to-zero after cleanup"] = (time.perf_counter() - t4) * 1e3
+        check(daemon._drained_to_zero and not order,
+              f"controlplane (d): drained to zero {daemon._drained_to_zero}, "
+              f"stopped already {order}")
+        t5 = time.perf_counter()
+        draining = threading.Thread(target=daemon.drain, name="cp-drain")
+        draining.start()
+        meanwhile()
+        draining.join(60)
+        check(not draining.is_alive(), "controlplane (d): drain hung")
+        drained_at = (time.perf_counter() - t5) * 1e3
+    finally:
+        if drained_at is None:
+            daemon.request_stop()
+            daemon.drain()
+        if handler.stack.gate is not None:
+            handler.stack.gate.stop()
+    ms["drain (beside (a))"] = drained_at
+    check(order == CP_DRAIN_ORDER and handler.maps.enrolled() == {}
+          and not handler.enrollments and handler.stack.gate is None
+          and not drv.engine().container_exists("clawker-envoy")
+          and daemon.subs.unavailable == [],
+          f"controlplane (d): drain order {order}, enrolled "
+          f"{handler.maps.enrolled()}, gate {handler.stack.gate}, "
+          f"unavailable {daemon.subs.unavailable}")
+    print(f"controlplane (d): drain-to-zero fired once the run's containers "
+          f"were gone; drain order {order} (the reference's), teardown "
+          f"flushed the maps and removed Envoy")
+    print(f"{name} run: {LOOP_AGENTS} loops x {LOOP_ITERATIONS} iterations, "
+          f"{len(log.ticks)} ticks, {len(scored)} scored, AdminService calls "
+          f"{json.dumps(final)}, launches {json.dumps(dict(log.launches()))}")
+    print(f"{name}: {log.stage_line()}")
+    print("controlplane (b)-(d) host ms: " + ", ".join(
+        f"{k} {v!r}" for k, v in ms.items()))
+    return log.launches()
+
+
+def controlplane_phase(device) -> collections.Counter:
+    """The control plane: an in-process daemon that carries ``loop
+    --sentinel``'s firewall calls, whose netlogger's stream the card
+    scores, dials an agentd, and drains to zero in the reference's order,
+    with the forked verbs run while it drains; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "controlplane"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    ports = cp_ports()
+    with LoopbackUpstream() as up:
+        with _isolated_dirs(out / "b", _fw_settings(up.addr,
+                                                    cp_settings(ports)),
+                            proxy=False) as proj:
+            _fw_project(proj)
+            with stage_timers({}) as stages:
+                launches = controlplane_run_case(
+                    proj, ports, device, stages,
+                    lambda: controlplane_verbs_case(out / "a"))
+    no_process_left("controlplane")
+    print(f"controlplane launches: {json.dumps(launches)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return launches
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -10077,6 +10541,8 @@ def main() -> int:
     for k, v in firewall_phase(device).items():
         main_path["launches"][k] += v
     for k, v in fwkernel_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in controlplane_phase(device).items():
         main_path["launches"][k] += v
     cli_phase(device)
     fleet_cli_phase(device)

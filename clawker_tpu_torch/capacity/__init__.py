@@ -1,9 +1,7 @@
 """Elastic capacity: telemetry-driven warm-pool sizing, SLO-aware
 admission, and fleet autoscaling (docs/elastic-capacity.md).
 
-The port's copy of ``clawker_tpu/capacity``, whole; its
-``TPUVMScaler`` provisions standby hosts without the per-worker control
-plane, whose half of provisioning waits for ROADMAP §1 item 13.
+The port's copy of ``clawker_tpu/capacity``, whole.
 
 Every capacity knob used to be a static setting tuned for one traffic
 shape: warm-pool depth, per-worker admission tokens, the fleet size

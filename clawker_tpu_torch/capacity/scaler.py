@@ -2,10 +2,8 @@
 
 The port's copy of ``clawker_tpu/capacity/scaler.py``, whole.
 :class:`TPUVMScaler` provisions through ``fleet/provision.py`` over
-``SSHTransport``; its default (``with_cp=True``) provisions the
-per-worker control plane, which is refused by name until that daemon
-is ported (ROADMAP §1 item 13), so :func:`make_scaler` raises a
-:class:`ConfigError` for a ``tpu_vm`` driver.
+``SSHTransport``; by default (``with_cp=True``) it starts the port's
+per-worker control plane too.
 
 The controller decides *when* to grow or shrink the fleet; a
 :class:`FleetScaler` owns *how*.  Three implementations:
@@ -36,8 +34,7 @@ log = logsetup.get("capacity.scaler")
 def make_scaler(driver, cfg, *, max_workers: int) -> "FleetScaler":
     """The one scaler-selection rule both wiring layers (loopd and the
     in-process CLI path) share: an elastically growable fake pod gets
-    the in-place scaler, ``tpu_vm`` gets the concurrent provisioner
-    (which refuses its control-plane default by name, above),
+    the in-place scaler, ``tpu_vm`` gets the concurrent provisioner,
     anything else degrades to decisions-without-side-effects."""
     if hasattr(driver, "add_worker"):
         return FakeFleetScaler(driver, max_workers=max_workers)
@@ -118,9 +115,6 @@ class TPUVMScaler(FleetScaler):
 
     def __init__(self, cfg, *, with_firewall: bool = True,
                  with_cp: bool = True):
-        from ..fleet.provision import refuse_cp
-
-        refuse_cp(with_cp)
         self.cfg = cfg
         self.with_firewall = with_firewall
         self.with_cp = with_cp

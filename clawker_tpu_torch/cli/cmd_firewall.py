@@ -1,9 +1,9 @@
 """firewall verbs: the 13 AdminService RPCs from the command line.
 
-The port's copy of ``clawker_tpu/cli/cmd_firewall.py``, whole.  The
-port has no control plane yet: every verb runs on the in-process
-monitor-mode handler, and where the reference would ride the control
-plane ``call_firewall`` refuses by name (``firewall/lifecycle.py``).
+The port's copy of ``clawker_tpu/cli/cmd_firewall.py``, whole: every
+verb goes through ``call_firewall`` (``firewall/lifecycle.py``), over
+the control plane's AdminService or the in-process monitor-mode
+handler, as the reference's does.
 
 Parity reference: internal/cmd/firewall (13 verbs -> AdminService,
 SURVEY.md 2.4).  Every verb talks to the control-plane handler over the

@@ -5,8 +5,7 @@ when an agent's window flags; its sentinel tails the configured driver's
 workers with settings ``sentinel``'s defaults under the flags, and with
 a loopd answering, the one-shot renders the daemon sentinel's rows
 (:123-140,806-822).  ``fleet workers|provision|status`` are the
-reference's (:23-121,973-996) but that ``provision`` refuses the
-per-worker control plane by name (pass ``--no-cp``).  ``fleet console``
+reference's (:23-121,973-996).  ``fleet console``
 is :901-972.  ``fleet health``, ``placement`` and ``warmpool`` (:123-760)
 read a loopd's status RPC when one answers (``health`` then shows the
 daemon sentinel's ANOM-Z a worker), else probe the driver's workers.
@@ -72,21 +71,15 @@ def fleet_workers(ctx):
               help="Concurrent worker provisions (bounded pool).")
 @click.pass_context
 def fleet_provision(ctx, dry_run, no_firewall, no_cp, only, jobs):
-    """Install the worker stack (native bits, eBPF).
+    """Install the worker stack (native bits, eBPF, control plane).
 
     Workers provision concurrently (one payload tar shared by all);
     step results stream as they land, prefixed with the worker index.
-    The per-worker control plane is not ported yet: without --no-cp
-    the verb refuses (exit 1) before it dials any worker.
     """
-    from ..errors import ConfigError
     from ..fleet.provision import build_plan, provision_fleet
 
     f = _factory(ctx)
-    try:
-        plan = build_plan(with_firewall=not no_firewall, with_cp=not no_cp)
-    except ConfigError as e:
-        raise click.ClickException(str(e))
+    plan = build_plan(with_firewall=not no_firewall, with_cp=not no_cp)
     if dry_run:
         for step in plan:
             opt = " (optional)" if step.optional else ""

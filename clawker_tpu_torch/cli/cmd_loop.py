@@ -1,4 +1,4 @@
-"""``loop``: the port's copy of ``clawker_tpu/cli/cmd_loop.py`` (:87-781).
+"""``loop``: the port's copy of ``clawker_tpu/cli/cmd_loop.py`` (:87-930).
 It submits to this project's loopd when one answers (``--detach``,
 ``loop attach``), shards over every federated pod's loopd through the
 front-tier router with ``--pods`` (one pod answering: the daemon path;
@@ -8,7 +8,9 @@ driver that ``CLAWKER_TPU_DRIVER`` / settings ``runtime.driver`` names,
 with the anomaly riders scoring on the GPU, the warm pool
 (``--warm-pool``) and the launch data plane on any workerd that answers
 (``--workerd/--no-workerd``); ``loop --resume RUN`` replays a run's
-journal in process and reconciles it (never under a daemon).  It takes
+journal in process and reconciles it (never under a daemon), and
+``loop trace RUN`` rebuilds a run's span trees from its flight record
+(:809-930).  It takes
 ``--chaos-plan`` (in process only), ``--ship-telemetry`` and settings
 ``capacity.enable`` as the reference's does.  On a terminal, and without
 ``--json``, an in-process ``loop`` paints the reference's
@@ -819,6 +821,130 @@ def loop_attach(ctx, run, as_json):
     run_id = str(ack.get("run", run))
     click.echo(f"attached to run {run_id} ({ack.get('state')})", err=True)
     _stream_daemon_run(client, run_id, as_json)
+
+
+# ------------------------------------------------------------------- trace
+
+
+def _resolve_flight(f, run: str | None) -> Path:
+    from ..monitor.ledger import FLIGHT_DIR, flight_path
+
+    flight_dir = f.config.logs_dir / FLIGHT_DIR
+    if run:
+        as_path = Path(run)
+        if as_path.exists() and as_path.is_file():
+            return as_path
+        exact = flight_path(f.config.logs_dir, run)
+        if exact.exists():
+            return exact
+        # id prefixes are fine as long as they are unambiguous
+        matches = sorted(flight_dir.glob(f"loop-{run}*.jsonl"))
+        if len(matches) == 1:
+            return matches[0]
+        if matches:
+            names = ", ".join(m.stem.removeprefix("loop-") for m in matches)
+            raise click.ClickException(
+                f"run {run!r} is ambiguous: {names}")
+        raise click.ClickException(
+            f"no flight record for run {run!r} under {flight_dir}")
+    latest = max(flight_dir.glob("loop-*.jsonl"), default=None,
+                 key=lambda p: p.stat().st_mtime)
+    if latest is None:
+        raise click.ClickException(
+            f"no flight records under {flight_dir} (runs record one by "
+            "default; check settings telemetry.flight_recorder)")
+    return latest
+
+
+def _fmt_ms(seconds: float) -> str:
+    return f"{seconds * 1000:.1f}ms"
+
+
+def _render_node(node, depth: int, out: list[str]) -> None:
+    rec = node.record
+    pad = "  " * depth
+    if depth == 0:
+        from ..telemetry.spans import STANDALONE_SPANS
+
+        attrs = rec.attrs
+        extra = "".join(
+            f" {k}={attrs[k]}" for k in ("queue_ms", "resumed", "adopted")
+            if k in attrs)
+        # a non-iteration root is a phase span whose iteration root never
+        # flushed (crashed run): show it, flagged, rather than hide it.
+        # Standalone run-level spans (sentinel ticks) are their own kind.
+        name = (f"iteration {attrs.get('iteration', '?')}"
+                if rec.name == "iteration"
+                else rec.name if rec.name in STANDALONE_SPANS
+                else f"{rec.name} (no iteration root)")
+        out.append(f"{rec.agent}  {name} "
+                   f"[{rec.status}] {_fmt_ms(rec.wall_s)} "
+                   f"worker={rec.worker}{extra}")
+    else:
+        keys = [k for k in sorted(rec.attrs) if k != "iteration"]
+        extra = "".join(f" {k}={rec.attrs[k]}" for k in keys)
+        out.append(f"{pad}{rec.name} {_fmt_ms(rec.wall_s)}{extra}")
+    for child in node.children:
+        _render_node(child, depth + 1, out)
+
+
+@loop_group.command("trace")
+@click.argument("run", required=False)
+@click.option("--json", "as_json", is_flag=True,
+              help="Reconstructed span trees as JSON.")
+@click.pass_context
+def loop_trace(ctx, run, as_json):
+    """Reconstruct a loop run's iteration span trees.
+
+    RUN is a loop id (as printed by `clawker loop`), an unambiguous id
+    prefix, or a path to a flight-recorder JSONL file; the newest run is
+    traced when omitted.  Shows per-span wall time, lane queue time, and
+    migration hops -- the post-mortem view of what every iteration paid
+    and where it travelled (docs/telemetry.md).
+    """
+    from ..monitor.ledger import read_rotated_lines
+    from ..telemetry import build_trees, load_spans, tree_to_dict
+
+    path = _resolve_flight(_factory(ctx), run)
+    # read across the rotation boundary: a size-capped recorder keeps the
+    # previous generation at <path>.1 (docs/telemetry.md)
+    spans = load_spans(read_rotated_lines(path))
+    if not spans:
+        raise click.ClickException(f"{path}: no span records")
+    trees = build_trees(spans)
+    run_id = spans[0].trace_id or path.stem.removeprefix("loop-")
+    if as_json:
+        click.echo(json.dumps({
+            "run": run_id,
+            "path": str(path),
+            "iterations": [tree_to_dict(t) for t in trees],
+        }, indent=2))
+        return
+    from ..telemetry.spans import STANDALONE_SPANS
+
+    agents = sorted({s.agent for s in spans})
+    migrations = [s for s in spans if s.name == "migrate"]
+    # a phase span promoted to a root means its iteration root never
+    # flushed -- the writer died before end_iteration/close_open ran.
+    # Run-level standalone roots (sentinel ticks) are by-design roots.
+    promoted = [t for t in trees if t.record.name != "iteration"
+                and t.record.name not in STANDALONE_SPANS]
+    n_iters = sum(1 for t in trees if t.record.name == "iteration")
+    click.echo(f"run {run_id}: {n_iters} iteration span(s) across "
+               f"{len(agents)} agent(s)  ({path})")
+    out: list[str] = []
+    for tree in trees:
+        _render_node(tree, 0, out)
+    for line in out:
+        click.echo(line)
+    if migrations:
+        click.echo("migration hops:")
+        for m in sorted(migrations, key=lambda s: s.t_start):
+            click.echo(f"  {m.agent} iteration {m.attrs.get('iteration')}: "
+                       f"{m.attrs.get('src')} -> {m.attrs.get('dst')}")
+    if promoted:
+        click.echo(f"warning: {len(promoted)} span(s) without a recorded "
+                   "iteration root (crashed run?)", err=True)
 
 
 def register(root: click.Group) -> None:

@@ -8,13 +8,12 @@ reference's codes, 130 with ``aborted`` on ``click.Abort``.  The
 start-up notices (``_start_notices``/``_finish_notices``: the update
 check and the changelog teaser over ``state.py`` and ``changelog.py``)
 run on a thread beside the command, only on a TTY, unless
-``CLAWKER_TPU_NO_NOTICES`` is set.  Left out: the verbs that wait for
-their modules (``WAITING``: ``analyze`` and ``controlplane``), which are
-refused by name.  One departure: the root closes the driver that the
-factory built when the command ends, so no forward of a ``tpu_vm``
-driver outlives the verb.  The firewall's monitor-mode handler is not
-the driver's: it lives as long as the process, as the reference's does
-(``firewall/lifecycle.py``).
+``CLAWKER_TPU_NO_NOTICES`` is set.  Left out: the verb that waits for
+its modules (``WAITING``: ``analyze``), which is refused by name.  One
+departure: the root closes the driver that the factory built when the
+command ends, so no forward of a ``tpu_vm`` driver outlives the verb.
+The firewall's monitor-mode handler is not the driver's: it lives as
+long as the process, as the reference's does (``firewall/lifecycle.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +27,7 @@ from .factory import Factory, _not_ported
 CONTEXT_SETTINGS = {"help_option_names": ["-h", "--help"], "max_content_width": 100}
 
 # the reference's verbs whose modules are not ported yet (ROADMAP §1)
-WAITING = ("analyze", "controlplane")
+WAITING = ("analyze",)
 
 
 class _RootGroup(click.Group):
@@ -158,6 +157,7 @@ def register_commands() -> None:
         cmd_bundle,
         cmd_chaos,
         cmd_container,
+        cmd_controlplane,
         cmd_fed,
         cmd_firewall,
         cmd_fleet,
@@ -181,6 +181,7 @@ def register_commands() -> None:
     cmd_bundle.register(cli)
     cmd_chaos.register(cli)
     cmd_container.register(cli)
+    cmd_controlplane.register(cli)
     cmd_fed.register(cli)
     cmd_firewall.register(cli)
     cmd_fleet.register(cli)

@@ -1,5 +1,5 @@
-"""Control plane: only its start-time service hooks (:mod:`.bootstrap`),
-its OTLP log lanes (:mod:`.otel`), the create path's identity and agent
-registry, and the host half of the agentd session
-(:mod:`.session_client`) are ported; the control-plane daemon waits
-(ROADMAP §1)."""
+"""Control-plane layer: the port's copy of ``clawker_tpu/controlplane/``,
+module for module (the daemon, its AdminService and AgentService, the
+docker-events feeder, the dialer and executor, the watcher, the
+manager, the start-time hooks, the OTLP lanes, identity and the agent
+registry)."""

@@ -14,9 +14,12 @@ degraded path (the ``event=socketbridge_unavailable`` warning) for the
 reference's reasons.  With settings ``firewall.enable`` they run the
 firewall's hooks where the reference does (``firewall_pre_start`` brings
 up the data plane, ``firewall_post_start`` enrolls the started
-container), over the port's monitor-mode handler.  The control plane
-(off by default) is not ported yet: settings that enable it raise a
-:class:`ConfigError` naming it.
+container) through ``call_firewall``, which takes the reference's lane
+(the control plane's AdminService, or the monitor-mode handler in
+process).  With settings ``control_plane.enable`` (off by default)
+:func:`pre_start_services` first makes sure the port's control-plane
+daemon is up (``python -m clawker_tpu_torch.controlplane``), as the
+reference does.
 """
 
 from __future__ import annotations
@@ -24,26 +27,14 @@ from __future__ import annotations
 from .. import logsetup
 from ..config import Config
 from ..engine.drivers import RuntimeDriver
-from ..errors import ConfigError
 
 log = logsetup.get("cp.bootstrap")
 
-# settings section -> what the reference brings up for it
-_NOT_PORTED = (
-    ("control_plane", "the control plane"),
-)
-
-
-def _refuse_unported(cfg: Config) -> None:
-    for section, what in _NOT_PORTED:
-        if getattr(cfg.settings, section).enable:
-            raise ConfigError(
-                f"{what} is not yet ported to clawker_tpu_torch: set "
-                f"{section}: {{enable: false}} in settings.yaml")
-
-
 def pre_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -> None:
-    _refuse_unported(cfg)
+    if cfg.settings.control_plane.enable:
+        from . import manager
+
+        manager.ensure_running(cfg)
     if cfg.settings.firewall.enable:
         from ..firewall.lifecycle import firewall_pre_start
 
@@ -55,7 +46,6 @@ def pre_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -
 
 
 def post_start_services(cfg: Config, driver: RuntimeDriver, container_ref: str) -> None:
-    _refuse_unported(cfg)
     if cfg.settings.firewall.enable:
         from ..firewall.lifecycle import firewall_post_start
 

@@ -6,7 +6,10 @@ worktree swarm's gitguard writes its run-scoped rules into, the PKI
 lane's user-space model: the zone hash (:mod:`.hashes`), the map ABI
 (:mod:`.model`), the map store with its in-memory twin (:mod:`.maps`),
 the decision semantics (:mod:`.policy`) and the DNS gate that feeds the
-``dns_cache`` map (:mod:`.dnsgate`).  The lanes that would enforce the
-rules on a host (Envoy, the handler, the stack, the eBPF loader) are not
-ported yet (ROADMAP §1 item 13).
+``dns_cache`` map (:mod:`.dnsgate`); the enforcement lanes: Envoy
+(:mod:`.envoy`), the stack (:mod:`.stack`), enrollment (:mod:`.enroll`),
+the handler behind the AdminService's 13 verbs (:mod:`.handler`,
+:mod:`.runtime`, :mod:`.lifecycle`) and the eBPF programs with their
+loader (:mod:`.bpfasm`, :mod:`.fwprogs`, :mod:`.bpfsys`,
+:mod:`.bpfkern`, :mod:`.bpflive`).
 """

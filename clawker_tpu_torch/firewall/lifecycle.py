@@ -1,14 +1,10 @@
 """Firewall bring-up hooks on the container run path + verb routing.
 
-The port's copy of ``clawker_tpu/firewall/lifecycle.py``, whole, but
-for the control-plane lane: the control plane is not ported yet, so
-where the reference hands the call to its daemon (pinned programs
-present, or ``control_plane.enable``) the port raises a
-:class:`ConfigError` naming it, never a quiet switch to monitor mode.
-The monitor-mode handler lives as long as the process, as the
-reference's does: a ``firewall`` verb leaves it up for the next verb of
-the same process (its queue thread and gate are daemon threads, so a
-forked verb still exits when it ends).
+The port's copy of ``clawker_tpu/firewall/lifecycle.py``, whole.  The
+monitor-mode handler lives as long as the process, as the reference's
+does: a ``firewall`` verb leaves it up for the next verb of the same
+process (its queue thread and gate are daemon threads, so a forked verb
+still exits when it ends).
 
 Pre-start: make the data plane exist (rules -> Envoy + DNS gate + kernel
 routes) before the agent container can emit its first packet.
@@ -33,10 +29,9 @@ from __future__ import annotations
 
 import threading
 
-from .. import consts, logsetup
+from .. import logsetup
 from ..config import Config
 from ..engine.drivers import RuntimeDriver
-from ..errors import ConfigError
 
 log = logsetup.get("firewall.lifecycle")
 
@@ -61,20 +56,14 @@ def _local(cfg: Config, driver: RuntimeDriver):
         return _local_handlers[key]
 
 
-def _control_plane_unported(cfg: Config) -> ConfigError:
-    why = ("set control_plane: {enable: false} in settings.yaml"
-           if cfg.settings.control_plane.enable else
-           f"the pinned firewall programs under {consts.BPF_PIN_DIR} route "
-           f"every firewall call to it")
-    return ConfigError(
-        f"the control plane is not yet ported to clawker_tpu_torch: {why}")
-
-
 def call_firewall(cfg: Config, driver: RuntimeDriver, method: str, payload: dict) -> dict:
+    from ..controlplane import manager
     from .runtime import kernel_available
 
     if kernel_available() or cfg.settings.control_plane.enable:
-        raise _control_plane_unported(cfg)
+        if manager.health(cfg) is None:
+            manager.ensure_running(cfg)
+        return manager.admin_client(cfg, ensure_material=True).call(method, payload)
     handler = _local(cfg, driver)
     verb = {
         "FirewallInit": handler.init, "FirewallEnable": handler.enable,

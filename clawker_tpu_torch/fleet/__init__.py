@@ -6,9 +6,7 @@ reaches them over SSH (DCN) with the docker socket and CP ports
 forwarded through a ControlMaster mux.  ICI never carries control
 traffic -- pod topology only informs loop-scheduler placement.
 
-The port's copy of ``clawker_tpu/fleet/__init__.py``, whole.  Its
-provisioning plan (:mod:`.provision`) refuses the control-plane half
-until that daemon is ported (ROADMAP §1 item 13).
+The port's copy of ``clawker_tpu/fleet/__init__.py``, whole.
 """
 
 from .inventory import discover_workers

@@ -27,10 +27,8 @@ The port's copy of ``clawker_tpu/fleet/provision.py``.  Steps 1-6 are
 the reference's, word for word.  The payload ships
 ``clawker_tpu_torch/`` and ``native/``; the reference's ``tests/e2e``
 imports the reference package, so no e2e suite ships and the optional
-``e2e-smoke`` step reports as skipped on a worker.  The control plane
-(steps 7-8) waits for its daemon (ROADMAP §1 item 13): a plan
-``with_cp`` is refused by name with a :class:`ConfigError`, before any
-SSH call.
+``e2e-smoke`` step reports as skipped on a worker.  Steps 7-8 start
+and probe the port's control plane, as the reference's start its own.
 """
 
 from __future__ import annotations
@@ -41,7 +39,6 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 from .. import consts, logsetup
-from ..errors import ConfigError
 from .transport import SSHTransport, TransportError
 
 log = logsetup.get("fleet.provision")
@@ -53,9 +50,7 @@ def systemd_unit(*, monitor: bool = False) -> str:
     """The per-worker CP unit.  With ``monitor``, CLAWKER_TPU_OTLP points
     the worker netlogger at the laptop collector behind the SSH -R
     loopback tunnel (fleet/channels.py); without it the env is absent so
-    disabled telemetry generates zero failed connects.  The payload
-    carries it as the reference's does; no step of the port's plan
-    installs it until the control plane is ported."""
+    disabled telemetry generates zero failed connects."""
     otlp = (f"Environment=CLAWKER_TPU_OTLP=http://127.0.0.1:"
             f"{consts.OTLP_HTTP_PORT}\n" if monitor else "")
     return f"""[Unit]
@@ -97,18 +92,7 @@ class ProvisionReport:
         return all(r.ok for r in self.results)
 
 
-def refuse_cp(with_cp: bool) -> None:
-    """The control-plane half of provisioning is refused by name until
-    the port has the daemon it would start (ROADMAP §1 item 13)."""
-    if with_cp:
-        raise ConfigError(
-            "provisioning the per-worker control plane (its cp-unit and "
-            "verify-healthz steps) is not yet ported to clawker_tpu_torch "
-            "(ROADMAP §1 item 13); provision with --no-cp")
-
-
 def build_plan(*, with_firewall: bool = True, with_cp: bool = True) -> list[Step]:
-    refuse_cp(with_cp)
     steps = [
         Step("preflight-docker", "docker info --format '{{.ServerVersion}}'"),
         Step("preflight-cgroup2",
@@ -161,11 +145,23 @@ def build_plan(*, with_firewall: bool = True, with_cp: bool = True) -> list[Step
         f"sudo install {REMOTE_ROOT}/src/native/build/clawker-supervisord "
         "/usr/local/bin/clawker-supervisord",
     ))
+    if with_cp:
+        steps += [
+            Step("cp-unit",
+                 f"sudo cp {REMOTE_ROOT}/clawker-cp.service "
+                 "/etc/systemd/system/ && sudo systemctl daemon-reload && "
+                 "sudo systemctl enable --now clawker-cp.service || "
+                 f"(PYTHONPATH={REMOTE_ROOT}/src nohup python3 -m "
+                 "clawker_tpu_torch.controlplane >/tmp/clawker-cp.log 2>&1 &)"),
+            Step("verify-healthz",
+                 "for i in $(seq 1 30); do "
+                 f"curl -fsS http://127.0.0.1:{consts.CP_HEALTH_PORT}/healthz "
+                 "&& exit 0; sleep 1; done; exit 1",
+                 timeout=60.0),
+        ]
     # real-daemon smoke, as the reference plans it; the port ships no
     # tests/e2e (module docstring), so on a worker this optional step
-    # fails and reports as skipped.  The cp-unit and verify-healthz
-    # steps that come before it in the reference's plan are refused
-    # above (refuse_cp).
+    # fails and reports as skipped
     steps.append(Step(
         "e2e-smoke",
         f"cd {REMOTE_ROOT}/src && CLAWKER_TPU_E2E=1 "
@@ -283,7 +279,6 @@ def provision_fleet(
     """
     from concurrent.futures import ThreadPoolExecutor, as_completed
 
-    refuse_cp(with_cp)
     if not transports:
         return []
     payload = payload_tar(repo_root, monitor=monitor)

@@ -354,20 +354,19 @@ def test_make_scaler_and_fake_fleet_scaler_match_reference():
 
 def test_tpu_vm_scaler_is_refused_by_name():
     """``make_scaler`` builds the ``tpu_vm`` provisioner as the
-    reference's does; its default provisions the per-worker control
-    plane, whose refusal names that item."""
+    reference's does, its control-plane default included."""
     from types import SimpleNamespace
 
-    with pytest.raises(PKGS["port"].errors.ConfigError,
-                       match="control plane.*not yet ported.*item 13"):
-        PKGS["port"].capacity.make_scaler(SimpleNamespace(name="tpu_vm"),
-                                          None, max_workers=2)
-    want = PKGS["ref"].capacity.make_scaler(SimpleNamespace(name="tpu_vm"),
-                                            None, max_workers=2)
-    got = PKGS["port"].capacity.TPUVMScaler(None, with_cp=False)
-    assert type(got).__name__ == type(want).__name__ == "TPUVMScaler"
-    assert (got.with_firewall, got.provisioned, got.drained) == \
-        (want.with_firewall, want.provisioned, want.drained)
+    def scaler(m):
+        sc = m.capacity.make_scaler(SimpleNamespace(name="tpu_vm"), None,
+                                    max_workers=2)
+        return [type(sc).__name__, sc.with_firewall, sc.with_cp,
+                list(sc.provisioned), list(sc.drained), sc.drain("h9"),
+                sc.drained]
+
+    want, got = [scaler(PKGS[k]) for k in ("ref", "port")]
+    assert got == want
+    assert got == ["TPUVMScaler", True, True, [], [], True, ["h9"]]
 
 
 def test_loop_with_capacity_enable_matches_reference(tmp_path, monkeypatch):

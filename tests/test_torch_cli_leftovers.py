@@ -690,11 +690,8 @@ def _page(path: tuple) -> str:
 
 
 # the reference's commands the port has no counterpart of yet (ROADMAP
-# §1): the verbs refused by name and ``loop trace`` (the port's is the
-# top-level ``trace``)
-ABSENT = ({("analyze",), ("loop", "trace")}
-          | {p for p in _command_paths(ref_root.cli)
-             if p[:1] == ("controlplane",)})
+# §1): the verb refused by name
+ABSENT = {("analyze",)}
 
 
 def test_gen_docs_page_names(tmp_path):
@@ -719,6 +716,10 @@ def test_gen_docs_page_names(tmp_path):
             "clawker_fleet_health.md", "clawker_plugin_install.md"} <= set(pages)
     assert "--parallel" in loop_page and "# clawker loop" in loop_page
     assert "--pods" in loop_page
+    assert {"clawker_loop_trace.md", "clawker_controlplane.md",
+            "clawker_controlplane_up.md", "clawker_controlplane_agents.md",
+            "clawker_controlplane_status.md",
+            "clawker_controlplane_down.md"} <= set(pages)
 
 
 def test_gen_docs_pages_match_the_reference_for_shared_verbs(tmp_path):

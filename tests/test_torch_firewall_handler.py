@@ -2,10 +2,10 @@
 queue, the stack, enrollment, the 13 verbs, the run-path hooks and the
 ``firewall`` verbs.
 
-Twins of tests/test_firewall_handler.py (all but the two cases that need
-the control-plane daemon, ``test_cp_daemon_runs_periodic_map_gc`` and
-``test_cp_daemon_serves_firewall_verbs``), of
-tests/test_rule_validation.py's handler cases and of
+Twins of tests/test_firewall_handler.py (its two control-plane daemon
+cases, ``test_cp_daemon_runs_periodic_map_gc`` and
+``test_cp_daemon_serves_firewall_verbs``, over each package's
+in-process daemon), of tests/test_rule_validation.py's handler cases and of
 tests/test_race_stress.py's action queue case.  Each scenario runs once
 through each package, each under its own ``TestEnv`` over its own
 ``FakeDriver`` and ``FakeMaps`` with the DNS gate on loopback, and the
@@ -22,10 +22,11 @@ another TCP socket of the host holds (ROADMAP §3 item 16, kept from the
 reference and held by ``test_torch_dnsgate.py``).  The verbs' and the
 run path's handlers bind port 0, as the reference's monitor mode does.
 
-Then the lanes: the control plane, which waits and is refused by name
-(``control_plane.enable``, or pinned programs present); the pinned maps
-and the in-process kernel lane, each held against the reference's
-choice on this host; and strict mode without the kernel half
+Then the lanes: the control plane (``control_plane.enable``, or pinned
+programs present), where each package's verbs and run-path hooks reach
+its daemon's handler over the AdminService; the pinned maps and the
+in-process kernel lane, each held against the reference's choice on
+this host; and strict mode without the kernel half
 (``FirewallUnavailable`` with the reference's text).
 """
 
@@ -55,7 +56,9 @@ import clawker_tpu.cli.root as ref_root
 import clawker_tpu.config as ref_config
 import clawker_tpu.config.schema as ref_schema
 import clawker_tpu.consts as ref_consts
+import clawker_tpu.controlplane.adminapi as ref_adminapi
 import clawker_tpu.controlplane.bootstrap as ref_bootstrap
+import clawker_tpu.controlplane.daemon as ref_cpdaemon
 import clawker_tpu.engine.api as ref_api
 import clawker_tpu.engine.drivers as ref_drivers
 import clawker_tpu.engine.fake as ref_fake
@@ -67,6 +70,7 @@ import clawker_tpu.firewall.hashes as ref_hashes
 import clawker_tpu.firewall.lifecycle as ref_lifecycle
 import clawker_tpu.firewall.maps as ref_maps
 import clawker_tpu.firewall.model as ref_model
+import clawker_tpu.firewall.pki as ref_pki
 import clawker_tpu.firewall.policy as ref_policy
 import clawker_tpu.firewall.queue as ref_queue
 import clawker_tpu.firewall.rules as ref_rules
@@ -78,7 +82,9 @@ import clawker_tpu_torch.cli as port_cli
 import clawker_tpu_torch.config as port_config
 import clawker_tpu_torch.config.schema as port_schema
 import clawker_tpu_torch.consts as port_consts
+import clawker_tpu_torch.controlplane.adminapi as port_adminapi
 import clawker_tpu_torch.controlplane.bootstrap as port_bootstrap
+import clawker_tpu_torch.controlplane.daemon as port_cpdaemon
 import clawker_tpu_torch.engine.api as port_api
 import clawker_tpu_torch.engine.drivers as port_drivers
 import clawker_tpu_torch.engine.fake as port_fake
@@ -90,6 +96,7 @@ import clawker_tpu_torch.firewall.hashes as port_hashes
 import clawker_tpu_torch.firewall.lifecycle as port_lifecycle
 import clawker_tpu_torch.firewall.maps as port_maps
 import clawker_tpu_torch.firewall.model as port_model
+import clawker_tpu_torch.firewall.pki as port_pki
 import clawker_tpu_torch.firewall.policy as port_policy
 import clawker_tpu_torch.firewall.queue as port_queue
 import clawker_tpu_torch.firewall.rules as port_rules
@@ -106,7 +113,8 @@ PKGS = {
         queue=ref_queue, rules=ref_rules, runtime=ref_runtime,
         testenv=ref_testenv, bootstrap=ref_bootstrap, cli=ref_root.cli,
         Factory=ref_factory.Factory, dnsgate=ref_dnsgate, policy=ref_policy,
-        netlogger=ref_netlogger, art=ref_art),
+        netlogger=ref_netlogger, art=ref_art, adminapi=ref_adminapi,
+        cpdaemon=ref_cpdaemon, pki=ref_pki),
     "port": SimpleNamespace(
         tag="port", config=port_config, schema=port_schema,
         consts=port_consts, api=port_api, drivers=port_drivers,
@@ -116,7 +124,8 @@ PKGS = {
         rules=port_rules, runtime=port_runtime, testenv=port_testenv,
         bootstrap=port_bootstrap, cli=port_cli.cli,
         Factory=port_cli.Factory, dnsgate=port_dnsgate, policy=port_policy,
-        netlogger=port_netlogger, art=port_art),
+        netlogger=port_netlogger, art=port_art, adminapi=port_adminapi,
+        cpdaemon=port_cpdaemon, pki=port_pki),
 }
 ENVOY_IMAGE = "envoyproxy/envoy:v1.30.2"
 PROJECT = ("project: fwtest\n"
@@ -155,6 +164,42 @@ def _close(handler) -> None:
     handler.close()
     if handler.stack.gate is not None:
         handler.stack.gate.stop()
+
+
+@contextlib.contextmanager
+def cp_daemon(m, cfg, engine, handler, *, admin_port: int = 0,
+              health_port: int = 0, **kw):
+    """Package ``m``'s control-plane daemon in process on loopback,
+    over ``cfg``'s PKI dir and registry and holding ``handler``; drained
+    on the way out: -> (daemon, calls), ``calls`` counting the
+    AdminService's calls by method."""
+    daemon = m.cpdaemon.ControlPlaneDaemon(
+        m.cpdaemon.CPConfig(pki_dir=cfg.pki_dir,
+                            registry_path=cfg.data_dir / "agents.db",
+                            host="127.0.0.1", admin_port=admin_port,
+                            agent_port=0, health_port=health_port, **kw),
+        engine, firewall=handler)
+    daemon.start()
+    calls: dict = {}
+    handlers = daemon.subs.admin._handlers
+    for method, fn in list(handlers.items()):
+        def counted(req, _m=method, _f=fn):
+            calls[_m] = calls.get(_m, 0) + 1
+            return _f(req)
+        handlers[method] = counted
+    try:
+        yield daemon, calls
+    finally:
+        daemon.request_stop()
+        daemon.drain()
+
+
+def admin_client(m, daemon, cfg):
+    ca = m.pki.ensure_ca(cfg.pki_dir)
+    return m.adminapi.AdminClient(
+        "127.0.0.1", daemon.subs.admin.bound_port,
+        cert_file=cfg.pki_dir / "cp.crt", key_file=cfg.pki_dir / "cp.key",
+        ca_file=cfg.pki_dir / "ca.crt", token=m.adminapi.mint_admin_token(ca))
 
 
 class Rig:
@@ -548,6 +593,60 @@ def test_gc_tick_expires_dns_and_bypass(tmp_path):
     assert got[1] and got[2] and got[3] == {}
 
 
+def test_cp_daemon_runs_periodic_map_gc(tmp_path):
+    """The daemon ticks ``gc_tick`` (``dns_gc_interval_s``), not only
+    ``clear_expired_bypass`` at boot: an expired DNS entry goes, a live
+    one stays."""
+    def scenario(r):
+        r.handler.init({})
+        now = int(time.time())
+        zone = r.m.hashes.zone_hash("example.com")
+        r.maps.cache_dns("9.9.9.9", r.m.maps.DnsEntry(zone,
+                                                      expires_unix=now - 5))
+        r.maps.cache_dns("8.8.4.4", r.m.maps.DnsEntry(zone,
+                                                      expires_unix=now + 300))
+        with cp_daemon(r.m, r.cfg, r.driver.engine(), r.handler,
+                       dns_gc_interval_s=0.05) as (daemon, _):
+            deadline = time.time() + 5.0
+            while r.maps.lookup_dns("9.9.9.9") is not None \
+                    and time.time() < deadline:
+                time.sleep(0.02)
+            return [r.maps.lookup_dns("9.9.9.9"),
+                    r.maps.lookup_dns("8.8.4.4") is not None,
+                    daemon._gc_thread.is_alive()]
+
+    want, got = twin(tmp_path, scenario)
+    assert got == want
+    assert got == [None, True, True]
+
+
+def test_cp_daemon_serves_firewall_verbs(tmp_path):
+    """The handler registered on the daemon answers over the mTLS admin
+    surface, and drain closes the action queue first while enforcement
+    state stays (fail-closed)."""
+    def scenario(r):
+        with cp_daemon(r.m, r.cfg, r.driver.engine(), r.handler,
+                       watch_interval_s=5.0) as (daemon, calls):
+            client = admin_client(r.m, daemon, r.cfg)
+            init = client.call("FirewallInit")
+            cid = r.start_agent()
+            enable = client.call("FirewallEnable", {"container_id": cid})
+            status = client.call("FirewallStatus")
+            registered = daemon.subs.admin.registered()
+        with pytest.raises(r.m.queue.QueueClosed):
+            r.handler.queue.submit(lambda: None)
+        return [init, enable, status, calls, registered,
+                sorted(r.maps.enrolled()), maps_state(r)]
+
+    want, got = twin(tmp_path, scenario)
+    assert got == want
+    init, enable, status, calls, registered, enrolled, _ = got
+    assert init["initialized"] and enable["enabled"] and status["enrolled"]
+    assert calls == {"FirewallInit": 1, "FirewallEnable": 1,
+                     "FirewallStatus": 1}
+    assert len(registered) == 16 and enrolled
+
+
 def test_envoy_container_resolves_through_the_gate(tmp_path):
     def scenario(r):
         r.handler.init({})
@@ -860,40 +959,105 @@ def test_loop_run_enrolls_each_agent_by_container_id(tmp_path):
     assert names == [f"clawker.loopfw.loop-fwtwin-{i}" for i in range(3)]
 
 
-# ------------------------------- the kernel lanes and the lanes that wait
+# ------------------------------------- the control plane and the kernel lanes
+
+
+def cp_settings(admin_port: int, health_port: int, enable: bool) -> str:
+    return (f"control_plane:\n  enable: {str(enable).lower()}\n"
+            f"  admin_port: {admin_port}\n  health_port: {health_port}\n")
+
+
+def _daemon_handler(m, cfg, driver):
+    """The handler a control plane holds in monitor mode, over
+    ``FakeMaps`` and the fake cgroup seams, its gate on loopback."""
+    driver.api.add_image(ENVOY_IMAGE)
+    return m.runtime.build_handler(
+        cfg, driver.engine(), maps=m.maps.FakeMaps(),
+        resolver=m.enroll.FakeCgroupResolver(),
+        attacher=m.enroll.FakeAttacher(), dns_host="127.0.0.1",
+        dns_port=tcp_free_port())
 
 
 def test_control_plane_lane_is_refused_by_name(tmp_path):
-    """``control_plane.enable``: the reference hands the verb to its
-    daemon; the port names the control plane and builds no handler."""
-    with cli_side(PKGS["port"], tmp_path, MONITOR + PROXY_OFF
-                  + "control_plane:\n  enable: true\n",
-                  "project: cp\n") as (tenv, proj):
-        res = CliRunner().invoke(port_cli.cli, ["firewall", "status"],
-                                 obj=port_cli.Factory(
-                                     cwd=proj,
-                                     driver=port_drivers.FakeDriver()))
-        assert res.exit_code == 1
-        assert ("the control plane is not yet ported to clawker_tpu_torch: "
-                "set control_plane: {enable: false}") in res.output
-        assert local_handler(PKGS["port"], tenv) is None
+    """``control_plane.enable``: each package's ``firewall`` verbs find
+    its control plane healthy (``manager.health``) and ride its
+    AdminService (``admin_client(ensure_material=True)``) to the handler
+    the daemon holds; no monitor-mode handler is built in the verb's
+    process."""
+    def run(m):
+        ports = [tcp_free_port(), tcp_free_port()]
+        with cli_side(m, tmp_path / m.tag, MONITOR + PROXY_OFF
+                      + cp_settings(*ports, True), "project: cp\n") \
+                as (tenv, proj):
+            cfg = m.config.load_config(proj)
+            driver = m.drivers.FakeDriver()
+            handler = _daemon_handler(m, cfg, driver)
+            try:
+                with cp_daemon(m, cfg, driver.engine(), handler,
+                               admin_port=ports[0],
+                               health_port=ports[1]) as (_, calls):
+                    out = []
+                    for argv in (["status"], ["add-rule", "*.pypi.org"],
+                                 ["rules"], ["resolve", "files.pypi.org"]):
+                        res = CliRunner().invoke(
+                            m.cli, ["firewall", *argv],
+                            obj=m.Factory(cwd=proj,
+                                          driver=m.drivers.FakeDriver()))
+                        out.append([res.exit_code, json.loads(res.stdout)])
+                    local = local_handler(m, tenv)
+            finally:
+                _close(handler)
+            return json.loads(json.dumps([out, calls, local]).replace(
+                str(tenv.base), "<BASE>"))
+
+    want, got = both(run)
+    assert got == want
+    out, calls, local = got
+    assert [c for c, _ in out] == [0] * 4 and local is None
+    assert "*.pypi.org:https:443" in out[1][1]["added"]
+    assert calls == {"FirewallStatus": 1, "FirewallAddRules": 1,
+                     "FirewallListRules": 1, "FirewallResolveHostname": 1}
 
 
 def test_pinned_programs_lane_is_refused_by_name(tmp_path, monkeypatch):
-    """Pinned programs present: the reference routes every firewall call
-    to the control plane, the port refuses by name -- on the run path
-    too, before any container starts."""
-    monkeypatch.setattr(port_runtime, "kernel_available", lambda *a: True)
-    with cli_side(PKGS["port"], tmp_path, MONITOR + PROXY_OFF,
-                  "project: pin\n") as (tenv, proj):
-        cfg = port_config.load_config(proj)
-        with pytest.raises(port_errors.ConfigError,
-                           match="the control plane is not yet ported .*"
-                                 "pinned firewall programs under "
-                                 "/sys/fs/bpf/clawker-tpu"):
-            port_bootstrap.pre_start_services(cfg, port_drivers.FakeDriver(),
-                                              "cid")
-        assert local_handler(PKGS["port"], tenv) is None
+    """Pinned programs present (``kernel_available`` patched True in
+    both packages): the run path's hooks route ``FirewallInit`` and
+    ``FirewallEnable`` to the control plane, found healthy on the
+    settings' ports, whose handler brings up the data plane and enrolls
+    the started container."""
+    def run(m):
+        ports = [tcp_free_port(), tcp_free_port()]
+        with cli_side(m, tmp_path / m.tag, MONITOR + PROXY_OFF
+                      + cp_settings(*ports, False), "project: pin\n") \
+                as (tenv, proj):
+            cfg = m.config.load_config(proj)
+            driver = m.drivers.FakeDriver()
+            handler = _daemon_handler(m, cfg, driver)
+            monkeypatch.setattr(m.runtime, "kernel_available",
+                                lambda *a: True)
+            try:
+                with cp_daemon(m, cfg, driver.engine(), handler,
+                               admin_port=ports[0],
+                               health_port=ports[1]) as (_, calls):
+                    driver.api.add_image("agent:latest")
+                    eng = driver.engine()
+                    cid = eng.create_container(
+                        "clawker.pin.dev", m.api.ContainerSpec(
+                            image="agent:latest"))
+                    m.bootstrap.pre_start_services(cfg, driver, cid)
+                    eng.start_container(cid)
+                    m.bootstrap.post_start_services(cfg, driver, cid)
+                    out = [calls, handler.initialized,
+                           sorted(handler.enrollments) == [cid],
+                           local_handler(m, tenv)]
+            finally:
+                _close(handler)
+            return out
+
+    want, got = both(run)
+    assert got == want
+    assert got == [{"FirewallInit": 1, "FirewallEnable": 1}, True, True,
+                   None]
 
 
 def test_pinned_maps_lane_is_refused_by_name(tmp_path, monkeypatch):

@@ -13,10 +13,10 @@ and ``fleet status``.  Each twin runs the same input through both
 packages, each over its own ``FakeRunner``, and holds the port's
 transcripts, pushes, reports and output to the reference's.
 
-The port refuses the control-plane half of provisioning by name
-(ROADMAP §1 item 13), so every plan here runs with ``with_cp=False`` /
-``--no-cp``, and the refusal itself is held: a ``ConfigError`` naming
-the control plane before any SSH call.  No case reaches the network:
+The plans here run with ``with_cp=False`` / ``--no-cp`` as the
+reference's tests do, but for the cases that hold the control-plane
+half (``cp-unit``, ``verify-healthz``) against the reference's plan and
+``make_scaler``'s ``tpu_vm`` provisioner.  No case reaches the network:
 discovery's metadata and ``gcloud`` lookups are patched.
 """
 
@@ -411,17 +411,45 @@ def test_build_plan_shapes(with_firewall):
         == got
 
 
+def _pkg_free(m, obj):
+    """``obj`` as JSON with the package's name read ``PKG``."""
+    return json.loads(json.dumps(obj).replace(m.name, "PKG"))
+
+
 def test_control_plane_half_is_refused_by_name_before_any_ssh(tmp_path):
-    with pytest.raises(port_errors.ConfigError, match="control plane"):
-        port_provision.build_plan()
-    t = _transport(PKGS["port"], tmp_path)
-    with pytest.raises(port_errors.ConfigError, match="item 13"):
-        port_provision.provision_worker(t, REPO)
-    ts = _fleet_transports(PKGS["port"], tmp_path, n=2)
-    with pytest.raises(port_errors.ConfigError, match="--no-cp"):
-        port_provision.provision_fleet(ts, REPO)
-    assert t.runner.calls == [] and all(x.runner.calls == [] for x in ts)
-    assert not t.runner.pushed
+    """The control-plane half of the plan, as the reference plans it
+    (tests/test_fleet.py:106-115): ``build_plan()`` ends its steps with
+    ``cp-unit`` (the systemd unit, or ``nohup python3 -m
+    <package>.controlplane``) and ``verify-healthz`` (``/healthz`` on
+    ``CP_HEALTH_PORT``), and ``provision_worker`` and
+    ``provision_fleet`` run them over SSH by default."""
+    def prov(m):
+        plan = [dataclasses.astuple(s) for s in m.provision.build_plan()]
+        minimal = [s.name for s in m.provision.build_plan(
+            with_firewall=False, with_cp=False)]
+        t = _transport(m, tmp_path)
+        report = _report(m.provision.provision_worker(t, REPO))
+        ts = _fleet_transports(m, tmp_path / "fleet", n=2)
+        fleet = [_report(r) for r in m.provision.provision_fleet(ts, REPO)]
+        return _pkg_free(m, [plan, minimal, report,
+                             [" ".join(c) for c in t.runner.calls], fleet])
+
+    want, got = both(prov)
+    assert got == want
+    plan, minimal, report, calls, fleet = got
+    names = [s[0] for s in plan]
+    assert names[0] == "preflight-docker"
+    assert "kernel-load" in names and "verify-healthz" in names
+    assert names.index("install-supervisor") < names.index("cp-unit") \
+        < names.index("verify-healthz") < names.index("e2e-smoke")
+    assert "python3 -m PKG.controlplane" in plan[names.index("cp-unit")][1]
+    assert f"127.0.0.1:{port_consts.CP_HEALTH_PORT}/healthz" in \
+        plan[names.index("verify-healthz")][1]
+    assert "verify-healthz" not in minimal and "install-supervisor" in minimal
+    assert report[2] and {"cp-unit", "verify-healthz"} <= \
+        {r[0] for r in report[3] if r[1]}
+    assert any("clawker-cp.service" in c for c in calls)
+    assert all(r[2] for r in fleet) and len(fleet) == 2
 
 
 def test_payload_tar_contents():
@@ -626,12 +654,28 @@ def test_tpu_vm_scaler_without_cp_matches_reference(tmp_path, monkeypatch):
                             "monitor": False}
 
 
-def test_make_scaler_refuses_the_tpu_vm_control_plane_by_name():
-    with pytest.raises(port_errors.ConfigError, match="control plane"):
-        port_capacity.make_scaler(SimpleNamespace(name="tpu_vm"),
-                                  SimpleNamespace(), max_workers=2)
-    with pytest.raises(port_errors.ConfigError, match="item 13"):
-        port_capacity.TPUVMScaler(SimpleNamespace())
+def test_make_scaler_refuses_the_tpu_vm_control_plane_by_name(tmp_path,
+                                                             monkeypatch):
+    """``make_scaler`` on a ``tpu_vm`` driver returns the provisioner,
+    whose default provisions the per-worker control plane too, as the
+    reference's does."""
+    def scale(m):
+        calls = []
+        monkeypatch.setattr(m.provision, "provision_fleet",
+                            lambda ts, root, **kw: calls.append(kw) or [])
+        settings = m.config.Settings()
+        settings.runtime.tpu.workers = ["h0"]
+        cfg = SimpleNamespace(settings=settings, ssh_mux_dir=tmp_path / "mux")
+        sc = m.capacity.make_scaler(SimpleNamespace(name="tpu_vm"), cfg,
+                                    max_workers=2)
+        return [type(sc).__name__, sc.with_cp, sc.with_firewall,
+                sc.provision(1), calls]
+
+    want, got = both(scale)
+    assert got == want
+    assert got == ["TPUVMScaler", True, True, [],
+                   [{"with_firewall": True, "with_cp": True,
+                     "monitor": False}]]
 
 
 # ------------------------------------------------------------------ driver
@@ -1018,15 +1062,20 @@ def test_fleet_cli_provision_bad_worker_index_errors(cli_env):
 
 
 def test_fleet_cli_provision_without_no_cp_is_refused(cli_env, monkeypatch):
+    """Without ``--no-cp`` the plan carries the control-plane steps:
+    ``--dry-run`` prints the reference's plan, and a provision dials the
+    workers."""
     tenv, proj = cli_env
+    got = {pkg: _out(_cli(pkg, proj, ["fleet", "provision", "--dry-run"]))
+           for pkg in ("ref", "port")}
+    assert got["port"] == got["ref"]
+    assert got["port"][0] == 0
+    assert "cp-unit" in got["port"][1] and "verify-healthz" in got["port"][1]
     dialed = []
     monkeypatch.setattr(port_cli.cmd_fleet, "_transports",
                         lambda f: dialed.append(f) or [])
-    for argv in (["fleet", "provision"], ["fleet", "provision", "--dry-run"]):
-        res = _cli("port", proj, argv)
-        assert res.exit_code == 1
-        assert "control plane" in res.output and "--no-cp" in res.output
-    assert dialed == []
+    res = _cli("port", proj, ["fleet", "provision"])
+    assert res.exit_code == 0 and len(dialed) == 1
 
 
 def test_cli_provision_streams_per_worker_summaries(cli_env, tmp_path,

@@ -181,6 +181,23 @@ KERNEL_HALF_MODULES = ["clawker_tpu_torch.firewall.bpfasm",
                        "clawker_tpu_torch.firewall.fwprogs",
                        "clawker_tpu_torch.firewall.bpflive"]
 
+# the control plane: the bus, the docker-events feeder, the watcher, the
+# executor and dialer, the AdminService and AgentService, the daemon
+# with its entry point, the manager and the controlplane verbs; the ones
+# that serve or mint mTLS material load ``cryptography``
+CONTROL_PLANE_MODULES = ["clawker_tpu_torch.controlplane.pubsub",
+                         "clawker_tpu_torch.controlplane.watcher",
+                         "clawker_tpu_torch.controlplane.dockerevents",
+                         "clawker_tpu_torch.controlplane.executor",
+                         "clawker_tpu_torch.controlplane.dialer",
+                         "clawker_tpu_torch.controlplane.manager",
+                         "clawker_tpu_torch.cli.cmd_controlplane",
+                         "clawker_tpu_torch.controlplane.adminapi",
+                         "clawker_tpu_torch.controlplane.agentservice",
+                         "clawker_tpu_torch.controlplane.daemon",
+                         "clawker_tpu_torch.controlplane.__main__"]
+CONTROL_PLANE_PKI = CONTROL_PLANE_MODULES[7:]
+
 
 def _modules() -> list[str]:
     out = []
@@ -235,6 +252,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(FIREWALL_MODULES) <= set(mods)
     # and the firewall's kernel half
     assert set(KERNEL_HALF_MODULES) <= set(mods)
+    # and the control plane
+    assert set(CONTROL_PLANE_MODULES[:-1]) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -333,7 +352,8 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     *FLEET_MODULES, *VERB_MODULES[1:],
                                     *IMAGE_MODULES, *LEFTOVER_MODULES,
                                     *EGRESS_MODULES, *FIREWALL_MODULES,
-                                    *KERNEL_HALF_MODULES])
+                                    *KERNEL_HALF_MODULES,
+                                    *CONTROL_PLANE_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -348,10 +368,11 @@ def test_mesh_and_graft_entry_import_alone_without_jax(module):
 
 @pytest.mark.parametrize("module", ["clawker_tpu_torch.hostproxy.__main__",
                                     "clawker_tpu_torch.socketbridge.container",
-                                    "clawker_tpu_torch.workerd.__main__"])
+                                    "clawker_tpu_torch.workerd.__main__",
+                                    "clawker_tpu_torch.controlplane.__main__"])
 def test_daemon_entry_points_load_no_torch(module):
-    """The host proxy's, the bridge's and workerd's processes run
-    without torch."""
+    """The host proxy's, the bridge's, workerd's and the control plane's
+    processes run without torch."""
     doc = _run_isolated(
         "import importlib, json\n"
         f"importlib.import_module({module!r})\n"
@@ -698,3 +719,15 @@ def test_kernel_sources_are_sm90a_cuda_with_plain_c_entry_points():
             assert len(build.SIGNATURES[name]) == len(
                 re.search(rf'extern "C" int {name}\(([^)]*)\)', src).group(1)
                 .split(","))
+
+
+@pytest.mark.parametrize("module", CONTROL_PLANE_MODULES)
+def test_control_plane_loads_no_torch(module):
+    """The control plane is host code: it loads no torch; only the
+    modules that serve or mint mTLS material load ``cryptography``."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'cryptography': 'cryptography' in sys.modules}))\n")
+    assert doc == {"torch": False, "cryptography": module in CONTROL_PLANE_PKI}

@@ -11,8 +11,9 @@ share one run id, so agent and container names agree.  They must give
 the same final ``status()`` rows, the same per-agent sequence of
 scheduler event kinds and the same per-agent sequence of journal record
 kinds.  The journal and the flight recorder cross between the packages
-both ways, and the refused options, services and drivers raise their
-named errors.
+both ways, the refused options and drivers raise their named errors,
+and the start-time services take the reference's lanes (the control
+plane's through a stubbed manager).
 """
 
 from __future__ import annotations
@@ -860,20 +861,45 @@ def test_seeded_fake_driver_matches_reference(monkeypatch):
 
 @pytest.mark.parametrize("section", ["control_plane", "firewall"])
 def test_pre_start_services_name_each_unported_service(section, monkeypatch):
-    """``control_plane.enable`` names the control plane.  ``firewall.enable``
-    runs the firewall's pre-start hook, whose lane over pinned programs
-    (present here) is the control plane's, named too."""
+    """``control_plane.enable`` makes sure the control plane runs.
+    ``firewall.enable`` with pinned programs present (patched) hands the
+    pre-start hook's ``FirewallInit`` to it: found down, it is started,
+    and the call rides ``admin_client(ensure_material=True)``.  Each
+    package's manager is stubbed and its calls recorded."""
+    import clawker_tpu.controlplane.manager as ref_manager
+    import clawker_tpu.firewall.runtime as ref_fw_runtime
+    import clawker_tpu_torch.controlplane.manager as port_manager
     import clawker_tpu_torch.firewall.runtime as port_fw_runtime
 
-    monkeypatch.setattr(port_fw_runtime, "kernel_available", lambda *a: True)
-    settings = port_config.Settings()
-    for other in ("control_plane", "firewall", "host_proxy"):
-        getattr(settings, other).enable = other == section
-    cfg = SimpleNamespace(settings=settings)
-    with pytest.raises(port_errors.ConfigError,
-                       match="the control plane is not yet ported to "
-                             "clawker_tpu_torch"):
-        port_bootstrap.pre_start_services(cfg, None, "cid")
+    def run(bootstrap, config, manager, fw_runtime):
+        calls = []
+
+        class Client:
+            def call(self, method, payload):
+                calls.append(["call", method, payload])
+                return {"initialized": True}
+
+        monkeypatch.setattr(fw_runtime, "kernel_available", lambda *a: True)
+        monkeypatch.setattr(manager, "health",
+                            lambda cfg: calls.append(["health"]))
+        monkeypatch.setattr(manager, "ensure_running",
+                            lambda cfg: calls.append(["ensure_running"]))
+        monkeypatch.setattr(manager, "admin_client", lambda cfg, **kw: (
+            calls.append(["admin_client", kw]) or Client()))
+        settings = config.Settings()
+        for other in ("control_plane", "firewall", "host_proxy"):
+            getattr(settings, other).enable = other == section
+        bootstrap.pre_start_services(SimpleNamespace(settings=settings),
+                                     None, "cid")
+        return calls
+
+    want = run(ref_bootstrap, ref_config, ref_manager, ref_fw_runtime)
+    got = run(port_bootstrap, port_config, port_manager, port_fw_runtime)
+    assert got == want
+    assert got == ([["ensure_running"]] if section == "control_plane" else
+                   [["health"], ["ensure_running"],
+                    ["admin_client", {"ensure_material": True}],
+                    ["call", "FirewallInit", {}]])
 
 
 def test_pre_start_services_start_the_ports_host_proxy(tmp_path):

@@ -249,12 +249,22 @@ class Collector:
 
 
 def unstamped(body: dict) -> dict:
-    """An OTLP logs body without its wall-clock stamps."""
+    """An OTLP logs body without its wall-clock stamps: each record's
+    ``timeUnixNano``, and the ``@timestamp`` a netlogger record carries
+    in its body (two runs a second apart differ there too)."""
     body = json.loads(json.dumps(body))
     for rl in body["resourceLogs"]:
         for sl in rl["scopeLogs"]:
             for rec in sl["logRecords"]:
                 rec.pop("timeUnixNano")
+                inner = rec["body"]["stringValue"]
+                try:
+                    doc = json.loads(inner)
+                except json.JSONDecodeError:
+                    continue
+                if isinstance(doc, dict) and "@timestamp" in doc:
+                    doc.pop("@timestamp")
+                    rec["body"]["stringValue"] = json.dumps(doc)
     return body
 
 

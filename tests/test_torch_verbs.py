@@ -9,7 +9,8 @@ never meet the other's), and the outputs, exit codes and files are
 compared after normalising container ids, paths and timestamps.  Then:
 dotenv parsing over a table of inputs, alias dispatch, the root's exit
 codes (``Abort`` 130, ``FlagError`` a usage error), the worktree verbs
-with ``prune``, the verbs that are refused by name, and the ``logs``
+with ``prune``, the verb that is refused by name beside the control
+plane's verbs that no longer are, and the ``logs``
 route of the port's ``FakeEngineDaemon``.  The host proxy is off but in
 the one twin that checks its mapping.
 """
@@ -23,6 +24,7 @@ import os
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +38,7 @@ import clawker_tpu.cli.cmd_init as ref_cmd_init
 import clawker_tpu.cli.factory as ref_factory
 import clawker_tpu.cli.root as ref_root
 import clawker_tpu.consts as ref_consts
+import clawker_tpu.controlplane.manager as ref_manager
 import clawker_tpu.engine.drivers as ref_drivers
 import clawker_tpu.engine.fake as ref_fake
 import clawker_tpu.errors as ref_errors
@@ -48,6 +51,7 @@ import clawker_tpu.util.xdg as ref_xdg
 import clawker_tpu_torch.cli as port_cli
 import clawker_tpu_torch.cli.cmd_init as port_cmd_init
 import clawker_tpu_torch.consts as port_consts
+import clawker_tpu_torch.controlplane.manager as port_manager
 import clawker_tpu_torch.engine.drivers as port_drivers
 import clawker_tpu_torch.engine.fake as port_fake
 import clawker_tpu_torch.errors as port_errors
@@ -64,13 +68,14 @@ PKGS = {
         Factory=ref_factory.Factory, drivers=ref_drivers, fake=ref_fake,
         consts=ref_consts, errors=ref_errors, pki=ref_pki, proxy=ref_proxy,
         testenv=ref_testenv, iostreams=ref_iostreams, dotenv=ref_dotenv,
-        xdg=ref_xdg, cmd_init=ref_cmd_init),
+        xdg=ref_xdg, cmd_init=ref_cmd_init, manager=ref_manager),
     "port": SimpleNamespace(
         pkg="port", cli=port_cli.cli, main=port_cli.main,
         Factory=port_cli.Factory, drivers=port_drivers, fake=port_fake,
         consts=port_consts, errors=port_errors, pki=port_pki,
         proxy=port_proxy, testenv=port_testenv, iostreams=port_iostreams,
-        dotenv=port_dotenv, xdg=port_xdg, cmd_init=port_cmd_init),
+        dotenv=port_dotenv, xdg=port_xdg, cmd_init=port_cmd_init,
+        manager=port_manager),
 }
 PROJECT = "demo"
 IMAGE = f"clawker-{PROJECT}:default"
@@ -727,10 +732,17 @@ def test_destructive_prompt_on_a_tty_declines(tmp_path):
 # -------------------------------------------- the verbs that wait
 
 
-# the firewall verbs are ported; the lane where the reference hands them
-# to the control plane (settings ``control_plane.enable``) names that
-WAITING_LANES = {"firewall": ("control_plane:\n  enable: true\n",
-                              "the control plane")}
+def _cp_settings() -> str:
+    """The control plane on, on ports free now (not its fixed 7443,
+    7444 and 7080)."""
+    ports = []
+    for _ in range(3):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    return ("control_plane:\n  enable: true\n"
+            f"  admin_port: {ports[0]}\n  agent_port: {ports[1]}\n"
+            f"  health_port: {ports[2]}\n")
 
 
 @pytest.mark.parametrize("argv,name", [
@@ -738,12 +750,40 @@ WAITING_LANES = {"firewall": ("control_plane:\n  enable: true\n",
     (["controlplane", "status"], "clawker controlplane"),
     (["firewall", "status"], "clawker firewall"),
 ])
-def test_verbs_that_wait_are_refused_by_name(tmp_path, argv, name):
-    settings, name = WAITING_LANES.get(argv[0], ("", name))
-    with side("port", tmp_path, settings=PROXY_OFF + settings) as s:
-        code, out = invoke(s, *argv)
-    assert code == 1
-    assert f"{name}" in out and "not yet ported" in out
+def test_verbs_that_wait_are_refused_by_name(tmp_path, monkeypatch, argv,
+                                             name):
+    """``analyze`` waits for its modules and is refused by name.  The
+    control plane is ported: ``controlplane status`` with none running
+    exits 1 as the reference's does, and ``firewall status`` with
+    ``control_plane.enable`` starts each package's daemon (forked, over
+    the fake driver) and answers over its AdminService; the daemon is
+    stopped after."""
+    if argv == ["analyze"]:
+        with side("port", tmp_path, settings=PROXY_OFF) as s:
+            code, out = invoke(s, *argv)
+        assert code == 1
+        assert name in out and "not yet ported" in out
+        return
+    monkeypatch.setenv("CLAWKER_TPU_DRIVER", "fake")
+    settings = PROXY_OFF + ("firewall:\n  enable: true\n"
+                            "  default_deny: false\n" + _cp_settings()
+                            if argv[0] == "firewall" else "")
+
+    def scenario(s):
+        try:
+            return invoke(s, *argv), s.m.manager.running(s.factory.config)
+        finally:
+            s.m.manager.stop(s.factory.config)
+
+    want, got = twin(tmp_path, scenario, settings=settings)
+    assert got == want
+    (code, out), running = got
+    if argv[0] == "controlplane":
+        assert (code, out, running) == (1, "control plane: not running\n",
+                                        False)
+    else:
+        doc = json.loads(out)
+        assert code == 0 and running and not doc["initialized"]
 
 
 def test_help_lists_the_everyday_verbs_beside_the_earlier_ones():
