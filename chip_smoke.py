@@ -421,7 +421,24 @@
    json`` (healthy, nothing unavailable), ``agents --format json``,
    ``down`` and ``status`` (exit 1) forked over their own daemon.  Each
    step's host ms.
-22. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+22. nsd phase, its files and sockets under ``build/chip_smoke/nsd/``
+   (never the default socket): (a) the probe's facts on one line (euid,
+   ``CapEff``, ``cgroup2_root()``, ``nsd_capable()``, whether a task's
+   ``children`` file reads), then the reference's exact container spawn
+   argv once with ``true`` and an overlay mount of ``/`` inside a mount
+   namespace of its own, each with its exit code and stderr; (b) over
+   the kernel-free double (``testenv.install_nsd_double``, first on
+   ``PATH``), ``NsdDriver`` spawns the port's daemon, which must be the
+   process answering on the socket (``SO_PEERCRED``); tests/test_nsd.py's
+   API checks (ping/info/version, a lifecycle's exit code and framed
+   logs, attach and archive before start, exec and stop, a volume with
+   label filters, 409/404, six lifecycles at once); then ``loop -p 8 -n
+   3 --sentinel`` through the CLI in this process with ``runtime.driver:
+   nsd``, the storm agent flagged, each scored tick one K3 and one K1;
+   (c) the same on real namespaces, the daemon in a mount namespace of
+   its own, where (a)'s trials pass, else why not.  No container,
+   daemon or stand-in process left; each step's host ms.
+23. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -10409,6 +10426,519 @@ def controlplane_phase(device) -> collections.Counter:
     return launches
 
 
+# -------------------------------------------------------------- nsd phase
+
+NSD_IMAGE = "busybox:latest"    # tests/test_nsd.py's: the host's root
+NSD_ITER_S = 0.2                # an nsd container's iteration (its sleep)
+NSD_AGENT_CMD = ["sh", "-c", f"sleep {NSD_ITER_S}; echo iteration done"]
+NSD_SETTINGS = (f"sentinel:\n  interval_s: {LOOP_TICK_S}\n"
+                f"  train_steps: {SENTINEL_STEPS}\n" + ENGINES_SETTINGS)
+NSD_RACES = 6                   # test_nsd.py's concurrent lifecycles
+NSD_START_S = 10.0              # NsdDriver._spawn's own deadline
+
+
+def nsd_probe_case(base: Path) -> tuple[bool, str]:
+    """(a): the host's facts for nsd on one line (euid, ``CapEff``,
+    ``cgroup2_root()``, ``nsd_capable()``, whether a task's
+    ``children`` file reads), then the reference's exact spawn argv
+    (``clawker_tpu/nsd/runtime.py:274-276``) once with ``true``, and an
+    overlay mount of ``/`` under ``base`` made and unmounted inside a
+    mount namespace of its own (the host's mount table is never
+    touched); -> (real namespaces can run here, and if not why)."""
+    from clawker_tpu_torch.engine.drivers.nsdriver import nsd_capable
+    from clawker_tpu_torch.firewall import bpfkern
+
+    status = Path("/proc/self/status").read_text()
+    cap = next((line.split()[1] for line in status.splitlines()
+                if line.startswith("CapEff:")), "")
+    bits = int(cap, 16) if cap else 0
+    capable = nsd_capable()
+    tid = threading.get_native_id()
+    try:
+        Path(f"/proc/self/task/{tid}/children").read_text()
+        children = True
+    except OSError:
+        children = False
+    print(f"nsd (a): euid {os.geteuid()}, CapEff {cap} (CAP_SYS_ADMIN "
+          f"{bool(bits >> CAP_SYS_ADMIN & 1)}), cgroup2_root "
+          f"{bpfkern.cgroup2_root()}, nsd_capable() {capable}, "
+          f"/proc/self/task/<tid>/children readable {children}")
+    if not capable:
+        return False, "nsd_capable() is False"
+    trials = {}
+    spawn = ["unshare", "--fork", "--pid", "--mount", "--uts", "--ipc",
+             "--cgroup", "--kill-child", "true"]
+    dirs = {sub: base / "overlay" / sub for sub in ("upper", "work", "merged")}
+    for d in dirs.values():
+        d.mkdir(parents=True)
+    mount = (f"mount -t overlay overlay -o lowerdir=/,upperdir="
+             f"{dirs['upper']},workdir={dirs['work']} {dirs['merged']} && "
+             f"test -d {dirs['merged']}/proc && umount {dirs['merged']}")
+    for name, argv in (("spawn", spawn),
+                       ("overlay", ["unshare", "--mount", "--propagation",
+                                    "private", "sh", "-c", mount])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True,
+                              timeout=30)
+        trials[name] = proc.returncode
+        print(f"nsd (a): {name} `{' '.join(argv)}`: exit {proc.returncode} "
+              f"in {(time.perf_counter() - t0) * 1e3!r} ms, stderr "
+              f"{proc.stderr.strip()[-500:]!r}")
+    why = [f"{k} exited {v}" for k, v in trials.items() if v]
+    if not children:
+        why.append("no children file (exec would be refused)")
+    return not why, "; ".join(why)
+
+
+def _nsd_sock(base: Path) -> Path:
+    """``base/run/nsd.sock``, or one in a short temporary directory when
+    that path passes what a unix socket path may hold."""
+    import tempfile
+
+    sock = base / "run" / "nsd.sock"
+    if len(str(sock).encode()) >= SUN_PATH_MAX:
+        sock = Path(tempfile.mkdtemp(prefix="clawker-nsd-")) / "nsd.sock"
+    return sock
+
+
+def _listener_argv(sock: Path) -> str:
+    """The command line of the process that answers on ``sock``
+    (``SO_PEERCRED`` of a connection to it)."""
+    import socket
+
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.connect(str(sock))
+        pid = struct.unpack("3i", s.getsockopt(
+            socket.SOL_SOCKET, socket.SO_PEERCRED, struct.calcsize("3i")))[0]
+    return (Path(f"/proc/{pid}/cmdline").read_bytes().replace(b"\0", b" ")
+            .decode(errors="replace").strip())
+
+
+def _nsd_frames(raw: bytes) -> dict[int, bytes]:
+    """A stdcopy stream's bytes by stream (``engine.api._demux_stdcopy``
+    joins the streams, and the lifecycle check holds stdout and stderr
+    apart)."""
+    out: dict[int, bytes] = {}
+    while raw:
+        n = int.from_bytes(raw[4:8], "big")
+        out[raw[0]] = out.get(raw[0], b"") + raw[8:8 + n]
+        raw = raw[8 + n:]
+    return out
+
+
+def _nsd_tar(name: str, data: bytes) -> bytes:
+    import io
+    import tarfile
+
+    buf = io.BytesIO()
+    with tarfile.open(fileobj=buf, mode="w") as tf:
+        ti = tarfile.TarInfo(name)
+        ti.size = len(data)
+        tf.addfile(ti, io.BytesIO(data))
+    return buf.getvalue()
+
+
+def nsd_api_case(name: str, api, *, real: bool) -> dict:
+    """tests/test_nsd.py's API checks against the daemon: ping, info and
+    version; a lifecycle's exit code and framed logs; attach and archive
+    before start; exec and its exit code, then stop; a volume and label
+    filters; 409 and 404; six lifecycles at once.  On real namespaces
+    (``real``) also the PID and UTS isolation, the exec's hostname and
+    stop's 137; over the double the command sees the host's hostname and
+    stop's SIGTERM ends it (143).  -> host ms of the steps."""
+    from clawker_tpu_torch.errors import ConflictError, NotFoundError
+
+    ms: dict = {}
+
+    def create(cname, cmd, **cfg):
+        return api.container_create(cname, dict(
+            {"Image": NSD_IMAGE, "Cmd": cmd, "Labels": {}}, **cfg))["Id"]
+
+    check(api.ping() and api.info()["Name"] == "nsd"
+          and api.version()["ApiVersion"] == "1.43",
+          f"{name}: ping/info/version {api.info()} {api.version()}")
+    t0 = time.perf_counter()
+    cid = create("lc1", ["sh", "-c", "echo out-line; echo err-line >&2; "
+                                     "exit 3"])
+    t1 = time.perf_counter()
+    api.container_start(cid)
+    t2 = time.perf_counter()
+    code = api.container_wait(cid)["StatusCode"]
+    ms["create"], ms["start"], ms["to exit"] = (
+        (t1 - t0) * 1e3, (t2 - t1) * 1e3, (time.perf_counter() - t2) * 1e3)
+    state = api.container_inspect(cid)["State"]
+    logs = _nsd_frames(b"".join(api.container_logs(cid)))
+    check(code == 3 and state["Status"] == "exited" and state["ExitCode"] == 3
+          and logs == {1: b"out-line\n", 2: b"err-line\n"},
+          f"{name}: lifecycle exit {code}, state {state}, logs {logs}")
+    api.container_remove(cid, force=True)
+    if real:
+        cid = create("iso1", ["sh", "-c", 'echo "pid=$$ host=$(hostname)"'],
+                     Hostname="isolated-ns")
+        api.container_start(cid)
+        api.container_wait(cid)
+        out = _nsd_frames(b"".join(api.container_logs(cid))).get(1, b"")
+        check(out == b"pid=1 host=isolated-ns\n",
+              f"{name}: PID and UTS isolation: {out!r}")
+        api.container_remove(cid, force=True)
+    # attach and archive before start (the file read relative to the
+    # working dir, which the double's rootfs holds too)
+    cid = create("att1", ["sh", "-c", "read l; echo got:$l; cat f.txt"],
+                 OpenStdin=True, WorkingDir="/seeded")
+    api.put_archive(cid, "/seeded", _nsd_tar("f.txt", b"seeded-content\n"))
+    stream = api.container_attach(cid, tty=False)
+    api.container_start(cid)
+    stream.write(b"over-stdin\n")
+    got = b"".join(p for _, p in stream.frames())
+    stream.close()
+    api.container_wait(cid)
+    check(got == b"got:over-stdin\nseeded-content\n",
+          f"{name}: attach before start: {got!r}")
+    api.container_remove(cid, force=True)
+    # exec, then stop
+    cid = create("ex1", ["sleep", "15"], Hostname="exhost")
+    api.container_start(cid)
+    check(_wait(lambda: api.container_inspect(cid)["State"]["Pid"], 5),
+          f"{name}: no init pid")
+    t0 = time.perf_counter()
+    e = api.exec_create(cid, {"Cmd": ["sh", "-c", "hostname"]})
+    host = b"".join(p for _, p in api.exec_start(e["Id"], tty=False).frames())
+    ms["exec"] = (time.perf_counter() - t0) * 1e3
+    e2 = api.exec_create(cid, {"Cmd": ["sh", "-c", "exit 9"]})
+    list(api.exec_start(e2["Id"], tty=False).frames())
+    check(_wait(lambda: not api.exec_inspect(e2["Id"])["Running"], 5)
+          and api.exec_inspect(e2["Id"])["ExitCode"] == 9,
+          f"{name}: exec exit {api.exec_inspect(e2['Id'])}")
+    import socket
+
+    want_host = (b"exhost" if real else socket.gethostname().encode()) + b"\n"
+    check(host == want_host, f"{name}: exec hostname {host!r}, want "
+          f"{want_host!r}")
+    t0 = time.perf_counter()
+    api.container_stop(cid, timeout=1)
+    ms["stop"] = (time.perf_counter() - t0) * 1e3
+    stopped = api.container_inspect(cid)["State"]["ExitCode"]
+    check(stopped == (137 if real else 143),
+          f"{name}: stop gave exit {stopped}")
+    api.container_remove(cid, force=True)
+    # a volume, label filters
+    api.volume_create("nsdvol1", labels={"clawker.managed": "1"})
+    vols = api.volume_list(filters={"label": ["clawker.managed=1"]})
+    cid = create("vol1", ["sh", "-c", "echo kept > data/keep.txt"],
+                 HostConfig={"Binds": ["nsdvol1:/data"]},
+                 Labels={"clawker.project": "nsdtest"})
+    api.container_start(cid)
+    api.container_wait(cid)
+    kept = _ctx_members(api.get_archive(cid, "/data/keep.txt"))
+    rows = api.container_list(all=True,
+                              filters={"label": ["clawker.project=nsdtest"]})
+    check([v["Name"] for v in vols["Volumes"]] == ["nsdvol1"]
+          and kept == {"keep.txt": b"kept\n"}
+          and [r["Id"] for r in rows] == [cid],
+          f"{name}: volumes {vols}, kept {kept}, rows {rows}")
+    api.container_remove(cid, force=True)
+    api.volume_remove("nsdvol1")
+    # 409 and 404
+    cid = create("dup1", ["true"])
+    try:
+        create("dup1", ["true"])
+        dup = None
+    except ConflictError as err:
+        dup = str(err)
+    try:
+        api.container_inspect("definitely-missing")
+        missing = None
+    except NotFoundError as err:
+        missing = str(err)
+    check(dup is not None and "already in use" in dup and missing,
+          f"{name}: 409 {dup!r}, 404 {missing!r}")
+    api.container_remove(cid, force=True)
+    # lifecycles at once, each its own exit code and output
+    errors: list[str] = []
+
+    def one(i: int) -> None:
+        try:
+            c = create(f"race{i}", ["sh", "-c", f"echo out-{i}; exit {10 + i}"])
+            api.container_start(c)
+            rc = api.container_wait(c)["StatusCode"]
+            out = _nsd_frames(b"".join(api.container_logs(c)))
+            api.container_remove(c, force=True)
+            if (rc, out) != (10 + i, {1: f"out-{i}\n".encode()}):
+                errors.append(f"race{i}: exit {rc}, logs {out}")
+        except Exception as err:  # noqa: BLE001 - collected, then checked
+            errors.append(f"race{i}: {err.__class__.__name__}: {err}")
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(NSD_RACES)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    ms[f"{NSD_RACES} lifecycles at once"] = (time.perf_counter() - t0) * 1e3
+    check(not errors and not any(t.is_alive() for t in threads)
+          and api.container_list(all=True) == [],
+          f"{name}: concurrent lifecycles {errors}")
+    print(f"{name}: ping/info/version, a lifecycle (exit 3, framed logs), "
+          + ("PID 1 and its own hostname, " if real else "")
+          + "attach and archive before start, exec (exit 9), stop (exit "
+          f"{stopped}), a volume with label filters, 409/404 and "
+          f"{NSD_RACES} lifecycles at once held")
+    return ms
+
+
+def _nsd_writer(api, cfg, out: dict, stop) -> None:
+    """The loop's egress, written once its containers exist (their
+    names, as the nsd daemon lists them): every agent's benign minutes
+    and the hot slot's burst."""
+    pattern = re.compile(rf"^/clawker\.{LOOP_PROJECT}\.(loop-[0-9a-z]+)-\d+$")
+    while not stop.is_set():
+        names = [n for c in api.container_list(all=True) for n in c["Names"]]
+        hits = [m.group(1) for m in map(pattern.match, names) if m]
+        if hits:
+            agents = [f"{hits[0]}-{i}" for i in range(LOOP_AGENTS)]
+            out["agents"] = agents
+            out["hot"] = agents[LOOP_HOT_SLOT]
+            cfg.logs_dir.mkdir(parents=True, exist_ok=True)
+            _append(cfg.logs_dir / f"ebpf-egress-{ENGINES_LOCAL}.jsonl",
+                    _local_egress(agents, out["hot"]))
+            return
+        time.sleep(0.01)
+
+
+def nsd_loop_case(name: str, proj: Path, api, device: str,
+                  stages: dict) -> tuple[collections.Counter, dict]:
+    """``loop -p 8 -n 3 --sentinel --json`` through the CLI, in this
+    process, with settings ``runtime.driver: nsd`` at the lane's socket:
+    every agent done, the storm agent hottest at ``ANOMALY_Z`` or more
+    and flagged, each scored tick one K3 and one K1 on the card (every
+    sentinel the CLI builds is wrapped in a ``TickLog``); -> (launches,
+    host ms)."""
+    import io
+
+    from clawker_tpu_torch.analytics.runtime import ANOMALY_Z
+    from clawker_tpu_torch.cli import DEVICE_ENV
+    from clawker_tpu_torch.cli import main as cli_main
+    from clawker_tpu_torch.config import load_config
+
+    cfg = load_config(proj)
+    seen: dict = {}
+    stop = threading.Event()
+    # a run slower than its margin crosses a minute, and each row's z is
+    # then its new window's, of bus events alone
+    _clear_of_minute_end(FORKED_RUN_MARGIN_S)
+    start_s = time.time() % 60
+    writer = threading.Thread(target=_nsd_writer, args=(api, cfg, seen, stop),
+                              name="nsd-egress-writer")
+    saved_cwd = os.getcwd()
+    saved = {k: os.environ.get(k) for k in (DEVICE_ENV, "CLAWKER_TPU_DRIVER",
+                                            "CLAWKER_TPU_FAKE_IMAGES")}
+    for k in saved:
+        os.environ.pop(k, None)
+    if device != "cuda":            # a dry run on the CPU: the card's
+        os.environ[DEVICE_ENV] = device     # default is left alone
+    handlers = {sig: signal.getsignal(sig)
+                for sig in (signal.SIGINT, signal.SIGTERM)}
+    os.chdir(proj)
+    buf = io.StringIO()
+    writer.start()
+    t0 = time.perf_counter()
+    try:
+        with _chaos_tick_logs(stages) as logs, \
+                contextlib.redirect_stdout(buf):
+            code = cli_main(["loop", "-p", str(LOOP_AGENTS), "-n",
+                             str(LOOP_ITERATIONS), "--sentinel", "--json"])
+    finally:
+        wall = (time.perf_counter() - t0) * 1e3
+        stop.set()
+        writer.join(10)
+        os.chdir(saved_cwd)
+        for sig, handler in handlers.items():   # the loop verb's own
+            signal.signal(sig, handler)
+        os.environ.pop(DEVICE_ENV, None)
+        for k, old in saved.items():
+            if old is not None:
+                os.environ[k] = old
+    print(f"{name}: loop exited {code} after {wall!r} ms, from second "
+          f"{start_s:.2f} of its minute; {len(logs)} sentinel(s)")
+    check(code == 0, f"{name}: loop exited {code}: {buf.getvalue()[-2000:]}")
+    check(len(logs) == 1, f"{name}: {len(logs)} sentinels built")
+    log = logs[0]
+    scored = log.check_run(name)
+    doc = json.loads(buf.getvalue())
+    hot = seen.get("hot")
+    zs = {a["agent"]: a.get("anomaly_z") for a in doc["agents"]}
+    flags = [f["agent"] for f in log.sentinel.flags()]
+    check(len(doc["agents"]) == LOOP_AGENTS
+          and all(a["status"] == "done" and a["iteration"] == LOOP_ITERATIONS
+                  and a["exit_codes"] == [0] * LOOP_ITERATIONS
+                  and a["worker"] == ENGINES_LOCAL for a in doc["agents"]),
+          f"{name}: agents {doc['agents']}")
+    check(hot in zs and None not in zs.values() and zs[hot] >= ANOMALY_Z
+          and max(zs, key=zs.get) == hot
+          and (hot in flags or f"clawker.{LOOP_PROJECT}.{hot}" in flags),
+          f"{name}: z {zs}, hot {hot} (threshold {ANOMALY_Z}), flags {flags}")
+    check(api.container_list(all=True) == [],
+          f"{name}: containers left {api.container_list(all=True)}")
+    tick_ms = [ms["wall"] for n, _, ms, _ in log.ticks if n]
+    print(f"{name}: loop -p {LOOP_AGENTS} -n {LOOP_ITERATIONS} --sentinel "
+          f"through the CLI on the nsd driver: exit 0, run wall {wall!r} ms, "
+          f"{LOOP_AGENTS} agents done; {len(log.ticks)} ticks, {len(scored)} "
+          f"scored (tick ms median {statistics.median(tick_ms)!r}); storm "
+          f"{hot} z {zs[hot]!r} (next {sorted(zs.values())[-2]!r}), flagged "
+          f"{flags}; launches {json.dumps(dict(log.launches()))}")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches(), {"loop": wall,
+                            "refresh_once": statistics.median(tick_ms)}
+
+
+def _lane_procs(base: Path, double) -> list[tuple[int, str]]:
+    """Processes of a lane still running: a container's (its command
+    line or working directory under ``base``: the shim's config, the
+    double's rootfs) or one the double started."""
+    from clawker_tpu_torch.testenv import live_pids
+
+    needle = str(base).encode()
+
+    def under_base(pid: int, _stat, cmdline: bytes) -> bool:
+        try:
+            cwd = os.readlink(f"/proc/{pid}/cwd").encode()
+        except OSError:
+            cwd = b""
+        return needle in cmdline or needle in cwd
+
+    pids = set(live_pids(under_base))
+    if double is not None:
+        pids.update(double.live_pids())
+    out = []
+    for pid in sorted(pids):
+        try:
+            cmd = Path(f"/proc/{pid}/cmdline").read_bytes()
+        except OSError:
+            continue
+        out.append((pid, cmd.replace(b"\0", b" ").decode(
+            errors="replace").strip()))
+    return out
+
+
+def nsd_lane(name: str, base: Path, device: str, stages: dict, *,
+             real: bool) -> tuple[collections.Counter, dict]:
+    """One lane: ``NsdDriver`` brings up the port's daemon (over the
+    double, its own spawn; on real namespaces, a daemon this phase
+    starts in a mount namespace of its own, so the containers' overlay
+    mounts never reach the host's table), the answering process is the
+    port's, the API checks, then the loop; the containers, the daemon
+    and every process of the lane gone after it; -> (launches, ms)."""
+    from clawker_tpu_torch.engine.drivers.nsdriver import ENV_STATE, NsdDriver
+    from clawker_tpu_torch.testenv import install_nsd_double
+
+    sock = _nsd_sock(base)
+    state = base / "state"
+    settings = (NSD_SETTINGS + "runtime:\n  driver: nsd\n"
+                f"  docker_host: unix://{sock}\n")
+    saved = {k: os.environ.get(k) for k in ("PATH", ENV_STATE)}
+    os.environ[ENV_STATE] = str(state)
+    double = install_nsd_double(base / "double") if not real else None
+    if double is not None:
+        os.environ["PATH"] = double.env()["PATH"]
+    drv = NsdDriver(docker_host=f"unix://{sock}")
+    proc = api = None
+    ms: dict = {}
+    try:
+        t0 = time.perf_counter()
+        if real:
+            sock.parent.mkdir(parents=True, exist_ok=True)
+            with open(base / "nsd.log", "ab") as log:
+                proc = subprocess.Popen(
+                    ["unshare", "--mount", "--propagation", "private",
+                     sys.executable, "-m", "clawker_tpu_torch.nsd",
+                     "--socket", str(sock), "--state-dir", str(state)],
+                    stdout=log, stderr=subprocess.STDOUT,
+                    stdin=subprocess.DEVNULL, start_new_session=True,
+                    env=dict(os.environ, PYTHONPATH=str(ROOT)))
+            check(_wait(drv._answers, NSD_START_S),
+                  f"{name}: the daemon never answered: "
+                  f"{(base / 'nsd.log').read_text()[-2000:]}")
+        drv.connect()
+        ms["daemon start"] = (time.perf_counter() - t0) * 1e3
+        proc = proc or drv._proc
+        check(real or drv._proc is not None,
+              f"{name}: NsdDriver spawned no daemon")
+        argv = _listener_argv(sock)
+        check("-m clawker_tpu_torch.nsd " in argv and str(sock) in argv
+              and proc is not None and proc.poll() is None,
+              f"{name}: the answering daemon is {argv!r}")
+        api = drv.engine().api
+        list(api.image_pull(NSD_IMAGE))
+        list(api.image_pull(LOOP_IMAGE))
+        ms.update(nsd_api_case(name, api, real=real))
+        with _isolated_dirs(base / "loop", settings, proxy=False) as proj:
+            (proj / ".clawker.yaml").write_text(
+                f"project: {LOOP_PROJECT}\nagent:\n  cmd: "
+                f"{json.dumps(NSD_AGENT_CMD)}\n")
+            launches, loop_ms = nsd_loop_case(name, proj, api, device, stages)
+        ms.update(loop_ms)
+        left = api.container_list(all=True)
+        check(left == [], f"{name}: containers left {left}")
+    finally:
+        if api is not None:     # a failed check may leave containers
+            try:
+                for row in api.container_list(all=True):
+                    api.container_remove(row["Id"], force=True)
+            except Exception:  # noqa: BLE001 - the daemon may be gone
+                pass
+        drv.close()
+        if proc is not None:
+            proc.terminate()
+            try:
+                proc.wait(10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(5)
+        for k, old in saved.items():
+            if old is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = old
+        if sock.parent.name.startswith("clawker-nsd-"):
+            shutil.rmtree(sock.parent, ignore_errors=True)
+    left = _lane_procs(base, double)
+    if left:
+        _wait(lambda: not _lane_procs(base, double), 5.0, 0.05)
+        left = _lane_procs(base, double)
+        _kill(left)
+    check(not left, f"{name}: processes left {left}")
+    print(card_line())
+    print(f"{name} host ms: " + ", ".join(f"{k} {v!r}" for k, v in ms.items()))
+    return launches, ms
+
+
+def nsd_phase(device) -> collections.Counter:
+    """nsd, the namespace container daemon, behind the nsd driver: (a)
+    the probe, (b) the lane over the kernel-free double, (c) the lane on
+    real namespaces where (a)'s trials pass; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "nsd"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    real, why = nsd_probe_case(out / "a")
+    total = collections.Counter()
+    lanes = ["(b) over the double"]
+    with stage_timers({}) as stages:
+        total.update(nsd_lane("nsd (b)", out / "b", device, stages,
+                              real=False)[0])
+        if real:
+            total.update(nsd_lane("nsd (c)", out / "c", device, stages,
+                                  real=True)[0])
+            lanes.append("(c) on real namespaces")
+        else:
+            print(f"nsd (c): not run: {why}")
+    no_process_left("nsd")
+    print(f"nsd lanes: {', '.join(lanes)}; launches: {json.dumps(total)}; "
+          f"phase wall {(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -10544,6 +11074,9 @@ def main() -> int:
         main_path["launches"][k] += v
     for k, v in controlplane_phase(device).items():
         main_path["launches"][k] += v
+    for k, v in nsd_phase(device).items():
+        main_path["launches"][k] += v
+    check_no_reference_imports()
     cli_phase(device)
     fleet_cli_phase(device)
     check_no_reference_imports()

@@ -2,10 +2,11 @@
 
 The port's copy of ``clawker_tpu/engine/drivers/__init__.py``: the
 ``local`` driver (the Docker daemon at ``DOCKER_HOST``, one worker),
-the ``tpu_vm`` driver (one Docker daemon per pod worker, over SSH) and
-the ``fake`` driver (in-process fake daemons, N workers).  The ``nsd``
-driver is not ported yet (ROADMAP §1 item 13), and ``get_driver``
-names it when asked.
+the ``tpu_vm`` driver (one Docker daemon per pod worker, over SSH),
+the ``fake`` driver (in-process fake daemons, N workers) and the ``nsd``
+driver (the first-party namespace daemon, :mod:`clawker_tpu_torch.nsd`,
+behind the ``local`` driver's client; ``nsdriver`` is imported when
+``get_driver`` is asked for it).
 """
 
 from .base import RuntimeDriver, Worker, get_driver

@@ -1,9 +1,6 @@
 """RuntimeDriver seam: pluggable container backends.
 
-The port's copy of ``clawker_tpu/engine/drivers/base.py``.  Of the
-reference's drivers ``local``, ``tpu_vm`` and ``fake`` are ported:
-``get_driver`` raises a :class:`ConfigError` naming ``nsd`` as not yet
-ported (ROADMAP §1 item 13).
+The port's copy of ``clawker_tpu/engine/drivers/base.py``, whole.
 """
 
 from __future__ import annotations
@@ -119,10 +116,6 @@ def _seeded_fake_driver() -> "RuntimeDriver":
     return drv
 
 
-# the reference's other drivers (clawker_tpu/engine/drivers/__init__.py)
-UNPORTED_DRIVERS = ("nsd",)
-
-
 def get_driver(settings: "Settings", *, override: str = "") -> RuntimeDriver:
     """Driver factory from settings.runtime.driver (or explicit override)."""
     from .local import LocalDriver
@@ -136,9 +129,9 @@ def get_driver(settings: "Settings", *, override: str = "") -> RuntimeDriver:
         from .tpu_vm import TPUVMDriver
 
         return TPUVMDriver(settings.runtime.tpu)
-    if name in UNPORTED_DRIVERS:
-        raise ConfigError(
-            f"runtime driver {name!r} is not yet ported to clawker_tpu_torch "
-            "(only 'local', 'tpu_vm' and 'fake' are)")
+    if name == "nsd":
+        from .nsdriver import NsdDriver
+
+        return NsdDriver(docker_host=settings.runtime.docker_host)
     raise ConfigError(
         f"unknown runtime driver {name!r} (expected local|tpu_vm|nsd|fake)")

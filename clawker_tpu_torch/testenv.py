@@ -1,7 +1,7 @@
 """Isolated test environments and fault shims (public test support).
 
-The port's copy of four pieces of ``clawker_tpu/testenv.py``, and one
-piece of its own:
+The port's copy of four pieces of ``clawker_tpu/testenv.py``, and
+pieces of its own:
 
 - :class:`TestEnv` -- throwaway XDG dirs wired through the
   ``CLAWKER_TPU_*_DIR`` overrides, so a run never touches the real user
@@ -18,13 +18,19 @@ piece of its own:
   unix socket over HTTP/1.1, so the ``local`` driver's HTTP client runs
   against real sockets, keep-alive, streams and the ``101`` hijack
   where no Docker daemon exists.  Its wire handling follows the
-  reference's namespace daemon (``clawker_tpu/nsd/server.py``).
+  namespace daemon's (:mod:`clawker_tpu_torch.nsd.server`).
 
 - :func:`install_ssh_shim` (the port's own) -- the loopback ``ssh``
   (:mod:`clawker_tpu_torch.sshseam`): a pod of SSH workers on this
   machine, each host a directory with its own Docker socket, so the
   ``tpu_vm`` driver's real transport runs its forwards, side channels
   and remote tails where no SSH server exists.
+- :func:`install_nsd_double` (the port's own) -- a kernel-free double
+  of the tools the namespace daemon runs (``unshare``, ``nsenter``,
+  ``mount``, ``umount``), so :mod:`clawker_tpu_torch.nsd` serves real
+  processes where no namespace, overlay or cgroup may be made;
+  :func:`python_without_cgroups`, the interpreter a spawned daemon runs
+  under there so that it makes no cgroup either.
 
 The reference's lock-order tracer and WAN-RTT helper wait for the
 tooling they serve (ROADMAP §1 item 13).
@@ -39,6 +45,7 @@ import http
 import json
 import os
 import re
+import shlex
 import socket
 import struct
 import sys
@@ -1050,6 +1057,25 @@ def _shut(conn: socket.socket) -> None:
         pass
 
 
+def live_pids(match) -> list[int]:
+    """Processes other than this one, not zombies, for which
+    ``match(pid, stat, cmdline)`` holds: ``stat`` is ``/proc/<pid>/stat``'s
+    fields after the command name (state, ppid, pgrp, session, ...),
+    ``cmdline`` its raw ``cmdline``."""
+    out = []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit() or int(d.name) == os.getpid():
+            continue
+        try:
+            cmdline = (d / "cmdline").read_bytes()
+            stat = (d / "stat").read_text().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if stat[0] != "Z" and match(int(d.name), stat, cmdline):
+            out.append(int(d.name))
+    return out
+
+
 # ------------------------------------------------------------ loopback ssh
 
 # the longest worker-side socket path the fleet transport forwards
@@ -1136,18 +1162,8 @@ class SSHShim:
         needles = [str(self.program).encode()] + [
             (e["root"].rstrip("/") + "/").encode()
             for e in self._map["hosts"].values()]
-        out = []
-        for d in Path("/proc").iterdir():
-            if not d.name.isdigit() or int(d.name) == os.getpid():
-                continue
-            try:
-                cmdline = (d / "cmdline").read_bytes()
-                state = (d / "stat").read_text().rsplit(")", 1)[1].split()[0]
-            except OSError:
-                continue
-            if state != "Z" and any(n in cmdline for n in needles):
-                out.append(int(d.name))
-        return out
+        return live_pids(lambda pid, stat, cmdline: any(
+            n in cmdline for n in needles))
 
 
 def install_ssh_shim(bin_dir: str | Path, hosts: dict, *,
@@ -1183,3 +1199,234 @@ def install_ssh_shim(bin_dir: str | Path, hosts: dict, *,
         f"sys.exit(mod.main({str(shim.map_path)!r}, sys.argv[1:]))\n")
     shim.program.chmod(0o755)
     return shim
+
+
+# ------------------------------------------------------------- nsd double
+
+NSD_DOUBLE_TOOLS = ("unshare", "nsenter", "mount", "umount")
+_PR_SET_PDEATHSIG = 1
+_TIOCSCTTY = 0x540E
+_DEFAULT_PATH = "/usr/local/sbin:/usr/local/bin:/usr/sbin:/usr/bin:/sbin:/bin"
+
+
+class NsdDouble:
+    """An installed kernel-free double of the tools nsd's runtime runs.
+
+    ``bin_dir`` holds stand-in ``unshare``, ``nsenter``, ``mount`` and
+    ``umount``; put it first on the daemon process's ``PATH``
+    (:meth:`env`).  The runtime resolves ``unshare`` through its spawn
+    env, which copies that ``PATH``, and the other three through the
+    ``PATH`` itself, so no code of the daemon changes.
+
+    - ``unshare`` forks one child, the container's init: a session of its
+      own, killed when ``unshare`` dies (``--kill-child``), which runs
+      the ``cmd`` of the shim's config with its ``env``, in its
+      ``workdir`` under ``merged``, each bind a symlink under ``merged``
+      to its source; ``unshare`` waits, kills what is left of the
+      init's process group (a PID namespace ends with its init), and
+      exits as the init did.
+    - ``nsenter -t PID ... --wdns=DIR`` runs its command in the init's
+      ``merged`` dir (``DIR`` under it, where that exists).
+    - the overlay ``mount`` leaves ``merged`` a plain directory;
+      ``umount`` succeeds.
+
+    There is no isolation: the container's processes see the host's
+    PIDs, hostname and filesystem."""
+
+    __test__ = False
+
+    def __init__(self, bin_dir: str | Path):
+        self.bin_dir = Path(bin_dir)
+        self.roots = self.bin_dir / "roots"      # init pid -> its merged dir
+        self.inits = self.bin_dir / "inits"      # every init pid, one a line
+
+    def env(self, base: dict | None = None) -> dict:
+        """``base`` (default: this process's environment) with the double
+        first on ``PATH``."""
+        env = dict(os.environ if base is None else base)
+        env["PATH"] = f"{self.bin_dir}{os.pathsep}{env.get('PATH', '')}"
+        return env
+
+    def init_pids(self) -> list[int]:
+        try:
+            return [int(x) for x in self.inits.read_text().split()]
+        except FileNotFoundError:
+            return []
+
+    def live_pids(self) -> list[int]:
+        """Processes still running that this double started: a stand-in
+        (its program path on the command line) or a process of a
+        container's session."""
+        needle = (str(self.bin_dir) + "/").encode()
+        sessions = set(self.init_pids())
+        return live_pids(lambda pid, stat, cmdline: (
+            needle in cmdline or int(stat[3]) in sessions))
+
+
+# the three stand-ins a shell runs: a daemon calls ``mount`` at every
+# create, start and archive write, so they cost a fork, not an interpreter
+_NSD_SHELL_TOOLS = {
+    "nsenter": """#!/bin/sh
+# nsd double: run the command in the target init's rootfs
+target= wd=/
+while [ $# -gt 0 ]; do
+  case "$1" in
+    -t|--target) target=$2; shift 2 ;;
+    --wdns=*) wd=${1#--wdns=}; shift ;;
+    -*) shift ;;
+    *) break ;;
+  esac
+done
+root=$(cat "ROOTS/$target" 2>/dev/null) || {
+  echo "nsenter: cannot open /proc/$target/ns/mnt: No such process" >&2
+  exit 1
+}
+if [ -d "$root/$wd" ]; then cd "$root/$wd"; else cd "$root"; fi
+exec "$@"
+""",
+    "mount": """#!/bin/sh
+# nsd double: the overlay mount leaves merged a plain directory
+case " $* " in
+  *" -t overlay "*) for last; do :; done; mkdir -p "$last"; exit 0 ;;
+esac
+echo "mount (nsd double): only the overlay mount" >&2
+exit 32
+""",
+    "umount": """#!/bin/sh
+# nsd double: nothing was mounted
+exit 0
+""",
+}
+
+
+def install_nsd_double(bin_dir: str | Path) -> NsdDouble:
+    """Write the stand-in ``unshare``, ``nsenter``, ``mount`` and
+    ``umount`` (:class:`NsdDouble`) into ``bin_dir``."""
+    double = NsdDouble(bin_dir)
+    double.roots.mkdir(parents=True, exist_ok=True)
+    root = str(Path(__file__).resolve().parent.parent)
+    for tool in NSD_DOUBLE_TOOLS:
+        prog = double.bin_dir / tool
+        if tool == "unshare":
+            prog.write_text(
+                f"#!{sys.executable} -IS\n"
+                "import sys\n"
+                f"sys.path.insert(0, {root!r})\n"
+                "from clawker_tpu_torch.testenv import NsdDouble, "
+                "_double_unshare\n"
+                f"sys.exit(_double_unshare(NsdDouble({str(bin_dir)!r}), "
+                "sys.argv[1:]))\n")
+        else:
+            prog.write_text(_NSD_SHELL_TOOLS[tool].replace(
+                "ROOTS", str(double.roots)))
+        prog.chmod(0o755)
+    return double
+
+
+def python_without_cgroups(path: str | Path) -> Path:
+    """Write at ``path`` an interpreter for ``NsdDriver``'s spawn (set
+    ``sys.executable`` to it): ``<it> -m <package>.nsd ...`` runs that
+    daemon with its package's ``firewall.bpfkern.cgroup2_root`` made
+    None, so the daemon makes no directory under the host's cgroup-v2
+    and puts no container in a cgroup.  The daemon's argv still holds
+    ``-m <package>.nsd``; any other call runs this interpreter as it
+    is.  -> ``path``."""
+    code = ("import importlib, runpy, sys\n"
+            "mod = sys.argv[2]\n"
+            "kern = importlib.import_module("
+            "mod.rsplit('.', 1)[0] + '.firewall.bpfkern')\n"
+            "kern.cgroup2_root = lambda: None\n"
+            "sys.argv = [mod] + sys.argv[3:]\n"
+            "runpy.run_module(mod, run_name='__main__', alter_sys=True)\n")
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    python = shlex.quote(sys.executable)
+    path.write_text(f'#!/bin/sh\n[ "$1" = -m ] && exec {python} -c '
+                    f'{shlex.quote(code)} "$@"\nexec {python} "$@"\n')
+    path.chmod(0o755)
+    return path
+
+
+def _double_unshare(double: NsdDouble, argv: list[str]) -> int:
+    import signal
+
+    i = 0
+    while i < len(argv) and argv[i].startswith("-"):
+        i += 1
+    cmd = argv[i:]
+    if len(cmd) != 4 or cmd[1] != "-m" or not cmd[2].endswith(".nsd.shim"):
+        sys.stderr.write("unshare (nsd double): only nsd's shim runs\n")
+        return 1
+    cfg = json.loads(Path(cmd[3]).read_text())
+    parent = os.getpid()
+    pid = os.fork()
+    if pid == 0:
+        try:
+            _double_init(double, cfg, parent)
+        except BaseException as e:  # noqa: BLE001 - the init must not return
+            sys.stderr.write(f"unshare (nsd double): {e}\n")
+        finally:
+            os._exit(127)
+    signal.signal(signal.SIGINT, signal.SIG_IGN)
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    # the init stays a zombie until the group is killed: its pid (the
+    # group's id) cannot be reused meanwhile
+    try:
+        os.waitid(os.P_PID, pid, os.WEXITED | os.WNOWAIT)
+    except OSError:                     # no WNOWAIT: reaped just after
+        pass
+    try:
+        os.killpg(pid, signal.SIGKILL)
+    except OSError:
+        pass
+    _, status = os.waitpid(pid, 0)
+    (double.roots / str(pid)).unlink(missing_ok=True)
+    if os.WIFSIGNALED(status):
+        sig = os.WTERMSIG(status)
+        signal.signal(sig, signal.SIG_DFL)
+        os.kill(os.getpid(), sig)
+    return os.waitstatus_to_exitcode(status)
+
+
+def _double_init(double: NsdDouble, cfg: dict, parent: int) -> None:
+    """The container's init: execs its command or raises."""
+    import ctypes
+    import signal
+
+    os.setsid()
+    ctypes.CDLL(None).prctl(_PR_SET_PDEATHSIG, signal.SIGKILL)
+    if os.getppid() != parent:                  # unshare died already
+        os._exit(137)
+    with open(double.inits, "a") as f:
+        f.write(f"{os.getpid()}\n")
+    merged = cfg["merged"]
+    (double.roots / str(os.getpid())).write_text(merged)
+    for bind in cfg.get("binds", []):
+        parts = bind.split(":")
+        if len(parts) < 2:
+            continue
+        target = os.path.join(merged, parts[1].strip("/"))
+        if not os.path.lexists(target):
+            os.makedirs(os.path.dirname(target), exist_ok=True)
+            os.symlink(parts[0], target)
+    hostname = cfg.get("hostname", "")
+    env = dict(cfg.get("env") or {})
+    env.setdefault("PATH", _DEFAULT_PATH)
+    env.setdefault("HOSTNAME", hostname)
+    workdir = os.path.join(merged, (cfg.get("workdir") or "/").strip("/"))
+    os.makedirs(workdir, exist_ok=True)
+    os.chdir(workdir)
+    if cfg.get("tty"):
+        import fcntl
+
+        try:
+            fcntl.ioctl(0, _TIOCSCTTY, 1)
+        except OSError:
+            pass
+    argv = cfg["cmd"]
+    try:
+        os.execvpe(argv[0], argv, env)
+    except OSError as e:
+        sys.stderr.write(f"nsd shim: exec {argv[0]!r}: {e}\n")
+        sys.stderr.flush()
+        os._exit(127)

@@ -198,6 +198,16 @@ CONTROL_PLANE_MODULES = ["clawker_tpu_torch.controlplane.pubsub",
                          "clawker_tpu_torch.controlplane.__main__"]
 CONTROL_PLANE_PKI = CONTROL_PLANE_MODULES[7:]
 
+# nsd, the namespace container daemon, with its entry point, and the nsd
+# driver; the container's init imports the shim, through the package's
+# ``__init__``s, at every container start
+NSD_MODULES = ["clawker_tpu_torch.nsd",
+               "clawker_tpu_torch.nsd.runtime",
+               "clawker_tpu_torch.nsd.shim",
+               "clawker_tpu_torch.nsd.server",
+               "clawker_tpu_torch.engine.drivers.nsdriver",
+               "clawker_tpu_torch.nsd.__main__"]
+
 
 def _modules() -> list[str]:
     out = []
@@ -254,6 +264,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(KERNEL_HALF_MODULES) <= set(mods)
     # and the control plane
     assert set(CONTROL_PLANE_MODULES[:-1]) <= set(mods)
+    # and nsd with its driver
+    assert set(NSD_MODULES[:-1]) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -353,7 +365,7 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     *IMAGE_MODULES, *LEFTOVER_MODULES,
                                     *EGRESS_MODULES, *FIREWALL_MODULES,
                                     *KERNEL_HALF_MODULES,
-                                    *CONTROL_PLANE_MODULES])
+                                    *CONTROL_PLANE_MODULES, *NSD_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -731,3 +743,24 @@ def test_control_plane_loads_no_torch(module):
         "print(json.dumps({'torch': 'torch' in sys.modules,\n"
         "                  'cryptography': 'cryptography' in sys.modules}))\n")
     assert doc == {"torch": False, "cryptography": module in CONTROL_PLANE_PKI}
+
+
+@pytest.mark.parametrize("module", NSD_MODULES)
+def test_nsd_loads_no_torch(module):
+    """nsd and its driver are host code over ``ctypes`` and the
+    kernel's tools: they load no torch and no ``cryptography``.  The
+    shim's chain (``python -m clawker_tpu_torch.nsd.shim`` imports the
+    packages above it first) loads nothing of the port but nsd."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'cryptography': 'cryptography' in sys.modules,\n"
+        "                  'port': sorted(m for m in sys.modules\n"
+        "                                 if m.startswith('clawker_tpu_torch'))}))\n")
+    assert doc["torch"] is False and doc["cryptography"] is False
+    if module == "clawker_tpu_torch.nsd.shim":
+        assert doc["port"] == ["clawker_tpu_torch", "clawker_tpu_torch.nsd",
+                               "clawker_tpu_torch.nsd.runtime",
+                               "clawker_tpu_torch.nsd.server",
+                               "clawker_tpu_torch.nsd.shim"]

@@ -140,7 +140,6 @@ def test_get_driver_builds_local_on_default_settings(tmp_path):
     drv = port_drivers.get_driver(settings)
     assert isinstance(drv, port_drivers.LocalDriver)
     assert drv._docker_host == settings.runtime.docker_host
-    assert port_drivers.base.UNPORTED_DRIVERS == ("nsd",)
 
 
 def test_cli_without_a_daemon_exits_1_with_the_reference_text(
@@ -242,6 +241,10 @@ def test_relabel_less_warm_pool_resume_matches_reference(tmp_path):
             t.start()
             assert wait_for(lambda: all(l.status == "running"
                                         for l in sched1.loops))
+            # the refill after the pool hit lands before the kill, so the
+            # journal holds the same pool in both packages (else a resume
+            # restores a member or not as the refill won the race)
+            assert wait_for(lambda: _pool_settled(sched1))
             sched1.kill()
             t.join(10.0)
             image = m.journal.replay(journal_of(s, sched1))
@@ -275,6 +278,14 @@ def test_relabel_less_warm_pool_resume_matches_reference(tmp_path):
     assert adopted_pool, "no adopted row still labelled with the pool epoch"
     assert new_creates == 0 and unrouted == []
     assert all(status == "done" for _, status, _ in rows)
+
+
+def _pool_settled(sched) -> bool:
+    """Every worker's pool ready at its depth, no refill on the lane."""
+    workers = sched.warmpool.stats()["workers"].values()
+    return bool(workers) and all(
+        w["ready"] >= sched.warmpool.depth and w["inflight"] == 0
+        for w in workers)
 
 
 def _agent_creates(d) -> int:

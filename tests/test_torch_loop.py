@@ -39,6 +39,7 @@ import clawker_tpu.controlplane.bootstrap as ref_bootstrap
 import clawker_tpu.cli.root as ref_root
 import clawker_tpu.config as ref_config
 import clawker_tpu.engine.drivers as ref_drivers
+import clawker_tpu.engine.drivers.nsdriver as ref_nsdriver
 import clawker_tpu.engine.fake as ref_fake
 import clawker_tpu.errors as ref_errors
 import clawker_tpu.fleet.channels as ref_channels
@@ -52,6 +53,7 @@ import clawker_tpu_torch.cli as port_cli
 import clawker_tpu_torch.config as port_config
 import clawker_tpu_torch.controlplane.bootstrap as port_bootstrap
 import clawker_tpu_torch.engine.drivers as port_drivers
+import clawker_tpu_torch.engine.drivers.nsdriver as port_nsdriver
 import clawker_tpu_torch.engine.fake as port_fake
 import clawker_tpu_torch.errors as port_errors
 import clawker_tpu_torch.fleet.channels as port_channels
@@ -791,16 +793,31 @@ def test_cli_refuses_what_is_not_ported(tmp_path, monkeypatch, args,
 
 @pytest.mark.parametrize("name", ["nsd"])
 def test_cli_names_an_unported_driver(tmp_path, monkeypatch, name):
+    """The ``nsd`` driver where it cannot run: no daemon answers on the
+    socket and ``nsd_capable`` is False, so neither package spawns one,
+    and ``loop`` exits 1 in both with the reference's text."""
     monkeypatch.setenv(port_cli.DEVICE_ENV, "cpu")
     monkeypatch.setenv(port_cli.ENV_DRIVER, name)
-    tenv, proj = _env(tmp_path, "port")
-    try:
-        res = CliRunner().invoke(port_cli.cli, ["loop", "-p", "1"],
-                                 obj=port_cli.Factory(cwd=proj))
-    finally:
-        tenv.__exit__(None, None, None)
-    assert res.exit_code == 1
-    assert f"runtime driver {name!r} is not yet ported" in res.output
+    sock = tmp_path / "nsd.sock"
+    monkeypatch.setenv(port_nsdriver.ENV_SOCKET, str(sock))
+    for m in (ref_nsdriver, port_nsdriver):
+        monkeypatch.setattr(m, "nsd_capable", lambda: False)
+    results = []
+    for pkg in ("ref", "port"):
+        tenv, proj = _env(tmp_path, pkg)
+        try:
+            if pkg == "ref":
+                res = CliRunner().invoke(ref_root.cli, ["loop", "-p", "1"],
+                                         obj=ref_factory.Factory(cwd=proj))
+            else:
+                res = CliRunner().invoke(port_cli.cli, ["loop", "-p", "1"],
+                                         obj=port_cli.Factory(cwd=proj))
+        finally:
+            tenv.__exit__(None, None, None)
+        results.append((res.exit_code, "nsd driver needs root + "
+                        "unshare/nsenter (namespace runtime)" in res.output))
+    assert results == [(1, True), (1, True)]
+    assert not sock.exists()
 
 
 @pytest.mark.parametrize("flag", ["--daemon", "--detach"])
@@ -842,11 +859,29 @@ def test_cli_loop_attach_names_the_missing_daemon(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["nsd"])
-def test_unported_drivers_are_named(name):
-    settings = port_config.Settings()
-    with pytest.raises(port_errors.ConfigError,
-                       match=f"{name!r} is not yet ported"):
-        port_drivers.get_driver(settings, override=name)
+def test_unported_drivers_are_named(name, tmp_path, monkeypatch):
+    """``get_driver`` builds each package's own ``NsdDriver`` for
+    ``nsd``, its socket from ``runtime.docker_host``, else from
+    ``CLAWKER_TPU_NSD_SOCKET``, else the default; building connects
+    nothing."""
+    got = {}
+    for pkg, config, drivers, nsdriver in (
+            ("ref", ref_config, ref_drivers, ref_nsdriver),
+            ("port", port_config, port_drivers, port_nsdriver)):
+        monkeypatch.delenv(nsdriver.ENV_SOCKET, raising=False)
+        settings = config.Settings()
+        built = [drivers.get_driver(settings, override=name)]
+        monkeypatch.setenv(nsdriver.ENV_SOCKET, str(tmp_path / "env.sock"))
+        built.append(drivers.get_driver(settings, override=name))
+        settings.runtime.docker_host = f"unix://{tmp_path}/host.sock"
+        built.append(drivers.get_driver(settings, override=name))
+        assert all(type(d) is nsdriver.NsdDriver and d.name == name
+                   and d._proc is None for d in built)
+        got[pkg] = [(d._sock_path, d._docker_host) for d in built]
+    assert got["port"] == got["ref"] == [
+        (Path("/run/clawker/nsd.sock"), "unix:///run/clawker/nsd.sock"),
+        (tmp_path / "env.sock", f"unix://{tmp_path}/env.sock"),
+        (tmp_path / "host.sock", f"unix://{tmp_path}/host.sock")]
 
 
 def test_seeded_fake_driver_matches_reference(monkeypatch):
