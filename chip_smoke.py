@@ -438,7 +438,22 @@
    (c) the same on real namespaces, the daemon in a mount namespace of
    its own, where (a)'s trials pass, else why not.  No container,
    daemon or stand-in process left; each step's host ms.
-23. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+23. analysis phase, its files under ``build/chip_smoke/analysis/``: (a)
+   ``python -m clawker_tpu_torch.analysis --json`` and ``python -m
+   clawker_tpu_torch analyze --json`` forked over this checkout, each
+   exit 0 with the seven checkers, nothing new, nothing stale and the
+   committed ``analysis-baseline-torch.json``'s entries grandfathered;
+   ``--list-checkers`` lists the seven; the analyzer's modules load no
+   torch, numpy, click or JAX; (b) ``run_corpus()`` into a capture DB,
+   0 escaped, and the corpus over a monitor-mode surface grades at least
+   one escape; (c) the reference's BASELINE config #5 shape: 8 loops x 2
+   iterations on 4 fake workers with the live sentinel on the card and an
+   egress burst while ``run_corpus()`` runs in a loop, all inside the
+   port's ``testenv.lock_tracing()``: every pass (b)'s counts with 0
+   escaped, every loop done at iteration 2, no invariant broken, no
+   lock-order cycle, the burst agent flagged, each scored tick one K3
+   and one K1.  Each step's host ms.
+24. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -2905,14 +2920,19 @@ def loopd_inproc_case(base: Path, device, stages: dict):
     return launches
 
 
+def _python(args: list[str], cwd: Path, env: dict | None = None,
+            timeout: float = 300):
+    """``python ARGS`` in ``cwd``: -> (process, host ms)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    return proc, (time.perf_counter() - t0) * 1e3
+
+
 def _cli(args: list[str], proj: Path, env: dict, timeout: float = 300):
     """``python -m clawker_tpu_torch ARGS`` in ``proj``: -> (process,
     host ms)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "clawker_tpu_torch", *args],
-                          cwd=proj, env=env, capture_output=True, text=True,
-                          timeout=timeout)
-    return proc, (time.perf_counter() - t0) * 1e3
+    return _python(["-m", "clawker_tpu_torch", *args], proj, env, timeout)
 
 
 def loopd_forked_case(base: Path, device: str) -> None:
@@ -10939,6 +10959,221 @@ def nsd_phase(device) -> collections.Counter:
     return total
 
 
+ANALYSIS_BASELINE = "analysis-baseline-torch.json"
+ANALYSIS_CHECKERS = {"chaos-determinism", "durable-append-checked",
+                     "import-layering", "no-blocking-under-lock",
+                     "registry-parity", "socket-hardening",
+                     "wal-before-mutation"}
+ANALYSIS_HEAVY = ("torch", "numpy", "click", "jax")
+LOAD_LOOPS, LOAD_ITERATIONS = 8, 2      # tests/test_chaos.py:388-429
+
+
+def analysis_gate_case() -> None:
+    """(a): the port's analyzer over this checkout, forked as CI runs
+    it: bare and through the ``analyze`` verb, each clean against the
+    committed baseline; its checkers; its imports."""
+    base = json.loads((ROOT / ANALYSIS_BASELINE).read_text())["findings"]
+    for name, args in (
+            ("python -m clawker_tpu_torch.analysis --json",
+             ["-m", "clawker_tpu_torch.analysis", "--json"]),
+            ("python -m clawker_tpu_torch analyze --json",
+             ["-m", "clawker_tpu_torch", "analyze", "--json"])):
+        proc, ms = _python(args, ROOT)
+        check(proc.returncode == 0,
+              f"analysis (a) {name}: exit {proc.returncode}: "
+              f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        doc = json.loads(proc.stdout)
+        check(doc["ok"] and set(doc["checkers"]) == ANALYSIS_CHECKERS
+              and doc["new"] == [] and doc["stale_baseline"] == []
+              and len(doc["grandfathered"]) == len(base),
+              f"analysis (a) {name}: {json.dumps(doc)[:3000]}")
+        print(f"analysis (a) {name}: exit 0, {doc['files_scanned']} files, "
+              f"{len(doc['checkers'])} checkers, {len(doc['grandfathered'])} "
+              f"grandfathered ({ANALYSIS_BASELINE}: {len(base)}), "
+              f"{len(doc['suppressed'])} suppressed, none new or stale; "
+              f"the analyzer's own wall {doc['wall_s']!r} s, the fork's "
+              f"host {ms!r} ms")
+    proc, ms = _python(["-m", "clawker_tpu_torch.analysis",
+                        "--list-checkers"], ROOT)
+    listed = {line.split()[0] for line in proc.stdout.splitlines() if line}
+    check(proc.returncode == 0 and listed == ANALYSIS_CHECKERS,
+          f"analysis (a) --list-checkers: exit {proc.returncode}, {listed}")
+    proc, ms_imports = _python(["-c", (
+        "import json, sys\n"
+        "import clawker_tpu_torch.analysis\n"
+        "import clawker_tpu_torch.analysis.runner\n"
+        "import clawker_tpu_torch.analysis.checkers\n"
+        f"print(json.dumps(sorted(set({ANALYSIS_HEAVY!r}) "
+        "& set(sys.modules))))\n")], ROOT)
+    check(proc.returncode == 0 and json.loads(proc.stdout) == [],
+          f"analysis (a) imports: {proc.stdout} {proc.stderr[-2000:]}")
+    print(f"analysis (a) --list-checkers: the {len(listed)} checkers, host "
+          f"{ms!r} ms; the analyzer's three modules load none of "
+          f"{', '.join(ANALYSIS_HEAVY)}, host {ms_imports!r} ms")
+
+
+def _corpus_row(rep) -> tuple[int, int, int]:
+    return rep.total, rep.captured, rep.contained
+
+
+def analysis_corpus_case(out: Path) -> tuple[int, int, int]:
+    """(b): the adversarial corpus on this host into a capture DB, 0
+    escaped; the same corpus over a monitor-mode surface (the agent's
+    cgroup without ``FLAG_ENFORCE``, tests/test_adversarial.py:70's
+    shape) grades escapes; -> the clean pass's (total, captured,
+    contained)."""
+    from clawker_tpu_torch.adversarial import CaptureDB, harness, run_corpus
+    from clawker_tpu_torch.adversarial import payloads as P
+    from clawker_tpu_torch.firewall import model
+
+    out.mkdir(parents=True)
+    db = CaptureDB(out / "capture.db")
+    try:
+        t0 = time.perf_counter()
+        rep = run_corpus(db)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = db.counts()
+    finally:
+        db.close()
+    check(len(P.CORPUS) == 30 and rep.total >= 30 and rep.escaped == 0
+          and rep.ok and sum(counts.values()) == rep.total,
+          f"analysis (b): {rep.to_json()} capture rows {counts}")
+    surface = harness.EgressSurface(P.default_rules(),
+                                    resolutions=P.default_resolutions())
+    surface.maps.enroll(harness.CG, model.ContainerPolicy(
+        envoy_ip=harness.ENVOY_IP, dns_ip=harness.DNS_IP,
+        hostproxy_ip=harness.HOSTPROXY_IP,
+        hostproxy_port=harness.HOSTPROXY_PORT, flags=model.FLAG_HOSTPROXY))
+    weak = collections.Counter(a.outcome.value for fn in P.CORPUS
+                               for a in fn(surface))
+    check(weak["escaped"] >= 1,
+          f"analysis (b): the monitor-mode surface graded no escape: {weak}")
+    print(f"analysis (b) run_corpus: {len(P.CORPUS)} classes, {rep.total} "
+          f"attempts ({rep.captured} captured, {rep.contained} contained, "
+          f"{rep.escaped} escaped), capture DB rows {dict(counts)}, host "
+          f"{ms!r} ms; monitor mode: {dict(weak)}")
+    return _corpus_row(rep)
+
+
+def analysis_load_case(base: Path, device, stages: dict,
+                       clean: tuple[int, int, int]) -> collections.Counter:
+    """(c): the reference's BASELINE config #5 shape (tests/test_chaos.py:
+    388-429) with the loop rig's live sentinel on the card and an egress
+    burst: 8 loops x 2 iterations on 4 fake workers while the corpus runs
+    in a loop, all inside the port's ``testenv.lock_tracing()``."""
+    from clawker_tpu_torch import testenv
+    from clawker_tpu_torch.adversarial import run_corpus
+    from clawker_tpu_torch.analysis import lockgraph
+    from clawker_tpu_torch.chaos.invariants import check_invariants
+    from clawker_tpu_torch.config import load_config
+    from clawker_tpu_torch.engine.drivers import FakeDriver
+    from clawker_tpu_torch.engine.fake import exit_behavior
+    from clawker_tpu_torch.loop import LoopScheduler, LoopSpec
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG
+    from clawker_tpu_torch.sentinel import FleetSentinel
+
+    name = "analysis (c)"
+    check(lockgraph.installed_graph() is None,
+          f"{name}: a lock tracer is installed already")
+    bus_records: list = []
+    reports: list = []
+    with _isolated_dirs(base, CHAOS_SETTINGS, proxy=False) as proj:
+        _clear_of_minute_end(LIVE_RUN_MARGIN_S)
+        t0 = time.perf_counter()
+        with testenv.lock_tracing() as graph:
+            cfg = load_config(proj)
+            drv = FakeDriver(n_workers=LOOP_WORKERS)
+            for api in drv.apis:
+                api.add_image(LOOP_IMAGE)
+                api.set_behavior(LOOP_IMAGE, exit_behavior(
+                    b"iteration done\n", 0, delay=LOOP_ITER_S))
+            sched = LoopScheduler(cfg, drv, LoopSpec(
+                parallel=LOAD_LOOPS, iterations=LOAD_ITERATIONS))
+            s = FleetSentinel(cfg, drv, run_id=sched.loop_id, device=device,
+                              interval_s=LOOP_TICK_S,
+                              train_steps=SENTINEL_STEPS)
+            log = TickLog(s, stages)
+            sched.attach_sentinel(s)
+            sched.events.add_tap(bus_records.append)
+            agents = [sched._agent_name(i) for i in range(LOAD_LOOPS)]
+            hot = agents[LOOP_HOT_SLOT]
+            s.start()
+            sched.start()
+            runner = threading.Thread(target=sched.run,
+                                      kwargs={"poll_s": 0.05},
+                                      name="analysis-load-run")
+            runner.start()
+            for wid, recs in _loop_egress(agents, hot, time.time()).items():
+                _append(cfg.logs_dir / f"ebpf-egress-{wid}.jsonl", recs)
+            while runner.is_alive():
+                reports.append(run_corpus())
+            runner.join(30)
+            want = sum(len(v) for v in _loop_egress(agents, hot, 0).values())
+            deadline = time.perf_counter() + 10
+            while s._scored_at[0] < want and time.perf_counter() < deadline:
+                time.sleep(LOOP_TICK_S)
+            s.stop()
+            sched.events.flush()
+            wall = (time.perf_counter() - t0) * 1e3
+            loops = [(lp.status, lp.iteration) for lp in sched.loops]
+            sched.cleanup(remove_containers=True)
+            violations = check_invariants(drv, cfg, sched.loop_id,
+                                          loops=sched.loops, cap=4)
+    check(lockgraph.installed_graph() is None,
+          f"{name}: the tracer outlived its block")
+    cycles = graph.cycles()
+    check(cycles == [], f"{name}: lock-order cycles:\n"
+          + graph.render_cycles())
+    check(reports and all(r.escaped == 0 and _corpus_row(r) == clean
+                          for r in reports),
+          f"{name}: corpus passes under load "
+          f"{[(_corpus_row(r), r.escaped) for r in reports]}, want "
+          f"{clean} and 0 escaped")
+    check(loops == [("done", LOAD_ITERATIONS)] * LOAD_LOOPS,
+          f"{name}: loops {loops}")
+    check(violations == [], f"{name}: invariants {violations}")
+    scored = log.check_run(name)
+    container = f"clawker.{LOOP_PROJECT}.{hot}"
+    check(any(r.event == ANOMALY_FLAG and r.agent == container
+              for r in bus_records),
+          f"{name}: no {ANOMALY_FLAG} for {container} on the run's bus "
+          f"(flags {s.flags()})")
+    rep = graph.report()
+    print(f"{name} {LOAD_LOOPS} loops x {LOAD_ITERATIONS} iterations over "
+          f"{LOOP_WORKERS} fake workers ({LOOP_ITER_S} s each), the sentinel "
+          f"on {device} and the corpus in a loop under lock tracing: run "
+          f"wall {wall!r} ms; {len(reports)} corpus passes, each "
+          f"{clean} (total, captured, contained), 0 escaped; every loop "
+          f"done at iteration {LOAD_ITERATIONS}, no invariant broken; "
+          f"{len(log.ticks)} ticks, {len(scored)} scored, {container} "
+          f"flagged; lock graph: {rep['acquires']} acquires, "
+          f"{rep['edges']} cross-site edges, "
+          f"{sum(rep['same_site_nestings'].values())} same-site nestings, "
+          f"0 cycles")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches()
+
+
+def analysis_phase(device) -> collections.Counter:
+    """The static analyzer and the adversarial corpus: (a) the gate
+    forked, (b) the corpus, (c) the corpus under a scored fleet's load
+    with lock tracing; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "analysis"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    analysis_gate_case()
+    clean = analysis_corpus_case(out / "b")
+    with stage_timers({}) as stages:
+        total = analysis_load_case(out / "c", device, stages, clean)
+    check_no_reference_imports()
+    no_process_left("analysis")
+    print(f"analysis: launches {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -11075,6 +11310,8 @@ def main() -> int:
     for k, v in controlplane_phase(device).items():
         main_path["launches"][k] += v
     for k, v in nsd_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in analysis_phase(device).items():
         main_path["launches"][k] += v
     check_no_reference_imports()
     cli_phase(device)

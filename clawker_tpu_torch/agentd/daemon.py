@@ -388,7 +388,7 @@ class Agentd:
                     child_env = dict(os.environ)
                     child_env.update(env)
                     # grandfathered no-blocking-under-lock finding
-                    # (analysis-baseline.json): the spawn-exactly-once CAS
+                    # (analysis-baseline-torch.json): the spawn-once CAS
                     # must be atomic with _cmd_running, and this in-container
                     # daemon serves ONE session connection -- nothing
                     # contends _cmd_lock while the fork runs.  Splitting the

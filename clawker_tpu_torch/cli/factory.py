@@ -9,8 +9,7 @@ over ``agents.db``) and opens the side channels lazily.  One departure:
 when the command ends (the reference's CLI leaves a ``tpu_vm`` driver's
 ssh forwards running).  It also holds what every verb module shares:
 ``DEVICE_ENV``, ``ENV_DRIVER`` and the helpers ``_factory``,
-``_project``, ``_device``, ``_bring_up`` and ``_not_ported`` (the
-root's refusal of the verbs that still wait).
+``_project``, ``_device`` and ``_bring_up``.
 """
 
 from __future__ import annotations
@@ -186,8 +185,3 @@ def _bring_up(verb: str, device: str) -> None:
     except (RuntimeError, OSError) as e:    # CUDA errors, KernelCompileError
         click.echo(f"{verb}: cannot bring up {device}: {e}", err=True)
         raise SystemExit(1)
-
-
-def _not_ported(what: str) -> click.ClickException:
-    return click.ClickException(
-        f"{what} is not yet ported to clawker_tpu_torch")

@@ -8,10 +8,9 @@ reference's codes, 130 with ``aborted`` on ``click.Abort``.  The
 start-up notices (``_start_notices``/``_finish_notices``: the update
 check and the changelog teaser over ``state.py`` and ``changelog.py``)
 run on a thread beside the command, only on a TTY, unless
-``CLAWKER_TPU_NO_NOTICES`` is set.  Left out: the verb that waits for
-its modules (``WAITING``: ``analyze``), which is refused by name.  One
-departure: the root closes the driver that the factory built when the
-command ends, so no forward of a ``tpu_vm`` driver outlives the verb.
+``CLAWKER_TPU_NO_NOTICES`` is set.  One departure: the root closes the
+driver that the factory built when the command ends, so no forward of a
+``tpu_vm`` driver outlives the verb.
 The firewall's monitor-mode handler is not the driver's: it lives as
 long as the process, as the reference's does (``firewall/lifecycle.py``).
 """
@@ -22,12 +21,9 @@ import click
 
 from .. import __version__, logsetup
 from ..errors import ClawkerError, ExitError, FlagError, SilentError
-from .factory import Factory, _not_ported
+from .factory import Factory
 
 CONTEXT_SETTINGS = {"help_option_names": ["-h", "--help"], "max_content_width": 100}
-
-# the reference's verbs whose modules are not ported yet (ROADMAP §1)
-WAITING = ("analyze",)
 
 
 class _RootGroup(click.Group):
@@ -42,8 +38,6 @@ class _RootGroup(click.Group):
         # arguments inside an expansion survive, because parsing restarts
         # on the rewritten argv rather than resolving a command object
         if args and super().get_command(ctx, args[0]) is None:
-            if args[0] in WAITING:
-                raise _not_ported(f"clawker {args[0]}")
             from .cmd_settings import load_aliases
 
             expansion = load_aliases(None).get(args[0], "")
@@ -153,6 +147,7 @@ def main(argv: list[str] | None = None) -> int:
 def register_commands() -> None:
     """Attach all command groups (import-cycle-free late binding)."""
     from . import (
+        cmd_analyze,
         cmd_build,
         cmd_bundle,
         cmd_chaos,
@@ -177,6 +172,7 @@ def register_commands() -> None:
         cmd_workerd,
     )
 
+    cmd_analyze.register(cli)
     cmd_build.register(cli)
     cmd_bundle.register(cli)
     cmd_chaos.register(cli)

@@ -238,11 +238,19 @@ def _forward_local(conf: dict, host: str, spec: str) -> int:
         return s
 
     lst = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    # as OpenSSH's unix_listener binds: under StreamLocalBindMask's
+    # default umask 0177, so the socket is 0600 from its first moment
+    old = os.umask(0o177)
     try:
+        # analyze: allow(socket-hardening): ssh -L neither chmods the
+        # socket after the bind nor owns its parent directory (the
+        # fleet transport's mux dir); the umask above is what it does
         lst.bind(local)
     except OSError as e:
         _log(conf, kind="L-failed", host=host, error=str(e))
         _fail(f"unix_listener: cannot bind to path {local}: {e}", 255)
+    finally:
+        os.umask(old)
     lst.listen(64)
 
     def cleanup():

@@ -1,7 +1,6 @@
 """Isolated test environments and fault shims (public test support).
 
-The port's copy of four pieces of ``clawker_tpu/testenv.py``, and
-pieces of its own:
+The port's copy of ``clawker_tpu/testenv.py``, and pieces of its own:
 
 - :class:`TestEnv` -- throwaway XDG dirs wired through the
   ``CLAWKER_TPU_*_DIR`` overrides, so a run never touches the real user
@@ -13,6 +12,12 @@ pieces of its own:
 - :class:`FaultFS` -- the disk-fault shim the storage scenarios wrap
   around a run journal's live handle (the journal's ``_fsync_fh`` seam
   prefers a handle-level ``fsync`` so the shim can intercept it);
+- :func:`inject_wan_rtt` -- a per-call host<->worker WAN round trip on
+  every worker of a driver: ``FakeDriver.set_rtt_all`` (each remote
+  engine call of a fake worker sleeps it), else each ``tpu_vm``
+  worker's ``SSHTransport.rtt_s`` (each mux command pays it);
+- :func:`lock_tracing` -- opt-in lock-order tracing for a block, over
+  :mod:`clawker_tpu_torch.analysis.lockgraph`;
 - :class:`FakeEngineDaemon` (the port's own) -- a
   :class:`~clawker_tpu_torch.engine.fake.FakeDockerAPI` served on a
   unix socket over HTTP/1.1, so the ``local`` driver's HTTP client runs
@@ -31,9 +36,6 @@ pieces of its own:
   processes where no namespace, overlay or cgroup may be made;
   :func:`python_without_cgroups`, the interpreter a spawned daemon runs
   under there so that it makes no cgroup either.
-
-The reference's lock-order tracer and WAN-RTT helper wait for the
-tooling they serve (ROADMAP §1 item 13).
 """
 
 from __future__ import annotations
@@ -122,6 +124,47 @@ class TestEnv(contextlib.AbstractContextManager):
             if local is not None:
                 (root / ".clawker.local.yaml").write_text(local)
         return main
+
+
+def inject_wan_rtt(driver, rtt_s: float) -> None:
+    """Inject a deterministic per-call host<->worker WAN round trip on
+    every worker of ``driver`` (see the module docstring).  Works on
+    any driver exposing ``set_rtt_all`` (FakeDriver) or per-worker
+    engine transports (tpu_vm); silently no-ops elsewhere -- tests can
+    call it unconditionally."""
+    set_all = getattr(driver, "set_rtt_all", None)
+    if callable(set_all):
+        set_all(rtt_s)
+        return
+    for w in driver.workers():
+        transport = getattr(getattr(w, "engine", None), "transport", None)
+        if transport is not None:
+            transport.rtt_s = max(0.0, float(rtt_s))
+
+
+@contextlib.contextmanager
+def lock_tracing():
+    """Opt-in lock-order tracing for a test or bench block
+    (docs/static-analysis.md#lock-order-tracer): every
+    ``threading.Lock``/``RLock`` created inside the block feeds a
+    :class:`~clawker_tpu_torch.analysis.lockgraph.LockGraph`; yields the
+    graph so the caller can assert ``graph.cycles() == []`` (the
+    deadlock-freedom check the chaos soak gates on).
+
+        with testenv.lock_tracing() as graph:
+            ... run the workload ...
+        assert not graph.cycles(), graph.render_cycles()
+
+    The port's tracer is its own: never open this block while the
+    reference's tracer is installed (the suite-wide
+    ``CLAWKER_TPU_LOCKGRAPH=1`` hook), nor the reference's inside it."""
+    from .analysis.lockgraph import install_lock_tracing, uninstall_lock_tracing
+
+    graph = install_lock_tracing()
+    try:
+        yield graph
+    finally:
+        uninstall_lock_tracing()
 
 
 class StubDockerDaemon:

@@ -689,9 +689,8 @@ def _page(path: tuple) -> str:
     return "clawker" + ("_" + "_".join(path) if path else "") + ".md"
 
 
-# the reference's commands the port has no counterpart of yet (ROADMAP
-# §1): the verb refused by name
-ABSENT = {("analyze",)}
+# the reference's commands the port has no counterpart of: none
+ABSENT = set()
 
 
 def test_gen_docs_page_names(tmp_path):

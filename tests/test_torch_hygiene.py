@@ -208,6 +208,29 @@ NSD_MODULES = ["clawker_tpu_torch.nsd",
                "clawker_tpu_torch.engine.drivers.nsdriver",
                "clawker_tpu_torch.nsd.__main__"]
 
+# the static analyzer (pure stdlib) with its checkers, the lock-order
+# tracer and the analyze verb; the adversarial corpus over the firewall's
+# user-space half
+ANALYSIS_MODULES = ["clawker_tpu_torch.analysis",
+                    "clawker_tpu_torch.analysis.baseline",
+                    "clawker_tpu_torch.analysis.core",
+                    "clawker_tpu_torch.analysis.lockgraph",
+                    "clawker_tpu_torch.analysis.runner",
+                    "clawker_tpu_torch.analysis.checkers",
+                    "clawker_tpu_torch.analysis.checkers._util",
+                    "clawker_tpu_torch.analysis.checkers.wal",
+                    "clawker_tpu_torch.analysis.checkers.durable",
+                    "clawker_tpu_torch.analysis.checkers.layering",
+                    "clawker_tpu_torch.analysis.checkers.locks",
+                    "clawker_tpu_torch.analysis.checkers.sockets",
+                    "clawker_tpu_torch.analysis.checkers.parity",
+                    "clawker_tpu_torch.analysis.checkers.determinism",
+                    "clawker_tpu_torch.analysis.__main__"]
+ADVERSARIAL_MODULES = ["clawker_tpu_torch.adversarial",
+                       "clawker_tpu_torch.adversarial.harness",
+                       "clawker_tpu_torch.adversarial.payloads",
+                       "clawker_tpu_torch.cli.cmd_analyze"]
+
 
 def _modules() -> list[str]:
     out = []
@@ -266,6 +289,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(CONTROL_PLANE_MODULES[:-1]) <= set(mods)
     # and nsd with its driver
     assert set(NSD_MODULES[:-1]) <= set(mods)
+    # and the static analyzer, the lock-order tracer and the corpus
+    assert set(ANALYSIS_MODULES[:-1] + ADVERSARIAL_MODULES) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -764,3 +789,30 @@ def test_nsd_loads_no_torch(module):
                                "clawker_tpu_torch.nsd.runtime",
                                "clawker_tpu_torch.nsd.server",
                                "clawker_tpu_torch.nsd.shim"]
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_loads_only_the_stdlib(module):
+    """The analyzer reads the repo as text and runs on a bare host: its
+    modules load no torch, numpy or click, and nothing of the port but
+    the analyzer."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'heavy': sorted({'torch', 'numpy', 'click'}\n"
+        "                                  & set(sys.modules)),\n"
+        "                  'port': sorted({m.split('.')[1] for m in sys.modules\n"
+        "                                  if m.startswith('clawker_tpu_torch.')})}))\n")
+    assert doc == {"heavy": [], "port": ["analysis"]}
+
+
+@pytest.mark.parametrize("module", ADVERSARIAL_MODULES)
+def test_adversarial_and_analyze_verb_load_no_torch(module):
+    """The corpus runs over the firewall's user-space half and the
+    ``analyze`` verb over the analyzer: neither loads torch."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'numpy': 'numpy' in sys.modules}))\n")
+    assert doc == {"torch": False, "numpy": False}

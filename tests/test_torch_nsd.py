@@ -433,10 +433,29 @@ def _exec(side: Side, cid: str, cmd: list[str]) -> tuple[dict, dict]:
     return out, side.api.exec_inspect(e["Id"])
 
 
+def init_ran(side: Side, cid: str, cmd: list[str]) -> bool:
+    """Whether the container's init has exec'd ``cmd``, so its set-up
+    (mounts, ``pivot_root``, hostname, cwd) is over.  ``State.Pid`` is
+    there as soon as ``start`` returns, while the shim (or the double's
+    init) still sets the container up: an exec that joins it then sees
+    the host's hostname, or no root at all."""
+    want = ("\0".join(cmd) + "\0").encode()
+
+    def ran() -> bool:
+        pid = side.api.container_inspect(cid)["State"]["Pid"]
+        try:
+            return bool(pid) and \
+                Path(f"/proc/{pid}/cmdline").read_bytes() == want
+        except OSError:
+            return False
+
+    return wait_for(ran)
+
+
 def case_exec(side: Side) -> dict:
     cid = create(side, "ex1", ["sleep", "15"], Hostname="exhost")
     side.api.container_start(cid)
-    assert wait_for(lambda: side.api.container_inspect(cid)["State"]["Pid"])
+    assert init_ran(side, cid, ["sleep", "15"])
     hostname = _exec(side, cid, ["sh", "-c", "hostname"])
     nine = _exec(side, cid, ["sh", "-c", "exit 9"])
     missing = http(side, "POST", "/exec/nope/start", {"Detach": False})

@@ -752,17 +752,21 @@ def _cp_settings() -> str:
 ])
 def test_verbs_that_wait_are_refused_by_name(tmp_path, monkeypatch, argv,
                                              name):
-    """``analyze`` waits for its modules and is refused by name.  The
-    control plane is ported: ``controlplane status`` with none running
-    exits 1 as the reference's does, and ``firewall status`` with
-    ``control_plane.enable`` starts each package's daemon (forked, over
-    the fake driver) and answers over its AdminService; the daemon is
-    stopped after."""
+    """No verb waits any more.  ``analyze`` is ported: each package's
+    analyzer over its own tree against its own baseline exits 0 with its
+    one grandfathered finding (tests/test_torch_analysis.py holds the
+    findings).  The control plane is ported: ``controlplane status``
+    with none running exits 1 as the reference's does, and ``firewall
+    status`` with ``control_plane.enable`` starts each package's daemon
+    (forked, over the fake driver) and answers over its AdminService;
+    the daemon is stopped after."""
     if argv == ["analyze"]:
-        with side("port", tmp_path, settings=PROXY_OFF) as s:
-            code, out = invoke(s, *argv)
-        assert code == 1
-        assert name in out and "not yet ported" in out
+        want, got = twin(tmp_path, lambda s: invoke(s, *argv))
+        for code, out in (want, got):
+            assert code == 0, out
+            assert "not yet ported" not in out and name not in out
+            assert "1 grandfathered finding(s)" in out
+            assert out.splitlines()[-1].startswith("analyze: ok (")
         return
     monkeypatch.setenv("CLAWKER_TPU_DRIVER", "fake")
     settings = PROXY_OFF + ("firewall:\n  enable: true\n"
