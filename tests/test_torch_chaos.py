@@ -741,9 +741,43 @@ def test_workerd_partition_scenario_reconciles_as_reference(tmp_path):
     assert [r["undelivered"] for r in rows] == [0, 0]
 
 
-def test_soak_report_keeps_the_reference_keys(tmp_path):
+def ref_fresh_cfg_without_proxy():
+    """The reference's ``_fresh_cfg`` with the port's one setting: the
+    host proxy off.  The reference's spawns a proxy on the fixed default
+    port and leaves it running, so on a host where another proxy holds
+    that port one loop of its observe-only fleet fails to start and the
+    twin read that race, not the sentinel."""
+    env = ref_testenv.TestEnv()
+    env.__enter__()
+    env.write_settings("host_proxy:\n  enable: false\n")
+    proj = env.base / "proj"
+    proj.mkdir()
+    (proj / ref_consts.PROJECT_FLAT_FORM).write_text(f"project: {PROJECT}\n")
+    return env, ref_config.load_config(proj)
+
+
+def test_fresh_cfg_turns_the_host_proxy_off_where_the_reference_spawns():
+    """The one difference of the port's ``_fresh_cfg``: its throwaway
+    project runs without the host proxy; the reference's runs with it."""
+    got = []
+    for fresh in (ref_runner._fresh_cfg, port_runner._fresh_cfg,
+                  ref_fresh_cfg_without_proxy):
+        env, cfg = fresh()
+        try:
+            got.append(cfg.settings.host_proxy.enable)
+        finally:
+            env.__exit__(None, None, None)
+    assert got == [True, False, False]
+
+
+def test_soak_report_keeps_the_reference_keys(tmp_path, monkeypatch):
     """``run_soak`` over two scenarios: the report's keys are the
-    reference's, ``observe_only.ok`` is a verdict (True), never null."""
+    reference's, ``observe_only.ok`` is a verdict (True), never null.
+    Both observe-only fleets run without the host proxy, as every other
+    live twin does (``ref_fresh_cfg_without_proxy`` says why)."""
+    monkeypatch.setattr(ref_runner, "_fresh_cfg",
+                        ref_fresh_cfg_without_proxy)
+
     def scenario(s):
         return s.m.runner.run_soak(2, SEED, cfg=s.cfg, shrink=False,
                                    **device_kw(s.m))

@@ -230,6 +230,16 @@ ADVERSARIAL_MODULES = ["clawker_tpu_torch.adversarial",
                        "clawker_tpu_torch.adversarial.harness",
                        "clawker_tpu_torch.adversarial.payloads",
                        "clawker_tpu_torch.cli.cmd_analyze"]
+# the firewall parity scorecard: the virtual internet, the executed Envoy
+# bootstrap, the attacker's capture server, the 22 scenarios, the
+# red-team corpus and ``python -m clawker_tpu_torch.parity``
+PARITY_MODULES = ["clawker_tpu_torch.parity",
+                  "clawker_tpu_torch.parity.attacker",
+                  "clawker_tpu_torch.parity.envoysim",
+                  "clawker_tpu_torch.parity.world",
+                  "clawker_tpu_torch.parity.scenarios",
+                  "clawker_tpu_torch.parity.redteam",
+                  "clawker_tpu_torch.parity.__main__"]
 
 
 def _modules() -> list[str]:
@@ -291,6 +301,8 @@ def test_every_module_and_chip_smoke_import_without_jax_or_reference():
     assert set(NSD_MODULES[:-1]) <= set(mods)
     # and the static analyzer, the lock-order tracer and the corpus
     assert set(ANALYSIS_MODULES[:-1] + ADVERSARIAL_MODULES) <= set(mods)
+    # and the firewall parity scorecard
+    assert set(PARITY_MODULES[:-1]) <= set(mods)
     doc = _run_isolated(
         "import importlib, json\n"
         f"for m in {mods!r}:\n"
@@ -390,7 +402,8 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                     *IMAGE_MODULES, *LEFTOVER_MODULES,
                                     *EGRESS_MODULES, *FIREWALL_MODULES,
                                     *KERNEL_HALF_MODULES,
-                                    *CONTROL_PLANE_MODULES, *NSD_MODULES])
+                                    *CONTROL_PLANE_MODULES, *NSD_MODULES,
+                                    *PARITY_MODULES])
 def test_mesh_and_graft_entry_import_alone_without_jax(module):
     doc = _run_isolated(
         "import importlib, json\n"
@@ -816,3 +829,17 @@ def test_adversarial_and_analyze_verb_load_no_torch(module):
         "print(json.dumps({'torch': 'torch' in sys.modules,\n"
         "                  'numpy': 'numpy' in sys.modules}))\n")
     assert doc == {"torch": False, "numpy": False}
+
+
+@pytest.mark.parametrize("module", PARITY_MODULES)
+def test_parity_loads_no_torch(module):
+    """The scorecard is host code over real sockets: it loads no torch
+    and no numpy; the worlds mint their MITM certificates through
+    ``pki``, so every module reaches ``cryptography``."""
+    doc = _run_isolated(
+        "import importlib, json\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps({'torch': 'torch' in sys.modules,\n"
+        "                  'numpy': 'numpy' in sys.modules,\n"
+        "                  'cryptography': 'cryptography' in sys.modules}))\n")
+    assert doc == {"torch": False, "numpy": False, "cryptography": True}
