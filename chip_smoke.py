@@ -593,6 +593,20 @@ MAIN_PATH_SHARDS = 4
 MESH_SCORE_RTOL = 5e-3
 MESH_SCORE_ATOL = 1e-5
 MESH_LOSS_RTOL = 1e-3
+# K5b, the fit with the rows over `data` and the hidden dimension over
+# `model` = 2 (the reference's layout at an even count): its step held
+# against its plain version at every KERNEL_SHAPE, and its fit at
+# TIMED_SHAPE held and timed, over the virtual meshes of MODEL_MESHES
+# shards of one card (2x2, the main path's sharded hour; 4x2,
+# dryrun_multichip(8)'s).  Its forward's partial outputs y against the
+# plain ones normwise (the largest error over the largest |y|) at
+# SCORE_RTOL: the products are exact, and a tipped bf16 activation moves
+# y by ~2^-9 |g w|, as it moves K1's reconstruction.  K5 keeps its checks
+# and times over data-only meshes of the same counts (``k5_mesh``), and
+# runs on the main path over ODD_MESH_SHARDS shards (3x1).
+MODEL_SOURCE = "anomaly_fit_model"
+MODEL_MESHES = (4, 8)
+ODD_MESH_SHARDS = 3
 
 
 def synth_egress_records(agents: int = 8, windows: int = 64,
@@ -1217,9 +1231,10 @@ def every_device_check() -> None:
 
 
 def shard_cards_check() -> None:
-    """K5 over the fleet mesh of every visible card, when there are
-    several: every card's params the same bits, and those of the same
-    shards on one card."""
+    """K5 over a data-only mesh of every visible card, and K5b over the
+    fleet mesh when it splits the hidden dimension (an even count), when
+    there are several cards: every card's params the same bits, and those
+    of the same shards on one card."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
@@ -1227,11 +1242,12 @@ def shard_cards_check() -> None:
 
     cards = torch.cuda.device_count()
     if cards < 2:
-        print("K5 over several cards: one card visible, not run")
+        print("K5 and K5b over several cards: one card visible, not run")
         return
     n, f = TIMED_SHAPE
     params, x, noises = _inputs(n, f, 8, "cuda:0", seed=n + f)
-    mesh = M.fleet_mesh()
+    fleet = M.fleet_mesh()
+    mesh = M.Mesh(data=cards, model=1, devices=fleet.devices)
     replicas = M.shard_params(tuple(p.clone() for p in params), mesh)
     losses = torch.empty(len(noises), device=x.device)
     K.fit_shard_(replicas, M.shard_rows(x, mesh), M.shard_noise(noises, mesh),
@@ -1242,14 +1258,31 @@ def shard_cards_check() -> None:
     check(all(torch.equal(p.cpu(), q) for r in replicas[1:]
               for p, q in zip(r, home)),
           f"K5 over {cards} cards: the cards' params differ")
-    one_card = _shard_fit(params, x, noises, M.virtual_mesh(cards, "cuda:0"))
+    one_card = _shard_fit(params, x, noises, k5_mesh(cards, "cuda:0"))
     check(all(torch.equal(p.cpu(), q) for p, q in zip(one_card[0], home))
           and torch.equal(one_card[1], losses),
           f"K5 over {cards} cards: not the bits of {cards} shards of one "
           f"card")
-    print(f"K5 [{n},{f}] x{len(noises)} over the {mesh.desc} fleet mesh of "
+    print(f"K5 [{n},{f}] x{len(noises)} over the {mesh.desc} mesh of "
           f"{cards} cards: every card's params the same bits, and those of "
           f"{cards} shards of cuda:0")
+    if fleet.model != K.MODEL:
+        return
+    halves = M.shard_params(params, fleet)
+    K.fit_model_(halves, M.shard_rows(x, fleet), M.shard_noise(noises, fleet),
+                 lr=1e-2, sigma=0.25, losses_out=losses)
+    for dev in fleet.distinct:
+        torch.cuda.synchronize(dev)
+    one_card = _model_fit(params, x, noises, M.virtual_mesh(cards, "cuda:0"))
+    check(all(torch.equal(p.cpu(), q.cpu())
+              for s, h in enumerate(halves)
+              for p, q in zip(h, one_card[0][s % K.MODEL]))
+          and torch.equal(one_card[1], losses),
+          f"K5b over {cards} cards: not the bits of {cards} shards of one "
+          f"card on every card")
+    print(f"K5b [{n},{f}] x{len(noises)} over the {fleet.desc} fleet mesh "
+          f"of {cards} cards: every card's half the bits of the same "
+          f"shards of cuda:0")
 
 
 def ptxas_report(name: str) -> None:
@@ -1391,7 +1424,7 @@ def shard_kernel_phase(device) -> dict:
     for n, f in KERNEL_SHAPES:
         params, x, noises = _inputs(n, f, FIT_STEPS, device, seed=n + f)
         for shards in SHARD_COUNTS:
-            mesh = M.virtual_mesh(shards, device)
+            mesh = k5_mesh(shards, device)
             xs, ns = M.shard_rows(x, mesh), M.shard_rows(noises[0], mesh)
             rows = [len(t) for t in xs]
             total = K.shard_slot_offsets(rows)[-1]
@@ -1433,14 +1466,14 @@ def shard_kernel_phase(device) -> dict:
                                            b_err)
         for shards in TIMED_SHARDS:
             _routes_agree(f"K5 [{n},{f}] x{FIT_STEPS} over {shards} shards",
-                          params, x, noises, M.virtual_mesh(shards, device))
-        one = _shard_fit(params, x, noises, M.virtual_mesh(1, device))
+                          params, x, noises, k5_mesh(shards, device))
+        one = _shard_fit(params, x, noises, k5_mesh(1, device))
         k3 = _k3_fit(params, x, noises)
         check(_same_fit(one, k3),
               f"K5 [{n},{f}] over 1 shard: not bit-identical to K3 after "
               f"{FIT_STEPS} steps: params {_max_abs(one[0], k3[0]):.3g} "
               f"apart")
-        mesh = M.virtual_mesh(MAIN_PATH_SHARDS, device)
+        mesh = k5_mesh(MAIN_PATH_SHARDS, device)
         sp, s_loss = _shard_fit(params, x, noises, mesh)
         rp, r_loss = R.fit_shard(*params, M.shard_rows(x, mesh),
                                  M.shard_noise(noises, mesh), 1e-2, 0.25)
@@ -1480,7 +1513,7 @@ def shard_reload_check(device) -> None:
 
     n, f = RELOAD_SHAPE
     params, x, noises = _inputs(n, f, RELOAD_STEPS, device, seed=n + f)
-    mesh = M.virtual_mesh(RELOAD_SHARDS, device)
+    mesh = k5_mesh(RELOAD_SHARDS, device)
     rows = [len(t) for t in M.shard_rows(x, mesh)]
     plan = K.shard_fit_plan(
         rows, torch.cuda.get_device_properties(device).multi_processor_count,
@@ -1536,13 +1569,13 @@ def mesh_fit_phase(device) -> dict:
         k3 = _k3_fit(params, x, noises)
         k3_scores = K.score(k3[0], x)
         check(_same_fit(_shard_fit(params, x, noises,
-                                   M.virtual_mesh(1, device)), k3),
+                                   k5_mesh(1, device)), k3),
               f"K5 {name} [{n},{f}] over 1 shard: not bit-identical to K3")
         for shards in (1, *MESH_SHARDS):
             _routes_agree(f"K5 {name} [{n},{f}] over {shards} shards",
-                          params, x, noises, M.virtual_mesh(shards, device))
+                          params, x, noises, k5_mesh(shards, device))
         for shards in MESH_SHARDS:
-            mesh = M.virtual_mesh(shards, device)
+            mesh = k5_mesh(shards, device)
             tag = f"K5 {name} [{n},{f}] over {shards} shards"
             sp, s_loss = _shard_fit(params, x, noises, mesh)
             err = _max_abs(sp, k3[0])
@@ -1551,7 +1584,7 @@ def mesh_fit_phase(device) -> dict:
             ok, lerr = _close(s_loss, k3[1], rtol=MESH_LOSS_RTOL)
             check(ok, f"{tag}: losses off K3's by {lerr:.3g}")
             scores = M.score_shards(M.shard_params(sp, mesh),
-                                    M.shard_rows(x, mesh))
+                                    M.shard_rows(x, mesh), mesh)
             check(torch.equal(scores, K.score(sp, x)),
                   f"{tag}: the sharded score is not K1's bit for bit")
             ok, serr = _close(scores, k3_scores, rtol=MESH_SCORE_RTOL,
@@ -1612,7 +1645,7 @@ def shard_timings(params, x, noises) -> dict:
     bound, by = fit_bound(n, f, steps)
     out = {}
     for shards in TIMED_SHARDS:
-        mesh = M.virtual_mesh(shards, x.device)
+        mesh = k5_mesh(shards, x.device)
         xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
         rows = [len(t) for t in xs]
         scratch = torch.empty(K.shard_scratch_floats(rows, f),
@@ -1658,7 +1691,7 @@ def shard_timings(params, x, noises) -> dict:
           f"sub-stages " + ", ".join(f"{k} {v:.2f}"
                                      for k, v in zip(A_SUBSTAGES, k3_sub)))
     for shards in TRACED_SHARDS:
-        mesh = M.virtual_mesh(shards, x.device)
+        mesh = k5_mesh(shards, x.device)
         stamps = torch.zeros((steps, K.FIT_STAMPS, sms), dtype=torch.int64,
                              device=x.device)
         _shard_fit(params, x, noises, mesh, stamps=stamps)
@@ -1670,7 +1703,7 @@ def shard_timings(params, x, noises) -> dict:
               f"sub-stages (each block's last item) "
               + ", ".join(f"{k} {v:.2f}" for k, v in zip(A_SUBSTAGES, sub)))
     # each launch of the per-step route alone, at the main path's shards
-    mesh = M.virtual_mesh(MAIN_PATH_SHARDS, x.device)
+    mesh = k5_mesh(MAIN_PATH_SHARDS, x.device)
     xs, ns = M.shard_rows(x, mesh), M.shard_rows(noises[0], mesh)
     rows = [len(t) for t in xs]
     total = K.shard_slot_offsets(rows)[-1]
@@ -1714,9 +1747,11 @@ def shard_timings(params, x, noises) -> dict:
 
 def graft_phase() -> dict:
     """The graft entry on the card: ``entry()``'s score against its plain
-    version, ``dryrun_multichip(8)`` (K5's per-step route and K1 over 8
-    shards of the card, counted), and ``python -m
-    clawker_tpu_torch.graft_entry``.  -> dryrun_multichip's launches."""
+    version, ``dryrun_multichip(8)`` (K5b's per-step route over the 4x2
+    mesh of 8 shards of the card and K1 per data block, counted),
+    ``dryrun_multichip(ODD_MESH_SHARDS)`` (K5's per-step route over 3x1,
+    counted), and ``python -m clawker_tpu_torch.graft_entry``.  -> the
+    two dryruns' launches."""
     import torch
 
     from clawker_tpu_torch import graft_entry
@@ -1732,10 +1767,18 @@ def graft_phase() -> dict:
                      atol=SCORE_ATOL)
     check(ok, f"entry: score off the plain score by {err:.3g}")
     _, counts = _counted(lambda: graft_entry.dryrun_multichip(8))
-    want = {K.SCORE: 8, K.FIT_STEP: 0, K.FIT: 0, K.FIT_SHARD: 0,
-            K.FIT_SHARD_PARTIALS: 16, K.FIT_SHARD_REDUCE: 2}
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want.update({K.SCORE: 4, K.FIT_MODEL_FORWARD: 16,
+                 K.FIT_MODEL_PARTIALS: 16, K.FIT_MODEL_REDUCE: 4})
     check(counts == want,
           f"dryrun_multichip(8): launches {counts}, want {want}")
+    _, odd = _counted(lambda: graft_entry.dryrun_multichip(ODD_MESH_SHARDS))
+    want = dict.fromkeys(K.LAUNCHES, 0)
+    want.update({K.SCORE: ODD_MESH_SHARDS,
+                 K.FIT_SHARD_PARTIALS: 2 * ODD_MESH_SHARDS,
+                 K.FIT_SHARD_REDUCE: 2})
+    check(odd == want, f"dryrun_multichip({ODD_MESH_SHARDS}): launches "
+                       f"{odd}, want {want}")
     proc = subprocess.run(
         [sys.executable, "-m", "clawker_tpu_torch.graft_entry"], cwd=ROOT,
         capture_output=True, text=True, timeout=300)
@@ -1744,10 +1787,11 @@ def graft_phase() -> dict:
           f"{proc.returncode}: {proc.stderr[-2000:]}")
     print(f"graft entry: entry() scores (256,) on the card (off the plain "
           f"score by {err:.3g}); dryrun_multichip(8) over a 4x2 mesh of 8 "
-          f"shards of cuda:0, launches {json.dumps(counts)}; python -m "
-          f"clawker_tpu_torch.graft_entry: "
+          f"shards of cuda:0, launches {json.dumps(counts)}; "
+          f"dryrun_multichip({ODD_MESH_SHARDS}) over 3x1, launches "
+          f"{json.dumps(odd)}; python -m clawker_tpu_torch.graft_entry: "
           f"{' / '.join(proc.stdout.strip().splitlines())}")
-    return counts
+    return {k: counts[k] + odd[k] for k in counts}
 
 
 def bench_lane_phase(device) -> None:
@@ -1760,6 +1804,367 @@ def bench_lane_phase(device) -> None:
           and doc["windows"] == 520 and doc["device"].startswith("cuda"),
           f"bench_lane: {doc}")
     print(f"bench_lane: {json.dumps(doc)}")
+
+
+# ---------------------------------------------------------------- K5b phase
+
+
+def k5_mesh(shards: int, device):
+    """``shards`` shards of one card with the rows over all of them and the
+    params replicated (model = 1): K5's layout at any count, which
+    ``virtual_mesh`` takes only at an odd one."""
+    from clawker_tpu_torch.analytics import mesh as M
+
+    dev = M.virtual_mesh(1, device).devices[0]
+    return M.Mesh(data=shards, model=1, devices=(dev,) * shards)
+
+
+def _half_slot_totals(slots, count: int, f: int):
+    """The sum over the first ``count`` slots of one half of K5b's slot
+    buffer, in fp64, unpacked: ((dW_enc_m [F, H/2], db_enc_m [H/2],
+    dW_dec_m [H/2, F], db_dec [F]), the squared-error sum)."""
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    pf, fh = K.half_slot_floats(f), f * K.HALF
+    t = slots[:count * pf].view(count, pf).double().sum(0)
+    return ((t[:fh].view(f, K.HALF), t[fh:fh + K.HALF],
+             t[fh + K.HALF:2 * fh + K.HALF].view(f, K.HALF).T,
+             t[2 * fh + K.HALF:2 * fh + K.HALF + f]), t[-1])
+
+
+def _model_fit(params, x, noises, mesh, per_step: bool = False):
+    """K5b's fit over ``mesh`` (model = 2) from the halves of ``params``:
+    as ``fit_model_`` routes it (one launch on one card), or by the
+    per-step route -> (the two halves after, losses)."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    halves = M.shard_params(params, mesh)
+    xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
+    losses = torch.empty(len(noises), device=x.device)
+    if per_step:
+        rows, f, sets = K._check_model(halves, xs, ns, len(noises))
+        scratch = torch.empty(K.model_scratch_floats(rows, f),
+                              device=x.device)
+        K._fit_model_steps(sets, xs, ns, rows, f, lr=1e-2, sigma=0.25,
+                           scratch=scratch, losses_out=losses)
+    else:
+        K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25, losses_out=losses)
+    for dev in mesh.distinct:
+        torch.cuda.synchronize(dev)
+    return halves[:K.MODEL], losses
+
+
+def _same_model_fit(a, b) -> bool:
+    import torch
+
+    (ha, la), (hb, lb) = a, b
+    return (all(torch.equal(p, q) for x, y in zip(ha, hb)
+                for p, q in zip(x, y)) and torch.equal(la, lb))
+
+
+def _model_plain_y(halves, xs, noises):
+    """The plain partial outputs y_m of each half over each data block,
+    [MODEL, N, F], as K5b's forward forms them."""
+    import torch
+
+    from clawker_tpu_torch.kernels import reference as R
+
+    ys = []
+    for w_enc, b_enc, w_dec, _ in halves:
+        blocks = []
+        for x, noise in zip(xs, noises):
+            a = R.bf(x + 0.25 * noise) @ R.bf(w_enc) + b_enc
+            blocks.append(R.bf(R.gelu_tanh(a)) @ R.bf(w_dec))
+        ys.append(torch.cat(blocks))
+    return torch.stack(ys)
+
+
+def model_step_check(params, x, noise, mesh) -> dict:
+    """One K5b step by the per-step route over ``mesh`` against its plain
+    version: each half's params and the loss at the fit-step tolerances,
+    the halves' b_dec the same bits; the forward's y normwise at
+    SCORE_RTOL; each half's slot sums against the plain unrounded sums at
+    SLOT_SUM_RTOL (normwise); the reduce against the plain update of its
+    own slots.  -> max abs errors per launch."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    n, f = x.shape
+    name = f"K5b [{n},{f}] over {mesh.desc}"
+    halves = M.shard_params(params, mesh)
+    start = [tuple(p.clone() for p in h) for h in halves[:K.MODEL]]
+    xs, ns = M.shard_rows(x, mesh), M.shard_rows(noise, mesh)
+    blocks, bnoise = xs[::K.MODEL], ns[::K.MODEL]
+    rows = [len(t) for t in blocks]
+    scratch = torch.empty(K.model_scratch_floats(rows, f), device=x.device)
+    loss = torch.empty(1, device=x.device)
+    K.fit_model_step_(halves, xs, ns, lr=1e-2, sigma=0.25, loss_out=loss,
+                      scratch=scratch)
+    torch.cuda.synchronize()
+    want, w_loss = R.fit_model_step(start, blocks, bnoise, 1e-2, 0.25)
+    err = max(_max_abs(h, w) for h, w in zip(halves[:K.MODEL], want))
+    check(err <= STEP1_PARAM_ATOL,
+          f"{name}: params after 1 step off by {err:.3g}")
+    ok, lerr = _close(loss[0], w_loss, rtol=STEP1_LOSS_RTOL)
+    check(ok, f"{name}: loss of step 1 off by {lerr:.3g}")
+    check(torch.equal(halves[0].b_dec, halves[1].b_dec),
+          f"{name}: the halves' b_dec differ")
+    total = K.shard_slot_offsets(rows)[-1]
+    pf = K.half_slot_floats(f)
+    y = scratch[K.MODEL * total * pf:-1].view(K.MODEL, sum(rows), f)
+    y_want = _model_plain_y(start, blocks, bnoise)
+    y_err = float((y - y_want).abs().max())
+    check(y_err <= SCORE_RTOL * float(y_want.abs().max()),
+          f"{name}: the forward's y off by {y_err:.3g}")
+    grads, _ = R.model_step_grads(start, blocks, bnoise, 0.25)
+    a_err = b_err = slot_err = 0.0
+    for m in range(K.MODEL):
+        slots = scratch[m * total * pf:]
+        (got_enc, got_be, got_dec, got_bd), sq = _half_slot_totals(
+            slots, total, f)
+        dw_enc, db_enc, dw_dec, db_dec = grads[m]
+        slot_err = max(slot_err, *(
+            float((g - w.double()).norm() / w.double().norm())
+            for g, w in ((got_enc, dw_enc), (got_dec, dw_dec))))
+        a_err = max(a_err, *(float((g - w.double()).abs().max()) for g, w in
+                             zip((got_enc, got_be, got_dec, got_bd),
+                                 grads[m])))
+        plain = R.sgd_update(start[m], (got_enc.float(), got_be.float(),
+                                        got_dec.float(), got_bd.float()),
+                             1e-2)
+        b_err = max(b_err, _max_abs(halves[m], plain))
+        if m == 0:
+            ok, lerr = _close(loss[0], sq.float() / (sum(rows) * f),
+                              rtol=STEP1_LOSS_RTOL)
+            check(ok, f"{name}: the reduce's loss off the plain one by "
+                      f"{lerr:.3g}")
+    check(slot_err <= SLOT_SUM_RTOL,
+          f"{name}: slot sums off the plain fp32 sums by {slot_err:.3g} "
+          f"(normwise)")
+    check(b_err <= STEP1_PARAM_ATOL,
+          f"{name}: the reduce off the plain update of its slots by "
+          f"{b_err:.3g}")
+    return {"y": y_err, "slots": a_err, "slot_rel": slot_err,
+            "params": max(err, b_err)}
+
+
+def model_kernel_phase(device) -> dict:
+    """K5b over MODEL_MESHES of one card: ``model_step_check`` at every
+    KERNEL_SHAPE; at TIMED_SHAPE x FIT_STEPS the one-launch fit bit for
+    bit the per-step route's and itself, within K5's FIT tolerances of
+    the plain split fit (``reference.fit_model_shard``), and the halves'
+    b_dec the same bits.  -> max abs errors per entry point."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    errs = {K.FIT_MODEL: 0.0, K.FIT_MODEL_FORWARD: 0.0,
+            K.FIT_MODEL_PARTIALS: 0.0, K.FIT_MODEL_REDUCE: 0.0}
+    slot_max = 0.0
+    for n, f in KERNEL_SHAPES:
+        params, x, noises = _inputs(n, f, 1, device, seed=n + f)
+        for shards in MODEL_MESHES:
+            e = model_step_check(params, x, noises[0],
+                                 M.virtual_mesh(shards, device))
+            errs[K.FIT_MODEL_FORWARD] = max(errs[K.FIT_MODEL_FORWARD],
+                                            e["y"])
+            errs[K.FIT_MODEL_PARTIALS] = max(errs[K.FIT_MODEL_PARTIALS],
+                                             e["slots"])
+            errs[K.FIT_MODEL_REDUCE] = max(errs[K.FIT_MODEL_REDUCE],
+                                           e["params"])
+            slot_max = max(slot_max, e["slot_rel"])
+    n, f = TIMED_SHAPE
+    params, x, noises = _inputs(n, f, FIT_STEPS, device, seed=n + f)
+    for shards in MODEL_MESHES:
+        mesh = M.virtual_mesh(shards, device)
+        tag = f"K5b [{n},{f}] x{FIT_STEPS} over {mesh.desc}"
+        one = _model_fit(params, x, noises, mesh)
+        per = _model_fit(params, x, noises, mesh, per_step=True)
+        check(_same_model_fit(one, per),
+              f"{tag}: the one-launch fit is not the per-step route's bits")
+        check(_same_model_fit(one, _model_fit(params, x, noises, mesh)),
+              f"{tag}: two one-launch fits from the same inputs differ")
+        check(torch.equal(one[0][0].b_dec, one[0][1].b_dec),
+              f"{tag}: the halves' b_dec differ")
+        xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
+        want, w_losses = R.fit_model_shard(
+            [tuple(p) for p in M.shard_params(params, mesh)[:K.MODEL]],
+            xs[::K.MODEL], ns[::K.MODEL], 1e-2, 0.25)
+        err = max(_max_abs(h, w) for h, w in zip(one[0], want))
+        check(err <= FIT_PARAM_ATOL,
+              f"{tag}: params off the plain split fit by {err:.3g}")
+        ok, lerr = _close(one[1], w_losses, rtol=FIT_LOSS_RTOL)
+        check(ok, f"{tag}: losses off the plain split fit by {lerr:.3g}")
+        errs[K.FIT_MODEL] = max(errs[K.FIT_MODEL], err)
+        print(f"{tag}: the one-launch fit is the per-step route's bits, "
+              f"twice the same, the halves' b_dec the same bits; off the "
+              f"plain split fit: params {err:.3g} (atol {FIT_PARAM_ATOL}), "
+              f"losses {_rel(one[1], w_losses):.3g} relative (rtol "
+              f"{FIT_LOSS_RTOL})")
+    print(f"K5b at {len(KERNEL_SHAPES)} shapes over "
+          f"{[M.virtual_mesh(s, device).desc for s in MODEL_MESHES]} of one "
+          f"card: step 1's params (atol {STEP1_PARAM_ATOL}) and loss (rtol "
+          f"{STEP1_LOSS_RTOL}) against the plain split step, the forward's "
+          f"y normwise rtol {SCORE_RTOL}, the slots' sums normwise rtol "
+          f"{SLOT_SUM_RTOL} (largest {slot_max:.3g}), the reduce against "
+          f"the plain update of its own slots")
+    print(f"K5b max abs err: {json.dumps(errs)}")
+    return errs
+
+
+def model_bound(rows, f: int) -> dict:
+    """Least times of K5b's per-step launches over data blocks of ``rows``
+    rows, each the larger of its bytes and its bf16 tensor flops: the
+    forward of block 0's half (x, noise and the half's params in, y out;
+    the two products over H/2), the partials (x, noise, the params and the
+    peer's y in, the slots out; the forward again and the backward), and
+    the reduce of one half (its slots in, its params in and out, the loss
+    out)."""
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    n, half = rows[0], K.HALF
+    params = 2 * f * half + half + f
+    slots = K.fit_slots(n) * K.half_slot_floats(f)
+    fwd_flops = 4 * n * f * half
+    return {
+        K.FIT_MODEL_FORWARD: _bound(4 * (3 * n * f + params) / HBM_BPS,
+                                    fwd_flops / BF16_FLOPS),
+        K.FIT_MODEL_PARTIALS: _bound(
+            4 * (3 * n * f + params + slots) / HBM_BPS,
+            (fwd_flops + 18 * n * f * half) / BF16_FLOPS),
+        K.FIT_MODEL_REDUCE: _bound(
+            4 * (K.shard_slot_offsets(rows)[-1] * K.half_slot_floats(f)
+                 + 2 * params + 1) / HBM_BPS, 0.0),
+    }
+
+
+def model_timings(device) -> dict:
+    """K5b's time per fit at TIMED_SHAPE x FIT_STEPS over MODEL_MESHES of
+    one card, beside K5 over k5_mesh of the same counts and K3, all in
+    this call: each fit's device time by ``event_ms`` (median of 15 behind
+    a spin kernel), K5b's per-step route's by ``cuda_ms`` (the fit
+    captured in one CUDA graph), the plain split fit's (host-bound); at
+    the main path's 2x2 each per-step launch alone by ``cuda_ms`` beside
+    its plain version and ``model_bound``.  -> {kernel: (ms, plain, bound,
+    by)} at 2x2."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+    from clawker_tpu_torch.kernels import reference as R
+
+    n, f = TIMED_SHAPE
+    params, x, noises = _inputs(n, f, FIT_STEPS, device, seed=n + f)
+    steps = len(noises)
+    losses = torch.empty(steps, device=x.device)
+    tq = tuple(p.clone() for p in params)
+    k3_ms = event_ms(lambda: K.fit_(tq, x, noises, lr=1e-2, sigma=0.25,
+                                    losses_out=losses))
+    bound, by = fit_bound(n, f, steps)
+    out = {}
+    for shards in MODEL_MESHES:
+        mesh = M.virtual_mesh(shards, x.device)
+        halves = M.shard_params(params, mesh)
+        xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
+        rows, _, sets = K._check_model(halves, xs, ns, steps)
+        scratch = torch.empty(K.model_scratch_floats(rows, f),
+                              device=x.device)
+
+        def fit():
+            K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25,
+                         losses_out=losses, scratch=scratch)
+
+        def per_step():
+            K._fit_model_steps(sets, xs, ns, rows, f, lr=1e-2, sigma=0.25,
+                               scratch=scratch, losses_out=losses)
+
+        ms = event_ms(fit)
+        per_ms = cuda_ms(per_step, batches=5, per_batch=1)
+        start = [tuple(p) for p in halves[:K.MODEL]]
+        plain_ms = event_ms(lambda: R.fit_model_shard(
+            start, xs[::K.MODEL], ns[::K.MODEL], 1e-2, 0.25), reps=3)
+        k5 = k5_mesh(shards, x.device)
+        replicas = [tuple(p.clone() for p in params)]
+        k5_xs, k5_ns = M.shard_rows(x, k5), M.shard_noise(noises, k5)
+        k5_ms = event_ms(lambda: K.fit_shard_(
+            replicas, k5_xs, k5_ns, lr=1e-2, sigma=0.25, losses_out=losses))
+        if shards == MAIN_PATH_SHARDS:
+            out[K.FIT_MODEL] = (ms, plain_ms, bound, by)
+        print(f"K5b [{n},{f}] x{steps} over {mesh.desc} of one card: one "
+              f"launch {ms:.4f} ms per fit (device), "
+              f"{K.MODEL * K.shard_slot_offsets(rows)[-1]} items a phase; "
+              f"per-step route {per_ms:.4f} ms per fit (device, one CUDA "
+              f"graph), {steps * (2 * shards + K.MODEL)} launches; plain "
+              f"split fit {plain_ms:.3f} ms (host-bound); beside K5 over "
+              f"{k5.desc} {k5_ms:.4f} ms and K3 {k3_ms:.4f} ms per fit; "
+              f"bound {bound:.4f} ms by {by}")
+    # each launch of the per-step route alone, at the main path's 2x2
+    mesh = M.virtual_mesh(MAIN_PATH_SHARDS, x.device)
+    halves = M.shard_params(params, mesh)
+    xs, ns = M.shard_rows(x, mesh), M.shard_rows(noises[0], mesh)
+    blocks, bnoise = xs[::K.MODEL], ns[::K.MODEL]
+    rows = [len(t) for t in blocks]
+    total = K.shard_slot_offsets(rows)[-1]
+    pf = K.half_slot_floats(f)
+    scratch = torch.empty(K.model_scratch_floats(rows, f), device=x.device)
+    K.fit_model_step_(halves, xs, ns, lr=1e-2, sigma=0.25, loss_out=losses,
+                      scratch=scratch)
+    y = scratch[K.MODEL * total * pf:]
+    h0 = halves[0]
+    c_fwd = K.kernel(K.FIT_MODEL_FORWARD)
+    c_part = K.kernel(K.FIT_MODEL_PARTIALS)
+    c_red = K.kernel(K.FIT_MODEL_REDUCE)
+
+    def forward():
+        stream = torch.cuda.current_stream().cuda_stream
+        K._launched(K.FIT_MODEL_FORWARD, c_fwd(
+            blocks[0].data_ptr(), bnoise[0].data_ptr(), 0.25,
+            *(p.data_ptr() for p in h0), y.data_ptr(), rows[0], f, stream))
+
+    def partials():
+        stream = torch.cuda.current_stream().cuda_stream
+        K._launched(K.FIT_MODEL_PARTIALS, c_part(
+            blocks[0].data_ptr(), bnoise[0].data_ptr(), 0.25,
+            *(p.data_ptr() for p in h0), y.data_ptr() + 4 * n * f,
+            scratch.data_ptr(), scratch.numel(), rows[0], n, f, stream))
+
+    def reduce():
+        stream = torch.cuda.current_stream().cuda_stream
+        K._launched(K.FIT_MODEL_REDUCE, c_red(
+            scratch.data_ptr(), total * pf, total,
+            *(p.data_ptr() for p in h0), losses.data_ptr(), 1e-2, n, f,
+            stream))
+
+    def plain_forward():
+        a = R.bf(blocks[0] + 0.25 * bnoise[0]) @ R.bf(h0.w_enc) + h0.b_enc
+        return R.bf(R.gelu_tanh(a)) @ R.bf(h0.w_dec)
+
+    start = [tuple(h) for h in halves[:K.MODEL]]
+    bounds = model_bound(rows, f)
+    for name, kernel_call, plain_call in (
+            (K.FIT_MODEL_FORWARD, forward, plain_forward),
+            (K.FIT_MODEL_PARTIALS, partials,
+             lambda: R.model_step_grads(start, blocks[:1], bnoise[:1], 0.25)),
+            (K.FIT_MODEL_REDUCE, reduce,
+             lambda: R.sgd_update(start[0], tuple(
+                 g.float() for g in _half_slot_totals(scratch, total, f)[0]),
+                 1e-2))):
+        ms, plain = cuda_ms(kernel_call), cuda_ms(plain_call)
+        b_ms, b_by = bounds[name]
+        out[name] = (ms, plain, b_ms, b_by)
+        print(f"kernel {name} [{n},{f}] over {mesh.desc} (data block 0: "
+              f"{rows[0]} rows; {total} slots a half), the per-step route's "
+              f"launch: device {ms * 1e3:.2f} us a launch (plain "
+              f"{plain * 1e3:.2f} us, bound {b_ms * 1e3:.3f} us by {b_by})")
+    return out
 
 
 # --------------------------------------------------------- main-path phase
@@ -1923,28 +2328,44 @@ def _check_report(name: str, raw, z, n_windows: int) -> None:
     check(bool((raw >= 0).all()), f"{name}: negative squared error")
 
 
+def fleet_blocks(cards: int) -> int:
+    """The data blocks of the fleet mesh of ``cards`` cards: one K1 each
+    a scored tick (model = 2 at an even count)."""
+    return cards // 2 if cards % 2 == 0 else cards
+
+
 def _check_fit_launches(name: str, counts: dict, cards: int = 1) -> None:
-    """One fit is one K3 launch and no K2 or K5 launch; one score one K1.
-    Over ``cards`` > 1 (the sentinel on a host with several cards, which
-    scores over the fleet mesh): no K3 or K2 and K5's per-step route,
-    ``cards`` K5 partials per K5 reduce and no one-launch K5 fit, and one
-    K1 per card."""
+    """One fit is one K3 launch and no K2, K5 or K5b launch; one score one
+    K1.  Over ``cards`` > 1 (the sentinel on a host with several cards,
+    which scores over the fleet mesh): no K3 or K2 and the per-step route
+    of K5b at an even count (``cards`` forwards and partials per two
+    reduces) or of K5 at an odd one (``cards`` partials per reduce), no
+    one-launch fit, and one K1 per data block."""
     from clawker_tpu_torch.kernels import anomaly as K
 
     partials = counts[K.FIT_SHARD_PARTIALS]
     reduces = counts[K.FIT_SHARD_REDUCE]
+    forwards = counts[K.FIT_MODEL_FORWARD]
+    halves = counts[K.FIT_MODEL_PARTIALS]
+    half_reduces = counts[K.FIT_MODEL_REDUCE]
     if cards > 1:
-        check(counts[K.FIT] == counts[K.FIT_STEP] == counts[K.FIT_SHARD] == 0
-              and reduces > 0 and partials == cards * reduces
-              and counts[K.SCORE] == cards,
+        if cards % 2 == 0:
+            route = (partials == reduces == 0 and half_reduces > 0
+                     and forwards == halves == cards * half_reduces // 2)
+        else:
+            route = (forwards == halves == half_reduces == 0 and reduces > 0
+                     and partials == cards * reduces)
+        check(counts[K.FIT] == counts[K.FIT_STEP] == counts[K.FIT_SHARD]
+              == counts[K.FIT_MODEL] == 0 and route
+              and counts[K.SCORE] == fleet_blocks(cards),
               f"{name}: launches {counts} over {cards} cards")
         return
     check(counts[K.FIT] == 1 and counts[K.FIT_STEP] == 0,
           f"{name}: {counts[K.FIT]} fit and {counts[K.FIT_STEP]} fit-step "
           f"launches, want 1 and 0")
-    check(partials == reduces == counts[K.FIT_SHARD] == 0,
-          f"{name}: {partials}, {reduces} and {counts[K.FIT_SHARD]} K5 "
-          f"launches, want none")
+    k5 = (partials, reduces, counts[K.FIT_SHARD], forwards, halves,
+          half_reduces, counts[K.FIT_MODEL])
+    check(not any(k5), f"{name}: K5 and K5b launches {k5}, want none")
     check(counts[K.SCORE] == 1,
           f"{name}: {counts[K.SCORE]} score launches, want 1")
 
@@ -2026,30 +2447,34 @@ def main_path_phase(device) -> dict:
     print(f"main path exfil: clawker.loop-3 hottest, peak z "
           f"{hottest.peak:.2f}, train_ms {rep.train_ms:.2f}")
 
-    # the sharded path: the hour's fit and score over a 2x2 mesh of
-    # MAIN_PATH_SHARDS shards of the card: one K5 launch, a K1 per shard
+    # the sharded path: the hour's fit and score over the 2x2 mesh of
+    # MAIN_PATH_SHARDS shards of the card (the hidden dimension split: one
+    # K5b launch, a K1 per data block), and over ODD_MESH_SHARDS shards
+    # (3x1, the rows over every shard: one K5 launch, a K1 per shard)
     name = "hour of 64 agents 64x64x24"
     X, raw = unsharded[name]
-    mesh = M.virtual_mesh(MAIN_PATH_SHARDS, device)
-    (got, _, x, t), counts = _counted(lambda: art._fit_and_score(
-        X, train_steps=FIT_STEPS, lr=1e-2, seed=0, mesh=mesh))
-    _check_report(f"{name} sharded", got, art._robust_z(got), len(X))
-    want = {K.SCORE: MAIN_PATH_SHARDS, K.FIT_STEP: 0, K.FIT: 0,
-            K.FIT_SHARD: 1, K.FIT_SHARD_PARTIALS: 0, K.FIT_SHARD_REDUCE: 0}
-    check(counts == want,
-          f"{name} sharded: launches {counts}, want {want}")
-    check(t["device"].startswith("cuda") and t["device"].endswith(
-        f"mesh={mesh.desc}"), f"{name} sharded: device {t['device']!r}")
-    got_t, raw_t = torch.from_numpy(got), torch.from_numpy(raw)
-    ok, err = _close(got_t, raw_t, rtol=MESH_SCORE_RTOL,
-                     atol=MESH_SCORE_ATOL)
-    check(ok, f"{name} sharded: scores off the unsharded ones by {err:.3g}")
-    add(counts)
-    print(f"main path {name} sharded: padded {tuple(x.shape)}, fit "
-          f"{FIT_STEPS} steps train_ms {t['train_ms']:.2f}, score "
-          f"{t['score_ms']:.3f} ms, launches {json.dumps(counts)}, device "
-          f"{t['device']}; scores off the unsharded run's by "
-          f"{_rel(got_t, raw_t):.3g} relative")
+    for shards, fit_name in ((MAIN_PATH_SHARDS, K.FIT_MODEL),
+                             (ODD_MESH_SHARDS, K.FIT_SHARD)):
+        mesh = M.virtual_mesh(shards, device)
+        (got, _, x, t), counts = _counted(lambda: art._fit_and_score(
+            X, train_steps=FIT_STEPS, lr=1e-2, seed=0, mesh=mesh))
+        tag = f"{name} sharded {mesh.desc}"
+        _check_report(tag, got, art._robust_z(got), len(X))
+        want = dict.fromkeys(K.LAUNCHES, 0)
+        want.update({K.SCORE: mesh.data, fit_name: 1})
+        check(counts == want, f"{tag}: launches {counts}, want {want}")
+        check(t["device"].startswith("cuda") and t["device"].endswith(
+            f"mesh={mesh.desc}"), f"{tag}: device {t['device']!r}")
+        got_t, raw_t = torch.from_numpy(got), torch.from_numpy(raw)
+        ok, err = _close(got_t, raw_t, rtol=MESH_SCORE_RTOL,
+                         atol=MESH_SCORE_ATOL)
+        check(ok, f"{tag}: scores off the unsharded ones by {err:.3g}")
+        add(counts)
+        print(f"main path {tag}: padded {tuple(x.shape)}, fit "
+              f"{FIT_STEPS} steps train_ms {t['train_ms']:.2f}, score "
+              f"{t['score_ms']:.3f} ms, launches {json.dumps(counts)}, "
+              f"device {t['device']}; scores off the unsharded run's by "
+              f"{_rel(got_t, raw_t):.3g} relative")
     print(f"main path launches: {json.dumps(total)}")
     return {"launches": total, "step_us": step_us}
 
@@ -2146,8 +2571,8 @@ class TickLog:
 
     def check_run(self, name: str) -> list:
         """Every tick held, and the run's launches: one K3 and one K1 a
-        scored tick on one card, K5 and a K1 a card over several; ->
-        the scored ticks."""
+        scored tick on one card, K5b (K5 at an odd count) and a K1 a data
+        block over several; -> the scored ticks."""
         import torch
 
         scored = [entry for entry in self.ticks if entry[0]]
@@ -2157,9 +2582,11 @@ class TickLog:
         cards = torch.cuda.device_count()
         launches = self.launches()
         fits = launches["anomaly_fit"] if cards == 1 else sum(
-            1 for entry in scored if entry[1]["anomaly_fit_shard_reduce"])
+            1 for entry in scored if entry[1]["anomaly_fit_shard_reduce"]
+            or entry[1]["anomaly_fit_model_reduce"])
         check(fits == len(scored)
-              and launches["anomaly_score"] == cards * len(scored),
+              and launches["anomaly_score"] == fleet_blocks(cards) * len(
+                  scored),
               f"{name}: launches {dict(launches)} over {len(scored)} scored "
               f"ticks on {cards} card(s)")
         return scored
@@ -11413,11 +11840,13 @@ def check_no_reference_imports() -> None:
 
 def cards_phase() -> None:
     """``--cards``, on a host with several cards: the paths that exist
-    only across cards, alone.  K1, K2 and K3 on every card and K5 over the
-    fleet mesh of all of them (``every_device_check``); the sentinel's
-    fused tick and ``bench_lane``, both sharded over that mesh; and K5's
-    fit of the hour's shape over the cards beside the same shards on one
-    card (host wall ms around a synchronized fit, median of 5)."""
+    only across cards, alone.  K1, K2 and K3 on every card, K5 over a
+    data-only mesh of all of them and K5b over the fleet mesh
+    (``every_device_check``); the sentinel's fused tick and
+    ``bench_lane``, both sharded over that mesh; and the fleet mesh's fit
+    (K5b at an even count, else K5) of the hour's shape over the cards
+    beside the same shards on one card (host wall ms around a
+    synchronized fit, median of 5)."""
     import torch
 
     from clawker_tpu_torch.analytics import features as F
@@ -11450,16 +11879,19 @@ def cards_phase() -> None:
                                             per_window=24))
     x = torch.from_numpy(art._pad_rows(X, X.shape[1], mesh.data)).to("cuda")
     params, noises = art._draw(0, FIT_STEPS, x)
+    fit, kname = ((_model_fit, "K5b") if mesh.model == 2
+                  else (_shard_fit, "K5"))
     for name, m in (("the cards", mesh),
                     ("one card", M.virtual_mesh(cards, "cuda:0"))):
         walls = []
         for _ in range(5):
             t0 = time.perf_counter()
-            _shard_fit(params, x, noises, m)
+            fit(params, x, noises, m)
             walls.append((time.perf_counter() - t0) * 1e3)
-        print(f"K5 [{x.shape[0]},{x.shape[1]}] x{FIT_STEPS} over {cards} "
-              f"shards on {name} ({m.desc}): wall {statistics.median(walls)!r}"
-              f" ms per synchronized fit, median of 5")
+        print(f"{kname} [{x.shape[0]},{x.shape[1]}] x{FIT_STEPS} over "
+              f"{cards} shards on {name} ({m.desc}): wall "
+              f"{statistics.median(walls)!r} ms per synchronized fit, "
+              f"median of 5")
 
 
 def main() -> int:
@@ -11493,12 +11925,15 @@ def main() -> int:
     ptxas_report(K.FIT_STEP)
     ptxas_report(K.FIT)
     ptxas_report(SHARD_SOURCE)
+    ptxas_report(MODEL_SOURCE)
     device = "cuda"
     kernels = kernel_phase(device)
     shard_errs = shard_kernel_phase(device)
+    model_errs = model_kernel_phase(device)
     every_device_check()
     main_path = main_path_phase(device)
     shard_times = mesh_fit_phase(device)
+    model_times = model_timings(device)
     for k, v in graft_phase().items():
         main_path["launches"][k] += v
     bench_lane_phase(device)
@@ -11558,17 +11993,22 @@ def main() -> int:
         K.FIT_SHARD: "clawker_tpu/analytics/anomaly.py:117-156",
         K.FIT_SHARD_PARTIALS: "clawker_tpu/analytics/anomaly.py:117-156",
         K.FIT_SHARD_REDUCE: "clawker_tpu/analytics/runtime.py:170-172,187-194",
+        K.FIT_MODEL: "clawker_tpu/analytics/anomaly.py:132-145",
+        K.FIT_MODEL_FORWARD: "clawker_tpu/analytics/anomaly.py:132-145",
+        K.FIT_MODEL_PARTIALS: "clawker_tpu/analytics/anomaly.py:132-145",
+        K.FIT_MODEL_REDUCE: "clawker_tpu/analytics/anomaly.py:132-145",
     }
     # every kernel of the paths ran on them (K2's body runs inside K3)
     idle = [name for name in replaces
             if name != K.FIT_STEP and not main_path["launches"][name]]
     check(not idle, f"kernels never launched on their paths: {idle}")
-    timings = dict(kernels["timings"][(n, f)], **shard_times)
-    errs = dict(kernels["errs"], **shard_errs)
+    timings = dict(kernels["timings"][(n, f)], **shard_times, **model_times)
+    errs = dict(kernels["errs"], **shard_errs, **model_errs)
     record = []
     for name in replaces:
         ms, plain, bound, by = timings[name]
-        source = SHARD_SOURCE if name in shard_times else name
+        source = (SHARD_SOURCE if name in shard_times else
+                  MODEL_SOURCE if name in model_times else name)
         record.append({
             "name": name, "route": "cuda",
             "source": f"clawker_tpu_torch/kernels/csrc/{source}.cu",

@@ -14,8 +14,10 @@ launch that updates the params in place, as the reference's jitted
 ``lax.scan`` is one device program, and the score one K1 launch
 (``kernels/anomaly.py``); there is nothing to compile, so the
 reference's jit and XLA caches have no counterpart.  With a ``mesh``
-(``analytics/mesh.py``) the fit is K5 over the mesh's shards and the
-score one K1 launch per shard: the reference's sharded SPMD program.
+(``analytics/mesh.py``) the fit is K5b over the mesh's shards when it
+splits the hidden dimension (model = 2, the reference's layout at an even
+count), else K5, and the score one K1 launch per data block: the
+reference's sharded SPMD program.
 """
 
 from __future__ import annotations
@@ -149,14 +151,16 @@ def _draw(seed: int, steps: int, x: torch.Tensor):
     return params, noises
 
 
-def _fit_shards(replicas, xs, noise_shards, lr: float) -> torch.Tensor:
-    """The fit over a mesh's shards, every replica updated in place: one
-    K5 launch when the shards lie on one card, ``steps`` x (S + 1) over
-    several cards.  -> losses [steps]."""
+def _fit_shards(replicas, xs, noise_shards, lr: float,
+                mesh: M.Mesh) -> torch.Tensor:
+    """The fit over a mesh's shards, every params set updated in place
+    (``mesh.fit_``): at model = 2 one K5b launch when the shards lie on
+    one card, ``steps`` x (2 S + 2) over several cards; at model = 1 one
+    K5 launch, or ``steps`` x (S + 1).  -> losses [steps]."""
     losses = torch.empty(len(noise_shards[0]), dtype=torch.float32,
                          device=xs[0].device)
-    K.fit_shard_(replicas, xs, noise_shards, lr=lr, sigma=0.25,
-                 losses_out=losses)
+    M.fit_(replicas, xs, noise_shards, mesh, lr=lr, sigma=0.25,
+           losses_out=losses)
     return losses
 
 
@@ -176,10 +180,12 @@ def _fit_and_score(X: np.ndarray, *, train_steps: int, lr: float, seed: int,
     With ``mesh`` (``mesh.fleet_mesh`` or ``virtual_mesh``; ``device`` is
     then not read) the row pad rounds up to a multiple of the mesh's data
     axis, as the reference's does; params and noise are drawn on the first
-    shard's device, the params replicated and x and the noise split into
-    the mesh's shards; the fit is K5 and the score K1 per shard.  The
-    params returned are the first shard's device's, x the whole padded
-    batch there."""
+    shard's device, the params laid out as ``mesh.shard_params`` lays them
+    (split over ``model`` at model = 2, else replicated) and x and the
+    noise split into the mesh's shards; the fit is K5b at model = 2, else
+    K5, and the score K1 per data block.  The params returned are the
+    whole params on the first shard's device, x the whole padded batch
+    there."""
     dev = resolve_device(mesh.devices[0] if mesh else device)
     n = len(X)
     width = feat or (X.shape[1] if X.ndim == 2 and X.shape[1] else 32)
@@ -197,7 +203,7 @@ def _fit_and_score(X: np.ndarray, *, train_steps: int, lr: float, seed: int,
 
     t0 = time.perf_counter()
     if mesh:
-        _fit_shards(replicas, xs, noise_shards, lr)
+        _fit_shards(replicas, xs, noise_shards, lr, mesh)
     else:
         _fit(params, x, noises, lr)
     _sync(*devs)
@@ -205,7 +211,9 @@ def _fit_and_score(X: np.ndarray, *, train_steps: int, lr: float, seed: int,
 
     t0 = time.perf_counter()
     if mesh:
-        scores = M.score_shards(replicas, xs)
+        wholes = M.whole_params(replicas, mesh)
+        params = wholes[0]
+        scores = M.score_blocks(wholes, xs[::mesh.model])
     else:
         scores = anomaly.score(params, x)
     raw = scores[:n].cpu().numpy()
@@ -247,11 +255,12 @@ def bench_lane(records: list[dict], *, train_steps: int = 100,
     raw, params, x, t = _fit_and_score(X, train_steps=train_steps, lr=1e-2,
                                        seed=0, device=dev, mesh=mesh)
     if mesh:
-        replicas, xs = M.shard_params(params, mesh), M.shard_rows(x, mesh)
+        wholes = M.whole_params(M.shard_params(params, mesh), mesh)
+        blocks = M.shard_rows(x, mesh)[::mesh.model]
         devs = mesh.distinct
 
         def score_step():
-            return M.score_shards(replicas, xs)
+            return M.score_blocks(wholes, blocks)
     else:
         devs = [dev]
 

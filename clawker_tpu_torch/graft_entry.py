@@ -38,9 +38,11 @@ def entry(device=DEFAULT_DEVICE):
 
 
 def dryrun_multichip(n_devices: int, device=DEFAULT_DEVICE) -> None:
-    """One sharded train step (K5, no noise), one sharded denoising step
-    (its noise from a generator seeded 2) and the sharded score, over
-    ``virtual_mesh(n_devices, device)`` on tiny shapes: data x 8 rows."""
+    """One sharded train step (no noise), one sharded denoising step (its
+    noise from a generator seeded 2) and the sharded score, over
+    ``virtual_mesh(n_devices, device)`` on tiny shapes: data x 8 rows.
+    The steps are K5b's per-step route where the mesh splits the hidden
+    dimension (an even count: model = 2), else K5's."""
     mesh = M.virtual_mesh(n_devices, device)
     home = mesh.devices[0]
     params = anomaly.init_params(_gen(0, home))

@@ -1,6 +1,9 @@
-"""Wrappers of the anomaly kernels: K1 (score), K2 (fit step), K3 (fit) and
-K5 (the fit over rows split into shards: one launch per fit on one card,
-or the per-step route of S + 1 launches a step).
+"""Wrappers of the anomaly kernels: K1 (score), K2 (fit step), K3 (fit), K5
+(the fit over rows split into shards: one launch per fit on one card, or
+the per-step route of S + 1 launches a step) and K5b (the fit over rows
+split into data blocks and the hidden dimension into two model shards: one
+launch per fit on one card, or the per-step route of 2 S + 2 launches a
+step).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, and launches on the current
@@ -45,8 +48,19 @@ FIT_STAMPS = 9
 # block's most shared memory on an H100 (kMaxSmem)
 MAX_SHARDS = 64
 MAX_SMEM = 232448
+FIT_MODEL = "anomaly_fit_model_fit"
+FIT_MODEL_FORWARD = "anomaly_fit_model_forward"
+FIT_MODEL_PARTIALS = "anomaly_fit_model_partials"
+FIT_MODEL_REDUCE = "anomaly_fit_model_reduce"
+# K5b: its model shards and each one's hidden units (csrc/anomaly_fit_model.cu,
+# kModel and kHalf), and the data blocks its one-launch fit's table holds
+# (kMaxData)
+MODEL = 2
+HALF = HIDDEN // MODEL
+MAX_DATA = 32
 LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0, FIT_SHARD: 0,
-            FIT_SHARD_PARTIALS: 0, FIT_SHARD_REDUCE: 0}
+            FIT_SHARD_PARTIALS: 0, FIT_SHARD_REDUCE: 0, FIT_MODEL: 0,
+            FIT_MODEL_FORWARD: 0, FIT_MODEL_PARTIALS: 0, FIT_MODEL_REDUCE: 0}
 
 
 def reset_launches() -> None:
@@ -54,7 +68,10 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(params, x: torch.Tensor, *others: torch.Tensor | None) -> tuple[int, int]:
+def _check(params, x: torch.Tensor, *others: torch.Tensor | None,
+           hidden: int = HIDDEN) -> tuple[int, int]:
+    """The checks every kernel makes of its params (``hidden`` units: K5b's
+    model shard holds HALF), x and other tensors -> (n, f)."""
     if x.dim() != 2:
         raise ValueError(f"x must be [n, F], got shape {tuple(x.shape)}")
     n, f = x.shape
@@ -62,7 +79,7 @@ def _check(params, x: torch.Tensor, *others: torch.Tensor | None) -> tuple[int, 
         raise ValueError(f"need n >= 1 and 1 <= F <= {MAX_FEATURES}, "
                          f"got [{n}, {f}]")
     w_enc, b_enc, w_dec, b_dec = params
-    want = {"w_enc": (f, HIDDEN), "b_enc": (HIDDEN,), "w_dec": (HIDDEN, f),
+    want = {"w_enc": (f, hidden), "b_enc": (hidden,), "w_dec": (hidden, f),
             "b_dec": (f,)}
     for (name, shape), t in zip(want.items(), params):
         if tuple(t.shape) != shape:
@@ -572,3 +589,282 @@ def fit_shard_(replicas, xs, noises, *, lr: float, sigma: float,
                  lr, f, steps, 0 if stamps is None else stamps.data_ptr(),
                  0 if stamps is None else stamps.numel(), stream)
     _launched(FIT_SHARD, err)
+
+
+# ------------------------------------------------------------------ K5b
+
+
+def half_slot_floats(f: int) -> int:
+    """Floats of one slot of K5b's half: dW_enc_m [F, HALF], db_enc_m
+    [HALF], dW_dec_m^T [F, HALF], db_dec [F] and the squared error."""
+    return 2 * f * HALF + HALF + f + 1
+
+
+def model_scratch_floats(rows, f: int) -> int:
+    """Floats of K5b's scratch for data blocks of ``rows`` rows at F = f:
+    both halves' slots (``shard_slot_offsets(rows)[-1]`` a half), the
+    halves' partial outputs y [MODEL, N, F], and one float for half 1's
+    copy of the loss (``csrc/anomaly_fit_model.cu``)."""
+    return (MODEL * shard_slot_offsets(rows)[-1] * half_slot_floats(f)
+            + MODEL * sum(rows) * f + 1)
+
+
+def _check_model(halves, xs, noises, steps: int | None):
+    """fit_model_step_'s and fit_model_'s checks -> (rows of each data
+    block, f, {(device, m): half m's params there}).  Shard s is data block
+    s // MODEL's half s % MODEL; ``halves[s]`` its params, which the shards
+    of one device and half share; both halves of a block hold the same
+    rows (``noises`` as for ``_check_shards``)."""
+    if not xs or len(xs) % MODEL:
+        raise ValueError(f"need data x {MODEL} shards, got {len(xs)}")
+    if len(halves) != len(xs):
+        raise ValueError(f"{len(halves)} params sets for {len(xs)} shards: "
+                         f"one per shard")
+    if len({x.device.type for x in xs}) != 1:
+        raise ValueError("shards on the CPU and on CUDA devices at once")
+    if noises is not None and len(noises) != len(xs):
+        raise ValueError(f"{len(noises)} noise shards for {len(xs)} shards")
+    f = xs[0].shape[1] if xs[0].dim() == 2 else 0
+    rows, sets = [], {}
+    for s, (x, p) in enumerate(zip(xs, halves)):
+        n, fx = _check(p, x, hidden=HALF)
+        if fx != f:
+            raise ValueError(f"shard {s} has F = {fx}, shard 0 {f}")
+        key = (x.device, s % MODEL)
+        if key not in sets:
+            sets[key] = p
+        elif any(a.data_ptr() != b.data_ptr() for a, b in zip(sets[key], p)):
+            raise ValueError(f"two params sets of half {key[1]} on "
+                             f"{key[0]}: the shards of a device and half "
+                             f"share one")
+        if s % MODEL == 0:
+            rows.append(n)
+        elif n != rows[-1]:
+            raise ValueError(f"shard {s} holds {n} rows, its data block "
+                             f"{rows[-1]}: both halves take the same rows")
+        if noises is None:
+            continue
+        nz = noises[s]
+        want = (n, f) if steps is None else (steps, n, f)
+        if tuple(nz.shape) != want:
+            raise ValueError(f"noise of shard {s} must be {want}, got "
+                             f"{tuple(nz.shape)}")
+        if (nz.dtype != torch.float32 or nz.device != x.device
+                or not _rows_contiguous(nz)):
+            raise ValueError(f"noise of shard {s} must be float32 on "
+                             f"{x.device}, each [n, F] step contiguous")
+    return rows, f, sets
+
+
+def _model_stepper(sets, xs, rows, f, *, lr, sigma, scratch):
+    """-> step(noise_ptrs, loss_ptr), which enqueues one K5b step on the
+    current streams: the forward of each shard into its card's y, every
+    card's y gathered to the first shard's card and copied back to the
+    others, the partials of each shard into its card's slots, the other
+    cards' slots copied to the first's, phase B there once per half (on
+    that card's params of the half, or a copy there), and those params
+    copied to every other set of the half (``csrc/anomaly_fit_model.cu``).
+    ``scratch`` (``model_scratch_floats``) lies on the first shard's
+    card."""
+    home = xs[0].device
+    n_total = sum(rows)
+    offsets = shard_slot_offsets(rows)
+    pf = half_slot_floats(f)
+    y_base = MODEL * offsets[-1] * pf
+    row0 = [sum(rows[:d]) for d in range(len(rows))]
+    need = model_scratch_floats(rows, f)
+    devs = list(dict.fromkeys(x.device for x in xs))
+    bufs = {dev: scratch if dev == home else torch.empty(
+        need, dtype=torch.float32, device=dev) for dev in devs}
+    masters = []
+    for m in range(MODEL):
+        own = sets.get((home, m))
+        if own is None:
+            src = next(p for (_, h), p in sets.items() if h == m)
+            own = tuple(t.to(home, copy=True) for t in src)
+        masters.append(own)
+    streams = {dev: torch.cuda.current_stream(dev).cuda_stream
+               for dev in devs}
+    forward = kernel(FIT_MODEL_FORWARD)
+    partials = kernel(FIT_MODEL_PARTIALS)
+    reduce = kernel(FIT_MODEL_REDUCE)
+
+    def y_at(d, m):
+        return y_base + (m * n_total + row0[d]) * f
+
+    def slot_at(d, m):
+        return (m * offsets[-1] + offsets[d]) * pf
+
+    fwd, part = [], []
+    for s, x in enumerate(xs):
+        d, m = divmod(s, MODEL)
+        dev, base = x.device, bufs[x.device].data_ptr()
+        params = tuple(p.data_ptr() for p in sets[(dev, m)])
+        fwd.append((sigma, *params, base + 4 * y_at(d, m), rows[d], f,
+                    streams[dev]))
+        part.append((sigma, *params, base + 4 * y_at(d, MODEL - 1 - m),
+                     base + 4 * slot_at(d, m), need - slot_at(d, m), rows[d],
+                     n_total, f, streams[dev]))
+    away = [(s, divmod(s, MODEL)) for s, x in enumerate(xs) if x.device != home]
+    y_gather = [(bufs[home][y_at(d, m):y_at(d, m) + rows[d] * f],
+                 bufs[xs[s].device][y_at(d, m):y_at(d, m) + rows[d] * f])
+                for s, (d, m) in away]
+    y_bcast = [(bufs[dev][y_base:need - 1], bufs[home][y_base:need - 1])
+               for dev in devs if dev != home]
+    slot_gather = [(bufs[home][slot_at(d, m):slot_at(d, m) + fit_slots(
+        rows[d]) * pf], bufs[xs[s].device][slot_at(d, m):slot_at(d, m)
+                                           + fit_slots(rows[d]) * pf])
+                   for s, (d, m) in away]
+    discard = scratch.data_ptr() + 4 * (need - 1)
+    reduce_args = [(scratch.data_ptr() + 4 * slot_at(0, m), offsets[-1] * pf,
+                    offsets[-1], *(p.data_ptr() for p in masters[m]))
+                   for m in range(MODEL)]
+    copies = [(q, p) for (_, m), params in sets.items()
+              if params is not masters[m]
+              for q, p in zip(params, masters[m])]
+
+    def step(noise_ptrs, loss_ptr: int) -> None:
+        for fn, name, args in ((forward, FIT_MODEL_FORWARD, fwd),
+                               (partials, FIT_MODEL_PARTIALS, part)):
+            for dev in devs:
+                with torch.cuda.device(dev):
+                    for s, x in enumerate(xs):
+                        if x.device == dev:
+                            _launched(name, fn(x.data_ptr(), noise_ptrs[s],
+                                               *args[s]))
+            if fn is forward:
+                for dst, src in y_gather + y_bcast:
+                    dst.copy_(src)
+        for dst, src in slot_gather:
+            dst.copy_(src)
+        with torch.cuda.device(home):
+            for m in range(MODEL):
+                _launched(FIT_MODEL_REDUCE, reduce(
+                    *reduce_args[m], loss_ptr if m == 0 else discard, lr,
+                    n_total, f, streams[home]))
+        for q, p in copies:
+            q.copy_(p)
+
+    return step
+
+
+def _model_scratch(scratch, home, rows, f):
+    need = model_scratch_floats(rows, f)
+    if scratch is None:
+        scratch = torch.empty(need, dtype=torch.float32, device=home)
+    _check_slots(scratch, home, need, "scratch")
+    return scratch
+
+
+def fit_model_step_(halves, xs, noises, *, lr: float, sigma: float,
+                    loss_out: torch.Tensor, step: int = 0,
+                    scratch: torch.Tensor | None = None) -> None:
+    """K5b, in place: one (denoising) SGD step on the batch whose rows are
+    split into data blocks and whose hidden units into MODEL halves: shard
+    s (in shard order, data-major) holds data block s // MODEL's rows
+    ``xs[s]`` (both halves the same rows) and half s % MODEL's params
+    ``halves[s]`` (w_enc [F, HALF], b_enc [HALF], w_dec [HALF, F], the
+    whole b_dec), shared by the shards of one device and half; ``noises``
+    the shards' noise rows, or None for the plain autoencoder step.  Every
+    params set of a half gets the same updated half; every half's b_dec the
+    same bits.  Writes the step's loss (before the update) to
+    ``loss_out[step]`` on the first shard's device.  ``scratch`` (float32,
+    at least ``model_scratch_floats``, there) None allocates it.  It takes
+    the per-step route on every layout."""
+    rows, f, sets = _check_model(halves, xs, noises, None)
+    home = xs[0].device
+    if (loss_out.dim() != 1 or not 0 <= step < loss_out.numel()
+            or loss_out.dtype != torch.float32 or loss_out.device != home):
+        raise ValueError(f"loss_out must be 1-d float32 on {home} with an "
+                         f"entry for `step`")
+    nz = noises if noises is not None else [None] * len(xs)
+    if home.type == "cpu":
+        new, loss = reference.fit_model_step(
+            [sets[(home, m)] for m in range(MODEL)], xs[::MODEL],
+            nz[::MODEL], lr, sigma)
+        _copy_halves(sets, new)
+        loss_out[step] = loss
+        return
+    scratch = _model_scratch(scratch, home, rows, f)
+    stepper = _model_stepper(sets, xs, rows, f, lr=lr, sigma=sigma,
+                             scratch=scratch)
+    stepper([0 if t is None else t.data_ptr() for t in nz],
+            loss_out.data_ptr() + step * loss_out.element_size())
+
+
+def _copy_halves(sets, new) -> None:
+    for (_, m), params in sets.items():
+        for p, q in zip(params, new[m]):
+            p.copy_(q)
+
+
+def _fit_model_steps(sets, xs, noises, rows, f, *, lr, sigma, scratch,
+                     losses_out) -> None:
+    """The per-step route of K5b's fit: one ``_model_stepper`` step for each
+    step of the noise shards, 2 S + 2 launches a step from the host."""
+    stepper = _model_stepper(sets, xs, rows, f, lr=lr, sigma=sigma,
+                             scratch=scratch)
+    bases = [nz.data_ptr() for nz in noises]
+    strides = [nz.stride(0) * nz.element_size() for nz in noises]
+    loss0 = losses_out.data_ptr()
+    for s in range(noises[0].shape[0]):
+        stepper([b + s * d for b, d in zip(bases, strides)], loss0 + 4 * s)
+
+
+def fit_model_(halves, xs, noises, *, lr: float, sigma: float,
+               losses_out: torch.Tensor,
+               scratch: torch.Tensor | None = None) -> None:
+    """K5b, in place: the whole fit over the shards as ``fit_model_step_``
+    lays them out, one denoising step for each step of the noise shards
+    (``noises[s]`` is shard s's [steps, n_s, F], each step's rows
+    contiguous).  Writes each step's loss (before its update) to
+    ``losses_out[step]`` on the first shard's device.  ``scratch``
+    (float32, at least ``model_scratch_floats(rows, F)``, on the first
+    shard's device, 16-byte aligned) None allocates it.
+
+    The route follows the layout: all the shards on one CUDA device, one
+    ``anomaly_fit_model_fit`` launch (at most ``MAX_DATA`` data blocks);
+    shards on several cards, the per-step route; the CPU,
+    ``reference.fit_model_shard``.  Both kernel routes give the same
+    bits."""
+    if not noises or noises[0].dim() != 3:
+        raise ValueError("noises must hold one [steps, n_s, F] tensor per "
+                         "shard")
+    steps = noises[0].shape[0]
+    rows, f, sets = _check_model(halves, xs, noises, steps)
+    home = xs[0].device
+    if (losses_out.dim() != 1 or losses_out.numel() != steps
+            or losses_out.dtype != torch.float32
+            or losses_out.device != home):
+        raise ValueError(f"losses_out must hold {steps} float32 losses on "
+                         f"{home}")
+    one_device = len({dev for dev, _ in sets}) == 1
+    if one_device and len(rows) > MAX_DATA:
+        raise ValueError(f"at most {MAX_DATA} data blocks on one device, "
+                         f"got {len(rows)}")
+    if steps == 0:
+        return
+    if home.type == "cpu":
+        new, losses = reference.fit_model_shard(
+            [sets[(home, m)] for m in range(MODEL)], xs[::MODEL],
+            noises[::MODEL], lr, sigma)
+        _copy_halves(sets, new)
+        losses_out.copy_(losses)
+        return
+    scratch = _model_scratch(scratch, home, rows, f)
+    if not one_device:
+        _fit_model_steps(sets, xs, noises, rows, f, lr=lr, sigma=sigma,
+                         scratch=scratch, losses_out=losses_out)
+        return
+    fn = kernel(FIT_MODEL)
+    table = (ctypes.c_longlong * (4 * len(rows)))(*(
+        v for x, nz, n in zip(xs[::MODEL], noises[::MODEL], rows)
+        for v in (x.data_ptr(), nz.data_ptr(), nz.stride(0), n)))
+    hv = (ctypes.c_longlong * (4 * MODEL))(*(
+        p.data_ptr() for m in range(MODEL) for p in sets[(home, m)]))
+    with torch.cuda.device(home):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(table, len(rows), hv, sigma, scratch.data_ptr(),
+                 scratch.numel(), losses_out.data_ptr(), lr, f, steps,
+                 stream)
+    _launched(FIT_MODEL, err)

@@ -33,12 +33,16 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("anomaly_score", "anomaly_fit_step", "anomaly_fit",
-           "anomaly_fit_shard")
+           "anomaly_fit_shard", "anomaly_fit_model")
 # The C entry points of a source: its own name, unless listed here
 ENTRY_POINTS = {
     "anomaly_fit_shard": ("anomaly_fit_shard_fit",
                           "anomaly_fit_shard_partials",
                           "anomaly_fit_shard_reduce"),
+    "anomaly_fit_model": ("anomaly_fit_model_fit",
+                          "anomaly_fit_model_forward",
+                          "anomaly_fit_model_partials",
+                          "anomaly_fit_model_reduce"),
 }
 
 _P = ctypes.c_void_p
@@ -70,6 +74,20 @@ SIGNATURES = {
     # slots, slots_floats, total_slots, w_enc, b_enc, w_dec, b_dec,
     # loss_out, lr, n_total, f, stream
     "anomaly_fit_shard_reduce": [_P, _L, _I, _P, _P, _P, _P, _P, _F, _I, _I,
+                                 _P],
+    # table (blocks x 4 int64: x, noise, noise step stride, n_d), blocks,
+    # halves (2 x 4 int64: w_enc, b_enc, w_dec, b_dec), sigma, scratch,
+    # scratch_floats, losses, lr, f, steps, stream
+    "anomaly_fit_model_fit": [_P, _I, _P, _F, _P, _L, _P, _F, _I, _I, _P],
+    # x, noise, sigma, w_enc, b_enc, w_dec, b_dec, y, n, f, stream
+    "anomaly_fit_model_forward": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _P],
+    # x, noise, sigma, w_enc, b_enc, w_dec, b_dec, y_peer, slots,
+    # slots_floats, n, n_total, f, stream
+    "anomaly_fit_model_partials": [_P, _P, _F, _P, _P, _P, _P, _P, _P, _L,
+                                   _I, _I, _I, _P],
+    # slots, slots_floats, half_slots, w_enc, b_enc, w_dec, b_dec, loss_out,
+    # lr, n_total, f, stream
+    "anomaly_fit_model_reduce": [_P, _L, _I, _P, _P, _P, _P, _P, _F, _I, _I,
                                  _P],
 }
 

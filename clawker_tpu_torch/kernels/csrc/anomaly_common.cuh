@@ -202,7 +202,8 @@ __device__ __forceinline__ void stage_params(const Staged& w,
 }
 
 // The forward of an R-row tile by kWarps warps (R a multiple of 16, kWarps
-// a multiple of R / 16):
+// a multiple of R / 16) over kH hidden units (K5b's model shard: half of
+// them):
 //   a = bf(x) . bf(W_enc) + b_enc
 //   as[i][h] = gelu'(a)              (fp32, from gelu's own tanh; skipped
 //                                     if as is null)
@@ -211,7 +212,7 @@ __device__ __forceinline__ void stage_params(const Staged& w,
 // b_dec is left to `epi`; b_enc is read from shared memory, beside the
 // staged weights.  The caller syncs before (xb, weT, wdT staged) and after
 // (epi's writes); one __syncthreads sits between the layers.
-template <int R, int kWarps, class Epi>
+template <int R, int kWarps, int kH = kHidden, class Epi>
 __device__ __forceinline__ void forward_tile(
     const __nv_bfloat16* xb, int ldx, int kp, const __nv_bfloat16* weT,
     int ldw, const float* b_enc, float* as, int lda,
@@ -221,7 +222,7 @@ __device__ __forceinline__ void forward_tile(
   static_assert(R % 16 == 0 && kWarps % kMt == 0, "tile shape");
   // encoder: warp w takes m-tile w % kMt and every kStep-th n-tile
   constexpr int kStep = kWarps / kMt;
-  constexpr int kPer = (kHidden / 8) / kStep;
+  constexpr int kPer = (kH / 8) / kStep;
   const int g = lane >> 2;
   const int t2 = 2 * (lane & 3);
   {
@@ -271,7 +272,7 @@ __device__ __forceinline__ void forward_tile(
     const int n0 = (tile / kMt) * 8;
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int k0 = 0; k0 < kHidden; k0 += 16) {
+    for (int k0 = 0; k0 < kH; k0 += 16) {
       uint32_t a[4];
       uint32_t b[2];
       load_a(a, gs, ldg, m0, k0, lane);

@@ -2,6 +2,8 @@
 // fit of one batch) and K5's one-launch fit (anomaly_fit_shard.cu, one fit
 // over rows split into shards) share: the trace's clock, the cp.async
 // copies, the x tile's load, the shared-memory plan and the grid's size.
+// K5b's (anomaly_fit_model.cu, the hidden split over `model`) takes the
+// grid's size and phase B's slicing from here.
 // Both run `steps` x (phase A, grid.sync(), phase B, grid.sync()) in one
 // cooperative launch of one 256-thread block per SM; see anomaly_fit.cu
 // for the design.

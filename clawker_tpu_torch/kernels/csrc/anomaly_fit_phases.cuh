@@ -456,14 +456,16 @@ __device__ __forceinline__ void fit_partials(
 // holds __syncthreads).  kLongRuns (K5): more than kReduceGroups x
 // kReduceRun slots may come in, so a group's run is read in chunks of
 // kReduceRun and added, in the same order, into one sum; for runs of
-// <= kReduceRun that is the same sum as K2's and K3's.
-template <int kWidth, int kCols, bool kLongRuns = false>
+// <= kReduceRun that is the same sum as K2's and K3's.  kH: the hidden
+// units of the slots and params (K5b's model shard: half of them, with
+// staged null).
+template <int kWidth, int kCols, bool kLongRuns = false, int kH = kHidden>
 __device__ __forceinline__ void fit_reduce(
     int slice, int tid, float* red, const float* partials, int slots, int f,
     float* w_enc, float* b_enc, float* w_dec, float* b_dec, float* loss_out,
     float lr, float count, unsigned char* staged, int fp) {
   constexpr int kSlice = kWidth * kCols;
-  const int stride = param_floats(f);
+  const int stride = 2 * f * kH + kH + f + 1;   // param_floats at kH
   const int grp = tid / kWidth;
   const int per = (slots + kReduceGroups - 1) / kReduceGroups;
   const int s0 = min(grp * per, slots);
@@ -520,9 +522,9 @@ __device__ __forceinline__ void fit_reduce(
     }
     __syncthreads();
   }
-  const int o_be = f * kHidden;
-  const int o_wd = o_be + kHidden;
-  const int o_bd = o_wd + kHidden * f;
+  const int o_be = f * kH;
+  const int o_wd = o_be + kH;
+  const int o_bd = o_wd + kH * f;
   const int o_loss = o_bd + f;
   for (int q = tid; q < kSlice; q += kWidth * kReduceGroups) {
     const int p = slice * kSlice + q;
@@ -532,8 +534,8 @@ __device__ __forceinline__ void fit_reduce(
       const float u = __fsub_rn(__ldcg(w_enc + p), __fmul_rn(lr, bf(s)));
       w_enc[p] = u;
       if (staged != nullptr) {   // W_enc[j][h] -> weT[h][j]
-        const int j = p / kHidden;
-        Staged(staged, fp).weT[(p - j * kHidden) * (fp + 8) + j] =
+        const int j = p / kH;
+        Staged(staged, fp).weT[(p - j * kH) * (fp + 8) + j] =
             __float2bfloat16_rn(u);
       }
     } else if (p < o_wd) {
@@ -542,8 +544,8 @@ __device__ __forceinline__ void fit_reduce(
       b_enc[i] = u;
       if (staged != nullptr) Staged(staged, fp).be[i] = u;
     } else if (p < o_bd) {   // the slot holds dW_dec transposed
-      const int j = (p - o_wd) / kHidden;
-      const int h = p - o_wd - j * kHidden;
+      const int j = (p - o_wd) / kH;
+      const int h = p - o_wd - j * kH;
       const int i = h * f + j;
       const float u = __fsub_rn(__ldcg(w_dec + i), __fmul_rn(lr, bf(s)));
       w_dec[i] = u;

@@ -18,9 +18,10 @@
 // clawker_tpu/analytics/runtime.py:170-172 and the placement at :187-194:
 // the reference's ONE jitted fit run as an SPMD program over a data x model
 // mesh, rows and noise rows over `data`, the gradient psum over `data`
-// inserted by XLA.  Here the rows are split over all data x model shards;
-// the hidden split over `model` is not done (queued as K5b): the function
-// is the same, only the layout differs.
+// inserted by XLA.  Here, on a mesh with model = 1 (an odd count, or a
+// data-only mesh), the rows are split over the shards and the params
+// replicated.  The reference's split of the hidden dimension over `model`
+// = 2 is K5b, anomaly_fit_model.cu.
 //
 // What bounds it on the H100: the fit's own work, whatever implements it
 // (chip_smoke.py, fit_bound over N = sum of n_s rows): x read once, each

@@ -133,6 +133,74 @@ def fit_shard_step(w_enc, b_enc, w_dec, b_dec, xs, noises, lr: float,
     return sgd_update((w_enc, b_enc, w_dec, b_dec), grads, lr), loss
 
 
+def model_step_grads(halves, xs, noises, sigma: float):
+    """The step over rows split into data blocks ``xs`` (``noises`` their
+    noise rows, or Nones) with the hidden dimension split into ``halves``
+    (one params set per model shard m: w_enc[:, H_m], b_enc[H_m],
+    w_dec[H_m, :] and the whole b_dec), as K5b runs it
+    (``csrc/anomaly_fit_model.cu``).  For each block: each half's forward
+    ``a_m = bf(noisy) @ bf(w_enc_m) + b_enc_m`` and partial decoder output
+    ``y_m = bf(gelu(a_m)) @ bf(w_dec_m)``; ``r = (y_0 + y_1 + ...) + b_dec``
+    summed in model order; dr with the whole batch's count; then each
+    half's backward on its own columns.  The blocks' terms are summed in
+    data order.  At one half it adds what ``shard_step_grads`` adds.
+
+    -> ([(dW_enc_m, db_enc_m, dW_dec_m, db_dec)] per half, the weight sums
+    not rounded to bf16, loss)."""
+    count = sum(x.shape[0] for x in xs) * xs[0].shape[1]
+    total, loss = None, 0.0
+    for x, noise in zip(xs, noises):
+        noisy = x if noise is None else x + sigma * noise
+        fwd = []
+        for w_enc, b_enc, w_dec, _ in halves:
+            a = bf(noisy) @ bf(w_enc) + b_enc
+            gb = bf(gelu_tanh(a))
+            fwd.append((a, gb, gb @ bf(w_dec)))
+        y = fwd[0][2]
+        for _, _, y_m in fwd[1:]:
+            y = y + y_m
+        e = (y + halves[0][3]) - x
+        part = torch.square(e).sum() / count
+        dr = (2.0 * e) * (1.0 / count)
+        db_dec = dr.sum(dim=0)
+        grads = []
+        for (w_enc, b_enc, w_dec, _), (a, gb, _) in zip(halves, fwd):
+            dh = bf(dr @ bf(w_dec).T)
+            da = dh * gelu_tanh_grad(a)
+            grads.append((bf(noisy).T @ da, da.sum(dim=0), gb.T @ dr,
+                          db_dec))
+        total = grads if total is None else [
+            tuple(p + q for p, q in zip(t, g)) for t, g in zip(total, grads)]
+        loss = loss + part
+    return total, loss
+
+
+def fit_model_step(halves, xs, noises, lr: float, sigma: float):
+    """One (denoising) SGD step of ``model_step_grads``: each half updated
+    as ``fit_step`` updates the params (its b_dec by the same db_dec, so
+    every half's b_dec is the same bits).
+
+    -> ([each half's (w_enc, b_enc, w_dec, b_dec) updated], loss before
+    the step)."""
+    grads, loss = model_step_grads(halves, xs, noises, sigma)
+    return [sgd_update(p, g, lr) for p, g in zip(halves, grads)], loss
+
+
+def fit_model_shard(halves, xs, noises, lr: float, sigma: float):
+    """``fit`` with the rows split into data blocks and the hidden
+    dimension into ``halves``: one ``fit_model_step`` for each step of the
+    blocks' noises (``noises[d]`` is block d's [steps, n_d, F]).
+
+    -> ([each half after the last step], losses [steps])."""
+    halves = [tuple(p) for p in halves]
+    steps = len(noises[0])
+    losses = torch.empty(steps, dtype=torch.float32, device=xs[0].device)
+    for step in range(steps):
+        halves, losses[step] = fit_model_step(
+            halves, xs, [nz[step] for nz in noises], lr, sigma)
+    return halves, losses
+
+
 def staged(w_enc, b_enc, w_dec, b_dec) -> torch.Tensor:
     """K3's staged weights (``csrc/anomaly_fit_phases.cuh``, ``Staged``)
     as the flat float32 buffer at the start of its scratch: bf16 W_enc^T

@@ -194,7 +194,9 @@ def test_cpu_calls_leave_launch_counters_at_zero():
     anomaly.train_step(params, torch.from_numpy(x))
     assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
                           K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
-                          K.FIT_SHARD_REDUCE: 0}
+                          K.FIT_SHARD_REDUCE: 0,
+                          K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
+                          K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
 
 
 @pytest.mark.parametrize("bad", ["f64", "wide", "hidden", "noncontig",

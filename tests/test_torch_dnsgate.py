@@ -118,12 +118,23 @@ def _forward_to_loopback(data, resolvers, *, tcp):
 
 
 def _gate(m, rules, maps, upstream_port, internal_port=None):
+    """A gate on a loopback port no TCP socket held a moment before: on
+    port 0 its TCP bind on the number UDP drew can be lost to another
+    socket of the host (ROADMAP §3 item 16)."""
     gate = m.dnsgate.DnsGate(
         m.dnsgate.ZonePolicy.from_rules(rules), maps,
         upstreams=(f"up:{upstream_port}",),
-        internal_resolver=f"int:{internal_port}", host="127.0.0.1", port=0)
+        internal_resolver=f"int:{internal_port}", host="127.0.0.1",
+        port=tcp_free_port())
     gate._forward = _forward_to_loopback  # type: ignore[method-assign]
     return gate
+
+
+def tcp_free_port() -> int:
+    """A loopback port no TCP socket holds now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def _rules(m, *dsts, **kw):

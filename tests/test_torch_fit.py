@@ -150,7 +150,9 @@ def test_cpu_fit_leaves_launch_counters_at_zero():
              torch.from_numpy(x), torch.from_numpy(noises), LR)
     assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
                           K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
-                          K.FIT_SHARD_REDUCE: 0}
+                          K.FIT_SHARD_REDUCE: 0,
+                          K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
+                          K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
 
 
 def test_runtime_fit_is_one_fit_call(monkeypatch):

@@ -374,7 +374,11 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
     assert doc["launches"] == {"anomaly_score": 0, "anomaly_fit_step": 0,
                                "anomaly_fit": 0, "anomaly_fit_shard_fit": 0,
                                "anomaly_fit_shard_partials": 0,
-                               "anomaly_fit_shard_reduce": 0}
+                               "anomaly_fit_shard_reduce": 0,
+                               "anomaly_fit_model_fit": 0,
+                               "anomaly_fit_model_forward": 0,
+                               "anomaly_fit_model_partials": 0,
+                               "anomaly_fit_model_reduce": 0}
 
 
 @pytest.mark.parametrize("module", ["clawker_tpu_torch.graft_entry",
@@ -734,7 +738,11 @@ def test_cpu_tensor_calls_leave_launch_counters_at_zero():
     assert doc == {"launches": {"anomaly_score": 0, "anomaly_fit_step": 0,
                                 "anomaly_fit": 0, "anomaly_fit_shard_fit": 0,
                                 "anomaly_fit_shard_partials": 0,
-                                "anomaly_fit_shard_reduce": 0},
+                                "anomaly_fit_shard_reduce": 0,
+                                "anomaly_fit_model_fit": 0,
+                                "anomaly_fit_model_forward": 0,
+                                "anomaly_fit_model_partials": 0,
+                                "anomaly_fit_model_reduce": 0},
                    "built": []}
 
 

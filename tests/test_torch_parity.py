@@ -8,13 +8,19 @@ rows are compared after masking only what a run cannot repeat: ``ms``,
 the side's tmp dir, loopback ports and PEM blocks.  Every row's name,
 ``pass`` and evidence, keys and values, must be the reference's.
 
-A side that fails with ``OSError`` from ``DnsGate.start`` met the gate's
-TCP bind lost on port 0 (ROADMAP §3 item 16); the failure says so.
+Each side's ``World`` binds its DNS gate on a loopback port no TCP socket
+held a moment before (``free_gate_ports``), as the port's own rigs bind
+theirs (tests/test_torch_firewall_handler.py, ``tcp_free_port``): on port
+0 the gate binds UDP and then TCP on the number UDP drew, which another
+socket of the host may hold for TCP, and ``DnsGate.start`` raises
+``OSError`` (ROADMAP §3 item 16).  A side that still fails so says so.
 """
 
 from __future__ import annotations
 
+import importlib
 import re
+import socket
 from pathlib import Path
 
 import pytest
@@ -54,6 +60,35 @@ def mask(obj, base: Path):
         obj = _PEM.sub("<pem>", obj)
         return _LOOPBACK_PORT.sub(r"\1<port>", obj)
     return obj
+
+
+def tcp_free_port() -> int:
+    """A loopback port no TCP socket holds now."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def free_gate_ports(pkg: str, setattr=setattr) -> None:
+    """``pkg``'s parity ``World`` starts its DNS gate, which it asks for
+    port 0, on ``tcp_free_port()`` instead (``setattr``: the caller's, a
+    monkeypatch's in a test).  Nothing else of the gate or the world
+    changes; the rows mask loopback ports either way."""
+    world = importlib.import_module(f"{pkg}.parity.world")
+    gate_cls = world.DnsGate
+
+    def gate(*args, **kw):
+        if kw.get("port") == 0:
+            kw["port"] = tcp_free_port()
+        return gate_cls(*args, **kw)
+
+    setattr(world, "DnsGate", gate)
+
+
+@pytest.fixture(autouse=True)
+def _free_gates(monkeypatch):
+    for pkg in ("clawker_tpu", "clawker_tpu_torch"):
+        free_gate_ports(pkg, monkeypatch.setattr)
 
 
 def item16(row: dict) -> bool:

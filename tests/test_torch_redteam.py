@@ -16,6 +16,12 @@ reference's own probe: ``kernel_regrade`` on each side in a
 ``LiveSandbox`` of its own (``redteam-twin-<side>-<pid>``), and the
 forked ``python -m clawker_tpu.parity --json`` against ``python -m
 clawker_tpu_torch.parity --json``.
+
+Every ``World`` here, in this process and in the forked scorecards,
+starts its DNS gate on a port free for TCP
+(``test_torch_parity.free_gate_ports``): a forked scorecard starts 57
+worlds, and on port 0 any of them can lose the gate's TCP bind to
+another socket of the host (ROADMAP §3 item 16).
 """
 
 from __future__ import annotations
@@ -36,14 +42,27 @@ import clawker_tpu.parity.redteam as ref_R  # noqa: E402
 import clawker_tpu.parity.world as ref_W  # noqa: E402
 import clawker_tpu_torch.parity.redteam as port_R  # noqa: E402
 import clawker_tpu_torch.parity.world as port_W  # noqa: E402
-from test_torch_parity import ITEM16, item16, mask  # noqa: E402
+from test_torch_parity import (ITEM16, free_gate_ports, item16,  # noqa: E402
+                               mask)
 
 ROOT = Path(__file__).resolve().parent.parent
+# ``python -m <pkg>.parity`` with the gates on free ports (argv after -c)
+FORKED = ("import runpy, sys; sys.path.insert(0, {tests!r}); "
+          "import test_torch_parity; "
+          "test_torch_parity.free_gate_ports({pkg!r}); "
+          "runpy.run_module({pkg!r} + '.parity', run_name='__main__', "
+          "alter_sys=True)")
 SIDES = (("ref", ref_R, ref_W), ("port", port_R, port_W))
 NAMES = [n for n, _ in ref_R.TECHNIQUES]
 
 live = pytest.mark.skipif(not ref_bpfkern.kernel_available(),
                           reason="bpf(2)/cgroup-v2 unavailable")
+
+
+@pytest.fixture(autouse=True)
+def _free_gates(monkeypatch):
+    for pkg in ("clawker_tpu", "clawker_tpu_torch"):
+        free_gate_ports(pkg, monkeypatch.setattr)
 
 
 def test_corpus_names_and_order_are_the_references():
@@ -143,12 +162,17 @@ def test_forked_scorecard_matches_reference(tmp_path):
     for side, pkg in (("ref", "clawker_tpu"), ("port", "clawker_tpu_torch")):
         work = tmp_path / side
         proc = subprocess.run(
-            [sys.executable, "-m", f"{pkg}.parity", "--json", "--workdir",
-             str(work)], cwd=ROOT, capture_output=True, text=True,
-            timeout=300, env=dict(os.environ, JAX_PLATFORMS="cpu"))
-        assert proc.returncode == 0, (side, proc.stdout[-3000:],
+            [sys.executable, "-c",
+             FORKED.format(tests=str(ROOT / "tests"), pkg=pkg), "--json",
+             "--workdir", str(work)], cwd=ROOT, capture_output=True,
+            text=True, timeout=300, env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        lines = proc.stdout.strip().splitlines()
+        doc = json.loads(lines[-1]) if lines and lines[-1][:1] == "{" else {}
+        failing = [r for r in doc.get("scenarios", []) if not r["pass"]] + [
+            t for t in doc.get("redteam", {}).get("techniques", [])
+            if not t["pass"]]
+        assert proc.returncode == 0, (side, failing or proc.stdout[-3000:],
                                       proc.stderr[-3000:])
-        doc = json.loads(proc.stdout.strip().splitlines()[-1])
         assert doc["passed"] == doc["total"] == 22, side
         assert doc["redteam"]["passed"] == doc["redteam"]["total"] == 35
         assert doc["redteam"]["captures"] == 0, side

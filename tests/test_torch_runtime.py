@@ -226,7 +226,9 @@ class TestScorerTwins:
         art.score_file(_stream(tmp_path), train_steps=5, device=CPU)
         assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
                               K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
-                              K.FIT_SHARD_REDUCE: 0}
+                              K.FIT_SHARD_REDUCE: 0,
+                              K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
+                              K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
 
 
 class TestWatchTailTwins:
@@ -304,7 +306,9 @@ class TestDefaultDevice:
             art.score_windows(X, keys, train_steps=2)
         assert K.LAUNCHES == {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0,
                               K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
-                              K.FIT_SHARD_REDUCE: 0}
+                              K.FIT_SHARD_REDUCE: 0,
+                              K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
+                              K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
 
     def test_watch_reports_the_error_instead_of_scoring(self, tmp_path):
         errors = []

@@ -1,12 +1,13 @@
-"""The port's fleet mesh and sharded fit (K5) against the JAX reference.
+"""The port's fleet mesh and sharded fit (K5, K5b) against the JAX reference.
 
 The reference shards over its 8 virtual CPU devices (tests/conftest.py):
 ``fleet_mesh``, ``shard_params``/``shard_batch``/``shard_noise`` and
 ``runtime._fit_and_score(mesh=)``, called directly as
 tests/test_analytics.py does (never ``dryrun_multichip``, which pins the
 platform for the whole process).  The port runs the same function over
-``virtual_mesh(n, "cpu")``: n CPU shards, K5's plain version.  Params
-and noise are made with numpy and carried to both sides.
+``virtual_mesh(n, "cpu")``: n CPU shards, K5b's plain version where the
+mesh splits the hidden dimension (model = 2, at an even n), else K5's.
+Params and noise are made with numpy and carried to both sides.
 
 Tolerances are those of the unsharded twins, for the same reasons: the
 sides differ in summation order and in tanh (a few ulp), which now and
@@ -47,7 +48,9 @@ LOSS_RTOL = 1e-4
 LR = 1e-2
 CPU = "cpu"
 ZERO_LAUNCHES = {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0, K.FIT_SHARD: 0,
-                 K.FIT_SHARD_PARTIALS: 0, K.FIT_SHARD_REDUCE: 0}
+                 K.FIT_SHARD_PARTIALS: 0, K.FIT_SHARD_REDUCE: 0,
+                 K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
+                 K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
 
 
 def _jax_params(arrays):
@@ -119,25 +122,65 @@ def test_padded_rows_match_reference(injected, n):
         assert xt.shape[0] == 129
 
 
-def test_uneven_shards_differ_by_a_row_in_shard_order():
-    mesh = M.virtual_mesh(6, CPU)
-    bounds = M.shard_bounds(129, mesh)
-    assert [b - a for a, b in bounds] == [22, 22, 22, 21, 21, 21]
-    assert bounds[0][0] == 0 and bounds[-1][1] == 129
-    assert all(b == c for (_, b), (c, _) in zip(bounds, bounds[1:]))
-    x = torch.arange(129 * 2, dtype=torch.float32).view(129, 2)
-    assert torch.equal(torch.cat(M.shard_rows(x, mesh)), x)
-    noises = torch.randn(3, 129, 2)
+def _six_shards(model: int) -> M.Mesh:
+    """Six CPU shards: 6x1 (the rows over every shard), or 3x2, the
+    reference's layout, which ``virtual_mesh(6)`` takes."""
+    if model == 1:
+        return M.Mesh(data=6, model=1, devices=(torch.device(CPU),) * 6)
+    return M.virtual_mesh(6, CPU)
+
+
+@pytest.mark.parametrize("model, rows, sizes, noise_rows", [
+    (1, 129, [22, 22, 22, 21, 21, 21], 21),
+    (2, 130, [44, 44, 43, 43, 43, 43], 43),
+])
+def test_uneven_shards_differ_by_a_row_in_shard_order(model, rows, sizes,
+                                                      noise_rows):
+    """The data blocks are contiguous and differ by a row, in data order;
+    at model = 2 both shards of a block take its rows."""
+    mesh = _six_shards(model)
+    assert mesh.model == model
+    bounds = M.shard_bounds(rows, mesh)
+    assert [b - a for a, b in bounds] == sizes
+    blocks = bounds[::model]
+    assert bounds == [b for b in blocks for _ in range(model)]
+    assert blocks[0][0] == 0 and blocks[-1][1] == rows
+    assert all(b == c for (_, b), (c, _) in zip(blocks, blocks[1:]))
+    x = torch.arange(rows * 2, dtype=torch.float32).view(rows, 2)
+    assert torch.equal(torch.cat(M.shard_rows(x, mesh)[::model]), x)
+    noises = torch.randn(3, rows, 2)
     shards = M.shard_noise(noises, mesh)
-    assert [tuple(s.shape) for s in shards][3] == (3, 21, 2)
-    assert torch.equal(torch.cat(shards, dim=1), noises)
+    assert [tuple(s.shape) for s in shards][3] == (3, noise_rows, 2)
+    assert torch.equal(torch.cat(shards[::model], dim=1), noises)
 
 
-def test_params_are_replicated_once_per_device():
+@pytest.mark.parametrize("model", [1, 2])
+def test_params_are_replicated_once_per_device(model):
+    """Model 1: one copy per device, the params themselves there.  Model
+    2: one set per shard, the reference's halves, one copy per half shared
+    by the shards of the device, every half its own b_dec."""
     params = anomaly.init_params(torch.Generator().manual_seed(0))
-    replicas = M.shard_params(params, M.virtual_mesh(8, CPU))
-    assert len(replicas) == 1
-    assert all(p is q for p, q in zip(replicas[0], params))
+    mesh = (M.Mesh(data=8, model=1, devices=(torch.device(CPU),) * 8)
+            if model == 1 else M.virtual_mesh(8, CPU))
+    assert mesh.model == model
+    replicas = M.shard_params(params, mesh)
+    if model == 1:
+        assert len(replicas) == 1
+        assert all(p is q for p, q in zip(replicas[0], params))
+        return
+    assert len(replicas) == 8 and len({id(r) for r in replicas}) == 2
+    half = K.HIDDEN // 2
+    for s, r in enumerate(replicas):
+        cols = slice(s % 2 * half, (s % 2 + 1) * half)
+        assert r is replicas[s % 2]
+        for got, want in zip(r, (params.w_enc[:, cols], params.b_enc[cols],
+                                 params.w_dec[cols], params.b_dec)):
+            assert got.is_contiguous() and torch.equal(got, want)
+            assert got.data_ptr() != want.data_ptr()
+    assert replicas[0].b_dec.data_ptr() != replicas[1].b_dec.data_ptr()
+    whole = M.whole_params(replicas, mesh)
+    assert len(whole) == 4 and all(w is whole[0] for w in whole)
+    assert all(torch.equal(p, q) for p, q in zip(whole[0], params))
 
 
 @pytest.mark.parametrize("rows, total", [
@@ -160,8 +203,10 @@ def test_slot_regions_lie_back_to_back(rows, total):
 
 @pytest.mark.parametrize("steps", [1, 40])
 def test_sharded_fit_matches_reference_sharded_scan(steps):
-    """The port's K5 fit over 8 CPU shards against the reference's jitted
-    scan over its 4x2 mesh of 8 devices: losses and fitted scores."""
+    """The port's fit over 8 CPU shards (4x2, K5b's plain version: the
+    hidden dimension split over model as the reference splits it) against
+    the reference's jitted scan over its 4x2 mesh of 8 devices: losses and
+    fitted scores."""
     _, X = F.featurize(_records(hot_agent=True))
     Xn = art._pad_rows(X, 32, 4)
     arrays = _param_arrays(32)
@@ -180,8 +225,9 @@ def test_sharded_fit_matches_reference_sharded_scan(steps):
                               mesh)
     xs = M.shard_rows(x, mesh)
     losses = art._fit_shards(replicas, xs,
-                             M.shard_noise(torch.from_numpy(noise), mesh), LR)
-    got = M.score_shards(replicas, xs).numpy()
+                             M.shard_noise(torch.from_numpy(noise), mesh), LR,
+                             mesh)
+    got = M.score_shards(replicas, xs, mesh).numpy()
 
     np.testing.assert_allclose(losses.numpy(), np.asarray(losses_j),
                                rtol=FIT_LOSS_RTOL)
