@@ -1832,10 +1832,12 @@ def _half_slot_totals(slots, count: int, f: int):
              t[2 * fh + K.HALF:2 * fh + K.HALF + f]), t[-1])
 
 
-def _model_fit(params, x, noises, mesh, per_step: bool = False):
+def _model_fit(params, x, noises, mesh, per_step: bool = False,
+               scratch=None):
     """K5b's fit over ``mesh`` (model = 2) from the halves of ``params``:
     as ``fit_model_`` routes it (one launch on one card), or by the
-    per-step route -> (the two halves after, losses)."""
+    per-step route -> (the two halves after, losses).  ``scratch`` as
+    ``fit_model_`` takes it (None: allocated)."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
@@ -1851,7 +1853,8 @@ def _model_fit(params, x, noises, mesh, per_step: bool = False):
         K._fit_model_steps(sets, xs, ns, rows, f, lr=1e-2, sigma=0.25,
                            scratch=scratch, losses_out=losses)
     else:
-        K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25, losses_out=losses)
+        K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25, losses_out=losses,
+                     scratch=scratch)
     for dev in mesh.distinct:
         torch.cuda.synchronize(dev)
     return halves[:K.MODEL], losses
@@ -1917,7 +1920,8 @@ def model_step_check(params, x, noise, mesh) -> dict:
           f"{name}: the halves' b_dec differ")
     total = K.shard_slot_offsets(rows)[-1]
     pf = K.half_slot_floats(f)
-    y = scratch[K.MODEL * total * pf:-1].view(K.MODEL, sum(rows), f)
+    route = scratch[K.model_image_floats(f):]   # the slots, y, a float
+    y = route[K.MODEL * total * pf:-1].view(K.MODEL, sum(rows), f)
     y_want = _model_plain_y(start, blocks, bnoise)
     y_err = float((y - y_want).abs().max())
     check(y_err <= SCORE_RTOL * float(y_want.abs().max()),
@@ -1925,7 +1929,7 @@ def model_step_check(params, x, noise, mesh) -> dict:
     grads, _ = R.model_step_grads(start, blocks, bnoise, 0.25)
     a_err = b_err = slot_err = 0.0
     for m in range(K.MODEL):
-        slots = scratch[m * total * pf:]
+        slots = route[m * total * pf:]
         (got_enc, got_be, got_dec, got_bd), sq = _half_slot_totals(
             slots, total, f)
         dw_enc, db_enc, dw_dec, db_dec = grads[m]
@@ -1958,8 +1962,10 @@ def model_kernel_phase(device) -> dict:
     """K5b over MODEL_MESHES of one card: ``model_step_check`` at every
     KERNEL_SHAPE; at TIMED_SHAPE x FIT_STEPS the one-launch fit bit for
     bit the per-step route's and itself, within K5's FIT tolerances of
-    the plain split fit (``reference.fit_model_shard``), and the halves'
-    b_dec the same bits.  -> max abs errors per entry point."""
+    the plain split fit (``reference.fit_model_shard``), the halves'
+    b_dec the same bits, and its staged images after the fit bit for bit
+    the plain staging of the halves it returns (``reference.staged``).
+    -> max abs errors per entry point."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
@@ -1986,7 +1992,14 @@ def model_kernel_phase(device) -> dict:
     for shards in MODEL_MESHES:
         mesh = M.virtual_mesh(shards, device)
         tag = f"K5b [{n},{f}] x{FIT_STEPS} over {mesh.desc}"
-        one = _model_fit(params, x, noises, mesh)
+        rows = [len(t) for t in M.shard_rows(x, mesh)[::K.MODEL]]
+        scratch = torch.empty(K.model_scratch_floats(rows, f),
+                              device=x.device)
+        one = _model_fit(params, x, noises, mesh, scratch=scratch)
+        image = torch.cat([R.staged(*h) for h in one[0]])
+        check(torch.equal(scratch[:K.model_image_floats(f)].view(torch.int32),
+                          image.view(torch.int32)),
+              f"{tag}: the staged images are not the halves' plain staging")
         per = _model_fit(params, x, noises, mesh, per_step=True)
         check(_same_model_fit(one, per),
               f"{tag}: the one-launch fit is not the per-step route's bits")
@@ -2005,7 +2018,8 @@ def model_kernel_phase(device) -> dict:
         check(ok, f"{tag}: losses off the plain split fit by {lerr:.3g}")
         errs[K.FIT_MODEL] = max(errs[K.FIT_MODEL], err)
         print(f"{tag}: the one-launch fit is the per-step route's bits, "
-              f"twice the same, the halves' b_dec the same bits; off the "
+              f"twice the same, the halves' b_dec and staged images the "
+              f"plain bits; off the "
               f"plain split fit: params {err:.3g} (atol {FIT_PARAM_ATOL}), "
               f"losses {_rel(one[1], w_losses):.3g} relative (rtol "
               f"{FIT_LOSS_RTOL})")
@@ -2051,10 +2065,11 @@ def model_timings(device) -> dict:
     one card, beside K5 over k5_mesh of the same counts and K3, all in
     this call: each fit's device time by ``event_ms`` (median of 15 behind
     a spin kernel), K5b's per-step route's by ``cuda_ms`` (the fit
-    captured in one CUDA graph), the plain split fit's (host-bound); at
-    the main path's 2x2 each per-step launch alone by ``cuda_ms`` beside
-    its plain version and ``model_bound``.  -> {kernel: (ms, plain, bound,
-    by)} at 2x2."""
+    captured in one CUDA graph), the plain split fit's (host-bound); the
+    one-launch fit's phase trace (``fit_model_(stamps=)``, the step's
+    phases and phase A's MODEL_SUBSTAGES); at the main path's 2x2 each
+    per-step launch alone by ``cuda_ms`` beside its plain version and
+    ``model_bound``.  -> {kernel: (ms, plain, bound, by)} at 2x2."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
@@ -2069,6 +2084,7 @@ def model_timings(device) -> dict:
     k3_ms = event_ms(lambda: K.fit_(tq, x, noises, lr=1e-2, sigma=0.25,
                                     losses_out=losses))
     bound, by = fit_bound(n, f, steps)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     out = {}
     for shards in MODEL_MESHES:
         mesh = M.virtual_mesh(shards, x.device)
@@ -2086,7 +2102,16 @@ def model_timings(device) -> dict:
             K._fit_model_steps(sets, xs, ns, rows, f, lr=1e-2, sigma=0.25,
                                scratch=scratch, losses_out=losses)
 
-        ms = event_ms(fit)
+        table, hv = K._fold_tables(sets, xs, ns, rows, x.device)
+        c_fit = K.kernel(K.FIT_MODEL)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def c_call():
+            check(c_fit(table, len(rows), hv, 0.25, scratch.data_ptr(),
+                        scratch.numel(), losses.data_ptr(), 1e-2, f, steps,
+                        0, 0, stream) == 0, "K5b's C call failed")
+
+        ms, enq, c_us = event_ms(fit), _enqueue_us(fit), _enqueue_us(c_call)
         per_ms = cuda_ms(per_step, batches=5, per_batch=1)
         start = [tuple(p) for p in halves[:K.MODEL]]
         plain_ms = event_ms(lambda: R.fit_model_shard(
@@ -2098,14 +2123,30 @@ def model_timings(device) -> dict:
             replicas, k5_xs, k5_ns, lr=1e-2, sigma=0.25, losses_out=losses))
         if shards == MAIN_PATH_SHARDS:
             out[K.FIT_MODEL] = (ms, plain_ms, bound, by)
+        plan = K.model_fit_plan(rows, sms, f)
         print(f"K5b [{n},{f}] x{steps} over {mesh.desc} of one card: one "
-              f"launch {ms:.4f} ms per fit (device), "
-              f"{K.MODEL * K.shard_slot_offsets(rows)[-1]} items a phase; "
-              f"per-step route {per_ms:.4f} ms per fit (device, one CUDA "
-              f"graph), {steps * (2 * shards + K.MODEL)} launches; plain "
-              f"split fit {plain_ms:.3f} ms (host-bound); beside K5 over "
-              f"{k5.desc} {k5_ms:.4f} ms and K3 {k3_ms:.4f} ms per fit; "
-              f"bound {bound:.4f} ms by {by}")
+              f"launch {ms:.4f} ms per fit (device), host enqueue "
+              f"{enq:.2f} us per fit (its C call {c_us:.2f}: the grid "
+              f"queried once per card and F), "
+              f"{K.shard_slot_offsets(rows)[-1]} items of both halves on "
+              f"{sms} blocks (at most {max(map(len, plan.items))} a block, "
+              f"{plan.resident_tiles} x tiles resident a block); per-step "
+              f"route {per_ms:.4f} ms per fit (device, one CUDA graph), "
+              f"{steps * (2 * shards + K.MODEL)} launches; plain split fit "
+              f"{plain_ms:.3f} ms (host-bound); beside K5 over {k5.desc} "
+              f"{k5_ms:.4f} ms ({ms / k5_ms:.3f}x) and K3 {k3_ms:.4f} ms "
+              f"per fit; bound {bound:.4f} ms by {by}")
+        stamps = torch.zeros((steps, K.FIT_STAMPS, sms), dtype=torch.int64,
+                             device=x.device)
+        K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25, losses_out=losses,
+                     scratch=scratch, stamps=stamps)
+        split, sub = _split(stamps, min(K.shard_slot_offsets(rows)[-1], sms))
+        print(f"K5b [{n},{f}] over {mesh.desc} per step, mean us of the "
+              f"phase trace: phase A {split[0]:.2f}, barrier {split[1]:.2f}"
+              f", phase B {split[2]:.2f}, barrier {split[3]:.2f}; phase A's "
+              f"sub-stages (each block's last tile) "
+              + ", ".join(f"{k} {v:.2f}"
+                          for k, v in zip(MODEL_SUBSTAGES, sub)))
     # each launch of the per-step route alone, at the main path's 2x2
     mesh = M.virtual_mesh(MAIN_PATH_SHARDS, x.device)
     halves = M.shard_params(params, mesh)
@@ -2117,7 +2158,8 @@ def model_timings(device) -> dict:
     scratch = torch.empty(K.model_scratch_floats(rows, f), device=x.device)
     K.fit_model_step_(halves, xs, ns, lr=1e-2, sigma=0.25, loss_out=losses,
                       scratch=scratch)
-    y = scratch[K.MODEL * total * pf:]
+    route = scratch[K.model_image_floats(f):]   # the slots, y, a float
+    y = route[K.MODEL * total * pf:]
     h0 = halves[0]
     c_fwd = K.kernel(K.FIT_MODEL_FORWARD)
     c_part = K.kernel(K.FIT_MODEL_PARTIALS)
@@ -2134,12 +2176,12 @@ def model_timings(device) -> dict:
         K._launched(K.FIT_MODEL_PARTIALS, c_part(
             blocks[0].data_ptr(), bnoise[0].data_ptr(), 0.25,
             *(p.data_ptr() for p in h0), y.data_ptr() + 4 * n * f,
-            scratch.data_ptr(), scratch.numel(), rows[0], n, f, stream))
+            route.data_ptr(), route.numel(), rows[0], n, f, stream))
 
     def reduce():
         stream = torch.cuda.current_stream().cuda_stream
         K._launched(K.FIT_MODEL_REDUCE, c_red(
-            scratch.data_ptr(), total * pf, total,
+            route.data_ptr(), total * pf, total,
             *(p.data_ptr() for p in h0), losses.data_ptr(), 1e-2, n, f,
             stream))
 
@@ -2155,7 +2197,7 @@ def model_timings(device) -> dict:
              lambda: R.model_step_grads(start, blocks[:1], bnoise[:1], 0.25)),
             (K.FIT_MODEL_REDUCE, reduce,
              lambda: R.sgd_update(start[0], tuple(
-                 g.float() for g in _half_slot_totals(scratch, total, f)[0]),
+                 g.float() for g in _half_slot_totals(route, total, f)[0]),
                  1e-2))):
         ms, plain = cuda_ms(kernel_call), cuda_ms(plain_call)
         b_ms, b_by = bounds[name]
@@ -2236,6 +2278,11 @@ def fit_report(name: str, X, steps: int, device, reps: int = 5) -> None:
 # phase A's sub-stages in the order of the trace's points 1-6
 A_SUBSTAGES = ("noise wait", "noisy x + weights wait", "forward", "dh/da",
                "weight sums", "slot")
+# the same of K5b's one-launch fit (csrc/anomaly_fit_model.cu): of a
+# block's last tile the noise, noisy x and the step's copy of both halves'
+# weights, both halves' forwards, each half's backward; the two slots
+MODEL_SUBSTAGES = ("noise wait", "noisy x + weights wait", "both forwards",
+                   "half 0 backward", "half 1 backward", "two slots")
 
 
 def enqueue_parts(params, x, noises, reps: int = 50) -> dict:

@@ -2,8 +2,8 @@
 (the fit over rows split into shards: one launch per fit on one card, or
 the per-step route of S + 1 launches a step) and K5b (the fit over rows
 split into data blocks and the hidden dimension into two model shards: one
-launch per fit on one card, or the per-step route of 2 S + 2 launches a
-step).
+launch per fit on one card, each work item both halves of a slot, or the
+per-step route of 2 S + 2 launches a step).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, and launches on the current
@@ -123,12 +123,13 @@ def fit_slots(n: int) -> int:
     return min(-(-n // FIT_ROWS), FIT_MAX_BLOCKS)
 
 
-def staged_floats(f: int) -> int:
+def staged_floats(f: int, hidden: int = HIDDEN) -> int:
     """Floats of K3's staged weights for F = f (``reference.staged``):
     bf16 W_enc^T [H][FP+8] and W_dec^T [FP][H+8], fp32 b_enc [H] and
-    b_dec [FP], FP = f rounded up to 16."""
+    b_dec [FP], FP = f rounded up to 16 (H = ``hidden``: K5b's image of
+    a half holds HALF)."""
     fp = -(-f // 16) * 16
-    return (HIDDEN * (fp + 8) + fp * (HIDDEN + 8)) // 2 + HIDDEN + fp
+    return (hidden * (fp + 8) + fp * (hidden + 8)) // 2 + hidden + fp
 
 
 def slot_floats(f: int) -> int:
@@ -165,14 +166,16 @@ def tile_bytes(f: int) -> int:
     return 4 * FIT_ROWS * _padded(f)
 
 
-def fit_shared_plan(per_block: int, f: int) -> tuple[int, int]:
+def fit_shared_plan(per_block: int, f: int,
+                    work: int | None = None) -> tuple[int, int]:
     """The x tiles a block of K3 or of K5's one-launch fit keeps resident
     when the most tiles any block walks in a step is ``per_block``, and
     the launch's shared bytes (csrc/anomaly_fit_persistent.cuh,
-    shared_plan): all of them while the working set, the tiles and two
-    noise tiles fit in ``MAX_SMEM``; else 0, one tile reloaded at each
-    tile.  K3 walks ceil(ceil(n / 32) / fit_slots(n)) tiles a block."""
-    base = work_bytes(f) + 2 * tile_bytes(f)
+    shared_plan): all of them while the working set (``work``, else
+    ``work_bytes(f)``), the tiles and two noise tiles fit in
+    ``MAX_SMEM``; else 0, one tile reloaded at each tile.  K3 walks
+    ceil(ceil(n / 32) / fit_slots(n)) tiles a block."""
+    base = (work_bytes(f) if work is None else work) + 2 * tile_bytes(f)
     if base + per_block * tile_bytes(f) <= MAX_SMEM:
         return per_block, base + per_block * tile_bytes(f)
     return 0, base + tile_bytes(f)
@@ -600,13 +603,96 @@ def half_slot_floats(f: int) -> int:
     return 2 * f * HALF + HALF + f + 1
 
 
-def model_scratch_floats(rows, f: int) -> int:
-    """Floats of K5b's scratch for data blocks of ``rows`` rows at F = f:
+def model_image_floats(f: int) -> int:
+    """Floats of the one-launch fit's staged images of both halves at F =
+    f: K3's image at a hidden width of HALF, one a half."""
+    return MODEL * staged_floats(f, HALF)
+
+
+def _route_floats(rows, f: int) -> int:
+    """Floats of the slots and y that follow the images in K5b's scratch:
     both halves' slots (``shard_slot_offsets(rows)[-1]`` a half), the
     halves' partial outputs y [MODEL, N, F], and one float for half 1's
-    copy of the loss (``csrc/anomaly_fit_model.cu``)."""
+    copy of the loss."""
     return (MODEL * shard_slot_offsets(rows)[-1] * half_slot_floats(f)
             + MODEL * sum(rows) * f + 1)
+
+
+def model_scratch_floats(rows, f: int) -> int:
+    """Floats of K5b's scratch for data blocks of ``rows`` rows at F = f
+    (``csrc/anomaly_fit_model.cu``): the one-launch fit's staged images
+    (``model_image_floats``), then both halves' slots, then the per-step
+    route's partial outputs y [MODEL, N, F], then one float for half 1's
+    copy of the loss.  The one-launch fit uses the images, the slots and
+    a float; the per-step route all but the images."""
+    return model_image_floats(f) + _route_floats(rows, f)
+
+
+def half_slot_at(rows, f: int, d: int, m: int) -> int:
+    """Where data block d's first slot of half m lies among K5b's slots (in
+    floats from the first, ``model_image_floats(f)`` into the scratch):
+    half m's slots from ``m x shard_slot_offsets(rows)[-1]`` slots on, each
+    data block's back to back in data order, which is where both routes
+    write them and the reduce of half m reads them."""
+    offsets = shard_slot_offsets(rows)
+    return (m * offsets[-1] + offsets[d]) * half_slot_floats(f)
+
+
+def fold_work_bytes(f: int) -> int:
+    """Bytes of the one-launch fit's working set in shared memory at F = f
+    (csrc/anomaly_fit_model.cu, fold_work_bytes): both halves' staged
+    weights (bf16 W_enc_m^T [HALF][FP+8], W_dec_m^T [FP][HALF+8], fp32
+    b_enc_m [HALF], b_dec [FP]), 8 warp sums, each half's fp32 gelu'(a)
+    [R][HALF+8], dr [R][FP+1], then bf16 noisy x [R][FP+8], each half's
+    gelu [R][HALF+8], dr's three terms [3][R][FP+8] and each half's da's
+    [3][R][HALF+8]."""
+    fp, ldq = _padded(f), HALF + 8
+    staged = 2 * (HALF * (fp + 8) + fp * ldq) + 4 * (HALF + fp)
+    return (MODEL * staged + 4 * (8 + MODEL * FIT_ROWS * ldq
+                                  + FIT_ROWS * (fp + 1))
+            + 2 * (4 * FIT_ROWS * (fp + 8) + MODEL * 4 * FIT_ROWS * ldq))
+
+
+class ModelItem(NamedTuple):
+    """One work item of K5b's one-launch fit: data block ``d``'s block
+    ``b`` of its ``fit_slots(n_d)``, slot ``slot`` of each half, which
+    walks ``tiles`` of block d with both halves and writes both halves'
+    slot ``slot`` at ``at`` (half 0's, half 1's; floats from the first
+    slot, as ``half_slot_at`` counts)."""
+    d: int
+    b: int
+    slot: int
+    tiles: tuple[int, ...]
+    at: tuple[int, int]
+
+
+class ModelFitPlan(NamedTuple):
+    """``items[k]``: block k's items, in the order it takes them;
+    ``resident_tiles`` and ``smem`` by K5's rule over
+    ``fold_work_bytes``."""
+    items: list[list[ModelItem]]
+    resident_tiles: int
+    smem: int
+
+
+def model_fit_plan(rows, blocks: int, f: int) -> ModelFitPlan:
+    """K5b's one-launch fit over data blocks of ``rows`` rows at F = f on
+    ``blocks`` blocks (one per SM), as csrc/anomaly_fit_model.cu plans it
+    (fold_item, fold_block_tiles, shared_plan): slot i of each half is data
+    block d's block b = i - shard_slot_offsets(rows)[d], walking tiles
+    b, b + ga_d, ... (ga_d = fit_slots(n_d)) with both halves: K5's items
+    (``shard_fit_plan``) over the data blocks; block k takes slots k,
+    k + blocks, ...; its x tiles stay resident by ``fit_shared_plan`` over
+    ``fold_work_bytes``."""
+    if not 1 <= len(rows) <= MAX_DATA:
+        raise ValueError(f"K5b's one-launch fit takes 1 to {MAX_DATA} "
+                         f"data blocks, got {len(rows)}")
+    pf = half_slot_floats(f)
+    items = [[ModelItem(it.shard, it.b, it.slot, it.tiles, tuple(
+        half_slot_at(rows, f, it.shard, m) + it.b * pf for m in range(MODEL)))
+        for it in block] for block in shard_fit_plan(rows, blocks, f).items]
+    most = max(sum(len(it.tiles) for it in block) for block in items)
+    return ModelFitPlan(items, *fit_shared_plan(most, f, fold_work_bytes(f)))
 
 
 def _check_model(halves, xs, noises, steps: int | None):
@@ -664,15 +750,16 @@ def _model_stepper(sets, xs, rows, f, *, lr, sigma, scratch):
     cards' slots copied to the first's, phase B there once per half (on
     that card's params of the half, or a copy there), and those params
     copied to every other set of the half (``csrc/anomaly_fit_model.cu``).
-    ``scratch`` (``model_scratch_floats``) lies on the first shard's
-    card."""
+    ``scratch`` (``model_scratch_floats``) lies on the first shard's card;
+    the route takes what follows the images."""
     home = xs[0].device
     n_total = sum(rows)
     offsets = shard_slot_offsets(rows)
     pf = half_slot_floats(f)
     y_base = MODEL * offsets[-1] * pf
     row0 = [sum(rows[:d]) for d in range(len(rows))]
-    need = model_scratch_floats(rows, f)
+    need = _route_floats(rows, f)
+    scratch = scratch[model_image_floats(f):]
     devs = list(dict.fromkeys(x.device for x in xs))
     bufs = {dev: scratch if dev == home else torch.empty(
         need, dtype=torch.float32, device=dev) for dev in devs}
@@ -693,7 +780,7 @@ def _model_stepper(sets, xs, rows, f, *, lr, sigma, scratch):
         return y_base + (m * n_total + row0[d]) * f
 
     def slot_at(d, m):
-        return (m * offsets[-1] + offsets[d]) * pf
+        return half_slot_at(rows, f, d, m)
 
     fwd, part = [], []
     for s, x in enumerate(xs):
@@ -811,9 +898,22 @@ def _fit_model_steps(sets, xs, noises, rows, f, *, lr, sigma, scratch,
         stepper([b + s * d for b, d in zip(bases, strides)], loss0 + 4 * s)
 
 
+def _fold_tables(sets, xs, noises, rows, home):
+    """The one-launch fit's two int64 tables: each data block's x and noise
+    pointers, noise step stride and rows, and the halves' params on
+    ``home``."""
+    table = (ctypes.c_longlong * (4 * len(rows)))(*(
+        v for x, nz, n in zip(xs[::MODEL], noises[::MODEL], rows)
+        for v in (x.data_ptr(), nz.data_ptr(), nz.stride(0), n)))
+    hv = (ctypes.c_longlong * (4 * MODEL))(*(
+        p.data_ptr() for m in range(MODEL) for p in sets[(home, m)]))
+    return table, hv
+
+
 def fit_model_(halves, xs, noises, *, lr: float, sigma: float,
                losses_out: torch.Tensor,
-               scratch: torch.Tensor | None = None) -> None:
+               scratch: torch.Tensor | None = None,
+               stamps: torch.Tensor | None = None) -> None:
     """K5b, in place: the whole fit over the shards as ``fit_model_step_``
     lays them out, one denoising step for each step of the noise shards
     (``noises[s]`` is shard s's [steps, n_s, F], each step's rows
@@ -823,10 +923,12 @@ def fit_model_(halves, xs, noises, *, lr: float, sigma: float,
     shard's device, 16-byte aligned) None allocates it.
 
     The route follows the layout: all the shards on one CUDA device, one
-    ``anomaly_fit_model_fit`` launch (at most ``MAX_DATA`` data blocks);
-    shards on several cards, the per-step route; the CPU,
-    ``reference.fit_model_shard``.  Both kernel routes give the same
-    bits."""
+    ``anomaly_fit_model_fit`` launch (at most ``MAX_DATA`` data blocks;
+    its work items ``model_fit_plan``); shards on several cards, the
+    per-step route; the CPU, ``reference.fit_model_shard``.  Both kernel
+    routes give the same bits.  ``stamps`` (one card only: int64 [steps,
+    FIT_STAMPS, the SM count]) asks the one-launch fit for a trace of its
+    phases (``csrc/anomaly_fit_model.cu``)."""
     if not noises or noises[0].dim() != 3:
         raise ValueError("noises must hold one [steps, n_s, F] tensor per "
                          "shard")
@@ -842,6 +944,11 @@ def fit_model_(halves, xs, noises, *, lr: float, sigma: float,
     if one_device and len(rows) > MAX_DATA:
         raise ValueError(f"at most {MAX_DATA} data blocks on one device, "
                          f"got {len(rows)}")
+    if stamps is not None:
+        if not one_device:
+            raise ValueError("stamps trace the one-launch fit: the shards "
+                             "must lie on one card")
+        _check_stamps(stamps, steps, home)
     if steps == 0:
         return
     if home.type == "cpu":
@@ -857,14 +964,11 @@ def fit_model_(halves, xs, noises, *, lr: float, sigma: float,
                          scratch=scratch, losses_out=losses_out)
         return
     fn = kernel(FIT_MODEL)
-    table = (ctypes.c_longlong * (4 * len(rows)))(*(
-        v for x, nz, n in zip(xs[::MODEL], noises[::MODEL], rows)
-        for v in (x.data_ptr(), nz.data_ptr(), nz.stride(0), n)))
-    hv = (ctypes.c_longlong * (4 * MODEL))(*(
-        p.data_ptr() for m in range(MODEL) for p in sets[(home, m)]))
+    table, hv = _fold_tables(sets, xs, noises, rows, home)
     with torch.cuda.device(home):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(table, len(rows), hv, sigma, scratch.data_ptr(),
                  scratch.numel(), losses_out.data_ptr(), lr, f, steps,
-                 stream)
+                 0 if stamps is None else stamps.data_ptr(),
+                 0 if stamps is None else stamps.numel(), stream)
     _launched(FIT_MODEL, err)

@@ -77,8 +77,9 @@ SIGNATURES = {
                                  _P],
     # table (blocks x 4 int64: x, noise, noise step stride, n_d), blocks,
     # halves (2 x 4 int64: w_enc, b_enc, w_dec, b_dec), sigma, scratch,
-    # scratch_floats, losses, lr, f, steps, stream
-    "anomaly_fit_model_fit": [_P, _I, _P, _F, _P, _L, _P, _F, _I, _I, _P],
+    # scratch_floats, losses, lr, f, steps, stamps, stamps_len, stream
+    "anomaly_fit_model_fit": [_P, _I, _P, _F, _P, _L, _P, _F, _I, _I, _P,
+                              _L, _P],
     # x, noise, sigma, w_enc, b_enc, w_dec, b_dec, y, n, f, stream
     "anomaly_fit_model_forward": [_P, _P, _F, _P, _P, _P, _P, _P, _I, _I, _P],
     # x, noise, sigma, w_enc, b_enc, w_dec, b_dec, y_peer, slots,

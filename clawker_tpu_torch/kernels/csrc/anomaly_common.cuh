@@ -178,6 +178,21 @@ struct Staged {
         bd(be + kHidden) {}
 };
 
+// The same layout at kH hidden units, rows of kH + 8 (K5b's half: kH = 64,
+// in shared memory and in its fold's global image)
+template <int kH>
+struct StagedAt {
+  __nv_bfloat16* weT;
+  __nv_bfloat16* wdT;
+  float* be;
+  float* bd;
+  __device__ StagedAt(unsigned char* base, int fp)
+      : weT(reinterpret_cast<__nv_bfloat16*>(base)),
+        wdT(weT + kH * (fp + 8)),
+        be(reinterpret_cast<float*>(wdT + fp * (kH + 8))),
+        bd(be + kH) {}
+};
+
 // The staged weights built from the fp32 params by one block's `threads`
 // threads, whole rows, padding included: into shared memory (K1, K2), or
 // into K3's global image (its prologue), which phase A copies whole

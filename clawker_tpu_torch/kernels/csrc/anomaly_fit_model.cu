@@ -3,15 +3,13 @@
 // reference's mesh layout.  Four C entry points, two routes, chosen by the
 // wrapper (kernels/anomaly.py) by layout, never by failure:
 // * all the shards on one card: the whole fit as ONE persistent
-//   cooperative launch (anomaly_fit_model_fit), K3's and K5's design;
+//   cooperative launch (anomaly_fit_model_fit), "the fold" (below);
 // * shards on several cards, and the single step of mesh.train_step /
 //   denoise_step / graft_entry.dryrun_multichip: per step, the forward
 //   once per shard (anomaly_fit_model_forward), the partials once per
 //   shard (anomaly_fit_model_partials), then phase B once per half
 //   (anomaly_fit_model_reduce): 2 S + 2 launches a step, "the per-step
 //   route".
-// Both routes run the same device functions over the same work items with
-// the same fixed sums, so they give the same bits.
 //
 // Replaces: clawker_tpu/analytics/anomaly.py:132-145 (shard_params on
 // fleet_mesh with model = 2: w_enc P(None, "model"), b_enc P("model"),
@@ -33,38 +31,77 @@
 //      y_1, the same b_dec), so their db_dec sums, and their b_dec after the
 //      update, are the same bits; the loss is half 0's.
 //
-// How the halves of a row tile meet for step 2: through global memory,
-// behind a third grid-wide barrier a step.  Phase A1 writes each half's y_m
-// [N][F] (fp32) to the scratch; grid.sync(); phase A2 recomputes the
-// half's encoder (the same code on the same inputs: the same bits), its own
-// y_m, reads the peer's y through L2 (__ldcg) and goes on with dr and the
-// backward.  A 2-CTA cluster reading the peer's y from distributed shared
-// memory would save the barrier (~1 us a step), but needs the cooperative
-// and cluster launch attributes together and ties a half to a co-scheduled
-// peer; the barrier needs neither, and the per-step route is the same three
-// phases as three kinds of launches, so the two routes share every sum.
-//
-// Each work item is one shard's block b of ga_d = min(ceil(n_d / 32), 132)
-// and walks the tiles b, b + ga_d, ... of data block d, as K5's items do;
-// the halves' items alternate, so a block's items are of one half.  A
-// block stages its half's weights from the fp32 params (K2's way, no
-// global image: bf16 W_enc_m^T [64][FP+8], W_dec_m^T [FP][72], b_enc_m,
-// b_dec) once a step, in A1, and keeps them through A2: the params change
-// only in phase B, and the slot is assembled over the tile's arrays.  The backward runs on the tensor cores with K3's exact products
-// (dr and da as three bf16 terms each): warp w takes hidden columns
-// 16 (w % 4) .. + 15 and row tile (dh) or feature tiles (the weight sums)
-// w / 4, w / 4 + 2, ..., so each warp holds half of K5's weight sums in
-// registers.  A slot of a half is [dW_enc_m [F][64] | db_enc_m [64] |
-// dW_dec_m^T [F][64] | db_dec [F] | loss]; phase B is fit_reduce at kH = 64
-// over one half's slots (its long-runs form: any number of them).
-//
-// Scratch (floats): the slots, 2 x sum_d ga_d of half_floats(f) (half 0's,
-// then half 1's, each data block's back to back in data order), then y,
-// [2][N][F] (half 0's rows then half 1's, in data order), then one float
-// for half 1's copy of the loss.
+// The two routes run different work items.  A slot of a half is [dW_enc_m
+// [F][64] | db_enc_m [64] | dW_dec_m^T [F][64] | db_dec [F] | loss]; slot
+// i of a half is data block d's block b = i - slot0[d] of its ga_d =
+// min(ceil(n_d / 32), 132), which walks the row tiles b, b + ga_d, ... of
+// block d; half m's slots lie at m x half_slots (data order, then block
+// order), as the reduce reads them.
+// * The per-step route's work item is one half of one slot: the forward
+//   launch writes y_m [N][F] to global memory, and the partials launch runs
+//   the half's forward again, reads the peer's y through L2 and goes on with
+//   dr and the half's backward.  It is the reference for the bits and the
+//   route across cards.
+// * The fold's work item is one slot with BOTH halves: per row tile the
+//   block runs half 0's forward (its epilogue keeps y_0 in shared memory),
+//   half 1's forward (its epilogue forms r = y_1 + y_0 + b_dec, e, the
+//   squared error and dr), then half 0's backward into its sums and half
+//   1's into its own, and at the item's end writes the two slots.  No y
+//   goes to global memory, no forward runs twice, and a step has two grid
+//   barriers (phase A | phase B |), K5's, where the per-step route's
+//   three phases would need three.
+// They give the same bits: each slot is the sum of the same tiles in the
+// same order, each tile's terms from the same device functions
+// (forward_tile at a width of 64, backward_tile, write_half_slot) on the
+// same inputs; r is formed from the same two 64-wide passes (y_1 + y_0 is
+// y_0 + y_1 in fp32: one rounded add), where one 128-wide pass would sum
+// y in another order; the squared error of both slots is that one sum,
+// and phase B is the same fit_reduce over the same slots.  The fold reads
+// b_dec from half 0 alone: the halves hold the same bits (shard_params
+// gives each the whole b_dec, and every update keeps them equal).
 //
 // What bounds it on the H100: the fit's own work, as K5 (chip_smoke.py,
-// fit_bound over N rows); the per-step launches by their bytes.
+// fit_bound over N rows): 0.046 ms for 120 steps at [4224, 32], by the
+// bf16 tensor products.  What sets the time instead is latency, as in K3
+// and K5: a block's walk over its tiles, the slots' reduce and the grid
+// barriers.  The per-step route's items were half a row tile each, two a
+// block a phase at the timed meshes (2x2 and 4x2: 264 of them), each
+// paying a tile's whole fixed cost for half its math, behind a third
+// barrier.  The fold has 132 items there, one a block, each with the math
+// of a K5 item, so a step is K5's: phase A, a barrier, phase B, a
+// barrier.
+//
+// The fold (anomaly_fit_model_fit):
+// * The data blocks' table and the halves' pointers are passed by value
+//   (__grid_constant__ ModelTable, Halves; at most kMaxData blocks): no
+//   copy to the device.  One block per SM (queried once per device and FP,
+//   fold_grid); block k takes slots k, k + gb, ... in order.
+// * Shared memory (fold_work_bytes): both halves' staged weights, each
+//   half's gelu'(a), gelu and da, one dr and its three bf16 terms, one
+//   bf(noisy); then K5's plan (shared_plan): the x tiles of all the
+//   block's items resident while they fit, else one reloaded a tile, and
+//   two noise tiles, the next one prefetched with cp.async across items
+//   and steps.
+// * The weights come from K3's STAGED IMAGE, one a half (StagedAt<64>, in
+//   the scratch): blocks 0 and 1 build them from the fp32 params in the
+//   prologue; at each step's start a block copies both with cp.async
+//   (16-byte copies through L2, no conversion), behind its first tile's
+//   noise; phase B writes each updated param into its half's image.
+//   Staging both halves from fp32 in every block took 2.6-3.0 us a step
+//   on an H100 at F = 32.
+// * Phase B is fit_reduce at a width of 64 over each half's slots, in
+//   K5's short runs while a half has at most 8 x 17 slots (the same sums
+//   as its long runs, which the per-step reduce takes: phase B took 9.6
+//   us a step in them against 2.4 at 132 slots of F = 32 on an H100),
+//   then its long runs.
+// * On request it traces kStamps points of every step (`stamps`, K3's and
+//   K5's format): 0 the step's start; of the block's last tile 1 its noise
+//   on chip, 2 noisy x and the weights on chip, 3 both forwards, 4 half
+//   0's backward, 5 half 1's; 6 the slots written; 7 after the first
+//   barrier; 8 after phase B.
+// * If one block of the most shared memory cannot sit on an SM, or there
+//   are more than kMaxData data blocks, it returns an error; there is no
+//   fallback.
 
 #include "anomaly_fit_persistent.cuh"
 
@@ -74,8 +111,8 @@ constexpr int kModel = 2;                 // model shards
 constexpr int kHalf = kHidden / kModel;   // hidden units a model shard holds
 constexpr int kLdq = kHalf + 8;           // row stride of the [.][kHalf]
                                           // arrays: (kLdq / 2) % 8 == 4
-constexpr int kMaxData = 32;              // data blocks in the one-launch
-                                          // fit's table: 64 shards
+constexpr int kMaxData = 32;              // data blocks in the fold's
+                                          // table: 64 shards
 constexpr int kHalfSlice = 64;            // parameters per reduce block
 
 __host__ __device__ constexpr int half_floats(int f) {
@@ -93,8 +130,8 @@ __host__ __device__ constexpr size_t half_staged_bytes(int fp) {
          sizeof(float) * (kHalf + fp);
 }
 
-// Phase A's working set (K5's PhaseA at half width), then the clean x tile
-// [R][FP]:
+// The per-step route's working set (K5's PhaseA at half width), then the
+// clean x tile [R][FP]:
 //   as [R][kLdq] gelu'(a), then da | dr [R][FP+1] | red [8] | staged |
 //   xb [R][FP+8] | gs [R][kLdq] | drs [3][R][FP+8] | das [3][R][kLdq]
 __host__ __device__ constexpr size_t model_work_bytes(int fp) {
@@ -121,6 +158,9 @@ template <int FP>
 struct PhaseM {
   static constexpr int kLdk = FP + 8;
   static constexpr int kDs = FP + 1;
+  // the bytes from xb on, over which write_half_slot assembles a slot
+  static constexpr size_t kSlotRoom =
+      model_smem_bytes(FP) - model_tile_offset(FP);
   float* as;
   float* dr;
   float* red;
@@ -198,9 +238,11 @@ __device__ __forceinline__ void stage_pairs(__nv_bfloat16* dst, int ld,
 }
 
 // Half m's weights staged from its fp32 params (read through L2: phase B of
-// the step before wrote them, in other blocks).  Every thread calls it.
-template <int FP>
-__device__ __forceinline__ void stage_half(const PhaseM<FP>& m,
+// the step before wrote them, in other blocks) into `m`'s weT, wdT, be and
+// bd: a PhaseM's (the per-step route), or the fold's image of the half
+// (StagedAt<kHalf>).  Every thread of the block calls it.
+template <int FP, class Staging>
+__device__ __forceinline__ void stage_half(const Staging& m,
                                            const float* w_enc,
                                            const float* b_enc,
                                            const float* w_dec,
@@ -259,21 +301,18 @@ __device__ __forceinline__ void load_tile(const PhaseM<FP>& m,
   }
 }
 
-// Phase A1 of one item: block b of ga over data block d's n rows (x, noise
-// at its first row), half m's params; writes y_m of its tiles' rows to y
-// (the half's [n][f] rows of block d).  `stage`: stage half m's weights
-// (false: they are already in shared memory, staged this step).  Begins
-// with a barrier.
+// The per-step route's forward of shard (d, m), block b of ga over data
+// block d's n rows (x, noise at its first row), half m's params: writes y_m
+// of its tiles' rows to y (the half's [n][f] rows of block d).
 template <int FP>
 __device__ void forward_item(const PhaseM<FP>& m, const float* x,
                              const float* noise, float sigma,
                              const float* w_enc, const float* b_enc,
                              const float* w_dec, const float* b_dec, float* y,
-                             int n, int b, int ga, int f, bool stage) {
+                             int n, int b, int ga, int f) {
   constexpr int R = kFitRows;
   const int tid = threadIdx.x;
-  __syncthreads();   // the last item's readers of the working set are done
-  if (stage) stage_half<FP>(m, w_enc, b_enc, w_dec, b_dec, f, tid);
+  stage_half<FP>(m, w_enc, b_enc, w_dec, b_dec, f, tid);
   const int tiles = (n + R - 1) / R;
   for (int t = b; t < tiles; t += ga) {
     const int row0 = t * R;
@@ -294,12 +333,14 @@ __device__ void forward_item(const PhaseM<FP>& m, const float* x,
 
 // dh/da, the bias sums and the weight sums of one tile of half m, after
 // the forward's epilogue wrote dr, drs, as (gelu'(a)), gs and xb (synced).
-template <int FP>
-__device__ __forceinline__ void backward_tile(const PhaseM<FP>& m, int rows,
+// `m` is the half's view of shared memory: a PhaseM (the per-step route) or
+// a FoldHalf (the fold).  One barrier inside, none at the end.
+template <int FP, class Phase>
+__device__ __forceinline__ void backward_tile(const Phase& m, int rows,
                                               HalfGrads<FP>& g) {
   constexpr int R = kFitRows;
-  constexpr int kLdk = PhaseM<FP>::kLdk;
-  constexpr int kDs = PhaseM<FP>::kDs;
+  constexpr int kLdk = FP + 8;
+  constexpr int kDs = FP + 1;
   constexpr int kMt = HalfGrads<FP>::kMt;
   constexpr int kQ = HalfGrads<FP>::kQ;
   static_assert(R == 32 && kFitThreads / 32 == 8 && kHalf == 64,
@@ -400,15 +441,15 @@ __device__ __forceinline__ void backward_tile(const PhaseM<FP>& m, int rows,
 // This block's slot `slot` of `slots` (half_floats(f) each), from g; every
 // thread calls it (it begins with a barrier).  Assembled over the tile's
 // arrays from xb on (the staged weights before them stay for the block's
-// next item of the half), then stored coalesced.
-template <int FP>
-__device__ __forceinline__ void write_half_slot(const PhaseM<FP>& m,
+// next item), then stored coalesced.
+template <int FP, class Phase>
+__device__ __forceinline__ void write_half_slot(const Phase& m,
                                                 HalfGrads<FP>& g,
                                                 float* slots, int slot,
                                                 int f) {
   constexpr int kMt = HalfGrads<FP>::kMt;
   constexpr int kQ = HalfGrads<FP>::kQ;
-  static_assert(model_smem_bytes(FP) - model_tile_offset(FP) >=
+  static_assert(Phase::kSlotRoom >=
                     sizeof(float) * (2 * FP * kLdq + kHalf + FP + 1),
                 "the slot is assembled over the tile's arrays");
   const int tid = threadIdx.x;
@@ -470,23 +511,22 @@ __device__ __forceinline__ void write_half_slot(const PhaseM<FP>& m,
   }
 }
 
-// Phase A2 of one item: as forward_item, then with the peer half's y
-// (y_peer: its [n][f] rows of block d, loaded with each tile) r = (y_0 +
-// y_1) + b_dec, e, dr and the backward; writes slot `slot` of `slots`.
+// The per-step route's partials of shard (d, m), block b: as forward_item,
+// then with the peer half's y (y_peer: its [n][f] rows of block d, loaded
+// with each tile) r = (y_0 + y_1) + b_dec, e, dr and the backward; writes
+// slot `slot` of `slots`.
 template <int FP>
 __device__ void partials_item(const PhaseM<FP>& m, const float* x,
                               const float* noise, float sigma,
                               const float* w_enc, const float* b_enc,
                               const float* w_dec, const float* b_dec,
                               const float* y_peer, float* slots, int slot,
-                              float inv_count, int n, int b, int ga, int f,
-                              bool stage) {
+                              float inv_count, int n, int b, int ga, int f) {
   constexpr int R = kFitRows;
   constexpr int kLdk = PhaseM<FP>::kLdk;
   constexpr int kDs = PhaseM<FP>::kDs;
   const int tid = threadIdx.x;
-  __syncthreads();   // the last item's readers of the working set are done
-  if (stage) stage_half<FP>(m, w_enc, b_enc, w_dec, b_dec, f, tid);
+  stage_half<FP>(m, w_enc, b_enc, w_dec, b_dec, f, tid);
   HalfGrads<FP> g = {};
   const int tiles = (n + R - 1) / R;
   for (int t = b; t < tiles; t += ga) {
@@ -529,7 +569,7 @@ model_forward_kernel(const float* x, const float* noise, float sigma,
                      int f) {
   extern __shared__ __align__(16) unsigned char smem[];
   forward_item<FP>(PhaseM<FP>(smem), x, noise, sigma, w_enc, b_enc, w_dec,
-                   b_dec, y, n, blockIdx.x, gridDim.x, f, true);
+                   b_dec, y, n, blockIdx.x, gridDim.x, f);
 }
 
 template <int FP>
@@ -542,7 +582,7 @@ model_partials_kernel(const float* x, const float* noise, float sigma,
   extern __shared__ __align__(16) unsigned char smem[];
   partials_item<FP>(PhaseM<FP>(smem), x, noise, sigma, w_enc, b_enc, w_dec,
                     b_dec, y_peer, slots, blockIdx.x, inv_count, n, blockIdx.x,
-                    gridDim.x, f, true);
+                    gridDim.x, f);
 }
 
 __global__ void __launch_bounds__(kHalfSlice * kReduceGroups)
@@ -599,7 +639,7 @@ int model_partials(const float* x, const float* noise, float sigma,
                   s);
 }
 
-// ------------------------------------------------------ the one-launch fit
+// ----------------------------------------------------------------- the fold
 
 // The data blocks of one fit, by value in the kernel's parameter space
 struct ModelTable {
@@ -607,7 +647,6 @@ struct ModelTable {
   const float* noise[kMaxData];   // its [steps, n_d, f] noise
   long long stride[kMaxData];     // floats from one step's noise to the next
   int rows[kMaxData];             // n_d
-  int row0[kMaxData];             // its first row in the batch: sum of n_r
   int slot0[kMaxData];            // its first slot of a half: sum of ga_r
   int blocks;                     // D
 };
@@ -620,118 +659,367 @@ struct Halves {
   float* b_dec[kModel];
 };
 
-// Work item k of 2 x half_slots: half m = k % 2, slot i = k / 2 of that
-// half's = data block d's block b = i - slot0[d] of its ga.  The halves
-// alternate, so over an even grid (one block per SM: 132 on an H100) the
-// items k, k + gb, ... of a block are all of one half, and it stages that
-// half's weights once a step.
-struct ModelItem {
-  int m;
-  int d;
-  int slot;
-  int b;
-  int ga;
-};
-
-__host__ __device__ inline ModelItem model_item(const ModelTable& t, int k) {
-  const int m = k % kModel;
-  const int slot = k / kModel;
-  int d = 0;
-  while (d + 1 < t.blocks && t.slot0[d + 1] <= slot) ++d;
-  return {m, d, slot, slot - t.slot0[d], fit_slots(t.rows[d])};
+// The fold's working set in shared memory, from offset 0 (each array a
+// multiple of 16 bytes):
+//   staged half 0, staged half 1  half_staged_bytes(FP) each: a copy of
+//                                 the image
+//   red [8]                       per-warp loss sums
+//   as [2][R][kLdq]               each half's gelu'(a), then its da
+//   dr [R][FP+1]                  y_0, then dr (fp32)
+//   xb [R][FP+8]                  bf(noisy)                 <- the slots are
+//   gs [2][R][kLdq]               each half's bf(gelu(a))      assembled
+//   drs [3][R][FP+8]              dr as three bf16 terms       from here
+//   das [2][3][R][kLdq]           each half's da as three bf16 terms
+// Phase B's sums reuse its start.  The x and noise tiles follow it.
+__host__ __device__ constexpr size_t fold_slot_room(int fp) {
+  return sizeof(__nv_bfloat16) *
+         (4 * kFitRows * (fp + 8) + kModel * 4 * kFitRows * kLdq);
 }
 
+__host__ __device__ constexpr size_t fold_work_bytes(int fp) {
+  return kModel * half_staged_bytes(fp) +
+         sizeof(float) * (kFitThreads / 32 + kModel * kFitRows * kLdq +
+                          kFitRows * (fp + 1)) +
+         fold_slot_room(fp);
+}
+
+// Half m's view of the fold's working set, under PhaseM's names (what
+// backward_tile and write_half_slot read): its own staged weights, as, gs
+// and das; red, dr, xb and drs shared by both halves.  The fold reads half
+// 0's bd.
+template <int FP>
+struct FoldHalf {
+  static constexpr size_t kSlotRoom = fold_slot_room(FP);
+  __nv_bfloat16* weT;
+  __nv_bfloat16* wdT;
+  float* be;
+  float* bd;
+  float* red;
+  float* as;
+  float* dr;
+  __nv_bfloat16* xb;
+  __nv_bfloat16* gs;
+  __nv_bfloat16* drs;
+  __nv_bfloat16* das;
+  __device__ FoldHalf(unsigned char* smem, int m)
+      : weT(reinterpret_cast<__nv_bfloat16*>(smem + m * half_staged_bytes(FP))),
+        wdT(weT + kHalf * (FP + 8)),
+        be(reinterpret_cast<float*>(wdT + FP * kLdq)),
+        bd(be + kHalf),
+        red(reinterpret_cast<float*>(smem + kModel * half_staged_bytes(FP))),
+        as(red + kFitThreads / 32 + m * kFitRows * kLdq),
+        dr(red + kFitThreads / 32 + kModel * kFitRows * kLdq),
+        xb(reinterpret_cast<__nv_bfloat16*>(dr + kFitRows * (FP + 1))),
+        gs(xb + kFitRows * (FP + 8) + m * kFitRows * kLdq),
+        drs(xb + kFitRows * (FP + 8) + kModel * kFitRows * kLdq),
+        das(drs + 3 * kFitRows * (FP + 8) + m * 3 * kFitRows * kLdq) {}
+};
+
+// One work item of the fold, slot `slot` of each half: data block d's block
+// b of its ga, which walks `count` tiles b, b + ga, ... of block d (the
+// per-step route's launches of shards (d, 0) and (d, 1), block b)
+struct FoldItem {
+  int d;
+  int b;
+  int ga;
+  int count;
+};
+
+__host__ __device__ inline FoldItem fold_item(const ModelTable& t, int slot) {
+  int d = 0;
+  while (d + 1 < t.blocks && t.slot0[d + 1] <= slot) ++d;
+  const int tiles = (t.rows[d] + kFitRows - 1) / kFitRows;
+  const int ga = fit_slots(t.rows[d]);
+  const int b = slot - t.slot0[d];
+  return {d, b, ga, (tiles - b + ga - 1) / ga};
+}
+
+// resident_tiles > 0: a block keeps the x tiles of all its items in
+// shared memory (room for resident_tiles of them); 0: one, reloaded at
+// each tile.
 template <int FP>
 __global__ void __launch_bounds__(kFitThreads, 1)
 model_fit_kernel(const __grid_constant__ ModelTable table,
                  const __grid_constant__ Halves hv, float sigma,
-                 float* slots, float* y, float* discard, float* losses,
-                 float lr, float count, float inv_count, int n_total, int f,
-                 int steps, int half_slots) {
+                 unsigned char* image, float* slots, float* discard,
+                 float* losses, float lr, float count, float inv_count,
+                 int f, int steps, int half_slots, int resident_tiles,
+                 long long* stamps) {
+  constexpr int R = kFitRows;
+  constexpr int kTile = R * FP;
+  constexpr int kLdk = FP + 8;
+  constexpr int kDs = FP + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
-  const PhaseM<FP> m(smem);
-  const int items = kModel * half_slots;
-  const size_t per_half = static_cast<size_t>(n_total) * f;
+  const int block = blockIdx.x;
+  const int gb = gridDim.x;
+  const int tid = threadIdx.x;
+  const FoldHalf<FP> h0(smem, 0);
+  const FoldHalf<FP> h1(smem, 1);
+  // x tiles [max(resident_tiles, 1)][R][FP], then noise [2][R][FP]
+  float* xs = reinterpret_cast<float*>(smem + fold_work_bytes(FP));
+  float* nz = xs + kTile * max(resident_tiles, 1);
+  // this block's items: slots block, block + gb, ...
+  const int items =
+      block < half_slots ? (half_slots - block + gb - 1) / gb : 0;
   const int pf = half_floats(f);
   const int slices = (pf + kFitSlice - 1) / kFitSlice;
+  const bool long_runs = half_slots > kReduceGroups * kReduceRun;
+  // stamps [steps][kStamps][gb], as K3's and K5's
+  auto stamp = [&](int s, int k) {
+    if (stamps != nullptr && tid == 0) {
+      stamps[(s * kStamps + k) * gb + block] = global_ns();
+    }
+  };
+  auto rows_of = [&](int d, int t) { return min(R, table.rows[d] - t * R); };
+  auto noise_of = [&](int s, int d, int t) {
+    return table.noise[d] + s * table.stride[d] +
+           static_cast<size_t>(t) * R * f;
+  };
+
+  if (block < kModel) {   // half `block`'s image, from its fp32 params
+    stage_half<FP>(StagedAt<kHalf>(image + block * half_staged_bytes(FP), FP),
+                   hv.w_enc[block], hv.b_enc[block], hv.w_dec[block],
+                   hv.b_dec[block], f, tid);
+  }
+  if (items > 0) {
+    for (int j = 0, r = 0; resident_tiles > 0 && j < items; ++j) {
+      const FoldItem it = fold_item(table, block + j * gb);
+      for (int k = 0; k < it.count; ++k, ++r) {
+        const int t = it.b + k * it.ga;
+        load_x<FP>(xs + r * kTile, table.x[it.d], t * R, rows_of(it.d, t), f,
+                   tid);
+      }
+    }
+    const FoldItem it0 = fold_item(table, block);
+    copy_async(nz, noise_of(0, it0.d, it0.b), rows_of(it0.d, it0.b) * f,
+               tid);
+    cp_async_commit();
+  }
+  grid.sync();
+
+  int q = 0;   // tiles this block has taken: the noise buffer's parity
   for (int s = 0; s < steps; ++s) {
-    int staged = -1;   // the half whose weights are in shared memory
-    for (int k = blockIdx.x; k < items; k += gridDim.x) {   // A1
-      const ModelItem it = model_item(table, k);
-      forward_item<FP>(m, table.x[it.d],
-                       table.noise[it.d] + s * table.stride[it.d], sigma,
-                       hv.w_enc[it.m], hv.b_enc[it.m], hv.w_dec[it.m],
-                       hv.b_dec[it.m],
-                       y + it.m * per_half +
-                           static_cast<size_t>(table.row0[it.d]) * f,
-                       table.rows[it.d], it.b, it.ga, f, it.m != staged);
-      staged = it.m;
+    stamp(s, 0);
+    if (items > 0) {   // both halves' images, once a step, behind the noise
+      copy_async(reinterpret_cast<float*>(h0.weT),
+                 reinterpret_cast<const float*>(image),
+                 static_cast<int>(kModel * half_staged_bytes(FP) / 4), tid);
+      cp_async_commit();
     }
+    for (int j = 0, r = 0; j < items; ++j) {
+      const int slot = block + j * gb;
+      const FoldItem it = fold_item(table, slot);
+      HalfGrads<FP> g0 = {};
+      HalfGrads<FP> g1 = {};
+      for (int k = 0; k < it.count; ++k, ++q, ++r) {
+        const int t = it.b + k * it.ga;
+        const int rows = rows_of(it.d, t);
+        // in flight: this tile's noise, and at the step's first tile the
+        // weights after it
+        const bool first = j == 0 && k == 0;
+        if (first) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();   // the noise landed; the last tile's and the last
+                           // slot's readers are done
+        stamp(s, 1);
+        float* xc = resident_tiles > 0 ? xs + r * kTile : xs;
+        if (resident_tiles == 0) {   // each thread reads back only its own
+          load_x<FP>(xc, table.x[it.d], t * R, rows, f, tid);
+        }
+        const float* nc = nz + (q & 1) * kTile;
+        for (int idx = tid; idx < kTile; idx += kFitThreads) {
+          const int i = idx / FP;
+          const int c = idx - i * FP;
+          const float nv =
+              i < rows && c < f
+                  ? __fadd_rn(xc[idx], __fmul_rn(sigma, nc[i * f + c]))
+                  : 0.0f;
+          h0.xb[i * kLdk + c] = __float2bfloat16_rn(nv);
+        }
+        // the next tile's noise into the other buffer: this item's next
+        // tile, the next item's first, or step s + 1's first
+        int s2 = s;
+        int d2 = it.d;
+        int t2 = t + it.ga;
+        bool next = true;
+        if (k + 1 == it.count) {
+          const bool more = j + 1 < items;
+          next = more || s + 1 < steps;
+          const FoldItem nx = fold_item(table, more ? slot + gb : block);
+          s2 = more ? s : s + 1;
+          d2 = nx.d;
+          t2 = nx.b;
+        }
+        if (next) {
+          copy_async(nz + ((q + 1) & 1) * kTile, noise_of(s2, d2, t2),
+                     rows_of(d2, t2) * f, tid);
+        }
+        cp_async_commit();
+        if (first) cp_async_wait<1>();   // the weights
+        __syncthreads();
+        stamp(s, 2);
+        // half 0's forward: y_0 kept in dr for half 1's epilogue (each
+        // (i, j) is the same thread's in both)
+        forward_tile<R, kFitThreads / 32, kHalf>(
+            h0.xb, kLdk, FP, h0.weT, kLdk, h0.be, h0.as, kLdq, h0.gs, kLdq,
+            h0.wdT, kLdq, FP, tid >> 5, tid & 31,
+            [&](int i, int j, float acc) { h0.dr[i * kDs + j] = acc; });
+        // half 1's: r = y_1 + y_0, then e, dr (fp32 and split) and the
+        // squared error (dr = 0 past rows and f), as partials_item forms
+        // them
+        forward_tile<R, kFitThreads / 32, kHalf>(
+            h1.xb, kLdk, FP, h1.weT, kLdk, h1.be, h1.as, kLdq, h1.gs, kLdq,
+            h1.wdT, kLdq, FP, tid >> 5, tid & 31,
+            [&](int i, int j, float acc) {
+              float d = 0.0f;
+              if (i < rows && j < f) {
+                const float y = __fadd_rn(acc, h0.dr[i * kDs + j]);
+                const float e =
+                    __fsub_rn(__fadd_rn(y, h0.bd[j]), xc[i * FP + j]);
+                g0.sq = __fadd_rn(g0.sq, __fmul_rn(e, e));
+                d = __fmul_rn(__fmul_rn(2.0f, e), inv_count);
+              }
+              h0.dr[i * kDs + j] = d;
+              const Split3 sd(d);
+#pragma unroll
+              for (int u = 0; u < 3; ++u) {
+                h0.drs[(u * R + i) * kLdk + j] = sd.t[u];
+              }
+            });
+        __syncthreads();
+        stamp(s, 3);
+        backward_tile<FP>(h0, rows, g0);
+        stamp(s, 4);
+        backward_tile<FP>(h1, rows, g1);
+        stamp(s, 5);
+      }
+      g1.sq = g0.sq;   // both slots carry the one squared error
+      write_half_slot<FP>(h0, g0, slots, slot, f);
+      write_half_slot<FP>(h1, g1,
+                          slots + static_cast<size_t>(half_slots) * pf, slot,
+                          f);
+    }
+    stamp(s, 6);
     grid.sync();
-    for (int k = blockIdx.x; k < items; k += gridDim.x) {   // A2
-      const ModelItem it = model_item(table, k);
-      partials_item<FP>(m, table.x[it.d],
-                        table.noise[it.d] + s * table.stride[it.d], sigma,
-                        hv.w_enc[it.m], hv.b_enc[it.m], hv.w_dec[it.m],
-                        hv.b_dec[it.m],
-                        y + (kModel - 1 - it.m) * per_half +
-                            static_cast<size_t>(table.row0[it.d]) * f,
-                        slots + static_cast<size_t>(it.m) * half_slots * pf,
-                        it.slot, inv_count, table.rows[it.d], it.b, it.ga, f,
-                        it.m != staged);
-      staged = it.m;
+    stamp(s, 7);
+    for (int k = block; k < kModel * slices; k += gb) {   // phase B
+      if (k != block) __syncthreads();   // the last slice's reads of red
+      const int h = k / slices;
+      float* red = reinterpret_cast<float*>(smem);
+      const float* part = slots + static_cast<size_t>(h) * half_slots * pf;
+      float* loss = h == 0 ? losses + s : discard;
+      unsigned char* img = image + h * half_staged_bytes(FP);
+      if (long_runs) {
+        fit_reduce<kFitWidth, kFitCols, true, kHalf>(
+            k - h * slices, tid, red, part, half_slots, f, hv.w_enc[h],
+            hv.b_enc[h], hv.w_dec[h], hv.b_dec[h], loss, lr, count, img, FP);
+      } else {
+        fit_reduce<kFitWidth, kFitCols, false, kHalf>(
+            k - h * slices, tid, red, part, half_slots, f, hv.w_enc[h],
+            hv.b_enc[h], hv.w_dec[h], hv.b_dec[h], loss, lr, count, img, FP);
+      }
     }
-    grid.sync();
-    for (int q = blockIdx.x; q < kModel * slices; q += gridDim.x) {   // B
-      const int h = q / slices;
-      fit_reduce<kFitWidth, kFitCols, true, kHalf>(
-          q - h * slices, threadIdx.x, reinterpret_cast<float*>(smem),
-          slots + static_cast<size_t>(h) * half_slots * pf, half_slots, f,
-          hv.w_enc[h], hv.b_enc[h], hv.w_dec[h], hv.b_dec[h],
-          h == 0 ? losses + s : discard, lr, count, nullptr, FP);
-    }
+    stamp(s, 8);
     grid.sync();
   }
+}
+
+// The most x tiles one block walks in a step when `gb` blocks take the
+// slots k, k + gb, ... (kernels/anomaly.py model_fit_plan is its twin)
+inline int fold_block_tiles(const ModelTable& t, int half_slots, int gb) {
+  std::vector<int> tiles(gb, 0);
+  for (int slot = 0; slot < half_slots; ++slot) {
+    tiles[slot % gb] += fold_item(t, slot).count;
+  }
+  return *std::max_element(tiles.begin(), tiles.end());
+}
+
+// The fold's grid on the current device: one block per SM, once the
+// kernel at FP is known to opt in to, and hold on an SM, one block of the
+// most shared memory any plan asks for.  Queried once per (device, FP),
+// as opt_in_smem keeps its opt-in, a failure too; later calls return it.
+template <int FP>
+cudaError_t fold_grid(int* sms) {
+  struct Grid {
+    int device;
+    int sms;
+    cudaError_t err;
+  };
+  static std::mutex mu;
+  static std::vector<Grid> done;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const std::lock_guard<std::mutex> lock(mu);
+  for (const Grid& g : done) {
+    if (g.device == device) {
+      *sms = g.sms;
+      return g.err;
+    }
+  }
+  const void* kernel = reinterpret_cast<const void*>(model_fit_kernel<FP>);
+  int count = 0;
+  int per_sm = 0;
+  err = opt_in_smem(kernel, kMaxSmem);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kFitThreads,
+                                                        kMaxSmem);
+  }
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // clear what we report
+  } else if (per_sm < 1) {
+    err = cudaErrorCooperativeLaunchTooLarge;
+  }
+  done.push_back({device, count, err});
+  *sms = count;
+  return err;
 }
 
 template <int FP>
 int model_fit(const ModelTable& table, const Halves& hv, int n_total,
               float sigma, float* scratch, long long scratch_floats,
-              float* losses, float lr, int f, int steps, cudaStream_t s) {
-  static_assert(model_work_bytes(FP) >=
+              float* losses, float lr, int f, int steps, long long* stamps,
+              long long stamps_len, cudaStream_t s) {
+  static_assert(fold_work_bytes(FP) >=
                     sizeof(float) * kReduceGroups * kFitSlice,
                 "phase B's groups fit in phase A's working set");
   const int last = table.blocks - 1;
   int half_slots = table.slot0[last] + fit_slots(table.rows[last]);
+  const long long image_floats = kModel * half_staged_bytes(FP) / 4;
   const long long slot_floats =
       static_cast<long long>(kModel) * half_slots * half_floats(f);
-  const long long y_floats = static_cast<long long>(kModel) * n_total * f;
   if (steps < 1 || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
-      scratch_floats < slot_floats + y_floats + 1) {
+      scratch_floats < image_floats + slot_floats + 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  int dev = 0;
-  int sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = model_smem_bytes(FP);
   int gb = 0;
-  err = grid_blocks(reinterpret_cast<const void*>(model_fit_kernel<FP>),
-                    std::min(kModel * half_slots, sms), smem, &gb);
+  cudaError_t err = fold_grid<FP>(&gb);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (gb != sms) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  float* slots = scratch;
-  float* y = scratch + slot_floats;
-  float* discard = y + y_floats;
+  if (stamps != nullptr && stamps_len < 1LL * kStamps * steps * gb) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int resident_tiles = 0;
+  size_t smem = 0;
+  shared_plan<FP>(fold_block_tiles(table, half_slots, gb), &resident_tiles,
+                  &smem, fold_work_bytes(FP));
+  unsigned char* image = reinterpret_cast<unsigned char*>(scratch);
+  float* slots = scratch + image_floats;
+  float* discard = slots + slot_floats;
   float count = model_count(n_total, f);
   float inv_count = 1.0f / count;
   void* args[] = {const_cast<ModelTable*>(&table), const_cast<Halves*>(&hv),
-                  &sigma, &slots, &y, &discard, &losses, &lr, &count,
-                  &inv_count, &n_total, &f, &steps, &half_slots};
+                  &sigma, &image, &slots, &discard, &losses, &lr, &count,
+                  &inv_count, &f, &steps, &half_slots, &resident_tiles,
+                  &stamps};
   err = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(model_fit_kernel<FP>), dim3(gb),
       dim3(kFitThreads), args, smem, s);
@@ -827,19 +1115,24 @@ extern "C" int anomaly_fit_model_reduce(const float* slots,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The whole fit over `blocks` data blocks of one card in one launch: `table`
-// holds blocks x 4 int64, for each block in data order its x pointer
-// ([n_d, f] floats), its noise pointer ([steps, n_d, f], each step's rows
-// contiguous), the floats from one step's noise to the next, and n_d;
-// `halves` holds 8 int64, half 0's w_enc, b_enc, w_dec, b_dec pointers, then
-// half 1's.  Scratch: `scratch_floats` floats at a 16-byte aligned
-// `scratch`: both halves' slots, then y [2][N][f], then one float.
-// `losses` gets one float per step, the loss before that step's update.
+// The whole fit over `blocks` data blocks of one card in one launch (the
+// fold): `table` holds blocks x 4 int64, for each block in data order its
+// x pointer ([n_d, f] floats), its noise pointer ([steps, n_d, f], each
+// step's rows contiguous), the floats from one step's noise to the next,
+// and n_d; `halves` holds 8 int64, half 0's w_enc, b_enc, w_dec, b_dec
+// pointers, then half 1's (both b_dec the same bits).  Scratch:
+// `scratch_floats` floats at a 16-byte aligned `scratch`: both halves'
+// staged images (half_staged_bytes(FP) each), their slots (half 0's, then
+// half 1's), then one float.  `losses` gets one
+// float per step, the loss before that step's update.  `stamps` is null,
+// or `stamps_len` int64s for a trace of the phases: [steps][kStamps][the
+// SM count], nanoseconds of %globaltimer.
 extern "C" int anomaly_fit_model_fit(const long long* table, int blocks,
                                      const long long* halves, float sigma,
                                      float* scratch, long long scratch_floats,
                                      float* losses, float lr, int f,
-                                     int steps, void* stream) {
+                                     int steps, long long* stamps,
+                                     long long stamps_len, void* stream) {
   using namespace anomaly;
   if (table == nullptr || halves == nullptr || blocks < 1 ||
       blocks > kMaxData || f < 1 || f > 64) {
@@ -859,7 +1152,6 @@ extern "C" int anomaly_fit_model_fit(const long long* table, int blocks,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     t.rows[d] = static_cast<int>(e[3]);
-    t.row0[d] = static_cast<int>(n_total);
     t.slot0[d] = slot;
     slot += fit_slots(t.rows[d]);
     n_total += e[3];
@@ -882,15 +1174,15 @@ extern "C" int anomaly_fit_model_fit(const long long* table, int blocks,
   switch ((f + 15) / 16) {
     case 1:
       return model_fit<16>(t, hv, n, sigma, scratch, scratch_floats, losses,
-                           lr, f, steps, s);
+                           lr, f, steps, stamps, stamps_len, s);
     case 2:
       return model_fit<32>(t, hv, n, sigma, scratch, scratch_floats, losses,
-                           lr, f, steps, s);
+                           lr, f, steps, stamps, stamps_len, s);
     case 3:
       return model_fit<48>(t, hv, n, sigma, scratch, scratch_floats, losses,
-                           lr, f, steps, s);
+                           lr, f, steps, stamps, stamps_len, s);
     default:
       return model_fit<64>(t, hv, n, sigma, scratch, scratch_floats, losses,
-                           lr, f, steps, s);
+                           lr, f, steps, stamps, stamps_len, s);
   }
 }

@@ -2,8 +2,8 @@
 // fit of one batch) and K5's one-launch fit (anomaly_fit_shard.cu, one fit
 // over rows split into shards) share: the trace's clock, the cp.async
 // copies, the x tile's load, the shared-memory plan and the grid's size.
-// K5b's (anomaly_fit_model.cu, the hidden split over `model`) takes the
-// grid's size and phase B's slicing from here.
+// K5b's (anomaly_fit_model.cu, the hidden split over `model`) takes all
+// of it but grid_blocks: its fold sizes its grid once per device.
 // Both run `steps` x (phase A, grid.sync(), phase B, grid.sync()) in one
 // cooperative launch of one 256-thread block per SM; see anomaly_fit.cu
 // for the design.
@@ -92,11 +92,12 @@ __device__ __forceinline__ void load_x(float* xc, const float* x, int row0,
 
 // The x tiles a block keeps resident when the most any block walks in a
 // step is `per_block` (0: one, reloaded at each tile) and the launch's
-// shared memory: work_bytes(FP), the resident x tiles (or the one
-// reloaded), two noise tiles.
+// shared memory: the working set (`work`: K3's and K5's, or K5b's fold's),
+// the resident x tiles (or the one reloaded), two noise tiles.
 template <int FP>
-void shared_plan(int per_block, int* resident_tiles, size_t* smem) {
-  const size_t base = work_bytes(FP) + 2 * tile_bytes(FP);
+void shared_plan(int per_block, int* resident_tiles, size_t* smem,
+                 size_t work = work_bytes(FP)) {
+  const size_t base = work + 2 * tile_bytes(FP);
   if (base + per_block * tile_bytes(FP) <= kMaxSmem) {
     *resident_tiles = per_block;
     *smem = base + per_block * tile_bytes(FP);

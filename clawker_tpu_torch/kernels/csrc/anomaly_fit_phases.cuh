@@ -78,6 +78,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "anomaly_common.cuh"
 
@@ -457,14 +458,16 @@ __device__ __forceinline__ void fit_partials(
 // kReduceRun slots may come in, so a group's run is read in chunks of
 // kReduceRun and added, in the same order, into one sum; for runs of
 // <= kReduceRun that is the same sum as K2's and K3's.  kH: the hidden
-// units of the slots and params (K5b's model shard: half of them, with
-// staged null).
+// units of the slots and params (K5b's model shard: half of them, and its
+// staged image then a half's, StagedAt<kH>).
 template <int kWidth, int kCols, bool kLongRuns = false, int kH = kHidden>
 __device__ __forceinline__ void fit_reduce(
     int slice, int tid, float* red, const float* partials, int slots, int f,
     float* w_enc, float* b_enc, float* w_dec, float* b_dec, float* loss_out,
     float lr, float count, unsigned char* staged, int fp) {
   constexpr int kSlice = kWidth * kCols;
+  using Image = std::conditional_t<kH == kHidden, Staged, StagedAt<kH>>;
+  constexpr int kLdi = kH + 8;   // the image's W_dec^T rows: kLdh at kHidden
   const int stride = 2 * f * kH + kH + f + 1;   // param_floats at kH
   const int grp = tid / kWidth;
   const int per = (slots + kReduceGroups - 1) / kReduceGroups;
@@ -535,14 +538,14 @@ __device__ __forceinline__ void fit_reduce(
       w_enc[p] = u;
       if (staged != nullptr) {   // W_enc[j][h] -> weT[h][j]
         const int j = p / kH;
-        Staged(staged, fp).weT[(p - j * kH) * (fp + 8) + j] =
+        Image(staged, fp).weT[(p - j * kH) * (fp + 8) + j] =
             __float2bfloat16_rn(u);
       }
     } else if (p < o_wd) {
       const int i = p - o_be;
       const float u = __fsub_rn(__ldcg(b_enc + i), __fmul_rn(lr, s));
       b_enc[i] = u;
-      if (staged != nullptr) Staged(staged, fp).be[i] = u;
+      if (staged != nullptr) Image(staged, fp).be[i] = u;
     } else if (p < o_bd) {   // the slot holds dW_dec transposed
       const int j = (p - o_wd) / kH;
       const int h = p - o_wd - j * kH;
@@ -550,13 +553,13 @@ __device__ __forceinline__ void fit_reduce(
       const float u = __fsub_rn(__ldcg(w_dec + i), __fmul_rn(lr, bf(s)));
       w_dec[i] = u;
       if (staged != nullptr) {   // W_dec[h][j] -> wdT[j][h]
-        Staged(staged, fp).wdT[j * kLdh + h] = __float2bfloat16_rn(u);
+        Image(staged, fp).wdT[j * kLdi + h] = __float2bfloat16_rn(u);
       }
     } else if (p < o_loss) {
       const int i = p - o_bd;
       const float u = __fsub_rn(__ldcg(b_dec + i), __fmul_rn(lr, s));
       b_dec[i] = u;
-      if (staged != nullptr) Staged(staged, fp).bd[i] = u;
+      if (staged != nullptr) Image(staged, fp).bd[i] = u;
     } else {
       *loss_out = __fdiv_rn(s, count);
     }
