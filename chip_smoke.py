@@ -70,6 +70,17 @@
    shards of the card) is one K5 launch and 4 K1 launches.  The graft
    entry (``entry``, ``dryrun_multichip(8)``: the per-step route, counted)
    and ``bench_lane`` on the card.
+   K5b (the fit with the hidden dimension split over two model shards)
+   over 2x2 and 4x2 meshes of the card: the per-step route's step
+   against its plain version at every KERNEL_SHAPES entry; there, and at
+   TIMED_SHAPE x FIT_STEPS, the fold (one launch) and the cards route
+   with one participating card (``anomaly_fit_model_cards``) bit for bit
+   the per-step route's; each route's time, trace and staged images.  On
+   one card the main path takes the fold, so the cards route's launches
+   there are 0 and those checks are what launch it; with several cards
+   visible the sentinel tick over the fleet mesh takes it (one launch a
+   card a fit).  With ``--cards`` the cards route runs over the fleet
+   mesh of several cards (``cards_phase``).
 6. Loop phase, the port's own ``LoopScheduler`` over ``FakeDriver`` (4
    workers, 8 loops x 3 iterations of 0.2 s each), its dirs under
    ``build/chip_smoke/loop/``, on default settings (the host proxy up on
@@ -606,6 +617,11 @@ MESH_LOSS_RTOL = 1e-3
 # runs on the main path over ODD_MESH_SHARDS shards (3x1).
 MODEL_SOURCE = "anomaly_fit_model"
 MODEL_MESHES = (4, 8)
+# the cards route's fit at every KERNEL_SHAPES entry, held bit for bit;
+# over the fleet meshes of several cards also at a batch whose data blocks
+# are one row tile each at 2x2, so that one card of each block has no item
+CARDS_CHECK_STEPS = 3
+CARDS_TINY_SHAPE = (60, 32)
 ODD_MESH_SHARDS = 3
 
 
@@ -1231,10 +1247,14 @@ def every_device_check() -> None:
 
 
 def shard_cards_check() -> None:
-    """K5 over a data-only mesh of every visible card, and K5b over the
-    fleet mesh when it splits the hidden dimension (an even count), when
-    there are several cards: every card's params the same bits, and those
-    of the same shards on one card."""
+    """When there are several cards: K5 over a data-only mesh of every
+    visible card, every card's params the same bits and those of the same
+    shards on one card; and, when the fleet mesh splits the hidden
+    dimension (an even count), K5b over the fleet meshes of 2, 4 and 8 of
+    the cards (as many as are visible) and of all of them, by the route
+    ``model_route`` gives, every card's half the bits of the same shards
+    on one card and of the per-step route over the same cards, with each
+    card's phase trace on the cards route."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
@@ -1268,21 +1288,131 @@ def shard_cards_check() -> None:
           f"{cards} shards of cuda:0")
     if fleet.model != K.MODEL:
         return
-    halves = M.shard_params(params, fleet)
-    K.fit_model_(halves, M.shard_rows(x, fleet), M.shard_noise(noises, fleet),
-                 lr=1e-2, sigma=0.25, losses_out=losses)
-    for dev in fleet.distinct:
-        torch.cuda.synchronize(dev)
-    one_card = _model_fit(params, x, noises, M.virtual_mesh(cards, "cuda:0"))
-    check(all(torch.equal(p.cpu(), q.cpu())
-              for s, h in enumerate(halves)
-              for p, q in zip(h, one_card[0][s % K.MODEL]))
-          and torch.equal(one_card[1], losses),
-          f"K5b over {cards} cards: not the bits of {cards} shards of one "
-          f"card on every card")
-    print(f"K5b [{n},{f}] x{len(noises)} over the {fleet.desc} fleet mesh "
-          f"of {cards} cards: every card's half the bits of the same "
-          f"shards of cuda:0")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def every_card(shape, mesh, steps, stamps=None) -> str:
+        """K5b over ``mesh`` by its route, every card's half held bit for
+        bit against the same shards of cuda:0 and the per-step route over
+        the same cards -> the route."""
+        k, route = len(mesh.devices), K.model_route(mesh.devices)
+        sp, sx, sn = _inputs(*shape, steps, "cuda:0", seed=sum(shape))
+        halves = M.shard_params(sp, mesh)
+        got = torch.empty(steps, device=sx.device)
+        K.fit_model_(halves, M.shard_rows(sx, mesh), M.shard_noise(sn, mesh),
+                     lr=1e-2, sigma=0.25, losses_out=got, stamps=stamps)
+        for dev in mesh.distinct:
+            torch.cuda.synchronize(dev)
+        for name, (h_want, l_want) in (
+                ("the same shards of cuda:0",
+                 _model_fit(sp, sx, sn, M.virtual_mesh(k, "cuda:0"))),
+                ("the per-step route over the same cards",
+                 _model_fit(sp, sx, sn, mesh, route=K.ROUTE_STEPS))):
+            check(all(torch.equal(p.cpu(), q.cpu())
+                      for s, h in enumerate(halves)
+                      for p, q in zip(h, h_want[s % K.MODEL]))
+                  and torch.equal(l_want.cpu(), got.cpu()),
+                  f"K5b {list(shape)} x{steps} over the {mesh.desc} fleet "
+                  f"mesh of {k} cards ({route} route): not the bits of "
+                  f"{name} on every card")
+        return route
+
+    for k in sorted({c for c in (2, 4, 8) if c < cards} | {cards}):
+        mesh = M.fleet_mesh(k)
+        stamps = ([torch.zeros((len(noises), K.CARDS_STAMPS, sms),
+                               dtype=torch.int64, device=dev)
+                   for dev in mesh.distinct]
+                  if K.model_route(mesh.devices) == K.ROUTE_CARDS else None)
+        route = every_card((n, f), mesh, len(noises), stamps)
+        for shape in KERNEL_SHAPES + [CARDS_TINY_SHAPE]:
+            every_card(shape, mesh, CARDS_CHECK_STEPS)
+        print(f"K5b [{n},{f}] x{len(noises)}, and at {len(KERNEL_SHAPES)} "
+              f"KERNEL_SHAPES and {list(CARDS_TINY_SHAPE)} x"
+              f"{CARDS_CHECK_STEPS}, over the {mesh.desc} fleet mesh of {k} "
+              f"cards by the {route} route: every card's half the bits of "
+              f"the same shards of cuda:0 and of the per-step route over the "
+              f"same cards")
+        for c, t in enumerate(stamps or ()):
+            items = sum(map(len, K.cards_fit_plan(
+                [len(b) for b in M.shard_rows(x, mesh)[::K.MODEL]],
+                [mesh.distinct.index(d) for d in mesh.devices], sms,
+                f).items[c]))
+            print(f"K5b over the {mesh.desc} fleet mesh, card {c} "
+                  f"({items} items) per step, " + _cards_trace(
+                      t, min(items, sms)))
+    if cards >= 4:
+        _card_sets_at_once((n, f))
+
+
+def _card_sets_at_once(shape, rounds: int = 24) -> None:
+    """Two threads fit by K5b's cards route at once, each ``rounds``
+    times, over card sets that share cards in opposite orders: (cuda:1,
+    cuda:0) and the fleet mesh of cuda:0-3.  Every fit must end (a
+    cross-card barrier past its deadline traps and raises) with the bits
+    of the same fit run alone."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    meshes = [M.Mesh(data=1, model=K.MODEL, devices=(
+        torch.device("cuda:1"), torch.device("cuda:0"))), M.fleet_mesh(4)]
+    if any(K.model_route(m.devices) != K.ROUTE_CARDS for m in meshes):
+        print("K5b's cards route from two threads at once: no peer access "
+              "between the cards, not run")
+        return
+    steps = CARDS_CHECK_STEPS
+    sp, sx, sn = _inputs(*shape, steps, "cuda:0", seed=sum(shape))
+
+    def fit(mesh):
+        halves = M.shard_params(sp, mesh)
+        xs, ns = M.shard_rows(sx, mesh), M.shard_noise(sn, mesh)
+        losses = torch.empty(steps, device=xs[0].device)
+        K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25, losses_out=losses)
+        return halves, losses
+
+    def synced(runs):
+        for dev in range(4):
+            torch.cuda.synchronize(dev)
+        return [([[p.cpu() for p in h] for h in halves], losses.cpu())
+                for halves, losses in runs]
+
+    alone = synced([fit(mesh) for mesh in meshes])
+    start = threading.Barrier(len(meshes))
+    runs = [[] for _ in meshes]
+    errors = []
+
+    def worker(i):
+        try:
+            start.wait()
+            for _ in range(rounds):
+                runs[i].append(fit(meshes[i]))
+        except Exception as e:      # raised again below, on the main thread
+            errors.append(f"{meshes[i].devices}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(len(meshes))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    got = [synced(r) for r in runs]
+    wall = time.perf_counter() - t0
+    check(not errors, f"K5b's cards route from two threads: {errors}")
+    def same(run, want) -> bool:
+        return torch.equal(run[1], want[1]) and all(
+            torch.equal(p, q) for h, hw in zip(run[0], want[0])
+            for p, q in zip(h, hw))
+
+    for mesh, want, mine in zip(meshes, alone, got):
+        check(len(mine) == rounds and all(same(r, want) for r in mine),
+              f"K5b's cards route from two threads over "
+              f"{[str(d) for d in mesh.devices]}: not the bits of the same "
+              f"fit alone")
+    print(f"K5b {list(shape)} x{steps} by the cards route from two threads "
+          f"at once, {rounds} fits each, over (cuda:1, cuda:0) and the "
+          f"2x2 fleet mesh of cuda:0-3: every fit the bits of the same fit "
+          f"alone, {wall:.3f} s")
 
 
 def ptxas_report(name: str) -> None:
@@ -1832,12 +1962,13 @@ def _half_slot_totals(slots, count: int, f: int):
              t[2 * fh + K.HALF:2 * fh + K.HALF + f]), t[-1])
 
 
-def _model_fit(params, x, noises, mesh, per_step: bool = False,
-               scratch=None):
-    """K5b's fit over ``mesh`` (model = 2) from the halves of ``params``:
-    as ``fit_model_`` routes it (one launch on one card), or by the
-    per-step route -> (the two halves after, losses).  ``scratch`` as
-    ``fit_model_`` takes it (None: allocated)."""
+def _model_fit(params, x, noises, mesh, scratch=None, route=None,
+               stamps=None):
+    """K5b's fit over ``mesh`` (model = 2) from the halves of ``params``,
+    as ``fit_model_`` routes it (by layout, or by ``route``: the fold, the
+    cards route or the per-step route) -> (the two halves after, losses).
+    ``scratch`` and ``stamps`` as ``fit_model_`` takes them (None:
+    allocated, none)."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
@@ -1846,15 +1977,8 @@ def _model_fit(params, x, noises, mesh, per_step: bool = False,
     halves = M.shard_params(params, mesh)
     xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
     losses = torch.empty(len(noises), device=x.device)
-    if per_step:
-        rows, f, sets = K._check_model(halves, xs, ns, len(noises))
-        scratch = torch.empty(K.model_scratch_floats(rows, f),
-                              device=x.device)
-        K._fit_model_steps(sets, xs, ns, rows, f, lr=1e-2, sigma=0.25,
-                           scratch=scratch, losses_out=losses)
-    else:
-        K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25, losses_out=losses,
-                     scratch=scratch)
+    K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25, losses_out=losses,
+                 scratch=scratch, route=route, stamps=stamps)
     for dev in mesh.distinct:
         torch.cuda.synchronize(dev)
     return halves[:K.MODEL], losses
@@ -1960,12 +2084,15 @@ def model_step_check(params, x, noise, mesh) -> dict:
 
 def model_kernel_phase(device) -> dict:
     """K5b over MODEL_MESHES of one card: ``model_step_check`` at every
-    KERNEL_SHAPE; at TIMED_SHAPE x FIT_STEPS the one-launch fit bit for
-    bit the per-step route's and itself, within K5's FIT tolerances of
-    the plain split fit (``reference.fit_model_shard``), the halves'
-    b_dec the same bits, and its staged images after the fit bit for bit
-    the plain staging of the halves it returns (``reference.staged``).
-    -> max abs errors per entry point."""
+    KERNEL_SHAPE, and there a fit of CARDS_CHECK_STEPS steps by the cards
+    route with one participating card bit for bit the fold's and the
+    per-step route's; at TIMED_SHAPE x FIT_STEPS the one-launch fit and
+    the cards route bit for bit the per-step route's and each itself,
+    within K5's FIT tolerances of the plain split fit
+    (``reference.fit_model_shard``), the halves' b_dec the same bits, and
+    each one's staged images after the fit bit for bit the plain staging
+    of the halves it returns (``reference.staged``).  -> max abs errors
+    per entry point."""
     import torch
 
     from clawker_tpu_torch.analytics import mesh as M
@@ -1973,13 +2100,22 @@ def model_kernel_phase(device) -> dict:
     from clawker_tpu_torch.kernels import reference as R
 
     errs = {K.FIT_MODEL: 0.0, K.FIT_MODEL_FORWARD: 0.0,
-            K.FIT_MODEL_PARTIALS: 0.0, K.FIT_MODEL_REDUCE: 0.0}
+            K.FIT_MODEL_PARTIALS: 0.0, K.FIT_MODEL_REDUCE: 0.0,
+            K.FIT_MODEL_CARDS: 0.0}
     slot_max = 0.0
     for n, f in KERNEL_SHAPES:
-        params, x, noises = _inputs(n, f, 1, device, seed=n + f)
+        params, x, noises = _inputs(n, f, CARDS_CHECK_STEPS, device,
+                                    seed=n + f)
         for shards in MODEL_MESHES:
-            e = model_step_check(params, x, noises[0],
-                                 M.virtual_mesh(shards, device))
+            mesh = M.virtual_mesh(shards, device)
+            cards = _model_fit(params, x, noises, mesh, route=K.ROUTE_CARDS)
+            check(_same_model_fit(cards, _model_fit(params, x, noises, mesh))
+                  and _same_model_fit(cards, _model_fit(
+                      params, x, noises, mesh, route=K.ROUTE_STEPS)),
+                  f"K5b [{n},{f}] x{CARDS_CHECK_STEPS} over {mesh.desc}: "
+                  f"the cards route (one card) is not the fold's and the "
+                  f"per-step route's bits")
+            e = model_step_check(params, x, noises[0], mesh)
             errs[K.FIT_MODEL_FORWARD] = max(errs[K.FIT_MODEL_FORWARD],
                                             e["y"])
             errs[K.FIT_MODEL_PARTIALS] = max(errs[K.FIT_MODEL_PARTIALS],
@@ -2000,11 +2136,25 @@ def model_kernel_phase(device) -> dict:
         check(torch.equal(scratch[:K.model_image_floats(f)].view(torch.int32),
                           image.view(torch.int32)),
               f"{tag}: the staged images are not the halves' plain staging")
-        per = _model_fit(params, x, noises, mesh, per_step=True)
+        per = _model_fit(params, x, noises, mesh, route=K.ROUTE_STEPS)
         check(_same_model_fit(one, per),
               f"{tag}: the one-launch fit is not the per-step route's bits")
         check(_same_model_fit(one, _model_fit(params, x, noises, mesh)),
               f"{tag}: two one-launch fits from the same inputs differ")
+        c_scratch = torch.empty(K.cards_scratch_floats(rows, f),
+                                device=x.device)
+        cards = _model_fit(params, x, noises, mesh, scratch=c_scratch,
+                           route=K.ROUTE_CARDS)
+        image = torch.cat([R.staged(*h) for h in cards[0]])
+        at = K.cards_copy_floats(f)
+        check(torch.equal(c_scratch[at:at + K.model_image_floats(f)]
+                          .view(torch.int32), image.view(torch.int32)),
+              f"{tag}: the cards route's images are not the halves' plain "
+              f"staging")
+        check(_same_model_fit(cards, per) and _same_model_fit(
+            cards, _model_fit(params, x, noises, mesh, route=K.ROUTE_CARDS)),
+              f"{tag}: the cards route (one card) is not the per-step "
+              f"route's bits, or not twice the same")
         check(torch.equal(one[0][0].b_dec, one[0][1].b_dec),
               f"{tag}: the halves' b_dec differ")
         xs, ns = M.shard_rows(x, mesh), M.shard_noise(noises, mesh)
@@ -2017,16 +2167,19 @@ def model_kernel_phase(device) -> dict:
         ok, lerr = _close(one[1], w_losses, rtol=FIT_LOSS_RTOL)
         check(ok, f"{tag}: losses off the plain split fit by {lerr:.3g}")
         errs[K.FIT_MODEL] = max(errs[K.FIT_MODEL], err)
-        print(f"{tag}: the one-launch fit is the per-step route's bits, "
-              f"twice the same, the halves' b_dec and staged images the "
-              f"plain bits; off the "
+        errs[K.FIT_MODEL_CARDS] = max(errs[K.FIT_MODEL_CARDS], max(
+            _max_abs(h, w) for h, w in zip(cards[0], want)))
+        print(f"{tag}: the one-launch fit and the cards route (one card) "
+              f"are the per-step route's bits, each twice the same, the "
+              f"halves' b_dec and staged images the plain bits; off the "
               f"plain split fit: params {err:.3g} (atol {FIT_PARAM_ATOL}), "
               f"losses {_rel(one[1], w_losses):.3g} relative (rtol "
               f"{FIT_LOSS_RTOL})")
     print(f"K5b at {len(KERNEL_SHAPES)} shapes over "
           f"{[M.virtual_mesh(s, device).desc for s in MODEL_MESHES]} of one "
-          f"card: step 1's params (atol {STEP1_PARAM_ATOL}) and loss (rtol "
-          f"{STEP1_LOSS_RTOL}) against the plain split step, the forward's "
+          f"card: the cards route's {CARDS_CHECK_STEPS}-step fit the fold's "
+          f"and the per-step route's bits; step 1's params (atol "
+          f"{STEP1_PARAM_ATOL}) and loss (rtol {STEP1_LOSS_RTOL}) against the plain split step, the forward's "
           f"y normwise rtol {SCORE_RTOL}, the slots' sums normwise rtol "
           f"{SLOT_SUM_RTOL} (largest {slot_max:.3g}), the reduce against "
           f"the plain update of its own slots")
@@ -2111,7 +2264,16 @@ def model_timings(device) -> dict:
                         scratch.numel(), losses.data_ptr(), 1e-2, f, steps,
                         0, 0, stream) == 0, "K5b's C call failed")
 
+        c_scratch = torch.empty(K.cards_scratch_floats(rows, f),
+                                device=x.device)
+
+        def cards_fit(stamps=None):
+            K.fit_model_(halves, xs, ns, lr=1e-2, sigma=0.25,
+                         losses_out=losses, scratch=c_scratch, stamps=stamps,
+                         route=K.ROUTE_CARDS)
+
         ms, enq, c_us = event_ms(fit), _enqueue_us(fit), _enqueue_us(c_call)
+        cards_ms, cards_enq = event_ms(cards_fit), _enqueue_us(cards_fit)
         per_ms = cuda_ms(per_step, batches=5, per_batch=1)
         start = [tuple(p) for p in halves[:K.MODEL]]
         plain_ms = event_ms(lambda: R.fit_model_shard(
@@ -2123,6 +2285,7 @@ def model_timings(device) -> dict:
             replicas, k5_xs, k5_ns, lr=1e-2, sigma=0.25, losses_out=losses))
         if shards == MAIN_PATH_SHARDS:
             out[K.FIT_MODEL] = (ms, plain_ms, bound, by)
+            out[K.FIT_MODEL_CARDS] = (cards_ms, plain_ms, bound, by)
         plan = K.model_fit_plan(rows, sms, f)
         print(f"K5b [{n},{f}] x{steps} over {mesh.desc} of one card: one "
               f"launch {ms:.4f} ms per fit (device), host enqueue "
@@ -2147,6 +2310,18 @@ def model_timings(device) -> dict:
               f"sub-stages (each block's last tile) "
               + ", ".join(f"{k} {v:.2f}"
                           for k, v in zip(MODEL_SUBSTAGES, sub)))
+        print(f"K5b [{n},{f}] x{steps} over {mesh.desc} of one card by the "
+              f"cards route (one participating card, "
+              f"{K.FIT_MODEL_CARDS}): {cards_ms:.4f} ms per fit (device; "
+              f"the fold {ms:.4f}, {cards_ms / ms:.3f}x), host enqueue "
+              f"{cards_enq:.2f} us per fit (two C calls, the check and the "
+              f"launch, and an event)")
+        c_stamps = torch.zeros((steps, K.CARDS_STAMPS, sms),
+                               dtype=torch.int64, device=x.device)
+        cards_fit([c_stamps])
+        print(f"K5b [{n},{f}] over {mesh.desc} by the cards route (one "
+              f"card) per step, " + _cards_trace(
+                  c_stamps, min(K.shard_slot_offsets(rows)[-1], sms)))
     # each launch of the per-step route alone, at the main path's 2x2
     mesh = M.virtual_mesh(MAIN_PATH_SHARDS, x.device)
     halves = M.shard_params(params, mesh)
@@ -2365,6 +2540,27 @@ def _split(stamps, ga: int) -> tuple[list[float], list[float]]:
             [float(v) / 1e3 for v in sub.mean(dim=(0, 2))])
 
 
+def _cards_trace(stamps, ga: int) -> str:
+    """A card's trace of the cards route [steps, CARDS_STAMPS, blocks] ->
+    its mean us per step of phase A (first block in to last block out),
+    the card's own barrier (last block out of phase A to the first at the
+    barrier across cards), the wait across cards, phase B and the step's
+    last barrier, and phase A's sub-stages over its first ``ga`` blocks."""
+    t = stamps.double().cpu()
+    first, last = t.min(2).values, t.max(2).values
+    spans = [last[:, 6] - first[:, 0], first[:, 7] - last[:, 6],
+             first[:, 8] - first[:, 7], last[:, 9] - first[:, 8],
+             first[1:, 0] - last[:-1, 9]]
+    sub = t[:, 1:7, :ga] - t[:, 0:6, :ga]
+    a, own, across, b, end = (float(v.mean()) / 1e3 for v in spans)
+    return (f"mean us of the phase trace: phase A {a:.2f}, the card's "
+            f"barrier {own:.2f}, the wait across cards {across:.2f}, phase "
+            f"B {b:.2f}, barrier {end:.2f}; phase A's sub-stages (each "
+            f"block's last tile) " + ", ".join(
+                f"{k} {float(v) / 1e3:.2f}" for k, v in
+                zip(MODEL_SUBSTAGES, sub.mean(dim=(0, 2)))))
+
+
 def _check_report(name: str, raw, z, n_windows: int) -> None:
     import numpy as np
 
@@ -2384,10 +2580,12 @@ def fleet_blocks(cards: int) -> int:
 def _check_fit_launches(name: str, counts: dict, cards: int = 1) -> None:
     """One fit is one K3 launch and no K2, K5 or K5b launch; one score one
     K1.  Over ``cards`` > 1 (the sentinel on a host with several cards,
-    which scores over the fleet mesh): no K3 or K2 and the per-step route
-    of K5b at an even count (``cards`` forwards and partials per two
-    reduces) or of K5 at an odd one (``cards`` partials per reduce), no
-    one-launch fit, and one K1 per data block."""
+    which scores over the fleet mesh): no K3 or K2, one K1 per data block,
+    and at an even count K5b by the route ``model_route`` gives the fleet
+    mesh's cards (the cards route: one ``anomaly_fit_model_cards`` launch
+    a card and no per-step launch; the per-step route: ``cards`` forwards
+    and partials per two reduces), at an odd one K5's per-step route
+    (``cards`` partials per reduce); no one-launch fit of one card."""
     from clawker_tpu_torch.kernels import anomaly as K
 
     partials = counts[K.FIT_SHARD_PARTIALS]
@@ -2395,13 +2593,17 @@ def _check_fit_launches(name: str, counts: dict, cards: int = 1) -> None:
     forwards = counts[K.FIT_MODEL_FORWARD]
     halves = counts[K.FIT_MODEL_PARTIALS]
     half_reduces = counts[K.FIT_MODEL_REDUCE]
+    on_cards = counts[K.FIT_MODEL_CARDS]
     if cards > 1:
-        if cards % 2 == 0:
-            route = (partials == reduces == 0 and half_reduces > 0
+        if _cards_on_main_path():
+            route = (partials == reduces == forwards == halves
+                     == half_reduces == 0 and on_cards == cards)
+        elif cards % 2 == 0:
+            route = (partials == reduces == on_cards == 0 and half_reduces > 0
                      and forwards == halves == cards * half_reduces // 2)
         else:
-            route = (forwards == halves == half_reduces == 0 and reduces > 0
-                     and partials == cards * reduces)
+            route = (forwards == halves == half_reduces == on_cards == 0
+                     and reduces > 0 and partials == cards * reduces)
         check(counts[K.FIT] == counts[K.FIT_STEP] == counts[K.FIT_SHARD]
               == counts[K.FIT_MODEL] == 0 and route
               and counts[K.SCORE] == fleet_blocks(cards),
@@ -2411,10 +2613,24 @@ def _check_fit_launches(name: str, counts: dict, cards: int = 1) -> None:
           f"{name}: {counts[K.FIT]} fit and {counts[K.FIT_STEP]} fit-step "
           f"launches, want 1 and 0")
     k5 = (partials, reduces, counts[K.FIT_SHARD], forwards, halves,
-          half_reduces, counts[K.FIT_MODEL])
+          half_reduces, counts[K.FIT_MODEL], on_cards)
     check(not any(k5), f"{name}: K5 and K5b launches {k5}, want none")
     check(counts[K.SCORE] == 1,
           f"{name}: {counts[K.SCORE]} score launches, want 1")
+
+
+def _cards_on_main_path() -> bool:
+    """Whether the sentinel's fleet mesh takes K5b's cards route: several
+    visible cards at an even count (model = 2), peer access between every
+    pair."""
+    import torch
+
+    from clawker_tpu_torch.analytics import mesh as M
+    from clawker_tpu_torch.kernels import anomaly as K
+
+    cards = torch.cuda.device_count()
+    return (cards > 1 and cards % 2 == 0
+            and K.model_route(M.fleet_mesh().devices) == K.ROUTE_CARDS)
 
 
 def main_path_phase(device) -> dict:
@@ -11888,17 +12104,20 @@ def check_no_reference_imports() -> None:
 def cards_phase() -> None:
     """``--cards``, on a host with several cards: the paths that exist
     only across cards, alone.  K1, K2 and K3 on every card, K5 over a
-    data-only mesh of all of them and K5b over the fleet mesh
+    data-only mesh of all of them and K5b over the fleet meshes
     (``every_device_check``); the sentinel's fused tick and
-    ``bench_lane``, both sharded over that mesh; and the fleet mesh's fit
-    (K5b at an even count, else K5) of the hour's shape over the cards
+    ``bench_lane``, both sharded over the fleet mesh; and the fleet mesh's
+    fit (K5b at an even count, else K5) of the hour's shape over the cards
+    (K5b by the route ``model_route`` gives, and by the per-step route)
     beside the same shards on one card (host wall ms around a
-    synchronized fit, median of 5)."""
+    synchronized fit of shards placed before it, median of 5, and the
+    placement's own)."""
     import torch
 
     from clawker_tpu_torch.analytics import features as F
     from clawker_tpu_torch.analytics import mesh as M
     from clawker_tpu_torch.analytics import runtime as art
+    from clawker_tpu_torch.kernels import anomaly as K
     from clawker_tpu_torch.sentinel import ScoringEngine, featurize_fused
 
     cards = torch.cuda.device_count()
@@ -11926,19 +12145,39 @@ def cards_phase() -> None:
                                             per_window=24))
     x = torch.from_numpy(art._pad_rows(X, X.shape[1], mesh.data)).to("cuda")
     params, noises = art._draw(0, FIT_STEPS, x)
-    fit, kname = ((_model_fit, "K5b") if mesh.model == 2
-                  else (_shard_fit, "K5"))
-    for name, m in (("the cards", mesh),
-                    ("one card", M.virtual_mesh(cards, "cuda:0"))):
-        walls = []
+    one_card = M.virtual_mesh(cards, "cuda:0")
+    if mesh.model == 2:
+        kname = "K5b"
+        runs = ((f"the cards ({K.model_route(mesh.devices)} route)", mesh,
+                 None), ("the cards (the per-step route)", mesh,
+                         K.ROUTE_STEPS), ("one card", one_card, None))
+    else:
+        kname = "K5"
+        runs = (("the cards", mesh, None), ("one card", one_card, None))
+    for name, m, route in runs:
+        placing, walls = [], []
         for _ in range(5):
             t0 = time.perf_counter()
-            fit(params, x, noises, m)
-            walls.append((time.perf_counter() - t0) * 1e3)
+            shards = (M.shard_params(params, m), M.shard_rows(x, m),
+                      M.shard_noise(noises, m))
+            for dev in m.distinct:
+                torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            losses = torch.empty(FIT_STEPS, device=x.device)
+            if kname == "K5b":
+                K.fit_model_(*shards, lr=1e-2, sigma=0.25, losses_out=losses,
+                             route=route)
+            else:
+                K.fit_shard_(*shards, lr=1e-2, sigma=0.25, losses_out=losses)
+            for dev in m.distinct:
+                torch.cuda.synchronize(dev)
+            placing.append((t1 - t0) * 1e3)
+            walls.append((time.perf_counter() - t1) * 1e3)
         print(f"{kname} [{x.shape[0]},{x.shape[1]}] x{FIT_STEPS} over "
               f"{cards} shards on {name} ({m.desc}): wall "
-              f"{statistics.median(walls)!r} ms per synchronized fit, "
-              f"median of 5")
+              f"{statistics.median(walls)!r} ms per synchronized fit of "
+              f"placed shards, median of 5 (placing them "
+              f"{statistics.median(placing)!r} ms)")
 
 
 def main() -> int:
@@ -12044,10 +12283,18 @@ def main() -> int:
         K.FIT_MODEL_FORWARD: "clawker_tpu/analytics/anomaly.py:132-145",
         K.FIT_MODEL_PARTIALS: "clawker_tpu/analytics/anomaly.py:132-145",
         K.FIT_MODEL_REDUCE: "clawker_tpu/analytics/anomaly.py:132-145",
+        K.FIT_MODEL_CARDS: "clawker_tpu/analytics/runtime.py:170-194",
     }
-    # every kernel of the paths ran on them (K2's body runs inside K3)
+    # every kernel of the paths ran on them.  K2's body runs inside K3.
+    # The cards route is the main path's only where the sentinel's fleet
+    # mesh spans several cards with peer access: on one card the path takes
+    # the fold, and model_kernel_phase and model_timings launch the cards
+    # route with one participating card and hold its bits.
+    exempt = {K.FIT_STEP}
+    if not _cards_on_main_path():
+        exempt.add(K.FIT_MODEL_CARDS)
     idle = [name for name in replaces
-            if name != K.FIT_STEP and not main_path["launches"][name]]
+            if name not in exempt and not main_path["launches"][name]]
     check(not idle, f"kernels never launched on their paths: {idle}")
     timings = dict(kernels["timings"][(n, f)], **shard_times, **model_times)
     errs = dict(kernels["errs"], **shard_errs, **model_errs)

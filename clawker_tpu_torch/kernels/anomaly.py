@@ -2,8 +2,9 @@
 (the fit over rows split into shards: one launch per fit on one card, or
 the per-step route of S + 1 launches a step) and K5b (the fit over rows
 split into data blocks and the hidden dimension into two model shards: one
-launch per fit on one card, each work item both halves of a slot, or the
-per-step route of 2 S + 2 launches a step).
+launch per fit on one card, each work item both halves of a slot; one
+launch per card per fit across cards with peer access; or the per-step
+route of 2 S + 2 launches a step).
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs and scratch with ``torch.empty``, and launches on the current
@@ -19,6 +20,8 @@ Layouts are the JAX reference's: ``w_enc`` [F, H], ``b_enc`` [H],
 from __future__ import annotations
 
 import ctypes
+import os
+import threading
 from typing import NamedTuple
 
 import torch
@@ -58,9 +61,20 @@ FIT_MODEL_REDUCE = "anomaly_fit_model_reduce"
 MODEL = 2
 HALF = HIDDEN // MODEL
 MAX_DATA = 32
+# K5b across cards: one launch per card (csrc/anomaly_fit_model.cu, the
+# cards route), the most cards of one launch set (csrc/anomaly_cards.cuh,
+# kMaxCards) and its trace's points per step (kCardStamps)
+FIT_MODEL_CARDS = "anomaly_fit_model_cards"
+MAX_CARDS = 8
+CARDS_STAMPS = 10
+# K5b's routes (``model_route``)
+ROUTE_FOLD = "fold"
+ROUTE_CARDS = "cards"
+ROUTE_STEPS = "steps"
 LAUNCHES = {SCORE: 0, FIT_STEP: 0, FIT: 0, FIT_SHARD: 0,
             FIT_SHARD_PARTIALS: 0, FIT_SHARD_REDUCE: 0, FIT_MODEL: 0,
-            FIT_MODEL_FORWARD: 0, FIT_MODEL_PARTIALS: 0, FIT_MODEL_REDUCE: 0}
+            FIT_MODEL_FORWARD: 0, FIT_MODEL_PARTIALS: 0, FIT_MODEL_REDUCE: 0,
+            FIT_MODEL_CARDS: 0}
 
 
 def reset_launches() -> None:
@@ -910,25 +924,310 @@ def _fold_tables(sets, xs, noises, rows, home):
     return table, hv
 
 
+# ------------------------------------------------ K5b across cards
+
+
+def cards_copy_floats(f: int) -> int:
+    """Floats at the start of a card's scratch of the cards route: its copy
+    of the halves it holds no params of (half m's w_enc [F, HALF], b_enc
+    [HALF], w_dec [HALF, F], b_dec [F] from m (half_slot_floats(f) - 1)
+    on), rounded up to 16 bytes."""
+    return -(-MODEL * (half_slot_floats(f) - 1) // 4) * 4
+
+
+def cards_slots_at(f: int) -> int:
+    """Where a card's slots start in its scratch of the cards route, in
+    floats: after the copy and both halves' images."""
+    return cards_copy_floats(f) + model_image_floats(f)
+
+
+def cards_slot_floats(rows, f: int) -> int:
+    """Floats of a card's slots in the cards route: two parities (step s
+    takes s % 2) of both halves' slots, each parity laid out as the fold's
+    slots (``half_slot_at``)."""
+    return 2 * MODEL * shard_slot_offsets(rows)[-1] * half_slot_floats(f)
+
+
+def cards_scratch_floats(rows, f: int) -> int:
+    """Floats of one card's scratch in the cards route
+    (``csrc/anomaly_fit_model.cu``, model_cards): the copy
+    (``cards_copy_floats``), both halves' images, the slots
+    (``cards_slot_floats``), then one float for the losses of the cards
+    that write none."""
+    return cards_slots_at(f) + cards_slot_floats(rows, f) + 1
+
+
+class CardsFitPlan(NamedTuple):
+    """The cards route's plan: ``runs[c][d]`` the run [lo, hi) of data
+    block d's blocks (its ``fit_slots(n_d)``) that card c takes;
+    ``items[c][k]`` card c's block k's items, in the order it takes them;
+    ``resident_tiles[c]`` and ``smem[c]`` by the fold's rule over card c's
+    items."""
+    runs: list[list[tuple[int, int]]]
+    items: list[list[list[ModelItem]]]
+    resident_tiles: list[int]
+    smem: list[int]
+
+
+def cards_fit_plan(rows, cards_of_shards, blocks: int,
+                   f: int) -> CardsFitPlan:
+    """The cards route over data blocks of ``rows`` rows at F = f, shard s
+    on card ``cards_of_shards[s]`` (0 .. C - 1, every card holding one), on
+    ``blocks`` blocks a card, as csrc/anomaly_fit_model.cu plans it
+    (card_items, card_slot, card_block_tiles): data block d's
+    ``fit_slots(n_d)`` slots are split evenly, a contiguous run each, over
+    the distinct cards of its shards (d, 0) and (d, 1), in that order; a
+    card's items are its slots data block by data block, the fold's items
+    (``model_fit_plan``) of those slots; its block k takes items k,
+    k + blocks, ...; its x tiles stay resident by ``fit_shared_plan`` over
+    ``fold_work_bytes``."""
+    if not 1 <= len(rows) <= MAX_DATA:
+        raise ValueError(f"K5b's cards route takes 1 to {MAX_DATA} data "
+                         f"blocks, got {len(rows)}")
+    if len(cards_of_shards) != MODEL * len(rows):
+        raise ValueError(f"{len(cards_of_shards)} shards for {len(rows)} "
+                         f"data blocks: {MODEL} a block")
+    cards = max(cards_of_shards) + 1
+    if sorted(set(cards_of_shards)) != list(range(cards)):
+        raise ValueError(f"cards {sorted(set(cards_of_shards))}: every card "
+                         f"0 .. C - 1 holds a shard")
+    if cards > MAX_CARDS:
+        raise ValueError(f"at most {MAX_CARDS} cards, got {cards}")
+    offsets = shard_slot_offsets(rows)
+    pf = half_slot_floats(f)
+    runs = [[(0, 0)] * len(rows) for _ in range(cards)]
+    for d, n in enumerate(rows):
+        holders = list(dict.fromkeys(cards_of_shards[MODEL * d:
+                                                     MODEL * (d + 1)]))
+        ga = fit_slots(n)
+        for pos, c in enumerate(holders):
+            runs[c][d] = (pos * ga // len(holders),
+                          (pos + 1) * ga // len(holders))
+    items, resident, smem = [], [], []
+    for c in range(cards):
+        mine = [ModelItem(d, b, offsets[d] + b, tuple(
+            range(b, -(-rows[d] // FIT_ROWS), fit_slots(rows[d]))), tuple(
+            half_slot_at(rows, f, d, m) + b * pf for m in range(MODEL)))
+            for d in range(len(rows)) for b in range(*runs[c][d])]
+        per = [mine[k::blocks] for k in range(blocks)]
+        most = max(sum(len(it.tiles) for it in block) for block in per)
+        r, sm = fit_shared_plan(most, f, fold_work_bytes(f))
+        items.append(per)
+        resident.append(r)
+        smem.append(sm)
+    return CardsFitPlan(runs, items, resident, smem)
+
+
+def cards_allocator_ok() -> bool:
+    """Whether PyTorch's CUDA allocator hands out memory that peer access
+    covers, as the cards route needs of its scratch and its flags:
+    cudaMalloc, the caching allocator's default.  Not under
+    ``expandable_segments`` (segments mapped with cuMemMap, which peers
+    reach only after cuMemSetAccess) nor the ``cudaMallocAsync`` backend
+    (pools, which need cudaMemPoolSetAccess), as
+    PYTORCH_CUDA_ALLOC_CONF (or PYTORCH_ALLOC_CONF) sets them."""
+    opts = {}
+    for var in ("PYTORCH_CUDA_ALLOC_CONF", "PYTORCH_ALLOC_CONF"):
+        for item in os.environ.get(var, "").replace(" ", "").split(","):
+            key, _, value = item.partition(":")
+            opts[key] = value
+    return (opts.get("expandable_segments", "").lower() != "true"
+            and opts.get("backend", "native") == "native")
+
+
+def peered(a: torch.device, b: torch.device) -> bool:
+    """Whether card a can reach card b's memory for the cards route: peer
+    access between them, and an allocator whose memory it covers."""
+    return cards_allocator_ok() and torch.cuda.can_device_access_peer(a, b)
+
+
+def model_route(devices, peered_fn=peered) -> str:
+    """K5b's route for shards on ``devices`` (one per shard), decided before
+    any launch: all on one card, the fold (ROUTE_FOLD); on several cards,
+    every ordered pair of which ``peered_fn(a, b)`` says can reach the
+    other's memory, the cards route (ROUTE_CARDS: at most MAX_CARDS cards,
+    more raise ``ValueError``); else the per-step route (ROUTE_STEPS)."""
+    cards = list(dict.fromkeys(devices))
+    if len(cards) == 1:
+        return ROUTE_FOLD
+    if not all(peered_fn(a, b) for a in cards for b in cards if a != b):
+        return ROUTE_STEPS
+    if len(cards) > MAX_CARDS:
+        raise ValueError(f"K5b's cards route takes at most {MAX_CARDS} "
+                         f"cards, got {len(cards)}")
+    return ROUTE_CARDS
+
+
+class _CardSet:
+    """What persists between the launches over one set of cards: each
+    card's flags (MAX_CARDS int64, one per sender; csrc/anomaly_cards.cuh)
+    zeroed once and never reset, and the barriers they have counted
+    (``epoch``)."""
+
+    def __init__(self, cards):
+        self.flags = [torch.zeros(MAX_CARDS, dtype=torch.int64, device=dev)
+                      for dev in cards]
+        for dev in cards:       # zeroed before any peer stores to them
+            torch.cuda.synchronize(dev)
+        self.epoch = 0
+
+
+# Every cards-route launch, over whatever set of cards, is checked and
+# enqueued under one lock, on a stream of the module's own on each card
+# (``_cards_stream``), which nothing else uses.  So the launches on every
+# card run in the order of the lock: two sets that share cards never reach
+# those cards in opposite orders and spin on each other.  Each of a set's
+# launches waits for the work enqueued on EVERY card's current stream
+# before the call, and each current stream waits for its card's launch
+# after it.  So no work that another thread enqueues between two of the
+# set's launches (a copy between cards makes one card's stream wait for
+# another's) can hold one card's launch back while a peer's spins.
+_cards_lock = threading.Lock()
+_CARD_SETS: dict[tuple[torch.device, ...], _CardSet] = {}
+_cards_streams: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _cards_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The cards route's stream on ``dev``; called under ``_cards_lock``."""
+    if dev not in _cards_streams:
+        _cards_streams[dev] = torch.cuda.Stream(device=dev)
+    return _cards_streams[dev]
+
+
+def _card_set(cards) -> _CardSet:
+    """The card set's state; called under ``_cards_lock``."""
+    key = tuple(cards)
+    if key not in _CARD_SETS:
+        _CARD_SETS[key] = _CardSet(cards)
+    return _CARD_SETS[key]
+
+
+def _check_card_stamps(stamps, cards, steps: int) -> None:
+    if len(stamps) != len(cards):
+        raise ValueError(f"stamps of the cards route: one tensor per card, "
+                         f"{len(cards)}, got {len(stamps)}")
+    for t, dev in zip(stamps, cards):
+        if (t.dim() != 3 or tuple(t.shape[:2]) != (steps, CARDS_STAMPS)
+                or t.dtype != torch.int64 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"stamps on {dev} must be a contiguous int64 "
+                             f"[{steps}, {CARDS_STAMPS}, blocks] tensor "
+                             f"there")
+
+
+def _fit_model_cards(sets, xs, noises, rows, f, *, lr, sigma, scratch,
+                     losses_out, stamps) -> None:
+    """The cards route of K5b's fit: one ``anomaly_fit_model_cards`` launch
+    on each card, on the route's own stream there, ordered after every
+    card's current stream and before its own card's (``_cards_lock``),
+    checked on every card (the peer access, the grid) before any of them
+    launches.  ``scratch`` (home's, at least
+    ``cards_scratch_floats``) None allocates it; the others' are
+    allocated here."""
+    cards = list(dict.fromkeys(x.device for x in xs))
+    index = {dev: c for c, dev in enumerate(cards)}
+    need = cards_scratch_floats(rows, f)
+    scratches = [torch.empty(need, dtype=torch.float32, device=dev)
+                 if c or scratch is None else scratch
+                 for c, dev in enumerate(cards)]
+    _check_slots(scratches[0], cards[0], need, "scratch")
+    at = 4 * cards_slots_at(f)
+    shard_cards = (ctypes.c_longlong * len(xs))(*(index[x.device]
+                                                  for x in xs))
+    source = {}     # half m: a params set of it, the first in shard order
+    for s, x in enumerate(xs):
+        source.setdefault(s % MODEL, sets[(x.device, s % MODEL)])
+    args = []
+    for c, dev in enumerate(cards):
+        table = []
+        for d, n in enumerate(rows):
+            mine = [s for s in range(MODEL * d, MODEL * (d + 1))
+                    if xs[s].device == dev]
+            if mine:
+                nz = noises[mine[0]]
+                table += [xs[mine[0]].data_ptr(), nz.data_ptr(),
+                          nz.stride(0), n]
+            else:
+                table += [0, 0, 0, n]
+        halves, sources = [], []    # a half held here, or where from
+        for m in range(MODEL):
+            own = sets.get((dev, m))
+            halves += [p.data_ptr() for p in own] if own else [0] * 4
+            sources += [0] * 4 if own else [p.data_ptr() for p in source[m]]
+        args.append((
+            (ctypes.c_longlong * len(table))(*table), len(rows), shard_cards,
+            (ctypes.c_longlong * len(halves))(*halves),
+            (ctypes.c_longlong * len(sources))(*sources)))
+    tail = [(scratches[c].data_ptr(), need,
+             losses_out.data_ptr() if c == 0 else 0, lr, f,
+             noises[0].shape[0], 0 if stamps is None else stamps[c].data_ptr(),
+             0 if stamps is None else stamps[c].numel())
+            for c in range(len(cards))]
+    fn = kernel(FIT_MODEL_CARDS)
+    with _cards_lock:
+        state = _card_set(cards)
+        peers = (ctypes.c_longlong * (3 * len(cards)))(*(
+            v for dev, sc, fl in zip(cards, scratches, state.flags)
+            for v in (dev.index, sc.data_ptr() + at, fl.data_ptr())))
+        for c, dev in enumerate(cards):       # every check, no launch
+            with torch.cuda.device(dev):
+                err = fn(*args[c], peers, len(cards), c, state.epoch, sigma,
+                         *tail[c], 0, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{FIT_MODEL_CARDS} on {dev}: "
+                                   f"cudaError_t {err} "
+                                   f"({torch.cuda.get_device_name(dev)})")
+        ready = [torch.cuda.Event() for _ in cards]
+        for dev, ev in zip(cards, ready):
+            ev.record(torch.cuda.current_stream(dev))
+        done = [torch.cuda.Event() for _ in cards]
+        for c, dev in enumerate(cards):
+            stream = _cards_stream(dev)
+            for ev in ready:
+                stream.wait_event(ev)
+            with torch.cuda.device(dev):
+                _launched(FIT_MODEL_CARDS, fn(*args[c], peers, len(cards), c,
+                                              state.epoch, sigma, *tail[c], 1,
+                                              stream.cuda_stream))
+            done[c].record(stream)
+        for dev, ev in zip(cards, done):
+            torch.cuda.current_stream(dev).wait_event(ev)
+        state.epoch += noises[0].shape[0] + 2
+
+
 def fit_model_(halves, xs, noises, *, lr: float, sigma: float,
                losses_out: torch.Tensor,
                scratch: torch.Tensor | None = None,
-               stamps: torch.Tensor | None = None) -> None:
+               stamps=None, route: str | None = None) -> None:
     """K5b, in place: the whole fit over the shards as ``fit_model_step_``
     lays them out, one denoising step for each step of the noise shards
     (``noises[s]`` is shard s's [steps, n_s, F], each step's rows
     contiguous).  Writes each step's loss (before its update) to
     ``losses_out[step]`` on the first shard's device.  ``scratch``
-    (float32, at least ``model_scratch_floats(rows, F)``, on the first
-    shard's device, 16-byte aligned) None allocates it.
+    (float32, 16-byte aligned, on the first shard's device: at least
+    ``model_scratch_floats(rows, F)``, on the cards route
+    ``cards_scratch_floats``) None allocates it.
 
-    The route follows the layout: all the shards on one CUDA device, one
-    ``anomaly_fit_model_fit`` launch (at most ``MAX_DATA`` data blocks;
-    its work items ``model_fit_plan``); shards on several cards, the
-    per-step route; the CPU, ``reference.fit_model_shard``.  Both kernel
-    routes give the same bits.  ``stamps`` (one card only: int64 [steps,
-    FIT_STAMPS, the SM count]) asks the one-launch fit for a trace of its
-    phases (``csrc/anomaly_fit_model.cu``)."""
+    The route (``route``, else ``model_route`` of the shards' devices and
+    their peer access) is decided before any launch: all the shards on one
+    CUDA device, one ``anomaly_fit_model_fit`` launch (the fold: at most
+    ``MAX_DATA`` data blocks; its work items ``model_fit_plan``); shards
+    on several cards with peer access between every pair, one
+    ``anomaly_fit_model_cards`` launch on each card (at most ``MAX_CARDS``
+    cards; items ``cards_fit_plan``), at whose end every card holds both
+    halves' updated params (a half it has no set of only in its scratch,
+    which for every card but the first is allocated here and freed when
+    the call returns); else the per-step route.  The CPU takes
+    ``reference.fit_model_shard`` whatever the route.  Every kernel route
+    gives the same bits.  ``route`` (ROUTE_CARDS or ROUTE_STEPS) forces a
+    route so that one can be held against another on the same shards:
+    ROUTE_CARDS also runs the cards route with the shards on one card (one
+    participating card), which the fit on one card never takes by itself.
+    The port's own callers leave it None.  ``stamps`` asks
+    for a trace of the phases: on the fold an int64 [steps, FIT_STAMPS,
+    the SM count] tensor (``csrc/anomaly_fit_model.cu``), on the cards
+    route one int64 [steps, CARDS_STAMPS, the SM count] tensor per card, in
+    the order of the cards' first shards."""
     if not noises or noises[0].dim() != 3:
         raise ValueError("noises must hold one [steps, n_s, F] tensor per "
                          "shard")
@@ -940,15 +1239,35 @@ def fit_model_(halves, xs, noises, *, lr: float, sigma: float,
             or losses_out.device != home):
         raise ValueError(f"losses_out must hold {steps} float32 losses on "
                          f"{home}")
-    one_device = len({dev for dev, _ in sets}) == 1
-    if one_device and len(rows) > MAX_DATA:
-        raise ValueError(f"at most {MAX_DATA} data blocks on one device, "
+    if route not in (None, ROUTE_CARDS, ROUTE_STEPS):
+        raise ValueError(f"unknown route {route!r}: None (the layout's), "
+                         f"{ROUTE_CARDS!r} or {ROUTE_STEPS!r}")
+    devices = [x.device for x in xs]
+    cards = list(dict.fromkeys(devices))
+    if home.type == "cpu":
+        route = ROUTE_FOLD      # checked as the fold; run by the reference
+    elif route is None:
+        route = model_route(devices)
+    elif (route == ROUTE_CARDS and len(cards) > 1
+          and model_route(devices) != ROUTE_CARDS):
+        raise ValueError("the cards route needs peer access between every "
+                         "pair of cards")
+    if route != ROUTE_STEPS and len(rows) > MAX_DATA:
+        raise ValueError(f"at most {MAX_DATA} data blocks in one launch, "
                          f"got {len(rows)}")
+    if route == ROUTE_CARDS and len(cards) > MAX_CARDS:
+        raise ValueError(f"K5b's cards route takes at most {MAX_CARDS} "
+                         f"cards, got {len(cards)}")
     if stamps is not None:
-        if not one_device:
-            raise ValueError("stamps trace the one-launch fit: the shards "
-                             "must lie on one card")
-        _check_stamps(stamps, steps, home)
+        if home.type == "cpu":
+            raise ValueError("stamps trace a kernel on a card")
+        if route == ROUTE_FOLD:
+            _check_stamps(stamps, steps, home)
+        elif route == ROUTE_CARDS:
+            _check_card_stamps(stamps, cards, steps)
+        else:
+            raise ValueError("stamps trace a one-launch fit: the fold or "
+                             "the cards route")
     if steps == 0:
         return
     if home.type == "cpu":
@@ -958,8 +1277,13 @@ def fit_model_(halves, xs, noises, *, lr: float, sigma: float,
         _copy_halves(sets, new)
         losses_out.copy_(losses)
         return
+    if route == ROUTE_CARDS:
+        _fit_model_cards(sets, xs, noises, rows, f, lr=lr, sigma=sigma,
+                         scratch=scratch, losses_out=losses_out,
+                         stamps=stamps)
+        return
     scratch = _model_scratch(scratch, home, rows, f)
-    if not one_device:
+    if route == ROUTE_STEPS:
         _fit_model_steps(sets, xs, noises, rows, f, lr=lr, sigma=sigma,
                          scratch=scratch, losses_out=losses_out)
         return

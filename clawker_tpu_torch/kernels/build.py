@@ -42,7 +42,8 @@ ENTRY_POINTS = {
     "anomaly_fit_model": ("anomaly_fit_model_fit",
                           "anomaly_fit_model_forward",
                           "anomaly_fit_model_partials",
-                          "anomaly_fit_model_reduce"),
+                          "anomaly_fit_model_reduce",
+                          "anomaly_fit_model_cards"),
 }
 
 _P = ctypes.c_void_p
@@ -90,6 +91,12 @@ SIGNATURES = {
     # lr, n_total, f, stream
     "anomaly_fit_model_reduce": [_P, _L, _I, _P, _P, _P, _P, _P, _F, _I, _I,
                                  _P],
+    # table (blocks x 4 int64), blocks, shard_cards (2 x blocks int64),
+    # halves (8 int64), sources (8 int64), peers (cards x 3 int64: device,
+    # slots, flags), cards, me, epoch, sigma, scratch, scratch_floats,
+    # losses, lr, f, steps, stamps, stamps_len, launch, stream
+    "anomaly_fit_model_cards": [_P, _I, _P, _P, _P, _P, _I, _I, _L, _F, _P,
+                                _L, _P, _F, _I, _I, _P, _L, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,14 +1,20 @@
 // K5b: the (denoising) SGD fit of the anomaly autoencoder with the rows
 // split over `data` and the hidden dimension split over `model` = 2, the
-// reference's mesh layout.  Four C entry points, two routes, chosen by the
-// wrapper (kernels/anomaly.py) by layout, never by failure:
+// reference's mesh layout.  Five C entry points, three routes, chosen by
+// the wrapper (kernels/anomaly.py, model_route) from the layout and the
+// host before any launch, never by failure:
 // * all the shards on one card: the whole fit as ONE persistent
 //   cooperative launch (anomaly_fit_model_fit), "the fold" (below);
-// * shards on several cards, and the single step of mesh.train_step /
-//   denoise_step / graft_entry.dryrun_multichip: per step, the forward
-//   once per shard (anomaly_fit_model_forward), the partials once per
-//   shard (anomaly_fit_model_partials), then phase B once per half
-//   (anomaly_fit_model_reduce): 2 S + 2 launches a step, "the per-step
+// * shards on several cards, every pair of which has peer access: the
+//   whole fit as one persistent cooperative launch PER CARD, all running
+//   at once (anomaly_fit_model_cards), "the cards route" (below);
+// * shards on several cards without peer access between some pair, and
+//   the single step of mesh.train_step / denoise_step /
+//   graft_entry.dryrun_multichip: per step, the forward once per shard
+//   (anomaly_fit_model_forward), the partials once per shard
+//   (anomaly_fit_model_partials), then phase B once per half
+//   (anomaly_fit_model_reduce): 2 S + 2 launches a step, with the host
+//   copying y, the slots and the params between cards, "the per-step
 //   route".
 //
 // Replaces: clawker_tpu/analytics/anomaly.py:132-145 (shard_params on
@@ -31,7 +37,8 @@
 //      y_1, the same b_dec), so their db_dec sums, and their b_dec after the
 //      update, are the same bits; the loss is half 0's.
 //
-// The two routes run different work items.  A slot of a half is [dW_enc_m
+// The per-step route and the fold run different work items (the cards
+// route runs the fold's).  A slot of a half is [dW_enc_m
 // [F][64] | db_enc_m [64] | dW_dec_m^T [F][64] | db_dec [F] | loss]; slot
 // i of a half is data block d's block b = i - slot0[d] of its ga_d =
 // min(ceil(n_d / 32), 132), which walks the row tiles b, b + ga_d, ... of
@@ -41,7 +48,7 @@
 //   launch writes y_m [N][F] to global memory, and the partials launch runs
 //   the half's forward again, reads the peer's y through L2 and goes on with
 //   dr and the half's backward.  It is the reference for the bits and the
-//   route across cards.
+//   route across cards without peer access.
 // * The fold's work item is one slot with BOTH halves: per row tile the
 //   block runs half 0's forward (its epilogue keeps y_0 in shared memory),
 //   half 1's forward (its epilogue forms r = y_1 + y_0 + b_dec, e, the
@@ -75,7 +82,7 @@
 // * The data blocks' table and the halves' pointers are passed by value
 //   (__grid_constant__ ModelTable, Halves; at most kMaxData blocks): no
 //   copy to the device.  One block per SM (queried once per device and FP,
-//   fold_grid); block k takes slots k, k + gb, ... in order.
+//   persistent_grid); block k takes slots k, k + gb, ... in order.
 // * Shared memory (fold_work_bytes): both halves' staged weights, each
 //   half's gelu'(a), gelu and da, one dr and its three bf16 terms, one
 //   bf(noisy); then K5's plan (shared_plan): the x tiles of all the
@@ -102,8 +109,53 @@
 // * If one block of the most shared memory cannot sit on an SM, or there
 //   are more than kMaxData data blocks, it returns an error; there is no
 //   fallback.
+//
+// The cards route (anomaly_fit_model_cards): the reference runs the
+// sharded fit as ONE SPMD program whose psums XLA places inside it, with no
+// host in the loop (clawker_tpu/analytics/runtime.py:170-194); this is its
+// counterpart, one persistent launch per card, each on that card's current
+// stream, that work as one program through peer access and a barrier
+// across cards (anomaly_cards.cuh).  It replaces the per-step route across
+// cards, whose host ordered some twenty copies between cards a step.
+// * Work: the fold's items.  Data block d's ga_d slots are split evenly,
+//   a contiguous run each, over the distinct cards that hold its shards
+//   (card_items; on the fleet mesh cards (d, 0) and (d, 1)).  A card's
+//   blocks take its items j, j + gb, ... and run the fold's phase A on them
+//   (fold_phase_a: x tiles resident or reloaded, the noise prefetched, both
+//   halves' forwards, r, dr, both backwards).
+// * Params: a card needs both halves.  It updates the params sets it holds
+//   in place; of a half it holds none of, it copies the fp32 params from a
+//   peer's set into its scratch at the fit's start (peer loads, once a
+//   fit) and keeps that copy updated, so that at the fit's end every card
+//   holds both halves, the copy for as long as its scratch lives.  Its
+//   images of both halves are its own.
+// * Phase B by a replicated reduce: each item assembles its two slots once
+//   and stores them into EVERY card's slots (peer stores over NVLink);
+//   then one barrier across cards; then every card runs the fold's phase B
+//   (fold_phase_b) over all the slots in its own memory into its own
+//   params and images.  Each slot is the sum of the same tiles in the same
+//   order as the fold's, and every card sums the same slots in slot order,
+//   so every card ends with the fold's bits and the per-step route's.  The
+//   slots alternate between two parities by step: a card that has passed
+//   step s's barrier may store step s + 1's slots while a slower card
+//   still reduces step s's.  One barrier across cards a step; the other
+//   design, a reduce-scatter (card c reduces slices c, c + C, ... reading
+//   its peers' slots, then stores the params into every card's copy), needs
+//   a second one and puts peer loads on phase B's latency.
+// * Barriers across cards: one at the start (every card's launch has
+//   begun, so no card stores into scratch a peer's stream still uses, or
+//   reads params a peer's stream still writes), one a step, one at the end
+//   (no card's kernel exits, and its stream frees its scratch, while a peer
+//   may still touch it): steps + 2 a launch.  The loss is written by the
+//   card that holds `losses`, the others' to their scratch's last float.
+// * Trace (`stamps`, [steps][kCardStamps][the SM count] on each card): the
+//   fold's points 0-6, then 7 this card's blocks all at the barrier across
+//   cards, 8 past it, 9 after phase B: 8 - 7 is the wait for the peers.
+// * At most kMaxCards cards and kMaxData data blocks; a refused peer
+//   enable, grid or launch returns its error, and a barrier past its
+//   deadline traps: no fallback.
 
-#include "anomaly_fit_persistent.cuh"
+#include "anomaly_cards.cuh"
 
 namespace anomaly {
 
@@ -438,15 +490,13 @@ __device__ __forceinline__ void backward_tile(const Phase& m, int rows,
   }
 }
 
-// This block's slot `slot` of `slots` (half_floats(f) each), from g; every
-// thread calls it (it begins with a barrier).  Assembled over the tile's
-// arrays from xb on (the staged weights before them stay for the block's
-// next item), then stored coalesced.
+// This block's slot sums g of one half, assembled over the tile's arrays
+// from xb on (the staged weights before them stay for the block's next
+// item) for store_half_slot.  Every thread calls it: it begins and ends
+// with a barrier.
 template <int FP, class Phase>
-__device__ __forceinline__ void write_half_slot(const Phase& m,
-                                                HalfGrads<FP>& g,
-                                                float* slots, int slot,
-                                                int f) {
+__device__ __forceinline__ void assemble_half_slot(const Phase& m,
+                                                   HalfGrads<FP>& g, int f) {
   constexpr int kMt = HalfGrads<FP>::kMt;
   constexpr int kQ = HalfGrads<FP>::kQ;
   static_assert(Phase::kSlotRoom >=
@@ -494,11 +544,20 @@ __device__ __forceinline__ void write_half_slot(const Phase& m,
   if (tid < kHalf + f) s_b[tid] = g.bias;
   if (tid == 0) s_b[kHalf + f] = loss;
   __syncthreads();
-  const int pf = half_floats(f);
+}
+
+// The slot that assemble_half_slot left in shared memory, stored coalesced
+// at `part` (half_floats(f) floats): this card's memory or a peer's.
+template <int FP, class Phase>
+__device__ __forceinline__ void store_half_slot(const Phase& m, float* part,
+                                                int f) {
+  const int tid = threadIdx.x;
+  const float* s_we = reinterpret_cast<const float*>(m.xb);
+  const float* s_wd = s_we + FP * kLdq;
+  const float* s_b = s_wd + FP * kLdq;
   const int o_be = f * kHalf;
   const int o_wd = o_be + kHalf;
   const int o_bd = o_wd + kHalf * f;
-  float* part = slots + static_cast<size_t>(slot) * pf;
   const int c = tid % kHalf;   // four rows of kHalf per pass
   for (int j = tid / kHalf; j < f; j += kFitThreads / kHalf) {
     part[j * kHalf + c] = s_we[j * kLdq + c];
@@ -509,6 +568,18 @@ __device__ __forceinline__ void write_half_slot(const Phase& m,
   } else if (tid <= kHalf + f) {   // db_dec, then the loss
     part[o_bd + tid - kHalf] = s_b[tid];
   }
+}
+
+// This block's slot `slot` of `slots` (half_floats(f) each), from g; every
+// thread calls it (it begins with a barrier).
+template <int FP, class Phase>
+__device__ __forceinline__ void write_half_slot(const Phase& m,
+                                                HalfGrads<FP>& g,
+                                                float* slots, int slot,
+                                                int f) {
+  assemble_half_slot<FP>(m, g, f);
+  store_half_slot<FP>(m, slots + static_cast<size_t>(slot) * half_floats(f),
+                      f);
 }
 
 // The per-step route's partials of shard (d, m), block b: as forward_item,
@@ -734,6 +805,202 @@ __host__ __device__ inline FoldItem fold_item(const ModelTable& t, int slot) {
   return {d, b, ga, (tiles - b + ga - 1) / ga};
 }
 
+__device__ __forceinline__ int tile_rows(const ModelTable& t, int d,
+                                         int tile) {
+  return min(kFitRows, t.rows[d] - tile * kFitRows);
+}
+
+__device__ __forceinline__ const float* tile_noise(const ModelTable& t,
+                                                   int s, int d, int tile,
+                                                   int f) {
+  return t.noise[d] + s * t.stride[d] +
+         static_cast<size_t>(tile) * kFitRows * f;
+}
+
+// Before the first step, for a block with `items` items (item j: slot
+// slot_of(j) of each half): the x tiles of all of them into xs while
+// resident_tiles > 0 (0: one, reloaded at each tile), and the first tile's
+// noise into nz, in flight.
+template <int FP, class SlotOf>
+__device__ __forceinline__ void fold_load(const ModelTable& table, float* xs,
+                                          float* nz, int items,
+                                          int resident_tiles, int f,
+                                          SlotOf slot_of) {
+  constexpr int kTile = kFitRows * FP;
+  const int tid = threadIdx.x;
+  if (items == 0) return;
+  for (int j = 0, r = 0; resident_tiles > 0 && j < items; ++j) {
+    const FoldItem it = fold_item(table, slot_of(j));
+    for (int k = 0; k < it.count; ++k, ++r) {
+      const int t = it.b + k * it.ga;
+      load_x<FP>(xs + r * kTile, table.x[it.d], t * kFitRows,
+                 tile_rows(table, it.d, t), f, tid);
+    }
+  }
+  const FoldItem it0 = fold_item(table, slot_of(0));
+  copy_async(nz, tile_noise(table, 0, it0.d, it0.b, f),
+             tile_rows(table, it0.d, it0.b) * f, tid);
+  cp_async_commit();
+}
+
+// Phase A of step s for a block with `items` items (item j: slot
+// slot_of(j) of each half): at the step's first tile both halves' images
+// come in behind the noise; each tile runs half 0's forward, half 1's
+// (forming r, e, dr and the squared error) and each half's backward; at
+// the item's end put(g0, g1, slot) writes its two slots.  The noise tiles
+// double-buffer in nz across items and steps (q: the tiles the block has
+// taken, the buffer's parity).  stamp(k) marks trace point k.
+template <int FP, class SlotOf, class Put, class Stamp>
+__device__ __forceinline__ void fold_phase_a(
+    const ModelTable& table, const FoldHalf<FP>& h0, const FoldHalf<FP>& h1,
+    float* xs, float* nz, const unsigned char* image, int items, int s,
+    int steps, int& q, float sigma, float inv_count, int f,
+    int resident_tiles, SlotOf slot_of, Put put, Stamp stamp) {
+  constexpr int R = kFitRows;
+  constexpr int kTile = R * FP;
+  constexpr int kLdk = FP + 8;
+  constexpr int kDs = FP + 1;
+  const int tid = threadIdx.x;
+  if (items > 0) {   // both halves' images, once a step, behind the noise
+    copy_async(reinterpret_cast<float*>(h0.weT),
+               reinterpret_cast<const float*>(image),
+               static_cast<int>(kModel * half_staged_bytes(FP) / 4), tid);
+    cp_async_commit();
+  }
+  for (int j = 0, r = 0; j < items; ++j) {
+    const int slot = slot_of(j);
+    const FoldItem it = fold_item(table, slot);
+    HalfGrads<FP> g0 = {};
+    HalfGrads<FP> g1 = {};
+    for (int k = 0; k < it.count; ++k, ++q, ++r) {
+      const int t = it.b + k * it.ga;
+      const int rows = tile_rows(table, it.d, t);
+      // in flight: this tile's noise, and at the step's first tile the
+      // weights after it
+      const bool first = j == 0 && k == 0;
+      if (first) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();   // the noise landed; the last tile's and the last
+                         // slot's readers are done
+      stamp(1);
+      float* xc = resident_tiles > 0 ? xs + r * kTile : xs;
+      if (resident_tiles == 0) {   // each thread reads back only its own
+        load_x<FP>(xc, table.x[it.d], t * R, rows, f, tid);
+      }
+      const float* nc = nz + (q & 1) * kTile;
+      for (int idx = tid; idx < kTile; idx += kFitThreads) {
+        const int i = idx / FP;
+        const int c = idx - i * FP;
+        const float nv =
+            i < rows && c < f
+                ? __fadd_rn(xc[idx], __fmul_rn(sigma, nc[i * f + c]))
+                : 0.0f;
+        h0.xb[i * kLdk + c] = __float2bfloat16_rn(nv);
+      }
+      // the next tile's noise into the other buffer: this item's next
+      // tile, the next item's first, or step s + 1's first
+      int s2 = s;
+      int d2 = it.d;
+      int t2 = t + it.ga;
+      bool next = true;
+      if (k + 1 == it.count) {
+        const bool more = j + 1 < items;
+        next = more || s + 1 < steps;
+        const FoldItem nx = fold_item(table, slot_of(more ? j + 1 : 0));
+        s2 = more ? s : s + 1;
+        d2 = nx.d;
+        t2 = nx.b;
+      }
+      if (next) {
+        copy_async(nz + ((q + 1) & 1) * kTile, tile_noise(table, s2, d2, t2, f),
+                   tile_rows(table, d2, t2) * f, tid);
+      }
+      cp_async_commit();
+      if (first) cp_async_wait<1>();   // the weights
+      __syncthreads();
+      stamp(2);
+      // half 0's forward: y_0 kept in dr for half 1's epilogue (each
+      // (i, j) is the same thread's in both)
+      forward_tile<R, kFitThreads / 32, kHalf>(
+          h0.xb, kLdk, FP, h0.weT, kLdk, h0.be, h0.as, kLdq, h0.gs, kLdq,
+          h0.wdT, kLdq, FP, tid >> 5, tid & 31,
+          [&](int i, int j, float acc) { h0.dr[i * kDs + j] = acc; });
+      // half 1's: r = y_1 + y_0, then e, dr (fp32 and split) and the
+      // squared error (dr = 0 past rows and f), as partials_item forms
+      // them
+      forward_tile<R, kFitThreads / 32, kHalf>(
+          h1.xb, kLdk, FP, h1.weT, kLdk, h1.be, h1.as, kLdq, h1.gs, kLdq,
+          h1.wdT, kLdq, FP, tid >> 5, tid & 31,
+          [&](int i, int j, float acc) {
+            float d = 0.0f;
+            if (i < rows && j < f) {
+              const float y = __fadd_rn(acc, h0.dr[i * kDs + j]);
+              const float e =
+                  __fsub_rn(__fadd_rn(y, h0.bd[j]), xc[i * FP + j]);
+              g0.sq = __fadd_rn(g0.sq, __fmul_rn(e, e));
+              d = __fmul_rn(__fmul_rn(2.0f, e), inv_count);
+            }
+            h0.dr[i * kDs + j] = d;
+            const Split3 sd(d);
+#pragma unroll
+            for (int u = 0; u < 3; ++u) {
+              h0.drs[(u * R + i) * kLdk + j] = sd.t[u];
+            }
+          });
+      __syncthreads();
+      stamp(3);
+      backward_tile<FP>(h0, rows, g0);
+      stamp(4);
+      backward_tile<FP>(h1, rows, g1);
+      stamp(5);
+    }
+    g1.sq = g0.sq;   // both slots carry the one squared error
+    put(g0, g1, slot);
+  }
+}
+
+// Phase B of a step: each half's params updated from its half_slots slots
+// at `slots` (half 0's, then half 1's) by fit_reduce at a width of 64, in
+// K5's short runs while a half has at most 8 x 17 slots, else its long
+// runs; each updated param also goes to the half's image; the loss to
+// `loss` (half 1's copy of it to `discard`).  Block k takes the slices k,
+// k + gb, ... of both halves' parameters.
+template <int FP>
+__device__ __forceinline__ void fold_phase_b(const Halves& hv,
+                                             unsigned char* smem,
+                                             const float* slots,
+                                             unsigned char* image,
+                                             float* loss, float* discard,
+                                             int half_slots, int f, float lr,
+                                             float count) {
+  const int block = blockIdx.x;
+  const int gb = gridDim.x;
+  const int tid = threadIdx.x;
+  const int pf = half_floats(f);
+  const int slices = (pf + kFitSlice - 1) / kFitSlice;
+  const bool long_runs = half_slots > kReduceGroups * kReduceRun;
+  for (int k = block; k < kModel * slices; k += gb) {
+    if (k != block) __syncthreads();   // the last slice's reads of red
+    const int h = k / slices;
+    float* red = reinterpret_cast<float*>(smem);
+    const float* part = slots + static_cast<size_t>(h) * half_slots * pf;
+    float* out = h == 0 ? loss : discard;
+    unsigned char* img = image + h * half_staged_bytes(FP);
+    if (long_runs) {
+      fit_reduce<kFitWidth, kFitCols, true, kHalf>(
+          k - h * slices, tid, red, part, half_slots, f, hv.w_enc[h],
+          hv.b_enc[h], hv.w_dec[h], hv.b_dec[h], out, lr, count, img, FP);
+    } else {
+      fit_reduce<kFitWidth, kFitCols, false, kHalf>(
+          k - h * slices, tid, red, part, half_slots, f, hv.w_enc[h],
+          hv.b_enc[h], hv.w_dec[h], hv.b_dec[h], out, lr, count, img, FP);
+    }
+  }
+}
+
 // resident_tiles > 0: a block keeps the x tiles of all its items in
 // shared memory (room for resident_tiles of them); 0: one, reloaded at
 // each tile.
@@ -745,10 +1012,6 @@ model_fit_kernel(const __grid_constant__ ModelTable table,
                  float* losses, float lr, float count, float inv_count,
                  int f, int steps, int half_slots, int resident_tiles,
                  long long* stamps) {
-  constexpr int R = kFitRows;
-  constexpr int kTile = R * FP;
-  constexpr int kLdk = FP + 8;
-  constexpr int kDs = FP + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::grid_group grid = cg::this_grid();
   const int block = blockIdx.x;
@@ -758,23 +1021,17 @@ model_fit_kernel(const __grid_constant__ ModelTable table,
   const FoldHalf<FP> h1(smem, 1);
   // x tiles [max(resident_tiles, 1)][R][FP], then noise [2][R][FP]
   float* xs = reinterpret_cast<float*>(smem + fold_work_bytes(FP));
-  float* nz = xs + kTile * max(resident_tiles, 1);
+  float* nz = xs + kFitRows * FP * max(resident_tiles, 1);
   // this block's items: slots block, block + gb, ...
   const int items =
       block < half_slots ? (half_slots - block + gb - 1) / gb : 0;
+  const auto slot_of = [&](int j) { return block + j * gb; };
   const int pf = half_floats(f);
-  const int slices = (pf + kFitSlice - 1) / kFitSlice;
-  const bool long_runs = half_slots > kReduceGroups * kReduceRun;
   // stamps [steps][kStamps][gb], as K3's and K5's
   auto stamp = [&](int s, int k) {
     if (stamps != nullptr && tid == 0) {
       stamps[(s * kStamps + k) * gb + block] = global_ns();
     }
-  };
-  auto rows_of = [&](int d, int t) { return min(R, table.rows[d] - t * R); };
-  auto noise_of = [&](int s, int d, int t) {
-    return table.noise[d] + s * table.stride[d] +
-           static_cast<size_t>(t) * R * f;
   };
 
   if (block < kModel) {   // half `block`'s image, from its fp32 params
@@ -782,147 +1039,27 @@ model_fit_kernel(const __grid_constant__ ModelTable table,
                    hv.w_enc[block], hv.b_enc[block], hv.w_dec[block],
                    hv.b_dec[block], f, tid);
   }
-  if (items > 0) {
-    for (int j = 0, r = 0; resident_tiles > 0 && j < items; ++j) {
-      const FoldItem it = fold_item(table, block + j * gb);
-      for (int k = 0; k < it.count; ++k, ++r) {
-        const int t = it.b + k * it.ga;
-        load_x<FP>(xs + r * kTile, table.x[it.d], t * R, rows_of(it.d, t), f,
-                   tid);
-      }
-    }
-    const FoldItem it0 = fold_item(table, block);
-    copy_async(nz, noise_of(0, it0.d, it0.b), rows_of(it0.d, it0.b) * f,
-               tid);
-    cp_async_commit();
-  }
+  fold_load<FP>(table, xs, nz, items, resident_tiles, f, slot_of);
   grid.sync();
 
   int q = 0;   // tiles this block has taken: the noise buffer's parity
   for (int s = 0; s < steps; ++s) {
     stamp(s, 0);
-    if (items > 0) {   // both halves' images, once a step, behind the noise
-      copy_async(reinterpret_cast<float*>(h0.weT),
-                 reinterpret_cast<const float*>(image),
-                 static_cast<int>(kModel * half_staged_bytes(FP) / 4), tid);
-      cp_async_commit();
-    }
-    for (int j = 0, r = 0; j < items; ++j) {
-      const int slot = block + j * gb;
-      const FoldItem it = fold_item(table, slot);
-      HalfGrads<FP> g0 = {};
-      HalfGrads<FP> g1 = {};
-      for (int k = 0; k < it.count; ++k, ++q, ++r) {
-        const int t = it.b + k * it.ga;
-        const int rows = rows_of(it.d, t);
-        // in flight: this tile's noise, and at the step's first tile the
-        // weights after it
-        const bool first = j == 0 && k == 0;
-        if (first) {
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();   // the noise landed; the last tile's and the last
-                           // slot's readers are done
-        stamp(s, 1);
-        float* xc = resident_tiles > 0 ? xs + r * kTile : xs;
-        if (resident_tiles == 0) {   // each thread reads back only its own
-          load_x<FP>(xc, table.x[it.d], t * R, rows, f, tid);
-        }
-        const float* nc = nz + (q & 1) * kTile;
-        for (int idx = tid; idx < kTile; idx += kFitThreads) {
-          const int i = idx / FP;
-          const int c = idx - i * FP;
-          const float nv =
-              i < rows && c < f
-                  ? __fadd_rn(xc[idx], __fmul_rn(sigma, nc[i * f + c]))
-                  : 0.0f;
-          h0.xb[i * kLdk + c] = __float2bfloat16_rn(nv);
-        }
-        // the next tile's noise into the other buffer: this item's next
-        // tile, the next item's first, or step s + 1's first
-        int s2 = s;
-        int d2 = it.d;
-        int t2 = t + it.ga;
-        bool next = true;
-        if (k + 1 == it.count) {
-          const bool more = j + 1 < items;
-          next = more || s + 1 < steps;
-          const FoldItem nx = fold_item(table, more ? slot + gb : block);
-          s2 = more ? s : s + 1;
-          d2 = nx.d;
-          t2 = nx.b;
-        }
-        if (next) {
-          copy_async(nz + ((q + 1) & 1) * kTile, noise_of(s2, d2, t2),
-                     rows_of(d2, t2) * f, tid);
-        }
-        cp_async_commit();
-        if (first) cp_async_wait<1>();   // the weights
-        __syncthreads();
-        stamp(s, 2);
-        // half 0's forward: y_0 kept in dr for half 1's epilogue (each
-        // (i, j) is the same thread's in both)
-        forward_tile<R, kFitThreads / 32, kHalf>(
-            h0.xb, kLdk, FP, h0.weT, kLdk, h0.be, h0.as, kLdq, h0.gs, kLdq,
-            h0.wdT, kLdq, FP, tid >> 5, tid & 31,
-            [&](int i, int j, float acc) { h0.dr[i * kDs + j] = acc; });
-        // half 1's: r = y_1 + y_0, then e, dr (fp32 and split) and the
-        // squared error (dr = 0 past rows and f), as partials_item forms
-        // them
-        forward_tile<R, kFitThreads / 32, kHalf>(
-            h1.xb, kLdk, FP, h1.weT, kLdk, h1.be, h1.as, kLdq, h1.gs, kLdq,
-            h1.wdT, kLdq, FP, tid >> 5, tid & 31,
-            [&](int i, int j, float acc) {
-              float d = 0.0f;
-              if (i < rows && j < f) {
-                const float y = __fadd_rn(acc, h0.dr[i * kDs + j]);
-                const float e =
-                    __fsub_rn(__fadd_rn(y, h0.bd[j]), xc[i * FP + j]);
-                g0.sq = __fadd_rn(g0.sq, __fmul_rn(e, e));
-                d = __fmul_rn(__fmul_rn(2.0f, e), inv_count);
-              }
-              h0.dr[i * kDs + j] = d;
-              const Split3 sd(d);
-#pragma unroll
-              for (int u = 0; u < 3; ++u) {
-                h0.drs[(u * R + i) * kLdk + j] = sd.t[u];
-              }
-            });
-        __syncthreads();
-        stamp(s, 3);
-        backward_tile<FP>(h0, rows, g0);
-        stamp(s, 4);
-        backward_tile<FP>(h1, rows, g1);
-        stamp(s, 5);
-      }
-      g1.sq = g0.sq;   // both slots carry the one squared error
-      write_half_slot<FP>(h0, g0, slots, slot, f);
-      write_half_slot<FP>(h1, g1,
-                          slots + static_cast<size_t>(half_slots) * pf, slot,
-                          f);
-    }
+    fold_phase_a<FP>(
+        table, h0, h1, xs, nz, image, items, s, steps, q, sigma, inv_count,
+        f, resident_tiles, slot_of,
+        [&](HalfGrads<FP>& g0, HalfGrads<FP>& g1, int slot) {
+          write_half_slot<FP>(h0, g0, slots, slot, f);
+          write_half_slot<FP>(h1, g1,
+                              slots + static_cast<size_t>(half_slots) * pf,
+                              slot, f);
+        },
+        [&](int k) { stamp(s, k); });
     stamp(s, 6);
     grid.sync();
     stamp(s, 7);
-    for (int k = block; k < kModel * slices; k += gb) {   // phase B
-      if (k != block) __syncthreads();   // the last slice's reads of red
-      const int h = k / slices;
-      float* red = reinterpret_cast<float*>(smem);
-      const float* part = slots + static_cast<size_t>(h) * half_slots * pf;
-      float* loss = h == 0 ? losses + s : discard;
-      unsigned char* img = image + h * half_staged_bytes(FP);
-      if (long_runs) {
-        fit_reduce<kFitWidth, kFitCols, true, kHalf>(
-            k - h * slices, tid, red, part, half_slots, f, hv.w_enc[h],
-            hv.b_enc[h], hv.w_dec[h], hv.b_dec[h], loss, lr, count, img, FP);
-      } else {
-        fit_reduce<kFitWidth, kFitCols, false, kHalf>(
-            k - h * slices, tid, red, part, half_slots, f, hv.w_enc[h],
-            hv.b_enc[h], hv.w_dec[h], hv.b_dec[h], loss, lr, count, img, FP);
-      }
-    }
+    fold_phase_b<FP>(hv, smem, slots, image, losses + s, discard, half_slots,
+                     f, lr, count);
     stamp(s, 8);
     grid.sync();
   }
@@ -938,13 +1075,14 @@ inline int fold_block_tiles(const ModelTable& t, int half_slots, int gb) {
   return *std::max_element(tiles.begin(), tiles.end());
 }
 
-// The fold's grid on the current device: one block per SM, once the
-// kernel at FP is known to opt in to, and hold on an SM, one block of the
-// most shared memory any plan asks for.  Queried once per (device, FP),
-// as opt_in_smem keeps its opt-in, a failure too; later calls return it.
-template <int FP>
-cudaError_t fold_grid(int* sms) {
+// The grid of a persistent launch of `kernel` on the current device: one
+// block per SM, once the kernel is known to opt in to, and hold on an SM,
+// one block of the most shared memory any plan asks for.  Queried once per
+// (kernel, device), as opt_in_smem keeps its opt-in, a failure too; later
+// calls return it.
+inline cudaError_t persistent_grid(const void* kernel, int* sms) {
   struct Grid {
+    const void* kernel;
     int device;
     int sms;
     cudaError_t err;
@@ -956,12 +1094,11 @@ cudaError_t fold_grid(int* sms) {
   if (err != cudaSuccess) return err;
   const std::lock_guard<std::mutex> lock(mu);
   for (const Grid& g : done) {
-    if (g.device == device) {
+    if (g.kernel == kernel && g.device == device) {
       *sms = g.sms;
       return g.err;
     }
   }
-  const void* kernel = reinterpret_cast<const void*>(model_fit_kernel<FP>);
   int count = 0;
   int per_sm = 0;
   err = opt_in_smem(kernel, kMaxSmem);
@@ -979,7 +1116,7 @@ cudaError_t fold_grid(int* sms) {
   } else if (per_sm < 1) {
     err = cudaErrorCooperativeLaunchTooLarge;
   }
-  done.push_back({device, count, err});
+  done.push_back({kernel, device, count, err});
   *sms = count;
   return err;
 }
@@ -1002,7 +1139,8 @@ int model_fit(const ModelTable& table, const Halves& hv, int n_total,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int gb = 0;
-  cudaError_t err = fold_grid<FP>(&gb);
+  cudaError_t err = persistent_grid(
+      reinterpret_cast<const void*>(model_fit_kernel<FP>), &gb);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (stamps != nullptr && stamps_len < 1LL * kStamps * steps * gb) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1025,6 +1163,261 @@ int model_fit(const ModelTable& table, const Halves& hv, int n_total,
       dim3(kFitThreads), args, smem, s);
   if (err != cudaSuccess) cudaGetLastError();   // clear what we report
   return static_cast<int>(err);
+}
+
+// ------------------------------------------------------- the cards route
+
+// The trace's points per step of the cards route: the fold's 0-6, then 7
+// this card's blocks all at the barrier across cards, 8 past it, 9 after
+// phase B
+constexpr int kCardStamps = 10;
+
+// The cards of one launch set and this card's part, by value: each card's
+// slots (both parities) and flags, where this card copies a half it holds
+// no params of from at the fit's start, and which run [lo, hi) of each
+// data block's slots it takes.
+struct Cards {
+  float* slots[kMaxCards];
+  unsigned long long* flags[kMaxCards];
+  const float* src[kModel][4];   // a peer's half m; null: held here
+  int lo[kMaxData];
+  int hi[kMaxData];
+  int items;                     // the sum of hi - lo
+  int cards;
+  int me;
+  unsigned long long epoch;      // the barriers passed before this launch
+};
+
+// The j-th of this card's slots, data block by data block
+__host__ __device__ inline int card_slot(const ModelTable& t, const Cards& c,
+                                         int j) {
+  for (int d = 0; d < t.blocks; ++d) {
+    const int n = c.hi[d] - c.lo[d];
+    if (j < n) return t.slot0[d] + c.lo[d] + j;
+    j -= n;
+  }
+  return -1;
+}
+
+// The fit over the cards of a host, one launch per card: the fold's work
+// items split over the cards, every slot stored into every card's slots,
+// one barrier across cards a step, and the same phase B on every card.
+template <int FP>
+__global__ void __launch_bounds__(kFitThreads, 1)
+model_cards_kernel(const __grid_constant__ ModelTable table,
+                   const __grid_constant__ Halves hv,
+                   const __grid_constant__ Cards cards, float sigma,
+                   unsigned char* image, float* losses, float* discard,
+                   float lr, float count, float inv_count, int f, int steps,
+                   int half_slots, int resident_tiles, long long* stamps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int block = blockIdx.x;
+  const int gb = gridDim.x;
+  const int tid = threadIdx.x;
+  const FoldHalf<FP> h0(smem, 0);
+  const FoldHalf<FP> h1(smem, 1);
+  float* xs = reinterpret_cast<float*>(smem + fold_work_bytes(FP));
+  float* nz = xs + kFitRows * FP * max(resident_tiles, 1);
+  // this block's items: the card's items block, block + gb, ...
+  const int items =
+      block < cards.items ? (cards.items - block + gb - 1) / gb : 0;
+  const auto slot_of = [&](int j) {
+    return card_slot(table, cards, block + j * gb);
+  };
+  const int pf = half_floats(f);
+  // one step's slots of both halves; step s uses parity s & 1
+  const size_t parity = static_cast<size_t>(kModel) * half_slots * pf;
+  // stamps [steps][kCardStamps][gb]
+  auto stamp = [&](int s, int k) {
+    if (stamps != nullptr && tid == 0) {
+      stamps[(s * kCardStamps + k) * gb + block] = global_ns();
+    }
+  };
+  unsigned long long barrier = cards.epoch;
+
+  fold_load<FP>(table, xs, nz, items, resident_tiles, f, slot_of);
+  // every card's launch has begun: the peers' scratch is this fit's, and
+  // the peers' params are no longer written by what came before
+  cards_sync(grid, cards.flags, cards.cards, cards.me, ++barrier, false,
+             [] {});
+  if (block < kModel) {   // half `block`: its params where a peer holds
+    const int m = block;  // them, then its image
+    if (cards.src[m][0] != nullptr) {
+      float* dst[4] = {hv.w_enc[m], hv.b_enc[m], hv.w_dec[m], hv.b_dec[m]};
+      const int len[4] = {f * kHalf, kHalf, kHalf * f, f};
+      for (int i = 0; i < 4; ++i) {
+        for (int e = tid; e < len[i]; e += kFitThreads) {
+          dst[i][e] = __ldcg(cards.src[m][i] + e);
+        }
+      }
+      __syncthreads();
+    }
+    stage_half<FP>(StagedAt<kHalf>(image + m * half_staged_bytes(FP), FP),
+                   hv.w_enc[m], hv.b_enc[m], hv.w_dec[m], hv.b_dec[m], f,
+                   tid);
+  }
+  grid.sync();
+
+  int q = 0;   // tiles this block has taken: the noise buffer's parity
+  for (int s = 0; s < steps; ++s) {
+    const size_t at = (s & 1) * parity;
+    stamp(s, 0);
+    fold_phase_a<FP>(
+        table, h0, h1, xs, nz, image, items, s, steps, q, sigma, inv_count,
+        f, resident_tiles, slot_of,
+        [&](HalfGrads<FP>& g0, HalfGrads<FP>& g1, int slot) {
+          // the same two slots into every card's slots
+          assemble_half_slot<FP>(h0, g0, f);
+          for (int c = 0; c < cards.cards; ++c) {
+            store_half_slot<FP>(
+                h0, cards.slots[c] + at + static_cast<size_t>(slot) * pf, f);
+          }
+          assemble_half_slot<FP>(h1, g1, f);
+          for (int c = 0; c < cards.cards; ++c) {
+            store_half_slot<FP>(
+                h1,
+                cards.slots[c] + at +
+                    static_cast<size_t>(half_slots + slot) * pf,
+                f);
+          }
+        },
+        [&](int k) { stamp(s, k); });
+    stamp(s, 6);
+    cards_sync(grid, cards.flags, cards.cards, cards.me, ++barrier,
+               items > 0 && cards.cards > 1, [&] { stamp(s, 7); });
+    stamp(s, 8);
+    fold_phase_b<FP>(hv, smem, cards.slots[cards.me] + at, image,
+                     losses != nullptr ? losses + s : discard, discard,
+                     half_slots, f, lr, count);
+    stamp(s, 9);
+    if (s + 1 < steps) grid.sync();   // phase A reads phase B's images
+  }
+  // no card's kernel exits while a peer may still touch its memory
+  cards_sync(grid, cards.flags, cards.cards, cards.me, ++barrier, false,
+             [] {});
+}
+
+// Which of each data block's ga_d slots this card takes: the ga_d split
+// evenly, a contiguous run each, over the distinct cards that hold the
+// block's shards (d, 0) and (d, 1), in that order; none where it holds
+// neither (kernels/anomaly.py cards_fit_plan is its twin).
+inline void card_items(const ModelTable& t, const int* card_of_shard, int me,
+                       Cards* c) {
+  c->items = 0;
+  for (int d = 0; d < t.blocks; ++d) {
+    int holders = 0;
+    int pos = -1;
+    for (int m = 0; m < kModel; ++m) {
+      const int card = card_of_shard[kModel * d + m];
+      bool seen = false;
+      for (int k = 0; k < m; ++k) seen |= card_of_shard[kModel * d + k] == card;
+      if (seen) continue;
+      if (card == me) pos = holders;
+      ++holders;
+    }
+    const int ga = fit_slots(t.rows[d]);
+    c->lo[d] = pos < 0 ? 0 : pos * ga / holders;
+    c->hi[d] = pos < 0 ? 0 : (pos + 1) * ga / holders;
+    c->items += c->hi[d] - c->lo[d];
+  }
+}
+
+// The most x tiles one block of this card walks in a step
+inline int card_block_tiles(const ModelTable& t, const Cards& c, int gb) {
+  std::vector<int> tiles(gb, 0);
+  for (int j = 0; j < c.items; ++j) {
+    tiles[j % gb] += fold_item(t, card_slot(t, c, j)).count;
+  }
+  return *std::max_element(tiles.begin(), tiles.end());
+}
+
+// The floats at the start of a card's scratch that hold its copy of the
+// halves it holds no params of: half m's w_enc [f][kHalf], b_enc [kHalf],
+// w_dec [kHalf][f], b_dec [f] from m (half_floats(f) - 1) on, rounded up
+// to 16 bytes
+__host__ __device__ constexpr long long cards_copy_floats(int f) {
+  return (kModel * (half_floats(f) - 1) + 3) / 4 * 4;
+}
+
+template <int FP>
+int model_cards(const ModelTable& table, const Halves& hv,
+                const Cards& cards, const int* devices, int n_total,
+                float sigma, float* scratch, long long scratch_floats,
+                float* losses, float lr, int f, int steps, long long* stamps,
+                long long stamps_len, bool launch, cudaStream_t s) {
+  const int last = table.blocks - 1;
+  int half_slots = table.slot0[last] + fit_slots(table.rows[last]);
+  const long long copy_floats = cards_copy_floats(f);
+  const long long image_floats = kModel * half_staged_bytes(FP) / 4;
+  const long long slot_floats = 2LL * kModel * half_slots * half_floats(f);
+  unsigned char* image =
+      reinterpret_cast<unsigned char*>(scratch + copy_floats);
+  float* slots = scratch + copy_floats + image_floats;
+  float* discard = slots + slot_floats;
+  if (steps < 1 || (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
+      scratch_floats < copy_floats + image_floats + slot_floats + 1 ||
+      cards.slots[cards.me] != slots) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = enable_peers(devices, cards.cards);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int gb = 0;
+  err = persistent_grid(reinterpret_cast<const void*>(model_cards_kernel<FP>),
+                        &gb);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (stamps != nullptr && stamps_len < 1LL * kCardStamps * steps * gb) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!launch) return static_cast<int>(cudaSuccess);
+  int resident_tiles = 0;
+  size_t smem = 0;
+  shared_plan<FP>(card_block_tiles(table, cards, gb), &resident_tiles, &smem,
+                  fold_work_bytes(FP));
+  float count = model_count(n_total, f);
+  float inv_count = 1.0f / count;
+  void* args[] = {const_cast<ModelTable*>(&table), const_cast<Halves*>(&hv),
+                  const_cast<Cards*>(&cards), &sigma, &image, &losses,
+                  &discard, &lr, &count, &inv_count, &f, &steps,
+                  &half_slots, &resident_tiles, &stamps};
+  err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(model_cards_kernel<FP>), dim3(gb),
+      dim3(kFitThreads), args, smem, s);
+  if (err != cudaSuccess) cudaGetLastError();   // clear what we report
+  return static_cast<int>(err);
+}
+
+// The data blocks' table (blocks x 4 int64: x, noise, the noise's step
+// stride, n_d) -> t and the batch's rows; x and noise are needed only of
+// the blocks `held` marks (all, where it is null).  -> false if invalid.
+inline bool parse_table(const long long* table, int blocks, int f,
+                        const bool* held, ModelTable* t, int* n) {
+  *t = {};
+  t->blocks = blocks;
+  long long n_total = 0;
+  int slot = 0;
+  for (int d = 0; d < blocks; ++d) {
+    const long long* e = table + 4 * d;
+    t->x[d] = reinterpret_cast<const float*>(static_cast<uintptr_t>(e[0]));
+    t->noise[d] = reinterpret_cast<const float*>(static_cast<uintptr_t>(e[1]));
+    t->stride[d] = e[2];
+    if (e[3] < 1 || e[3] > (1 << 30)) return false;
+    if ((held == nullptr || held[d]) &&
+        (t->x[d] == nullptr || t->noise[d] == nullptr || e[2] < e[3] * f)) {
+      return false;
+    }
+    t->rows[d] = static_cast<int>(e[3]);
+    t->slot0[d] = slot;
+    slot += fit_slots(t->rows[d]);
+    n_total += e[3];
+    if (n_total > (1 << 30)) return false;
+  }
+  *n = static_cast<int>(n_total);
+  return true;
+}
+
+inline float* as_floats(long long p) {
+  return reinterpret_cast<float*>(static_cast<uintptr_t>(p));
 }
 
 }  // namespace anomaly
@@ -1138,30 +1531,16 @@ extern "C" int anomaly_fit_model_fit(const long long* table, int blocks,
       blocks > kMaxData || f < 1 || f > 64) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  ModelTable t = {};
-  t.blocks = blocks;
-  long long n_total = 0;
-  int slot = 0;
-  for (int d = 0; d < blocks; ++d) {
-    const long long* e = table + 4 * d;
-    t.x[d] = reinterpret_cast<const float*>(static_cast<uintptr_t>(e[0]));
-    t.noise[d] = reinterpret_cast<const float*>(static_cast<uintptr_t>(e[1]));
-    t.stride[d] = e[2];
-    if (t.x[d] == nullptr || t.noise[d] == nullptr || e[3] < 1 ||
-        e[3] > (1 << 30) || e[2] < e[3] * f) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    t.rows[d] = static_cast<int>(e[3]);
-    t.slot0[d] = slot;
-    slot += fit_slots(t.rows[d]);
-    n_total += e[3];
-    if (n_total > (1 << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  ModelTable t;
+  int n = 0;
+  if (!parse_table(table, blocks, f, nullptr, &t, &n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   Halves hv = {};
   for (int h = 0; h < kModel; ++h) {
     float* p[4];
     for (int i = 0; i < 4; ++i) {
-      p[i] = reinterpret_cast<float*>(static_cast<uintptr_t>(halves[4 * h + i]));
+      p[i] = as_floats(halves[4 * h + i]);
       if (p[i] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     }
     hv.w_enc[h] = p[0];
@@ -1169,7 +1548,6 @@ extern "C" int anomaly_fit_model_fit(const long long* table, int blocks,
     hv.w_dec[h] = p[2];
     hv.b_dec[h] = p[3];
   }
-  const int n = static_cast<int>(n_total);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((f + 15) / 16) {
     case 1:
@@ -1184,5 +1562,116 @@ extern "C" int anomaly_fit_model_fit(const long long* table, int blocks,
     default:
       return model_fit<64>(t, hv, n, sigma, scratch, scratch_floats, losses,
                            lr, f, steps, stamps, stamps_len, s);
+  }
+}
+
+// The fit over the cards of a host (the cards route), called once per card
+// with the current device that card, first with `launch` 0 for each card
+// (every check, the peer access and the grid, no launch), then with 1:
+// `blocks` data blocks in `table` as the fold takes them (x and noise
+// pointers on this card, 0 for a block whose shards it holds none of);
+// `shard_cards` 2 x blocks int64, the card (0 .. cards - 1) of each shard
+// in shard order; `halves` 8 int64, this card's params of half 0, then
+// half 1 (w_enc, b_enc, w_dec, b_dec), all 0 for a half it holds none of,
+// whose params `sources` (8 int64, 0 for a half held here) names on a peer;
+// `peers` cards x 3 int64, each card's device ordinal, slots (its
+// scratch's, below) and flags (kMaxCards uint64, zero before the first
+// launch); `me` this card; `epoch` the barriers that earlier launches over
+// these flags passed (steps + 2 a launch).  Scratch: `scratch_floats`
+// floats at a 16-byte aligned `scratch`: the copy of the halves held on
+// peers (cards_copy_floats(f)), both halves' images, two parities of both
+// halves' slots, one float.  `losses` (steps floats, on one card; null on
+// the others) gets each step's loss.  `stamps` is null, or `stamps_len`
+// int64s for a trace: [steps][kCardStamps][the SM count].
+extern "C" int anomaly_fit_model_cards(
+    const long long* table, int blocks, const long long* shard_cards,
+    const long long* halves, const long long* sources,
+    const long long* peers, int cards, int me, long long epoch, float sigma,
+    float* scratch, long long scratch_floats, float* losses, float lr,
+    int f, int steps, long long* stamps, long long stamps_len, int launch,
+    void* stream) {
+  using namespace anomaly;
+  if (table == nullptr || shard_cards == nullptr || halves == nullptr ||
+      sources == nullptr || peers == nullptr || blocks < 1 ||
+      blocks > kMaxData || cards < 1 || cards > kMaxCards || me < 0 ||
+      me >= cards || epoch < 0 || f < 1 || f > 64 || scratch == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int card_of[kModel * kMaxData];
+  bool held[kMaxData] = {};
+  for (int i = 0; i < kModel * blocks; ++i) {
+    if (shard_cards[i] < 0 || shard_cards[i] >= cards) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    card_of[i] = static_cast<int>(shard_cards[i]);
+    if (card_of[i] == me) held[i / kModel] = true;
+  }
+  ModelTable t;
+  int n = 0;
+  if (!parse_table(table, blocks, f, held, &t, &n)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Cards c = {};
+  c.cards = cards;
+  c.me = me;
+  c.epoch = static_cast<unsigned long long>(epoch);
+  int devices[kMaxCards];
+  for (int k = 0; k < cards; ++k) {
+    devices[k] = static_cast<int>(peers[3 * k]);
+    c.slots[k] = as_floats(peers[3 * k + 1]);
+    c.flags[k] = reinterpret_cast<unsigned long long*>(
+        static_cast<uintptr_t>(peers[3 * k + 2]));
+    if (c.slots[k] == nullptr || c.flags[k] == nullptr) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (devices[me] != device) return static_cast<int>(cudaErrorInvalidValue);
+  card_items(t, card_of, me, &c);
+  Halves hv = {};
+  for (int h = 0; h < kModel; ++h) {
+    int own = 0;
+    int peer = 0;
+    for (int i = 0; i < 4; ++i) {
+      own += halves[4 * h + i] != 0;
+      peer += sources[4 * h + i] != 0;
+    }
+    float* p[4];
+    if (own == 4 && peer == 0) {
+      for (int i = 0; i < 4; ++i) p[i] = as_floats(halves[4 * h + i]);
+    } else if (own == 0 && peer == 4) {   // this card's copy, in scratch
+      p[0] = scratch + h * (half_floats(f) - 1);
+      p[1] = p[0] + f * kHalf;
+      p[2] = p[1] + kHalf;
+      p[3] = p[2] + kHalf * f;
+      for (int i = 0; i < 4; ++i) c.src[h][i] = as_floats(sources[4 * h + i]);
+    } else {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    hv.w_enc[h] = p[0];
+    hv.b_enc[h] = p[1];
+    hv.w_dec[h] = p[2];
+    hv.b_dec[h] = p[3];
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((f + 15) / 16) {
+    case 1:
+      return model_cards<16>(t, hv, c, devices, n, sigma, scratch,
+                             scratch_floats, losses, lr, f, steps, stamps,
+                             stamps_len, launch != 0, s);
+    case 2:
+      return model_cards<32>(t, hv, c, devices, n, sigma, scratch,
+                             scratch_floats, losses, lr, f, steps, stamps,
+                             stamps_len, launch != 0, s);
+    case 3:
+      return model_cards<48>(t, hv, c, devices, n, sigma, scratch,
+                             scratch_floats, losses, lr, f, steps, stamps,
+                             stamps_len, launch != 0, s);
+    default:
+      return model_cards<64>(t, hv, c, devices, n, sigma, scratch,
+                             scratch_floats, losses, lr, f, steps, stamps,
+                             stamps_len, launch != 0, s);
   }
 }

@@ -7,9 +7,12 @@ K5's) from this package's ``csrc/`` and from the directory OTHER_CSRC
 (say, another commit's ``clawker_tpu_torch/kernels/csrc`` unpacked with
 ``git archive``) with ``build.NVCC_FLAGS``, one ``nvcc`` per library, all
 started together; disassembles both with ``cuobjdump -sass`` and prints,
-for each source, its kernels and whether the two trees give the same
-instructions.  Exits 1 if any differ.  A change to a shared header that
-must leave those kernels as they were is held to it here.  Needs the CUDA
+for each source, whether the two trees give the same instructions, and
+kernel by kernel which are the same, which differ, and which only this
+tree has.  Exits 1 if a kernel of the other tree is missing here or
+differs.  A change to a shared header that must leave those kernels as
+they were is held to it here; a source that gains a kernel is held to
+its old ones.  Needs the CUDA
 toolkit (``nvcc``, ``cuobjdump``), so it runs on the machine with the
 card; nothing runs at import.
 """
@@ -43,6 +46,16 @@ def sass(csrc: Path, source: str, out: Path) -> str:
                      if not line.startswith("Fatbin") and "file" not in line)
 
 
+def kernels(text: str) -> dict[str, str]:
+    """``cuobjdump -sass`` text -> each kernel's (mangled name's) SASS,
+    each line's runs of blanks made one (cuobjdump pads its columns to
+    the widest line of the whole library)."""
+    parts = re.split(r"\n\s*Function : (\S+)\n", "\n" + text)
+    return {name: "\n".join(" ".join(line.split())
+                            for line in body.strip().splitlines())
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
 def main(argv: list[str]) -> int:
     if not argv:
         print("usage: python -m clawker_tpu_torch.kernels.sass_diff "
@@ -59,13 +72,16 @@ def main(argv: list[str]) -> int:
             got = list(pool.map(lambda job: sass(*job), jobs))
     same = True
     for k, source in enumerate(sources):
-        mine, theirs = got[k], got[len(sources) + k]
-        kernels = len(re.findall(r"Function : ", mine))
-        equal = mine == theirs
-        same &= equal
-        print(f"SASS {source}: {kernels} kernels, {len(mine.splitlines())} "
-              f"lines, {'the same as' if equal else 'NOT the same as'} "
-              f"{other}'s")
+        mine, theirs = kernels(got[k]), kernels(got[len(sources) + k])
+        differ = sorted(n for n in theirs if mine.get(n) != theirs[n])
+        new = sorted(set(mine) - set(theirs))
+        same &= not differ
+        print(f"SASS {source}: {len(mine)} kernels, "
+              f"{len(got[k].splitlines())} lines; of {other}'s "
+              f"{len(theirs)}, {len(theirs) - len(differ)} the same"
+              + "".join(f"\n  NOT the same (or missing): {n}"
+                        for n in differ)
+              + "".join(f"\n  new: {n}" for n in new))
     return 0 if same else 1
 
 

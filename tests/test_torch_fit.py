@@ -152,7 +152,8 @@ def test_cpu_fit_leaves_launch_counters_at_zero():
                           K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                           K.FIT_SHARD_REDUCE: 0,
                           K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
-                          K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
+                          K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0,
+                          K.FIT_MODEL_CARDS: 0}
 
 
 def test_runtime_fit_is_one_fit_call(monkeypatch):

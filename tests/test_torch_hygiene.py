@@ -378,7 +378,8 @@ def test_default_device_raises_instead_of_running_on_cpu(tmp_path):
                                "anomaly_fit_model_fit": 0,
                                "anomaly_fit_model_forward": 0,
                                "anomaly_fit_model_partials": 0,
-                               "anomaly_fit_model_reduce": 0}
+                               "anomaly_fit_model_reduce": 0,
+                               "anomaly_fit_model_cards": 0}
 
 
 @pytest.mark.parametrize("module", ["clawker_tpu_torch.graft_entry",
@@ -742,7 +743,8 @@ def test_cpu_tensor_calls_leave_launch_counters_at_zero():
                                 "anomaly_fit_model_fit": 0,
                                 "anomaly_fit_model_forward": 0,
                                 "anomaly_fit_model_partials": 0,
-                                "anomaly_fit_model_reduce": 0},
+                                "anomaly_fit_model_reduce": 0,
+                                "anomaly_fit_model_cards": 0},
                    "built": []}
 
 

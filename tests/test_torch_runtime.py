@@ -228,7 +228,8 @@ class TestScorerTwins:
                               K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                               K.FIT_SHARD_REDUCE: 0,
                               K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
-                              K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
+                              K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0,
+                              K.FIT_MODEL_CARDS: 0}
 
 
 class TestWatchTailTwins:
@@ -308,7 +309,8 @@ class TestDefaultDevice:
                               K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                               K.FIT_SHARD_REDUCE: 0,
                               K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
-                              K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
+                              K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0,
+                              K.FIT_MODEL_CARDS: 0}
 
     def test_watch_reports_the_error_instead_of_scoring(self, tmp_path):
         errors = []

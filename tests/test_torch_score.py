@@ -123,7 +123,8 @@ def test_cpu_score_is_the_plain_version_and_launches_nothing(feat):
                           K.FIT_SHARD: 0, K.FIT_SHARD_PARTIALS: 0,
                           K.FIT_SHARD_REDUCE: 0,
                           K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
-                          K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
+                          K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0,
+                          K.FIT_MODEL_CARDS: 0}
 
 
 # chip_smoke holds K1's mean score against K2's noise-free step-0 loss on

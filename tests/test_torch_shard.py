@@ -50,7 +50,8 @@ CPU = "cpu"
 ZERO_LAUNCHES = {K.SCORE: 0, K.FIT_STEP: 0, K.FIT: 0, K.FIT_SHARD: 0,
                  K.FIT_SHARD_PARTIALS: 0, K.FIT_SHARD_REDUCE: 0,
                  K.FIT_MODEL: 0, K.FIT_MODEL_FORWARD: 0,
-                 K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0}
+                 K.FIT_MODEL_PARTIALS: 0, K.FIT_MODEL_REDUCE: 0,
+                 K.FIT_MODEL_CARDS: 0}
 
 
 def _jax_params(arrays):
